@@ -3,19 +3,28 @@
 A second package beside :mod:`spgpu_tpu` (the JAX reference, which it
 never imports).  It carries its own NumPy host side (COO, fixtures,
 converters, format selection), binds the same C++ layout helpers, and
-runs the packed-WHELL main path on the GPU:
+runs two routes on the GPU, each through a hand CUDA kernel:
 
     host COO → convert.coo_to_whell (packed) → ops.whell_spmv in lane
-    space (hand CUDA kernel, kernels/whell.py) → solvers.cg
+    space (kernels/whell.py) → solvers.cg / bicgstab
+    host COO → convert.coo_to_sdia | coo_to_whdia → ops.sdia_spmv |
+    whdia_spmv (kernels/sdia.py, kernels/whdia.py) → solvers.cg / bicgstab
+
+``solvers.solve`` picks the route by format selection.
 
 Every function takes an explicit ``device``; CPU tensors run the plain
 PyTorch version of each kernel.
 """
 
 from spgpu_tpu_torch import convert, core, formats, kernels, ops, solvers, utils  # noqa: F401
-from spgpu_tpu_torch.convert import coo_to_whell, suggest_format  # noqa: F401
-from spgpu_tpu_torch.formats import CooMatrix, WhellMatrix  # noqa: F401
-from spgpu_tpu_torch.ops import whell_spmv  # noqa: F401
+from spgpu_tpu_torch.convert import (  # noqa: F401
+    coo_to_sdia,
+    coo_to_whdia,
+    coo_to_whell,
+    suggest_format,
+)
+from spgpu_tpu_torch.formats import CooMatrix, SdiaMatrix, WhdiaMatrix, WhellMatrix  # noqa: F401
+from spgpu_tpu_torch.ops import sdia_spmv, whdia_spmv, whell_spmv  # noqa: F401
 from spgpu_tpu_torch.solvers import solve  # noqa: F401
 
 __version__ = "0.1.0"

@@ -11,10 +11,11 @@ from __future__ import annotations
 
 import enum
 
+import numpy as np
 import torch
 
 __all__ = ["Status", "TypeCode", "size_of", "LANES", "CHUNK_TILES",
-           "round_up", "cdiv", "require_cuda"]
+           "round_up", "cdiv", "require_cuda", "require_float32"]
 
 
 class Status(enum.IntEnum):
@@ -76,3 +77,19 @@ def require_cuda() -> torch.device:
         raise RuntimeError("a CUDA device is required (torch.cuda.is_available() "
                            "is False)")
     return torch.device("cuda", 0)
+
+
+def require_float32(dtype, layout: str) -> None:
+    """Raise ``NotImplementedError`` unless ``dtype`` (NumPy) is float32:
+    the layout's other value types are later slices of the port."""
+    dtype = np.dtype(dtype)
+    if dtype == np.float32:
+        return
+    if dtype == np.float64:
+        later = "float64 is ROADMAP module item 5"
+    elif np.issubdtype(dtype, np.complexfloating):
+        later = "complex values are ROADMAP module item 6"
+    else:
+        later = "other value types are not ported (ROADMAP module item 4)"
+    raise NotImplementedError(
+        f"{layout} in the port takes float32 values, not {dtype}: {later}")

@@ -1,0 +1,114 @@
+// Windowed hacked DIA (WHDIA) SpMV on Hopper (sm_90a), with a plain C
+// interface for ctypes.
+//
+// Replaces spgpu_tpu/ops/pallas_kernels.py::_whdia_kernel (body
+// _whdia_kernel_body, r0 unpacking _whdia_tile_r0; called through
+// _whdia_spmv_call and whdia_spmv_pallas).  It computes the same product
+// on the same layout arrays (spgpu_tpu_torch/formats/whdia.py):
+//
+//   for every cell (slot s, lane j) of tile t = s / 8:
+//     base = tile_base[t] & 0xFFFF,  hh = tile_base[t] >> 16
+//     r0   = slot_r0[s]                                     (slab mode)
+//          = r00 + step*min(s % 8, F-1) from tile_r0[t]     (pattern mode)
+//     hack = chunk_group[t / chunk_tiles] * group_hacks + hh
+//     z[hack*128 + j] += values[s, j] * x[base*128 + r0 + j]
+//
+// with x[c] read as 0 outside [0, n_cols).  The TPU kernel reaches x
+// through a window-clamped rotation of VMEM-resident pages; for every
+// nonzero cell the column base*128 + r0 + j is the cell's own column, and
+// dead slots and diagonal ends hold 0, so the direct guarded read gives
+// the same product for finite x.
+//
+// Bound on the H100: the value slab streams once, 4 B per cell (+2 B per
+// slot of r0 in slab mode), and the chunk padding tiles stream too.  On
+// the 1,048,576-row 2-D Laplacian the layout is 16,384 tiles, 64 MiB of
+// values (3.2 cells per nonzero), about 20 us at 3.35 TB/s; x (4 MiB) and
+// z (4 MiB) stay in the 50 MB L2.
+//
+// What the design does about it: kernel #1's tile pass, without pages.
+// One 128-thread block per tile; thread j reads its lane of the 8 slots
+// (coalesced), gathers x at the slot's contiguous shifted run (coalesced,
+// from L2), sums in a register and issues one atomicAdd into the zeroed
+// row hack*128 + j.  WHDIA has no lane segments, so there is no flush
+// pass.  Atomic order varies, so results are not bit-reproducible.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kLanes = 128;
+constexpr int kSlots = 8;
+
+template <bool kPattern>
+__global__ void __launch_bounds__(kLanes)
+whdia_tile_pass(const float* __restrict__ values,
+                const int16_t* __restrict__ slot_r0,
+                const int32_t* __restrict__ tile_r0,
+                const int32_t* __restrict__ tile_base,
+                const int32_t* __restrict__ chunk_group,
+                const float* __restrict__ x, float* __restrict__ z,
+                int64_t n_cols, int chunk_tiles, int group_hacks) {
+  const int64_t t = blockIdx.x;
+  const int j = threadIdx.x;
+  const uint32_t meta = static_cast<uint32_t>(tile_base[t]);
+  const int64_t c0 = static_cast<int64_t>(meta & 0xFFFFu) * kLanes + j;
+  int r00 = 0, f1 = 0, step = 0;
+  if constexpr (kPattern) {
+    // the word as _whdia_tile_r0 unpacks it: mask, logical shift, bias
+    const uint32_t w = static_cast<uint32_t>(tile_r0[t]);
+    r00 = static_cast<int>(w & 0xFFFFu) - 1024;
+    f1 = static_cast<int>((w >> 16) & 0x7u);
+    step = static_cast<int>((w >> 19) & 0x1FFFu) - 4096;
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int64_t slot = t * kSlots + s;
+    int r0;
+    if constexpr (kPattern)
+      r0 = r00 + step * min(s, f1);
+    else
+      r0 = slot_r0[slot];
+    const int64_t c = c0 + r0;
+    const float v = __ldg(values + slot * kLanes + j);
+    if (c >= 0 && c < n_cols) sum = fmaf(v, __ldg(x + c), sum);
+  }
+  const int64_t hack =
+      static_cast<int64_t>(chunk_group[t / chunk_tiles]) * group_hacks + (meta >> 16);
+  atomicAdd(z + hack * kLanes + j, sum);
+}
+
+}  // namespace
+
+extern "C" {
+
+// z (num_groups*group_hacks*128 fp32, zeroed by the caller) += WHDIA
+// product of the slab and x (n_cols fp32).  Exactly one of slot_r0 (slab
+// mode) and tile_r0 (pattern mode) is non-null.  Launches on `stream`,
+// does not synchronise, and returns cudaGetLastError().
+int whdia_spmv(const void* values, const void* slot_r0, const void* tile_r0,
+               const void* tile_base, const void* chunk_group, const void* x,
+               void* z, int64_t num_tiles, int64_t n_cols, int chunk_tiles,
+               int group_hacks, void* stream) {
+  if (num_tiles > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const dim3 grid(static_cast<unsigned>(num_tiles));
+    auto* v = static_cast<const float*>(values);
+    auto* sr = static_cast<const int16_t*>(slot_r0);
+    auto* tr = static_cast<const int32_t*>(tile_r0);
+    auto* tb = static_cast<const int32_t*>(tile_base);
+    auto* cg = static_cast<const int32_t*>(chunk_group);
+    auto* xf = static_cast<const float*>(x);
+    auto* zf = static_cast<float*>(z);
+    if (tr != nullptr)
+      whdia_tile_pass<true><<<grid, kLanes, 0, st>>>(
+          v, sr, tr, tb, cg, xf, zf, n_cols, chunk_tiles, group_hacks);
+    else
+      whdia_tile_pass<false><<<grid, kLanes, 0, st>>>(
+          v, sr, tr, tb, cg, xf, zf, n_cols, chunk_tiles, group_hacks);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,4 +1,6 @@
-"""Matrix formats: host COO and the packed WHELL compute layout."""
+"""Matrix formats: host COO and the WHELL, SDIA and WHDIA compute layouts."""
 
 from spgpu_tpu_torch.formats.coo import CooMatrix  # noqa: F401
+from spgpu_tpu_torch.formats.dia import SdiaMatrix  # noqa: F401
+from spgpu_tpu_torch.formats.whdia import WhdiaMatrix  # noqa: F401
 from spgpu_tpu_torch.formats.whell import WhellMatrix, from_numpy_fields  # noqa: F401

@@ -1,0 +1,113 @@
+"""SDIA (static-offset DIA) layout as a dataclass of torch tensors.
+
+Counterpart of :class:`spgpu_tpu.formats.dia.SdiaMatrix`; the arrays are
+the same, cell for cell.  ``values`` is ``(n_diags, n_tiles*8, 128)``:
+plane ``j`` holds diagonal ``offsets[j]`` with row ``r`` at flat index
+``r`` (tiles of 1024 rows), so ``A[r, r + offsets[j]] = values[j].flat[r]``.
+Offsets ascend; cells whose column falls outside ``[0, n_cols)`` are 0.
+
+The JAX kernel compiles the offsets into the program.  The CUDA kernel
+reads them from ``offset_table``, a small int32 copy on the device that it
+stages through shared memory, as spGPU's DIA kernel stages its offset
+list (``dia_spmv_base_template.cuh:35-49``).  ``offsets`` stays a tuple
+of Python ints for the host side.  Only float32 values are ported: the
+double-float planes (``values_lo``) and complex planes are not.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+__all__ = ["SdiaMatrix", "from_numpy_fields"]
+
+
+@dataclasses.dataclass
+class SdiaMatrix:
+    values: torch.Tensor  # (max(n_diags, 1), n_tiles*8, 128) float32
+    offset_table: torch.Tensor  # (n_diags,) int32, the offsets on the device
+    offsets: tuple  # ascending Python ints
+    n_rows: int
+    n_cols: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    @property
+    def shape(self):
+        return (self.n_rows, self.n_cols)
+
+    @property
+    def n_diags(self) -> int:
+        return len(self.offsets)
+
+    @property
+    def n_tiles(self) -> int:
+        return self.values.shape[1] // 8
+
+    def to(self, device) -> "SdiaMatrix":
+        """A copy with every tensor on ``device``."""
+        return dataclasses.replace(self, values=self.values.to(device),
+                                   offset_table=self.offset_table.to(device))
+
+    def to_dense(self) -> np.ndarray:
+        """Host densification (testing helper)."""
+        vals = self.values.detach().cpu().numpy().reshape(self.values.shape[0], -1)
+        out = np.zeros((self.n_rows, self.n_cols), dtype=vals.dtype)
+        rows = np.arange(self.n_rows)
+        for j, off in enumerate(self.offsets):
+            cols = rows + off
+            sel = (cols >= 0) & (cols < self.n_cols)
+            out[rows[sel], cols[sel]] = vals[j, : self.n_rows][sel]
+        return out
+
+    def check(self) -> None:
+        """Validate shapes, dtypes and the offset table; raises
+        ``ValueError``."""
+        nd = self.n_diags
+        v = self.values
+
+        def want(cond, msg):
+            if not cond:
+                raise ValueError(f"invalid SdiaMatrix: {msg}")
+
+        want(v.dtype == torch.float32, f"values dtype {v.dtype}")
+        want(v.dim() == 3 and v.shape[0] == max(nd, 1) and v.shape[2] == 128
+             and v.shape[1] % 8 == 0, f"values shape {tuple(v.shape)}")
+        want(v.shape[1] * 128 >= self.n_rows, "values planes shorter than n_rows")
+        want(self.offset_table.dtype == torch.int32
+             and tuple(self.offset_table.shape) == (nd,), "offset_table")
+        want(self.offset_table.device == v.device, "offset_table device")
+        want(self.offset_table.cpu().tolist() == list(self.offsets),
+             "offset_table differs from offsets")
+        want(all(a < b for a, b in zip(self.offsets, self.offsets[1:])),
+             "offsets must ascend")
+
+
+def make(values: np.ndarray, offsets, n_rows: int, n_cols: int) -> SdiaMatrix:
+    """An :class:`SdiaMatrix` on the CPU from float32 planes and offsets."""
+    offsets = tuple(int(o) for o in offsets)
+    return SdiaMatrix(
+        values=torch.from_numpy(np.ascontiguousarray(values, dtype=np.float32)),
+        offset_table=torch.tensor(offsets, dtype=torch.int32),
+        offsets=offsets, n_rows=int(n_rows), n_cols=int(n_cols))
+
+
+def from_numpy_fields(values: np.ndarray, offsets, n_rows: int, n_cols: int,
+                      values_lo=None) -> SdiaMatrix:
+    """Build the port's :class:`SdiaMatrix` from a JAX ``SdiaMatrix``'s
+    fields (``np.asarray(a.values)``, ``a.offsets``, shape, ``values_lo``).
+
+    Double-float planes raise ``NotImplementedError``.  The result lies
+    on the CPU and has passed :meth:`SdiaMatrix.check`; move it with
+    :meth:`SdiaMatrix.to`."""
+    if values_lo is not None:
+        raise NotImplementedError(
+            "double-float SDIA planes are not ported; float64 runs natively "
+            "in a later slice (ROADMAP module item 5)")
+    a = make(np.array(values), offsets, n_rows, n_cols)
+    a.check()
+    return a

@@ -1,5 +1,5 @@
 """Hand-written GPU kernels, each beside its plain PyTorch version and a
 launch counter.  Sources live in ``spgpu_tpu_torch/csrc/`` and are built
-on first launch."""
+on first launch (:mod:`spgpu_tpu_torch.kernels._build`)."""
 
-from spgpu_tpu_torch.kernels import whell  # noqa: F401
+from spgpu_tpu_torch.kernels import sdia, whdia, whell  # noqa: F401

@@ -1,0 +1,135 @@
+"""Kernel #3: the windowed hacked DIA (WHDIA) SpMV, hand-written in CUDA C++.
+
+Replaces ``spgpu_tpu/ops/pallas_kernels.py::_whdia_kernel`` (both r0
+modes).  The source is ``spgpu_tpu_torch/csrc/whdia_spmv.cu`` (its header
+note gives the design and its bound), built on first launch by
+:mod:`spgpu_tpu_torch.kernels._build`.
+
+:func:`whdia_spmv` launches the kernel for CUDA tensors (or raises) and
+runs :func:`whdia_spmv_plain`, the plain PyTorch version of the same
+function, for CPU tensors.  ``LAUNCHES`` counts the kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from spgpu_tpu_torch.kernels._build import CudaLibrary
+
+__all__ = ["LAUNCHES", "SOURCE", "build", "whdia_spmv", "whdia_spmv_plain"]
+
+#: kernel launches so far (the CPU path does not count)
+LAUNCHES = 0
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.whdia_spmv.restype = ctypes.c_int
+    lib.whdia_spmv.argtypes = [p, p, p, p, p, p, p, i64, i64, i32, i32, p]
+
+
+_LIB = CudaLibrary("whdia_spmv", _bind)
+SOURCE = _LIB.source
+build = _LIB.build
+
+
+def _check_args(values, slot_r0, tile_r0, tile_base, chunk_group, x,
+                chunk_tiles):
+    S = values.shape[0]
+    T = tile_base.shape[0]
+    want = [
+        (values.dtype == torch.float32 and values.shape == (S, 128)
+         and S == 8 * T, "values"),
+        ((slot_r0 is None) != (tile_r0 is None),
+         "r0: give exactly one of slot_r0 and tile_r0"),
+        (slot_r0 is None or (slot_r0.dtype == torch.int16
+                             and slot_r0.shape == (S,)), "slot_r0"),
+        (tile_r0 is None or (tile_r0.dtype == torch.int32
+                             and tile_r0.shape == (T,)), "tile_r0"),
+        (tile_base.dtype == torch.int32 and chunk_tiles > 0
+         and T % chunk_tiles == 0, "tile_base"),
+        (chunk_group.dtype == torch.int32
+         and chunk_group.shape == (T // chunk_tiles,), "chunk_group"),
+        (x.dim() == 1 and x.dtype == torch.float32, "x must be (n_cols,) float32"),
+    ]
+    for ok, what in want:
+        if not ok:
+            raise ValueError(f"whdia_spmv: bad {what}")
+    ts = [t for t in (values, slot_r0, tile_r0, tile_base, chunk_group, x)
+          if t is not None]
+    if any(t.device != x.device for t in ts):
+        raise ValueError("whdia_spmv: all operands must be on one device")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("whdia_spmv: operands must be contiguous")
+
+
+def whdia_spmv(values, slot_r0: Optional[torch.Tensor],
+               tile_r0: Optional[torch.Tensor], tile_base, chunk_group,
+               x, *, chunk_tiles: int, group_hacks: int,
+               num_groups: int) -> torch.Tensor:
+    """WHDIA product ``(num_groups*group_hacks*128,)`` float32 (row ``r``
+    at index ``r``) of the slab and ``x`` ``(n_cols,)``.
+
+    Give ``slot_r0`` (slab mode) or ``tile_r0`` (pattern mode).  CUDA
+    tensors launch the hand kernel (and count in ``LAUNCHES``); CPU
+    tensors run :func:`whdia_spmv_plain`.  Any other device raises.  The
+    layout arrays are trusted as built by the converter or checked by
+    ``WhdiaMatrix.check``; shapes, dtypes and devices are checked here."""
+    global LAUNCHES
+    _check_args(values, slot_r0, tile_r0, tile_base, chunk_group, x,
+                chunk_tiles)
+    dev = x.device
+    if dev.type == "cpu":
+        return whdia_spmv_plain(values, slot_r0, tile_r0, tile_base,
+                                chunk_group, x, chunk_tiles=chunk_tiles,
+                                group_hacks=group_hacks, num_groups=num_groups)
+    if dev.type != "cuda":
+        raise ValueError(f"whdia_spmv: no kernel for device {dev}")
+    lib = _LIB.load()
+    z = torch.zeros(num_groups * group_hacks * 128, dtype=torch.float32,
+                    device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.whdia_spmv(
+        values.data_ptr(), None if slot_r0 is None else slot_r0.data_ptr(),
+        None if tile_r0 is None else tile_r0.data_ptr(), tile_base.data_ptr(),
+        chunk_group.data_ptr(), x.data_ptr(), z.data_ptr(),
+        tile_base.shape[0], x.shape[0], chunk_tiles, group_hacks, stream)
+    if err != 0:
+        raise RuntimeError(f"whdia_spmv launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return z
+
+
+def whdia_spmv_plain(values, slot_r0, tile_r0, tile_base, chunk_group, x, *,
+                     chunk_tiles: int, group_hacks: int,
+                     num_groups: int) -> torch.Tensor:
+    """The same product in plain PyTorch, on the operands' device: decode
+    r0, gather x with the ``[0, n_cols)`` guard, sum over each tile's 8
+    slots, then ``index_add_`` into the rows."""
+    dev = x.device
+    T = tile_base.shape[0]
+    meta = tile_base.long()
+    if slot_r0 is not None:
+        r0 = slot_r0.long().view(T, 8)
+    else:
+        w = tile_r0.long() & 0xFFFFFFFF
+        r00 = (w & 0xFFFF) - 1024
+        f1 = (w >> 16) & 0x7
+        step = ((w >> 19) & 0x1FFF) - 4096
+        s = torch.arange(8, device=dev)
+        r0 = r00[:, None] + step[:, None] * torch.minimum(s[None, :], f1[:, None])
+    n_cols = x.shape[0]
+    col = (((meta & 0xFFFF) * 128)[:, None] + r0)[:, :, None] \
+        + torch.arange(128, device=dev)
+    col = torch.where((col >= 0) & (col < n_cols), col, n_cols)
+    xz = torch.cat([x, x.new_zeros(1)])  # index n_cols reads 0
+    tile_sum = (values.view(T, 8, 128) * xz[col]).sum(dim=1)
+    hack = chunk_group.long()[torch.arange(T, device=dev) // chunk_tiles] \
+        * group_hacks + (meta >> 16)
+    z = torch.zeros((num_groups * group_hacks, 128), dtype=torch.float32,
+                    device=dev)
+    z.index_add_(0, hack, tile_sum)
+    return z.view(-1)

@@ -4,7 +4,8 @@ Replaces ``spgpu_tpu/ops/pallas_kernels.py::_whell_packed_kernel``.  The
 source is ``spgpu_tpu_torch/csrc/whell_packed_spmv.cu`` (its header note
 gives the design and its bound).  It is compiled with ``nvcc`` for
 ``sm_90a`` into ``spgpu_tpu_torch/_build/`` on first launch and bound
-through ``ctypes``; nothing is built when this module is imported.
+through ``ctypes`` (:mod:`spgpu_tpu_torch.kernels._build`); nothing is
+built when this module is imported.
 
 :func:`whell_packed_spmv` launches the kernel for CUDA tensors (or
 raises) and runs :func:`whell_packed_spmv_plain`, the plain PyTorch
@@ -15,16 +16,11 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
-import time
 from typing import Optional
 
 import torch
 
-from spgpu_tpu_torch.native import BUILD_DIR
+from spgpu_tpu_torch.kernels._build import CudaLibrary
 
 __all__ = ["LAUNCHES", "SOURCE", "build", "whell_packed_spmv",
            "whell_packed_spmv_plain"]
@@ -32,55 +28,17 @@ __all__ = ["LAUNCHES", "SOURCE", "build", "whell_packed_spmv",
 #: kernel launches so far (the CPU path does not count)
 LAUNCHES = 0
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                      "csrc", "whell_packed_spmv.cu")
-_SO = os.path.join(BUILD_DIR, "libwhell_packed_spmv.so")
-_lock = threading.Lock()
-_lib = None
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.whell_packed_spmv.restype = ctypes.c_int
+    lib.whell_packed_spmv.argtypes = [
+        p, i32, p, p, p, p, p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, p]
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA "
-                       "kernels are built from source on first launch")
-
-
-def build() -> tuple:
-    """Compile the kernel library if it is missing or older than its
-    source.  Returns ``(seconds, ptxas_log)``; ``(0.0, "")`` when up to
-    date."""
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(SOURCE):
-        return 0.0, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, SOURCE]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, _SO)
-    return time.perf_counter() - t0, proc.stderr
-
-
-def _load():
-    global _lib
-    with _lock:
-        if _lib is None:
-            build()
-            lib = ctypes.CDLL(_SO)
-            p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            lib.whell_packed_spmv.restype = ctypes.c_int
-            lib.whell_packed_spmv.argtypes = [
-                p, i32, p, p, p, p, p, p, p, p, p, p,
-                i64, i64, i32, i32, i32, i32, p]
-            _lib = lib
-        return _lib
+_LIB = CudaLibrary("whell_packed_spmv", _bind)
+SOURCE = _LIB.source
+build = _LIB.build
 
 
 def _check_args(values, residue, page_tab, tile_base, chunk_group,
@@ -141,7 +99,7 @@ def whell_packed_spmv(values, residue, page_tab, tile_base, chunk_group,
             unit_segments=unit_segments)
     if dev.type != "cuda":
         raise ValueError(f"whell_packed_spmv: no kernel for device {dev}")
-    lib = _load()
+    lib = _LIB.load()
     R = seg_lo.shape[0]
     acc = torch.zeros((R, 128), dtype=torch.float32, device=dev)
     z = torch.empty((R, 128), dtype=torch.float32, device=dev)

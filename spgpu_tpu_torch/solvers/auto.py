@@ -1,10 +1,12 @@
-"""High-level solve: format selection + packed WHELL layout + Krylov.
+"""High-level solve: format selection + compute layout + Krylov.
 
-Counterpart of the real, packed-WHELL route of
+Counterpart of the real WHELL, SDIA and WHDIA routes of
 :func:`spgpu_tpu.solvers.auto.solve`: coalesce duplicates, pick the
-format by slab-traffic estimate, build the packed layout, embed ``b`` in
-lane space, run CG (SPD) or BiCGSTAB, and extract ``x``.  The TPU budget
-switches (row blocks past the VMEM x budget, the SDIA VMEM fallback) are
+format by slab-traffic estimate (the DIA class goes to SDIA, ELL to
+packed WHELL), build the layout and run CG (SPD) or BiCGSTAB.  Packed
+WHELL iterates in lane space (``b`` is embedded, ``x`` extracted); SDIA
+and WHDIA iterate in the original numbering.  The TPU budget switches
+(row blocks past the VMEM x budget, the SDIA→WHDIA VMEM fallback) are
 left out: the port builds one layout at any size.  Formats the port does
 not have yet raise ``NotImplementedError`` instead of re-routing.
 """
@@ -16,10 +18,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spgpu_tpu_torch.convert.sdia import coo_to_sdia
 from spgpu_tpu_torch.convert.select import suggest_format
+from spgpu_tpu_torch.convert.whdia import coo_to_whdia
 from spgpu_tpu_torch.convert.whell import coo_to_whell, value_dtype
 from spgpu_tpu_torch.formats.coo import CooMatrix
-from spgpu_tpu_torch.ops import whell_spmv
+from spgpu_tpu_torch.ops import sdia_spmv, whdia_spmv, whell_spmv
 from spgpu_tpu_torch.solvers.cg import CgResult, bicgstab, cg, jacobi_preconditioner
 
 __all__ = ["solve"]
@@ -27,9 +31,6 @@ __all__ = ["solve"]
 #: formats the JAX solve() can run and the port cannot yet, with the
 #: ROADMAP module item that ports each
 _NOT_PORTED = {
-    "sdia": "item 4 (SDIA, kernel #2)",
-    "dia": "item 4 (SDIA, kernel #2)",
-    "whdia": "item 4 (WHDIA, kernel #3)",
     "hybrid": "item 11 (hybrid_spmv)",
     "hell": "item 11 (classic formats)",
     "blocks": "item 8 (large systems on one layout)",
@@ -43,36 +44,51 @@ def solve(coo: CooMatrix, b, *, device, symmetric: bool = True,
     """Solve ``A x = b`` for a square host COO on ``device``.
 
     ``symmetric=True`` runs CG (SPD systems), else BiCGSTAB.  ``fmt``
-    overrides the automatic choice; only "whell" is ported.  Values are
-    float32 or bfloat16 (float32 vectors).  Returns a :class:`CgResult`
-    whose ``x`` is in the ORIGINAL numbering, on ``device``."""
+    overrides the automatic choice: "whell", "sdia" or "whdia".  Values
+    are float32 (bfloat16 too on "whell"), vectors float32.  Returns a
+    :class:`CgResult` whose ``x`` is in the ORIGINAL numbering, on
+    ``device``."""
     if coo.n_rows != coo.n_cols:
         raise ValueError("solve requires a square system")
     if np.issubdtype(coo.values.dtype, np.complexfloating):
         raise NotImplementedError("complex systems are not ported yet "
                                   "(ROADMAP module item 6)")
     value_dtype(coo.values.dtype)  # float64 raises: ROADMAP item 5
-    # coalesce once: every format then solves the same matrix
+    # coalesce once: WHELL adds duplicates while SDIA/WHDIA keep the last
+    # write, so every format then solves the same matrix
     coo = coo.sum_duplicates()
     if fmt is None:
         fmt = suggest_format(coo)
-        fmt = {"ell": "whell"}.get(fmt, fmt)
+        fmt = {"dia": "sdia", "ell": "whell"}.get(fmt, fmt)
     if fmt in _NOT_PORTED:
         raise NotImplementedError(
             f"format {fmt!r} is not ported yet: ROADMAP module {_NOT_PORTED[fmt]}")
-    if fmt != "whell":
-        raise ValueError(f"unknown fmt {fmt!r}")
 
-    a = coo_to_whell(coo, device=device)
     work = torch.float32
-    b_l = a.embed(torch.as_tensor(np.asarray(b)), dtype=work)
-    x0_l = None if x0 is None else a.embed(torch.as_tensor(np.asarray(x0)), dtype=work)
-    m_inv = None
-    if jacobi:
-        # phantom lane-space coordinates get 1 (their residual stays 0)
-        m_inv = torch.ones(a.n_rows, dtype=work, device=a.device)
-        m_inv[a.lane_of_row.long()] = jacobi_preconditioner(coo, a.device).to(work)
+    m_inv = jacobi_preconditioner(coo, device).to(work) if jacobi else None
+    if fmt == "whell":
+        a = coo_to_whell(coo, device=device)
+        mv = lambda v: whell_spmv(a, v)  # noqa: E731
+        into = lambda v: a.embed(torch.as_tensor(np.asarray(v)), dtype=work)  # noqa: E731
+        out = lambda v: a.extract(v, dtype=work)  # noqa: E731
+        if m_inv is not None:
+            # phantom lane-space coordinates get 1 (their residual stays 0)
+            ones = torch.ones(a.n_rows, dtype=work, device=a.device)
+            ones[a.lane_of_row.long()] = m_inv
+            m_inv = ones
+    elif fmt in ("sdia", "whdia"):
+        # the DIA class iterates in the original numbering
+        if fmt == "sdia":
+            a = coo_to_sdia(coo, device=device)
+            mv = lambda v: sdia_spmv(a, v)  # noqa: E731
+        else:
+            a = coo_to_whdia(coo, device=device)
+            mv = lambda v: whdia_spmv(a, v)  # noqa: E731
+        into = lambda v: torch.as_tensor(np.asarray(v)).to(device, work)  # noqa: E731
+        out = lambda v: v  # noqa: E731
+    else:
+        raise ValueError(f"unknown fmt {fmt!r}")
     solver = cg if symmetric else bicgstab
-    res = solver(lambda v: whell_spmv(a, v), b_l, x0=x0_l, tol=tol,
+    res = solver(mv, into(b), x0=None if x0 is None else into(x0), tol=tol,
                  maxiter=maxiter, m_inv=m_inv)
-    return res._replace(x=a.extract(res.x, dtype=work))
+    return res._replace(x=out(res.x))

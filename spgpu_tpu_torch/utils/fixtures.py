@@ -13,6 +13,7 @@ from spgpu_tpu_torch.formats.coo import CooMatrix
 
 __all__ = [
     "laplacian_2d",
+    "laplacian_3d",
     "random_irregular",
     "random_fem_like",
     "random_banded",
@@ -40,6 +41,28 @@ def laplacian_2d(nx: int, ny: int, dtype=np.float64) -> CooMatrix:
         np.concatenate(vals).astype(dtype),
         n,
         n,
+    )
+
+
+def laplacian_3d(nx: int, ny: int, nz: int, dtype=np.float64) -> CooMatrix:
+    """3-D 7-point Laplacian (SPD)."""
+    n = nx * ny * nz
+    idx = np.arange(n, dtype=np.int64)
+    ix = idx % nx
+    iy = (idx // nx) % ny
+    iz = idx // (nx * ny)
+    rows, cols, vals = [idx], [idx], [np.full(n, 6.0)]
+    for (dx, dy, dz) in (
+        (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1)
+    ):
+        jx, jy, jz = ix + dx, iy + dy, iz + dz
+        ok = (jx >= 0) & (jx < nx) & (jy >= 0) & (jy < ny) & (jz >= 0) & (jz < nz)
+        rows.append(idx[ok])
+        cols.append((jz * nx * ny + jy * nx + jx)[ok])
+        vals.append(np.full(int(ok.sum()), -1.0))
+    return CooMatrix(
+        np.concatenate(rows), np.concatenate(cols),
+        np.concatenate(vals).astype(dtype), n, n,
     )
 
 

@@ -1,14 +1,16 @@
-"""PyTorch port on a CUDA device: kernel #1 against its plain version.
+"""PyTorch port on a CUDA device: kernels #1-#3 against their plain versions.
 
 Needs no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 (``--noconftest`` skips the JAX set-up of ``tests/conftest.py``).  Every
-test skips without a CUDA device.  The kernel's atomics sum each lane's
-tiles in another order than the plain version's ``index_add_``, hence
-rtol 1e-5 and atol 1e-5·max|z|; against the float64 host golden the
-fp32 tolerance is 2e-5.
+test skips without a CUDA device.  Kernels #1 (WHELL) and #3 (WHDIA) sum
+each lane's tiles with atomics, in another order than the plain
+version's ``index_add_``, hence rtol 1e-5 and atol 1e-5·max|z|; kernel
+#2 (SDIA) owns each row in one thread and sums the diagonals in the
+plain version's order, hence rtol 1e-6 and atol 1e-6·max|z|.  Against
+the float64 host golden the fp32 tolerance is 2e-5.
 """
 
 import numpy as np
@@ -17,13 +19,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from spgpu_tpu_torch import ops  # noqa: E402
-from spgpu_tpu_torch.convert import coo_to_whell  # noqa: E402
+from spgpu_tpu_torch.convert import coo_to_sdia, coo_to_whdia, coo_to_whell  # noqa: E402
 from spgpu_tpu_torch.formats.coo import CooMatrix  # noqa: E402
+from spgpu_tpu_torch.kernels import sdia as ks  # noqa: E402
+from spgpu_tpu_torch.kernels import whdia as kd  # noqa: E402
 from spgpu_tpu_torch.kernels import whell as kw  # noqa: E402
 from spgpu_tpu_torch.solvers import solve  # noqa: E402
 from spgpu_tpu_torch.utils.fixtures import (  # noqa: E402
     ctest_fixture,
     laplacian_2d,
+    laplacian_3d,
     random_banded,
     random_fem_like,
     random_irregular,
@@ -43,6 +48,19 @@ CASES = {
     "ctest": lambda: ctest_fixture(np.float32),
     "empty": lambda: CooMatrix(np.zeros(0, np.int64), np.zeros(0, np.int64),
                                np.zeros(0, np.float32), 300, 300),
+}
+# the SDIA and WHDIA fixtures (tests/test_torch_sdia.py, test_torch_whdia.py)
+DIA_CASES = {
+    "laplace": CASES["laplace"],
+    "laplace_wide": CASES["laplace_wide"],
+    "laplace3d": lambda: laplacian_3d(12, 11, 9, np.float32),
+    "banded": CASES["banded"],
+    "banded_wide": lambda: random_banded(2000, bands=31, seed=5, dtype=np.float32),
+    "banded_neg": lambda: random_banded(700, bands=5, wander=3, seed=6,
+                                        dtype=np.float32),
+    "tall": lambda: random_irregular(700, 90, 4.0, seed=3, dtype=np.float32),
+    "wide": lambda: random_irregular(90, 700, 12.0, seed=4, dtype=np.float32),
+    "empty": CASES["empty"],
 }
 
 
@@ -97,6 +115,90 @@ def test_alpha_beta_y_on_cuda(cuda_device):
     torch.testing.assert_close(z, want, rtol=1e-5, atol=1e-4)
 
 
+def _golden(coo, x):
+    return coo.spmv(x.astype(np.float64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DIA_CASES))
+def test_sdia_kernel_matches_plain_and_golden(name, cuda_device):
+    coo = DIA_CASES[name]()
+    a = coo_to_sdia(coo, device=cuda_device)
+    x = np.random.default_rng(0).standard_normal(coo.n_cols).astype(np.float32)
+    xt = torch.from_numpy(x).to(cuda_device)
+    before = ks.LAUNCHES
+    z = ops.sdia_spmv(a, xt)
+    torch.cuda.synchronize()
+    assert ks.LAUNCHES == before + (1 if a.n_diags else 0)
+    if a.n_diags:
+        zp = ks.sdia_spmv_plain(a.values, a.offsets, xt, n_rows=a.n_rows)
+        atol = 1e-6 * max(float(zp.abs().max()), 1.0)
+        torch.testing.assert_close(z, zp, rtol=1e-6, atol=atol)
+    g = _golden(coo, x)
+    np.testing.assert_allclose(z.double().cpu().numpy(), g, rtol=2e-5,
+                               atol=2e-5 * max(np.abs(g).max(initial=0), 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DIA_CASES))
+def test_whdia_kernel_matches_plain_and_golden(name, cuda_device):
+    coo = DIA_CASES[name]()
+    a = coo_to_whdia(coo, device=cuda_device)
+    x = np.random.default_rng(0).standard_normal(coo.n_cols).astype(np.float32)
+    xt = torch.from_numpy(x).to(cuda_device)
+    before = kd.LAUNCHES
+    z = ops.whdia_spmv(a, xt)
+    torch.cuda.synchronize()
+    assert kd.LAUNCHES == before + 1
+    zp = kd.whdia_spmv_plain(
+        a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group, xt,
+        chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+        num_groups=a.num_groups)[: a.n_rows]
+    atol = 1e-5 * max(float(zp.abs().max()), 1.0)
+    torch.testing.assert_close(z, zp, rtol=1e-5, atol=atol)
+    g = _golden(coo, x)
+    np.testing.assert_allclose(z.double().cpu().numpy(), g, rtol=2e-5,
+                               atol=2e-5 * max(np.abs(g).max(initial=0), 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["sdia", "whdia"])
+def test_dia_class_alpha_beta_y_on_cuda(fmt, cuda_device):
+    coo = DIA_CASES["laplace_wide"]()
+    conv, op = {"sdia": (coo_to_sdia, ops.sdia_spmv),
+                "whdia": (coo_to_whdia, ops.whdia_spmv)}[fmt]
+    a = conv(coo, device=cuda_device)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal(coo.n_cols).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal(coo.n_rows).astype(np.float32))
+    x, y = x.to(cuda_device), y.to(cuda_device)
+    z = op(a, x, alpha=2.5, beta=-0.5, y=y)
+    want = 2.5 * op(a.to("cpu"), x.cpu()) - 0.5 * y.cpu()
+    torch.testing.assert_close(z.cpu(), want, rtol=1e-5, atol=1e-4)
+    nan_y = torch.full_like(y, float("nan"))
+    assert bool(torch.isfinite(op(a, x, beta=0.0, y=nan_y)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,symmetric", [("sdia", True), ("whdia", True),
+                                           ("whdia", False)])
+def test_dia_class_solve_on_cuda(fmt, symmetric, cuda_device):
+    if symmetric:
+        coo = CASES["laplace_wide"]()
+    else:  # a contiguous band: WHDIA pattern mode
+        coo = random_banded(3000, bands=11, seed=2, dtype=np.float32)
+    b = np.random.default_rng(11).standard_normal(coo.n_rows).astype(np.float32)
+    counter = {"sdia": ks, "whdia": kd}[fmt]
+    counter.LAUNCHES = 0
+    res = solve(coo, b, device=cuda_device, fmt=fmt, symmetric=symmetric,
+                tol=1e-5, maxiter=3000)
+    assert bool(res.converged)
+    assert counter.LAUNCHES >= res.iterations > 0
+    x = res.x.double().cpu().numpy()
+    r = b - coo.sum_duplicates().spmv(x)
+    assert np.linalg.norm(r) <= 1e-4 * np.linalg.norm(b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["laplace_wide", "fem_spd"])
 def test_solve_on_cuda(name, cuda_device):
@@ -116,3 +218,17 @@ def test_solve_on_cuda(name, cuda_device):
     x = res.x.double().cpu().numpy()
     r = b - coo.sum_duplicates().spmv(x)
     assert np.linalg.norm(r) <= 1e-4 * np.linalg.norm(b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attempts,source", [(3, "profiler"), (0, "cuda_events")])
+def test_device_ms_sources(attempts, source, cuda_device):
+    from spgpu_tpu_torch.utils.timing import device_ms
+
+    a = coo_to_sdia(DIA_CASES["laplace_wide"](), device=cuda_device)
+    x = torch.ones(a.n_cols, device=cuda_device)
+    ms, got = device_ms(lambda: ops.sdia_spmv(a, x), iters=5, warmup=1,
+                        attempts=attempts)
+    # the profiler may record nothing now and then; the events never fail
+    assert got in ({"profiler", "cuda_events"} if attempts else {source})
+    assert 0 < ms < 1e3

@@ -99,16 +99,89 @@ def test_auto_selection_runs_whell():
 def test_unported_formats_raise():
     coo = laplacian_2d(40, 40, np.float32)
     b = np.ones(1600, np.float32)
-    # a stencil auto-selects the SDIA route, which is kernel #2
-    with pytest.raises(NotImplementedError, match="item 4"):
-        solve(coo, b, device="cpu")
-    for fmt, item in (("whdia", "item 4"), ("hybrid", "item 11"),
-                      ("hell", "item 11"), ("blocks", "item 8"),
-                      ("pcell", "item 12")):
+    for fmt, item in (("hybrid", "item 11"), ("hell", "item 11"),
+                      ("blocks", "item 8"), ("pcell", "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             solve(coo, b, device="cpu", fmt=fmt)
-    with pytest.raises(ValueError, match="unknown"):
-        solve(coo, b, device="cpu", fmt="nope")
+    # "dia" is a selection class, not a layout: as in the JAX solve()
+    for fmt in ("nope", "dia"):
+        with pytest.raises(ValueError, match="unknown"):
+            solve(coo, b, device="cpu", fmt=fmt)
+
+
+def _spy(monkeypatch, name):
+    """Count the calls solve() makes to one of its SpMV ops."""
+    from spgpu_tpu_torch.solvers import auto
+
+    calls = []
+    op = getattr(auto, name)
+    monkeypatch.setattr(auto, name, lambda *a, **k: calls.append(1) or op(*a, **k))
+    return calls
+
+
+def _check_against_jax(rows, cols, vals, n, b, jax_kw, torch_kw):
+    rj = j_solve(JCoo(rows, cols, vals, n, n), b, **jax_kw)
+    rt = solve(CooMatrix(rows, cols, vals, n, n), b, device="cpu", **torch_kw)
+    assert bool(rj.converged) and bool(rt.converged)
+    xt = rt.x.numpy().astype(np.float64)
+    xj = np.asarray(rj.x, np.float64)
+    np.testing.assert_allclose(xt, xj, rtol=1e-4, atol=1e-4 * np.abs(xj).max())
+    a = CooMatrix(rows, cols, vals, n, n).sum_duplicates()
+    assert np.linalg.norm(b - a.spmv(xt)) <= 1e-4 * np.linalg.norm(b)
+    return rt
+
+
+def test_auto_selection_picks_sdia_and_solves(monkeypatch):
+    """A stencil selects the DIA class, which runs SDIA, as in JAX."""
+    from spgpu_tpu.convert import suggest_format as j_suggest
+    from spgpu_tpu_torch.convert import suggest_format
+
+    c = j_lap(24, 24, np.float32)
+    assert suggest_format(CooMatrix(c.rows, c.cols, c.values, 576, 576)) == "dia"
+    assert j_suggest(c) == "dia"
+    calls = _spy(monkeypatch, "sdia_spmv")
+    b = np.random.default_rng(4).standard_normal(576).astype(np.float32)
+    rt = _check_against_jax(c.rows, c.cols, c.values, 576, b,
+                            dict(tol=1e-6, maxiter=2000),
+                            dict(tol=1e-6, maxiter=2000))
+    assert len(calls) >= rt.iterations > 0
+
+
+@pytest.mark.parametrize("fmt", ["sdia", "whdia"])
+@pytest.mark.parametrize("jacobi", [False, True], ids=["plain", "jacobi"])
+def test_solve_dia_class_matches_jax(fmt, jacobi, monkeypatch):
+    rows, cols, vals, n = lap_30x20()
+    calls = _spy(monkeypatch, f"{fmt}_spmv")
+    b = np.random.default_rng(7).standard_normal(n).astype(np.float32)
+    kw_ = dict(fmt=fmt, tol=1e-6, maxiter=2000, jacobi=jacobi)
+    rt = _check_against_jax(rows, cols, vals, n, b, kw_, kw_)
+    assert len(calls) >= rt.iterations > 0
+
+
+def test_bicgstab_on_whdia_matches_jax(monkeypatch):
+    """A non-symmetric contiguous band (WHDIA pattern mode).  A wandering
+    band (``wander > 0``) moves the dominant entry off the diagonal and
+    BiCGSTAB breaks down on it in both packages."""
+    from spgpu_tpu_torch.convert import coo_to_whdia
+
+    rows, cols, vals, n = banded_700()
+    assert coo_to_whdia(CooMatrix(rows, cols, vals, n, n), device="cpu").pattern_mode
+    calls = _spy(monkeypatch, "whdia_spmv")
+    b = np.random.default_rng(9).standard_normal(n).astype(np.float32)
+    kw_ = dict(fmt="whdia", symmetric=False, tol=1e-6, maxiter=2000)
+    rt = _check_against_jax(rows, cols, vals, n, b, kw_, kw_)
+    assert len(calls) >= rt.iterations > 0
+
+
+def test_solve_x0_on_the_dia_class():
+    rows, cols, vals, n = lap_30x20()
+    a = CooMatrix(rows, cols, vals, n, n)
+    x_true = np.random.default_rng(2).standard_normal(n)
+    b = a.spmv(x_true).astype(np.float32)
+    for fmt in ("sdia", "whdia"):
+        r = solve(a, b, device="cpu", fmt=fmt, x0=x_true.astype(np.float32),
+                  tol=1e-5)
+        assert r.iterations <= 1 and bool(r.converged)
 
 
 @pytest.mark.parametrize("dtype,item", [(np.float64, "item 5"),
