@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels and the host layout helpers from the checkout's
-sources, then drives the port's two routes at full size and checks them:
+sources, then drives the port's routes at full size, in float32 and in
+float64, and checks them:
 
 1. env       — GPU name and power limit, CUDA version, nvcc and g++;
 2. build     — seconds and ptxas register/spill lines for each library,
@@ -13,8 +14,9 @@ sources, then drives the port's two routes at full size and checks them:
 3. spmv      — the flagship FEM-like matrix (262,144 rows, 6.7M nnz):
                convert, ``whell_spmv`` through kernel #1, held against the
                plain PyTorch version on the card and against the host COO
-               golden in float64; kernel and plain times (CUDA events and
-               profiler device time);
+               golden in float64; kernel, plain and library (cuSPARSE CSR,
+               ``torch.sparse_csr_tensor @ x``) times (CUDA events and
+               profiler device time), and the kernel's bound;
 4. bf16      — the same with bf16 values and float32 x;
 5. solve     — ``solve()`` on the SPD system (A+Aᵀ)/2 with a dominant
                diagonal, auto-selected format (whell), CG to 1e-5; the
@@ -30,13 +32,30 @@ sources, then drives the port's two routes at full size and checks them:
                with auto-selection (whdia), CG with ``fmt="sdia"``, and
                BiCGSTAB on a contiguous banded-11 system with
                ``fmt="whdia"``; each is checked as in 5 against its
-               route's launch count.
+               route's launch count;
+9. spmv_f64  — the flagship in float64 through kernel #4, held to
+               1e-12·max|z| against its plain float64 version and the
+               golden, timed as in 3;
+10. dd_laplacian — the 512x512 Laplacian in float64 through kernel #4
+               (the JAX benchmark's double-float row);
+11. sdia_f64 — the Laplacian in float64 through kernel #5, which must
+               match its plain version exactly;
+12. whdia_f64 — banded-11 (pattern mode) and the Laplacian (slab mode) in
+               float64 through kernel #6;
+13. solve_f64 — four float64 solves to 1e-10 through ``solve()``, each
+               with a true residual ≤ 1e-9: CG on the SPD system
+               (auto, whell), CG on the Laplacian auto-selected (whdia)
+               and with ``fmt="sdia"``, and BiCGSTAB on the contiguous
+               banded-11 system with ``fmt="whdia"``.
 
 Each phase prints one JSON line.  Then it prints the kernel table (one
-JSON line), the ``nvidia-smi`` name and power limit, and last
-``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
-then non-zero and no result line is printed.  It needs a CUDA device and
-the rest of the repository, and exits non-zero without either.
+JSON line: each kernel's launches on the main path, its error against its
+plain version, its time, the plain version's and the library call's, and
+its bound), the ``nvidia-smi`` name and power limit, and last
+``{"ok": true, "device": {...}}``; nothing prints after that line.  Any
+failure raises: the exit code is then non-zero and no result line is
+printed.  It needs a CUDA device and the rest of the repository, and
+exits non-zero without either.
 """
 
 from __future__ import annotations
@@ -59,10 +78,29 @@ KERNELS = {
                   "spgpu_tpu/ops/pallas_kernels.py:2264"),
     "whdia_spmv": ("cuda", "spgpu_tpu_torch/csrc/whdia_spmv.cu",
                    "spgpu_tpu/ops/pallas_kernels.py:1283"),
+    "whell_packed_spmv_f64": ("cuda", "spgpu_tpu_torch/csrc/whell_packed_spmv.cu",
+                              "spgpu_tpu/ops/pallas_kernels.py:548"),
+    "sdia_spmv_f64": ("cuda", "spgpu_tpu_torch/csrc/sdia_spmv.cu",
+                      "spgpu_tpu/ops/pallas_kernels.py:2766"),
+    "whdia_spmv_f64": ("cuda", "spgpu_tpu_torch/csrc/whdia_spmv.cu",
+                       "spgpu_tpu/ops/pallas_kernels.py:1989"),
 }
+
+#: the fixtures' sizes: flagship rows, Laplacian side, banded rows, and
+#: the side of the double-float benchmark row's Laplacian
+SIZES = dict(flagship=262144, lap=1024, band=2 ** 19, dd_lap=512)
+
+#: H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s,
+#: and FLOP/s outside the tensor cores for each vector type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+
+_closed = False
 
 
 def emit(phase: str, **kw) -> None:
+    if _closed:
+        raise RuntimeError(f"phase {phase!r} after the result line")
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
@@ -78,13 +116,14 @@ def flagship(dtype=np.float32):
     """The flagship SpMV fixture of the JAX package's benchmark."""
     from spgpu_tpu_torch.utils.fixtures import random_fem_like
 
-    return random_fem_like(262144, 27.0, span=768, far_frac=0.01, seed=0,
-                           dtype=dtype)
+    return random_fem_like(SIZES["flagship"], 27.0, span=768, far_frac=0.01,
+                           seed=0, dtype=dtype)
 
 
-def spd_from(coo):
+def spd_from(coo, dtype=np.float32):
     """(A + Aᵀ)/2 with duplicates summed and each diagonal entry set to
-    its row's off-diagonal |·|-sum + 1 (strictly dominant: SPD)."""
+    its row's off-diagonal |·|-sum + 1 (strictly dominant: SPD), with
+    ``dtype`` values."""
     from spgpu_tpu_torch.formats.coo import CooMatrix
 
     n = coo.n_rows
@@ -98,7 +137,7 @@ def spd_from(coo):
     idx = np.arange(n, dtype=np.int64)
     return CooMatrix(np.concatenate([sym.rows[off], idx]),
                      np.concatenate([sym.cols[off], idx]),
-                     np.concatenate([sym.values[off], diag]).astype(np.float32),
+                     np.concatenate([sym.values[off], diag]).astype(dtype),
                      n, n).sum_duplicates()
 
 
@@ -114,39 +153,74 @@ def check_close(got, want, rtol, atol_frac, what):
     return float(np.abs(got - want).max())
 
 
-def timed_pair(kernel, plain):
-    """Times per call of a kernel and its plain version: CUDA events
-    around interleaved runs of 20 calls (host-bound when the Python
-    wrapper outlasts the kernel) and device time, with its source
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(moved: int, flops: int, dtype: str) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the operations over the peak for their type."""
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=moved, bound_flops=flops)
+
+
+def csr_of(coo, dtype, device):
+    """The COO as a ``torch.sparse_csr_tensor`` on ``device`` (duplicates
+    summed): the library yardstick, ``A @ x`` through cuSPARSE."""
+    import torch
+
+    c = coo.sum_duplicates()
+    crow = np.zeros(c.n_rows + 1, np.int64)
+    np.cumsum(np.bincount(c.rows, minlength=c.n_rows), out=crow[1:])
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(crow), torch.from_numpy(c.cols),
+        torch.from_numpy(c.values.astype(dtype)), size=c.shape,
+        check_invariants=True).to(device)
+
+
+def timed(kernel, plain, library):
+    """Times per call of a kernel, its plain version and the library call:
+    CUDA events around interleaved runs of 20 calls (host-bound when the
+    Python wrapper outlasts the kernel) and device time, with its source
     (``profiler``, or ``cuda_events`` when no profiling session recorded
     device activity)."""
     from spgpu_tpu_torch.utils.timing import device_ms, time_interleaved
 
-    t = time_interleaved({"kernel": kernel, "plain": plain}, reps=5, iters=20)
-    kdev, ksrc = device_ms(kernel)
-    pdev, psrc = device_ms(plain)
-    return dict(
-        kernel_ms=t["kernel"]["best_ms"], kernel_spread_ms=t["kernel"]["spread_ms"],
-        plain_ms=t["plain"]["best_ms"], plain_spread_ms=t["plain"]["spread_ms"],
-        kernel_device_ms=kdev, plain_device_ms=pdev,
-        kernel_device_source=ksrc, plain_device_source=psrc)
+    t = time_interleaved({"kernel": kernel, "plain": plain, "library": library},
+                         reps=5, iters=20)
+    out = {}
+    for name, fn in (("kernel", kernel), ("plain", plain), ("library", library)):
+        dev, src = device_ms(fn)
+        out.update({f"{name}_ms": t[name]["best_ms"],
+                    f"{name}_spread_ms": t[name]["spread_ms"],
+                    f"{name}_device_ms": dev, f"{name}_device_source": src})
+    return out
 
 
 def spmv_phase(coo, a, device, label):
-    """Kernel vs plain vs host golden on one converted matrix, and both
-    versions' times."""
+    """Kernel vs plain vs host golden on one converted WHELL matrix (fp32
+    or bf16 values: kernel #1; float64: kernel #4), and the times of both
+    versions and of the library call on the same matrix."""
     import torch
 
     from spgpu_tpu_torch.kernels import whell as kw
     from spgpu_tpu_torch.ops import _prep_x, whell_spmv
 
-    x = np.random.default_rng(7).standard_normal(coo.n_cols).astype(np.float32)
-    xl = a.embed(torch.from_numpy(x), dtype=torch.float32)
-    before = kw.LAUNCHES
+    f64 = a.values.dtype == torch.float64
+    xdt = torch.float64 if f64 else torch.float32
+    x = np.random.default_rng(7).standard_normal(coo.n_cols)
+    if not f64:
+        x = x.astype(np.float32)
+    xl = a.embed(torch.from_numpy(x), dtype=xdt)
+    counter = "LAUNCHES_F64" if f64 else "LAUNCHES"
+    before = getattr(kw, counter)
     z = whell_spmv(a, xl)
     torch.cuda.synchronize(device)
-    if kw.LAUNCHES != before + 1:
-        raise AssertionError("whell_spmv did not launch the kernel")
+    if getattr(kw, counter) != before + 1:
+        raise AssertionError(f"{label}: whell_spmv did not launch the kernel")
     args = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
             a.group_bases, a.seg_lo, a.seg_hi, _prep_x(xl, a.n_cols, a.x_pages))
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
@@ -154,15 +228,22 @@ def spmv_phase(coo, a, device, label):
     zp = kw.whell_packed_spmv_plain(*args, **static).view(-1)[: a.n_rows]
     zc, pc = z.cpu().numpy(), zp.cpu().numpy()
     # atomics sum each lane's tiles in another order than index_add_
-    err_plain = check_close(zc, pc, 1e-5, 1e-5, f"{label}: kernel vs plain")
+    tol_plain, tol_golden = ((0, 1e-12), (0, 1e-12)) if f64 else \
+        ((1e-5, 1e-5), (1e-4, 1e-4))
+    err_plain = check_close(zc, pc, *tol_plain, f"{label}: kernel vs plain")
     # host golden in float64
     golden = coo.spmv(x.astype(np.float64))
     z_orig = a.extract(z, dtype=torch.float64).cpu().numpy()
-    err_golden = check_close(z_orig, golden, 1e-4, 1e-4,
+    err_golden = check_close(z_orig, golden, *tol_golden,
                              f"{label}: kernel vs host golden")
     slab_bytes = a.total_slots * 128 * (a.values.element_size() + 2)
-    t = timed_pair(lambda: kw.whell_packed_spmv(*args, **static),
-                   lambda: kw.whell_packed_spmv_plain(*args, **static))
+    csr = csr_of(coo, np.float64 if f64 else np.float32, device)
+    xo = torch.from_numpy(x).to(device)
+    t = timed(lambda: kw.whell_packed_spmv(*args, **static),
+              lambda: kw.whell_packed_spmv_plain(*args, **static),
+              lambda: csr @ xo)
+    moved = nbytes(a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
+                   a.group_bases, a.seg_lo, a.seg_hi, args[-1], z)
     return dict(
         nnz=coo.nnz, tiles=a.num_tiles, lane_space=a.n_rows,
         padding=a.total_slots * 128 / coo.nnz, slab_mib=slab_bytes / 2**20,
@@ -170,52 +251,116 @@ def spmv_phase(coo, a, device, label):
         kernel_gflops=2 * coo.nnz / (t["kernel_ms"] * 1e6),
         kernel_device_gflops=2 * coo.nnz / (t["kernel_device_ms"] * 1e6),
         plain_gflops=2 * coo.nnz / (t["plain_ms"] * 1e6),
-        kernel_device_slab_gbytes_per_s=slab_bytes / (t["kernel_device_ms"] * 1e6))
+        kernel_device_slab_gbytes_per_s=slab_bytes / (t["kernel_device_ms"] * 1e6),
+        **bound(moved, 2 * coo.nnz, "float64" if f64 else "float32"))
 
 
-def dia_phase(coo, kernel, plain, op_z, nbytes, rtol_plain, label, device):
-    """A DIA-class kernel on the card against its plain version (at
-    ``rtol_plain``, atol rtol_plain·max|z|) and the float64 host golden
-    (rtol = atol/max|golden| = 2e-5), then both versions' times.
-    ``kernel``/``plain`` map x to the padded product, ``op_z`` to the
-    op's ``(n_rows,)`` result; ``nbytes`` is values + x + z."""
+def dia_phase(coo, kernel, plain, op_z, moved, tol_plain, label, device):
+    """A DIA-class kernel on the card against its plain version (rtol and
+    atol/max|z| both ``tol_plain``) and the float64 host golden (2e-5 in
+    float32, 1e-12·max|z| in float64), then the times of both versions and
+    of the library call.  ``kernel``/``plain`` map x to the padded
+    product, ``op_z`` to the op's ``(n_rows,)`` result; ``moved`` is the
+    bytes the kernel must read and write."""
     import torch
 
-    x = np.random.default_rng(7).standard_normal(coo.n_cols).astype(np.float32)
+    f64 = coo.values.dtype == np.float64
+    x = np.random.default_rng(7).standard_normal(coo.n_cols)
+    if not f64:
+        x = x.astype(np.float32)
     xt = torch.from_numpy(x).to(device)
     z = op_z(xt)
     torch.cuda.synchronize(device)
     n = coo.n_rows
     zp = plain(xt)[:n]
-    err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), rtol_plain,
-                            rtol_plain, f"{label}: kernel vs plain")
+    err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), tol_plain,
+                            tol_plain, f"{label}: kernel vs plain")
+    tol_golden = (0, 1e-12) if f64 else (2e-5, 2e-5)
     err_golden = check_close(z.cpu().numpy(), coo.spmv(x.astype(np.float64)),
-                             2e-5, 2e-5, f"{label}: kernel vs host golden")
-    t = timed_pair(lambda: kernel(xt), lambda: plain(xt))
+                             *tol_golden, f"{label}: kernel vs host golden")
+    csr = csr_of(coo, coo.values.dtype, device)
+    t = timed(lambda: kernel(xt), lambda: plain(xt), lambda: csr @ xt)
     return dict(
         rows=n, nnz=coo.nnz, max_abs_err_vs_plain=err_plain,
         max_abs_err_vs_golden=err_golden, **t,
         kernel_gflops=2 * coo.nnz / (t["kernel_ms"] * 1e6),
         kernel_device_gflops=2 * coo.nnz / (t["kernel_device_ms"] * 1e6),
         plain_device_gflops=2 * coo.nnz / (t["plain_device_ms"] * 1e6),
-        bytes_mib=nbytes / 2**20,
-        kernel_device_gbytes_per_s=nbytes / (t["kernel_device_ms"] * 1e6))
+        bytes_mib=moved / 2**20,
+        kernel_device_gbytes_per_s=moved / (t["kernel_device_ms"] * 1e6),
+        **bound(moved, 2 * coo.nnz, "float64" if f64 else "float32"))
 
 
-def counted_solve(coo, b, counter, device, **kw):
-    """``solve()`` with ``counter.LAUNCHES`` set to 0 just before and read
-    just after; checks convergence, one launch per iteration at least,
-    and the float64 host true residual ≤ 1e-4."""
+def sdia_phase(coo, device, label):
+    """``dia_phase`` for SDIA (kernel #2, or #5 in float64): the kernel
+    sums in its plain version's order with the same roundings, so the two
+    must agree exactly."""
+    from spgpu_tpu_torch.convert import coo_to_sdia
+    from spgpu_tpu_torch.kernels import sdia as ks
+    from spgpu_tpu_torch.ops import sdia_spmv
+
+    t0 = time.perf_counter()
+    sa = coo_to_sdia(coo, device=device)
+    convert_s = time.perf_counter() - t0
+    out = dia_phase(
+        coo, lambda x: ks.sdia_spmv(sa.values, sa.offset_table, x, n_rows=sa.n_rows),
+        lambda x: ks.sdia_spmv_plain(sa.values, sa.offsets, x, n_rows=sa.n_rows),
+        lambda x: sdia_spmv(sa, x),
+        nbytes(sa.values, sa.offset_table) + sa.values.element_size()
+        * (coo.n_cols + coo.n_rows), 0.0, label, device)
+    return dict(convert_s=convert_s, offsets=list(sa.offsets),
+                value_mib=nbytes(sa.values) / 2**20, **out)
+
+
+def whdia_phase(coo, mode, device, label):
+    """``dia_phase`` for WHDIA (kernel #3, or #6 in float64); atomics
+    reorder the sums, hence 1e-5 (1e-12 in float64) against the plain
+    version.  ``mode`` is the r0 mode the layout must take."""
+    import torch
+
+    from spgpu_tpu_torch.convert import coo_to_whdia
+    from spgpu_tpu_torch.kernels import whdia as kd
+    from spgpu_tpu_torch.ops import whdia_spmv
+
+    t0 = time.perf_counter()
+    wa = coo_to_whdia(coo, device=device)
+    torch.cuda.synchronize(device)
+    convert_s = time.perf_counter() - t0
+    got = "pattern" if wa.pattern_mode else "slab"
+    if got != mode:
+        raise AssertionError(f"{label}: {got} mode, expected {mode}")
+    args = (wa.values, wa.slot_r0, wa.tile_r0, wa.tile_base, wa.chunk_group)
+    static = dict(chunk_tiles=wa.chunk_tiles, group_hacks=wa.group_hacks,
+                  num_groups=wa.num_groups)
+    isz = wa.values.element_size()
+    out = dia_phase(
+        coo, lambda x: kd.whdia_spmv(*args, x, **static),
+        lambda x: kd.whdia_spmv_plain(*args, x, **static),
+        lambda x: whdia_spmv(wa, x),
+        nbytes(*args) + isz * (coo.n_cols + wa.num_groups * wa.group_hacks * 128),
+        1e-12 if isz == 8 else 1e-5, label, device)
+    out.update(mode=got, window_pages=wa.window_pages, tiles=wa.num_tiles,
+               padding=wa.total_slots * 128 / coo.nnz,
+               value_mib=nbytes(wa.values) / 2**20, convert_s=convert_s)
+    return out
+
+
+def counted_solve(coo, b, counter, device, tol, true_tol, **kw):
+    """``solve()`` with the kernel's launch counter (``counter``: module,
+    attribute name) set to 0 just before and read just after; checks
+    convergence, one launch per iteration at least, and the float64 host
+    true residual ≤ ``true_tol``."""
     import torch
 
     from spgpu_tpu_torch.solvers import solve
 
-    counter.LAUNCHES = 0
+    mod, attr = counter
+    setattr(mod, attr, 0)
     t0 = time.perf_counter()
-    res = solve(coo, b, device=device, **kw)
+    res = solve(coo, b, device=device, tol=tol, **kw)
     torch.cuda.synchronize(device)
     solve_s = time.perf_counter() - t0
-    launches = counter.LAUNCHES
+    launches = getattr(mod, attr)
     if not bool(res.converged):
         raise AssertionError(f"solve({kw}) did not converge in "
                              f"{res.iterations} iterations (residual "
@@ -226,26 +371,27 @@ def counted_solve(coo, b, counter, device, **kw):
     xs = res.x.cpu().double().numpy()
     bb = np.asarray(b, np.float64)
     true_res = float(np.linalg.norm(bb - coo.spmv(xs)) / np.linalg.norm(bb))
-    if not true_res <= 1e-4:
-        raise AssertionError(f"solve({kw}): true residual {true_res} > 1e-4")
+    if not true_res <= true_tol:
+        raise AssertionError(f"solve({kw}): true residual {true_res} > {true_tol}")
     return res, xs, dict(iterations=res.iterations, launches=launches,
                          solve_total_s=solve_s, true_residual=true_res,
                          solver_residual=float(res.residual_norm
-                                               / np.linalg.norm(bb)))
+                                               / np.linalg.norm(bb)),
+                         x_dtype=str(res.x.dtype))
 
 
 def loop_timing(solver, mv, b, tol):
     """ms per iteration of the Krylov loop alone (host clock to a
     synchronise) and device ms per iteration of 20 fixed iterations
     (tol=0 never stops early), as in the solve phase.  The idle share is
-    null when the device time is not the profiler's (see ``timed_pair``)."""
+    null when the device time is not the profiler's (see ``timed``)."""
     import torch
 
     from spgpu_tpu_torch.utils.timing import device_ms
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r = solver(mv, b, tol=tol, maxiter=5000)
+    r = solver(mv, b, tol=tol, maxiter=20000)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / max(r.iterations, 1)
     dev, src = device_ms(lambda: solver(mv, b, tol=0.0, maxiter=20), iters=1,
@@ -256,9 +402,85 @@ def loop_timing(solver, mv, b, tol):
                 device_idle_share=1 - dev / ms if src == "profiler" else None)
 
 
+def dia_solves(lap, band, device, dtype, tol, true_tol):
+    """CG on the Laplacian auto-selected (whdia) and with ``fmt="sdia"``,
+    BiCGSTAB on the contiguous band with ``fmt="whdia"``, each counted on
+    its kernel's launch counter and then timed on a fresh layout."""
+    import torch
+
+    from spgpu_tpu_torch.convert import coo_to_sdia, coo_to_whdia, suggest_format
+    from spgpu_tpu_torch.kernels import sdia as ks
+    from spgpu_tpu_torch.kernels import whdia as kd
+    from spgpu_tpu_torch.ops import sdia_spmv, whdia_spmv
+    from spgpu_tpu_torch.solvers import bicgstab, cg
+
+    attr = "LAUNCHES_F64" if dtype == np.float64 else "LAUNCHES"
+    x_true = np.random.default_rng(1).standard_normal(lap.n_rows)
+    b_lap = lap.spmv(x_true).astype(dtype)
+    fmt_lap = suggest_format(lap)
+    if fmt_lap != "whdia":
+        raise AssertionError(f"auto-selection chose {fmt_lap!r} on the "
+                             "Laplacian, not whdia")
+    solves = {}
+    _, xs, solves["cg_auto_whdia"] = counted_solve(
+        lap, b_lap, (kd, attr), device, tol, true_tol, maxiter=20000)
+    solves["cg_auto_whdia"]["x_err_vs_true"] = float(np.abs(xs - x_true).max())
+    _, xs, solves["cg_sdia"] = counted_solve(
+        lap, b_lap, (ks, attr), device, tol, true_tol, fmt="sdia", maxiter=20000)
+    solves["cg_sdia"]["x_err_vs_true"] = float(np.abs(xs - x_true).max())
+    # a contiguous band: the wandering bench fixture moves the dominant
+    # entry off the diagonal and BiCGSTAB breaks down on it
+    b_band = band.spmv(np.random.default_rng(1).standard_normal(band.n_rows)
+                       ).astype(dtype)
+    _, _, solves["bicgstab_whdia"] = counted_solve(
+        band, b_band, (kd, attr), device, tol, true_tol, fmt="whdia",
+        symmetric=False, maxiter=5000)
+    # the Krylov loops alone, on fresh layouts, for ms/iteration
+    wl = coo_to_whdia(lap, device=device)
+    sl = coo_to_sdia(lap, device=device)
+    wb = coo_to_whdia(band, device=device)
+    bl = torch.from_numpy(b_lap).to(device)
+    solves["cg_auto_whdia"].update(loop_timing(cg, lambda v: whdia_spmv(wl, v), bl, tol))
+    solves["cg_sdia"].update(loop_timing(cg, lambda v: sdia_spmv(sl, v), bl, tol))
+    solves["bicgstab_whdia"].update(loop_timing(
+        bicgstab, lambda v: whdia_spmv(wb, v), torch.from_numpy(b_band).to(device),
+        tol))
+    return solves
+
+
+def spd_solve(spd, device, dtype, tol, true_tol):
+    """CG on the SPD system through ``solve()`` with auto-selection (must
+    be whell), counted on kernel #1's or #4's launch counter, then the CG
+    loop alone on a fresh layout."""
+    import torch
+
+    from spgpu_tpu_torch.convert import coo_to_whell, suggest_format
+    from spgpu_tpu_torch.kernels import whell as kw
+    from spgpu_tpu_torch.ops import whell_spmv
+    from spgpu_tpu_torch.solvers import cg
+
+    fmt = suggest_format(spd)
+    if fmt != "whell":
+        raise AssertionError(f"auto-selection chose {fmt!r}, not whell")
+    x_true = np.random.default_rng(1).standard_normal(spd.n_rows)
+    b = spd.spmv(x_true).astype(dtype)
+    attr = "LAUNCHES_F64" if dtype == np.float64 else "LAUNCHES"
+    _, xs, solved = counted_solve(spd, b, (kw, attr), device, tol, true_tol,
+                                  maxiter=5000)
+    a = coo_to_whell(spd, device=device)
+    b_l = a.embed(torch.from_numpy(b), dtype=getattr(torch, np.dtype(dtype).name))
+    out = dict(fmt=fmt, nnz=spd.nnz, max_row_degree=int(spd.row_lengths().max()),
+               tiles=a.num_tiles, lane_space=a.n_rows,
+               padding=a.total_slots * 128 / spd.nnz, **solved,
+               **loop_timing(cg, lambda v: whell_spmv(a, v), b_l, tol),
+               x_err_vs_true=float(np.abs(xs - x_true).max()))
+    return out
+
+
 def build_all():
-    """The host helpers, then the three kernel libraries, all nvcc
-    builds started together."""
+    """The host helpers, then the three kernel libraries (each holds the
+    float32 and the float64 kernels of its route), all nvcc builds
+    started together."""
     from spgpu_tpu_torch import native
     from spgpu_tpu_torch.kernels import sdia, whdia, whell
 
@@ -273,6 +495,29 @@ def build_all():
         for name, (sec, log) in done.items()})
 
 
+def kernel_row(name, launches, phase):
+    """One entry of the kernel table from the phase that timed it."""
+    route, source, replaces = KERNELS[name]
+    return {"name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": phase["max_abs_err_vs_plain"],
+            "ms": phase["kernel_ms"], "plain_ms": phase["plain_ms"],
+            "bound_ms": phase["bound_ms"], "bound_by": phase["bound_by"],
+            "library_ms": phase["library_ms"]}
+
+
+def close(kernels, smi, torch) -> None:
+    """The last three lines: the kernel table, the ``nvidia-smi`` line and
+    the result line; no phase may print after them."""
+    global _closed
+    _closed = True
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -281,13 +526,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from spgpu_tpu_torch.convert import (coo_to_sdia, coo_to_whdia,
-                                         coo_to_whell, suggest_format)
-    from spgpu_tpu_torch.kernels import sdia as ks
-    from spgpu_tpu_torch.kernels import whdia as kd
-    from spgpu_tpu_torch.kernels import whell as kw
-    from spgpu_tpu_torch.ops import sdia_spmv, whdia_spmv, whell_spmv
-    from spgpu_tpu_torch.solvers import bicgstab, cg
+    from spgpu_tpu_torch.convert import coo_to_whell, suggest_format
+    from spgpu_tpu_torch.formats.coo import CooMatrix
     from spgpu_tpu_torch.utils.fixtures import laplacian_2d, random_banded
 
     device = torch.device("cuda", 0)
@@ -315,133 +555,85 @@ def main() -> int:
 
     # --- bf16 values, fp32 x -------------------------------------------
     a16 = coo_to_whell(coo, device=device, dtype="bfloat16")
-    from spgpu_tpu_torch.formats.coo import CooMatrix
-
     v16 = torch.from_numpy(coo.values).to(torch.bfloat16).double().numpy()
     coo16 = CooMatrix(coo.rows, coo.cols, v16, coo.n_rows, coo.n_cols)
     emit("bf16", **spmv_phase(coo16, a16, device, "spmv bf16"))
     del a16
 
     # --- SPD solve: the main path, counted -----------------------------
-    spd = spd_from(coo)
-    fmt_spd = suggest_format(spd)
-    if fmt_spd != "whell":
-        raise AssertionError(f"auto-selection chose {fmt_spd!r}, not whell")
-    x_true = np.random.default_rng(1).standard_normal(spd.n_rows)
-    b = spd.spmv(x_true).astype(np.float32)
-    _, xs, solved = counted_solve(spd, b, kw, device, tol=1e-5, maxiter=1000)
-    launches = solved["launches"]
-    # the CG loop alone, on a fresh layout, for ms/iteration
-    a_spd = coo_to_whell(spd, device=device)
-    b_l = a_spd.embed(torch.from_numpy(b), dtype=torch.float32)
-    emit("solve", fmt=fmt_spd, nnz=spd.nnz, max_row_degree=int(spd.row_lengths().max()),
-         tiles=a_spd.num_tiles, lane_space=a_spd.n_rows,
-         padding=a_spd.total_slots * 128 / spd.nnz, **solved,
-         **loop_timing(cg, lambda v: whell_spmv(a_spd, v), b_l, 1e-5),
-         x_err_vs_true=float(np.abs(xs - x_true).max()))
-    del a_spd
+    solve = spd_solve(spd_from(coo), device, np.float32, 1e-5, 1e-4)
+    emit("solve", **solve)
 
     # --- SDIA: the 2-D Laplacian, kernel #2 -----------------------------
-    lap = laplacian_2d(1024, 1024, np.float32)
-    t0 = time.perf_counter()
-    sa = coo_to_sdia(lap, device=device)
-    torch.cuda.synchronize(device)
-    convert_s = time.perf_counter() - t0
-    sdia = dia_phase(
-        lap, lambda x: ks.sdia_spmv(sa.values, sa.offset_table, x, n_rows=sa.n_rows),
-        lambda x: ks.sdia_spmv_plain(sa.values, sa.offsets, x, n_rows=sa.n_rows),
-        lambda x: sdia_spmv(sa, x),
-        4 * (sa.values.numel() + lap.n_cols + lap.n_rows), 1e-6, "sdia laplace",
-        device)
-    emit("sdia", fixture="laplacian_2d(1024, 1024)", convert_s=convert_s,
-         offsets=list(sa.offsets), value_mib=4 * sa.values.numel() / 2**20, **sdia)
-    del sa
+    n = SIZES["lap"]
+    lap = laplacian_2d(n, n, np.float32)
+    sdia = sdia_phase(lap, device, "sdia laplace")
+    emit("sdia", fixture=f"laplacian_2d({n}, {n})", **sdia)
 
     # --- WHDIA: banded-11 (pattern mode) and the Laplacian (slab) --------
-    whdia = {}
-    for label, coo, mode in (
-            ("banded11", random_banded(2**19, 11, wander=7, seed=2,
-                                       dtype=np.float32), "pattern"),
-            ("laplace", lap, "slab")):
-        t0 = time.perf_counter()
-        wa = coo_to_whdia(coo, device=device)
-        torch.cuda.synchronize(device)
-        convert_s = time.perf_counter() - t0
-        got = "pattern" if wa.pattern_mode else "slab"
-        if got != mode:
-            raise AssertionError(f"whdia {label}: {got} mode, expected {mode}")
-        args = (wa.values, wa.slot_r0, wa.tile_r0, wa.tile_base, wa.chunk_group)
-        static = dict(chunk_tiles=wa.chunk_tiles, group_hacks=wa.group_hacks,
-                      num_groups=wa.num_groups)
-        r0_bytes = 0 if wa.pattern_mode else 2 * wa.total_slots
-        whdia[label] = dia_phase(
-            coo, lambda x: kd.whdia_spmv(*args, x, **static),
-            lambda x: kd.whdia_spmv_plain(*args, x, **static),
-            lambda x: whdia_spmv(wa, x),
-            4 * (wa.values.numel() + coo.n_cols + coo.n_rows) + r0_bytes,
-            1e-5, f"whdia {label}", device)
-        whdia[label].update(mode=got, window_pages=wa.window_pages,
-                            tiles=wa.num_tiles,
-                            padding=wa.total_slots * 128 / coo.nnz,
-                            value_mib=4 * wa.values.numel() / 2**20,
-                            convert_s=convert_s)
-        del wa, args
+    band11 = random_banded(SIZES["band"], 11, wander=7, seed=2, dtype=np.float32)
+    whdia = {"banded11": whdia_phase(band11, "pattern", device, "whdia banded11"),
+             "laplace": whdia_phase(lap, "slab", device, "whdia laplace")}
     emit("whdia", **whdia)
 
     # --- DIA-class solves through solve(): the second route, counted -----
-    x_true = np.random.default_rng(1).standard_normal(lap.n_rows)
-    b_lap = lap.spmv(x_true).astype(np.float32)
-    fmt_lap = suggest_format(lap)
-    if fmt_lap != "whdia":
-        raise AssertionError(f"auto-selection chose {fmt_lap!r} on the "
-                             "Laplacian, not whdia")
-    solves = {}
-    _, xs, solves["cg_auto_whdia"] = counted_solve(lap, b_lap, kd, device,
-                                                   tol=1e-5, maxiter=5000)
-    solves["cg_auto_whdia"]["x_err_vs_true"] = float(np.abs(xs - x_true).max())
-    _, xs, solves["cg_sdia"] = counted_solve(lap, b_lap, ks, device, fmt="sdia",
-                                             tol=1e-5, maxiter=5000)
-    solves["cg_sdia"]["x_err_vs_true"] = float(np.abs(xs - x_true).max())
-    # a contiguous band: the wandering bench fixture moves the dominant
-    # entry off the diagonal and BiCGSTAB breaks down on it
-    band = random_banded(2**19, 11, wander=0, seed=2, dtype=np.float32)
-    b_band = band.spmv(np.random.default_rng(1).standard_normal(band.n_rows)
-                       ).astype(np.float32)
-    _, _, solves["bicgstab_whdia"] = counted_solve(
-        band, b_band, kd, device, fmt="whdia", symmetric=False, tol=1e-5,
-        maxiter=5000)
-    whdia_launches = (solves["cg_auto_whdia"]["launches"]
-                      + solves["bicgstab_whdia"]["launches"])
-    # the Krylov loops alone, on fresh layouts, for ms/iteration
-    wl = coo_to_whdia(lap, device=device)
-    sl = coo_to_sdia(lap, device=device)
-    wb = coo_to_whdia(band, device=device)
-    bl = torch.from_numpy(b_lap).to(device)
-    solves["cg_auto_whdia"].update(loop_timing(cg, lambda v: whdia_spmv(wl, v), bl, 1e-5))
-    solves["cg_sdia"].update(loop_timing(cg, lambda v: sdia_spmv(sl, v), bl, 1e-5))
-    solves["bicgstab_whdia"].update(loop_timing(
-        bicgstab, lambda v: whdia_spmv(wb, v), torch.from_numpy(b_band).to(device),
-        1e-5))
+    band = random_banded(SIZES["band"], 11, wander=0, seed=2, dtype=np.float32)
+    solves = dia_solves(lap, band, device, np.float32, 1e-5, 1e-4)
     emit("solve_dia", **solves)
-    del wl, sl, wb
 
-    lap_w = whdia["laplace"]
-    print(json.dumps({"kernels": [
-        {"name": name, "route": KERNELS[name][0], "source": KERNELS[name][1],
-         "replaces": KERNELS[name][2], "launches": n, "max_abs_err": err,
-         "ms": ms, "plain_ms": plain_ms}
-        for name, n, err, ms, plain_ms in (
-            ("whell_packed_spmv", launches, spmv["max_abs_err_vs_plain"],
-             spmv["kernel_ms"], spmv["plain_ms"]),
-            ("sdia_spmv", solves["cg_sdia"]["launches"],
-             sdia["max_abs_err_vs_plain"], sdia["kernel_ms"], sdia["plain_ms"]),
-            ("whdia_spmv", whdia_launches,
-             max(w["max_abs_err_vs_plain"] for w in whdia.values()),
-             lap_w["kernel_ms"], lap_w["plain_ms"]))]}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    # --- float64: the flagship through kernel #4 --------------------------
+    coo64 = flagship(np.float64)
+    t0 = time.perf_counter()
+    a = coo_to_whell(coo64, device=device)
+    torch.cuda.synchronize(device)
+    convert_s = time.perf_counter() - t0
+    spmv64 = spmv_phase(coo64, a, device, "spmv float64")
+    emit("spmv_f64", fmt=suggest_format(coo64), convert_s=convert_s,
+         window_pages=a.window_pages, scattered=a.scattered,
+         group_hacks=a.group_hacks, chunk_tiles=a.chunk_tiles, **spmv64)
+    del a
+
+    # --- the JAX benchmark's double-float row: the Laplacian on #4 -------
+    m = SIZES["dd_lap"]
+    ddl = laplacian_2d(m, m, np.float64)
+    a = coo_to_whell(ddl, device=device)
+    emit("dd_laplacian", fixture=f"laplacian_2d({m}, {m}, float64)",
+         **spmv_phase(ddl, a, device, "dd laplacian"))
+    del a
+
+    # --- float64 DIA class: kernels #5 and #6 -----------------------------
+    lap64 = laplacian_2d(n, n, np.float64)
+    sdia64 = sdia_phase(lap64, device, "sdia laplace float64")
+    emit("sdia_f64", fixture=f"laplacian_2d({n}, {n}, float64)", **sdia64)
+    band11_64 = random_banded(SIZES["band"], 11, wander=7, seed=2, dtype=np.float64)
+    whdia64 = {
+        "banded11": whdia_phase(band11_64, "pattern", device, "whdia banded11 float64"),
+        "laplace": whdia_phase(lap64, "slab", device, "whdia laplace float64")}
+    emit("whdia_f64", **whdia64)
+
+    # --- float64 solves through solve(), counted --------------------------
+    solve64 = {"cg_auto_whell": spd_solve(spd_from(coo64, np.float64), device,
+                                          np.float64, 1e-10, 1e-9)}
+    band64 = random_banded(SIZES["band"], 11, wander=0, seed=2, dtype=np.float64)
+    solve64.update(dia_solves(lap64, band64, device, np.float64, 1e-10, 1e-9))
+    emit("solve_f64", **solve64)
+
+    lap_w, lap_w64 = whdia["laplace"], whdia64["laplace"]
+    close([
+        kernel_row("whell_packed_spmv", solve["launches"], spmv),
+        kernel_row("sdia_spmv", solves["cg_sdia"]["launches"], sdia),
+        kernel_row("whdia_spmv", solves["cg_auto_whdia"]["launches"]
+                   + solves["bicgstab_whdia"]["launches"],
+                   dict(lap_w, max_abs_err_vs_plain=max(
+                       w["max_abs_err_vs_plain"] for w in whdia.values()))),
+        kernel_row("whell_packed_spmv_f64", solve64["cg_auto_whell"]["launches"],
+                   spmv64),
+        kernel_row("sdia_spmv_f64", solve64["cg_sdia"]["launches"], sdia64),
+        kernel_row("whdia_spmv_f64", solve64["cg_auto_whdia"]["launches"]
+                   + solve64["bicgstab_whdia"]["launches"],
+                   dict(lap_w64, max_abs_err_vs_plain=max(
+                       w["max_abs_err_vs_plain"] for w in whdia64.values()))),
+    ], smi, torch)
     return 0
 
 

@@ -10,7 +10,10 @@ runs two routes on the GPU, each through a hand CUDA kernel:
     host COO → convert.coo_to_sdia | coo_to_whdia → ops.sdia_spmv |
     whdia_spmv (kernels/sdia.py, kernels/whdia.py) → solvers.cg / bicgstab
 
-``solvers.solve`` picks the route by format selection.
+``solvers.solve`` picks the route by format selection.  Values are
+float32 (bf16 too on WHELL) or float64; a float64 matrix runs float64
+layouts, kernels and solver loops natively, where the JAX package
+emulates D precision with fp32 pairs.
 
 Every function takes an explicit ``device``; CPU tensors run the plain
 PyTorch version of each kernel.

@@ -1,16 +1,19 @@
 """COO → WHDIA conversion (host NumPy + the C++ tiler).
 
 Counterpart of the unblocked path of :func:`spgpu_tpu.convert.whdia.
-coo_to_whdia` for float32 values: the same slot discovery, the same
-native greedy tiler, the same geometry defaults, window pick and
+coo_to_whdia` for float32 and float64 values: the same slot discovery,
+the same native greedy tiler, the same geometry defaults, window pick and
 pattern-mode detection, so the arrays are bit-identical to the JAX
 converter's (``slot_r0`` is stored once per slot instead of
-lane-replicated).  Entries are bucketed by (hack, diagonal); duplicate
+lane-replicated).  float64 takes the geometry of the JAX double-float
+layout, holds the COO's values where JAX holds a hi/lo pair, and packs
+r0 per tile wherever float32 would (the JAX double-float kernel reads
+the ``slot_r0`` slab only).  Entries are bucketed by (hack, diagonal); duplicate
 coordinates plain-store, so the last entry in file order wins, as in
 ``cooToHdia`` (``hdia.cpp:230-349``).
 
 The JAX converter splits a matrix into row blocks (``BlockedWhdia``) when
-x passes its VMEM budget (``n_cols*4 > 10 MiB``) or its tile scalars pass
+x passes its VMEM budget (``n_cols*itemsize > 10 MiB``) or its tile scalars pass
 the SMEM budget (``2*nnz/1024 > 150,000`` estimated tiles).  The port reads x from device
 memory and keeps its scalars in plain arrays, so it builds one layout at
 any size; past those budgets the two packages' layouts differ by design.
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from spgpu_tpu_torch import native
-from spgpu_tpu_torch.core import require_float32
+from spgpu_tpu_torch.core import real_dtype
 from spgpu_tpu_torch.formats.coo import CooMatrix
 from spgpu_tpu_torch.formats.whdia import WhdiaMatrix
 
@@ -56,12 +59,14 @@ def coo_to_whdia(coo: CooMatrix, *, device) -> WhdiaMatrix:
     holds one int16 per slot.  Raises ``ValueError`` past 65,536 column
     pages (~8.4M columns), where ``tile_base``'s 16-bit base page would
     wrap (ROADMAP module item 8)."""
-    require_float32(coo.values.dtype, "WHDIA")
+    dt = real_dtype(coo.values.dtype, "WHDIA")
+    f64 = dt == np.float64
     num_hacks = max(-(-coo.n_rows // _HACK), 1)
-    # the JAX package's geometry defaults (fp32)
-    group_hacks = 32 if num_hacks < 128 else 128
+    # the JAX package's geometry defaults
+    group_hacks = 32 if (f64 or num_hacks < 128) else 128
     est_tiles = max(1, coo.nnz // 1024)
-    chunk_tiles = (256 if est_tiles >= 4096 else 128 if est_tiles >= 1024
+    chunk_tiles = (32 if f64 else 256 if est_tiles >= 4096
+                   else 128 if est_tiles >= 1024
                    else 64 if est_tiles >= 256 else 32)
     gh, ct = group_hacks, chunk_tiles
     num_groups = -(-num_hacks // gh)
@@ -81,7 +86,7 @@ def coo_to_whdia(coo: CooMatrix, *, device) -> WhdiaMatrix:
 
     if m == 0:
         total = num_groups * ct * 8
-        return make(np.zeros((total, _HACK), np.float32),
+        return make(np.zeros((total, _HACK), dt),
                     np.zeros(total, np.int16), None,
                     np.zeros(total // 8, np.int32),
                     np.arange(num_groups, dtype=np.int32), total,
@@ -149,7 +154,7 @@ def coo_to_whdia(coo: CooMatrix, *, device) -> WhdiaMatrix:
     r0 = slot_hack * _HACK + slot_diag - tb_raw[tile_of_slot] * 128
     slot_r0 = np.zeros(total_slots, dtype=np.int16)
     slot_r0[slot_final] = r0.astype(np.int16)
-    vals = np.zeros((total_slots, _HACK), dtype=np.float32)
+    vals = np.zeros((total_slots, _HACK), dtype=dt)
     vals[slot_final[slot_of_entry], lane[order]] = coo.values[order]
 
     # pattern mode: every tile's filled slots (a position prefix) form an

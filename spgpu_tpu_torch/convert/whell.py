@@ -9,17 +9,21 @@ through its 50 MB L2 and holds its scalars in plain arrays: no VMEM
 group-size shrink, no column panels (``PanelledWhell``) and no SMEM row
 segments (``SegmentedWhell``).  One :class:`WhellMatrix` is built at any
 size.  At the sizes where the JAX converter does not split either, the
-two layouts are identical.
+two layouts are identical.  (For float64 the JAX budgets are tighter,
+since it stages x as a hi/lo pair: past 3,584 x pages its double-float
+layout shrinks groups or splits panels, and the port's does not.)
 """
 
 from __future__ import annotations
 
 import warnings
+from typing import Optional
 
 import numpy as np
 import torch
 
 from spgpu_tpu_torch import native
+from spgpu_tpu_torch.core import dtype_name, real_dtype
 from spgpu_tpu_torch.formats.coo import CooMatrix
 from spgpu_tpu_torch.formats.whell import WhellMatrix
 
@@ -34,16 +38,11 @@ _SLAB_GUARD_BYTES = 16 * 2 ** 30
 
 
 def value_dtype(dtype) -> torch.dtype:
-    """The slab dtype for a NumPy/torch dtype or name: float32 or
-    bfloat16; anything else raises ``NotImplementedError``."""
-    if dtype is torch.bfloat16 or str(dtype) in ("bfloat16", "torch.bfloat16"):
+    """The slab dtype for a NumPy/torch dtype or name: float32, float64
+    or bfloat16; anything else raises ``NotImplementedError``."""
+    if dtype_name(dtype) == "bfloat16":
         return torch.bfloat16
-    if dtype is torch.float32 or (not isinstance(dtype, torch.dtype)
-                                  and np.dtype(dtype) == np.float32):
-        return torch.float32
-    raise NotImplementedError(
-        f"packed WHELL in the port takes float32 or bfloat16 values, not "
-        f"{dtype}: float64 is ROADMAP module item 5, complex item 6")
+    return getattr(torch, real_dtype(dtype, "packed WHELL").name)
 
 
 def local_degree_perm(coo: CooMatrix, window: int = 1024) -> np.ndarray:
@@ -81,7 +80,7 @@ def coo_to_whell(
     device,
     dtype=None,
     window_pages: int = 32,
-    scattered: bool = True,
+    scattered: Optional[bool] = None,
 ) -> WhellMatrix:
     """Build a packed-lane :class:`WhellMatrix` on ``device``.
 
@@ -91,15 +90,24 @@ def coo_to_whell(
     ``a.extract``).  ``scattered`` lets a tile's window be
     ``window_pages / 8`` independently based 8-page superpages;
     ``scattered=False`` keeps one aligned window of ``window_pages``.
-    ``dtype`` selects float32 or bfloat16 values (default: the COO's).
-    Duplicates stay separate cells and add.  (The classic, non-packed
-    layout is not ported: ROADMAP module item 11.)
+    ``dtype`` selects float32, float64 or bfloat16 values (default: the
+    COO's).  float64 takes the geometry of the JAX package's double-float
+    layout (aligned windows by default, its chunk and group sizes), so
+    the two packages' structural arrays are identical and the values are
+    the COO's float64 ones, not a hi/lo pair.  Duplicates stay separate
+    cells and add.  (The classic, non-packed layout is not ported:
+    ROADMAP module item 11.)
     """
     vdt = value_dtype(coo.values.dtype if dtype is None else dtype)
+    f64 = vdt == torch.float64
+    if scattered is None:
+        scattered = not f64
     est_tiles = max(1, coo.nnz // 1024)
     num_hacks = -(-coo.n_rows // 128)
     # the JAX package's measured geometry defaults
-    if scattered:
+    if f64:
+        ct = 32 if est_tiles >= 128 else 16
+    elif scattered:
         ct = 128 if est_tiles >= 512 else (64 if est_tiles >= 128 else 32)
     elif est_tiles >= 2048:
         ct = 256
@@ -109,7 +117,7 @@ def coo_to_whell(
         ct = 64
     else:
         ct = 32
-    if scattered and num_hacks >= 512:
+    if (f64 or scattered) and num_hacks >= 512:
         gh = 512
     elif num_hacks >= 128:
         gh = 128
@@ -188,7 +196,7 @@ def _coo_to_whell_packed(coo: CooMatrix, window_pages: int, vdt: torch.dtype,
             group_hacks=gh, chunk_tiles=ct, unit_segments=unit,
         ).to(device)
 
-    store_dt = np.int16 if vdt == torch.bfloat16 else np.float32
+    store_dt = _slab_values(np.zeros(0), vdt).dtype
     if m == 0:
         # an empty matrix builds aligned (no group_bases) in both packages
         total = num_groups * ct * 8

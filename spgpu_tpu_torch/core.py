@@ -2,7 +2,9 @@
 
 Counterpart of :mod:`spgpu_tpu.core`.  The layout constants (128 lanes,
 chunk sizes) are properties of the compute layouts, not of the TPU, so
-they carry over unchanged: the port reads the same layout arrays.  The
+they carry over unchanged: the port reads the same layout arrays.
+float64 runs natively on the GPU: the JAX package's double-float pairs
+are joined into one float64 array (:func:`join_dd`).  The
 TPU ``Context`` (device kind, VMEM, HBM table) has no counterpart here:
 every function of the port takes an explicit ``device``.
 """
@@ -15,7 +17,8 @@ import numpy as np
 import torch
 
 __all__ = ["Status", "TypeCode", "size_of", "LANES", "CHUNK_TILES",
-           "round_up", "cdiv", "require_cuda", "require_float32"]
+           "round_up", "cdiv", "require_cuda", "dtype_name", "real_dtype",
+           "join_dd"]
 
 
 class Status(enum.IntEnum):
@@ -79,17 +82,38 @@ def require_cuda() -> torch.device:
     return torch.device("cuda", 0)
 
 
-def require_float32(dtype, layout: str) -> None:
-    """Raise ``NotImplementedError`` unless ``dtype`` (NumPy) is float32:
-    the layout's other value types are later slices of the port."""
-    dtype = np.dtype(dtype)
-    if dtype == np.float32:
-        return
-    if dtype == np.float64:
-        later = "float64 is ROADMAP module item 5"
-    elif np.issubdtype(dtype, np.complexfloating):
+def dtype_name(dtype) -> str:
+    """The name of a NumPy or torch dtype, or of a dtype given by name
+    ("float32", "bfloat16", ...)."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    try:
+        return np.dtype(dtype).name
+    except TypeError:  # "bfloat16": NumPy has no such dtype
+        return str(dtype)
+
+
+def real_dtype(dtype, layout: str) -> np.dtype:
+    """``dtype`` (NumPy or torch) as ``np.float32`` or ``np.float64``, the
+    real value types every layout takes; anything else raises
+    ``NotImplementedError`` (complex values are a later slice)."""
+    name = dtype_name(dtype)
+    if name in ("float32", "float64"):
+        return np.dtype(name)
+    if name.startswith("complex"):
         later = "complex values are ROADMAP module item 6"
     else:
-        later = "other value types are not ported (ROADMAP module item 4)"
+        later = "no other value type is planned"
     raise NotImplementedError(
-        f"{layout} in the port takes float32 values, not {dtype}: {later}")
+        f"{layout} in the port takes float32 or float64 values, not "
+        f"{name}: {later}")
+
+
+def join_dd(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """A double-float pair of fp32 arrays joined into float64, as
+    ``spgpu_tpu.ops.dd.join`` does."""
+    if hi.shape != lo.shape or not hi.dtype == lo.dtype == torch.float32:
+        raise ValueError(
+            "a double-float pair is two float32 arrays of one shape, not "
+            f"{hi.dtype} {tuple(hi.shape)} and {lo.dtype} {tuple(lo.shape)}")
+    return hi.double() + lo.double()

@@ -3,7 +3,10 @@
 //
 // Replaces spgpu_tpu/ops/pallas_kernels.py::_whdia_kernel (body
 // _whdia_kernel_body, r0 unpacking _whdia_tile_r0; called through
-// _whdia_spmv_call and whdia_spmv_pallas).  It computes the same product
+// _whdia_spmv_call and whdia_spmv_pallas; entry whdia_spmv, fp32) and
+// _whdia_dd_kernel (_whdia_dd_call, whdia_spmv_dd_pallas; entry
+// whdia_spmv_f64, float64 where the TPU kernel emulates it with
+// double-float pairs and slab-mode r0 only).  It computes the same product
 // on the same layout arrays (spgpu_tpu_torch/formats/whdia.py):
 //
 //   for every cell (slot s, lane j) of tile t = s / 8:
@@ -23,14 +26,17 @@
 // slot of r0 in slab mode), and the chunk padding tiles stream too.  On
 // the 1,048,576-row 2-D Laplacian the layout is 16,384 tiles, 64 MiB of
 // values (3.2 cells per nonzero), about 20 us at 3.35 TB/s; x (4 MiB) and
-// z (4 MiB) stay in the 50 MB L2.
+// z (4 MiB) stay in the 50 MB L2.  float64 doubles the value bytes and the
+// vectors: about 128 MiB of slab and 16 MiB of x and z on the Laplacian,
+// ~45 us.
 //
 // What the design does about it: kernel #1's tile pass, without pages.
 // One 128-thread block per tile; thread j reads its lane of the 8 slots
 // (coalesced), gathers x at the slot's contiguous shifted run (coalesced,
 // from L2), sums in a register and issues one atomicAdd into the zeroed
-// row hack*128 + j.  WHDIA has no lane segments, so there is no flush
-// pass.  Atomic order varies, so results are not bit-reproducible.
+// row hack*128 + j (atomicAdd(double) is native on Hopper).  WHDIA has no
+// lane segments, so there is no flush pass.  Atomic order varies, so
+// results are not bit-reproducible.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,14 +46,22 @@ namespace {
 constexpr int kLanes = 128;
 constexpr int kSlots = 8;
 
-template <bool kPattern>
+__device__ __forceinline__ float fmadd(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+
+__device__ __forceinline__ double fmadd(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+template <typename T, bool kPattern>
 __global__ void __launch_bounds__(kLanes)
-whdia_tile_pass(const float* __restrict__ values,
+whdia_tile_pass(const T* __restrict__ values,
                 const int16_t* __restrict__ slot_r0,
                 const int32_t* __restrict__ tile_r0,
                 const int32_t* __restrict__ tile_base,
                 const int32_t* __restrict__ chunk_group,
-                const float* __restrict__ x, float* __restrict__ z,
+                const T* __restrict__ x, T* __restrict__ z,
                 int64_t n_cols, int chunk_tiles, int group_hacks) {
   const int64_t t = blockIdx.x;
   const int j = threadIdx.x;
@@ -61,7 +75,7 @@ whdia_tile_pass(const float* __restrict__ values,
     f1 = static_cast<int>((w >> 16) & 0x7u);
     step = static_cast<int>((w >> 19) & 0x1FFFu) - 4096;
   }
-  float sum = 0.f;
+  T sum = 0;
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
     const int64_t slot = t * kSlots + s;
@@ -71,44 +85,63 @@ whdia_tile_pass(const float* __restrict__ values,
     else
       r0 = slot_r0[slot];
     const int64_t c = c0 + r0;
-    const float v = __ldg(values + slot * kLanes + j);
-    if (c >= 0 && c < n_cols) sum = fmaf(v, __ldg(x + c), sum);
+    const T v = __ldg(values + slot * kLanes + j);
+    if (c >= 0 && c < n_cols) sum = fmadd(v, __ldg(x + c), sum);
   }
   const int64_t hack =
       static_cast<int64_t>(chunk_group[t / chunk_tiles]) * group_hacks + (meta >> 16);
   atomicAdd(z + hack * kLanes + j, sum);
 }
 
-}  // namespace
-
-extern "C" {
-
-// z (num_groups*group_hacks*128 fp32, zeroed by the caller) += WHDIA
-// product of the slab and x (n_cols fp32).  Exactly one of slot_r0 (slab
-// mode) and tile_r0 (pattern mode) is non-null.  Launches on `stream`,
-// does not synchronise, and returns cudaGetLastError().
-int whdia_spmv(const void* values, const void* slot_r0, const void* tile_r0,
-               const void* tile_base, const void* chunk_group, const void* x,
-               void* z, int64_t num_tiles, int64_t n_cols, int chunk_tiles,
-               int group_hacks, void* stream) {
+template <typename T>
+int launch(const void* values, const void* slot_r0, const void* tile_r0,
+           const void* tile_base, const void* chunk_group, const void* x,
+           void* z, int64_t num_tiles, int64_t n_cols, int chunk_tiles,
+           int group_hacks, void* stream) {
   if (num_tiles > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const dim3 grid(static_cast<unsigned>(num_tiles));
-    auto* v = static_cast<const float*>(values);
+    auto* v = static_cast<const T*>(values);
     auto* sr = static_cast<const int16_t*>(slot_r0);
     auto* tr = static_cast<const int32_t*>(tile_r0);
     auto* tb = static_cast<const int32_t*>(tile_base);
     auto* cg = static_cast<const int32_t*>(chunk_group);
-    auto* xf = static_cast<const float*>(x);
-    auto* zf = static_cast<float*>(z);
+    auto* xt = static_cast<const T*>(x);
+    auto* zt = static_cast<T*>(z);
     if (tr != nullptr)
-      whdia_tile_pass<true><<<grid, kLanes, 0, st>>>(
-          v, sr, tr, tb, cg, xf, zf, n_cols, chunk_tiles, group_hacks);
+      whdia_tile_pass<T, true><<<grid, kLanes, 0, st>>>(
+          v, sr, tr, tb, cg, xt, zt, n_cols, chunk_tiles, group_hacks);
     else
-      whdia_tile_pass<false><<<grid, kLanes, 0, st>>>(
-          v, sr, tr, tb, cg, xf, zf, n_cols, chunk_tiles, group_hacks);
+      whdia_tile_pass<T, false><<<grid, kLanes, 0, st>>>(
+          v, sr, tr, tb, cg, xt, zt, n_cols, chunk_tiles, group_hacks);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// z (num_groups*group_hacks*128, zeroed by the caller) += WHDIA product of
+// the slab and x (n_cols).  Exactly one of slot_r0 (slab mode) and tile_r0
+// (pattern mode) is non-null.  Launches on `stream`, does not synchronise,
+// and returns cudaGetLastError().  whdia_spmv takes fp32 values, x and z,
+// whdia_spmv_f64 float64 ones.
+int whdia_spmv(const void* values, const void* slot_r0, const void* tile_r0,
+               const void* tile_base, const void* chunk_group, const void* x,
+               void* z, int64_t num_tiles, int64_t n_cols, int chunk_tiles,
+               int group_hacks, void* stream) {
+  return launch<float>(values, slot_r0, tile_r0, tile_base, chunk_group, x, z,
+                       num_tiles, n_cols, chunk_tiles, group_hacks, stream);
+}
+
+int whdia_spmv_f64(const void* values, const void* slot_r0,
+                   const void* tile_r0, const void* tile_base,
+                   const void* chunk_group, const void* x, void* z,
+                   int64_t num_tiles, int64_t n_cols, int chunk_tiles,
+                   int group_hacks, void* stream) {
+  return launch<double>(values, slot_r0, tile_r0, tile_base, chunk_group, x, z,
+                        num_tiles, n_cols, chunk_tiles, group_hacks, stream);
 }
 
 }  // extern "C"

@@ -2,8 +2,12 @@
 // for ctypes.
 //
 // Replaces spgpu_tpu/ops/pallas_kernels.py::_whell_packed_kernel (called
-// through _whell_packed_call and whell_spmv_pallas).  It computes the same
-// product on the same layout arrays (spgpu_tpu_torch/formats/whell.py):
+// through _whell_packed_call and whell_spmv_pallas; entry whell_packed_spmv,
+// fp32 or bf16 values, fp32 x and sums) and _whell_packed_dd_kernel
+// (_whell_packed_dd_call, whell_spmv_dd_pallas; entry whell_packed_spmv_f64,
+// float64 values, x and sums, where the TPU kernel emulates them with
+// double-float pairs).  It computes the same product on the same layout
+// arrays (spgpu_tpu_torch/formats/whell.py):
 //
 //   for every cell (slot s, lane j) of tile t = s / 8:
 //     r = residue[s, j];  d = page_tab[s, r]        (indexed by residue)
@@ -11,7 +15,7 @@
 //                page = group_bases[g*K + (d >> 3)] + (d & 7)
 //     aligned:   page = (tile_base[t] & 0xFFFF) + d, hh = tile_base[t] >> 16
 //     hack = chunk_group[t / chunk_tiles] * group_hacks + hh
-//     acc[hack, j] += float(values[s, j]) * x[page*128 + r]
+//     acc[hack, j] += T(values[s, j]) * x[page*128 + r]     (T = float or double)
 //   then per hack row, with p the inclusive lane prefix sum of acc[hack, :]:
 //     z[hack, o] = (hi >= 0 ? p[hi] : 0) - (lo >= 0 ? p[lo] : 0)
 //   or, with unit segments, z[hack, o] = hi >= 0 ? acc[hack, hi] : 0.
@@ -20,7 +24,10 @@
 // fp32 values (4 B value + int8 residue + int8 page entry; 4 B/cell for
 // bf16), about 67 MiB per product on the flagship FEM matrix against
 // 3.35 TB/s of HBM, i.e. ~21 us at best.  x (1.4 MB there) and the
-// accumulator (1.6 MB) stay resident in the 50 MB L2.
+// accumulator (1.6 MB) stay resident in the 50 MB L2.  float64 streams
+// 10 B/cell (8 B value + the two index bytes) on the double-float layout
+// geometry, about 117 MiB and ~37 us on the flagship; fp64 FMA and
+// atomicAdd(double) are native on Hopper, so no error-free transforms.
 //
 // What the design does about it: the TPU kernel stages x in VMEM and
 // resolves pages with sublane gathers, select trees and dual accumulator
@@ -32,9 +39,13 @@
 // issues one atomicAdd into the (hack, lane) accumulator.  Flush pass:
 // one block per hack row, a warp-shuffle inclusive scan over the 128
 // lanes, then the segment difference.  Atomic order varies, so results
-// are not bit-reproducible (fp32 rounding only).  wgmma and TMA have no
-// role in a gather-bound product; deterministic per-hack ownership and
-// several tiles per block are later work.
+// are not bit-reproducible (rounding in T only).  The difference of two
+// prefix sums carries an error of the order of eps(T) times the hack's
+// prefix total, not of the row's own sum: a light row behind a heavy one
+// in the same hack has a larger relative error (fp64: ~1e-16 of the
+// prefix, which the double-float TPU kernel matches at ~2^-48).  wgmma
+// and TMA have no role in a gather-bound product; deterministic per-hack
+// ownership and several tiles per block are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,7 +64,20 @@ __device__ __forceinline__ float load_value(const uint16_t* v, int64_t i) {
   return __uint_as_float(static_cast<uint32_t>(__ldg(v + i)) << 16);
 }
 
-template <typename V, bool kScattered>
+__device__ __forceinline__ double load_value(const double* v, int64_t i) {
+  return __ldg(v + i);
+}
+
+__device__ __forceinline__ float fmadd(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+
+__device__ __forceinline__ double fmadd(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+// V: value storage type; T: x, accumulator and output type
+template <typename V, typename T, bool kScattered>
 __global__ void __launch_bounds__(kLanes)
 whell_tile_pass(const V* __restrict__ values,
                 const int8_t* __restrict__ residue,
@@ -61,7 +85,7 @@ whell_tile_pass(const V* __restrict__ values,
                 const int32_t* __restrict__ tile_base,
                 const int32_t* __restrict__ chunk_group,
                 const int32_t* __restrict__ group_bases,
-                const float* __restrict__ x, float* __restrict__ acc,
+                const T* __restrict__ x, T* __restrict__ acc,
                 int chunk_tiles, int group_hacks, int ntab) {
   __shared__ int8_t pt[kSlots][kLanes];
   const int64_t t = blockIdx.x;
@@ -72,7 +96,7 @@ whell_tile_pass(const V* __restrict__ values,
   const uint32_t meta = static_cast<uint32_t>(tile_base[t]);
   __syncthreads();
 
-  float sum = 0.f;
+  T sum = 0;
   uint32_t hh;
   if constexpr (kScattered) {
     hh = meta >> 20;
@@ -83,7 +107,7 @@ whell_tile_pass(const V* __restrict__ values,
       const int r = residue[c];
       const int d = pt[s][r];
       const int64_t page = bases[d >> 3] + (d & 7);
-      sum = fmaf(load_value(values, c), __ldg(x + page * kLanes + r), sum);
+      sum = fmadd(load_value(values, c), __ldg(x + page * kLanes + r), sum);
     }
   } else {
     hh = meta >> 16;
@@ -93,34 +117,35 @@ whell_tile_pass(const V* __restrict__ values,
       const int64_t c = cell0 + s * kLanes + j;
       const int r = residue[c];
       const int64_t page = base + pt[s][r];
-      sum = fmaf(load_value(values, c), __ldg(x + page * kLanes + r), sum);
+      sum = fmadd(load_value(values, c), __ldg(x + page * kLanes + r), sum);
     }
   }
   const int64_t hack = static_cast<int64_t>(chunk_group[t / chunk_tiles]) * group_hacks + hh;
   atomicAdd(acc + hack * kLanes + j, sum);
 }
 
-template <bool kUnit>
+// the scan array p is 128 T: 512 B for float, 1 KiB for double
+template <typename T, bool kUnit>
 __global__ void __launch_bounds__(kLanes)
-whell_flush_pass(const float* __restrict__ acc,
+whell_flush_pass(const T* __restrict__ acc,
                  const int8_t* __restrict__ seg_lo,
-                 const int8_t* __restrict__ seg_hi, float* __restrict__ z) {
-  __shared__ float p[kLanes];
-  __shared__ float warp_total[kLanes / 32];
+                 const int8_t* __restrict__ seg_hi, T* __restrict__ z) {
+  __shared__ T p[kLanes];
+  __shared__ T warp_total[kLanes / 32];
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kLanes + threadIdx.x;
   const int j = threadIdx.x;
-  float a = acc[i];
+  T a = acc[i];
   const int hi = seg_hi[i];
   if constexpr (kUnit) {
     p[j] = a;
     __syncthreads();
-    z[i] = hi >= 0 ? p[hi] : 0.f;
+    z[i] = hi >= 0 ? p[hi] : T(0);
     return;
   }
   const int lane = j & 31, warp = j >> 5;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const float up = __shfl_up_sync(0xffffffffu, a, o);
+    const T up = __shfl_up_sync(0xffffffffu, a, o);
     if (lane >= o) a += up;
   }
   if (lane == 31) warp_total[warp] = a;
@@ -129,26 +154,47 @@ whell_flush_pass(const float* __restrict__ acc,
   p[j] = a;
   __syncthreads();
   const int lo = seg_lo[i];
-  z[i] = (hi >= 0 ? p[hi] : 0.f) - (lo >= 0 ? p[lo] : 0.f);
+  z[i] = (hi >= 0 ? p[hi] : T(0)) - (lo >= 0 ? p[lo] : T(0));
 }
 
-template <typename V>
-void launch_tile_pass(bool scattered, int64_t num_tiles, cudaStream_t st,
-                      const void* values, const int8_t* residue,
-                      const int8_t* page_tab, const int32_t* tile_base,
-                      const int32_t* chunk_group, const int32_t* group_bases,
-                      const float* x, float* acc, int chunk_tiles,
-                      int group_hacks, int ntab) {
-  const V* v = static_cast<const V*>(values);
-  const dim3 grid(static_cast<unsigned>(num_tiles));
-  if (scattered)
-    whell_tile_pass<V, true><<<grid, kLanes, 0, st>>>(
-        v, residue, page_tab, tile_base, chunk_group, group_bases, x, acc,
-        chunk_tiles, group_hacks, ntab);
-  else
-    whell_tile_pass<V, false><<<grid, kLanes, 0, st>>>(
-        v, residue, page_tab, tile_base, chunk_group, group_bases, x, acc,
-        chunk_tiles, group_hacks, ntab);
+// tile pass on values of type V, then the flush; returns cudaGetLastError()
+template <typename V, typename T>
+int whell_spmv(const void* values, const void* residue, const void* page_tab,
+               const void* tile_base, const void* chunk_group,
+               const void* group_bases, const void* seg_lo, const void* seg_hi,
+               const void* x, void* acc, void* z, int64_t num_tiles,
+               int64_t num_rows, int chunk_tiles, int group_hacks,
+               int window_pages, int unit_segments, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ntab = window_pages / 8;
+  auto* v = static_cast<const V*>(values);
+  auto* res = static_cast<const int8_t*>(residue);
+  auto* pt = static_cast<const int8_t*>(page_tab);
+  auto* tb = static_cast<const int32_t*>(tile_base);
+  auto* cg = static_cast<const int32_t*>(chunk_group);
+  auto* gb = static_cast<const int32_t*>(group_bases);
+  auto* xt = static_cast<const T*>(x);
+  auto* a = static_cast<T*>(acc);
+  if (num_tiles > 0) {
+    const dim3 grid(static_cast<unsigned>(num_tiles));
+    if (gb != nullptr)
+      whell_tile_pass<V, T, true><<<grid, kLanes, 0, st>>>(
+          v, res, pt, tb, cg, gb, xt, a, chunk_tiles, group_hacks, ntab);
+    else
+      whell_tile_pass<V, T, false><<<grid, kLanes, 0, st>>>(
+          v, res, pt, tb, cg, gb, xt, a, chunk_tiles, group_hacks, ntab);
+  }
+  if (num_rows > 0) {
+    auto* lo = static_cast<const int8_t*>(seg_lo);
+    auto* hi = static_cast<const int8_t*>(seg_hi);
+    auto* zt = static_cast<T*>(z);
+    const dim3 grid(static_cast<unsigned>(num_rows));
+    if (unit_segments)
+      whell_flush_pass<T, true><<<grid, kLanes, 0, st>>>(a, lo, hi, zt);
+    else
+      whell_flush_pass<T, false><<<grid, kLanes, 0, st>>>(a, lo, hi, zt);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -156,9 +202,11 @@ void launch_tile_pass(bool scattered, int64_t num_tiles, cudaStream_t st,
 extern "C" {
 
 // z (num_rows x 128) = segment flush of acc after the tile pass.  acc
-// (num_rows x 128 fp32) must be zeroed by the caller; group_bases may be
-// null (aligned windows).  values_bf16 selects bf16 values.  Launches on
-// `stream`, does not synchronise, and returns cudaGetLastError().
+// (num_rows x 128) must be zeroed by the caller; group_bases may be null
+// (aligned windows).  Launches on `stream`, does not synchronise, and
+// returns cudaGetLastError().
+//
+// fp32 x, acc and z; values_bf16 selects bf16 values over fp32 ones.
 int whell_packed_spmv(const void* values, int values_bf16,
                       const void* residue, const void* page_tab,
                       const void* tile_base, const void* chunk_group,
@@ -167,35 +215,29 @@ int whell_packed_spmv(const void* values, int values_bf16,
                       int64_t num_tiles, int64_t num_rows, int chunk_tiles,
                       int group_hacks, int window_pages, int unit_segments,
                       void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool scattered = group_bases != nullptr;
-  const int ntab = window_pages / 8;
-  auto* res = static_cast<const int8_t*>(residue);
-  auto* pt = static_cast<const int8_t*>(page_tab);
-  auto* tb = static_cast<const int32_t*>(tile_base);
-  auto* cg = static_cast<const int32_t*>(chunk_group);
-  auto* gb = static_cast<const int32_t*>(group_bases);
-  auto* xf = static_cast<const float*>(x);
-  auto* a = static_cast<float*>(acc);
-  if (num_tiles > 0) {
-    if (values_bf16)
-      launch_tile_pass<uint16_t>(scattered, num_tiles, st, values, res, pt, tb,
-                                 cg, gb, xf, a, chunk_tiles, group_hacks, ntab);
-    else
-      launch_tile_pass<float>(scattered, num_tiles, st, values, res, pt, tb, cg,
-                              gb, xf, a, chunk_tiles, group_hacks, ntab);
-  }
-  if (num_rows > 0) {
-    auto* lo = static_cast<const int8_t*>(seg_lo);
-    auto* hi = static_cast<const int8_t*>(seg_hi);
-    auto* zf = static_cast<float*>(z);
-    const dim3 grid(static_cast<unsigned>(num_rows));
-    if (unit_segments)
-      whell_flush_pass<true><<<grid, kLanes, 0, st>>>(a, lo, hi, zf);
-    else
-      whell_flush_pass<false><<<grid, kLanes, 0, st>>>(a, lo, hi, zf);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (values_bf16)
+    return whell_spmv<uint16_t, float>(
+        values, residue, page_tab, tile_base, chunk_group, group_bases,
+        seg_lo, seg_hi, x, acc, z, num_tiles, num_rows, chunk_tiles,
+        group_hacks, window_pages, unit_segments, stream);
+  return whell_spmv<float, float>(
+      values, residue, page_tab, tile_base, chunk_group, group_bases, seg_lo,
+      seg_hi, x, acc, z, num_tiles, num_rows, chunk_tiles, group_hacks,
+      window_pages, unit_segments, stream);
+}
+
+// The same with float64 values, x, acc and z.
+int whell_packed_spmv_f64(const void* values, const void* residue,
+                          const void* page_tab, const void* tile_base,
+                          const void* chunk_group, const void* group_bases,
+                          const void* seg_lo, const void* seg_hi,
+                          const void* x, void* acc, void* z, int64_t num_tiles,
+                          int64_t num_rows, int chunk_tiles, int group_hacks,
+                          int window_pages, int unit_segments, void* stream) {
+  return whell_spmv<double, double>(
+      values, residue, page_tab, tile_base, chunk_group, group_bases, seg_lo,
+      seg_hi, x, acc, z, num_tiles, num_rows, chunk_tiles, group_hacks,
+      window_pages, unit_segments, stream);
 }
 
 }  // extern "C"

@@ -10,8 +10,10 @@ The JAX kernel compiles the offsets into the program.  The CUDA kernel
 reads them from ``offset_table``, a small int32 copy on the device that it
 stages through shared memory, as spGPU's DIA kernel stages its offset
 list (``dia_spmv_base_template.cuh:35-49``).  ``offsets`` stays a tuple
-of Python ints for the host side.  Only float32 values are ported: the
-double-float planes (``values_lo``) and complex planes are not.
+of Python ints for the host side.  Values are float32 or float64: where
+the JAX package keeps float64 planes as double-float pairs (``values``
+hi, ``values_lo`` lo), the port keeps one float64 array.  Complex planes
+are not ported.
 """
 
 from __future__ import annotations
@@ -21,12 +23,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from spgpu_tpu_torch.core import join_dd
+
 __all__ = ["SdiaMatrix", "from_numpy_fields"]
 
 
 @dataclasses.dataclass
 class SdiaMatrix:
-    values: torch.Tensor  # (max(n_diags, 1), n_tiles*8, 128) float32
+    values: torch.Tensor  # (max(n_diags, 1), n_tiles*8, 128) float32 or float64
     offset_table: torch.Tensor  # (n_diags,) int32, the offsets on the device
     offsets: tuple  # ascending Python ints
     n_rows: int
@@ -74,7 +78,7 @@ class SdiaMatrix:
             if not cond:
                 raise ValueError(f"invalid SdiaMatrix: {msg}")
 
-        want(v.dtype == torch.float32, f"values dtype {v.dtype}")
+        want(v.dtype in (torch.float32, torch.float64), f"values dtype {v.dtype}")
         want(v.dim() == 3 and v.shape[0] == max(nd, 1) and v.shape[2] == 128
              and v.shape[1] % 8 == 0, f"values shape {tuple(v.shape)}")
         want(v.shape[1] * 128 >= self.n_rows, "values planes shorter than n_rows")
@@ -87,11 +91,12 @@ class SdiaMatrix:
              "offsets must ascend")
 
 
-def make(values: np.ndarray, offsets, n_rows: int, n_cols: int) -> SdiaMatrix:
-    """An :class:`SdiaMatrix` on the CPU from float32 planes and offsets."""
+def make(values, offsets, n_rows: int, n_cols: int) -> SdiaMatrix:
+    """An :class:`SdiaMatrix` on the CPU from float32 or float64 planes (a
+    NumPy array or a tensor) and offsets."""
     offsets = tuple(int(o) for o in offsets)
     return SdiaMatrix(
-        values=torch.from_numpy(np.ascontiguousarray(values, dtype=np.float32)),
+        values=torch.as_tensor(values).contiguous(),
         offset_table=torch.tensor(offsets, dtype=torch.int32),
         offsets=offsets, n_rows=int(n_rows), n_cols=int(n_cols))
 
@@ -101,13 +106,12 @@ def from_numpy_fields(values: np.ndarray, offsets, n_rows: int, n_cols: int,
     """Build the port's :class:`SdiaMatrix` from a JAX ``SdiaMatrix``'s
     fields (``np.asarray(a.values)``, ``a.offsets``, shape, ``values_lo``).
 
-    Double-float planes raise ``NotImplementedError``.  The result lies
-    on the CPU and has passed :meth:`SdiaMatrix.check`; move it with
-    :meth:`SdiaMatrix.to`."""
+    Double-float planes join into float64, ``values + values_lo``.  The
+    result lies on the CPU and has passed :meth:`SdiaMatrix.check`; move
+    it with :meth:`SdiaMatrix.to`."""
+    values = torch.from_numpy(np.array(values))
     if values_lo is not None:
-        raise NotImplementedError(
-            "double-float SDIA planes are not ported; float64 runs natively "
-            "in a later slice (ROADMAP module item 5)")
-    a = make(np.array(values), offsets, n_rows, n_cols)
+        values = join_dd(values, torch.from_numpy(np.array(values_lo)))
+    a = make(values, offsets, n_rows, n_cols)
     a.check()
     return a

@@ -20,9 +20,11 @@ the original numbering.  Cells whose column leaves ``[0, n_cols)`` (the
 ends of a diagonal, dead slots) hold 0.
 
 The JAX layout replicates ``slot_r0`` across the 128 lanes, a TPU
-vector-operand device; here ``slot_r0`` holds one int16 per slot.  The
-row-blocked ``BlockedWhdia`` and the double-float and complex slabs are
-not ported.
+vector-operand device; here ``slot_r0`` holds one int16 per slot.
+Values are float32 or float64: where the JAX package keeps a float64
+slab as a double-float pair (``values`` hi, ``values_lo`` lo), the port
+keeps one float64 slab.  The row-blocked ``BlockedWhdia`` and the
+complex slabs are not ported.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spgpu_tpu_torch.core import join_dd
+
 __all__ = ["WhdiaMatrix", "from_numpy_fields"]
 
 _TENSORS = ("values", "slot_r0", "tile_r0", "tile_base", "chunk_group")
@@ -40,7 +44,7 @@ _TENSORS = ("values", "slot_r0", "tile_r0", "tile_base", "chunk_group")
 
 @dataclasses.dataclass
 class WhdiaMatrix:
-    values: torch.Tensor  # (total_slots, 128) float32
+    values: torch.Tensor  # (total_slots, 128) float32 or float64
     slot_r0: Optional[torch.Tensor]  # (total_slots,) int16; None in pattern mode
     tile_r0: Optional[torch.Tensor]  # (num_tiles,) int32 packed; pattern mode only
     tile_base: torch.Tensor  # (num_tiles,) int32: base page | hh << 16
@@ -129,7 +133,9 @@ class WhdiaMatrix:
              "exactly one of slot_r0 (slab mode) and tile_r0 (pattern mode)")
         want(ct > 0 and gh > 0 and S % 8 == 0 and T % ct == 0,
              "slots must fill whole chunks")
-        shapes = [("values", (S, 128), torch.float32),
+        want(self.values.dtype in (torch.float32, torch.float64),
+             f"values dtype {self.values.dtype}")
+        shapes = [("values", (S, 128), self.values.dtype),
                   ("tile_base", (T,), torch.int32),
                   ("chunk_group", (T // ct,), torch.int32)]
         shapes.append(("tile_r0", (T,), torch.int32) if self.pattern_mode
@@ -155,19 +161,18 @@ def from_numpy_fields(fields: dict, **static) -> WhdiaMatrix:
     """Build the port's :class:`WhdiaMatrix` from the array fields of a
     JAX ``WhdiaMatrix`` (``np.asarray`` of each) and its static fields.
 
-    The lane-replicated ``slot_r0`` slab crosses as its first lane.  A
-    double-float slab (``values_lo``) raises ``NotImplementedError``.
-    The result lies on the CPU and has passed :meth:`WhdiaMatrix.check`;
-    move it with :meth:`WhdiaMatrix.to`."""
-    if fields.get("values_lo") is not None:
-        raise NotImplementedError(
-            "double-float WHDIA slabs are not ported; float64 runs natively "
-            "in a later slice (ROADMAP module item 5)")
+    The lane-replicated ``slot_r0`` slab crosses as its first lane, and a
+    double-float slab joins into float64, ``values + values_lo``.  The
+    result lies on the CPU and has passed :meth:`WhdiaMatrix.check`; move
+    it with :meth:`WhdiaMatrix.to`."""
     arrays = dict(fields)
     if arrays.get("slot_r0") is not None:
         arrays["slot_r0"] = np.asarray(arrays["slot_r0"])[:, 0]
     kw = {f: None if arrays.get(f) is None else torch.from_numpy(np.array(arrays[f]))
           for f in _TENSORS}
+    if arrays.get("values_lo") is not None:
+        kw["values"] = join_dd(kw["values"],
+                               torch.from_numpy(np.array(arrays["values_lo"])))
     names = {f.name for f in dataclasses.fields(WhdiaMatrix)}
     kw.update({k: int(v) for k, v in static.items() if k in names})
     a = WhdiaMatrix(**kw)

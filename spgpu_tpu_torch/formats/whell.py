@@ -21,8 +21,10 @@ segment bounds its prefix-scan difference reads.  Vectors live in lane
 space: :meth:`WhellMatrix.embed` and :meth:`WhellMatrix.extract` map
 original vectors in and out.
 
-Only the packed layout exists in the port.  The classic layout
-(``row_perm``, ``ways``), double-float slabs (``values_lo``) and the TPU
+Only the packed layout exists in the port.  Its values are float32,
+bfloat16 or float64: where the JAX package keeps a float64 matrix as a
+double-float pair (``values`` hi, ``values_lo`` lo), the port keeps one
+float64 slab.  The classic layout (``row_perm``, ``ways``) and the TPU
 budget containers (``PanelledWhell``, ``SegmentedWhell``) are not ported.
 """
 
@@ -34,6 +36,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spgpu_tpu_torch.core import join_dd
+
 __all__ = ["WhellMatrix", "from_numpy_fields"]
 
 _TENSORS = ("values", "residue", "page_tab", "tile_base", "chunk_group",
@@ -43,7 +47,7 @@ _TENSORS = ("values", "residue", "page_tab", "tile_base", "chunk_group",
 @dataclasses.dataclass
 class WhellMatrix:
     # slabs, slot-major (total_slots, 128)
-    values: torch.Tensor  # float32 or bfloat16
+    values: torch.Tensor  # float32, bfloat16 or float64
     residue: torch.Tensor  # int8: col % 128 of each cell
     page_tab: torch.Tensor  # int8: window page delta, indexed by residue
     # per-tile and per-chunk scalars
@@ -102,7 +106,8 @@ class WhellMatrix:
     def to_dense(self) -> np.ndarray:
         """Host densification in LANE space (testing helper; duplicates
         add).  Compare with the original matrix embedded in lane space."""
-        vals = self.values.detach().cpu().float().numpy()
+        vals = self.values.detach().cpu()
+        vals = (vals if vals.dtype == torch.float64 else vals.float()).numpy()
         res = self.residue.cpu().numpy().astype(np.int64)
         pt = self.page_tab.cpu().numpy().astype(np.int64)
         meta = self.tile_base.cpu().numpy().astype(np.int64)
@@ -127,7 +132,7 @@ class WhellMatrix:
         hack = cg[t // self.chunk_tiles] * self.group_hacks + hh[t]
         row = row_of_lane[hack]
         ok = (vals != 0) & (row >= 0) & (row < self.n_rows) & (col < self.n_cols)
-        out = np.zeros((self.n_rows, self.n_cols), dtype=np.float32)
+        out = np.zeros((self.n_rows, self.n_cols), dtype=vals.dtype)
         np.add.at(out, (row[ok], col[ok]), vals[ok])
         return out
 
@@ -142,7 +147,8 @@ class WhellMatrix:
             if not cond:
                 raise ValueError(f"invalid WhellMatrix: {msg}")
 
-        want(self.values.dtype in (torch.float32, torch.bfloat16),
+        want(self.values.dtype in (torch.float32, torch.bfloat16,
+                                   torch.float64),
              f"values dtype {self.values.dtype}")
         for name, shape, dt in (
                 ("values", (S, 128), None), ("residue", (S, 128), torch.int8),
@@ -205,21 +211,19 @@ def from_numpy_fields(fields: dict, **static) -> WhellMatrix:
     """Build the port's :class:`WhellMatrix` from the array fields of a
     JAX ``WhellMatrix`` (``np.asarray`` of each) and its static fields.
 
-    Only plain packed fp32/bf16 layouts cross: a classic layout
-    (``row_perm``, ``ways``), a double-float slab (``values_lo``) or a
-    budget container raise ``NotImplementedError``.  The result lies on
-    the CPU and has passed :meth:`WhellMatrix.check`; move it with
-    :meth:`WhellMatrix.to`."""
+    Only plain packed layouts cross: a classic layout (``row_perm``,
+    ``ways``) or a budget container raise ``NotImplementedError``.  A
+    double-float slab joins into float64, ``values + values_lo``.  The
+    result lies on the CPU and has passed :meth:`WhellMatrix.check`; move
+    it with :meth:`WhellMatrix.to`."""
     if fields.get("seg_lo") is None or fields.get("row_perm") is not None \
             or static.pop("ways", 1) != 1:
         raise NotImplementedError(
             "classic (non-packed) WHELL is not ported yet (ROADMAP module "
             "item 11, kernel #15)")
-    if fields.get("values_lo") is not None:
-        raise NotImplementedError(
-            "double-float value slabs are not ported; float64 runs natively "
-            "in a later slice (ROADMAP module item 5)")
     kw = {f: _tensor(fields.get(f)) for f in _TENSORS}
+    if fields.get("values_lo") is not None:
+        kw["values"] = join_dd(kw["values"], _tensor(fields["values_lo"]))
     names = {f.name for f in dataclasses.fields(WhellMatrix)}
     kw.update({k: (bool(v) if k == "unit_segments" else int(v))
                for k, v in static.items() if k in names})

@@ -1,13 +1,17 @@
-"""Kernel #2: the static-offset DIA (SDIA) SpMV, hand-written in CUDA C++.
+"""Kernels #2 and #5: the static-offset DIA (SDIA) SpMV, hand-written in
+CUDA C++.
 
-Replaces ``spgpu_tpu/ops/pallas_kernels.py::_sdia_kernel``.  The source is
+Replaces ``spgpu_tpu/ops/pallas_kernels.py::_sdia_kernel`` (#2, fp32) and
+``_sdia_dd_kernel`` (#5, float64, which the TPU kernel emulates with
+double-float pairs).  The source of both is
 ``spgpu_tpu_torch/csrc/sdia_spmv.cu`` (its header note gives the design
 and its bound), built on first launch by
 :mod:`spgpu_tpu_torch.kernels._build`.
 
 :func:`sdia_spmv` launches the kernel for CUDA tensors (or raises) and
 runs :func:`sdia_spmv_plain`, the plain PyTorch version of the same
-function, for CPU tensors.  ``LAUNCHES`` counts the kernel launches.
+function, for CPU tensors.  ``LAUNCHES`` counts the launches of kernel
+#2, ``LAUNCHES_F64`` those of kernel #5.
 """
 
 from __future__ import annotations
@@ -18,16 +22,21 @@ import torch
 
 from spgpu_tpu_torch.kernels._build import CudaLibrary
 
-__all__ = ["LAUNCHES", "SOURCE", "build", "sdia_spmv", "sdia_spmv_plain"]
+__all__ = ["LAUNCHES", "LAUNCHES_F64", "SOURCE", "build", "sdia_spmv",
+           "sdia_spmv_plain"]
 
-#: kernel launches so far (the CPU path does not count)
+#: launches of kernel #2 (fp32) and of kernel #5 (float64) so far; the
+#: CPU path does not count
 LAUNCHES = 0
+LAUNCHES_F64 = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.sdia_spmv.restype = ctypes.c_int
     lib.sdia_spmv.argtypes = [p, p, p, p, i32, i64, i64, i64, p]
+    lib.sdia_spmv_f64.restype = ctypes.c_int
+    lib.sdia_spmv_f64.argtypes = [p, p, p, p, i32, i64, i64, i64, p]
 
 
 _LIB = CudaLibrary("sdia_spmv", _bind)
@@ -38,12 +47,14 @@ build = _LIB.build
 def _check_args(values, offset_table, x, n_rows):
     nd = offset_table.numel()
     want = [
-        (values.dtype == torch.float32 and values.dim() == 3
+        (values.dtype in (torch.float32, torch.float64)
+         and values.dim() == 3
          and values.shape[0] == max(nd, 1) and values.shape[2] == 128
          and values.shape[1] * 128 >= n_rows, "values"),
         (offset_table.dtype == torch.int32 and offset_table.dim() == 1,
          "offset_table"),
-        (x.dim() == 1 and x.dtype == torch.float32, "x must be (n_cols,) float32"),
+        (x.dim() == 1 and x.dtype == values.dtype,
+         f"x: {values.dtype} planes take an (n_cols,) {values.dtype} x"),
     ]
     for ok, what in want:
         if not ok:
@@ -57,12 +68,14 @@ def _check_args(values, offset_table, x, n_rows):
 
 def sdia_spmv(values: torch.Tensor, offset_table: torch.Tensor,
               x: torch.Tensor, *, n_rows: int) -> torch.Tensor:
-    """SDIA product ``(n_rows,)`` float32 of the planes ``values``
-    ``(max(n_diags, 1), n_tiles*8, 128)`` and ``x`` ``(n_cols,)``.
+    """SDIA product ``(n_rows,)`` of the planes ``values``
+    ``(max(n_diags, 1), n_tiles*8, 128)`` and ``x`` ``(n_cols,)``, both
+    float32 or both float64.
 
-    CUDA tensors launch the hand kernel (and count in ``LAUNCHES``); CPU
-    tensors run :func:`sdia_spmv_plain`.  Any other device raises."""
-    global LAUNCHES
+    CUDA tensors launch the hand kernel (#2 or #5, counted in
+    ``LAUNCHES`` or ``LAUNCHES_F64``); CPU tensors run
+    :func:`sdia_spmv_plain`.  Any other device raises."""
+    global LAUNCHES, LAUNCHES_F64
     _check_args(values, offset_table, x, n_rows)
     dev = x.device
     if dev.type == "cpu":
@@ -71,14 +84,19 @@ def sdia_spmv(values: torch.Tensor, offset_table: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"sdia_spmv: no kernel for device {dev}")
     lib = _LIB.load()
-    z = torch.empty(n_rows, dtype=torch.float32, device=dev)
+    z = torch.empty(n_rows, dtype=x.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.sdia_spmv(values.data_ptr(), offset_table.data_ptr(),
-                        x.data_ptr(), z.data_ptr(), offset_table.numel(),
-                        values.shape[1] * 128, n_rows, x.shape[0], stream)
+    f64 = x.dtype == torch.float64
+    err = (lib.sdia_spmv_f64 if f64 else lib.sdia_spmv)(
+        values.data_ptr(), offset_table.data_ptr(), x.data_ptr(), z.data_ptr(),
+        offset_table.numel(), values.shape[1] * 128, n_rows, x.shape[0],
+        stream)
     if err != 0:
         raise RuntimeError(f"sdia_spmv launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    if f64:
+        LAUNCHES_F64 += 1
+    else:
+        LAUNCHES += 1
     return z
 
 
@@ -86,9 +104,10 @@ def sdia_spmv_plain(values: torch.Tensor, offsets: tuple, x: torch.Tensor,
                     *, n_rows: int) -> torch.Tensor:
     """The same product in plain PyTorch, on the operands' device, with
     the offsets as Python ints: x with zero margins, then one shifted
-    slice per diagonal, summed in the kernel's order (ascending)."""
+    slice per diagonal, summed in the kernel's order (ascending) with the
+    kernel's roundings (multiply, then add), in x's type."""
     offs = list(offsets)
-    z = torch.zeros(n_rows, dtype=torch.float32, device=x.device)
+    z = torch.zeros(n_rows, dtype=x.dtype, device=x.device)
     if not offs or n_rows == 0:
         return z
     lo = max(0, -offs[0])

@@ -1,13 +1,17 @@
-"""Kernel #3: the windowed hacked DIA (WHDIA) SpMV, hand-written in CUDA C++.
+"""Kernels #3 and #6: the windowed hacked DIA (WHDIA) SpMV, hand-written
+in CUDA C++.
 
-Replaces ``spgpu_tpu/ops/pallas_kernels.py::_whdia_kernel`` (both r0
-modes).  The source is ``spgpu_tpu_torch/csrc/whdia_spmv.cu`` (its header
-note gives the design and its bound), built on first launch by
+Replaces ``spgpu_tpu/ops/pallas_kernels.py::_whdia_kernel`` (#3, fp32,
+both r0 modes) and ``_whdia_dd_kernel`` (#6, float64, which the TPU
+kernel emulates with double-float pairs; here in both r0 modes too).  The
+source of both is ``spgpu_tpu_torch/csrc/whdia_spmv.cu`` (its header note
+gives the design and its bound), built on first launch by
 :mod:`spgpu_tpu_torch.kernels._build`.
 
 :func:`whdia_spmv` launches the kernel for CUDA tensors (or raises) and
 runs :func:`whdia_spmv_plain`, the plain PyTorch version of the same
-function, for CPU tensors.  ``LAUNCHES`` counts the kernel launches.
+function, for CPU tensors.  ``LAUNCHES`` counts the launches of kernel
+#3, ``LAUNCHES_F64`` those of kernel #6.
 """
 
 from __future__ import annotations
@@ -19,16 +23,21 @@ import torch
 
 from spgpu_tpu_torch.kernels._build import CudaLibrary
 
-__all__ = ["LAUNCHES", "SOURCE", "build", "whdia_spmv", "whdia_spmv_plain"]
+__all__ = ["LAUNCHES", "LAUNCHES_F64", "SOURCE", "build", "whdia_spmv",
+           "whdia_spmv_plain"]
 
-#: kernel launches so far (the CPU path does not count)
+#: launches of kernel #3 (fp32) and of kernel #6 (float64) so far; the
+#: CPU path does not count
 LAUNCHES = 0
+LAUNCHES_F64 = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.whdia_spmv.restype = ctypes.c_int
     lib.whdia_spmv.argtypes = [p, p, p, p, p, p, p, i64, i64, i32, i32, p]
+    lib.whdia_spmv_f64.restype = ctypes.c_int
+    lib.whdia_spmv_f64.argtypes = [p, p, p, p, p, p, p, i64, i64, i32, i32, p]
 
 
 _LIB = CudaLibrary("whdia_spmv", _bind)
@@ -41,8 +50,8 @@ def _check_args(values, slot_r0, tile_r0, tile_base, chunk_group, x,
     S = values.shape[0]
     T = tile_base.shape[0]
     want = [
-        (values.dtype == torch.float32 and values.shape == (S, 128)
-         and S == 8 * T, "values"),
+        (values.dtype in (torch.float32, torch.float64)
+         and values.shape == (S, 128) and S == 8 * T, "values"),
         ((slot_r0 is None) != (tile_r0 is None),
          "r0: give exactly one of slot_r0 and tile_r0"),
         (slot_r0 is None or (slot_r0.dtype == torch.int16
@@ -53,7 +62,8 @@ def _check_args(values, slot_r0, tile_r0, tile_base, chunk_group, x,
          and T % chunk_tiles == 0, "tile_base"),
         (chunk_group.dtype == torch.int32
          and chunk_group.shape == (T // chunk_tiles,), "chunk_group"),
-        (x.dim() == 1 and x.dtype == torch.float32, "x must be (n_cols,) float32"),
+        (x.dim() == 1 and x.dtype == values.dtype,
+         f"x: {values.dtype} values take an (n_cols,) {values.dtype} x"),
     ]
     for ok, what in want:
         if not ok:
@@ -70,15 +80,17 @@ def whdia_spmv(values, slot_r0: Optional[torch.Tensor],
                tile_r0: Optional[torch.Tensor], tile_base, chunk_group,
                x, *, chunk_tiles: int, group_hacks: int,
                num_groups: int) -> torch.Tensor:
-    """WHDIA product ``(num_groups*group_hacks*128,)`` float32 (row ``r``
-    at index ``r``) of the slab and ``x`` ``(n_cols,)``.
+    """WHDIA product ``(num_groups*group_hacks*128,)`` (row ``r`` at
+    index ``r``) of the slab and ``x`` ``(n_cols,)``, both float32 or both
+    float64.
 
     Give ``slot_r0`` (slab mode) or ``tile_r0`` (pattern mode).  CUDA
-    tensors launch the hand kernel (and count in ``LAUNCHES``); CPU
-    tensors run :func:`whdia_spmv_plain`.  Any other device raises.  The
+    tensors launch the hand kernel (#3 or #6, counted in ``LAUNCHES`` or
+    ``LAUNCHES_F64``); CPU tensors run :func:`whdia_spmv_plain`.  Any
+    other device raises.  The
     layout arrays are trusted as built by the converter or checked by
     ``WhdiaMatrix.check``; shapes, dtypes and devices are checked here."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_F64
     _check_args(values, slot_r0, tile_r0, tile_base, chunk_group, x,
                 chunk_tiles)
     dev = x.device
@@ -89,17 +101,20 @@ def whdia_spmv(values, slot_r0: Optional[torch.Tensor],
     if dev.type != "cuda":
         raise ValueError(f"whdia_spmv: no kernel for device {dev}")
     lib = _LIB.load()
-    z = torch.zeros(num_groups * group_hacks * 128, dtype=torch.float32,
-                    device=dev)
+    z = torch.zeros(num_groups * group_hacks * 128, dtype=x.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.whdia_spmv(
+    f64 = x.dtype == torch.float64
+    err = (lib.whdia_spmv_f64 if f64 else lib.whdia_spmv)(
         values.data_ptr(), None if slot_r0 is None else slot_r0.data_ptr(),
         None if tile_r0 is None else tile_r0.data_ptr(), tile_base.data_ptr(),
         chunk_group.data_ptr(), x.data_ptr(), z.data_ptr(),
         tile_base.shape[0], x.shape[0], chunk_tiles, group_hacks, stream)
     if err != 0:
         raise RuntimeError(f"whdia_spmv launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    if f64:
+        LAUNCHES_F64 += 1
+    else:
+        LAUNCHES += 1
     return z
 
 
@@ -108,7 +123,7 @@ def whdia_spmv_plain(values, slot_r0, tile_r0, tile_base, chunk_group, x, *,
                      num_groups: int) -> torch.Tensor:
     """The same product in plain PyTorch, on the operands' device: decode
     r0, gather x with the ``[0, n_cols)`` guard, sum over each tile's 8
-    slots, then ``index_add_`` into the rows."""
+    slots, then ``index_add_`` into the rows, in x's type."""
     dev = x.device
     T = tile_base.shape[0]
     meta = tile_base.long()
@@ -129,7 +144,6 @@ def whdia_spmv_plain(values, slot_r0, tile_r0, tile_base, chunk_group, x, *,
     tile_sum = (values.view(T, 8, 128) * xz[col]).sum(dim=1)
     hack = chunk_group.long()[torch.arange(T, device=dev) // chunk_tiles] \
         * group_hacks + (meta >> 16)
-    z = torch.zeros((num_groups * group_hacks, 128), dtype=torch.float32,
-                    device=dev)
+    z = torch.zeros((num_groups * group_hacks, 128), dtype=x.dtype, device=dev)
     z.index_add_(0, hack, tile_sum)
     return z.view(-1)

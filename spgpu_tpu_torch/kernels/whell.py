@@ -1,8 +1,11 @@
-"""Kernel #1: the packed-lane WHELL SpMV, hand-written in CUDA C++.
+"""Kernels #1 and #4: the packed-lane WHELL SpMV, hand-written in CUDA C++.
 
-Replaces ``spgpu_tpu/ops/pallas_kernels.py::_whell_packed_kernel``.  The
-source is ``spgpu_tpu_torch/csrc/whell_packed_spmv.cu`` (its header note
-gives the design and its bound).  It is compiled with ``nvcc`` for
+Replaces ``spgpu_tpu/ops/pallas_kernels.py::_whell_packed_kernel`` (#1:
+fp32 or bf16 values, fp32 x and product) and ``_whell_packed_dd_kernel``
+(#4: float64 values, x and product, where the TPU kernel emulates float64
+with double-float pairs).  The source of both is
+``spgpu_tpu_torch/csrc/whell_packed_spmv.cu`` (its header note gives the
+design and its bound).  It is compiled with ``nvcc`` for
 ``sm_90a`` into ``spgpu_tpu_torch/_build/`` on first launch and bound
 through ``ctypes`` (:mod:`spgpu_tpu_torch.kernels._build`); nothing is
 built when this module is imported.
@@ -10,7 +13,7 @@ built when this module is imported.
 :func:`whell_packed_spmv` launches the kernel for CUDA tensors (or
 raises) and runs :func:`whell_packed_spmv_plain`, the plain PyTorch
 version of the same function, for CPU tensors.  ``LAUNCHES`` counts the
-kernel launches.
+launches of kernel #1, ``LAUNCHES_F64`` those of kernel #4.
 """
 
 from __future__ import annotations
@@ -22,11 +25,13 @@ import torch
 
 from spgpu_tpu_torch.kernels._build import CudaLibrary
 
-__all__ = ["LAUNCHES", "SOURCE", "build", "whell_packed_spmv",
+__all__ = ["LAUNCHES", "LAUNCHES_F64", "SOURCE", "build", "whell_packed_spmv",
            "whell_packed_spmv_plain"]
 
-#: kernel launches so far (the CPU path does not count)
+#: launches of kernel #1 (fp32 product) and of kernel #4 (float64) so
+#: far; the CPU path does not count
 LAUNCHES = 0
+LAUNCHES_F64 = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -34,6 +39,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.whell_packed_spmv.restype = ctypes.c_int
     lib.whell_packed_spmv.argtypes = [
         p, i32, p, p, p, p, p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, p]
+    lib.whell_packed_spmv_f64.restype = ctypes.c_int
+    lib.whell_packed_spmv_f64.argtypes = [
+        p, p, p, p, p, p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, p]
 
 
 _LIB = CudaLibrary("whell_packed_spmv", _bind)
@@ -47,8 +55,11 @@ def _check_args(values, residue, page_tab, tile_base, chunk_group,
     S = values.shape[0]
     T = tile_base.shape[0]
     R = seg_lo.shape[0]
+    # float64 values take float64 x; fp32 and bf16 values fp32 x
+    xdt = torch.float64 if values.dtype == torch.float64 else torch.float32
     want = [
-        (values.dtype in (torch.float32, torch.bfloat16), "values dtype"),
+        (values.dtype in (torch.float32, torch.bfloat16, torch.float64),
+         "values dtype"),
         (values.shape == (S, 128) and S == 8 * T, "values shape"),
         (residue.shape == (S, 128) and residue.dtype == torch.int8, "residue"),
         (page_tab.shape == (S, 128) and page_tab.dtype == torch.int8, "page_tab"),
@@ -58,8 +69,8 @@ def _check_args(values, residue, page_tab, tile_base, chunk_group,
         (seg_lo.shape == (R, 128) and seg_hi.shape == (R, 128)
          and seg_lo.dtype == seg_hi.dtype == torch.int8
          and R % group_hacks == 0, "seg_lo/seg_hi"),
-        (x2d.dim() == 2 and x2d.shape[1] == 128
-         and x2d.dtype == torch.float32, "x2d must be (x_pages, 128) float32"),
+        (x2d.dim() == 2 and x2d.shape[1] == 128 and x2d.dtype == xdt,
+         f"x2d: {values.dtype} values take (x_pages, 128) {xdt}"),
         (window_pages in (8, 16, 32), "window_pages"),
         (group_bases is None or (group_bases.dtype == torch.int32
                                  and group_bases.numel() % (window_pages // 8) == 0),
@@ -80,13 +91,15 @@ def whell_packed_spmv(values, residue, page_tab, tile_base, chunk_group,
                       group_bases: Optional[torch.Tensor], seg_lo, seg_hi,
                       x2d, *, chunk_tiles: int, group_hacks: int,
                       window_pages: int, unit_segments: bool) -> torch.Tensor:
-    """Packed-lane WHELL product ``(num_groups*group_hacks, 128)`` float32.
+    """Packed-lane WHELL product ``(num_groups*group_hacks, 128)`` in x2d's
+    type: float64 with float64 values, float32 with fp32 or bf16 ones.
 
-    CUDA tensors launch the hand kernel (and count in ``LAUNCHES``); CPU
-    tensors run :func:`whell_packed_spmv_plain`.  Any other device raises.
+    CUDA tensors launch the hand kernel (#1, or #4 for float64, counted
+    in ``LAUNCHES`` or ``LAUNCHES_F64``); CPU tensors run
+    :func:`whell_packed_spmv_plain`.  Any other device raises.
     The layout arrays are trusted as built by the converter or checked by
     ``WhellMatrix.check``; shapes, dtypes and devices are checked here."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_F64
     _check_args(values, residue, page_tab, tile_base, chunk_group,
                 group_bases, seg_lo, seg_hi, x2d, chunk_tiles, group_hacks,
                 window_pages)
@@ -101,20 +114,27 @@ def whell_packed_spmv(values, residue, page_tab, tile_base, chunk_group,
         raise ValueError(f"whell_packed_spmv: no kernel for device {dev}")
     lib = _LIB.load()
     R = seg_lo.shape[0]
-    acc = torch.zeros((R, 128), dtype=torch.float32, device=dev)
-    z = torch.empty((R, 128), dtype=torch.float32, device=dev)
+    acc = torch.zeros((R, 128), dtype=x2d.dtype, device=dev)
+    z = torch.empty((R, 128), dtype=x2d.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.whell_packed_spmv(
-        values.data_ptr(), int(values.dtype == torch.bfloat16),
-        residue.data_ptr(), page_tab.data_ptr(), tile_base.data_ptr(),
-        chunk_group.data_ptr(),
-        None if group_bases is None else group_bases.data_ptr(),
-        seg_lo.data_ptr(), seg_hi.data_ptr(), x2d.data_ptr(),
-        acc.data_ptr(), z.data_ptr(), tile_base.shape[0], R,
-        chunk_tiles, group_hacks, window_pages, int(unit_segments), stream)
+    f64 = values.dtype == torch.float64
+    args = (residue.data_ptr(), page_tab.data_ptr(), tile_base.data_ptr(),
+            chunk_group.data_ptr(),
+            None if group_bases is None else group_bases.data_ptr(),
+            seg_lo.data_ptr(), seg_hi.data_ptr(), x2d.data_ptr(),
+            acc.data_ptr(), z.data_ptr(), tile_base.shape[0], R,
+            chunk_tiles, group_hacks, window_pages, int(unit_segments), stream)
+    if f64:
+        err = lib.whell_packed_spmv_f64(values.data_ptr(), *args)
+    else:
+        err = lib.whell_packed_spmv(values.data_ptr(),
+                                    int(values.dtype == torch.bfloat16), *args)
     if err != 0:
         raise RuntimeError(f"whell_packed_spmv launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    if f64:
+        LAUNCHES_F64 += 1
+    else:
+        LAUNCHES += 1
     return z
 
 
@@ -124,7 +144,8 @@ def whell_packed_spmv_plain(values, residue, page_tab, tile_base,
                             window_pages: int,
                             unit_segments: bool) -> torch.Tensor:
     """The same product in plain PyTorch (decode, gather, ``index_add_``,
-    then ``cumsum`` and gathers), on the operands' device."""
+    then ``cumsum`` and gathers), on the operands' device, in x2d's
+    type."""
     dev = x2d.device
     T = tile_base.shape[0]
     R = seg_lo.shape[0]
@@ -139,9 +160,9 @@ def whell_packed_spmv_plain(values, residue, page_tab, tile_base,
     else:
         page = (meta & 0xFFFF)[tile, None] + d
         hh = meta >> 16
-    prod = values.float() * x2d.reshape(-1)[page * 128 + res]
+    prod = values.to(x2d.dtype) * x2d.reshape(-1)[page * 128 + res]
     hack = chunk_group.long()[torch.arange(T, device=dev) // chunk_tiles] * group_hacks + hh
-    acc = torch.zeros((R, 128), dtype=torch.float32, device=dev)
+    acc = torch.zeros((R, 128), dtype=x2d.dtype, device=dev)
     acc.index_add_(0, hack, prod.view(T, 8, 128).sum(dim=1))
     hi = seg_hi.long()
     if unit_segments:

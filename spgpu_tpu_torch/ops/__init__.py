@@ -4,6 +4,10 @@ Counterpart of :mod:`spgpu_tpu.ops` for the ported paths.  Each SpMV runs
 its hand kernel (:mod:`spgpu_tpu_torch.kernels`) on CUDA tensors and the
 kernel's plain PyTorch version on CPU tensors.  ``whell_spmv`` works in
 lane space; ``sdia_spmv`` and ``whdia_spmv`` in the original numbering.
+
+A float64 matrix takes and returns float64 vectors and its alpha/beta
+epilogue runs in float64: the counterpart of the JAX package's
+double-float branches (``_dd_epilogue`` on ``(2, n)`` hi/lo stacks).
 """
 
 from __future__ import annotations
@@ -34,8 +38,9 @@ def _prep_x(x: torch.Tensor, n_cols: int, x_pages: int) -> torch.Tensor:
 
 
 def _epilogue(acc: torch.Tensor, alpha, beta, y) -> torch.Tensor:
-    """``beta*y + alpha*acc``; a static ``beta == 0`` (or ``y is None``)
-    never reads ``y``, as in spGPU's ``*spmv`` entry points."""
+    """``beta*y + alpha*acc`` in ``acc``'s type; a static ``beta == 0``
+    (or ``y is None``) never reads ``y``, as in spGPU's ``*spmv`` entry
+    points."""
     if (isinstance(beta, (int, float)) and beta == 0) or y is None:
         return acc if isinstance(alpha, (int, float)) and alpha == 1 else alpha * acc
     return alpha * acc + beta * y
@@ -49,7 +54,8 @@ def _require(a, cls, op: str) -> None:
 def whell_spmv(a: WhellMatrix, x: torch.Tensor, alpha=1.0, beta=0.0,
                y=None) -> torch.Tensor:
     """``z = beta*y + alpha*(A @ x)`` on the packed WHELL layout, with
-    ``x``, ``y`` and ``z`` in lane space (float32, on ``a``'s device)."""
+    ``x``, ``y`` and ``z`` in lane space, on ``a``'s device: float64 for a
+    float64 matrix, else float32."""
     _require(a, WhellMatrix, "whell_spmv")
     z = whell_packed_spmv(
         a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
@@ -62,11 +68,15 @@ def whell_spmv(a: WhellMatrix, x: torch.Tensor, alpha=1.0, beta=0.0,
 def sdia_spmv(a: SdiaMatrix, x: torch.Tensor, alpha=1.0, beta=0.0,
               y=None) -> torch.Tensor:
     """``z = beta*y + alpha*(A @ x)`` on the SDIA layout (``x``: the
-    ``(n_cols,)`` float32 vector on ``a``'s device; ``z``: ``(n_rows,)``).
-    A matrix with no diagonals gives zeros, as ``sdia_spmv_pallas`` does."""
+    ``(n_cols,)`` vector on ``a``'s device, of the planes' type; ``z``:
+    ``(n_rows,)``).  A matrix with no diagonals gives zeros, as
+    ``sdia_spmv_pallas`` and the double-float branch do."""
     _require(a, SdiaMatrix, "sdia_spmv")
     if x.shape != (a.n_cols,):
         raise ValueError(f"x must have shape ({a.n_cols},), got {tuple(x.shape)}")
+    if x.dtype != a.values.dtype:
+        raise ValueError(f"x: {a.values.dtype} planes take a {a.values.dtype} x, "
+                         f"not {x.dtype}")
     if a.n_diags == 0:
         zero = torch.zeros(a.n_rows, dtype=x.dtype, device=x.device)
         return _epilogue(zero, 1, beta, y)
@@ -77,8 +87,8 @@ def sdia_spmv(a: SdiaMatrix, x: torch.Tensor, alpha=1.0, beta=0.0,
 def whdia_spmv(a: WhdiaMatrix, x: torch.Tensor, alpha=1.0, beta=0.0,
                y=None) -> torch.Tensor:
     """``z = beta*y + alpha*(A @ x)`` on the WHDIA layout (``x``: the
-    ``(n_cols,)`` float32 vector on ``a``'s device; ``z``: ``(n_rows,)``),
-    in either r0 mode."""
+    ``(n_cols,)`` vector on ``a``'s device, of the slab's type; ``z``:
+    ``(n_rows,)``), in either r0 mode."""
     _require(a, WhdiaMatrix, "whdia_spmv")
     if x.shape != (a.n_cols,):
         raise ValueError(f"x must have shape ({a.n_cols},), got {tuple(x.shape)}")

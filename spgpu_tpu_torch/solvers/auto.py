@@ -9,6 +9,11 @@ and WHDIA iterate in the original numbering.  The TPU budget switches
 (row blocks past the VMEM x budget, the SDIA→WHDIA VMEM fallback) are
 left out: the port builds one layout at any size.  Formats the port does
 not have yet raise ``NotImplementedError`` instead of re-routing.
+
+float64 systems run the same three routes with float64 layouts, kernels
+and work vectors: the counterpart of the JAX double-float routes
+(``cg_dd``/``bicgstab_dd`` on hi/lo pairs), with the plain CG/BiCGSTAB
+loop in native float64.
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ import torch
 from spgpu_tpu_torch.convert.sdia import coo_to_sdia
 from spgpu_tpu_torch.convert.select import suggest_format
 from spgpu_tpu_torch.convert.whdia import coo_to_whdia
-from spgpu_tpu_torch.convert.whell import coo_to_whell, value_dtype
+from spgpu_tpu_torch.convert.whell import coo_to_whell
+from spgpu_tpu_torch.core import real_dtype
 from spgpu_tpu_torch.formats.coo import CooMatrix
 from spgpu_tpu_torch.ops import sdia_spmv, whdia_spmv, whell_spmv
 from spgpu_tpu_torch.solvers.cg import CgResult, bicgstab, cg, jacobi_preconditioner
@@ -45,15 +51,15 @@ def solve(coo: CooMatrix, b, *, device, symmetric: bool = True,
 
     ``symmetric=True`` runs CG (SPD systems), else BiCGSTAB.  ``fmt``
     overrides the automatic choice: "whell", "sdia" or "whdia".  Values
-    are float32 (bfloat16 too on "whell"), vectors float32.  Returns a
-    :class:`CgResult` whose ``x`` is in the ORIGINAL numbering, on
-    ``device``."""
+    are float32 or float64, and the layout, the kernels, the work
+    vectors, ``x0`` and the Jacobi preconditioner (``jacobi=True``) take
+    the values' type: a float64 system iterates in float64 throughout
+    (where the JAX double-float route rounds its preconditioner to
+    float32).  Returns a :class:`CgResult` whose ``x`` is in the ORIGINAL
+    numbering, on ``device``, in the values' type."""
     if coo.n_rows != coo.n_cols:
         raise ValueError("solve requires a square system")
-    if np.issubdtype(coo.values.dtype, np.complexfloating):
-        raise NotImplementedError("complex systems are not ported yet "
-                                  "(ROADMAP module item 6)")
-    value_dtype(coo.values.dtype)  # float64 raises: ROADMAP item 5
+    work = getattr(torch, real_dtype(coo.values.dtype, "solve()").name)
     # coalesce once: WHELL adds duplicates while SDIA/WHDIA keep the last
     # write, so every format then solves the same matrix
     coo = coo.sum_duplicates()
@@ -64,7 +70,6 @@ def solve(coo: CooMatrix, b, *, device, symmetric: bool = True,
         raise NotImplementedError(
             f"format {fmt!r} is not ported yet: ROADMAP module {_NOT_PORTED[fmt]}")
 
-    work = torch.float32
     m_inv = jacobi_preconditioner(coo, device).to(work) if jacobi else None
     if fmt == "whell":
         a = coo_to_whell(coo, device=device)

@@ -2,7 +2,10 @@
 
 Counterpart of :mod:`spgpu_tpu.solvers.cg` (``cg``, ``bicgstab``,
 ``jacobi_preconditioner``).  The JAX versions run the iteration as one
-``lax.while_loop``; here it is a Python loop over PyTorch ops.  Vectors
+``lax.while_loop``; here it is a Python loop over PyTorch ops, in the
+type of ``b``.  float64 vectors iterate in native float64, so the same
+loops are also the counterparts of ``cg_dd`` and ``bicgstab_dd``, whose
+double-float arithmetic the GPU does not need.  Vectors
 and scalars stay on the device; the loop test reads one scalar per
 iteration back to the host (a CUDA graph of the iteration is later work).
 """

@@ -1,4 +1,4 @@
-"""PyTorch port on a CUDA device: kernels #1-#3 against their plain versions.
+"""PyTorch port on a CUDA device: kernels #1-#6 against their plain versions.
 
 Needs no JAX, so it also runs where only PyTorch is installed:
 
@@ -11,6 +11,11 @@ version's ``index_add_``, hence rtol 1e-5 and atol 1e-5·max|z|; kernel
 #2 (SDIA) owns each row in one thread and sums the diagonals in the
 plain version's order, hence rtol 1e-6 and atol 1e-6·max|z|.  Against
 the float64 host golden the fp32 tolerance is 2e-5.
+
+The float64 kernels (#4 WHELL, #5 SDIA, #6 WHDIA) are held to 1e-12·max|z|
+against their plain float64 versions and the golden; #5, like #2, sums in
+the plain version's order with the same roundings and must match it
+exactly.
 """
 
 import numpy as np
@@ -232,3 +237,103 @@ def test_device_ms_sources(attempts, source, cuda_device):
     # the profiler may record nothing now and then; the events never fail
     assert got in ({"profiler", "cuda_events"} if attempts else {source})
     assert 0 < ms < 1e3
+
+
+def _f64(coo):
+    return CooMatrix(coo.rows, coo.cols, coo.values.astype(np.float64),
+                     coo.n_rows, coo.n_cols)
+
+
+def _near(got, want, frac):
+    got, want = got.double().cpu(), want.double().cpu()
+    atol = frac * max(float(want.abs().max()) if want.numel() else 0.0, 1e-300)
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scattered", [None, True], ids=["aligned", "scattered"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_f64_whell_kernel_matches_plain_and_golden(name, scattered, cuda_device):
+    coo = _f64(CASES[name]())
+    a = coo_to_whell(coo, device=cuda_device, scattered=scattered)
+    x = np.random.default_rng(0).standard_normal(coo.n_cols)
+    xl = a.embed(torch.from_numpy(x), dtype=torch.float64)
+    before = kw.LAUNCHES_F64
+    z = ops.whell_spmv(a, xl)
+    torch.cuda.synchronize()
+    assert kw.LAUNCHES_F64 == before + 1 and z.dtype == torch.float64
+    _near(z, _plain(a, xl), 1e-12)
+    _near(a.extract(z, dtype=torch.float64), torch.from_numpy(coo.spmv(x)), 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DIA_CASES))
+def test_f64_sdia_kernel_matches_plain_exactly(name, cuda_device):
+    coo = _f64(DIA_CASES[name]())
+    a = coo_to_sdia(coo, device=cuda_device)
+    xt = torch.from_numpy(np.random.default_rng(0).standard_normal(coo.n_cols)).to(cuda_device)
+    before = ks.LAUNCHES_F64
+    z = ops.sdia_spmv(a, xt)
+    torch.cuda.synchronize()
+    assert ks.LAUNCHES_F64 == before + (1 if a.n_diags else 0)
+    if a.n_diags:
+        zp = ks.sdia_spmv_plain(a.values, a.offsets, xt, n_rows=a.n_rows)
+        torch.testing.assert_close(z, zp, rtol=0, atol=0)
+    _near(z, torch.from_numpy(_golden(coo, xt.cpu().numpy())), 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DIA_CASES))
+def test_f64_whdia_kernel_matches_plain_and_golden(name, cuda_device):
+    coo = _f64(DIA_CASES[name]())
+    a = coo_to_whdia(coo, device=cuda_device)
+    xt = torch.from_numpy(np.random.default_rng(0).standard_normal(coo.n_cols)).to(cuda_device)
+    before = kd.LAUNCHES_F64
+    z = ops.whdia_spmv(a, xt)
+    torch.cuda.synchronize()
+    assert kd.LAUNCHES_F64 == before + 1 and z.dtype == torch.float64
+    zp = kd.whdia_spmv_plain(
+        a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group, xt,
+        chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+        num_groups=a.num_groups)[: a.n_rows]
+    _near(z, zp, 1e-12)
+    _near(z, torch.from_numpy(_golden(coo, xt.cpu().numpy())), 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["whell", "sdia", "whdia"])
+def test_f64_alpha_beta_y_on_cuda(fmt, cuda_device):
+    coo = _f64(CASES["laplace_wide"]())
+    conv, op = {"whell": (coo_to_whell, ops.whell_spmv),
+                "sdia": (coo_to_sdia, ops.sdia_spmv),
+                "whdia": (coo_to_whdia, ops.whdia_spmv)}[fmt]
+    a = conv(coo, device=cuda_device)
+    n = a.n_rows if fmt == "whell" else coo.n_rows
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal(n)).to(cuda_device)
+    y = torch.from_numpy(rng.standard_normal(n)).to(cuda_device)
+    z = op(a, x, alpha=2.5, beta=-0.5, y=y)
+    assert z.dtype == torch.float64
+    _near(z, 2.5 * op(a.to("cpu"), x.cpu()) - 0.5 * y.cpu(), 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symmetric", [True, False], ids=["cg", "bicgstab"])
+@pytest.mark.parametrize("fmt", ["whell", "sdia", "whdia"])
+def test_f64_solve_on_cuda(fmt, symmetric, cuda_device):
+    """float64 systems through solve() on each route, CG on the Laplacian
+    and BiCGSTAB on a contiguous band, to 1e-10, counted."""
+    if symmetric:
+        coo = _f64(CASES["laplace_wide"]())
+    else:
+        coo = random_banded(3000, bands=11, seed=2, dtype=np.float64)
+    b = np.random.default_rng(11).standard_normal(coo.n_rows)
+    counter = {"whell": kw, "sdia": ks, "whdia": kd}[fmt]
+    counter.LAUNCHES_F64 = 0
+    res = solve(coo, b, device=cuda_device, fmt=fmt, symmetric=symmetric,
+                tol=1e-10, maxiter=5000)
+    assert bool(res.converged) and res.x.dtype == torch.float64
+    assert counter.LAUNCHES_F64 >= res.iterations > 0
+    x = res.x.cpu().numpy()
+    r = b - coo.sum_duplicates().spmv(x)
+    assert np.linalg.norm(r) <= 1e-9 * np.linalg.norm(b)

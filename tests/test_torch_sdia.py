@@ -26,6 +26,7 @@ from spgpu_tpu_torch.formats.coo import CooMatrix  # noqa: E402
 from spgpu_tpu_torch.formats.dia import from_numpy_fields  # noqa: E402
 from spgpu_tpu_torch.kernels import sdia as ks  # noqa: E402
 from spgpu_tpu_torch.utils import fixtures as tfix  # noqa: E402
+from test_torch_native_guard import jax_native  # noqa: E402,F401  (autouse)
 
 
 def _dups(f):
@@ -133,7 +134,7 @@ def test_empty_gives_zeros_and_beta_y():
                                0.5 * y)
 
 
-@pytest.mark.parametrize("dtype,item", [(np.float64, "item 5"),
+@pytest.mark.parametrize("dtype,item", [(np.float16, "planned"),
                                         (np.complex64, "item 6")])
 def test_unported_dtypes_raise(dtype, item):
     c = tfix.laplacian_2d(8, 8, np.float64)
@@ -143,10 +144,15 @@ def test_unported_dtypes_raise(dtype, item):
 
 
 def test_bridge_rejects_double_float():
+    """A double-float pair crosses joined into float64
+    (tests/test_torch_f64.py); a pair whose planes do not match raises."""
     ja = j_coo_to_sdia(jfix.laplacian_2d(8, 8, np.float64))
     assert ja.is_dd
-    with pytest.raises(NotImplementedError, match="item 5"):
-        bridge(ja)
+    joined = np.asarray(ja.values, np.float64) + np.asarray(ja.values_lo, np.float64)
+    np.testing.assert_array_equal(bridge(ja).values.numpy(), joined)
+    with pytest.raises(ValueError, match="double-float pair"):
+        from_numpy_fields(np.asarray(ja.values), ja.offsets, ja.n_rows, ja.n_cols,
+                          values_lo=np.asarray(ja.values_lo)[:1])
 
 
 def test_cpu_path_counts_no_launches():

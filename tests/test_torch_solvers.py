@@ -22,6 +22,7 @@ from spgpu_tpu_torch.formats.coo import CooMatrix  # noqa: E402
 from spgpu_tpu_torch.kernels import whell as kw  # noqa: E402
 from spgpu_tpu_torch.solvers import bicgstab, cg, jacobi_preconditioner, solve  # noqa: E402
 from spgpu_tpu_torch.utils.fixtures import laplacian_2d  # noqa: E402
+from test_torch_native_guard import jax_native  # noqa: E402,F401  (autouse)
 
 
 def spd_fem_1500():
@@ -184,7 +185,7 @@ def test_solve_x0_on_the_dia_class():
         assert r.iterations <= 1 and bool(r.converged)
 
 
-@pytest.mark.parametrize("dtype,item", [(np.float64, "item 5"),
+@pytest.mark.parametrize("dtype,item", [(np.float16, "planned"),
                                         (np.complex64, "item 6")])
 def test_unported_dtypes_raise(dtype, item):
     c = laplacian_2d(8, 8, np.float64)

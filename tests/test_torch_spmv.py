@@ -28,6 +28,7 @@ from spgpu_tpu.utils.fixtures import (  # noqa: E402
 from spgpu_tpu_torch import ops as tops  # noqa: E402
 from spgpu_tpu_torch.formats.whell import from_numpy_fields  # noqa: E402
 from spgpu_tpu_torch.kernels import whell as kw  # noqa: E402
+from test_torch_native_guard import jax_native  # noqa: E402,F401  (autouse)
 
 CASES = {
     "fem": lambda: random_fem_like(4000, 16.0, span=256, far_frac=0.02,

@@ -25,6 +25,7 @@ from spgpu_tpu_torch.formats.coo import CooMatrix  # noqa: E402
 from spgpu_tpu_torch.formats.whdia import from_numpy_fields  # noqa: E402
 from spgpu_tpu_torch.kernels import whdia as kd  # noqa: E402
 from spgpu_tpu_torch.utils import fixtures as tfix  # noqa: E402
+from test_torch_native_guard import jax_native  # noqa: E402,F401  (autouse)
 
 # the cases of tests/test_whdia.py:21-28, plus the empty matrix
 CASES = {
@@ -167,7 +168,7 @@ def test_base_page_past_16_bits_raises():
         coo_to_whdia(coo, device="cpu")
 
 
-@pytest.mark.parametrize("dtype,item", [(np.float64, "item 5"),
+@pytest.mark.parametrize("dtype,item", [(np.float16, "planned"),
                                         (np.complex64, "item 6")])
 def test_unported_dtypes_raise(dtype, item):
     c = tfix.laplacian_2d(8, 8, np.float64)
