@@ -46,7 +46,31 @@ float64, and checks them:
                with a true residual ≤ 1e-9: CG on the SPD system
                (auto, whell), CG on the Laplacian auto-selected (whdia)
                and with ``fmt="sdia"``, and BiCGSTAB on the contiguous
-               banded-11 system with ``fmt="whdia"``.
+               banded-11 system with ``fmt="whdia"``;
+14. spmv_c64 — the flagship with values ``v + 1j·N(0, 1)``
+               (``default_rng(8)``) as complex64 through kernel #7, held
+               against its plain version and the complex128 host golden,
+               timed as in 3;
+15. spmv_c128 — the same matrix as complex128 through the complex128
+               WHELL kernel (1e-12·max|z|);
+16. sdia_c64, sdia_c128 — the Laplacian plus ``1j·N(0, 1)``
+               (``default_rng(12)``) through kernels #8 and #11, exact
+               against their plain versions;
+17. whdia_c64, whdia_c128 — banded-11 (summed duplicates) plus
+               ``1j·N(0, 1)`` (``default_rng(8)``), pattern mode, and the
+               complex Laplacian, slab mode, through kernels #9 and #10;
+18. solve_complex — through ``solve()``, in complex64 to 1e-5 (true
+               residual ≤ 1e-4) and complex128 to 1e-10 (≤ 1e-9): CG on
+               the Hermitian positive-definite system made from the
+               complex flagship (auto, whell), CG on the same construction
+               from the complex Laplacian (auto, whdia; and
+               ``fmt="sdia"``), BiCGSTAB on a non-Hermitian, diagonally
+               dominant complex banded-11 system with ``fmt="whdia"``;
+               each counted on its route's launch counter.
+
+The library yardstick of a complex phase is the same CSR call in the
+complex type; where PyTorch refuses it, the row's ``library_ms`` holds
+the error text.
 
 Each phase prints one JSON line.  Then it prints the kernel table (one
 JSON line: each kernel's launches on the main path, its error against its
@@ -84,6 +108,19 @@ KERNELS = {
                       "spgpu_tpu/ops/pallas_kernels.py:2766"),
     "whdia_spmv_f64": ("cuda", "spgpu_tpu_torch/csrc/whdia_spmv.cu",
                        "spgpu_tpu/ops/pallas_kernels.py:1989"),
+    "whell_packed_spmv_c64": ("cuda", "spgpu_tpu_torch/csrc/whell_packed_spmv.cu",
+                              "spgpu_tpu/ops/pallas_kernels.py:356"),
+    # the JAX package runs complex128 WHELL as four plane products of #4
+    "whell_packed_spmv_c128": ("cuda", "spgpu_tpu_torch/csrc/whell_packed_spmv.cu",
+                               "spgpu_tpu/ops/pallas_kernels.py:548"),
+    "sdia_spmv_c64": ("cuda", "spgpu_tpu_torch/csrc/sdia_spmv.cu",
+                      "spgpu_tpu/ops/pallas_kernels.py:2383"),
+    "sdia_spmv_c128": ("cuda", "spgpu_tpu_torch/csrc/sdia_spmv.cu",
+                       "spgpu_tpu/ops/pallas_kernels.py:2624"),
+    "whdia_spmv_c64": ("cuda", "spgpu_tpu_torch/csrc/whdia_spmv.cu",
+                       "spgpu_tpu/ops/pallas_kernels.py:1637"),
+    "whdia_spmv_c128": ("cuda", "spgpu_tpu_torch/csrc/whdia_spmv.cu",
+                        "spgpu_tpu/ops/pallas_kernels.py:1805"),
 }
 
 #: the fixtures' sizes: flagship rows, Laplacian side, banded rows, and
@@ -91,9 +128,17 @@ KERNELS = {
 SIZES = dict(flagship=262144, lap=1024, band=2 ** 19, dd_lap=512)
 
 #: H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s,
-#: and FLOP/s outside the tensor cores for each vector type
+#: and FLOP/s outside the tensor cores for each vector type (a complex
+#: type's operations are those of its real parts)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "complex64": 67e12,
+              "complex128": 34e12}
+
+#: value dtype name -> the launch counter of its kernel in every kernel
+#: module (bf16 values count with fp32)
+COUNTER = {"float32": "LAUNCHES", "bfloat16": "LAUNCHES",
+           "float64": "LAUNCHES_F64", "complex64": "LAUNCHES_C64",
+           "complex128": "LAUNCHES_C128"}
 
 _closed = False
 
@@ -121,16 +166,18 @@ def flagship(dtype=np.float32):
 
 
 def spd_from(coo, dtype=np.float32):
-    """(A + Aᵀ)/2 with duplicates summed and each diagonal entry set to
-    its row's off-diagonal |·|-sum + 1 (strictly dominant: SPD), with
-    ``dtype`` values."""
+    """(A + Aᴴ)/2 with duplicates summed and each diagonal entry set to
+    its row's off-diagonal |·|-sum + 1 (strictly dominant: symmetric, or
+    Hermitian for complex values, and positive-definite), with ``dtype``
+    values."""
     from spgpu_tpu_torch.formats.coo import CooMatrix
 
     n = coo.n_rows
-    v = coo.values.astype(np.float64) / 2
+    v = coo.values.astype(np.complex128 if np.iscomplexobj(coo.values)
+                          else np.float64) / 2
     sym = CooMatrix(np.concatenate([coo.rows, coo.cols]),
                     np.concatenate([coo.cols, coo.rows]),
-                    np.concatenate([v, v]), n, n).sum_duplicates()
+                    np.concatenate([v, np.conj(v)]), n, n).sum_duplicates()
     off = sym.rows != sym.cols
     diag = np.bincount(sym.rows[off], weights=np.abs(sym.values[off]),
                        minlength=n) + 1.0
@@ -141,10 +188,55 @@ def spd_from(coo, dtype=np.float32):
                      n, n).sum_duplicates()
 
 
+def with_imag(coo, seed, dtype):
+    """``coo`` with values ``v + 1j·N(0, 1)`` (``default_rng(seed)``), as
+    ``dtype``: the JAX benchmark's complex fixtures."""
+    from spgpu_tpu_torch.formats.coo import CooMatrix
+
+    rng = np.random.default_rng(seed)
+    v = coo.values.astype(np.float64) + 1j * rng.standard_normal(coo.nnz)
+    return CooMatrix(coo.rows, coo.cols, v.astype(dtype), coo.n_rows, coo.n_cols)
+
+
+def dominant(coo):
+    """``coo`` (duplicates summed) with each diagonal entry's real part set
+    to its row's off-diagonal |·|-sum + 1: strictly diagonally dominant,
+    and as (non-)Hermitian as ``coo``."""
+    from spgpu_tpu_torch.formats.coo import CooMatrix
+
+    c = coo.sum_duplicates()
+    n = c.n_rows
+    off = c.rows != c.cols
+    d = np.bincount(c.rows[off], weights=np.abs(c.values[off]), minlength=n) + 1.0
+    di = np.zeros(n)
+    np.add.at(di, c.rows[~off], c.values[~off].imag)
+    idx = np.arange(n, dtype=np.int64)
+    return CooMatrix(np.concatenate([c.rows[off], idx]),
+                     np.concatenate([c.cols[off], idx]),
+                     np.concatenate([c.values[off], d + 1j * di]).astype(c.values.dtype),
+                     n, n).sum_duplicates()
+
+
+def rand_vector(n, seed, dtype):
+    """A random x of ``dtype`` from ``default_rng(seed)`` (complex: real
+    and imaginary parts drawn in turn)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n)
+    if np.dtype(dtype).kind == "c":
+        x = x + 1j * rng.standard_normal(n)
+    return x.astype(dtype)
+
+
+def wide(dtype):
+    """The host golden's type for ``dtype``: float64 or complex128."""
+    return np.complex128 if np.dtype(dtype).kind == "c" else np.float64
+
+
 def check_close(got, want, rtol, atol_frac, what):
     """allclose with ``atol = atol_frac * max|want|``; returns max|err|."""
-    got = np.asarray(got, np.float64)
-    want = np.asarray(want, np.float64)
+    dt = np.complex128 if np.iscomplexobj(got) or np.iscomplexobj(want) else np.float64
+    got = np.asarray(got, dt)
+    want = np.asarray(want, dt)
     if got.shape != want.shape or not np.all(np.isfinite(got)):
         raise AssertionError(f"{what}: shape {got.shape} vs {want.shape} or "
                              "non-finite values")
@@ -181,41 +273,57 @@ def csr_of(coo, dtype, device):
         check_invariants=True).to(device)
 
 
-def timed(kernel, plain, library):
+def library_call(coo, x, device):
+    """The yardstick ``csr @ x`` in x's type, called once, and None in its
+    place with the error text when PyTorch refuses it."""
+    try:
+        csr = csr_of(coo, str(x.dtype).removeprefix("torch."), device)
+        csr @ x
+        return (lambda: csr @ x), None
+    except RuntimeError as e:
+        return None, f"refused: {e}".splitlines()[0]
+
+
+def timed(kernel, plain, library, refused=None):
     """Times per call of a kernel, its plain version and the library call:
     CUDA events around interleaved runs of 20 calls (host-bound when the
     Python wrapper outlasts the kernel) and device time, with its source
     (``profiler``, or ``cuda_events`` when no profiling session recorded
-    device activity)."""
+    device activity).  Without a library call (``library`` None) its
+    times hold ``refused``, the error text."""
     from spgpu_tpu_torch.utils.timing import device_ms, time_interleaved
 
-    t = time_interleaved({"kernel": kernel, "plain": plain, "library": library},
-                         reps=5, iters=20)
+    fns = {"kernel": kernel, "plain": plain, "library": library}
+    fns = {k: f for k, f in fns.items() if f is not None}
+    t = time_interleaved(fns, reps=5, iters=20)
     out = {}
-    for name, fn in (("kernel", kernel), ("plain", plain), ("library", library)):
+    for name, fn in fns.items():
         dev, src = device_ms(fn)
         out.update({f"{name}_ms": t[name]["best_ms"],
                     f"{name}_spread_ms": t[name]["spread_ms"],
                     f"{name}_device_ms": dev, f"{name}_device_source": src})
+    if library is None:
+        out.update(library_ms=refused, library_device_ms=refused)
     return out
 
 
 def spmv_phase(coo, a, device, label):
     """Kernel vs plain vs host golden on one converted WHELL matrix (fp32
-    or bf16 values: kernel #1; float64: kernel #4), and the times of both
-    versions and of the library call on the same matrix."""
+    or bf16 values: kernel #1; float64: #4; complex64: #7; complex128:
+    the complex128 kernel), and the times of both versions and of the
+    library call on the same matrix."""
     import torch
 
     from spgpu_tpu_torch.kernels import whell as kw
     from spgpu_tpu_torch.ops import _prep_x, whell_spmv
 
-    f64 = a.values.dtype == torch.float64
-    xdt = torch.float64 if f64 else torch.float32
-    x = np.random.default_rng(7).standard_normal(coo.n_cols)
-    if not f64:
-        x = x.astype(np.float32)
+    vdt = a.values.dtype
+    name = str(vdt).removeprefix("torch.")
+    xdt = torch.float32 if vdt in (torch.float32, torch.bfloat16) else vdt
+    tight = xdt in (torch.float64, torch.complex128)
+    x = rand_vector(coo.n_cols, 7, str(xdt).removeprefix("torch."))
     xl = a.embed(torch.from_numpy(x), dtype=xdt)
-    counter = "LAUNCHES_F64" if f64 else "LAUNCHES"
+    counter = COUNTER[name]
     before = getattr(kw, counter)
     z = whell_spmv(a, xl)
     torch.cuda.synchronize(device)
@@ -228,46 +336,47 @@ def spmv_phase(coo, a, device, label):
     zp = kw.whell_packed_spmv_plain(*args, **static).view(-1)[: a.n_rows]
     zc, pc = z.cpu().numpy(), zp.cpu().numpy()
     # atomics sum each lane's tiles in another order than index_add_
-    tol_plain, tol_golden = ((0, 1e-12), (0, 1e-12)) if f64 else \
+    tol_plain, tol_golden = ((0, 1e-12), (0, 1e-12)) if tight else \
         ((1e-5, 1e-5), (1e-4, 1e-4))
     err_plain = check_close(zc, pc, *tol_plain, f"{label}: kernel vs plain")
-    # host golden in float64
-    golden = coo.spmv(x.astype(np.float64))
-    z_orig = a.extract(z, dtype=torch.float64).cpu().numpy()
+    # host golden in float64 or complex128
+    golden = coo.spmv(x.astype(wide(x.dtype)))
+    z_orig = a.extract(z, dtype=torch.from_numpy(golden).dtype).cpu().numpy()
     err_golden = check_close(z_orig, golden, *tol_golden,
                              f"{label}: kernel vs host golden")
     slab_bytes = a.total_slots * 128 * (a.values.element_size() + 2)
-    csr = csr_of(coo, np.float64 if f64 else np.float32, device)
     xo = torch.from_numpy(x).to(device)
+    library, refused = library_call(coo, xo, device)
     t = timed(lambda: kw.whell_packed_spmv(*args, **static),
               lambda: kw.whell_packed_spmv_plain(*args, **static),
-              lambda: csr @ xo)
+              library, refused)
     moved = nbytes(a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
                    a.group_bases, a.seg_lo, a.seg_hi, args[-1], z)
+    flops = (8 if xdt.is_complex else 2) * coo.nnz
     return dict(
         nnz=coo.nnz, tiles=a.num_tiles, lane_space=a.n_rows,
         padding=a.total_slots * 128 / coo.nnz, slab_mib=slab_bytes / 2**20,
         max_abs_err_vs_plain=err_plain, max_abs_err_vs_golden=err_golden, **t,
-        kernel_gflops=2 * coo.nnz / (t["kernel_ms"] * 1e6),
-        kernel_device_gflops=2 * coo.nnz / (t["kernel_device_ms"] * 1e6),
-        plain_gflops=2 * coo.nnz / (t["plain_ms"] * 1e6),
+        kernel_gflops=flops / (t["kernel_ms"] * 1e6),
+        kernel_device_gflops=flops / (t["kernel_device_ms"] * 1e6),
+        plain_gflops=flops / (t["plain_ms"] * 1e6),
         kernel_device_slab_gbytes_per_s=slab_bytes / (t["kernel_device_ms"] * 1e6),
-        **bound(moved, 2 * coo.nnz, "float64" if f64 else "float32"))
+        **bound(moved, flops, str(xdt).removeprefix("torch.")))
 
 
 def dia_phase(coo, kernel, plain, op_z, moved, tol_plain, label, device):
     """A DIA-class kernel on the card against its plain version (rtol and
-    atol/max|z| both ``tol_plain``) and the float64 host golden (2e-5 in
-    float32, 1e-12·max|z| in float64), then the times of both versions and
-    of the library call.  ``kernel``/``plain`` map x to the padded
-    product, ``op_z`` to the op's ``(n_rows,)`` result; ``moved`` is the
-    bytes the kernel must read and write."""
+    atol/max|z| both ``tol_plain``) and the float64 or complex128 host
+    golden (2e-5 in float32 and complex64, 1e-12·max|z| in float64 and
+    complex128), then the times of both versions and of the library call.
+    ``kernel``/``plain`` map x to the padded product, ``op_z`` to the
+    op's ``(n_rows,)`` result; ``moved`` is the bytes the kernel must read
+    and write."""
     import torch
 
-    f64 = coo.values.dtype == np.float64
-    x = np.random.default_rng(7).standard_normal(coo.n_cols)
-    if not f64:
-        x = x.astype(np.float32)
+    vdt = np.dtype(coo.values.dtype)
+    tight = vdt in (np.float64, np.complex128)
+    x = rand_vector(coo.n_cols, 7, vdt)
     xt = torch.from_numpy(x).to(device)
     z = op_z(xt)
     torch.cuda.synchronize(device)
@@ -275,26 +384,27 @@ def dia_phase(coo, kernel, plain, op_z, moved, tol_plain, label, device):
     zp = plain(xt)[:n]
     err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), tol_plain,
                             tol_plain, f"{label}: kernel vs plain")
-    tol_golden = (0, 1e-12) if f64 else (2e-5, 2e-5)
-    err_golden = check_close(z.cpu().numpy(), coo.spmv(x.astype(np.float64)),
+    tol_golden = (0, 1e-12) if tight else (2e-5, 2e-5)
+    err_golden = check_close(z.cpu().numpy(), coo.spmv(x.astype(wide(vdt))),
                              *tol_golden, f"{label}: kernel vs host golden")
-    csr = csr_of(coo, coo.values.dtype, device)
-    t = timed(lambda: kernel(xt), lambda: plain(xt), lambda: csr @ xt)
+    library, refused = library_call(coo, xt, device)
+    t = timed(lambda: kernel(xt), lambda: plain(xt), library, refused)
+    flops = (8 if vdt.kind == "c" else 2) * coo.nnz
     return dict(
         rows=n, nnz=coo.nnz, max_abs_err_vs_plain=err_plain,
         max_abs_err_vs_golden=err_golden, **t,
-        kernel_gflops=2 * coo.nnz / (t["kernel_ms"] * 1e6),
-        kernel_device_gflops=2 * coo.nnz / (t["kernel_device_ms"] * 1e6),
-        plain_device_gflops=2 * coo.nnz / (t["plain_device_ms"] * 1e6),
+        kernel_gflops=flops / (t["kernel_ms"] * 1e6),
+        kernel_device_gflops=flops / (t["kernel_device_ms"] * 1e6),
+        plain_device_gflops=flops / (t["plain_device_ms"] * 1e6),
         bytes_mib=moved / 2**20,
         kernel_device_gbytes_per_s=moved / (t["kernel_device_ms"] * 1e6),
-        **bound(moved, 2 * coo.nnz, "float64" if f64 else "float32"))
+        **bound(moved, flops, vdt.name))
 
 
 def sdia_phase(coo, device, label):
-    """``dia_phase`` for SDIA (kernel #2, or #5 in float64): the kernel
-    sums in its plain version's order with the same roundings, so the two
-    must agree exactly."""
+    """``dia_phase`` for SDIA (kernel #2; #5 in float64, #8 in complex64,
+    #11 in complex128): the kernel sums in its plain version's order with
+    the same roundings, so the two must agree exactly."""
     from spgpu_tpu_torch.convert import coo_to_sdia
     from spgpu_tpu_torch.kernels import sdia as ks
     from spgpu_tpu_torch.ops import sdia_spmv
@@ -313,9 +423,10 @@ def sdia_phase(coo, device, label):
 
 
 def whdia_phase(coo, mode, device, label):
-    """``dia_phase`` for WHDIA (kernel #3, or #6 in float64); atomics
-    reorder the sums, hence 1e-5 (1e-12 in float64) against the plain
-    version.  ``mode`` is the r0 mode the layout must take."""
+    """``dia_phase`` for WHDIA (kernel #3; #6 in float64, #9 in complex64,
+    #10 in complex128); atomics reorder the sums, hence 1e-5 (1e-12 in
+    float64 and complex128) against the plain version.  ``mode`` is the
+    r0 mode the layout must take."""
     import torch
 
     from spgpu_tpu_torch.convert import coo_to_whdia
@@ -338,7 +449,8 @@ def whdia_phase(coo, mode, device, label):
         lambda x: kd.whdia_spmv_plain(*args, x, **static),
         lambda x: whdia_spmv(wa, x),
         nbytes(*args) + isz * (coo.n_cols + wa.num_groups * wa.group_hacks * 128),
-        1e-12 if isz == 8 else 1e-5, label, device)
+        1e-12 if wa.values.dtype in (torch.float64, torch.complex128) else 1e-5,
+        label, device)
     out.update(mode=got, window_pages=wa.window_pages, tiles=wa.num_tiles,
                padding=wa.total_slots * 128 / coo.nnz,
                value_mib=nbytes(wa.values) / 2**20, convert_s=convert_s)
@@ -348,8 +460,8 @@ def whdia_phase(coo, mode, device, label):
 def counted_solve(coo, b, counter, device, tol, true_tol, **kw):
     """``solve()`` with the kernel's launch counter (``counter``: module,
     attribute name) set to 0 just before and read just after; checks
-    convergence, one launch per iteration at least, and the float64 host
-    true residual ≤ ``true_tol``."""
+    convergence, one launch per iteration at least, and the float64 (or
+    complex128) host true residual ≤ ``true_tol``."""
     import torch
 
     from spgpu_tpu_torch.solvers import solve
@@ -368,8 +480,9 @@ def counted_solve(coo, b, counter, device, tol, true_tol, **kw):
     if launches < res.iterations:
         raise AssertionError(f"solve({kw}): {launches} kernel launches for "
                              f"{res.iterations} iterations")
-    xs = res.x.cpu().double().numpy()
-    bb = np.asarray(b, np.float64)
+    xs = res.x.cpu().numpy()
+    xs = xs.astype(wide(xs.dtype))
+    bb = np.asarray(b).astype(wide(np.asarray(b).dtype))
     true_res = float(np.linalg.norm(bb - coo.spmv(xs)) / np.linalg.norm(bb))
     if not true_res <= true_tol:
         raise AssertionError(f"solve({kw}): true residual {true_res} > {true_tol}")
@@ -403,9 +516,11 @@ def loop_timing(solver, mv, b, tol):
 
 
 def dia_solves(lap, band, device, dtype, tol, true_tol):
-    """CG on the Laplacian auto-selected (whdia) and with ``fmt="sdia"``,
-    BiCGSTAB on the contiguous band with ``fmt="whdia"``, each counted on
-    its kernel's launch counter and then timed on a fresh layout."""
+    """CG on the Laplacian (or, complex, a Hermitian positive-definite
+    system of its structure) auto-selected (whdia) and with
+    ``fmt="sdia"``, BiCGSTAB on the contiguous band with ``fmt="whdia"``,
+    each counted on its kernel's launch counter and then timed on a fresh
+    layout."""
     import torch
 
     from spgpu_tpu_torch.convert import coo_to_sdia, coo_to_whdia, suggest_format
@@ -414,8 +529,8 @@ def dia_solves(lap, band, device, dtype, tol, true_tol):
     from spgpu_tpu_torch.ops import sdia_spmv, whdia_spmv
     from spgpu_tpu_torch.solvers import bicgstab, cg
 
-    attr = "LAUNCHES_F64" if dtype == np.float64 else "LAUNCHES"
-    x_true = np.random.default_rng(1).standard_normal(lap.n_rows)
+    attr = COUNTER[np.dtype(dtype).name]
+    x_true = rand_vector(lap.n_rows, 1, wide(dtype))
     b_lap = lap.spmv(x_true).astype(dtype)
     fmt_lap = suggest_format(lap)
     if fmt_lap != "whdia":
@@ -430,8 +545,7 @@ def dia_solves(lap, band, device, dtype, tol, true_tol):
     solves["cg_sdia"]["x_err_vs_true"] = float(np.abs(xs - x_true).max())
     # a contiguous band: the wandering bench fixture moves the dominant
     # entry off the diagonal and BiCGSTAB breaks down on it
-    b_band = band.spmv(np.random.default_rng(1).standard_normal(band.n_rows)
-                       ).astype(dtype)
+    b_band = band.spmv(rand_vector(band.n_rows, 1, wide(dtype))).astype(dtype)
     _, _, solves["bicgstab_whdia"] = counted_solve(
         band, b_band, (kd, attr), device, tol, true_tol, fmt="whdia",
         symmetric=False, maxiter=5000)
@@ -449,9 +563,10 @@ def dia_solves(lap, band, device, dtype, tol, true_tol):
 
 
 def spd_solve(spd, device, dtype, tol, true_tol):
-    """CG on the SPD system through ``solve()`` with auto-selection (must
-    be whell), counted on kernel #1's or #4's launch counter, then the CG
-    loop alone on a fresh layout."""
+    """CG on the SPD (or Hermitian positive-definite) system through
+    ``solve()`` with auto-selection (must be whell), counted on the launch
+    counter of the WHELL kernel of ``dtype``, then the CG loop alone on a
+    fresh layout."""
     import torch
 
     from spgpu_tpu_torch.convert import coo_to_whell, suggest_format
@@ -462,9 +577,9 @@ def spd_solve(spd, device, dtype, tol, true_tol):
     fmt = suggest_format(spd)
     if fmt != "whell":
         raise AssertionError(f"auto-selection chose {fmt!r}, not whell")
-    x_true = np.random.default_rng(1).standard_normal(spd.n_rows)
+    x_true = rand_vector(spd.n_rows, 1, wide(dtype))
     b = spd.spmv(x_true).astype(dtype)
-    attr = "LAUNCHES_F64" if dtype == np.float64 else "LAUNCHES"
+    attr = COUNTER[np.dtype(dtype).name]
     _, xs, solved = counted_solve(spd, b, (kw, attr), device, tol, true_tol,
                                   maxiter=5000)
     a = coo_to_whell(spd, device=device)
@@ -479,8 +594,8 @@ def spd_solve(spd, device, dtype, tol, true_tol):
 
 def build_all():
     """The host helpers, then the three kernel libraries (each holds the
-    float32 and the float64 kernels of its route), all nvcc builds
-    started together."""
+    float32, float64, complex64 and complex128 kernels of its route), all
+    nvcc builds started together."""
     from spgpu_tpu_torch import native
     from spgpu_tpu_torch.kernels import sdia, whdia, whell
 
@@ -618,22 +733,66 @@ def main() -> int:
     solve64.update(dia_solves(lap64, band64, device, np.float64, 1e-10, 1e-9))
     emit("solve_f64", **solve64)
 
-    lap_w, lap_w64 = whdia["laplace"], whdia64["laplace"]
-    close([
+    # --- complex64 and complex128 (C and Z): kernels #7-#11 and the ------
+    # --- complex128 WHELL kernel, on the JAX benchmark's complex fixtures
+    spmv_c, sdia_c, whdia_c, solve_c = {}, {}, {}, {}
+    band_sum = random_banded(SIZES["band"], 11, wander=7, seed=2,
+                             dtype=np.float64).sum_duplicates()
+    for dt, tol, true_tol in ((np.complex64, 1e-5, 1e-4),
+                              (np.complex128, 1e-10, 1e-9)):
+        tag = "c64" if dt == np.complex64 else "c128"
+        cz = with_imag(coo64, 8, dt)
+        t0 = time.perf_counter()
+        a = coo_to_whell(cz, device=device)
+        torch.cuda.synchronize(device)
+        convert_s = time.perf_counter() - t0
+        spmv_c[tag] = spmv_phase(cz, a, device, f"spmv {tag}")
+        emit(f"spmv_{tag}", fmt=suggest_format(cz), convert_s=convert_s,
+             window_pages=a.window_pages, scattered=a.scattered,
+             group_hacks=a.group_hacks, chunk_tiles=a.chunk_tiles,
+             **spmv_c[tag])
+        del a
+        lap_c = with_imag(lap64, 12, dt)
+        sdia_c[tag] = sdia_phase(lap_c, device, f"sdia laplace {tag}")
+        emit(f"sdia_{tag}", fixture=f"laplacian_2d({n}, {n}) + 1j*N(0,1), {tag}",
+             **sdia_c[tag])
+        whdia_c[tag] = {
+            "banded11": whdia_phase(with_imag(band_sum, 8, dt), "pattern", device,
+                                    f"whdia banded11 {tag}"),
+            "laplace": whdia_phase(lap_c, "slab", device, f"whdia laplace {tag}")}
+        emit(f"whdia_{tag}", **whdia_c[tag])
+        solve_c[tag] = {"cg_auto_whell": spd_solve(spd_from(cz, dt), device, dt,
+                                                   tol, true_tol)}
+        solve_c[tag].update(dia_solves(spd_from(lap_c, dt),
+                                       dominant(with_imag(band64, 8, dt)),
+                                       device, dt, tol, true_tol))
+        del cz, lap_c
+    emit("solve_complex", **solve_c)
+
+    def whdia_row(name, solves, phases):
+        """WHDIA's row: the Laplacian's times, the larger error of its two
+        fixtures, the launches of both WHDIA solves."""
+        return kernel_row(name, solves["cg_auto_whdia"]["launches"]
+                          + solves["bicgstab_whdia"]["launches"],
+                          dict(phases["laplace"], max_abs_err_vs_plain=max(
+                              w["max_abs_err_vs_plain"] for w in phases.values())))
+
+    rows = [
         kernel_row("whell_packed_spmv", solve["launches"], spmv),
         kernel_row("sdia_spmv", solves["cg_sdia"]["launches"], sdia),
-        kernel_row("whdia_spmv", solves["cg_auto_whdia"]["launches"]
-                   + solves["bicgstab_whdia"]["launches"],
-                   dict(lap_w, max_abs_err_vs_plain=max(
-                       w["max_abs_err_vs_plain"] for w in whdia.values()))),
+        whdia_row("whdia_spmv", solves, whdia),
         kernel_row("whell_packed_spmv_f64", solve64["cg_auto_whell"]["launches"],
                    spmv64),
         kernel_row("sdia_spmv_f64", solve64["cg_sdia"]["launches"], sdia64),
-        kernel_row("whdia_spmv_f64", solve64["cg_auto_whdia"]["launches"]
-                   + solve64["bicgstab_whdia"]["launches"],
-                   dict(lap_w64, max_abs_err_vs_plain=max(
-                       w["max_abs_err_vs_plain"] for w in whdia64.values()))),
-    ], smi, torch)
+        whdia_row("whdia_spmv_f64", solve64, whdia64)]
+    for tag in ("c64", "c128"):
+        rows += [
+            kernel_row(f"whell_packed_spmv_{tag}",
+                       solve_c[tag]["cg_auto_whell"]["launches"], spmv_c[tag]),
+            kernel_row(f"sdia_spmv_{tag}", solve_c[tag]["cg_sdia"]["launches"],
+                       sdia_c[tag]),
+            whdia_row(f"whdia_spmv_{tag}", solve_c[tag], whdia_c[tag])]
+    close(rows, smi, torch)
     return 0
 
 

@@ -11,9 +11,10 @@ runs two routes on the GPU, each through a hand CUDA kernel:
     whdia_spmv (kernels/sdia.py, kernels/whdia.py) → solvers.cg / bicgstab
 
 ``solvers.solve`` picks the route by format selection.  Values are
-float32 (bf16 too on WHELL) or float64; a float64 matrix runs float64
-layouts, kernels and solver loops natively, where the JAX package
-emulates D precision with fp32 pairs.
+float32 (bf16 too on WHELL), float64, complex64 or complex128; a float64
+or complex matrix runs layouts, kernels and solver loops of its own type
+natively, where the JAX package emulates D precision with fp32 pairs and
+keeps complex matrices as two real planes.
 
 Every function takes an explicit ``device``; CPU tensors run the plain
 PyTorch version of each kernel.

@@ -1,10 +1,12 @@
 """COO → SDIA (static-offset DIA, the stencil-matrix layout), host NumPy.
 
-Counterpart of :func:`spgpu_tpu.convert.sdia.coo_to_sdia` for float32
-and float64 values: the same diagonal discovery and tiling, so float32
-planes are bit-identical to the JAX converter's, and float64 planes hold
-the COO's values where the JAX converter splits them into a
-double-float pair.  ``dia_to_sdia`` waits for the
+Counterpart of :func:`spgpu_tpu.convert.sdia.coo_to_sdia` for float32,
+float64, complex64 and complex128 values: the same diagonal discovery
+and tiling, so float32 planes are bit-identical to the JAX converter's,
+float64 planes hold the COO's values where the JAX converter splits them
+into a double-float pair, and complex planes hold the COO's complex
+values where the JAX converter builds two real-plane layouts of the same
+offsets (``ComplexPlanes``).  ``dia_to_sdia`` waits for the
 classic DIA format (ROADMAP module item 11).
 """
 
@@ -12,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from spgpu_tpu_torch.core import real_dtype
+from spgpu_tpu_torch.core import value_dtype
 from spgpu_tpu_torch.formats.coo import CooMatrix
 from spgpu_tpu_torch.formats.dia import SdiaMatrix, make
 
@@ -26,7 +28,7 @@ def coo_to_sdia(coo: CooMatrix, *, device) -> SdiaMatrix:
     keep the last write (coalesce with ``sum_duplicates()`` first if they
     should add).  Planes hold tiles of 1024 rows, rounded up to a
     multiple of 16 tiles as in the JAX layout."""
-    dt = real_dtype(coo.values.dtype, "SDIA")
+    dt = value_dtype(coo.values.dtype, "SDIA")
     n_tiles = -(-max(1, -(-coo.n_rows // 1024)) // 16) * 16
     if coo.nnz == 0:
         return make(np.zeros((1, n_tiles * 8, 128), dt), (),

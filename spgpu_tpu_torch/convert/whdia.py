@@ -1,16 +1,20 @@
 """COO → WHDIA conversion (host NumPy + the C++ tiler).
 
 Counterpart of the unblocked path of :func:`spgpu_tpu.convert.whdia.
-coo_to_whdia` for float32 and float64 values: the same slot discovery,
-the same native greedy tiler, the same geometry defaults, window pick and
-pattern-mode detection, so the arrays are bit-identical to the JAX
-converter's (``slot_r0`` is stored once per slot instead of
-lane-replicated).  float64 takes the geometry of the JAX double-float
-layout, holds the COO's values where JAX holds a hi/lo pair, and packs
-r0 per tile wherever float32 would (the JAX double-float kernel reads
-the ``slot_r0`` slab only).  Entries are bucketed by (hack, diagonal); duplicate
-coordinates plain-store, so the last entry in file order wins, as in
-``cooToHdia`` (``hdia.cpp:230-349``).
+coo_to_whdia` for float32, float64, complex64 and complex128 values:
+the same slot discovery, the same native greedy tiler, the same geometry
+defaults, window pick and pattern-mode detection, so the arrays are
+bit-identical to the JAX converter's (``slot_r0`` is stored once per
+slot instead of lane-replicated).  float64 takes the geometry of the JAX
+double-float layout, holds the COO's values where JAX holds a hi/lo
+pair, and packs r0 per tile wherever float32 would (the JAX double-float
+kernel reads the ``slot_r0`` slab only).  A complex COO converts its
+structure once into one complex slab, where the JAX converter builds two
+real-plane layouts of one structure (``ComplexPlanes``): complex64 takes
+the fp32 geometry, complex128 the float64 one (and its r0-mode rule).
+Entries are bucketed by (hack, diagonal); duplicate coordinates
+plain-store, so the last entry in file order wins, as in ``cooToHdia``
+(``hdia.cpp:230-349``).
 
 The JAX converter splits a matrix into row blocks (``BlockedWhdia``) when
 x passes its VMEM budget (``n_cols*itemsize > 10 MiB``) or its tile scalars pass
@@ -25,7 +29,7 @@ import numpy as np
 import torch
 
 from spgpu_tpu_torch import native
-from spgpu_tpu_torch.core import real_dtype
+from spgpu_tpu_torch.core import value_dtype
 from spgpu_tpu_torch.formats.coo import CooMatrix
 from spgpu_tpu_torch.formats.whdia import WhdiaMatrix
 
@@ -59,8 +63,8 @@ def coo_to_whdia(coo: CooMatrix, *, device) -> WhdiaMatrix:
     holds one int16 per slot.  Raises ``ValueError`` past 65,536 column
     pages (~8.4M columns), where ``tile_base``'s 16-bit base page would
     wrap (ROADMAP module item 8)."""
-    dt = real_dtype(coo.values.dtype, "WHDIA")
-    f64 = dt == np.float64
+    dt = value_dtype(coo.values.dtype, "WHDIA")
+    f64 = dt in (np.float64, np.complex128)  # the double-float geometry
     num_hacks = max(-(-coo.n_rows // _HACK), 1)
     # the JAX package's geometry defaults
     group_hacks = 32 if (f64 or num_hacks < 128) else 128

@@ -12,6 +12,14 @@ size.  At the sizes where the JAX converter does not split either, the
 two layouts are identical.  (For float64 the JAX budgets are tighter,
 since it stages x as a hi/lo pair: past 3,584 x pages its double-float
 layout shrinks groups or splits panels, and the port's does not.)
+
+A complex COO converts its structure once and scatters the complex values
+into one complex slab.  The JAX converter runs the real converter twice,
+on the real and on the imaginary parts, and both planes come out with one
+structure (entries are placed by coordinate, never by value): the port's
+structural arrays equal its ``ar`` plane's.  complex64 takes the fp32
+geometry and complex128 the float64 (double-float) one, as the JAX
+converter's planes do.
 """
 
 from __future__ import annotations
@@ -23,12 +31,12 @@ import numpy as np
 import torch
 
 from spgpu_tpu_torch import native
-from spgpu_tpu_torch.core import dtype_name, real_dtype
+from spgpu_tpu_torch.core import dtype_name, value_dtype
 from spgpu_tpu_torch.formats.coo import CooMatrix
 from spgpu_tpu_torch.formats.whell import WhellMatrix
 
-__all__ = ["coo_to_whell", "local_degree_perm", "symmetric_relabel",
-           "value_dtype"]
+__all__ = ["coo_to_whell", "local_degree_perm", "slab_dtype",
+           "symmetric_relabel"]
 
 _HACK = 128
 
@@ -37,12 +45,13 @@ _HACK = 128
 _SLAB_GUARD_BYTES = 16 * 2 ** 30
 
 
-def value_dtype(dtype) -> torch.dtype:
-    """The slab dtype for a NumPy/torch dtype or name: float32, float64
-    or bfloat16; anything else raises ``NotImplementedError``."""
+def slab_dtype(dtype) -> torch.dtype:
+    """The slab dtype for a NumPy/torch dtype or name: float32, float64,
+    complex64, complex128 or bfloat16; anything else raises
+    ``NotImplementedError``."""
     if dtype_name(dtype) == "bfloat16":
         return torch.bfloat16
-    return getattr(torch, real_dtype(dtype, "packed WHELL").name)
+    return getattr(torch, value_dtype(dtype, "packed WHELL").name)
 
 
 def local_degree_perm(coo: CooMatrix, window: int = 1024) -> np.ndarray:
@@ -90,16 +99,17 @@ def coo_to_whell(
     ``a.extract``).  ``scattered`` lets a tile's window be
     ``window_pages / 8`` independently based 8-page superpages;
     ``scattered=False`` keeps one aligned window of ``window_pages``.
-    ``dtype`` selects float32, float64 or bfloat16 values (default: the
-    COO's).  float64 takes the geometry of the JAX package's double-float
-    layout (aligned windows by default, its chunk and group sizes), so
-    the two packages' structural arrays are identical and the values are
-    the COO's float64 ones, not a hi/lo pair.  Duplicates stay separate
+    ``dtype`` selects float32, float64, complex64, complex128 or bfloat16
+    values (default: the COO's).  float64 and complex128 take the
+    geometry of the JAX package's double-float layout (aligned windows by
+    default, its chunk and group sizes), so the two packages' structural
+    arrays are identical and the values are the COO's, not hi/lo pairs
+    or real planes.  Duplicates stay separate
     cells and add.  (The classic, non-packed layout is not ported:
     ROADMAP module item 11.)
     """
-    vdt = value_dtype(coo.values.dtype if dtype is None else dtype)
-    f64 = vdt == torch.float64
+    vdt = slab_dtype(coo.values.dtype if dtype is None else dtype)
+    f64 = vdt in (torch.float64, torch.complex128)  # the double-float geometry
     if scattered is None:
         scattered = not f64
     est_tiles = max(1, coo.nnz // 1024)
@@ -130,7 +140,8 @@ def coo_to_whell(
 
 def _slab_values(values: np.ndarray, vdt: torch.dtype) -> np.ndarray:
     """Per-entry values in the slab's storage type (bf16 as int16 bits,
-    since NumPy has no bfloat16)."""
+    since NumPy has no bfloat16; a real COO given a complex type gets
+    zero imaginary parts)."""
     t = torch.from_numpy(np.ascontiguousarray(values)).to(vdt)
     return (t.view(torch.int16) if vdt == torch.bfloat16 else t).numpy()
 

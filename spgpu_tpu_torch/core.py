@@ -4,7 +4,9 @@ Counterpart of :mod:`spgpu_tpu.core`.  The layout constants (128 lanes,
 chunk sizes) are properties of the compute layouts, not of the TPU, so
 they carry over unchanged: the port reads the same layout arrays.
 float64 runs natively on the GPU: the JAX package's double-float pairs
-are joined into one float64 array (:func:`join_dd`).  The
+are joined into one float64 array (:func:`join_dd`).  Complex values are
+PyTorch's complex64 and complex128, interleaved re/im: the JAX package's
+two real planes join into one complex array (:func:`join_planes`).  The
 TPU ``Context`` (device kind, VMEM, HBM table) has no counterpart here:
 every function of the port takes an explicit ``device``.
 """
@@ -17,8 +19,8 @@ import numpy as np
 import torch
 
 __all__ = ["Status", "TypeCode", "size_of", "LANES", "CHUNK_TILES",
-           "round_up", "cdiv", "require_cuda", "dtype_name", "real_dtype",
-           "join_dd"]
+           "round_up", "cdiv", "require_cuda", "dtype_name", "value_dtype",
+           "real_part_dtype", "join_dd", "join_planes", "join_plane_fields"]
 
 
 class Status(enum.IntEnum):
@@ -93,20 +95,23 @@ def dtype_name(dtype) -> str:
         return str(dtype)
 
 
-def real_dtype(dtype, layout: str) -> np.dtype:
-    """``dtype`` (NumPy or torch) as ``np.float32`` or ``np.float64``, the
-    real value types every layout takes; anything else raises
-    ``NotImplementedError`` (complex values are a later slice)."""
+def value_dtype(dtype, layout: str) -> np.dtype:
+    """``dtype`` (NumPy or torch) as one of the value types every layout
+    takes: float32, float64, complex64 or complex128; anything else raises
+    ``NotImplementedError``."""
     name = dtype_name(dtype)
-    if name in ("float32", "float64"):
+    if name in ("float32", "float64", "complex64", "complex128"):
         return np.dtype(name)
-    if name.startswith("complex"):
-        later = "complex values are ROADMAP module item 6"
-    else:
-        later = "no other value type is planned"
     raise NotImplementedError(
-        f"{layout} in the port takes float32 or float64 values, not "
-        f"{name}: {later}")
+        f"{layout} in the port takes float32 or float64 values (or "
+        f"complex64/complex128), not {name}: no other value type is planned")
+
+
+def real_part_dtype(dtype) -> torch.dtype:
+    """The real type of a complex torch dtype (complex64 → float32,
+    complex128 → float64); a real dtype is its own."""
+    return {torch.complex64: torch.float32,
+            torch.complex128: torch.float64}.get(dtype, dtype)
 
 
 def join_dd(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
@@ -117,3 +122,41 @@ def join_dd(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
             "a double-float pair is two float32 arrays of one shape, not "
             f"{hi.dtype} {tuple(hi.shape)} and {lo.dtype} {tuple(lo.shape)}")
     return hi.double() + lo.double()
+
+
+def join_planes(ar: torch.Tensor, ai: torch.Tensor, ar_lo=None,
+                ai_lo=None) -> torch.Tensor:
+    """Two real planes of one shape joined into one complex tensor
+    ``ar + i·ai``: complex64 from float32 planes, complex128 from
+    double-float pairs (each plane first joined with :func:`join_dd`, as
+    the JAX package's Z planes are ``(hi, lo)`` pairs) or float64 planes."""
+    if (ar_lo is None) != (ai_lo is None):
+        raise ValueError("give the lo word of both planes or of neither")
+    if ar_lo is not None:
+        ar, ai = join_dd(ar, ar_lo), join_dd(ai, ai_lo)
+    if ar.shape != ai.shape or ar.dtype != ai.dtype \
+            or ar.dtype not in (torch.float32, torch.float64):
+        raise ValueError(
+            "complex planes are two float32 or float64 arrays of one shape, "
+            f"not {ar.dtype} {tuple(ar.shape)} and {ai.dtype} {tuple(ai.shape)}")
+    return torch.complex(ar.contiguous(), ai.contiguous())
+
+
+def join_plane_fields(ar: dict, ai: dict, structure, layout: str) -> torch.Tensor:
+    """The complex values of a JAX two-plane layout (``ar``, ``ai``: each
+    plane's array fields as NumPy arrays, ``values`` and ``values_lo``
+    among them), joined by :func:`join_planes`.  Raises ``ValueError``
+    unless the planes share every field named in ``structure``, bit for
+    bit: the port keeps one structure for both."""
+    for f in structure:
+        a, b = ar.get(f), ai.get(f)
+        if (a is None) != (b is None) or (
+                a is not None and not np.array_equal(np.asarray(a), np.asarray(b))):
+            raise ValueError(f"complex {layout} planes differ in {f}: the two "
+                             "planes must share one structure")
+
+    def plane(p, f):
+        return None if p.get(f) is None else torch.from_numpy(np.array(p[f]))
+
+    return join_planes(plane(ar, "values"), plane(ai, "values"),
+                       plane(ar, "values_lo"), plane(ai, "values_lo"))

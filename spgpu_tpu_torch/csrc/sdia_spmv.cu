@@ -5,8 +5,12 @@
 // _sdia_spmv_call and sdia_spmv_pallas; entry sdia_spmv, fp32) and
 // _sdia_dd_kernel (_sdia_dd_call, sdia_spmv_dd_pallas with the geometry of
 // _sdia_geometry(dd=True); entry sdia_spmv_f64, float64 where the TPU
-// kernel emulates it with double-float pairs).  It computes the same
-// product on the same planes (spgpu_tpu_torch/formats/dia.py):
+// kernel emulates it with double-float pairs), _sdia_cplx_kernel
+// (_sdia_cplx_call, sdia_spmv_cplx_pallas; entry sdia_spmv_c64, complex64)
+// and _sdia_z_kernel with _sdia_xwin (_sdia_z_call, sdia_spmv_z_pallas;
+// entry sdia_spmv_c128, complex128 where the TPU kernel runs four
+// double-float planes).  It computes the same product on the same planes
+// (spgpu_tpu_torch/formats/dia.py):
 //
 //   z[r] = sum_j values[j*R + r] * x[r + offsets[j]]     (0 <= r < n_rows)
 //
@@ -17,7 +21,10 @@
 // z: on the 1,048,576-row 2-D Laplacian (5 diagonals) 20 MiB of values,
 // 4 MiB of x and 4 MiB of z, about 8.8 us at 3.35 TB/s.  float64 doubles
 // every byte: 40 + 8 + 8 = 56 MiB, about 17.5 us, a working set that
-// still nearly fits the 50 MB L2.
+// still nearly fits the 50 MB L2.  complex64 moves float64's bytes (8 B
+// per cell, an interleaved re/im float2): 58.7 MB, 17.5 us; complex128
+// twice that (16 B per cell, a double2): 117.4 MB, 35.1 us (chip_smoke.py's
+// counts on the Laplacian).
 //
 // What the design does about it: the TPU kernel compiles the offsets into
 // the program and builds each diagonal's x operand from VMEM-resident x
@@ -27,7 +34,13 @@
 // register, so there are no atomics and the result is deterministic.  Each
 // step is a rounded multiply and then a rounded add (no fused
 // multiply-add), in ascending diagonal order: the plain PyTorch version's
-// arithmetic, so the two agree bit for bit.  The
+// arithmetic, so the two agree bit for bit.  A complex cell is one float2 /
+// double2 load, and its step rounds every operation, in the order of the
+// JAX kernel (pallas_kernels.py, _sdia_cplx_kernel): cr = vr*xr - vi*xi,
+// ci = vr*xi + vi*xr, then sum.re += cr and sum.im += ci.  The
+// plain version does the same on the real and imaginary components with
+// separate multiplies, subtract and adds, so complex agrees bit for bit
+// too.  The
 // offsets live in a small device table and are staged through shared
 // memory in chunks of one block's width, as spGPU's DIA kernel stages its
 // offset list (dia_spmv_base_template.cuh:35-49); any number of diagonals
@@ -49,6 +62,18 @@ __device__ __forceinline__ double mul_add(double v, double x, double sum) {
   return __dadd_rn(sum, __dmul_rn(v, x));
 }
 
+__device__ __forceinline__ float2 mul_add(float2 v, float2 x, float2 sum) {
+  const float cr = __fsub_rn(__fmul_rn(v.x, x.x), __fmul_rn(v.y, x.y));
+  const float ci = __fadd_rn(__fmul_rn(v.x, x.y), __fmul_rn(v.y, x.x));
+  return make_float2(__fadd_rn(sum.x, cr), __fadd_rn(sum.y, ci));
+}
+
+__device__ __forceinline__ double2 mul_add(double2 v, double2 x, double2 sum) {
+  const double cr = __dsub_rn(__dmul_rn(v.x, x.x), __dmul_rn(v.y, x.y));
+  const double ci = __dadd_rn(__dmul_rn(v.x, x.y), __dmul_rn(v.y, x.x));
+  return make_double2(__dadd_rn(sum.x, cr), __dadd_rn(sum.y, ci));
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 sdia_spmv_kernel(const T* __restrict__ values,
@@ -57,7 +82,7 @@ sdia_spmv_kernel(const T* __restrict__ values,
                  int n_diags, int64_t plane, int64_t n_rows, int64_t n_cols) {
   __shared__ int32_t off[kThreads];
   const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  T sum = 0;
+  T sum{};
   for (int j0 = 0; j0 < n_diags; j0 += kThreads) {
     const int nj = min(kThreads, n_diags - j0);
     __syncthreads();  // the previous chunk is no longer read
@@ -96,19 +121,21 @@ extern "C" {
 // z (n_rows) = SDIA product of values (n_diags planes of `plane` entries
 // each) and x (n_cols); offsets is a device int32 table of n_diags
 // entries.  Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError().  sdia_spmv takes fp32 arrays, sdia_spmv_f64 float64.
-int sdia_spmv(const void* values, const void* offsets, const void* x, void* z,
-              int n_diags, int64_t plane, int64_t n_rows, int64_t n_cols,
-              void* stream) {
-  return launch<float>(values, offsets, x, z, n_diags, plane, n_rows, n_cols,
-                       stream);
-}
+// cudaGetLastError().  sdia_spmv takes fp32 arrays, sdia_spmv_f64 float64,
+// sdia_spmv_c64 complex64 and sdia_spmv_c128 complex128 (interleaved re/im).
+#define SDIA_ENTRY(NAME, T)                                                \
+  int NAME(const void* values, const void* offsets, const void* x, void* z, \
+           int n_diags, int64_t plane, int64_t n_rows, int64_t n_cols,     \
+           void* stream) {                                                 \
+    return launch<T>(values, offsets, x, z, n_diags, plane, n_rows, n_cols, \
+                     stream);                                              \
+  }
 
-int sdia_spmv_f64(const void* values, const void* offsets, const void* x,
-                  void* z, int n_diags, int64_t plane, int64_t n_rows,
-                  int64_t n_cols, void* stream) {
-  return launch<double>(values, offsets, x, z, n_diags, plane, n_rows, n_cols,
-                        stream);
-}
+SDIA_ENTRY(sdia_spmv, float)
+SDIA_ENTRY(sdia_spmv_f64, double)
+SDIA_ENTRY(sdia_spmv_c64, float2)
+SDIA_ENTRY(sdia_spmv_c128, double2)
+
+#undef SDIA_ENTRY
 
 }  // extern "C"

@@ -6,8 +6,12 @@
 // _whdia_spmv_call and whdia_spmv_pallas; entry whdia_spmv, fp32) and
 // _whdia_dd_kernel (_whdia_dd_call, whdia_spmv_dd_pallas; entry
 // whdia_spmv_f64, float64 where the TPU kernel emulates it with
-// double-float pairs and slab-mode r0 only).  It computes the same product
-// on the same layout arrays (spgpu_tpu_torch/formats/whdia.py):
+// double-float pairs and slab-mode r0 only), _whdia_cplx_kernel
+// (_whdia_cplx_call, whdia_spmv_cplx_pallas; entry whdia_spmv_c64, complex64,
+// both r0 modes) and _whdia_z_kernel (_whdia_z_call, whdia_spmv_z_pallas;
+// entry whdia_spmv_c128, complex128 where the TPU kernel runs four
+// double-float slabs, slab-mode r0 only; here both modes).  It computes the
+// same product on the same layout arrays (spgpu_tpu_torch/formats/whdia.py):
 //
 //   for every cell (slot s, lane j) of tile t = s / 8:
 //     base = tile_base[t] & 0xFFFF,  hh = tile_base[t] >> 16
@@ -28,7 +32,11 @@
 // values (3.2 cells per nonzero), about 20 us at 3.35 TB/s; x (4 MiB) and
 // z (4 MiB) stay in the 50 MB L2.  float64 doubles the value bytes and the
 // vectors: about 128 MiB of slab and 16 MiB of x and z on the Laplacian,
-// ~45 us.
+// ~45 us.  complex64 moves 8 B per cell (an interleaved re/im float2) on
+// the fp32 geometry: 151.3 MB on the Laplacian (16,384 tiles), 45.2 us, and
+// 75.6 MB on banded-11, 22.6 us; complex128 16 B per cell on the float64
+// geometry: 167.9 MB on the Laplacian (8,192 tiles), 50.1 us, and 147.4 MB
+// on banded-11, 44.0 us (chip_smoke.py's counts).
 //
 // What the design does about it: kernel #1's tile pass, without pages.
 // One 128-thread block per tile; thread j reads its lane of the 8 slots
@@ -36,7 +44,10 @@
 // from L2), sums in a register and issues one atomicAdd into the zeroed
 // row hack*128 + j (atomicAdd(double) is native on Hopper).  WHDIA has no
 // lane segments, so there is no flush pass.  Atomic order varies, so
-// results are not bit-reproducible.
+// results are not bit-reproducible.  Complex: one float2 / double2 load per
+// cell and per x entry, four FMAs per cell (re += vr*xr; re -= vi*xi;
+// im += vr*xi; im += vi*xr) into re and im sums, and two atomicAdds, one
+// on each component of the row's output.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,12 +57,42 @@ namespace {
 constexpr int kLanes = 128;
 constexpr int kSlots = 8;
 
-__device__ __forceinline__ float fmadd(float a, float b, float c) {
-  return fmaf(a, b, c);
+// sum + v*x: one FMA for a real type; four for a complex one, in the order
+// re += vr*xr; re -= vi*xi; im += vr*xi; im += vi*xr
+__device__ __forceinline__ float mac(float v, float x, float sum) {
+  return fmaf(v, x, sum);
 }
 
-__device__ __forceinline__ double fmadd(double a, double b, double c) {
-  return fma(a, b, c);
+__device__ __forceinline__ double mac(double v, double x, double sum) {
+  return fma(v, x, sum);
+}
+
+template <typename C>
+__device__ __forceinline__ C cmac(C v, C x, C sum) {
+  C out;
+  out.x = mac(-v.y, x.y, mac(v.x, x.x, sum.x));
+  out.y = mac(v.y, x.x, mac(v.x, x.y, sum.y));
+  return out;
+}
+
+__device__ __forceinline__ float2 mac(float2 v, float2 x, float2 sum) {
+  return cmac(v, x, sum);
+}
+
+__device__ __forceinline__ double2 mac(double2 v, double2 x, double2 sum) {
+  return cmac(v, x, sum);
+}
+
+// *p += v; a complex sum takes two atomics, one per component
+__device__ __forceinline__ void atomic_add(float* p, float v) { atomicAdd(p, v); }
+__device__ __forceinline__ void atomic_add(double* p, double v) { atomicAdd(p, v); }
+__device__ __forceinline__ void atomic_add(float2* p, float2 v) {
+  atomicAdd(&p->x, v.x);
+  atomicAdd(&p->y, v.y);
+}
+__device__ __forceinline__ void atomic_add(double2* p, double2 v) {
+  atomicAdd(&p->x, v.x);
+  atomicAdd(&p->y, v.y);
 }
 
 template <typename T, bool kPattern>
@@ -75,7 +116,7 @@ whdia_tile_pass(const T* __restrict__ values,
     f1 = static_cast<int>((w >> 16) & 0x7u);
     step = static_cast<int>((w >> 19) & 0x1FFFu) - 4096;
   }
-  T sum = 0;
+  T sum{};
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
     const int64_t slot = t * kSlots + s;
@@ -86,11 +127,11 @@ whdia_tile_pass(const T* __restrict__ values,
       r0 = slot_r0[slot];
     const int64_t c = c0 + r0;
     const T v = __ldg(values + slot * kLanes + j);
-    if (c >= 0 && c < n_cols) sum = fmadd(v, __ldg(x + c), sum);
+    if (c >= 0 && c < n_cols) sum = mac(v, __ldg(x + c), sum);
   }
   const int64_t hack =
       static_cast<int64_t>(chunk_group[t / chunk_tiles]) * group_hacks + (meta >> 16);
-  atomicAdd(z + hack * kLanes + j, sum);
+  atomic_add(z + hack * kLanes + j, sum);
 }
 
 template <typename T>
@@ -126,22 +167,22 @@ extern "C" {
 // the slab and x (n_cols).  Exactly one of slot_r0 (slab mode) and tile_r0
 // (pattern mode) is non-null.  Launches on `stream`, does not synchronise,
 // and returns cudaGetLastError().  whdia_spmv takes fp32 values, x and z,
-// whdia_spmv_f64 float64 ones.
-int whdia_spmv(const void* values, const void* slot_r0, const void* tile_r0,
-               const void* tile_base, const void* chunk_group, const void* x,
-               void* z, int64_t num_tiles, int64_t n_cols, int chunk_tiles,
-               int group_hacks, void* stream) {
-  return launch<float>(values, slot_r0, tile_r0, tile_base, chunk_group, x, z,
-                       num_tiles, n_cols, chunk_tiles, group_hacks, stream);
-}
+// whdia_spmv_f64 float64 ones, whdia_spmv_c64 complex64 and whdia_spmv_c128
+// complex128 ones (interleaved re/im).
+#define WHDIA_ENTRY(NAME, T)                                                  \
+  int NAME(const void* values, const void* slot_r0, const void* tile_r0,     \
+           const void* tile_base, const void* chunk_group, const void* x,    \
+           void* z, int64_t num_tiles, int64_t n_cols, int chunk_tiles,      \
+           int group_hacks, void* stream) {                                  \
+    return launch<T>(values, slot_r0, tile_r0, tile_base, chunk_group, x, z, \
+                     num_tiles, n_cols, chunk_tiles, group_hacks, stream);   \
+  }
 
-int whdia_spmv_f64(const void* values, const void* slot_r0,
-                   const void* tile_r0, const void* tile_base,
-                   const void* chunk_group, const void* x, void* z,
-                   int64_t num_tiles, int64_t n_cols, int chunk_tiles,
-                   int group_hacks, void* stream) {
-  return launch<double>(values, slot_r0, tile_r0, tile_base, chunk_group, x, z,
-                        num_tiles, n_cols, chunk_tiles, group_hacks, stream);
-}
+WHDIA_ENTRY(whdia_spmv, float)
+WHDIA_ENTRY(whdia_spmv_f64, double)
+WHDIA_ENTRY(whdia_spmv_c64, float2)
+WHDIA_ENTRY(whdia_spmv_c128, double2)
+
+#undef WHDIA_ENTRY
 
 }  // extern "C"

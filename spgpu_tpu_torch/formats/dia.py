@@ -10,10 +10,12 @@ The JAX kernel compiles the offsets into the program.  The CUDA kernel
 reads them from ``offset_table``, a small int32 copy on the device that it
 stages through shared memory, as spGPU's DIA kernel stages its offset
 list (``dia_spmv_base_template.cuh:35-49``).  ``offsets`` stays a tuple
-of Python ints for the host side.  Values are float32 or float64: where
-the JAX package keeps float64 planes as double-float pairs (``values``
-hi, ``values_lo`` lo), the port keeps one float64 array.  Complex planes
-are not ported.
+of Python ints for the host side.  Values are float32, float64,
+complex64 or complex128: where the JAX package keeps float64 planes as
+double-float pairs (``values`` hi, ``values_lo`` lo), the port keeps one
+float64 array, and where it keeps a complex matrix as two real-plane
+layouts (``ComplexPlanes``: ``ar``, ``ai``), the port keeps one complex
+array (interleaved re/im).
 """
 
 from __future__ import annotations
@@ -23,14 +25,17 @@ import dataclasses
 import numpy as np
 import torch
 
-from spgpu_tpu_torch.core import join_dd
+from spgpu_tpu_torch.core import join_dd, join_plane_fields
 
-__all__ = ["SdiaMatrix", "from_numpy_fields"]
+__all__ = ["SdiaMatrix", "from_numpy_fields", "from_numpy_planes"]
+
+#: the value types of the planes
+VALUE_DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128)
 
 
 @dataclasses.dataclass
 class SdiaMatrix:
-    values: torch.Tensor  # (max(n_diags, 1), n_tiles*8, 128) float32 or float64
+    values: torch.Tensor  # (max(n_diags, 1), n_tiles*8, 128), one of VALUE_DTYPES
     offset_table: torch.Tensor  # (n_diags,) int32, the offsets on the device
     offsets: tuple  # ascending Python ints
     n_rows: int
@@ -78,7 +83,7 @@ class SdiaMatrix:
             if not cond:
                 raise ValueError(f"invalid SdiaMatrix: {msg}")
 
-        want(v.dtype in (torch.float32, torch.float64), f"values dtype {v.dtype}")
+        want(v.dtype in VALUE_DTYPES, f"values dtype {v.dtype}")
         want(v.dim() == 3 and v.shape[0] == max(nd, 1) and v.shape[2] == 128
              and v.shape[1] % 8 == 0, f"values shape {tuple(v.shape)}")
         want(v.shape[1] * 128 >= self.n_rows, "values planes shorter than n_rows")
@@ -92,8 +97,8 @@ class SdiaMatrix:
 
 
 def make(values, offsets, n_rows: int, n_cols: int) -> SdiaMatrix:
-    """An :class:`SdiaMatrix` on the CPU from float32 or float64 planes (a
-    NumPy array or a tensor) and offsets."""
+    """An :class:`SdiaMatrix` on the CPU from planes (a NumPy array or a
+    tensor of one of ``VALUE_DTYPES``) and offsets."""
     offsets = tuple(int(o) for o in offsets)
     return SdiaMatrix(
         values=torch.as_tensor(values).contiguous(),
@@ -113,5 +118,19 @@ def from_numpy_fields(values: np.ndarray, offsets, n_rows: int, n_cols: int,
     if values_lo is not None:
         values = join_dd(values, torch.from_numpy(np.array(values_lo)))
     a = make(values, offsets, n_rows, n_cols)
+    a.check()
+    return a
+
+
+def from_numpy_planes(ar: dict, ai: dict, n_rows: int, n_cols: int) -> SdiaMatrix:
+    """Build one complex :class:`SdiaMatrix` from a JAX ``ComplexPlanes``
+    of SDIA planes: ``ar`` and ``ai`` hold each plane's ``values``,
+    ``values_lo`` (None unless double-float) and ``offsets``.
+
+    The two planes must have the same offsets (raises ``ValueError``
+    otherwise); the values are ``ar + i·ai``, complex64 from fp32 planes
+    and complex128 from double-float ones."""
+    values = join_plane_fields(ar, ai, ("offsets",), "SDIA")
+    a = make(values, ar["offsets"], n_rows, n_cols)
     a.check()
     return a

@@ -21,10 +21,12 @@ ends of a diagonal, dead slots) hold 0.
 
 The JAX layout replicates ``slot_r0`` across the 128 lanes, a TPU
 vector-operand device; here ``slot_r0`` holds one int16 per slot.
-Values are float32 or float64: where the JAX package keeps a float64
-slab as a double-float pair (``values`` hi, ``values_lo`` lo), the port
-keeps one float64 slab.  The row-blocked ``BlockedWhdia`` and the
-complex slabs are not ported.
+Values are float32, float64, complex64 or complex128: where the JAX
+package keeps a float64 slab as a double-float pair (``values`` hi,
+``values_lo`` lo), the port keeps one float64 slab, and where it keeps a
+complex matrix as two real-plane layouts of one structure
+(``ComplexPlanes``: ``ar``, ``ai``), the port keeps one complex slab
+(interleaved re/im).  The row-blocked ``BlockedWhdia`` is not ported.
 """
 
 from __future__ import annotations
@@ -35,16 +37,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-from spgpu_tpu_torch.core import join_dd
+from spgpu_tpu_torch.core import join_dd, join_plane_fields
 
-__all__ = ["WhdiaMatrix", "from_numpy_fields"]
+__all__ = ["WhdiaMatrix", "from_numpy_fields", "from_numpy_planes"]
+
+#: the value types of a slab
+VALUE_DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128)
 
 _TENSORS = ("values", "slot_r0", "tile_r0", "tile_base", "chunk_group")
 
 
 @dataclasses.dataclass
 class WhdiaMatrix:
-    values: torch.Tensor  # (total_slots, 128) float32 or float64
+    values: torch.Tensor  # (total_slots, 128), one of VALUE_DTYPES
     slot_r0: Optional[torch.Tensor]  # (total_slots,) int16; None in pattern mode
     tile_r0: Optional[torch.Tensor]  # (num_tiles,) int32 packed; pattern mode only
     tile_base: torch.Tensor  # (num_tiles,) int32: base page | hh << 16
@@ -133,8 +138,7 @@ class WhdiaMatrix:
              "exactly one of slot_r0 (slab mode) and tile_r0 (pattern mode)")
         want(ct > 0 and gh > 0 and S % 8 == 0 and T % ct == 0,
              "slots must fill whole chunks")
-        want(self.values.dtype in (torch.float32, torch.float64),
-             f"values dtype {self.values.dtype}")
+        want(self.values.dtype in VALUE_DTYPES, f"values dtype {self.values.dtype}")
         shapes = [("values", (S, 128), self.values.dtype),
                   ("tile_base", (T,), torch.int32),
                   ("chunk_group", (T // ct,), torch.int32)]
@@ -157,6 +161,22 @@ class WhdiaMatrix:
              "a nonzero cell outside [0, n_cols)")
 
 
+def _layout(fields: dict, values: torch.Tensor, static: dict) -> WhdiaMatrix:
+    """A checked :class:`WhdiaMatrix` on the CPU from JAX array fields,
+    with ``values`` as its slab."""
+    arrays = dict(fields)
+    if arrays.get("slot_r0") is not None:
+        arrays["slot_r0"] = np.asarray(arrays["slot_r0"])[:, 0]
+    kw = {f: None if arrays.get(f) is None else torch.from_numpy(np.array(arrays[f]))
+          for f in _TENSORS[1:]}
+    kw["values"] = values
+    names = {f.name for f in dataclasses.fields(WhdiaMatrix)}
+    kw.update({k: int(v) for k, v in static.items() if k in names})
+    a = WhdiaMatrix(**kw)
+    a.check()
+    return a
+
+
 def from_numpy_fields(fields: dict, **static) -> WhdiaMatrix:
     """Build the port's :class:`WhdiaMatrix` from the array fields of a
     JAX ``WhdiaMatrix`` (``np.asarray`` of each) and its static fields.
@@ -165,16 +185,19 @@ def from_numpy_fields(fields: dict, **static) -> WhdiaMatrix:
     double-float slab joins into float64, ``values + values_lo``.  The
     result lies on the CPU and has passed :meth:`WhdiaMatrix.check`; move
     it with :meth:`WhdiaMatrix.to`."""
-    arrays = dict(fields)
-    if arrays.get("slot_r0") is not None:
-        arrays["slot_r0"] = np.asarray(arrays["slot_r0"])[:, 0]
-    kw = {f: None if arrays.get(f) is None else torch.from_numpy(np.array(arrays[f]))
-          for f in _TENSORS}
-    if arrays.get("values_lo") is not None:
-        kw["values"] = join_dd(kw["values"],
-                               torch.from_numpy(np.array(arrays["values_lo"])))
-    names = {f.name for f in dataclasses.fields(WhdiaMatrix)}
-    kw.update({k: int(v) for k, v in static.items() if k in names})
-    a = WhdiaMatrix(**kw)
-    a.check()
-    return a
+    values = torch.from_numpy(np.array(fields["values"]))
+    if fields.get("values_lo") is not None:
+        values = join_dd(values, torch.from_numpy(np.array(fields["values_lo"])))
+    return _layout(fields, values, static)
+
+
+def from_numpy_planes(ar: dict, ai: dict, **static) -> WhdiaMatrix:
+    """Build one complex :class:`WhdiaMatrix` from the array fields of a
+    JAX ``ComplexPlanes`` of WHDIA planes (``ar``: real parts, ``ai``:
+    imaginary parts, each as for :func:`from_numpy_fields`) and the
+    planes' static fields.
+
+    The planes must share every structural array, bit for bit (raises
+    ``ValueError`` otherwise); the slab is ``ar.values + i·ai.values``,
+    complex64 from fp32 planes and complex128 from double-float ones."""
+    return _layout(ar, join_plane_fields(ar, ai, _TENSORS[1:], "WHDIA"), static)

@@ -22,10 +22,14 @@ space: :meth:`WhellMatrix.embed` and :meth:`WhellMatrix.extract` map
 original vectors in and out.
 
 Only the packed layout exists in the port.  Its values are float32,
-bfloat16 or float64: where the JAX package keeps a float64 matrix as a
-double-float pair (``values`` hi, ``values_lo`` lo), the port keeps one
-float64 slab.  The classic layout (``row_perm``, ``ways``) and the TPU
-budget containers (``PanelledWhell``, ``SegmentedWhell``) are not ported.
+bfloat16, float64, complex64 or complex128: where the JAX package keeps a
+float64 matrix as a double-float pair (``values`` hi, ``values_lo`` lo),
+the port keeps one float64 slab, and where it keeps a complex matrix as
+two real-plane layouts of one structure (``WhellComplex``: ``ar``,
+``ai``), the port keeps one layout whose slab is complex (interleaved
+re/im), so its vectors are complex too.  The classic layout
+(``row_perm``, ``ways``) and the TPU budget containers
+(``PanelledWhell``, ``SegmentedWhell``) are not ported.
 """
 
 from __future__ import annotations
@@ -36,9 +40,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from spgpu_tpu_torch.core import join_dd
+from spgpu_tpu_torch.core import join_dd, join_plane_fields
 
-__all__ = ["WhellMatrix", "from_numpy_fields"]
+__all__ = ["WhellMatrix", "from_numpy_fields", "from_numpy_planes"]
+
+#: the value types of a slab
+VALUE_DTYPES = (torch.float32, torch.bfloat16, torch.float64, torch.complex64,
+                torch.complex128)
 
 _TENSORS = ("values", "residue", "page_tab", "tile_base", "chunk_group",
             "seg_lo", "seg_hi", "lane_of_row", "group_bases")
@@ -47,7 +55,7 @@ _TENSORS = ("values", "residue", "page_tab", "tile_base", "chunk_group",
 @dataclasses.dataclass
 class WhellMatrix:
     # slabs, slot-major (total_slots, 128)
-    values: torch.Tensor  # float32, bfloat16 or float64
+    values: torch.Tensor  # one of VALUE_DTYPES
     residue: torch.Tensor  # int8: col % 128 of each cell
     page_tab: torch.Tensor  # int8: window page delta, indexed by residue
     # per-tile and per-chunk scalars
@@ -91,7 +99,9 @@ class WhellMatrix:
 
     def embed(self, x, dtype: torch.dtype) -> torch.Tensor:
         """Original-space vector(s) → lane space, as ``dtype``, on the
-        matrix's device (phantom coordinates zero)."""
+        matrix's device (phantom coordinates zero).  A complex ``dtype``
+        gives the one complex vector that the JAX ``embed_complex`` gives
+        as a ``[re, im]`` plane stack."""
         x = torch.as_tensor(x).to(device=self.device, dtype=dtype)
         out = torch.zeros(x.shape[:-1] + (self.n_rows,), dtype=dtype,
                           device=self.device)
@@ -107,7 +117,7 @@ class WhellMatrix:
         """Host densification in LANE space (testing helper; duplicates
         add).  Compare with the original matrix embedded in lane space."""
         vals = self.values.detach().cpu()
-        vals = (vals if vals.dtype == torch.float64 else vals.float()).numpy()
+        vals = (vals.float() if vals.dtype == torch.bfloat16 else vals).numpy()
         res = self.residue.cpu().numpy().astype(np.int64)
         pt = self.page_tab.cpu().numpy().astype(np.int64)
         meta = self.tile_base.cpu().numpy().astype(np.int64)
@@ -147,9 +157,7 @@ class WhellMatrix:
             if not cond:
                 raise ValueError(f"invalid WhellMatrix: {msg}")
 
-        want(self.values.dtype in (torch.float32, torch.bfloat16,
-                                   torch.float64),
-             f"values dtype {self.values.dtype}")
+        want(self.values.dtype in VALUE_DTYPES, f"values dtype {self.values.dtype}")
         for name, shape, dt in (
                 ("values", (S, 128), None), ("residue", (S, 128), torch.int8),
                 ("page_tab", (S, 128), torch.int8),
@@ -207,6 +215,24 @@ def _tensor(a) -> Optional[torch.Tensor]:
     return torch.from_numpy(a)
 
 
+def _layout(fields: dict, values: torch.Tensor, static: dict) -> WhellMatrix:
+    """A checked :class:`WhellMatrix` on the CPU from JAX array fields,
+    with ``values`` as its slab."""
+    if fields.get("seg_lo") is None or fields.get("row_perm") is not None \
+            or static.pop("ways", 1) != 1:
+        raise NotImplementedError(
+            "classic (non-packed) WHELL is not ported yet (ROADMAP module "
+            "item 11, kernel #15)")
+    kw = {f: _tensor(fields.get(f)) for f in _TENSORS[1:]}
+    kw["values"] = values
+    names = {f.name for f in dataclasses.fields(WhellMatrix)}
+    kw.update({k: (bool(v) if k == "unit_segments" else int(v))
+               for k, v in static.items() if k in names})
+    a = WhellMatrix(**kw)
+    a.check()
+    return a
+
+
 def from_numpy_fields(fields: dict, **static) -> WhellMatrix:
     """Build the port's :class:`WhellMatrix` from the array fields of a
     JAX ``WhellMatrix`` (``np.asarray`` of each) and its static fields.
@@ -216,17 +242,21 @@ def from_numpy_fields(fields: dict, **static) -> WhellMatrix:
     double-float slab joins into float64, ``values + values_lo``.  The
     result lies on the CPU and has passed :meth:`WhellMatrix.check`; move
     it with :meth:`WhellMatrix.to`."""
-    if fields.get("seg_lo") is None or fields.get("row_perm") is not None \
-            or static.pop("ways", 1) != 1:
-        raise NotImplementedError(
-            "classic (non-packed) WHELL is not ported yet (ROADMAP module "
-            "item 11, kernel #15)")
-    kw = {f: _tensor(fields.get(f)) for f in _TENSORS}
+    values = _tensor(fields.get("values"))
     if fields.get("values_lo") is not None:
-        kw["values"] = join_dd(kw["values"], _tensor(fields["values_lo"]))
-    names = {f.name for f in dataclasses.fields(WhellMatrix)}
-    kw.update({k: (bool(v) if k == "unit_segments" else int(v))
-               for k, v in static.items() if k in names})
-    a = WhellMatrix(**kw)
-    a.check()
-    return a
+        values = join_dd(values, _tensor(fields["values_lo"]))
+    return _layout(fields, values, static)
+
+
+def from_numpy_planes(ar: dict, ai: dict, **static) -> WhellMatrix:
+    """Build one complex :class:`WhellMatrix` from the array fields of a
+    JAX ``WhellComplex``'s two planes (``ar``: real parts, ``ai``:
+    imaginary parts, each as for :func:`from_numpy_fields`) and the
+    planes' static fields.
+
+    The planes must share every structural array, bit for bit (raises
+    ``ValueError`` otherwise); the slab is ``ar.values + i·ai.values``,
+    complex64 from fp32 planes and complex128 from double-float ones
+    (each plane joined as ``values + values_lo`` first)."""
+    values = join_plane_fields(ar, ai, _TENSORS[1:] + ("row_perm",), "WHELL")
+    return _layout(ar, values, static)

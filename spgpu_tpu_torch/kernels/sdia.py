@@ -1,9 +1,11 @@
-"""Kernels #2 and #5: the static-offset DIA (SDIA) SpMV, hand-written in
-CUDA C++.
+"""Kernels #2, #5, #8 and #11: the static-offset DIA (SDIA) SpMV,
+hand-written in CUDA C++.
 
-Replaces ``spgpu_tpu/ops/pallas_kernels.py::_sdia_kernel`` (#2, fp32) and
+Replaces ``spgpu_tpu/ops/pallas_kernels.py::_sdia_kernel`` (#2, fp32),
 ``_sdia_dd_kernel`` (#5, float64, which the TPU kernel emulates with
-double-float pairs).  The source of both is
+double-float pairs), ``_sdia_cplx_kernel`` (#8, complex64) and
+``_sdia_z_kernel`` (#11, complex128, four double-float planes on the
+TPU).  The source of all four is
 ``spgpu_tpu_torch/csrc/sdia_spmv.cu`` (its header note gives the design
 and its bound), built on first launch by
 :mod:`spgpu_tpu_torch.kernels._build`.
@@ -11,7 +13,8 @@ and its bound), built on first launch by
 :func:`sdia_spmv` launches the kernel for CUDA tensors (or raises) and
 runs :func:`sdia_spmv_plain`, the plain PyTorch version of the same
 function, for CPU tensors.  ``LAUNCHES`` counts the launches of kernel
-#2, ``LAUNCHES_F64`` those of kernel #5.
+#2, ``LAUNCHES_F64`` those of #5, ``LAUNCHES_C64`` those of #8 and
+``LAUNCHES_C128`` those of #11.
 """
 
 from __future__ import annotations
@@ -22,21 +25,29 @@ import torch
 
 from spgpu_tpu_torch.kernels._build import CudaLibrary
 
-__all__ = ["LAUNCHES", "LAUNCHES_F64", "SOURCE", "build", "sdia_spmv",
-           "sdia_spmv_plain"]
+__all__ = ["LAUNCHES", "LAUNCHES_C128", "LAUNCHES_C64", "LAUNCHES_F64",
+           "SOURCE", "build", "sdia_spmv", "sdia_spmv_plain"]
 
-#: launches of kernel #2 (fp32) and of kernel #5 (float64) so far; the
-#: CPU path does not count
+#: launches of kernel #2 (fp32), #5 (float64), #8 (complex64) and #11
+#: (complex128) so far; the CPU path does not count
 LAUNCHES = 0
 LAUNCHES_F64 = 0
+LAUNCHES_C64 = 0
+LAUNCHES_C128 = 0
+
+#: value dtype -> (C entry, launch counter)
+_ENTRIES = {torch.float32: ("sdia_spmv", "LAUNCHES"),
+            torch.float64: ("sdia_spmv_f64", "LAUNCHES_F64"),
+            torch.complex64: ("sdia_spmv_c64", "LAUNCHES_C64"),
+            torch.complex128: ("sdia_spmv_c128", "LAUNCHES_C128")}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.sdia_spmv.restype = ctypes.c_int
-    lib.sdia_spmv.argtypes = [p, p, p, p, i32, i64, i64, i64, p]
-    lib.sdia_spmv_f64.restype = ctypes.c_int
-    lib.sdia_spmv_f64.argtypes = [p, p, p, p, i32, i64, i64, i64, p]
+    for name, _ in _ENTRIES.values():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p, p, p, p, i32, i64, i64, i64, p]
 
 
 _LIB = CudaLibrary("sdia_spmv", _bind)
@@ -47,7 +58,7 @@ build = _LIB.build
 def _check_args(values, offset_table, x, n_rows):
     nd = offset_table.numel()
     want = [
-        (values.dtype in (torch.float32, torch.float64)
+        (values.dtype in _ENTRIES
          and values.dim() == 3
          and values.shape[0] == max(nd, 1) and values.shape[2] == 128
          and values.shape[1] * 128 >= n_rows, "values"),
@@ -70,12 +81,11 @@ def sdia_spmv(values: torch.Tensor, offset_table: torch.Tensor,
               x: torch.Tensor, *, n_rows: int) -> torch.Tensor:
     """SDIA product ``(n_rows,)`` of the planes ``values``
     ``(max(n_diags, 1), n_tiles*8, 128)`` and ``x`` ``(n_cols,)``, both
-    float32 or both float64.
+    float32, float64, complex64 or complex128.
 
-    CUDA tensors launch the hand kernel (#2 or #5, counted in
-    ``LAUNCHES`` or ``LAUNCHES_F64``); CPU tensors run
+    CUDA tensors launch the hand kernel of their type (#2, #5, #8 or
+    #11, each counted in its ``LAUNCHES*``); CPU tensors run
     :func:`sdia_spmv_plain`.  Any other device raises."""
-    global LAUNCHES, LAUNCHES_F64
     _check_args(values, offset_table, x, n_rows)
     dev = x.device
     if dev.type == "cpu":
@@ -86,17 +96,14 @@ def sdia_spmv(values: torch.Tensor, offset_table: torch.Tensor,
     lib = _LIB.load()
     z = torch.empty(n_rows, dtype=x.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    f64 = x.dtype == torch.float64
-    err = (lib.sdia_spmv_f64 if f64 else lib.sdia_spmv)(
+    entry, counter = _ENTRIES[x.dtype]
+    err = getattr(lib, entry)(
         values.data_ptr(), offset_table.data_ptr(), x.data_ptr(), z.data_ptr(),
         offset_table.numel(), values.shape[1] * 128, n_rows, x.shape[0],
         stream)
     if err != 0:
         raise RuntimeError(f"sdia_spmv launch failed: CUDA error {err}")
-    if f64:
-        LAUNCHES_F64 += 1
-    else:
-        LAUNCHES += 1
+    globals()[counter] += 1
     return z
 
 
@@ -105,7 +112,9 @@ def sdia_spmv_plain(values: torch.Tensor, offsets: tuple, x: torch.Tensor,
     """The same product in plain PyTorch, on the operands' device, with
     the offsets as Python ints: x with zero margins, then one shifted
     slice per diagonal, summed in the kernel's order (ascending) with the
-    kernel's roundings (multiply, then add), in x's type."""
+    kernel's roundings (multiply, then add), in x's type.  A complex step
+    is ``cr = vr·xr − vi·xi``, ``ci = vr·xi + vi·xr``, then ``z += c``,
+    each operation rounded on its own, as in the kernel."""
     offs = list(offsets)
     z = torch.zeros(n_rows, dtype=x.dtype, device=x.device)
     if not offs or n_rows == 0:
@@ -114,6 +123,16 @@ def sdia_spmv_plain(values: torch.Tensor, offsets: tuple, x: torch.Tensor,
     hi = max(0, offs[-1] + n_rows - x.shape[0])
     xp = torch.nn.functional.pad(x, (lo, hi))
     planes = values.reshape(values.shape[0], -1)
+    if not x.is_complex():
+        for j, o in enumerate(offs):
+            z += planes[j, :n_rows] * xp[lo + o: lo + o + n_rows]
+        return z
+    zr, zi = torch.view_as_real(z).unbind(-1)  # views: the sums land in z
+    pr, pi = torch.view_as_real(planes).unbind(-1)
+    xr, xi = torch.view_as_real(xp).unbind(-1)
     for j, o in enumerate(offs):
-        z += planes[j, :n_rows] * xp[lo + o: lo + o + n_rows]
+        vr, vi = pr[j, :n_rows], pi[j, :n_rows]
+        sr, si = xr[lo + o: lo + o + n_rows], xi[lo + o: lo + o + n_rows]
+        zr += vr * sr - vi * si
+        zi += vr * si + vi * sr
     return z

@@ -1,17 +1,21 @@
-"""Kernels #3 and #6: the windowed hacked DIA (WHDIA) SpMV, hand-written
-in CUDA C++.
+"""Kernels #3, #6, #9 and #10: the windowed hacked DIA (WHDIA) SpMV,
+hand-written in CUDA C++.
 
 Replaces ``spgpu_tpu/ops/pallas_kernels.py::_whdia_kernel`` (#3, fp32,
-both r0 modes) and ``_whdia_dd_kernel`` (#6, float64, which the TPU
-kernel emulates with double-float pairs; here in both r0 modes too).  The
-source of both is ``spgpu_tpu_torch/csrc/whdia_spmv.cu`` (its header note
-gives the design and its bound), built on first launch by
+both r0 modes), ``_whdia_dd_kernel`` (#6, float64, which the TPU kernel
+emulates with double-float pairs; here in both r0 modes too),
+``_whdia_cplx_kernel`` (#9, complex64, both r0 modes) and
+``_whdia_z_kernel`` (#10, complex128, four double-float slabs and slab
+mode only on the TPU; here in both r0 modes).  The source of all four
+is ``spgpu_tpu_torch/csrc/whdia_spmv.cu`` (its header note gives the
+design and its bound), built on first launch by
 :mod:`spgpu_tpu_torch.kernels._build`.
 
 :func:`whdia_spmv` launches the kernel for CUDA tensors (or raises) and
 runs :func:`whdia_spmv_plain`, the plain PyTorch version of the same
 function, for CPU tensors.  ``LAUNCHES`` counts the launches of kernel
-#3, ``LAUNCHES_F64`` those of kernel #6.
+#3, ``LAUNCHES_F64`` those of #6, ``LAUNCHES_C64`` those of #9 and
+``LAUNCHES_C128`` those of #10.
 """
 
 from __future__ import annotations
@@ -23,21 +27,29 @@ import torch
 
 from spgpu_tpu_torch.kernels._build import CudaLibrary
 
-__all__ = ["LAUNCHES", "LAUNCHES_F64", "SOURCE", "build", "whdia_spmv",
-           "whdia_spmv_plain"]
+__all__ = ["LAUNCHES", "LAUNCHES_C128", "LAUNCHES_C64", "LAUNCHES_F64",
+           "SOURCE", "build", "whdia_spmv", "whdia_spmv_plain"]
 
-#: launches of kernel #3 (fp32) and of kernel #6 (float64) so far; the
-#: CPU path does not count
+#: launches of kernel #3 (fp32), #6 (float64), #9 (complex64) and #10
+#: (complex128) so far; the CPU path does not count
 LAUNCHES = 0
 LAUNCHES_F64 = 0
+LAUNCHES_C64 = 0
+LAUNCHES_C128 = 0
+
+#: value dtype -> (C entry, launch counter)
+_ENTRIES = {torch.float32: ("whdia_spmv", "LAUNCHES"),
+            torch.float64: ("whdia_spmv_f64", "LAUNCHES_F64"),
+            torch.complex64: ("whdia_spmv_c64", "LAUNCHES_C64"),
+            torch.complex128: ("whdia_spmv_c128", "LAUNCHES_C128")}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.whdia_spmv.restype = ctypes.c_int
-    lib.whdia_spmv.argtypes = [p, p, p, p, p, p, p, i64, i64, i32, i32, p]
-    lib.whdia_spmv_f64.restype = ctypes.c_int
-    lib.whdia_spmv_f64.argtypes = [p, p, p, p, p, p, p, i64, i64, i32, i32, p]
+    for name, _ in _ENTRIES.values():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, i64, i64, i32, i32, p]
 
 
 _LIB = CudaLibrary("whdia_spmv", _bind)
@@ -50,7 +62,7 @@ def _check_args(values, slot_r0, tile_r0, tile_base, chunk_group, x,
     S = values.shape[0]
     T = tile_base.shape[0]
     want = [
-        (values.dtype in (torch.float32, torch.float64)
+        (values.dtype in _ENTRIES
          and values.shape == (S, 128) and S == 8 * T, "values"),
         ((slot_r0 is None) != (tile_r0 is None),
          "r0: give exactly one of slot_r0 and tile_r0"),
@@ -81,16 +93,15 @@ def whdia_spmv(values, slot_r0: Optional[torch.Tensor],
                x, *, chunk_tiles: int, group_hacks: int,
                num_groups: int) -> torch.Tensor:
     """WHDIA product ``(num_groups*group_hacks*128,)`` (row ``r`` at
-    index ``r``) of the slab and ``x`` ``(n_cols,)``, both float32 or both
-    float64.
+    index ``r``) of the slab and ``x`` ``(n_cols,)``, both float32,
+    float64, complex64 or complex128.
 
     Give ``slot_r0`` (slab mode) or ``tile_r0`` (pattern mode).  CUDA
-    tensors launch the hand kernel (#3 or #6, counted in ``LAUNCHES`` or
-    ``LAUNCHES_F64``); CPU tensors run :func:`whdia_spmv_plain`.  Any
-    other device raises.  The
+    tensors launch the hand kernel of their type (#3, #6, #9 or #10, each
+    counted in its ``LAUNCHES*``); CPU tensors run
+    :func:`whdia_spmv_plain`.  Any other device raises.  The
     layout arrays are trusted as built by the converter or checked by
     ``WhdiaMatrix.check``; shapes, dtypes and devices are checked here."""
-    global LAUNCHES, LAUNCHES_F64
     _check_args(values, slot_r0, tile_r0, tile_base, chunk_group, x,
                 chunk_tiles)
     dev = x.device
@@ -103,18 +114,15 @@ def whdia_spmv(values, slot_r0: Optional[torch.Tensor],
     lib = _LIB.load()
     z = torch.zeros(num_groups * group_hacks * 128, dtype=x.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    f64 = x.dtype == torch.float64
-    err = (lib.whdia_spmv_f64 if f64 else lib.whdia_spmv)(
+    entry, counter = _ENTRIES[x.dtype]
+    err = getattr(lib, entry)(
         values.data_ptr(), None if slot_r0 is None else slot_r0.data_ptr(),
         None if tile_r0 is None else tile_r0.data_ptr(), tile_base.data_ptr(),
         chunk_group.data_ptr(), x.data_ptr(), z.data_ptr(),
         tile_base.shape[0], x.shape[0], chunk_tiles, group_hacks, stream)
     if err != 0:
         raise RuntimeError(f"whdia_spmv launch failed: CUDA error {err}")
-    if f64:
-        LAUNCHES_F64 += 1
-    else:
-        LAUNCHES += 1
+    globals()[counter] += 1
     return z
 
 

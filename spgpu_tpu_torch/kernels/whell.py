@@ -1,9 +1,12 @@
-"""Kernels #1 and #4: the packed-lane WHELL SpMV, hand-written in CUDA C++.
+"""Kernels #1, #4 and #7: the packed-lane WHELL SpMV, hand-written in
+CUDA C++.
 
 Replaces ``spgpu_tpu/ops/pallas_kernels.py::_whell_packed_kernel`` (#1:
-fp32 or bf16 values, fp32 x and product) and ``_whell_packed_dd_kernel``
+fp32 or bf16 values, fp32 x and product), ``_whell_packed_dd_kernel``
 (#4: float64 values, x and product, where the TPU kernel emulates float64
-with double-float pairs).  The source of both is
+with double-float pairs) and ``_whell_packed_cplx_kernel`` (#7:
+complex64), and adds the complex128 product, which the JAX package runs
+as four double-float plane products of #4.  The source of all four is
 ``spgpu_tpu_torch/csrc/whell_packed_spmv.cu`` (its header note gives the
 design and its bound).  It is compiled with ``nvcc`` for
 ``sm_90a`` into ``spgpu_tpu_torch/_build/`` on first launch and bound
@@ -13,7 +16,9 @@ built when this module is imported.
 :func:`whell_packed_spmv` launches the kernel for CUDA tensors (or
 raises) and runs :func:`whell_packed_spmv_plain`, the plain PyTorch
 version of the same function, for CPU tensors.  ``LAUNCHES`` counts the
-launches of kernel #1, ``LAUNCHES_F64`` those of kernel #4.
+launches of kernel #1, ``LAUNCHES_F64`` those of kernel #4,
+``LAUNCHES_C64`` those of kernel #7 and ``LAUNCHES_C128`` those of the
+complex128 kernel.
 """
 
 from __future__ import annotations
@@ -25,13 +30,21 @@ import torch
 
 from spgpu_tpu_torch.kernels._build import CudaLibrary
 
-__all__ = ["LAUNCHES", "LAUNCHES_F64", "SOURCE", "build", "whell_packed_spmv",
-           "whell_packed_spmv_plain"]
+__all__ = ["LAUNCHES", "LAUNCHES_C128", "LAUNCHES_C64", "LAUNCHES_F64",
+           "SOURCE", "build", "whell_packed_spmv", "whell_packed_spmv_plain"]
 
-#: launches of kernel #1 (fp32 product) and of kernel #4 (float64) so
-#: far; the CPU path does not count
+#: launches of kernel #1 (fp32 product), #4 (float64), #7 (complex64)
+#: and of the complex128 kernel so far; the CPU path does not count
 LAUNCHES = 0
 LAUNCHES_F64 = 0
+LAUNCHES_C64 = 0
+LAUNCHES_C128 = 0
+
+#: value dtype -> (C entry, launch counter) of the entries that take x,
+#: the accumulator and z in the values' own type
+_TYPED = {torch.float64: ("whell_packed_spmv_f64", "LAUNCHES_F64"),
+          torch.complex64: ("whell_packed_spmv_c64", "LAUNCHES_C64"),
+          torch.complex128: ("whell_packed_spmv_c128", "LAUNCHES_C128")}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -39,9 +52,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.whell_packed_spmv.restype = ctypes.c_int
     lib.whell_packed_spmv.argtypes = [
         p, i32, p, p, p, p, p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, p]
-    lib.whell_packed_spmv_f64.restype = ctypes.c_int
-    lib.whell_packed_spmv_f64.argtypes = [
-        p, p, p, p, p, p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, p]
+    for name, _ in _TYPED.values():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i64, i64, i32, i32,
+                       i32, i32, p]
 
 
 _LIB = CudaLibrary("whell_packed_spmv", _bind)
@@ -55,10 +70,11 @@ def _check_args(values, residue, page_tab, tile_base, chunk_group,
     S = values.shape[0]
     T = tile_base.shape[0]
     R = seg_lo.shape[0]
-    # float64 values take float64 x; fp32 and bf16 values fp32 x
-    xdt = torch.float64 if values.dtype == torch.float64 else torch.float32
+    # float64 and complex values take x of their own type; fp32 and bf16
+    # values fp32 x
+    xdt = values.dtype if values.dtype in _TYPED else torch.float32
     want = [
-        (values.dtype in (torch.float32, torch.bfloat16, torch.float64),
+        (values.dtype in (torch.float32, torch.bfloat16) + tuple(_TYPED),
          "values dtype"),
         (values.shape == (S, 128) and S == 8 * T, "values shape"),
         (residue.shape == (S, 128) and residue.dtype == torch.int8, "residue"),
@@ -92,14 +108,15 @@ def whell_packed_spmv(values, residue, page_tab, tile_base, chunk_group,
                       x2d, *, chunk_tiles: int, group_hacks: int,
                       window_pages: int, unit_segments: bool) -> torch.Tensor:
     """Packed-lane WHELL product ``(num_groups*group_hacks, 128)`` in x2d's
-    type: float64 with float64 values, float32 with fp32 or bf16 ones.
+    type: the values' own type for float64, complex64 and complex128
+    values, float32 for fp32 or bf16 ones.
 
-    CUDA tensors launch the hand kernel (#1, or #4 for float64, counted
-    in ``LAUNCHES`` or ``LAUNCHES_F64``); CPU tensors run
+    CUDA tensors launch the hand kernel (#1; #4 for float64, #7 for
+    complex64, the complex128 kernel for complex128; each counted in its
+    ``LAUNCHES*``); CPU tensors run
     :func:`whell_packed_spmv_plain`.  Any other device raises.
     The layout arrays are trusted as built by the converter or checked by
     ``WhellMatrix.check``; shapes, dtypes and devices are checked here."""
-    global LAUNCHES, LAUNCHES_F64
     _check_args(values, residue, page_tab, tile_base, chunk_group,
                 group_bases, seg_lo, seg_hi, x2d, chunk_tiles, group_hacks,
                 window_pages)
@@ -117,24 +134,21 @@ def whell_packed_spmv(values, residue, page_tab, tile_base, chunk_group,
     acc = torch.zeros((R, 128), dtype=x2d.dtype, device=dev)
     z = torch.empty((R, 128), dtype=x2d.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    f64 = values.dtype == torch.float64
+    typed = _TYPED.get(values.dtype)
     args = (residue.data_ptr(), page_tab.data_ptr(), tile_base.data_ptr(),
             chunk_group.data_ptr(),
             None if group_bases is None else group_bases.data_ptr(),
             seg_lo.data_ptr(), seg_hi.data_ptr(), x2d.data_ptr(),
             acc.data_ptr(), z.data_ptr(), tile_base.shape[0], R,
             chunk_tiles, group_hacks, window_pages, int(unit_segments), stream)
-    if f64:
-        err = lib.whell_packed_spmv_f64(values.data_ptr(), *args)
+    if typed is not None:
+        err = getattr(lib, typed[0])(values.data_ptr(), *args)
     else:
         err = lib.whell_packed_spmv(values.data_ptr(),
                                     int(values.dtype == torch.bfloat16), *args)
     if err != 0:
         raise RuntimeError(f"whell_packed_spmv launch failed: CUDA error {err}")
-    if f64:
-        LAUNCHES_F64 += 1
-    else:
-        LAUNCHES += 1
+    globals()["LAUNCHES" if typed is None else typed[1]] += 1
     return z
 
 
@@ -145,7 +159,7 @@ def whell_packed_spmv_plain(values, residue, page_tab, tile_base,
                             unit_segments: bool) -> torch.Tensor:
     """The same product in plain PyTorch (decode, gather, ``index_add_``,
     then ``cumsum`` and gathers), on the operands' device, in x2d's
-    type."""
+    type (complex products are PyTorch's complex multiply)."""
     dev = x2d.device
     T = tile_base.shape[0]
     R = seg_lo.shape[0]

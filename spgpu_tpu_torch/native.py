@@ -1,10 +1,12 @@
 """ctypes binding of the C++ layout helpers the port's converters call.
 
-The source is the JAX package's ``spgpu_tpu/native/conversion.cpp``,
-compiled here by its path (the JAX package is never imported) into
-``spgpu_tpu_torch/_build/`` with the same ``g++`` flags, so both packages
-run the same first-fit assigner and WHDIA tiler and produce bit-identical
-layouts.
+The source is the port's own ``spgpu_tpu_torch/csrc/conversion.cpp``, a
+copy of the JAX package's ``native/conversion.cpp`` (a test holds the two
+identical, but for one comment that cites spGPU's sources by a relative
+path), compiled into ``spgpu_tpu_torch/_build/`` with
+the JAX package's ``g++`` flags, so both packages run the same first-fit
+assigner and WHDIA tiler and produce bit-identical layouts.  The port
+reads no file of the JAX package.
 
 There is no NumPy fallback: the fallback assigner gives a different and
 much worse layout (measured 5.44x padding against 1.74x on the flagship
@@ -27,8 +29,7 @@ __all__ = ["BUILD_DIR", "SOURCE", "build", "whdia_tile", "whell_hack_fill",
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCE = os.path.join(os.path.dirname(_PKG), "spgpu_tpu", "native",
-                      "conversion.cpp")
+SOURCE = os.path.join(_PKG, "csrc", "conversion.cpp")
 _SO = os.path.join(BUILD_DIR, "libspgpu_native.so")
 
 _lock = threading.Lock()

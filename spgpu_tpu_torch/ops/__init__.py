@@ -7,7 +7,11 @@ lane space; ``sdia_spmv`` and ``whdia_spmv`` in the original numbering.
 
 A float64 matrix takes and returns float64 vectors and its alpha/beta
 epilogue runs in float64: the counterpart of the JAX package's
-double-float branches (``_dd_epilogue`` on ``(2, n)`` hi/lo stacks).
+double-float branches (``_dd_epilogue`` on ``(2, n)`` hi/lo stacks).  A
+complex64 or complex128 matrix takes and returns complex vectors of its
+type, and alpha and beta may be Python complex numbers: the counterpart of
+the JAX package's complex branches (the fused one-pass kernels and
+``_complex_epilogue`` on ``[re, im]`` plane stacks).
 """
 
 from __future__ import annotations
@@ -38,11 +42,12 @@ def _prep_x(x: torch.Tensor, n_cols: int, x_pages: int) -> torch.Tensor:
 
 
 def _epilogue(acc: torch.Tensor, alpha, beta, y) -> torch.Tensor:
-    """``beta*y + alpha*acc`` in ``acc``'s type; a static ``beta == 0``
-    (or ``y is None``) never reads ``y``, as in spGPU's ``*spmv`` entry
-    points."""
-    if (isinstance(beta, (int, float)) and beta == 0) or y is None:
-        return acc if isinstance(alpha, (int, float)) and alpha == 1 else alpha * acc
+    """``beta*y + alpha*acc`` in ``acc``'s type (alpha and beta may be
+    complex for a complex ``acc``); a static ``beta == 0`` (or ``y is
+    None``) never reads ``y``, as in spGPU's ``*spmv`` entry points."""
+    static = (int, float, complex)
+    if (isinstance(beta, static) and beta == 0) or y is None:
+        return acc if isinstance(alpha, static) and alpha == 1 else alpha * acc
     return alpha * acc + beta * y
 
 
@@ -54,8 +59,9 @@ def _require(a, cls, op: str) -> None:
 def whell_spmv(a: WhellMatrix, x: torch.Tensor, alpha=1.0, beta=0.0,
                y=None) -> torch.Tensor:
     """``z = beta*y + alpha*(A @ x)`` on the packed WHELL layout, with
-    ``x``, ``y`` and ``z`` in lane space, on ``a``'s device: float64 for a
-    float64 matrix, else float32."""
+    ``x``, ``y`` and ``z`` in lane space, on ``a``'s device: of the
+    values' type for a float64, complex64 or complex128 matrix, float32
+    for a float32 or bf16 one."""
     _require(a, WhellMatrix, "whell_spmv")
     z = whell_packed_spmv(
         a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,

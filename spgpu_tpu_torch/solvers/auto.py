@@ -14,6 +14,15 @@ float64 systems run the same three routes with float64 layouts, kernels
 and work vectors: the counterpart of the JAX double-float routes
 (``cg_dd``/``bicgstab_dd`` on hi/lo pairs), with the plain CG/BiCGSTAB
 loop in native float64.
+
+complex64 and complex128 systems (the counterpart of ``_solve_complex``)
+run the same three routes with complex layouts, kernels and work
+vectors: CG for Hermitian positive-definite systems (``symmetric=True``,
+as ``cg_herm_planes``), BiCGSTAB otherwise (``bicgstab_planes``), with no
+preconditioner.  Auto-selection maps the hybrid class to WHDIA, as the
+JAX complex route does, and keeps SDIA where the JAX route switches an
+SDIA system whose two x planes pass its VMEM budget to WHDIA (by design:
+the port has no such budget).
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ from spgpu_tpu_torch.convert.sdia import coo_to_sdia
 from spgpu_tpu_torch.convert.select import suggest_format
 from spgpu_tpu_torch.convert.whdia import coo_to_whdia
 from spgpu_tpu_torch.convert.whell import coo_to_whell
-from spgpu_tpu_torch.core import real_dtype
+from spgpu_tpu_torch.core import value_dtype
 from spgpu_tpu_torch.formats.coo import CooMatrix
 from spgpu_tpu_torch.ops import sdia_spmv, whdia_spmv, whell_spmv
 from spgpu_tpu_torch.solvers.cg import CgResult, bicgstab, cg, jacobi_preconditioner
@@ -49,23 +58,33 @@ def solve(coo: CooMatrix, b, *, device, symmetric: bool = True,
           fmt: Optional[str] = None, x0=None) -> CgResult:
     """Solve ``A x = b`` for a square host COO on ``device``.
 
-    ``symmetric=True`` runs CG (SPD systems), else BiCGSTAB.  ``fmt``
-    overrides the automatic choice: "whell", "sdia" or "whdia".  Values
-    are float32 or float64, and the layout, the kernels, the work
-    vectors, ``x0`` and the Jacobi preconditioner (``jacobi=True``) take
-    the values' type: a float64 system iterates in float64 throughout
-    (where the JAX double-float route rounds its preconditioner to
-    float32).  Returns a :class:`CgResult` whose ``x`` is in the ORIGINAL
-    numbering, on ``device``, in the values' type."""
+    ``symmetric=True`` runs CG (SPD systems, or Hermitian positive-definite
+    ones with complex values), else BiCGSTAB.  ``fmt`` overrides the
+    automatic choice: "whell", "sdia" or "whdia".  Values are float32,
+    float64, complex64 or complex128, and the layout, the kernels, the
+    work vectors, ``x0`` and the Jacobi preconditioner (``jacobi=True``)
+    take the values' type: a float64 system iterates in float64
+    throughout (where the JAX double-float route rounds its
+    preconditioner to float32).  ``jacobi=True`` with complex values
+    raises ``NotImplementedError`` (the JAX complex route takes no
+    preconditioner).  Returns a :class:`CgResult` whose ``x`` is in the
+    ORIGINAL numbering, on ``device``, in the values' type."""
     if coo.n_rows != coo.n_cols:
         raise ValueError("solve requires a square system")
-    work = getattr(torch, real_dtype(coo.values.dtype, "solve()").name)
+    work = getattr(torch, value_dtype(coo.values.dtype, "solve()").name)
+    if jacobi and work.is_complex:
+        raise NotImplementedError(
+            "jacobi=True with complex values: the complex routes run "
+            "unpreconditioned CG/BiCGSTAB, as the JAX package's do")
     # coalesce once: WHELL adds duplicates while SDIA/WHDIA keep the last
     # write, so every format then solves the same matrix
     coo = coo.sum_duplicates()
     if fmt is None:
         fmt = suggest_format(coo)
-        fmt = {"dia": "sdia", "ell": "whell"}.get(fmt, fmt)
+        # the hybrid split is real-only: complex band-heavy systems take
+        # WHDIA, as in the JAX complex route
+        fmt = {"dia": "sdia", "ell": "whell",
+               **({"hybrid": "whdia"} if work.is_complex else {})}.get(fmt, fmt)
     if fmt in _NOT_PORTED:
         raise NotImplementedError(
             f"format {fmt!r} is not ported yet: ROADMAP module {_NOT_PORTED[fmt]}")

@@ -5,8 +5,14 @@ Counterpart of :mod:`spgpu_tpu.solvers.cg` (``cg``, ``bicgstab``,
 ``lax.while_loop``; here it is a Python loop over PyTorch ops, in the
 type of ``b``.  float64 vectors iterate in native float64, so the same
 loops are also the counterparts of ``cg_dd`` and ``bicgstab_dd``, whose
-double-float arithmetic the GPU does not need.  Vectors
-and scalars stay on the device; the loop test reads one scalar per
+double-float arithmetic the GPU does not need.  complex64 and complex128
+vectors iterate in their complex type: ``cg`` for Hermitian
+positive-definite systems (every CG scalar is the real part of a
+conjugated product, as in ``cg_herm_planes``) and ``bicgstab`` with
+sesquilinear products (``conj(u)·v``, as in ``bicgstab_planes``), so the
+same loops are also the counterparts of those two and of their ``_dd``
+variants, on one complex vector instead of ``[re, im]`` plane stacks.
+Vectors and scalars stay on the device; the loop test reads one scalar per
 iteration back to the host (a CUDA graph of the iteration is later work).
 """
 
@@ -17,6 +23,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from spgpu_tpu_torch.core import real_part_dtype
 from spgpu_tpu_torch.ops import blas1
 
 __all__ = ["CgResult", "cg", "bicgstab", "jacobi_preconditioner"]
@@ -47,31 +54,37 @@ def _bnorm(dotp, b):
 def cg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
        x0: Optional[torch.Tensor] = None, tol: float = 1e-10,
        maxiter: int = 1000, m_inv: Optional[torch.Tensor] = None) -> CgResult:
-    """Preconditioned conjugate gradient for SPD ``A`` (``m_inv``: an
-    optional diagonal preconditioner vector).  Stops when
-    ‖r‖ ≤ tol·‖b‖ or after ``maxiter`` iterations."""
+    """Preconditioned conjugate gradient for SPD ``A``, or Hermitian
+    positive-definite ``A`` on complex vectors (``m_inv``: an optional
+    diagonal preconditioner vector).  Every scalar is real: ``rz =
+    Re<r,z>``, ``alpha = rz / Re<p,Ap>``, ``beta = rz_new / rz`` (a
+    complex ``<p,Ap>`` would give alpha an imaginary part of rounding
+    size).  Stops when ‖r‖ ≤ tol·‖b‖ or after ``maxiter`` iterations."""
 
     def dotp(u, v):
         return blas1.dot(u, v, conjugate=u.is_complex())
 
+    def re_dot(u, v):
+        return torch.real(dotp(u, v))
+
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     z = r * m_inv if m_inv is not None else r
-    rz = dotp(r, z)
+    rz = re_dot(r, z)
     thresh = tol * _bnorm(dotp, b)
     p = z
     k = 0
-    while k < maxiter and bool(torch.sqrt(torch.real(dotp(r, r))) > thresh):
+    while k < maxiter and bool(torch.sqrt(re_dot(r, r)) > thresh):
         ap = matvec(p)
-        alpha = rz / dotp(p, ap)
+        alpha = rz / re_dot(p, ap)
         x = blas1.axpby(alpha, p, 1.0, x)
         r = blas1.axpby(-alpha, ap, 1.0, r)
         z = r * m_inv if m_inv is not None else r
-        rz_new = dotp(r, z)
+        rz_new = re_dot(r, z)
         p = blas1.axpby(1.0, z, rz_new / rz, p)
         rz = rz_new
         k += 1
-    rnorm = torch.sqrt(torch.real(dotp(r, r)))
+    rnorm = torch.sqrt(re_dot(r, r))
     return CgResult(x, k, rnorm, rnorm <= thresh)
 
 
@@ -79,11 +92,20 @@ def bicgstab(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
              x0: Optional[torch.Tensor] = None, tol: float = 1e-10,
              maxiter: int = 1000,
              m_inv: Optional[torch.Tensor] = None) -> CgResult:
-    """BiCGSTAB for general systems.  On breakdown (ρ, r̂·v or ω ≈ 0, or
-    a non-finite residual) the iterate freezes and the loop stops."""
+    """BiCGSTAB for general systems.  Complex vectors take sesquilinear
+    products (``conj(r̂)·r``, ``conj(r̂)·v``, ``conj(t)·s``; ``<t,t>`` is
+    real).  On breakdown (ρ, r̂·v or ω ≈ 0 — for complex, a squared
+    modulus below ``tiny`` — or a non-finite residual) the iterate
+    freezes and the loop stops."""
+    cplx = b.is_complex()
 
     def dotp(u, v):
-        return blas1.dot(u, v)
+        return blas1.dot(u, v, conjugate=cplx)
+
+    def small(s):
+        if cplx:
+            return s.real * s.real + s.imag * s.imag < tiny
+        return torch.abs(s) < tiny
 
     def prec(v):
         return v * m_inv if m_inv is not None else v
@@ -95,7 +117,7 @@ def bicgstab(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     one = torch.ones((), dtype=b.dtype, device=b.device)
     p = v = torch.zeros_like(b)
     rho = alpha = omega = one
-    tiny = torch.finfo(torch.real(b).dtype).tiny
+    tiny = torch.finfo(real_part_dtype(b.dtype)).tiny
     down = torch.zeros((), dtype=torch.bool, device=b.device)
     k = 0
     while k < maxiter and bool((torch.sqrt(torch.real(dotp(r, r))) > thresh)
@@ -110,13 +132,13 @@ def bicgstab(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
         s_vec = r - alpha * v
         shat = prec(s_vec)
         t = matvec(shat)
-        tt = dotp(t, t)
-        omega_new = torch.where(tt == 0, torch.zeros_like(tt),
-                                dotp(t, s_vec) / torch.where(tt == 0, one, tt))
+        tt = torch.real(dotp(t, t))
+        ts = dotp(t, s_vec)
+        omega_new = torch.where(tt == 0, torch.zeros_like(ts),
+                                ts / torch.where(tt == 0, torch.ones_like(tt), tt))
         x_new = x + alpha * phat + omega_new * shat
         r_new = s_vec - omega_new * t
-        down = ((torch.abs(rho_new) < tiny) | (torch.abs(rv) < tiny)
-                | (torch.abs(omega_new) < tiny)
+        down = (small(rho_new) | small(rv) | small(omega_new)
                 | ~torch.isfinite(torch.real(dotp(r_new, r_new))))
         x = torch.where(down, x, x_new)
         r = torch.where(down, r, r_new)

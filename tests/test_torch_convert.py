@@ -153,12 +153,32 @@ def test_to_dense_matches_coo_in_lane_space():
     np.testing.assert_allclose(a.to_dense(), want, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("dtype", [np.float16, np.complex64, np.int32])
+@pytest.mark.parametrize("dtype", [np.float16, np.int32])
 def test_converter_refuses_other_dtypes(dtype):
     coo = tfix.laplacian_2d(8, 8, np.float64)
     coo = CooMatrix(coo.rows, coo.cols, coo.values.astype(dtype), 64, 64)
     with pytest.raises(NotImplementedError, match="float32 or float64 values"):
         coo_to_whell(coo, device="cpu")
+
+
+def test_converter_complex64_matches_jax_planes():
+    """A complex64 COO converts once, into the structure of the JAX
+    ``WhellComplex``'s planes and a complex slab ``ar + i·ai``
+    (tests/test_torch_complex.py covers complex in full)."""
+    c = CASES["laplace"](jfix)
+    v = (c.values + 1j * np.random.default_rng(3).standard_normal(c.nnz)).astype(np.complex64)
+    ja = j_coo_to_whell(JCoo(c.rows, c.cols, v, c.n_rows, c.n_cols), packed=True)
+    ta = coo_to_whell(CooMatrix(c.rows, c.cols, v, c.n_rows, c.n_cols), device="cpu")
+    assert ta.values.dtype == torch.complex64
+    for f in ARRAYS[1:]:
+        jv, tv = getattr(ja.ar, f), getattr(ta, f)
+        assert (jv is None) == (tv is None), f
+        if jv is not None:
+            np.testing.assert_array_equal(np.asarray(jv), tv.numpy(), err_msg=f)
+    for f in STATIC:
+        assert getattr(ja.ar, f) == getattr(ta, f), f
+    np.testing.assert_array_equal(ta.values.numpy().real, np.asarray(ja.ar.values))
+    np.testing.assert_array_equal(ta.values.numpy().imag, np.asarray(ja.ai.values))
 
 
 def test_converter_refuses_bad_shapes_and_windows():

@@ -1,4 +1,4 @@
-"""PyTorch port on a CUDA device: kernels #1-#6 against their plain versions.
+"""PyTorch port on a CUDA device: kernels #1-#11 against their plain versions.
 
 Needs no JAX, so it also runs where only PyTorch is installed:
 
@@ -16,6 +16,12 @@ The float64 kernels (#4 WHELL, #5 SDIA, #6 WHDIA) are held to 1e-12·max|z|
 against their plain float64 versions and the golden; #5, like #2, sums in
 the plain version's order with the same roundings and must match it
 exactly.
+
+The complex kernels (complex64: #7 WHELL, #8 SDIA, #9 WHDIA; complex128:
+the WHELL kernel, #11 SDIA, #10 WHDIA) are held to their plain versions
+with the tolerances of their real type (complex64 WHELL and WHDIA: rtol
+1e-5, atol 1e-5·max|z|; complex128: 1e-12·max|z|), SDIA exactly in both;
+against the complex128 golden complex64 takes 2e-5·max|z|.
 """
 
 import numpy as np
@@ -244,10 +250,13 @@ def _f64(coo):
                      coo.n_rows, coo.n_cols)
 
 
-def _near(got, want, frac):
-    got, want = got.double().cpu(), want.double().cpu()
+def _near(got, want, frac, rtol=0.0):
+    """|got - want| ≤ frac·max|want| + rtol·|want|, in float64 or
+    complex128."""
+    wide = torch.complex128 if got.is_complex() or want.is_complex() else torch.float64
+    got, want = got.cpu().to(wide), want.cpu().to(wide)
     atol = frac * max(float(want.abs().max()) if want.numel() else 0.0, 1e-300)
-    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
 
 
 @pytest.mark.cuda
@@ -337,3 +346,160 @@ def test_f64_solve_on_cuda(fmt, symmetric, cuda_device):
     x = res.x.cpu().numpy()
     r = b - coo.sum_duplicates().spmv(x)
     assert np.linalg.norm(r) <= 1e-9 * np.linalg.norm(b)
+
+
+def _complex(coo, dtype, seed=8):
+    """``coo`` with values ``v + 1j·N(0, 1)`` (numpy ``default_rng(seed)``)
+    as ``dtype``."""
+    rng = np.random.default_rng(seed)
+    v = coo.values.astype(np.float64) + 1j * rng.standard_normal(coo.nnz)
+    return CooMatrix(coo.rows, coo.cols, v.astype(dtype), coo.n_rows, coo.n_cols)
+
+
+def _cvec(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(n) + 1j * rng.standard_normal(n)
+
+
+#: complex dtype -> (torch dtype, launch counter, atol/max|z| vs plain and
+#: vs the complex128 golden)
+CPLX = {"complex64": (torch.complex64, "LAUNCHES_C64", 1e-5, 2e-5),
+        "complex128": (torch.complex128, "LAUNCHES_C128", 1e-12, 1e-12)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(CPLX))
+@pytest.mark.parametrize("scattered", [True, False], ids=["scattered", "aligned"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_complex_whell_kernel_matches_plain_and_golden(name, scattered, dtype,
+                                                       cuda_device):
+    tdt, counter, tol, gtol = CPLX[dtype]
+    coo = _complex(CASES[name](), dtype)
+    a = coo_to_whell(coo, device=cuda_device, scattered=scattered)
+    assert a.values.dtype == tdt
+    x = _cvec(coo.n_cols)
+    xl = a.embed(torch.from_numpy(x), dtype=tdt)
+    before = getattr(kw, counter)
+    z = ops.whell_spmv(a, xl)
+    torch.cuda.synchronize()
+    assert getattr(kw, counter) == before + 1 and z.dtype == tdt
+    _near(z, _plain(a, xl), tol, rtol=tol)
+    xs = xl.cpu().numpy()[a.lane_of_row.cpu().numpy()]  # x as the kernel saw it
+    _near(a.extract(z, dtype=torch.complex128),
+           torch.from_numpy(coo.spmv(xs.astype(np.complex128))), gtol, rtol=gtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(CPLX))
+@pytest.mark.parametrize("name", sorted(DIA_CASES))
+def test_complex_sdia_kernel_matches_plain_exactly(name, dtype, cuda_device):
+    tdt, counter, _, gtol = CPLX[dtype]
+    coo = _complex(DIA_CASES[name](), dtype)
+    a = coo_to_sdia(coo, device=cuda_device)
+    xt = torch.from_numpy(_cvec(coo.n_cols)).to(cuda_device, tdt)
+    before = getattr(ks, counter)
+    z = ops.sdia_spmv(a, xt)
+    torch.cuda.synchronize()
+    assert getattr(ks, counter) == before + (1 if a.n_diags else 0)
+    if a.n_diags:
+        zp = ks.sdia_spmv_plain(a.values, a.offsets, xt, n_rows=a.n_rows)
+        torch.testing.assert_close(z, zp, rtol=0, atol=0)
+    golden = coo.spmv(xt.cpu().numpy().astype(np.complex128))
+    _near(z, torch.from_numpy(golden), gtol, rtol=gtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(CPLX))
+@pytest.mark.parametrize("name", sorted(DIA_CASES))
+def test_complex_whdia_kernel_matches_plain_and_golden(name, dtype, cuda_device):
+    tdt, counter, tol, gtol = CPLX[dtype]
+    coo = _complex(DIA_CASES[name](), dtype)
+    a = coo_to_whdia(coo, device=cuda_device)
+    xt = torch.from_numpy(_cvec(coo.n_cols)).to(cuda_device, tdt)
+    before = getattr(kd, counter)
+    z = ops.whdia_spmv(a, xt)
+    torch.cuda.synchronize()
+    assert getattr(kd, counter) == before + 1 and z.dtype == tdt
+    zp = kd.whdia_spmv_plain(
+        a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group, xt,
+        chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+        num_groups=a.num_groups)[: a.n_rows]
+    _near(z, zp, tol, rtol=tol)
+    golden = coo.spmv(xt.cpu().numpy().astype(np.complex128))
+    _near(z, torch.from_numpy(golden), gtol, rtol=gtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(CPLX))
+def test_complex_whdia_both_r0_modes(dtype, cuda_device):
+    """The complex WHDIA kernel in pattern mode (a contiguous band) and in
+    slab mode (the Laplacian), against its plain version."""
+    tdt, counter, tol, _ = CPLX[dtype]
+    for coo, pattern in ((random_banded(3000, bands=11, seed=2), True),
+                         (laplacian_2d(200, 30), False)):
+        a = coo_to_whdia(_complex(coo, dtype), device=cuda_device)
+        assert a.pattern_mode == pattern
+        xt = torch.from_numpy(_cvec(coo.n_cols)).to(cuda_device, tdt)
+        zp = kd.whdia_spmv_plain(
+            a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group, xt,
+            chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+            num_groups=a.num_groups)[: a.n_rows]
+        _near(ops.whdia_spmv(a, xt), zp, tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(CPLX))
+@pytest.mark.parametrize("fmt", ["whell", "sdia", "whdia"])
+def test_complex_alpha_beta_y_on_cuda(fmt, dtype, cuda_device):
+    tdt, _, tol, _ = CPLX[dtype]
+    coo = _complex(CASES["laplace_wide"](), dtype)
+    conv, op = {"whell": (coo_to_whell, ops.whell_spmv),
+                "sdia": (coo_to_sdia, ops.sdia_spmv),
+                "whdia": (coo_to_whdia, ops.whdia_spmv)}[fmt]
+    a = conv(coo, device=cuda_device)
+    n = a.n_rows if fmt == "whell" else coo.n_rows
+    x = torch.from_numpy(_cvec(n, 1)).to(cuda_device, tdt)
+    y = torch.from_numpy(_cvec(n, 2)).to(cuda_device, tdt)
+    alpha, beta = 2.5 - 1j, 0.5j
+    z = op(a, x, alpha=alpha, beta=beta, y=y)
+    assert z.dtype == tdt
+    _near(z, alpha * op(a.to("cpu"), x.cpu()) + beta * y.cpu(), 10 * tol)
+
+
+def _hermitian(coo):
+    """(A + Aᴴ)/2, duplicates summed, each diagonal entry the row's
+    off-diagonal modulus sum + 1: Hermitian positive-definite."""
+    n = coo.n_rows
+    v = coo.values.astype(np.complex128) / 2
+    h = CooMatrix(np.r_[coo.rows, coo.cols], np.r_[coo.cols, coo.rows],
+                  np.r_[v, np.conj(v)], n, n).sum_duplicates()
+    off = h.rows != h.cols
+    d = np.bincount(h.rows[off], weights=np.abs(h.values[off]), minlength=n) + 1.0
+    i = np.arange(n)
+    return CooMatrix(np.r_[h.rows[off], i], np.r_[h.cols[off], i],
+                     np.r_[h.values[off], d].astype(coo.values.dtype), n, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(CPLX))
+@pytest.mark.parametrize("symmetric", [True, False], ids=["cg", "bicgstab"])
+@pytest.mark.parametrize("fmt", ["whell", "sdia", "whdia"])
+def test_complex_solve_on_cuda(fmt, symmetric, dtype, cuda_device):
+    """Complex systems through solve() on each route, counted: CG on a
+    Hermitian positive-definite Laplacian, BiCGSTAB on a contiguous band."""
+    tdt, counter, _, _ = CPLX[dtype]
+    if symmetric:
+        coo = _hermitian(_complex(CASES["laplace_wide"](), dtype))
+    else:
+        coo = _complex(random_banded(3000, bands=11, seed=2), dtype)
+    b = _cvec(coo.n_rows, 11)
+    mod = {"whell": kw, "sdia": ks, "whdia": kd}[fmt]
+    setattr(mod, counter, 0)
+    tol, true_tol = (1e-5, 1e-4) if dtype == "complex64" else (1e-10, 1e-9)
+    res = solve(coo, b, device=cuda_device, fmt=fmt, symmetric=symmetric,
+                tol=tol, maxiter=5000)
+    assert bool(res.converged) and res.x.dtype == tdt
+    assert getattr(mod, counter) >= res.iterations > 0
+    x = res.x.cpu().numpy().astype(np.complex128)
+    r = b - coo.sum_duplicates().spmv(x)
+    assert np.linalg.norm(r) <= true_tol * np.linalg.norm(b)

@@ -134,13 +134,30 @@ def test_empty_gives_zeros_and_beta_y():
                                0.5 * y)
 
 
-@pytest.mark.parametrize("dtype,item", [(np.float16, "planned"),
-                                        (np.complex64, "item 6")])
+@pytest.mark.parametrize("dtype,item", [(np.float16, "planned")])
 def test_unported_dtypes_raise(dtype, item):
     c = tfix.laplacian_2d(8, 8, np.float64)
     coo = CooMatrix(c.rows, c.cols, c.values.astype(dtype), 64, 64)
     with pytest.raises(NotImplementedError, match=item):
         coo_to_sdia(coo, device="cpu")
+
+
+def test_complex64_matches_jax_planes():
+    """A complex64 COO converts into the JAX ``ComplexPlanes``' offsets
+    and planes ``ar + i·ai``, and its product matches the JAX one
+    (tests/test_torch_complex.py covers complex in full)."""
+    c = CASES["laplace24"](jfix)
+    rng = np.random.default_rng(3)
+    v = (c.values + 1j * rng.standard_normal(c.nnz)).astype(np.complex64)
+    ja = j_coo_to_sdia(JCoo(c.rows, c.cols, v, c.n_rows, c.n_cols))
+    ta = coo_to_sdia(CooMatrix(c.rows, c.cols, v, c.n_rows, c.n_cols), device="cpu")
+    assert ta.values.dtype == torch.complex64 and ta.offsets == ja.ar.offsets
+    np.testing.assert_array_equal(ta.values.numpy().real, np.asarray(ja.ar.values))
+    np.testing.assert_array_equal(ta.values.numpy().imag, np.asarray(ja.ai.values))
+    x = (rng.standard_normal(c.n_cols) + 1j * rng.standard_normal(c.n_cols)).astype(np.complex64)
+    zj = ja.extract_complex(np.asarray(jops.sdia_spmv(ja, jnp.asarray(ja.embed_complex(x)))))
+    zt = tops.sdia_spmv(ta, torch.from_numpy(x)).numpy()
+    assert_close_to(zt, zj)
 
 
 def test_bridge_rejects_double_float():

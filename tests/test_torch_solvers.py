@@ -185,13 +185,36 @@ def test_solve_x0_on_the_dia_class():
         assert r.iterations <= 1 and bool(r.converged)
 
 
-@pytest.mark.parametrize("dtype,item", [(np.float16, "planned"),
-                                        (np.complex64, "item 6")])
+@pytest.mark.parametrize("dtype,item", [(np.float16, "planned")])
 def test_unported_dtypes_raise(dtype, item):
     c = laplacian_2d(8, 8, np.float64)
     coo = CooMatrix(c.rows, c.cols, c.values.astype(dtype), 64, 64)
     with pytest.raises(NotImplementedError, match=item):
         solve(coo, np.ones(64, dtype), device="cpu", fmt="whell")
+
+
+def test_complex64_whell_solve_matches_jax():
+    """A complex64 Hermitian positive-definite system through solve() on
+    the whell route, CG against the JAX ``cg_herm_planes`` route
+    (tests/test_torch_complex_solve.py covers complex in full)."""
+    rng = np.random.default_rng(0)
+    n = 300
+    off = ((rng.standard_normal(n - 1) + 1j * rng.standard_normal(n - 1)) * 0.5)
+    rows = np.r_[np.arange(n), np.arange(n - 1), np.arange(1, n)]
+    cols = np.r_[np.arange(n), np.arange(1, n), np.arange(n - 1)]
+    vals = np.r_[np.full(n, 6.0 + 0j), off, np.conj(off)].astype(np.complex64)
+    b = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
+    kw_ = dict(fmt="whell", tol=1e-5, maxiter=500)
+    rj = j_solve(JCoo(rows, cols, vals, n, n), b, **kw_)
+    rt = solve(CooMatrix(rows, cols, vals, n, n), b, device="cpu", **kw_)
+    assert bool(rj.converged) and bool(rt.converged)
+    assert rt.x.dtype == torch.complex64
+    assert abs(int(rj.iterations) - rt.iterations) <= max(1, rt.iterations // 10)
+    x = rt.x.numpy().astype(np.complex128)
+    a = CooMatrix(rows, cols, vals, n, n)
+    assert np.linalg.norm(b - a.spmv(x)) <= 1e-4 * np.linalg.norm(b)
+    np.testing.assert_allclose(x, np.asarray(rj.x), rtol=0,
+                               atol=1e-4 * np.abs(x).max())
 
 
 def test_cg_and_bicgstab_on_a_dense_operator():

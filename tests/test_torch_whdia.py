@@ -16,7 +16,9 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from spgpu_tpu import ops as jops  # noqa: E402
 from spgpu_tpu.convert.whdia import coo_to_whdia as j_coo_to_whdia  # noqa: E402
+from spgpu_tpu.formats.coo import CooMatrix as JCoo  # noqa: E402
 from spgpu_tpu.ops.pallas_kernels import whdia_spmv_pallas  # noqa: E402
 from spgpu_tpu.utils import fixtures as jfix  # noqa: E402
 from spgpu_tpu_torch import ops as tops  # noqa: E402
@@ -168,13 +170,34 @@ def test_base_page_past_16_bits_raises():
         coo_to_whdia(coo, device="cpu")
 
 
-@pytest.mark.parametrize("dtype,item", [(np.float16, "planned"),
-                                        (np.complex64, "item 6")])
+@pytest.mark.parametrize("dtype,item", [(np.float16, "planned")])
 def test_unported_dtypes_raise(dtype, item):
     c = tfix.laplacian_2d(8, 8, np.float64)
     coo = CooMatrix(c.rows, c.cols, c.values.astype(dtype), 64, 64)
     with pytest.raises(NotImplementedError, match=item):
         coo_to_whdia(coo, device="cpu")
+
+
+def test_complex64_matches_jax_planes():
+    """A complex64 COO converts into the structure of the JAX
+    ``ComplexPlanes``' planes and a slab ``ar + i·ai``, and its product
+    matches the JAX one (tests/test_torch_complex.py covers complex in
+    full)."""
+    c = CASES["laplace2d"](jfix)
+    rng = np.random.default_rng(3)
+    v = (c.values + 1j * rng.standard_normal(c.nnz)).astype(np.complex64)
+    ja = j_coo_to_whdia(JCoo(c.rows, c.cols, v, c.n_rows, c.n_cols))
+    ta = coo_to_whdia(CooMatrix(c.rows, c.cols, v, c.n_rows, c.n_cols), device="cpu")
+    assert ta.values.dtype == torch.complex64
+    for f in ("tile_base", "chunk_group"):
+        np.testing.assert_array_equal(getattr(ta, f).numpy(), np.asarray(getattr(ja.ar, f)))
+    np.testing.assert_array_equal(ta.slot_r0_host(), ja.ar.slot_r0_host())
+    np.testing.assert_array_equal(ta.values.numpy().real, np.asarray(ja.ar.values))
+    np.testing.assert_array_equal(ta.values.numpy().imag, np.asarray(ja.ai.values))
+    x = (rng.standard_normal(c.n_cols) + 1j * rng.standard_normal(c.n_cols)).astype(np.complex64)
+    zj = ja.extract_complex(np.asarray(jops.whdia_spmv(ja, jnp.asarray(ja.embed_complex(x)))))
+    zt = tops.whdia_spmv(ta, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(zt, zj, rtol=0, atol=3e-5 * np.abs(zj).max())
 
 
 def test_cpu_path_counts_no_launches():
