@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels and the host layout helpers from the checkout's
-sources, then drives the port's routes at full size, in float32 and in
-float64, and checks them:
+sources, then drives the port's routes at full size, in float32,
+float64, complex64 and complex128, and its multi-RHS products, and checks
+them:
 
 1. env       — GPU name and power limit, CUDA version, nvcc and g++;
 2. build     — seconds and ptxas register/spill lines for each library,
@@ -66,7 +67,23 @@ float64, and checks them:
                from the complex Laplacian (auto, whdia; and
                ``fmt="sdia"``), BiCGSTAB on a non-Hermitian, diagonally
                dominant complex banded-11 system with ``fmt="whdia"``;
-               each counted on its route's launch counter.
+               each counted on its route's launch counter;
+19. spmm     — the multi-RHS product on 8 RHS (``default_rng(3)``, the JAX
+               benchmark's SpMM row ``bench.py:233-243``): ``whell_spmm``
+               (fused by default: kernel #12) on the flagship's fp32 and
+               bf16 layouts, one launch each, held against the plain
+               version on the card and the float64 golden per RHS, timed
+               beside the loop of kernel #1 (``fused=False``) and cuSPARSE
+               SpMM (``csr @ X.T``);
+20. spmm_dia — ``sdia_spmm(fused=True)`` (kernel #14) on the Laplacian,
+               equal to 8 launches of kernel #2 bit for bit, and
+               ``whdia_spmm(fused=True)`` (kernel #13) on banded-11
+               (pattern mode) and the Laplacian (slab mode), checked and
+               timed as in 19 (the loop is the op's default);
+21. spmm_loop — the loop paths, counted: the SDIA and WHDIA defaults,
+               ``whell_spmm(fused=False)``, and the float64 and complex64
+               ``whell_spmm`` defaults each launch their SpMV kernel 8
+               times and no SpMM kernel.
 
 The library yardstick of a complex phase is the same CSR call in the
 complex type; where PyTorch refuses it, the row's ``library_ms`` holds
@@ -121,11 +138,21 @@ KERNELS = {
                        "spgpu_tpu/ops/pallas_kernels.py:1637"),
     "whdia_spmv_c128": ("cuda", "spgpu_tpu_torch/csrc/whdia_spmv.cu",
                         "spgpu_tpu/ops/pallas_kernels.py:1805"),
+    "whell_packed_spmm": ("cuda", "spgpu_tpu_torch/csrc/whell_packed_spmv.cu",
+                          "spgpu_tpu/ops/pallas_kernels.py:795"),
+    "whdia_spmm": ("cuda", "spgpu_tpu_torch/csrc/whdia_spmv.cu",
+                   "spgpu_tpu/ops/pallas_kernels.py:1459"),
+    "sdia_spmm": ("cuda", "spgpu_tpu_torch/csrc/sdia_spmv.cu",
+                  "spgpu_tpu/ops/pallas_kernels.py:2500"),
 }
 
 #: the fixtures' sizes: flagship rows, Laplacian side, banded rows, and
 #: the side of the double-float benchmark row's Laplacian
 SIZES = dict(flagship=262144, lap=1024, band=2 ** 19, dd_lap=512)
+
+#: RHS of the SpMM phases, as the JAX benchmark's SpMM row
+#: (``bench.py:233-243``)
+N_RHS = 8
 
 #: H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s,
 #: and FLOP/s outside the tensor cores for each vector type (a complex
@@ -274,26 +301,29 @@ def csr_of(coo, dtype, device):
 
 
 def library_call(coo, x, device):
-    """The yardstick ``csr @ x`` in x's type, called once, and None in its
-    place with the error text when PyTorch refuses it."""
+    """The yardstick ``csr @ x`` in x's type (an ``(n_rhs, n)`` stack:
+    ``csr @ x.T``, cuSPARSE SpMM with a dense ``(n, n_rhs)``), called once,
+    and None in its place with the error text when PyTorch refuses it."""
+    b = x if x.dim() == 1 else x.T
     try:
         csr = csr_of(coo, str(x.dtype).removeprefix("torch."), device)
-        csr @ x
-        return (lambda: csr @ x), None
+        csr @ b
+        return (lambda: csr @ b), None
     except RuntimeError as e:
         return None, f"refused: {e}".splitlines()[0]
 
 
-def timed(kernel, plain, library, refused=None):
-    """Times per call of a kernel, its plain version and the library call:
-    CUDA events around interleaved runs of 20 calls (host-bound when the
-    Python wrapper outlasts the kernel) and device time, with its source
-    (``profiler``, or ``cuda_events`` when no profiling session recorded
-    device activity).  Without a library call (``library`` None) its
-    times hold ``refused``, the error text."""
+def timed(kernel, plain, library, refused=None, **more):
+    """Times per call of a kernel, its plain version, the library call and
+    any ``more`` calls (``name=fn``): CUDA events around interleaved runs
+    of 20 calls (host-bound when the Python wrapper outlasts the kernel)
+    and device time, with its source (``profiler``, or ``cuda_events``
+    when no profiling session recorded device activity).  Without a
+    library call (``library`` None) its times hold ``refused``, the error
+    text."""
     from spgpu_tpu_torch.utils.timing import device_ms, time_interleaved
 
-    fns = {"kernel": kernel, "plain": plain, "library": library}
+    fns = {"kernel": kernel, "plain": plain, "library": library, **more}
     fns = {k: f for k, f in fns.items() if f is not None}
     t = time_interleaved(fns, reps=5, iters=20)
     out = {}
@@ -592,6 +622,214 @@ def spd_solve(spd, device, dtype, tol, true_tol):
     return out
 
 
+def rhs_stack(n, dtype=np.float32):
+    """The SpMM phases' X: ``(N_RHS, n)`` from ``default_rng(3)``, as the
+    JAX benchmark's SpMM row draws it."""
+    return np.random.default_rng(3).standard_normal((N_RHS, n)).astype(dtype)
+
+
+def spmm_summary(out, flops, kernel):
+    """Rates over the device times of a SpMM phase's timed calls, and
+    where the device time of one ``kernel()`` call goes, by kernel."""
+    from spgpu_tpu_torch.utils.timing import device_ms_by_kernel
+
+    out = dict(out, **{f"{k}_device_gflops": flops / (out[f"{k}_device_ms"] * 1e6)
+                       for k in ("kernel", "loop", "library")
+                       if isinstance(out.get(f"{k}_device_ms"), float)})
+    out["kernel_device_ms_by_kernel"] = device_ms_by_kernel(kernel)
+    return out
+
+
+def whell_spmm_phase(coo, a, device, label):
+    """Kernel #12 through ``ops.whell_spmm`` (the fused default for fp32
+    and bf16 values) on 8 lane-space RHS, its one launch counted; held
+    against its plain version on the card (1e-5, 1e-5·max|Z|: atomics)
+    and the float64 golden per RHS (1e-4); then the kernel, the plain
+    version, the fused op, the loop of kernel #1 (``fused=False``) and
+    cuSPARSE SpMM timed, with the bound: every layout array once, X and Z
+    for every RHS."""
+    import torch
+
+    from spgpu_tpu_torch.kernels import whell as kw
+    from spgpu_tpu_torch.ops import _prep_x, whell_spmm
+
+    X = rhs_stack(a.n_cols)
+    xs = torch.from_numpy(X).to(device)
+    kw.LAUNCHES_SPMM = 0
+    z = whell_spmm(a, xs)
+    torch.cuda.synchronize(device)
+    launches = kw.LAUNCHES_SPMM
+    if launches != 1:
+        raise AssertionError(f"{label}: whell_spmm launched kernel #12 "
+                             f"{launches} times, not once")
+    layout = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
+              a.group_bases, a.seg_lo, a.seg_hi)
+    x3 = _prep_x(xs, a.n_cols, a.x_pages, stack=True)
+    static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+                  window_pages=a.window_pages, unit_segments=a.unit_segments)
+    zp = kw.whell_packed_spmm_plain(*layout, x3, **static).flatten(1)[:, : a.n_rows]
+    err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), 1e-5, 1e-5,
+                            f"{label}: kernel vs plain")
+    lor = a.lane_of_row.cpu().numpy()
+    golden = coo.spmv(X[:, lor].astype(np.float64))
+    err_golden = check_close(a.extract(z, dtype=torch.float64).cpu().numpy(),
+                             golden, 1e-4, 1e-4, f"{label}: kernel vs host golden")
+    library, refused = library_call(coo, torch.from_numpy(X[:, lor]).to(device),
+                                    device)
+    t = timed(lambda: kw.whell_packed_spmm(*layout, x3, **static),
+              lambda: kw.whell_packed_spmm_plain(*layout, x3, **static),
+              library, refused, op=lambda: whell_spmm(a, xs),
+              loop=lambda: whell_spmm(a, xs, fused=False))
+    flops = 2 * coo.nnz * N_RHS
+    out = dict(n_rhs=N_RHS, nnz=coo.nnz, tiles=a.num_tiles, launches=launches,
+               max_abs_err_vs_plain=err_plain, max_abs_err_vs_golden=err_golden,
+               **t, **bound(nbytes(*layout, x3, z), flops, "float32"))
+    return spmm_summary(out, flops, lambda: kw.whell_packed_spmm(*layout, x3, **static))
+
+
+def dia_spmm_phase(coo, fmt, golden, device, label, mode=None):
+    """Kernel #14 (``fmt="sdia"``) or #13 (``"whdia"``, r0 ``mode``)
+    through the op with ``fused=True`` on 8 RHS, its one launch counted
+    and no SpMV launch; #14 must equal its plain version and 8 launches of
+    kernel #2 bit for bit, #13 its plain version within 1e-5 (atomics);
+    both the float64 ``golden`` within 2e-5.  Then timed as
+    ``whell_spmm_phase``, the loop being the op's default."""
+    import torch
+
+    from spgpu_tpu_torch import ops
+    from spgpu_tpu_torch.convert import coo_to_sdia, coo_to_whdia
+    from spgpu_tpu_torch.kernels import sdia as ks
+    from spgpu_tpu_torch.kernels import whdia as kd
+
+    mod = ks if fmt == "sdia" else kd
+    t0 = time.perf_counter()
+    a = (coo_to_sdia if fmt == "sdia" else coo_to_whdia)(coo, device=device)
+    torch.cuda.synchronize(device)
+    convert_s = time.perf_counter() - t0
+    if mode is not None and ("pattern" if a.pattern_mode else "slab") != mode:
+        raise AssertionError(f"{label}: not in {mode} mode")
+    op = ops.sdia_spmm if fmt == "sdia" else ops.whdia_spmm
+    X = rhs_stack(coo.n_cols)
+    xs = torch.from_numpy(X).to(device)
+    mod.LAUNCHES_SPMM, mod.LAUNCHES = 0, 0
+    z = op(a, xs, fused=True)
+    torch.cuda.synchronize(device)
+    launches = mod.LAUNCHES_SPMM
+    if (launches, mod.LAUNCHES) != (1, 0):
+        raise AssertionError(f"{label}: {launches} fused and {mod.LAUNCHES} "
+                             "SpMV launches, not 1 and 0")
+    if fmt == "sdia":
+        layout = (a.values, a.offset_table)
+        kernel = lambda: ks.sdia_spmm(*layout, xs, n_rows=a.n_rows)  # noqa: E731
+        plain = lambda: ks.sdia_spmm_plain(a.values, a.offsets, xs,  # noqa: E731
+                                           n_rows=a.n_rows)
+        zl = torch.stack([ks.sdia_spmv(*layout, xs[r], n_rows=a.n_rows)
+                          for r in range(N_RHS)])
+        if not torch.equal(z, zl):
+            raise AssertionError(f"{label}: kernel #14 differs from 8 launches "
+                                 "of kernel #2")
+        tol_plain = 0.0
+    else:
+        layout = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group)
+        static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+                      num_groups=a.num_groups)
+        kernel = lambda: kd.whdia_spmm(*layout, xs, **static)  # noqa: E731
+        plain = lambda: kd.whdia_spmm_plain(*layout, xs, **static)  # noqa: E731
+        tol_plain = 1e-5
+    zp = plain()[:, : a.n_rows]
+    err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), tol_plain,
+                            tol_plain, f"{label}: kernel vs plain")
+    err_golden = check_close(z.cpu().numpy(), golden, 2e-5, 2e-5,
+                             f"{label}: kernel vs host golden")
+    library, refused = library_call(coo, xs, device)
+    t = timed(kernel, plain, library, refused,
+              op=lambda: op(a, xs, fused=True), loop=lambda: op(a, xs))
+    flops = 2 * coo.nnz * N_RHS
+    out_bytes = N_RHS * (a.n_rows if fmt == "sdia"
+                         else a.num_groups * a.group_hacks * 128) * 4
+    out = dict(n_rhs=N_RHS, rows=coo.n_rows, nnz=coo.nnz, convert_s=convert_s,
+               launches=launches, max_abs_err_vs_plain=err_plain,
+               max_abs_err_vs_golden=err_golden, **t,
+               **bound(nbytes(*layout, xs) + out_bytes, flops, "float32"))
+    if fmt == "whdia":
+        out.update(mode=mode, tiles=a.num_tiles,
+                   padding=a.total_slots * 128 / coo.nnz)
+    return spmm_summary(out, flops, kernel)
+
+
+def loop_path(op, a, xs, mod, counter, label, want, tol, **kw):
+    """One SpMM call on its loop path (the op's default, or ``kw``), with
+    the SpMV kernel's counter and the module's ``LAUNCHES_SPMM`` set to 0
+    just before and read just after: ``N_RHS`` SpMV launches and no SpMM
+    launch; the result within ``tol``·max|Z| of ``want()``."""
+    import torch
+
+    setattr(mod, counter, 0)
+    mod.LAUNCHES_SPMM = 0
+    z = op(a, xs, **kw)
+    torch.cuda.synchronize()
+    got = (getattr(mod, counter), mod.LAUNCHES_SPMM)
+    if got != (N_RHS, 0):
+        raise AssertionError(f"{label}: {got[0]} SpMV and {got[1]} SpMM "
+                             f"launches, not {N_RHS} and 0")
+    err = check_close(z.cpu().numpy(), want().cpu().numpy(), tol, tol,
+                      f"{label}: loop vs reference")
+    return dict(spmv_launches=got[0], spmm_launches=got[1], dtype=str(z.dtype),
+                max_abs_err=err)
+
+
+def spmm_loop_phase(lap, band, a32, a64, ac64, device):
+    """``loop_path`` on every loop of the SpMMs on 8 RHS: the SDIA and
+    WHDIA defaults (the Laplacian, banded-11), ``whell_spmm(fused=False)``
+    on the fp32 flagship layout ``a32``, and the float64 and complex64
+    ``whell_spmm`` defaults (``a64``, ``ac64``), each held against the
+    plain fused product (exact for SDIA)."""
+    import torch
+
+    from spgpu_tpu_torch import ops
+    from spgpu_tpu_torch.convert import coo_to_sdia, coo_to_whdia
+    from spgpu_tpu_torch.kernels import sdia as ks
+    from spgpu_tpu_torch.kernels import whdia as kd
+    from spgpu_tpu_torch.kernels import whell as kw
+
+    def stack(n, dtype=torch.float32):
+        return torch.from_numpy(rhs_stack(n)).to(device, dtype)
+
+    def plain_whell(a, xs):
+        x3 = ops._prep_x(xs, a.n_cols, a.x_pages, stack=True)
+        return lambda: kw.whell_packed_spmm_plain(
+            a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
+            a.group_bases, a.seg_lo, a.seg_hi, x3, chunk_tiles=a.chunk_tiles,
+            group_hacks=a.group_hacks, window_pages=a.window_pages,
+            unit_segments=a.unit_segments).flatten(1)[:, : a.n_rows]
+
+    sl, x_lap = coo_to_sdia(lap, device=device), stack(lap.n_cols)
+    wl, x_band = coo_to_whdia(band, device=device), stack(band.n_cols)
+    x_fl = stack(a32.n_cols)
+    out = {
+        "sdia_default": loop_path(
+            ops.sdia_spmm, sl, x_lap, ks, "LAUNCHES", "loop sdia",
+            lambda: ks.sdia_spmm_plain(sl.values, sl.offsets, x_lap,
+                                       n_rows=sl.n_rows), 0.0),
+        "whdia_default": loop_path(
+            ops.whdia_spmm, wl, x_band, kd, "LAUNCHES", "loop whdia",
+            lambda: kd.whdia_spmm_plain(
+                wl.values, wl.slot_r0, wl.tile_r0, wl.tile_base,
+                wl.chunk_group, x_band, chunk_tiles=wl.chunk_tiles,
+                group_hacks=wl.group_hacks,
+                num_groups=wl.num_groups)[:, : wl.n_rows], 1e-5),
+        "whell_fused_false": loop_path(
+            ops.whell_spmm, a32, x_fl, kw, "LAUNCHES", "loop whell fp32",
+            plain_whell(a32, x_fl), 1e-5, fused=False)}
+    for a, dt, counter, tol in ((a64, torch.float64, "LAUNCHES_F64", 1e-12),
+                                (ac64, torch.complex64, "LAUNCHES_C64", 1e-5)):
+        xs = stack(a.n_cols, dt)
+        out[f"whell_{str(dt).removeprefix('torch.')}_default"] = loop_path(
+            ops.whell_spmm, a, xs, kw, counter, f"loop whell {dt}",
+            plain_whell(a, xs), tol)
+    return out
+
+
 def build_all():
     """The host helpers, then the three kernel libraries (each holds the
     float32, float64, complex64 and complex128 kernels of its route), all
@@ -661,19 +899,17 @@ def main() -> int:
     coo = flagship()
     fmt = suggest_format(coo)
     t0 = time.perf_counter()
-    a = coo_to_whell(coo, device=device)
+    a32 = coo_to_whell(coo, device=device)  # kept for the spmm phase
     torch.cuda.synchronize(device)
     convert_s = time.perf_counter() - t0
-    spmv = spmv_phase(coo, a, device, "spmv fp32")
+    spmv = spmv_phase(coo, a32, device, "spmv fp32")
     emit("spmv", fmt=fmt, convert_s=convert_s, **spmv)
-    del a
 
     # --- bf16 values, fp32 x -------------------------------------------
     a16 = coo_to_whell(coo, device=device, dtype="bfloat16")
     v16 = torch.from_numpy(coo.values).to(torch.bfloat16).double().numpy()
     coo16 = CooMatrix(coo.rows, coo.cols, v16, coo.n_rows, coo.n_cols)
     emit("bf16", **spmv_phase(coo16, a16, device, "spmv bf16"))
-    del a16
 
     # --- SPD solve: the main path, counted -----------------------------
     solve = spd_solve(spd_from(coo), device, np.float32, 1e-5, 1e-4)
@@ -699,14 +935,13 @@ def main() -> int:
     # --- float64: the flagship through kernel #4 --------------------------
     coo64 = flagship(np.float64)
     t0 = time.perf_counter()
-    a = coo_to_whell(coo64, device=device)
+    a64 = coo_to_whell(coo64, device=device)  # kept for the spmm_loop phase
     torch.cuda.synchronize(device)
     convert_s = time.perf_counter() - t0
-    spmv64 = spmv_phase(coo64, a, device, "spmv float64")
+    spmv64 = spmv_phase(coo64, a64, device, "spmv float64")
     emit("spmv_f64", fmt=suggest_format(coo64), convert_s=convert_s,
-         window_pages=a.window_pages, scattered=a.scattered,
-         group_hacks=a.group_hacks, chunk_tiles=a.chunk_tiles, **spmv64)
-    del a
+         window_pages=a64.window_pages, scattered=a64.scattered,
+         group_hacks=a64.group_hacks, chunk_tiles=a64.chunk_tiles, **spmv64)
 
     # --- the JAX benchmark's double-float row: the Laplacian on #4 -------
     m = SIZES["dd_lap"]
@@ -751,6 +986,8 @@ def main() -> int:
              window_pages=a.window_pages, scattered=a.scattered,
              group_hacks=a.group_hacks, chunk_tiles=a.chunk_tiles,
              **spmv_c[tag])
+        if tag == "c64":
+            ac64 = a  # kept for the spmm_loop phase
         del a
         lap_c = with_imag(lap64, 12, dt)
         sdia_c[tag] = sdia_phase(lap_c, device, f"sdia laplace {tag}")
@@ -768,6 +1005,25 @@ def main() -> int:
                                        device, dt, tol, true_tol))
         del cz, lap_c
     emit("solve_complex", **solve_c)
+
+    # --- multi-RHS SpMM (kernels #12-#14), 8 RHS: the fused kernels -------
+    spmm = {"fp32": whell_spmm_phase(coo, a32, device, "spmm fp32"),
+            "bf16": whell_spmm_phase(coo16, a16, device, "spmm bf16")}
+    emit("spmm", fixture="flagship", **spmm)
+    g_lap = lap.spmv(rhs_stack(lap.n_cols, np.float64))
+    spmm_dia = {
+        "sdia_laplace": dia_spmm_phase(lap, "sdia", g_lap, device, "spmm sdia"),
+        "whdia_banded11": dia_spmm_phase(
+            band11, "whdia", band11.spmv(rhs_stack(band11.n_cols, np.float64)),
+            device, "spmm whdia banded11", mode="pattern"),
+        "whdia_laplace": dia_spmm_phase(lap, "whdia", g_lap, device,
+                                        "spmm whdia laplace", mode="slab")}
+    emit("spmm_dia", **spmm_dia)
+
+    # --- the loop-of-SpMV paths: the DIA defaults, whell fused=False, and -
+    # --- the float64 and complex64 whell defaults, counted ----------------
+    emit("spmm_loop", n_rhs=N_RHS, **spmm_loop_phase(lap, band11, a32, a64, ac64,
+                                                     device))
 
     def whdia_row(name, solves, phases):
         """WHDIA's row: the Laplacian's times, the larger error of its two
@@ -792,6 +1048,19 @@ def main() -> int:
             kernel_row(f"sdia_spmv_{tag}", solve_c[tag]["cg_sdia"]["launches"],
                        sdia_c[tag]),
             whdia_row(f"whdia_spmv_{tag}", solve_c[tag], whdia_c[tag])]
+
+    def spmm_row(name, phases, timed_by):
+        """A fused kernel's row: the times of its ``timed_by`` fixture, the
+        larger error and the sum of the launches of all its fixtures."""
+        return kernel_row(name, sum(p["launches"] for p in phases),
+                          dict(timed_by, max_abs_err_vs_plain=max(
+                              p["max_abs_err_vs_plain"] for p in phases)))
+
+    rows += [
+        spmm_row("whell_packed_spmm", spmm.values(), spmm["fp32"]),
+        spmm_row("whdia_spmm", [spmm_dia["whdia_banded11"], spmm_dia["whdia_laplace"]],
+                 spmm_dia["whdia_banded11"]),
+        spmm_row("sdia_spmm", [spmm_dia["sdia_laplace"]], spmm_dia["sdia_laplace"])]
     close(rows, smi, torch)
     return 0
 

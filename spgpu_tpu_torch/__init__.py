@@ -10,6 +10,9 @@ runs two routes on the GPU, each through a hand CUDA kernel:
     host COO → convert.coo_to_sdia | coo_to_whdia → ops.sdia_spmv |
     whdia_spmv (kernels/sdia.py, kernels/whdia.py) → solvers.cg / bicgstab
 
+The multi-RHS products ``ops.whell_spmm``, ``sdia_spmm`` and
+``whdia_spmm`` take ``(n_rhs, n)`` stacks on the same layouts, fused in
+one kernel per route (fp32, and bf16 on WHELL) or as a loop of the SpMV.
 ``solvers.solve`` picks the route by format selection.  Values are
 float32 (bf16 too on WHELL), float64, complex64 or complex128; a float64
 or complex matrix runs layouts, kernels and solver loops of its own type
@@ -28,7 +31,14 @@ from spgpu_tpu_torch.convert import (  # noqa: F401
     suggest_format,
 )
 from spgpu_tpu_torch.formats import CooMatrix, SdiaMatrix, WhdiaMatrix, WhellMatrix  # noqa: F401
-from spgpu_tpu_torch.ops import sdia_spmv, whdia_spmv, whell_spmv  # noqa: F401
+from spgpu_tpu_torch.ops import (  # noqa: F401
+    sdia_spmm,
+    sdia_spmv,
+    whdia_spmm,
+    whdia_spmv,
+    whell_spmm,
+    whell_spmv,
+)
 from spgpu_tpu_torch.solvers import solve  # noqa: F401
 
 __version__ = "0.1.0"

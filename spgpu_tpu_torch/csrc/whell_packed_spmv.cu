@@ -68,6 +68,24 @@
 // (componentwise adds are exact in meaning: there is no complex atomic).
 // The flush scans re and im separately (a shuffle per component); its
 // shared scan array is 128 T, 2 KiB for complex128.
+//
+// SpMM (entry whell_packed_spmm, kernel #12) replaces
+// _whell_packed_spmm_kernel (_whell_packed_spmm_call,
+// whell_spmm_packed_pallas): Z[r] = A x[r] for n_rhs RHS, fp32 or bf16
+// values, fp32 x and sums.  Each lane's 8 cells are decoded once (page
+// table in shared memory, value and x row in registers) and serve every
+// RHS, in blocks of kRhs = 8 held in registers (a remainder block takes
+// any n_rhs), with one atomicAdd per (RHS, lane) into acc[r, hack, lane];
+// the flush runs one block per (hack row, RHS).  Layout of x: the wrapper
+// copies X into an RHS-interleaved (x_pages*128, n_rhs) buffer, so one
+// cell's 8 RHS sit in one 32 B sector and a lane's gathers for a block
+// touch one sector where (n_rhs, x_pages*128) would touch eight.  acc and
+// z stay (n_rhs, rows, 128): a warp's atomics and stores for one RHS are
+// then 128 contiguous bytes.  Bound: the slab once (6 B/cell fp32, 4 B
+// bf16) plus x and z per RHS, about 95 MB and 28 us for 8 RHS on the
+// flagship.  The TPU kernel's RHS passes, unroll budget and VMEM checks
+// are Mosaic and VMEM limits and have no counterpart: one launch takes
+// any n_rhs.  Atomic order varies, so sums are not bit-reproducible.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -169,6 +187,32 @@ __device__ __forceinline__ void atomic_add(double2* p, double2 v) {
   atomicAdd(&p->y, v.y);
 }
 
+// The tile's 8x128 page table, staged in shared memory by the block, and
+// the decode of one cell: x-column page*128 + r of slot s's cell whose
+// residue is r (tile word `meta`; `bases` = group_bases, ntab per group).
+template <bool kScattered>
+__device__ __forceinline__ int64_t cell_column(const int8_t (&pt)[kSlots][kLanes],
+                                               int s, int r, uint32_t meta,
+                                               const int32_t* __restrict__ bases,
+                                               int ntab) {
+  const int d = pt[s][r];
+  if constexpr (kScattered) {
+    const int32_t* b = bases + static_cast<int64_t>(meta & 0xFFFFFu) * ntab;
+    return (static_cast<int64_t>(b[d >> 3]) + (d & 7)) * kLanes + r;
+  } else {
+    return (static_cast<int64_t>(meta & 0xFFFFu) + d) * kLanes + r;
+  }
+}
+
+// the accumulator row of tile t: its chunk's group, then the hack in it
+template <bool kScattered>
+__device__ __forceinline__ int64_t tile_hack(const int32_t* __restrict__ chunk_group,
+                                             int64_t t, uint32_t meta,
+                                             int chunk_tiles, int group_hacks) {
+  const uint32_t hh = kScattered ? meta >> 20 : meta >> 16;
+  return static_cast<int64_t>(chunk_group[t / chunk_tiles]) * group_hacks + hh;
+}
+
 // V: value storage type; T: x, accumulator and output type (T{} is zero)
 template <typename V, typename T, bool kScattered>
 __global__ void __launch_bounds__(kLanes)
@@ -190,35 +234,78 @@ whell_tile_pass(const V* __restrict__ values,
   __syncthreads();
 
   T sum{};
-  uint32_t hh;
-  if constexpr (kScattered) {
-    hh = meta >> 20;
-    const int32_t* bases = group_bases + static_cast<int64_t>(meta & 0xFFFFFu) * ntab;
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int64_t c = cell0 + s * kLanes + j;
-      const int r = residue[c];
-      const int d = pt[s][r];
-      const int64_t page = bases[d >> 3] + (d & 7);
-      sum = mac(load_value(values, c), __ldg(x + page * kLanes + r), sum);
-    }
-  } else {
-    hh = meta >> 16;
-    const int64_t base = meta & 0xFFFFu;
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int64_t c = cell0 + s * kLanes + j;
-      const int r = residue[c];
-      const int64_t page = base + pt[s][r];
-      sum = mac(load_value(values, c), __ldg(x + page * kLanes + r), sum);
-    }
+  for (int s = 0; s < kSlots; ++s) {
+    const int64_t c = cell0 + s * kLanes + j;
+    const int64_t col =
+        cell_column<kScattered>(pt, s, residue[c], meta, group_bases, ntab);
+    sum = mac(load_value(values, c), __ldg(x + col), sum);
   }
-  const int64_t hack = static_cast<int64_t>(chunk_group[t / chunk_tiles]) * group_hacks + hh;
+  const int64_t hack =
+      tile_hack<kScattered>(chunk_group, t, meta, chunk_tiles, group_hacks);
   atomic_add(acc + hack * kLanes + j, sum);
 }
 
+// SpMM tile pass (kernel #12): the 8 cells of each lane are decoded once
+// (value in a register, x-row index col*n_rhs), then every RHS block of
+// kRhs takes 8 gathers and products per lane and one atomicAdd per RHS
+// into acc (n_rhs, num_rows, 128).  x is RHS-interleaved,
+// (x_pages*128, n_rhs).
+constexpr int kRhs = 8;
+
+template <typename V, bool kScattered>
+__global__ void __launch_bounds__(kLanes)
+whell_spmm_tile_pass(const V* __restrict__ values,
+                     const int8_t* __restrict__ residue,
+                     const int8_t* __restrict__ page_tab,
+                     const int32_t* __restrict__ tile_base,
+                     const int32_t* __restrict__ chunk_group,
+                     const int32_t* __restrict__ group_bases,
+                     const float* __restrict__ x, float* __restrict__ acc,
+                     int64_t num_rows, int n_rhs, int chunk_tiles,
+                     int group_hacks, int ntab) {
+  __shared__ int8_t pt[kSlots][kLanes];
+  const int64_t t = blockIdx.x;
+  const int j = threadIdx.x;
+  const int64_t cell0 = t * (kSlots * kLanes);
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) pt[s][j] = page_tab[cell0 + s * kLanes + j];
+  const uint32_t meta = static_cast<uint32_t>(tile_base[t]);
+  __syncthreads();
+
+  float v[kSlots];
+  int64_t xrow[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int64_t c = cell0 + s * kLanes + j;
+    v[s] = load_value(values, c);
+    xrow[s] = cell_column<kScattered>(pt, s, residue[c], meta, group_bases, ntab) * n_rhs;
+  }
+  const int64_t hack =
+      tile_hack<kScattered>(chunk_group, t, meta, chunk_tiles, group_hacks);
+  float* out = acc + hack * kLanes + j;
+  const int64_t rhs_stride = num_rows * kLanes;
+  for (int r0 = 0; r0 < n_rhs; r0 += kRhs) {
+    const int w = min(kRhs, n_rhs - r0);
+    float sum[kRhs];
+#pragma unroll
+    for (int q = 0; q < kRhs; ++q) sum[q] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const float* xs = x + xrow[s] + r0;
+#pragma unroll
+      for (int q = 0; q < kRhs; ++q)
+        if (q < w) sum[q] = mac(v[s], __ldg(xs + q), sum[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < kRhs; ++q)
+      if (q < w) atomicAdd(out + (r0 + q) * rhs_stride, sum[q]);
+  }
+}
+
 // the scan array p is 128 T: 512 B for float, 1 KiB for double and float2,
-// 2 KiB for double2
+// 2 KiB for double2.  Block (h, r) flushes hack row h of RHS r (SpMV: r =
+// 0 only); acc and z hold gridDim.x rows per RHS, seg_lo/seg_hi one set.
 template <typename T, bool kUnit>
 __global__ void __launch_bounds__(kLanes)
 whell_flush_pass(const T* __restrict__ acc,
@@ -228,6 +315,8 @@ whell_flush_pass(const T* __restrict__ acc,
   __shared__ T warp_total[kLanes / 32];
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kLanes + threadIdx.x;
   const int j = threadIdx.x;
+  acc += static_cast<int64_t>(blockIdx.y) * gridDim.x * kLanes;
+  z += static_cast<int64_t>(blockIdx.y) * gridDim.x * kLanes;
   T a = acc[i];
   const int hi = seg_hi[i];
   if constexpr (kUnit) {
@@ -249,6 +338,22 @@ whell_flush_pass(const T* __restrict__ acc,
   __syncthreads();
   const int lo = seg_lo[i];
   z[i] = sub(hi >= 0 ? p[hi] : T{}, lo >= 0 ? p[lo] : T{});
+}
+
+// the flush of n_rhs stacked accumulators of num_rows hack rows each
+template <typename T>
+void launch_flush(const T* acc, const void* seg_lo, const void* seg_hi,
+                  void* z, int64_t num_rows, int n_rhs, int unit_segments,
+                  cudaStream_t st) {
+  if (num_rows <= 0 || n_rhs <= 0) return;
+  auto* lo = static_cast<const int8_t*>(seg_lo);
+  auto* hi = static_cast<const int8_t*>(seg_hi);
+  auto* zt = static_cast<T*>(z);
+  const dim3 grid(static_cast<unsigned>(num_rows), static_cast<unsigned>(n_rhs));
+  if (unit_segments)
+    whell_flush_pass<T, true><<<grid, kLanes, 0, st>>>(acc, lo, hi, zt);
+  else
+    whell_flush_pass<T, false><<<grid, kLanes, 0, st>>>(acc, lo, hi, zt);
 }
 
 // tile pass on values of type V, then the flush; returns cudaGetLastError()
@@ -278,16 +383,42 @@ int whell_spmv(const void* values, const void* residue, const void* page_tab,
       whell_tile_pass<V, T, false><<<grid, kLanes, 0, st>>>(
           v, res, pt, tb, cg, gb, xt, a, chunk_tiles, group_hacks, ntab);
   }
-  if (num_rows > 0) {
-    auto* lo = static_cast<const int8_t*>(seg_lo);
-    auto* hi = static_cast<const int8_t*>(seg_hi);
-    auto* zt = static_cast<T*>(z);
-    const dim3 grid(static_cast<unsigned>(num_rows));
-    if (unit_segments)
-      whell_flush_pass<T, true><<<grid, kLanes, 0, st>>>(a, lo, hi, zt);
+  launch_flush<T>(a, seg_lo, seg_hi, z, num_rows, 1, unit_segments, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// SpMM: the tile pass of kernel #12 on values of type V, then the flush
+// of every (hack row, RHS); returns cudaGetLastError()
+template <typename V>
+int whell_spmm(const void* values, const void* residue, const void* page_tab,
+               const void* tile_base, const void* chunk_group,
+               const void* group_bases, const void* seg_lo, const void* seg_hi,
+               const void* x, void* acc, void* z, int64_t num_tiles,
+               int64_t num_rows, int n_rhs, int chunk_tiles, int group_hacks,
+               int window_pages, int unit_segments, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ntab = window_pages / 8;
+  auto* v = static_cast<const V*>(values);
+  auto* res = static_cast<const int8_t*>(residue);
+  auto* pt = static_cast<const int8_t*>(page_tab);
+  auto* tb = static_cast<const int32_t*>(tile_base);
+  auto* cg = static_cast<const int32_t*>(chunk_group);
+  auto* gb = static_cast<const int32_t*>(group_bases);
+  auto* xt = static_cast<const float*>(x);
+  auto* a = static_cast<float*>(acc);
+  if (n_rhs <= 0) return static_cast<int>(cudaGetLastError());
+  if (num_tiles > 0) {
+    const dim3 grid(static_cast<unsigned>(num_tiles));
+    if (gb != nullptr)
+      whell_spmm_tile_pass<V, true><<<grid, kLanes, 0, st>>>(
+          v, res, pt, tb, cg, gb, xt, a, num_rows, n_rhs, chunk_tiles,
+          group_hacks, ntab);
     else
-      whell_flush_pass<T, false><<<grid, kLanes, 0, st>>>(a, lo, hi, zt);
+      whell_spmm_tile_pass<V, false><<<grid, kLanes, 0, st>>>(
+          v, res, pt, tb, cg, gb, xt, a, num_rows, n_rhs, chunk_tiles,
+          group_hacks, ntab);
   }
+  launch_flush<float>(a, seg_lo, seg_hi, z, num_rows, n_rhs, unit_segments, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -340,5 +471,24 @@ WHELL_ENTRY(whell_packed_spmv_c64, float2)
 WHELL_ENTRY(whell_packed_spmv_c128, double2)
 
 #undef WHELL_ENTRY
+
+// Kernel #12: Z (n_rhs x num_rows x 128) = the packed-WHELL product with
+// each of n_rhs RHS.  x is the RHS-interleaved (x_pages*128, n_rhs) fp32
+// stack; acc (n_rhs x num_rows x 128) must be zeroed by the caller.  fp32
+// or bf16 values (values_bf16), fp32 x, acc and z.  Launches on `stream`,
+// does not synchronise, and returns cudaGetLastError().
+int whell_packed_spmm(const void* values, int values_bf16,
+                      const void* residue, const void* page_tab,
+                      const void* tile_base, const void* chunk_group,
+                      const void* group_bases, const void* seg_lo,
+                      const void* seg_hi, const void* x, void* acc, void* z,
+                      int64_t num_tiles, int64_t num_rows, int n_rhs,
+                      int chunk_tiles, int group_hacks, int window_pages,
+                      int unit_segments, void* stream) {
+  auto* fn = values_bf16 ? whell_spmm<uint16_t> : whell_spmm<float>;
+  return fn(values, residue, page_tab, tile_base, chunk_group, group_bases,
+            seg_lo, seg_hi, x, acc, z, num_tiles, num_rows, n_rhs, chunk_tiles,
+            group_hacks, window_pages, unit_segments, stream);
+}
 
 }  // extern "C"

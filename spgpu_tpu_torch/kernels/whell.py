@@ -1,24 +1,26 @@
-"""Kernels #1, #4 and #7: the packed-lane WHELL SpMV, hand-written in
-CUDA C++.
+"""Kernels #1, #4, #7 and #12: the packed-lane WHELL SpMV and SpMM,
+hand-written in CUDA C++.
 
 Replaces ``spgpu_tpu/ops/pallas_kernels.py::_whell_packed_kernel`` (#1:
 fp32 or bf16 values, fp32 x and product), ``_whell_packed_dd_kernel``
 (#4: float64 values, x and product, where the TPU kernel emulates float64
-with double-float pairs) and ``_whell_packed_cplx_kernel`` (#7:
-complex64), and adds the complex128 product, which the JAX package runs
-as four double-float plane products of #4.  The source of all four is
-``spgpu_tpu_torch/csrc/whell_packed_spmv.cu`` (its header note gives the
-design and its bound).  It is compiled with ``nvcc`` for
+with double-float pairs), ``_whell_packed_cplx_kernel`` (#7:
+complex64) and ``_whell_packed_spmm_kernel`` (#12: the multi-RHS product,
+fp32 or bf16 values, fp32 x), and adds the complex128 product, which the
+JAX package runs as four double-float plane products of #4.  The source
+of all five is ``spgpu_tpu_torch/csrc/whell_packed_spmv.cu`` (its header
+note gives the design and its bound).  It is compiled with ``nvcc`` for
 ``sm_90a`` into ``spgpu_tpu_torch/_build/`` on first launch and bound
 through ``ctypes`` (:mod:`spgpu_tpu_torch.kernels._build`); nothing is
 built when this module is imported.
 
-:func:`whell_packed_spmv` launches the kernel for CUDA tensors (or
-raises) and runs :func:`whell_packed_spmv_plain`, the plain PyTorch
-version of the same function, for CPU tensors.  ``LAUNCHES`` counts the
-launches of kernel #1, ``LAUNCHES_F64`` those of kernel #4,
-``LAUNCHES_C64`` those of kernel #7 and ``LAUNCHES_C128`` those of the
-complex128 kernel.
+:func:`whell_packed_spmv` and :func:`whell_packed_spmm` launch their
+kernels for CUDA tensors (or raise) and run
+:func:`whell_packed_spmv_plain` / :func:`whell_packed_spmm_plain`, the
+plain PyTorch versions of the same functions, for CPU tensors.
+``LAUNCHES`` counts the launches of kernel #1, ``LAUNCHES_F64`` those of
+kernel #4, ``LAUNCHES_C64`` those of kernel #7, ``LAUNCHES_C128`` those
+of the complex128 kernel and ``LAUNCHES_SPMM`` those of kernel #12.
 """
 
 from __future__ import annotations
@@ -31,20 +33,26 @@ import torch
 from spgpu_tpu_torch.kernels._build import CudaLibrary
 
 __all__ = ["LAUNCHES", "LAUNCHES_C128", "LAUNCHES_C64", "LAUNCHES_F64",
-           "SOURCE", "build", "whell_packed_spmv", "whell_packed_spmv_plain"]
+           "LAUNCHES_SPMM", "SOURCE", "build", "whell_packed_spmm",
+           "whell_packed_spmm_plain", "whell_packed_spmv",
+           "whell_packed_spmv_plain"]
 
-#: launches of kernel #1 (fp32 product), #4 (float64), #7 (complex64)
-#: and of the complex128 kernel so far; the CPU path does not count
+#: launches of kernel #1 (fp32 product), #4 (float64), #7 (complex64),
+#: of the complex128 kernel and of #12 (SpMM) so far; the CPU path does
+#: not count
 LAUNCHES = 0
 LAUNCHES_F64 = 0
 LAUNCHES_C64 = 0
 LAUNCHES_C128 = 0
+LAUNCHES_SPMM = 0
 
 #: value dtype -> (C entry, launch counter) of the entries that take x,
 #: the accumulator and z in the values' own type
 _TYPED = {torch.float64: ("whell_packed_spmv_f64", "LAUNCHES_F64"),
           torch.complex64: ("whell_packed_spmv_c64", "LAUNCHES_C64"),
           torch.complex128: ("whell_packed_spmv_c128", "LAUNCHES_C128")}
+#: value dtypes of the fp32-x entries (#1 and the SpMM #12)
+_FP32_X = (torch.float32, torch.bfloat16)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -52,6 +60,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.whell_packed_spmv.restype = ctypes.c_int
     lib.whell_packed_spmv.argtypes = [
         p, i32, p, p, p, p, p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, p]
+    lib.whell_packed_spmm.restype = ctypes.c_int
+    lib.whell_packed_spmm.argtypes = [
+        p, i32, p, p, p, p, p, p, p, p, p, p, i64, i64, i32, i32, i32, i32,
+        i32, p]
     for name, _ in _TYPED.values():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -64,17 +76,23 @@ SOURCE = _LIB.source
 build = _LIB.build
 
 
-def _check_args(values, residue, page_tab, tile_base, chunk_group,
-                group_bases, seg_lo, seg_hi, x2d, chunk_tiles, group_hacks,
+def _check_args(op, values, residue, page_tab, tile_base, chunk_group,
+                group_bases, seg_lo, seg_hi, x, chunk_tiles, group_hacks,
                 window_pages):
+    """Shapes, dtypes, devices and contiguity of ``op``'s operands: ``x``
+    is ``(x_pages, 128)`` for the SpMV, ``(n_rhs, x_pages, 128)`` for the
+    SpMM (fp32 or bf16 values only)."""
+    spmm = op == "whell_packed_spmm"
     S = values.shape[0]
     T = tile_base.shape[0]
     R = seg_lo.shape[0]
     # float64 and complex values take x of their own type; fp32 and bf16
     # values fp32 x
     xdt = values.dtype if values.dtype in _TYPED else torch.float32
+    xname, xshape = (("x3d", "(n_rhs, x_pages, 128)") if spmm
+                     else ("x2d", "(x_pages, 128)"))
     want = [
-        (values.dtype in (torch.float32, torch.bfloat16) + tuple(_TYPED),
+        (values.dtype in _FP32_X + (() if spmm else tuple(_TYPED)),
          "values dtype"),
         (values.shape == (S, 128) and S == 8 * T, "values shape"),
         (residue.shape == (S, 128) and residue.dtype == torch.int8, "residue"),
@@ -85,8 +103,9 @@ def _check_args(values, residue, page_tab, tile_base, chunk_group,
         (seg_lo.shape == (R, 128) and seg_hi.shape == (R, 128)
          and seg_lo.dtype == seg_hi.dtype == torch.int8
          and R % group_hacks == 0, "seg_lo/seg_hi"),
-        (x2d.dim() == 2 and x2d.shape[1] == 128 and x2d.dtype == xdt,
-         f"x2d: {values.dtype} values take (x_pages, 128) {xdt}"),
+        (x.dim() == (3 if spmm else 2) and x.shape[-1] == 128
+         and x.dtype == xdt,
+         f"{xname}: {values.dtype} values take {xshape} {xdt}"),
         (window_pages in (8, 16, 32), "window_pages"),
         (group_bases is None or (group_bases.dtype == torch.int32
                                  and group_bases.numel() % (window_pages // 8) == 0),
@@ -94,13 +113,24 @@ def _check_args(values, residue, page_tab, tile_base, chunk_group,
     ]
     for ok, what in want:
         if not ok:
-            raise ValueError(f"whell_packed_spmv: bad {what}")
+            raise ValueError(f"{op}: bad {what}")
     ts = [values, residue, page_tab, tile_base, chunk_group, seg_lo, seg_hi,
-          x2d] + ([] if group_bases is None else [group_bases])
-    if any(t.device != x2d.device for t in ts):
-        raise ValueError("whell_packed_spmv: all operands must be on one device")
+          x] + ([] if group_bases is None else [group_bases])
+    if any(t.device != x.device for t in ts):
+        raise ValueError(f"{op}: all operands must be on one device")
     if not all(t.is_contiguous() for t in ts):
-        raise ValueError("whell_packed_spmv: operands must be contiguous")
+        raise ValueError(f"{op}: operands must be contiguous")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{op}: no kernel for device {x.device}")
+
+
+def _layout_args(residue, page_tab, tile_base, chunk_group, group_bases,
+                 seg_lo, seg_hi):
+    """The layout arrays' device pointers, in the C entries' order."""
+    return (residue.data_ptr(), page_tab.data_ptr(), tile_base.data_ptr(),
+            chunk_group.data_ptr(),
+            None if group_bases is None else group_bases.data_ptr(),
+            seg_lo.data_ptr(), seg_hi.data_ptr())
 
 
 def whell_packed_spmv(values, residue, page_tab, tile_base, chunk_group,
@@ -117,30 +147,27 @@ def whell_packed_spmv(values, residue, page_tab, tile_base, chunk_group,
     :func:`whell_packed_spmv_plain`.  Any other device raises.
     The layout arrays are trusted as built by the converter or checked by
     ``WhellMatrix.check``; shapes, dtypes and devices are checked here."""
-    _check_args(values, residue, page_tab, tile_base, chunk_group,
-                group_bases, seg_lo, seg_hi, x2d, chunk_tiles, group_hacks,
-                window_pages)
+    _check_args("whell_packed_spmv", values, residue, page_tab, tile_base,
+                chunk_group, group_bases, seg_lo, seg_hi, x2d, chunk_tiles,
+                group_hacks, window_pages)
     dev = x2d.device
+    static = dict(chunk_tiles=chunk_tiles, group_hacks=group_hacks,
+                  window_pages=window_pages, unit_segments=unit_segments)
     if dev.type == "cpu":
-        return whell_packed_spmv_plain(
-            values, residue, page_tab, tile_base, chunk_group, group_bases,
-            seg_lo, seg_hi, x2d, chunk_tiles=chunk_tiles,
-            group_hacks=group_hacks, window_pages=window_pages,
-            unit_segments=unit_segments)
-    if dev.type != "cuda":
-        raise ValueError(f"whell_packed_spmv: no kernel for device {dev}")
+        return whell_packed_spmv_plain(values, residue, page_tab, tile_base,
+                                       chunk_group, group_bases, seg_lo,
+                                       seg_hi, x2d, **static)
     lib = _LIB.load()
     R = seg_lo.shape[0]
     acc = torch.zeros((R, 128), dtype=x2d.dtype, device=dev)
     z = torch.empty((R, 128), dtype=x2d.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     typed = _TYPED.get(values.dtype)
-    args = (residue.data_ptr(), page_tab.data_ptr(), tile_base.data_ptr(),
-            chunk_group.data_ptr(),
-            None if group_bases is None else group_bases.data_ptr(),
-            seg_lo.data_ptr(), seg_hi.data_ptr(), x2d.data_ptr(),
-            acc.data_ptr(), z.data_ptr(), tile_base.shape[0], R,
-            chunk_tiles, group_hacks, window_pages, int(unit_segments), stream)
+    args = (*_layout_args(residue, page_tab, tile_base, chunk_group,
+                          group_bases, seg_lo, seg_hi),
+            x2d.data_ptr(), acc.data_ptr(), z.data_ptr(), tile_base.shape[0],
+            R, chunk_tiles, group_hacks, window_pages, int(unit_segments),
+            stream)
     if typed is not None:
         err = getattr(lib, typed[0])(values.data_ptr(), *args)
     else:
@@ -152,15 +179,77 @@ def whell_packed_spmv(values, residue, page_tab, tile_base, chunk_group,
     return z
 
 
+def whell_packed_spmm(values, residue, page_tab, tile_base, chunk_group,
+                      group_bases: Optional[torch.Tensor], seg_lo, seg_hi,
+                      x3d, *, chunk_tiles: int, group_hacks: int,
+                      window_pages: int, unit_segments: bool) -> torch.Tensor:
+    """Fused multi-RHS product ``(n_rhs, num_groups*group_hacks, 128)``
+    fp32 of fp32 or bf16 values and the lane-space stack ``x3d``
+    ``(n_rhs, x_pages, 128)`` fp32: each tile is decoded once for every
+    RHS.
+
+    CUDA tensors launch kernel #12 (counted in ``LAUNCHES_SPMM``; the
+    wrapper first copies X into the kernel's RHS-interleaved buffer); CPU
+    tensors run :func:`whell_packed_spmm_plain`.  Any other device raises."""
+    _check_args("whell_packed_spmm", values, residue, page_tab, tile_base,
+                chunk_group, group_bases, seg_lo, seg_hi, x3d, chunk_tiles,
+                group_hacks, window_pages)
+    dev = x3d.device
+    if dev.type == "cpu":
+        return whell_packed_spmm_plain(
+            values, residue, page_tab, tile_base, chunk_group, group_bases,
+            seg_lo, seg_hi, x3d, chunk_tiles=chunk_tiles,
+            group_hacks=group_hacks, window_pages=window_pages,
+            unit_segments=unit_segments)
+    if x3d.shape[0] > 65535:
+        raise ValueError("whell_packed_spmm: at most 65,535 RHS per launch")
+    lib = _LIB.load()
+    n_rhs = x3d.shape[0]
+    R = seg_lo.shape[0]
+    xi = x3d.reshape(n_rhs, x3d.shape[1] * 128).t().contiguous()  # (x_pages*128, n_rhs)
+    acc = torch.zeros((n_rhs, R, 128), dtype=torch.float32, device=dev)
+    z = torch.empty((n_rhs, R, 128), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.whell_packed_spmm(
+        values.data_ptr(), int(values.dtype == torch.bfloat16),
+        *_layout_args(residue, page_tab, tile_base, chunk_group, group_bases,
+                      seg_lo, seg_hi),
+        xi.data_ptr(), acc.data_ptr(), z.data_ptr(), tile_base.shape[0], R,
+        n_rhs, chunk_tiles, group_hacks, window_pages, int(unit_segments),
+        stream)
+    if err != 0:
+        raise RuntimeError(f"whell_packed_spmm launch failed: CUDA error {err}")
+    global LAUNCHES_SPMM
+    LAUNCHES_SPMM += 1
+    return z
+
+
 def whell_packed_spmv_plain(values, residue, page_tab, tile_base,
                             chunk_group, group_bases, seg_lo, seg_hi, x2d, *,
                             chunk_tiles: int, group_hacks: int,
                             window_pages: int,
                             unit_segments: bool) -> torch.Tensor:
-    """The same product in plain PyTorch (decode, gather, ``index_add_``,
-    then ``cumsum`` and gathers), on the operands' device, in x2d's
-    type (complex products are PyTorch's complex multiply)."""
-    dev = x2d.device
+    """The same product in plain PyTorch: :func:`whell_packed_spmm_plain`
+    with one RHS."""
+    return whell_packed_spmm_plain(
+        values, residue, page_tab, tile_base, chunk_group, group_bases,
+        seg_lo, seg_hi, x2d.unsqueeze(0), chunk_tiles=chunk_tiles,
+        group_hacks=group_hacks, window_pages=window_pages,
+        unit_segments=unit_segments)[0]
+
+
+def whell_packed_spmm_plain(values, residue, page_tab, tile_base,
+                            chunk_group, group_bases, seg_lo, seg_hi, x3d, *,
+                            chunk_tiles: int, group_hacks: int,
+                            window_pages: int,
+                            unit_segments: bool) -> torch.Tensor:
+    """The multi-RHS product in plain PyTorch, vectorised over the RHS
+    axis of ``x3d`` ``(n_rhs, x_pages, 128)``, on the operands' device, in
+    x3d's type: decode once, gather ``(n_rhs, S, 128)``, ``index_add_``
+    into the hack rows, then ``cumsum`` and the segment gathers (complex
+    products are PyTorch's complex multiply)."""
+    dev = x3d.device
+    n_rhs = x3d.shape[0]
     T = tile_base.shape[0]
     R = seg_lo.shape[0]
     res = residue.long()
@@ -174,14 +263,14 @@ def whell_packed_spmv_plain(values, residue, page_tab, tile_base,
     else:
         page = (meta & 0xFFFF)[tile, None] + d
         hh = meta >> 16
-    prod = values.to(x2d.dtype) * x2d.reshape(-1)[page * 128 + res]
+    prod = values.to(x3d.dtype) * x3d.reshape(n_rhs, x3d.shape[1] * 128)[:, page * 128 + res]
     hack = chunk_group.long()[torch.arange(T, device=dev) // chunk_tiles] * group_hacks + hh
-    acc = torch.zeros((R, 128), dtype=x2d.dtype, device=dev)
-    acc.index_add_(0, hack, prod.view(T, 8, 128).sum(dim=1))
-    hi = seg_hi.long()
+    acc = torch.zeros((n_rhs, R, 128), dtype=x3d.dtype, device=dev)
+    acc.index_add_(1, hack, prod.view(n_rhs, T, 8, 128).sum(dim=2))
+    hi = seg_hi.long().expand(n_rhs, R, 128)
     if unit_segments:
-        return torch.where(hi >= 0, torch.gather(acc, 1, hi.clamp(min=0)), 0.0)
-    p = acc.cumsum(dim=1)
-    lo = seg_lo.long()
-    return (torch.where(hi >= 0, torch.gather(p, 1, hi.clamp(min=0)), 0.0)
-            - torch.where(lo >= 0, torch.gather(p, 1, lo.clamp(min=0)), 0.0))
+        return torch.where(hi >= 0, torch.gather(acc, 2, hi.clamp(min=0)), 0.0)
+    p = acc.cumsum(dim=2)
+    lo = seg_lo.long().expand(n_rhs, R, 128)
+    return (torch.where(hi >= 0, torch.gather(p, 2, hi.clamp(min=0)), 0.0)
+            - torch.where(lo >= 0, torch.gather(p, 2, lo.clamp(min=0)), 0.0))

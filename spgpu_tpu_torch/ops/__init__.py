@@ -1,9 +1,14 @@
-"""Compute ops of the port: the WHELL, SDIA and WHDIA SpMVs and BLAS-1.
+"""Compute ops of the port: the WHELL, SDIA and WHDIA SpMVs and
+multi-RHS SpMMs, and BLAS-1.
 
-Counterpart of :mod:`spgpu_tpu.ops` for the ported paths.  Each SpMV runs
-its hand kernel (:mod:`spgpu_tpu_torch.kernels`) on CUDA tensors and the
-kernel's plain PyTorch version on CPU tensors.  ``whell_spmv`` works in
-lane space; ``sdia_spmv`` and ``whdia_spmv`` in the original numbering.
+Counterpart of :mod:`spgpu_tpu.ops` for the ported paths.  Each SpMV and
+fused SpMM runs its hand kernel (:mod:`spgpu_tpu_torch.kernels`) on CUDA
+tensors and the kernel's plain PyTorch version on CPU tensors.
+``whell_spmv``/``whell_spmm`` work in lane space; the SDIA and WHDIA ops
+in the original numbering.  The SpMMs dispatch as the JAX ones do: packed
+WHELL is fused by default for fp32/bf16 values, SDIA and WHDIA loop over
+their SpMV by default and fuse on ``fused=True``, and float64 and complex
+matrices always loop (``fused=True`` raises for them).
 
 A float64 matrix takes and returns float64 vectors and its alpha/beta
 epilogue runs in float64: the counterpart of the JAX package's
@@ -16,6 +21,8 @@ the JAX package's complex branches (the fused one-pass kernels and
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from spgpu_tpu_torch.formats.dia import SdiaMatrix
@@ -23,22 +30,53 @@ from spgpu_tpu_torch.formats.whdia import WhdiaMatrix
 from spgpu_tpu_torch.formats.whell import WhellMatrix
 from spgpu_tpu_torch.kernels import sdia as _sdia
 from spgpu_tpu_torch.kernels import whdia as _whdia
-from spgpu_tpu_torch.kernels.whell import whell_packed_spmv
+from spgpu_tpu_torch.kernels.whell import whell_packed_spmm, whell_packed_spmv
 from spgpu_tpu_torch.ops import blas1
 from spgpu_tpu_torch.ops.blas1 import *  # noqa: F401,F403  (re-export BLAS-1)
 
-__all__ = ["sdia_spmv", "whdia_spmv", "whell_spmv"] + blas1.__all__
+__all__ = ["sdia_spmm", "sdia_spmv", "whdia_spmm", "whdia_spmv", "whell_spmm",
+           "whell_spmv"] + blas1.__all__
+
+#: the value dtypes whose SpMM has a fused kernel (#12-#14; bf16 on WHELL
+#: only, the DIA converters take float32)
+_FUSED = (torch.float32, torch.bfloat16)
 
 
-def _prep_x(x: torch.Tensor, n_cols: int, x_pages: int) -> torch.Tensor:
-    """Pad lane-space x to ``x_pages * 128`` so every decoded column —
-    padding cells included — is in range; view it as ``(x_pages, 128)``."""
-    if x.shape != (n_cols,):
-        raise ValueError(f"x must have shape ({n_cols},), got {tuple(x.shape)}")
+def _prep_x(x: torch.Tensor, n_cols: int, x_pages: int,
+            stack: bool = False) -> torch.Tensor:
+    """Pad lane-space x — or each row of an ``(n_rhs, n_cols)`` stack
+    (``stack``) — to ``x_pages * 128`` so every decoded column, padding
+    cells included, is in range; view it as ``(x_pages, 128)`` (a stack
+    as ``(n_rhs, x_pages, 128)``)."""
+    _check_x(x, n_cols, stack)
     pad = x_pages * 128 - n_cols
     if pad:
         x = torch.nn.functional.pad(x, (0, pad))
-    return x.contiguous().view(x_pages, 128)
+    return x.contiguous().view(*x.shape[:-1], x_pages, 128)
+
+
+def _check_x(x: torch.Tensor, n_cols: int, stack: bool = False,
+             planes: Optional[torch.dtype] = None) -> None:
+    """``x`` is ``(n_cols,)``, or ``(n_rhs, n_cols)`` with ``stack``, and
+    of the ``planes``' dtype where given."""
+    if x.dim() != 1 + stack or x.shape[-1] != n_cols:
+        want = f"(n_rhs, {n_cols})" if stack else f"({n_cols},)"
+        raise ValueError(f"x must have shape {want}, got {tuple(x.shape)}")
+    if planes is not None and x.dtype != planes:
+        raise ValueError(f"x: {planes} planes take a {planes} x, not {x.dtype}")
+
+
+def _fused(a, fused, default: bool, op: str) -> bool:
+    """The JAX SpMMs' dispatch: ``fused=True`` on a float64 or complex
+    matrix raises, ``None`` takes ``default`` where a fused kernel exists
+    and the loop elsewhere."""
+    has_kernel = a.values.dtype in _FUSED
+    if fused and not has_kernel:
+        raise NotImplementedError(
+            f"fused SpMM covers fp32/bf16 {op} only; float64/complex "
+            "matrices run the loop-of-SpMV path (omit fused or pass "
+            "fused=False)")
+    return default and has_kernel if fused is None else bool(fused)
 
 
 def _epilogue(acc: torch.Tensor, alpha, beta, y) -> torch.Tensor:
@@ -78,11 +116,7 @@ def sdia_spmv(a: SdiaMatrix, x: torch.Tensor, alpha=1.0, beta=0.0,
     ``(n_rows,)``).  A matrix with no diagonals gives zeros, as
     ``sdia_spmv_pallas`` and the double-float branch do."""
     _require(a, SdiaMatrix, "sdia_spmv")
-    if x.shape != (a.n_cols,):
-        raise ValueError(f"x must have shape ({a.n_cols},), got {tuple(x.shape)}")
-    if x.dtype != a.values.dtype:
-        raise ValueError(f"x: {a.values.dtype} planes take a {a.values.dtype} x, "
-                         f"not {x.dtype}")
+    _check_x(x, a.n_cols, planes=a.values.dtype)
     if a.n_diags == 0:
         zero = torch.zeros(a.n_rows, dtype=x.dtype, device=x.device)
         return _epilogue(zero, 1, beta, y)
@@ -96,10 +130,85 @@ def whdia_spmv(a: WhdiaMatrix, x: torch.Tensor, alpha=1.0, beta=0.0,
     ``(n_cols,)`` vector on ``a``'s device, of the slab's type; ``z``:
     ``(n_rows,)``), in either r0 mode."""
     _require(a, WhdiaMatrix, "whdia_spmv")
-    if x.shape != (a.n_cols,):
-        raise ValueError(f"x must have shape ({a.n_cols},), got {tuple(x.shape)}")
+    _check_x(x, a.n_cols)
     z = _whdia.whdia_spmv(
         a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group,
         x.contiguous(), chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
         num_groups=a.num_groups)
     return _epilogue(z[: a.n_rows], alpha, beta, y)
+
+
+def whell_spmm(a: WhellMatrix, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
+               fused=None) -> torch.Tensor:
+    """Multi-RHS ``Z = beta*Y + alpha*(A @ X)`` on the packed WHELL layout,
+    ``x`` ``(n_rhs, n_cols)`` and the result ``(n_rhs, n_rows)`` in lane
+    space, on ``a``'s device.
+
+    ``fused=None`` fuses for fp32 and bf16 values (kernel #12: each tile
+    decoded once for every RHS; bf16 values take fp32 x) and loops
+    :func:`whell_spmv` per RHS for float64 and complex ones (their
+    kernels, each RHS with its own epilogue); ``fused=False`` loops in
+    every type, ``fused=True`` on float64 or complex raises
+    ``NotImplementedError``."""
+    _require(a, WhellMatrix, "whell_spmm")
+    if not _fused(a, fused, True, "packed WHELL layouts"):
+        _check_x(x, a.n_cols, stack=True)
+        return torch.stack([
+            whell_spmv(a, x[r], alpha=alpha, beta=beta,
+                       y=None if y is None else y[r])
+            for r in range(x.shape[0])])
+    zs = whell_packed_spmm(
+        a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
+        a.group_bases, a.seg_lo, a.seg_hi,
+        _prep_x(x, a.n_cols, a.x_pages, stack=True),
+        chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+        window_pages=a.window_pages, unit_segments=a.unit_segments)
+    return _epilogue(zs.flatten(1)[:, : a.n_rows], alpha, beta, y)
+
+
+def sdia_spmm(a: SdiaMatrix, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
+              fused=None) -> torch.Tensor:
+    """Multi-RHS ``Z = beta*Y + alpha*(A @ X)`` on the SDIA layout, ``x``
+    ``(n_rhs, n_cols)`` of the planes' type, the result ``(n_rhs,
+    n_rows)``.
+
+    ``fused=None`` (the JAX default) loops :func:`sdia_spmv` per RHS, in
+    every type; ``fused=True`` runs kernel #14 in fp32 (each value read
+    once for a block of RHS; bit-identical to the loop) and raises
+    ``NotImplementedError`` for float64 and complex planes.  A matrix
+    with no diagonals gives zeros."""
+    _require(a, SdiaMatrix, "sdia_spmm")
+    fuse = _fused(a, fused, False, "SDIA")
+    _check_x(x, a.n_cols, stack=True, planes=a.values.dtype)
+    if a.n_diags == 0:
+        zero = torch.zeros((x.shape[0], a.n_rows), dtype=x.dtype, device=x.device)
+        return _epilogue(zero, 1, beta, y)
+    if fuse:
+        zs = _sdia.sdia_spmm(a.values, a.offset_table, x.contiguous(),
+                             n_rows=a.n_rows)
+    else:
+        zs = torch.stack([sdia_spmv(a, x[r]) for r in range(x.shape[0])])
+    return _epilogue(zs, alpha, beta, y)
+
+
+def whdia_spmm(a: WhdiaMatrix, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
+               fused=None) -> torch.Tensor:
+    """Multi-RHS ``Z = beta*Y + alpha*(A @ X)`` on the WHDIA layout, in
+    either r0 mode, ``x`` ``(n_rhs, n_cols)`` of the slab's type, the
+    result ``(n_rhs, n_rows)``.
+
+    ``fused=None`` (the JAX default) loops :func:`whdia_spmv` per RHS, in
+    every type; ``fused=True`` runs kernel #13 in fp32 (r0 decoded once
+    per slot for every RHS) and raises ``NotImplementedError`` for
+    float64 and complex slabs."""
+    _require(a, WhdiaMatrix, "whdia_spmm")
+    fuse = _fused(a, fused, False, "WHDIA")
+    _check_x(x, a.n_cols, stack=True)
+    if fuse:
+        zs = _whdia.whdia_spmm(
+            a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group,
+            x.contiguous(), chunk_tiles=a.chunk_tiles,
+            group_hacks=a.group_hacks, num_groups=a.num_groups)[:, : a.n_rows]
+    else:
+        zs = torch.stack([whdia_spmv(a, x[r]) for r in range(x.shape[0])])
+    return _epilogue(zs, alpha, beta, y)

@@ -14,7 +14,7 @@ import torch
 
 from spgpu_tpu_torch.core import require_cuda
 
-__all__ = ["time_interleaved", "device_ms"]
+__all__ = ["time_interleaved", "device_ms", "device_ms_by_kernel"]
 
 
 def time_interleaved(fns: Dict[str, Callable[[], object]], reps: int = 5,
@@ -59,6 +59,25 @@ def device_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3,
     CUDA events around ``iters`` back-to-back calls, ``(ms,
     "cuda_events")``, which counts the host gaps too and so is an upper
     bound on the device time."""
+    require_cuda()
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        total = sum(device_ms_by_kernel(fn, iters=iters, warmup=0).values())
+        if total > 0:
+            return total, "profiler"
+    t = time_interleaved({"fn": fn}, reps=1, iters=iters, warmup=0)
+    return t["fn"]["best_ms"], "cuda_events"
+
+
+def device_ms_by_kernel(fn: Callable[[], object], iters: int = 20,
+                        warmup: int = 3) -> Dict[str, float]:
+    """Device milliseconds per call of ``fn()`` for each kernel, memset
+    and copy it issues, by name (a kernel's name without its namespace,
+    template arguments and parameters), from ``torch.profiler``: where
+    the time of a call that runs several device operations goes.  Empty
+    when the session recorded no device activity (see :func:`device_ms`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -66,15 +85,14 @@ def device_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3,
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total_us = sum(e.device_time for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        if total_us > 0:
-            return total_us / 1e3 / iters, "profiler"
-    t = time_interleaved({"fn": fn}, reps=1, iters=iters, warmup=0)
-    return t["fn"]["best_ms"], "cuda_events"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out: Dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = name.split("(")[0].split("<")[0].split("::")[-1].strip()
+            out[name] = out.get(name, 0.0) + e.device_time / 1e3 / iters
+    return out

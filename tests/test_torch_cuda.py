@@ -1,4 +1,4 @@
-"""PyTorch port on a CUDA device: kernels #1-#11 against their plain versions.
+"""PyTorch port on a CUDA device: kernels #1-#14 against their plain versions.
 
 Needs no JAX, so it also runs where only PyTorch is installed:
 
@@ -22,6 +22,11 @@ the WHELL kernel, #11 SDIA, #10 WHDIA) are held to their plain versions
 with the tolerances of their real type (complex64 WHELL and WHDIA: rtol
 1e-5, atol 1e-5·max|z|; complex128: 1e-12·max|z|), SDIA exactly in both;
 against the complex128 golden complex64 takes 2e-5·max|z|.
+
+The multi-RHS kernels (#12 WHELL, #13 WHDIA: atomics, rtol 1e-5 and atol
+1e-5·max|Z|; #14 SDIA: exact, and equal to one launch of #2 per RHS) run
+at 1, 5, 8 and 17 RHS, with their ``LAUNCHES_SPMM`` counts; the loop path
+of each SpMM launches only SpMV kernels.
 """
 
 import numpy as np
@@ -503,3 +508,179 @@ def test_complex_solve_on_cuda(fmt, symmetric, dtype, cuda_device):
     x = res.x.cpu().numpy().astype(np.complex128)
     r = b - coo.sum_duplicates().spmv(x)
     assert np.linalg.norm(r) <= true_tol * np.linalg.norm(b)
+
+
+# --------------------------------------------------------------------------
+# multi-RHS SpMM: kernels #12 (WHELL), #13 (WHDIA) and #14 (SDIA)
+
+
+def _xs(n_rhs, n, seed=0):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal((n_rhs, n))
+                            .astype(np.float32))
+
+
+def _whell_spmm_plain(a, xs):
+    return kw.whell_packed_spmm_plain(
+        a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
+        a.group_bases, a.seg_lo, a.seg_hi,
+        ops._prep_x(xs, a.n_cols, a.x_pages, stack=True),
+        chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+        window_pages=a.window_pages,
+        unit_segments=a.unit_segments).flatten(1)[:, : a.n_rows]
+
+
+def _whdia_spmm_plain(a, xs):
+    return kd.whdia_spmm_plain(
+        a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group, xs,
+        chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+        num_groups=a.num_groups)[:, : a.n_rows]
+
+
+def _fused_spmm(fmt, a, xs):
+    """The fused op on the card, its launch counted once on LAUNCHES_SPMM
+    and on no SpMV counter; then the plain version on the same inputs."""
+    mod = {"whell": kw, "whdia": kd, "sdia": ks}[fmt]
+    before = (mod.LAUNCHES_SPMM, mod.LAUNCHES)
+    z = {"whell": ops.whell_spmm, "whdia": ops.whdia_spmm,
+         "sdia": ops.sdia_spmm}[fmt](a, xs, fused=True)
+    torch.cuda.synchronize()
+    launched = 0 if fmt == "sdia" and a.n_diags == 0 else 1
+    assert (mod.LAUNCHES_SPMM, mod.LAUNCHES) == (before[0] + launched, before[1])
+    if fmt == "whell":
+        zp = _whell_spmm_plain(a, xs)
+    elif fmt == "whdia":
+        zp = _whdia_spmm_plain(a, xs)
+    else:
+        zp = ks.sdia_spmm_plain(a.values, a.offsets, xs, n_rows=a.n_rows)
+    assert z.shape == zp.shape == (xs.shape[0], a.n_rows)
+    return z, zp
+
+
+def _spmm_golden(coo, xs):
+    return torch.from_numpy(coo.spmv(xs.cpu().double().numpy()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scattered", [True, False], ids=["scattered", "aligned"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_whell_spmm_kernel_matches_plain_and_golden(name, scattered, dtype,
+                                                    cuda_device):
+    """Kernel #12 at 5 RHS (a remainder block) against its plain version;
+    atomics reorder the fp32 sums, hence 1e-5 and 1e-5·max|Z|."""
+    coo = CASES[name]()
+    a = coo_to_whell(coo, device=cuda_device, scattered=scattered, dtype=dtype)
+    x = _xs(5, coo.n_cols)
+    xl = a.embed(x, dtype=torch.float32)
+    z, zp = _fused_spmm("whell", a, xl)
+    _near(z, zp, 1e-5, rtol=1e-5)
+    vals = torch.from_numpy(coo.values).to(a.values.dtype).double().numpy()
+    golden = CooMatrix(coo.rows, coo.cols, vals, coo.n_rows, coo.n_cols).spmv(
+        x.double().numpy())
+    _near(a.extract(z, dtype=torch.float64), torch.from_numpy(golden), 2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DIA_CASES))
+def test_whdia_spmm_kernel_matches_plain_and_golden(name, cuda_device):
+    coo = DIA_CASES[name]()
+    a = coo_to_whdia(coo, device=cuda_device)
+    xs = _xs(5, coo.n_cols).to(cuda_device)
+    z, zp = _fused_spmm("whdia", a, xs)
+    _near(z, zp, 1e-5, rtol=1e-5)
+    _near(z, _spmm_golden(coo, xs), 2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DIA_CASES))
+def test_sdia_spmm_kernel_is_exact(name, cuda_device):
+    """Kernel #14 equals its plain version and one launch of kernel #2 per
+    RHS bit for bit."""
+    coo = DIA_CASES[name]()
+    a = coo_to_sdia(coo, device=cuda_device)
+    xs = _xs(5, coo.n_cols).to(cuda_device)
+    z, zp = _fused_spmm("sdia", a, xs)
+    torch.testing.assert_close(z, zp, rtol=0, atol=0)
+    loop = torch.stack([ops.sdia_spmv(a, xs[r]) for r in range(5)])
+    torch.testing.assert_close(z, loop, rtol=0, atol=0)
+    _near(z, _spmm_golden(coo, xs), 2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rhs", [1, 5, 8, 17])
+@pytest.mark.parametrize("fmt", ["whell", "whdia", "whdia_slab", "sdia"])
+def test_spmm_kernels_take_any_rhs_count(fmt, n_rhs, cuda_device):
+    """1, 8 and 17 RHS (a full block, two and a remainder) on kernels
+    #12-#14, both WHDIA r0 modes; #14 against 8 launches of #2 too."""
+    if fmt == "whell":
+        coo = CASES["fem_large"]()
+        a = coo_to_whell(coo, device=cuda_device)
+    elif fmt == "sdia":
+        coo = CASES["laplace_wide"]()
+        a = coo_to_sdia(coo, device=cuda_device)
+    else:  # a contiguous band (pattern mode) and the Laplacian (slab)
+        coo = (random_banded(3000, bands=11, seed=2, dtype=np.float32)
+               if fmt == "whdia" else laplacian_2d(200, 30, np.float32))
+        a = coo_to_whdia(coo, device=cuda_device)
+        assert a.pattern_mode == (fmt == "whdia")
+    x = _xs(n_rhs, coo.n_cols, seed=n_rhs)
+    xs = a.embed(x, dtype=torch.float32) if fmt == "whell" else x.to(cuda_device)
+    z, zp = _fused_spmm(fmt.split("_")[0], a, xs)
+    if fmt == "sdia":
+        torch.testing.assert_close(z, zp, rtol=0, atol=0)
+        torch.testing.assert_close(
+            z, torch.stack([ops.sdia_spmv(a, xs[r]) for r in range(n_rhs)]),
+            rtol=0, atol=0)
+    else:
+        _near(z, zp, 1e-5, rtol=1e-5)
+    zo = a.extract(z, dtype=torch.float64) if fmt == "whell" else z
+    _near(zo, _spmm_golden(coo, x), 2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["whell", "whell_loop", "whell_f64",
+                                  "whell_c64", "whdia", "sdia"])
+def test_spmm_loop_path_counts(case, cuda_device):
+    """The loop path launches one SpMV kernel per RHS and no SpMM kernel:
+    the DIA defaults, ``whell_spmm(fused=False)`` and the float64 and
+    complex64 ``whell_spmm`` defaults."""
+    coo = CASES["laplace_wide"]()
+    fmt = case.split("_")[0]
+    if case in ("whell_f64", "whell_c64"):
+        vt = np.float64 if case == "whell_f64" else np.complex64
+        coo = CooMatrix(coo.rows, coo.cols, coo.values.astype(vt), coo.n_rows,
+                        coo.n_cols)
+    a = {"whell": coo_to_whell, "whdia": coo_to_whdia,
+         "sdia": coo_to_sdia}[fmt](coo, device=cuda_device)
+    mod = {"whell": kw, "whdia": kd, "sdia": ks}[fmt]
+    counter = {"whell_f64": "LAUNCHES_F64",
+               "whell_c64": "LAUNCHES_C64"}.get(case, "LAUNCHES")
+    xs = _xs(8, a.n_cols).to(cuda_device, a.values.dtype)
+    before = (getattr(mod, counter), mod.LAUNCHES_SPMM)
+    z = {"whell": ops.whell_spmm, "whdia": ops.whdia_spmm,
+         "sdia": ops.sdia_spmm}[fmt](a, xs, fused=False if case == "whell_loop" else None)
+    torch.cuda.synchronize()
+    if case == "whell":  # the fp32 default is fused
+        assert (getattr(mod, counter), mod.LAUNCHES_SPMM) == (before[0], before[1] + 1)
+    else:
+        assert (getattr(mod, counter), mod.LAUNCHES_SPMM) == (before[0] + 8, before[1])
+    loop = torch.stack([{"whell": ops.whell_spmv, "whdia": ops.whdia_spmv,
+                         "sdia": ops.sdia_spmv}[fmt](a, xs[r]) for r in range(8)])
+    tol = 1e-12 if case == "whell_f64" else 1e-5
+    _near(z, loop, tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["whell", "whdia", "sdia"])
+def test_spmm_alpha_beta_y_on_cuda(fmt, cuda_device):
+    coo = CASES["laplace_wide"]()
+    conv, op = {"whell": (coo_to_whell, ops.whell_spmm),
+                "sdia": (coo_to_sdia, ops.sdia_spmm),
+                "whdia": (coo_to_whdia, ops.whdia_spmm)}[fmt]
+    a = conv(coo, device=cuda_device)
+    xs, ys = _xs(8, a.n_cols, 1).to(cuda_device), _xs(8, a.n_rows, 2).to(cuda_device)
+    z = op(a, xs, alpha=2.5, beta=-0.5, y=ys, fused=True)
+    want = 2.5 * op(a.to("cpu"), xs.cpu(), fused=True) - 0.5 * ys.cpu()
+    _near(z, want, 1e-5, rtol=1e-5)
+    nan_y = torch.full_like(ys, float("nan"))
+    assert bool(torch.isfinite(op(a, xs, beta=0.0, y=nan_y, fused=True)).all())
