@@ -83,13 +83,31 @@ them:
 21. spmm_loop — the loop paths, counted: the SDIA and WHDIA defaults,
                ``whell_spmm(fused=False)``, and the float64 and complex64
                ``whell_spmm`` defaults each launch their SpMV kernel 8
-               times and no SpMM kernel.
+               times and no SpMM kernel;
+22. classic  — the README quick start: the flagship relabelled
+               (``symmetric_relabel(coo, local_degree_perm(coo))``) through
+               ``coo_to_whell(..., packed=False)`` in fp32 and bf16 and
+               ``whell_spmv`` (kernel #15), held against the plain version
+               and the golden, timed with its bound; then the raw flagship
+               with ``sort_rows=True`` (OELL) and ``ways=2`` through #15,
+               against the golden;
+23. classic_spmm — ``whell_spmm(fused=True)`` (kernel #16) on the relabelled
+               classic fp32 and bf16 layouts, 8 RHS, one launch each,
+               beside the default loop of #15 (8 launches, none of #16) and
+               cuSPARSE SpMM, with its device time by kernel;
+24. pcell    — ``coo_to_whell_percell`` on the raw flagship and
+               ``whell_spmv`` (kernel #17), against the plain version and
+               the golden, timed beside kernel #1's device time from 3;
+25. solve_pcell — ``solve(spd, b, fmt="pcell", tol=1e-5)`` on the SPD
+               system of 5, counted on kernel #17's counter, with the CG
+               loop's ms and device ms per iteration and idle share.
 
 The library yardstick of a complex phase is the same CSR call in the
 complex type; where PyTorch refuses it, the row's ``library_ms`` holds
 the error text.
 
-Each phase prints one JSON line.  Then it prints the kernel table (one
+Each phase prints one JSON line (with ``elapsed_s``, the seconds since
+the start).  Then it prints the kernel table (one
 JSON line: each kernel's launches on the main path, its error against its
 plain version, its time, the plain version's and the library call's, and
 its bound), the ``nvidia-smi`` name and power limit, and last
@@ -144,6 +162,12 @@ KERNELS = {
                    "spgpu_tpu/ops/pallas_kernels.py:1459"),
     "sdia_spmm": ("cuda", "spgpu_tpu_torch/csrc/sdia_spmv.cu",
                   "spgpu_tpu/ops/pallas_kernels.py:2500"),
+    "whell_classic_spmv": ("cuda", "spgpu_tpu_torch/csrc/whell_classic_spmv.cu",
+                           "spgpu_tpu/ops/pallas_kernels.py:42"),
+    "whell_classic_spmm": ("cuda", "spgpu_tpu_torch/csrc/whell_classic_spmv.cu",
+                           "spgpu_tpu/ops/pallas_kernels.py:1011"),
+    "pcell_spmv": ("cuda", "spgpu_tpu_torch/csrc/pcell_spmv.cu",
+                   "spgpu_tpu/ops/pallas_kernels.py:1133"),
 }
 
 #: the fixtures' sizes: flagship rows, Laplacian side, banded rows, and
@@ -168,12 +192,16 @@ COUNTER = {"float32": "LAUNCHES", "bfloat16": "LAUNCHES",
            "complex128": "LAUNCHES_C128"}
 
 _closed = False
+_T0 = time.perf_counter()
 
 
 def emit(phase: str, **kw) -> None:
+    """One phase's JSON line, with the seconds since the script started
+    (``elapsed_s``)."""
     if _closed:
         raise RuntimeError(f"phase {phase!r} after the result line")
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - _T0, **kw}),
+          flush=True)
 
 
 def nvidia_smi() -> str:
@@ -830,15 +858,231 @@ def spmm_loop_phase(lap, band, a32, a64, ac64, device):
     return out
 
 
+def classic_phase(coo, a, device, label):
+    """Kernel #15 through ``whell_spmv`` on a classic layout (fp32 or bf16
+    values, fp32 x), its one launch counted from 0; the op's result held
+    against the plain version's (1e-5, 1e-5·max|z|: atomics) and the
+    float64 golden (1e-4); then the kernel, the plain version and the
+    library call timed, with the bound: every layout array once, x and
+    the stored-row z once."""
+    import torch
+
+    from spgpu_tpu_torch import ops
+    from spgpu_tpu_torch.kernels import whell_classic as kc
+
+    x = rand_vector(coo.n_cols, 7, np.float32)
+    xt = torch.from_numpy(x).to(device)
+    kc.LAUNCHES = 0
+    z = ops.whell_spmv(a, xt)
+    torch.cuda.synchronize(device)
+    launches = kc.LAUNCHES
+    if launches != 1:
+        raise AssertionError(f"{label}: whell_spmv launched kernel #15 {launches} times")
+    layout = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group)
+    x2 = ops._prep_x(xt, a.n_cols, a.x_pages)
+    zp = ops._classic_rows(a, kc.whell_classic_spmv_plain(
+        *layout, x2, num_groups=a.num_groups).view(-1))
+    err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), 1e-5, 1e-5,
+                            f"{label}: kernel vs plain")
+    err_golden = check_close(z.cpu().numpy(), coo.spmv(x.astype(np.float64)),
+                             1e-4, 1e-4, f"{label}: kernel vs host golden")
+    library, refused = library_call(coo, xt, device)
+    t = timed(lambda: kc.whell_classic_spmv(*layout, x2, num_groups=a.num_groups),
+              lambda: kc.whell_classic_spmv_plain(*layout, x2, num_groups=a.num_groups),
+              library, refused)
+    flops = 2 * coo.nnz
+    slab_bytes = a.total_slots * 128 * (a.values.element_size() + 2)
+    return dict(
+        nnz=coo.nnz, tiles=a.num_tiles, launches=launches,
+        padding=a.total_slots * 128 / coo.nnz, slab_mib=slab_bytes / 2**20,
+        max_abs_err_vs_plain=err_plain, max_abs_err_vs_golden=err_golden, **t,
+        kernel_device_gflops=flops / (t["kernel_device_ms"] * 1e6),
+        kernel_device_slab_gbytes_per_s=slab_bytes / (t["kernel_device_ms"] * 1e6),
+        **bound(nbytes(*layout, x2) + a.rows_padded * 4, flops, "float32"))
+
+
+def classic_variant(coo, device, label, **kw):
+    """The raw flagship through ``coo_to_whell(packed=False, **kw)`` (OELL
+    order or way-split rows) and kernel #15 through ``whell_spmv``, its
+    one launch counted from 0, held against the float64 golden (1e-4);
+    the layout's padding and slab size and the kernel's device time."""
+    import torch
+
+    from spgpu_tpu_torch import ops
+    from spgpu_tpu_torch.convert import coo_to_whell
+    from spgpu_tpu_torch.kernels import whell_classic as kc
+    from spgpu_tpu_torch.utils.timing import device_ms
+
+    t0 = time.perf_counter()
+    a = coo_to_whell(coo, device=device, packed=False, **kw)
+    torch.cuda.synchronize(device)
+    convert_s = time.perf_counter() - t0
+    x = rand_vector(coo.n_cols, 7, np.float32)
+    xt = torch.from_numpy(x).to(device)
+    kc.LAUNCHES = 0
+    z = ops.whell_spmv(a, xt)
+    torch.cuda.synchronize(device)
+    launches = kc.LAUNCHES
+    if launches != 1:
+        raise AssertionError(f"{label}: whell_spmv launched kernel #15 {launches} times")
+    err = check_close(z.cpu().numpy(), coo.spmv(x.astype(np.float64)), 1e-4, 1e-4,
+                      f"{label}: kernel vs host golden")
+    x2 = ops._prep_x(xt, a.n_cols, a.x_pages)
+    layout = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group)
+    dev, src = device_ms(lambda: kc.whell_classic_spmv(*layout, x2,
+                                                       num_groups=a.num_groups))
+    op_dev, _ = device_ms(lambda: ops.whell_spmv(a, xt))
+    slab_bytes = a.total_slots * 128 * (a.values.element_size() + 2)
+    return dict(options=kw, convert_s=convert_s, tiles=a.num_tiles, launches=launches,
+                rows_padded=a.rows_padded, padding=a.total_slots * 128 / coo.nnz,
+                slab_mib=slab_bytes / 2**20, max_abs_err_vs_golden=err,
+                kernel_device_ms=dev, kernel_device_source=src, op_device_ms=op_dev,
+                **bound(nbytes(*layout, x2) + a.rows_padded * 4, 2 * coo.nnz,
+                        "float32"))
+
+
+def classic_spmm_phase(coo, a, device, label):
+    """Kernel #16 through ``whell_spmm(fused=True)`` on a classic layout, 8
+    RHS, its one launch counted from 0 (and none of #15); the default
+    (the loop of #15: 8 launches, none of #16) counted the same way; both
+    held against the plain fused product (1e-5, 1e-5·max|Z|: atomics) and
+    the fused one against the float64 golden per RHS (1e-4); then the
+    kernel, the plain version, the fused op, the loop and cuSPARSE SpMM
+    timed, with the bound: every layout array once, X and the stored-row Z
+    for every RHS."""
+    import torch
+
+    from spgpu_tpu_torch import ops
+    from spgpu_tpu_torch.kernels import whell_classic as kc
+
+    X = rhs_stack(coo.n_cols)
+    xs = torch.from_numpy(X).to(device)
+    counted = {}
+    for name, fused, want in (("fused", True, (1, 0)), ("loop", None, (0, N_RHS))):
+        kc.LAUNCHES_SPMM, kc.LAUNCHES = 0, 0
+        counted[name] = ops.whell_spmm(a, xs, fused=fused)
+        torch.cuda.synchronize(device)
+        got = (kc.LAUNCHES_SPMM, kc.LAUNCHES)
+        if got != want:
+            raise AssertionError(f"{label} {name}: {got[0]} launches of #16 and "
+                                 f"{got[1]} of #15, not {want}")
+    z = counted["fused"]
+    layout = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group)
+    x3 = ops._prep_x(xs, a.n_cols, a.x_pages, stack=True)
+    static = dict(num_groups=a.num_groups)
+    zp = ops._classic_rows(a, kc.whell_classic_spmm_plain(*layout, x3, **static)
+                           .flatten(1))
+    err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), 1e-5, 1e-5,
+                            f"{label}: kernel vs plain")
+    err_loop = check_close(counted["loop"].cpu().numpy(), zp.cpu().numpy(), 1e-5,
+                           1e-5, f"{label}: loop of #15 vs plain")
+    err_golden = check_close(z.cpu().numpy(), coo.spmv(X.astype(np.float64)),
+                             1e-4, 1e-4, f"{label}: kernel vs host golden")
+    library, refused = library_call(coo, xs, device)
+    kernel = lambda: kc.whell_classic_spmm(*layout, x3, **static)  # noqa: E731
+    t = timed(kernel, lambda: kc.whell_classic_spmm_plain(*layout, x3, **static),
+              library, refused, op=lambda: ops.whell_spmm(a, xs, fused=True),
+              loop=lambda: ops.whell_spmm(a, xs))
+    flops = 2 * coo.nnz * N_RHS
+    out = dict(n_rhs=N_RHS, nnz=coo.nnz, tiles=a.num_tiles, launches=1,
+               loop_spmv_launches=N_RHS, max_abs_err_vs_plain=err_plain,
+               loop_max_abs_err_vs_plain=err_loop, max_abs_err_vs_golden=err_golden,
+               **t, **bound(nbytes(*layout, x3) + N_RHS * a.rows_padded * 4,
+                            flops, "float32"))
+    return spmm_summary(out, flops, kernel)
+
+
+def pcell_phase(coo, device, spmv, label):
+    """``coo_to_whell_percell`` (timed) and kernel #17 through
+    ``whell_spmv``, its one launch counted from 0; held against the plain
+    version (1e-5, 1e-5·max|z|: atomics) and the float64 golden (1e-4);
+    then timed with its bound (every layout array once, x and z once),
+    beside kernel #1's device time and bound on the same matrix (``spmv``,
+    the spmv phase's result)."""
+    import torch
+
+    from spgpu_tpu_torch import ops
+    from spgpu_tpu_torch.convert import coo_to_whell_percell
+    from spgpu_tpu_torch.kernels import pcell as kp
+
+    t0 = time.perf_counter()
+    p = coo_to_whell_percell(coo, device=device)
+    torch.cuda.synchronize(device)
+    convert_s = time.perf_counter() - t0
+    x = rand_vector(coo.n_cols, 7, np.float32)
+    xt = torch.from_numpy(x).to(device)
+    kp.LAUNCHES = 0
+    z = ops.whell_spmv(p, xt)
+    torch.cuda.synchronize(device)
+    launches = kp.LAUNCHES
+    if launches != 1:
+        raise AssertionError(f"{label}: whell_spmv launched kernel #17 {launches} times")
+    layout = (p.values, p.residue, p.page_tab, p.run_hi, p.run_lo, p.tile_base,
+              p.chunk_group, p.group_bases)
+    x2 = ops._prep_x(xt, p.n_cols, p.x_pages)
+    static = dict(chunk_tiles=p.chunk_tiles, group_hacks=p.group_hacks,
+                  window_pages=p.window_pages, num_groups=p.num_groups)
+    zp = kp.pcell_spmv_plain(*layout, x2, **static).view(-1)[: p.n_rows]
+    err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), 1e-5, 1e-5,
+                            f"{label}: kernel vs plain")
+    err_golden = check_close(z.cpu().numpy(), coo.spmv(x.astype(np.float64)),
+                             1e-4, 1e-4, f"{label}: kernel vs host golden")
+    library, refused = library_call(coo, xt, device)
+    t = timed(lambda: kp.pcell_spmv(*layout, x2, **static),
+              lambda: kp.pcell_spmv_plain(*layout, x2, **static), library, refused)
+    flops = 2 * coo.nnz
+    slab_bytes = p.total_slots * 128 * 8
+    return dict(
+        nnz=coo.nnz, convert_s=convert_s, tiles=p.num_tiles, launches=launches,
+        group_hacks=p.group_hacks, chunk_tiles=p.chunk_tiles,
+        layout_groups=p.group_bases.numel() // (p.window_pages // 8),
+        padding=p.total_slots * 128 / coo.nnz, slab_mib=slab_bytes / 2**20,
+        max_abs_err_vs_plain=err_plain, max_abs_err_vs_golden=err_golden, **t,
+        kernel_device_gflops=flops / (t["kernel_device_ms"] * 1e6),
+        packed_whell_device_ms=spmv["kernel_device_ms"],
+        packed_whell_bound_ms=spmv["bound_ms"], packed_whell_padding=spmv["padding"],
+        **bound(nbytes(*layout, x2, z), flops, "float32"))
+
+
+def solve_pcell(spd, device):
+    """``solve(spd, b, fmt="pcell", tol=1e-5)``, counted on kernel #17's
+    counter from 0 (true residual ≤ 1e-4), then the CG loop alone on the
+    pcell layout that ``solve()`` built (kept by wrapping its converter:
+    a second conversion of the SPD system takes about 20 s) for its ms and
+    device ms per iteration."""
+    import torch
+
+    from spgpu_tpu_torch import ops
+    from spgpu_tpu_torch.kernels import pcell as kp
+    from spgpu_tpu_torch.solvers import auto, cg
+
+    x_true = rand_vector(spd.n_rows, 1, np.float64)
+    b = spd.spmv(x_true).astype(np.float32)
+    built = []
+    convert = auto.coo_to_whell_percell
+    auto.coo_to_whell_percell = lambda *a, **k: built.append(convert(*a, **k)) or built[-1]
+    try:
+        _, xs, solved = counted_solve(spd, b, (kp, "LAUNCHES"), device, 1e-5, 1e-4,
+                                      fmt="pcell", maxiter=5000)
+    finally:
+        auto.coo_to_whell_percell = convert
+    p, = built
+    return dict(nnz=spd.nnz, tiles=p.num_tiles, padding=p.total_slots * 128 / spd.nnz,
+                **solved, **loop_timing(cg, lambda v: ops.whell_spmv(p, v),
+                                        torch.from_numpy(b).to(device), 1e-5),
+                x_err_vs_true=float(np.abs(xs - x_true).max()))
+
+
 def build_all():
-    """The host helpers, then the three kernel libraries (each holds the
-    float32, float64, complex64 and complex128 kernels of its route), all
-    nvcc builds started together."""
+    """The host helpers, then the five kernel libraries (the packed WHELL,
+    SDIA and WHDIA ones each hold the float32, float64, complex64 and
+    complex128 kernels of their route), all nvcc builds started together."""
     from spgpu_tpu_torch import native
-    from spgpu_tpu_torch.kernels import sdia, whdia, whell
+    from spgpu_tpu_torch.kernels import pcell, sdia, whdia, whell, whell_classic
 
     host_s = native.build()
-    libs = {"whell_packed_spmv": whell, "sdia_spmv": sdia, "whdia_spmv": whdia}
+    libs = {"whell_packed_spmv": whell, "sdia_spmv": sdia, "whdia_spmv": whdia,
+            "whell_classic_spmv": whell_classic, "pcell_spmv": pcell}
     with ThreadPoolExecutor(len(libs)) as ex:
         futs = {name: ex.submit(m.build) for name, m in libs.items()}
         done = {name: f.result() for name, f in futs.items()}
@@ -879,7 +1123,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from spgpu_tpu_torch.convert import coo_to_whell, suggest_format
+    from spgpu_tpu_torch.convert import (coo_to_whell, local_degree_perm,
+                                         suggest_format, symmetric_relabel)
     from spgpu_tpu_torch.formats.coo import CooMatrix
     from spgpu_tpu_torch.utils.fixtures import laplacian_2d, random_banded
 
@@ -912,7 +1157,8 @@ def main() -> int:
     emit("bf16", **spmv_phase(coo16, a16, device, "spmv bf16"))
 
     # --- SPD solve: the main path, counted -----------------------------
-    solve = spd_solve(spd_from(coo), device, np.float32, 1e-5, 1e-4)
+    spd = spd_from(coo)  # kept for the solve_pcell phase
+    solve = spd_solve(spd, device, np.float32, 1e-5, 1e-4)
     emit("solve", **solve)
 
     # --- SDIA: the 2-D Laplacian, kernel #2 -----------------------------
@@ -1024,6 +1270,36 @@ def main() -> int:
     # --- the float64 and complex64 whell defaults, counted ----------------
     emit("spmm_loop", n_rhs=N_RHS, **spmm_loop_phase(lap, band11, a32, a64, ac64,
                                                      device))
+    del a64, ac64
+
+    # --- classic WHELL, the README quick start: kernel #15 ----------------
+    rel = symmetric_relabel(coo, local_degree_perm(coo))
+    rel16 = CooMatrix(rel.rows, rel.cols, coo16.values, rel.n_rows, rel.n_cols)
+    classic, layouts = {}, {}
+    for tag, c, dt in (("fp32", rel, None), ("bf16", rel16, "bfloat16")):
+        t0 = time.perf_counter()
+        layouts[tag] = coo_to_whell(rel, device=device, dtype=dt, packed=False)
+        torch.cuda.synchronize(device)
+        convert_s = time.perf_counter() - t0
+        classic[tag] = dict(convert_s=convert_s, **classic_phase(
+            c, layouts[tag], device, f"classic {tag}"))
+    classic["oell"] = classic_variant(coo, device, "classic oell", sort_rows=True)
+    classic["ways2"] = classic_variant(coo, device, "classic ways2", ways=2)
+    emit("classic", fixture="flagship, symmetric_relabel(local_degree_perm); "
+         "oell and ways2 on the raw flagship", **classic)
+
+    # --- classic SpMM: kernel #16 (fused=True) beside the loop of #15 -----
+    classic_spmm = {tag: classic_spmm_phase(c, layouts[tag], device,
+                                            f"classic spmm {tag}")
+                    for tag, c in (("fp32", rel), ("bf16", rel16))}
+    emit("classic_spmm", fixture="flagship relabelled, classic", **classic_spmm)
+    del layouts
+
+    # --- per-cell routing: kernel #17 on the raw flagship, then solve() ---
+    pcell = pcell_phase(coo, device, spmv, "pcell")
+    emit("pcell", fixture="flagship", **pcell)
+    solve_p = solve_pcell(spd, device)
+    emit("solve_pcell", fixture="flagship SPD form", **solve_p)
 
     def whdia_row(name, solves, phases):
         """WHDIA's row: the Laplacian's times, the larger error of its two
@@ -1060,7 +1336,16 @@ def main() -> int:
         spmm_row("whell_packed_spmm", spmm.values(), spmm["fp32"]),
         spmm_row("whdia_spmm", [spmm_dia["whdia_banded11"], spmm_dia["whdia_laplace"]],
                  spmm_dia["whdia_banded11"]),
-        spmm_row("sdia_spmm", [spmm_dia["sdia_laplace"]], spmm_dia["sdia_laplace"])]
+        spmm_row("sdia_spmm", [spmm_dia["sdia_laplace"]], spmm_dia["sdia_laplace"]),
+        # #15: the counted op calls of the classic phase and the counted
+        # default loops of the classic_spmm phase
+        kernel_row("whell_classic_spmv",
+                   sum(c["launches"] for c in classic.values())
+                   + sum(c["loop_spmv_launches"] for c in classic_spmm.values()),
+                   dict(classic["fp32"], max_abs_err_vs_plain=max(
+                       classic[t]["max_abs_err_vs_plain"] for t in ("fp32", "bf16")))),
+        spmm_row("whell_classic_spmm", classic_spmm.values(), classic_spmm["fp32"]),
+        kernel_row("pcell_spmv", solve_p["launches"], pcell)]
     close(rows, smi, torch)
     return 0
 

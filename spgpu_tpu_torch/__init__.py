@@ -3,12 +3,16 @@
 A second package beside :mod:`spgpu_tpu` (the JAX reference, which it
 never imports).  It carries its own NumPy host side (COO, fixtures,
 converters, format selection), binds the same C++ layout helpers, and
-runs two routes on the GPU, each through a hand CUDA kernel:
+runs its routes on the GPU, each through a hand CUDA kernel:
 
     host COO → convert.coo_to_whell (packed) → ops.whell_spmv in lane
     space (kernels/whell.py) → solvers.cg / bicgstab
     host COO → convert.coo_to_sdia | coo_to_whdia → ops.sdia_spmv |
     whdia_spmv (kernels/sdia.py, kernels/whdia.py) → solvers.cg / bicgstab
+    host COO → convert.coo_to_whell(packed=False) (classic: OELL order,
+    way-split rows) | coo_to_whell_percell → ops.whell_spmv in the
+    original numbering (kernels/whell_classic.py, kernels/pcell.py);
+    solve(fmt="pcell")
 
 The multi-RHS products ``ops.whell_spmm``, ``sdia_spmm`` and
 ``whdia_spmm`` take ``(n_rhs, n)`` stacks on the same layouts, fused in
@@ -28,9 +32,18 @@ from spgpu_tpu_torch.convert import (  # noqa: F401
     coo_to_sdia,
     coo_to_whdia,
     coo_to_whell,
+    coo_to_whell_percell,
+    degree_sort_perm,
     suggest_format,
+    whell_update_values,
 )
-from spgpu_tpu_torch.formats import CooMatrix, SdiaMatrix, WhdiaMatrix, WhellMatrix  # noqa: F401
+from spgpu_tpu_torch.formats import (  # noqa: F401
+    CooMatrix,
+    PcellWhell,
+    SdiaMatrix,
+    WhdiaMatrix,
+    WhellMatrix,
+)
 from spgpu_tpu_torch.ops import (  # noqa: F401
     sdia_spmm,
     sdia_spmv,

@@ -1,8 +1,9 @@
-"""COO → packed-lane WHELL conversion (host NumPy + the C++ helpers).
+"""COO → WHELL conversion (host NumPy + the C++ helpers): the packed-lane
+and the classic layouts.
 
-Counterpart of the packed branch of :mod:`spgpu_tpu.convert.whell`
-(``coo_to_whell(packed=True)`` / ``_coo_to_whell_packed``): the same
-geometry defaults, the same sort and the same native first-fit, so the
+Counterpart of :mod:`spgpu_tpu.convert.whell` (``coo_to_whell`` with its
+packed branch ``_coo_to_whell_packed`` and its classic branch): the same
+geometry defaults, the same sorts and the same native first-fit, so the
 arrays are bit-identical to the JAX converter's.  What the TPU's memory
 budgets forced is left out, because the GPU reads x from device memory
 through its 50 MB L2 and holds its scalars in plain arrays: no VMEM
@@ -20,10 +21,17 @@ structure (entries are placed by coordinate, never by value): the port's
 structural arrays equal its ``ar`` plane's.  complex64 takes the fp32
 geometry and complex128 the float64 (double-float) one, as the JAX
 converter's planes do.
+
+The packed fields are bounded, and the converters raise rather than wrap
+them: an aligned window's base page has 16 bits (at most
+:data:`_MAX_ALIGNED_X_PAGES` x pages) and a scattered tile's layout group
+20 (at most :data:`_MAX_LAYOUT_GROUPS` groups).  Lifting them is ROADMAP
+module item 8.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Optional
 
@@ -31,18 +39,33 @@ import numpy as np
 import torch
 
 from spgpu_tpu_torch import native
-from spgpu_tpu_torch.core import dtype_name, value_dtype
+from spgpu_tpu_torch.core import CHUNK_TILES, dtype_name, value_dtype
 from spgpu_tpu_torch.formats.coo import CooMatrix
-from spgpu_tpu_torch.formats.whell import WhellMatrix
+from spgpu_tpu_torch.formats.whell import CLASSIC_DTYPES, WhellMatrix
 
-__all__ = ["coo_to_whell", "local_degree_perm", "slab_dtype",
-           "symmetric_relabel"]
+__all__ = ["coo_to_whell", "degree_sort_perm", "local_degree_perm",
+           "slab_dtype", "symmetric_relabel", "whell_update_values"]
 
 _HACK = 128
 
 #: refuse to allocate a padded host slab beyond this (runaway padding on
 #: matrices with no column locality)
 _SLAB_GUARD_BYTES = 16 * 2 ** 30
+
+#: x pages an aligned window's 16-bit base field addresses (packed aligned
+#: and classic layouts)
+_MAX_ALIGNED_X_PAGES = 1 << 16
+#: layout groups a scattered tile's 20-bit group field addresses
+_MAX_LAYOUT_GROUPS = 1 << 20
+
+
+def _field_bound(what: str, value: int, limit: int, bits: int) -> None:
+    """Raise when a packed field would wrap: ``value`` past ``limit``."""
+    if value > limit:
+        raise ValueError(
+            f"this matrix needs {value} {what}, past the {limit} that "
+            f"tile_base's {bits}-bit field holds: one layout that large is "
+            "ROADMAP module item 8")
 
 
 def slab_dtype(dtype) -> torch.dtype:
@@ -52,6 +75,12 @@ def slab_dtype(dtype) -> torch.dtype:
     if dtype_name(dtype) == "bfloat16":
         return torch.bfloat16
     return getattr(torch, value_dtype(dtype, "packed WHELL").name)
+
+
+def degree_sort_perm(coo: CooMatrix) -> np.ndarray:
+    """Stored-row → original-row permutation sorting rows by descending
+    nnz: the OELL ordering."""
+    return np.argsort(-coo.row_lengths(), kind="stable").astype(np.int32)
 
 
 def local_degree_perm(coo: CooMatrix, window: int = 1024) -> np.ndarray:
@@ -88,33 +117,92 @@ def coo_to_whell(
     *,
     device,
     dtype=None,
-    window_pages: int = 32,
+    packed: bool = True,
+    row_perm: Optional[np.ndarray] = None,
+    sort_rows: bool = False,
+    ways: int = 1,
+    return_plan: bool = False,
+    window_pages: Optional[int] = None,
     scattered: Optional[bool] = None,
-) -> WhellMatrix:
-    """Build a packed-lane :class:`WhellMatrix` on ``device``.
+):
+    """Build a :class:`WhellMatrix` on ``device``: packed (the default) or
+    classic (``packed=False``).
 
-    Rows get lane segments of ``ceil(degree / lane_capacity)`` lanes
-    (capacity ~1.25x the mean degree) and are binned into 128-lane hacks;
-    rows and columns are relabelled into lane space (``a.embed`` /
-    ``a.extract``).  ``scattered`` lets a tile's window be
-    ``window_pages / 8`` independently based 8-page superpages;
-    ``scattered=False`` keeps one aligned window of ``window_pages``.
-    ``dtype`` selects float32, float64, complex64, complex128 or bfloat16
-    values (default: the COO's).  float64 and complex128 take the
-    geometry of the JAX package's double-float layout (aligned windows by
-    default, its chunk and group sizes), so the two packages' structural
-    arrays are identical and the values are the COO's, not hi/lo pairs
-    or real planes.  Duplicates stay separate
-    cells and add.  (The classic, non-packed layout is not ported:
-    ROADMAP module item 11.)
+    **Packed** (square matrices): rows get lane segments of
+    ``ceil(degree / lane_capacity)`` lanes (capacity ~1.25x the mean
+    degree) and are binned into 128-lane hacks; rows and columns are
+    relabelled into lane space (``a.embed`` / ``a.extract``).
+    ``scattered`` lets a tile's window be ``window_pages / 8``
+    independently based 8-page superpages; ``scattered=False`` keeps one
+    aligned window of ``window_pages`` (default 32).  ``dtype`` selects
+    float32, float64, complex64, complex128 or bfloat16 values (default:
+    the COO's).  float64 and complex128 take the geometry of the JAX
+    package's double-float layout (aligned windows by default, its chunk
+    and group sizes), so the two packages' structural arrays are
+    identical and the values are the COO's, not hi/lo pairs or real
+    planes.
+
+    **Classic** (``packed=False``, any shape): output lane ``j`` of hack
+    ``h`` is stored row ``h*128 + j``, one aligned 8-page window per tile
+    (``window_pages`` must be 8), and the op works in the original
+    numbering.  ``sort_rows=True`` applies the OELL descending-degree
+    order (``row_perm`` wins if both are given; the op then scatters its
+    output back); ``ways > 1`` splits every row into ``ways`` virtual rows
+    (entries round-robined) that the op sums back.  float32 or bfloat16
+    values; float64 and complex raise ``NotImplementedError``.
+
+    The JAX default is classic; the port's stays packed, which its
+    ``solve()`` and earlier releases call without ``packed``.
+    ``return_plan=True`` also returns each COO entry's cell, ``(slot,
+    lane)`` (classic) or ``(panel, slot, lane)`` (packed; the panel is
+    always 0), for :func:`whell_update_values`.  Duplicates stay separate
+    cells and add.
     """
+    if packed:
+        if row_perm is not None or sort_rows or ways != 1:
+            raise ValueError("packed=True is incompatible with "
+                             "row_perm/sort_rows/ways")
+        vdt = slab_dtype(coo.values.dtype if dtype is None else dtype)
+        if return_plan and vdt.is_complex:
+            raise ValueError("return_plan is not supported for complex "
+                             "packed matrices (convert anew)")
+        return _packed_geometry(coo, vdt, window_pages or 32, scattered,
+                                return_plan, device)
+    window_pages = window_pages or 8
+    if window_pages != 8:
+        raise ValueError("window_pages > 8 requires packed=True")
+    if ways > 1:
+        if row_perm is not None or sort_rows or return_plan:
+            raise ValueError("ways>1 is incompatible with row_perm/plan")
+        order0 = np.lexsort((coo.cols, coo.rows))
+        rows_o = coo.rows[order0]
+        starts = np.flatnonzero(np.r_[True, rows_o[1:] != rows_o[:-1]])
+        runs = np.diff(np.r_[starts, rows_o.size])
+        k_in_row = np.arange(rows_o.size) - np.repeat(starts, runs)
+        vrows = rows_o * ways + (k_in_row % ways)
+        vcoo = CooMatrix(vrows, coo.cols[order0], coo.values[order0],
+                         coo.n_rows * ways, coo.n_cols)
+        return dataclasses.replace(
+            coo_to_whell(vcoo, device=device, dtype=dtype, packed=False),
+            ways=ways)
     vdt = slab_dtype(coo.values.dtype if dtype is None else dtype)
+    if vdt not in CLASSIC_DTYPES:
+        raise NotImplementedError(
+            f"classic WHELL in the port takes float32 or bfloat16 values, not "
+            f"{vdt}: float64 and complex classic layouts are ROADMAP module "
+            "item 14 (follow-ups)")
+    if row_perm is None and sort_rows:
+        row_perm = degree_sort_perm(coo)
+    return _coo_to_whell_classic(coo, vdt, row_perm, return_plan, device)
+
+
+def _packed_geometry(coo, vdt, window_pages, scattered, return_plan, device):
+    """The JAX package's measured packed geometry defaults for ``coo``."""
     f64 = vdt in (torch.float64, torch.complex128)  # the double-float geometry
     if scattered is None:
         scattered = not f64
     est_tiles = max(1, coo.nnz // 1024)
     num_hacks = -(-coo.n_rows // 128)
-    # the JAX package's measured geometry defaults
     if f64:
         ct = 32 if est_tiles >= 128 else 16
     elif scattered:
@@ -135,7 +223,7 @@ def coo_to_whell(
         gh = 32
     return _coo_to_whell_packed(coo, window_pages, vdt, group_hacks=gh,
                                 chunk_tiles=ct, scattered=scattered,
-                                device=device)
+                                return_plan=return_plan, device=device)
 
 
 def _slab_values(values: np.ndarray, vdt: torch.dtype) -> np.ndarray:
@@ -148,7 +236,7 @@ def _slab_values(values: np.ndarray, vdt: torch.dtype) -> np.ndarray:
 
 def _coo_to_whell_packed(coo: CooMatrix, window_pages: int, vdt: torch.dtype,
                          group_hacks: int, chunk_tiles: int, scattered: bool,
-                         device) -> WhellMatrix:
+                         return_plan: bool, device):
     if coo.n_rows != coo.n_cols:
         raise ValueError("packed WHELL requires a square matrix (rows and "
                          "columns share the lane-space labels)")
@@ -181,6 +269,7 @@ def _coo_to_whell_packed(coo: CooMatrix, window_pages: int, vdt: torch.dtype,
         x_pages = max(-(-num_hacks // 8) * 8, 8)
     else:
         x_pages = max(-(-num_hacks // w) * w, w)
+        _field_bound("aligned x pages", x_pages, _MAX_ALIGNED_X_PAGES, 16)
     num_groups = -(-num_hacks // gh)
 
     seg_lo = np.full((num_groups * gh, _HACK), -1, dtype=np.int8)
@@ -211,12 +300,14 @@ def _coo_to_whell_packed(coo: CooMatrix, window_pages: int, vdt: torch.dtype,
     if m == 0:
         # an empty matrix builds aligned (no group_bases) in both packages
         total = num_groups * ct * 8
-        return make(np.zeros((total, _HACK), store_dt),
-                    np.zeros((total, _HACK), np.int8),
-                    np.zeros((total, 128), np.int8),
-                    np.zeros((num_groups * ct,), np.int32),
-                    np.r_[np.arange(num_groups, dtype=np.int32), np.int32(-1)],
-                    None, total, 0, False)
+        a = make(np.zeros((total, _HACK), store_dt),
+                 np.zeros((total, _HACK), np.int8),
+                 np.zeros((total, 128), np.int8),
+                 np.zeros((num_groups * ct,), np.int32),
+                 np.r_[np.arange(num_groups, dtype=np.int32), np.int32(-1)],
+                 None, total, 0, False)
+        e = np.zeros(0, np.int64)
+        return (a, (e, e, e)) if return_plan else a
 
     cols_l32 = lane_of_row[coo.cols]  # int32, lane-space columns
     nwin = x_pages // w
@@ -283,6 +374,7 @@ def _coo_to_whell_packed(coo: CooMatrix, window_pages: int, vdt: torch.dtype,
         k, vlane, res_s, g_id, W = native.whell_gather_assign_par(
             order, coo.rows, cols_l32, d, lane_start, dlt8,
             np.r_[g_starts, m])
+        _field_bound("layout groups", int(W.size), _MAX_LAYOUT_GROUPS, 20)
         del_s = dlt8[order]
         g_G = Gs_all[g_starts]
         # group g's table j holds the first page of its j-th superpage
@@ -321,7 +413,7 @@ def _coo_to_whell_packed(coo: CooMatrix, window_pages: int, vdt: torch.dtype,
                 - _excl_cumsum(tiles_per_g8)[hack8])
     g_tile0 = g8_base[hack8] + within_t
 
-    vals, res8, pt8, _slot = native.whell_scatter_slabs(
+    vals, res8, pt8, slot = native.whell_scatter_slabs(
         order, _slab_values(coo.values, vdt), g_tile0, g_id, k, vlane,
         res_s, del_s, total_slots)
 
@@ -340,6 +432,177 @@ def _coo_to_whell_packed(coo: CooMatrix, window_pages: int, vdt: torch.dtype,
     chunk_group = np.r_[
         np.repeat(np.arange(num_groups, dtype=np.int32), pad_tiles_per_g8 // ct),
         np.int32(-1)]
-    return make(vals, res8, pt8, tile_meta, chunk_group,
-                None if bases is None else np.ascontiguousarray(bases.reshape(-1)),
-                total_slots, int(k.size), unit_segs)
+    a = make(vals, res8, pt8, tile_meta, chunk_group,
+             None if bases is None else np.ascontiguousarray(bases.reshape(-1)),
+             total_slots, int(k.size), unit_segs)
+    if not return_plan:
+        return a
+    # entry i of the COO lives at cell (panel 0, plan_slot[i], plan_lane[i])
+    plan_slot = np.empty(m, np.int64)
+    plan_lane = np.empty(m, np.int64)
+    plan_slot[order] = slot
+    plan_lane[order] = vlane
+    return a, (np.zeros(m, np.int64), plan_slot, plan_lane)
+
+
+def _to_device(arrays: dict, device) -> dict:
+    """NumPy arrays → torch tensors on ``device`` (bf16 values arrive as
+    int16 bits; None stays None)."""
+    out = {}
+    for k, v in arrays.items():
+        t = None if v is None else torch.from_numpy(np.ascontiguousarray(v))
+        if k == "values" and t is not None and t.dtype == torch.int16:
+            t = t.view(torch.bfloat16)
+        out[k] = None if t is None else t.to(device)
+    return out
+
+
+def _classic(coo, arrays: dict, device, **static) -> WhellMatrix:
+    return WhellMatrix(**_to_device(arrays, device), seg_lo=None, seg_hi=None,
+                       lane_of_row=None, group_bases=None, n_rows=coo.n_rows,
+                       n_cols=coo.n_cols, window_pages=8, orig_rows=0,
+                       group_hacks=8, chunk_tiles=CHUNK_TILES, **static)
+
+
+def _padded_perm(row_perm, num_groups: int) -> Optional[np.ndarray]:
+    """``row_perm`` over every stored row, the padded tail the identity."""
+    if row_perm is None:
+        return None
+    perm_p = np.arange(num_groups * 8 * _HACK, dtype=np.int32)
+    perm_p[: np.asarray(row_perm).size] = row_perm
+    return perm_p
+
+
+def _coo_to_whell_classic(coo: CooMatrix, vdt: torch.dtype, row_perm,
+                          return_plan: bool, device):
+    """The classic branch of the JAX ``coo_to_whell``: entries grouped by
+    (hack, aligned superpage), slots by the native first-fit under the
+    one-page-per-(slot, residue) constraint, each 8-hack group padded to
+    whole 64-tile chunks."""
+    _CT = CHUNK_TILES
+    if row_perm is not None:
+        row_perm = np.asarray(row_perm, dtype=np.int32)
+        inv = np.empty(coo.n_rows, dtype=np.int64)
+        inv[row_perm[: coo.n_rows]] = np.arange(coo.n_rows)
+        eff_rows = inv[coo.rows]
+    else:
+        eff_rows = coo.rows
+    num_hacks = max(-(-coo.n_rows // _HACK), 1)
+    num_pages = max(-(-coo.n_cols // 128), 1)
+    nsp = -(-num_pages // 8)  # superpages (aligned 8-page windows)
+    x_pages = max(nsp * 8, 8)
+    _field_bound("x pages", x_pages, _MAX_ALIGNED_X_PAGES, 16)
+    m = coo.nnz
+    num_groups = -(-num_hacks // 8)
+    static = dict(num_hacks=num_hacks, num_groups=num_groups, x_pages=x_pages)
+    store_dt = _slab_values(np.zeros(0), vdt).dtype
+
+    if m == 0:
+        total = num_groups * _CT * 8
+        a = _classic(coo, dict(
+            values=np.zeros((total, _HACK), store_dt),
+            residue=np.zeros((total, _HACK), np.int8),
+            page_tab=np.zeros((total, 128), np.int8),
+            tile_base=np.zeros((num_groups * _CT,), np.int32),
+            chunk_group=np.arange(num_groups, dtype=np.int32),
+            row_perm=_padded_perm(row_perm, num_groups)), device,
+            total_slots=total, nnz=0, **static)
+        e = np.zeros(0, np.int64)
+        return (a, (e, e)) if return_plan else a
+
+    hack = (eff_rows // _HACK).astype(np.int64)
+    lane = (eff_rows % _HACK).astype(np.int64)
+    page = (coo.cols // 128).astype(np.int64)
+    resid = (coo.cols % 128).astype(np.int64)
+    delta = (page % 8).astype(np.int8)
+
+    # group per (hack, superpage); the native first-fit assigns slots
+    G = hack * nsp + page // 8
+    order = np.lexsort((coo.cols, eff_rows, G))  # by group, row, col
+    Gs = G[order]
+    res_s = resid[order]
+    del_s = delta[order].astype(np.int64)
+    k = native.whell_assign(Gs, lane[order], res_s, del_s)
+
+    # group widths and slot layout: groups pad to whole tiles (one window
+    # per tile), each 8-hack group's tiles to whole chunks
+    g_first = np.r_[True, Gs[1:] != Gs[:-1]]
+    g_id = np.cumsum(g_first) - 1
+    W = np.zeros(g_id[-1] + 1, dtype=np.int64)
+    np.maximum.at(W, g_id, k + 1)
+    g_G = Gs[g_first]
+    g_hack = g_G // nsp
+    g_sp = g_G % nsp
+    raw_tiles_per_grp = -(-W // 8)
+    hack8 = g_hack // 8
+    tiles_per_g8 = np.zeros(num_groups, dtype=np.int64)
+    np.add.at(tiles_per_g8, hack8, raw_tiles_per_grp)
+    pad_tiles_per_g8 = np.maximum(-(-tiles_per_g8 // _CT) * _CT, _CT)
+    g8_base = _excl_cumsum(pad_tiles_per_g8)
+    num_tiles = int(pad_tiles_per_g8.sum())
+    total_slots = num_tiles * 8
+    slab_bytes = total_slots * _HACK * (vdt.itemsize + 2)
+    if slab_bytes > _SLAB_GUARD_BYTES:
+        raise ValueError(
+            f"classic WHELL slab would be {slab_bytes/2**30:.1f} GiB (padding "
+            f"{total_slots * _HACK / m:.0f}x nnz): this matrix has too little "
+            "column locality for a windowed layout; relabel it first")
+    within_t = (_excl_cumsum(raw_tiles_per_grp)
+                - _excl_cumsum(tiles_per_g8)[hack8])
+    g_tile0 = g8_base[hack8] + within_t
+
+    # scatter entries (cells are distinct: one entry per lane and slot)
+    slot = g_tile0[g_id] * 8 + k
+    vals = np.zeros((total_slots, _HACK), dtype=store_dt)
+    res8 = np.zeros((total_slots, _HACK), dtype=np.int8)
+    pt8 = np.zeros((total_slots, 128), dtype=np.int8)
+    lane_o = lane[order]
+    vals[slot, lane_o] = _slab_values(coo.values, vdt)[order]
+    res8[slot, lane_o] = res_s.astype(np.int8)
+    pt8[slot, res_s] = del_s.astype(np.int8)
+
+    # per-tile scalars: base page (16 bits) | hack-in-group (3 bits) << 16
+    tile_base = np.zeros(num_tiles, dtype=np.int32)
+    tile_hh = np.zeros(num_tiles, dtype=np.int32)
+    g_tiles_idx = np.repeat(g_tile0, raw_tiles_per_grp) + (
+        np.arange(int(raw_tiles_per_grp.sum()))
+        - np.repeat(_excl_cumsum(raw_tiles_per_grp), raw_tiles_per_grp))
+    tile_base[g_tiles_idx] = np.repeat((g_sp * 8).astype(np.int32),
+                                       raw_tiles_per_grp)
+    tile_hh[g_tiles_idx] = np.repeat((g_hack % 8).astype(np.int32),
+                                     raw_tiles_per_grp)
+    a = _classic(coo, dict(
+        values=vals, residue=res8, page_tab=pt8,
+        tile_base=(tile_base | (tile_hh << 16)).astype(np.int32),
+        chunk_group=np.repeat(np.arange(num_groups, dtype=np.int32),
+                              pad_tiles_per_g8 // _CT),
+        row_perm=_padded_perm(row_perm, num_groups)), device,
+        total_slots=total_slots, nnz=m, **static)
+    if not return_plan:
+        return a
+    # entry i of the COO lives at cell (plan_slot[i], plan_lane[i])
+    inv_order = np.empty(m, dtype=np.int64)
+    inv_order[order] = np.arange(m)
+    return a, (slot[inv_order], lane)
+
+
+def whell_update_values(a: WhellMatrix, plan, new_values) -> WhellMatrix:
+    """Refresh the value slab of a matrix with the SAME pattern: a copy of
+    ``a`` whose slab holds ``new_values`` (in the original COO entry
+    order) at the cells of ``plan``, from ``coo_to_whell(...,
+    return_plan=True)``: ``(slot, lane)`` for a classic layout,
+    ``(panel, slot, lane)`` for a packed one (the port builds one panel,
+    so the panel is always 0).  Each entry, duplicates included, updates
+    its own cell; the values are stored as the slab's type (a float64
+    slab stores float64, where the JAX package splits a double-float
+    pair)."""
+    if len(plan) == 3:
+        panel, slot, lane = plan
+        if np.any(np.asarray(panel) != 0):
+            raise ValueError("a packed plan of the port has panel 0 only")
+    else:
+        slot, lane = plan
+    vals = torch.zeros((a.total_slots, _HACK), dtype=a.values.dtype)
+    new = torch.from_numpy(np.ascontiguousarray(new_values))
+    vals[torch.as_tensor(slot), torch.as_tensor(lane)] = new.to(a.values.dtype)
+    return dataclasses.replace(a, values=vals.to(a.device))

@@ -1,9 +1,10 @@
-"""Packed-lane WHELL layout as a dataclass of torch tensors.
+"""WHELL layouts as dataclasses of torch tensors: packed, classic and
+per-cell routing.
 
-Counterpart of the packed branch of :class:`spgpu_tpu.formats.whell.
-WhellMatrix`; the arrays are the same, cell for cell (see that module for
-the layout).  In short, for a cell ``(slot s, lane j)`` of tile
-``t = s // 8``:
+Counterpart of :class:`spgpu_tpu.formats.whell.WhellMatrix` (packed and
+classic) and :class:`spgpu_tpu.formats.whell.PcellWhell`; the arrays are
+the same, cell for cell (see that module for the layouts).  In short, for
+a cell ``(slot s, lane j)`` of tile ``t = s // 8``:
 
 * ``r = residue[s, j]`` and ``d = page_tab[s, r]`` — the page table is
   indexed by RESIDUE, not by lane;
@@ -13,23 +14,39 @@ the layout).  In short, for a cell ``(slot s, lane j)`` of tile
   ``K = window_pages // 8``;
 * aligned windows: ``page = (tile_base[t] & 0xFFFF) + d`` and
   ``hh = tile_base[t] >> 16``;
-* column ``page*128 + r`` in lane space; output hack
+* column ``page*128 + r``; output hack
   ``chunk_group[t // chunk_tiles] * group_hacks + hh``.
 
-Rows own lane segments; ``seg_lo``/``seg_hi`` give each output lane the
-segment bounds its prefix-scan difference reads.  Vectors live in lane
-space: :meth:`WhellMatrix.embed` and :meth:`WhellMatrix.extract` map
-original vectors in and out.
+The **packed** layout (``seg_lo`` set) gives rows lane segments;
+``seg_lo``/``seg_hi`` give each output lane the segment bounds its
+prefix-scan difference reads.  Its vectors live in lane space:
+:meth:`WhellMatrix.embed` and :meth:`WhellMatrix.extract` map original
+vectors in and out.  Its values are float32, bfloat16, float64, complex64
+or complex128: where the JAX package keeps a float64 matrix as a
+double-float pair (``values`` hi, ``values_lo`` lo), the port keeps one
+float64 slab, and where it keeps a complex matrix as two real-plane
+layouts of one structure (``WhellComplex``: ``ar``, ``ai``), the port
+keeps one layout whose slab is complex (interleaved re/im), so its vectors
+are complex too.
 
-Only the packed layout exists in the port.  Its values are float32,
-bfloat16, float64, complex64 or complex128: where the JAX package keeps a
-float64 matrix as a double-float pair (``values`` hi, ``values_lo`` lo),
-the port keeps one float64 slab, and where it keeps a complex matrix as
-two real-plane layouts of one structure (``WhellComplex``: ``ar``,
-``ai``), the port keeps one layout whose slab is complex (interleaved
-re/im), so its vectors are complex too.  The classic layout
-(``row_perm``, ``ways``) and the TPU budget containers
-(``PanelledWhell``, ``SegmentedWhell``) are not ported.
+The **classic** layout (``seg_lo`` None) works in the original numbering:
+output lane ``j`` of hack ``h`` is stored row ``h*128 + j``, aligned
+8-page windows, 8-hack groups and 64-tile chunks, and a ``chunk_group``
+without the trailing -1 sentinel.  ``row_perm`` (stored row → original
+row, padded with the identity) is the OELL order, and ``ways > 1`` splits
+each row into ``ways`` virtual rows that the op sums back.  Its values are
+float32 or bfloat16, the JAX classic path's TPU types.
+
+The **per-cell routing** layout (:class:`PcellWhell`) packs the cells of
+many rows densely into each slot and routes each row's run to its output
+lane through ``run_hi``/``run_lo``; it works in the original numbering.
+
+Packed fields are bounded: an aligned window's base page has 16 bits and
+a scattered layout group 20, so :meth:`WhellMatrix.check` (and
+:meth:`PcellWhell.check`) reject a layout whose ``x_pages`` or group
+count passes :data:`MAX_ALIGNED_X_PAGES` or :data:`MAX_LAYOUT_GROUPS`.
+The TPU budget containers (``PanelledWhell``, ``SegmentedWhell``) are not
+ported.
 """
 
 from __future__ import annotations
@@ -40,33 +57,72 @@ from typing import Optional
 import numpy as np
 import torch
 
-from spgpu_tpu_torch.core import join_dd, join_plane_fields
+from spgpu_tpu_torch.core import CHUNK_TILES, join_dd, join_plane_fields
 
-__all__ = ["WhellMatrix", "from_numpy_fields", "from_numpy_planes"]
+__all__ = ["MAX_ALIGNED_X_PAGES", "MAX_LAYOUT_GROUPS", "PcellWhell",
+           "WhellMatrix", "from_numpy_fields", "from_numpy_pcell",
+           "from_numpy_planes"]
 
-#: the value types of a slab
+#: the value types of a packed slab
 VALUE_DTYPES = (torch.float32, torch.bfloat16, torch.float64, torch.complex64,
                 torch.complex128)
+#: the value types of a classic slab
+CLASSIC_DTYPES = (torch.float32, torch.bfloat16)
+
+#: x pages an aligned window's 16-bit base field can address
+MAX_ALIGNED_X_PAGES = 1 << 16
+#: layout groups a scattered tile's 20-bit group field can address
+MAX_LAYOUT_GROUPS = 1 << 20
 
 _TENSORS = ("values", "residue", "page_tab", "tile_base", "chunk_group",
-            "seg_lo", "seg_hi", "lane_of_row", "group_bases")
+            "seg_lo", "seg_hi", "lane_of_row", "group_bases", "row_perm")
+
+
+def _want(cls: str):
+    def want(cond, msg):
+        if not cond:
+            raise ValueError(f"invalid {cls}: {msg}")
+    return want
+
+
+def _check_arrays(obj, want, specs) -> None:
+    """Each ``(name, shape, dtype)`` of ``specs`` (dtype None: any) on
+    ``obj``'s device."""
+    for name, shape, dt in specs:
+        t = getattr(obj, name)
+        want(tuple(t.shape) == shape, f"{name} shape {tuple(t.shape)} != {shape}")
+        want(dt is None or t.dtype == dt, f"{name} dtype {t.dtype}")
+        want(t.device == obj.device, f"{name} on {t.device}")
+
+
+def _decode_pages(pt, res, meta, tile, group_bases, window_pages):
+    """Every cell's decoded x page and its tile's hack-in-group (int64,
+    on the host): through ``group_bases`` (scattered) or the 16-bit base
+    field (aligned)."""
+    d = torch.gather(pt, 1, res)  # page delta by residue
+    if group_bases is not None:
+        K = window_pages // 8
+        page = group_bases[(meta & 0xFFFFF)[tile, None] * K + (d >> 3)] + (d & 7)
+        return page, meta >> 20
+    return (meta & 0xFFFF)[tile, None] + d, meta >> 16
 
 
 @dataclasses.dataclass
 class WhellMatrix:
     # slabs, slot-major (total_slots, 128)
-    values: torch.Tensor  # one of VALUE_DTYPES
+    values: torch.Tensor  # one of VALUE_DTYPES (classic: CLASSIC_DTYPES)
     residue: torch.Tensor  # int8: col % 128 of each cell
     page_tab: torch.Tensor  # int8: window page delta, indexed by residue
     # per-tile and per-chunk scalars
     tile_base: torch.Tensor  # (num_tiles,) int32 packed window | hh
-    chunk_group: torch.Tensor  # (num_chunks + 1,) int32, trailing -1
-    # output segments (num_groups * group_hacks, 128) int8
-    seg_lo: torch.Tensor
-    seg_hi: torch.Tensor
-    lane_of_row: torch.Tensor  # (orig_rows,) int32 lane-space coordinate
+    chunk_group: torch.Tensor  # packed: (num_chunks + 1,) int32, trailing -1;
+    #   classic: (num_chunks,), no sentinel
+    # packed only: output segments (num_groups * group_hacks, 128) int8
+    seg_lo: Optional[torch.Tensor]
+    seg_hi: Optional[torch.Tensor]
+    lane_of_row: Optional[torch.Tensor]  # (orig_rows,) int32 lane-space coordinate
     group_bases: Optional[torch.Tensor]  # (layout_groups * K,) int32 or None
-    n_rows: int
+    n_rows: int  # packed: lane-space size; classic: rows (virtual rows with ways)
     n_cols: int
     num_hacks: int
     num_groups: int
@@ -74,10 +130,13 @@ class WhellMatrix:
     nnz: int
     x_pages: int
     window_pages: int
-    orig_rows: int
+    orig_rows: int  # packed: original rows; classic: 0, as in the JAX package
     group_hacks: int
     chunk_tiles: int
     unit_segments: bool = False
+    # classic only: stored row -> original row, (rows_padded,) int32, or None
+    row_perm: Optional[torch.Tensor] = None
+    ways: int = 1  # classic only: virtual rows per true row
 
     @property
     def device(self) -> torch.device:
@@ -91,17 +150,31 @@ class WhellMatrix:
     def scattered(self) -> bool:
         return self.group_bases is not None
 
+    @property
+    def packed(self) -> bool:
+        return self.seg_lo is not None
+
+    @property
+    def rows_padded(self) -> int:
+        return self.num_groups * self.group_hacks * 128
+
     def to(self, device) -> "WhellMatrix":
         """A copy with every tensor on ``device``."""
         return dataclasses.replace(self, **{
             f: None if getattr(self, f) is None else getattr(self, f).to(device)
             for f in _TENSORS})
 
+    def _lane_space(self) -> None:
+        if not self.packed:
+            raise ValueError("a classic WHELL layout works in the original "
+                             "numbering: it has no lane space")
+
     def embed(self, x, dtype: torch.dtype) -> torch.Tensor:
         """Original-space vector(s) → lane space, as ``dtype``, on the
         matrix's device (phantom coordinates zero).  A complex ``dtype``
         gives the one complex vector that the JAX ``embed_complex`` gives
-        as a ``[re, im]`` plane stack."""
+        as a ``[re, im]`` plane stack.  Packed layouts only."""
+        self._lane_space()
         x = torch.as_tensor(x).to(device=self.device, dtype=dtype)
         out = torch.zeros(x.shape[:-1] + (self.n_rows,), dtype=dtype,
                           device=self.device)
@@ -109,38 +182,41 @@ class WhellMatrix:
         return out
 
     def extract(self, z, dtype: torch.dtype) -> torch.Tensor:
-        """Lane-space vector(s) → original space, as ``dtype``."""
+        """Lane-space vector(s) → original space, as ``dtype``.  Packed
+        layouts only."""
+        self._lane_space()
         z = torch.as_tensor(z).to(device=self.device)
         return z[..., self.lane_of_row.long()].to(dtype)
 
     def to_dense(self) -> np.ndarray:
-        """Host densification in LANE space (testing helper; duplicates
-        add).  Compare with the original matrix embedded in lane space."""
+        """Host densification (testing helper; duplicates add): in LANE
+        space for a packed layout (compare with the original matrix
+        embedded in lane space), in the original numbering for a classic
+        one (``(n_rows, n_cols)``, virtual rows with ``ways``)."""
         vals = self.values.detach().cpu()
         vals = (vals.float() if vals.dtype == torch.bfloat16 else vals).numpy()
-        res = self.residue.cpu().numpy().astype(np.int64)
-        pt = self.page_tab.cpu().numpy().astype(np.int64)
-        meta = self.tile_base.cpu().numpy().astype(np.int64)
+        res = self.residue.cpu().long()
+        meta = self.tile_base.cpu().long()
+        tile = torch.arange(self.total_slots) // 8
+        page, hh = _decode_pages(
+            self.page_tab.cpu().long(), res, meta, tile,
+            None if self.group_bases is None else self.group_bases.cpu().long(),
+            self.window_pages)
+        col = (page * 128 + res).numpy()
         cg = self.chunk_group.cpu().numpy().astype(np.int64)
-        lo = self.seg_lo.cpu().numpy().astype(np.int64)
-        hi = self.seg_hi.cpu().numpy().astype(np.int64)
-        row_of_lane = np.full(lo.shape, -1, dtype=np.int64)
-        for hk, j in zip(*np.nonzero(hi >= 0)):
-            row_of_lane[hk, lo[hk, j] + 1: hi[hk, j] + 1] = hk * 128 + j
-        s = np.arange(self.total_slots)
-        t = s // 8
-        d = np.take_along_axis(pt, res, axis=1)
-        if self.scattered:
-            gb = self.group_bases.cpu().numpy().astype(np.int64)
-            K = self.window_pages // 8
-            g, hh = meta & 0xFFFFF, meta >> 20
-            page = gb[g[t][:, None] * K + (d >> 3)] + (d & 7)
+        t = tile.numpy()
+        hack = cg[t // self.chunk_tiles] * self.group_hacks + hh.numpy()[t]
+        if self.packed:
+            lo = self.seg_lo.cpu().numpy().astype(np.int64)
+            hi = self.seg_hi.cpu().numpy().astype(np.int64)
+            row_of_lane = np.full(lo.shape, -1, dtype=np.int64)
+            for hk, j in zip(*np.nonzero(hi >= 0)):
+                row_of_lane[hk, lo[hk, j] + 1: hi[hk, j] + 1] = hk * 128 + j
+            row = row_of_lane[hack]
         else:
-            base, hh = meta & 0xFFFF, meta >> 16
-            page = base[t][:, None] + d
-        col = page * 128 + res
-        hack = cg[t // self.chunk_tiles] * self.group_hacks + hh[t]
-        row = row_of_lane[hack]
+            row = hack[:, None] * 128 + np.arange(128)
+            if self.row_perm is not None:
+                row = self.row_perm.cpu().numpy().astype(np.int64)[row]
         ok = (vals != 0) & (row >= 0) & (row < self.n_rows) & (col < self.n_cols)
         out = np.zeros((self.n_rows, self.n_cols), dtype=vals.dtype)
         np.add.at(out, (row[ok], col[ok]), vals[ok])
@@ -151,56 +227,184 @@ class WhellMatrix:
         the kernel can trust every decoded page and hack; raises
         ``ValueError``."""
         T, S, R = self.num_tiles, self.total_slots, self.num_groups * self.group_hacks
-        ct, gh = self.chunk_tiles, self.group_hacks
-
-        def want(cond, msg):
-            if not cond:
-                raise ValueError(f"invalid WhellMatrix: {msg}")
-
-        want(self.values.dtype in VALUE_DTYPES, f"values dtype {self.values.dtype}")
-        for name, shape, dt in (
-                ("values", (S, 128), None), ("residue", (S, 128), torch.int8),
-                ("page_tab", (S, 128), torch.int8),
-                ("tile_base", (T,), torch.int32),
-                ("chunk_group", (T // max(ct, 1) + 1,), torch.int32),
-                ("seg_lo", (R, 128), torch.int8), ("seg_hi", (R, 128), torch.int8),
-                ("lane_of_row", (self.orig_rows,), torch.int32)):
-            t = getattr(self, name)
-            want(tuple(t.shape) == shape, f"{name} shape {tuple(t.shape)} != {shape}")
-            want(dt is None or t.dtype == dt, f"{name} dtype {t.dtype}")
-            want(t.device == self.device, f"{name} on {t.device}")
+        ct, gh, packed = self.chunk_tiles, self.group_hacks, self.packed
+        want = _want("WhellMatrix")
+        specs = [("values", (S, 128), None), ("residue", (S, 128), torch.int8),
+                 ("page_tab", (S, 128), torch.int8),
+                 ("tile_base", (T,), torch.int32),
+                 ("chunk_group", (T // max(ct, 1) + packed,), torch.int32)]
+        if packed:
+            want(self.values.dtype in VALUE_DTYPES, f"values dtype {self.values.dtype}")
+            want(self.row_perm is None and self.ways == 1,
+                 "a packed layout has no row_perm or ways")
+            want(self.window_pages in (8, 16, 32), f"window_pages {self.window_pages}")
+            want(self.n_rows == self.num_hacks * 128 <= R * 128, "lane space size")
+            specs += [("seg_lo", (R, 128), torch.int8), ("seg_hi", (R, 128), torch.int8),
+                      ("lane_of_row", (self.orig_rows,), torch.int32)]
+        else:
+            want(self.values.dtype in CLASSIC_DTYPES,
+                 f"classic values dtype {self.values.dtype}")
+            want(self.seg_hi is None and self.lane_of_row is None
+                 and self.group_bases is None, "a classic layout has no packed fields")
+            want((gh, ct, self.window_pages) == (8, CHUNK_TILES, 8),
+                 f"classic geometry (group_hacks {gh}, chunk_tiles {ct}, "
+                 f"window_pages {self.window_pages})")
+            want(self.ways >= 1 and self.n_rows % self.ways == 0, f"ways {self.ways}")
+            want(self.num_hacks == max(-(-self.n_rows // 128), 1)
+                 and self.num_hacks <= R, "row space size")
+            if self.row_perm is not None:
+                specs.append(("row_perm", (R * 128,), torch.int32))
+        _check_arrays(self, want, specs)
         want(S % 8 == 0 and T % ct == 0, "slots must fill whole chunks")
-        want(self.window_pages in (8, 16, 32), f"window_pages {self.window_pages}")
-        want(self.n_rows == self.num_hacks * 128 <= R * 128, "lane space size")
         want(self.x_pages * 128 >= self.n_cols, "x_pages too small")
+        if not self.scattered:
+            want(self.x_pages <= MAX_ALIGNED_X_PAGES,
+                 f"x_pages {self.x_pages} past the {MAX_ALIGNED_X_PAGES} pages "
+                 "an aligned window's 16-bit base field addresses")
         res = self.residue.cpu().long()
         pt = self.page_tab.cpu().long()
         want(bool((res >= 0).all()), "negative residue")
         want(bool(((pt >= 0) & (pt < self.window_pages)).all()), "page_tab range")
         meta = self.tile_base.cpu().long()
         cg = self.chunk_group.cpu().long()
-        want(bool(((cg[:-1] >= 0) & (cg[:-1] < self.num_groups)).all()),
-             "chunk_group range")
-        tile = torch.arange(S) // 8
-        d = torch.gather(pt, 1, res)  # every cell's page delta, as decoded
+        real = cg[:-1] if packed else cg
+        want(bool(((real >= 0) & (real < self.num_groups)).all()), "chunk_group range")
+        gb = None
         if self.scattered:
             K = self.window_pages // 8
             gb = self.group_bases.cpu().long()
             want(gb.numel() % K == 0 and gb.numel() > 0, "group_bases size")
-            want(bool(((meta & 0xFFFFF) < gb.numel() // K).all()),
-                 "tile group index")
-            page = gb[(meta & 0xFFFFF)[tile, None] * K + (d >> 3)] + (d & 7)
-            hh = meta >> 20
-        else:
-            page = (meta & 0xFFFF)[tile, None] + d
-            hh = meta >> 16
+            want(gb.numel() // K <= MAX_LAYOUT_GROUPS,
+                 f"{gb.numel() // K} layout groups, past the {MAX_LAYOUT_GROUPS} "
+                 "a tile's 20-bit group field addresses")
+            want(bool(((meta & 0xFFFFF) < gb.numel() // K).all()), "tile group index")
+        page, hh = _decode_pages(pt, res, meta, torch.arange(S) // 8, gb,
+                                 self.window_pages)
         want(bool(((page >= 0) & (page < self.x_pages)).all()), "page range")
         want(bool(((hh >= 0) & (hh < gh)).all()), "hack-in-group range")
-        for name in ("seg_lo", "seg_hi"):
-            s = getattr(self, name).cpu().long()
-            want(bool((s >= -1).all()), f"{name} range")
-        lor = self.lane_of_row.cpu().long()
-        want(bool(((lor >= 0) & (lor < self.n_rows)).all()), "lane_of_row range")
+        if packed:
+            for name in ("seg_lo", "seg_hi"):
+                s = getattr(self, name).cpu().long()
+                want(bool((s >= -1).all()), f"{name} range")
+            lor = self.lane_of_row.cpu().long()
+            want(bool(((lor >= 0) & (lor < self.n_rows)).all()), "lane_of_row range")
+        elif self.row_perm is not None:
+            want(torch.equal(torch.sort(self.row_perm.cpu().long()).values,
+                             torch.arange(R * 128)), "row_perm is not a permutation")
+
+
+@dataclasses.dataclass
+class PcellWhell:
+    """Per-cell row-routing WHELL: the counterpart of
+    :class:`spgpu_tpu.formats.whell.PcellWhell` (layout in
+    :mod:`spgpu_tpu_torch.convert.pcell`).  Cells of many rows pack densely
+    into each slot, one contiguous lane run per (row, slot); the kernel
+    scans each slot along its lanes and differences the scan at the run
+    bounds ``run_hi``/``run_lo``, keyed by the row's output lane (row %
+    128).  Vectors are in the ORIGINAL numbering.  float32 values."""
+
+    values: torch.Tensor  # (total_slots, 128) float32
+    residue: torch.Tensor  # (total_slots, 128) int8: col % 128
+    page_tab: torch.Tensor  # (total_slots, 128) int8: delta keyed by residue
+    run_hi: torch.Tensor  # (total_slots, 128) int8: run end lane, keyed by
+    #   the run's row output lane; -1 = the row has no run in the slot
+    run_lo: torch.Tensor  # (total_slots, 128) int8: lane before the run
+    tile_base: torch.Tensor  # (num_tiles,) int32: layout group | hh << 20
+    chunk_group: torch.Tensor  # (num_chunks + 1,) int32, trailing -1
+    group_bases: torch.Tensor  # (layout_groups * K,) int32 superpage bases
+    n_rows: int
+    n_cols: int
+    num_hacks: int
+    num_groups: int
+    total_slots: int
+    nnz: int
+    x_pages: int
+    window_pages: int = 32
+    group_hacks: int = 512
+    chunk_tiles: int = 128
+
+    _TENSORS = ("values", "residue", "page_tab", "run_hi", "run_lo",
+                "tile_base", "chunk_group", "group_bases")
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    @property
+    def num_tiles(self) -> int:
+        return self.total_slots // 8
+
+    def to(self, device) -> "PcellWhell":
+        """A copy with every tensor on ``device``."""
+        return dataclasses.replace(self, **{f: getattr(self, f).to(device)
+                                            for f in self._TENSORS})
+
+    def _hacks(self) -> np.ndarray:
+        """The output hack of every slot (host int64)."""
+        tile = np.arange(self.total_slots) // 8
+        meta = self.tile_base.cpu().numpy().astype(np.int64)
+        cg = self.chunk_group.cpu().numpy().astype(np.int64)
+        return cg[tile // self.chunk_tiles] * self.group_hacks + (meta >> 20)[tile]
+
+    def to_dense(self) -> np.ndarray:
+        """Host densification in the original numbering (testing helper;
+        duplicates add): each row's lanes come from its runs."""
+        vals = self.values.detach().cpu().numpy()
+        res = self.residue.cpu().long()
+        meta = self.tile_base.cpu().long()
+        page, _ = _decode_pages(self.page_tab.cpu().long(), res, meta,
+                                torch.arange(self.total_slots) // 8,
+                                self.group_bases.cpu().long(), self.window_pages)
+        col = (page * 128 + res).numpy()
+        hi = self.run_hi.cpu().numpy().astype(np.int64)
+        lo = self.run_lo.cpu().numpy().astype(np.int64)
+        hack = self._hacks()
+        row = np.full(vals.shape, -1, np.int64)
+        for s, o in zip(*np.nonzero(hi >= 0)):
+            row[s, lo[s, o] + 1: hi[s, o] + 1] = hack[s] * 128 + o
+        ok = (vals != 0) & (row >= 0) & (row < self.n_rows) & (col < self.n_cols)
+        out = np.zeros((self.n_rows, self.n_cols), vals.dtype)
+        np.add.at(out, (row[ok], col[ok]), vals[ok])
+        return out
+
+    def check(self) -> None:
+        """Validate shapes, dtypes and index ranges once, on the host;
+        raises ``ValueError``."""
+        T, S, ct, gh = self.num_tiles, self.total_slots, self.chunk_tiles, self.group_hacks
+        want = _want("PcellWhell")
+        K = self.window_pages // 8
+        _check_arrays(self, want, [
+            ("values", (S, 128), torch.float32), ("residue", (S, 128), torch.int8),
+            ("page_tab", (S, 128), torch.int8), ("run_hi", (S, 128), torch.int8),
+            ("run_lo", (S, 128), torch.int8), ("tile_base", (T,), torch.int32),
+            ("chunk_group", (T // max(ct, 1) + 1,), torch.int32),
+            ("group_bases", (self.group_bases.numel(),), torch.int32)])
+        want(self.window_pages in (8, 16, 32, 64), f"window_pages {self.window_pages}")
+        want(S % 8 == 0 and T % ct == 0, "slots must fill whole chunks")
+        want(self.x_pages * 128 >= self.n_cols, "x_pages too small")
+        want(self.num_hacks == max(-(-self.n_rows // 128), 1)
+             and self.num_hacks <= self.num_groups * gh, "row space size")
+        gb = self.group_bases.cpu().long()
+        want(gb.numel() % K == 0 and gb.numel() > 0, "group_bases size")
+        want(gb.numel() // K <= MAX_LAYOUT_GROUPS,
+             f"{gb.numel() // K} layout groups, past the {MAX_LAYOUT_GROUPS} "
+             "a tile's 20-bit group field addresses")
+        res = self.residue.cpu().long()
+        pt = self.page_tab.cpu().long()
+        want(bool((res >= 0).all()), "negative residue")
+        want(bool(((pt >= 0) & (pt < self.window_pages)).all()), "page_tab range")
+        meta = self.tile_base.cpu().long()
+        cg = self.chunk_group.cpu().long()
+        want(bool(((cg[:-1] >= 0) & (cg[:-1] < self.num_groups)).all())
+             and int(cg[-1]) == -1, "chunk_group range or sentinel")
+        want(bool(((meta & 0xFFFFF) < gb.numel() // K).all()), "tile group index")
+        page, hh = _decode_pages(pt, res, meta, torch.arange(S) // 8, gb,
+                                 self.window_pages)
+        want(bool(((page >= 0) & (page < self.x_pages)).all()), "page range")
+        want(bool(((hh >= 0) & (hh < gh)).all()), "hack-in-group range")
+        for name in ("run_hi", "run_lo"):
+            r = getattr(self, name).cpu().long()
+            want(bool((r >= -1).all()), f"{name} range")
 
 
 def _tensor(a) -> Optional[torch.Tensor]:
@@ -215,20 +419,23 @@ def _tensor(a) -> Optional[torch.Tensor]:
     return torch.from_numpy(a)
 
 
+def _statics(cls, static: dict) -> dict:
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: (bool(v) if k == "unit_segments" else int(v))
+            for k, v in static.items() if k in names}
+
+
 def _layout(fields: dict, values: torch.Tensor, static: dict) -> WhellMatrix:
     """A checked :class:`WhellMatrix` on the CPU from JAX array fields,
     with ``values`` as its slab."""
-    if fields.get("seg_lo") is None or fields.get("row_perm") is not None \
-            or static.pop("ways", 1) != 1:
-        raise NotImplementedError(
-            "classic (non-packed) WHELL is not ported yet (ROADMAP module "
-            "item 11, kernel #15)")
     kw = {f: _tensor(fields.get(f)) for f in _TENSORS[1:]}
     kw["values"] = values
-    names = {f.name for f in dataclasses.fields(WhellMatrix)}
-    kw.update({k: (bool(v) if k == "unit_segments" else int(v))
-               for k, v in static.items() if k in names})
-    a = WhellMatrix(**kw)
+    a = WhellMatrix(**kw, **_statics(WhellMatrix, static))
+    if not a.packed and values.dtype not in CLASSIC_DTYPES:
+        raise NotImplementedError(
+            f"classic WHELL in the port takes float32 or bfloat16 values, not "
+            f"{values.dtype}: float64 and complex classic layouts are ROADMAP "
+            "module item 14 (follow-ups)")
     a.check()
     return a
 
@@ -237,11 +444,11 @@ def from_numpy_fields(fields: dict, **static) -> WhellMatrix:
     """Build the port's :class:`WhellMatrix` from the array fields of a
     JAX ``WhellMatrix`` (``np.asarray`` of each) and its static fields.
 
-    Only plain packed layouts cross: a classic layout (``row_perm``,
-    ``ways``) or a budget container raise ``NotImplementedError``.  A
-    double-float slab joins into float64, ``values + values_lo``.  The
-    result lies on the CPU and has passed :meth:`WhellMatrix.check`; move
-    it with :meth:`WhellMatrix.to`."""
+    Packed and classic layouts cross (a classic one with its ``row_perm``
+    and ``ways``); a float64 or complex classic layout raises
+    ``NotImplementedError``.  A double-float slab joins into float64,
+    ``values + values_lo``.  The result lies on the CPU and has passed
+    :meth:`WhellMatrix.check`; move it with :meth:`WhellMatrix.to`."""
     values = _tensor(fields.get("values"))
     if fields.get("values_lo") is not None:
         values = join_dd(values, _tensor(fields["values_lo"]))
@@ -258,5 +465,15 @@ def from_numpy_planes(ar: dict, ai: dict, **static) -> WhellMatrix:
     ``ValueError`` otherwise); the slab is ``ar.values + i·ai.values``,
     complex64 from fp32 planes and complex128 from double-float ones
     (each plane joined as ``values + values_lo`` first)."""
-    values = join_plane_fields(ar, ai, _TENSORS[1:] + ("row_perm",), "WHELL")
+    values = join_plane_fields(ar, ai, _TENSORS[1:], "WHELL")
     return _layout(ar, values, static)
+
+
+def from_numpy_pcell(fields: dict, **static) -> PcellWhell:
+    """Build the port's :class:`PcellWhell` from the array fields of a JAX
+    ``PcellWhell`` (``np.asarray`` of each) and its static fields; the
+    result lies on the CPU and has passed :meth:`PcellWhell.check`."""
+    a = PcellWhell(**{f: _tensor(fields[f]) for f in PcellWhell._TENSORS},
+                   **_statics(PcellWhell, static))
+    a.check()
+    return a

@@ -2,4 +2,4 @@
 launch counter.  Sources live in ``spgpu_tpu_torch/csrc/`` and are built
 on first launch (:mod:`spgpu_tpu_torch.kernels._build`)."""
 
-from spgpu_tpu_torch.kernels import sdia, whdia, whell  # noqa: F401
+from spgpu_tpu_torch.kernels import pcell, sdia, whdia, whell, whell_classic  # noqa: F401

@@ -23,8 +23,8 @@ import time
 
 import numpy as np
 
-__all__ = ["BUILD_DIR", "SOURCE", "build", "whdia_tile", "whell_hack_fill",
-           "whell_gather_assign", "whell_gather_assign_par",
+__all__ = ["BUILD_DIR", "SOURCE", "build", "whdia_tile", "whell_assign",
+           "whell_hack_fill", "whell_gather_assign", "whell_gather_assign_par",
            "whell_scatter_slabs"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -89,6 +89,8 @@ def _load():
         lib.whell_gather_assign_par.argtypes = [
             _i64, _i64, _i32, _i64, _i64, _i8, _i64, _n,
             _i64, _i64, _i8, _i64, _i64]
+        lib.whell_assign.restype = None
+        lib.whell_assign.argtypes = [_i64, _i64, _i64, _i64, _n, _i64]
         lib.whell_scatter_slabs.restype = None
         lib.whell_scatter_slabs.argtypes = [
             _i64, ctypes.c_void_p, _i64, _i64, _i64, _i64, _i8, _i8,
@@ -183,6 +185,21 @@ def whell_gather_assign_par(order, rows, cols_l, d, lane_start, dlt, starts):
         _p(slot, _i64), _p(lane, _i64), _p(res8, _i8), _p(gid, _i64),
         _p(gW, _i64))
     return slot, lane, res8, gid, gW
+
+
+def whell_assign(G: np.ndarray, lane: np.ndarray, res: np.ndarray,
+                 dlt: np.ndarray) -> np.ndarray:
+    """Classic WHELL first-fit: entries sorted by (group, row, col) get the
+    first slot of their group whose lane is free and whose residue maps to
+    their page (or to none yet); returns each entry's slot in its group."""
+    lib = _load()
+    m = G.size
+    G, lane = _c(G, np.int64), _c(lane, np.int64)
+    res, dlt = _c(res, np.int64), _c(dlt, np.int64)
+    out = np.empty(m, dtype=np.int64)
+    lib.whell_assign(_p(G, _i64), _p(lane, _i64), _p(res, _i64), _p(dlt, _i64),
+                     m, _p(out, _i64))
+    return out
 
 
 def whell_scatter_slabs(order, vals, g_tile0, gid, k, lane, res, dlt,

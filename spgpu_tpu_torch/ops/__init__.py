@@ -4,11 +4,13 @@ multi-RHS SpMMs, and BLAS-1.
 Counterpart of :mod:`spgpu_tpu.ops` for the ported paths.  Each SpMV and
 fused SpMM runs its hand kernel (:mod:`spgpu_tpu_torch.kernels`) on CUDA
 tensors and the kernel's plain PyTorch version on CPU tensors.
-``whell_spmv``/``whell_spmm`` work in lane space; the SDIA and WHDIA ops
-in the original numbering.  The SpMMs dispatch as the JAX ones do: packed
-WHELL is fused by default for fp32/bf16 values, SDIA and WHDIA loop over
-their SpMV by default and fuse on ``fused=True``, and float64 and complex
-matrices always loop (``fused=True`` raises for them).
+``whell_spmv``/``whell_spmm`` dispatch on the layout kind: a packed
+``WhellMatrix`` works in lane space, a classic one and a ``PcellWhell``
+in the original numbering, as do the SDIA and WHDIA ops.  The SpMMs
+dispatch as the JAX ones do: packed WHELL is fused by default for
+fp32/bf16 values, classic WHELL, SDIA and WHDIA loop over their SpMV by
+default and fuse on ``fused=True``, pcell always loops, and float64 and
+complex matrices always loop (``fused=True`` raises for them).
 
 A float64 matrix takes and returns float64 vectors and its alpha/beta
 epilogue runs in float64: the counterpart of the JAX package's
@@ -27,9 +29,11 @@ import torch
 
 from spgpu_tpu_torch.formats.dia import SdiaMatrix
 from spgpu_tpu_torch.formats.whdia import WhdiaMatrix
-from spgpu_tpu_torch.formats.whell import WhellMatrix
+from spgpu_tpu_torch.formats.whell import PcellWhell, WhellMatrix
+from spgpu_tpu_torch.kernels import pcell as _pcell
 from spgpu_tpu_torch.kernels import sdia as _sdia
 from spgpu_tpu_torch.kernels import whdia as _whdia
+from spgpu_tpu_torch.kernels import whell_classic as _classic
 from spgpu_tpu_torch.kernels.whell import whell_packed_spmm, whell_packed_spmv
 from spgpu_tpu_torch.ops import blas1
 from spgpu_tpu_torch.ops.blas1 import *  # noqa: F401,F403  (re-export BLAS-1)
@@ -91,16 +95,48 @@ def _epilogue(acc: torch.Tensor, alpha, beta, y) -> torch.Tensor:
 
 def _require(a, cls, op: str) -> None:
     if not isinstance(a, cls):
-        raise TypeError(f"{op} takes a {cls.__name__}, not {type(a).__name__}")
+        names = " or ".join(c.__name__ for c in (cls if isinstance(cls, tuple) else (cls,)))
+        raise TypeError(f"{op} takes a {names}, not {type(a).__name__}")
 
 
-def whell_spmv(a: WhellMatrix, x: torch.Tensor, alpha=1.0, beta=0.0,
-               y=None) -> torch.Tensor:
-    """``z = beta*y + alpha*(A @ x)`` on the packed WHELL layout, with
-    ``x``, ``y`` and ``z`` in lane space, on ``a``'s device: of the
-    values' type for a float64, complex64 or complex128 matrix, float32
-    for a float32 or bf16 one."""
-    _require(a, WhellMatrix, "whell_spmv")
+def _classic_rows(a: WhellMatrix, acc: torch.Tensor) -> torch.Tensor:
+    """The classic product in stored rows, ``(..., rows_padded)``, to the
+    original rows, as the JAX wrapper does outside its kernel: scatter
+    through ``row_perm`` (its padded tail is the identity), cut to
+    ``n_rows``, then sum each row's ``ways`` virtual rows."""
+    if a.row_perm is not None:
+        out = torch.zeros_like(acc)
+        out[..., a.row_perm.long()] = acc
+        acc = out
+    acc = acc[..., : a.n_rows]
+    if a.ways > 1:
+        acc = acc.reshape(*acc.shape[:-1], a.n_rows // a.ways, a.ways).sum(dim=-1)
+    return acc
+
+
+def whell_spmv(a, x: torch.Tensor, alpha=1.0, beta=0.0, y=None) -> torch.Tensor:
+    """``z = beta*y + alpha*(A @ x)`` on a WHELL layout, on ``a``'s device.
+
+    A packed :class:`WhellMatrix` takes ``x``, ``y`` and ``z`` in lane
+    space, of the values' type for a float64, complex64 or complex128
+    matrix, float32 for a float32 or bf16 one (kernels #1, #4, #7 and the
+    complex128 kernel).  A classic one (kernel #15) and a
+    :class:`PcellWhell` (kernel #17) take an ``(n_cols,)`` float32 ``x``
+    in the original numbering and give ``(n_rows,)`` (true rows, for a
+    way-split layout)."""
+    _require(a, (WhellMatrix, PcellWhell), "whell_spmv")
+    if isinstance(a, PcellWhell):
+        z = _pcell.pcell_spmv(
+            a.values, a.residue, a.page_tab, a.run_hi, a.run_lo, a.tile_base,
+            a.chunk_group, a.group_bases, _prep_x(x, a.n_cols, a.x_pages),
+            chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+            window_pages=a.window_pages, num_groups=a.num_groups)
+        return _epilogue(z.view(-1)[: a.n_rows], alpha, beta, y)
+    if not a.packed:
+        z = _classic.whell_classic_spmv(
+            a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
+            _prep_x(x, a.n_cols, a.x_pages), num_groups=a.num_groups)
+        return _epilogue(_classic_rows(a, z.view(-1)), alpha, beta, y)
     z = whell_packed_spmv(
         a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
         a.group_bases, a.seg_lo, a.seg_hi, _prep_x(x, a.n_cols, a.x_pages),
@@ -138,25 +174,43 @@ def whdia_spmv(a: WhdiaMatrix, x: torch.Tensor, alpha=1.0, beta=0.0,
     return _epilogue(z[: a.n_rows], alpha, beta, y)
 
 
-def whell_spmm(a: WhellMatrix, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
+def whell_spmm(a, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
                fused=None) -> torch.Tensor:
-    """Multi-RHS ``Z = beta*Y + alpha*(A @ X)`` on the packed WHELL layout,
-    ``x`` ``(n_rhs, n_cols)`` and the result ``(n_rhs, n_rows)`` in lane
-    space, on ``a``'s device.
+    """Multi-RHS ``Z = beta*Y + alpha*(A @ X)`` on a WHELL layout, ``x``
+    ``(n_rhs, n_cols)`` and the result ``(n_rhs, n_rows)`` in the numbering
+    of :func:`whell_spmv` (lane space for a packed layout), on ``a``'s
+    device.
 
-    ``fused=None`` fuses for fp32 and bf16 values (kernel #12: each tile
-    decoded once for every RHS; bf16 values take fp32 x) and loops
+    As the JAX dispatch (``fused = packed and not special``): on a packed
+    layout ``fused=None`` fuses for fp32 and bf16 values (kernel #12: each
+    tile decoded once for every RHS; bf16 values take fp32 x) and loops
     :func:`whell_spmv` per RHS for float64 and complex ones (their
-    kernels, each RHS with its own epilogue); ``fused=False`` loops in
-    every type, ``fused=True`` on float64 or complex raises
+    kernels, each RHS with its own epilogue); on a classic layout
+    ``fused=None`` loops kernel #15 and ``fused=True`` runs kernel #16
+    with the same ``row_perm``/``ways`` epilogue.  ``fused=False`` loops
+    in every type; ``fused=True`` on float64 or complex values, or on a
+    :class:`PcellWhell` (which has no fused kernel), raises
     ``NotImplementedError``."""
-    _require(a, WhellMatrix, "whell_spmm")
-    if not _fused(a, fused, True, "packed WHELL layouts"):
+    _require(a, (WhellMatrix, PcellWhell), "whell_spmm")
+    if isinstance(a, PcellWhell):
+        if fused:
+            raise NotImplementedError(
+                "fused SpMM covers fp32/bf16 packed and classic WHELL; pcell "
+                "runs the loop-of-SpMV path (omit fused or pass fused=False)")
+        fuse = False
+    else:
+        fuse = _fused(a, fused, a.packed, "packed and classic WHELL layouts")
+    if not fuse:
         _check_x(x, a.n_cols, stack=True)
         return torch.stack([
             whell_spmv(a, x[r], alpha=alpha, beta=beta,
                        y=None if y is None else y[r])
             for r in range(x.shape[0])])
+    if not a.packed:
+        zs = _classic.whell_classic_spmm(
+            a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
+            _prep_x(x, a.n_cols, a.x_pages, stack=True), num_groups=a.num_groups)
+        return _epilogue(_classic_rows(a, zs.flatten(1)), alpha, beta, y)
     zs = whell_packed_spmm(
         a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
         a.group_bases, a.seg_lo, a.seg_hi,

@@ -4,8 +4,9 @@ Counterpart of the real WHELL, SDIA and WHDIA routes of
 :func:`spgpu_tpu.solvers.auto.solve`: coalesce duplicates, pick the
 format by slab-traffic estimate (the DIA class goes to SDIA, ELL to
 packed WHELL), build the layout and run CG (SPD) or BiCGSTAB.  Packed
-WHELL iterates in lane space (``b`` is embedded, ``x`` extracted); SDIA
-and WHDIA iterate in the original numbering.  The TPU budget switches
+WHELL iterates in lane space (``b`` is embedded, ``x`` extracted); SDIA,
+WHDIA and the per-cell-routing layout (``fmt="pcell"``, float32 only)
+iterate in the original numbering.  The TPU budget switches
 (row blocks past the VMEM x budget, the SDIA→WHDIA VMEM fallback) are
 left out: the port builds one layout at any size.  Formats the port does
 not have yet raise ``NotImplementedError`` instead of re-routing.
@@ -32,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from spgpu_tpu_torch.convert.pcell import coo_to_whell_percell
 from spgpu_tpu_torch.convert.sdia import coo_to_sdia
 from spgpu_tpu_torch.convert.select import suggest_format
 from spgpu_tpu_torch.convert.whdia import coo_to_whdia
@@ -49,7 +51,6 @@ _NOT_PORTED = {
     "hybrid": "item 11 (hybrid_spmv)",
     "hell": "item 11 (classic formats)",
     "blocks": "item 8 (large systems on one layout)",
-    "pcell": "item 12 (pcell)",
 }
 
 
@@ -60,7 +61,8 @@ def solve(coo: CooMatrix, b, *, device, symmetric: bool = True,
 
     ``symmetric=True`` runs CG (SPD systems, or Hermitian positive-definite
     ones with complex values), else BiCGSTAB.  ``fmt`` overrides the
-    automatic choice: "whell", "sdia" or "whdia".  Values are float32,
+    automatic choice: "whell", "sdia", "whdia" or "pcell" (float32 only:
+    a float64 or complex system raises ``NotImplementedError``).  Values are float32,
     float64, complex64 or complex128, and the layout, the kernels, the
     work vectors, ``x0`` and the Jacobi preconditioner (``jacobi=True``)
     take the values' type: a float64 system iterates in float64
@@ -89,6 +91,12 @@ def solve(coo: CooMatrix, b, *, device, symmetric: bool = True,
         raise NotImplementedError(
             f"format {fmt!r} is not ported yet: ROADMAP module {_NOT_PORTED[fmt]}")
 
+    if fmt == "pcell" and work != torch.float32:
+        raise NotImplementedError(
+            f"fmt='pcell' takes float32 systems, not {work}: float64 pcell is "
+            "ROADMAP module item 14, complex systems run the whell, sdia or "
+            "whdia routes")
+
     m_inv = jacobi_preconditioner(coo, device).to(work) if jacobi else None
     if fmt == "whell":
         a = coo_to_whell(coo, device=device)
@@ -100,14 +108,17 @@ def solve(coo: CooMatrix, b, *, device, symmetric: bool = True,
             ones = torch.ones(a.n_rows, dtype=work, device=a.device)
             ones[a.lane_of_row.long()] = m_inv
             m_inv = ones
-    elif fmt in ("sdia", "whdia"):
-        # the DIA class iterates in the original numbering
+    elif fmt in ("sdia", "whdia", "pcell"):
+        # the DIA class and pcell iterate in the original numbering
         if fmt == "sdia":
             a = coo_to_sdia(coo, device=device)
             mv = lambda v: sdia_spmv(a, v)  # noqa: E731
-        else:
+        elif fmt == "whdia":
             a = coo_to_whdia(coo, device=device)
             mv = lambda v: whdia_spmv(a, v)  # noqa: E731
+        else:
+            a = coo_to_whell_percell(coo, device=device)
+            mv = lambda v: whell_spmv(a, v)  # noqa: E731
         into = lambda v: torch.as_tensor(np.asarray(v)).to(device, work)  # noqa: E731
         out = lambda v: v  # noqa: E731
     else:

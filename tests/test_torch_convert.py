@@ -120,19 +120,24 @@ def test_bridge_roundtrip(name):
 
 
 def test_bridge_refuses_unported_layouts():
-    """Classic layouts (no lane segments, or way-split rows) do not cross;
-    a double-float slab does, joined into float64
+    """Classic layouts cross now, with their ``row_perm`` and ``ways``
+    (tests/test_torch_classic.py); what still refuses is a float64 or
+    complex classic layout (the JAX package runs those only in interpret
+    mode).  A double-float packed slab crosses, joined into float64
     (tests/test_torch_f64.py)."""
     coo = jfix.laplacian_2d(10, 10, np.float32)
-    classic = j_coo_to_whell(coo)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        from_numpy_fields({"values": np.asarray(classic.values),
-                           "seg_lo": None}, n_rows=100)
-    packed = j_coo_to_whell(coo, packed=True)
-    fields = {f: (None if getattr(packed, f) is None else np.asarray(getattr(packed, f)))
-              for f in ARRAYS}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        from_numpy_fields(fields, ways=2, **{f: getattr(packed, f) for f in STATIC})
+    classic = j_coo_to_whell(coo, ways=2)
+    fields = {f: (None if getattr(classic, f) is None else np.asarray(getattr(classic, f)))
+              for f in ARRAYS + ("row_perm",)}
+    ta = from_numpy_fields(fields, ways=2, **{f: getattr(classic, f) for f in STATIC})
+    assert not ta.packed and ta.ways == 2
+    for dt in (np.float64, np.complex64):
+        c = JCoo(coo.rows, coo.cols, coo.values.astype(dt), 100, 100)
+        wide = j_coo_to_whell(c)
+        fields = {f: (None if getattr(wide, f) is None else np.asarray(getattr(wide, f)))
+                  for f in ARRAYS + ("row_perm",)}
+        with pytest.raises(NotImplementedError, match="item 14"):
+            from_numpy_fields(fields, **{f: getattr(wide, f) for f in STATIC})
 
 
 def test_bridge_check_rejects_out_of_range_pages():

@@ -1,4 +1,4 @@
-"""PyTorch port on a CUDA device: kernels #1-#14 against their plain versions.
+"""PyTorch port on a CUDA device: kernels #1-#17 against their plain versions.
 
 Needs no JAX, so it also runs where only PyTorch is installed:
 
@@ -27,6 +27,11 @@ The multi-RHS kernels (#12 WHELL, #13 WHDIA: atomics, rtol 1e-5 and atol
 1e-5·max|Z|; #14 SDIA: exact, and equal to one launch of #2 per RHS) run
 at 1, 5, 8 and 17 RHS, with their ``LAUNCHES_SPMM`` counts; the loop path
 of each SpMM launches only SpMV kernels.
+
+Classic WHELL (#15 SpMV, #16 SpMM; fp32 and bf16 values, OELL order and
+way-split rows) and pcell (#17) sum with atomics too: rtol 1e-5 and atol
+1e-5·max|z| against their plain versions; 2e-5 (classic) and 1e-5·max|z|
+(pcell) against the golden.
 """
 
 import numpy as np
@@ -35,11 +40,18 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from spgpu_tpu_torch import ops  # noqa: E402
-from spgpu_tpu_torch.convert import coo_to_sdia, coo_to_whdia, coo_to_whell  # noqa: E402
+from spgpu_tpu_torch.convert import (  # noqa: E402
+    coo_to_sdia,
+    coo_to_whdia,
+    coo_to_whell,
+    coo_to_whell_percell,
+)
 from spgpu_tpu_torch.formats.coo import CooMatrix  # noqa: E402
+from spgpu_tpu_torch.kernels import pcell as kp  # noqa: E402
 from spgpu_tpu_torch.kernels import sdia as ks  # noqa: E402
 from spgpu_tpu_torch.kernels import whdia as kd  # noqa: E402
 from spgpu_tpu_torch.kernels import whell as kw  # noqa: E402
+from spgpu_tpu_torch.kernels import whell_classic as kc  # noqa: E402
 from spgpu_tpu_torch.solvers import solve  # noqa: E402
 from spgpu_tpu_torch.utils.fixtures import (  # noqa: E402
     ctest_fixture,
@@ -684,3 +696,122 @@ def test_spmm_alpha_beta_y_on_cuda(fmt, cuda_device):
     _near(z, want, 1e-5, rtol=1e-5)
     nan_y = torch.full_like(ys, float("nan"))
     assert bool(torch.isfinite(op(a, xs, beta=0.0, y=nan_y, fused=True)).all())
+
+
+# --------------------------------------------------------------------------
+# classic WHELL (kernels #15 and #16) and per-cell routing (kernel #17)
+
+CLASSIC_CASES = dict(CASES, rect=lambda: random_irregular(700, 1200, 6.0, seed=8,
+                                                          dtype=np.float32))
+
+
+def _bf16_golden(coo, a, x):
+    """The float64 golden on the slab's (possibly bf16-rounded) values."""
+    vals = torch.from_numpy(coo.values).to(a.values.dtype).double().numpy()
+    return CooMatrix(coo.rows, coo.cols, vals, coo.n_rows, coo.n_cols).spmv(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(CLASSIC_CASES))
+def test_classic_kernel_matches_plain_and_golden(name, dtype, cuda_device):
+    """Kernel #15 through ``whell_spmv`` on a classic layout, one launch,
+    against its plain version (atomics: 1e-5, 1e-5·max|z|) and the golden
+    (2e-5)."""
+    coo = CLASSIC_CASES[name]()
+    a = coo_to_whell(coo, device=cuda_device, packed=False, dtype=dtype)
+    x = _xs(1, coo.n_cols)[0]
+    before = kc.LAUNCHES
+    z = ops.whell_spmv(a, x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES == before + 1 and z.shape == (coo.n_rows,)
+    _near(z, ops.whell_spmv(a.to("cpu"), x), 1e-5, rtol=1e-5)
+    _near(z, torch.from_numpy(_bf16_golden(coo, a, x.double().numpy())), 2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(sort_rows=True), dict(ways=2), dict(ways=4)],
+                         ids=["oell", "ways2", "ways4"])
+def test_classic_oell_ways_alpha_beta_on_cuda(kw, cuda_device):
+    coo = CASES["fem"]()
+    a = coo_to_whell(coo, device=cuda_device, packed=False, **kw)
+    x, y = _xs(1, coo.n_cols, 1)[0], _xs(1, coo.n_rows, 2)[0]
+    z = ops.whell_spmv(a, x.to(cuda_device), alpha=2.5, beta=-0.5, y=y.to(cuda_device))
+    want = 2.5 * coo.spmv(x.double().numpy()) - 0.5 * y.double().numpy()
+    _near(z, torch.from_numpy(want), 2e-5, rtol=2e-5)
+    _near(z, ops.whell_spmv(a.to("cpu"), x, alpha=2.5, beta=-0.5, y=y), 1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rhs", [1, 5, 8, 17])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_classic_spmm_kernel_takes_any_rhs_count(dtype, n_rhs, cuda_device):
+    """Kernel #16 (``fused=True``): one launch, no launch of #15, against
+    its plain version and the golden, on a way-split layout too."""
+    coo = CASES["fem_large"]()
+    for kw in ({}, dict(ways=2)):
+        a = coo_to_whell(coo, device=cuda_device, packed=False, dtype=dtype, **kw)
+        x = _xs(n_rhs, coo.n_cols, seed=n_rhs)
+        before = (kc.LAUNCHES_SPMM, kc.LAUNCHES)
+        z = ops.whell_spmm(a, x.to(cuda_device), fused=True)
+        torch.cuda.synchronize()
+        assert (kc.LAUNCHES_SPMM, kc.LAUNCHES) == (before[0] + 1, before[1])
+        assert z.shape == (n_rhs, coo.n_rows)
+        _near(z, ops.whell_spmm(a.to("cpu"), x, fused=True), 1e-5, rtol=1e-5)
+        _near(z, torch.from_numpy(_bf16_golden(coo, a, x.double().numpy())), 2e-5,
+              rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_classic_spmm_default_loops_kernel_15(cuda_device):
+    a = coo_to_whell(CASES["laplace_wide"](), device=cuda_device, packed=False)
+    xs = _xs(8, a.n_cols).to(cuda_device)
+    before = (kc.LAUNCHES, kc.LAUNCHES_SPMM)
+    z = ops.whell_spmm(a, xs)
+    torch.cuda.synchronize()
+    assert (kc.LAUNCHES, kc.LAUNCHES_SPMM) == (before[0] + 8, before[1])
+    _near(z, ops.whell_spmm(a, xs, fused=True), 1e-5, rtol=1e-5)
+
+
+PCELL_CASES = {"fem": CASES["fem"], "fem_large": CASES["fem_large"],
+               "irregular": CASES["irregular"], "ctest": CASES["ctest"],
+               "rect": CLASSIC_CASES["rect"], "empty": CASES["empty"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", ["default", "small"])
+@pytest.mark.parametrize("name", sorted(PCELL_CASES))
+def test_pcell_kernel_matches_plain_and_golden(name, geometry, cuda_device):
+    """Kernel #17 through ``whell_spmv`` on a ``PcellWhell``: one launch,
+    against its plain version (the same scan-then-difference arithmetic,
+    atomics: 1e-5, 1e-5·max|z|) and the golden (1e-5·max|z|)."""
+    coo = PCELL_CASES[name]()
+    geo = {} if geometry == "default" else dict(group_hacks=32, chunk_tiles=16)
+    a = coo_to_whell_percell(coo, device=cuda_device, **geo)
+    x, y = _xs(1, coo.n_cols)[0], _xs(1, coo.n_rows, 3)[0]
+    before = kp.LAUNCHES
+    z = ops.whell_spmv(a, x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert kp.LAUNCHES == before + 1 and z.shape == (coo.n_rows,)
+    _near(z, ops.whell_spmv(a.to("cpu"), x), 1e-5, rtol=1e-5)
+    _near(z, torch.from_numpy(coo.spmv(x.double().numpy())), 1e-5)
+    z2 = ops.whell_spmv(a, x.to(cuda_device), alpha=2.0, beta=-0.5, y=y.to(cuda_device))
+    _near(z2, 2.0 * z.cpu() - 0.5 * y, 1e-6, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symmetric", [True, False], ids=["cg", "bicgstab"])
+def test_solve_pcell_on_cuda(symmetric, cuda_device):
+    d = random_fem_like(1500, 10.0, span=120, far_frac=0.0, seed=12,
+                        dtype=np.float32).to_dense().astype(np.float64)
+    d = (d + d.T) / 2 + np.eye(1500) * (np.abs(d).sum(1).max() + 1)
+    r, c = np.nonzero(d)
+    coo = CooMatrix(r, c, d[r, c].astype(np.float32), 1500, 1500)
+    b = np.random.default_rng(11).standard_normal(1500).astype(np.float32)
+    kp.LAUNCHES = 0
+    res = solve(coo, b, device=cuda_device, fmt="pcell", symmetric=symmetric,
+                tol=1e-5, maxiter=3000)
+    assert bool(res.converged)
+    assert kp.LAUNCHES >= res.iterations > 0
+    x = res.x.double().cpu().numpy()
+    assert np.linalg.norm(b - coo.spmv(x)) <= 1e-4 * np.linalg.norm(b)
