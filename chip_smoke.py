@@ -5,13 +5,14 @@
 
 Builds the CUDA kernels and the host layout helpers from the checkout's
 sources, then drives the port's routes at full size, in float32,
-float64, complex64 and complex128, and its multi-RHS products, and checks
-them:
+float64, complex64 and complex128, and its multi-RHS products, then
+runs the per-op accounts of kernels #3 and #4 (kernels #18 and #19) and
+the float64 geometry sweep, and checks them:
 
 1. env       — GPU name and power limit, CUDA version, nvcc and g++;
-2. build     — seconds and ptxas register/spill lines for each library,
-               the three nvcc builds started together (into
-               spgpu_tpu_torch/_build/);
+2. build     — seconds and ptxas register/spill lines for each library
+               and for each kernel instance, the five nvcc builds started
+               together (into spgpu_tpu_torch/_build/);
 3. spmv      — the flagship FEM-like matrix (262,144 rows, 6.7M nnz):
                convert, ``whell_spmv`` through kernel #1, held against the
                plain PyTorch version on the card and against the host COO
@@ -100,14 +101,40 @@ them:
                the golden, timed beside kernel #1's device time from 3;
 25. solve_pcell — ``solve(spd, b, fmt="pcell", tol=1e-5)`` on the SPD
                system of 5, counted on kernel #17's counter, with the CG
-               loop's ms and device ms per iteration and idle share.
+               loop's ms and device ms per iteration and idle share;
+26. ablation_whdia — the per-op account of #3 (kernel #18,
+               ``spgpu_tpu_torch.sweeps.whdia_ablation``) on banded-11
+               (524,288 rows, duplicates summed, pattern mode): levels
+               stream, r0, gather, full, each held against its plain version
+               (1e-5·max|part|; full within #3's tolerance and of the
+               production launch), timed warm and cold (the L2 flushed
+               before each call: 4x its size written, then 4x read), with
+               each op family's price, the bytes, #3's bound and cuSPARSE
+               CSR; counted on ``LAUNCHES_WHDIA_ABLATION`` from 0;
+27. ablation_dd — the same for #4 in float64 (kernel #19,
+               ``sweeps.dd_ablation``) on the 512x512 float64 Laplacian:
+               levels stream, gather, atomic, full (1e-12·max|out|), the
+               TPU's double-float levels named absent; counted on
+               ``LAUNCHES_F64_ABLATION`` from 0;
+28. dd_geom  — #4 on the same Laplacian at the six (group_hacks,
+               chunk_tiles) geometries of the JAX geometry sweep
+               (``sweeps.dd_geom_sweep``), each within 1e-12·max|z| of the
+               float64 golden, timed warm and cold with its padding and
+               bound; counted on #4's ``LAUNCHES_F64`` from 0.
+
+Phases 26-28 run in a fresh process of this script (``chip_smoke.py
+--sweeps``, which prints their lines for this one to emit): after the
+earlier phases' profiling sessions, sessions in this process lose events.
 
 The library yardstick of a complex phase is the same CSR call in the
 complex type; where PyTorch refuses it, the row's ``library_ms`` holds
 the error text.
 
-Each phase prints one JSON line (with ``elapsed_s``, the seconds since
-the start).  Then it prints the kernel table (one
+The build phase gives each library's ptxas register and spill lines, and
+the same by kernel instance (``ptxas_by_kernel``: the name and its
+mangled template arguments), so the production instances can be compared
+across versions.  Each phase prints one JSON line (with ``elapsed_s``,
+the seconds since the start).  Then it prints the kernel table (one
 JSON line: each kernel's launches on the main path, its error against its
 plain version, its time, the plain version's and the library call's, and
 its bound), the ``nvidia-smi`` name and power limit, and last
@@ -121,6 +148,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -128,6 +156,10 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+# the port itself: this import fails, with no result line, where chip_smoke.py
+# stands without the rest of the repository
+from spgpu_tpu_torch.utils.measure import bound, check_close, nbytes, nvidia_smi
 
 #: kernel name -> (route, source, the TPU kernel it replaces)
 KERNELS = {
@@ -168,6 +200,11 @@ KERNELS = {
                            "spgpu_tpu/ops/pallas_kernels.py:1011"),
     "pcell_spmv": ("cuda", "spgpu_tpu_torch/csrc/pcell_spmv.cu",
                    "spgpu_tpu/ops/pallas_kernels.py:1133"),
+    # the per-op accounts' pallas_call closures (their ``call`` functions)
+    "whdia_ablation": ("cuda", "spgpu_tpu_torch/csrc/whdia_spmv.cu",
+                       "doc/sweeps/whdia_ablation.py:118"),
+    "whell_packed_ablation_f64": ("cuda", "spgpu_tpu_torch/csrc/whell_packed_spmv.cu",
+                                  "doc/sweeps/dd_ablation.py:140"),
 }
 
 #: the fixtures' sizes: flagship rows, Laplacian side, banded rows, and
@@ -177,13 +214,6 @@ SIZES = dict(flagship=262144, lap=1024, band=2 ** 19, dd_lap=512)
 #: RHS of the SpMM phases, as the JAX benchmark's SpMM row
 #: (``bench.py:233-243``)
 N_RHS = 8
-
-#: H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s,
-#: and FLOP/s outside the tensor cores for each vector type (a complex
-#: type's operations are those of its real parts)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "complex64": 67e12,
-              "complex128": 34e12}
 
 #: value dtype name -> the launch counter of its kernel in every kernel
 #: module (bf16 values count with fp32)
@@ -202,14 +232,6 @@ def emit(phase: str, **kw) -> None:
         raise RuntimeError(f"phase {phase!r} after the result line")
     print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - _T0, **kw}),
           flush=True)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def flagship(dtype=np.float32):
@@ -285,33 +307,6 @@ def rand_vector(n, seed, dtype):
 def wide(dtype):
     """The host golden's type for ``dtype``: float64 or complex128."""
     return np.complex128 if np.dtype(dtype).kind == "c" else np.float64
-
-
-def check_close(got, want, rtol, atol_frac, what):
-    """allclose with ``atol = atol_frac * max|want|``; returns max|err|."""
-    dt = np.complex128 if np.iscomplexobj(got) or np.iscomplexobj(want) else np.float64
-    got = np.asarray(got, dt)
-    want = np.asarray(want, dt)
-    if got.shape != want.shape or not np.all(np.isfinite(got)):
-        raise AssertionError(f"{what}: shape {got.shape} vs {want.shape} or "
-                             "non-finite values")
-    atol = atol_frac * float(np.abs(want).max())
-    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=what)
-    return float(np.abs(got - want).max())
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
-def bound(moved: int, flops: int, dtype: str) -> dict:
-    """The least time the card could take: the larger of the bytes over
-    the HBM rate and the operations over the peak for their type."""
-    t_bytes = moved / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_bytes=moved, bound_flops=flops)
 
 
 def csr_of(coo, dtype, device):
@@ -408,8 +403,10 @@ def spmv_phase(coo, a, device, label):
     t = timed(lambda: kw.whell_packed_spmv(*args, **static),
               lambda: kw.whell_packed_spmv_plain(*args, **static),
               library, refused)
+    # the unit flush reads seg_hi alone
     moved = nbytes(a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
-                   a.group_bases, a.seg_lo, a.seg_hi, args[-1], z)
+                   a.group_bases, None if a.unit_segments else a.seg_lo,
+                   a.seg_hi, args[-1], z)
     flops = (8 if xdt.is_complex else 2) * coo.nnz
     return dict(
         nnz=coo.nnz, tiles=a.num_tiles, lane_space=a.n_rows,
@@ -711,7 +708,8 @@ def whell_spmm_phase(coo, a, device, label):
     flops = 2 * coo.nnz * N_RHS
     out = dict(n_rhs=N_RHS, nnz=coo.nnz, tiles=a.num_tiles, launches=launches,
                max_abs_err_vs_plain=err_plain, max_abs_err_vs_golden=err_golden,
-               **t, **bound(nbytes(*layout, x3, z), flops, "float32"))
+               **t, **bound(nbytes(*layout, x3, z)
+                            - a.unit_segments * nbytes(a.seg_lo), flops, "float32"))
     return spmm_summary(out, flops, lambda: kw.whell_packed_spmm(*layout, x3, **static))
 
 
@@ -1088,8 +1086,40 @@ def build_all():
         done = {name: f.result() for name, f in futs.items()}
     return dict(host_lib_s=host_s, cuda_libs={
         name: dict(seconds=sec, ptxas=[ln.strip() for ln in log.splitlines()
-                                       if "registers" in ln or "spill" in ln])
+                                       if "registers" in ln or "spill" in ln],
+                   ptxas_by_kernel=ptxas_by_kernel(log))
         for name, (sec, log) in done.items()})
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """``ptxas -v``'s spill and register lines of each kernel instance,
+    keyed ``name<mangled template arguments>`` (``whell_tile_pass<ddLb0E>``:
+    double, double, false), in the order ptxas reports them."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(_Z\w+)", ln)
+        if m:
+            name = kernel_key(m.group(1))
+        elif name and ("registers" in ln or "spill" in ln):
+            text = ln.strip().removeprefix("ptxas info    : ")
+            out[name] = f"{out[name]}; {text}" if name in out else text
+    return out
+
+
+def kernel_key(mangled: str) -> str:
+    """A mangled kernel name's last name component, with its template
+    arguments as mangled (``_ZN<len><ns>...<len><name>I<args>EEv...``)."""
+    i, name = 3, mangled
+    while mangled.startswith("_ZN") and i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    rest = mangled[i:]
+    if rest.startswith("I") and "EEv" in rest:
+        name += f"<{rest[1:rest.index('EEv')]}>"
+    return name
 
 
 def kernel_row(name, launches, phase):
@@ -1101,6 +1131,79 @@ def kernel_row(name, launches, phase):
             "ms": phase["kernel_ms"], "plain_ms": phase["plain_ms"],
             "bound_ms": phase["bound_ms"], "bound_by": phase["bound_by"],
             "library_ms": phase["library_ms"]}
+
+
+#: phases 26-28: (phase, sweep module, its size, launch counter (kernel
+#: module, name), the result's rows)
+SWEEP_PHASES = (("ablation_whdia", "whdia_ablation", "band",
+                 ("ablation", "LAUNCHES_WHDIA_ABLATION"), "levels"),
+                ("ablation_dd", "dd_ablation", "dd_lap",
+                 ("ablation", "LAUNCHES_F64_ABLATION"), "levels"),
+                ("dd_geom", "dd_geom_sweep", "dd_lap", ("whell", "LAUNCHES_F64"),
+                 "geometries"))
+
+
+def sweep_phases(device):
+    """Phases 26-28 in this process: each sweep's ``run()`` at the JAX
+    scripts' sizes, with its launch counter set to 0 just before and read
+    just after (``counted_launches``); each checks its levels inside
+    ``run``, and every row must carry its warm and cold device times.
+    Yields ``(phase, result)``."""
+    import importlib
+
+    for phase, name, size, (kmod, counter), key in SWEEP_PHASES:
+        mod = importlib.import_module(f"spgpu_tpu_torch.sweeps.{name}")
+        kernels = importlib.import_module(f"spgpu_tpu_torch.kernels.{kmod}")
+        setattr(kernels, counter, 0)
+        res = mod.run(device, size=SIZES[size])
+        res["counted_launches"] = getattr(kernels, counter)
+        if res["counted_launches"] < len(res[key]) or any(
+                r["device_ms"] is None or r["cold_device_ms"] is None
+                for r in res[key]):
+            raise AssertionError(f"{phase}: a row was not launched or not timed")
+        yield phase, res
+
+
+def ablation_phases(device):
+    """Phases 26-28, run by a fresh process of this script
+    (``--sweeps``): in this one, the earlier phases' profiling sessions of
+    loops with host reads leave later sessions losing events, and the
+    accounts' device times need whole sessions (``PERF.md`` §7).  Emits
+    each phase's line here and returns the results."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--sweeps"],
+                          capture_output=True, text=True, timeout=900)
+    sys.stderr.write(proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"chip_smoke.py --sweeps exited {proc.returncode}")
+    out = []
+    for line in proc.stdout.splitlines():
+        res = json.loads(line)
+        emit(res.pop("phase"), **res)
+        out.append(res)
+    if len(out) != len(SWEEP_PHASES):
+        raise RuntimeError(f"chip_smoke.py --sweeps gave {len(out)} phases")
+    return out
+
+
+def ablation_row(name, acc):
+    """An ablation kernel's row: its launches in its phase, the largest
+    error of any level against its plain version, the full level's
+    per-call times (kernel, plain), #3's or #4's bound on the fixture,
+    cuSPARSE CSR's per-call time, and every level's device times with
+    their sources (a price is None where a level's source and the one
+    before's differ)."""
+    route, source, replaces = KERNELS[name]
+    full = acc["levels"][-1]
+    return {"name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": acc["counted_launches"],
+            "max_abs_err": acc["max_abs_err"], "ms": full["per_call_ms"],
+            "plain_ms": full["plain_per_call_ms"],
+            "bound_ms": acc["bound"]["bound_ms"], "bound_by": acc["bound"]["bound_by"],
+            "library_ms": acc["library"]["per_call_ms"],
+            "levels": {r["level"]: {k: r[k] for k in (
+                "device_ms", "device_source", "cold_device_ms", "cold_source",
+                "per_call_ms", "price_ms", "price_cold_ms")}
+                for r in acc["levels"]}}
 
 
 def close(kernels, smi, torch) -> None:
@@ -1122,13 +1225,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    device = torch.device("cuda", 0)
+    if sys.argv[1:] == ["--sweeps"]:  # phases 26-28, for ablation_phases
+        for phase, res in sweep_phases(device):
+            print(json.dumps({"phase": phase, **res}), flush=True)
+        return 0
     from spgpu_tpu_torch.convert import (coo_to_whell, local_degree_perm,
                                          suggest_format, symmetric_relabel)
     from spgpu_tpu_torch.formats.coo import CooMatrix
     from spgpu_tpu_torch.utils.fixtures import laplacian_2d, random_banded
 
-    device = torch.device("cuda", 0)
     smi = nvidia_smi()
     emit("env", gpu=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -1301,6 +1407,9 @@ def main() -> int:
     solve_p = solve_pcell(spd, device)
     emit("solve_pcell", fixture="flagship SPD form", **solve_p)
 
+    # --- the per-op accounts (kernels #18, #19) and #4's geometries -------
+    acc18, acc19, _ = ablation_phases(device)
+
     def whdia_row(name, solves, phases):
         """WHDIA's row: the Laplacian's times, the larger error of its two
         fixtures, the launches of both WHDIA solves."""
@@ -1345,7 +1454,9 @@ def main() -> int:
                    dict(classic["fp32"], max_abs_err_vs_plain=max(
                        classic[t]["max_abs_err_vs_plain"] for t in ("fp32", "bf16")))),
         spmm_row("whell_classic_spmm", classic_spmm.values(), classic_spmm["fp32"]),
-        kernel_row("pcell_spmv", solve_p["launches"], pcell)]
+        kernel_row("pcell_spmv", solve_p["launches"], pcell),
+        ablation_row("whdia_ablation", acc18),
+        ablation_row("whell_packed_ablation_f64", acc19)]
     close(rows, smi, torch)
     return 0
 

@@ -13,6 +13,9 @@ runs its routes on the GPU, each through a hand CUDA kernel:
     way-split rows) | coo_to_whell_percell → ops.whell_spmv in the
     original numbering (kernels/whell_classic.py, kernels/pcell.py);
     solve(fmt="pcell")
+    the per-op cycle accounts of the WHDIA and float64 WHELL tile passes
+    (kernels/ablation.py) and the float64 WHELL geometry sweep:
+    python -m spgpu_tpu_torch.sweeps.<whdia_ablation|dd_ablation|dd_geom_sweep>
 
 The multi-RHS products ``ops.whell_spmm``, ``sdia_spmm`` and
 ``whdia_spmm`` take ``(n_rhs, n)`` stacks on the same layouts, fused in

@@ -124,6 +124,8 @@ def coo_to_whell(
     return_plan: bool = False,
     window_pages: Optional[int] = None,
     scattered: Optional[bool] = None,
+    group_hacks: Optional[int] = None,
+    chunk_tiles: Optional[int] = None,
 ):
     """Build a :class:`WhellMatrix` on ``device``: packed (the default) or
     classic (``packed=False``).
@@ -140,7 +142,11 @@ def coo_to_whell(
     package's double-float layout (aligned windows by default, its chunk
     and group sizes), so the two packages' structural arrays are
     identical and the values are the COO's, not hi/lo pairs or real
-    planes.
+    planes.  ``group_hacks`` (hacks per output group) and ``chunk_tiles``
+    (tiles per chunk) override that measured geometry, as in the JAX
+    converter (the geometry sweep's knobs); a group may hold at most
+    2**12 hacks with scattered windows and 2**16 with aligned ones (the
+    width of tile_base's hack field).
 
     **Classic** (``packed=False``, any shape): output lane ``j`` of hack
     ``h`` is stored row ``h*128 + j``, one aligned 8-page window per tile
@@ -167,7 +173,11 @@ def coo_to_whell(
             raise ValueError("return_plan is not supported for complex "
                              "packed matrices (convert anew)")
         return _packed_geometry(coo, vdt, window_pages or 32, scattered,
-                                return_plan, device)
+                                return_plan, device, group_hacks, chunk_tiles)
+    if group_hacks is not None or chunk_tiles is not None:
+        raise ValueError("group_hacks/chunk_tiles require packed=True (the "
+                         "classic geometry is fixed: 8-hack groups, 64-tile "
+                         "chunks)")
     window_pages = window_pages or 8
     if window_pages != 8:
         raise ValueError("window_pages > 8 requires packed=True")
@@ -196,8 +206,10 @@ def coo_to_whell(
     return _coo_to_whell_classic(coo, vdt, row_perm, return_plan, device)
 
 
-def _packed_geometry(coo, vdt, window_pages, scattered, return_plan, device):
-    """The JAX package's measured packed geometry defaults for ``coo``."""
+def _packed_geometry(coo, vdt, window_pages, scattered, return_plan, device,
+                     group_hacks=None, chunk_tiles=None):
+    """The JAX package's measured packed geometry defaults for ``coo``,
+    or the caller's ``group_hacks``/``chunk_tiles``."""
     f64 = vdt in (torch.float64, torch.complex128)  # the double-float geometry
     if scattered is None:
         scattered = not f64
@@ -221,8 +233,17 @@ def _packed_geometry(coo, vdt, window_pages, scattered, return_plan, device):
         gh = 128
     else:
         gh = 32
-    return _coo_to_whell_packed(coo, window_pages, vdt, group_hacks=gh,
-                                chunk_tiles=ct, scattered=scattered,
+    gh = gh if group_hacks is None else group_hacks
+    ct = ct if chunk_tiles is None else chunk_tiles
+    hh_limit = 1 << (12 if scattered else 16)
+    if not (isinstance(gh, (int, np.integer)) and 1 <= gh <= hh_limit):
+        raise ValueError(f"group_hacks must be an int in [1, {hh_limit}] "
+                         f"({'scattered' if scattered else 'aligned'} "
+                         f"windows), not {gh!r}")
+    if not (isinstance(ct, (int, np.integer)) and ct >= 1):
+        raise ValueError(f"chunk_tiles must be a positive int, not {ct!r}")
+    return _coo_to_whell_packed(coo, window_pages, vdt, group_hacks=int(gh),
+                                chunk_tiles=int(ct), scattered=scattered,
                                 return_plan=return_plan, device=device)
 
 

@@ -1,7 +1,7 @@
 // Windowed hacked DIA (WHDIA) SpMV on Hopper (sm_90a), with a plain C
 // interface for ctypes.
 //
-// Replaces spgpu_tpu/ops/pallas_kernels.py::_whdia_kernel (body
+// Replaces spgpu_tpu/ops/pallas_kernels.py::_whdia_kernel (kernel #3; body
 // _whdia_kernel_body, r0 unpacking _whdia_tile_r0; called through
 // _whdia_spmv_call and whdia_spmv_pallas; entry whdia_spmv, fp32) and
 // _whdia_dd_kernel (_whdia_dd_call, whdia_spmv_dd_pallas; entry
@@ -59,6 +59,21 @@
 // per (RHS, lane).  Bound: the slab and r0 once plus x and z per RHS,
 // about 67 MB and 20 us for 8 RHS on banded-11.  No RHS passes or VMEM
 // checks: one launch takes any n_rhs.  Atomic order varies.
+//
+// Ablation (entry whdia_ablation, kernel #18) replaces the `call` closure of
+// doc/sweeps/whdia_ablation.py (its pallas_call body adds one op family of
+// _whdia_kernel at a time, at the production geometry): the per-op account
+// of #3 in fp32.  The levels are the production tile body (whdia_tile, which
+// whdia_tile_pass instantiates at kFull) cut after one family: stream (the
+// value slab, 4 B/cell), r0 (+ the r0 decode and the column), gather (+ the
+// guarded x read: the production tile sum) and full (+ one atomicAdd per
+// lane: the production launch).  Below full each lane's sum is stored to a
+// (num_tiles, 128) part array, 512 B per tile, the same in every level, so
+// the differences between levels price one family each; a level's sum
+// depends on every value it loads, so nvcc drops none.  The TPU's sublane
+// and lane gathers are one cached global load here, and its dual-plane
+// accumulate and flush one atomic: those TPU levels have no separate
+// counterpart.  Bound: that of #3 on the same layout.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -124,6 +139,53 @@ __device__ __forceinline__ int slot_r0_of(const int16_t* __restrict__ slot_r0,
   }
 }
 
+// The op families of the tile pass, added one at a time (kernel #18's
+// levels): kStream reads the values only, kR0 adds the r0 decode and the
+// column, kGather the guarded x read (the production tile sum), kFull the
+// atomicAdd into the hack row.  Below kFull the lane's sum goes to z[t, j]
+// with a plain store (z is then the (num_tiles, 128) part array).
+enum Level : int { kStream = 0, kR0 = 1, kGather = 2, kFull = 3 };
+
+template <typename T, bool kPattern, int kLevel>
+__device__ __forceinline__ void whdia_tile(const T* __restrict__ values,
+                                           const int16_t* __restrict__ slot_r0,
+                                           const int32_t* __restrict__ tile_r0,
+                                           const int32_t* __restrict__ tile_base,
+                                           const int32_t* __restrict__ chunk_group,
+                                           const T* __restrict__ x, T* __restrict__ z,
+                                           int64_t n_cols, int chunk_tiles,
+                                           int group_hacks) {
+  const int64_t t = blockIdx.x;
+  const int j = threadIdx.x;
+  T sum{};
+  if constexpr (kLevel == kStream) {
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s)
+      sum = mac(__ldg(values + (t * kSlots + s) * kLanes + j), T(1.5f), sum);
+    z[t * kLanes + j] = sum;
+  } else {
+    const uint32_t meta = static_cast<uint32_t>(tile_base[t]);
+    const int64_t c0 = static_cast<int64_t>(meta & 0xFFFFu) * kLanes + j;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int64_t slot = t * kSlots + s;
+      const int64_t c = c0 + slot_r0_of<kPattern>(slot_r0, tile_r0, t, s);
+      const T v = __ldg(values + slot * kLanes + j);
+      if constexpr (kLevel == kR0)  // keeps the column live: v * (c & 127)
+        sum = mac(v, static_cast<T>(c & (kLanes - 1)), sum);
+      else if (c >= 0 && c < n_cols)
+        sum = mac(v, __ldg(x + c), sum);
+    }
+    if constexpr (kLevel == kFull) {
+      const int64_t hack =
+          static_cast<int64_t>(chunk_group[t / chunk_tiles]) * group_hacks + (meta >> 16);
+      atomic_add(z + hack * kLanes + j, sum);
+    } else {
+      z[t * kLanes + j] = sum;
+    }
+  }
+}
+
 template <typename T, bool kPattern>
 __global__ void __launch_bounds__(kLanes)
 whdia_tile_pass(const T* __restrict__ values,
@@ -133,21 +195,24 @@ whdia_tile_pass(const T* __restrict__ values,
                 const int32_t* __restrict__ chunk_group,
                 const T* __restrict__ x, T* __restrict__ z,
                 int64_t n_cols, int chunk_tiles, int group_hacks) {
-  const int64_t t = blockIdx.x;
-  const int j = threadIdx.x;
-  const uint32_t meta = static_cast<uint32_t>(tile_base[t]);
-  const int64_t c0 = static_cast<int64_t>(meta & 0xFFFFu) * kLanes + j;
-  T sum{};
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int64_t slot = t * kSlots + s;
-    const int64_t c = c0 + slot_r0_of<kPattern>(slot_r0, tile_r0, t, s);
-    const T v = __ldg(values + slot * kLanes + j);
-    if (c >= 0 && c < n_cols) sum = mac(v, __ldg(x + c), sum);
-  }
-  const int64_t hack =
-      static_cast<int64_t>(chunk_group[t / chunk_tiles]) * group_hacks + (meta >> 16);
-  atomic_add(z + hack * kLanes + j, sum);
+  whdia_tile<T, kPattern, kFull>(values, slot_r0, tile_r0, tile_base, chunk_group,
+                                 x, z, n_cols, chunk_tiles, group_hacks);
+}
+
+// kernel #18's levels below kFull, fp32: the production tile pass cut
+// after one op family, its lane sums stored to part (num_tiles, 128)
+template <bool kPattern, int kLevel>
+__global__ void __launch_bounds__(kLanes)
+whdia_ablation_pass(const float* __restrict__ values,
+                    const int16_t* __restrict__ slot_r0,
+                    const int32_t* __restrict__ tile_r0,
+                    const int32_t* __restrict__ tile_base,
+                    const int32_t* __restrict__ chunk_group,
+                    const float* __restrict__ x, float* __restrict__ part,
+                    int64_t n_cols, int chunk_tiles, int group_hacks) {
+  whdia_tile<float, kPattern, kLevel>(values, slot_r0, tile_r0, tile_base,
+                                      chunk_group, x, part, n_cols, chunk_tiles,
+                                      group_hacks);
 }
 
 // SpMM tile pass (kernel #13): r0 and the x column of each of the lane's 8
@@ -228,9 +293,51 @@ int launch(const void* values, const void* slot_r0, const void* tile_r0,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kLevel>
+void launch_ablation(const float* v, const int16_t* sr, const int32_t* tr,
+                     const int32_t* tb, const int32_t* cg, const float* x,
+                     float* part, int64_t num_tiles, int64_t n_cols,
+                     int chunk_tiles, int group_hacks, cudaStream_t st) {
+  const dim3 grid(static_cast<unsigned>(num_tiles));
+  if (tr != nullptr)
+    whdia_ablation_pass<true, kLevel><<<grid, kLanes, 0, st>>>(
+        v, sr, tr, tb, cg, x, part, n_cols, chunk_tiles, group_hacks);
+  else
+    whdia_ablation_pass<false, kLevel><<<grid, kLanes, 0, st>>>(
+        v, sr, tr, tb, cg, x, part, n_cols, chunk_tiles, group_hacks);
+}
+
 }  // namespace
 
 extern "C" {
+
+// Kernel #18, fp32, either r0 mode: level 0 (stream), 1 (r0) or 2
+// (gather) writes every lane sum of the cut tile pass to out (num_tiles x
+// 128); level 3 (full) is whdia_spmv, out then the zeroed z.  Launches on
+// `stream`, does not synchronise, and returns cudaGetLastError()
+// (cudaErrorInvalidValue for another level).
+int whdia_ablation(int level, const void* values, const void* slot_r0,
+                   const void* tile_r0, const void* tile_base,
+                   const void* chunk_group, const void* x, void* out,
+                   int64_t num_tiles, int64_t n_cols, int chunk_tiles,
+                   int group_hacks, void* stream) {
+  if (level == kFull)
+    return launch<float>(values, slot_r0, tile_r0, tile_base, chunk_group, x,
+                         out, num_tiles, n_cols, chunk_tiles, group_hacks, stream);
+  if (level < kStream || level > kFull)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (num_tiles > 0) {
+    auto* fn = level == kStream ? launch_ablation<kStream>
+               : level == kR0   ? launch_ablation<kR0>
+                                : launch_ablation<kGather>;
+    fn(static_cast<const float*>(values), static_cast<const int16_t*>(slot_r0),
+       static_cast<const int32_t*>(tile_r0), static_cast<const int32_t*>(tile_base),
+       static_cast<const int32_t*>(chunk_group), static_cast<const float*>(x),
+       static_cast<float*>(out), num_tiles, n_cols, chunk_tiles, group_hacks,
+       static_cast<cudaStream_t>(stream));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // z (num_groups*group_hacks*128, zeroed by the caller) += WHDIA product of
 // the slab and x (n_cols).  Exactly one of slot_r0 (slab mode) and tile_r0

@@ -86,6 +86,21 @@
 // flagship.  The TPU kernel's RHS passes, unroll budget and VMEM checks
 // are Mosaic and VMEM limits and have no counterpart: one launch takes
 // any n_rhs.  Atomic order varies, so sums are not bit-reproducible.
+//
+// Ablation (entry whell_packed_ablation_f64, kernel #19) replaces the `call`
+// closure of doc/sweeps/dd_ablation.py (its pallas_call body adds one op
+// family of _whell_packed_dd_kernel at a time, at the production
+// geometry): the per-op account of #4 in float64.  The levels are the
+// production tile body (whell_tile, which whell_tile_pass instantiates at
+// kAtomic) cut after one family: stream (the value, residue and page-table
+// bytes of every cell, 10 B/cell, each consumed), gather (+ the page table
+// in shared memory, the decode and the x gather: the production tile sum),
+// atomic (+ one atomicAdd(double) per lane: the production tile pass
+// alone) and full (+ the flush: the production launch).  Below atomic each
+// lane's sum is stored to a (num_tiles, 128) part array, 1 KiB per tile, the
+// same in both levels.  The TPU levels eft, ddrmw and norelax price
+// double-float arithmetic, which native float64 does not have.  Bound:
+// that of #4 on the same layout.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -213,7 +228,61 @@ __device__ __forceinline__ int64_t tile_hack(const int32_t* __restrict__ chunk_g
   return static_cast<int64_t>(chunk_group[t / chunk_tiles]) * group_hacks + hh;
 }
 
+// The op families of the tile pass, added one at a time (kernel #19's
+// levels): kStream reads the value, residue and page-table bytes of each
+// cell, kGather adds the page table in shared memory, the decode and the x
+// gather (the production tile sum), kAtomic the atomicAdd into the hack
+// row (the production tile pass); kFull, the tile pass and the flush, is
+// the production launch.  Below kAtomic the lane's sum goes to acc[t, j]
+// with a plain store (acc is then the (num_tiles, 128) part array).
+enum Level : int { kStream = 0, kGather = 1, kAtomic = 2, kFull = 3 };
+
 // V: value storage type; T: x, accumulator and output type (T{} is zero)
+template <typename V, typename T, bool kScattered, int kLevel>
+__device__ __forceinline__ void whell_tile(const V* __restrict__ values,
+                                           const int8_t* __restrict__ residue,
+                                           const int8_t* __restrict__ page_tab,
+                                           const int32_t* __restrict__ tile_base,
+                                           const int32_t* __restrict__ chunk_group,
+                                           const int32_t* __restrict__ group_bases,
+                                           const T* __restrict__ x, T* __restrict__ acc,
+                                           int chunk_tiles, int group_hacks, int ntab) {
+  const int64_t t = blockIdx.x;
+  const int j = threadIdx.x;
+  const int64_t cell0 = t * (kSlots * kLanes);
+  if constexpr (kLevel == kStream) {  // every byte consumed: v*1.5 + (r + d)
+    T sum{};
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int64_t c = cell0 + s * kLanes + j;
+      sum = mac(load_value(values, c), T(1.5), sum) + T(residue[c] + page_tab[c]);
+    }
+    acc[t * kLanes + j] = sum;
+  } else {
+    __shared__ int8_t pt[kSlots][kLanes];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) pt[s][j] = page_tab[cell0 + s * kLanes + j];
+    const uint32_t meta = static_cast<uint32_t>(tile_base[t]);
+    __syncthreads();
+
+    T sum{};
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int64_t c = cell0 + s * kLanes + j;
+      const int64_t col =
+          cell_column<kScattered>(pt, s, residue[c], meta, group_bases, ntab);
+      sum = mac(load_value(values, c), __ldg(x + col), sum);
+    }
+    if constexpr (kLevel == kAtomic) {
+      const int64_t hack =
+          tile_hack<kScattered>(chunk_group, t, meta, chunk_tiles, group_hacks);
+      atomic_add(acc + hack * kLanes + j, sum);
+    } else {
+      acc[t * kLanes + j] = sum;
+    }
+  }
+}
+
 template <typename V, typename T, bool kScattered>
 __global__ void __launch_bounds__(kLanes)
 whell_tile_pass(const V* __restrict__ values,
@@ -224,26 +293,27 @@ whell_tile_pass(const V* __restrict__ values,
                 const int32_t* __restrict__ group_bases,
                 const T* __restrict__ x, T* __restrict__ acc,
                 int chunk_tiles, int group_hacks, int ntab) {
-  __shared__ int8_t pt[kSlots][kLanes];
-  const int64_t t = blockIdx.x;
-  const int j = threadIdx.x;
-  const int64_t cell0 = t * (kSlots * kLanes);
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) pt[s][j] = page_tab[cell0 + s * kLanes + j];
-  const uint32_t meta = static_cast<uint32_t>(tile_base[t]);
-  __syncthreads();
+  whell_tile<V, T, kScattered, kAtomic>(values, residue, page_tab, tile_base,
+                                        chunk_group, group_bases, x, acc,
+                                        chunk_tiles, group_hacks, ntab);
+}
 
-  T sum{};
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int64_t c = cell0 + s * kLanes + j;
-    const int64_t col =
-        cell_column<kScattered>(pt, s, residue[c], meta, group_bases, ntab);
-    sum = mac(load_value(values, c), __ldg(x + col), sum);
-  }
-  const int64_t hack =
-      tile_hack<kScattered>(chunk_group, t, meta, chunk_tiles, group_hacks);
-  atomic_add(acc + hack * kLanes + j, sum);
+// kernel #19's levels below the production tile pass, float64: the tile
+// pass cut after one op family, its lane sums stored to part (num_tiles, 128)
+template <bool kScattered, int kLevel>
+__global__ void __launch_bounds__(kLanes)
+whell_ablation_pass(const double* __restrict__ values,
+                    const int8_t* __restrict__ residue,
+                    const int8_t* __restrict__ page_tab,
+                    const int32_t* __restrict__ tile_base,
+                    const int32_t* __restrict__ chunk_group,
+                    const int32_t* __restrict__ group_bases,
+                    const double* __restrict__ x, double* __restrict__ part,
+                    int chunk_tiles, int group_hacks, int ntab) {
+  whell_tile<double, double, kScattered, kLevel>(values, residue, page_tab,
+                                                 tile_base, chunk_group,
+                                                 group_bases, x, part,
+                                                 chunk_tiles, group_hacks, ntab);
 }
 
 // SpMM tile pass (kernel #12): the 8 cells of each lane are decoded once
@@ -422,6 +492,21 @@ int whell_spmm(const void* values, const void* residue, const void* page_tab,
   return static_cast<int>(cudaGetLastError());
 }
 
+// kernel #19's stream and gather levels on float64 values, x and part
+template <int kLevel>
+void launch_ablation(const double* v, const int8_t* res, const int8_t* pt,
+                     const int32_t* tb, const int32_t* cg, const int32_t* gb,
+                     const double* x, double* part, int64_t num_tiles,
+                     int chunk_tiles, int group_hacks, int ntab, cudaStream_t st) {
+  const dim3 grid(static_cast<unsigned>(num_tiles));
+  if (gb != nullptr)
+    whell_ablation_pass<true, kLevel><<<grid, kLanes, 0, st>>>(
+        v, res, pt, tb, cg, gb, x, part, chunk_tiles, group_hacks, ntab);
+  else
+    whell_ablation_pass<false, kLevel><<<grid, kLanes, 0, st>>>(
+        v, res, pt, tb, cg, gb, x, part, chunk_tiles, group_hacks, ntab);
+}
+
 }  // namespace
 
 extern "C" {
@@ -471,6 +556,54 @@ WHELL_ENTRY(whell_packed_spmv_c64, float2)
 WHELL_ENTRY(whell_packed_spmv_c128, double2)
 
 #undef WHELL_ENTRY
+
+// Kernel #19, float64 values, x, acc and z, aligned or scattered windows:
+// level 0 (stream) or 1 (gather) writes every lane sum of the cut tile pass
+// to acc (num_tiles x 128; z unused); level 2 (atomic) is the production
+// tile pass alone into acc (num_rows x 128, zeroed by the caller; z
+// unused); level 3 (full) is whell_packed_spmv_f64.  Launches on `stream`,
+// does not synchronise, and returns cudaGetLastError()
+// (cudaErrorInvalidValue for another level).
+int whell_packed_ablation_f64(int level, const void* values, const void* residue,
+                              const void* page_tab, const void* tile_base,
+                              const void* chunk_group, const void* group_bases,
+                              const void* seg_lo, const void* seg_hi,
+                              const void* x, void* acc, void* z,
+                              int64_t num_tiles, int64_t num_rows,
+                              int chunk_tiles, int group_hacks, int window_pages,
+                              int unit_segments, void* stream) {
+  if (level == kFull)
+    return whell_spmv<double, double>(
+        values, residue, page_tab, tile_base, chunk_group, group_bases, seg_lo,
+        seg_hi, x, acc, z, num_tiles, num_rows, chunk_tiles, group_hacks,
+        window_pages, unit_segments, stream);
+  if (level < kStream || level > kFull)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* v = static_cast<const double*>(values);
+  auto* res = static_cast<const int8_t*>(residue);
+  auto* pt = static_cast<const int8_t*>(page_tab);
+  auto* tb = static_cast<const int32_t*>(tile_base);
+  auto* cg = static_cast<const int32_t*>(chunk_group);
+  auto* gb = static_cast<const int32_t*>(group_bases);
+  auto* xt = static_cast<const double*>(x);
+  auto* a = static_cast<double*>(acc);
+  const int ntab = window_pages / 8;
+  if (num_tiles > 0) {
+    const dim3 grid(static_cast<unsigned>(num_tiles));
+    if (level == kAtomic && gb != nullptr)
+      whell_tile_pass<double, double, true><<<grid, kLanes, 0, st>>>(
+          v, res, pt, tb, cg, gb, xt, a, chunk_tiles, group_hacks, ntab);
+    else if (level == kAtomic)
+      whell_tile_pass<double, double, false><<<grid, kLanes, 0, st>>>(
+          v, res, pt, tb, cg, gb, xt, a, chunk_tiles, group_hacks, ntab);
+    else
+      (level == kStream ? launch_ablation<kStream> : launch_ablation<kGather>)(
+          v, res, pt, tb, cg, gb, xt, a, num_tiles, chunk_tiles, group_hacks,
+          ntab, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Kernel #12: Z (n_rhs x num_rows x 128) = the packed-WHELL product with
 // each of n_rhs RHS.  x is the RHS-interleaved (x_pages*128, n_rhs) fp32

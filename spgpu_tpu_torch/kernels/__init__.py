@@ -2,4 +2,11 @@
 launch counter.  Sources live in ``spgpu_tpu_torch/csrc/`` and are built
 on first launch (:mod:`spgpu_tpu_torch.kernels._build`)."""
 
-from spgpu_tpu_torch.kernels import pcell, sdia, whdia, whell, whell_classic  # noqa: F401
+from spgpu_tpu_torch.kernels import (  # noqa: F401
+    ablation,
+    pcell,
+    sdia,
+    whdia,
+    whell,
+    whell_classic,
+)

@@ -57,6 +57,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.whdia_spmm.restype = ctypes.c_int
     lib.whdia_spmm.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i32, i32,
                                i32, p]
+    # kernel #18 (spgpu_tpu_torch.kernels.ablation)
+    lib.whdia_ablation.restype = ctypes.c_int
+    lib.whdia_ablation.argtypes = [i32, p, p, p, p, p, p, p, i64, i64, i32,
+                                   i32, p]
 
 
 _LIB = CudaLibrary("whdia_spmv", _bind)
@@ -194,8 +198,20 @@ def whdia_spmm_plain(values, slot_r0, tile_r0, tile_base, chunk_group, x, *,
     type: decode r0 once, gather ``(n_rhs, T, 8, 128)`` with the
     ``[0, n_cols)`` guard, sum over each tile's 8 slots, then
     ``index_add_`` into the rows."""
-    dev = x.device
-    n_rhs, n_cols = x.shape
+    n_rhs = x.shape[0]
+    tile_sum = whdia_tile_sums(values, slot_r0, tile_r0, tile_base, x)
+    z = torch.zeros((n_rhs, num_groups * group_hacks, 128), dtype=x.dtype,
+                    device=x.device)
+    z.index_add_(1, whdia_tile_hacks(tile_base, chunk_group, chunk_tiles,
+                                     group_hacks), tile_sum)
+    return z.view(n_rhs, -1)
+
+
+def whdia_columns(slot_r0, tile_r0, tile_base) -> torch.Tensor:
+    """Each cell's x column ``base*128 + r0 + lane``, ``(T, 8, 128)``
+    int64, unguarded: r0 from ``slot_r0`` (slab mode) or decoded from the
+    tile's ``tile_r0`` word (pattern mode)."""
+    dev = tile_base.device
     T = tile_base.shape[0]
     meta = tile_base.long()
     if slot_r0 is not None:
@@ -207,14 +223,25 @@ def whdia_spmm_plain(values, slot_r0, tile_r0, tile_base, chunk_group, x, *,
         step = ((w >> 19) & 0x1FFF) - 4096
         s = torch.arange(8, device=dev)
         r0 = r00[:, None] + step[:, None] * torch.minimum(s[None, :], f1[:, None])
-    col = (((meta & 0xFFFF) * 128)[:, None] + r0)[:, :, None] \
+    return (((meta & 0xFFFF) * 128)[:, None] + r0)[:, :, None] \
         + torch.arange(128, device=dev)
+
+
+def whdia_tile_sums(values, slot_r0, tile_r0, tile_base, x) -> torch.Tensor:
+    """Each tile's lane sums over its 8 slots, ``(n_rhs, T, 128)``, of the
+    product with every row of ``x`` ``(n_rhs, n_cols)``: x is read as 0
+    outside ``[0, n_cols)``."""
+    n_rhs, n_cols = x.shape
+    T = tile_base.shape[0]
+    col = whdia_columns(slot_r0, tile_r0, tile_base)
     col = torch.where((col >= 0) & (col < n_cols), col, n_cols)
     xz = torch.cat([x, x.new_zeros(n_rhs, 1)], dim=1)  # index n_cols reads 0
-    tile_sum = (values.view(T, 8, 128) * xz[:, col]).sum(dim=2)
-    hack = chunk_group.long()[torch.arange(T, device=dev) // chunk_tiles] \
-        * group_hacks + (meta >> 16)
-    z = torch.zeros((n_rhs, num_groups * group_hacks, 128), dtype=x.dtype,
-                    device=dev)
-    z.index_add_(1, hack, tile_sum)
-    return z.view(n_rhs, -1)
+    return (values.view(T, 8, 128) * xz[:, col]).sum(dim=2)
+
+
+def whdia_tile_hacks(tile_base, chunk_group, chunk_tiles: int,
+                     group_hacks: int) -> torch.Tensor:
+    """Each tile's output row block (hack), ``(T,)`` int64."""
+    T = tile_base.shape[0]
+    return chunk_group.long()[torch.arange(T, device=tile_base.device) // chunk_tiles] \
+        * group_hacks + (tile_base.long() >> 16)

@@ -69,6 +69,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i64, i64, i32, i32,
                        i32, i32, p]
+    # kernel #19 (spgpu_tpu_torch.kernels.ablation)
+    lib.whell_packed_ablation_f64.restype = ctypes.c_int
+    lib.whell_packed_ablation_f64.argtypes = [
+        i32, p, p, p, p, p, p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, p]
 
 
 _LIB = CudaLibrary("whell_packed_spmv", _bind)
@@ -248,10 +252,27 @@ def whell_packed_spmm_plain(values, residue, page_tab, tile_base,
     x3d's type: decode once, gather ``(n_rhs, S, 128)``, ``index_add_``
     into the hack rows, then ``cumsum`` and the segment gathers (complex
     products are PyTorch's complex multiply)."""
+    n_rhs = x3d.shape[0]
+    tile_sums, hack = whell_tile_sums(values, residue, page_tab, tile_base,
+                                      chunk_group, group_bases, x3d,
+                                      chunk_tiles=chunk_tiles,
+                                      group_hacks=group_hacks,
+                                      window_pages=window_pages)
+    acc = torch.zeros((n_rhs, seg_lo.shape[0], 128), dtype=x3d.dtype,
+                      device=x3d.device)
+    acc.index_add_(1, hack, tile_sums)
+    return whell_flush_plain(acc, seg_lo, seg_hi, unit_segments)
+
+
+def whell_tile_sums(values, residue, page_tab, tile_base, chunk_group,
+                    group_bases, x3d, *, chunk_tiles: int, group_hacks: int,
+                    window_pages: int):
+    """The tile pass in plain PyTorch: each tile's lane sums over its 8
+    slots, ``(n_rhs, T, 128)`` in x3d's type, and each tile's accumulator
+    row (hack), ``(T,)`` int64."""
     dev = x3d.device
     n_rhs = x3d.shape[0]
     T = tile_base.shape[0]
-    R = seg_lo.shape[0]
     res = residue.long()
     d = torch.gather(page_tab.long(), 1, res)  # page delta by residue
     meta = tile_base.long()
@@ -265,8 +286,14 @@ def whell_packed_spmm_plain(values, residue, page_tab, tile_base,
         hh = meta >> 16
     prod = values.to(x3d.dtype) * x3d.reshape(n_rhs, x3d.shape[1] * 128)[:, page * 128 + res]
     hack = chunk_group.long()[torch.arange(T, device=dev) // chunk_tiles] * group_hacks + hh
-    acc = torch.zeros((n_rhs, R, 128), dtype=x3d.dtype, device=dev)
-    acc.index_add_(1, hack, prod.view(n_rhs, T, 8, 128).sum(dim=2))
+    return prod.view(n_rhs, T, 8, 128).sum(dim=2), hack
+
+
+def whell_flush_plain(acc, seg_lo, seg_hi, unit_segments: bool) -> torch.Tensor:
+    """The flush in plain PyTorch: each output lane of ``acc`` ``(n_rhs,
+    R, 128)`` takes its segment's sum, the difference of two inclusive
+    lane prefix sums (``cumsum``), or with unit segments the one lane."""
+    n_rhs, R = acc.shape[:2]
     hi = seg_hi.long().expand(n_rhs, R, 128)
     if unit_segments:
         return torch.where(hi >= 0, torch.gather(acc, 2, hi.clamp(min=0)), 0.0)

@@ -815,3 +815,139 @@ def test_solve_pcell_on_cuda(symmetric, cuda_device):
     assert kp.LAUNCHES >= res.iterations > 0
     x = res.x.double().cpu().numpy()
     assert np.linalg.norm(b - coo.spmv(x)) <= 1e-4 * np.linalg.norm(b)
+
+
+# --------------------------------------------------------------------------
+# the per-op accounts: kernels #18 (WHDIA, fp32) and #19 (packed WHELL,
+# float64), every level against its plain version; full against the
+# production launch
+
+ABLATION_WHDIA_CASES = {
+    "band11": lambda: random_banded(3000, bands=11, wander=7, seed=2,
+                                    dtype=np.float32).sum_duplicates(),
+    "banded_wide": DIA_CASES["banded_wide"],
+    "laplace_wide": DIA_CASES["laplace_wide"],
+    "laplace3d": DIA_CASES["laplace3d"],
+    "empty": CASES["empty"],
+}
+ABLATION_F64_CASES = {
+    "laplace": lambda: laplacian_2d(60, 70, np.float64),
+    "fem": lambda: _f64(CASES["fem"]()),
+    "irregular": lambda: _f64(CASES["irregular"]()),
+    "empty": lambda: _f64(CASES["empty"]()),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", ["stream", "r0", "gather", "full"])
+@pytest.mark.parametrize("name", sorted(ABLATION_WHDIA_CASES))
+def test_whdia_ablation_matches_plain(name, level, cuda_device):
+    """Kernel #18 in both r0 modes: the partial levels within
+    1e-5·max|part| of their plain versions (no atomics: the order of 8
+    slot sums only), full within #3's tolerance of its plain version and
+    of the production launch; one launch counted, none of #3."""
+    from spgpu_tpu_torch.kernels import ablation as ab
+
+    coo = ABLATION_WHDIA_CASES[name]()
+    a = coo_to_whdia(coo, device=cuda_device)
+    assert a.pattern_mode == name.startswith("band") or name == "empty"
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(coo.n_cols)
+                         .astype(np.float32)).to(cuda_device)
+    args = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group, x)
+    static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+                  num_groups=a.num_groups)
+    before = (ab.LAUNCHES_WHDIA_ABLATION, kd.LAUNCHES)
+    got = ab.whdia_ablation(level, *args, **static)
+    torch.cuda.synchronize()
+    assert (ab.LAUNCHES_WHDIA_ABLATION, kd.LAUNCHES) == (before[0] + 1, before[1])
+    want = ab.whdia_ablation_plain(level, *args, **static)
+    assert got.shape == want.shape and got.device == x.device
+    if level == "full":
+        _near(got, want, 1e-5, rtol=1e-5)
+        _near(got, kd.whdia_spmv(*args, **static), 1e-5, rtol=1e-5)
+    else:
+        assert got.shape == (a.num_tiles, 128)
+        _near(got, want, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", ["stream", "gather", "atomic", "full"])
+@pytest.mark.parametrize("scattered", [None, True], ids=["aligned", "scattered"])
+@pytest.mark.parametrize("name", sorted(ABLATION_F64_CASES))
+def test_f64_ablation_matches_plain(name, scattered, level, cuda_device):
+    """Kernel #19 on aligned and scattered windows: every level within
+    1e-12·max|out| of its plain version, full of the production #4 launch
+    too; one launch counted, none of #4."""
+    from spgpu_tpu_torch.kernels import ablation as ab
+
+    coo = ABLATION_F64_CASES[name]()
+    a = coo_to_whell(coo, device=cuda_device, scattered=scattered)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(a.n_cols)).to(cuda_device)
+    args = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
+            a.group_bases, a.seg_lo, a.seg_hi, ops._prep_x(x, a.n_cols, a.x_pages))
+    static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+                  window_pages=a.window_pages, unit_segments=a.unit_segments)
+    before = (ab.LAUNCHES_F64_ABLATION, kw.LAUNCHES_F64)
+    got = ab.whell_f64_ablation(level, *args, **static)
+    torch.cuda.synchronize()
+    assert (ab.LAUNCHES_F64_ABLATION, kw.LAUNCHES_F64) == (before[0] + 1, before[1])
+    want = ab.whell_f64_ablation_plain(level, *args, **static)
+    assert got.shape == want.shape and got.dtype == torch.float64
+    _near(got, want, 1e-12)
+    if level == "full":
+        _near(got, kw.whell_packed_spmv(*args, **static), 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["whdia", "f64"])
+def test_production_kernels_unchanged_beside_the_ablation(fmt, cuda_device):
+    """#3 and #4, whose tile bodies the ablation levels share, still match
+    their plain versions and the golden, counted on their own counters."""
+    if fmt == "whdia":
+        coo = ABLATION_WHDIA_CASES["band11"]()
+        a = coo_to_whdia(coo, device=cuda_device)
+        x = np.random.default_rng(5).standard_normal(coo.n_cols).astype(np.float32)
+        before = kd.LAUNCHES
+        z = ops.whdia_spmv(a, torch.from_numpy(x).to(cuda_device))
+        torch.cuda.synchronize()
+        assert kd.LAUNCHES == before + 1
+        _near(z, ops.whdia_spmv(a.to("cpu"), torch.from_numpy(x)), 1e-5, rtol=1e-5)
+        _near(z, torch.from_numpy(coo.spmv(x.astype(np.float64))), 2e-5, rtol=2e-5)
+    else:
+        coo = ABLATION_F64_CASES["fem"]()
+        a = coo_to_whell(coo, device=cuda_device)
+        x = np.random.default_rng(5).standard_normal(coo.n_cols)
+        before = kw.LAUNCHES_F64
+        z = ops.whell_spmv(a, a.embed(torch.from_numpy(x), dtype=torch.float64))
+        torch.cuda.synchronize()
+        assert kw.LAUNCHES_F64 == before + 1
+        _near(a.extract(z, dtype=torch.float64), torch.from_numpy(coo.spmv(x)), 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["whdia_ablation", "dd_ablation", "dd_geom_sweep"])
+def test_sweeps_time_on_the_card(name, cuda_device):
+    """A small run of each sweep on the card: every row timed warm and
+    cold with its source, every level checked inside ``run`` and counted
+    on its kernel's counter."""
+    import importlib
+
+    from spgpu_tpu_torch.kernels import ablation as ab
+
+    mod = importlib.import_module(f"spgpu_tpu_torch.sweeps.{name}")
+    counter = {"whdia_ablation": (ab, "LAUNCHES_WHDIA_ABLATION"),
+               "dd_ablation": (ab, "LAUNCHES_F64_ABLATION"),
+               "dd_geom_sweep": (kw, "LAUNCHES_F64")}[name]
+    setattr(*counter, 0)
+    res = mod.run(cuda_device, size={"whdia_ablation": 8192}.get(name, 96))
+    rows = res["geometries" if name == "dd_geom_sweep" else "levels"]
+    assert getattr(*counter) >= len(rows) == res["launches"]
+    for r in rows:
+        assert r["device_ms"] > 0 and r["cold_device_ms"] > 0 and r["per_call_ms"] > 0
+        assert {r["device_source"], r["cold_source"]} <= {"profiler", "cuda_events"}
+    assert res["gpu"] and res["library"]["per_call_ms"] > 0
+    if name != "dd_geom_sweep":
+        assert rows[0]["price_ms"] is None
+        # a price needs both times from one source
+        assert (rows[1]["price_ms"] is not None) == (
+            rows[1]["device_source"] == rows[0]["device_source"])

@@ -74,3 +74,53 @@ def test_tally_rescales_one_lost_event():
                                     [("k", 0.1)] * 20 + [("m", 0.1)] * 13])
 def test_tally_refuses_other_sessions(events):
     assert not timing._tally(events, 20)[1]
+
+
+def _stub_kernel_sessions(monkeypatch, sessions):
+    """``kernel_device_ms`` with ``_session`` handing back ``sessions`` in
+    turn, a sentinel flush and a stubbed event fallback; returns the flush
+    each session was given."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(timing, "_l2_flush", lambda: "flush")
+    monkeypatch.setattr(timing, "_call_events_ms", lambda fn, iters, flush: 7.0)
+    given = []
+
+    def session(fn, iters, flush=None):
+        given.append(flush)
+        return sessions[len(given) - 1]
+    monkeypatch.setattr(timing, "_session", session)
+    return given
+
+
+def test_kernel_device_ms_keeps_only_the_named_kernels(monkeypatch):
+    """The zero fill and the L2 flush are operations of their own: only
+    the named kernels count, warm or cold."""
+    times = {"tile_pass": 0.010, "flush_pass": 0.002, "vectorized_elementwise_kernel": 0.05}
+    given = _stub_kernel_sessions(monkeypatch, [(times, True)] * 2)
+    ms, src = timing.kernel_device_ms(lambda: None, ("tile_pass", "flush_pass"), warmup=0)
+    assert (round(ms, 6), src) == (0.012, "profiler")
+    ms, src = timing.kernel_device_ms(lambda: None, ("tile_pass",), cold=True, warmup=0)
+    assert (ms, src) == (0.010, "profiler")
+    assert given == [None, "flush"]
+
+
+def test_kernel_device_ms_repeats_a_session_without_the_kernel(monkeypatch):
+    given = _stub_kernel_sessions(monkeypatch, [({"other": 0.1}, True),
+                                                ({"k": 0.1}, False),
+                                                ({"k": 0.3}, True)])
+    assert timing.kernel_device_ms(lambda: None, ("k",), warmup=0) == (0.3, "profiler")
+    assert len(given) == 3
+
+
+def test_kernel_device_ms_falls_back_to_events_around_each_call(monkeypatch):
+    given = _stub_kernel_sessions(monkeypatch, [({"k": 0.1}, False)] * 3)
+    assert timing.kernel_device_ms(lambda: None, ("k",), cold=True,
+                                   warmup=0) == (7.0, "cuda_events")
+    assert given == ["flush"] * 3
+
+
+def test_kernel_device_ms_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device is required"):
+        timing.kernel_device_ms(lambda: None, ("k",))
