@@ -88,17 +88,24 @@ the float64 geometry sweep, and checks them:
 22. classic  — the README quick start: the flagship relabelled
                (``symmetric_relabel(coo, local_degree_perm(coo))``) through
                ``coo_to_whell(..., packed=False)`` in fp32 and bf16 and
-               ``whell_spmv`` (kernel #15), held against the plain version
-               and the golden, timed with its bound; then the raw flagship
-               with ``sort_rows=True`` (OELL) and ``ways=2`` through #15,
-               against the golden;
+               ``whell_spmv`` (kernel #15, over the layout's work list of
+               live units), held against the full-layout plain version and
+               the golden, timed; with the work list's live-unit and
+               live-warp-slot shares and both bounds (the full layout's
+               and the live cells', ``bound_ms``) and the kernel's share of
+               each; then ``whell_update_values`` on the fp32 layout (every
+               third entry zeroed, then all refreshed), each through #15
+               against the plain version and its golden; then the raw
+               flagship with ``sort_rows=True`` (OELL) and ``ways=2``
+               through #15, against the plain version and the golden;
 23. classic_spmm — ``whell_spmm(fused=True)`` (kernel #16) on the relabelled
                classic fp32 and bf16 layouts, 8 RHS, one launch each,
                beside the default loop of #15 (8 launches, none of #16) and
                cuSPARSE SpMM, with its device time by kernel;
 24. pcell    — ``coo_to_whell_percell`` on the raw flagship and
                ``whell_spmv`` (kernel #17), against the plain version and
-               the golden, timed beside kernel #1's device time from 3;
+               the golden, timed with its bound and its share of it
+               (``bound_share``), beside kernel #1's device time from 3;
 25. solve_pcell — ``solve(spd, b, fmt="pcell", tol=1e-5)`` on the SPD
                system of 5, counted on kernel #17's counter, with the CG
                loop's ms and device ms per iteration and idle share;
@@ -122,9 +129,16 @@ the float64 geometry sweep, and checks them:
                float64 golden, timed warm and cold with its padding and
                bound; counted on #4's ``LAUNCHES_F64`` from 0.
 
-Phases 26-28 run in a fresh process of this script (``chip_smoke.py
---sweeps``, which prints their lines for this one to emit): after the
-earlier phases' profiling sessions, sessions in this process lose events.
+29. kernel_times — kernels #15 and #17 alone, warm and cold (L2
+               flushed), through ``whell_spmv`` on the layouts of 22 and
+               24, beside cuSPARSE CSR on the same matrices
+               (``kernel_times``; ``python3 chip_smoke.py --kernel-times``
+               runs this phase alone, also from an older checkout's root).
+
+Phases 26-28 and 29 run in fresh processes of this script
+(``chip_smoke.py --sweeps``, ``--kernel-times``, which print their lines
+for this one to emit): after the earlier phases' profiling sessions,
+sessions in this process lose events.
 
 The library yardstick of a complex phase is the same CSR call in the
 complex type; where PyTorch refuses it, the row's ``library_ms`` holds
@@ -856,13 +870,47 @@ def spmm_loop_phase(lap, band, a32, a64, ac64, device):
     return out
 
 
+def classic_live(a, x2):
+    """What kernel #15 reads of a classic layout: the work list's share of
+    the (tile, 32-lane quarter) units and of the (slot, 32-lane)
+    warp-slots, and the two bounds: the full layout (every layout array
+    once, x and the stored-row z once: what the first design read) and
+    the live one (the live warp-slots' values and residues, the 32 B
+    page-table sectors their nonzero cells touch, the work list, x and z),
+    each with the kernel's share of it once the phase has its time."""
+    import torch
+
+    wl = a.work_list
+    S = a.total_slots
+    live_slots = int(((wl & 0xFF).view(-1, 1) >> torch.arange(8, device=wl.device)
+                      & 1).sum())
+    nz = a.values != 0
+    sectors = torch.zeros((S, 4), dtype=torch.bool, device=a.device)
+    slot, lane = torch.nonzero(nz, as_tuple=True)
+    sectors[slot, a.residue[slot, lane].long() >> 5] = True
+    isz = a.values.element_size()
+    live = (live_slots * 32 * (isz + 1) + int(sectors.sum()) * 32
+            + nbytes(wl, x2) + a.rows_padded * 4)
+    full = nbytes(a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group, x2) \
+        + a.rows_padded * 4
+    full_bound = bound(full, 0, "float32")
+    return dict(units=a.num_tiles * 4, live_units=wl.numel(),
+                live_unit_share=wl.numel() / (a.num_tiles * 4),
+                warp_slots=S * 4, live_warp_slots=live_slots,
+                live_warp_slot_share=live_slots / (S * 4),
+                live_slab_mib=live_slots * 32 * (isz + 2) / 2**20,
+                full_bound_ms=full_bound["bound_ms"], full_bound_bytes=full,
+                live_bound_bytes=live)
+
+
 def classic_phase(coo, a, device, label):
     """Kernel #15 through ``whell_spmv`` on a classic layout (fp32 or bf16
     values, fp32 x), its one launch counted from 0; the op's result held
-    against the plain version's (1e-5, 1e-5·max|z|: atomics) and the
-    float64 golden (1e-4); then the kernel, the plain version and the
-    library call timed, with the bound: every layout array once, x and
-    the stored-row z once."""
+    against the full-layout plain version's (1e-5, 1e-5·max|z|: atomics)
+    and the float64 golden (1e-4); then the kernel (over the layout's work
+    list), the plain version and the library call timed, with both bounds
+    of ``classic_live`` (``bound_ms`` is the live one) and the kernel's
+    share of each."""
     import torch
 
     from spgpu_tpu_torch import ops
@@ -885,25 +933,31 @@ def classic_phase(coo, a, device, label):
     err_golden = check_close(z.cpu().numpy(), coo.spmv(x.astype(np.float64)),
                              1e-4, 1e-4, f"{label}: kernel vs host golden")
     library, refused = library_call(coo, xt, device)
-    t = timed(lambda: kc.whell_classic_spmv(*layout, x2, num_groups=a.num_groups),
+    t = timed(lambda: kc.whell_classic_spmv(*layout, x2, num_groups=a.num_groups,
+                                            work=a.work_list),
               lambda: kc.whell_classic_spmv_plain(*layout, x2, num_groups=a.num_groups),
               library, refused)
     flops = 2 * coo.nnz
     slab_bytes = a.total_slots * 128 * (a.values.element_size() + 2)
-    return dict(
+    live = classic_live(a, x2)
+    out = dict(
         nnz=coo.nnz, tiles=a.num_tiles, launches=launches,
         padding=a.total_slots * 128 / coo.nnz, slab_mib=slab_bytes / 2**20,
         max_abs_err_vs_plain=err_plain, max_abs_err_vs_golden=err_golden, **t,
         kernel_device_gflops=flops / (t["kernel_device_ms"] * 1e6),
         kernel_device_slab_gbytes_per_s=slab_bytes / (t["kernel_device_ms"] * 1e6),
-        **bound(nbytes(*layout, x2) + a.rows_padded * 4, flops, "float32"))
+        **live, **bound(live["live_bound_bytes"], flops, "float32"))
+    return dict(out, live_bound_share=out["bound_ms"] / t["kernel_device_ms"],
+                full_bound_share=out["full_bound_ms"] / t["kernel_device_ms"])
 
 
 def classic_variant(coo, device, label, **kw):
     """The raw flagship through ``coo_to_whell(packed=False, **kw)`` (OELL
     order or way-split rows) and kernel #15 through ``whell_spmv``, its
-    one launch counted from 0, held against the float64 golden (1e-4);
-    the layout's padding and slab size and the kernel's device time."""
+    one launch counted from 0, held against the full-layout plain version
+    (1e-5, 1e-5·max|z|) and the float64 golden (1e-4); the layout's
+    padding, slab size and work-list shares, the kernel's device time and
+    its share of both bounds."""
     import torch
 
     from spgpu_tpu_torch import ops
@@ -923,20 +977,71 @@ def classic_variant(coo, device, label, **kw):
     launches = kc.LAUNCHES
     if launches != 1:
         raise AssertionError(f"{label}: whell_spmv launched kernel #15 {launches} times")
-    err = check_close(z.cpu().numpy(), coo.spmv(x.astype(np.float64)), 1e-4, 1e-4,
-                      f"{label}: kernel vs host golden")
     x2 = ops._prep_x(xt, a.n_cols, a.x_pages)
     layout = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group)
+    zp = ops._classic_rows(a, kc.whell_classic_spmv_plain(
+        *layout, x2, num_groups=a.num_groups).view(-1))
+    err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), 1e-5, 1e-5,
+                            f"{label}: kernel vs plain")
+    del zp
+    err = check_close(z.cpu().numpy(), coo.spmv(x.astype(np.float64)), 1e-4, 1e-4,
+                      f"{label}: kernel vs host golden")
     dev, src = device_ms(lambda: kc.whell_classic_spmv(*layout, x2,
-                                                       num_groups=a.num_groups))
+                                                       num_groups=a.num_groups,
+                                                       work=a.work_list))
     op_dev, _ = device_ms(lambda: ops.whell_spmv(a, xt))
     slab_bytes = a.total_slots * 128 * (a.values.element_size() + 2)
-    return dict(options=kw, convert_s=convert_s, tiles=a.num_tiles, launches=launches,
-                rows_padded=a.rows_padded, padding=a.total_slots * 128 / coo.nnz,
-                slab_mib=slab_bytes / 2**20, max_abs_err_vs_golden=err,
-                kernel_device_ms=dev, kernel_device_source=src, op_device_ms=op_dev,
-                **bound(nbytes(*layout, x2) + a.rows_padded * 4, 2 * coo.nnz,
-                        "float32"))
+    live = classic_live(a, x2)
+    out = dict(options=kw, convert_s=convert_s, tiles=a.num_tiles, launches=launches,
+               rows_padded=a.rows_padded, padding=a.total_slots * 128 / coo.nnz,
+               slab_mib=slab_bytes / 2**20, max_abs_err_vs_plain=err_plain,
+               max_abs_err_vs_golden=err, kernel_device_ms=dev,
+               kernel_device_source=src, op_device_ms=op_dev, **live,
+               **bound(live["live_bound_bytes"], 2 * coo.nnz, "float32"))
+    return dict(out, live_bound_share=out["bound_ms"] / dev,
+                full_bound_share=out["full_bound_ms"] / dev)
+
+
+def classic_update(coo, a, plan, device, label):
+    """``whell_update_values`` on the classic fp32 layout: first with every
+    third entry set to 0 (the work list shrinks), then with new values at
+    every entry (``default_rng(5)``; it grows back); after each, kernel
+    #15 through ``whell_spmv`` (one launch) against the full-layout plain
+    version (1e-5, 1e-5·max|z|) and the golden of the new values (1e-4)."""
+    import torch
+
+    from spgpu_tpu_torch import ops
+    from spgpu_tpu_torch.convert import whell_update_values
+    from spgpu_tpu_torch.formats.coo import CooMatrix
+    from spgpu_tpu_torch.kernels import whell_classic as kc
+
+    rng = np.random.default_rng(5)
+    thinned = coo.values.copy()
+    thinned[::3] = 0
+    x = rand_vector(coo.n_cols, 9, np.float32)
+    xt = torch.from_numpy(x).to(device)
+    out = dict(launches=2)
+    for tag, vals in (("thinned", thinned),
+                      ("refreshed", rng.standard_normal(coo.nnz).astype(np.float32))):
+        b = whell_update_values(a, plan, vals)
+        kc.LAUNCHES = 0
+        z = ops.whell_spmv(b, xt)
+        torch.cuda.synchronize(device)
+        if kc.LAUNCHES != 1:
+            raise AssertionError(f"{label} {tag}: {kc.LAUNCHES} launches of #15")
+        zp = ops._classic_rows(b, kc.whell_classic_spmv_plain(
+            b.values, b.residue, b.page_tab, b.tile_base, b.chunk_group,
+            ops._prep_x(xt, b.n_cols, b.x_pages), num_groups=b.num_groups).view(-1))
+        golden = CooMatrix(coo.rows, coo.cols, vals, coo.n_rows, coo.n_cols).spmv(
+            x.astype(np.float64))
+        out[tag] = dict(
+            live_units=b.work_list.numel(),
+            max_abs_err_vs_plain=check_close(z, zp, 1e-5, 1e-5,
+                                             f"{label} {tag}: kernel vs plain"),
+            max_abs_err_vs_golden=check_close(z, golden, 1e-4, 1e-4,
+                                              f"{label} {tag}: kernel vs golden"))
+        del b
+    return out
 
 
 def classic_spmm_phase(coo, a, device, label):
@@ -1030,7 +1135,7 @@ def pcell_phase(coo, device, spmv, label):
               lambda: kp.pcell_spmv_plain(*layout, x2, **static), library, refused)
     flops = 2 * coo.nnz
     slab_bytes = p.total_slots * 128 * 8
-    return dict(
+    out = dict(
         nnz=coo.nnz, convert_s=convert_s, tiles=p.num_tiles, launches=launches,
         group_hacks=p.group_hacks, chunk_tiles=p.chunk_tiles,
         layout_groups=p.group_bases.numel() // (p.window_pages // 8),
@@ -1040,6 +1145,7 @@ def pcell_phase(coo, device, spmv, label):
         packed_whell_device_ms=spmv["kernel_device_ms"],
         packed_whell_bound_ms=spmv["bound_ms"], packed_whell_padding=spmv["padding"],
         **bound(nbytes(*layout, x2, z), flops, "float32"))
+    return dict(out, bound_share=out["bound_ms"] / t["kernel_device_ms"])
 
 
 def solve_pcell(spd, device):
@@ -1164,24 +1270,81 @@ def sweep_phases(device):
         yield phase, res
 
 
-def ablation_phases(device):
-    """Phases 26-28, run by a fresh process of this script
-    (``--sweeps``): in this one, the earlier phases' profiling sessions of
-    loops with host reads leave later sessions losing events, and the
-    accounts' device times need whole sessions (``PERF.md`` §7).  Emits
-    each phase's line here and returns the results."""
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--sweeps"],
+def child_phases(flag: str, count: int):
+    """The phases a fresh process of this script runs (``flag``:
+    ``--sweeps``, phases 26-28; ``--kernel-times``, phase 29): in this
+    one, the earlier phases' profiling sessions of loops with host reads
+    leave later sessions losing events, and these device times need whole
+    sessions (``PERF.md`` §7).  Emits each phase's line here and returns
+    the results."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
                           capture_output=True, text=True, timeout=900)
     sys.stderr.write(proc.stderr)
     if proc.returncode != 0:
-        raise RuntimeError(f"chip_smoke.py --sweeps exited {proc.returncode}")
+        raise RuntimeError(f"chip_smoke.py {flag} exited {proc.returncode}")
     out = []
     for line in proc.stdout.splitlines():
         res = json.loads(line)
         emit(res.pop("phase"), **res)
         out.append(res)
-    if len(out) != len(SWEEP_PHASES):
-        raise RuntimeError(f"chip_smoke.py --sweeps gave {len(out)} phases")
+    if len(out) != count:
+        raise RuntimeError(f"chip_smoke.py {flag} gave {len(out)} phases")
+    return out
+
+
+#: kernel #15's and #17's profiler names start so (#15 was
+#: ``classic_spmv_tile`` before its work list, ``classic_spmv_units`` since)
+TIMED_KERNELS = ("classic_spmv", "pcell_tile")
+
+
+def kernel_times(device):
+    """Phase 29, in a fresh process (``--kernel-times``): the device time
+    of kernel #15 or #17 alone (its own events, by name, from whole
+    profiler sessions), warm and cold (the L2 flushed before each call),
+    through ``whell_spmv`` on the layouts of phases 22 and 24: the
+    relabelled flagship in fp32 and bf16, the raw one in OELL order and
+    with ``ways=2``, and the raw flagship's pcell layout.  It calls only
+    the converters and ``whell_spmv``, so it also times an older checkout
+    of the port (this file copied into that checkout's root).  Beside
+    them, the device time of the library call (cuSPARSE CSR, ``csr @ x``)
+    on the relabelled and the raw flagship, in the same process."""
+    import torch
+
+    from spgpu_tpu_torch import ops
+    from spgpu_tpu_torch.convert import (coo_to_whell, coo_to_whell_percell,
+                                         local_degree_perm, symmetric_relabel)
+    from spgpu_tpu_torch.utils.timing import (device_ms, device_ms_by_kernel,
+                                              kernel_device_ms)
+
+    coo = flagship()
+    rel = symmetric_relabel(coo, local_degree_perm(coo))
+    x = torch.from_numpy(rand_vector(coo.n_cols, 7, np.float32)).to(device)
+    out = {}
+    for tag, c in (("library_relabelled", rel), ("library_raw", coo)):
+        library, refused = library_call(c, x, device)
+        if library is None:
+            raise RuntimeError(f"kernel_times: the library call was {refused}")
+        ms, src = device_ms(library)
+        out[tag] = dict(device_ms=ms, device_source=src)
+    layouts = {
+        "classic_fp32": lambda: coo_to_whell(rel, device=device, packed=False),
+        "classic_bf16": lambda: coo_to_whell(rel, device=device, dtype="bfloat16",
+                                             packed=False),
+        "classic_oell": lambda: coo_to_whell(coo, device=device, packed=False,
+                                             sort_rows=True),
+        "classic_ways2": lambda: coo_to_whell(coo, device=device, packed=False, ways=2),
+        "pcell": lambda: coo_to_whell_percell(coo, device=device)}
+    for tag, make in layouts.items():
+        a = make()
+        fn = lambda: ops.whell_spmv(a, x)  # noqa: E731
+        names = [n for n in device_ms_by_kernel(fn) if n.startswith(TIMED_KERNELS)]
+        if len(names) != 1:
+            raise AssertionError(f"kernel_times {tag}: kernels {names}")
+        warm, src = kernel_device_ms(fn, names)
+        cold, cold_src = kernel_device_ms(fn, names, cold=True)
+        out[tag] = dict(kernel=names[0], device_ms=warm, device_source=src,
+                        cold_device_ms=cold, cold_source=cold_src)
+        del a
     return out
 
 
@@ -1226,9 +1389,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
-    if sys.argv[1:] == ["--sweeps"]:  # phases 26-28, for ablation_phases
+    if sys.argv[1:] == ["--sweeps"]:  # phases 26-28, for child_phases
         for phase, res in sweep_phases(device):
             print(json.dumps({"phase": phase, **res}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--kernel-times"]:  # phase 29, for child_phases
+        print(json.dumps({"phase": "kernel_times", **kernel_times(device)}), flush=True)
         return 0
     from spgpu_tpu_torch.convert import (coo_to_whell, local_degree_perm,
                                          suggest_format, symmetric_relabel)
@@ -1381,14 +1547,18 @@ def main() -> int:
     # --- classic WHELL, the README quick start: kernel #15 ----------------
     rel = symmetric_relabel(coo, local_degree_perm(coo))
     rel16 = CooMatrix(rel.rows, rel.cols, coo16.values, rel.n_rows, rel.n_cols)
-    classic, layouts = {}, {}
+    classic, layouts, plans = {}, {}, {}
     for tag, c, dt in (("fp32", rel, None), ("bf16", rel16, "bfloat16")):
         t0 = time.perf_counter()
-        layouts[tag] = coo_to_whell(rel, device=device, dtype=dt, packed=False)
+        layouts[tag], plans[tag] = coo_to_whell(rel, device=device, dtype=dt,
+                                                packed=False, return_plan=True)
         torch.cuda.synchronize(device)
         convert_s = time.perf_counter() - t0
         classic[tag] = dict(convert_s=convert_s, **classic_phase(
             c, layouts[tag], device, f"classic {tag}"))
+    classic["update_values"] = classic_update(rel, layouts["fp32"], plans["fp32"],
+                                              device, "classic update_values")
+    del plans
     classic["oell"] = classic_variant(coo, device, "classic oell", sort_rows=True)
     classic["ways2"] = classic_variant(coo, device, "classic ways2", ways=2)
     emit("classic", fixture="flagship, symmetric_relabel(local_degree_perm); "
@@ -1408,7 +1578,10 @@ def main() -> int:
     emit("solve_pcell", fixture="flagship SPD form", **solve_p)
 
     # --- the per-op accounts (kernels #18, #19) and #4's geometries -------
-    acc18, acc19, _ = ablation_phases(device)
+    acc18, acc19, _ = child_phases("--sweeps", len(SWEEP_PHASES))
+
+    # --- #15 and #17 alone, warm and cold, in a fresh process -------------
+    child_phases("--kernel-times", 1)
 
     def whdia_row(name, solves, phases):
         """WHDIA's row: the Laplacian's times, the larger error of its two

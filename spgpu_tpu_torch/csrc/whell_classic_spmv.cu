@@ -18,34 +18,68 @@
 // the way-split reduction and the alpha/beta epilogue stay in the op
 // (spgpu_tpu_torch/ops/__init__.py), as the JAX wrapper keeps them outside
 // its kernel.  Padding cells hold value 0 and an in-range page (a window's
-// base + 7 < x_pages), so they need no branch.  A classic chunk_group has
-// no trailing sentinel: one entry per 64-tile chunk.
+// base + 7 < x_pages).  A classic chunk_group has no trailing sentinel:
+// one entry per 64-tile chunk.
 //
-// Bound on the H100: the slab streams once per product at 6 B/cell for
-// fp32 values (4 B value + int8 residue + int8 page entry; 4 B/cell for
-// bf16), x and z once.  The classic layout pads more than the packed one
-// (7.54 cells per nonzero on the relabelled flagship FEM matrix against
-// 1.74): about 289 MiB of slab there, ~0.091 ms at 3.35 TB/s.  Every
-// cell's x gather is one cached 4 B read; x (1 MiB) stays in L2.
+// SpMV (kernel #15) over a work list.  The classic layout pads much more
+// than the packed one (7.54 cells per nonzero on the relabelled flagship
+// FEM matrix against 1.74: about 289 MiB of slab at 6 B/cell in fp32),
+// and its padding lies in whole blocks: on that matrix 51.5 % of the
+// (tile, 32-lane quarter) units hold no nonzero, and only 39.8 % of the
+// (slot, 32-lane) warp-slots hold any (115 MiB of the 289; counts of the
+// layout, not times).  The first design (one 128-thread block per
+// tile, the tile's 8x128 page table staged in shared memory behind a
+// block barrier, every cell streamed) read the whole slab, ~305 MB with
+// x and z: a bound of ~0.091 ms at 3.35 TB/s (H100 SXM, 700 W), and it
+// ran at 85 % of it.  This one reads only what a nonzero needs.  The
+// layout carries classic_work_list(values): one int64 per live unit,
+// (t*4 + q) << 8 | mask, bit s of mask set when slot s of the unit holds
+// a nonzero.  One warp per entry, kUnitWarps = 4 entries per block, so a
+// dead unit launches nothing and a dead slot costs no load.  For each set
+// bit the warp loads, all at once before any gather: its 32 values (128 B
+// coalesced, 64 B in bf16), its 32 residues, and the slot's whole 128 B
+// page-table row, 4 entries a lane.  A lane then takes its page entry
+// page_tab[s, r] from that row with one __shfl_sync (byte r & 3 of lane r
+// >> 2): no shared memory, no barrier, and no load that waits on the
+// residue but the x gather.  Lanes whose value is 0 gather no x.  Each
+// lane sums in a register and issues one atomicAdd into z (none when its
+// sum is 0).  The bound is then the bytes of the live warp-slots (value +
+// residue), the page-table sectors their nonzero cells touch, the work
+// list, x and z: chip_smoke.py computes it from the layout it runs (~129
+// MB, ~0.038 ms at 3.35 TB/s on the relabelled flagship in fp32; the
+// row prefetch reads whole rows, up to 4x those sectors, and the 4 units
+// of a tile share them in L2).
 //
-// What the design does about it: the TPU kernel stages x in VMEM, routes
-// pages by sublane gathers and carries an (8, 8, 128) accumulator block
-// across the sequential chunk grid; none of that is needed here.  One
-// 128-thread block per tile: the tile's 8x128 page table goes to shared
-// memory for the by-residue lookup, each thread sums its lane over the 8
-// slots in a register and issues one atomicAdd into z (none when the sum
-// is 0, as on an all-padding lane).  A hack's tiles are contiguous inside
-// its 8-hack group, so per-hack ownership without atomics is possible;
-// it is later work.  Atomic order varies, so sums are not
-// bit-reproducible.
+// Choices, each timed against the others on the flagship layouts on an
+// H100 (variants not kept in the source): gathering page_tab[s, r] from global
+// memory after the residue arrived put a second dependent DRAM round trip
+// on every warp's path and cost most of the kernel's time, so the row is
+// prefetched with the values; atomics replaced by plain stores and x
+// gathers left out each changed little; two or four units per warp and 8
+// or 16 warps per block were no faster.  Values, residues and rows go
+// through plain loads: through __ldg/__ldcs (ld.global.nc) the bf16
+// instance ran far slower with the row prefetch, the fp32 one did not
+// (why was not established).
+// ptxas (CUDA 12.9, sm_90a): classic_spmv_units<f> and <t>: 40
+// registers, no spills, no barriers, no shared memory (the first design:
+// 32 registers, 1 barrier, 1,024 bytes of shared memory).
 //
-// SpMM (kernel #16): each lane's 8 cells are decoded once (value and x
-// row in registers) and serve every RHS in blocks of kRhs = 8 held in
-// registers, with a runtime remainder (any n_rhs), and one atomicAdd per
-// (RHS, lane) into z (n_rhs, rows_padded).  As kernel #12's wrapper does,
-// the wrapper copies X into an RHS-interleaved (x_pages*128, n_rhs)
-// buffer, so one cell's 8 RHS sit in one 32 B sector.  The TPU kernel's
-// per-RHS fori loop and X VMEM staging have no counterpart.
+// Semantics: a cell whose value is 0 contributes nothing, so for finite x
+// the product equals the full-layout one (the plain version, which stays
+// the full-layout product).  The TPU kernel multiplies every padding cell,
+// so an Inf or NaN in x at a column that only zero-valued cells reference
+// turns their lanes into NaN there; here it does not.  Atomic order
+// varies, so sums are not bit-reproducible.
+//
+// SpMM (kernel #16) still reads the full layout: one 128-thread block
+// per tile, the page table staged in shared memory (stage_tile).  Each
+// lane's 8 cells are decoded once (value and x row in registers) and
+// serve every RHS in blocks of kRhs = 8 held in registers, with a
+// runtime remainder (any n_rhs), and one atomicAdd per (RHS, lane) into
+// z (n_rhs, rows_padded).  As kernel #12's wrapper does, the wrapper
+// copies X into an RHS-interleaved (x_pages*128, n_rhs) buffer, so one
+// cell's 8 RHS sit in one 32 B sector.  The TPU kernel's per-RHS fori
+// loop and X VMEM staging have no counterpart.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,6 +91,7 @@ constexpr int kSlots = 8;
 constexpr int kChunkTiles = 64;  // spgpu_tpu_torch.core.CHUNK_TILES
 constexpr int kGroupHacks = 8;
 constexpr int kRhs = 8;
+constexpr int kUnitWarps = 4;  // kernel #15: work-list entries (warps) per block
 
 __device__ __forceinline__ float load_value(const float* v, int64_t i) {
   return __ldg(v + i);
@@ -65,6 +100,12 @@ __device__ __forceinline__ float load_value(const float* v, int64_t i) {
 // bf16 bits -> fp32 (exact: a bf16 is the top half of an fp32)
 __device__ __forceinline__ float load_value(const uint16_t* v, int64_t i) {
   return __uint_as_float(static_cast<uint32_t>(__ldg(v + i)) << 16);
+}
+
+// the same by a plain load (kernel #15)
+__device__ __forceinline__ float value_at(const float* v, int64_t i) { return v[i]; }
+__device__ __forceinline__ float value_at(const uint16_t* v, int64_t i) {
+  return __uint_as_float(static_cast<uint32_t>(v[i]) << 16);
 }
 
 // x column of slot s's cell whose residue is r, through the tile's page
@@ -95,25 +136,54 @@ __device__ __forceinline__ uint32_t stage_tile(int8_t (&pt)[kSlots][kLanes],
   return meta;
 }
 
+// Kernel #15: one warp per work-list entry (tile t, quarter q, slot mask).
+// Plain loads, not __ldg (see the note above).
 template <typename V>
-__global__ void __launch_bounds__(kLanes)
-classic_spmv_tile(const V* __restrict__ values,
-                  const int8_t* __restrict__ residue,
-                  const int8_t* __restrict__ page_tab,
-                  const int32_t* __restrict__ tile_base,
-                  const int32_t* __restrict__ chunk_group,
-                  const float* __restrict__ x, float* __restrict__ z) {
-  __shared__ int8_t pt[kSlots][kLanes];
-  const int64_t t = blockIdx.x;
-  const int j = threadIdx.x;
+__global__ void __launch_bounds__(kUnitWarps * 32)
+classic_spmv_units(const V* __restrict__ values,
+                   const int8_t* __restrict__ residue,
+                   const int8_t* __restrict__ page_tab,
+                   const int32_t* __restrict__ tile_base,
+                   const int32_t* __restrict__ chunk_group,
+                   const int64_t* __restrict__ work, int64_t n_work,
+                   const float* __restrict__ x, float* __restrict__ z) {
+  const int64_t w = static_cast<int64_t>(blockIdx.x) * kUnitWarps + (threadIdx.x >> 5);
+  if (w >= n_work) return;  // whole warps only: the kernel has no barrier
+  const int lane = threadIdx.x & 31;
+  const int64_t e = work[w];
+  const unsigned mask = static_cast<unsigned>(e & 0xFF);
+  const int64_t t = e >> 10;  // unit = e >> 8 = t*4 + q
+  const int j = static_cast<int>((e >> 8) & 3) * 32 + lane;
+  const uint32_t meta = static_cast<uint32_t>(tile_base[t]);
+  const int64_t base = static_cast<int64_t>(meta & 0xFFFFu) * kLanes;
   const int64_t cell0 = t * (kSlots * kLanes);
-  const uint32_t meta = stage_tile(pt, page_tab, tile_base, t, j);
+  float v[kSlots];
+  int r[kSlots];
+  uint32_t pw[kSlots];  // 4 page entries of the slot's page-table row a lane
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {  // every load of the unit, up front
+    v[s] = 0.0f;
+    r[s] = 0;
+    pw[s] = 0;
+    if (mask >> s & 1u) {
+      const int64_t c = cell0 + s * kLanes + j;
+      v[s] = value_at(values, c);
+      r[s] = residue[c];
+      pw[s] = reinterpret_cast<const uint32_t*>(page_tab + cell0 + s * kLanes)[lane];
+    }
+  }
+  int64_t col[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {  // page entry by residue: byte r of the row
+    int d = 0;
+    if (mask >> s & 1u)  // warp-uniform
+      d = (__shfl_sync(0xffffffffu, pw[s], r[s] >> 2) >> (8 * (r[s] & 3))) & 0xFF;
+    col[s] = base + d * kLanes + r[s];
+  }
   float sum = 0.0f;
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int64_t c = cell0 + s * kLanes + j;
-    sum = fmaf(load_value(values, c), __ldg(x + cell_column(pt, s, residue[c], meta)), sum);
-  }
+  for (int s = 0; s < kSlots; ++s)
+    if (v[s] != 0.0f) sum = fmaf(v[s], __ldg(x + col[s]), sum);
   if (sum != 0.0f) atomicAdd(z + tile_hack(chunk_group, t, meta) * kLanes + j, sum);
 }
 
@@ -160,14 +230,15 @@ classic_spmm_tile(const V* __restrict__ values,
 
 template <typename V>
 int classic_spmv(const void* values, const void* residue, const void* page_tab,
-                 const void* tile_base, const void* chunk_group, const void* x,
-                 void* z, int64_t num_tiles, cudaStream_t st) {
-  if (num_tiles > 0)
-    classic_spmv_tile<V><<<static_cast<unsigned>(num_tiles), kLanes, 0, st>>>(
-        static_cast<const V*>(values), static_cast<const int8_t*>(residue),
-        static_cast<const int8_t*>(page_tab), static_cast<const int32_t*>(tile_base),
-        static_cast<const int32_t*>(chunk_group), static_cast<const float*>(x),
-        static_cast<float*>(z));
+                 const void* tile_base, const void* chunk_group, const void* work,
+                 int64_t n_work, const void* x, void* z, cudaStream_t st) {
+  // an empty list (no nonzero) still launches, one block that exits
+  const int64_t blocks = n_work > 0 ? (n_work + kUnitWarps - 1) / kUnitWarps : 1;
+  classic_spmv_units<V><<<static_cast<unsigned>(blocks), kUnitWarps * 32, 0, st>>>(
+      static_cast<const V*>(values), static_cast<const int8_t*>(residue),
+      static_cast<const int8_t*>(page_tab), static_cast<const int32_t*>(tile_base),
+      static_cast<const int32_t*>(chunk_group), static_cast<const int64_t*>(work),
+      n_work, static_cast<const float*>(x), static_cast<float*>(z));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -189,16 +260,17 @@ int classic_spmm(const void* values, const void* residue, const void* page_tab,
 
 extern "C" {
 
-// Kernel #15: z (num_groups*8*128, stored rows) += the classic product.
-// x is the (x_pages*128) fp32 vector, z fp32 and zeroed by the caller;
+// Kernel #15: z (num_groups*8*128, stored rows) += the classic product
+// over the n_work entries of work (classic_work_list of the values).  x is
+// the (x_pages*128) fp32 vector, z fp32 and zeroed by the caller;
 // values_bf16 selects bf16 values over fp32 ones.  Launches on `stream`,
 // does not synchronise, and returns cudaGetLastError().
 int whell_classic_spmv(const void* values, int values_bf16, const void* residue,
                        const void* page_tab, const void* tile_base,
-                       const void* chunk_group, const void* x, void* z,
-                       int64_t num_tiles, void* stream) {
+                       const void* chunk_group, const void* work, int64_t n_work,
+                       const void* x, void* z, void* stream) {
   auto* fn = values_bf16 ? classic_spmv<uint16_t> : classic_spmv<float>;
-  return fn(values, residue, page_tab, tile_base, chunk_group, x, z, num_tiles,
+  return fn(values, residue, page_tab, tile_base, chunk_group, work, n_work, x, z,
             static_cast<cudaStream_t>(stream));
 }
 

@@ -35,7 +35,13 @@ output lane ``j`` of hack ``h`` is stored row ``h*128 + j``, aligned
 without the trailing -1 sentinel.  ``row_perm`` (stored row → original
 row, padded with the identity) is the OELL order, and ``ways > 1`` splits
 each row into ``ways`` virtual rows that the op sums back.  Its values are
-float32 or bfloat16, the JAX classic path's TPU types.
+float32 or bfloat16, the JAX classic path's TPU types.  A classic layout
+also carries ``work_list`` (:func:`classic_work_list`), derived from its
+values whenever the layout is built: the (tile, 32-lane quarter) units
+that hold a nonzero, each with the mask of its live slots.  The SpMV
+kernel reads only those units and slots, so a slab must not be changed
+in place (:func:`spgpu_tpu_torch.convert.whell_update_values` builds a
+new layout, and a new list).
 
 The **per-cell routing** layout (:class:`PcellWhell`) packs the cells of
 many rows densely into each slot and routes each row's run to its output
@@ -60,8 +66,8 @@ import torch
 from spgpu_tpu_torch.core import CHUNK_TILES, join_dd, join_plane_fields
 
 __all__ = ["MAX_ALIGNED_X_PAGES", "MAX_LAYOUT_GROUPS", "PcellWhell",
-           "WhellMatrix", "from_numpy_fields", "from_numpy_pcell",
-           "from_numpy_planes"]
+           "WhellMatrix", "classic_work_list", "from_numpy_fields",
+           "from_numpy_pcell", "from_numpy_planes"]
 
 #: the value types of a packed slab
 VALUE_DTYPES = (torch.float32, torch.bfloat16, torch.float64, torch.complex64,
@@ -107,6 +113,20 @@ def _decode_pages(pt, res, meta, tile, group_bases, window_pages):
     return (meta & 0xFFFF)[tile, None] + d, meta >> 16
 
 
+def classic_work_list(values: torch.Tensor) -> torch.Tensor:
+    """The live units of a classic slab ``(S, 128)``, on its device: one
+    int64 ``(t*4 + q) << 8 | mask`` per (tile ``t``, 32-lane quarter
+    ``q``) that holds a nonzero value, in ascending unit order, where bit
+    ``s`` of ``mask`` is set when slot ``s`` of the unit holds one.  One
+    pass over the values."""
+    S = values.shape[0]
+    live = (values.view(S // 8, 8, 4, 32) != 0).any(dim=3)  # (tile, slot, q)
+    bit = torch.arange(8, device=values.device).view(1, 8, 1)
+    mask = (live.long() << bit).sum(dim=1).view(-1)  # per unit t*4 + q
+    units = torch.nonzero(mask).view(-1)
+    return units << 8 | mask[units]
+
+
 @dataclasses.dataclass
 class WhellMatrix:
     # slabs, slot-major (total_slots, 128)
@@ -137,6 +157,14 @@ class WhellMatrix:
     # classic only: stored row -> original row, (rows_padded,) int32, or None
     row_perm: Optional[torch.Tensor] = None
     ways: int = 1  # classic only: virtual rows per true row
+    # classic only: classic_work_list(values), rebuilt with every layout
+    work_list: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
+                                                          repr=False)
+
+    def __post_init__(self) -> None:
+        v = self.values
+        if not self.packed and v.dim() == 2 and v.shape[1] == 128 and v.shape[0] % 8 == 0:
+            self.work_list = classic_work_list(v)
 
     @property
     def device(self) -> torch.device:
@@ -291,6 +319,13 @@ class WhellMatrix:
         elif self.row_perm is not None:
             want(torch.equal(torch.sort(self.row_perm.cpu().long()).values,
                              torch.arange(R * 128)), "row_perm is not a permutation")
+        if packed:
+            want(self.work_list is None, "a packed layout has no work_list")
+        else:
+            wl = self.work_list
+            want(wl is not None and wl.dtype == torch.int64 and wl.device == self.device
+                 and torch.equal(wl.cpu(), classic_work_list(self.values.cpu())),
+                 "work_list does not match the values (changed in place?)")
 
 
 @dataclasses.dataclass

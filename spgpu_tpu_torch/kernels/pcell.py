@@ -51,7 +51,7 @@ def _check_args(values, residue, page_tab, run_hi, run_lo, tile_base,
         (tile_base.dtype == torch.int32 and T % chunk_tiles == 0, "tile_base"),
         (chunk_group.dtype == torch.int32
          and chunk_group.shape == (T // chunk_tiles + 1,), "chunk_group"),
-        (window_pages % 8 == 0 and group_bases.dtype == torch.int32
+        (window_pages in (8, 16, 32, 64) and group_bases.dtype == torch.int32
          and group_bases.dim() == 1
          and group_bases.numel() % (window_pages // 8) == 0, "group_bases"),
         (x.dim() == 2 and x.shape[-1] == 128 and x.dtype == torch.float32,
@@ -91,6 +91,10 @@ def pcell_spmv(values, residue, page_tab, run_hi, run_lo, tile_base,
     if dev.type == "cpu":
         return pcell_spmv_plain(values, residue, page_tab, run_hi, run_lo,
                                 tile_base, chunk_group, group_bases, x2d, **static)
+    if (any(t.data_ptr() % 16 for t in (values, page_tab))
+            or any(t.data_ptr() % 4 for t in (residue, run_hi, run_lo))):
+        raise ValueError("pcell_spmv: the kernel's vector loads need 16 B aligned "
+                         "values and page_tab and 4 B aligned residue, run_hi, run_lo")
     lib = _LIB.load()
     z = torch.zeros((num_groups * group_hacks, 128), dtype=torch.float32, device=dev)
     err = lib.pcell_spmv(

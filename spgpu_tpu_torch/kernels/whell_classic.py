@@ -16,7 +16,9 @@ plain PyTorch versions of the same functions, for CPU tensors.  Both give
 the product in STORED rows, ``(num_groups*8, 128)`` per RHS: the OELL
 scatter, the way reduction and the epilogue are the op's
 (:func:`spgpu_tpu_torch.ops.whell_spmv`).  ``LAUNCHES`` counts the
-launches of kernel #15 and ``LAUNCHES_SPMM`` those of #16.
+launches of kernel #15 and ``LAUNCHES_SPMM`` those of #16.  Kernel #15
+reads only the live units of the layout's work list; #16 and both plain
+versions read every cell.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ _GROUP_HACKS = 8
 def _bind(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.whell_classic_spmv.restype = ctypes.c_int
-    lib.whell_classic_spmv.argtypes = [p, i32, p, p, p, p, p, p, i64, p]
+    lib.whell_classic_spmv.argtypes = [p, i32, p, p, p, p, p, i64, p, p, p]
     lib.whell_classic_spmm.restype = ctypes.c_int
     lib.whell_classic_spmm.argtypes = [p, i32, p, p, p, p, p, p, i64, i64, i32, p]
 
@@ -88,26 +90,41 @@ def _check_args(op, values, residue, page_tab, tile_base, chunk_group, x,
 
 
 def whell_classic_spmv(values, residue, page_tab, tile_base, chunk_group, x2d,
-                       *, num_groups: int) -> torch.Tensor:
+                       *, num_groups: int, work=None) -> torch.Tensor:
     """Classic WHELL product ``(num_groups*8, 128)`` fp32 in stored rows,
     of fp32 or bf16 values and x2d ``(x_pages, 128)`` fp32.
 
-    CUDA tensors launch kernel #15 (counted in ``LAUNCHES``); CPU tensors
-    run :func:`whell_classic_spmv_plain`.  Any other device raises.  The
-    layout arrays are trusted as built by the converter or checked by
-    ``WhellMatrix.check``; shapes, dtypes and devices are checked here."""
+    CUDA tensors launch kernel #15 (counted in ``LAUNCHES``) over
+    ``work``, the slab's :func:`~spgpu_tpu_torch.formats.whell.classic_work_list`
+    (``WhellMatrix.work_list``; required there): it reads only the units
+    and slots that hold a nonzero, and a zero-valued cell contributes
+    nothing even where x is not finite.  CPU tensors run
+    :func:`whell_classic_spmv_plain`, the full-layout product, and need
+    no list.  Any other device raises.  The layout arrays and ``work`` are
+    trusted as built by the converter or checked by ``WhellMatrix.check``;
+    shapes, dtypes and devices are checked here."""
     _check_args("whell_classic_spmv", values, residue, page_tab, tile_base,
                 chunk_group, x2d, num_groups)
+    if work is not None and (work.dtype != torch.int64 or work.dim() != 1
+                             or work.device != x2d.device or not work.is_contiguous()):
+        raise ValueError("whell_classic_spmv: bad work (a contiguous int64 list on "
+                         "x's device)")
     dev = x2d.device
     if dev.type == "cpu":
         return whell_classic_spmv_plain(values, residue, page_tab, tile_base,
                                         chunk_group, x2d, num_groups=num_groups)
+    if work is None:
+        raise ValueError("whell_classic_spmv: the kernel needs the layout's work "
+                         "list (WhellMatrix.work_list)")
+    if page_tab.data_ptr() % 4:
+        raise ValueError("whell_classic_spmv: the kernel loads page_tab 4 B a lane; "
+                         "it must be 4 B aligned")
     lib = _LIB.load()
     z = torch.zeros((num_groups * _GROUP_HACKS, 128), dtype=torch.float32, device=dev)
     err = lib.whell_classic_spmv(
         values.data_ptr(), int(values.dtype == torch.bfloat16), residue.data_ptr(),
         page_tab.data_ptr(), tile_base.data_ptr(), chunk_group.data_ptr(),
-        x2d.data_ptr(), z.data_ptr(), tile_base.shape[0],
+        work.data_ptr(), work.numel(), x2d.data_ptr(), z.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"whell_classic_spmv launch failed: CUDA error {err}")
@@ -154,8 +171,8 @@ def whell_classic_spmm(values, residue, page_tab, tile_base, chunk_group, x3d,
 
 def whell_classic_spmv_plain(values, residue, page_tab, tile_base, chunk_group,
                              x2d, *, num_groups: int) -> torch.Tensor:
-    """The same product in plain PyTorch: :func:`whell_classic_spmm_plain`
-    with one RHS."""
+    """The same product in plain PyTorch over the full layout (every cell,
+    padding included): :func:`whell_classic_spmm_plain` with one RHS."""
     return whell_classic_spmm_plain(values, residue, page_tab, tile_base,
                                     chunk_group, x2d.unsqueeze(0),
                                     num_groups=num_groups)[0]

@@ -135,7 +135,8 @@ def whell_spmv(a, x: torch.Tensor, alpha=1.0, beta=0.0, y=None) -> torch.Tensor:
     if not a.packed:
         z = _classic.whell_classic_spmv(
             a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
-            _prep_x(x, a.n_cols, a.x_pages), num_groups=a.num_groups)
+            _prep_x(x, a.n_cols, a.x_pages), num_groups=a.num_groups,
+            work=a.work_list)
         return _epilogue(_classic_rows(a, z.view(-1)), alpha, beta, y)
     z = whell_packed_spmv(
         a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,

@@ -15,6 +15,14 @@ tolerances.
 The packed-field bounds (fault F1) are tested here too: each converter
 raises past its bound with the bound's constant set low, and
 ``WhellMatrix.check`` rejects a hand-wrapped layout past it.
+
+Kernel #15 reads only the units of the layout's work list
+(``classic_work_list``): the list must cover every nonzero cell and no
+all-zero unit or slot, on OELL, way-split and bf16 layouts and with
+explicit zeros; every new layout (``whell_update_values``, the bridge,
+``.to()``) derives its own, and ``check()`` rejects a stale one.  The JAX
+kernel's NaN from an Inf behind padding, which #15 does not reproduce, is
+shown on purpose.
 """
 
 import dataclasses
@@ -32,7 +40,12 @@ from spgpu_tpu.convert.whell import whell_update_values as j_update  # noqa: E40
 from spgpu_tpu.ops.pallas_kernels import whell_spmm_pallas, whell_spmv_pallas  # noqa: E402
 from spgpu_tpu.utils import fixtures as jfix  # noqa: E402
 from spgpu_tpu_torch import ops as tops  # noqa: E402
-from spgpu_tpu_torch.convert import coo_to_whell, degree_sort_perm, whell_update_values  # noqa: E402
+from spgpu_tpu_torch.convert import (  # noqa: E402
+    coo_to_whell,
+    coo_to_whell_percell,
+    degree_sort_perm,
+    whell_update_values,
+)
 from spgpu_tpu_torch.convert import whell as tconv  # noqa: E402
 from spgpu_tpu_torch.formats import whell as twhell  # noqa: E402
 from spgpu_tpu_torch.formats.coo import CooMatrix  # noqa: E402
@@ -496,3 +509,147 @@ def test_f1_check_rejects_a_hand_wrapped_layout(monkeypatch):
     ja = j_coo_to_whell(CASES["laplace_wide"](jfix), packed=True, scattered=False)
     with pytest.raises(ValueError, match="16-bit base field"):
         bridge(ja)
+
+
+# --------------------------------------------------------------------------
+# kernel #15's work list: the live (tile, 32-lane quarter) units of a
+# classic slab, each with the mask of its slots that hold a nonzero
+
+
+def _explicit_zeros(f):
+    """The fem fixture with every fifth entry stored as an explicit 0."""
+    coo = CASES["fem"](f)
+    v = coo.values.copy()
+    v[::5] = 0
+    return f.CooMatrix(coo.rows, coo.cols, v, coo.n_rows, coo.n_cols)
+
+
+WORK_FIXTURES = {"fem": CASES["fem"], "explicit_zeros": _explicit_zeros}
+WORK_OPTIONS = pytest.mark.parametrize(
+    "kw", [{}, dict(sort_rows=True), dict(ways=2), dict(dtype="bfloat16")],
+    ids=["plain", "oell", "ways2", "bf16"])
+
+
+def _listed_cells(a):
+    """(S, 128) bool: the cells in a listed unit's set slot."""
+    T = a.num_tiles
+    wl = a.work_list
+    live = torch.zeros((T * 4, 8), dtype=torch.bool)
+    live[wl >> 8] = ((wl & 0xFF).view(-1, 1) >> torch.arange(8) & 1).bool()
+    # unit (t, q), slot s  ->  cells (t*8 + s, q*32 .. q*32 + 31)
+    return live.view(T, 4, 8).permute(0, 2, 1).unsqueeze(-1).expand(
+        T, 8, 4, 32).reshape(T * 8, 128)
+
+
+@WORK_OPTIONS
+@pytest.mark.parametrize("fixture", sorted(WORK_FIXTURES))
+def test_classic_work_list_covers_every_nonzero(fixture, kw):
+    """Every nonzero cell lies in a listed unit whose mask bit is set; no
+    listed unit or set slot is all zero; the list is ascending."""
+    a = coo_to_whell(WORK_FIXTURES[fixture](tfix), device="cpu", packed=False, **kw)
+    wl = a.work_list
+    assert wl.dtype == torch.int64 and wl.numel() > 0
+    assert bool((wl[1:] >> 8 > wl[:-1] >> 8).all())
+    nz = a.values != 0
+    assert not bool((nz & ~_listed_cells(a)).any())
+    # per unit t*4 + q: which of its 8 slots hold a nonzero
+    slot_live = nz.view(a.num_tiles, 8, 4, 32).any(dim=3).permute(0, 2, 1).reshape(-1, 8)
+    bits = ((wl & 0xFF).view(-1, 1) >> torch.arange(8) & 1).bool()
+    assert torch.equal(slot_live[wl >> 8], bits)
+    assert wl.numel() == int(slot_live.any(dim=1).sum())
+    a.check()
+
+
+@WORK_OPTIONS
+@pytest.mark.parametrize("fixture", sorted(WORK_FIXTURES))
+def test_classic_work_list_drop_unlisted_is_bit_identical(fixture, kw):
+    """The full-layout plain product over the listed cells alone (every
+    unlisted cell set to 0) equals the one over every cell, bit for bit."""
+    coo = WORK_FIXTURES[fixture](tfix)
+    a = coo_to_whell(coo, device="cpu", packed=False, **kw)
+    x2 = tops._prep_x(torch.from_numpy(_x(coo.n_cols, 4)), a.n_cols, a.x_pages)
+    args = (a.residue, a.page_tab, a.tile_base, a.chunk_group, x2)
+    full = kc.whell_classic_spmv_plain(a.values, *args, num_groups=a.num_groups)
+    kept = torch.where(_listed_cells(a), a.values, torch.zeros((), dtype=a.values.dtype))
+    assert int((kept != 0).sum()) == int((a.values != 0).sum())
+    assert torch.equal(kc.whell_classic_spmv_plain(kept, *args, num_groups=a.num_groups),
+                       full)
+
+
+@pytest.mark.parametrize("how", ["update_values", "bridge", "to"])
+def test_classic_work_list_is_rebuilt(how):
+    """A new layout derives a new list: ``whell_update_values`` when a cell
+    stored as an explicit 0 becomes nonzero (the list grows), and the JAX
+    bridge and ``.to()``."""
+    if how == "bridge":
+        ja = j_coo_to_whell(_explicit_zeros(jfix))
+        a = bridge(ja)
+        assert torch.equal(a.work_list, twhell.classic_work_list(a.values))
+        return
+    a, plan = coo_to_whell(_explicit_zeros(tfix), device="cpu", packed=False,
+                           return_plan=True)
+    if how == "to":
+        b = a.to("cpu")
+        assert b.work_list is not a.work_list
+        assert torch.equal(b.work_list, a.work_list)
+        return
+    newv = np.random.default_rng(2).standard_normal(a.nnz).astype(np.float32)
+    b = whell_update_values(a, plan, newv)
+    assert b.work_list.numel() > a.work_list.numel()
+    assert torch.equal(b.work_list, twhell.classic_work_list(b.values))
+    assert not bool(((b.values != 0) & ~_listed_cells(b)).any())
+    b.check()
+
+
+@WORK_OPTIONS
+def test_classic_check_rejects_a_stale_work_list(kw):
+    """A slab changed in place after the list was built: a cell of an
+    unlisted unit made nonzero, or every value of a listed unit zeroed."""
+    a = coo_to_whell(CASES["fem"](tfix), device="cpu", packed=False, **kw)
+    a.check()
+    dead = (~_listed_cells(a)).nonzero()[0]
+    a.values[dead[0], dead[1]] = 1.0
+    with pytest.raises(ValueError, match="work_list"):
+        a.check()
+    b = coo_to_whell(CASES["fem"](tfix), device="cpu", packed=False, **kw)
+    t, q = int(b.work_list[0] >> 10), int(b.work_list[0] >> 8 & 3)
+    b.values[t * 8: t * 8 + 8, q * 32: q * 32 + 32] = 0
+    with pytest.raises(ValueError, match="work_list"):
+        b.check()
+
+
+def test_work_list_only_on_classic_layouts():
+    coo = CASES["fem"](tfix)
+    packed = coo_to_whell(coo, device="cpu")
+    assert packed.work_list is None
+    packed.check()
+    packed.work_list = twhell.classic_work_list(packed.values)
+    with pytest.raises(ValueError, match="no work_list"):
+        packed.check()
+    assert not hasattr(coo_to_whell_percell(coo, device="cpu"), "work_list")
+
+
+def test_classic_inf_behind_padding_is_nan_in_the_full_layout_product():
+    """Reference behaviour: the JAX kernel, like the port's plain version
+    (the CPU path), multiplies every padding cell, so an Inf in x at a
+    column that only zero-valued cells reference turns lanes into NaN.
+    Kernel #15 skips those cells and gives the golden (tests/
+    test_torch_cuda.py::test_classic_kernel_skips_padding_inf); a
+    deviation (ROADMAP §3)."""
+    def cut(f):  # no entry in a column ≡ 0 (mod 128): those only padding reads
+        coo = CASES["fem"](f)
+        keep = coo.cols % 128 != 0
+        return f.CooMatrix(coo.rows[keep], coo.cols[keep], coo.values[keep],
+                           coo.n_rows, coo.n_cols)
+    ja = j_coo_to_whell(cut(jfix))
+    ta = bridge(ja)
+    x = _x(4000, 3)
+    x[::128] = np.inf
+    golden = cut(tfix).spmv(x.astype(np.float64))
+    assert np.isfinite(golden).all()
+    zj = np.asarray(whell_spmv_pallas(ja, jnp.asarray(x), interpret=True))
+    zt = tops.whell_spmv(ta, torch.from_numpy(x)).numpy()
+    assert np.isnan(zj).any()
+    np.testing.assert_array_equal(np.isnan(zt), np.isnan(zj))
+    ok = ~np.isnan(zj)
+    np.testing.assert_allclose(zt[ok], golden[ok], **TOL)

@@ -31,7 +31,13 @@ of each SpMM launches only SpMV kernels.
 Classic WHELL (#15 SpMV, #16 SpMM; fp32 and bf16 values, OELL order and
 way-split rows) and pcell (#17) sum with atomics too: rtol 1e-5 and atol
 1e-5·max|z| against their plain versions; 2e-5 (classic) and 1e-5·max|z|
-(pcell) against the golden.
+(pcell) against the golden.  #15 reads only the live units of its work
+list: it is held to the full-layout plain version on layouts with
+explicit zeros, all-dead tiles and after ``whell_update_values``, and
+shown to skip an Inf in x that only zero-valued cells read (a deviation
+from the JAX kernel, which gives NaN there).  #17 runs one warp per tile
+and 4 tiles per block: it is checked on a tile count that is not a
+multiple of 4.
 """
 
 import numpy as np
@@ -773,6 +779,88 @@ def test_classic_spmm_default_loops_kernel_15(cuda_device):
     _near(z, ops.whell_spmm(a, xs, fused=True), 1e-5, rtol=1e-5)
 
 
+def _cut_columns(coo):
+    """``coo`` without its entries in columns ≡ 0 (mod 128): on the fem
+    fixture those columns are then read by padding cells alone."""
+    keep = coo.cols % 128 != 0
+    return CooMatrix(coo.rows[keep], coo.cols[keep], coo.values[keep], coo.n_rows,
+                     coo.n_cols)
+
+
+def _zeros_and_dead_tiles():
+    """fem with every fifth entry stored as an explicit 0 and rows
+    1,024-2,815 empty, so whole tiles hold no nonzero."""
+    coo = CASES["fem"]()
+    v = coo.values.copy()
+    v[::5] = 0
+    keep = (coo.rows < 1024) | (coo.rows >= 2816)
+    return CooMatrix(coo.rows[keep], coo.cols[keep], v[keep], coo.n_rows, coo.n_cols)
+
+
+WORK_CASES = {"zeros_dead_tiles": _zeros_and_dead_tiles,
+              "cut_columns": lambda: _cut_columns(CASES["fem"]())}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kw", [{}, dict(sort_rows=True), dict(ways=2)],
+                         ids=["plain", "oell", "ways2"])
+@pytest.mark.parametrize("name", sorted(WORK_CASES))
+def test_classic_kernel_on_work_list_edges(name, kw, dtype, cuda_device):
+    """Kernel #15 over the work list of layouts with explicit zeros,
+    all-dead tiles and dead units: one launch, against the full-layout
+    plain version (1e-5, 1e-5·max|z|) and the golden (2e-5)."""
+    coo = WORK_CASES[name]()
+    a = coo_to_whell(coo, device=cuda_device, packed=False, dtype=dtype, **kw)
+    live_tiles = torch.unique(a.work_list >> 10).numel()
+    assert live_tiles < a.num_tiles and a.work_list.device == a.device
+    x = _xs(1, coo.n_cols, 5)[0]
+    before = kc.LAUNCHES
+    z = ops.whell_spmv(a, x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES == before + 1
+    _near(z, ops.whell_spmv(a.to("cpu"), x), 1e-5, rtol=1e-5)
+    _near(z, torch.from_numpy(_bf16_golden(coo, a, x.double().numpy())), 2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_classic_kernel_after_update_values(cuda_device):
+    """``whell_update_values`` on a card layout: cells stored as explicit
+    zeros become nonzero, the rebuilt list covers them, and kernel #15
+    matches the plain version and the golden of the new values."""
+    from spgpu_tpu_torch.convert import whell_update_values
+
+    coo = _zeros_and_dead_tiles()
+    a, plan = coo_to_whell(coo, device=cuda_device, packed=False, return_plan=True)
+    newv = np.random.default_rng(4).standard_normal(coo.nnz).astype(np.float32)
+    b = whell_update_values(a, plan, newv)
+    assert b.work_list.numel() > a.work_list.numel() and b.work_list.device == b.device
+    b.check()
+    x = _xs(1, coo.n_cols, 6)[0]
+    z = ops.whell_spmv(b, x.to(cuda_device))
+    _near(z, ops.whell_spmv(b.to("cpu"), x), 1e-5, rtol=1e-5)
+    golden = CooMatrix(coo.rows, coo.cols, newv, coo.n_rows, coo.n_cols).spmv(
+        x.double().numpy())
+    _near(z, torch.from_numpy(golden), 2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_classic_kernel_skips_padding_inf(dtype, cuda_device):
+    """The deviation (ROADMAP §3): with Inf in x at columns that only
+    zero-valued cells read, the full-layout product (the plain version,
+    as the JAX kernel) has NaN lanes; kernel #15 skips those cells and
+    gives the golden."""
+    coo = _cut_columns(CASES["fem"]())
+    a = coo_to_whell(coo, device=cuda_device, packed=False, dtype=dtype)
+    x = _xs(1, coo.n_cols, 7)[0]
+    x[::128] = float("inf")
+    z = ops.whell_spmv(a, x.to(cuda_device))
+    assert bool(ops.whell_spmv(a.to("cpu"), x).isnan().any())
+    assert bool(torch.isfinite(z).all())
+    _near(z, torch.from_numpy(_bf16_golden(coo, a, x.double().numpy())), 2e-5, rtol=2e-5)
+
+
 PCELL_CASES = {"fem": CASES["fem"], "fem_large": CASES["fem_large"],
                "irregular": CASES["irregular"], "ctest": CASES["ctest"],
                "rect": CLASSIC_CASES["rect"], "empty": CASES["empty"]}
@@ -797,6 +885,48 @@ def test_pcell_kernel_matches_plain_and_golden(name, geometry, cuda_device):
     _near(z, torch.from_numpy(coo.spmv(x.double().numpy())), 1e-5)
     z2 = ops.whell_spmv(a, x.to(cuda_device), alpha=2.0, beta=-0.5, y=y.to(cuda_device))
     _near(z2, 2.0 * z.cpu() - 0.5 * y, 1e-6, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fem", "irregular"])
+def test_pcell_kernel_odd_tile_count_and_seams(name, cuda_device):
+    """Kernel #17 at 7-tile chunks: a tile count that is not a multiple of
+    its 4 tiles (warps) per block, on runs across 32-lane boundaries and
+    ending at lanes 0 and 127 (tests/test_torch_pcell.py::
+    test_pcell_fixture_has_warp_scan_seams); against the plain version
+    (1e-5, 1e-5·max|z|) and the golden (1e-5·max|z|)."""
+    coo = PCELL_CASES[name]()
+    a = coo_to_whell_percell(coo, device=cuda_device, group_hacks=32, chunk_tiles=7)
+    hi, lo = a.run_hi.long().cpu(), a.run_lo.long().cpu()
+    assert a.num_tiles % 4 != 0
+    assert bool(((lo + 1) >> 5 != hi >> 5)[hi >= 0].any())
+    assert bool((hi == 0).any()) and bool((hi == 127).any())
+    x = _xs(1, coo.n_cols, 8)[0]
+    before = kp.LAUNCHES
+    z = ops.whell_spmv(a, x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert kp.LAUNCHES == before + 1
+    _near(z, ops.whell_spmv(a.to("cpu"), x), 1e-5, rtol=1e-5)
+    _near(z, torch.from_numpy(coo.spmv(x.double().numpy())), 1e-5)
+
+
+@pytest.mark.cuda
+def test_pcell_kernel_refuses_a_misaligned_slab(cuda_device):
+    """The kernel loads 16 B of values per thread: a value slab off a
+    16 B boundary raises instead of launching."""
+    a = coo_to_whell_percell(CASES["fem"](), device=cuda_device)
+    flat = torch.zeros(a.values.numel() + 1, device=cuda_device)
+    off = flat[1:].view_as(a.values)
+    off.copy_(a.values)
+    before = kp.LAUNCHES
+    with pytest.raises(ValueError, match="aligned"):
+        kp.pcell_spmv(off, a.residue, a.page_tab, a.run_hi, a.run_lo, a.tile_base,
+                      a.chunk_group, a.group_bases,
+                      ops._prep_x(torch.zeros(a.n_cols, device=cuda_device), a.n_cols,
+                                  a.x_pages),
+                      chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+                      window_pages=a.window_pages, num_groups=a.num_groups)
+    assert kp.LAUNCHES == before
 
 
 @pytest.mark.cuda

@@ -9,6 +9,9 @@ max|z| (tests/test_whell.py:445), and ``solve(fmt="pcell")`` against the
 JAX ``solve(fmt="pcell")``: iterations within 2, x within 1e-4 relative.
 The JAX kernel in interpret mode compiles for about half a minute at the
 default geometry (128-tile chunks), so only the solve runs it there.
+The card test's fixture is checked for the seams of kernel #17's warp
+scan (runs across 32-lane boundaries, runs ending at lanes 0 and 127) and
+for a tile count off its 4 tiles per block (7-tile chunks).
 """
 
 import dataclasses
@@ -257,3 +260,43 @@ def test_solve_pcell_matches_jax(monkeypatch):
     assert bool(r2.converged)
     assert np.linalg.norm(b - a.spmv(r2.x.numpy().astype(np.float64))) \
         <= 1e-4 * np.linalg.norm(b)
+
+
+# --------------------------------------------------------------------------
+# kernel #17's seams: one warp scans a slot, each thread 4 lanes, so the
+# card test's fixture must hold runs across thread groups' boundaries and
+# at both ends of the lanes; and a tile count that is not a multiple of
+# the kernel's 4 tiles per block
+
+# the card test's pcell fixture "fem" (tests/test_torch_cuda.py) and its
+# geometries there, with an odd chunk size for a tile count off the block
+SEAM_FEM = lambda f: f.random_fem_like(4000, 16.0, span=256, far_frac=0.02,  # noqa: E731
+                                       seed=5, dtype=np.float32)
+SEAM_GEOMETRIES = {"default": {}, "small": SMALL,
+                   "odd": dict(group_hacks=32, chunk_tiles=7)}
+
+
+@pytest.mark.parametrize("geometry", sorted(SEAM_GEOMETRIES))
+def test_pcell_fixture_has_warp_scan_seams(geometry):
+    """Runs that cross a 32-lane boundary, and runs that end at lane 0
+    and at lane 127."""
+    a = coo_to_whell_percell(SEAM_FEM(tfix), device="cpu", **SEAM_GEOMETRIES[geometry])
+    hi, lo = a.run_hi.long(), a.run_lo.long()
+    run = hi >= 0
+    first, last = lo[run] + 1, hi[run]
+    assert bool((first >> 5 != last >> 5).any())
+    assert bool((last == 0).any()) and bool((last == 127).any())
+    assert geometry != "odd" or a.num_tiles % 4 != 0
+
+
+def test_pcell_odd_chunk_tiles_matches_jax_and_golden():
+    """The converter and the plain SpMV at 7-tile chunks (a tile count that
+    is not a multiple of 4), against the JAX converter and the golden."""
+    geo = SEAM_GEOMETRIES["odd"]
+    ja = j_percell(SEAM_FEM(jfix), **geo)
+    ta = coo_to_whell_percell(SEAM_FEM(tfix), device="cpu", **geo)
+    assert_same_layout(ja, ta)
+    ta.check()
+    x = np.random.default_rng(6).standard_normal(4000).astype(np.float32)
+    _near(tops.whell_spmv(ta, torch.from_numpy(x)).numpy(),
+          SEAM_FEM(tfix).spmv(x.astype(np.float64)), 1e-5)
