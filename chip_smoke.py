@@ -35,11 +35,14 @@ the float64 geometry sweep, and checks them:
                BiCGSTAB on a contiguous banded-11 system with
                ``fmt="whdia"``; each is checked as in 5 against its
                route's launch count;
-9. spmv_f64  — the flagship in float64 through kernel #4, held to
-               1e-12·max|z| against its plain float64 version and the
-               golden, timed as in 3;
+9. spmv_f64  — the flagship in float64 (scattered windows, the port's
+               default) through kernel #4, held to 1e-12·max|z| against
+               its plain float64 version (the per-hack form) and the
+               golden; one call must run exactly one device operation
+               (``whell_hack_pass``) and two calls give the same bits;
+               timed as in 3;
 10. dd_laplacian — the 512x512 Laplacian in float64 through kernel #4
-               (the JAX benchmark's double-float row);
+               (the JAX benchmark's double-float row), checked as in 9;
 11. sdia_f64 — the Laplacian in float64 through kernel #5, which must
                match its plain version exactly;
 12. whdia_f64 — banded-11 (pattern mode) and the Laplacian (slab mode) in
@@ -54,7 +57,7 @@ the float64 geometry sweep, and checks them:
                against its plain version and the complex128 host golden,
                timed as in 3;
 15. spmv_c128 — the same matrix as complex128 through the complex128
-               WHELL kernel (1e-12·max|z|);
+               WHELL kernel (1e-12·max|z|), checked as in 9;
 16. sdia_c64, sdia_c128 — the Laplacian plus ``1j·N(0, 1)``
                (``default_rng(12)``) through kernels #8 and #11, exact
                against their plain versions;
@@ -118,11 +121,12 @@ the float64 geometry sweep, and checks them:
                before each call: 4x its size written, then 4x read), with
                each op family's price, the bytes, #3's bound and cuSPARSE
                CSR; counted on ``LAUNCHES_WHDIA_ABLATION`` from 0;
-27. ablation_dd — the same for #4 in float64 (kernel #19,
-               ``sweeps.dd_ablation``) on the 512x512 float64 Laplacian:
-               levels stream, gather, atomic, full (1e-12·max|out|), the
-               TPU's double-float levels named absent; counted on
-               ``LAUNCHES_F64_ABLATION`` from 0;
+27. ablation_dd, ablation_dd_flagship — the same for #4 in float64
+               (kernel #19, ``sweeps.dd_ablation``) on the 512x512 float64
+               Laplacian and on the flagship: levels stream, gather, own,
+               full of #4's hack pass (1e-12·max|out|), the TPU's
+               double-float levels and the tile pass's atomic level named
+               absent; each counted on ``LAUNCHES_F64_ABLATION`` from 0;
 28. dd_geom  — #4 on the same Laplacian at the six (group_hacks,
                chunk_tiles) geometries of the JAX geometry sweep
                (``sweeps.dd_geom_sweep``), each within 1e-12·max|z| of the
@@ -131,9 +135,15 @@ the float64 geometry sweep, and checks them:
 
 29. kernel_times — kernels #15 and #17 alone, warm and cold (L2
                flushed), through ``whell_spmv`` on the layouts of 22 and
-               24, beside cuSPARSE CSR on the same matrices
-               (``kernel_times``; ``python3 chip_smoke.py --kernel-times``
-               runs this phase alone, also from an older checkout's root).
+               24, beside cuSPARSE CSR on the same matrices; then #4 and
+               the complex128 kernel on the flagship with aligned and
+               scattered windows and #4 on the dd-Laplacian, each op's
+               device time (every device operation of one call) and its
+               kernels' own, warm and cold, #19's levels on the
+               flagship's two float64 layouts, and cuSPARSE CSR in
+               float64 and complex128 (``kernel_times``; ``python3
+               chip_smoke.py --kernel-times`` runs this phase alone, also
+               from an older checkout's root).
 
 Phases 26-28 and 29 run in fresh processes of this script
 (``chip_smoke.py --sweeps``, ``--kernel-times``, which print their lines
@@ -350,6 +360,19 @@ def library_call(coo, x, device):
         return None, f"refused: {e}".splitlines()[0]
 
 
+def launched(fn):
+    """The names of the device operations one call of ``fn`` runs, from
+    a usable profiling session, else from short ones (names only)."""
+    from spgpu_tpu_torch.utils.timing import _session, device_ms_by_kernel
+
+    names = sorted(device_ms_by_kernel(fn))
+    for _ in range(5):
+        if names:
+            break
+        names = sorted(_session(fn, 3)[0])
+    return names
+
+
 def timed(kernel, plain, library, refused=None, **more):
     """Times per call of a kernel, its plain version, the library call and
     any ``more`` calls (``name=fn``): CUDA events around interleaved runs
@@ -399,13 +422,24 @@ def spmv_phase(coo, a, device, label):
     args = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
             a.group_bases, a.seg_lo, a.seg_hi, _prep_x(xl, a.n_cols, a.x_pages))
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-                  window_pages=a.window_pages, unit_segments=a.unit_segments)
+                  window_pages=a.window_pages, unit_segments=a.unit_segments,
+                  hack_units=a.hack_units, hack_done=a.hack_done)
     zp = kw.whell_packed_spmv_plain(*args, **static).view(-1)[: a.n_rows]
     zc, pc = z.cpu().numpy(), zp.cpu().numpy()
-    # atomics sum each lane's tiles in another order than index_add_
+    # atomics sum each lane's tiles in another order than index_add_; #4
+    # and complex128 sum in the per-hack plain version's order, with FMAs
     tol_plain, tol_golden = ((0, 1e-12), (0, 1e-12)) if tight else \
         ((1e-5, 1e-5), (1e-4, 1e-4))
     err_plain = check_close(zc, pc, *tol_plain, f"{label}: kernel vs plain")
+    per_hack = {}
+    if vdt in kw.PER_HACK:  # one launch, no atomics: one kernel, same bits
+        call = lambda: kw.whell_packed_spmv(*args, **static)  # noqa: E731
+        ops_ = launched(call)
+        if len(ops_) != 1 or not ops_[0].startswith("whell_hack_pass"):
+            raise AssertionError(f"{label}: the call ran {ops_}, not one whell_hack_pass")
+        if not torch.equal(call(), call()):
+            raise AssertionError(f"{label}: two launches differ")
+        per_hack = dict(device_ops=ops_, bit_identical=True)
     # host golden in float64 or complex128
     golden = coo.spmv(x.astype(wide(x.dtype)))
     z_orig = a.extract(z, dtype=torch.from_numpy(golden).dtype).cpu().numpy()
@@ -417,13 +451,15 @@ def spmv_phase(coo, a, device, label):
     t = timed(lambda: kw.whell_packed_spmv(*args, **static),
               lambda: kw.whell_packed_spmv_plain(*args, **static),
               library, refused)
-    # the unit flush reads seg_hi alone
-    moved = nbytes(a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
+    # the unit flush reads seg_hi alone; #4 and complex128 read hack_units
+    # and no chunk_group
+    moved = nbytes(a.values, a.residue, a.page_tab, a.tile_base,
+                   a.hack_units if vdt in kw.PER_HACK else a.chunk_group,
                    a.group_bases, None if a.unit_segments else a.seg_lo,
                    a.seg_hi, args[-1], z)
     flops = (8 if xdt.is_complex else 2) * coo.nnz
     return dict(
-        nnz=coo.nnz, tiles=a.num_tiles, lane_space=a.n_rows,
+        nnz=coo.nnz, tiles=a.num_tiles, lane_space=a.n_rows, **per_hack,
         padding=a.total_slots * 128 / coo.nnz, slab_mib=slab_bytes / 2**20,
         max_abs_err_vs_plain=err_plain, max_abs_err_vs_golden=err_golden, **t,
         kernel_gflops=flops / (t["kernel_ms"] * 1e6),
@@ -1239,14 +1275,18 @@ def kernel_row(name, launches, phase):
             "library_ms": phase["library_ms"]}
 
 
-#: phases 26-28: (phase, sweep module, its size, launch counter (kernel
-#: module, name), the result's rows)
+#: phases 26-28 (27 on two matrices): (phase, sweep module, its size,
+#: launch counter (kernel module, name), the result's rows, run()'s
+#: other arguments)
 SWEEP_PHASES = (("ablation_whdia", "whdia_ablation", "band",
-                 ("ablation", "LAUNCHES_WHDIA_ABLATION"), "levels"),
+                 ("ablation", "LAUNCHES_WHDIA_ABLATION"), "levels", {}),
                 ("ablation_dd", "dd_ablation", "dd_lap",
-                 ("ablation", "LAUNCHES_F64_ABLATION"), "levels"),
+                 ("ablation", "LAUNCHES_F64_ABLATION"), "levels", {}),
+                ("ablation_dd_flagship", "dd_ablation", "flagship",
+                 ("ablation", "LAUNCHES_F64_ABLATION"), "levels",
+                 {"matrix": "flagship"}),
                 ("dd_geom", "dd_geom_sweep", "dd_lap", ("whell", "LAUNCHES_F64"),
-                 "geometries"))
+                 "geometries", {}))
 
 
 def sweep_phases(device):
@@ -1257,11 +1297,11 @@ def sweep_phases(device):
     Yields ``(phase, result)``."""
     import importlib
 
-    for phase, name, size, (kmod, counter), key in SWEEP_PHASES:
+    for phase, name, size, (kmod, counter), key, more in SWEEP_PHASES:
         mod = importlib.import_module(f"spgpu_tpu_torch.sweeps.{name}")
         kernels = importlib.import_module(f"spgpu_tpu_torch.kernels.{kmod}")
         setattr(kernels, counter, 0)
-        res = mod.run(device, size=SIZES[size])
+        res = mod.run(device, size=SIZES[size], **more)
         res["counted_launches"] = getattr(kernels, counter)
         if res["counted_launches"] < len(res[key]) or any(
                 r["device_ms"] is None or r["cold_device_ms"] is None
@@ -1307,7 +1347,8 @@ def kernel_times(device):
     the converters and ``whell_spmv``, so it also times an older checkout
     of the port (this file copied into that checkout's root).  Beside
     them, the device time of the library call (cuSPARSE CSR, ``csr @ x``)
-    on the relabelled and the raw flagship, in the same process."""
+    on the relabelled and the raw flagship, in the same process; then
+    :func:`whell_kernel_times`."""
     import torch
 
     from spgpu_tpu_torch import ops
@@ -1345,6 +1386,92 @@ def kernel_times(device):
         out[tag] = dict(kernel=names[0], device_ms=warm, device_source=src,
                         cold_device_ms=cold, cold_source=cold_src)
         del a
+    out.update(whell_kernel_times(device))
+    return out
+
+
+def whell_kernel_times(device):
+    """Phase 29's float64 and complex128 packed-WHELL rows: #4 and the
+    complex128 kernel through ``whell_spmv`` on the flagship, aligned and
+    scattered windows, and #4 on the dd-Laplacian, each with the device
+    time of the whole op (every device operation of one call, and each by
+    name) and of its own kernels (profiler names ``whell_*``), warm and
+    cold; then #19's levels (the tree's ``F64_LEVELS``) on the flagship's
+    two float64 layouts, warm and cold; and cuSPARSE CSR on each matrix
+    and type, all in this process.  The op's cold time is its kernels'
+    cold time plus its other operations' warm time: the zero fill of an
+    accumulator shares its profiler name with the L2 flush's.  Older
+    checkouts (no ``hack_units``) run too."""
+    import torch
+
+    from spgpu_tpu_torch import ops
+    from spgpu_tpu_torch.convert import coo_to_whell
+    from spgpu_tpu_torch.kernels import ablation as ab
+    from spgpu_tpu_torch.utils.fixtures import laplacian_2d
+    from spgpu_tpu_torch.utils.timing import (device_ms, device_ms_by_kernel,
+                                              kernel_device_ms)
+
+    def own(fn):
+        by_op = device_ms_by_kernel(fn)
+        names = [n for n in (sorted(by_op) or launched(fn)) if n.startswith("whell_")]
+        if not names:
+            raise AssertionError("kernel_times: no whell_* kernel launched")
+        warm, src = kernel_device_ms(fn, names)
+        cold, cold_src = kernel_device_ms(fn, names, cold=True)
+        return by_op, names, dict(device_ms=warm, device_source=src,
+                                  cold_device_ms=cold, cold_source=cold_src)
+
+    coo64 = flagship(np.float64)
+    m = SIZES["dd_lap"]
+    fixtures = (("flagship", "f64", coo64),
+                ("flagship", "c128", with_imag(coo64, 8, np.complex128)),
+                ("dd_lap", "f64", laplacian_2d(m, m, np.float64)))
+    out = {}
+    for fix, tag, c in fixtures:
+        dt = c.values.dtype
+        x = torch.from_numpy(rand_vector(c.n_cols, 7, dt)).to(device)
+        library, refused = library_call(c, x, device)
+        if library is None:
+            raise RuntimeError(f"kernel_times: the library call was {refused}")
+        ms, src = device_ms(library)
+        out[f"library_{fix}_{tag}"] = dict(device_ms=ms, device_source=src)
+        for scattered in (False, True):
+            a = coo_to_whell(c, device=device, scattered=scattered)
+            xl = a.embed(x, dtype=x.dtype)
+            fn = lambda: ops.whell_spmv(a, xl)  # noqa: E731
+            by_op, names, t = own(fn)
+            op_ms, op_src = device_ms(fn)
+            others = sum(v for k, v in by_op.items() if k not in names)
+            z = torch.empty((a.num_groups * a.group_hacks, 128), dtype=x.dtype)
+            moved = nbytes(a.values, a.residue, a.page_tab, a.tile_base,
+                           a.group_bases, None if a.unit_segments else a.seg_lo,
+                           a.seg_hi, xl, z)
+            geom = "scattered" if scattered else "aligned"
+            print(f"kernel_times: whell_{fix}_{tag}_{geom} {names}", file=sys.stderr,
+                  flush=True)
+            out[f"whell_{fix}_{tag}_{geom}"] = dict(
+                kernels=names, op_by_name_ms=by_op, op_device_ms=op_ms,
+                op_device_source=op_src, op_cold_device_ms=t["cold_device_ms"] + others,
+                **t, tiles=a.num_tiles, padding=a.total_slots * 128 / c.nnz,
+                group_hacks=a.group_hacks, chunk_tiles=a.chunk_tiles,
+                window_pages=a.window_pages,
+                **bound(moved, (8 if tag == "c128" else 2) * c.nnz, str(dt)))
+            if fix == "flagship" and tag == "f64":
+                x2 = ops._prep_x(xl, a.n_cols, a.x_pages)
+                args = (a.values, a.residue, a.page_tab, a.tile_base,
+                        a.chunk_group, a.group_bases, a.seg_lo, a.seg_hi, x2)
+                static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+                              window_pages=a.window_pages,
+                              unit_segments=a.unit_segments)
+                if hasattr(a, "hack_units"):
+                    static.update(hack_units=a.hack_units, hack_done=a.hack_done)
+                levels = {}
+                for lv in ab.F64_LEVELS:
+                    _, lv_names, lv_t = own(
+                        lambda lv=lv: ab.whell_f64_ablation(lv, *args, **static))
+                    levels[lv] = dict(kernels=lv_names, **lv_t)
+                out[f"ablation_flagship_f64_{geom}"] = levels
+            del a
     return out
 
 
@@ -1578,7 +1705,9 @@ def main() -> int:
     emit("solve_pcell", fixture="flagship SPD form", **solve_p)
 
     # --- the per-op accounts (kernels #18, #19) and #4's geometries -------
-    acc18, acc19, _ = child_phases("--sweeps", len(SWEEP_PHASES))
+    acc18, acc19_lap, acc19, _ = child_phases("--sweeps", len(SWEEP_PHASES))
+    acc19 = dict(acc19, counted_launches=acc19["counted_launches"]
+                 + acc19_lap["counted_launches"])
 
     # --- #15 and #17 alone, warm and cold, in a fresh process -------------
     child_phases("--kernel-times", 1)

@@ -20,7 +20,8 @@ on the real and on the imaginary parts, and both planes come out with one
 structure (entries are placed by coordinate, never by value): the port's
 structural arrays equal its ``ar`` plane's.  complex64 takes the fp32
 geometry and complex128 the float64 (double-float) one, as the JAX
-converter's planes do.
+converter's planes do, but with scattered windows by default (the JAX
+double-float layout's aligned ones with ``scattered=False``).
 
 The packed fields are bounded, and the converters raise rather than wrap
 them: an aligned window's base page has 16 bits (at most
@@ -138,11 +139,12 @@ def coo_to_whell(
     independently based 8-page superpages; ``scattered=False`` keeps one
     aligned window of ``window_pages`` (default 32).  ``dtype`` selects
     float32, float64, complex64, complex128 or bfloat16 values (default:
-    the COO's).  float64 and complex128 take the geometry of the JAX
-    package's double-float layout (aligned windows by default, its chunk
-    and group sizes), so the two packages' structural arrays are
-    identical and the values are the COO's, not hi/lo pairs or real
-    planes.  ``group_hacks`` (hacks per output group) and ``chunk_tiles``
+    the COO's).  float64 and complex128 take the chunk and group sizes of
+    the JAX package's double-float layout; its aligned windows are
+    ``scattered=False`` (then the two packages' structural arrays are
+    identical), and the port's default is scattered windows, which pad
+    less and run faster on the H100.  The values are the COO's, not hi/lo
+    pairs or real planes.  ``group_hacks`` (hacks per output group) and ``chunk_tiles``
     (tiles per chunk) override that measured geometry, as in the JAX
     converter (the geometry sweep's knobs); a group may hold at most
     2**12 hacks with scattered windows and 2**16 with aligned ones (the
@@ -209,10 +211,13 @@ def coo_to_whell(
 def _packed_geometry(coo, vdt, window_pages, scattered, return_plan, device,
                      group_hacks=None, chunk_tiles=None):
     """The JAX package's measured packed geometry defaults for ``coo``,
-    or the caller's ``group_hacks``/``chunk_tiles``."""
+    or the caller's ``group_hacks``/``chunk_tiles``, with scattered
+    windows unless the caller asks otherwise.  (The JAX double-float
+    layout of float64 and complex128 has aligned windows; on the H100
+    scattered ones stream fewer bytes and their product is faster.)"""
     f64 = vdt in (torch.float64, torch.complex128)  # the double-float geometry
     if scattered is None:
-        scattered = not f64
+        scattered = True
     est_tiles = max(1, coo.nnz // 1024)
     num_hacks = -(-coo.n_rows // 128)
     if f64:

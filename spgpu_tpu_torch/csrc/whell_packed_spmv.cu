@@ -31,18 +31,17 @@
 // bf16), about 67 MiB per product on the flagship FEM matrix against
 // 3.35 TB/s of HBM, i.e. ~21 us at best.  x (1.4 MB there) and the
 // accumulator (1.6 MB) stay resident in the 50 MB L2.  float64 streams
-// 10 B/cell (8 B value + the two index bytes) on the double-float layout
-// geometry, about 117 MiB and ~37 us on the flagship; fp64 FMA and
-// atomicAdd(double) are native on Hopper, so no error-free transforms.
-// complex64 streams 10 B/cell (an interleaved re/im float2 and the two
-// index bytes) on the fp32 geometry: on the flagship 11,392 tiles (11.7M
-// cells, 111 MiB of slab), 123.0 MB with x and z, a bound of 36.7 us;
-// complex128 18 B/cell (a double2) on the double-float geometry: 15,168
-// tiles (15.5M cells, 267 MiB), 291.4 MB, 87.0 us (chip_smoke.py's counts
-// on an NVIDIA H100 80GB HBM3, 700 W).  x (4.2 MB in complex128) stays
-// resident in L2.
+// 10 B/cell (8 B value + the two index bytes): on the flagship 15,168
+// tiles (155 MB) with aligned 32-page windows, 10,944 (112 MB) with
+// scattered ones.  complex64 streams 10 B/cell (an interleaved re/im float2
+// and the two index bytes) on the fp32 geometry: on the flagship 11,392
+// tiles (11.7M cells, 111 MiB of slab), 123.0 MB with x and z, a bound of
+// 36.7 us; complex128 18 B/cell (a double2): 15,168 tiles (280 MB) aligned,
+// 10,944 (202 MB) scattered (chip_smoke.py's counts on an NVIDIA H100
+// 80GB HBM3, 700 W).  x (4.2 MB in complex128) stays resident in L2.
+// fp64 FMA is native on Hopper, so there are no error-free transforms.
 //
-// What the design does about it: the TPU kernel stages x in VMEM and
+// #1 and #7 (fp32, bf16, complex64): the TPU kernel stages x in VMEM and
 // resolves pages with sublane gathers, select trees and dual accumulator
 // planes; none of that is needed here.  x is read straight from global
 // memory through L2/L1, so each cell costs one coalesced slab read plus
@@ -56,18 +55,51 @@
 // prefix sums carries an error of the order of eps(T) times the hack's
 // prefix total, not of the row's own sum: a light row behind a heavy one
 // in the same hack has a larger relative error (fp64: ~1e-16 of the
-// prefix, which the double-float TPU kernel matches at ~2^-48).  wgmma
-// and TMA have no role in a gather-bound product; deterministic per-hack
-// ownership and several tiles per block are later work.
+// prefix, which the double-float TPU kernel matches at ~2^-48).
 //
-// Complex: a cell is one aligned float2 / double2 load of the interleaved
-// slab (PyTorch's complex64 / complex128), x one more.  Each thread keeps
-// re and im sums and adds four FMAs per cell, in this order:
-// re += vr*xr; re -= vi*xi; im += vr*xi; im += vi*xr.  The tile pass then
+// #4 and complex128 (whell_hack_pass): one launch per product, no
+// accumulator, no atomics on the lanes, bit-reproducible.  The converter
+// places each hack's tiles in one contiguous run of the slab (its layout
+// groups are keyed hack first), so the layout's hack_ptr (formats/whell.py)
+// gives each hack its run, and each output group's trailing ct-padding
+// tiles belong to no run and are never read.  One 128-thread block owns
+// one hack row, thread j lane j, when the run has at most 16 tiles (every
+// hack of the flagship: 4-8); a longer run (the hub rows of the flagship's
+// SPD form: 75-83 tiles, which one block took 80 us to walk) is cut into
+// 16-tile chunks of work units (hack_units), one block each, and the
+// block whose atomicAdd on the row's counter is the k-th adds the k
+// chunks' sums in chunk order and scans.  Thread 0 keeps kStages = 4
+// tiles of the run in flight in a ring of shared-memory stages, each
+// tile's residue and page table (2 KiB) brought by the TMA's 1-D bulk
+// copies onto one mbarrier per stage; each thread streams its 8 values of a tile straight from
+// global memory (evict-first loads) and reads the tile's word and its
+// superpage bases while the copies fly.  It decodes its 8 cells from
+// shared memory, issues their 8 x gathers together, and adds the
+// products to one register sum, tile by tile and slot by slot; then the
+// block scans the 128 sums (the flush's warp-shuffle scan, segment_sum)
+// and stores z.  A stage is refilled once all 128 threads have arrived on
+// its second mbarrier, each after a fence.proxy.async: the arrive orders
+// the threads' reads of the stage for the generic proxy only, and without
+// the fence a refill overwrote stages still being read (float64 sums
+// went wrong from run to run on the H100).  What bounds it is bytes: the
+// run's slab once, x from L2, z once.  The design takes away what the
+// tile pass and flush add to those bytes: the accumulator's zero fill,
+// one atomic per lane and tile (two in complex128) and a second launch
+// that reads the accumulator back (the flush: 27-31 % of #4 on the
+// dd-Laplacian in kernel #19's account of the tile pass).  A hack with no
+// tiles stores zeros.  Measured on the H100 and not kept: the values in
+// the ring too (10-18 KiB stages: 2-3 stages ran 12-25 % slower on the
+// flagship, more stages slower still, with the L1 that the x gathers use
+// given over to shared memory), 2 and 8 index stages (no better than 4),
+// and loading the next tile's values during the current tile's FMAs
+// (faster on scattered float64, slower on aligned and on the Laplacian).
+
+// Complex: a cell is one aligned float2 / double2 value, x one more.  Each
+// thread keeps re and im sums and adds four FMAs per cell, in this order:
+// re += vr*xr; re -= vi*xi; im += vr*xi; im += vi*xr.  #7's tile pass then
 // issues two atomicAdds, on the re and on the im word of the accumulator
 // (componentwise adds are exact in meaning: there is no complex atomic).
-// The flush scans re and im separately (a shuffle per component); its
-// shared scan array is 128 T, 2 KiB for complex128.
+// The scan runs over re and im separately (a shuffle per component).
 //
 // SpMM (entry whell_packed_spmm, kernel #12) replaces
 // _whell_packed_spmm_kernel (_whell_packed_spmm_call,
@@ -91,16 +123,16 @@
 // closure of doc/sweeps/dd_ablation.py (its pallas_call body adds one op
 // family of _whell_packed_dd_kernel at a time, at the production
 // geometry): the per-op account of #4 in float64.  The levels are the
-// production tile body (whell_tile, which whell_tile_pass instantiates at
-// kAtomic) cut after one family: stream (the value, residue and page-table
-// bytes of every cell, 10 B/cell, each consumed), gather (+ the page table
-// in shared memory, the decode and the x gather: the production tile sum),
-// atomic (+ one atomicAdd(double) per lane: the production tile pass
-// alone) and full (+ the flush: the production launch).  Below atomic each
-// lane's sum is stored to a (num_tiles, 128) part array, 1 KiB per tile, the
-// same in both levels.  The TPU levels eft, ddrmw and norelax price
-// double-float arithmetic, which native float64 does not have.  Bound:
-// that of #4 on the same layout.
+// production hack pass (whell_hack_pass, which #4 instantiates at kFull)
+// cut after one family: stream (the streamed values and the ring's
+// copies, every byte consumed: 10 B/cell), gather (+ the decode and the x gather), own (+ the per-hack
+// register sum over the run, stored unscanned) and full (+ the scan: the
+// production launch).  stream and gather store each tile's lane sums to a
+// (num_tiles, 128) part array, 1 KiB per tile.  The TPU levels eft, ddrmw
+// and norelax price double-float arithmetic, which native float64 does
+// not have; the atomic level of the tile pass's account priced its
+// atomics, which the hack pass does not have.  Bound: that of #4 on the
+// same layout.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -119,15 +151,7 @@ __device__ __forceinline__ float load_value(const uint16_t* v, int64_t i) {
   return __uint_as_float(static_cast<uint32_t>(__ldg(v + i)) << 16);
 }
 
-__device__ __forceinline__ double load_value(const double* v, int64_t i) {
-  return __ldg(v + i);
-}
-
 __device__ __forceinline__ float2 load_value(const float2* v, int64_t i) {
-  return __ldg(v + i);
-}
-
-__device__ __forceinline__ double2 load_value(const double2* v, int64_t i) {
   return __ldg(v + i);
 }
 
@@ -192,12 +216,7 @@ __device__ __forceinline__ double2 shfl_up(double2 v, int o) {
 
 // *p += v; a complex sum takes two atomics, one per component
 __device__ __forceinline__ void atomic_add(float* p, float v) { atomicAdd(p, v); }
-__device__ __forceinline__ void atomic_add(double* p, double v) { atomicAdd(p, v); }
 __device__ __forceinline__ void atomic_add(float2* p, float2 v) {
-  atomicAdd(&p->x, v.x);
-  atomicAdd(&p->y, v.y);
-}
-__device__ __forceinline__ void atomic_add(double2* p, double2 v) {
   atomicAdd(&p->x, v.x);
   atomicAdd(&p->y, v.y);
 }
@@ -228,17 +247,11 @@ __device__ __forceinline__ int64_t tile_hack(const int32_t* __restrict__ chunk_g
   return static_cast<int64_t>(chunk_group[t / chunk_tiles]) * group_hacks + hh;
 }
 
-// The op families of the tile pass, added one at a time (kernel #19's
-// levels): kStream reads the value, residue and page-table bytes of each
-// cell, kGather adds the page table in shared memory, the decode and the x
-// gather (the production tile sum), kAtomic the atomicAdd into the hack
-// row (the production tile pass); kFull, the tile pass and the flush, is
-// the production launch.  Below kAtomic the lane's sum goes to acc[t, j]
-// with a plain store (acc is then the (num_tiles, 128) part array).
-enum Level : int { kStream = 0, kGather = 1, kAtomic = 2, kFull = 3 };
-
-// V: value storage type; T: x, accumulator and output type (T{} is zero)
-template <typename V, typename T, bool kScattered, int kLevel>
+// The tile pass of #1 and #7 (V: value storage type; T: x, accumulator
+// and output type, T{} is zero): the tile's page table goes to shared
+// memory, each thread sums its lane over the 8 slots in a register and
+// adds the sum into the (hack, lane) accumulator with one atomic.
+template <typename V, typename T, bool kScattered>
 __device__ __forceinline__ void whell_tile(const V* __restrict__ values,
                                            const int8_t* __restrict__ residue,
                                            const int8_t* __restrict__ page_tab,
@@ -250,37 +263,23 @@ __device__ __forceinline__ void whell_tile(const V* __restrict__ values,
   const int64_t t = blockIdx.x;
   const int j = threadIdx.x;
   const int64_t cell0 = t * (kSlots * kLanes);
-  if constexpr (kLevel == kStream) {  // every byte consumed: v*1.5 + (r + d)
-    T sum{};
+  __shared__ int8_t pt[kSlots][kLanes];
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int64_t c = cell0 + s * kLanes + j;
-      sum = mac(load_value(values, c), T(1.5), sum) + T(residue[c] + page_tab[c]);
-    }
-    acc[t * kLanes + j] = sum;
-  } else {
-    __shared__ int8_t pt[kSlots][kLanes];
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) pt[s][j] = page_tab[cell0 + s * kLanes + j];
-    const uint32_t meta = static_cast<uint32_t>(tile_base[t]);
-    __syncthreads();
+  for (int s = 0; s < kSlots; ++s) pt[s][j] = page_tab[cell0 + s * kLanes + j];
+  const uint32_t meta = static_cast<uint32_t>(tile_base[t]);
+  __syncthreads();
 
-    T sum{};
+  T sum{};
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int64_t c = cell0 + s * kLanes + j;
-      const int64_t col =
-          cell_column<kScattered>(pt, s, residue[c], meta, group_bases, ntab);
-      sum = mac(load_value(values, c), __ldg(x + col), sum);
-    }
-    if constexpr (kLevel == kAtomic) {
-      const int64_t hack =
-          tile_hack<kScattered>(chunk_group, t, meta, chunk_tiles, group_hacks);
-      atomic_add(acc + hack * kLanes + j, sum);
-    } else {
-      acc[t * kLanes + j] = sum;
-    }
+  for (int s = 0; s < kSlots; ++s) {
+    const int64_t c = cell0 + s * kLanes + j;
+    const int64_t col =
+        cell_column<kScattered>(pt, s, residue[c], meta, group_bases, ntab);
+    sum = mac(load_value(values, c), __ldg(x + col), sum);
   }
+  const int64_t hack =
+      tile_hack<kScattered>(chunk_group, t, meta, chunk_tiles, group_hacks);
+  atomic_add(acc + hack * kLanes + j, sum);
 }
 
 template <typename V, typename T, bool kScattered>
@@ -293,27 +292,261 @@ whell_tile_pass(const V* __restrict__ values,
                 const int32_t* __restrict__ group_bases,
                 const T* __restrict__ x, T* __restrict__ acc,
                 int chunk_tiles, int group_hacks, int ntab) {
-  whell_tile<V, T, kScattered, kAtomic>(values, residue, page_tab, tile_base,
-                                        chunk_group, group_bases, x, acc,
-                                        chunk_tiles, group_hacks, ntab);
+  whell_tile<V, T, kScattered>(values, residue, page_tab, tile_base,
+                               chunk_group, group_bases, x, acc,
+                               chunk_tiles, group_hacks, ntab);
 }
 
-// kernel #19's levels below the production tile pass, float64: the tile
-// pass cut after one op family, its lane sums stored to part (num_tiles, 128)
-template <bool kScattered, int kLevel>
+// Lane j's output of one hack row of the hack pass from its lane sum a,
+// in a block of 128 threads that all call it: the flush pass's scan (kept
+// as its own copy there, whose shared-memory layout ptxas would otherwise
+// change).  With p the inclusive prefix sum of the row's lane sums,
+// (hi >= 0 ? p[hi] : 0) - (lo >= 0 ? p[lo] : 0), lo read from *lo_at
+// after the scan; with unit segments, the sum of lane hi.  The scan
+// array p is 128 T: 1 KiB for double, 2 KiB for double2.
+template <typename T, bool kUnit>
+__device__ __forceinline__ T segment_sum(T a, int hi,
+                                         const int8_t* __restrict__ lo_at) {
+  __shared__ T p[kLanes];
+  __shared__ T warp_total[kLanes / 32];
+  const int j = threadIdx.x;
+  if constexpr (kUnit) {
+    p[j] = a;
+    __syncthreads();
+    return hi >= 0 ? p[hi] : T{};
+  }
+  const int lane = j & 31, warp = j >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const T up = shfl_up(a, o);
+    if (lane >= o) a = add(a, up);
+  }
+  if (lane == 31) warp_total[warp] = a;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) a = add(a, warp_total[w]);
+  p[j] = a;
+  __syncthreads();
+  const int lo = *lo_at;
+  return sub(hi >= 0 ? p[hi] : T{}, lo >= 0 ? p[lo] : T{});
+}
+
+// ---------------------------------------------------------------------------
+// #4 and complex128: one block per hack row (whell_hack_pass)
+
+// The levels of the hack pass, which add one op family at a time (kernel
+// #19): kStream consumes every cell's streamed value and bulk-copied
+// residue and page-table bytes, kGather adds the decode and the x gather, kOwn the
+// lane's register sum over the hack's run, kFull the scan and segment
+// difference: the production launch.  kStream and kGather store each
+// tile's lane sums to out[t, j] ((num_tiles, 128) part array), kOwn each
+// hack's unscanned lane sums to out[h, j].
+enum Level : int { kStream = 0, kGather = 1, kOwn = 2, kFull = 3 };
+
+// tiles of a run in flight per block (the ring's stages)
+constexpr int kStages = 4;
+
+// The index bytes of one tile as the bulk copies land them in shared
+// memory: 2 KiB.
+struct Stage {
+  int8_t res[kSlots][kLanes];
+  int8_t pt[kSlots][kLanes];
+};
+
+__device__ __forceinline__ double load_streaming(const double* p) { return __ldcs(p); }
+__device__ __forceinline__ double2 load_streaming(const double2* p) { return __ldcs(p); }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void barrier_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count) : "memory");
+}
+
+// one arrival (release: this thread's earlier reads of the stage are
+// performed before the arrival is seen)
+__device__ __forceinline__ void barrier_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// the barrier's phase completes when `bytes` have landed
+__device__ __forceinline__ void barrier_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// waits for the phase of `parity` to complete; a copy that never lands
+// traps (a launch error) after about 2^34 cycles instead of hanging
+__device__ __forceinline__ void barrier_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  long long t0 = 0;
+  for (;;) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// the TMA's 1-D bulk copy global -> shared, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ double load_global(const double* p) { return __ldcg(p); }
+__device__ __forceinline__ double2 load_global(const double2* p) { return __ldcg(p); }
+
+// Block u runs work unit u = (begin, end, row, chunk) of hack_units
+// (formats/whell.py): the tiles [begin, end) of output row `row`'s run,
+// all of it (chunk -1) or its c-th chunk of k (chunk = c << 16 | k); thread
+// j is lane j.  Thread 0 keeps kStages tiles in flight with bulk copies
+// (a stage is refilled once all 128 threads have arrived on its `emptied`
+// barrier: their reads of it are then done); each thread decodes its 8
+// cells of a landed tile from shared memory, issues their 8 x gathers
+// together and adds the products to its register sum in slot order, tile
+// by tile.  A whole run's block then scans its sums into z[row, :] (out).
+// A chunk's block stores its sums to part[u, :]; the block that counts
+// the row's k-th arrival on done[row] adds the k chunks' sums in chunk
+// order (the same bits whichever block comes last), resets the counter
+// for the next launch and scans.
+template <typename T, bool kScattered, int kLevel, bool kUnit>
 __global__ void __launch_bounds__(kLanes)
-whell_ablation_pass(const double* __restrict__ values,
-                    const int8_t* __restrict__ residue,
-                    const int8_t* __restrict__ page_tab,
-                    const int32_t* __restrict__ tile_base,
-                    const int32_t* __restrict__ chunk_group,
-                    const int32_t* __restrict__ group_bases,
-                    const double* __restrict__ x, double* __restrict__ part,
-                    int chunk_tiles, int group_hacks, int ntab) {
-  whell_tile<double, double, kScattered, kLevel>(values, residue, page_tab,
-                                                 tile_base, chunk_group,
-                                                 group_bases, x, part,
-                                                 chunk_tiles, group_hacks, ntab);
+whell_hack_pass(const T* __restrict__ values,
+                const int8_t* __restrict__ residue,
+                const int8_t* __restrict__ page_tab,
+                const int32_t* __restrict__ tile_base,
+                const int32_t* __restrict__ group_bases,
+                const int4* __restrict__ units, int* __restrict__ done,
+                T* __restrict__ part, const int8_t* __restrict__ seg_lo,
+                const int8_t* __restrict__ seg_hi,
+                const T* __restrict__ x, T* __restrict__ out, int ntab) {
+  __shared__ __align__(128) Stage ring[kStages];
+  __shared__ __align__(8) uint64_t landed[kStages];
+  __shared__ __align__(8) uint64_t emptied[kStages];
+  const int4 unit = units[blockIdx.x];
+  const int64_t begin = unit.x, n = unit.y - unit.x, row = unit.z;
+  const int j = threadIdx.x;
+  if (j == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      barrier_init(&landed[s], 1);
+      barrier_init(&emptied[s], kLanes);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // thread 0: tile begin + i of the run into stage i % kStages
+  auto fetch = [&](int64_t i) {
+    Stage& st = ring[i % kStages];
+    uint64_t* bar = &landed[i % kStages];
+    const int64_t c = (begin + i) * (kSlots * kLanes);
+    barrier_expect(bar, sizeof(Stage));
+    bulk_copy(st.res, residue + c, sizeof(st.res), bar);
+    bulk_copy(st.pt, page_tab + c, sizeof(st.pt), bar);
+  };
+  if (j == 0)
+    for (int64_t i = 0; i < n && i < kStages; ++i) fetch(i);
+
+  [[maybe_unused]] T sum{};
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t t = begin + i;
+    // what does not wait for the copies: the lane's values (streamed from
+    // global memory), the tile's word and its superpage bases (scattered)
+    T v[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s)
+      v[s] = load_streaming(values + t * (kSlots * kLanes) + s * kLanes + j);
+    [[maybe_unused]] uint32_t meta = 0;
+    [[maybe_unused]] int32_t base[4] = {0, 0, 0, 0};
+    if constexpr (kLevel != kStream) {
+      meta = static_cast<uint32_t>(__ldg(tile_base + t));
+      if constexpr (kScattered) {
+        const int32_t* b = group_bases + static_cast<int64_t>(meta & 0xFFFFFu) * ntab;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (q < ntab) base[q] = __ldg(b + q);
+      }
+    }
+    const Stage& st = ring[i % kStages];
+    const uint32_t parity = static_cast<uint32_t>(i / kStages) & 1u;
+    barrier_wait(&landed[i % kStages], parity);
+    if constexpr (kLevel == kStream) {  // every byte consumed: v*1.5 + (r + d)
+      T tile{};
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s)
+        tile = add(mac(v[s], T(1.5), tile), T(st.res[s][j] + st.pt[s][j]));
+      out[t * kLanes + j] = tile;
+    } else {
+      int64_t col[kSlots];
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int r = st.res[s][j];
+        const int d = st.pt[s][r];
+        int64_t page;
+        if constexpr (kScattered) {
+          const int q = d >> 3;
+          page = static_cast<int64_t>(q == 0 ? base[0] : q == 1 ? base[1]
+                                      : q == 2 ? base[2] : base[3]) + (d & 7);
+        } else {
+          page = static_cast<int64_t>(meta & 0xFFFFu) + d;
+        }
+        col[s] = page * kLanes + r;
+      }
+      T xv[kSlots];
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) xv[s] = __ldg(x + col[s]);
+      if constexpr (kLevel == kGather) {
+        T tile{};
+#pragma unroll
+        for (int s = 0; s < kSlots; ++s) tile = mac(v[s], xv[s], tile);
+        out[t * kLanes + j] = tile;
+      } else {
+#pragma unroll
+        for (int s = 0; s < kSlots; ++s) sum = mac(v[s], xv[s], sum);
+      }
+    }
+    // This thread's reads of the stage are done.  The refill writes it
+    // through the async proxy, which the arrive alone does not order
+    // after generic-proxy reads: without the proxy fence a refill raced
+    // the reads on the H100 and corrupted float64 sums.
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    barrier_arrive(&emptied[i % kStages]);
+    if (j == 0 && i + kStages < n) {  // refill the stage once all have read it
+      barrier_wait(&emptied[i % kStages], parity);
+      fetch(i + kStages);
+    }
+  }
+  if constexpr (kLevel >= kOwn) {
+    if (unit.w >= 0) {  // a chunk: the row's last block adds the chunks
+      __shared__ bool last;
+      const int c = unit.w >> 16, k = unit.w & 0xFFFF;
+      part[static_cast<int64_t>(blockIdx.x) * kLanes + j] = sum;
+      __threadfence();
+      __syncthreads();
+      if (j == 0) last = atomicAdd(done + row, 1) == k - 1;
+      __syncthreads();
+      if (!last) return;
+      __threadfence();
+      const T* chunks = part + (static_cast<int64_t>(blockIdx.x) - c) * kLanes + j;
+      sum = T{};
+      for (int q = 0; q < k; ++q) sum = add(sum, load_global(chunks + q * kLanes));
+      if (j == 0) done[row] = 0;
+    }
+    const int64_t o = row * kLanes + j;
+    if constexpr (kLevel == kOwn) out[o] = sum;
+    else out[o] = segment_sum<T, kUnit>(sum, seg_hi[o], seg_lo + o);
+  }
 }
 
 // SpMM tile pass (kernel #12): the 8 cells of each lane are decoded once
@@ -373,9 +606,8 @@ whell_spmm_tile_pass(const V* __restrict__ values,
   }
 }
 
-// the scan array p is 128 T: 512 B for float, 1 KiB for double and float2,
-// 2 KiB for double2.  Block (h, r) flushes hack row h of RHS r (SpMV: r =
-// 0 only); acc and z hold gridDim.x rows per RHS, seg_lo/seg_hi one set.
+// Block (h, r) flushes hack row h of RHS r (SpMV: r = 0 only); acc and z
+// hold gridDim.x rows per RHS, seg_lo/seg_hi one set.
 template <typename T, bool kUnit>
 __global__ void __launch_bounds__(kLanes)
 whell_flush_pass(const T* __restrict__ acc,
@@ -492,19 +724,31 @@ int whell_spmm(const void* values, const void* residue, const void* page_tab,
   return static_cast<int>(cudaGetLastError());
 }
 
-// kernel #19's stream and gather levels on float64 values, x and part
-template <int kLevel>
-void launch_ablation(const double* v, const int8_t* res, const int8_t* pt,
-                     const int32_t* tb, const int32_t* cg, const int32_t* gb,
-                     const double* x, double* part, int64_t num_tiles,
-                     int chunk_tiles, int group_hacks, int ntab, cudaStream_t st) {
-  const dim3 grid(static_cast<unsigned>(num_tiles));
-  if (gb != nullptr)
-    whell_ablation_pass<true, kLevel><<<grid, kLanes, 0, st>>>(
-        v, res, pt, tb, cg, gb, x, part, chunk_tiles, group_hacks, ntab);
-  else
-    whell_ablation_pass<false, kLevel><<<grid, kLanes, 0, st>>>(
-        v, res, pt, tb, cg, gb, x, part, chunk_tiles, group_hacks, ntab);
+// The hack pass at level kLevel on values, x and out of type T, one block
+// per work unit; returns cudaGetLastError().
+template <typename T, int kLevel>
+int hack_pass(const void* values, const void* residue, const void* page_tab,
+              const void* tile_base, const void* group_bases, const void* units,
+              void* done, void* part, const void* seg_lo, const void* seg_hi,
+              const void* x, void* out, int64_t num_units, int window_pages,
+              int unit_segments, void* stream) {
+  constexpr bool kScan = kLevel == kFull;  // only the scan reads segments
+  if (num_units > 0) {
+    auto* kernel = group_bases != nullptr
+        ? (kScan && unit_segments ? &whell_hack_pass<T, true, kLevel, kScan>
+                                  : &whell_hack_pass<T, true, kLevel, false>)
+        : (kScan && unit_segments ? &whell_hack_pass<T, false, kLevel, kScan>
+                                  : &whell_hack_pass<T, false, kLevel, false>);
+    kernel<<<static_cast<unsigned>(num_units), kLanes, 0,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(values), static_cast<const int8_t*>(residue),
+        static_cast<const int8_t*>(page_tab), static_cast<const int32_t*>(tile_base),
+        static_cast<const int32_t*>(group_bases), static_cast<const int4*>(units),
+        static_cast<int*>(done), static_cast<T*>(part),
+        static_cast<const int8_t*>(seg_lo), static_cast<const int8_t*>(seg_hi),
+        static_cast<const T*>(x), static_cast<T*>(out), window_pages / 8);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -536,73 +780,68 @@ int whell_packed_spmv(const void* values, int values_bf16,
       window_pages, unit_segments, stream);
 }
 
-// The same with float64 values, x, acc and z (_f64), with complex64 ones
-// (_c64) and with complex128 ones (_c128), interleaved re/im.
-#define WHELL_ENTRY(NAME, T)                                                   \
+// The same with complex64 values, x, acc and z, interleaved re/im.
+int whell_packed_spmv_c64(const void* values, const void* residue,
+                          const void* page_tab, const void* tile_base,
+                          const void* chunk_group, const void* group_bases,
+                          const void* seg_lo, const void* seg_hi, const void* x,
+                          void* acc, void* z, int64_t num_tiles, int64_t num_rows,
+                          int chunk_tiles, int group_hacks, int window_pages,
+                          int unit_segments, void* stream) {
+  return whell_spmv<float2, float2>(
+      values, residue, page_tab, tile_base, chunk_group, group_bases, seg_lo,
+      seg_hi, x, acc, z, num_tiles, num_rows, chunk_tiles, group_hacks,
+      window_pages, unit_segments, stream);
+}
+
+// Kernel #4 (_f64: float64 values, x and z) and the complex128 kernel
+// (_c128, interleaved re/im): z (num_rows x 128), one block per work unit
+// of `units` ((num_units, 4) int32, WhellMatrix.hack_units, covering every
+// output row).  done (num_rows int32) must be zero and is zero again when
+// the launch ends; part (num_units x 128 of T) is scratch for chunked
+// runs.  values, residue and page_tab must be 16 B aligned (the bulk
+// copies); group_bases may be null (aligned windows).  Launches once on
+// `stream`, does not synchronise, and returns cudaGetLastError().
+#define HACK_ENTRY(NAME, T)                                                    \
   int NAME(const void* values, const void* residue, const void* page_tab,    \
-           const void* tile_base, const void* chunk_group,                   \
-           const void* group_bases, const void* seg_lo, const void* seg_hi,  \
-           const void* x, void* acc, void* z, int64_t num_tiles,             \
-           int64_t num_rows, int chunk_tiles, int group_hacks,               \
+           const void* tile_base, const void* group_bases,                   \
+           const void* units, void* done, void* part, const void* seg_lo,    \
+           const void* seg_hi, const void* x, void* z, int64_t num_units,    \
            int window_pages, int unit_segments, void* stream) {              \
-    return whell_spmv<T, T>(values, residue, page_tab, tile_base,            \
-                            chunk_group, group_bases, seg_lo, seg_hi, x, acc, \
-                            z, num_tiles, num_rows, chunk_tiles, group_hacks, \
-                            window_pages, unit_segments, stream);            \
+    return hack_pass<T, kFull>(values, residue, page_tab, tile_base,         \
+                               group_bases, units, done, part, seg_lo,       \
+                               seg_hi, x, z, num_units, window_pages,        \
+                               unit_segments, stream);                       \
   }
 
-WHELL_ENTRY(whell_packed_spmv_f64, double)
-WHELL_ENTRY(whell_packed_spmv_c64, float2)
-WHELL_ENTRY(whell_packed_spmv_c128, double2)
+HACK_ENTRY(whell_packed_spmv_f64, double)
+HACK_ENTRY(whell_packed_spmv_c128, double2)
 
-#undef WHELL_ENTRY
+#undef HACK_ENTRY
 
-// Kernel #19, float64 values, x, acc and z, aligned or scattered windows:
-// level 0 (stream) or 1 (gather) writes every lane sum of the cut tile pass
-// to acc (num_tiles x 128; z unused); level 2 (atomic) is the production
-// tile pass alone into acc (num_rows x 128, zeroed by the caller; z
-// unused); level 3 (full) is whell_packed_spmv_f64.  Launches on `stream`,
-// does not synchronise, and returns cudaGetLastError()
-// (cudaErrorInvalidValue for another level).
+// Kernel #19, the hack pass of #4 at `level` (0 stream, 1 gather, 2 own,
+// 3 full), with whell_packed_spmv_f64's arguments: out is the part array
+// (num_tiles x 128; rows of tiles outside every run are not written) at
+// stream and gather, the unscanned row sums (num_rows x 128) at own, z at
+// full (whell_packed_spmv_f64 itself).  Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError() (cudaErrorInvalidValue for
+// another level).
 int whell_packed_ablation_f64(int level, const void* values, const void* residue,
                               const void* page_tab, const void* tile_base,
-                              const void* chunk_group, const void* group_bases,
-                              const void* seg_lo, const void* seg_hi,
-                              const void* x, void* acc, void* z,
-                              int64_t num_tiles, int64_t num_rows,
-                              int chunk_tiles, int group_hacks, int window_pages,
+                              const void* group_bases, const void* units,
+                              void* done, void* part, const void* seg_lo,
+                              const void* seg_hi, const void* x, void* out,
+                              int64_t num_units, int window_pages,
                               int unit_segments, void* stream) {
-  if (level == kFull)
-    return whell_spmv<double, double>(
-        values, residue, page_tab, tile_base, chunk_group, group_bases, seg_lo,
-        seg_hi, x, acc, z, num_tiles, num_rows, chunk_tiles, group_hacks,
-        window_pages, unit_segments, stream);
-  if (level < kStream || level > kFull)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* v = static_cast<const double*>(values);
-  auto* res = static_cast<const int8_t*>(residue);
-  auto* pt = static_cast<const int8_t*>(page_tab);
-  auto* tb = static_cast<const int32_t*>(tile_base);
-  auto* cg = static_cast<const int32_t*>(chunk_group);
-  auto* gb = static_cast<const int32_t*>(group_bases);
-  auto* xt = static_cast<const double*>(x);
-  auto* a = static_cast<double*>(acc);
-  const int ntab = window_pages / 8;
-  if (num_tiles > 0) {
-    const dim3 grid(static_cast<unsigned>(num_tiles));
-    if (level == kAtomic && gb != nullptr)
-      whell_tile_pass<double, double, true><<<grid, kLanes, 0, st>>>(
-          v, res, pt, tb, cg, gb, xt, a, chunk_tiles, group_hacks, ntab);
-    else if (level == kAtomic)
-      whell_tile_pass<double, double, false><<<grid, kLanes, 0, st>>>(
-          v, res, pt, tb, cg, gb, xt, a, chunk_tiles, group_hacks, ntab);
-    else
-      (level == kStream ? launch_ablation<kStream> : launch_ablation<kGather>)(
-          v, res, pt, tb, cg, gb, xt, a, num_tiles, chunk_tiles, group_hacks,
-          ntab, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  auto* fn = level == kStream ? &hack_pass<double, kStream>
+           : level == kGather ? &hack_pass<double, kGather>
+           : level == kOwn    ? &hack_pass<double, kOwn>
+           : level == kFull   ? &hack_pass<double, kFull>
+                              : nullptr;
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return fn(values, residue, page_tab, tile_base, group_bases, units, done, part,
+            seg_lo, seg_hi, x, out, num_units, window_pages, unit_segments,
+            stream);
 }
 
 // Kernel #12: Z (n_rhs x num_rows x 128) = the packed-WHELL product with

@@ -67,7 +67,8 @@ from spgpu_tpu_torch.core import CHUNK_TILES, join_dd, join_plane_fields
 
 __all__ = ["MAX_ALIGNED_X_PAGES", "MAX_LAYOUT_GROUPS", "PcellWhell",
            "WhellMatrix", "classic_work_list", "from_numpy_fields",
-           "from_numpy_pcell", "from_numpy_planes"]
+           "from_numpy_pcell", "from_numpy_planes", "packed_hack_ptr",
+           "packed_hack_units"]
 
 #: the value types of a packed slab
 VALUE_DTYPES = (torch.float32, torch.bfloat16, torch.float64, torch.complex64,
@@ -111,6 +112,68 @@ def _decode_pages(pt, res, meta, tile, group_bases, window_pages):
         page = group_bases[(meta & 0xFFFFF)[tile, None] * K + (d >> 3)] + (d & 7)
         return page, meta >> 20
     return (meta & 0xFFFF)[tile, None] + d, meta >> 16
+
+
+def packed_hack_ptr(tile_base: torch.Tensor, chunk_group: torch.Tensor, *,
+                    group_hacks: int, chunk_tiles: int, num_hacks: int,
+                    scattered: bool) -> torch.Tensor:
+    """The run of tiles of each hack of a packed layout: ``(num_hacks, 2)``
+    int32 ``[begin, end)``, on ``tile_base``'s device, derived from the
+    tiles' hacks alone.  The converter places each hack's tiles
+    contiguously, in hack order within each output group, then pads the
+    group to whole chunks with zero tiles whose hack-in-group is 0: a
+    group's tiles from its first descent in hack order on are that
+    padding and belong to no run (padding behind a last run of
+    hack-in-group 0 cannot be told apart and joins that run).  A hack with
+    no tiles gets ``[0, 0)``.  :meth:`WhellMatrix.check` verifies that the
+    runs hold every nonzero value."""
+    dev = tile_base.device
+    T = tile_base.numel()
+    t = torch.arange(T, device=dev)
+    grp = chunk_group.long()[t // chunk_tiles]
+    hack = grp * group_hacks + (tile_base.long() >> (20 if scattered else 16))
+    first = torch.ones(T, dtype=torch.bool, device=dev)
+    first[1:] = grp[1:] != grp[:-1]
+    descents = torch.zeros(T, dtype=torch.long, device=dev)
+    descents[1:] = (~first[1:] & (hack[1:] < hack[:-1])).long()
+    descents = descents.cumsum(0)
+    group_start = torch.cummax(torch.where(first, t, 0), 0).values
+    live = (descents == descents[group_start]) & (hack < num_hacks)
+    lt, lh = t[live], hack[live]  # hack order within and across groups
+    count = torch.bincount(lh, minlength=num_hacks)[:num_hacks]
+    begin = torch.zeros(num_hacks, dtype=torch.long, device=dev)
+    if lt.numel():
+        pos = torch.searchsorted(lh, torch.arange(num_hacks, device=dev))
+        begin = torch.where(count > 0, lt[pos.clamp(max=lt.numel() - 1)], 0)
+    return torch.stack([begin, begin + count], 1).int()
+
+
+#: tiles of a hack's run that one block of the hack pass sums: a longer
+#: run is cut into chunks of this many tiles, summed by as many blocks
+RUN_CHUNK_TILES = 16
+
+
+def packed_hack_units(hack_ptr: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """The work units of the hack pass (kernel #4 and complex128), one
+    per block: ``(U, 4)`` int32 ``[begin, end, row, chunk]`` on
+    ``hack_ptr``'s device, in row order.  Row ``h < num_hacks`` sums its
+    run ``hack_ptr[h]`` in one unit when the run has at most
+    :data:`RUN_CHUNK_TILES` tiles (``chunk`` -1), else in ``k`` units of
+    consecutive chunks of the run (``chunk`` ``c << 16 | k`` for the
+    ``c``-th); every other output row is one empty unit."""
+    dev = hack_ptr.device
+    H = hack_ptr.shape[0]
+    begin = torch.zeros(num_rows, dtype=torch.long, device=dev)
+    n = torch.zeros(num_rows, dtype=torch.long, device=dev)
+    begin[:H] = hack_ptr[:, 0].long()
+    n[:H] = hack_ptr[:, 1].long() - begin[:H]
+    k = (-(-n // RUN_CHUNK_TILES)).clamp(min=1)
+    row = torch.repeat_interleave(torch.arange(num_rows, device=dev), k)
+    c = torch.arange(row.numel(), device=dev) - (torch.cumsum(k, 0) - k)[row]
+    b = begin[row] + c * RUN_CHUNK_TILES
+    e = torch.minimum(b + RUN_CHUNK_TILES, begin[row] + n[row])
+    chunk = torch.where(k[row] > 1, c << 16 | k[row], -1)
+    return torch.stack([b, e, row, chunk], 1).int()
 
 
 def classic_work_list(values: torch.Tensor) -> torch.Tensor:
@@ -160,11 +223,42 @@ class WhellMatrix:
     # classic only: classic_work_list(values), rebuilt with every layout
     work_list: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
                                                           repr=False)
+    # packed only, rebuilt with every layout: packed_hack_ptr(...), the
+    # hack pass's work units packed_hack_units(hack_ptr, rows) and its run
+    # counters (one int32 per output row, zero between calls: the block
+    # that ends a chunked run resets its row's; so two products on one
+    # layout must not run at once on two streams)
+    hack_ptr: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
+                                                         repr=False)
+    hack_units: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
+                                                           repr=False)
+    hack_done: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
+                                                          repr=False)
 
     def __post_init__(self) -> None:
         v = self.values
         if not self.packed and v.dim() == 2 and v.shape[1] == 128 and v.shape[0] % 8 == 0:
             self.work_list = classic_work_list(v)
+        if self.packed and self._whole_chunks():
+            self.hack_ptr = self._derive_hack_ptr()
+            rows = self.seg_lo.shape[0]
+            self.hack_units = packed_hack_units(self.hack_ptr, rows)
+            self.hack_done = torch.zeros(rows, dtype=torch.int32, device=self.device)
+
+    def _whole_chunks(self) -> bool:
+        """The packed tile scalars are shaped for a derivation: whole
+        chunks and one chunk_group entry per chunk plus the sentinel."""
+        T, ct = self.tile_base.numel(), self.chunk_tiles
+        return (ct >= 1 and T % ct == 0 and self.tile_base.dim() == 1
+                and self.chunk_group.shape == (T // ct + 1,))
+
+    def _derive_hack_ptr(self, device=None) -> torch.Tensor:
+        tb, cg = self.tile_base, self.chunk_group
+        if device is not None:
+            tb, cg = tb.to(device), cg.to(device)
+        return packed_hack_ptr(tb, cg, group_hacks=self.group_hacks,
+                               chunk_tiles=self.chunk_tiles,
+                               num_hacks=self.num_hacks, scattered=self.scattered)
 
     @property
     def device(self) -> torch.device:
@@ -321,11 +415,52 @@ class WhellMatrix:
                              torch.arange(R * 128)), "row_perm is not a permutation")
         if packed:
             want(self.work_list is None, "a packed layout has no work_list")
+            self._check_hack_runs(want)
         else:
             wl = self.work_list
             want(wl is not None and wl.dtype == torch.int64 and wl.device == self.device
                  and torch.equal(wl.cpu(), classic_work_list(self.values.cpu())),
                  "work_list does not match the values (changed in place?)")
+
+
+    def _check_hack_runs(self, want) -> None:
+        """``hack_ptr`` is the derivation from the tile scalars, each run
+        holds only its hack's tiles, no tile lies in two runs, and every
+        tile outside the runs holds zeros only: the SpMV kernels of #4 and
+        complex128 never read those tiles."""
+        hp = self.hack_ptr
+        want(hp is not None and hp.dtype == torch.int32 and hp.device == self.device
+             and tuple(hp.shape) == (self.num_hacks, 2)
+             and torch.equal(hp.cpu(), self._derive_hack_ptr("cpu")),
+             "hack_ptr does not match the tile scalars")
+        hp = hp.cpu().long()
+        want(self.num_hacks == 0 or int((hp[:, 1] - hp[:, 0]).max()) < RUN_CHUNK_TILES << 15,
+             "a hack's run passes the 15-bit chunk field of its work units")
+        rows = self.num_groups * self.group_hacks
+        units, done = self.hack_units, self.hack_done
+        want(units is not None and units.device == self.device
+             and torch.equal(units.cpu(), packed_hack_units(hp.int(), rows)),
+             "hack_units does not match hack_ptr")
+        want(done is not None and done.dtype == torch.int32 and done.device == self.device
+             and tuple(done.shape) == (rows,), "hack_done shape")
+        T = self.num_tiles
+        begin, count = hp[:, 0], hp[:, 1] - hp[:, 0]
+        owner = torch.repeat_interleave(torch.arange(self.num_hacks), count)
+        tiles = (torch.repeat_interleave(begin, count) + torch.arange(owner.numel())
+                 - torch.repeat_interleave(torch.cumsum(count, 0) - count, count))
+        meta = self.tile_base.cpu().long()
+        cg = self.chunk_group.cpu().long()
+        hack = (cg[torch.arange(T) // self.chunk_tiles] * self.group_hacks
+                + (meta >> (20 if self.scattered else 16)))
+        covered = torch.zeros(T, dtype=torch.long)
+        covered.index_add_(0, tiles, torch.ones_like(tiles))
+        want(bool((covered <= 1).all()) and torch.equal(hack[tiles], owner),
+             "a hack's tiles are not one contiguous run")
+        skipped = (covered == 0).nonzero().view(-1)
+        vals = self.values.detach().cpu().view(T, 8 * 128)[skipped]
+        want(not bool((vals != 0).any()),
+             "a tile outside every hack run holds a nonzero value (runs not "
+             "contiguous, or padding not zero)")
 
 
 @dataclasses.dataclass

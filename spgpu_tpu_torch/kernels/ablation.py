@@ -15,17 +15,20 @@ that the differences between levels price one family each:
   ``v·(col & 127)``), ``gather`` (+ the guarded x read: the production
   tile sum) and ``full`` (+ one atomicAdd per lane: the production
   ``whdia_spmv`` launch);
-* #19 (:data:`F64_LEVELS`): ``stream`` (each cell's value, residue and
-  page-table bytes, summed as ``1.5·v + r + d``), ``gather`` (+ the page
-  table in shared memory, the decode and the x gather), ``atomic`` (+ one
-  atomicAdd per lane: the production tile pass alone, into the
-  accumulator) and ``full`` (+ the flush: the production
+* #19 (:data:`F64_LEVELS`), on the production hack pass of #4
+  (``whell_hack_pass``: one block per hack row, the run's index bytes
+  brought into shared memory by bulk copies, its values streamed):
+  ``stream`` (each cell's value, residue and page-table bytes summed as
+  ``1.5·v + r + d``), ``gather`` (+ the decode and the x gather), ``own`` (+ each
+  lane's register sum over its hack's run, stored unscanned) and
+  ``full`` (+ the scan and segment difference: the production
   ``whell_packed_spmv_f64`` launch).
 
-Below ``full`` (``atomic`` for #19) a level returns its lane sums, one
+Below ``full`` (``own`` for #19) a level returns its lane sums, one
 plain store per lane: ``part`` ``(num_tiles, 128)``.  :data:`TPU_LEVELS`
 maps each level of the TPU scripts to the card level that covers it, or
-to None with the reason it has no counterpart.
+to None with the reason it has no counterpart; :data:`RETIRED_LEVELS`
+names the card levels that the production code no longer has, and why.
 
 :func:`whdia_ablation` and :func:`whell_f64_ablation` launch for CUDA
 tensors (or raise) and run :func:`whdia_ablation_plain` /
@@ -47,7 +50,8 @@ from spgpu_tpu_torch.kernels import whdia as _whdia
 from spgpu_tpu_torch.kernels import whell as _whell
 
 __all__ = ["F64_LEVELS", "LAUNCHES_F64_ABLATION", "LAUNCHES_WHDIA_ABLATION",
-           "LEVEL_ADDS", "TPU_LEVELS", "WHDIA_LEVELS", "whdia_ablation",
+           "LEVEL_ADDS", "RETIRED_LEVELS", "TPU_LEVELS", "WHDIA_LEVELS",
+           "whdia_ablation",
            "whdia_ablation_plain", "whell_f64_ablation",
            "whell_f64_ablation_plain"]
 
@@ -59,7 +63,7 @@ LAUNCHES_F64_ABLATION = 0
 #: the card levels, in the order they add op families (the C entries'
 #: level codes are the positions)
 WHDIA_LEVELS = ("stream", "r0", "gather", "full")
-F64_LEVELS = ("stream", "gather", "atomic", "full")
+F64_LEVELS = ("stream", "gather", "own", "full")
 
 #: what each card level adds to the one before it
 LEVEL_ADDS = {
@@ -72,13 +76,27 @@ LEVEL_ADDS = {
                 "whdia_spmv launch (the card's WHDIA has no flush)",
     },
     "f64": {
-        "stream": "each cell's value (8 B), residue and page-table byte, "
-                  "summed as 1.5·v + r + d (10 B/cell)",
-        "gather": "the page table in shared memory, the cell's column and "
-                  "the x gather: the production tile sum",
-        "atomic": "one atomicAdd(double) per lane into the accumulator: the "
-                  "production tile pass alone",
-        "full": "the flush pass: the production whell_packed_spmv_f64 launch",
+        "stream": "each cell's value (8 B) streamed from global memory and "
+                  "its residue and page-table bytes bulk-copied into shared "
+                  "memory, summed as 1.5·v + r + d (10 B/cell), a 1 KiB "
+                  "store per tile",
+        "gather": "the cell's column from shared memory and the x gather: "
+                  "the production tile sum, still stored per tile",
+        "own": "each lane's register sum over its hack's run, one unscanned "
+               "store per hack row in place of the per-tile stores",
+        "full": "the scan and segment difference in the same block: the "
+                "production whell_packed_spmv_f64 launch",
+    },
+}
+
+#: card levels that an earlier production body had and this one has not,
+#: with the reason
+RETIRED_LEVELS = {
+    "f64": {
+        "atomic": "one atomicAdd(double) per lane and tile into a zeroed "
+                  "accumulator, then a flush launch: the hack pass owns "
+                  "each hack row in one block, sums its run in registers "
+                  "and scans it in place, so it has no atomics to price",
     },
 }
 
@@ -105,8 +123,9 @@ TPU_LEVELS = {
                       "arithmetic, which the port does not have: float64 "
                       "FMA is native on the card"),
         "ddrmw": (None, "the double-float accumulate (two_sum chain) has no "
-                        "counterpart; the card's accumulate is one "
-                        "atomicAdd(double) per lane, the atomic level"),
+                        "counterpart; the card's accumulate is one float64 "
+                        "FMA into a register per cell, inside the gather "
+                        "and own levels"),
         "norelax": (None, "relaxes the double-float renormalisation, which "
                           "native float64 does not do"),
         "full": ("full", "the production kernel"),
@@ -187,12 +206,15 @@ def whell_f64_ablation(level: str, values, residue, page_tab, tile_base,
                        chunk_group, group_bases: Optional[torch.Tensor],
                        seg_lo, seg_hi, x2d, *, chunk_tiles: int,
                        group_hacks: int, window_pages: int,
-                       unit_segments: bool) -> torch.Tensor:
+                       unit_segments: bool, hack_units: torch.Tensor,
+                       hack_done: torch.Tensor) -> torch.Tensor:
     """Kernel #19 at ``level`` (:data:`F64_LEVELS`) on a float64 packed
-    WHELL layout (aligned or scattered windows) and lane-space ``x2d``
-    ``(x_pages, 128)`` float64: ``part`` ``(num_tiles, 128)`` at
-    ``stream`` and ``gather``, the accumulator ``(num_groups*group_hacks,
-    128)`` at ``atomic``, the product (same shape) at ``full``.
+    WHELL layout (aligned or scattered windows), its work units and run
+    counters (``WhellMatrix.hack_units``, ``.hack_done``) and lane-space
+    ``x2d`` ``(x_pages, 128)`` float64: ``part`` ``(num_tiles, 128)`` at
+    ``stream`` and ``gather`` (zero on tiles outside every run), the
+    unscanned row sums ``(num_groups*group_hacks, 128)`` at ``own``, the
+    product (same shape) at ``full``.
 
     CUDA tensors launch the kernel (counted in
     ``LAUNCHES_F64_ABLATION``); CPU tensors run
@@ -204,58 +226,63 @@ def whell_f64_ablation(level: str, values, residue, page_tab, tile_base,
     if values.dtype != torch.float64:
         raise ValueError(f"whell_f64_ablation: bad values: kernel #19 takes "
                          f"float64, not {values.dtype}")
+    _whell._check_units("whell_f64_ablation", hack_units, hack_done, values, seg_lo)
     static = dict(chunk_tiles=chunk_tiles, group_hacks=group_hacks,
                   window_pages=window_pages, unit_segments=unit_segments)
     dev = x2d.device
     if dev.type == "cpu":
         return whell_f64_ablation_plain(level, values, residue, page_tab,
                                         tile_base, chunk_group, group_bases,
-                                        seg_lo, seg_hi, x2d, **static)
+                                        seg_lo, seg_hi, x2d,
+                                        hack_units=hack_units, **static)
     lib = _whell._LIB.load()
-    T, R = tile_base.shape[0], seg_lo.shape[0]
-    if level in ("stream", "gather"):
-        acc, z = torch.empty((T, 128), dtype=x2d.dtype, device=dev), None
-    else:
-        acc = torch.zeros((R, 128), dtype=x2d.dtype, device=dev)
-        z = torch.empty((R, 128), dtype=x2d.dtype, device=dev) if level == "full" else None
+    rows = tile_base.shape[0] if level in ("stream", "gather") else seg_lo.shape[0]
+    # the part rows of tiles outside every run are never written
+    out = (torch.zeros if level in ("stream", "gather") else torch.empty)(
+        (rows, 128), dtype=x2d.dtype, device=dev)
     err = lib.whell_packed_ablation_f64(
-        code, values.data_ptr(),
-        *_whell._layout_args(residue, page_tab, tile_base, chunk_group,
-                             group_bases, seg_lo, seg_hi),
-        x2d.data_ptr(), acc.data_ptr(), None if z is None else z.data_ptr(),
-        T, R, chunk_tiles, group_hacks, window_pages, int(unit_segments),
-        torch.cuda.current_stream(dev).cuda_stream)
+        code, values.data_ptr(), *_whell.hack_pass_args(
+            "whell_f64_ablation", values, residue, page_tab, tile_base,
+            group_bases, hack_units, hack_done, seg_lo, seg_hi, x2d, out,
+            window_pages, unit_segments))
     if err != 0:
         raise RuntimeError(f"whell_f64_ablation({level!r}) launch failed: "
                            f"CUDA error {err}")
     global LAUNCHES_F64_ABLATION
     LAUNCHES_F64_ABLATION += 1
-    return acc if z is None else z
+    return out
 
 
 def whell_f64_ablation_plain(level: str, values, residue, page_tab,
                              tile_base, chunk_group, group_bases, seg_lo,
                              seg_hi, x2d, *, chunk_tiles: int,
                              group_hacks: int, window_pages: int,
-                             unit_segments: bool) -> torch.Tensor:
+                             unit_segments: bool, hack_units: torch.Tensor,
+                             hack_done: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel #19's function at ``level`` in plain PyTorch, on the
-    operands' device: the gathers and flush of :func:`~spgpu_tpu_torch.
-    kernels.whell.whell_packed_spmm_plain`, cut where the level cuts the
-    kernel."""
+    operands' device: the products of :func:`~spgpu_tpu_torch.kernels.
+    whell.whell_hack_sums` and its flush, cut where the level cuts the
+    kernel (``stream`` and ``gather`` zero the tiles outside every unit);
+    ``hack_done`` is taken for the kernel's signature and not read."""
     _code(level, F64_LEVELS, "whell_f64_ablation_plain")
     T = tile_base.shape[0]
-    if level == "stream":
-        index_bytes = (residue.long() + page_tab.long()).to(values.dtype)
-        return (values * 1.5 + index_bytes).view(T, 8, 128).sum(dim=1)
-    tile_sums, hack = _whell.whell_tile_sums(
-        values, residue, page_tab, tile_base, chunk_group, group_bases,
-        x2d.unsqueeze(0), chunk_tiles=chunk_tiles, group_hacks=group_hacks,
-        window_pages=window_pages)
-    if level == "gather":
-        return tile_sums[0]
-    acc = torch.zeros((seg_lo.shape[0], 128), dtype=x2d.dtype, device=x2d.device)
-    acc.index_add_(0, hack, tile_sums[0])
-    if level == "atomic":
-        return acc
-    return _whell.whell_flush_plain(acc.unsqueeze(0), seg_lo, seg_hi,
-                                    unit_segments)[0]
+    if level in ("stream", "gather"):
+        if level == "stream":
+            index_bytes = (residue.long() + page_tab.long()).to(values.dtype)
+            part = (values * 1.5 + index_bytes).view(T, 8, 128).sum(dim=1)
+        else:
+            part = _whell.whell_cell_products(
+                values, residue, page_tab, tile_base, group_bases,
+                x2d.unsqueeze(0), window_pages=window_pages)[0][0].sum(dim=1)
+        run = torch.zeros(T + 1, dtype=torch.long, device=part.device)
+        begin, end = hack_units[:, 0].long(), hack_units[:, 1].long()
+        run.index_add_(0, begin, torch.ones_like(begin))
+        run.index_add_(0, end, -torch.ones_like(end))
+        return torch.where((run.cumsum(0)[:T] > 0)[:, None], part, 0.0)
+    acc = _whell.whell_hack_sums(values, residue, page_tab, tile_base,
+                                 group_bases, hack_units, x2d.unsqueeze(0),
+                                 num_rows=seg_lo.shape[0],
+                                 window_pages=window_pages)
+    if level == "own":
+        return acc[0]
+    return _whell.whell_flush_plain(acc, seg_lo, seg_hi, unit_segments)[0]

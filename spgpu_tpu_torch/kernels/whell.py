@@ -33,8 +33,8 @@ import torch
 from spgpu_tpu_torch.kernels._build import CudaLibrary
 
 __all__ = ["LAUNCHES", "LAUNCHES_C128", "LAUNCHES_C64", "LAUNCHES_F64",
-           "LAUNCHES_SPMM", "SOURCE", "build", "whell_packed_spmm",
-           "whell_packed_spmm_plain", "whell_packed_spmv",
+           "LAUNCHES_SPMM", "PER_HACK", "SOURCE", "build", "whell_hack_sums",
+           "whell_packed_spmm", "whell_packed_spmm_plain", "whell_packed_spmv",
            "whell_packed_spmv_plain"]
 
 #: launches of kernel #1 (fp32 product), #4 (float64), #7 (complex64),
@@ -46,33 +46,35 @@ LAUNCHES_C64 = 0
 LAUNCHES_C128 = 0
 LAUNCHES_SPMM = 0
 
-#: value dtype -> (C entry, launch counter) of the entries that take x,
-#: the accumulator and z in the values' own type
+#: value dtype -> (C entry, launch counter) of the entries that take x
+#: and z in the values' own type
 _TYPED = {torch.float64: ("whell_packed_spmv_f64", "LAUNCHES_F64"),
           torch.complex64: ("whell_packed_spmv_c64", "LAUNCHES_C64"),
           torch.complex128: ("whell_packed_spmv_c128", "LAUNCHES_C128")}
+#: value dtypes whose kernel sums each hack's run in one block (#4 and the
+#: complex128 kernel: one launch over ``hack_units``, no accumulator)
+PER_HACK = (torch.float64, torch.complex128)
 #: value dtypes of the fp32-x entries (#1 and the SpMM #12)
 _FP32_X = (torch.float32, torch.bfloat16)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    tile_pass = [p, p, p, p, p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, p]
+    hack_pass = [p, p, p, p, p, p, p, p, p, p, p, i64, i32, i32, p]
     lib.whell_packed_spmv.restype = ctypes.c_int
-    lib.whell_packed_spmv.argtypes = [
-        p, i32, p, p, p, p, p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, p]
+    lib.whell_packed_spmv.argtypes = [p, i32] + tile_pass
     lib.whell_packed_spmm.restype = ctypes.c_int
     lib.whell_packed_spmm.argtypes = [
         p, i32, p, p, p, p, p, p, p, p, p, p, i64, i64, i32, i32, i32, i32,
         i32, p]
-    for name, _ in _TYPED.values():
+    for dt, (name, _) in _TYPED.items():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i64, i64, i32, i32,
-                       i32, i32, p]
+        fn.argtypes = [p] + (hack_pass if dt in PER_HACK else tile_pass)
     # kernel #19 (spgpu_tpu_torch.kernels.ablation)
     lib.whell_packed_ablation_f64.restype = ctypes.c_int
-    lib.whell_packed_ablation_f64.argtypes = [
-        i32, p, p, p, p, p, p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, p]
+    lib.whell_packed_ablation_f64.argtypes = [i32, p] + hack_pass
 
 
 _LIB = CudaLibrary("whell_packed_spmv", _bind)
@@ -130,53 +132,104 @@ def _check_args(op, values, residue, page_tab, tile_base, chunk_group,
 
 def _layout_args(residue, page_tab, tile_base, chunk_group, group_bases,
                  seg_lo, seg_hi):
-    """The layout arrays' device pointers, in the C entries' order."""
+    """The layout arrays' device pointers, in the tile-pass entries'
+    order."""
     return (residue.data_ptr(), page_tab.data_ptr(), tile_base.data_ptr(),
             chunk_group.data_ptr(),
             None if group_bases is None else group_bases.data_ptr(),
             seg_lo.data_ptr(), seg_hi.data_ptr())
 
 
+def _check_units(op, hack_units, hack_done, values, seg_lo) -> None:
+    """``hack_units`` is ``(U, 4)`` int32 and ``hack_done`` ``(rows,)``
+    int32, contiguous, on the values' device (``WhellMatrix.hack_units``
+    and ``hack_done``)."""
+    ok = (hack_units is not None and hack_done is not None
+          and hack_units.dtype == hack_done.dtype == torch.int32
+          and hack_units.dim() == 2 and hack_units.shape[1] == 4
+          and tuple(hack_done.shape) == (seg_lo.shape[0],)
+          and hack_units.device == hack_done.device == values.device
+          and hack_units.is_contiguous() and hack_done.is_contiguous())
+    if not ok:
+        raise ValueError(f"{op}: float64 and complex128 values take hack_units "
+                         "(U, 4) int32 and hack_done (rows,) int32 on their "
+                         "device (WhellMatrix.hack_units, .hack_done)")
+
+
+def hack_pass_args(op, values, residue, page_tab, tile_base, group_bases,
+                   hack_units, hack_done, seg_lo, seg_hi, x2d, out,
+                   window_pages, unit_segments):
+    """The C arguments of the hack-pass entries (#4, complex128, #19) after
+    the values: device pointers (with the chunk scratch, allocated here),
+    sizes and the current stream.  The bulk copies need 16 B aligned slabs
+    (raises otherwise)."""
+    if any(t.data_ptr() % 16 for t in (values, residue, page_tab)):
+        raise ValueError(f"{op}: values, residue and page_tab must be 16 B "
+                         "aligned for the bulk copies")
+    part = torch.empty((hack_units.shape[0], 128), dtype=x2d.dtype, device=x2d.device)
+    return (residue.data_ptr(), page_tab.data_ptr(), tile_base.data_ptr(),
+            None if group_bases is None else group_bases.data_ptr(),
+            hack_units.data_ptr(), hack_done.data_ptr(), part.data_ptr(),
+            seg_lo.data_ptr(), seg_hi.data_ptr(), x2d.data_ptr(), out.data_ptr(),
+            hack_units.shape[0], window_pages, int(unit_segments),
+            torch.cuda.current_stream(x2d.device).cuda_stream)
+
+
 def whell_packed_spmv(values, residue, page_tab, tile_base, chunk_group,
                       group_bases: Optional[torch.Tensor], seg_lo, seg_hi,
                       x2d, *, chunk_tiles: int, group_hacks: int,
-                      window_pages: int, unit_segments: bool) -> torch.Tensor:
+                      window_pages: int, unit_segments: bool,
+                      hack_units: Optional[torch.Tensor] = None,
+                      hack_done: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Packed-lane WHELL product ``(num_groups*group_hacks, 128)`` in x2d's
     type: the values' own type for float64, complex64 and complex128
     values, float32 for fp32 or bf16 ones.
 
     CUDA tensors launch the hand kernel (#1; #4 for float64, #7 for
     complex64, the complex128 kernel for complex128; each counted in its
-    ``LAUNCHES*``); CPU tensors run
-    :func:`whell_packed_spmv_plain`.  Any other device raises.
-    The layout arrays are trusted as built by the converter or checked by
+    ``LAUNCHES*``); CPU tensors run :func:`whell_packed_spmv_plain`.  Any
+    other device raises.  float64 and complex128 values also take
+    ``hack_units`` and ``hack_done`` (``WhellMatrix.hack_units``,
+    ``.hack_done``; raises without them): their kernel sums each hack's
+    run of tiles in one launch, from those work units and run counters,
+    and reads no tile outside the runs (other values ignore them).  The
+    layout arrays are trusted as built by the converter or checked by
     ``WhellMatrix.check``; shapes, dtypes and devices are checked here."""
     _check_args("whell_packed_spmv", values, residue, page_tab, tile_base,
                 chunk_group, group_bases, seg_lo, seg_hi, x2d, chunk_tiles,
                 group_hacks, window_pages)
+    per_hack = values.dtype in PER_HACK
+    if per_hack:
+        _check_units("whell_packed_spmv", hack_units, hack_done, values, seg_lo)
     dev = x2d.device
     static = dict(chunk_tiles=chunk_tiles, group_hacks=group_hacks,
                   window_pages=window_pages, unit_segments=unit_segments)
     if dev.type == "cpu":
-        return whell_packed_spmv_plain(values, residue, page_tab, tile_base,
-                                       chunk_group, group_bases, seg_lo,
-                                       seg_hi, x2d, **static)
+        return whell_packed_spmv_plain(
+            values, residue, page_tab, tile_base, chunk_group, group_bases,
+            seg_lo, seg_hi, x2d, hack_units=hack_units if per_hack else None,
+            **static)
     lib = _LIB.load()
     R = seg_lo.shape[0]
-    acc = torch.zeros((R, 128), dtype=x2d.dtype, device=dev)
     z = torch.empty((R, 128), dtype=x2d.dtype, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     typed = _TYPED.get(values.dtype)
-    args = (*_layout_args(residue, page_tab, tile_base, chunk_group,
-                          group_bases, seg_lo, seg_hi),
-            x2d.data_ptr(), acc.data_ptr(), z.data_ptr(), tile_base.shape[0],
-            R, chunk_tiles, group_hacks, window_pages, int(unit_segments),
-            stream)
-    if typed is not None:
-        err = getattr(lib, typed[0])(values.data_ptr(), *args)
+    if per_hack:
+        err = getattr(lib, typed[0])(values.data_ptr(), *hack_pass_args(
+            "whell_packed_spmv", values, residue, page_tab, tile_base,
+            group_bases, hack_units, hack_done, seg_lo, seg_hi, x2d, z,
+            window_pages, unit_segments))
     else:
-        err = lib.whell_packed_spmv(values.data_ptr(),
-                                    int(values.dtype == torch.bfloat16), *args)
+        acc = torch.zeros((R, 128), dtype=x2d.dtype, device=dev)
+        args = (*_layout_args(residue, page_tab, tile_base, chunk_group,
+                              group_bases, seg_lo, seg_hi),
+                x2d.data_ptr(), acc.data_ptr(), z.data_ptr(),
+                tile_base.shape[0], R, chunk_tiles, group_hacks, window_pages,
+                int(unit_segments), torch.cuda.current_stream(dev).cuda_stream)
+        if typed is not None:
+            err = getattr(lib, typed[0])(values.data_ptr(), *args)
+        else:
+            err = lib.whell_packed_spmv(values.data_ptr(),
+                                        int(values.dtype == torch.bfloat16), *args)
     if err != 0:
         raise RuntimeError(f"whell_packed_spmv launch failed: CUDA error {err}")
     globals()["LAUNCHES" if typed is None else typed[1]] += 1
@@ -231,10 +284,20 @@ def whell_packed_spmm(values, residue, page_tab, tile_base, chunk_group,
 def whell_packed_spmv_plain(values, residue, page_tab, tile_base,
                             chunk_group, group_bases, seg_lo, seg_hi, x2d, *,
                             chunk_tiles: int, group_hacks: int,
-                            window_pages: int,
-                            unit_segments: bool) -> torch.Tensor:
-    """The same product in plain PyTorch: :func:`whell_packed_spmm_plain`
-    with one RHS."""
+                            window_pages: int, unit_segments: bool,
+                            hack_units: Optional[torch.Tensor] = None,
+                            hack_done: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The same product in plain PyTorch.  With ``hack_units``, the
+    per-hack form of #4 and the complex128 kernel: :func:`whell_hack_sums`
+    (each hack's run, tile by tile and slot by slot), then the flush;
+    without, :func:`whell_packed_spmm_plain` with one RHS (every tile's sum
+    added into its hack row).  ``hack_done``, the kernel's run counters,
+    is taken for the kernel's signature and not read."""
+    if hack_units is not None:
+        acc = whell_hack_sums(values, residue, page_tab, tile_base,
+                              group_bases, hack_units, x2d.unsqueeze(0),
+                              num_rows=seg_lo.shape[0], window_pages=window_pages)
+        return whell_flush_plain(acc, seg_lo, seg_hi, unit_segments)[0]
     return whell_packed_spmm_plain(
         values, residue, page_tab, tile_base, chunk_group, group_bases,
         seg_lo, seg_hi, x2d.unsqueeze(0), chunk_tiles=chunk_tiles,
@@ -264,12 +327,11 @@ def whell_packed_spmm_plain(values, residue, page_tab, tile_base,
     return whell_flush_plain(acc, seg_lo, seg_hi, unit_segments)
 
 
-def whell_tile_sums(values, residue, page_tab, tile_base, chunk_group,
-                    group_bases, x3d, *, chunk_tiles: int, group_hacks: int,
-                    window_pages: int):
-    """The tile pass in plain PyTorch: each tile's lane sums over its 8
-    slots, ``(n_rhs, T, 128)`` in x3d's type, and each tile's accumulator
-    row (hack), ``(T,)`` int64."""
+def whell_cell_products(values, residue, page_tab, tile_base, group_bases,
+                        x3d, *, window_pages: int):
+    """Every cell's product ``values[s, j] * x[page*128 + r]``, ``(n_rhs,
+    T, 8, 128)`` in x3d's type, and each tile's hack-in-group ``(T,)``
+    int64 (the field above the page or layout-group bits)."""
     dev = x3d.device
     n_rhs = x3d.shape[0]
     T = tile_base.shape[0]
@@ -285,8 +347,49 @@ def whell_tile_sums(values, residue, page_tab, tile_base, chunk_group,
         page = (meta & 0xFFFF)[tile, None] + d
         hh = meta >> 16
     prod = values.to(x3d.dtype) * x3d.reshape(n_rhs, x3d.shape[1] * 128)[:, page * 128 + res]
-    hack = chunk_group.long()[torch.arange(T, device=dev) // chunk_tiles] * group_hacks + hh
-    return prod.view(n_rhs, T, 8, 128).sum(dim=2), hack
+    return prod.view(n_rhs, T, 8, 128), hh
+
+
+def whell_tile_sums(values, residue, page_tab, tile_base, chunk_group,
+                    group_bases, x3d, *, chunk_tiles: int, group_hacks: int,
+                    window_pages: int):
+    """The tile pass in plain PyTorch: each tile's lane sums over its 8
+    slots, ``(n_rhs, T, 128)`` in x3d's type, and each tile's accumulator
+    row (hack), ``(T,)`` int64."""
+    prod, hh = whell_cell_products(values, residue, page_tab, tile_base,
+                                   group_bases, x3d, window_pages=window_pages)
+    T = tile_base.shape[0]
+    hack = chunk_group.long()[torch.arange(T, device=x3d.device) // chunk_tiles] * group_hacks + hh
+    return prod.sum(dim=2), hack
+
+
+def whell_hack_sums(values, residue, page_tab, tile_base, group_bases,
+                    hack_units, x3d, *, num_rows: int,
+                    window_pages: int) -> torch.Tensor:
+    """Each output row's unscanned lane sums in plain PyTorch, ``(n_rhs,
+    num_rows, 128)`` in x3d's type, as #4 and the complex128 kernel sum
+    them over the work units ``hack_units`` (``[begin, end, row, chunk]``,
+    :func:`~spgpu_tpu_torch.formats.whell.packed_hack_units`): each unit
+    adds its tiles' products tile by tile and slot by slot, then a row
+    adds its units' sums in chunk order; tiles outside every unit are not
+    read."""
+    prod, _ = whell_cell_products(values, residue, page_tab, tile_base,
+                                  group_bases, x3d, window_pages=window_pages)
+    units = hack_units.long()
+    begin, row = units[:, 0], units[:, 2]
+    n = units[:, 1] - begin
+    chunk = torch.where(units[:, 3] >= 0, units[:, 3] >> 16, 0)
+    n_rhs, U = x3d.shape[0], units.shape[0]
+    sums = torch.zeros((n_rhs, U, 128), dtype=x3d.dtype, device=x3d.device)
+    for i in range(int(n.max()) if U else 0):
+        live = torch.nonzero(n > i).view(-1)
+        for s in range(8):
+            sums[:, live] += prod[:, begin[live] + i, s]
+    acc = torch.zeros((n_rhs, num_rows, 128), dtype=x3d.dtype, device=x3d.device)
+    for c in range(int(chunk.max()) + 1 if U else 0):
+        sel = torch.nonzero(chunk == c).view(-1)
+        acc[:, row[sel]] += sums[:, sel]
+    return acc
 
 
 def whell_flush_plain(acc, seg_lo, seg_hi, unit_segments: bool) -> torch.Tensor:

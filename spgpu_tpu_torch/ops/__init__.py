@@ -142,7 +142,8 @@ def whell_spmv(a, x: torch.Tensor, alpha=1.0, beta=0.0, y=None) -> torch.Tensor:
         a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
         a.group_bases, a.seg_lo, a.seg_hi, _prep_x(x, a.n_cols, a.x_pages),
         chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-        window_pages=a.window_pages, unit_segments=a.unit_segments)
+        window_pages=a.window_pages, unit_segments=a.unit_segments,
+        hack_units=a.hack_units, hack_done=a.hack_done)
     return _epilogue(z.view(-1)[: a.n_rows], alpha, beta, y)
 
 

@@ -139,6 +139,9 @@ def print_result(res: dict, head: str, label: str, rows_key: str = "levels") -> 
               f"{r['cold_source']}]", flush=True)
     for a in res.get("absent", []):
         print(f"absent  {a['tpu_level']}: {a['reason']}", flush=True)
+    for a in res.get("retired", []):
+        print(f"absent  {a['level']} (an earlier card level): {a['reason']}",
+              flush=True)
     b, lib = res["bound"], res["library"]
     print(f"bound: {_f(b['bound_ms'], '.4f')} ms ({b['bound_by']}: "
           f"{b['bound_bytes']} B, {b['bound_flops']} flop) of "

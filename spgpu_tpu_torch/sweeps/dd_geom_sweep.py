@@ -2,8 +2,9 @@
 ``(group_hacks, chunk_tiles)`` geometries on the card.
 
 The port of ``doc/sweeps/dd_geom_sweep.py``: ``laplacian_2d(512, 512,
-float64)`` through ``coo_to_whell(..., group_hacks=gh, chunk_tiles=ct)``
-(aligned 32-page windows) for each geometry of :data:`GEOMETRIES`, the
+float64)`` through ``coo_to_whell(..., scattered=False, group_hacks=gh,
+chunk_tiles=ct)`` (the JAX script's aligned 32-page windows) for each
+geometry of :data:`GEOMETRIES`, the
 product ``whell_packed_spmv`` (#4) held against the float64 host golden
 at 1e-12·max|z| and timed warm and cold, with the layout's padding and
 #4's bound on it.  A geometry that fails raises: there is no compiler
@@ -30,8 +31,8 @@ __all__ = ["GEOMETRIES", "SIDE", "main", "run"]
 SIDE = 512
 GEOMETRIES = ((128, 32), (128, 64), (256, 32), (256, 64), (512, 32), (512, 64))
 
-#: #4's kernels, by the names the profiler gives them
-KERNELS = ("whell_tile_pass", "whell_flush_pass")
+#: #4's kernel, by the name the profiler gives it
+KERNELS = ("whell_hack_pass",)
 
 
 def run(device="cuda", *, size: int = SIDE) -> dict:
@@ -48,12 +49,14 @@ def run(device="cuda", *, size: int = SIDE) -> dict:
     errs = {}
     for geom in GEOMETRIES:
         gh, ct = geom
-        a = coo_to_whell(coo, device=dev, group_hacks=gh, chunk_tiles=ct)
+        a = coo_to_whell(coo, device=dev, scattered=False, group_hacks=gh,
+                         chunk_tiles=ct)
         x2 = _prep_x(a.embed(xo, dtype=torch.float64), a.n_cols, a.x_pages)
         args = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
                 a.group_bases, a.seg_lo, a.seg_hi, x2)
         static = dict(chunk_tiles=ct, group_hacks=gh, window_pages=a.window_pages,
-                      unit_segments=a.unit_segments)
+                      unit_segments=a.unit_segments, hack_units=a.hack_units,
+                      hack_done=a.hack_done)
         kernels[geom] = lambda args=args, static=static: kw.whell_packed_spmv(*args, **static)
         plains[geom] = lambda args=args, static=static: kw.whell_packed_spmv_plain(*args, **static)
         z = a.extract(kernels[geom]().reshape(-1)[: a.n_rows], dtype=torch.float64)
@@ -66,8 +69,9 @@ def run(device="cuda", *, size: int = SIDE) -> dict:
     for geom in GEOMETRIES:
         a, args = layouts[geom]
         z_bytes = a.seg_lo.shape[0] * 128 * 8
-        # the unit flush reads seg_hi alone
-        moved = nbytes(*args) - a.unit_segments * nbytes(a.seg_lo) + z_bytes
+        # #4 reads hack_units, not chunk_group; the unit scan reads seg_hi alone
+        moved = (nbytes(*args) - nbytes(a.chunk_group) + nbytes(a.hack_units)
+                 - a.unit_segments * nbytes(a.seg_lo) + z_bytes)
         rows.append(dict(group_hacks=geom[0], chunk_tiles=geom[1],
                          tiles=a.num_tiles, num_groups=a.num_groups,
                          padding=a.total_slots * 128 / coo.nnz,

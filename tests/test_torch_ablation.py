@@ -10,16 +10,18 @@ and the packed converter's geometry options, against the JAX package.
   ``tests/test_torch_whdia.py``);
 * #19 (``whell_f64_ablation``) on a JAX double-float layout joined into
   float64, on a unit-segment Laplacian and a FEM-like matrix with wider
-  segments: ``full``, and ``atomic``'s accumulator through the plain
+  segments: ``full``, and ``own``'s unscanned hack sums through the plain
   flush, equal ``whell_spmv_dd_pallas`` in interpret mode within
   :data:`TOL_F64` (the double-float pair keeps ~48 bits);
 * the partial levels against an independent NumPy reckoning, loops over
   tiles and slots, of the function each level is defined to compute (r0
   from the JAX layout's own decoder): fp32 within 1e-5·max|out|
   (:data:`TOL_PART_F32`), float64 within 1e-12·max|out|;
-* the sweeps at a small size on the CPU: one row per card level, every
-  field their ``main()`` prints, the absent TPU levels named with a
-  reason, every time None and labelled so; without a card they raise;
+* the sweeps at a small size on the CPU (the float64 account on the
+  Laplacian and on a cut flagship): one row per card level, every field
+  their ``main()`` prints, the absent TPU levels and the retired card
+  level named with a reason, every time None and labelled so; without a
+  card they raise;
 * ``coo_to_whell(..., group_hacks=, chunk_tiles=)`` bit-identical to the
   JAX converter for the six geometries of ``doc/sweeps/dd_geom_sweep.py``;
 * guards: a bad level or dtype raises, and CPU calls count no launch.
@@ -144,7 +146,8 @@ def _f64_args(ta, xl):
     return ((ta.values, ta.residue, ta.page_tab, ta.tile_base, ta.chunk_group,
              ta.group_bases, ta.seg_lo, ta.seg_hi, x2),
             dict(chunk_tiles=ta.chunk_tiles, group_hacks=ta.group_hacks,
-                 window_pages=ta.window_pages, unit_segments=ta.unit_segments))
+                 window_pages=ta.window_pages, unit_segments=ta.unit_segments,
+                 hack_units=ta.hack_units, hack_done=ta.hack_done))
 
 
 # --------------------------------------------------------------------------
@@ -191,7 +194,7 @@ def test_f64_full_matches_jax(f64_pair):
 def test_f64_atomic_flushed_matches_jax(f64_pair):
     name, ja, ta, xl, zj = f64_pair
     args, static = _f64_args(ta, xl)
-    acc = ab.whell_f64_ablation("atomic", *args, **static)
+    acc = ab.whell_f64_ablation("own", *args, **static)
     assert acc.shape == (ta.seg_lo.shape[0], 128)
     z = kw.whell_flush_plain(acc[None], ta.seg_lo, ta.seg_hi, ta.unit_segments)[0]
     lor = np.asarray(ja.lane_of_row)
@@ -331,7 +334,23 @@ def test_sweep_runs_on_cpu(name):
 def test_dd_ablation_names_the_double_float_levels_absent():
     res = dd_ablation.run("cpu", size=32)
     assert {a["tpu_level"] for a in res["absent"]} == {"eft", "ddrmw", "norelax"}
+    assert [r["level"] for r in res["retired"]] == ["atomic"]
+    assert all(r["reason"] for r in res["retired"])
+    assert "atomic" not in ab.F64_LEVELS
     assert whdia_ablation.run("cpu", size=2048)["absent"] == []
+
+
+def test_dd_ablation_runs_on_the_flagship_on_cpu():
+    """``matrix="flagship"``: the flagship generator cut to 3,000 rows,
+    every level against its plain version and ``full`` against the
+    production product."""
+    res = dd_ablation.run("cpu", size=3000, matrix="flagship")
+    assert res["matrix"] == "flagship" and res["fixture"].startswith("random_fem_like(3000")
+    assert [r["level"] for r in res["levels"]] == list(ab.F64_LEVELS)
+    assert res["max_abs_err"] == 0.0 and res["full_vs_production_max_abs_err"] == 0.0
+    assert not res["unit_segments"] and res["tiles"] > 0
+    with pytest.raises(ValueError, match="matrix"):
+        dd_ablation.run("cpu", size=32, matrix="banded")
 
 
 @pytest.mark.parametrize("name", sorted(SWEEPS))
@@ -342,7 +361,8 @@ def test_sweep_main_prints_on_cpu_and_raises_without_a_card(name, monkeypatch, c
     monkeypatch.setattr(sys, "argv", [name, "--device", "cpu"])
     res = mod.main()
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 1 + len(res[key]) + len(res.get("absent", [])) + 4
+    assert len(lines) == (1 + len(res[key]) + len(res.get("absent", []))
+                          + len(res.get("retired", [])) + 4)
     assert "GFLOPS-equiv" in lines[1] and lines[-1] == "gpu: none (cpu run)"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(sys, "argv", [name])
@@ -366,11 +386,12 @@ def test_prices_need_one_source():
 
 
 def _unit_flush_bytes(a):
-    """What #4 moves on a unit-segment layout: every layout array but
-    seg_lo (the unit flush reads seg_hi alone), x once and z once."""
+    """What #4 moves on a unit-segment layout: every layout array it reads
+    (hack_units, not chunk_group; not seg_lo: the unit scan reads seg_hi
+    alone), x once and z once."""
     x2 = _prep_x(torch.zeros(a.n_cols, dtype=torch.float64), a.n_cols, a.x_pages)
     return sum(t.numel() * t.element_size() for t in (
-        a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
+        a.values, a.residue, a.page_tab, a.tile_base, a.hack_units,
         a.group_bases, a.seg_hi, x2) if t is not None) + a.seg_hi.numel() * 8
 
 
@@ -383,7 +404,8 @@ def test_f64_bounds_leave_seg_lo_out_for_unit_segments():
     geo = {(r["group_hacks"], r["chunk_tiles"]): r["bound_bytes"]
            for r in dd_geom_sweep.run("cpu", size=40)["geometries"]}
     for (gh, ct), got in geo.items():
-        g = coo_to_whell(coo, device="cpu", group_hacks=gh, chunk_tiles=ct)
+        g = coo_to_whell(coo, device="cpu", scattered=False, group_hacks=gh,
+                         chunk_tiles=ct)  # the sweep's aligned geometry
         assert got == _unit_flush_bytes(g), (gh, ct)
 
 
@@ -395,12 +417,14 @@ def test_f64_bounds_leave_seg_lo_out_for_unit_segments():
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_geometry_options_match_jax(geom, dtype):
     """200 hacks: at 128 and 256 hacks per group the layouts differ from
-    the default's."""
+    the default's.  float64: the JAX double-float layout's aligned windows
+    (``scattered=False``; the port's default is scattered)."""
     gh, ct = geom
     ja = j_coo_to_whell(jfix.laplacian_2d(160, 160, dtype), packed=True,
                         group_hacks=gh, chunk_tiles=ct)
     ta = coo_to_whell(tfix.laplacian_2d(160, 160, dtype), device="cpu",
-                      group_hacks=gh, chunk_tiles=ct)
+                      group_hacks=gh, chunk_tiles=ct,
+                      scattered=False if dtype == np.float64 else None)
     for f in WHELL_ARRAYS:
         jv, tv = getattr(ja, f), getattr(ta, f)
         assert (jv is None) == (tv is None), f

@@ -463,9 +463,10 @@ def test_f1_aligned_packed_raises_past_the_page_field(monkeypatch):
     monkeypatch.setattr(tconv, "_MAX_ALIGNED_X_PAGES", 32)
     with pytest.raises(ValueError, match="16-bit"):
         coo_to_whell(coo, device="cpu", scattered=False)
-    with pytest.raises(ValueError, match="16-bit"):  # float64: aligned by default
-        coo_to_whell(coo, device="cpu", dtype="float64")
+    with pytest.raises(ValueError, match="16-bit"):  # the JAX float64 geometry
+        coo_to_whell(coo, device="cpu", dtype="float64", scattered=False)
     coo_to_whell(coo, device="cpu")  # scattered windows: no page field
+    coo_to_whell(coo, device="cpu", dtype="float64")  # scattered by default too
 
 
 def test_f1_scattered_packed_raises_past_the_group_field(monkeypatch):

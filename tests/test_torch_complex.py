@@ -153,7 +153,9 @@ def test_join_planes():
 def test_whell_converter_matches_ar_plane(name, dtype):
     jc, tc = _pair(WHELL_CASES[name], dtype)
     ja = j_coo_to_whell(jc, packed=True)
-    ta = coo_to_whell(tc, device="cpu")
+    # complex128: the JAX double-float planes' aligned windows (the port's
+    # default is scattered)
+    ta = coo_to_whell(tc, device="cpu", scattered=dtype == "complex64")
     assert ta.values.dtype == TORCH[dtype]
     assert ja.ar.is_dd == (dtype == "complex128")
     for f in WHELL_ARRAYS:
@@ -375,9 +377,8 @@ def test_whdia_spmv_matches_jax_and_golden(name, dtype, ab):
 @pytest.mark.parametrize("layout", ["whell", "sdia", "whdia"])
 def test_port_layouts_match_golden(layout, dtype):
     """The port's own converters on the larger fixtures (WHELL: the
-    3,000-row FEM-like matrix, scattered windows in complex64 and aligned
-    in complex128; SDIA: the Laplacian; WHDIA: the wandering band, pattern
-    mode)."""
+    3,000-row FEM-like matrix, scattered windows by default in both types;
+    SDIA: the Laplacian; WHDIA: the wandering band, pattern mode)."""
     name = {"whell": "fem", "sdia": "laplace", "whdia": "banded"}[layout]
     c = (WHELL_CASES if layout == "whell" else DIA_CASES)[name](tfix)
     tc = CooMatrix(c.rows, c.cols, mixed(c, dtype), c.n_rows, c.n_cols)
@@ -386,7 +387,7 @@ def test_port_layouts_match_golden(layout, dtype):
     xs = x.astype(dtype).astype(np.complex128)
     if layout == "whell":
         a = coo_to_whell(tc, device="cpu")
-        assert a.scattered == (dtype == "complex64")
+        assert a.scattered
         z = a.extract(tops.whell_spmv(a, a.embed(x, tdt)), tdt)
     else:
         a = (coo_to_sdia if layout == "sdia" else coo_to_whdia)(tc, device="cpu")

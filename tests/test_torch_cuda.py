@@ -105,13 +105,17 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _plain(a, xl):
+def _plain(a, xl, per_hack=True):
+    """The plain product of ``a``'s kernel: the per-hack form for float64
+    and complex128 values (``per_hack=False``: every tile added into its
+    hack row, the tile pass's form, a second witness)."""
+    units = a.hack_units if per_hack and a.values.dtype in kw.PER_HACK else None
     return kw.whell_packed_spmv_plain(
         a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
         a.group_bases, a.seg_lo, a.seg_hi, ops._prep_x(xl, a.n_cols, a.x_pages),
         chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-        window_pages=a.window_pages,
-        unit_segments=a.unit_segments).reshape(-1)[: a.n_rows]
+        window_pages=a.window_pages, unit_segments=a.unit_segments,
+        hack_units=units).reshape(-1)[: a.n_rows]
 
 
 @pytest.mark.cuda
@@ -283,7 +287,7 @@ def _near(got, want, frac, rtol=0.0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scattered", [None, True], ids=["aligned", "scattered"])
+@pytest.mark.parametrize("scattered", [False, True], ids=["aligned", "scattered"])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_f64_whell_kernel_matches_plain_and_golden(name, scattered, cuda_device):
     coo = _f64(CASES[name]())
@@ -295,6 +299,7 @@ def test_f64_whell_kernel_matches_plain_and_golden(name, scattered, cuda_device)
     torch.cuda.synchronize()
     assert kw.LAUNCHES_F64 == before + 1 and z.dtype == torch.float64
     _near(z, _plain(a, xl), 1e-12)
+    _near(z, _plain(a, xl, per_hack=False), 1e-12)
     _near(a.extract(z, dtype=torch.float64), torch.from_numpy(coo.spmv(x)), 1e-12)
 
 
@@ -948,6 +953,109 @@ def test_solve_pcell_on_cuda(symmetric, cuda_device):
 
 
 # --------------------------------------------------------------------------
+# #4 and complex128: one block per hack, one launch, the same bits twice
+
+
+def _per_hack_case(dtype, coo):
+    if dtype == "complex128":
+        return _complex(coo, dtype), torch.complex128, "LAUNCHES_C128"
+    return _f64(coo), torch.float64, "LAUNCHES_F64"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scattered", [False, True], ids=["aligned", "scattered"])
+@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+@pytest.mark.parametrize("name", ["fem_large", "laplace_wide", "empty"])
+def test_per_hack_kernel_is_one_launch_and_reproducible(name, dtype, scattered,
+                                                        cuda_device):
+    """One counted launch per product and no accumulator; two launches
+    give the same bits; within 1e-12·max|z| of the per-hack plain version,
+    of the tile-pass plain version and of the golden."""
+    coo, tdt, counter = _per_hack_case(dtype, CASES[name]())
+    a = coo_to_whell(coo, device=cuda_device, scattered=scattered)
+    assert a.values.dtype == tdt and a.hack_units.device == cuda_device
+    x = np.random.default_rng(7).standard_normal(coo.n_cols).astype(
+        np.complex128 if tdt.is_complex else np.float64)
+    if tdt.is_complex:
+        x = x + 1j * np.random.default_rng(8).standard_normal(coo.n_cols)
+    xl = a.embed(torch.from_numpy(x), dtype=tdt)
+    before = getattr(kw, counter)
+    z1 = ops.whell_spmv(a, xl)
+    z2 = ops.whell_spmv(a, xl)
+    torch.cuda.synchronize()
+    assert getattr(kw, counter) == before + 2
+    assert torch.equal(z1, z2)
+    _near(z1, _plain(a, xl), 1e-12)
+    _near(z1, _plain(a, xl, per_hack=False), 1e-12)
+    _near(a.extract(z1, dtype=tdt), torch.from_numpy(coo.spmv(x)), 1e-12)
+
+
+def _hub_rows(n=160000, step=29, seed=3):
+    """tests/test_torch_hack_runs.py's hub fixture: one hack's run of 40
+    tiles, three chunks of work units."""
+    b = random_banded(n, bands=5, wander=0, seed=seed, dtype=np.float64).sum_duplicates()
+    rng = np.random.default_rng(seed)
+    hub = np.arange(0, n, step)
+    rows = np.r_[b.rows, np.zeros(hub.size, np.int64), hub]
+    cols = np.r_[b.cols, hub, np.zeros(hub.size, np.int64)]
+    vals = np.r_[b.values, rng.uniform(0.5, 1.5, 2 * hub.size)]
+    return CooMatrix(rows, cols, vals, n, n).sum_duplicates()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scattered", [False, True], ids=["aligned", "scattered"])
+@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+def test_per_hack_kernel_adds_chunked_runs_in_order(dtype, scattered, cuda_device):
+    """A run cut into chunks of work units: each chunk's block stores its
+    sums, the last to finish adds them in chunk order and resets the row's
+    counter; the same bits every launch, the counters zero after each."""
+    coo, tdt, counter = _per_hack_case(dtype, _hub_rows())
+    a = coo_to_whell(coo, device=cuda_device, scattered=scattered)
+    assert int((a.hack_units[:, 3] >= 0).sum()) >= 3
+    x = np.random.default_rng(5).standard_normal(coo.n_cols).astype(
+        np.complex128 if tdt.is_complex else np.float64)
+    xl = a.embed(torch.from_numpy(x), dtype=tdt)
+    zs = [ops.whell_spmv(a, xl) for _ in range(4)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(zs[0], z) for z in zs[1:])
+    assert not bool(a.hack_done.any())
+    _near(zs[0], _plain(a, xl), 1e-12)
+    _near(zs[0], _plain(a, xl, per_hack=False), 1e-12)
+    _near(a.extract(zs[0], dtype=tdt), torch.from_numpy(coo.spmv(x)), 1e-12)
+
+
+def _far_columns(n=12000, lo=6000, deg=9, seed=11):
+    """Rows whose columns all lie in [lo, n): no run's tile reads the
+    first aligned windows of lane space; the padding tiles read x[0]."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), deg)
+    cols = rng.integers(lo, n, rows.size)
+    return CooMatrix(rows, cols, rng.uniform(1, 2, rows.size), n, n).sum_duplicates()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+def test_per_hack_kernel_skips_padding_inf(dtype, cuda_device):
+    """An Inf in x that only the output groups' padding tiles read (lane
+    column 0, aligned windows): #4 and complex128 read no tile outside
+    the runs and give the golden, where the tile-pass plain version, like
+    the JAX kernel, multiplies the padding tiles and gives NaN."""
+    coo, tdt, _ = _per_hack_case(dtype, _far_columns())
+    a = coo_to_whell(coo, device=cuda_device, scattered=False)
+    hp = a.hack_ptr.cpu()
+    assert int((hp[:, 1] - hp[:, 0]).sum()) < a.num_tiles  # a padding tail
+    x = np.random.default_rng(9).standard_normal(coo.n_cols).astype(
+        np.complex128 if tdt.is_complex else np.float64)
+    xl = a.embed(torch.from_numpy(x), dtype=tdt)
+    xl[0] = float("inf")
+    z = ops.whell_spmv(a, xl)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(z).all())
+    _near(a.extract(z, dtype=tdt), torch.from_numpy(coo.spmv(x)), 1e-12)
+    assert bool(_plain(a, xl, per_hack=False).isnan().any())
+
+
+# --------------------------------------------------------------------------
 # the per-op accounts: kernels #18 (WHDIA, fp32) and #19 (packed WHELL,
 # float64), every level against its plain version; full against the
 # production launch
@@ -1001,13 +1109,13 @@ def test_whdia_ablation_matches_plain(name, level, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("level", ["stream", "gather", "atomic", "full"])
-@pytest.mark.parametrize("scattered", [None, True], ids=["aligned", "scattered"])
+@pytest.mark.parametrize("level", ["stream", "gather", "own", "full"])
+@pytest.mark.parametrize("scattered", [False, True], ids=["aligned", "scattered"])
 @pytest.mark.parametrize("name", sorted(ABLATION_F64_CASES))
 def test_f64_ablation_matches_plain(name, scattered, level, cuda_device):
-    """Kernel #19 on aligned and scattered windows: every level within
-    1e-12·max|out| of its plain version, full of the production #4 launch
-    too; one launch counted, none of #4."""
+    """Kernel #19 (the levels of #4's hack pass) on aligned and scattered
+    windows: every level within 1e-12·max|out| of its plain version, full
+    of the production #4 launch too; one launch counted, none of #4."""
     from spgpu_tpu_torch.kernels import ablation as ab
 
     coo = ABLATION_F64_CASES[name]()
@@ -1016,7 +1124,8 @@ def test_f64_ablation_matches_plain(name, scattered, level, cuda_device):
     args = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
             a.group_bases, a.seg_lo, a.seg_hi, ops._prep_x(x, a.n_cols, a.x_pages))
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-                  window_pages=a.window_pages, unit_segments=a.unit_segments)
+                  window_pages=a.window_pages, unit_segments=a.unit_segments,
+                  hack_units=a.hack_units, hack_done=a.hack_done)
     before = (ab.LAUNCHES_F64_ABLATION, kw.LAUNCHES_F64)
     got = ab.whell_f64_ablation(level, *args, **static)
     torch.cuda.synchronize()

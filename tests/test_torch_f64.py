@@ -131,9 +131,11 @@ def last_write(coo):
 
 @pytest.mark.parametrize("name", sorted(WHELL_CASES))
 def test_whell_converter_matches_dd_layout(name):
+    """The JAX double-float layout's aligned windows: ``scattered=False``
+    (the port's default is scattered)."""
     ja = j_coo_to_whell(WHELL_CASES[name](jfix), packed=True)
     coo = WHELL_CASES[name](tfix)
-    ta = coo_to_whell(coo, device="cpu")
+    ta = coo_to_whell(coo, device="cpu", scattered=False)
     assert ja.is_dd and ta.values.dtype == torch.float64
     for f in WHELL_ARRAYS:
         jv, tv = getattr(ja, f), getattr(ta, f)
@@ -284,7 +286,7 @@ def test_whell_spmv_matches_dd_and_golden(name, ab):
 
 def test_whell_f64_scattered_windows():
     """The JAX double-float layout has aligned windows only; the port's
-    float64 kernel takes scattered ones too."""
+    float64 kernel takes scattered ones too (its default)."""
     coo = WHELL_CASES["fem"](tfix)
     a = coo_to_whell(coo, device="cpu", scattered=True)
     assert a.scattered and a.values.dtype == torch.float64
