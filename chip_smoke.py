@@ -64,6 +64,10 @@ the float64 geometry sweep, and checks them:
 17. whdia_c64, whdia_c128 — banded-11 (summed duplicates) plus
                ``1j·N(0, 1)`` (``default_rng(8)``), pattern mode, and the
                complex Laplacian, slab mode, through kernels #9 and #10;
+               #9 (the hack pass over each hack's live slots) also
+               against the listed plain product and twice with the same
+               bits, with the live-slot share, the live and full bounds
+               and the kernel's share of each;
 18. solve_complex — through ``solve()``, in complex64 to 1e-5 (true
                residual ≤ 1e-4) and complex128 to 1e-10 (≤ 1e-9): CG on
                the Hermitian positive-definite system made from the
@@ -71,7 +75,10 @@ the float64 geometry sweep, and checks them:
                from the complex Laplacian (auto, whdia; and
                ``fmt="sdia"``), BiCGSTAB on a non-Hermitian, diagonally
                dominant complex banded-11 system with ``fmt="whdia"``;
-               each counted on its route's launch counter;
+               each counted on its route's launch counter; the complex64
+               whdia CG and BiCGSTAB within 10 % of the iterations of the
+               same solvers on the plain version (every cell: the JAX
+               kernel's product);
 19. spmm     — the multi-RHS product on 8 RHS (``default_rng(3)``, the JAX
                benchmark's SpMM row ``bench.py:233-243``): ``whell_spmm``
                (fused by default: kernel #12) on the flagship's fp32 and
@@ -81,9 +88,11 @@ the float64 geometry sweep, and checks them:
                SpMM (``csr @ X.T``);
 20. spmm_dia — ``sdia_spmm(fused=True)`` (kernel #14) on the Laplacian,
                equal to 8 launches of kernel #2 bit for bit, and
-               ``whdia_spmm(fused=True)`` (kernel #13) on banded-11
-               (pattern mode) and the Laplacian (slab mode), checked and
-               timed as in 19 (the loop is the op's default);
+               ``whdia_spmm(fused=True)`` (kernel #13, the hack pass) on
+               banded-11 (pattern mode) and the Laplacian (slab mode),
+               checked and timed as in 19 (the loop is the op's default),
+               twice with the same bits, with the live-slot share, the
+               live and full bounds and the kernel's share of each;
 21. spmm_loop — the loop paths, counted: the SDIA and WHDIA defaults,
                ``whell_spmm(fused=False)``, and the float64 and complex64
                ``whell_spmm`` defaults each launch their SpMV kernel 8
@@ -141,9 +150,14 @@ the float64 geometry sweep, and checks them:
                device time (every device operation of one call) and its
                kernels' own, warm and cold, #19's levels on the
                flagship's two float64 layouts, and cuSPARSE CSR in
-               float64 and complex128 (``kernel_times``; ``python3
-               chip_smoke.py --kernel-times`` runs this phase alone, also
-               from an older checkout's root).
+               float64 and complex128; then #9 (complex64) and #13 (8
+               RHS) on the Laplacian and banded-11, each op's and each
+               kernel's device time, warm and cold, with the live and full
+               bounds, beside the 8-launch loop of #3 and cuSPARSE CSR
+               (complex64) and SpMM on the same matrices
+               (``kernel_times``; ``python3 chip_smoke.py --kernel-times``
+               runs this phase alone, also from an older checkout's
+               root).
 
 Phases 26-28 and 29 run in fresh processes of this script
 (``chip_smoke.py --sweeps``, ``--kernel-times``, which print their lines
@@ -529,9 +543,12 @@ def sdia_phase(coo, device, label):
 
 def whdia_phase(coo, mode, device, label):
     """``dia_phase`` for WHDIA (kernel #3; #6 in float64, #9 in complex64,
-    #10 in complex128); atomics reorder the sums, hence 1e-5 (1e-12 in
-    float64 and complex128) against the plain version.  ``mode`` is the
-    r0 mode the layout must take."""
+    #10 in complex128); atomics (#9: its list order) reorder the sums,
+    hence 1e-5 (1e-12 in float64 and complex128) against the plain
+    version.  ``mode`` is the r0 mode the layout must take.  #9 runs the
+    hack pass: it is also held to the listed plain product and to itself
+    (two launches, the same bits), and its bound is the live slots'
+    (``whdia_bounds``), printed beside the full layout's."""
     import torch
 
     from spgpu_tpu_torch.convert import coo_to_whdia
@@ -548,14 +565,33 @@ def whdia_phase(coo, mode, device, label):
     args = (wa.values, wa.slot_r0, wa.tile_r0, wa.tile_base, wa.chunk_group)
     static = dict(chunk_tiles=wa.chunk_tiles, group_hacks=wa.group_hacks,
                   num_groups=wa.num_groups)
+    lists = dict(hack_slot_ptr=wa.hack_slot_ptr, hack_slots=wa.hack_slots)
     isz = wa.values.element_size()
+    hack_pass = wa.values.dtype in kd.HACK_PASS
+    b = whdia_bounds(wa, 1)
     out = dia_phase(
-        coo, lambda x: kd.whdia_spmv(*args, x, **static),
+        coo, lambda x: kd.whdia_spmv(*args, x, **static, **lists),
         lambda x: kd.whdia_spmv_plain(*args, x, **static),
         lambda x: whdia_spmv(wa, x),
+        b["live_bytes"] if hack_pass else
         nbytes(*args) + isz * (coo.n_cols + wa.num_groups * wa.group_hacks * 128),
         1e-12 if wa.values.dtype in (torch.float64, torch.complex128) else 1e-5,
         label, device)
+    if hack_pass:
+        x = torch.from_numpy(rand_vector(coo.n_cols, 7, np.complex64)).to(device)
+        z = kd.whdia_spmv(*args, x, **static, **lists)
+        if not torch.equal(z, kd.whdia_spmv(*args, x, **static, **lists)):
+            raise AssertionError(f"{label}: two launches of the hack pass differ")
+        listed = kd.whdia_spmm_listed_plain(
+            wa.values, wa.slot_r0, wa.tile_r0, wa.tile_base, wa.hack_slot_ptr,
+            wa.hack_slots, x[None], group_hacks=wa.group_hacks,
+            num_groups=wa.num_groups)[0]
+        out.update(
+            bit_identical=True, **b,
+            max_abs_err_vs_listed=check_close(z, listed, 1e-5, 1e-5,
+                                              f"{label}: kernel vs listed plain"),
+            live_bound_share=b["live_bound_ms"] / out["kernel_device_ms"],
+            full_bound_share=b["full_bound_ms"] / out["kernel_device_ms"])
     out.update(mode=got, window_pages=wa.window_pages, tiles=wa.num_tiles,
                padding=wa.total_slots * 128 / coo.nnz,
                value_mib=nbytes(wa.values) / 2**20, convert_s=convert_s)
@@ -661,9 +697,25 @@ def dia_solves(lap, band, device, dtype, tol, true_tol):
     bl = torch.from_numpy(b_lap).to(device)
     solves["cg_auto_whdia"].update(loop_timing(cg, lambda v: whdia_spmv(wl, v), bl, tol))
     solves["cg_sdia"].update(loop_timing(cg, lambda v: sdia_spmv(sl, v), bl, tol))
+    bb = torch.from_numpy(b_band).to(device)
     solves["bicgstab_whdia"].update(loop_timing(
-        bicgstab, lambda v: whdia_spmv(wb, v), torch.from_numpy(b_band).to(device),
-        tol))
+        bicgstab, lambda v: whdia_spmv(wb, v), bb, tol))
+    if np.dtype(dtype) == np.complex64:
+        # #9 reads only live slots and sums in its list's order: its
+        # iteration counts stay within 10 % of the same solvers on the
+        # plain version (every cell, the JAX kernel's product)
+        for key, solver, lay, rhs in (("cg_auto_whdia", cg, wl, bl),
+                                      ("bicgstab_whdia", bicgstab, wb, bb)):
+            mv = lambda v, lay=lay: kd.whdia_spmv_plain(  # noqa: E731
+                lay.values, lay.slot_r0, lay.tile_r0, lay.tile_base,
+                lay.chunk_group, v, chunk_tiles=lay.chunk_tiles,
+                group_hacks=lay.group_hacks, num_groups=lay.num_groups)[: lay.n_rows]
+            ref = solver(mv, rhs, tol=tol, maxiter=20000).iterations
+            got = solves[key]["iterations"]
+            if abs(got - ref) > max(1, ref // 10):
+                raise AssertionError(f"{key} {np.dtype(dtype)}: {got} iterations, "
+                                     f"{ref} on the plain version")
+            solves[key]["plain_iterations"] = ref
     return solves
 
 
@@ -809,8 +861,11 @@ def dia_spmm_phase(coo, fmt, golden, device, label, mode=None):
         layout = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group)
         static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
                       num_groups=a.num_groups)
-        kernel = lambda: kd.whdia_spmm(*layout, xs, **static)  # noqa: E731
+        lists = dict(hack_slot_ptr=a.hack_slot_ptr, hack_slots=a.hack_slots)
+        kernel = lambda: kd.whdia_spmm(*layout, xs, **static, **lists)  # noqa: E731
         plain = lambda: kd.whdia_spmm_plain(*layout, xs, **static)  # noqa: E731
+        if not torch.equal(kernel(), kernel()):
+            raise AssertionError(f"{label}: two launches of the hack pass differ")
         tol_plain = 1e-5
     zp = plain()[:, : a.n_rows]
     err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), tol_plain,
@@ -823,13 +878,19 @@ def dia_spmm_phase(coo, fmt, golden, device, label, mode=None):
     flops = 2 * coo.nnz * N_RHS
     out_bytes = N_RHS * (a.n_rows if fmt == "sdia"
                          else a.num_groups * a.group_hacks * 128) * 4
+    # #13 reads only the live slots: its bound is theirs (whdia_bounds)
+    moved = (whdia_bounds(a, N_RHS)["live_bytes"] if fmt == "whdia"
+             else nbytes(*layout, xs) + out_bytes)
     out = dict(n_rhs=N_RHS, rows=coo.n_rows, nnz=coo.nnz, convert_s=convert_s,
                launches=launches, max_abs_err_vs_plain=err_plain,
                max_abs_err_vs_golden=err_golden, **t,
-               **bound(nbytes(*layout, xs) + out_bytes, flops, "float32"))
+               **bound(moved, flops, "float32"))
     if fmt == "whdia":
-        out.update(mode=mode, tiles=a.num_tiles,
-                   padding=a.total_slots * 128 / coo.nnz)
+        b = whdia_bounds(a, N_RHS)
+        out.update(mode=mode, tiles=a.num_tiles, bit_identical=True,
+                   padding=a.total_slots * 128 / coo.nnz, **b,
+                   live_bound_share=b["live_bound_ms"] / out["kernel_device_ms"],
+                   full_bound_share=b["full_bound_ms"] / out["kernel_device_ms"])
     return spmm_summary(out, flops, kernel)
 
 
@@ -1265,14 +1326,17 @@ def kernel_key(mangled: str) -> str:
 
 
 def kernel_row(name, launches, phase):
-    """One entry of the kernel table from the phase that timed it."""
+    """One entry of the kernel table from the phase that timed it; a
+    kernel that reads only live slots (#9, #13) also carries the full
+    layout's bound and the live-slot share beside its live ``bound_ms``."""
     route, source, replaces = KERNELS[name]
     return {"name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": phase["max_abs_err_vs_plain"],
             "ms": phase["kernel_ms"], "plain_ms": phase["plain_ms"],
             "bound_ms": phase["bound_ms"], "bound_by": phase["bound_by"],
-            "library_ms": phase["library_ms"]}
+            "library_ms": phase["library_ms"],
+            **{k: phase[k] for k in ("full_bound_ms", "live_slot_share") if k in phase}}
 
 
 #: phases 26-28 (27 on two matrices): (phase, sweep module, its size,
@@ -1332,9 +1396,12 @@ def child_phases(flag: str, count: int):
     return out
 
 
-#: kernel #15's and #17's profiler names start so (#15 was
-#: ``classic_spmv_tile`` before its work list, ``classic_spmv_units`` since)
-TIMED_KERNELS = ("classic_spmv", "pcell_tile")
+#: the profiler names of the kernels phase 29 times alone start so: #15
+#: (``classic_spmv_tile`` before its work list, ``classic_spmv_units``
+#: since), #17, and #3, #9 and #13 (``whdia_tile_pass`` and
+#: ``whdia_spmm_tile_pass`` before the hack pass, ``whdia_hack_pass`` since)
+TIMED_KERNELS = ("classic_spmv", "pcell_tile", "whdia_tile_pass",
+                 "whdia_spmm_tile_pass", "whdia_hack_pass")
 
 
 def kernel_times(device):
@@ -1387,6 +1454,118 @@ def kernel_times(device):
                         cold_device_ms=cold, cold_source=cold_src)
         del a
     out.update(whell_kernel_times(device))
+    out.update(whdia_kernel_times(device))
+    return out
+
+
+def whdia_bounds(a, n_rhs):
+    """The bytes and bounds of a WHDIA product with ``n_rhs`` RHS: the
+    full layout's (every layout array once, x and z once per RHS) and the
+    live slots' (the values of the slots that hold a nonzero, their r0
+    (slab mode) or tile words (pattern mode) and tile bases, the per-hack
+    slot list, x and z once per RHS), with the live-slot share.  Computed
+    from the values, so older checkouts (no ``hack_slots``) run too."""
+    from spgpu_tpu_torch.utils.measure import HBM_BYTES_PER_S
+
+    isz = a.values.element_size()
+    hacks = a.num_groups * a.group_hacks
+    live = (a.values != 0).any(dim=1)
+    n_live = int(live.sum())
+    live_tiles = int(live.view(-1, 8).any(dim=1).sum())
+    vectors = n_rhs * isz * (a.n_cols + hacks * 128)
+    full = nbytes(a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group) + vectors
+    live_bytes = (n_live * (128 * isz + 4 + (0 if a.pattern_mode else 2))
+                  + live_tiles * 4 * (2 if a.pattern_mode else 1)
+                  + 4 * (hacks + 1) + vectors)
+    return dict(live_slot_share=n_live / a.total_slots, live_slots=n_live,
+                slots=a.total_slots, live_bytes=live_bytes, full_bytes=full,
+                live_bound_ms=1e3 * live_bytes / HBM_BYTES_PER_S,
+                full_bound_ms=1e3 * full / HBM_BYTES_PER_S)
+
+
+def whdia_kernel_times(device):
+    """Phase 29's WHDIA rows: #9 (complex64, ``ops.whdia_spmv``) and #13
+    (fp32, 8 RHS, ``ops.whdia_spmm(fused=True)``) on the Laplacian (slab
+    mode) and banded-11 (pattern mode), with the default 8-launch loop of
+    #3 (``ops.whdia_spmm``) on the same fp32 layouts and the tile pass's
+    SpMVs #3, #6 (float64) and #10 (complex128): each op's device time
+    (every device operation of one call, by name) and its WHDIA kernels'
+    own (``TIMED_KERNELS``), warm and cold, with the live and full bounds
+    and the kernel's share of each; beside them cuSPARSE CSR in complex64
+    and cuSPARSE SpMM in fp32 on the same matrices, in this process.  It
+    calls only the converters and the ops, so it also times an older
+    checkout."""
+    import torch
+
+    from spgpu_tpu_torch import ops
+    from spgpu_tpu_torch.convert import coo_to_whdia
+    from spgpu_tpu_torch.utils.fixtures import laplacian_2d, random_banded
+    from spgpu_tpu_torch.utils.timing import (device_ms, device_ms_by_kernel,
+                                              kernel_device_ms)
+
+    def row(a, fn, n_rhs):
+        by_op = device_ms_by_kernel(fn)
+        names = [k for k in (sorted(by_op) or launched(fn))
+                 if k.startswith(TIMED_KERNELS)]
+        if not names:
+            raise AssertionError("kernel_times: no WHDIA kernel launched")
+        warm, src = kernel_device_ms(fn, names)
+        cold, cold_src = kernel_device_ms(fn, names, cold=True)
+        op_ms, op_src = device_ms(fn)
+        others = sum(v for k, v in by_op.items() if k not in names)
+        b = whdia_bounds(a, n_rhs)
+        return dict(kernels=names, op_by_name_ms=by_op, op_device_ms=op_ms,
+                    op_device_source=op_src, op_cold_device_ms=cold + others,
+                    device_ms=warm, device_source=src, cold_device_ms=cold,
+                    cold_source=cold_src, tiles=a.num_tiles, **b,
+                    live_bound_share=b["live_bound_ms"] / warm,
+                    full_bound_share=b["full_bound_ms"] / warm,
+                    cold_live_bound_share=b["live_bound_ms"] / cold)
+
+    def library(c, x):
+        call, refused = library_call(c, x, device)
+        if call is None:
+            raise RuntimeError(f"kernel_times: the library call was {refused}")
+        ms, src = device_ms(call)
+        return dict(device_ms=ms, device_source=src)
+
+    n = SIZES["lap"]
+    lap64 = laplacian_2d(n, n, np.float64)
+    band_sum = random_banded(SIZES["band"], 11, wander=7, seed=2,
+                             dtype=np.float64).sum_duplicates()
+    band64 = random_banded(SIZES["band"], 11, wander=7, seed=2, dtype=np.float64)
+    tile_types = {"laplace": (lap64, with_imag(lap64, 12, np.complex128)),
+                  "banded11": (band64, with_imag(band_sum, 8, np.complex128))}
+    fixtures = {
+        "laplace": (laplacian_2d(n, n, np.float32), with_imag(lap64, 12, np.complex64)),
+        "banded11": (random_banded(SIZES["band"], 11, wander=7, seed=2, dtype=np.float32),
+                     with_imag(band_sum, 8, np.complex64))}
+    out = {}
+    for fix, (c32, c64) in fixtures.items():
+        a = coo_to_whdia(c64, device=device)
+        x = torch.from_numpy(rand_vector(c64.n_cols, 7, np.complex64)).to(device)
+        out[f"whdia_c64_{fix}"] = row(a, lambda: ops.whdia_spmv(a, x), 1)
+        out[f"library_c64_{fix}"] = library(c64, x)
+        del a
+        a = coo_to_whdia(c32, device=device)
+        xs = torch.from_numpy(rhs_stack(c32.n_cols)).to(device)
+        out[f"whdia_spmm_{fix}"] = row(a, lambda: ops.whdia_spmm(a, xs, fused=True),
+                                       N_RHS)
+        out[f"whdia_loop_{fix}"] = row(a, lambda: ops.whdia_spmm(a, xs), N_RHS)
+        out[f"library_spmm_{fix}"] = library(c32, xs)
+        # the tile pass's SpMVs, #3, #6 and #10, beside them
+        x32 = xs[0].contiguous()
+        out[f"whdia_f32_{fix}"] = row(a, lambda: ops.whdia_spmv(a, x32), 1)
+        del a
+        for tag, c in (("f64", tile_types[fix][0]), ("c128", tile_types[fix][1])):
+            a = coo_to_whdia(c, device=device)
+            xt = torch.from_numpy(rand_vector(c.n_cols, 7, c.values.dtype)).to(device)
+            out[f"whdia_{tag}_{fix}"] = row(a, lambda: ops.whdia_spmv(a, xt), 1)
+            del a
+        for k in (f"whdia_c64_{fix}", f"whdia_spmm_{fix}", f"whdia_loop_{fix}",
+                  f"whdia_f32_{fix}", f"whdia_f64_{fix}", f"whdia_c128_{fix}"):
+            print(f"kernel_times: {k} {out[k]['kernels']} warm {out[k]['device_ms']} "
+                  f"cold {out[k]['cold_device_ms']}", file=sys.stderr, flush=True)
     return out
 
 

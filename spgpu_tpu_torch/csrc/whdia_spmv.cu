@@ -7,10 +7,11 @@
 // _whdia_dd_kernel (_whdia_dd_call, whdia_spmv_dd_pallas; entry
 // whdia_spmv_f64, float64 where the TPU kernel emulates it with
 // double-float pairs and slab-mode r0 only), _whdia_cplx_kernel
-// (_whdia_cplx_call, whdia_spmv_cplx_pallas; entry whdia_spmv_c64, complex64,
-// both r0 modes) and _whdia_z_kernel (_whdia_z_call, whdia_spmv_z_pallas;
-// entry whdia_spmv_c128, complex128 where the TPU kernel runs four
-// double-float slabs, slab-mode r0 only; here both modes).  It computes the
+// (_whdia_cplx_call, whdia_spmv_cplx_pallas; entry whdia_spmv_c64,
+// complex64, both r0 modes: the hack pass below) and _whdia_z_kernel
+// (_whdia_z_call, whdia_spmv_z_pallas; entry whdia_spmv_c128, complex128
+// where the TPU kernel runs four double-float slabs, slab-mode r0 only;
+// here both modes).  It computes the
 // same product on the same layout arrays (spgpu_tpu_torch/formats/whdia.py):
 //
 //   for every cell (slot s, lane j) of tile t = s / 8:
@@ -33,32 +34,45 @@
 // z (4 MiB) stay in the 50 MB L2.  float64 doubles the value bytes and the
 // vectors: about 128 MiB of slab and 16 MiB of x and z on the Laplacian,
 // ~45 us.  complex64 moves 8 B per cell (an interleaved re/im float2) on
-// the fp32 geometry: 151.3 MB on the Laplacian (16,384 tiles), 45.2 us, and
-// 75.6 MB on banded-11, 22.6 us; complex128 16 B per cell on the float64
-// geometry: 167.9 MB on the Laplacian (8,192 tiles), 50.1 us, and 147.4 MB
-// on banded-11, 44.0 us (chip_smoke.py's counts).
+// the fp32 geometry, over the full layout: 151.3 MB on the Laplacian
+// (16,384 tiles), 45.2 us, and 75.6 MB on banded-11, 22.6 us; complex128
+// 16 B per cell on the float64 geometry: 167.9 MB on the Laplacian (8,192
+// tiles), 50.1 us, and 147.4 MB on banded-11, 44.0 us (chip_smoke.py's
+// counts).
 //
-// What the design does about it: kernel #1's tile pass, without pages.
-// One 128-thread block per tile; thread j reads its lane of the 8 slots
-// (coalesced), gathers x at the slot's contiguous shifted run (coalesced,
-// from L2), sums in a register and issues one atomicAdd into the zeroed
-// row hack*128 + j (atomicAdd(double) is native on Hopper).  WHDIA has no
-// lane segments, so there is no flush pass.  Atomic order varies, so
-// results are not bit-reproducible.  Complex: one float2 / double2 load per
-// cell and per x entry, four FMAs per cell (re += vr*xr; re -= vi*xi;
-// im += vr*xi; im += vi*xr) into re and im sums, and two atomicAdds, one
-// on each component of the row's output.
+// What the design does about it, for #3, #6 and #10: kernel #1's tile
+// pass, without pages.  One 128-thread block per tile; thread j reads its
+// lane of the 8 slots (coalesced), gathers x at the slot's contiguous
+// shifted run (coalesced, from L2), sums in a register and issues one
+// atomicAdd into the zeroed row hack*128 + j (atomicAdd(double) is native
+// on Hopper).  WHDIA has no lane segments, so there is no flush pass.
+// Atomic order varies, so results are not bit-reproducible.  Complex: one
+// double2 load per cell and per x entry, four FMAs per cell (re += vr*xr;
+// re -= vi*xi; im += vr*xi; im += vi*xr) into re and im sums, and two
+// atomicAdds, one on each component of the row's output.
 //
-// SpMM (entry whdia_spmm, kernel #13) replaces _whdia_spmm_kernel
-// (_whdia_spmm_call, whdia_spmm_pallas), fp32, both r0 modes: Z[r] = A x[r]
-// for n_rhs RHS.  r0 is decoded once per slot (slab or pattern word), the
-// column and its [0, n_cols) guard once per cell, the value once into a
-// register; then RHS blocks of kRhs = 8 (a remainder block takes any
-// n_rhs) read x[r] at the slot's shifted run (coalesced across the warp,
-// so x keeps its natural (n_rhs, n_cols) layout) and issue one atomicAdd
-// per (RHS, lane).  Bound: the slab and r0 once plus x and z per RHS,
-// about 67 MB and 20 us for 8 RHS on banded-11.  No RHS passes or VMEM
-// checks: one launch takes any n_rhs.  Atomic order varies.
+// #9 (complex64) and the SpMM (entry whdia_spmm, kernel #13, which
+// replaces _whdia_spmm_kernel, called through _whdia_spmm_call and
+// whdia_spmm_pallas; fp32, both r0 modes, Z[r] = A x[r] for any n_rhs) run
+// the hack pass instead.  The tile pass reads every slot, and on the
+// Laplacian only 31 % of the slots hold a nonzero (two tiles per hack, 4
+// and 1 of their 8 slots live; banded-11 67 %): the full slab's bound,
+// 45.2 us for #9, is already above cuSPARSE CSR's time, and #13's dead
+// slots cost 8 RHS x 512 B of x reads each.  The tile pass also pays two
+// atomics per output element (two tiles per hack) into a zero-filled z.
+// WHDIA has no lane routing: lane j of a hack feeds only row hack*128 + j.
+// So one block per hack, one warp per 32-lane quarter, walks the hack's
+// live slots from the layout's list (hack_slot_ptr, hack_slots): it reads
+// the live slots' values, their r0 and tile words and x once per RHS, sums
+// in registers (kSpmmRhs = 8 floats per RHS block, a runtime remainder
+// for any n_rhs, or one float2), and stores each row once with a plain
+// store: no atomics, no zero fill, and the same bits from run to run.
+// Columns are int32 (the converter bounds them at 65,536 pages x 128).
+// Live bounds (chip_smoke.py's counts): #9 about 59 MB on the Laplacian,
+// 17.6 us; #13 for 8 RHS about 88 MB (Laplacian) and 56 MB (banded-11).
+// A deviation: a dead slot is not read, so an Inf or NaN in x at a column
+// that only all-zero slots reference no longer gives NaN (the JAX kernel
+// and the plain versions multiply every cell; for finite x they agree).
 //
 // Ablation (entry whdia_ablation, kernel #18) replaces the `call` closure of
 // doc/sweeps/whdia_ablation.py (its pallas_call body adds one op family of
@@ -82,6 +96,16 @@ namespace {
 
 constexpr int kLanes = 128;
 constexpr int kSlots = 8;
+// The hack pass's shape: RHS per block of the SpMM's register sums, the
+// slots whose loads a warp issues before their FMAs, and the resident
+// blocks per SM, which cap the registers (16: 32 a thread, 8: 64).  Chosen
+// from fourteen shapes timed on the H100 (PERF.md §6): the SpMV gains from
+// full occupancy, the SpMM from four slots' loads in flight.
+constexpr int kSpmmRhs = 8;
+constexpr int kSpmvBatch = 3;
+constexpr int kSpmmBatch = 4;
+constexpr int kSpmvBlocksPerSm = 16;
+constexpr int kSpmmBlocksPerSm = 8;
 
 // sum + v*x: one FMA for a real type; four for a complex one, in the order
 // re += vr*xr; re -= vi*xi; im += vr*xi; im += vi*xr
@@ -112,10 +136,6 @@ __device__ __forceinline__ double2 mac(double2 v, double2 x, double2 sum) {
 // *p += v; a complex sum takes two atomics, one per component
 __device__ __forceinline__ void atomic_add(float* p, float v) { atomicAdd(p, v); }
 __device__ __forceinline__ void atomic_add(double* p, double v) { atomicAdd(p, v); }
-__device__ __forceinline__ void atomic_add(float2* p, float2 v) {
-  atomicAdd(&p->x, v.x);
-  atomicAdd(&p->y, v.y);
-}
 __device__ __forceinline__ void atomic_add(double2* p, double2 v) {
   atomicAdd(&p->x, v.x);
   atomicAdd(&p->y, v.y);
@@ -215,56 +235,74 @@ whdia_ablation_pass(const float* __restrict__ values,
                                       group_hacks);
 }
 
-// SpMM tile pass (kernel #13): r0 and the x column of each of the lane's 8
-// slots are decoded once, with the [0, n_cols) guard and the value kept in
-// registers; then every RHS block of kRhs takes 8 guarded reads of x[r]
-// (n_rhs, n_cols) and one atomicAdd per (RHS, lane) into z[r]
-// (n_rhs, z_rows).
-constexpr int kRhs = 8;
-
-template <bool kPattern>
-__global__ void __launch_bounds__(kLanes)
-whdia_spmm_tile_pass(const float* __restrict__ values,
-                     const int16_t* __restrict__ slot_r0,
-                     const int32_t* __restrict__ tile_r0,
-                     const int32_t* __restrict__ tile_base,
-                     const int32_t* __restrict__ chunk_group,
-                     const float* __restrict__ x, float* __restrict__ z,
-                     int64_t n_cols, int64_t z_rows, int n_rhs,
-                     int chunk_tiles, int group_hacks) {
-  const int64_t t = blockIdx.x;
+// The hack pass (kernel #9, complex64 SpMV, kRhs = 1; kernel #13, fp32
+// SpMM, kRhs = 8): one block of 128 threads per hack, four warps, one per
+// 32-lane quarter, with no block barrier.  Each warp walks the hack's live
+// slots (hack_slots[hack_slot_ptr[hack] .. hack_slot_ptr[hack + 1]]) in
+// list order, warp-uniformly: lane k of the warp decodes list entry k of
+// each run of 32 (its slot id and first column base*128 + r0), and the
+// warp takes them in turn by shuffles.  For a batch of kBatch slots it
+// loads the lane's cells and the guarded x entries of every RHS of the
+// block before the FMAs; sums stay in registers, and each (RHS, lane)
+// gets one plain store of its row, zeros for a hack with no live slot.
+template <typename T, bool kPattern, int kRhs>
+__global__ void __launch_bounds__(kLanes, kRhs == 1 ? kSpmvBlocksPerSm : kSpmmBlocksPerSm)
+whdia_hack_pass(const T* __restrict__ values,
+                const int16_t* __restrict__ slot_r0,
+                const int32_t* __restrict__ tile_r0,
+                const int32_t* __restrict__ tile_base,
+                const int32_t* __restrict__ hack_slot_ptr,
+                const int32_t* __restrict__ hack_slots,
+                const T* __restrict__ x, T* __restrict__ z,
+                int n_cols, int64_t z_rows, int n_rhs) {
+  constexpr int kBatch = kRhs == 1 ? kSpmvBatch : kSpmmBatch;
+  const int64_t hack = blockIdx.x;
   const int j = threadIdx.x;
-  const uint32_t meta = static_cast<uint32_t>(tile_base[t]);
-  const int64_t c0 = static_cast<int64_t>(meta & 0xFFFFu) * kLanes + j;
-  float v[kSlots];
-  int64_t col[kSlots];
-  bool in[kSlots];
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int64_t slot = t * kSlots + s;
-    col[s] = c0 + slot_r0_of<kPattern>(slot_r0, tile_r0, t, s);
-    in[s] = col[s] >= 0 && col[s] < n_cols;
-    v[s] = __ldg(values + slot * kLanes + j);
-  }
-  const int64_t hack =
-      static_cast<int64_t>(chunk_group[t / chunk_tiles]) * group_hacks + (meta >> 16);
+  const int lane = j & 31;
+  const int begin = __ldg(hack_slot_ptr + hack);
+  const int end = __ldg(hack_slot_ptr + hack + 1);
   for (int rb = 0; rb < n_rhs; rb += kRhs) {
     const int w = min(kRhs, n_rhs - rb);
-    float sum[kRhs];
+    const T* xr = x + static_cast<int64_t>(rb) * n_cols;
+    T sum[kRhs];
 #pragma unroll
-    for (int q = 0; q < kRhs; ++q) sum[q] = 0.0f;
+    for (int q = 0; q < kRhs; ++q) sum[q] = T{};
+    for (int p = begin; p < end; p += 32) {
+      const int n = min(32, end - p);
+      int sid = 0, col0 = 0;
+      if (lane < n) {
+        sid = __ldg(hack_slots + p + lane);
+        const int t = sid >> 3;
+        col0 = (__ldg(tile_base + t) & 0xFFFF) * kLanes +
+               slot_r0_of<kPattern>(slot_r0, tile_r0, t, sid & (kSlots - 1));
+      }
+      for (int k = 0; k < n; k += kBatch) {
+        T v[kBatch];
+        T xv[kBatch][kRhs];
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      if (!in[s]) continue;
-      const float* xs = x + (static_cast<int64_t>(rb) * n_cols + col[s]);
+        for (int b = 0; b < kBatch; ++b) {
+          const int s = __shfl_sync(0xFFFFFFFFu, sid, (k + b) & 31);
+          const int c = __shfl_sync(0xFFFFFFFFu, col0, (k + b) & 31) + j;
+          const bool live = k + b < n;
+          const bool in = live && static_cast<unsigned>(c) < static_cast<unsigned>(n_cols);
+          v[b] = live ? __ldg(values + static_cast<int64_t>(s) * kLanes + j) : T{};
 #pragma unroll
-      for (int q = 0; q < kRhs; ++q)
-        if (q < w) sum[q] = mac(v[s], __ldg(xs + q * n_cols), sum[q]);
+          for (int q = 0; q < kRhs; ++q)
+            xv[b][q] = in && q < w ? __ldg(xr + static_cast<int64_t>(q) * n_cols + c) : T{};
+        }
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          if (k + b < n) {
+#pragma unroll
+            for (int q = 0; q < kRhs; ++q) sum[q] = mac(v[b], xv[b][q], sum[q]);
+          }
+        }
+      }
     }
-    float* out = z + static_cast<int64_t>(rb) * z_rows + hack * kLanes + j;
+    T* out = z + static_cast<int64_t>(rb) * z_rows + hack * kLanes + j;
 #pragma unroll
     for (int q = 0; q < kRhs; ++q)
-      if (q < w) atomicAdd(out + q * z_rows, sum[q]);
+      if (q < w) out[q * z_rows] = sum[q];
   }
 }
 
@@ -307,6 +345,36 @@ void launch_ablation(const float* v, const int16_t* sr, const int32_t* tr,
         v, sr, tr, tb, cg, x, part, n_cols, chunk_tiles, group_hacks);
 }
 
+template <typename T, int kRhs>
+int launch_hacks(const void* values, const void* slot_r0, const void* tile_r0,
+                 const void* tile_base, const void* hack_slot_ptr,
+                 const void* hack_slots, const void* x, void* z,
+                 int64_t num_hacks, int64_t n_cols, int64_t z_rows, int n_rhs,
+                 void* stream) {
+  if (n_cols > INT32_MAX || num_hacks > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (num_hacks > 0 && n_rhs > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const dim3 grid(static_cast<unsigned>(num_hacks));
+    auto* v = static_cast<const T*>(values);
+    auto* sr = static_cast<const int16_t*>(slot_r0);
+    auto* tr = static_cast<const int32_t*>(tile_r0);
+    auto* tb = static_cast<const int32_t*>(tile_base);
+    auto* hp = static_cast<const int32_t*>(hack_slot_ptr);
+    auto* hs = static_cast<const int32_t*>(hack_slots);
+    auto* xt = static_cast<const T*>(x);
+    auto* zt = static_cast<T*>(z);
+    const int nc = static_cast<int>(n_cols);
+    if (tr != nullptr)
+      whdia_hack_pass<T, true, kRhs><<<grid, kLanes, 0, st>>>(
+          v, sr, tr, tb, hp, hs, xt, zt, nc, z_rows, n_rhs);
+    else
+      whdia_hack_pass<T, false, kRhs><<<grid, kLanes, 0, st>>>(
+          v, sr, tr, tb, hp, hs, xt, zt, nc, z_rows, n_rhs);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -343,8 +411,8 @@ int whdia_ablation(int level, const void* values, const void* slot_r0,
 // the slab and x (n_cols).  Exactly one of slot_r0 (slab mode) and tile_r0
 // (pattern mode) is non-null.  Launches on `stream`, does not synchronise,
 // and returns cudaGetLastError().  whdia_spmv takes fp32 values, x and z,
-// whdia_spmv_f64 float64 ones, whdia_spmv_c64 complex64 and whdia_spmv_c128
-// complex128 ones (interleaved re/im).
+// whdia_spmv_f64 float64 ones and whdia_spmv_c128 complex128 ones
+// (interleaved re/im).
 #define WHDIA_ENTRY(NAME, T)                                                  \
   int NAME(const void* values, const void* slot_r0, const void* tile_r0,     \
            const void* tile_base, const void* chunk_group, const void* x,    \
@@ -356,39 +424,38 @@ int whdia_ablation(int level, const void* values, const void* slot_r0,
 
 WHDIA_ENTRY(whdia_spmv, float)
 WHDIA_ENTRY(whdia_spmv_f64, double)
-WHDIA_ENTRY(whdia_spmv_c64, float2)
 WHDIA_ENTRY(whdia_spmv_c128, double2)
 
 #undef WHDIA_ENTRY
 
-// Kernel #13: z (n_rhs x z_rows, zeroed by the caller; z_rows =
-// num_groups*group_hacks*128) += the WHDIA product with each row of x
-// (n_rhs x n_cols), fp32.  r0 as in whdia_spmv.  Launches on `stream`,
-// does not synchronise, and returns cudaGetLastError().
+// Kernel #9: z (num_hacks*128; every row written, no zero fill needed) =
+// the WHDIA product of the complex64 slab (interleaved re/im) and x
+// (n_cols), over the live slots of each hack (hack_slot_ptr, num_hacks + 1,
+// and hack_slots, int32, as WhdiaMatrix.hack_slot_list builds them); r0 as
+// in whdia_spmv.  Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() (cudaErrorInvalidValue past 2^31 columns or hacks).
+int whdia_spmv_c64(const void* values, const void* slot_r0, const void* tile_r0,
+                   const void* tile_base, const void* hack_slot_ptr,
+                   const void* hack_slots, const void* x, void* z,
+                   int64_t num_hacks, int64_t n_cols, void* stream) {
+  return launch_hacks<float2, 1>(values, slot_r0, tile_r0, tile_base,
+                                 hack_slot_ptr, hack_slots, x, z, num_hacks,
+                                 n_cols, 0, 1, stream);
+}
+
+// Kernel #13: z (n_rhs x z_rows, z_rows >= num_hacks*128; rows below
+// num_hacks*128 all written) = the WHDIA product with each row of x
+// (n_rhs x n_cols), fp32, over the live slots of each hack as in
+// whdia_spmv_c64.  Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError().
 int whdia_spmm(const void* values, const void* slot_r0, const void* tile_r0,
-               const void* tile_base, const void* chunk_group, const void* x,
-               void* z, int64_t num_tiles, int64_t n_cols, int64_t z_rows,
-               int n_rhs, int chunk_tiles, int group_hacks, void* stream) {
-  if (num_tiles > 0 && n_rhs > 0) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const dim3 grid(static_cast<unsigned>(num_tiles));
-    auto* v = static_cast<const float*>(values);
-    auto* sr = static_cast<const int16_t*>(slot_r0);
-    auto* tr = static_cast<const int32_t*>(tile_r0);
-    auto* tb = static_cast<const int32_t*>(tile_base);
-    auto* cg = static_cast<const int32_t*>(chunk_group);
-    auto* xt = static_cast<const float*>(x);
-    auto* zt = static_cast<float*>(z);
-    if (tr != nullptr)
-      whdia_spmm_tile_pass<true><<<grid, kLanes, 0, st>>>(
-          v, sr, tr, tb, cg, xt, zt, n_cols, z_rows, n_rhs, chunk_tiles,
-          group_hacks);
-    else
-      whdia_spmm_tile_pass<false><<<grid, kLanes, 0, st>>>(
-          v, sr, tr, tb, cg, xt, zt, n_cols, z_rows, n_rhs, chunk_tiles,
-          group_hacks);
-  }
-  return static_cast<int>(cudaGetLastError());
+               const void* tile_base, const void* hack_slot_ptr,
+               const void* hack_slots, const void* x, void* z,
+               int64_t num_hacks, int64_t n_cols, int64_t z_rows, int n_rhs,
+               void* stream) {
+  return launch_hacks<float, kSpmmRhs>(values, slot_r0, tile_r0, tile_base,
+                                   hack_slot_ptr, hack_slots, x, z, num_hacks,
+                                   n_cols, z_rows, n_rhs, stream);
 }
 
 }  // extern "C"

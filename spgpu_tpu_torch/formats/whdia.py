@@ -27,6 +27,12 @@ package keeps a float64 slab as a double-float pair (``values`` hi,
 complex matrix as two real-plane layouts of one structure
 (``ComplexPlanes``: ``ar``, ``ai``), the port keeps one complex slab
 (interleaved re/im).  The row-blocked ``BlockedWhdia`` is not ported.
+
+A layout also carries ``hack_slot_ptr`` and ``hack_slots``
+(:func:`hack_slot_list`), derived from its values whenever it is built:
+the ids of the slots that hold a nonzero, grouped by hack.  The complex64
+SpMV and the fp32 SpMM kernels read only those slots, so a slab must not
+be changed in place (``check`` rejects a stale list).
 """
 
 from __future__ import annotations
@@ -38,13 +44,35 @@ import numpy as np
 import torch
 
 from spgpu_tpu_torch.core import join_dd, join_plane_fields
+from spgpu_tpu_torch.kernels.whdia import whdia_tile_hacks
 
-__all__ = ["WhdiaMatrix", "from_numpy_fields", "from_numpy_planes"]
+__all__ = ["WhdiaMatrix", "from_numpy_fields", "from_numpy_planes",
+           "hack_slot_list"]
 
 #: the value types of a slab
 VALUE_DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128)
 
 _TENSORS = ("values", "slot_r0", "tile_r0", "tile_base", "chunk_group")
+
+
+def hack_slot_list(values: torch.Tensor, tile_base: torch.Tensor,
+                   chunk_group: torch.Tensor, *, chunk_tiles: int,
+                   group_hacks: int, num_groups: int):
+    """The live slots of each hack, on ``values``' device:
+    ``(hack_slot_ptr, hack_slots)``, both int32.  ``hack_slots`` holds the
+    ids of the slots with at least one nonzero value, grouped by hack
+    (``num_groups * group_hacks`` of them, each tile's hack as the
+    kernels decode it) by a stable sort, so each hack's slots stay in
+    tile order and then slot order; hack ``h``'s are
+    ``hack_slots[hack_slot_ptr[h]:hack_slot_ptr[h + 1]]``.  A hack's tiles
+    need not be contiguous."""
+    hacks = num_groups * group_hacks
+    live = torch.nonzero((values != 0).any(dim=1)).view(-1)
+    hack = whdia_tile_hacks(tile_base, chunk_group, chunk_tiles, group_hacks)[live // 8]
+    order = torch.sort(hack, stable=True).indices
+    ptr = torch.zeros(hacks + 1, dtype=torch.int64, device=values.device)
+    torch.cumsum(torch.bincount(hack, minlength=hacks), 0, out=ptr[1:])
+    return ptr.int(), live[order].int()
 
 
 @dataclasses.dataclass
@@ -64,6 +92,36 @@ class WhdiaMatrix:
     window_pages: int
     group_hacks: int
     chunk_tiles: int
+    # hack_slot_list(...), rebuilt with every layout (None when the arrays
+    # are not shaped for it; check() then rejects the layout)
+    hack_slot_ptr: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
+                                                              repr=False)
+    hack_slots: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
+                                                           repr=False)
+
+    def __post_init__(self) -> None:
+        if self._listable():
+            self.hack_slot_ptr, self.hack_slots = self._derive_hack_slots()
+
+    def _listable(self) -> bool:
+        """The arrays are shaped for :func:`hack_slot_list`: whole tiles
+        and chunks, one chunk_group entry per chunk, on one device, and
+        every tile's hack in range."""
+        v, tb, cg, ct = self.values, self.tile_base, self.chunk_group, self.chunk_tiles
+        if not (v.dim() == 2 and v.shape[1] == 128 and v.shape[0] % 8 == 0
+                and ct > 0 and tb.shape == (v.shape[0] // 8,) and tb.shape[0] % ct == 0
+                and cg.shape == (tb.shape[0] // ct,)
+                and tb.device == v.device and cg.device == v.device):
+            return False
+        hh = tb >> 16
+        return bool(((cg >= 0) & (cg < self.num_groups)).all()
+                    and ((hh >= 0) & (hh < self.group_hacks)).all())
+
+    def _derive_hack_slots(self, device=None):
+        t = [getattr(self, f) if device is None else getattr(self, f).to(device)
+             for f in ("values", "tile_base", "chunk_group")]
+        return hack_slot_list(*t, chunk_tiles=self.chunk_tiles,
+                              group_hacks=self.group_hacks, num_groups=self.num_groups)
 
     @property
     def device(self) -> torch.device:
@@ -159,6 +217,14 @@ class WhdiaMatrix:
         want(bool((row[nz] < self.n_rows).all()), "a nonzero cell past n_rows")
         want(bool(((col[nz] >= 0) & (col[nz] < self.n_cols)).all()),
              "a nonzero cell outside [0, n_cols)")
+        ptr, slots = self.hack_slot_ptr, self.hack_slots
+        want(ptr is not None and slots is not None
+             and ptr.dtype == torch.int32 and slots.dtype == torch.int32
+             and ptr.device == self.device and slots.device == self.device,
+             "hack_slot_ptr/hack_slots missing, or of another type or device")
+        want_ptr, want_slots = self._derive_hack_slots("cpu")
+        want(torch.equal(ptr.cpu(), want_ptr) and torch.equal(slots.cpu(), want_slots),
+             "hack_slots does not match the values (changed in place?)")
 
 
 def _layout(fields: dict, values: torch.Tensor, static: dict) -> WhdiaMatrix:

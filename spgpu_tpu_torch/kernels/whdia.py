@@ -12,12 +12,22 @@ five is ``spgpu_tpu_torch/csrc/whdia_spmv.cu`` (its header note gives
 the design and its bound), built on first launch by
 :mod:`spgpu_tpu_torch.kernels._build`.
 
+#3, #6 and #10 run a tile pass (atomics into a zero-filled z).  #9 and
+#13 run the hack pass: one block per hack over the layout's live slots
+(``WhdiaMatrix.hack_slot_ptr``/``hack_slots``, which these two wrappers
+require for CUDA tensors), one plain store per row, so z needs no zero
+fill and the result has the same bits from run to run.  A dead slot is
+not read, so an Inf or NaN in x that only all-zero slots reach gives no
+NaN there; the plain versions multiply every cell (the JAX semantics).
+
 :func:`whdia_spmv` and :func:`whdia_spmm` launch their kernels for CUDA
 tensors (or raise) and run :func:`whdia_spmv_plain` /
 :func:`whdia_spmm_plain`, the plain PyTorch versions of the same
-functions, for CPU tensors.  ``LAUNCHES`` counts the launches of kernel
-#3, ``LAUNCHES_F64`` those of #6, ``LAUNCHES_C64`` those of #9,
-``LAUNCHES_C128`` those of #10 and ``LAUNCHES_SPMM`` those of #13.
+functions, for CPU tensors; :func:`whdia_spmm_listed_plain` is the hack
+pass's product in plain PyTorch, summed in its order.  ``LAUNCHES``
+counts the launches of kernel #3, ``LAUNCHES_F64`` those of #6,
+``LAUNCHES_C64`` those of #9, ``LAUNCHES_C128`` those of #10 and
+``LAUNCHES_SPMM`` those of #13.
 """
 
 from __future__ import annotations
@@ -29,9 +39,10 @@ import torch
 
 from spgpu_tpu_torch.kernels._build import CudaLibrary
 
-__all__ = ["LAUNCHES", "LAUNCHES_C128", "LAUNCHES_C64", "LAUNCHES_F64",
-           "LAUNCHES_SPMM", "SOURCE", "build", "whdia_spmm",
-           "whdia_spmm_plain", "whdia_spmv", "whdia_spmv_plain"]
+__all__ = ["HACK_PASS", "LAUNCHES", "LAUNCHES_C128", "LAUNCHES_C64",
+           "LAUNCHES_F64", "LAUNCHES_SPMM", "SOURCE", "build", "whdia_spmm",
+           "whdia_spmm_listed_plain", "whdia_spmm_plain", "whdia_spmv",
+           "whdia_spmv_plain"]
 
 #: launches of kernel #3 (fp32), #6 (float64), #9 (complex64), #10
 #: (complex128) and #13 (SpMM) so far; the CPU path does not count
@@ -47,16 +58,20 @@ _ENTRIES = {torch.float32: ("whdia_spmv", "LAUNCHES"),
             torch.complex64: ("whdia_spmv_c64", "LAUNCHES_C64"),
             torch.complex128: ("whdia_spmv_c128", "LAUNCHES_C128")}
 
+#: value dtypes whose SpMV runs the hack pass over the live-slot list (the
+#: fp32 SpMM, kernel #13, runs it too)
+HACK_PASS = (torch.complex64,)
+
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    for name, _ in _ENTRIES.values():
+    for dt, (name, _) in _ENTRIES.items():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i64, i64, i32, i32, p]
+        fn.argtypes = ([p] * 8 + [i64, i64, p] if dt in HACK_PASS
+                       else [p, p, p, p, p, p, p, i64, i64, i32, i32, p])
     lib.whdia_spmm.restype = ctypes.c_int
-    lib.whdia_spmm.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i32, i32,
-                               i32, p]
+    lib.whdia_spmm.argtypes = [p] * 8 + [i64, i64, i64, i32, p]
     # kernel #18 (spgpu_tpu_torch.kernels.ablation)
     lib.whdia_ablation.restype = ctypes.c_int
     lib.whdia_ablation.argtypes = [i32, p, p, p, p, p, p, p, i64, i64, i32,
@@ -106,6 +121,23 @@ def _check_args(op, values, slot_r0, tile_r0, tile_base, chunk_group, x,
         raise ValueError(f"{op}: no kernel for device {x.device}")
 
 
+def _list_ptrs(op, hack_slot_ptr, hack_slots, hacks, device):
+    """The live-slot list's pointers for the hack pass, checked: int32,
+    contiguous, on ``device``, ``hack_slot_ptr`` ``(hacks + 1,)``."""
+    if hack_slot_ptr is None or hack_slots is None:
+        raise ValueError(f"{op}: the hack pass needs hack_slot_ptr and hack_slots "
+                         "(WhdiaMatrix.hack_slot_list) for CUDA tensors")
+    for t in (hack_slot_ptr, hack_slots):
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous() \
+                or t.device != device:
+            raise ValueError(f"{op}: hack_slot_ptr and hack_slots must be "
+                             f"contiguous 1-D int32 tensors on {device}")
+    if hack_slot_ptr.shape[0] != hacks + 1:
+        raise ValueError(f"{op}: hack_slot_ptr has {hack_slot_ptr.shape[0]} "
+                         f"entries, not num_groups*group_hacks + 1 = {hacks + 1}")
+    return hack_slot_ptr.data_ptr(), hack_slots.data_ptr()
+
+
 def _r0_ptrs(slot_r0, tile_r0):
     return (None if slot_r0 is None else slot_r0.data_ptr(),
             None if tile_r0 is None else tile_r0.data_ptr())
@@ -113,18 +145,21 @@ def _r0_ptrs(slot_r0, tile_r0):
 
 def whdia_spmv(values, slot_r0: Optional[torch.Tensor],
                tile_r0: Optional[torch.Tensor], tile_base, chunk_group,
-               x, *, chunk_tiles: int, group_hacks: int,
-               num_groups: int) -> torch.Tensor:
+               x, *, chunk_tiles: int, group_hacks: int, num_groups: int,
+               hack_slot_ptr: Optional[torch.Tensor] = None,
+               hack_slots: Optional[torch.Tensor] = None) -> torch.Tensor:
     """WHDIA product ``(num_groups*group_hacks*128,)`` (row ``r`` at
     index ``r``) of the slab and ``x`` ``(n_cols,)``, both float32,
     float64, complex64 or complex128.
 
     Give ``slot_r0`` (slab mode) or ``tile_r0`` (pattern mode).  CUDA
     tensors launch the hand kernel of their type (#3, #6, #9 or #10, each
-    counted in its ``LAUNCHES*``); CPU tensors run
-    :func:`whdia_spmv_plain`.  Any other device raises.  The
-    layout arrays are trusted as built by the converter or checked by
-    ``WhdiaMatrix.check``; shapes, dtypes and devices are checked here."""
+    counted in its ``LAUNCHES*``); complex64 (#9, the hack pass) needs the
+    layout's ``hack_slot_ptr`` and ``hack_slots`` and raises without them,
+    the other types ignore them.  CPU tensors run :func:`whdia_spmv_plain`.
+    Any other device raises.  The layout arrays are trusted as built by
+    the converter or checked by ``WhdiaMatrix.check``; shapes, dtypes and
+    devices are checked here."""
     _check_args("whdia_spmv", values, slot_r0, tile_r0, tile_base,
                 chunk_group, x, chunk_tiles)
     dev = x.device
@@ -132,14 +167,22 @@ def whdia_spmv(values, slot_r0: Optional[torch.Tensor],
         return whdia_spmv_plain(values, slot_r0, tile_r0, tile_base,
                                 chunk_group, x, chunk_tiles=chunk_tiles,
                                 group_hacks=group_hacks, num_groups=num_groups)
+    hacks = num_groups * group_hacks
+    hack_pass = x.dtype in HACK_PASS
+    if hack_pass:
+        lists = _list_ptrs("whdia_spmv", hack_slot_ptr, hack_slots, hacks, dev)
     lib = _LIB.load()
-    z = torch.zeros(num_groups * group_hacks * 128, dtype=x.dtype, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     entry, counter = _ENTRIES[x.dtype]
-    err = getattr(lib, entry)(
-        values.data_ptr(), *_r0_ptrs(slot_r0, tile_r0), tile_base.data_ptr(),
-        chunk_group.data_ptr(), x.data_ptr(), z.data_ptr(),
-        tile_base.shape[0], x.shape[0], chunk_tiles, group_hacks, stream)
+    fn = getattr(lib, entry)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    head = (values.data_ptr(), *_r0_ptrs(slot_r0, tile_r0), tile_base.data_ptr())
+    if hack_pass:  # every row written: no zero fill
+        z = torch.empty(hacks * 128, dtype=x.dtype, device=dev)
+        err = fn(*head, *lists, x.data_ptr(), z.data_ptr(), hacks, x.shape[0], stream)
+    else:
+        z = torch.zeros(hacks * 128, dtype=x.dtype, device=dev)
+        err = fn(*head, chunk_group.data_ptr(), x.data_ptr(), z.data_ptr(),
+                 tile_base.shape[0], x.shape[0], chunk_tiles, group_hacks, stream)
     if err != 0:
         raise RuntimeError(f"whdia_spmv launch failed: CUDA error {err}")
     globals()[counter] += 1
@@ -148,14 +191,17 @@ def whdia_spmv(values, slot_r0: Optional[torch.Tensor],
 
 def whdia_spmm(values, slot_r0: Optional[torch.Tensor],
                tile_r0: Optional[torch.Tensor], tile_base, chunk_group,
-               x, *, chunk_tiles: int, group_hacks: int,
-               num_groups: int) -> torch.Tensor:
+               x, *, chunk_tiles: int, group_hacks: int, num_groups: int,
+               hack_slot_ptr: Optional[torch.Tensor] = None,
+               hack_slots: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused multi-RHS WHDIA product ``(n_rhs, num_groups*group_hacks*128)``
     of the fp32 slab and ``x`` ``(n_rhs, n_cols)`` fp32, in either r0
-    mode: r0 is decoded once per slot for every RHS.
+    mode: each live slot's r0 is decoded once for every RHS.
 
-    CUDA tensors launch kernel #13 (counted in ``LAUNCHES_SPMM``); CPU
-    tensors run :func:`whdia_spmm_plain`.  Any other device raises."""
+    CUDA tensors launch kernel #13 (the hack pass, counted in
+    ``LAUNCHES_SPMM``), which needs the layout's ``hack_slot_ptr`` and
+    ``hack_slots`` and raises without them; CPU tensors run
+    :func:`whdia_spmm_plain`.  Any other device raises."""
     _check_args("whdia_spmm", values, slot_r0, tile_r0, tile_base,
                 chunk_group, x, chunk_tiles)
     dev = x.device
@@ -163,15 +209,15 @@ def whdia_spmm(values, slot_r0: Optional[torch.Tensor],
         return whdia_spmm_plain(values, slot_r0, tile_r0, tile_base,
                                 chunk_group, x, chunk_tiles=chunk_tiles,
                                 group_hacks=group_hacks, num_groups=num_groups)
+    hacks = num_groups * group_hacks
+    lists = _list_ptrs("whdia_spmm", hack_slot_ptr, hack_slots, hacks, dev)
     lib = _LIB.load()
     n_rhs, n_cols = x.shape
-    z_rows = num_groups * group_hacks * 128
-    z = torch.zeros((n_rhs, z_rows), dtype=x.dtype, device=dev)
+    z = torch.empty((n_rhs, hacks * 128), dtype=x.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.whdia_spmm(
         values.data_ptr(), *_r0_ptrs(slot_r0, tile_r0), tile_base.data_ptr(),
-        chunk_group.data_ptr(), x.data_ptr(), z.data_ptr(),
-        tile_base.shape[0], n_cols, z_rows, n_rhs, chunk_tiles, group_hacks,
+        *lists, x.data_ptr(), z.data_ptr(), hacks, n_cols, hacks * 128, n_rhs,
         stream)
     if err != 0:
         raise RuntimeError(f"whdia_spmm launch failed: CUDA error {err}")
@@ -204,6 +250,33 @@ def whdia_spmm_plain(values, slot_r0, tile_r0, tile_base, chunk_group, x, *,
                     device=x.device)
     z.index_add_(1, whdia_tile_hacks(tile_base, chunk_group, chunk_tiles,
                                      group_hacks), tile_sum)
+    return z.view(n_rhs, -1)
+
+
+def whdia_spmm_listed_plain(values, slot_r0, tile_r0, tile_base, hack_slot_ptr,
+                            hack_slots, x, *, group_hacks: int,
+                            num_groups: int) -> torch.Tensor:
+    """The hack pass's product in plain PyTorch, ``(n_rhs,
+    num_groups*group_hacks*128)`` for ``x`` ``(n_rhs, n_cols)``: each row
+    sums only its hack's listed slots (``hack_slots[hack_slot_ptr[h] :
+    hack_slot_ptr[h + 1]]``), in list order, as the kernel does (it fuses
+    each multiply-add; here they round apart); x is read as 0 outside
+    ``[0, n_cols)``.  Rows of a hack with no listed slot are 0."""
+    n_rhs, n_cols = x.shape
+    hacks = num_groups * group_hacks
+    z = torch.zeros((n_rhs, hacks, 128), dtype=x.dtype, device=x.device)
+    ptr, slots = hack_slot_ptr.long(), hack_slots.long()
+    if slots.numel():
+        counts = ptr[1:] - ptr[:-1]
+        hack = torch.repeat_interleave(torch.arange(hacks, device=x.device), counts)
+        rank = torch.arange(slots.numel(), device=x.device) - ptr[hack]
+        col = whdia_columns(slot_r0, tile_r0, tile_base).view(-1, 128)[slots]
+        col = torch.where((col >= 0) & (col < n_cols), col, n_cols)
+        xz = torch.cat([x, x.new_zeros(n_rhs, 1)], dim=1)  # index n_cols reads 0
+        prod = values[slots] * xz[:, col]  # (n_rhs, L, 128)
+        for k in range(int(counts.max())):
+            sel = rank == k  # at most one slot of each hack
+            z[:, hack[sel]] += prod[:, sel]
     return z.view(n_rhs, -1)
 
 

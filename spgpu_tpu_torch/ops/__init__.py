@@ -172,7 +172,8 @@ def whdia_spmv(a: WhdiaMatrix, x: torch.Tensor, alpha=1.0, beta=0.0,
     z = _whdia.whdia_spmv(
         a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group,
         x.contiguous(), chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-        num_groups=a.num_groups)
+        num_groups=a.num_groups, hack_slot_ptr=a.hack_slot_ptr,
+        hack_slots=a.hack_slots)
     return _epilogue(z[: a.n_rows], alpha, beta, y)
 
 
@@ -254,8 +255,8 @@ def whdia_spmm(a: WhdiaMatrix, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
     result ``(n_rhs, n_rows)``.
 
     ``fused=None`` (the JAX default) loops :func:`whdia_spmv` per RHS, in
-    every type; ``fused=True`` runs kernel #13 in fp32 (r0 decoded once
-    per slot for every RHS) and raises ``NotImplementedError`` for
+    every type; ``fused=True`` runs kernel #13 in fp32 (each live slot's r0
+    decoded once for every RHS) and raises ``NotImplementedError`` for
     float64 and complex slabs."""
     _require(a, WhdiaMatrix, "whdia_spmm")
     fuse = _fused(a, fused, False, "WHDIA")
@@ -264,7 +265,8 @@ def whdia_spmm(a: WhdiaMatrix, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
         zs = _whdia.whdia_spmm(
             a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group,
             x.contiguous(), chunk_tiles=a.chunk_tiles,
-            group_hacks=a.group_hacks, num_groups=a.num_groups)[:, : a.n_rows]
+            group_hacks=a.group_hacks, num_groups=a.num_groups,
+            hack_slot_ptr=a.hack_slot_ptr, hack_slots=a.hack_slots)[:, : a.n_rows]
     else:
         zs = torch.stack([whdia_spmv(a, x[r]) for r in range(x.shape[0])])
     return _epilogue(zs, alpha, beta, y)

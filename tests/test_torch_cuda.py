@@ -23,10 +23,18 @@ with the tolerances of their real type (complex64 WHELL and WHDIA: rtol
 1e-5, atol 1e-5·max|z|; complex128: 1e-12·max|z|), SDIA exactly in both;
 against the complex128 golden complex64 takes 2e-5·max|z|.
 
-The multi-RHS kernels (#12 WHELL, #13 WHDIA: atomics, rtol 1e-5 and atol
-1e-5·max|Z|; #14 SDIA: exact, and equal to one launch of #2 per RHS) run
-at 1, 5, 8 and 17 RHS, with their ``LAUNCHES_SPMM`` counts; the loop path
-of each SpMM launches only SpMV kernels.
+The multi-RHS kernels (#12 WHELL: atomics, rtol 1e-5 and atol
+1e-5·max|Z|; #13 WHDIA: the same tolerance, its sums in another order
+than the plain version's; #14 SDIA: exact, and equal to one launch of #2
+per RHS) run at 1, 5, 8 and 17 RHS, with their ``LAUNCHES_SPMM`` counts;
+the loop path of each SpMM launches only SpMV kernels.
+
+#9 (complex64 WHDIA) and #13 run the hack pass over each hack's live
+slots: they are held to the full-layout plain version and to the listed
+plain product, at 1, 3, 8, 9 and 17 RHS for #13, on layouts with empty
+row blocks whose rows the kernel must write without a zero fill, twice
+with the same bits, and shown to skip an Inf in x that only all-zero
+slots reach (a deviation from the JAX kernel, which gives NaN there).
 
 Classic WHELL (#15 SpMV, #16 SpMM; fp32 and bf16 values, OELL order and
 way-split rows) and pcell (#17) sum with atomics too: rtol 1e-5 and atol
@@ -1190,3 +1198,178 @@ def test_sweeps_time_on_the_card(name, cuda_device):
         # a price needs both times from one source
         assert (rows[1]["price_ms"] is not None) == (
             rows[1]["device_source"] == rows[0]["device_source"])
+
+
+# --------------------------------------------------------------------------
+# the WHDIA hack pass: kernels #9 (complex64 SpMV) and #13 (fp32 SpMM)
+# over each hack's live slots (WhdiaMatrix.hack_slot_ptr/hack_slots)
+
+
+def _holes(coo):
+    """``coo`` without the rows of every third hack: hacks with no live
+    slot, whose rows the hack pass must still write (zeros)."""
+    keep = (coo.rows // 128) % 3 != 1
+    return CooMatrix(coo.rows[keep], coo.cols[keep], coo.values[keep], coo.n_rows,
+                     coo.n_cols)
+
+
+#: r0 mode -> a fixture in that mode, float64 values, with empty row blocks
+HACK_CASES = {"slab": lambda: _holes(laplacian_2d(40, 40)),
+              "pattern": lambda: _holes(random_banded(3000, bands=11, seed=2))}
+
+
+def _hack_layout(mode, kernel, cuda_device):
+    """The fixture of ``mode`` as complex64 (``kernel="c64"``, #9) or fp32
+    (``"spmm"``, #13) on the card, and its COO."""
+    coo = HACK_CASES[mode]()
+    coo = (_complex(coo, np.complex64) if kernel == "c64" else
+           CooMatrix(coo.rows, coo.cols, coo.values.astype(np.float32),
+                     coo.n_rows, coo.n_cols))
+    a = coo_to_whdia(coo, device=cuda_device)
+    assert a.pattern_mode == (mode == "pattern")
+    return coo, a
+
+
+def _hack_x(kernel, n, n_rhs=3, seed=0):
+    if kernel == "c64":
+        return torch.from_numpy(_cvec(n, seed)).to(torch.complex64)[None]
+    return _xs(n_rhs, n, seed)
+
+
+def _hack_call(kernel, a, x):
+    """The kernel itself, on the padded rows: (n_rhs, num_groups*group_hacks*128)."""
+    args = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group)
+    static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+                  num_groups=a.num_groups, hack_slot_ptr=a.hack_slot_ptr,
+                  hack_slots=a.hack_slots)
+    if kernel == "c64":
+        return kd.whdia_spmv(*args, x[0], **static)[None]
+    return kd.whdia_spmm(*args, x, **static)
+
+
+def _hack_listed(a, x):
+    return kd.whdia_spmm_listed_plain(
+        a.values, a.slot_r0, a.tile_r0, a.tile_base, a.hack_slot_ptr,
+        a.hack_slots, x, group_hacks=a.group_hacks, num_groups=a.num_groups)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(HACK_CASES))
+@pytest.mark.parametrize("kernel", ["c64", "spmm"])
+def test_hack_pass_matches_plain_and_golden(kernel, mode, cuda_device):
+    """#9 and #13 through the op, counted once, against the full-layout
+    plain version, the listed plain product (the kernel's order, unfused)
+    and the golden: rtol 1e-5 and atol 1e-5·max|z|, 2e-5 vs the golden."""
+    coo, a = _hack_layout(mode, kernel, cuda_device)
+    x = _hack_x(kernel, coo.n_cols).to(cuda_device)
+    counter = "LAUNCHES_C64" if kernel == "c64" else "LAUNCHES_SPMM"
+    before = getattr(kd, counter)
+    z = ops.whdia_spmv(a, x[0])[None] if kernel == "c64" else \
+        ops.whdia_spmm(a, x, fused=True)
+    torch.cuda.synchronize()
+    assert getattr(kd, counter) == before + 1
+    n = coo.n_rows
+    zp = kd.whdia_spmm_plain(a.values, a.slot_r0, a.tile_r0, a.tile_base,
+                             a.chunk_group, x, chunk_tiles=a.chunk_tiles,
+                             group_hacks=a.group_hacks, num_groups=a.num_groups)
+    _near(z, zp[:, :n], 1e-5, rtol=1e-5)
+    _near(z, _hack_listed(a, x)[:, :n], 1e-5, rtol=1e-5)
+    wide = np.complex128 if kernel == "c64" else np.float64
+    golden = coo.spmv(x.cpu().numpy().astype(wide))
+    _near(z, torch.from_numpy(golden), 2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(HACK_CASES))
+@pytest.mark.parametrize("n_rhs", [1, 3, 8, 9, 17])
+def test_hack_pass_spmm_takes_any_rhs_count(n_rhs, mode, cuda_device):
+    """#13 at 1, 3 (a remainder only), 8 (one block), 9 and 17 (blocks
+    and a remainder) RHS."""
+    coo, a = _hack_layout(mode, "spmm", cuda_device)
+    x = _xs(n_rhs, coo.n_cols, seed=n_rhs).to(cuda_device)
+    z, zp = _fused_spmm("whdia", a, x)
+    _near(z, zp, 1e-5, rtol=1e-5)
+    _near(z, _spmm_golden(coo, x), 2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(HACK_CASES))
+@pytest.mark.parametrize("kernel", ["c64", "spmm"])
+def test_hack_pass_writes_every_row_and_repeats_its_bits(kernel, mode, cuda_device):
+    """z is not zero-filled: the block the kernel writes first held NaN,
+    yet every row comes out finite, a hack with no live slot as zeros; two
+    launches give the same bits (no atomics)."""
+    _, a = _hack_layout(mode, kernel, cuda_device)
+    x = _hack_x(kernel, a.n_cols, n_rhs=9).to(cuda_device)
+    rows = a.num_groups * a.group_hacks * 128
+    nan = torch.full((x.shape[0] * rows,), float("nan"), dtype=x.dtype,
+                     device=cuda_device)
+    ptr = nan.data_ptr()
+    del nan  # the caching allocator hands this block to the kernel's z
+    z = _hack_call(kernel, a, x)
+    torch.cuda.synchronize()
+    assert z.data_ptr() == ptr
+    assert bool(torch.isfinite(z).all())
+    counts = (a.hack_slot_ptr[1:] - a.hack_slot_ptr[:-1]).cpu()
+    empty = torch.nonzero(counts == 0).view(-1)
+    assert empty.numel() > 0
+    assert not bool(z.view(x.shape[0], -1, 128)[:, empty.to(cuda_device)].any())
+    assert torch.equal(z, _hack_call(kernel, a, x))
+
+
+def _dead_only_column(a):
+    """A column in range that only all-zero slots reach."""
+    vals, _, col = a._cells()
+    live = (vals != 0).any(axis=1)
+    inr = (col >= 0) & (col < a.n_cols)
+    cols = sorted(set(col[~live][inr[~live]].tolist())
+                  - set(col[live][inr[live]].tolist()))
+    assert cols, "the fixture must have a column that only dead slots reach"
+    return cols[len(cols) // 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["c64", "spmm"])
+def test_hack_pass_skips_dead_slot_inf(kernel, cuda_device):
+    """An Inf in x at a column that only dead slots reach: the full-layout
+    plain version (the JAX semantics) gives NaN, the hack pass the golden
+    (a deviation, ROADMAP §3)."""
+    coo, a = _hack_layout("slab", kernel, cuda_device)
+    x = _hack_x(kernel, coo.n_cols)
+    x[:, _dead_only_column(a)] = float("inf")
+    x = x.to(cuda_device)
+    wide = np.complex128 if kernel == "c64" else np.float64
+    golden = torch.from_numpy(coo.spmv(x.cpu().numpy().astype(wide)))
+    assert bool(torch.isfinite(golden).all())
+    full = kd.whdia_spmm_plain(a.values, a.slot_r0, a.tile_r0, a.tile_base,
+                               a.chunk_group, x, chunk_tiles=a.chunk_tiles,
+                               group_hacks=a.group_hacks, num_groups=a.num_groups)
+    assert bool(torch.isnan(full[:, : coo.n_rows]).any())
+    z = _hack_call(kernel, a, x)[:, : coo.n_rows]
+    assert bool(torch.isfinite(z).all())
+    _near(z, golden, 2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_hack_pass_needs_the_lists(cuda_device):
+    """A CUDA call of #9 or #13 without the live-slot lists raises; the
+    tile-pass SpMVs (#3, #6, #10) take none."""
+    coo, a = _hack_layout("slab", "spmm", cuda_device)
+    args = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group)
+    static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+                  num_groups=a.num_groups)
+    x = _xs(2, coo.n_cols).to(cuda_device)
+    with pytest.raises(ValueError, match="hack_slot_ptr"):
+        kd.whdia_spmm(*args, x, **static)
+    _near(kd.whdia_spmv(*args, x[0], **static)[: coo.n_rows],
+          torch.from_numpy(coo.spmv(x[0].cpu().double().numpy())), 2e-5, rtol=2e-5)
+    _, ac = _hack_layout("slab", "c64", cuda_device)
+    argc = (ac.values, ac.slot_r0, ac.tile_r0, ac.tile_base, ac.chunk_group)
+    static = dict(chunk_tiles=ac.chunk_tiles, group_hacks=ac.group_hacks,
+                  num_groups=ac.num_groups)
+    xc = _hack_x("c64", ac.n_cols).to(cuda_device)[0]
+    with pytest.raises(ValueError, match="hack_slot_ptr"):
+        kd.whdia_spmv(*argc, xc, **static)
+    with pytest.raises(ValueError, match="hack_slot_ptr"):
+        kd.whdia_spmv(*argc, xc, **static, hack_slot_ptr=ac.hack_slot_ptr.cpu(),
+                      hack_slots=ac.hack_slots)
