@@ -81,11 +81,14 @@ the float64 geometry sweep, and checks them:
                kernel's product);
 19. spmm     — the multi-RHS product on 8 RHS (``default_rng(3)``, the JAX
                benchmark's SpMM row ``bench.py:233-243``): ``whell_spmm``
-               (fused by default: kernel #12) on the flagship's fp32 and
-               bf16 layouts, one launch each, held against the plain
-               version on the card and the float64 golden per RHS, timed
-               beside the loop of kernel #1 (``fused=False``) and cuSPARSE
-               SpMM (``csr @ X.T``);
+               (fused by default: kernel #12, the hack pass over the
+               layout's work units) on the flagship's fp32 and bf16
+               layouts, one launch each, held against the plain version
+               (its per-hack form) on the card and the float64 golden per
+               RHS; one wrapper call must run one kernel (the X copy
+               aside) and two give the same bits; timed beside the loop of
+               kernel #1 (``fused=False``) and cuSPARSE SpMM
+               (``csr @ X.T``);
 20. spmm_dia — ``sdia_spmm(fused=True)`` (kernel #14) on the Laplacian,
                equal to 8 launches of kernel #2 bit for bit, and
                ``whdia_spmm(fused=True)`` (kernel #13, the hack pass) on
@@ -110,10 +113,12 @@ the float64 geometry sweep, and checks them:
                against the plain version and its golden; then the raw
                flagship with ``sort_rows=True`` (OELL) and ``ways=2``
                through #15, against the plain version and the golden;
-23. classic_spmm — ``whell_spmm(fused=True)`` (kernel #16) on the relabelled
-               classic fp32 and bf16 layouts, 8 RHS, one launch each,
-               beside the default loop of #15 (8 launches, none of #16) and
-               cuSPARSE SpMM, with its device time by kernel;
+23. classic_spmm — ``whell_spmm(fused=True)`` (kernel #16, over the work
+               list as #15) on the relabelled classic fp32 and bf16
+               layouts, 8 RHS, one launch each, beside the default loop of
+               #15 (8 launches, none of #16) and cuSPARSE SpMM, with its
+               device time by kernel, both bounds for 8 RHS (live and
+               full) and the kernel's share of each;
 24. pcell    — ``coo_to_whell_percell`` on the raw flagship and
                ``whell_spmv`` (kernel #17), against the plain version and
                the golden, timed with its bound and its share of it
@@ -154,10 +159,13 @@ the float64 geometry sweep, and checks them:
                RHS) on the Laplacian and banded-11, each op's and each
                kernel's device time, warm and cold, with the live and full
                bounds, beside the 8-launch loop of #3 and cuSPARSE CSR
-               (complex64) and SpMM on the same matrices
-               (``kernel_times``; ``python3 chip_smoke.py --kernel-times``
-               runs this phase alone, also from an older checkout's
-               root).
+               (complex64, and fp32 beside #3) and SpMM on the same
+               matrices; #7 on the flagship beside cuSPARSE CSR complex64;
+               then #12 (flagship) and #16 (relabelled, classic) at 8 RHS
+               in fp32 and bf16, op and kernels, warm and cold, with their
+               bounds, beside cuSPARSE SpMM (``kernel_times``;
+               ``python3 chip_smoke.py --kernel-times`` runs this phase
+               alone, also from an older checkout's root).
 
 Phases 26-28 and 29 run in fresh processes of this script
 (``chip_smoke.py --sweeps``, ``--kernel-times``, which print their lines
@@ -437,7 +445,7 @@ def spmv_phase(coo, a, device, label):
             a.group_bases, a.seg_lo, a.seg_hi, _prep_x(xl, a.n_cols, a.x_pages))
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
                   window_pages=a.window_pages, unit_segments=a.unit_segments,
-                  hack_units=a.hack_units, hack_done=a.hack_done)
+                  hack_units=a.hack_units)
     zp = kw.whell_packed_spmv_plain(*args, **static).view(-1)[: a.n_rows]
     zc, pc = z.cpu().numpy(), zp.cpu().numpy()
     # atomics sum each lane's tiles in another order than index_add_; #4
@@ -770,11 +778,13 @@ def spmm_summary(out, flops, kernel):
 def whell_spmm_phase(coo, a, device, label):
     """Kernel #12 through ``ops.whell_spmm`` (the fused default for fp32
     and bf16 values) on 8 lane-space RHS, its one launch counted; held
-    against its plain version on the card (1e-5, 1e-5·max|Z|: atomics)
-    and the float64 golden per RHS (1e-4); then the kernel, the plain
-    version, the fused op, the loop of kernel #1 (``fused=False``) and
-    cuSPARSE SpMM timed, with the bound: every layout array once, X and Z
-    for every RHS."""
+    against its plain version (the per-hack form) on the card (1e-5,
+    1e-5·max|Z|: its sums in another order) and the float64 golden per
+    RHS (1e-4); one wrapper call must run one kernel, the hack pass, and
+    no flush (the X copy aside), and two calls give the same bits; then
+    the kernel, the plain version, the fused op, the loop of kernel #1
+    (``fused=False``) and cuSPARSE SpMM timed, with the bound: every
+    layout array the kernel reads once, X and Z for every RHS."""
     import torch
 
     from spgpu_tpu_torch.kernels import whell as kw
@@ -793,26 +803,36 @@ def whell_spmm_phase(coo, a, device, label):
               a.group_bases, a.seg_lo, a.seg_hi)
     x3 = _prep_x(xs, a.n_cols, a.x_pages, stack=True)
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-                  window_pages=a.window_pages, unit_segments=a.unit_segments)
+                  window_pages=a.window_pages, unit_segments=a.unit_segments,
+                  hack_units=a.hack_units)
     zp = kw.whell_packed_spmm_plain(*layout, x3, **static).flatten(1)[:, : a.n_rows]
     err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), 1e-5, 1e-5,
                             f"{label}: kernel vs plain")
+    call = lambda: kw.whell_packed_spmm(*layout, x3, **static)  # noqa: E731
+    ops_ = launched(call)
+    own = [n for n in ops_ if n.startswith("whell_")]
+    if own != ["whell_spmm_hack_pass"]:
+        raise AssertionError(f"{label}: the call ran {ops_}, not one whell_spmm_hack_pass")
+    if not torch.equal(call(), call()):
+        raise AssertionError(f"{label}: two launches differ")
     lor = a.lane_of_row.cpu().numpy()
     golden = coo.spmv(X[:, lor].astype(np.float64))
     err_golden = check_close(a.extract(z, dtype=torch.float64).cpu().numpy(),
                              golden, 1e-4, 1e-4, f"{label}: kernel vs host golden")
     library, refused = library_call(coo, torch.from_numpy(X[:, lor]).to(device),
                                     device)
-    t = timed(lambda: kw.whell_packed_spmm(*layout, x3, **static),
-              lambda: kw.whell_packed_spmm_plain(*layout, x3, **static),
+    t = timed(call, lambda: kw.whell_packed_spmm_plain(*layout, x3, **static),
               library, refused, op=lambda: whell_spmm(a, xs),
               loop=lambda: whell_spmm(a, xs, fused=False))
     flops = 2 * coo.nnz * N_RHS
+    # the hack pass reads hack_units, not chunk_group; the unit scan seg_hi alone
+    moved = (nbytes(*layout, a.hack_units, x3, z) - nbytes(a.chunk_group)
+             - a.unit_segments * nbytes(a.seg_lo))
     out = dict(n_rhs=N_RHS, nnz=coo.nnz, tiles=a.num_tiles, launches=launches,
+               device_ops=ops_, bit_identical=True,
                max_abs_err_vs_plain=err_plain, max_abs_err_vs_golden=err_golden,
-               **t, **bound(nbytes(*layout, x3, z)
-                            - a.unit_segments * nbytes(a.seg_lo), flops, "float32"))
-    return spmm_summary(out, flops, lambda: kw.whell_packed_spmm(*layout, x3, **static))
+               **t, **bound(moved, flops, "float32"))
+    return spmm_summary(out, flops, call)
 
 
 def dia_spmm_phase(coo, fmt, golden, device, label, mode=None):
@@ -967,14 +987,16 @@ def spmm_loop_phase(lap, band, a32, a64, ac64, device):
     return out
 
 
-def classic_live(a, x2):
-    """What kernel #15 reads of a classic layout: the work list's share of
-    the (tile, 32-lane quarter) units and of the (slot, 32-lane)
+def classic_live(a, x2, n_rhs=1):
+    """What kernels #15 and #16 read of a classic layout: the work list's
+    share of the (tile, 32-lane quarter) units and of the (slot, 32-lane)
     warp-slots, and the two bounds: the full layout (every layout array
-    once, x and the stored-row z once: what the first design read) and
-    the live one (the live warp-slots' values and residues, the 32 B
-    page-table sectors their nonzero cells touch, the work list, x and z),
-    each with the kernel's share of it once the phase has its time."""
+    once, x and the stored-row z once per RHS: what the first designs
+    read) and the live one (the live warp-slots' values and residues, the
+    32 B page-table sectors their nonzero cells touch, the work list, x
+    and z once per RHS), each with the kernel's share of it once the phase
+    has its time.  ``x2`` is the padded x, ``(x_pages, 128)``, or the
+    ``(n_rhs, x_pages, 128)`` stack of ``n_rhs`` RHS."""
     import torch
 
     wl = a.work_list
@@ -987,9 +1009,9 @@ def classic_live(a, x2):
     sectors[slot, a.residue[slot, lane].long() >> 5] = True
     isz = a.values.element_size()
     live = (live_slots * 32 * (isz + 1) + int(sectors.sum()) * 32
-            + nbytes(wl, x2) + a.rows_padded * 4)
+            + nbytes(wl, x2) + n_rhs * a.rows_padded * 4)
     full = nbytes(a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group, x2) \
-        + a.rows_padded * 4
+        + n_rhs * a.rows_padded * 4
     full_bound = bound(full, 0, "float32")
     return dict(units=a.num_tiles * 4, live_units=wl.numel(),
                 live_unit_share=wl.numel() / (a.num_tiles * 4),
@@ -1147,9 +1169,10 @@ def classic_spmm_phase(coo, a, device, label):
     (the loop of #15: 8 launches, none of #16) counted the same way; both
     held against the plain fused product (1e-5, 1e-5·max|Z|: atomics) and
     the fused one against the float64 golden per RHS (1e-4); then the
-    kernel, the plain version, the fused op, the loop and cuSPARSE SpMM
-    timed, with the bound: every layout array once, X and the stored-row Z
-    for every RHS."""
+    kernel (over the layout's work list), the plain version, the fused
+    op, the loop and cuSPARSE SpMM timed, with both bounds of
+    ``classic_live`` for 8 RHS (``bound_ms`` is the live one: X and the
+    stored-row Z for every RHS) and the kernel's share of each."""
     import torch
 
     from spgpu_tpu_torch import ops
@@ -1179,16 +1202,19 @@ def classic_spmm_phase(coo, a, device, label):
     err_golden = check_close(z.cpu().numpy(), coo.spmv(X.astype(np.float64)),
                              1e-4, 1e-4, f"{label}: kernel vs host golden")
     library, refused = library_call(coo, xs, device)
-    kernel = lambda: kc.whell_classic_spmm(*layout, x3, **static)  # noqa: E731
+    kernel = lambda: kc.whell_classic_spmm(*layout, x3, work=a.work_list,  # noqa: E731
+                                           **static)
     t = timed(kernel, lambda: kc.whell_classic_spmm_plain(*layout, x3, **static),
               library, refused, op=lambda: ops.whell_spmm(a, xs, fused=True),
               loop=lambda: ops.whell_spmm(a, xs))
     flops = 2 * coo.nnz * N_RHS
+    live = classic_live(a, x3, n_rhs=N_RHS)
     out = dict(n_rhs=N_RHS, nnz=coo.nnz, tiles=a.num_tiles, launches=1,
                loop_spmv_launches=N_RHS, max_abs_err_vs_plain=err_plain,
                loop_max_abs_err_vs_plain=err_loop, max_abs_err_vs_golden=err_golden,
-               **t, **bound(nbytes(*layout, x3) + N_RHS * a.rows_padded * 4,
-                            flops, "float32"))
+               **t, **live, **bound(live["live_bound_bytes"], flops, "float32"))
+    out.update(live_bound_share=out["bound_ms"] / t["kernel_device_ms"],
+               full_bound_share=out["full_bound_ms"] / t["kernel_device_ms"])
     return spmm_summary(out, flops, kernel)
 
 
@@ -1327,8 +1353,9 @@ def kernel_key(mangled: str) -> str:
 
 def kernel_row(name, launches, phase):
     """One entry of the kernel table from the phase that timed it; a
-    kernel that reads only live slots (#9, #13) also carries the full
-    layout's bound and the live-slot share beside its live ``bound_ms``."""
+    kernel that reads only live slots (#9, #13) or live units (#15, #16)
+    also carries the full layout's bound and the live share beside its
+    live ``bound_ms``."""
     route, source, replaces = KERNELS[name]
     return {"name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches,
@@ -1336,7 +1363,8 @@ def kernel_row(name, launches, phase):
             "ms": phase["kernel_ms"], "plain_ms": phase["plain_ms"],
             "bound_ms": phase["bound_ms"], "bound_by": phase["bound_by"],
             "library_ms": phase["library_ms"],
-            **{k: phase[k] for k in ("full_bound_ms", "live_slot_share") if k in phase}}
+            **{k: phase[k] for k in ("full_bound_ms", "live_slot_share",
+                                     "live_warp_slot_share") if k in phase}}
 
 
 #: phases 26-28 (27 on two matrices): (phase, sweep module, its size,
@@ -1415,25 +1443,20 @@ def kernel_times(device):
     of the port (this file copied into that checkout's root).  Beside
     them, the device time of the library call (cuSPARSE CSR, ``csr @ x``)
     on the relabelled and the raw flagship, in the same process; then
-    :func:`whell_kernel_times`."""
+    :func:`whell_kernel_times`, :func:`whdia_kernel_times` and
+    :func:`spmm_kernel_times`."""
     import torch
 
     from spgpu_tpu_torch import ops
     from spgpu_tpu_torch.convert import (coo_to_whell, coo_to_whell_percell,
                                          local_degree_perm, symmetric_relabel)
-    from spgpu_tpu_torch.utils.timing import (device_ms, device_ms_by_kernel,
-                                              kernel_device_ms)
+    from spgpu_tpu_torch.utils.timing import device_ms_by_kernel, kernel_device_ms
 
     coo = flagship()
     rel = symmetric_relabel(coo, local_degree_perm(coo))
     x = torch.from_numpy(rand_vector(coo.n_cols, 7, np.float32)).to(device)
-    out = {}
-    for tag, c in (("library_relabelled", rel), ("library_raw", coo)):
-        library, refused = library_call(c, x, device)
-        if library is None:
-            raise RuntimeError(f"kernel_times: the library call was {refused}")
-        ms, src = device_ms(library)
-        out[tag] = dict(device_ms=ms, device_source=src)
+    out = {tag: library_times(c, x, device)
+           for tag, c in (("library_relabelled", rel), ("library_raw", coo))}
     layouts = {
         "classic_fp32": lambda: coo_to_whell(rel, device=device, packed=False),
         "classic_bf16": lambda: coo_to_whell(rel, device=device, dtype="bfloat16",
@@ -1455,6 +1478,98 @@ def kernel_times(device):
         del a
     out.update(whell_kernel_times(device))
     out.update(whdia_kernel_times(device))
+    out.update(spmm_kernel_times(device))
+    return out
+
+
+def op_times(fn, prefixes):
+    """Phase 29's times of one op call ``fn``: the device time of every
+    device operation it runs (``op_device_ms``, and by name), and of its
+    own kernels alone (the names that start with one of ``prefixes``),
+    warm and cold (the L2 flushed before each call).  The op's cold time
+    is its kernels' cold time plus its other operations' warm time: a
+    zero fill shares its profiler name with the L2 flush's."""
+    from spgpu_tpu_torch.utils.timing import (device_ms, device_ms_by_kernel,
+                                              kernel_device_ms)
+
+    by_op = device_ms_by_kernel(fn)
+    names = [k for k in (sorted(by_op) or launched(fn)) if k.startswith(prefixes)]
+    if not names:
+        raise AssertionError(f"kernel_times: no kernel named {prefixes} launched")
+    warm, src = kernel_device_ms(fn, names)
+    cold, cold_src = kernel_device_ms(fn, names, cold=True)
+    op_ms, op_src = device_ms(fn)
+    others = sum(v for k, v in by_op.items() if k not in names)
+    return dict(kernels=names, op_by_name_ms=by_op, op_device_ms=op_ms,
+                op_device_source=op_src, op_cold_device_ms=cold + others,
+                device_ms=warm, device_source=src, cold_device_ms=cold,
+                cold_source=cold_src)
+
+
+def library_times(coo, x, device):
+    """The device time of the library call on ``coo`` and ``x`` (cuSPARSE
+    CSR, or SpMM for an ``(n_rhs, n)`` stack); raises if PyTorch refuses
+    it."""
+    from spgpu_tpu_torch.utils.timing import device_ms
+
+    call, refused = library_call(coo, x, device)
+    if call is None:
+        raise RuntimeError(f"kernel_times: the library call was {refused}")
+    ms, src = device_ms(call)
+    return dict(device_ms=ms, device_source=src)
+
+
+def spmm_kernel_times(device):
+    """Phase 29's multi-RHS WHELL rows, 8 RHS: #12 (``ops.whell_spmm``,
+    fused by default) on the flagship's fp32 and bf16 packed layouts, and
+    #16 (``ops.whell_spmm(fused=True)``) on the relabelled flagship's
+    classic fp32 and bf16 layouts; each op's device time and its own
+    kernels' (profiler names ``whell_*``, ``classic_*``), warm and cold,
+    with the full bound (every layout array once, X and Z once per RHS),
+    for #16 also the live bound of :func:`classic_live`, and the share of
+    each; beside them cuSPARSE SpMM on the raw and the relabelled
+    flagship, in this process.  It calls only the converters and the
+    ops, so it also times an older checkout."""
+    import torch
+
+    from spgpu_tpu_torch import ops
+    from spgpu_tpu_torch.convert import (coo_to_whell, local_degree_perm,
+                                         symmetric_relabel)
+
+    coo = flagship()
+    rel = symmetric_relabel(coo, local_degree_perm(coo))
+    xs = torch.from_numpy(rhs_stack(coo.n_cols)).to(device)
+    out = {"library_spmm_raw": library_times(coo, xs, device),
+           "library_spmm_relabelled": library_times(rel, xs, device)}
+    flops = 2 * coo.nnz * N_RHS
+    for dt in ("float32", "bfloat16"):
+        a = coo_to_whell(coo, device=device, dtype=dt)
+        xl = a.embed(xs, dtype=torch.float32)
+        t = op_times(lambda: ops.whell_spmm(a, xl), ("whell_",))
+        rows = a.seg_lo.shape[0]
+        full = (nbytes(a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
+                       a.group_bases, None if a.unit_segments else a.seg_lo, a.seg_hi)
+                + N_RHS * 4 * (a.x_pages + rows) * 128)
+        b = bound(full, flops, "float32")
+        out[f"whell_spmm_{dt}"] = dict(
+            t, tiles=a.num_tiles, **b, bound_share=b["bound_ms"] / t["device_ms"],
+            cold_bound_share=b["bound_ms"] / t["cold_device_ms"])
+        del a
+        a = coo_to_whell(rel, device=device, dtype=dt, packed=False)
+        t = op_times(lambda: ops.whell_spmm(a, xs, fused=True), ("classic_spmm",))
+        live = classic_live(a, ops._prep_x(xs, a.n_cols, a.x_pages, stack=True),
+                            n_rhs=N_RHS)
+        b = bound(live["live_bound_bytes"], flops, "float32")
+        out[f"classic_spmm_{dt}"] = dict(
+            t, tiles=a.num_tiles, **live, **b,
+            live_bound_share=b["bound_ms"] / t["device_ms"],
+            full_bound_share=live["full_bound_ms"] / t["device_ms"],
+            cold_live_bound_share=b["bound_ms"] / t["cold_device_ms"])
+        del a
+        for k in (f"whell_spmm_{dt}", f"classic_spmm_{dt}"):
+            print(f"kernel_times: {k} {out[k]['kernels']} warm {out[k]['device_ms']} "
+                  f"cold {out[k]['cold_device_ms']} op {out[k]['op_device_ms']}",
+                  file=sys.stderr, flush=True)
     return out
 
 
@@ -1492,7 +1607,8 @@ def whdia_kernel_times(device):
     (every device operation of one call, by name) and its WHDIA kernels'
     own (``TIMED_KERNELS``), warm and cold, with the live and full bounds
     and the kernel's share of each; beside them cuSPARSE CSR in complex64
-    and cuSPARSE SpMM in fp32 on the same matrices, in this process.  It
+    and in fp32 (#3's library call) and cuSPARSE SpMM in fp32 on the same
+    matrices, in this process.  It
     calls only the converters and the ops, so it also times an older
     checkout."""
     import torch
@@ -1500,34 +1616,17 @@ def whdia_kernel_times(device):
     from spgpu_tpu_torch import ops
     from spgpu_tpu_torch.convert import coo_to_whdia
     from spgpu_tpu_torch.utils.fixtures import laplacian_2d, random_banded
-    from spgpu_tpu_torch.utils.timing import (device_ms, device_ms_by_kernel,
-                                              kernel_device_ms)
 
     def row(a, fn, n_rhs):
-        by_op = device_ms_by_kernel(fn)
-        names = [k for k in (sorted(by_op) or launched(fn))
-                 if k.startswith(TIMED_KERNELS)]
-        if not names:
-            raise AssertionError("kernel_times: no WHDIA kernel launched")
-        warm, src = kernel_device_ms(fn, names)
-        cold, cold_src = kernel_device_ms(fn, names, cold=True)
-        op_ms, op_src = device_ms(fn)
-        others = sum(v for k, v in by_op.items() if k not in names)
+        t = op_times(fn, TIMED_KERNELS)
         b = whdia_bounds(a, n_rhs)
-        return dict(kernels=names, op_by_name_ms=by_op, op_device_ms=op_ms,
-                    op_device_source=op_src, op_cold_device_ms=cold + others,
-                    device_ms=warm, device_source=src, cold_device_ms=cold,
-                    cold_source=cold_src, tiles=a.num_tiles, **b,
-                    live_bound_share=b["live_bound_ms"] / warm,
-                    full_bound_share=b["full_bound_ms"] / warm,
-                    cold_live_bound_share=b["live_bound_ms"] / cold)
+        return dict(t, tiles=a.num_tiles, **b,
+                    live_bound_share=b["live_bound_ms"] / t["device_ms"],
+                    full_bound_share=b["full_bound_ms"] / t["device_ms"],
+                    cold_live_bound_share=b["live_bound_ms"] / t["cold_device_ms"])
 
     def library(c, x):
-        call, refused = library_call(c, x, device)
-        if call is None:
-            raise RuntimeError(f"kernel_times: the library call was {refused}")
-        ms, src = device_ms(call)
-        return dict(device_ms=ms, device_source=src)
+        return library_times(c, x, device)
 
     n = SIZES["lap"]
     lap64 = laplacian_2d(n, n, np.float64)
@@ -1553,9 +1652,11 @@ def whdia_kernel_times(device):
                                        N_RHS)
         out[f"whdia_loop_{fix}"] = row(a, lambda: ops.whdia_spmm(a, xs), N_RHS)
         out[f"library_spmm_{fix}"] = library(c32, xs)
-        # the tile pass's SpMVs, #3, #6 and #10, beside them
+        # the tile pass's SpMVs, #3, #6 and #10, beside them, and #3's
+        # library call (cuSPARSE CSR in fp32)
         x32 = xs[0].contiguous()
         out[f"whdia_f32_{fix}"] = row(a, lambda: ops.whdia_spmv(a, x32), 1)
+        out[f"library_f32_{fix}"] = library(c32, x32)
         del a
         for tag, c in (("f64", tile_types[fix][0]), ("c128", tile_types[fix][1])):
             a = coo_to_whdia(c, device=device)
@@ -1570,16 +1671,14 @@ def whdia_kernel_times(device):
 
 
 def whell_kernel_times(device):
-    """Phase 29's float64 and complex128 packed-WHELL rows: #4 and the
-    complex128 kernel through ``whell_spmv`` on the flagship, aligned and
-    scattered windows, and #4 on the dd-Laplacian, each with the device
-    time of the whole op (every device operation of one call, and each by
-    name) and of its own kernels (profiler names ``whell_*``), warm and
-    cold; then #19's levels (the tree's ``F64_LEVELS``) on the flagship's
-    two float64 layouts, warm and cold; and cuSPARSE CSR on each matrix
-    and type, all in this process.  The op's cold time is its kernels'
-    cold time plus its other operations' warm time: the zero fill of an
-    accumulator shares its profiler name with the L2 flush's.  Older
+    """Phase 29's float64 and complex packed-WHELL rows: #4, the
+    complex128 kernel and #7 (complex64) through ``whell_spmv`` on the
+    flagship, aligned and scattered windows, and #4 on the dd-Laplacian,
+    each with the device time of the whole op (every device operation of
+    one call, and each by name) and of its own kernels (profiler names
+    ``whell_*``), warm and cold (:func:`op_times`); then #19's levels (the tree's
+    ``F64_LEVELS``) on the flagship's two float64 layouts, warm and cold;
+    and cuSPARSE CSR on each matrix and type, all in this process.  Older
     checkouts (no ``hack_units``) run too."""
     import torch
 
@@ -1587,54 +1686,34 @@ def whell_kernel_times(device):
     from spgpu_tpu_torch.convert import coo_to_whell
     from spgpu_tpu_torch.kernels import ablation as ab
     from spgpu_tpu_torch.utils.fixtures import laplacian_2d
-    from spgpu_tpu_torch.utils.timing import (device_ms, device_ms_by_kernel,
-                                              kernel_device_ms)
-
-    def own(fn):
-        by_op = device_ms_by_kernel(fn)
-        names = [n for n in (sorted(by_op) or launched(fn)) if n.startswith("whell_")]
-        if not names:
-            raise AssertionError("kernel_times: no whell_* kernel launched")
-        warm, src = kernel_device_ms(fn, names)
-        cold, cold_src = kernel_device_ms(fn, names, cold=True)
-        return by_op, names, dict(device_ms=warm, device_source=src,
-                                  cold_device_ms=cold, cold_source=cold_src)
 
     coo64 = flagship(np.float64)
     m = SIZES["dd_lap"]
     fixtures = (("flagship", "f64", coo64),
                 ("flagship", "c128", with_imag(coo64, 8, np.complex128)),
+                ("flagship", "c64", with_imag(coo64, 8, np.complex64)),
                 ("dd_lap", "f64", laplacian_2d(m, m, np.float64)))
     out = {}
     for fix, tag, c in fixtures:
         dt = c.values.dtype
         x = torch.from_numpy(rand_vector(c.n_cols, 7, dt)).to(device)
-        library, refused = library_call(c, x, device)
-        if library is None:
-            raise RuntimeError(f"kernel_times: the library call was {refused}")
-        ms, src = device_ms(library)
-        out[f"library_{fix}_{tag}"] = dict(device_ms=ms, device_source=src)
+        out[f"library_{fix}_{tag}"] = library_times(c, x, device)
         for scattered in (False, True):
             a = coo_to_whell(c, device=device, scattered=scattered)
             xl = a.embed(x, dtype=x.dtype)
-            fn = lambda: ops.whell_spmv(a, xl)  # noqa: E731
-            by_op, names, t = own(fn)
-            op_ms, op_src = device_ms(fn)
-            others = sum(v for k, v in by_op.items() if k not in names)
+            t = op_times(lambda: ops.whell_spmv(a, xl), ("whell_",))
             z = torch.empty((a.num_groups * a.group_hacks, 128), dtype=x.dtype)
             moved = nbytes(a.values, a.residue, a.page_tab, a.tile_base,
                            a.group_bases, None if a.unit_segments else a.seg_lo,
                            a.seg_hi, xl, z)
             geom = "scattered" if scattered else "aligned"
-            print(f"kernel_times: whell_{fix}_{tag}_{geom} {names}", file=sys.stderr,
-                  flush=True)
+            print(f"kernel_times: whell_{fix}_{tag}_{geom} {t['kernels']}",
+                  file=sys.stderr, flush=True)
             out[f"whell_{fix}_{tag}_{geom}"] = dict(
-                kernels=names, op_by_name_ms=by_op, op_device_ms=op_ms,
-                op_device_source=op_src, op_cold_device_ms=t["cold_device_ms"] + others,
-                **t, tiles=a.num_tiles, padding=a.total_slots * 128 / c.nnz,
+                t, tiles=a.num_tiles, padding=a.total_slots * 128 / c.nnz,
                 group_hacks=a.group_hacks, chunk_tiles=a.chunk_tiles,
                 window_pages=a.window_pages,
-                **bound(moved, (8 if tag == "c128" else 2) * c.nnz, str(dt)))
+                **bound(moved, (8 if tag.startswith("c") else 2) * c.nnz, str(dt)))
             if fix == "flagship" and tag == "f64":
                 x2 = ops._prep_x(xl, a.n_cols, a.x_pages)
                 args = (a.values, a.residue, a.page_tab, a.tile_base,
@@ -1642,14 +1721,15 @@ def whell_kernel_times(device):
                 static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
                               window_pages=a.window_pages,
                               unit_segments=a.unit_segments)
-                if hasattr(a, "hack_units"):
-                    static.update(hack_units=a.hack_units, hack_done=a.hack_done)
-                levels = {}
-                for lv in ab.F64_LEVELS:
-                    _, lv_names, lv_t = own(
-                        lambda lv=lv: ab.whell_f64_ablation(lv, *args, **static))
-                    levels[lv] = dict(kernels=lv_names, **lv_t)
-                out[f"ablation_flagship_f64_{geom}"] = levels
+                # older checkouts: no work units, or run counters on the
+                # layout
+                for f in ("hack_units", "hack_done"):
+                    if hasattr(a, f):
+                        static[f] = getattr(a, f)
+                out[f"ablation_flagship_f64_{geom}"] = {
+                    lv: op_times(lambda lv=lv: ab.whell_f64_ablation(lv, *args, **static),
+                                 ("whell_",))
+                    for lv in ab.F64_LEVELS}
             del a
     return out
 

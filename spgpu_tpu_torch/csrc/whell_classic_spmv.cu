@@ -71,15 +71,34 @@
 // turns their lanes into NaN there; here it does not.  Atomic order
 // varies, so sums are not bit-reproducible.
 //
-// SpMM (kernel #16) still reads the full layout: one 128-thread block
-// per tile, the page table staged in shared memory (stage_tile).  Each
-// lane's 8 cells are decoded once (value and x row in registers) and
-// serve every RHS in blocks of kRhs = 8 held in registers, with a
-// runtime remainder (any n_rhs), and one atomicAdd per (RHS, lane) into
-// z (n_rhs, rows_padded).  As kernel #12's wrapper does, the wrapper
-// copies X into an RHS-interleaved (x_pages*128, n_rhs) buffer, so one
-// cell's 8 RHS sit in one 32 B sector.  The TPU kernel's per-RHS fori
-// loop and X VMEM staging have no counterpart.
+// SpMM (kernel #16) runs over the same work list (classic_spmm_units):
+// one warp per live unit, its live slots' values, residues and page-table
+// rows prefetched and its cells decoded as #15's (unit_cells, shared by
+// both kernels), each lane's <= 8 live cells' values and x rows then
+// held in registers for every RHS, in blocks of kRhs = 8 register sums
+// with a runtime remainder (any n_rhs).  As kernel #12's wrapper does,
+// the wrapper copies X into an RHS-interleaved (x_pages*128, n_rhs)
+// buffer, so one cell's 8 RHS sit in one 32 B sector: two float4 loads
+// when n_rhs is a multiple of 4, else masked scalar loads.  Cells whose
+// value is 0 gather nothing; each lane issues one atomicAdd per RHS into
+// z (n_rhs, rows_padded), none where that sum is 0.  The first design
+// (one 128-thread block per tile over the full layout, the page
+// table staged in shared memory behind a barrier) took 219.0 us for 8
+// RHS on the relabelled flagship (full-layout bound 95.6 us; NVIDIA H100
+// 80GB HBM3, 700 W, chip_smoke.py).  Bound: #15's live bytes with x and
+// z once per RHS (chip_smoke.py's classic_live).  What holds it back is
+// the x gathers: timed side by side on that card and layout (8 RHS,
+// fp32, variants not kept), the kernel took 149-150 us uncapped (96
+// registers), 60.8 without the x loads, 146.6 with plain stores in place
+// of the atomics (wrong sums: the atomics cost ~4 us, so a warp per
+// (hack, quarter) summing in registers would gain little), 190 with
+// scalar loads only, 167-186 with one block per 64-tile chunk (for L1
+// reuse of x), 134-136 with the 64-register cap kept here (a few
+// spills; a 40-register cap spilled more and took 313), and 122-123 with
+// lanes l and l^16 loading the two halves of one cell's 8 RHS (48
+// registers; not kept: full 8-RHS blocks only, a second gather path for
+// the rest, for under 10 %).  The TPU
+// kernel's per-RHS fori loop and X VMEM staging have no counterpart.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,28 +110,12 @@ constexpr int kSlots = 8;
 constexpr int kChunkTiles = 64;  // spgpu_tpu_torch.core.CHUNK_TILES
 constexpr int kGroupHacks = 8;
 constexpr int kRhs = 8;
-constexpr int kUnitWarps = 4;  // kernel #15: work-list entries (warps) per block
+constexpr int kUnitWarps = 4;  // kernels #15, #16: work-list entries (warps) per block
 
-__device__ __forceinline__ float load_value(const float* v, int64_t i) {
-  return __ldg(v + i);
-}
-
-// bf16 bits -> fp32 (exact: a bf16 is the top half of an fp32)
-__device__ __forceinline__ float load_value(const uint16_t* v, int64_t i) {
-  return __uint_as_float(static_cast<uint32_t>(__ldg(v + i)) << 16);
-}
-
-// the same by a plain load (kernel #15)
+// a value as fp32, by a plain load (bf16 bits: exact, the top half of an fp32)
 __device__ __forceinline__ float value_at(const float* v, int64_t i) { return v[i]; }
 __device__ __forceinline__ float value_at(const uint16_t* v, int64_t i) {
   return __uint_as_float(static_cast<uint32_t>(v[i]) << 16);
-}
-
-// x column of slot s's cell whose residue is r, through the tile's page
-// table (staged in shared memory) and its window's base page
-__device__ __forceinline__ int64_t cell_column(const int8_t (&pt)[kSlots][kLanes],
-                                               int s, int r, uint32_t meta) {
-  return (static_cast<int64_t>(meta & 0xFFFFu) + pt[s][r]) * kLanes + r;
 }
 
 // the stored-row hack of tile t: its chunk's 8-hack group, then hh
@@ -121,23 +124,51 @@ __device__ __forceinline__ int64_t tile_hack(const int32_t* __restrict__ chunk_g
   return static_cast<int64_t>(chunk_group[t / kChunkTiles]) * kGroupHacks + (meta >> 16);
 }
 
-// stage tile t's 8x128 page table in shared memory (thread j copies its
-// lane of every slot); returns the tile's meta word.  Every thread of the
-// block calls it: it ends with a barrier.
-__device__ __forceinline__ uint32_t stage_tile(int8_t (&pt)[kSlots][kLanes],
-                                               const int8_t* __restrict__ page_tab,
-                                               const int32_t* __restrict__ tile_base,
-                                               int64_t t, int j) {
+// This lane's cells of work-list entry e (tile t, quarter q, slot mask):
+// every load of the unit up front (the live slots' values, residues and
+// 128 B page-table rows, 4 entries a lane), then each live cell's page
+// entry by residue with one __shfl_sync: value v[s] (0 in a dead slot)
+// and x column col[s].  Returns the tile; j is the lane's output lane,
+// meta the tile's word.  Plain loads, not __ldg (see the note above).
+template <typename V>
+__device__ __forceinline__ int64_t unit_cells(const V* __restrict__ values,
+                                              const int8_t* __restrict__ residue,
+                                              const int8_t* __restrict__ page_tab,
+                                              const int32_t* __restrict__ tile_base,
+                                              int64_t e, int lane, int& j,
+                                              uint32_t& meta, float (&v)[kSlots],
+                                              int64_t (&col)[kSlots]) {
+  const unsigned mask = static_cast<unsigned>(e & 0xFF);
+  const int64_t t = e >> 10;  // unit = e >> 8 = t*4 + q
+  j = static_cast<int>((e >> 8) & 3) * 32 + lane;
+  meta = static_cast<uint32_t>(tile_base[t]);
+  const int64_t base = static_cast<int64_t>(meta & 0xFFFFu) * kLanes;
   const int64_t cell0 = t * (kSlots * kLanes);
+  int r[kSlots];
+  uint32_t pw[kSlots];  // 4 page entries of the slot's page-table row a lane
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s) pt[s][j] = page_tab[cell0 + s * kLanes + j];
-  const uint32_t meta = static_cast<uint32_t>(tile_base[t]);
-  __syncthreads();
-  return meta;
+  for (int s = 0; s < kSlots; ++s) {
+    v[s] = 0.0f;
+    r[s] = 0;
+    pw[s] = 0;
+    if (mask >> s & 1u) {
+      const int64_t c = cell0 + s * kLanes + j;
+      v[s] = value_at(values, c);
+      r[s] = residue[c];
+      pw[s] = reinterpret_cast<const uint32_t*>(page_tab + cell0 + s * kLanes)[lane];
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {  // page entry by residue: byte r of the row
+    int d = 0;
+    if (mask >> s & 1u)  // warp-uniform
+      d = (__shfl_sync(0xffffffffu, pw[s], r[s] >> 2) >> (8 * (r[s] & 3))) & 0xFF;
+    col[s] = base + d * kLanes + r[s];
+  }
+  return t;
 }
 
-// Kernel #15: one warp per work-list entry (tile t, quarter q, slot mask).
-// Plain loads, not __ldg (see the note above).
+// Kernel #15: one warp per work-list entry.
 template <typename V>
 __global__ void __launch_bounds__(kUnitWarps * 32)
 classic_spmv_units(const V* __restrict__ values,
@@ -149,37 +180,12 @@ classic_spmv_units(const V* __restrict__ values,
                    const float* __restrict__ x, float* __restrict__ z) {
   const int64_t w = static_cast<int64_t>(blockIdx.x) * kUnitWarps + (threadIdx.x >> 5);
   if (w >= n_work) return;  // whole warps only: the kernel has no barrier
-  const int lane = threadIdx.x & 31;
-  const int64_t e = work[w];
-  const unsigned mask = static_cast<unsigned>(e & 0xFF);
-  const int64_t t = e >> 10;  // unit = e >> 8 = t*4 + q
-  const int j = static_cast<int>((e >> 8) & 3) * 32 + lane;
-  const uint32_t meta = static_cast<uint32_t>(tile_base[t]);
-  const int64_t base = static_cast<int64_t>(meta & 0xFFFFu) * kLanes;
-  const int64_t cell0 = t * (kSlots * kLanes);
+  int j;
+  uint32_t meta;
   float v[kSlots];
-  int r[kSlots];
-  uint32_t pw[kSlots];  // 4 page entries of the slot's page-table row a lane
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {  // every load of the unit, up front
-    v[s] = 0.0f;
-    r[s] = 0;
-    pw[s] = 0;
-    if (mask >> s & 1u) {
-      const int64_t c = cell0 + s * kLanes + j;
-      v[s] = value_at(values, c);
-      r[s] = residue[c];
-      pw[s] = reinterpret_cast<const uint32_t*>(page_tab + cell0 + s * kLanes)[lane];
-    }
-  }
   int64_t col[kSlots];
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {  // page entry by residue: byte r of the row
-    int d = 0;
-    if (mask >> s & 1u)  // warp-uniform
-      d = (__shfl_sync(0xffffffffu, pw[s], r[s] >> 2) >> (8 * (r[s] & 3))) & 0xFF;
-    col[s] = base + d * kLanes + r[s];
-  }
+  const int64_t t = unit_cells(values, residue, page_tab, tile_base, work[w],
+                               threadIdx.x & 31, j, meta, v, col);
   float sum = 0.0f;
 #pragma unroll
   for (int s = 0; s < kSlots; ++s)
@@ -187,44 +193,65 @@ classic_spmv_units(const V* __restrict__ values,
   if (sum != 0.0f) atomicAdd(z + tile_hack(chunk_group, t, meta) * kLanes + j, sum);
 }
 
+// Kernel #16: #15's warp per work-list entry, with kRhs register sums per
+// RHS block and one atomicAdd per (RHS, lane) into z (n_rhs, rows_padded).
+// At most 64 registers (8 blocks an SM), see the note above.
 template <typename V>
-__global__ void __launch_bounds__(kLanes)
-classic_spmm_tile(const V* __restrict__ values,
-                  const int8_t* __restrict__ residue,
-                  const int8_t* __restrict__ page_tab,
-                  const int32_t* __restrict__ tile_base,
-                  const int32_t* __restrict__ chunk_group,
-                  const float* __restrict__ x, float* __restrict__ z,
-                  int64_t rows_padded, int n_rhs) {
-  __shared__ int8_t pt[kSlots][kLanes];
-  const int64_t t = blockIdx.x;
-  const int j = threadIdx.x;
-  const int64_t cell0 = t * (kSlots * kLanes);
-  const uint32_t meta = stage_tile(pt, page_tab, tile_base, t, j);
+__global__ void __launch_bounds__(kUnitWarps * 32, 8)
+classic_spmm_units(const V* __restrict__ values,
+                   const int8_t* __restrict__ residue,
+                   const int8_t* __restrict__ page_tab,
+                   const int32_t* __restrict__ tile_base,
+                   const int32_t* __restrict__ chunk_group,
+                   const int64_t* __restrict__ work, int64_t n_work,
+                   const float* __restrict__ x, float* __restrict__ z,
+                   int64_t rows_padded, int n_rhs) {
+  const int64_t w = static_cast<int64_t>(blockIdx.x) * kUnitWarps + (threadIdx.x >> 5);
+  if (w >= n_work) return;  // whole warps only: the kernel has no barrier
+  int j;
+  uint32_t meta;
   float v[kSlots];
   int64_t xrow[kSlots];
+  const int64_t t = unit_cells(values, residue, page_tab, tile_base, work[w],
+                               threadIdx.x & 31, j, meta, v, xrow);
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int64_t c = cell0 + s * kLanes + j;
-    v[s] = load_value(values, c);
-    xrow[s] = cell_column(pt, s, residue[c], meta) * n_rhs;
-  }
+  for (int s = 0; s < kSlots; ++s) xrow[s] *= n_rhs;
   float* out = z + tile_hack(chunk_group, t, meta) * kLanes + j;
+  const bool vec = n_rhs % 4 == 0;  // a full block's 8 RHS: two 16 B loads
   for (int r0 = 0; r0 < n_rhs; r0 += kRhs) {
-    const int w = min(kRhs, n_rhs - r0);
+    const int rw = min(kRhs, n_rhs - r0);
     float sum[kRhs];
 #pragma unroll
     for (int q = 0; q < kRhs; ++q) sum[q] = 0.0f;
+    if (vec && rw == kRhs) {
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const float* xs = x + xrow[s] + r0;
+      for (int s = 0; s < kSlots; ++s) {
+        if (v[s] != 0.0f) {
+          const float4* xs = reinterpret_cast<const float4*>(x + xrow[s] + r0);
+          const float4 a = __ldg(xs), b = __ldg(xs + 1);
+          sum[0] = fmaf(v[s], a.x, sum[0]);
+          sum[1] = fmaf(v[s], a.y, sum[1]);
+          sum[2] = fmaf(v[s], a.z, sum[2]);
+          sum[3] = fmaf(v[s], a.w, sum[3]);
+          sum[4] = fmaf(v[s], b.x, sum[4]);
+          sum[5] = fmaf(v[s], b.y, sum[5]);
+          sum[6] = fmaf(v[s], b.z, sum[6]);
+          sum[7] = fmaf(v[s], b.w, sum[7]);
+        }
+      }
+    } else {
 #pragma unroll
-      for (int q = 0; q < kRhs; ++q)
-        if (q < w) sum[q] = fmaf(v[s], __ldg(xs + q), sum[q]);
+      for (int s = 0; s < kSlots; ++s) {
+        if (v[s] != 0.0f) {
+#pragma unroll
+          for (int q = 0; q < kRhs; ++q)
+            if (q < rw) sum[q] = fmaf(v[s], __ldg(x + xrow[s] + r0 + q), sum[q]);
+        }
+      }
     }
 #pragma unroll
     for (int q = 0; q < kRhs; ++q)
-      if (q < w && sum[q] != 0.0f) atomicAdd(out + (r0 + q) * rows_padded, sum[q]);
+      if (q < rw && sum[q] != 0.0f) atomicAdd(out + (r0 + q) * rows_padded, sum[q]);
   }
 }
 
@@ -244,15 +271,18 @@ int classic_spmv(const void* values, const void* residue, const void* page_tab,
 
 template <typename V>
 int classic_spmm(const void* values, const void* residue, const void* page_tab,
-                 const void* tile_base, const void* chunk_group, const void* x,
-                 void* z, int64_t num_tiles, int64_t rows_padded, int n_rhs,
-                 cudaStream_t st) {
-  if (num_tiles > 0 && n_rhs > 0)
-    classic_spmm_tile<V><<<static_cast<unsigned>(num_tiles), kLanes, 0, st>>>(
+                 const void* tile_base, const void* chunk_group, const void* work,
+                 int64_t n_work, const void* x, void* z, int64_t rows_padded,
+                 int n_rhs, cudaStream_t st) {
+  // an empty list (no nonzero) still launches, one block that exits
+  const int64_t blocks = n_work > 0 ? (n_work + kUnitWarps - 1) / kUnitWarps : 1;
+  if (n_rhs > 0)
+    classic_spmm_units<V><<<static_cast<unsigned>(blocks), kUnitWarps * 32, 0, st>>>(
         static_cast<const V*>(values), static_cast<const int8_t*>(residue),
         static_cast<const int8_t*>(page_tab), static_cast<const int32_t*>(tile_base),
-        static_cast<const int32_t*>(chunk_group), static_cast<const float*>(x),
-        static_cast<float*>(z), rows_padded, n_rhs);
+        static_cast<const int32_t*>(chunk_group), static_cast<const int64_t*>(work),
+        n_work, static_cast<const float*>(x), static_cast<float*>(z), rows_padded,
+        n_rhs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -275,16 +305,17 @@ int whell_classic_spmv(const void* values, int values_bf16, const void* residue,
 }
 
 // Kernel #16: Z (n_rhs x rows_padded) += the classic product with each of
-// n_rhs RHS.  x is the RHS-interleaved (x_pages*128, n_rhs) fp32 stack, Z
-// fp32 and zeroed by the caller.  Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError().
+// n_rhs RHS over the n_work entries of work (as kernel #15).  x is the
+// RHS-interleaved (x_pages*128, n_rhs) fp32 stack, Z fp32 and zeroed by
+// the caller.  Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError().
 int whell_classic_spmm(const void* values, int values_bf16, const void* residue,
                        const void* page_tab, const void* tile_base,
-                       const void* chunk_group, const void* x, void* z,
-                       int64_t num_tiles, int64_t rows_padded, int n_rhs,
+                       const void* chunk_group, const void* work, int64_t n_work,
+                       const void* x, void* z, int64_t rows_padded, int n_rhs,
                        void* stream) {
   auto* fn = values_bf16 ? classic_spmm<uint16_t> : classic_spmm<float>;
-  return fn(values, residue, page_tab, tile_base, chunk_group, x, z, num_tiles,
+  return fn(values, residue, page_tab, tile_base, chunk_group, work, n_work, x, z,
             rows_padded, n_rhs, static_cast<cudaStream_t>(stream));
 }
 

@@ -104,20 +104,34 @@
 // SpMM (entry whell_packed_spmm, kernel #12) replaces
 // _whell_packed_spmm_kernel (_whell_packed_spmm_call,
 // whell_spmm_packed_pallas): Z[r] = A x[r] for n_rhs RHS, fp32 or bf16
-// values, fp32 x and sums.  Each lane's 8 cells are decoded once (page
-// table in shared memory, value and x row in registers) and serve every
-// RHS, in blocks of kRhs = 8 held in registers (a remainder block takes
-// any n_rhs), with one atomicAdd per (RHS, lane) into acc[r, hack, lane];
-// the flush runs one block per (hack row, RHS).  Layout of x: the wrapper
-// copies X into an RHS-interleaved (x_pages*128, n_rhs) buffer, so one
-// cell's 8 RHS sit in one 32 B sector and a lane's gathers for a block
-// touch one sector where (n_rhs, x_pages*128) would touch eight.  acc and
-// z stay (n_rhs, rows, 128): a warp's atomics and stores for one RHS are
-// then 128 contiguous bytes.  Bound: the slab once (6 B/cell fp32, 4 B
-// bf16) plus x and z per RHS, about 95 MB and 28 us for 8 RHS on the
-// flagship.  The TPU kernel's RHS passes, unroll budget and VMEM checks
-// are Mosaic and VMEM limits and have no counterpart: one launch takes
-// any n_rhs.  Atomic order varies, so sums are not bit-reproducible.
+// values, fp32 x, sums and Z (n_rhs, rows, 128).  It runs the hack pass
+// of #4 (whell_spmm_hack_pass): one launch per product, one block per
+// (work unit, block of kRhs = 8 RHS), no accumulator, no zero fill, no
+// lane atomics and no flush launch, bit-reproducible.  Each thread
+// decodes its 8 cells of a tile once (the ring's residue and page-table
+// bytes, as in #4), then gathers each live cell's 8 RHS, which sit in one
+// 32 B sector of the RHS-interleaved x (x_pages*128, n_rhs) that the
+// wrapper copies X into (two float4 loads when n_rhs is a multiple of 4,
+// else masked scalar loads), into 8 register sums; the block's scan then
+// runs the 8 RHS together (one scan array per RHS, 4 KiB) and stores z.
+// Cells whose value is 0 gather nothing (as #15 and #16), so a run's
+// padding cells cost no x read.  The first design (a tile pass of
+// one block per tile with one atomicAdd per (RHS, lane) into a zeroed
+// accumulator, then a flush launch per (hack row, RHS)) took 136.3-137.3
+// us on the flagship for 8 RHS: 107.2 in the tile pass, 16.0 in the flush
+// (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py).  Bound: the slab once
+// (6 B/cell fp32, 4 B bf16) plus X and Z once per RHS, ~95 MB and 28 us
+// for 8 RHS on the flagship.  What holds it back is the x gathers: timed
+// side by side on that card and matrix (8 RHS, fp32, variants not kept),
+// the kernel took 75-76 us, 30.2 without the x loads (the stream alone,
+// near the bound), 69.6 without the scan; gathering the zero cells too
+// 78.9, all 16 loads of a tile hoisted ahead of the FMAs 74.1-74.5, the
+// next tile's values prefetched 78.4, the stage released after the
+// gathers (as #4) 73.6, 8 stages 76.2, a 42-register cap 115.9, 2 or 4
+// consecutive hacks per block (for L1 reuse of x; group-local barriers)
+// 73.1 and 82.6, and lanes l and l^16 loading the two halves of one
+// cell's 8 RHS 77.8.  The TPU kernel's RHS passes, unroll budget
+// and VMEM checks are Mosaic and VMEM limits and have no counterpart.
 //
 // Ablation (entry whell_packed_ablation_f64, kernel #19) replaces the `call`
 // closure of doc/sweeps/dd_ablation.py (its pallas_call body adds one op
@@ -418,8 +432,9 @@ __device__ __forceinline__ double2 load_global(const double2* p) { return __ldcg
 // by tile.  A whole run's block then scans its sums into z[row, :] (out).
 // A chunk's block stores its sums to part[u, :]; the block that counts
 // the row's k-th arrival on done[row] adds the k chunks' sums in chunk
-// order (the same bits whichever block comes last), resets the counter
-// for the next launch and scans.
+// order (the same bits whichever block comes last) and scans.  The
+// counters are the launch's own (the caller zeroes them per call), so
+// launches on several streams share no state.
 template <typename T, bool kScattered, int kLevel, bool kUnit>
 __global__ void __launch_bounds__(kLanes)
 whell_hack_pass(const T* __restrict__ values,
@@ -541,6 +556,9 @@ whell_hack_pass(const T* __restrict__ values,
       const T* chunks = part + (static_cast<int64_t>(blockIdx.x) - c) * kLanes + j;
       sum = T{};
       for (int q = 0; q < k; ++q) sum = add(sum, load_global(chunks + q * kLanes));
+      // the counters are this launch's own and need no reset; the store
+      // stays because without it ptxas allots #4 and complex128 another
+      // register count (55 and 74 against 56 and 73 on sm_90a)
       if (j == 0) done[row] = 0;
     }
     const int64_t o = row * kLanes + j;
@@ -549,65 +567,219 @@ whell_hack_pass(const T* __restrict__ values,
   }
 }
 
-// SpMM tile pass (kernel #12): the 8 cells of each lane are decoded once
-// (value in a register, x-row index col*n_rhs), then every RHS block of
-// kRhs takes 8 gathers and products per lane and one atomicAdd per RHS
-// into acc (n_rhs, num_rows, 128).  x is RHS-interleaved,
-// (x_pages*128, n_rhs).
+// ---------------------------------------------------------------------------
+// #12: the hack pass with kRhs register sums (whell_spmm_hack_pass)
+
 constexpr int kRhs = 8;
 
-template <typename V, bool kScattered>
+__device__ __forceinline__ float load_streaming(const float* p) { return __ldcs(p); }
+
+// bf16 bits -> fp32 (exact: a bf16 is the top half of an fp32)
+__device__ __forceinline__ float load_streaming(const uint16_t* p) {
+  return __uint_as_float(
+      static_cast<uint32_t>(__ldcs(reinterpret_cast<const unsigned short*>(p))) << 16);
+}
+
+// Lane j's outputs of one hack row for w <= kRhs RHS from its lane sums,
+// in a block of 128 threads that all call it: segment_sum's scan for the
+// kRhs sums together, each RHS with its own scan array (so no RHS's
+// writes race another's reads), stored to out[q * rhs_stride], q < w.
+template <bool kUnit>
+__device__ __forceinline__ void store_segment_sums(float (&sum)[kRhs], int w, int hi,
+                                                   const int8_t* __restrict__ lo_at,
+                                                   float* __restrict__ out,
+                                                   int64_t rhs_stride) {
+  __shared__ float p[kRhs][kLanes];
+  __shared__ float warp_total[kRhs][kLanes / 32];
+  const int j = threadIdx.x;
+  if constexpr (kUnit) {
+#pragma unroll
+    for (int q = 0; q < kRhs; ++q) p[q][j] = sum[q];
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kRhs; ++q)
+      if (q < w) out[q * rhs_stride] = hi >= 0 ? p[q][hi] : 0.0f;
+    return;
+  }
+  const int lane = j & 31, warp = j >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+    for (int q = 0; q < kRhs; ++q) {
+      const float up = __shfl_up_sync(0xffffffffu, sum[q], o);
+      if (lane >= o) sum[q] += up;
+    }
+  }
+  if (lane == 31) {
+#pragma unroll
+    for (int q = 0; q < kRhs; ++q) warp_total[q][warp] = sum[q];
+  }
+  __syncthreads();
+  for (int v = 0; v < warp; ++v) {
+#pragma unroll
+    for (int q = 0; q < kRhs; ++q) sum[q] += warp_total[q][v];
+  }
+#pragma unroll
+  for (int q = 0; q < kRhs; ++q) p[q][j] = sum[q];
+  __syncthreads();
+  const int lo = *lo_at;
+#pragma unroll
+  for (int q = 0; q < kRhs; ++q)
+    if (q < w) out[q * rhs_stride] = (hi >= 0 ? p[q][hi] : 0.0f) - (lo >= 0 ? p[q][lo] : 0.0f);
+}
+
+// Block (u, b) runs work unit u of hack_units (as whell_hack_pass) for
+// RHS r0 = 8b .. r0 + w - 1 (w = min(8, n_rhs - r0)): thread 0 keeps
+// kStages tiles' index bytes in flight by bulk copies; each thread
+// streams its 8 values of a tile, decodes its 8 cells from the landed
+// stage (and releases the stage at once), then for each nonzero cell
+// adds v * x[col*n_rhs + r0 + q] to sum[q], tile by tile and slot by
+// slot.  A chunked run's blocks store their sums to part (U, n_rhs, 128)
+// and the k-th arrival on done[row * gridDim.y + b] adds the k chunks in
+// chunk order.  Then the block scans and stores z[r0 + q, row, :].
+template <typename V, bool kScattered, bool kUnit>
 __global__ void __launch_bounds__(kLanes)
-whell_spmm_tile_pass(const V* __restrict__ values,
+whell_spmm_hack_pass(const V* __restrict__ values,
                      const int8_t* __restrict__ residue,
                      const int8_t* __restrict__ page_tab,
                      const int32_t* __restrict__ tile_base,
-                     const int32_t* __restrict__ chunk_group,
                      const int32_t* __restrict__ group_bases,
-                     const float* __restrict__ x, float* __restrict__ acc,
-                     int64_t num_rows, int n_rhs, int chunk_tiles,
-                     int group_hacks, int ntab) {
-  __shared__ int8_t pt[kSlots][kLanes];
-  const int64_t t = blockIdx.x;
+                     const int4* __restrict__ units, int* __restrict__ done,
+                     float* __restrict__ part, const int8_t* __restrict__ seg_lo,
+                     const int8_t* __restrict__ seg_hi,
+                     const float* __restrict__ x, float* __restrict__ z,
+                     int64_t num_rows, int n_rhs, int ntab) {
+  __shared__ __align__(128) Stage ring[kStages];
+  __shared__ __align__(8) uint64_t landed[kStages];
+  __shared__ __align__(8) uint64_t emptied[kStages];
+  const int4 unit = units[blockIdx.x];
+  const int64_t begin = unit.x, n = unit.y - unit.x, row = unit.z;
   const int j = threadIdx.x;
-  const int64_t cell0 = t * (kSlots * kLanes);
+  const int r0 = blockIdx.y * kRhs;
+  const int w = min(kRhs, n_rhs - r0);
+  // a cell's 8 RHS as two 16 B loads: a full block at a 16 B aligned offset
+  const bool vec = w == kRhs && n_rhs % 4 == 0;
+  if (j == 0) {
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s) pt[s][j] = page_tab[cell0 + s * kLanes + j];
-  const uint32_t meta = static_cast<uint32_t>(tile_base[t]);
-  __syncthreads();
-
-  float v[kSlots];
-  int64_t xrow[kSlots];
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int64_t c = cell0 + s * kLanes + j;
-    v[s] = load_value(values, c);
-    xrow[s] = cell_column<kScattered>(pt, s, residue[c], meta, group_bases, ntab) * n_rhs;
+    for (int s = 0; s < kStages; ++s) {
+      barrier_init(&landed[s], 1);
+      barrier_init(&emptied[s], kLanes);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  const int64_t hack =
-      tile_hack<kScattered>(chunk_group, t, meta, chunk_tiles, group_hacks);
-  float* out = acc + hack * kLanes + j;
-  const int64_t rhs_stride = num_rows * kLanes;
-  for (int r0 = 0; r0 < n_rhs; r0 += kRhs) {
-    const int w = min(kRhs, n_rhs - r0);
-    float sum[kRhs];
+  __syncthreads();
+  auto fetch = [&](int64_t i) {
+    Stage& st = ring[i % kStages];
+    uint64_t* bar = &landed[i % kStages];
+    const int64_t c = (begin + i) * (kSlots * kLanes);
+    barrier_expect(bar, sizeof(Stage));
+    bulk_copy(st.res, residue + c, sizeof(st.res), bar);
+    bulk_copy(st.pt, page_tab + c, sizeof(st.pt), bar);
+  };
+  if (j == 0)
+    for (int64_t i = 0; i < n && i < kStages; ++i) fetch(i);
+
+  float sum[kRhs];
 #pragma unroll
-    for (int q = 0; q < kRhs; ++q) sum[q] = 0.0f;
+  for (int q = 0; q < kRhs; ++q) sum[q] = 0.0f;
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t t = begin + i;
+    float v[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s)
+      v[s] = load_streaming(values + t * (kSlots * kLanes) + s * kLanes + j);
+    const uint32_t meta = static_cast<uint32_t>(__ldg(tile_base + t));
+    [[maybe_unused]] int32_t base[4] = {0, 0, 0, 0};
+    if constexpr (kScattered) {
+      const int32_t* b = group_bases + static_cast<int64_t>(meta & 0xFFFFFu) * ntab;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q < ntab) base[q] = __ldg(b + q);
+    }
+    const Stage& st = ring[i % kStages];
+    const uint32_t parity = static_cast<uint32_t>(i / kStages) & 1u;
+    barrier_wait(&landed[i % kStages], parity);
+    const float* xs[kSlots];
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
-      const float* xs = x + xrow[s] + r0;
-#pragma unroll
-      for (int q = 0; q < kRhs; ++q)
-        if (q < w) sum[q] = mac(v[s], __ldg(xs + q), sum[q]);
+      const int r = st.res[s][j];
+      const int d = st.pt[s][r];
+      int64_t page;
+      if constexpr (kScattered) {
+        const int q = d >> 3;
+        page = static_cast<int64_t>(q == 0 ? base[0] : q == 1 ? base[1]
+                                    : q == 2 ? base[2] : base[3]) + (d & 7);
+      } else {
+        page = static_cast<int64_t>(meta & 0xFFFFu) + d;
+      }
+      xs[s] = x + (page * kLanes + r) * n_rhs + r0;
     }
+    // the stage's bytes are decoded: release it (the proxy fence as in
+    // whell_hack_pass) before the gathers, so its refill starts sooner
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    barrier_arrive(&emptied[i % kStages]);
+    if (j == 0 && i + kStages < n) {
+      barrier_wait(&emptied[i % kStages], parity);
+      fetch(i + kStages);
+    }
+    if (vec) {
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        if (v[s] != 0.0f) {
+          const float4 a = __ldg(reinterpret_cast<const float4*>(xs[s]));
+          const float4 b = __ldg(reinterpret_cast<const float4*>(xs[s]) + 1);
+          sum[0] = fmaf(v[s], a.x, sum[0]);
+          sum[1] = fmaf(v[s], a.y, sum[1]);
+          sum[2] = fmaf(v[s], a.z, sum[2]);
+          sum[3] = fmaf(v[s], a.w, sum[3]);
+          sum[4] = fmaf(v[s], b.x, sum[4]);
+          sum[5] = fmaf(v[s], b.y, sum[5]);
+          sum[6] = fmaf(v[s], b.z, sum[6]);
+          sum[7] = fmaf(v[s], b.w, sum[7]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        if (v[s] != 0.0f) {
+#pragma unroll
+          for (int q = 0; q < kRhs; ++q)
+            if (q < w) sum[q] = fmaf(v[s], __ldg(xs[s] + q), sum[q]);
+        }
+      }
+    }
+  }
+  const int64_t rhs_stride = num_rows * kLanes;
+  if (unit.w >= 0) {  // a chunk: the row's last block adds the chunks
+    __shared__ bool last;
+    const int c = unit.w >> 16, k = unit.w & 0xFFFF;
+    float* mine = part + (static_cast<int64_t>(blockIdx.x) * n_rhs + r0) * kLanes + j;
 #pragma unroll
     for (int q = 0; q < kRhs; ++q)
-      if (q < w) atomicAdd(out + (r0 + q) * rhs_stride, sum[q]);
+      if (q < w) mine[q * kLanes] = sum[q];
+    __threadfence();
+    __syncthreads();
+    if (j == 0) last = atomicAdd(done + row * gridDim.y + blockIdx.y, 1) == k - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    const float* chunks = mine - static_cast<int64_t>(c) * n_rhs * kLanes;
+#pragma unroll
+    for (int q = 0; q < kRhs; ++q) sum[q] = 0.0f;
+    for (int cc = 0; cc < k; ++cc) {
+#pragma unroll
+      for (int q = 0; q < kRhs; ++q)
+        if (q < w) sum[q] += __ldcg(chunks + (static_cast<int64_t>(cc) * n_rhs + q) * kLanes);
+    }
   }
+  const int64_t o = row * kLanes + j;
+  store_segment_sums<kUnit>(sum, w, seg_hi[o], seg_lo + o,
+                            z + static_cast<int64_t>(r0) * rhs_stride + o, rhs_stride);
 }
 
-// Block (h, r) flushes hack row h of RHS r (SpMV: r = 0 only); acc and z
-// hold gridDim.x rows per RHS, seg_lo/seg_hi one set.
+// Block (h, r) flushes hack row h of RHS r; acc and z hold gridDim.x rows
+// per RHS, seg_lo/seg_hi one set.  (Since #12 moved to the hack pass,
+// the SpMVs #1 and #7 launch it with one RHS.)
 template <typename T, bool kUnit>
 __global__ void __launch_bounds__(kLanes)
 whell_flush_pass(const T* __restrict__ acc,
@@ -642,16 +814,15 @@ whell_flush_pass(const T* __restrict__ acc,
   z[i] = sub(hi >= 0 ? p[hi] : T{}, lo >= 0 ? p[lo] : T{});
 }
 
-// the flush of n_rhs stacked accumulators of num_rows hack rows each
+// the flush of the accumulator's num_rows hack rows
 template <typename T>
 void launch_flush(const T* acc, const void* seg_lo, const void* seg_hi,
-                  void* z, int64_t num_rows, int n_rhs, int unit_segments,
-                  cudaStream_t st) {
-  if (num_rows <= 0 || n_rhs <= 0) return;
+                  void* z, int64_t num_rows, int unit_segments, cudaStream_t st) {
+  if (num_rows <= 0) return;
   auto* lo = static_cast<const int8_t*>(seg_lo);
   auto* hi = static_cast<const int8_t*>(seg_hi);
   auto* zt = static_cast<T*>(z);
-  const dim3 grid(static_cast<unsigned>(num_rows), static_cast<unsigned>(n_rhs));
+  const dim3 grid(static_cast<unsigned>(num_rows));
   if (unit_segments)
     whell_flush_pass<T, true><<<grid, kLanes, 0, st>>>(acc, lo, hi, zt);
   else
@@ -685,42 +856,36 @@ int whell_spmv(const void* values, const void* residue, const void* page_tab,
       whell_tile_pass<V, T, false><<<grid, kLanes, 0, st>>>(
           v, res, pt, tb, cg, gb, xt, a, chunk_tiles, group_hacks, ntab);
   }
-  launch_flush<T>(a, seg_lo, seg_hi, z, num_rows, 1, unit_segments, st);
+  launch_flush<T>(a, seg_lo, seg_hi, z, num_rows, unit_segments, st);
   return static_cast<int>(cudaGetLastError());
 }
 
-// SpMM: the tile pass of kernel #12 on values of type V, then the flush
-// of every (hack row, RHS); returns cudaGetLastError()
+// Kernel #12: one launch of whell_spmm_hack_pass on values of type V, a
+// block per (work unit, RHS block); returns cudaGetLastError()
 template <typename V>
-int whell_spmm(const void* values, const void* residue, const void* page_tab,
-               const void* tile_base, const void* chunk_group,
-               const void* group_bases, const void* seg_lo, const void* seg_hi,
-               const void* x, void* acc, void* z, int64_t num_tiles,
-               int64_t num_rows, int n_rhs, int chunk_tiles, int group_hacks,
-               int window_pages, int unit_segments, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ntab = window_pages / 8;
-  auto* v = static_cast<const V*>(values);
-  auto* res = static_cast<const int8_t*>(residue);
-  auto* pt = static_cast<const int8_t*>(page_tab);
-  auto* tb = static_cast<const int32_t*>(tile_base);
-  auto* cg = static_cast<const int32_t*>(chunk_group);
-  auto* gb = static_cast<const int32_t*>(group_bases);
-  auto* xt = static_cast<const float*>(x);
-  auto* a = static_cast<float*>(acc);
-  if (n_rhs <= 0) return static_cast<int>(cudaGetLastError());
-  if (num_tiles > 0) {
-    const dim3 grid(static_cast<unsigned>(num_tiles));
-    if (gb != nullptr)
-      whell_spmm_tile_pass<V, true><<<grid, kLanes, 0, st>>>(
-          v, res, pt, tb, cg, gb, xt, a, num_rows, n_rhs, chunk_tiles,
-          group_hacks, ntab);
-    else
-      whell_spmm_tile_pass<V, false><<<grid, kLanes, 0, st>>>(
-          v, res, pt, tb, cg, gb, xt, a, num_rows, n_rhs, chunk_tiles,
-          group_hacks, ntab);
+int spmm_hack_pass(const void* values, const void* residue, const void* page_tab,
+                   const void* tile_base, const void* group_bases, const void* units,
+                   void* done, void* part, const void* seg_lo, const void* seg_hi,
+                   const void* x, void* z, int64_t num_units, int64_t num_rows,
+                   int n_rhs, int window_pages, int unit_segments, void* stream) {
+  if (num_units > 0 && n_rhs > 0) {
+    const bool scattered = group_bases != nullptr;
+    auto* kernel = scattered
+        ? (unit_segments ? &whell_spmm_hack_pass<V, true, true>
+                         : &whell_spmm_hack_pass<V, true, false>)
+        : (unit_segments ? &whell_spmm_hack_pass<V, false, true>
+                         : &whell_spmm_hack_pass<V, false, false>);
+    const dim3 grid(static_cast<unsigned>(num_units),
+                    static_cast<unsigned>((n_rhs + kRhs - 1) / kRhs));
+    kernel<<<grid, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const V*>(values), static_cast<const int8_t*>(residue),
+        static_cast<const int8_t*>(page_tab), static_cast<const int32_t*>(tile_base),
+        static_cast<const int32_t*>(group_bases), static_cast<const int4*>(units),
+        static_cast<int*>(done), static_cast<float*>(part),
+        static_cast<const int8_t*>(seg_lo), static_cast<const int8_t*>(seg_hi),
+        static_cast<const float*>(x), static_cast<float*>(z), num_rows, n_rhs,
+        window_pages / 8);
   }
-  launch_flush<float>(a, seg_lo, seg_hi, z, num_rows, n_rhs, unit_segments, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -797,9 +962,10 @@ int whell_packed_spmv_c64(const void* values, const void* residue,
 // Kernel #4 (_f64: float64 values, x and z) and the complex128 kernel
 // (_c128, interleaved re/im): z (num_rows x 128), one block per work unit
 // of `units` ((num_units, 4) int32, WhellMatrix.hack_units, covering every
-// output row).  done (num_rows int32) must be zero and is zero again when
-// the launch ends; part (num_units x 128 of T) is scratch for chunked
-// runs.  values, residue and page_tab must be 16 B aligned (the bulk
+// output row).  done (num_rows int32, zeroed) and part (num_units x 128
+// of T) are the launch's scratch for chunked runs, and may both be null
+// when no unit is chunked (num_units == num_rows).  values, residue and
+// page_tab must be 16 B aligned (the bulk
 // copies); group_bases may be null (aligned windows).  Launches once on
 // `stream`, does not synchronise, and returns cudaGetLastError().
 #define HACK_ENTRY(NAME, T)                                                    \
@@ -845,22 +1011,25 @@ int whell_packed_ablation_f64(int level, const void* values, const void* residue
 }
 
 // Kernel #12: Z (n_rhs x num_rows x 128) = the packed-WHELL product with
-// each of n_rhs RHS.  x is the RHS-interleaved (x_pages*128, n_rhs) fp32
-// stack; acc (n_rhs x num_rows x 128) must be zeroed by the caller.  fp32
-// or bf16 values (values_bf16), fp32 x, acc and z.  Launches on `stream`,
+// each of n_rhs RHS (at most 65,535 blocks of 8), one block per (work
+// unit, RHS block) of `units` (WhellMatrix.hack_units).  x is the
+// RHS-interleaved (x_pages*128, n_rhs) fp32 stack; fp32 or bf16 values
+// (values_bf16), fp32 z.  done (num_rows x RHS blocks int32, zeroed) and
+// part (num_units x n_rhs x 128 fp32) are the launch's scratch for chunked
+// runs, and may both be null when no unit is chunked (num_units ==
+// num_rows).  values, residue and page_tab must be 16 B aligned;
+// group_bases may be null (aligned windows).  Launches once on `stream`,
 // does not synchronise, and returns cudaGetLastError().
-int whell_packed_spmm(const void* values, int values_bf16,
-                      const void* residue, const void* page_tab,
-                      const void* tile_base, const void* chunk_group,
-                      const void* group_bases, const void* seg_lo,
-                      const void* seg_hi, const void* x, void* acc, void* z,
-                      int64_t num_tiles, int64_t num_rows, int n_rhs,
-                      int chunk_tiles, int group_hacks, int window_pages,
-                      int unit_segments, void* stream) {
-  auto* fn = values_bf16 ? whell_spmm<uint16_t> : whell_spmm<float>;
-  return fn(values, residue, page_tab, tile_base, chunk_group, group_bases,
-            seg_lo, seg_hi, x, acc, z, num_tiles, num_rows, n_rhs, chunk_tiles,
-            group_hacks, window_pages, unit_segments, stream);
+int whell_packed_spmm(const void* values, int values_bf16, const void* residue,
+                      const void* page_tab, const void* tile_base,
+                      const void* group_bases, const void* units, void* done,
+                      void* part, const void* seg_lo, const void* seg_hi,
+                      const void* x, void* z, int64_t num_units, int64_t num_rows,
+                      int n_rhs, int window_pages, int unit_segments, void* stream) {
+  auto* fn = values_bf16 ? &spmm_hack_pass<uint16_t> : &spmm_hack_pass<float>;
+  return fn(values, residue, page_tab, tile_base, group_bases, units, done, part,
+            seg_lo, seg_hi, x, z, num_units, num_rows, n_rhs, window_pages,
+            unit_segments, stream);
 }
 
 }  // extern "C"

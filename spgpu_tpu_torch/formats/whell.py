@@ -154,13 +154,14 @@ RUN_CHUNK_TILES = 16
 
 
 def packed_hack_units(hack_ptr: torch.Tensor, num_rows: int) -> torch.Tensor:
-    """The work units of the hack pass (kernel #4 and complex128), one
-    per block: ``(U, 4)`` int32 ``[begin, end, row, chunk]`` on
+    """The work units of the hack pass (kernels #4, #12 and complex128),
+    one per block: ``(U, 4)`` int32 ``[begin, end, row, chunk]`` on
     ``hack_ptr``'s device, in row order.  Row ``h < num_hacks`` sums its
     run ``hack_ptr[h]`` in one unit when the run has at most
     :data:`RUN_CHUNK_TILES` tiles (``chunk`` -1), else in ``k`` units of
     consecutive chunks of the run (``chunk`` ``c << 16 | k`` for the
-    ``c``-th); every other output row is one empty unit."""
+    ``c``-th); every other output row is one empty unit.  So ``U`` exceeds
+    ``num_rows`` exactly when some run is chunked."""
     dev = hack_ptr.device
     H = hack_ptr.shape[0]
     begin = torch.zeros(num_rows, dtype=torch.long, device=dev)
@@ -223,17 +224,14 @@ class WhellMatrix:
     # classic only: classic_work_list(values), rebuilt with every layout
     work_list: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
                                                           repr=False)
-    # packed only, rebuilt with every layout: packed_hack_ptr(...), the
-    # hack pass's work units packed_hack_units(hack_ptr, rows) and its run
-    # counters (one int32 per output row, zero between calls: the block
-    # that ends a chunked run resets its row's; so two products on one
-    # layout must not run at once on two streams)
+    # packed only, rebuilt with every layout: packed_hack_ptr(...) and the
+    # hack pass's work units packed_hack_units(hack_ptr, rows); a product
+    # keeps no state here (its chunked-run counters are its own), so
+    # products of one layout may run at once on several streams
     hack_ptr: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
                                                          repr=False)
     hack_units: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
                                                            repr=False)
-    hack_done: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
-                                                          repr=False)
 
     def __post_init__(self) -> None:
         v = self.values
@@ -241,9 +239,7 @@ class WhellMatrix:
             self.work_list = classic_work_list(v)
         if self.packed and self._whole_chunks():
             self.hack_ptr = self._derive_hack_ptr()
-            rows = self.seg_lo.shape[0]
-            self.hack_units = packed_hack_units(self.hack_ptr, rows)
-            self.hack_done = torch.zeros(rows, dtype=torch.int32, device=self.device)
+            self.hack_units = packed_hack_units(self.hack_ptr, self.seg_lo.shape[0])
 
     def _whole_chunks(self) -> bool:
         """The packed tile scalars are shaped for a derivation: whole
@@ -426,8 +422,8 @@ class WhellMatrix:
     def _check_hack_runs(self, want) -> None:
         """``hack_ptr`` is the derivation from the tile scalars, each run
         holds only its hack's tiles, no tile lies in two runs, and every
-        tile outside the runs holds zeros only: the SpMV kernels of #4 and
-        complex128 never read those tiles."""
+        tile outside the runs holds zeros only: the hack-pass kernels (#4,
+        #12 and complex128) never read those tiles."""
         hp = self.hack_ptr
         want(hp is not None and hp.dtype == torch.int32 and hp.device == self.device
              and tuple(hp.shape) == (self.num_hacks, 2)
@@ -437,12 +433,10 @@ class WhellMatrix:
         want(self.num_hacks == 0 or int((hp[:, 1] - hp[:, 0]).max()) < RUN_CHUNK_TILES << 15,
              "a hack's run passes the 15-bit chunk field of its work units")
         rows = self.num_groups * self.group_hacks
-        units, done = self.hack_units, self.hack_done
+        units = self.hack_units
         want(units is not None and units.device == self.device
              and torch.equal(units.cpu(), packed_hack_units(hp.int(), rows)),
              "hack_units does not match hack_ptr")
-        want(done is not None and done.dtype == torch.int32 and done.device == self.device
-             and tuple(done.shape) == (rows,), "hack_done shape")
         T = self.num_tiles
         begin, count = hp[:, 0], hp[:, 1] - hp[:, 0]
         owner = torch.repeat_interleave(torch.arange(self.num_hacks), count)

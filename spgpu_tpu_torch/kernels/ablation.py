@@ -206,11 +206,10 @@ def whell_f64_ablation(level: str, values, residue, page_tab, tile_base,
                        chunk_group, group_bases: Optional[torch.Tensor],
                        seg_lo, seg_hi, x2d, *, chunk_tiles: int,
                        group_hacks: int, window_pages: int,
-                       unit_segments: bool, hack_units: torch.Tensor,
-                       hack_done: torch.Tensor) -> torch.Tensor:
+                       unit_segments: bool, hack_units: torch.Tensor) -> torch.Tensor:
     """Kernel #19 at ``level`` (:data:`F64_LEVELS`) on a float64 packed
-    WHELL layout (aligned or scattered windows), its work units and run
-    counters (``WhellMatrix.hack_units``, ``.hack_done``) and lane-space
+    WHELL layout (aligned or scattered windows), its work units
+    (``WhellMatrix.hack_units``) and lane-space
     ``x2d`` ``(x_pages, 128)`` float64: ``part`` ``(num_tiles, 128)`` at
     ``stream`` and ``gather`` (zero on tiles outside every run), the
     unscanned row sums ``(num_groups*group_hacks, 128)`` at ``own``, the
@@ -226,7 +225,7 @@ def whell_f64_ablation(level: str, values, residue, page_tab, tile_base,
     if values.dtype != torch.float64:
         raise ValueError(f"whell_f64_ablation: bad values: kernel #19 takes "
                          f"float64, not {values.dtype}")
-    _whell._check_units("whell_f64_ablation", hack_units, hack_done, values, seg_lo)
+    _whell._check_units("whell_f64_ablation", hack_units, values, seg_lo)
     static = dict(chunk_tiles=chunk_tiles, group_hacks=group_hacks,
                   window_pages=window_pages, unit_segments=unit_segments)
     dev = x2d.device
@@ -243,8 +242,8 @@ def whell_f64_ablation(level: str, values, residue, page_tab, tile_base,
     err = lib.whell_packed_ablation_f64(
         code, values.data_ptr(), *_whell.hack_pass_args(
             "whell_f64_ablation", values, residue, page_tab, tile_base,
-            group_bases, hack_units, hack_done, seg_lo, seg_hi, x2d, out,
-            window_pages, unit_segments))
+            group_bases, hack_units, seg_lo, seg_hi, x2d, out, window_pages,
+            unit_segments))
     if err != 0:
         raise RuntimeError(f"whell_f64_ablation({level!r}) launch failed: "
                            f"CUDA error {err}")
@@ -257,13 +256,12 @@ def whell_f64_ablation_plain(level: str, values, residue, page_tab,
                              tile_base, chunk_group, group_bases, seg_lo,
                              seg_hi, x2d, *, chunk_tiles: int,
                              group_hacks: int, window_pages: int,
-                             unit_segments: bool, hack_units: torch.Tensor,
-                             hack_done: Optional[torch.Tensor] = None) -> torch.Tensor:
+                             unit_segments: bool,
+                             hack_units: torch.Tensor) -> torch.Tensor:
     """Kernel #19's function at ``level`` in plain PyTorch, on the
     operands' device: the products of :func:`~spgpu_tpu_torch.kernels.
     whell.whell_hack_sums` and its flush, cut where the level cuts the
-    kernel (``stream`` and ``gather`` zero the tiles outside every unit);
-    ``hack_done`` is taken for the kernel's signature and not read."""
+    kernel (``stream`` and ``gather`` zero the tiles outside every unit)."""
     _code(level, F64_LEVELS, "whell_f64_ablation_plain")
     T = tile_base.shape[0]
     if level in ("stream", "gather"):

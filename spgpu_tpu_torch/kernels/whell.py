@@ -65,9 +65,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.whell_packed_spmv.restype = ctypes.c_int
     lib.whell_packed_spmv.argtypes = [p, i32] + tile_pass
     lib.whell_packed_spmm.restype = ctypes.c_int
-    lib.whell_packed_spmm.argtypes = [
-        p, i32, p, p, p, p, p, p, p, p, p, p, i64, i64, i32, i32, i32, i32,
-        i32, p]
+    lib.whell_packed_spmm.argtypes = [p, i32] + [p] * 11 + [i64, i64, i32, i32, i32, p]
     for dt, (name, _) in _TYPED.items():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -140,47 +138,54 @@ def _layout_args(residue, page_tab, tile_base, chunk_group, group_bases,
             seg_lo.data_ptr(), seg_hi.data_ptr())
 
 
-def _check_units(op, hack_units, hack_done, values, seg_lo) -> None:
-    """``hack_units`` is ``(U, 4)`` int32 and ``hack_done`` ``(rows,)``
-    int32, contiguous, on the values' device (``WhellMatrix.hack_units``
-    and ``hack_done``)."""
-    ok = (hack_units is not None and hack_done is not None
-          and hack_units.dtype == hack_done.dtype == torch.int32
+def _check_units(op, hack_units, values, seg_lo) -> None:
+    """``hack_units`` is ``(U, 4)`` int32 with ``U >= rows``, contiguous,
+    on the values' device (``WhellMatrix.hack_units``)."""
+    ok = (hack_units is not None and hack_units.dtype == torch.int32
           and hack_units.dim() == 2 and hack_units.shape[1] == 4
-          and tuple(hack_done.shape) == (seg_lo.shape[0],)
-          and hack_units.device == hack_done.device == values.device
-          and hack_units.is_contiguous() and hack_done.is_contiguous())
+          and hack_units.shape[0] >= seg_lo.shape[0]
+          and hack_units.device == values.device and hack_units.is_contiguous())
     if not ok:
-        raise ValueError(f"{op}: float64 and complex128 values take hack_units "
-                         "(U, 4) int32 and hack_done (rows,) int32 on their "
-                         "device (WhellMatrix.hack_units, .hack_done)")
+        raise ValueError(f"{op}: the hack pass takes hack_units, (U, 4) int32 on "
+                         "the values' device (WhellMatrix.hack_units)")
 
 
 def hack_pass_args(op, values, residue, page_tab, tile_base, group_bases,
-                   hack_units, hack_done, seg_lo, seg_hi, x2d, out,
-                   window_pages, unit_segments):
-    """The C arguments of the hack-pass entries (#4, complex128, #19) after
-    the values: device pointers (with the chunk scratch, allocated here),
-    sizes and the current stream.  The bulk copies need 16 B aligned slabs
-    (raises otherwise)."""
+                   hack_units, seg_lo, seg_hi, x, out, window_pages,
+                   unit_segments, n_rhs=None):
+    """The C arguments of the hack-pass entries (#4, complex128, #19;
+    #12 with ``n_rhs``) after the values: device pointers, the work units'
+    count (and for #12 the rows and ``n_rhs``), sizes and the current
+    stream.  The launch's scratch for chunked runs is allocated here, per
+    call, and only when some run is chunked (more units than rows): the
+    counters zeroed, one per output row (per row and block of 8 RHS for
+    #12), and the chunks' sums; else both are null.  So no product keeps
+    state on the layout.  The bulk copies need 16 B aligned slabs (raises
+    otherwise)."""
     if any(t.data_ptr() % 16 for t in (values, residue, page_tab)):
         raise ValueError(f"{op}: values, residue and page_tab must be 16 B "
                          "aligned for the bulk copies")
-    part = torch.empty((hack_units.shape[0], 128), dtype=x2d.dtype, device=x2d.device)
+    U, rows = hack_units.shape[0], seg_lo.shape[0]
+    done = part = None
+    if U > rows:
+        blocks = 1 if n_rhs is None else -(-n_rhs // 8)
+        done = torch.zeros(rows * blocks, dtype=torch.int32, device=x.device)
+        part = torch.empty((U, n_rhs or 1, 128), dtype=x.dtype, device=x.device)
+    sizes = (U,) if n_rhs is None else (U, rows, n_rhs)
     return (residue.data_ptr(), page_tab.data_ptr(), tile_base.data_ptr(),
             None if group_bases is None else group_bases.data_ptr(),
-            hack_units.data_ptr(), hack_done.data_ptr(), part.data_ptr(),
-            seg_lo.data_ptr(), seg_hi.data_ptr(), x2d.data_ptr(), out.data_ptr(),
-            hack_units.shape[0], window_pages, int(unit_segments),
-            torch.cuda.current_stream(x2d.device).cuda_stream)
+            hack_units.data_ptr(), None if done is None else done.data_ptr(),
+            None if part is None else part.data_ptr(), seg_lo.data_ptr(),
+            seg_hi.data_ptr(), x.data_ptr(), out.data_ptr(), *sizes,
+            window_pages, int(unit_segments),
+            torch.cuda.current_stream(x.device).cuda_stream)
 
 
 def whell_packed_spmv(values, residue, page_tab, tile_base, chunk_group,
                       group_bases: Optional[torch.Tensor], seg_lo, seg_hi,
                       x2d, *, chunk_tiles: int, group_hacks: int,
                       window_pages: int, unit_segments: bool,
-                      hack_units: Optional[torch.Tensor] = None,
-                      hack_done: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      hack_units: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Packed-lane WHELL product ``(num_groups*group_hacks, 128)`` in x2d's
     type: the values' own type for float64, complex64 and complex128
     values, float32 for fp32 or bf16 ones.
@@ -189,18 +194,19 @@ def whell_packed_spmv(values, residue, page_tab, tile_base, chunk_group,
     complex64, the complex128 kernel for complex128; each counted in its
     ``LAUNCHES*``); CPU tensors run :func:`whell_packed_spmv_plain`.  Any
     other device raises.  float64 and complex128 values also take
-    ``hack_units`` and ``hack_done`` (``WhellMatrix.hack_units``,
-    ``.hack_done``; raises without them): their kernel sums each hack's
-    run of tiles in one launch, from those work units and run counters,
-    and reads no tile outside the runs (other values ignore them).  The
-    layout arrays are trusted as built by the converter or checked by
-    ``WhellMatrix.check``; shapes, dtypes and devices are checked here."""
+    ``hack_units`` (``WhellMatrix.hack_units``; raises without): their
+    kernel sums each hack's run of tiles in one launch, from those work
+    units, and reads no tile outside the runs (other values ignore them).
+    A call keeps no state on the layout: the counters of chunked runs are
+    its own.  The layout arrays are trusted as built by the converter or
+    checked by ``WhellMatrix.check``; shapes, dtypes and devices are
+    checked here."""
     _check_args("whell_packed_spmv", values, residue, page_tab, tile_base,
                 chunk_group, group_bases, seg_lo, seg_hi, x2d, chunk_tiles,
                 group_hacks, window_pages)
     per_hack = values.dtype in PER_HACK
     if per_hack:
-        _check_units("whell_packed_spmv", hack_units, hack_done, values, seg_lo)
+        _check_units("whell_packed_spmv", hack_units, values, seg_lo)
     dev = x2d.device
     static = dict(chunk_tiles=chunk_tiles, group_hacks=group_hacks,
                   window_pages=window_pages, unit_segments=unit_segments)
@@ -216,8 +222,8 @@ def whell_packed_spmv(values, residue, page_tab, tile_base, chunk_group,
     if per_hack:
         err = getattr(lib, typed[0])(values.data_ptr(), *hack_pass_args(
             "whell_packed_spmv", values, residue, page_tab, tile_base,
-            group_bases, hack_units, hack_done, seg_lo, seg_hi, x2d, z,
-            window_pages, unit_segments))
+            group_bases, hack_units, seg_lo, seg_hi, x2d, z, window_pages,
+            unit_segments))
     else:
         acc = torch.zeros((R, 128), dtype=x2d.dtype, device=dev)
         args = (*_layout_args(residue, page_tab, tile_base, chunk_group,
@@ -239,41 +245,43 @@ def whell_packed_spmv(values, residue, page_tab, tile_base, chunk_group,
 def whell_packed_spmm(values, residue, page_tab, tile_base, chunk_group,
                       group_bases: Optional[torch.Tensor], seg_lo, seg_hi,
                       x3d, *, chunk_tiles: int, group_hacks: int,
-                      window_pages: int, unit_segments: bool) -> torch.Tensor:
+                      window_pages: int, unit_segments: bool,
+                      hack_units: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused multi-RHS product ``(n_rhs, num_groups*group_hacks, 128)``
     fp32 of fp32 or bf16 values and the lane-space stack ``x3d``
     ``(n_rhs, x_pages, 128)`` fp32: each tile is decoded once for every
     RHS.
 
-    CUDA tensors launch kernel #12 (counted in ``LAUNCHES_SPMM``; the
-    wrapper first copies X into the kernel's RHS-interleaved buffer); CPU
-    tensors run :func:`whell_packed_spmm_plain`.  Any other device raises."""
+    CUDA tensors launch kernel #12, the hack pass over ``hack_units``
+    (``WhellMatrix.hack_units``; required there, raises without): one
+    launch, counted in ``LAUNCHES_SPMM``, after the wrapper copies X into
+    the kernel's RHS-interleaved buffer; it reads no tile outside the
+    runs and gathers no x for a zero-valued cell.  CPU tensors run
+    :func:`whell_packed_spmm_plain`, in its per-hack form when given
+    ``hack_units``.  Any other device raises."""
     _check_args("whell_packed_spmm", values, residue, page_tab, tile_base,
                 chunk_group, group_bases, seg_lo, seg_hi, x3d, chunk_tiles,
                 group_hacks, window_pages)
     dev = x3d.device
+    static = dict(chunk_tiles=chunk_tiles, group_hacks=group_hacks,
+                  window_pages=window_pages, unit_segments=unit_segments)
+    if hack_units is not None or dev.type != "cpu":
+        _check_units("whell_packed_spmm", hack_units, values, seg_lo)
     if dev.type == "cpu":
         return whell_packed_spmm_plain(
             values, residue, page_tab, tile_base, chunk_group, group_bases,
-            seg_lo, seg_hi, x3d, chunk_tiles=chunk_tiles,
-            group_hacks=group_hacks, window_pages=window_pages,
-            unit_segments=unit_segments)
-    if x3d.shape[0] > 65535:
+            seg_lo, seg_hi, x3d, hack_units=hack_units, **static)
+    n_rhs = x3d.shape[0]
+    if n_rhs > 65535:
         raise ValueError("whell_packed_spmm: at most 65,535 RHS per launch")
     lib = _LIB.load()
-    n_rhs = x3d.shape[0]
-    R = seg_lo.shape[0]
     xi = x3d.reshape(n_rhs, x3d.shape[1] * 128).t().contiguous()  # (x_pages*128, n_rhs)
-    acc = torch.zeros((n_rhs, R, 128), dtype=torch.float32, device=dev)
-    z = torch.empty((n_rhs, R, 128), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    z = torch.empty((n_rhs, seg_lo.shape[0], 128), dtype=torch.float32, device=dev)
     err = lib.whell_packed_spmm(
-        values.data_ptr(), int(values.dtype == torch.bfloat16),
-        *_layout_args(residue, page_tab, tile_base, chunk_group, group_bases,
-                      seg_lo, seg_hi),
-        xi.data_ptr(), acc.data_ptr(), z.data_ptr(), tile_base.shape[0], R,
-        n_rhs, chunk_tiles, group_hacks, window_pages, int(unit_segments),
-        stream)
+        values.data_ptr(), int(values.dtype == torch.bfloat16), *hack_pass_args(
+            "whell_packed_spmm", values, residue, page_tab, tile_base,
+            group_bases, hack_units, seg_lo, seg_hi, xi, z, window_pages,
+            unit_segments, n_rhs=n_rhs))
     if err != 0:
         raise RuntimeError(f"whell_packed_spmm launch failed: CUDA error {err}")
     global LAUNCHES_SPMM
@@ -285,36 +293,36 @@ def whell_packed_spmv_plain(values, residue, page_tab, tile_base,
                             chunk_group, group_bases, seg_lo, seg_hi, x2d, *,
                             chunk_tiles: int, group_hacks: int,
                             window_pages: int, unit_segments: bool,
-                            hack_units: Optional[torch.Tensor] = None,
-                            hack_done: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The same product in plain PyTorch.  With ``hack_units``, the
-    per-hack form of #4 and the complex128 kernel: :func:`whell_hack_sums`
-    (each hack's run, tile by tile and slot by slot), then the flush;
-    without, :func:`whell_packed_spmm_plain` with one RHS (every tile's sum
-    added into its hack row).  ``hack_done``, the kernel's run counters,
-    is taken for the kernel's signature and not read."""
-    if hack_units is not None:
-        acc = whell_hack_sums(values, residue, page_tab, tile_base,
-                              group_bases, hack_units, x2d.unsqueeze(0),
-                              num_rows=seg_lo.shape[0], window_pages=window_pages)
-        return whell_flush_plain(acc, seg_lo, seg_hi, unit_segments)[0]
+                            hack_units: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The same product in plain PyTorch: :func:`whell_packed_spmm_plain`
+    with one RHS (with ``hack_units``, its per-hack form: that of #4 and
+    the complex128 kernel)."""
     return whell_packed_spmm_plain(
         values, residue, page_tab, tile_base, chunk_group, group_bases,
         seg_lo, seg_hi, x2d.unsqueeze(0), chunk_tiles=chunk_tiles,
         group_hacks=group_hacks, window_pages=window_pages,
-        unit_segments=unit_segments)[0]
+        unit_segments=unit_segments, hack_units=hack_units)[0]
 
 
 def whell_packed_spmm_plain(values, residue, page_tab, tile_base,
                             chunk_group, group_bases, seg_lo, seg_hi, x3d, *,
                             chunk_tiles: int, group_hacks: int,
-                            window_pages: int,
-                            unit_segments: bool) -> torch.Tensor:
+                            window_pages: int, unit_segments: bool,
+                            hack_units: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The multi-RHS product in plain PyTorch, vectorised over the RHS
     axis of ``x3d`` ``(n_rhs, x_pages, 128)``, on the operands' device, in
-    x3d's type: decode once, gather ``(n_rhs, S, 128)``, ``index_add_``
-    into the hack rows, then ``cumsum`` and the segment gathers (complex
-    products are PyTorch's complex multiply)."""
+    x3d's type, then the flush (``cumsum`` and the segment gathers;
+    complex products are PyTorch's complex multiply).  With
+    ``hack_units``, the per-hack form of the hack-pass kernels (#4, #12
+    and complex128): :func:`whell_hack_sums` (each hack's run, tile by
+    tile and slot by slot; no tile outside the runs); without, the tile
+    pass's: decode once, gather ``(n_rhs, S, 128)`` and ``index_add_``
+    every tile's sums into its hack row."""
+    if hack_units is not None:
+        acc = whell_hack_sums(values, residue, page_tab, tile_base,
+                              group_bases, hack_units, x3d,
+                              num_rows=seg_lo.shape[0], window_pages=window_pages)
+        return whell_flush_plain(acc, seg_lo, seg_hi, unit_segments)
     n_rhs = x3d.shape[0]
     tile_sums, hack = whell_tile_sums(values, residue, page_tab, tile_base,
                                       chunk_group, group_bases, x3d,
@@ -367,8 +375,9 @@ def whell_hack_sums(values, residue, page_tab, tile_base, group_bases,
                     hack_units, x3d, *, num_rows: int,
                     window_pages: int) -> torch.Tensor:
     """Each output row's unscanned lane sums in plain PyTorch, ``(n_rhs,
-    num_rows, 128)`` in x3d's type, as #4 and the complex128 kernel sum
-    them over the work units ``hack_units`` (``[begin, end, row, chunk]``,
+    num_rows, 128)`` in x3d's type, as the hack-pass kernels (#4, #12 and
+    complex128) sum them over the work units ``hack_units`` (``[begin,
+    end, row, chunk]``,
     :func:`~spgpu_tpu_torch.formats.whell.packed_hack_units`): each unit
     adds its tiles' products tile by tile and slot by slot, then a row
     adds its units' sums in chunk order; tiles outside every unit are not

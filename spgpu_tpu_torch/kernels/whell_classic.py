@@ -16,9 +16,9 @@ plain PyTorch versions of the same functions, for CPU tensors.  Both give
 the product in STORED rows, ``(num_groups*8, 128)`` per RHS: the OELL
 scatter, the way reduction and the epilogue are the op's
 (:func:`spgpu_tpu_torch.ops.whell_spmv`).  ``LAUNCHES`` counts the
-launches of kernel #15 and ``LAUNCHES_SPMM`` those of #16.  Kernel #15
-reads only the live units of the layout's work list; #16 and both plain
-versions read every cell.
+launches of kernel #15 and ``LAUNCHES_SPMM`` those of #16.  Both kernels
+read only the live units of the layout's work list; both plain versions
+read every cell.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.whell_classic_spmv.restype = ctypes.c_int
     lib.whell_classic_spmv.argtypes = [p, i32, p, p, p, p, p, i64, p, p, p]
     lib.whell_classic_spmm.restype = ctypes.c_int
-    lib.whell_classic_spmm.argtypes = [p, i32, p, p, p, p, p, p, i64, i64, i32, p]
+    lib.whell_classic_spmm.argtypes = [p, i32, p, p, p, p, p, i64, p, p, i64, i32, p]
 
 
 _LIB = CudaLibrary("whell_classic_spmv", _bind)
@@ -89,6 +89,32 @@ def _check_args(op, values, residue, page_tab, tile_base, chunk_group, x,
         raise ValueError(f"{op}: no kernel for device {x.device}")
 
 
+def _check_work(op, work, device) -> None:
+    """``work`` is the layout's work list (``WhellMatrix.work_list``: a
+    contiguous int64 list on ``device``); the kernels need it, so on a
+    CUDA device it may not be None (the plain versions read every cell
+    and need none)."""
+    if work is None:
+        if device.type == "cuda":
+            raise ValueError(f"{op}: the kernel needs the layout's work list "
+                             "(WhellMatrix.work_list)")
+        return
+    if (work.dtype != torch.int64 or work.dim() != 1 or work.device != device
+            or not work.is_contiguous()):
+        raise ValueError(f"{op}: bad work (a contiguous int64 list on x's device)")
+
+
+def _launch_args(op, values, residue, page_tab, tile_base, chunk_group, work):
+    """The pointers the kernels #15 and #16 take before x, with the
+    list's length; the row prefetch loads page_tab 4 B a lane."""
+    if page_tab.data_ptr() % 4:
+        raise ValueError(f"{op}: the kernel loads page_tab 4 B a lane; it must be "
+                         "4 B aligned")
+    return (values.data_ptr(), int(values.dtype == torch.bfloat16), residue.data_ptr(),
+            page_tab.data_ptr(), tile_base.data_ptr(), chunk_group.data_ptr(),
+            work.data_ptr(), work.numel())
+
+
 def whell_classic_spmv(values, residue, page_tab, tile_base, chunk_group, x2d,
                        *, num_groups: int, work=None) -> torch.Tensor:
     """Classic WHELL product ``(num_groups*8, 128)`` fp32 in stored rows,
@@ -105,27 +131,17 @@ def whell_classic_spmv(values, residue, page_tab, tile_base, chunk_group, x2d,
     shapes, dtypes and devices are checked here."""
     _check_args("whell_classic_spmv", values, residue, page_tab, tile_base,
                 chunk_group, x2d, num_groups)
-    if work is not None and (work.dtype != torch.int64 or work.dim() != 1
-                             or work.device != x2d.device or not work.is_contiguous()):
-        raise ValueError("whell_classic_spmv: bad work (a contiguous int64 list on "
-                         "x's device)")
     dev = x2d.device
+    _check_work("whell_classic_spmv", work, dev)
     if dev.type == "cpu":
         return whell_classic_spmv_plain(values, residue, page_tab, tile_base,
                                         chunk_group, x2d, num_groups=num_groups)
-    if work is None:
-        raise ValueError("whell_classic_spmv: the kernel needs the layout's work "
-                         "list (WhellMatrix.work_list)")
-    if page_tab.data_ptr() % 4:
-        raise ValueError("whell_classic_spmv: the kernel loads page_tab 4 B a lane; "
-                         "it must be 4 B aligned")
+    args = _launch_args("whell_classic_spmv", values, residue, page_tab, tile_base,
+                        chunk_group, work)
     lib = _LIB.load()
     z = torch.zeros((num_groups * _GROUP_HACKS, 128), dtype=torch.float32, device=dev)
-    err = lib.whell_classic_spmv(
-        values.data_ptr(), int(values.dtype == torch.bfloat16), residue.data_ptr(),
-        page_tab.data_ptr(), tile_base.data_ptr(), chunk_group.data_ptr(),
-        work.data_ptr(), work.numel(), x2d.data_ptr(), z.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    err = lib.whell_classic_spmv(*args, x2d.data_ptr(), z.data_ptr(),
+                                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"whell_classic_spmv launch failed: CUDA error {err}")
     global LAUNCHES
@@ -134,34 +150,38 @@ def whell_classic_spmv(values, residue, page_tab, tile_base, chunk_group, x2d,
 
 
 def whell_classic_spmm(values, residue, page_tab, tile_base, chunk_group, x3d,
-                       *, num_groups: int) -> torch.Tensor:
+                       *, num_groups: int, work=None) -> torch.Tensor:
     """Fused multi-RHS product ``(n_rhs, num_groups*8, 128)`` fp32 in
     stored rows, of fp32 or bf16 values and x3d ``(n_rhs, x_pages, 128)``
-    fp32: each tile is decoded once for every RHS.
+    fp32: each cell is decoded once for every RHS.
 
     CUDA tensors launch kernel #16 (counted in ``LAUNCHES_SPMM``; the
-    wrapper first copies X into the kernel's RHS-interleaved buffer); CPU
-    tensors run :func:`whell_classic_spmm_plain`.  Any other device
+    wrapper first copies X into the kernel's RHS-interleaved buffer) over
+    ``work``, the layout's work list (required there, as for
+    :func:`whell_classic_spmv`): it reads only the units and slots that
+    hold a nonzero, and a zero-valued cell contributes nothing even where
+    X is not finite.  CPU tensors run :func:`whell_classic_spmm_plain`,
+    the full-layout product, and need no list.  Any other device
     raises."""
     _check_args("whell_classic_spmm", values, residue, page_tab, tile_base,
                 chunk_group, x3d, num_groups)
     dev = x3d.device
+    _check_work("whell_classic_spmm", work, dev)
     if dev.type == "cpu":
         return whell_classic_spmm_plain(values, residue, page_tab, tile_base,
                                         chunk_group, x3d, num_groups=num_groups)
-    if x3d.shape[0] > 65535:
-        raise ValueError("whell_classic_spmm: at most 65,535 RHS per launch")
-    lib = _LIB.load()
     n_rhs = x3d.shape[0]
+    if n_rhs > 65535:
+        raise ValueError("whell_classic_spmm: at most 65,535 RHS per launch")
+    args = _launch_args("whell_classic_spmm", values, residue, page_tab, tile_base,
+                        chunk_group, work)
+    lib = _LIB.load()
     rows = num_groups * _GROUP_HACKS * 128
     xi = x3d.reshape(n_rhs, -1).t().contiguous()  # (x_pages*128, n_rhs)
     z = torch.zeros((n_rhs, num_groups * _GROUP_HACKS, 128), dtype=torch.float32,
                     device=dev)
-    err = lib.whell_classic_spmm(
-        values.data_ptr(), int(values.dtype == torch.bfloat16), residue.data_ptr(),
-        page_tab.data_ptr(), tile_base.data_ptr(), chunk_group.data_ptr(),
-        xi.data_ptr(), z.data_ptr(), tile_base.shape[0], rows, n_rhs,
-        torch.cuda.current_stream(dev).cuda_stream)
+    err = lib.whell_classic_spmm(*args, xi.data_ptr(), z.data_ptr(), rows, n_rhs,
+                                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"whell_classic_spmm launch failed: CUDA error {err}")
     global LAUNCHES_SPMM

@@ -143,7 +143,7 @@ def whell_spmv(a, x: torch.Tensor, alpha=1.0, beta=0.0, y=None) -> torch.Tensor:
         a.group_bases, a.seg_lo, a.seg_hi, _prep_x(x, a.n_cols, a.x_pages),
         chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
         window_pages=a.window_pages, unit_segments=a.unit_segments,
-        hack_units=a.hack_units, hack_done=a.hack_done)
+        hack_units=a.hack_units)
     return _epilogue(z.view(-1)[: a.n_rows], alpha, beta, y)
 
 
@@ -185,12 +185,14 @@ def whell_spmm(a, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
     device.
 
     As the JAX dispatch (``fused = packed and not special``): on a packed
-    layout ``fused=None`` fuses for fp32 and bf16 values (kernel #12: each
-    tile decoded once for every RHS; bf16 values take fp32 x) and loops
+    layout ``fused=None`` fuses for fp32 and bf16 values (kernel #12, the
+    hack pass over ``hack_units``: each tile decoded once for every RHS;
+    bf16 values take fp32 x) and loops
     :func:`whell_spmv` per RHS for float64 and complex ones (their
     kernels, each RHS with its own epilogue); on a classic layout
     ``fused=None`` loops kernel #15 and ``fused=True`` runs kernel #16
-    with the same ``row_perm``/``ways`` epilogue.  ``fused=False`` loops
+    (over the layout's ``work_list``, as #15) with the same
+    ``row_perm``/``ways`` epilogue.  ``fused=False`` loops
     in every type; ``fused=True`` on float64 or complex values, or on a
     :class:`PcellWhell` (which has no fused kernel), raises
     ``NotImplementedError``."""
@@ -212,14 +214,16 @@ def whell_spmm(a, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
     if not a.packed:
         zs = _classic.whell_classic_spmm(
             a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
-            _prep_x(x, a.n_cols, a.x_pages, stack=True), num_groups=a.num_groups)
+            _prep_x(x, a.n_cols, a.x_pages, stack=True), num_groups=a.num_groups,
+            work=a.work_list)
         return _epilogue(_classic_rows(a, zs.flatten(1)), alpha, beta, y)
     zs = whell_packed_spmm(
         a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
         a.group_bases, a.seg_lo, a.seg_hi,
         _prep_x(x, a.n_cols, a.x_pages, stack=True),
         chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-        window_pages=a.window_pages, unit_segments=a.unit_segments)
+        window_pages=a.window_pages, unit_segments=a.unit_segments,
+        hack_units=a.hack_units)
     return _epilogue(zs.flatten(1)[:, : a.n_rows], alpha, beta, y)
 
 

@@ -73,7 +73,7 @@ def run(device="cuda", *, size: int = None, matrix: str = "laplacian") -> dict:
             a.group_bases, a.seg_lo, a.seg_hi, x2)
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
                   window_pages=a.window_pages, unit_segments=a.unit_segments,
-                  hack_units=a.hack_units, hack_done=a.hack_done)
+                  hack_units=a.hack_units)
     kernels = {lv: (lambda lv=lv: ab.whell_f64_ablation(lv, *args, **static))
                for lv in ab.F64_LEVELS}
     plains = {lv: (lambda lv=lv: ab.whell_f64_ablation_plain(lv, *args, **static))

@@ -55,8 +55,7 @@ def run(device="cuda", *, size: int = SIDE) -> dict:
         args = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
                 a.group_bases, a.seg_lo, a.seg_hi, x2)
         static = dict(chunk_tiles=ct, group_hacks=gh, window_pages=a.window_pages,
-                      unit_segments=a.unit_segments, hack_units=a.hack_units,
-                      hack_done=a.hack_done)
+                      unit_segments=a.unit_segments, hack_units=a.hack_units)
         kernels[geom] = lambda args=args, static=static: kw.whell_packed_spmv(*args, **static)
         plains[geom] = lambda args=args, static=static: kw.whell_packed_spmv_plain(*args, **static)
         z = a.extract(kernels[geom]().reshape(-1)[: a.n_rows], dtype=torch.float64)

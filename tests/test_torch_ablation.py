@@ -147,7 +147,7 @@ def _f64_args(ta, xl):
              ta.group_bases, ta.seg_lo, ta.seg_hi, x2),
             dict(chunk_tiles=ta.chunk_tiles, group_hacks=ta.group_hacks,
                  window_pages=ta.window_pages, unit_segments=ta.unit_segments,
-                 hack_units=ta.hack_units, hack_done=ta.hack_done))
+                 hack_units=ta.hack_units))
 
 
 # --------------------------------------------------------------------------

@@ -364,6 +364,26 @@ def test_classic_spmm_rejects_bad_operands():
                               torch.zeros((a.x_pages, 128)), num_groups=a.num_groups)
 
 
+def test_classic_wrappers_need_the_work_list_on_cuda_only():
+    """#15 and #16 read only the live units of ``WhellMatrix.work_list``:
+    on a CUDA device their wrappers need it and raise without; the plain
+    versions, the CPU path, read every cell and need none, and the op
+    passes the list either way."""
+    a = coo_to_whell(CASES["fem"](tfix), device="cpu", packed=False)
+    x3 = tops._prep_x(torch.ones((3, a.n_cols)), a.n_cols, a.x_pages, stack=True)
+    layout = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group)
+    for op in ("whell_classic_spmv", "whell_classic_spmm"):
+        with pytest.raises(ValueError, match="work list"):
+            kc._check_work(op, None, torch.device("cuda"))
+        kc._check_work(op, None, torch.device("cpu"))
+        with pytest.raises(ValueError, match="bad work"):
+            kc._check_work(op, a.work_list.int(), torch.device("cpu"))
+    plain = kc.whell_classic_spmm_plain(*layout, x3, num_groups=a.num_groups)
+    for work in (None, a.work_list):
+        z = kc.whell_classic_spmm(*layout, x3, num_groups=a.num_groups, work=work)
+        torch.testing.assert_close(z, plain, rtol=0, atol=0)
+
+
 def test_cpu_path_counts_no_classic_launches():
     a = coo_to_whell(CASES["fem"](tfix), device="cpu", packed=False)
     before = (kc.LAUNCHES, kc.LAUNCHES_SPMM)

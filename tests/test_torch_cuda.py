@@ -1,4 +1,4 @@
-"""PyTorch port on a CUDA device: kernels #1-#17 against their plain versions.
+"""PyTorch port on a CUDA device: kernels #1-#19 against their plain versions.
 
 Needs no JAX, so it also runs where only PyTorch is installed:
 
@@ -23,11 +23,15 @@ with the tolerances of their real type (complex64 WHELL and WHDIA: rtol
 1e-5, atol 1e-5·max|z|; complex128: 1e-12·max|z|), SDIA exactly in both;
 against the complex128 golden complex64 takes 2e-5·max|z|.
 
-The multi-RHS kernels (#12 WHELL: atomics, rtol 1e-5 and atol
-1e-5·max|Z|; #13 WHDIA: the same tolerance, its sums in another order
-than the plain version's; #14 SDIA: exact, and equal to one launch of #2
-per RHS) run at 1, 5, 8 and 17 RHS, with their ``LAUNCHES_SPMM`` counts;
-the loop path of each SpMM launches only SpMV kernels.
+The multi-RHS kernels (#12 WHELL and #13 WHDIA, hack passes: rtol 1e-5
+and atol 1e-5·max|Z|, their sums in another order than the plain
+version's; #14 SDIA: exact, and equal to one launch of #2 per RHS) run at
+1, 3, 5, 8, 11 and 17 RHS, with their ``LAUNCHES_SPMM`` counts; the loop
+path of each SpMM launches only SpMV kernels.  #12 is one launch with the
+same bits every call, adds chunked runs in order, and skips an Inf in x
+that only padding tiles read.  Two products of one chunked-run layout on
+two streams at once stay at the golden (fault F2: the run counters are
+each call's own).
 
 #9 (complex64 WHDIA) and #13 run the hack pass over each hack's live
 slots: they are held to the full-layout plain version and to the listed
@@ -39,11 +43,12 @@ slots reach (a deviation from the JAX kernel, which gives NaN there).
 Classic WHELL (#15 SpMV, #16 SpMM; fp32 and bf16 values, OELL order and
 way-split rows) and pcell (#17) sum with atomics too: rtol 1e-5 and atol
 1e-5·max|z| against their plain versions; 2e-5 (classic) and 1e-5·max|z|
-(pcell) against the golden.  #15 reads only the live units of its work
-list: it is held to the full-layout plain version on layouts with
-explicit zeros, all-dead tiles and after ``whell_update_values``, and
-shown to skip an Inf in x that only zero-valued cells read (a deviation
-from the JAX kernel, which gives NaN there).  #17 runs one warp per tile
+(pcell) against the golden.  #15 and #16 read only the live units of the
+work list: they are held to the full-layout plain version on layouts
+with explicit zeros, all-dead tiles (for #16 also the empty list and one
+unit) and after ``whell_update_values``, and shown to skip an Inf in x
+that only zero-valued cells read (a deviation from the JAX kernel, which
+gives NaN there).  #17 runs one warp per tile
 and 4 tiles per block: it is checked on a tile count that is not a
 multiple of 4.
 """
@@ -550,14 +555,17 @@ def _xs(n_rhs, n, seed=0):
                             .astype(np.float32))
 
 
-def _whell_spmm_plain(a, xs):
+def _whell_spmm_plain(a, xs, per_hack=True):
+    """#12's plain product: the per-hack form, the kernel's (``per_hack=False``:
+    every tile added into its hack row, the tile pass's form, a second
+    witness)."""
     return kw.whell_packed_spmm_plain(
         a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
         a.group_bases, a.seg_lo, a.seg_hi,
         ops._prep_x(xs, a.n_cols, a.x_pages, stack=True),
         chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-        window_pages=a.window_pages,
-        unit_segments=a.unit_segments).flatten(1)[:, : a.n_rows]
+        window_pages=a.window_pages, unit_segments=a.unit_segments,
+        hack_units=a.hack_units if per_hack else None).flatten(1)[:, : a.n_rows]
 
 
 def _whdia_spmm_plain(a, xs):
@@ -638,10 +646,11 @@ def test_sdia_spmm_kernel_is_exact(name, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_rhs", [1, 5, 8, 17])
+@pytest.mark.parametrize("n_rhs", [1, 3, 5, 8, 11, 17])
 @pytest.mark.parametrize("fmt", ["whell", "whdia", "whdia_slab", "sdia"])
 def test_spmm_kernels_take_any_rhs_count(fmt, n_rhs, cuda_device):
-    """1, 8 and 17 RHS (a full block, two and a remainder) on kernels
+    """1 to 17 RHS (a full block, two and a remainder; #12's float4 pairs
+    at 8, its scalar loads at counts not a multiple of 4) on kernels
     #12-#14, both WHDIA r0 modes; #14 against 8 launches of #2 too."""
     if fmt == "whell":
         coo = CASES["fem_large"]()
@@ -762,11 +771,14 @@ def test_classic_oell_ways_alpha_beta_on_cuda(kw, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_rhs", [1, 5, 8, 17])
+@pytest.mark.parametrize("n_rhs", [1, 3, 5, 8, 11, 17])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_classic_spmm_kernel_takes_any_rhs_count(dtype, n_rhs, cuda_device):
-    """Kernel #16 (``fused=True``): one launch, no launch of #15, against
-    its plain version and the golden, on a way-split layout too."""
+    """Kernel #16 (``fused=True``, over the work list): one launch, no
+    launch of #15, against its plain version (1e-5·max|Z|) and the golden,
+    on a way-split layout too; 3, 11 and 17 RHS take the scalar loads (a
+    count that is not a multiple of 4), 8 and 17 the float4 pairs of a
+    full block."""
     coo = CASES["fem_large"]()
     for kw in ({}, dict(ways=2)):
         a = coo_to_whell(coo, device=cuda_device, packed=False, dtype=dtype, **kw)
@@ -833,6 +845,78 @@ def test_classic_kernel_on_work_list_edges(name, kw, dtype, cuda_device):
     torch.cuda.synchronize()
     assert kc.LAUNCHES == before + 1
     _near(z, ops.whell_spmv(a.to("cpu"), x), 1e-5, rtol=1e-5)
+    _near(z, torch.from_numpy(_bf16_golden(coo, a, x.double().numpy())), 2e-5, rtol=2e-5)
+
+
+def _one_unit():
+    """A single nonzero: the work list holds one unit."""
+    return CooMatrix(np.array([300]), np.array([777]), np.array([1.5], np.float32),
+                     1000, 1000)
+
+
+SPMM_WORK_CASES = dict(WORK_CASES, empty=CASES["empty"], one_unit=_one_unit)
+
+
+def _classic_spmm_checked(coo, a, x, cuda_device):
+    """Kernel #16 through ``whell_spmm(fused=True)``: one launch of #16 and
+    none of #15; against the full-layout plain version (atomics: 1e-5,
+    1e-5·max|Z|) and the golden of the slab's values (2e-5)."""
+    before = (kc.LAUNCHES_SPMM, kc.LAUNCHES)
+    z = ops.whell_spmm(a, x.to(cuda_device), fused=True)
+    torch.cuda.synchronize()
+    assert (kc.LAUNCHES_SPMM, kc.LAUNCHES) == (before[0] + 1, before[1])
+    assert z.shape == (x.shape[0], coo.n_rows)
+    _near(z, ops.whell_spmm(a.to("cpu"), x, fused=True), 1e-5, rtol=1e-5)
+    _near(z, torch.from_numpy(_bf16_golden(coo, a, x.double().numpy())), 2e-5,
+          rtol=2e-5)
+    return z
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kw", [{}, dict(sort_rows=True), dict(ways=2)],
+                         ids=["plain", "oell", "ways2"])
+@pytest.mark.parametrize("name", sorted(SPMM_WORK_CASES))
+def test_classic_spmm_on_work_list_edges(name, kw, dtype, cuda_device):
+    """Kernel #16 over the work lists of #15's edge layouts (explicit
+    zeros, all-dead tiles and units, columns read by padding alone), the
+    empty list and a list of one unit, at 11 RHS."""
+    coo = SPMM_WORK_CASES[name]()
+    a = coo_to_whell(coo, device=cuda_device, packed=False, dtype=dtype, **kw)
+    assert a.work_list.numel() == {"empty": 0, "one_unit": 1}.get(
+        name, a.work_list.numel())
+    _classic_spmm_checked(coo, a, _xs(11, coo.n_cols, 5), cuda_device)
+
+
+@pytest.mark.cuda
+def test_classic_spmm_after_update_values(cuda_device):
+    """``whell_update_values`` turns explicit zeros into nonzeros: the
+    rebuilt list covers them and kernel #16 follows, at 8 RHS."""
+    from spgpu_tpu_torch.convert import whell_update_values
+
+    coo = _zeros_and_dead_tiles()
+    a, plan = coo_to_whell(coo, device=cuda_device, packed=False, return_plan=True)
+    newv = np.random.default_rng(4).standard_normal(coo.nnz).astype(np.float32)
+    b = whell_update_values(a, plan, newv)
+    assert b.work_list.numel() > a.work_list.numel()
+    new = CooMatrix(coo.rows, coo.cols, newv, coo.n_rows, coo.n_cols)
+    _classic_spmm_checked(new, b, _xs(8, coo.n_cols, 6), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_classic_spmm_skips_padding_inf(dtype, cuda_device):
+    """The deviation (ROADMAP §3), as #15: with Inf in X at columns that
+    only zero-valued cells read, the full-layout product (the plain
+    version, as the JAX kernel) has NaN lanes; kernel #16 gathers nothing
+    for those cells and gives the golden, at 8 RHS."""
+    coo = _cut_columns(CASES["fem"]())
+    a = coo_to_whell(coo, device=cuda_device, packed=False, dtype=dtype)
+    x = _xs(8, coo.n_cols, 7)
+    x[:, ::128] = float("inf")
+    z = ops.whell_spmm(a, x.to(cuda_device), fused=True)
+    assert bool(ops.whell_spmm(a.to("cpu"), x, fused=True).isnan().any())
+    assert bool(torch.isfinite(z).all())
     _near(z, torch.from_numpy(_bf16_golden(coo, a, x.double().numpy())), 2e-5, rtol=2e-5)
 
 
@@ -1015,8 +1099,8 @@ def _hub_rows(n=160000, step=29, seed=3):
 @pytest.mark.parametrize("dtype", ["float64", "complex128"])
 def test_per_hack_kernel_adds_chunked_runs_in_order(dtype, scattered, cuda_device):
     """A run cut into chunks of work units: each chunk's block stores its
-    sums, the last to finish adds them in chunk order and resets the row's
-    counter; the same bits every launch, the counters zero after each."""
+    sums, the last to finish adds them in chunk order; the same bits every
+    launch, and the run counters are each call's own, not the layout's."""
     coo, tdt, counter = _per_hack_case(dtype, _hub_rows())
     a = coo_to_whell(coo, device=cuda_device, scattered=scattered)
     assert int((a.hack_units[:, 3] >= 0).sum()) >= 3
@@ -1026,10 +1110,63 @@ def test_per_hack_kernel_adds_chunked_runs_in_order(dtype, scattered, cuda_devic
     zs = [ops.whell_spmv(a, xl) for _ in range(4)]
     torch.cuda.synchronize()
     assert all(torch.equal(zs[0], z) for z in zs[1:])
-    assert not bool(a.hack_done.any())
+    assert not hasattr(a, "hack_done")
     _near(zs[0], _plain(a, xl), 1e-12)
     _near(zs[0], _plain(a, xl, per_hack=False), 1e-12)
     _near(a.extract(zs[0], dtype=tdt), torch.from_numpy(coo.spmv(x)), 1e-12)
+
+
+def _two_streams(a, xs, golden, product, pairs=200):
+    """``pairs`` pairs of ``product(a, c*x)``, the two of each pair on two
+    streams that both start behind a sleep and then run nothing but the
+    products, so that their launches overlap; c = 1..5 changes from pair
+    to pair, so a result that read another call's stale scratch or output
+    would be wrong.  Returns each stream's worst error against
+    ``c*golden``, over ``max|c*golden|``."""
+    scaled = [[x * c for c in range(1, 6)] for x in xs]
+    streams = [torch.cuda.Stream(xs[0].device) for _ in xs]
+    outs = [[] for _ in xs]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(xs[0].device))
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(100_000_000)
+    for i in range(pairs):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[k].append(product(a, scaled[k][i % 5]))
+    torch.cuda.synchronize()
+    return [float(max(float((z - (1 + i % 5) * g).abs().max()) / (1 + i % 5)
+                      for i, z in enumerate(out)) / float(g.abs().max()))
+            for out, g in zip(outs, golden)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "complex128", "spmm"])
+def test_two_streams_share_no_run_counters(dtype, cuda_device):
+    """Fault F2: 200 pairs of products of one chunked-run layout, the two
+    of each pair at once on two streams, every result within 1e-12·max|z|
+    of the golden (float64, complex128: #4 and its complex128 kernel), or
+    1e-5·max|Z| (``spmm``: #12 on the fp32 layout, 3 RHS)."""
+    if dtype == "spmm":
+        c = _hub_rows()
+        coo = CooMatrix(c.rows, c.cols, c.values.astype(np.float32), c.n_rows, c.n_cols)
+        tdt, tol, shape = torch.float32, 1e-5, (3, coo.n_cols)
+        product = ops.whell_spmm
+    else:
+        coo, tdt, _ = _per_hack_case(dtype, _hub_rows())
+        tol, shape = 1e-12, (coo.n_cols,)
+        product = ops.whell_spmv
+    a = coo_to_whell(coo, device=cuda_device)
+    assert int((a.hack_units[:, 3] >= 0).sum()) >= 3
+    rng = np.random.default_rng(6)
+    xs, golden = [], []
+    for _ in range(2):
+        x = rng.standard_normal(shape)
+        if tdt.is_complex:
+            x = x + 1j * rng.standard_normal(shape)
+        xs.append(a.embed(torch.from_numpy(x), dtype=tdt))
+        golden.append(a.embed(torch.from_numpy(coo.spmv(x)), dtype=tdt))
+    assert max(_two_streams(a, xs, golden, product)) <= tol
 
 
 def _far_columns(n=12000, lo=6000, deg=9, seed=11):
@@ -1061,6 +1198,109 @@ def test_per_hack_kernel_skips_padding_inf(dtype, cuda_device):
     assert bool(torch.isfinite(z).all())
     _near(a.extract(z, dtype=tdt), torch.from_numpy(coo.spmv(x)), 1e-12)
     assert bool(_plain(a, xl, per_hack=False).isnan().any())
+
+
+# --------------------------------------------------------------------------
+# #12 on the hack pass: one launch, the same bits, chunked runs, no read of
+# the padding tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scattered", [False, True], ids=["aligned", "scattered"])
+@pytest.mark.parametrize("name", ["fem_large", "laplace_wide", "empty"])
+def test_whell_spmm_is_one_launch_and_reproducible(name, scattered, dtype,
+                                                   cuda_device):
+    """One kernel launch per product, #12's hack pass: the wrapper runs
+    the X copy and that kernel, and no flush and no accumulator fill (the
+    zero fill of the run counters only where a run is chunked: the empty
+    layout's padding chunk joins hack 0's run); the same bits over 4
+    calls, within 1e-5·max|Z| of the per-hack and of the tile-pass plain
+    versions."""
+    from spgpu_tpu_torch.utils.timing import _session, device_ms_by_kernel
+
+    coo = CASES[name]()
+    a = coo_to_whell(coo, device=cuda_device, scattered=scattered, dtype=dtype)
+    chunked = a.hack_units.shape[0] > a.seg_lo.shape[0]
+    assert chunked == (name == "empty")
+    xl = a.embed(_xs(8, coo.n_cols, 3), dtype=torch.float32)
+    before = kw.LAUNCHES_SPMM
+    zs = [ops.whell_spmm(a, xl) for _ in range(4)]
+    torch.cuda.synchronize()
+    assert kw.LAUNCHES_SPMM == before + 4
+    assert all(torch.equal(zs[0], z) for z in zs[1:])
+    x3 = ops._prep_x(xl, a.n_cols, a.x_pages, stack=True)
+    call = lambda: kw.whell_packed_spmm(  # noqa: E731
+        a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group, a.group_bases,
+        a.seg_lo, a.seg_hi, x3, chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+        window_pages=a.window_pages, unit_segments=a.unit_segments,
+        hack_units=a.hack_units)
+    names = sorted(device_ms_by_kernel(call))
+    for _ in range(5):  # sessions that lost events: short ones, names only
+        names = names or sorted(_session(call, 3)[0])
+    assert [n for n in names if n.startswith("whell_")] == ["whell_spmm_hack_pass"]
+    assert len(names) <= 2 + chunked, names
+    _near(zs[0], _whell_spmm_plain(a, xl), 1e-5, rtol=1e-5)
+    _near(zs[0], _whell_spmm_plain(a, xl, per_hack=False), 1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rhs", [3, 8, 11])
+@pytest.mark.parametrize("scattered", [False, True], ids=["aligned", "scattered"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whell_spmm_adds_chunked_runs_in_order(dtype, scattered, n_rhs, cuda_device):
+    """#12 on a run cut into chunks (``_hub_rows``): each chunk's block
+    stores its RHS block's sums, the last to finish adds them in chunk
+    order; the same bits twice, against both plain versions (1e-5·max|Z|)
+    and the golden of the slab's values (2e-5·max|Z|)."""
+    c = _hub_rows()
+    coo = CooMatrix(c.rows, c.cols, c.values.astype(np.float32), c.n_rows, c.n_cols)
+    a = coo_to_whell(coo, device=cuda_device, scattered=scattered, dtype=dtype)
+    assert int((a.hack_units[:, 3] >= 0).sum()) >= 3
+    x = _xs(n_rhs, coo.n_cols, 4)
+    xl = a.embed(x, dtype=torch.float32)
+    z1, z2 = ops.whell_spmm(a, xl), ops.whell_spmm(a, xl)
+    assert torch.equal(z1, z2)
+    _near(z1, _whell_spmm_plain(a, xl), 1e-5, rtol=1e-5)
+    _near(z1, _whell_spmm_plain(a, xl, per_hack=False), 1e-5, rtol=1e-5)
+    _near(a.extract(z1, dtype=torch.float64),
+          torch.from_numpy(_bf16_golden(coo, a, x.double().numpy())), 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whell_spmm_skips_padding_inf(dtype, cuda_device):
+    """An Inf in X that only the output groups' padding tiles read (lane
+    column 0, aligned windows): #12 reads no tile outside the runs and
+    gives the golden, where the tile-pass plain version, like the JAX
+    kernel, multiplies the padding tiles and gives NaN (a deviation,
+    ROADMAP §3)."""
+    c = _far_columns()
+    coo = CooMatrix(c.rows, c.cols, c.values.astype(np.float32), c.n_rows, c.n_cols)
+    a = coo_to_whell(coo, device=cuda_device, scattered=False, dtype=dtype)
+    hp = a.hack_ptr.cpu()
+    assert int((hp[:, 1] - hp[:, 0]).sum()) < a.num_tiles  # a padding tail
+    x = _xs(3, coo.n_cols, 9)
+    xl = a.embed(x, dtype=torch.float32)
+    xl[:, 0] = float("inf")
+    z = ops.whell_spmm(a, xl)
+    assert bool(torch.isfinite(z).all())
+    _near(a.extract(z, dtype=torch.float64),
+          torch.from_numpy(_bf16_golden(coo, a, x.double().numpy())), 2e-5, rtol=2e-5)
+    assert bool(_whell_spmm_plain(a, xl, per_hack=False).isnan().any())
+
+
+@pytest.mark.cuda
+def test_whell_spmm_keeps_the_rhs_guard(cuda_device):
+    """65,536 RHS: more RHS blocks than the wrapper lets one launch take."""
+    a = coo_to_whell(CASES["empty"](), device=cuda_device)
+    x3 = torch.zeros((65536, a.x_pages, 128), device=cuda_device)
+    with pytest.raises(ValueError, match="65,535"):
+        kw.whell_packed_spmm(a.values, a.residue, a.page_tab, a.tile_base,
+                             a.chunk_group, a.group_bases, a.seg_lo, a.seg_hi, x3,
+                             chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+                             window_pages=a.window_pages,
+                             unit_segments=a.unit_segments, hack_units=a.hack_units)
 
 
 # --------------------------------------------------------------------------
@@ -1133,7 +1373,7 @@ def test_f64_ablation_matches_plain(name, scattered, level, cuda_device):
             a.group_bases, a.seg_lo, a.seg_hi, ops._prep_x(x, a.n_cols, a.x_pages))
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
                   window_pages=a.window_pages, unit_segments=a.unit_segments,
-                  hack_units=a.hack_units, hack_done=a.hack_done)
+                  hack_units=a.hack_units)
     before = (ab.LAUNCHES_F64_ABLATION, kw.LAUNCHES_F64)
     got = ab.whell_f64_ablation(level, *args, **static)
     torch.cuda.synchronize()

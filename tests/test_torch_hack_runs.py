@@ -351,10 +351,8 @@ def test_wrapper_takes_hack_units_for_float64_and_complex128(dtype):
     with pytest.raises(ValueError, match="hack_units"):
         kw.whell_packed_spmv(*args, **static)
     with pytest.raises(ValueError, match="hack_units"):
-        kw.whell_packed_spmv(*args, **static, hack_units=a.hack_units.long(),
-                             hack_done=a.hack_done)
-    z = kw.whell_packed_spmv(*args, **static, hack_units=a.hack_units,
-                             hack_done=a.hack_done)
+        kw.whell_packed_spmv(*args, **static, hack_units=a.hack_units.long())
+    z = kw.whell_packed_spmv(*args, **static, hack_units=a.hack_units)
     assert torch.equal(z, kw.whell_packed_spmv_plain(*args, **static,
                                                      hack_units=a.hack_units))
 
@@ -383,6 +381,29 @@ def hub_rows(n=160000, step=29, seed=3):
     cols = np.r_[b.cols, hub, np.zeros(hub.size, np.int64)]
     vals = np.r_[b.values, rng.uniform(0.5, 1.5, 2 * hub.size)]
     return CooMatrix(rows, cols, vals, n, n).sum_duplicates()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "complex128"])
+def test_layout_keeps_no_run_counters(dtype):
+    """Fault F2: a layout carries only what it derives from its arrays
+    (``hack_ptr``, ``hack_units``), no per-product state such as the run
+    counters of chunked runs, which each call of the hack pass allocates
+    for itself; so products leave every tensor of the layout as it was."""
+    c = hub_rows()
+    v = _cvalues(c) if dtype == "complex128" else c.values.astype(dtype)
+    a = coo_to_whell(CooMatrix(c.rows, c.cols, v, c.n_rows, c.n_cols), device="cpu")
+    assert int((a.hack_units[:, 3] >= 0).sum()) >= 3
+    fields = {f.name for f in dataclasses.fields(a)}
+    assert "hack_done" not in fields and {"hack_ptr", "hack_units"} <= fields
+    before = {f: getattr(a, f).clone() for f in fields
+              if isinstance(getattr(a, f), torch.Tensor)}
+    x = a.embed(np.ones(c.n_cols), a.values.dtype if dtype != "float32" else torch.float32)
+    tops.whell_spmv(a, x)
+    if dtype == "float32":
+        tops.whell_spmm(a, torch.stack([x, 2 * x]))
+    for f, t in before.items():
+        assert torch.equal(getattr(a, f), t), f
+    a.check()
 
 
 @pytest.mark.parametrize("dtype", ["float64", "complex128"])

@@ -60,6 +60,23 @@ DIA_CASES = {
     "laplace24": lambda f: f.laplacian_2d(24, 24, np.float32),
 }
 WHDIA_MODE = {"banded": True, "banded5": True, "laplace": False}  # pattern?
+
+
+def hub_rows(f, n=20000, step=7, seed=3):
+    """A 5-band matrix plus a hub row and column 0 that meet every
+    ``step``-th column (tests/test_torch_hack_runs.py's hub fixture, cut
+    to size): with 8-page windows the hub's hack has a run of ~20 tiles,
+    two chunks of work units."""
+    b = f.random_banded(n, bands=5, wander=0, seed=seed, dtype=np.float64).sum_duplicates()
+    rng = np.random.default_rng(seed)
+    hub = np.arange(0, n, step)
+    rows = np.r_[b.rows, np.zeros(hub.size, np.int64), hub]
+    cols = np.r_[b.cols, hub, np.zeros(hub.size, np.int64)]
+    vals = np.r_[b.values, rng.uniform(0.5, 1.5, 2 * hub.size)]
+    return f.CooMatrix(rows, cols, vals.astype(np.float32), n, n).sum_duplicates()
+
+
+WHELL_CASES["hub"] = hub_rows
 WHELL_TOL = dict(rtol=3e-5, atol=3e-5)
 
 WHELL_ARRAYS = ("values", "residue", "page_tab", "tile_base", "chunk_group",
@@ -162,6 +179,63 @@ def test_whell_spmm_bf16_values_fp32_x():
         X.astype(np.float64))
     np.testing.assert_allclose(zt.double().numpy()[:, np.asarray(ja.lane_of_row)],
                                golden, **WHELL_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["fem", "hub"])
+def test_whell_spmm_per_hack_plain_matches_tile_pass_and_jax(name, dtype):
+    """The per-hack plain SpMM (what #12's hack pass sums: each hack's run,
+    tile by tile, chunks in order, no tile outside the runs) against the
+    tile-pass plain SpMM and the JAX fused kernel (interpret mode) at
+    3e-5, with (``hub``: 8-page windows) and without chunked runs; the op's
+    CPU path is the per-hack form."""
+    conv = dict(window_pages=8) if name == "hub" else {}
+    if dtype == "bfloat16":
+        conv["dtype"] = jnp.bfloat16
+    coo, ja, ta, X, Xl = _whell_pair(name, 2, **conv)
+    assert (ta.hack_units.shape[0] > ta.seg_lo.shape[0]) == (name == "hub")
+    args = (ta.values, ta.residue, ta.page_tab, ta.tile_base, ta.chunk_group,
+            ta.group_bases, ta.seg_lo, ta.seg_hi,
+            tops._prep_x(torch.from_numpy(Xl), ta.n_cols, ta.x_pages, stack=True))
+    static = dict(chunk_tiles=ta.chunk_tiles, group_hacks=ta.group_hacks,
+                  window_pages=ta.window_pages, unit_segments=ta.unit_segments)
+    per_hack = kw.whell_packed_spmm_plain(*args, hack_units=ta.hack_units, **static)
+    tile = kw.whell_packed_spmm_plain(*args, **static)
+    np.testing.assert_allclose(per_hack.numpy(), tile.numpy(), **WHELL_TOL)
+    z = per_hack.flatten(1)[:, : ta.n_rows]
+    torch.testing.assert_close(tops.whell_spmm(ta, torch.from_numpy(Xl)), z,
+                               rtol=0, atol=0)
+    zj = np.asarray(jops.whell_spmm(ja, jnp.asarray(Xl), fused=True, interpret=True),
+                    np.float64)
+    np.testing.assert_allclose(z.double().numpy(), zj, **WHELL_TOL)
+    v = torch.from_numpy(coo.values).to(ta.values.dtype).double().numpy()
+    golden = CooMatrix(coo.rows, coo.cols, v, coo.n_rows, coo.n_cols).spmv(
+        X.astype(np.float64))
+    np.testing.assert_allclose(z.double().numpy()[:, np.asarray(ja.lane_of_row)],
+                               golden, **WHELL_TOL)
+
+
+def test_whell_spmm_needs_hack_units_on_cuda_only():
+    """#12 runs the hack pass over ``WhellMatrix.hack_units``: the wrapper
+    checks them wherever given and needs them on a CUDA device; on CPU
+    tensors without them it runs the tile-pass plain form."""
+    a = _port_layout("whell", WHELL_CASES["fem"](tfix))
+    x3 = tops._prep_x(torch.ones((2, a.n_cols)), a.n_cols, a.x_pages, stack=True)
+    args = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
+            a.group_bases, a.seg_lo, a.seg_hi, x3)
+    static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+                  window_pages=a.window_pages, unit_segments=a.unit_segments)
+    with pytest.raises(ValueError, match="hack_units"):
+        kw._check_units("whell_packed_spmm", None, a.values, a.seg_lo)
+    with pytest.raises(ValueError, match="hack_units"):
+        kw.whell_packed_spmm(*args, **static, hack_units=a.hack_units.long())
+    torch.testing.assert_close(kw.whell_packed_spmm(*args, **static),
+                               kw.whell_packed_spmm_plain(*args, **static),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        kw.whell_packed_spmm(*args, **static, hack_units=a.hack_units),
+        kw.whell_packed_spmm_plain(*args, **static, hack_units=a.hack_units),
+        rtol=0, atol=0)
 
 
 # --------------------------------------------------------------------------
