@@ -27,14 +27,21 @@ the float64 geometry sweep, and checks them:
 6. sdia      — the 1024x1024 2-D Laplacian (1,048,576 rows) through
                ``coo_to_sdia`` and ``sdia_spmv`` (kernel #2), checked and
                timed as in 3;
-7. whdia     — ``coo_to_whdia`` and ``whdia_spmv`` (kernel #3) on the
-               banded-11 fixture (524,288 rows, pattern mode) and on the
-               Laplacian (slab mode), checked and timed as in 3;
+7. whdia     — ``coo_to_whdia`` and ``whdia_spmv`` (kernel #3, the warp
+               pass over each hack's live slots) on the banded-11 fixture
+               (524,288 rows, pattern mode) and on the Laplacian (slab
+               mode), checked and timed as in 3, and also against the
+               listed plain product, twice with the same bits and with
+               every row written over a NaN-filled buffer, with the
+               live-slot share, the live and full bounds and the kernel's
+               share of each;
 8. solve_dia — three solves through ``solve()``: CG on the Laplacian
                with auto-selection (whdia), CG with ``fmt="sdia"``, and
                BiCGSTAB on a contiguous banded-11 system with
                ``fmt="whdia"``; each is checked as in 5 against its
-               route's launch count;
+               route's launch count, and the two WHDIA solves within 10 %
+               of the iterations of the same solvers on the plain version
+               (every cell: the JAX kernel's product);
 9. spmv_f64  — the flagship in float64 (scattered windows, the port's
                default) through kernel #4, held to 1e-12·max|z| against
                its plain float64 version (the per-hack form) and the
@@ -126,15 +133,22 @@ the float64 geometry sweep, and checks them:
 25. solve_pcell — ``solve(spd, b, fmt="pcell", tol=1e-5)`` on the SPD
                system of 5, counted on kernel #17's counter, with the CG
                loop's ms and device ms per iteration and idle share;
-26. ablation_whdia — the per-op account of #3 (kernel #18,
-               ``spgpu_tpu_torch.sweeps.whdia_ablation``) on banded-11
-               (524,288 rows, duplicates summed, pattern mode): levels
-               stream, r0, gather, full, each held against its plain version
-               (1e-5·max|part|; full within #3's tolerance and of the
-               production launch), timed warm and cold (the L2 flushed
-               before each call: 4x its size written, then 4x read), with
-               each op family's price, the bytes, #3's bound and cuSPARSE
-               CSR; counted on ``LAUNCHES_WHDIA_ABLATION`` from 0;
+26. ablation_whdia, ablation_whdia_hack, ablation_whdia_laplace,
+               ablation_whdia_hack_laplace — the per-op account of #3
+               (kernel #18, ``spgpu_tpu_torch.sweeps.whdia_ablation``) on
+               banded-11 (524,288 rows, duplicates summed, pattern mode)
+               and on the Laplacian (slab mode), in two level sets: the
+               tile levels stream, r0, gather, full of the fp32 tile pass
+               (the design #6 and #10 run), each held against its plain
+               version (1e-5·max|part|; full within #3's tolerance, and
+               of the production #3); and the hack levels launch, list,
+               stream, full of the production #3 (1 RHS) and of #13 (8
+               RHS), each against its plain version and full against the
+               production launch bit for bit; timed warm and cold (the L2
+               flushed before each call: 4x its size written, then 4x
+               read), with each op family's price, the bytes, #3's bound
+               and cuSPARSE CSR; each counted on
+               ``LAUNCHES_WHDIA_ABLATION`` from 0;
 27. ablation_dd, ablation_dd_flagship — the same for #4 in float64
                (kernel #19, ``sweeps.dd_ablation``) on the 512x512 float64
                Laplacian and on the flagship: levels stream, gather, own,
@@ -158,9 +172,9 @@ the float64 geometry sweep, and checks them:
                float64 and complex128; then #9 (complex64) and #13 (8
                RHS) on the Laplacian and banded-11, each op's and each
                kernel's device time, warm and cold, with the live and full
-               bounds, beside the 8-launch loop of #3 and cuSPARSE CSR
-               (complex64, and fp32 beside #3) and SpMM on the same
-               matrices; #7 on the flagship beside cuSPARSE CSR complex64;
+               bounds, beside #3, the 8-launch loop of #3, #6, #10 and
+               cuSPARSE CSR (complex64, and fp32 beside #3) and SpMM on
+               the same matrices; #7 on the flagship beside cuSPARSE CSR complex64;
                then #12 (flagship) and #16 (relabelled, classic) at 8 RHS
                in fp32 and bf16, op and kernels, warm and cold, with their
                bounds, beside cuSPARSE SpMM (``kernel_times``;
@@ -551,11 +565,12 @@ def sdia_phase(coo, device, label):
 
 def whdia_phase(coo, mode, device, label):
     """``dia_phase`` for WHDIA (kernel #3; #6 in float64, #9 in complex64,
-    #10 in complex128); atomics (#9: its list order) reorder the sums,
-    hence 1e-5 (1e-12 in float64 and complex128) against the plain
-    version.  ``mode`` is the r0 mode the layout must take.  #9 runs the
-    hack pass: it is also held to the listed plain product and to itself
-    (two launches, the same bits), and its bound is the live slots'
+    #10 in complex128); atomics (#6, #10) or the list order (#3, #9)
+    reorder the sums, hence 1e-5 (1e-12 in float64 and complex128)
+    against the plain version.  ``mode`` is the r0 mode the layout must take.  #3 and #9
+    read only the live slots: each is also held to the listed plain
+    product and to itself (two launches, the same bits), must write every
+    row of a NaN-filled buffer, and its bound is the live slots'
     (``whdia_bounds``), printed beside the full layout's."""
     import torch
 
@@ -586,16 +601,28 @@ def whdia_phase(coo, mode, device, label):
         1e-12 if wa.values.dtype in (torch.float64, torch.complex128) else 1e-5,
         label, device)
     if hack_pass:
-        x = torch.from_numpy(rand_vector(coo.n_cols, 7, np.complex64)).to(device)
+        x = torch.from_numpy(rand_vector(coo.n_cols, 7, np.dtype(coo.values.dtype))
+                             ).to(device)
+        # no zero fill: the block the kernel's z gets first held NaN
+        torch.cuda.empty_cache()
+        nan = torch.full((wa.num_groups * wa.group_hacks * 128,), float("nan"),
+                         dtype=x.dtype, device=device)
+        ptr = nan.data_ptr()
+        del nan
         z = kd.whdia_spmv(*args, x, **static, **lists)
+        torch.cuda.synchronize(device)
+        if z.data_ptr() != ptr or not bool(torch.isfinite(z).all()):
+            raise AssertionError(f"{label}: a row of the NaN-filled z was not "
+                                 f"written (same block: {z.data_ptr() == ptr})")
         if not torch.equal(z, kd.whdia_spmv(*args, x, **static, **lists)):
-            raise AssertionError(f"{label}: two launches of the hack pass differ")
+            raise AssertionError(f"{label}: two launches of the live-slot kernel "
+                                 "differ")
         listed = kd.whdia_spmm_listed_plain(
             wa.values, wa.slot_r0, wa.tile_r0, wa.tile_base, wa.hack_slot_ptr,
             wa.hack_slots, x[None], group_hacks=wa.group_hacks,
             num_groups=wa.num_groups)[0]
         out.update(
-            bit_identical=True, **b,
+            bit_identical=True, rows_written_over_nan=True, **b,
             max_abs_err_vs_listed=check_close(z, listed, 1e-5, 1e-5,
                                               f"{label}: kernel vs listed plain"),
             live_bound_share=b["live_bound_ms"] / out["kernel_device_ms"],
@@ -708,10 +735,10 @@ def dia_solves(lap, band, device, dtype, tol, true_tol):
     bb = torch.from_numpy(b_band).to(device)
     solves["bicgstab_whdia"].update(loop_timing(
         bicgstab, lambda v: whdia_spmv(wb, v), bb, tol))
-    if np.dtype(dtype) == np.complex64:
-        # #9 reads only live slots and sums in its list's order: its
-        # iteration counts stay within 10 % of the same solvers on the
-        # plain version (every cell, the JAX kernel's product)
+    if np.dtype(dtype) in (np.float32, np.complex64):
+        # #3 and #9 read only live slots and sum in their list's order:
+        # their iteration counts stay within 10 % of the same solvers on
+        # the plain version (every cell, the JAX kernel's product)
         for key, solver, lay, rhs in (("cg_auto_whdia", cg, wl, bl),
                                       ("bicgstab_whdia", bicgstab, wb, bb)):
             mv = lambda v, lay=lay: kd.whdia_spmv_plain(  # noqa: E731
@@ -1367,11 +1394,20 @@ def kernel_row(name, launches, phase):
                                      "live_warp_slot_share") if k in phase}}
 
 
-#: phases 26-28 (27 on two matrices): (phase, sweep module, its size,
-#: launch counter (kernel module, name), the result's rows, run()'s
-#: other arguments)
+#: phases 26-28 (26 on two matrices in two level sets, 27 on two
+#: matrices): (phase, sweep module, its size, launch counter (kernel
+#: module, name), the result's rows, run()'s other arguments)
 SWEEP_PHASES = (("ablation_whdia", "whdia_ablation", "band",
                  ("ablation", "LAUNCHES_WHDIA_ABLATION"), "levels", {}),
+                ("ablation_whdia_hack", "whdia_ablation", "band",
+                 ("ablation", "LAUNCHES_WHDIA_ABLATION"), "levels",
+                 {"family": "hack"}),
+                ("ablation_whdia_laplace", "whdia_ablation", "lap",
+                 ("ablation", "LAUNCHES_WHDIA_ABLATION"), "levels",
+                 {"matrix": "laplace"}),
+                ("ablation_whdia_hack_laplace", "whdia_ablation", "lap",
+                 ("ablation", "LAUNCHES_WHDIA_ABLATION"), "levels",
+                 {"matrix": "laplace", "family": "hack"}),
                 ("ablation_dd", "dd_ablation", "dd_lap",
                  ("ablation", "LAUNCHES_F64_ABLATION"), "levels", {}),
                 ("ablation_dd_flagship", "dd_ablation", "flagship",
@@ -1427,9 +1463,10 @@ def child_phases(flag: str, count: int):
 #: the profiler names of the kernels phase 29 times alone start so: #15
 #: (``classic_spmv_tile`` before its work list, ``classic_spmv_units``
 #: since), #17, and #3, #9 and #13 (``whdia_tile_pass`` and
-#: ``whdia_spmm_tile_pass`` before the hack pass, ``whdia_hack_pass`` since)
+#: ``whdia_spmm_tile_pass`` before the hack pass, ``whdia_hack_pass`` since;
+#: #3 ``whdia_spmv_warps`` since it reads only the live slots)
 TIMED_KERNELS = ("classic_spmv", "pcell_tile", "whdia_tile_pass",
-                 "whdia_spmm_tile_pass", "whdia_hack_pass")
+                 "whdia_spmm_tile_pass", "whdia_hack_pass", "whdia_spmv_warps")
 
 
 def kernel_times(device):
@@ -1602,8 +1639,8 @@ def whdia_kernel_times(device):
     """Phase 29's WHDIA rows: #9 (complex64, ``ops.whdia_spmv``) and #13
     (fp32, 8 RHS, ``ops.whdia_spmm(fused=True)``) on the Laplacian (slab
     mode) and banded-11 (pattern mode), with the default 8-launch loop of
-    #3 (``ops.whdia_spmm``) on the same fp32 layouts and the tile pass's
-    SpMVs #3, #6 (float64) and #10 (complex128): each op's device time
+    #3 (``ops.whdia_spmm``) on the same fp32 layouts, #3 itself and the
+    tile pass's SpMVs #6 (float64) and #10 (complex128): each op's device time
     (every device operation of one call, by name) and its WHDIA kernels'
     own (``TIMED_KERNELS``), warm and cold, with the live and full bounds
     and the kernel's share of each; beside them cuSPARSE CSR in complex64
@@ -1652,7 +1689,7 @@ def whdia_kernel_times(device):
                                        N_RHS)
         out[f"whdia_loop_{fix}"] = row(a, lambda: ops.whdia_spmm(a, xs), N_RHS)
         out[f"library_spmm_{fix}"] = library(c32, xs)
-        # the tile pass's SpMVs, #3, #6 and #10, beside them, and #3's
+        # #3 and the tile pass's SpMVs, #6 and #10, beside them, and #3's
         # library call (cuSPARSE CSR in fp32)
         x32 = xs[0].contiguous()
         out[f"whdia_f32_{fix}"] = row(a, lambda: ops.whdia_spmv(a, x32), 1)
@@ -1734,25 +1771,34 @@ def whell_kernel_times(device):
     return out
 
 
-def ablation_row(name, acc):
-    """An ablation kernel's row: its launches in its phase, the largest
-    error of any level against its plain version, the full level's
-    per-call times (kernel, plain), #3's or #4's bound on the fixture,
-    cuSPARSE CSR's per-call time, and every level's device times with
-    their sources (a price is None where a level's source and the one
-    before's differ)."""
+def ablation_row(name, accs):
+    """An ablation kernel's row from its phases' results ``accs``: the
+    sum of their launches, the largest error of any level against its
+    plain version, the first result's full level's per-call times
+    (kernel, plain), #3's or #4's bound on its fixture and cuSPARSE CSR's
+    per-call time, and every level's device times with their sources (a
+    price is None where a level's source and the one before's differ),
+    keyed by level, or with several results by matrix, level set, level
+    and RHS."""
     route, source, replaces = KERNELS[name]
+    acc = accs[0]
     full = acc["levels"][-1]
+
+    def key(a, r):
+        if len(accs) == 1:
+            return r["level"]
+        return (f"{a['matrix']} {a['family']} {r['level']}"
+                + (f" x{r['n_rhs']}" if "n_rhs" in r else ""))
     return {"name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": acc["counted_launches"],
-            "max_abs_err": acc["max_abs_err"], "ms": full["per_call_ms"],
-            "plain_ms": full["plain_per_call_ms"],
+            "replaces": replaces, "launches": sum(a["counted_launches"] for a in accs),
+            "max_abs_err": max(a["max_abs_err"] for a in accs),
+            "ms": full["per_call_ms"], "plain_ms": full["plain_per_call_ms"],
             "bound_ms": acc["bound"]["bound_ms"], "bound_by": acc["bound"]["bound_by"],
             "library_ms": acc["library"]["per_call_ms"],
-            "levels": {r["level"]: {k: r[k] for k in (
+            "levels": {key(a, r): {k: r[k] for k in (
                 "device_ms", "device_source", "cold_device_ms", "cold_source",
                 "per_call_ms", "price_ms", "price_cold_ms")}
-                for r in acc["levels"]}}
+                for a in accs for r in a["levels"]}}
 
 
 def close(kernels, smi, torch) -> None:
@@ -1964,7 +2010,7 @@ def main() -> int:
     emit("solve_pcell", fixture="flagship SPD form", **solve_p)
 
     # --- the per-op accounts (kernels #18, #19) and #4's geometries -------
-    acc18, acc19_lap, acc19, _ = child_phases("--sweeps", len(SWEEP_PHASES))
+    *acc18, acc19_lap, acc19, _ = child_phases("--sweeps", len(SWEEP_PHASES))
     acc19 = dict(acc19, counted_launches=acc19["counted_launches"]
                  + acc19_lap["counted_launches"])
 
@@ -2017,7 +2063,7 @@ def main() -> int:
         spmm_row("whell_classic_spmm", classic_spmm.values(), classic_spmm["fp32"]),
         kernel_row("pcell_spmv", solve_p["launches"], pcell),
         ablation_row("whdia_ablation", acc18),
-        ablation_row("whell_packed_ablation_f64", acc19)]
+        ablation_row("whell_packed_ablation_f64", [acc19])]
     close(rows, smi, torch)
     return 0
 

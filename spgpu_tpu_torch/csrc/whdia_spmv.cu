@@ -3,7 +3,8 @@
 //
 // Replaces spgpu_tpu/ops/pallas_kernels.py::_whdia_kernel (kernel #3; body
 // _whdia_kernel_body, r0 unpacking _whdia_tile_r0; called through
-// _whdia_spmv_call and whdia_spmv_pallas; entry whdia_spmv, fp32) and
+// _whdia_spmv_call and whdia_spmv_pallas; entry whdia_spmv, fp32, both r0
+// modes: the warp pass below) and
 // _whdia_dd_kernel (_whdia_dd_call, whdia_spmv_dd_pallas; entry
 // whdia_spmv_f64, float64 where the TPU kernel emulates it with
 // double-float pairs and slab-mode r0 only), _whdia_cplx_kernel
@@ -27,67 +28,100 @@
 // dead slots and diagonal ends hold 0, so the direct guarded read gives
 // the same product for finite x.
 //
-// Bound on the H100: the value slab streams once, 4 B per cell (+2 B per
-// slot of r0 in slab mode), and the chunk padding tiles stream too.  On
-// the 1,048,576-row 2-D Laplacian the layout is 16,384 tiles, 64 MiB of
-// values (3.2 cells per nonzero), about 20 us at 3.35 TB/s; x (4 MiB) and
-// z (4 MiB) stay in the 50 MB L2.  float64 doubles the value bytes and the
-// vectors: about 128 MiB of slab and 16 MiB of x and z on the Laplacian,
-// ~45 us.  complex64 moves 8 B per cell (an interleaved re/im float2) on
-// the fp32 geometry, over the full layout: 151.3 MB on the Laplacian
-// (16,384 tiles), 45.2 us, and 75.6 MB on banded-11, 22.6 us; complex128
-// 16 B per cell on the float64 geometry: 167.9 MB on the Laplacian (8,192
-// tiles), 50.1 us, and 147.4 MB on banded-11, 44.0 us (chip_smoke.py's
-// counts).
+// Bound on the H100: the value slab streams once, and x and z once; on
+// the 2-D Laplacian (1,048,576 rows) the full fp32 layout is 16,384 tiles,
+// 64 MiB of values (3.2 cells per nonzero, 31 % of the slots live), and
+// its bound 22.6 us at 3.35 TB/s.  float64 doubles the value bytes and
+// the vectors: about 128 MiB of slab and 16 MiB of x and z, ~45 us
+// (25.1 us on the float64 layout's 8,192 tiles).  complex64 moves 8 B per
+// cell (an interleaved re/im float2) on the fp32 geometry: 151.3 MB over
+// the full layout on the Laplacian, 45.2 us, and 75.6 MB on banded-11,
+// 22.6 us; complex128 16 B per cell on the float64 geometry: 167.9 MB on
+// the Laplacian (8,192 tiles), 50.1 us, and 147.4 MB on banded-11, 44.0 us
+// (chip_smoke.py's counts).  A kernel that reads only the live slots is
+// bound by their bytes (their values, r0 or tile words and tile bases,
+// the slot list, x and z): 29.7 MB and 8.9 us for #3 on the Laplacian,
+// 26.3 MB and 7.9 us on banded-11 (chip_smoke.py's whdia_bounds).
 //
-// What the design does about it, for #3, #6 and #10: kernel #1's tile
-// pass, without pages.  One 128-thread block per tile; thread j reads its
-// lane of the 8 slots (coalesced), gathers x at the slot's contiguous
-// shifted run (coalesced, from L2), sums in a register and issues one
-// atomicAdd into the zeroed row hack*128 + j (atomicAdd(double) is native
-// on Hopper).  WHDIA has no lane segments, so there is no flush pass.
-// Atomic order varies, so results are not bit-reproducible.  Complex: one
-// double2 load per cell and per x entry, four FMAs per cell (re += vr*xr;
-// re -= vi*xi; im += vr*xi; im += vi*xr) into re and im sums, and two
-// atomicAdds, one on each component of the row's output.
+// #6 and #10 run kernel #1's tile pass, without pages.  One 128-thread
+// block per tile; thread j reads its lane of the 8 slots (coalesced),
+// gathers x at the slot's contiguous shifted run (coalesced, from L2),
+// sums in a register and issues one atomicAdd into the zeroed row
+// hack*128 + j (atomicAdd(double) is native on Hopper).  WHDIA has no
+// lane segments, so there is no flush pass.  Atomic order varies, so
+// results are not bit-reproducible.  Complex: one double2 load per cell
+// and per x entry, four FMAs per cell (re += vr*xr; re -= vi*xi; im +=
+// vr*xi; im += vi*xr) into re and im sums, and two atomicAdds, one on each
+// component of the row's output.
 //
-// #9 (complex64) and the SpMM (entry whdia_spmm, kernel #13, which
+// #3, #9 (complex64) and the SpMM (entry whdia_spmm, kernel #13, which
 // replaces _whdia_spmm_kernel, called through _whdia_spmm_call and
-// whdia_spmm_pallas; fp32, both r0 modes, Z[r] = A x[r] for any n_rhs) run
-// the hack pass instead.  The tile pass reads every slot, and on the
-// Laplacian only 31 % of the slots hold a nonzero (two tiles per hack, 4
-// and 1 of their 8 slots live; banded-11 67 %): the full slab's bound,
-// 45.2 us for #9, is already above cuSPARSE CSR's time, and #13's dead
-// slots cost 8 RHS x 512 B of x reads each.  The tile pass also pays two
-// atomics per output element (two tiles per hack) into a zero-filled z.
-// WHDIA has no lane routing: lane j of a hack feeds only row hack*128 + j.
-// So one block per hack, one warp per 32-lane quarter, walks the hack's
-// live slots from the layout's list (hack_slot_ptr, hack_slots): it reads
-// the live slots' values, their r0 and tile words and x once per RHS, sums
-// in registers (kSpmmRhs = 8 floats per RHS block, a runtime remainder
-// for any n_rhs, or one float2), and stores each row once with a plain
-// store: no atomics, no zero fill, and the same bits from run to run.
-// Columns are int32 (the converter bounds them at 65,536 pages x 128).
-// Live bounds (chip_smoke.py's counts): #9 about 59 MB on the Laplacian,
-// 17.6 us; #13 for 8 RHS about 88 MB (Laplacian) and 56 MB (banded-11).
-// A deviation: a dead slot is not read, so an Inf or NaN in x at a column
-// that only all-zero slots reference no longer gives NaN (the JAX kernel
-// and the plain versions multiply every cell; for finite x they agree).
+// whdia_spmm_pallas; fp32, both r0 modes, Z[r] = A x[r] for any n_rhs)
+// read only the live slots instead.  The tile pass reads every slot, and
+// on the Laplacian only 31 % of the slots hold a nonzero (two tiles per
+// hack, 4 and 1 of their 8 slots live; banded-11 67 %): the full slab's
+// bound, 45.2 us for #9, is already above cuSPARSE CSR's time, and #13's
+// dead slots cost 8 RHS x 512 B of x reads each.  The tile pass also pays
+// two atomics per output element (two tiles per hack) into a zero-filled
+// z.  WHDIA has no lane routing: lane j of a hack feeds only row
+// hack*128 + j.  So each hack is summed over its live slots, from the
+// layout's list (hack_slot_ptr, hack_slots), in list order, in registers,
+// and each row is stored once with a plain store: no atomics, no zero
+// fill, and the same bits from run to run.  Columns are int32 (the
+// converter bounds them at 65,536 pages x 128).
 //
-// Ablation (entry whdia_ablation, kernel #18) replaces the `call` closure of
-// doc/sweeps/whdia_ablation.py (its pallas_call body adds one op family of
-// _whdia_kernel at a time, at the production geometry): the per-op account
-// of #3 in fp32.  The levels are the production tile body (whdia_tile, which
-// whdia_tile_pass instantiates at kFull) cut after one family: stream (the
-// value slab, 4 B/cell), r0 (+ the r0 decode and the column), gather (+ the
-// guarded x read: the production tile sum) and full (+ one atomicAdd per
-// lane: the production launch).  Below full each lane's sum is stored to a
-// (num_tiles, 128) part array, 512 B per tile, the same in every level, so
-// the differences between levels price one family each; a level's sum
-// depends on every value it loads, so nvcc drops none.  The TPU's sublane
-// and lane gathers are one cached global load here, and its dual-plane
-// accumulate and flush one atomic: those TPU levels have no separate
-// counterpart.  Bound: that of #3 on the same layout.
+// The hack pass (#9, #13): one block per hack, one warp per 32-lane
+// quarter.  Each warp reads the live slots' values, their r0 and tile
+// words and x once per RHS, and sums in registers (kSpmmRhs = 8 floats
+// per RHS block, a runtime remainder for any n_rhs, or one float2).  Live
+// bounds: #9 about 59 MB on the Laplacian, 17.6 us; #13 for 8 RHS about
+// 88 MB (Laplacian) and 56 MB (banded-11).
+//
+// The warp pass (#3): in fp32 a warp moves only 128 B per slot and a
+// Laplacian hack holds 5 live slots (2.5 KB of values), so a block per
+// hack spends its time on the chain of dependent loads that precedes the
+// first value (hack_slot_ptr, then hack_slots, then tile_base and r0) and
+// on its own start, and 8,192 such blocks run in four waves.  One warp
+// per hack instead, kWarpHacks = 4 hacks per 128-thread block: thread t
+// owns lanes 4t..4t+3 (one 16-byte value load per slot, one 16-byte
+// store), loads kWarpBatch = 2 slots' values and guarded x entries before
+// their FMAs, and fits 32 registers, so 16 blocks, the whole Laplacian's
+// 2,048, are resident at once and every warp's chain overlaps the others'
+// streams.  The shape was chosen among 22 timed on the H100 (batches of 1
+// to 8 slots, 2 to 8 warps a block, 4 to 16 blocks an SM, strided lanes,
+// and a derived per-slot column word, which cuts one link of the chain
+// and gained little; PERF.md §6).
+//
+// A deviation of the live-slot kernels: a dead slot is not read, so an
+// Inf or NaN in x at a column that only all-zero slots reference no
+// longer gives NaN (the JAX kernel and the plain versions multiply every
+// cell; for finite x they agree).
+//
+// Ablation (entries whdia_ablation and whdia_hack_ablation, kernel #18)
+// replaces the `call` closure of doc/sweeps/whdia_ablation.py (its
+// pallas_call body adds one op family of _whdia_kernel at a time, at the
+// production geometry): the per-op account of #3 in fp32.  Two sets of
+// levels, each a production body cut after one op family:
+//  - the tile levels (whdia_tile, which whdia_tile_pass instantiates at
+//    kFull: the design #6 and #10 run): stream (the value slab, 4
+//    B/cell), r0 (+ the r0 decode and the column), gather (+ the guarded x
+//    read: the tile sum) and full (+ one atomicAdd per lane: the fp32 tile
+//    pass).  Below full each lane's sum is stored to a (num_tiles, 128)
+//    part array, 512 B per tile, the same in every level, so the
+//    differences between levels price one family each.  The TPU's
+//    sublane and lane gathers are one cached global load here, and its
+//    dual-plane accumulate and flush one atomic: those TPU levels have no
+//    separate counterpart.
+//  - the hack levels, of #3's warp pass (warp_hack; whdia_spmv_warps is
+//    its kHackFull) and, at 8 RHS, of #13's hack pass (hack_body;
+//    whdia_hack_pass is its kHackFull): launch (each hack's list bounds,
+//    its live-slot count stored in each row), list (+ the list entries,
+//    their tile words and r0 and the column: each cell adds its key
+//    (column + slot) & 127), stream (+ the live values: v * key) and full
+//    (+ the guarded x gathers: the production launch).  Every level
+//    stores each row once, as the production kernels do.
+// A level's sum depends on every value it loads, so nvcc drops none.
+// Bound: that of #3 on the same layout.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,6 +140,12 @@ constexpr int kSpmvBatch = 3;
 constexpr int kSpmmBatch = 4;
 constexpr int kSpmvBlocksPerSm = 16;
 constexpr int kSpmmBlocksPerSm = 8;
+// The warp pass's shape (#3): hacks (warps) per block, the slots whose
+// loads a warp issues before their FMAs, and the resident blocks per SM
+// (16: 32 registers a thread, every warp slot of the SM filled).
+constexpr int kWarpHacks = 4;
+constexpr int kWarpBatch = 2;
+constexpr int kWarpBlocksPerSm = 16;
 
 // sum + v*x: one FMA for a real type; four for a complex one, in the order
 // re += vr*xr; re -= vi*xi; im += vr*xi; im += vi*xr
@@ -160,11 +200,19 @@ __device__ __forceinline__ int slot_r0_of(const int16_t* __restrict__ slot_r0,
 }
 
 // The op families of the tile pass, added one at a time (kernel #18's
-// levels): kStream reads the values only, kR0 adds the r0 decode and the
-// column, kGather the guarded x read (the production tile sum), kFull the
+// tile levels): kStream reads the values only, kR0 adds the r0 decode and
+// the column, kGather the guarded x read (the tile sum), kFull the
 // atomicAdd into the hack row.  Below kFull the lane's sum goes to z[t, j]
 // with a plain store (z is then the (num_tiles, 128) part array).
 enum Level : int { kStream = 0, kR0 = 1, kGather = 2, kFull = 3 };
+
+// The op families of the live-slot passes, added one at a time (kernel
+// #18's hack levels): kLaunch reads the hack's list bounds and stores its
+// live-slot count in each row, kList adds the list entries, their tile
+// words and r0 and the column (each cell adds its key (column + slot) &
+// 127), kValues the live values (v * key), kHackFull the guarded x
+// gathers (the product).  Every level stores each row once.
+enum HackLevel : int { kLaunch = 0, kList = 1, kValues = 2, kHackFull = 3 };
 
 template <typename T, bool kPattern, int kLevel>
 __device__ __forceinline__ void whdia_tile(const T* __restrict__ values,
@@ -219,8 +267,8 @@ whdia_tile_pass(const T* __restrict__ values,
                                  x, z, n_cols, chunk_tiles, group_hacks);
 }
 
-// kernel #18's levels below kFull, fp32: the production tile pass cut
-// after one op family, its lane sums stored to part (num_tiles, 128)
+// kernel #18's tile levels below kFull, fp32: the tile pass cut after one
+// op family, its lane sums stored to part (num_tiles, 128)
 template <bool kPattern, int kLevel>
 __global__ void __launch_bounds__(kLanes)
 whdia_ablation_pass(const float* __restrict__ values,
@@ -236,25 +284,25 @@ whdia_ablation_pass(const float* __restrict__ values,
 }
 
 // The hack pass (kernel #9, complex64 SpMV, kRhs = 1; kernel #13, fp32
-// SpMM, kRhs = 8): one block of 128 threads per hack, four warps, one per
-// 32-lane quarter, with no block barrier.  Each warp walks the hack's live
-// slots (hack_slots[hack_slot_ptr[hack] .. hack_slot_ptr[hack + 1]]) in
-// list order, warp-uniformly: lane k of the warp decodes list entry k of
-// each run of 32 (its slot id and first column base*128 + r0), and the
-// warp takes them in turn by shuffles.  For a batch of kBatch slots it
-// loads the lane's cells and the guarded x entries of every RHS of the
-// block before the FMAs; sums stay in registers, and each (RHS, lane)
-// gets one plain store of its row, zeros for a hack with no live slot.
-template <typename T, bool kPattern, int kRhs>
-__global__ void __launch_bounds__(kLanes, kRhs == 1 ? kSpmvBlocksPerSm : kSpmmBlocksPerSm)
-whdia_hack_pass(const T* __restrict__ values,
-                const int16_t* __restrict__ slot_r0,
-                const int32_t* __restrict__ tile_r0,
-                const int32_t* __restrict__ tile_base,
-                const int32_t* __restrict__ hack_slot_ptr,
-                const int32_t* __restrict__ hack_slots,
-                const T* __restrict__ x, T* __restrict__ z,
-                int n_cols, int64_t z_rows, int n_rhs) {
+// SpMM, kRhs = 8) at kHackFull, and #18's 8-RHS hack levels below it: one
+// block of 128 threads per hack, four warps, one per 32-lane quarter,
+// with no block barrier.  Each warp walks the hack's live slots
+// (hack_slots[hack_slot_ptr[hack] .. hack_slot_ptr[hack + 1]]) in list
+// order, warp-uniformly: lane k of the warp decodes list entry k of each
+// run of 32 (its slot id and first column base*128 + r0), and the warp
+// takes them in turn by shuffles.  For a batch of kBatch slots it loads
+// the lane's cells and the guarded x entries of every RHS of the block
+// before the FMAs; sums stay in registers, and each (RHS, lane) gets one
+// plain store of its row, zeros for a hack with no live slot.
+template <typename T, bool kPattern, int kRhs, int kLevel>
+__device__ __forceinline__ void hack_body(const T* __restrict__ values,
+                                          const int16_t* __restrict__ slot_r0,
+                                          const int32_t* __restrict__ tile_r0,
+                                          const int32_t* __restrict__ tile_base,
+                                          const int32_t* __restrict__ hack_slot_ptr,
+                                          const int32_t* __restrict__ hack_slots,
+                                          const T* __restrict__ x, T* __restrict__ z,
+                                          int n_cols, int64_t z_rows, int n_rhs) {
   constexpr int kBatch = kRhs == 1 ? kSpmvBatch : kSpmmBatch;
   const int64_t hack = blockIdx.x;
   const int j = threadIdx.x;
@@ -267,7 +315,11 @@ whdia_hack_pass(const T* __restrict__ values,
     T sum[kRhs];
 #pragma unroll
     for (int q = 0; q < kRhs; ++q) sum[q] = T{};
-    for (int p = begin; p < end; p += 32) {
+    if constexpr (kLevel == kLaunch) {
+#pragma unroll
+      for (int q = 0; q < kRhs; ++q) sum[q] = T(end - begin);
+    }
+    for (int p = begin; kLevel != kLaunch && p < end; p += 32) {
       const int n = min(32, end - p);
       int sid = 0, col0 = 0;
       if (lane < n) {
@@ -284,11 +336,19 @@ whdia_hack_pass(const T* __restrict__ values,
           const int s = __shfl_sync(0xFFFFFFFFu, sid, (k + b) & 31);
           const int c = __shfl_sync(0xFFFFFFFFu, col0, (k + b) & 31) + j;
           const bool live = k + b < n;
-          const bool in = live && static_cast<unsigned>(c) < static_cast<unsigned>(n_cols);
-          v[b] = live ? __ldg(values + static_cast<int64_t>(s) * kLanes + j) : T{};
+          if constexpr (kLevel == kHackFull) {
+            const bool in = live && static_cast<unsigned>(c) < static_cast<unsigned>(n_cols);
+            v[b] = live ? __ldg(values + static_cast<int64_t>(s) * kLanes + j) : T{};
 #pragma unroll
-          for (int q = 0; q < kRhs; ++q)
-            xv[b][q] = in && q < w ? __ldg(xr + static_cast<int64_t>(q) * n_cols + c) : T{};
+            for (int q = 0; q < kRhs; ++q)
+              xv[b][q] = in && q < w ? __ldg(xr + static_cast<int64_t>(q) * n_cols + c) : T{};
+          } else {  // the cell's key stands in for x
+            v[b] = kLevel == kList ? T(1)
+                   : live          ? __ldg(values + static_cast<int64_t>(s) * kLanes + j)
+                                   : T{};
+#pragma unroll
+            for (int q = 0; q < kRhs; ++q) xv[b][q] = T((c + s) & (kLanes - 1));
+          }
         }
 #pragma unroll
         for (int b = 0; b < kBatch; ++b) {
@@ -304,6 +364,137 @@ whdia_hack_pass(const T* __restrict__ values,
     for (int q = 0; q < kRhs; ++q)
       if (q < w) out[q * z_rows] = sum[q];
   }
+}
+
+template <typename T, bool kPattern, int kRhs>
+__global__ void __launch_bounds__(kLanes, kRhs == 1 ? kSpmvBlocksPerSm : kSpmmBlocksPerSm)
+whdia_hack_pass(const T* __restrict__ values,
+                const int16_t* __restrict__ slot_r0,
+                const int32_t* __restrict__ tile_r0,
+                const int32_t* __restrict__ tile_base,
+                const int32_t* __restrict__ hack_slot_ptr,
+                const int32_t* __restrict__ hack_slots,
+                const T* __restrict__ x, T* __restrict__ z,
+                int n_cols, int64_t z_rows, int n_rhs) {
+  hack_body<T, kPattern, kRhs, kHackFull>(values, slot_r0, tile_r0, tile_base,
+                                          hack_slot_ptr, hack_slots, x, z, n_cols,
+                                          z_rows, n_rhs);
+}
+
+// kernel #18's hack levels below kHackFull at 8 RHS: #13's hack pass cut
+// after one op family
+template <bool kPattern, int kLevel>
+__global__ void __launch_bounds__(kLanes, kSpmmBlocksPerSm)
+whdia_hack_ablation(const float* __restrict__ values,
+                    const int16_t* __restrict__ slot_r0,
+                    const int32_t* __restrict__ tile_r0,
+                    const int32_t* __restrict__ tile_base,
+                    const int32_t* __restrict__ hack_slot_ptr,
+                    const int32_t* __restrict__ hack_slots,
+                    const float* __restrict__ x, float* __restrict__ z,
+                    int n_cols, int64_t z_rows, int n_rhs) {
+  hack_body<float, kPattern, kSpmmRhs, kLevel>(values, slot_r0, tile_r0, tile_base,
+                                               hack_slot_ptr, hack_slots, x, z, n_cols,
+                                               z_rows, n_rhs);
+}
+
+// The warp pass (kernel #3, fp32 SpMV) at kHackFull, and #18's 1-RHS hack
+// levels below it: warp w of block b sums hack b*kWarpHacks + w over its
+// live slots in list order, warp-uniformly, as the hack pass does (lane k
+// decodes list entry k of each run of 32, the warp takes them in turn by
+// shuffles), with thread t owning lanes 4t..4t+3: per slot one float4 of
+// values and four guarded x reads, kWarpBatch slots loaded before their
+// FMAs, four register sums, one float4 store (zeros for a hack with no
+// live slot).
+template <bool kPattern, int kLevel>
+__device__ __forceinline__ void warp_hack(const float* __restrict__ values,
+                                          const int16_t* __restrict__ slot_r0,
+                                          const int32_t* __restrict__ tile_r0,
+                                          const int32_t* __restrict__ tile_base,
+                                          const int32_t* __restrict__ hack_slot_ptr,
+                                          const int32_t* __restrict__ hack_slots,
+                                          const float* __restrict__ x, float* __restrict__ z,
+                                          int n_cols, int num_hacks) {
+  const int lane = threadIdx.x & 31;
+  const int hack = blockIdx.x * kWarpHacks + (threadIdx.x >> 5);
+  if (hack >= num_hacks) return;  // warp-uniform
+  const int begin = __ldg(hack_slot_ptr + hack);
+  const int end = __ldg(hack_slot_ptr + hack + 1);
+  const float init = kLevel == kLaunch ? static_cast<float>(end - begin) : 0.f;
+  float acc[4] = {init, init, init, init};
+  for (int p = begin; kLevel != kLaunch && p < end; p += 32) {
+    const int n = min(32, end - p);
+    int sid = 0, col0 = 0;
+    if (lane < n) {
+      sid = __ldg(hack_slots + p + lane);
+      const int t = sid >> 3;
+      col0 = (__ldg(tile_base + t) & 0xFFFF) * kLanes +
+             slot_r0_of<kPattern>(slot_r0, tile_r0, t, sid & (kSlots - 1));
+    }
+    for (int k = 0; k < n; k += kWarpBatch) {
+      float v[kWarpBatch][4], xv[kWarpBatch][4];
+#pragma unroll
+      for (int b = 0; b < kWarpBatch; ++b) {
+        const int s = __shfl_sync(0xFFFFFFFFu, sid, (k + b) & 31);
+        const int c = __shfl_sync(0xFFFFFFFFu, col0, (k + b) & 31) + 4 * lane;
+        const bool live = k + b < n;
+        float4 q = make_float4(1.f, 1.f, 1.f, 1.f);  // kList: no values
+        if constexpr (kLevel != kList)
+          q = live ? __ldg(reinterpret_cast<const float4*>(
+                         values + static_cast<int64_t>(s) * kLanes) + lane)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+        v[b][0] = q.x;
+        v[b][1] = q.y;
+        v[b][2] = q.z;
+        v[b][3] = q.w;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (kLevel == kHackFull)
+            xv[b][i] = live && static_cast<unsigned>(c + i) < static_cast<unsigned>(n_cols)
+                           ? __ldg(x + c + i) : 0.f;
+          else  // the cell's key stands in for x
+            xv[b][i] = static_cast<float>((c + i + s) & (kLanes - 1));
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kWarpBatch; ++b)
+        if (k + b < n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i] = fmaf(v[b][i], xv[b][i], acc[i]);
+    }
+  }
+  reinterpret_cast<float4*>(z + static_cast<int64_t>(hack) * kLanes)[lane] =
+      make_float4(acc[0], acc[1], acc[2], acc[3]);
+}
+
+template <bool kPattern>
+__global__ void __launch_bounds__(kWarpHacks * 32, kWarpBlocksPerSm)
+whdia_spmv_warps(const float* __restrict__ values,
+                 const int16_t* __restrict__ slot_r0,
+                 const int32_t* __restrict__ tile_r0,
+                 const int32_t* __restrict__ tile_base,
+                 const int32_t* __restrict__ hack_slot_ptr,
+                 const int32_t* __restrict__ hack_slots,
+                 const float* __restrict__ x, float* __restrict__ z,
+                 int n_cols, int num_hacks) {
+  warp_hack<kPattern, kHackFull>(values, slot_r0, tile_r0, tile_base, hack_slot_ptr,
+                                 hack_slots, x, z, n_cols, num_hacks);
+}
+
+// kernel #18's hack levels below kHackFull at 1 RHS: #3's warp pass cut
+// after one op family
+template <bool kPattern, int kLevel>
+__global__ void __launch_bounds__(kWarpHacks * 32, kWarpBlocksPerSm)
+whdia_warps_ablation(const float* __restrict__ values,
+                     const int16_t* __restrict__ slot_r0,
+                     const int32_t* __restrict__ tile_r0,
+                     const int32_t* __restrict__ tile_base,
+                     const int32_t* __restrict__ hack_slot_ptr,
+                     const int32_t* __restrict__ hack_slots,
+                     const float* __restrict__ x, float* __restrict__ z,
+                     int n_cols, int num_hacks) {
+  warp_hack<kPattern, kLevel>(values, slot_r0, tile_r0, tile_base, hack_slot_ptr,
+                              hack_slots, x, z, n_cols, num_hacks);
 }
 
 template <typename T>
@@ -345,7 +536,8 @@ void launch_ablation(const float* v, const int16_t* sr, const int32_t* tr,
         v, sr, tr, tb, cg, x, part, n_cols, chunk_tiles, group_hacks);
 }
 
-template <typename T, int kRhs>
+// the hack pass (#9, #13) at kHackFull; #18's 8-RHS hack levels below
+template <typename T, int kRhs, int kLevel = kHackFull>
 int launch_hacks(const void* values, const void* slot_r0, const void* tile_r0,
                  const void* tile_base, const void* hack_slot_ptr,
                  const void* hack_slots, const void* x, void* z,
@@ -365,12 +557,57 @@ int launch_hacks(const void* values, const void* slot_r0, const void* tile_r0,
     auto* xt = static_cast<const T*>(x);
     auto* zt = static_cast<T*>(z);
     const int nc = static_cast<int>(n_cols);
-    if (tr != nullptr)
-      whdia_hack_pass<T, true, kRhs><<<grid, kLanes, 0, st>>>(
+    if constexpr (kLevel == kHackFull) {
+      if (tr != nullptr)
+        whdia_hack_pass<T, true, kRhs><<<grid, kLanes, 0, st>>>(
+            v, sr, tr, tb, hp, hs, xt, zt, nc, z_rows, n_rhs);
+      else
+        whdia_hack_pass<T, false, kRhs><<<grid, kLanes, 0, st>>>(
+            v, sr, tr, tb, hp, hs, xt, zt, nc, z_rows, n_rhs);
+    } else if (tr != nullptr) {
+      whdia_hack_ablation<true, kLevel><<<grid, kLanes, 0, st>>>(
           v, sr, tr, tb, hp, hs, xt, zt, nc, z_rows, n_rhs);
-    else
-      whdia_hack_pass<T, false, kRhs><<<grid, kLanes, 0, st>>>(
+    } else {
+      whdia_hack_ablation<false, kLevel><<<grid, kLanes, 0, st>>>(
           v, sr, tr, tb, hp, hs, xt, zt, nc, z_rows, n_rhs);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the warp pass (#3) at kHackFull; #18's 1-RHS hack levels below
+template <int kLevel>
+int launch_warps(const void* values, const void* slot_r0, const void* tile_r0,
+                 const void* tile_base, const void* hack_slot_ptr,
+                 const void* hack_slots, const void* x, void* z,
+                 int64_t num_hacks, int64_t n_cols, void* stream) {
+  if (n_cols > INT32_MAX || num_hacks > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (num_hacks > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const dim3 grid(static_cast<unsigned>((num_hacks + kWarpHacks - 1) / kWarpHacks));
+    auto* v = static_cast<const float*>(values);
+    auto* sr = static_cast<const int16_t*>(slot_r0);
+    auto* tr = static_cast<const int32_t*>(tile_r0);
+    auto* tb = static_cast<const int32_t*>(tile_base);
+    auto* hp = static_cast<const int32_t*>(hack_slot_ptr);
+    auto* hs = static_cast<const int32_t*>(hack_slots);
+    auto* xt = static_cast<const float*>(x);
+    auto* zt = static_cast<float*>(z);
+    const int nc = static_cast<int>(n_cols), nh = static_cast<int>(num_hacks);
+    constexpr int kThreads = kWarpHacks * 32;
+    if constexpr (kLevel == kHackFull) {
+      if (tr != nullptr)
+        whdia_spmv_warps<true><<<grid, kThreads, 0, st>>>(v, sr, tr, tb, hp, hs, xt, zt, nc, nh);
+      else
+        whdia_spmv_warps<false><<<grid, kThreads, 0, st>>>(v, sr, tr, tb, hp, hs, xt, zt, nc, nh);
+    } else if (tr != nullptr) {
+      whdia_warps_ablation<true, kLevel><<<grid, kThreads, 0, st>>>(
+          v, sr, tr, tb, hp, hs, xt, zt, nc, nh);
+    } else {
+      whdia_warps_ablation<false, kLevel><<<grid, kThreads, 0, st>>>(
+          v, sr, tr, tb, hp, hs, xt, zt, nc, nh);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -379,9 +616,10 @@ int launch_hacks(const void* values, const void* slot_r0, const void* tile_r0,
 
 extern "C" {
 
-// Kernel #18, fp32, either r0 mode: level 0 (stream), 1 (r0) or 2
-// (gather) writes every lane sum of the cut tile pass to out (num_tiles x
-// 128); level 3 (full) is whdia_spmv, out then the zeroed z.  Launches on
+// Kernel #18's tile levels, fp32, either r0 mode: level 0 (stream), 1
+// (r0) or 2 (gather) writes every lane sum of the cut tile pass to out
+// (num_tiles x 128); level 3 (full) is the fp32 tile pass (the design of
+// whdia_spmv_f64 and whdia_spmv_c128), out then the zeroed z.  Launches on
 // `stream`, does not synchronise, and returns cudaGetLastError()
 // (cudaErrorInvalidValue for another level).
 int whdia_ablation(int level, const void* values, const void* slot_r0,
@@ -407,11 +645,42 @@ int whdia_ablation(int level, const void* values, const void* slot_r0,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Kernel #18's hack levels, fp32, either r0 mode, over the live-slot list
+// as whdia_spmv: level 0 (launch), 1 (list), 2 (stream) or 3 (full) of
+// #3's warp pass (spmm 0; x (n_cols), out (num_hacks*128)) or of #13's
+// hack pass (spmm 1; x (n_rhs x n_cols), out (n_rhs x z_rows)); level 3
+// is the production launch (whdia_spmv, whdia_spmm).  Every row of out is
+// written.  Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() (cudaErrorInvalidValue for another level).
+int whdia_hack_ablation(int level, int spmm, const void* values,
+                        const void* slot_r0, const void* tile_r0,
+                        const void* tile_base, const void* hack_slot_ptr,
+                        const void* hack_slots, const void* x, void* out,
+                        int64_t num_hacks, int64_t n_cols, int64_t z_rows,
+                        int n_rhs, void* stream) {
+  if (level < kLaunch || level > kHackFull)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (spmm) {
+    auto* fn = level == kLaunch  ? launch_hacks<float, kSpmmRhs, kLaunch>
+               : level == kList  ? launch_hacks<float, kSpmmRhs, kList>
+               : level == kValues ? launch_hacks<float, kSpmmRhs, kValues>
+                                  : launch_hacks<float, kSpmmRhs, kHackFull>;
+    return fn(values, slot_r0, tile_r0, tile_base, hack_slot_ptr, hack_slots, x, out,
+              num_hacks, n_cols, z_rows, n_rhs, stream);
+  }
+  auto* fn = level == kLaunch  ? launch_warps<kLaunch>
+             : level == kList  ? launch_warps<kList>
+             : level == kValues ? launch_warps<kValues>
+                                : launch_warps<kHackFull>;
+  return fn(values, slot_r0, tile_r0, tile_base, hack_slot_ptr, hack_slots, x, out,
+            num_hacks, n_cols, stream);
+}
+
 // z (num_groups*group_hacks*128, zeroed by the caller) += WHDIA product of
-// the slab and x (n_cols).  Exactly one of slot_r0 (slab mode) and tile_r0
-// (pattern mode) is non-null.  Launches on `stream`, does not synchronise,
-// and returns cudaGetLastError().  whdia_spmv takes fp32 values, x and z,
-// whdia_spmv_f64 float64 ones and whdia_spmv_c128 complex128 ones
+// the slab and x (n_cols), on the tile pass.  Exactly one of slot_r0 (slab
+// mode) and tile_r0 (pattern mode) is non-null.  Launches on `stream`,
+// does not synchronise, and returns cudaGetLastError().  whdia_spmv_f64
+// takes float64 values, x and z and whdia_spmv_c128 complex128 ones
 // (interleaved re/im).
 #define WHDIA_ENTRY(NAME, T)                                                  \
   int NAME(const void* values, const void* slot_r0, const void* tile_r0,     \
@@ -422,18 +691,31 @@ int whdia_ablation(int level, const void* values, const void* slot_r0,
                      num_tiles, n_cols, chunk_tiles, group_hacks, stream);   \
   }
 
-WHDIA_ENTRY(whdia_spmv, float)
 WHDIA_ENTRY(whdia_spmv_f64, double)
 WHDIA_ENTRY(whdia_spmv_c128, double2)
 
 #undef WHDIA_ENTRY
 
-// Kernel #9: z (num_hacks*128; every row written, no zero fill needed) =
-// the WHDIA product of the complex64 slab (interleaved re/im) and x
-// (n_cols), over the live slots of each hack (hack_slot_ptr, num_hacks + 1,
-// and hack_slots, int32, as WhdiaMatrix.hack_slot_list builds them); r0 as
-// in whdia_spmv.  Launches on `stream`, does not synchronise, and returns
+// Kernel #3: z (num_hacks*128; every row written, no zero fill needed) =
+// the WHDIA product of the fp32 slab (16 B aligned) and x (n_cols), over
+// the live slots of each hack (hack_slot_ptr, num_hacks + 1, and
+// hack_slots, int32, as WhdiaMatrix.hack_slot_list builds them); r0 from
+// exactly one of slot_r0 (slab mode) and tile_r0 (pattern mode).
+// Launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() (cudaErrorInvalidValue past 2^31 columns or hacks).
+int whdia_spmv(const void* values, const void* slot_r0, const void* tile_r0,
+               const void* tile_base, const void* hack_slot_ptr,
+               const void* hack_slots, const void* x, void* z,
+               int64_t num_hacks, int64_t n_cols, void* stream) {
+  return launch_warps<kHackFull>(values, slot_r0, tile_r0, tile_base, hack_slot_ptr,
+                                 hack_slots, x, z, num_hacks, n_cols, stream);
+}
+
+// Kernel #9: z (num_hacks*128; every row written) = the WHDIA product of
+// the complex64 slab (interleaved re/im) and x (n_cols), over the live
+// slots of each hack as in whdia_spmv.  Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError() (cudaErrorInvalidValue past
+// 2^31 columns or hacks).
 int whdia_spmv_c64(const void* values, const void* slot_r0, const void* tile_r0,
                    const void* tile_base, const void* hack_slot_ptr,
                    const void* hack_slots, const void* x, void* z,
@@ -446,7 +728,7 @@ int whdia_spmv_c64(const void* values, const void* slot_r0, const void* tile_r0,
 // Kernel #13: z (n_rhs x z_rows, z_rows >= num_hacks*128; rows below
 // num_hacks*128 all written) = the WHDIA product with each row of x
 // (n_rhs x n_cols), fp32, over the live slots of each hack as in
-// whdia_spmv_c64.  Launches on `stream`, does not synchronise, and returns
+// whdia_spmv.  Launches on `stream`, does not synchronise, and returns
 // cudaGetLastError().
 int whdia_spmm(const void* values, const void* slot_r0, const void* tile_r0,
                const void* tile_base, const void* hack_slot_ptr,

@@ -30,9 +30,9 @@ complex matrix as two real-plane layouts of one structure
 
 A layout also carries ``hack_slot_ptr`` and ``hack_slots``
 (:func:`hack_slot_list`), derived from its values whenever it is built:
-the ids of the slots that hold a nonzero, grouped by hack.  The complex64
-SpMV and the fp32 SpMM kernels read only those slots, so a slab must not
-be changed in place (``check`` rejects a stale list).
+the ids of the slots that hold a nonzero, grouped by hack.  The fp32 and
+complex64 SpMV and the fp32 SpMM kernels read only those slots, so a slab
+must not be changed in place (``check`` rejects a stale list).
 """
 
 from __future__ import annotations

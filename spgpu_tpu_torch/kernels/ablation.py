@@ -1,20 +1,32 @@
 """Kernels #18 and #19: the per-op cycle accounts of the WHDIA (#3) and
-float64 packed WHELL (#4) tile passes, hand-written in CUDA C++.
+float64 packed WHELL (#4) SpMVs, hand-written in CUDA C++.
 
 Replaces the ``call`` closures of ``doc/sweeps/whdia_ablation.py`` (#18:
 its ``pallas_call`` runs ``_whdia_kernel``'s body cut after one op
 family, pattern-mode fp32) and ``doc/sweeps/dd_ablation.py`` (#19: the
 same for ``_whell_packed_dd_kernel``, double-float on the TPU, float64
-here).  Each level is the production tile body of its source cut after
-one op family (``whdia_tile`` in ``csrc/whdia_spmv.cu``, ``whell_tile`` in
+here).  Each level is a production body of its source cut after one op
+family (``whdia_tile``, ``warp_hack`` and ``hack_body`` in
+``csrc/whdia_spmv.cu``, ``whell_hack_pass`` in
 ``csrc/whell_packed_spmv.cu``; their header notes give the design), so
 that the differences between levels price one family each:
 
-* #18 (:data:`WHDIA_LEVELS`): ``stream`` (each lane's 8 values, summed
-  as ``1.5·v``), ``r0`` (+ the r0 decode and the column, kept live as
-  ``v·(col & 127)``), ``gather`` (+ the guarded x read: the production
-  tile sum) and ``full`` (+ one atomicAdd per lane: the production
-  ``whdia_spmv`` launch);
+* #18's tile levels (:data:`WHDIA_LEVELS`, :func:`whdia_ablation`), on
+  the fp32 tile pass that #6 and #10 run (#3's design before it read
+  only the live slots): ``stream`` (each lane's 8 values, summed as
+  ``1.5·v``), ``r0`` (+ the r0 decode and the column, kept live as
+  ``v·(col & 127)``), ``gather`` (+ the guarded x read: the tile sum) and
+  ``full`` (+ one atomicAdd per lane into a zeroed z: the fp32 tile
+  pass);
+* #18's hack levels (:data:`HACK_LEVELS`, :func:`whdia_hack_ablation`),
+  on the production #3 (``warp_hack``: one warp per hack over its live
+  slots) for an ``(n_cols,)`` x, and on #13 (``hack_body``: one block per
+  hack) for an ``(n_rhs, n_cols)`` stack: ``launch`` (each hack's list
+  bounds; its live-slot count stored in each of its rows), ``list`` (+
+  the list entries, their tile words and r0 and the column: each cell
+  adds its key ``(col + slot) & 127``), ``stream`` (+ the live values,
+  ``v·key``) and ``full`` (+ the guarded x gathers: the production
+  ``whdia_spmv`` or ``whdia_spmm`` launch), each row stored once;
 * #19 (:data:`F64_LEVELS`), on the production hack pass of #4
   (``whell_hack_pass``: one block per hack row, the run's index bytes
   brought into shared memory by bulk copies, its values streamed):
@@ -24,17 +36,20 @@ that the differences between levels price one family each:
   ``full`` (+ the scan and segment difference: the production
   ``whell_packed_spmv_f64`` launch).
 
-Below ``full`` (``own`` for #19) a level returns its lane sums, one
-plain store per lane: ``part`` ``(num_tiles, 128)``.  :data:`TPU_LEVELS`
+Below ``full`` (``own`` for #19) a tile level returns its lane sums, one
+plain store per lane: ``part`` ``(num_tiles, 128)``; every hack level
+returns the rows of the product's shape.  :data:`TPU_LEVELS`
 maps each level of the TPU scripts to the card level that covers it, or
 to None with the reason it has no counterpart; :data:`RETIRED_LEVELS`
 names the card levels that the production code no longer has, and why.
 
-:func:`whdia_ablation` and :func:`whell_f64_ablation` launch for CUDA
-tensors (or raise) and run :func:`whdia_ablation_plain` /
+:func:`whdia_ablation`, :func:`whdia_hack_ablation` and
+:func:`whell_f64_ablation` launch for CUDA tensors (or raise) and run
+:func:`whdia_ablation_plain` / :func:`whdia_hack_ablation_plain` /
 :func:`whell_f64_ablation_plain`, the plain PyTorch versions of the same
-functions, for CPU tensors.  ``LAUNCHES_WHDIA_ABLATION`` and
-``LAUNCHES_F64_ABLATION`` count their launches, every level included.
+functions, for CPU tensors.  ``LAUNCHES_WHDIA_ABLATION`` (#18, both
+level sets) and ``LAUNCHES_F64_ABLATION`` count their launches, every
+level included.
 The entries live in the production sources and are bound through their
 libraries (:mod:`spgpu_tpu_torch.kernels.whdia`,
 :mod:`spgpu_tpu_torch.kernels.whell`).
@@ -49,10 +64,11 @@ import torch
 from spgpu_tpu_torch.kernels import whdia as _whdia
 from spgpu_tpu_torch.kernels import whell as _whell
 
-__all__ = ["F64_LEVELS", "LAUNCHES_F64_ABLATION", "LAUNCHES_WHDIA_ABLATION",
-           "LEVEL_ADDS", "RETIRED_LEVELS", "TPU_LEVELS", "WHDIA_LEVELS",
-           "whdia_ablation",
-           "whdia_ablation_plain", "whell_f64_ablation",
+__all__ = ["F64_LEVELS", "HACK_LEVELS", "LAUNCHES_F64_ABLATION",
+           "LAUNCHES_WHDIA_ABLATION", "LEVEL_ADDS", "RETIRED_LEVELS",
+           "TPU_LEVELS", "WHDIA_LEVELS", "whdia_ablation",
+           "whdia_ablation_plain", "whdia_hack_ablation",
+           "whdia_hack_ablation_plain", "whell_f64_ablation",
            "whell_f64_ablation_plain"]
 
 #: launches of kernel #18 and #19 so far, every level; the CPU path does
@@ -63,6 +79,7 @@ LAUNCHES_F64_ABLATION = 0
 #: the card levels, in the order they add op families (the C entries'
 #: level codes are the positions)
 WHDIA_LEVELS = ("stream", "r0", "gather", "full")
+HACK_LEVELS = ("launch", "list", "stream", "full")
 F64_LEVELS = ("stream", "gather", "own", "full")
 
 #: what each card level adds to the one before it
@@ -71,9 +88,22 @@ LEVEL_ADDS = {
         "stream": "each lane reads its 8 values (4 B/cell) and sums 1.5·v",
         "r0": "the tile_r0/slot_r0 decode and the column, kept live as "
               "v·(col & 127)",
-        "gather": "the guarded x read at the column: the production tile sum",
-        "full": "one atomicAdd per lane into the hack row: the production "
-                "whdia_spmv launch (the card's WHDIA has no flush)",
+        "gather": "the guarded x read at the column: the tile sum",
+        "full": "one atomicAdd per lane into the hack row of a zeroed z: the "
+                "fp32 tile pass, the design whdia_spmv_f64 and whdia_spmv_c128 "
+                "run (the card's WHDIA has no flush; the production "
+                "whdia_spmv is the hack levels' full)",
+    },
+    "whdia_hack": {
+        "launch": "the block start and the store: each hack's hack_slot_ptr "
+                  "pair, its live-slot count stored in each of its rows (a "
+                  "warp per hack at 1 RHS, a block per hack at 8)",
+        "list": "the chain of dependent loads: the hack's list entries, their "
+                "tile words and r0 and the column, each cell adding its key "
+                "(col + slot) & 127",
+        "stream": "the live slots' values (4 B/cell), summed as v·key",
+        "full": "the guarded x gathers: the production launch (whdia_spmv, "
+                "kernel #3, at 1 RHS; whdia_spmm, kernel #13, at 8)",
     },
     "f64": {
         "stream": "each cell's value (8 B) streamed from global memory and "
@@ -92,6 +122,12 @@ LEVEL_ADDS = {
 #: card levels that an earlier production body had and this one has not,
 #: with the reason
 RETIRED_LEVELS = {
+    "whdia_hack": {
+        "atomic": "one atomicAdd per lane and tile into a zero-filled z (the "
+                  "tile levels' full less gather, with the part store): #3 "
+                  "sums each hack's live slots in registers and stores each "
+                  "row once, so it has no atomics to price",
+    },
     "f64": {
         "atomic": "one atomicAdd(double) per lane and tile into a zeroed "
                   "accumulator, then a flush launch: the hack pass owns "
@@ -101,7 +137,8 @@ RETIRED_LEVELS = {
 }
 
 #: each level of the TPU scripts (doc/sweeps/whdia_ablation.py:8-13,
-#: dd_ablation.py:7-15) -> (the card level that covers it, or None, and why)
+#: dd_ablation.py:7-15) -> (the card level that covers it, or None, and
+#: why), for each card level set
 TPU_LEVELS = {
     "whdia": {
         "stream": ("stream", "the value slab and a register FMA"),
@@ -112,6 +149,19 @@ TPU_LEVELS = {
         "rmw": ("full", "the accumulate is one atomicAdd per lane; the card's "
                         "WHDIA has no flush, so full - gather is the atomics "
                         "less the part store that gather makes"),
+        "full": ("full", "the fp32 tile pass (the production #3 is the hack "
+                         "levels' full)"),
+    },
+    "whdia_hack": {
+        "stream": ("stream", "the live slots' values and a register FMA (the "
+                             "TPU streams every slot)"),
+        "r0": ("list", "the r0 decode and the column, behind the list entries "
+                       "that the card reads first"),
+        "sgather": ("full", "the card reads x with one cached global load: it "
+                            "has no sublane/lane gather split"),
+        "lgather": ("full", "the same load as sgather"),
+        "rmw": (None, "no accumulate in memory: each row's sum stays in "
+                      "registers and is stored once, in every level"),
         "full": ("full", "the production kernel"),
     },
     "f64": {
@@ -200,6 +250,89 @@ def whdia_ablation_plain(level: str, values, slot_r0, tile_r0, tile_base,
         return (v * (col & 127).to(v.dtype)).sum(dim=1)
     return _whdia.whdia_tile_sums(values, slot_r0, tile_r0, tile_base,
                                   x.unsqueeze(0))[0]
+
+
+def whdia_hack_ablation(level: str, values, slot_r0: Optional[torch.Tensor],
+                        tile_r0: Optional[torch.Tensor], tile_base, chunk_group,
+                        x, *, chunk_tiles: int, group_hacks: int, num_groups: int,
+                        hack_slot_ptr: torch.Tensor,
+                        hack_slots: torch.Tensor) -> torch.Tensor:
+    """Kernel #18's hack level ``level`` (:data:`HACK_LEVELS`) on an fp32
+    WHDIA layout in either r0 mode and its live-slot list: the rows of
+    #3's warp pass for ``x`` ``(n_cols,)`` (``(num_groups*group_hacks*128,)``)
+    or of #13's hack pass for ``x`` ``(n_rhs, n_cols)`` (``(n_rhs,
+    num_groups*group_hacks*128)``), cut where the level cuts it; ``full``
+    is the production launch.
+
+    CUDA tensors launch the kernel (counted in
+    ``LAUNCHES_WHDIA_ABLATION``); CPU tensors run
+    :func:`whdia_hack_ablation_plain`.  Any other device raises."""
+    code = _code(level, HACK_LEVELS, "whdia_hack_ablation")
+    if values.dtype != torch.float32 or x.dim() not in (1, 2):
+        raise ValueError(f"whdia_hack_ablation: bad values or x: kernel #18 "
+                         f"takes float32 values and an (n_cols,) or (n_rhs, "
+                         f"n_cols) x, not {values.dtype} and {tuple(x.shape)}")
+    spmm = x.dim() == 2
+    hacks = num_groups * group_hacks
+    _whdia._check_args("whdia_spmm" if spmm else "whdia_spmv", values, slot_r0,
+                       tile_r0, tile_base, chunk_group, x, chunk_tiles)
+    dev = x.device
+    if dev.type == "cpu":
+        return whdia_hack_ablation_plain(
+            level, values, slot_r0, tile_r0, tile_base, chunk_group, x,
+            chunk_tiles=chunk_tiles, group_hacks=group_hacks, num_groups=num_groups,
+            hack_slot_ptr=hack_slot_ptr, hack_slots=hack_slots)
+    lists = _whdia._list_ptrs("whdia_hack_ablation", hack_slot_ptr, hack_slots,
+                              hacks, dev)
+    _whdia._check_aligned("whdia_hack_ablation", values)
+    lib = _whdia._LIB.load()
+    n_rhs = x.shape[0] if spmm else 1
+    out = torch.empty((n_rhs, hacks * 128) if spmm else (hacks * 128,),
+                      dtype=x.dtype, device=dev)
+    err = lib.whdia_hack_ablation(
+        code, int(spmm), values.data_ptr(), *_whdia._r0_ptrs(slot_r0, tile_r0),
+        tile_base.data_ptr(), *lists, x.data_ptr(), out.data_ptr(), hacks,
+        x.shape[-1], hacks * 128, n_rhs, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"whdia_hack_ablation({level!r}) launch failed: CUDA "
+                           f"error {err}")
+    global LAUNCHES_WHDIA_ABLATION
+    LAUNCHES_WHDIA_ABLATION += 1
+    return out
+
+
+def whdia_hack_ablation_plain(level: str, values, slot_r0, tile_r0, tile_base,
+                              chunk_group, x, *, chunk_tiles: int, group_hacks: int,
+                              num_groups: int, hack_slot_ptr,
+                              hack_slots) -> torch.Tensor:
+    """Kernel #18's hack level ``level`` in plain PyTorch, on the
+    operands' device: each hack's rows sum its listed slots' terms in list
+    order (:func:`~spgpu_tpu_torch.kernels.whdia.whdia_listed_sum`), the
+    same for every RHS below ``full``: ``launch`` the hack's live-slot
+    count, ``list`` each cell's key ``(col + slot) & 127``, ``stream``
+    ``v·key``; ``full`` is :func:`~spgpu_tpu_torch.kernels.whdia.
+    whdia_spmm_listed_plain`.  ``chunk_group`` and ``chunk_tiles`` are
+    not read (the wrapper's checks take them)."""
+    _code(level, HACK_LEVELS, "whdia_hack_ablation_plain")
+    xs = x if x.dim() == 2 else x.unsqueeze(0)
+    n_rhs, hacks = xs.shape[0], num_groups * group_hacks
+    if level == "full":
+        out = _whdia.whdia_spmm_listed_plain(values, slot_r0, tile_r0, tile_base,
+                                             hack_slot_ptr, hack_slots, xs,
+                                             group_hacks=group_hacks,
+                                             num_groups=num_groups)
+    elif level == "launch":
+        ptr = hack_slot_ptr.long()
+        count = (ptr[1:] - ptr[:-1]).to(values.dtype)
+        out = count.repeat_interleave(128).expand(n_rhs, -1)
+    else:
+        slots = hack_slots.long()
+        col = _whdia.whdia_listed_columns(slot_r0, tile_r0, tile_base, hack_slots)
+        key = ((col + slots[:, None]) & 127).to(values.dtype)
+        terms = key if level == "list" else values[slots] * key
+        out = _whdia.whdia_listed_sum(terms[None], hack_slot_ptr, hacks).expand(n_rhs, -1)
+    out = out.contiguous()
+    return out if x.dim() == 2 else out[0]
 
 
 def whell_f64_ablation(level: str, values, residue, page_tab, tile_base,

@@ -12,19 +12,20 @@ five is ``spgpu_tpu_torch/csrc/whdia_spmv.cu`` (its header note gives
 the design and its bound), built on first launch by
 :mod:`spgpu_tpu_torch.kernels._build`.
 
-#3, #6 and #10 run a tile pass (atomics into a zero-filled z).  #9 and
-#13 run the hack pass: one block per hack over the layout's live slots
-(``WhdiaMatrix.hack_slot_ptr``/``hack_slots``, which these two wrappers
-require for CUDA tensors), one plain store per row, so z needs no zero
-fill and the result has the same bits from run to run.  A dead slot is
-not read, so an Inf or NaN in x that only all-zero slots reach gives no
-NaN there; the plain versions multiply every cell (the JAX semantics).
+#6 and #10 run a tile pass (atomics into a zero-filled z).  #3, #9 and
+#13 read only the layout's live slots (``WhdiaMatrix.hack_slot_ptr``/
+``hack_slots``, which their wrappers require for CUDA tensors): #3 one
+warp per hack (the warp pass), #9 and #13 one block per hack (the hack
+pass); each stores each row once, so z needs no zero fill and the result
+has the same bits from run to run.  A dead slot is not read, so an Inf
+or NaN in x that only all-zero slots reach gives no NaN there; the plain
+versions multiply every cell (the JAX semantics).
 
 :func:`whdia_spmv` and :func:`whdia_spmm` launch their kernels for CUDA
 tensors (or raise) and run :func:`whdia_spmv_plain` /
 :func:`whdia_spmm_plain`, the plain PyTorch versions of the same
-functions, for CPU tensors; :func:`whdia_spmm_listed_plain` is the hack
-pass's product in plain PyTorch, summed in its order.  ``LAUNCHES``
+functions, for CPU tensors; :func:`whdia_spmm_listed_plain` is the
+live-slot kernels' product in plain PyTorch, summed in their order.  ``LAUNCHES``
 counts the launches of kernel #3, ``LAUNCHES_F64`` those of #6,
 ``LAUNCHES_C64`` those of #9, ``LAUNCHES_C128`` those of #10 and
 ``LAUNCHES_SPMM`` those of #13.
@@ -40,9 +41,9 @@ import torch
 from spgpu_tpu_torch.kernels._build import CudaLibrary
 
 __all__ = ["HACK_PASS", "LAUNCHES", "LAUNCHES_C128", "LAUNCHES_C64",
-           "LAUNCHES_F64", "LAUNCHES_SPMM", "SOURCE", "build", "whdia_spmm",
-           "whdia_spmm_listed_plain", "whdia_spmm_plain", "whdia_spmv",
-           "whdia_spmv_plain"]
+           "LAUNCHES_F64", "LAUNCHES_SPMM", "SOURCE", "build", "whdia_listed_columns",
+           "whdia_listed_sum", "whdia_spmm", "whdia_spmm_listed_plain",
+           "whdia_spmm_plain", "whdia_spmv", "whdia_spmv_plain"]
 
 #: launches of kernel #3 (fp32), #6 (float64), #9 (complex64), #10
 #: (complex128) and #13 (SpMM) so far; the CPU path does not count
@@ -58,9 +59,10 @@ _ENTRIES = {torch.float32: ("whdia_spmv", "LAUNCHES"),
             torch.complex64: ("whdia_spmv_c64", "LAUNCHES_C64"),
             torch.complex128: ("whdia_spmv_c128", "LAUNCHES_C128")}
 
-#: value dtypes whose SpMV runs the hack pass over the live-slot list (the
-#: fp32 SpMM, kernel #13, runs it too)
-HACK_PASS = (torch.complex64,)
+#: value dtypes whose SpMV reads only the live-slot list (fp32: kernel #3,
+#: the warp pass; complex64: #9, the hack pass, which the fp32 SpMM, #13,
+#: runs too)
+HACK_PASS = (torch.float32, torch.complex64)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -76,6 +78,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.whdia_ablation.restype = ctypes.c_int
     lib.whdia_ablation.argtypes = [i32, p, p, p, p, p, p, p, i64, i64, i32,
                                    i32, p]
+    lib.whdia_hack_ablation.restype = ctypes.c_int
+    lib.whdia_hack_ablation.argtypes = [i32, i32] + [p] * 8 + [i64, i64, i64,
+                                                              i32, p]
 
 
 _LIB = CudaLibrary("whdia_spmv", _bind)
@@ -138,6 +143,12 @@ def _list_ptrs(op, hack_slot_ptr, hack_slots, hacks, device):
     return hack_slot_ptr.data_ptr(), hack_slots.data_ptr()
 
 
+def _check_aligned(op, values):
+    """#3 reads each lane's four values as one 16-byte load."""
+    if values.data_ptr() % 16:
+        raise ValueError(f"{op}: the fp32 warp pass needs 16 B aligned values")
+
+
 def _r0_ptrs(slot_r0, tile_r0):
     return (None if slot_r0 is None else slot_r0.data_ptr(),
             None if tile_r0 is None else tile_r0.data_ptr())
@@ -154,8 +165,9 @@ def whdia_spmv(values, slot_r0: Optional[torch.Tensor],
 
     Give ``slot_r0`` (slab mode) or ``tile_r0`` (pattern mode).  CUDA
     tensors launch the hand kernel of their type (#3, #6, #9 or #10, each
-    counted in its ``LAUNCHES*``); complex64 (#9, the hack pass) needs the
-    layout's ``hack_slot_ptr`` and ``hack_slots`` and raises without them,
+    counted in its ``LAUNCHES*``); fp32 (#3, whose slab must be 16 B
+    aligned) and complex64 (#9) read only the live slots, need the
+    layout's ``hack_slot_ptr`` and ``hack_slots`` and raise without them,
     the other types ignore them.  CPU tensors run :func:`whdia_spmv_plain`.
     Any other device raises.  The layout arrays are trusted as built by
     the converter or checked by ``WhdiaMatrix.check``; shapes, dtypes and
@@ -171,6 +183,8 @@ def whdia_spmv(values, slot_r0: Optional[torch.Tensor],
     hack_pass = x.dtype in HACK_PASS
     if hack_pass:
         lists = _list_ptrs("whdia_spmv", hack_slot_ptr, hack_slots, hacks, dev)
+        if x.dtype == torch.float32:
+            _check_aligned("whdia_spmv", values)
     lib = _LIB.load()
     entry, counter = _ENTRIES[x.dtype]
     fn = getattr(lib, entry)
@@ -263,20 +277,34 @@ def whdia_spmm_listed_plain(values, slot_r0, tile_r0, tile_base, hack_slot_ptr,
     each multiply-add; here they round apart); x is read as 0 outside
     ``[0, n_cols)``.  Rows of a hack with no listed slot are 0."""
     n_rhs, n_cols = x.shape
-    hacks = num_groups * group_hacks
-    z = torch.zeros((n_rhs, hacks, 128), dtype=x.dtype, device=x.device)
-    ptr, slots = hack_slot_ptr.long(), hack_slots.long()
-    if slots.numel():
+    col = whdia_listed_columns(slot_r0, tile_r0, tile_base, hack_slots)
+    col = torch.where((col >= 0) & (col < n_cols), col, n_cols)
+    xz = torch.cat([x, x.new_zeros(n_rhs, 1)], dim=1)  # index n_cols reads 0
+    prod = values[hack_slots.long()] * xz[:, col]  # (n_rhs, L, 128)
+    return whdia_listed_sum(prod, hack_slot_ptr, num_groups * group_hacks)
+
+
+def whdia_listed_columns(slot_r0, tile_r0, tile_base, hack_slots) -> torch.Tensor:
+    """The x column of each cell of each listed slot, ``(L, 128)`` int64,
+    unguarded, in list order."""
+    return whdia_columns(slot_r0, tile_r0, tile_base).view(-1, 128)[hack_slots.long()]
+
+
+def whdia_listed_sum(terms, hack_slot_ptr, hacks: int) -> torch.Tensor:
+    """Each hack's rows, ``(n_rhs, hacks*128)``: the sum of the terms
+    ``(n_rhs, L, 128)`` of its listed slots (``hack_slot_ptr[h] :
+    hack_slot_ptr[h + 1]``), added in list order; 0 for a hack with
+    none."""
+    n_rhs, L = terms.shape[:2]
+    z = torch.zeros((n_rhs, hacks, 128), dtype=terms.dtype, device=terms.device)
+    if L:
+        ptr = hack_slot_ptr.long()
         counts = ptr[1:] - ptr[:-1]
-        hack = torch.repeat_interleave(torch.arange(hacks, device=x.device), counts)
-        rank = torch.arange(slots.numel(), device=x.device) - ptr[hack]
-        col = whdia_columns(slot_r0, tile_r0, tile_base).view(-1, 128)[slots]
-        col = torch.where((col >= 0) & (col < n_cols), col, n_cols)
-        xz = torch.cat([x, x.new_zeros(n_rhs, 1)], dim=1)  # index n_cols reads 0
-        prod = values[slots] * xz[:, col]  # (n_rhs, L, 128)
+        hack = torch.repeat_interleave(torch.arange(hacks, device=z.device), counts)
+        rank = torch.arange(L, device=z.device) - ptr[hack]
         for k in range(int(counts.max())):
             sel = rank == k  # at most one slot of each hack
-            z[:, hack[sel]] += prod[:, sel]
+            z[:, hack[sel]] += terms[:, sel]
     return z.view(n_rhs, -1)
 
 

@@ -1,8 +1,10 @@
 """The per-op cycle accounts and the geometry sweep on the card: the port
 of the JAX package's ``doc/sweeps/``.
 
-* :mod:`~spgpu_tpu_torch.sweeps.whdia_ablation` — kernel #18: the WHDIA
-  SpMV (#3) in pattern mode, fp32, on banded-11, one op family at a time;
+* :mod:`~spgpu_tpu_torch.sweeps.whdia_ablation` — kernel #18: the fp32
+  WHDIA SpMV (#3) on banded-11 (pattern mode) or the Laplacian (slab
+  mode), one op family at a time, of the tile pass or of the live-slot
+  passes (#3, and #13 at 8 RHS);
 * :mod:`~spgpu_tpu_torch.sweeps.dd_ablation` — kernel #19: the float64
   packed WHELL SpMV (#4) on the 512x512 Laplacian, one op family at a
   time;

@@ -153,16 +153,19 @@ def print_result(res: dict, head: str, label: str, rows_key: str = "levels") -> 
     print(f"gpu: {res['gpu'] or 'none (cpu run)'}", flush=True)
 
 
-def cli(run: Callable[..., dict], doc: str,
-        printer: Callable[[dict], None]) -> dict:
+def cli(run: Callable[..., dict], doc: str, printer: Callable[[dict], None],
+        options: Optional[Dict[str, Sequence[str]]] = None) -> dict:
     """``main()`` of a sweep: ``run`` at its JAX script's size on
-    ``--device`` (default cuda); prints the result's lines and returns
-    it."""
+    ``--device`` (default cuda) and with each of ``options`` (``--name``,
+    one of its choices, the first by default, passed to ``run`` as
+    ``name=``); prints the result's lines and returns it."""
     p = argparse.ArgumentParser(description=doc)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu (the "
                         "plain versions, no times)")
-    args = p.parse_args()
-    res = run(args.device)
+    for name, choices in (options or {}).items():
+        p.add_argument(f"--{name}", choices=choices, default=choices[0])
+    args = vars(p.parse_args())
+    res = run(args.pop("device"), **args)
     printer(res)
     return res

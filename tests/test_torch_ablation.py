@@ -502,3 +502,167 @@ def test_cpu_calls_count_no_launch():
     whdia_ablation.run("cpu", size=2048)
     dd_ablation.run("cpu", size=32)
     assert (ab.LAUNCHES_WHDIA_ABLATION, ab.LAUNCHES_F64_ABLATION) == before
+
+
+# --------------------------------------------------------------------------
+# #18's hack levels (#3's warp pass at 1 RHS, #13's hack pass at n RHS)
+
+
+def _hack_args(ta, x):
+    args, static = _whdia_args(ta, x)
+    return args, dict(static, hack_slot_ptr=ta.hack_slot_ptr, hack_slots=ta.hack_slots)
+
+
+def _hack_reckon(level, ja, ta, x):
+    """Loops over hacks and their listed slots (the port's list, r0 from
+    the JAX layout's decoder): launch is the hack's slot count, list sums
+    each cell's key (col + slot) & 127, stream v·key, full v·x[col] over
+    in-range columns; col = base·128 + r0 + lane."""
+    vals = np.asarray(ja.values, np.float64)
+    r0 = ja.slot_r0_host().astype(np.int64)
+    base = np.asarray(ja.tile_base, np.int64) & 0xFFFF
+    ptr = ta.hack_slot_ptr.numpy().astype(np.int64)
+    slots = ta.hack_slots.numpy().astype(np.int64)
+    lanes = np.arange(128)
+    out = np.zeros((ptr.size - 1, 128))
+    for h in range(ptr.size - 1):
+        if level == "launch":
+            out[h] = ptr[h + 1] - ptr[h]
+            continue
+        for s in slots[ptr[h]:ptr[h + 1]]:
+            col = base[s // 8] * 128 + r0[s] + lanes
+            key = (col + s) & 127
+            if level == "list":
+                out[h] += key
+            elif level == "stream":
+                out[h] += vals[s] * key
+            else:
+                ok = (col >= 0) & (col < x.size)
+                out[h] += np.where(ok, vals[s] * x[np.clip(col, 0, x.size - 1)], 0.0)
+    return out.reshape(-1)
+
+
+@pytest.mark.parametrize("n_rhs", [1, 3])
+@pytest.mark.parametrize("level", ["launch", "list", "stream", "full"])
+def test_whdia_hack_levels_match_numpy(whdia_pair, level, n_rhs):
+    """Each hack level's plain version (the CPU path of
+    ``whdia_hack_ablation``) against a NumPy sum built from the list:
+    launch and list exactly (integer sums), stream and full within
+    1e-5·max|out|; every RHS row of a stack the same below full."""
+    name, ja, ta, x, zj = whdia_pair
+    xs = np.stack([x * (r + 1) for r in range(n_rhs)])
+    args, static = _hack_args(ta, x)
+    xt = torch.from_numpy(xs if n_rhs > 1 else x)
+    got = ab.whdia_hack_ablation(level, *args[:-1], xt, **static)
+    rows = ta.num_groups * ta.group_hacks * 128
+    assert got.dtype == torch.float32
+    assert got.shape == ((n_rhs, rows) if n_rhs > 1 else (rows,))
+    got = got.reshape(n_rhs, rows).double().numpy()
+    for r in range(n_rhs):
+        want = _hack_reckon(level, ja, ta, xs[r].astype(np.float64))
+        if level in ("launch", "list"):
+            np.testing.assert_array_equal(got[r], want)
+        else:
+            near(got[r], want, TOL_PART_F32)
+
+
+def test_whdia_hack_full_matches_jax(whdia_pair):
+    """``full`` at 1 RHS, the production #3's function, equals the JAX
+    ``whdia_spmv_pallas`` in interpret mode."""
+    name, ja, ta, x, zj = whdia_pair
+    args, static = _hack_args(ta, x)
+    z = ab.whdia_hack_ablation("full", *args, **static)
+    np.testing.assert_allclose(z.double().numpy()[: ta.n_rows], zj, **TOL_F32)
+
+
+def test_level_tables_cover_every_level():
+    """Every card level of each set says what it adds, every TPU level of
+    the script maps to a card level of the set or to None with a reason,
+    and a retired level is no longer a card level."""
+    sets = {"whdia": ab.WHDIA_LEVELS, "whdia_hack": ab.HACK_LEVELS,
+            "f64": ab.F64_LEVELS}
+    assert set(ab.LEVEL_ADDS) == set(sets)
+    script = {"whdia": "whdia_ablation.py", "whdia_hack": "whdia_ablation.py",
+              "f64": "dd_ablation.py"}
+    for key, levels in sets.items():
+        assert list(ab.LEVEL_ADDS[key]) == list(levels), key
+        assert all(ab.LEVEL_ADDS[key].values())
+        tpu = ab.TPU_LEVELS[key]
+        assert sorted(tpu) == sorted(_tpu_levels(script[key])), key
+        for t, (card, why) in tpu.items():
+            assert (card is None or card in levels) and why, (key, t)
+        for lv, why in ab.RETIRED_LEVELS.get(key, {}).items():
+            assert lv not in levels and why, (key, lv)
+    assert set(ab.RETIRED_LEVELS) <= set(sets)
+
+
+@pytest.mark.parametrize("family", ["tile", "hack"])
+@pytest.mark.parametrize("matrix,size", [("banded11", 4096), ("laplace", 40)])
+def test_whdia_sweep_runs_on_both_fixtures_on_cpu(matrix, size, family):
+    """``run(matrix=, family=)``: the Laplacian in slab mode and banded-11
+    in pattern mode, each level set checked inside ``run`` (every level
+    against its plain version, full against the production product),
+    the hack levels at 1 and 8 RHS, every TPU level accounted for."""
+    res = whdia_ablation.run("cpu", size=size, matrix=matrix, family=family)
+    assert (res["matrix"], res["family"]) == (matrix, family)
+    assert res["mode"] == {"banded11": "pattern", "laplace": "slab"}[matrix]
+    assert res["launches"] == 0 and res["max_abs_err"] == 0.0
+    assert res["full_vs_production_max_abs_err"] < 1e-4
+    rows = res["levels"]
+    key = "whdia" if family == "tile" else "whdia_hack"
+    levels = ab.WHDIA_LEVELS if family == "tile" else ab.HACK_LEVELS
+    if family == "tile":
+        assert [r["level"] for r in rows] == list(levels)
+    else:
+        assert [(r["level"], r["n_rhs"]) for r in rows] == \
+            [(lv, n) for n in (1, whdia_ablation.SPMM_RHS) for lv in levels]
+        assert res["bound_spmm"]["bound_bytes"] > res["bound"]["bound_bytes"]
+        assert 0 < res["live_slot_share"] <= 1
+    for r in rows:
+        assert all(f in r for f in ROW_FIELDS), set(ROW_FIELDS) - set(r)
+        assert r["device_ms"] is None and r["price_ms"] is None
+    tpu = _tpu_levels("whdia_ablation.py")
+    assert {t for r in rows for t in r["tpu_levels"]} | \
+        {a["tpu_level"] for a in res["absent"]} == set(tpu)
+    assert [a["level"] for a in res["retired"]] == list(ab.RETIRED_LEVELS.get(key, {}))
+    assert res["bound"]["bound_ms"] > 0 and res["library"]["per_call_ms"] is None
+
+
+def test_whdia_sweep_main_takes_matrix_and_family(monkeypatch, capsys):
+    monkeypatch.setattr(whdia_ablation, "run", functools.partial(whdia_ablation.run,
+                                                                 size=40))
+    monkeypatch.setattr(sys, "argv", ["whdia_ablation", "--device", "cpu",
+                                      "--matrix", "laplace", "--family", "hack"])
+    res = whdia_ablation.main()
+    lines = capsys.readouterr().out.splitlines()
+    assert (res["matrix"], res["family"]) == ("laplace", "hack")
+    assert len(lines) == 1 + 8 + len(res["absent"]) + len(res["retired"]) + 4
+    assert "hack levels" in lines[0] and " x8:" in lines[5]
+    monkeypatch.setattr(sys, "argv", ["whdia_ablation", "--device", "cpu",
+                                      "--family", "warp"])
+    with pytest.raises(SystemExit):
+        whdia_ablation.main()
+    with pytest.raises(ValueError, match="matrix"):
+        whdia_ablation.run("cpu", size=40, matrix="flagship")
+
+
+def test_whdia_hack_ablation_guards():
+    from spgpu_tpu_torch.convert import coo_to_whdia
+
+    d = coo_to_whdia(tfix.laplacian_2d(16, 16, np.float32), device="cpu")
+    args, static = _hack_args(d, np.zeros(d.n_cols, np.float32))
+    for bad in ("gather", "r0", "atomic", ""):
+        with pytest.raises(ValueError, match="level must be one of"):
+            ab.whdia_hack_ablation(bad, *args, **static)
+    with pytest.raises(ValueError, match="level must be one of"):
+        ab.whdia_hack_ablation_plain("stream_x", *args, **static)
+    with pytest.raises(ValueError, match="float32"):
+        ab.whdia_hack_ablation("list", *args[:-1], torch.zeros(2, 2, d.n_cols),
+                               **static)
+    d64 = coo_to_whdia(tfix.laplacian_2d(16, 16, np.float64), device="cpu")
+    args64, static64 = _hack_args(d64, np.zeros(d64.n_cols))
+    with pytest.raises(ValueError, match="float32"):
+        ab.whdia_hack_ablation("list", *args64, **static64)
+    before = ab.LAUNCHES_WHDIA_ABLATION
+    whdia_ablation.run("cpu", size=24, matrix="laplace", family="hack")
+    assert ab.LAUNCHES_WHDIA_ABLATION == before

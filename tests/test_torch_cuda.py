@@ -5,9 +5,10 @@ Needs no JAX, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 (``--noconftest`` skips the JAX set-up of ``tests/conftest.py``).  Every
-test skips without a CUDA device.  Kernels #1 (WHELL) and #3 (WHDIA) sum
-each lane's tiles with atomics, in another order than the plain
-version's ``index_add_``, hence rtol 1e-5 and atol 1e-5·max|z|; kernel
+test skips without a CUDA device.  Kernel #1 (WHELL) sums each lane's
+tiles with atomics, and #3 (WHDIA) each hack's live slots in list order
+with FMAs, in another order than the plain version's ``index_add_``,
+hence rtol 1e-5 and atol 1e-5·max|z|; kernel
 #2 (SDIA) owns each row in one thread and sums the diagonals in the
 plain version's order, hence rtol 1e-6 and atol 1e-6·max|z|.  Against
 the float64 host golden the fp32 tolerance is 2e-5.
@@ -33,12 +34,15 @@ that only padding tiles read.  Two products of one chunked-run layout on
 two streams at once stay at the golden (fault F2: the run counters are
 each call's own).
 
-#9 (complex64 WHDIA) and #13 run the hack pass over each hack's live
-slots: they are held to the full-layout plain version and to the listed
-plain product, at 1, 3, 8, 9 and 17 RHS for #13, on layouts with empty
-row blocks whose rows the kernel must write without a zero fill, twice
-with the same bits, and shown to skip an Inf in x that only all-zero
-slots reach (a deviation from the JAX kernel, which gives NaN there).
+#3 (fp32 WHDIA, the warp pass), #9 (complex64 WHDIA) and #13 (the hack
+pass) read only each hack's live slots: they are held to the
+full-layout plain version and to the listed plain product, at 1, 3, 8,
+9 and 17 RHS for #13, on layouts with empty row blocks whose rows the
+kernel must write without a zero fill, twice with the same bits, and
+shown to skip an Inf in x that only all-zero slots reach (a deviation
+from the JAX kernel, which gives NaN there); without the lists, or (#3)
+on a slab that is not 16 B aligned, they raise.  Kernel #18's hack
+levels (of #3 at 1 RHS, of #13 at 8) are held to their plain versions.
 
 Classic WHELL (#15 SpMV, #16 SpMM; fp32 and bf16 values, OELL order and
 way-split rows) and pcell (#17) sum with atomics too: rtol 1e-5 and atol
@@ -207,6 +211,10 @@ def test_whdia_kernel_matches_plain_and_golden(name, cuda_device):
         num_groups=a.num_groups)[: a.n_rows]
     atol = 1e-5 * max(float(zp.abs().max()), 1.0)
     torch.testing.assert_close(z, zp, rtol=1e-5, atol=atol)
+    zl = kd.whdia_spmm_listed_plain(
+        a.values, a.slot_r0, a.tile_r0, a.tile_base, a.hack_slot_ptr, a.hack_slots,
+        xt[None], group_hacks=a.group_hacks, num_groups=a.num_groups)[0, : a.n_rows]
+    torch.testing.assert_close(z, zl, rtol=1e-5, atol=atol)
     g = _golden(coo, x)
     np.testing.assert_allclose(z.double().cpu().numpy(), g, rtol=2e-5,
                                atol=2e-5 * max(np.abs(g).max(initial=0), 1))
@@ -1328,10 +1336,11 @@ ABLATION_F64_CASES = {
 @pytest.mark.parametrize("level", ["stream", "r0", "gather", "full"])
 @pytest.mark.parametrize("name", sorted(ABLATION_WHDIA_CASES))
 def test_whdia_ablation_matches_plain(name, level, cuda_device):
-    """Kernel #18 in both r0 modes: the partial levels within
-    1e-5·max|part| of their plain versions (no atomics: the order of 8
-    slot sums only), full within #3's tolerance of its plain version and
-    of the production launch; one launch counted, none of #3."""
+    """Kernel #18's tile levels in both r0 modes: the partial levels
+    within 1e-5·max|part| of their plain versions (no atomics: the order
+    of 8 slot sums only), full (the fp32 tile pass) within #3's tolerance
+    of its plain version and of the production #3 (the warp pass); one
+    launch counted, none of #3."""
     from spgpu_tpu_torch.kernels import ablation as ab
 
     coo = ABLATION_WHDIA_CASES[name]()
@@ -1350,7 +1359,8 @@ def test_whdia_ablation_matches_plain(name, level, cuda_device):
     assert got.shape == want.shape and got.device == x.device
     if level == "full":
         _near(got, want, 1e-5, rtol=1e-5)
-        _near(got, kd.whdia_spmv(*args, **static), 1e-5, rtol=1e-5)
+        _near(got, kd.whdia_spmv(*args, **static, hack_slot_ptr=a.hack_slot_ptr,
+                                 hack_slots=a.hack_slots), 1e-5, rtol=1e-5)
     else:
         assert got.shape == (a.num_tiles, 128)
         _near(got, want, 1e-5)
@@ -1388,7 +1398,7 @@ def test_f64_ablation_matches_plain(name, scattered, level, cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("fmt", ["whdia", "f64"])
 def test_production_kernels_unchanged_beside_the_ablation(fmt, cuda_device):
-    """#3 and #4, whose tile bodies the ablation levels share, still match
+    """#3 and #4, whose bodies the ablation levels share, still match
     their plain versions and the golden, counted on their own counters."""
     if fmt == "whdia":
         coo = ABLATION_WHDIA_CASES["band11"]()
@@ -1441,8 +1451,9 @@ def test_sweeps_time_on_the_card(name, cuda_device):
 
 
 # --------------------------------------------------------------------------
-# the WHDIA hack pass: kernels #9 (complex64 SpMV) and #13 (fp32 SpMM)
-# over each hack's live slots (WhdiaMatrix.hack_slot_ptr/hack_slots)
+# the WHDIA live-slot kernels: #3 (fp32 SpMV, the warp pass), #9
+# (complex64 SpMV) and #13 (fp32 SpMM, the hack pass) over each hack's
+# live slots (WhdiaMatrix.hack_slot_ptr/hack_slots)
 
 
 def _holes(coo):
@@ -1460,7 +1471,7 @@ HACK_CASES = {"slab": lambda: _holes(laplacian_2d(40, 40)),
 
 def _hack_layout(mode, kernel, cuda_device):
     """The fixture of ``mode`` as complex64 (``kernel="c64"``, #9) or fp32
-    (``"spmm"``, #13) on the card, and its COO."""
+    (``"f32"``, #3; ``"spmm"``, #13) on the card, and its COO."""
     coo = HACK_CASES[mode]()
     coo = (_complex(coo, np.complex64) if kernel == "c64" else
            CooMatrix(coo.rows, coo.cols, coo.values.astype(np.float32),
@@ -1473,7 +1484,7 @@ def _hack_layout(mode, kernel, cuda_device):
 def _hack_x(kernel, n, n_rhs=3, seed=0):
     if kernel == "c64":
         return torch.from_numpy(_cvec(n, seed)).to(torch.complex64)[None]
-    return _xs(n_rhs, n, seed)
+    return _xs(1 if kernel == "f32" else n_rhs, n, seed)
 
 
 def _hack_call(kernel, a, x):
@@ -1482,7 +1493,7 @@ def _hack_call(kernel, a, x):
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
                   num_groups=a.num_groups, hack_slot_ptr=a.hack_slot_ptr,
                   hack_slots=a.hack_slots)
-    if kernel == "c64":
+    if kernel in ("c64", "f32"):
         return kd.whdia_spmv(*args, x[0], **static)[None]
     return kd.whdia_spmm(*args, x, **static)
 
@@ -1495,16 +1506,17 @@ def _hack_listed(a, x):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", sorted(HACK_CASES))
-@pytest.mark.parametrize("kernel", ["c64", "spmm"])
+@pytest.mark.parametrize("kernel", ["c64", "spmm", "f32"])
 def test_hack_pass_matches_plain_and_golden(kernel, mode, cuda_device):
-    """#9 and #13 through the op, counted once, against the full-layout
-    plain version, the listed plain product (the kernel's order, unfused)
-    and the golden: rtol 1e-5 and atol 1e-5·max|z|, 2e-5 vs the golden."""
+    """#9, #13 and #3 through the op, counted once, against the
+    full-layout plain version, the listed plain product (the kernel's
+    order, unfused) and the golden: rtol 1e-5 and atol 1e-5·max|z|, 2e-5
+    vs the golden."""
     coo, a = _hack_layout(mode, kernel, cuda_device)
     x = _hack_x(kernel, coo.n_cols).to(cuda_device)
-    counter = "LAUNCHES_C64" if kernel == "c64" else "LAUNCHES_SPMM"
+    counter = {"c64": "LAUNCHES_C64", "spmm": "LAUNCHES_SPMM", "f32": "LAUNCHES"}[kernel]
     before = getattr(kd, counter)
-    z = ops.whdia_spmv(a, x[0])[None] if kernel == "c64" else \
+    z = ops.whdia_spmv(a, x[0])[None] if kernel in ("c64", "f32") else \
         ops.whdia_spmm(a, x, fused=True)
     torch.cuda.synchronize()
     assert getattr(kd, counter) == before + 1
@@ -1534,7 +1546,7 @@ def test_hack_pass_spmm_takes_any_rhs_count(n_rhs, mode, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", sorted(HACK_CASES))
-@pytest.mark.parametrize("kernel", ["c64", "spmm"])
+@pytest.mark.parametrize("kernel", ["c64", "spmm", "f32"])
 def test_hack_pass_writes_every_row_and_repeats_its_bits(kernel, mode, cuda_device):
     """z is not zero-filled: the block the kernel writes first held NaN,
     yet every row comes out finite, a hack with no live slot as zeros; two
@@ -1569,7 +1581,7 @@ def _dead_only_column(a):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["c64", "spmm"])
+@pytest.mark.parametrize("kernel", ["c64", "spmm", "f32"])
 def test_hack_pass_skips_dead_slot_inf(kernel, cuda_device):
     """An Inf in x at a column that only dead slots reach: the full-layout
     plain version (the JAX semantics) gives NaN, the hack pass the golden
@@ -1592,8 +1604,8 @@ def test_hack_pass_skips_dead_slot_inf(kernel, cuda_device):
 
 @pytest.mark.cuda
 def test_hack_pass_needs_the_lists(cuda_device):
-    """A CUDA call of #9 or #13 without the live-slot lists raises; the
-    tile-pass SpMVs (#3, #6, #10) take none."""
+    """A CUDA call of #3, #9 or #13 without the live-slot lists raises;
+    the tile-pass SpMVs (#6, #10) take none."""
     coo, a = _hack_layout("slab", "spmm", cuda_device)
     args = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group)
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
@@ -1601,8 +1613,15 @@ def test_hack_pass_needs_the_lists(cuda_device):
     x = _xs(2, coo.n_cols).to(cuda_device)
     with pytest.raises(ValueError, match="hack_slot_ptr"):
         kd.whdia_spmm(*args, x, **static)
-    _near(kd.whdia_spmv(*args, x[0], **static)[: coo.n_rows],
-          torch.from_numpy(coo.spmv(x[0].cpu().double().numpy())), 2e-5, rtol=2e-5)
+    with pytest.raises(ValueError, match="hack_slot_ptr"):
+        kd.whdia_spmv(*args, x[0], **static)
+    a64 = coo_to_whdia(_f64(coo), device=cuda_device)
+    x64 = x[0].double()
+    _near(kd.whdia_spmv(a64.values, a64.slot_r0, a64.tile_r0, a64.tile_base,
+                       a64.chunk_group, x64, chunk_tiles=a64.chunk_tiles,
+                       group_hacks=a64.group_hacks,
+                       num_groups=a64.num_groups)[: coo.n_rows],
+          torch.from_numpy(coo.spmv(x64.cpu().numpy())), 1e-12)
     _, ac = _hack_layout("slab", "c64", cuda_device)
     argc = (ac.values, ac.slot_r0, ac.tile_r0, ac.tile_base, ac.chunk_group)
     static = dict(chunk_tiles=ac.chunk_tiles, group_hacks=ac.group_hacks,
@@ -1613,3 +1632,95 @@ def test_hack_pass_needs_the_lists(cuda_device):
     with pytest.raises(ValueError, match="hack_slot_ptr"):
         kd.whdia_spmv(*argc, xc, **static, hack_slot_ptr=ac.hack_slot_ptr.cpu(),
                       hack_slots=ac.hack_slots)
+
+
+@pytest.mark.cuda
+def test_warp_pass_needs_aligned_values(cuda_device):
+    """#3 loads each lane's four values as one 16-byte load: a slab that
+    starts 4 bytes past an aligned address raises; the same values
+    copied to an aligned slab give the product."""
+    coo, a = _hack_layout("slab", "f32", cuda_device)
+    S = a.values.shape[0]
+    buf = torch.empty(S * 128 + 1, device=cuda_device)
+    shifted = buf[1:].view(S, 128)
+    shifted.copy_(a.values)
+    static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+                  num_groups=a.num_groups, hack_slot_ptr=a.hack_slot_ptr,
+                  hack_slots=a.hack_slots)
+    x = _xs(1, coo.n_cols).to(cuda_device)[0]
+    rest = (a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group, x)
+    with pytest.raises(ValueError, match="16 B aligned"):
+        kd.whdia_spmv(shifted, *rest, **static)
+    z = kd.whdia_spmv(shifted.clone(), *rest, **static)[: coo.n_rows]
+    _near(z, torch.from_numpy(coo.spmv(x.cpu().double().numpy())), 2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rhs", [1, 8])
+@pytest.mark.parametrize("level", ["launch", "list", "stream", "full"])
+@pytest.mark.parametrize("name", sorted(ABLATION_WHDIA_CASES))
+def test_whdia_hack_ablation_matches_plain(name, level, n_rhs, cuda_device):
+    """Kernel #18's hack levels in both r0 modes, at 1 RHS (#3's warp
+    pass) and 8 (#13's hack pass): launch and list exactly (integer
+    sums), stream within 1e-5·max|out|, full within #3's tolerance of its
+    plain version and equal to the production launch bit for bit; one
+    launch counted, none of #3 or #13; every row written over NaN."""
+    from spgpu_tpu_torch.kernels import ablation as ab
+
+    coo = ABLATION_WHDIA_CASES[name]()
+    a = coo_to_whdia(coo, device=cuda_device)
+    xs = _xs(n_rhs, coo.n_cols, seed=n_rhs).to(cuda_device)
+    x = xs if n_rhs > 1 else xs[0]
+    args = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group, x)
+    static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+                  num_groups=a.num_groups, hack_slot_ptr=a.hack_slot_ptr,
+                  hack_slots=a.hack_slots)
+    rows = a.num_groups * a.group_hacks * 128
+    torch.cuda.synchronize()
+    torch.full((n_rhs * rows,), float("nan"), device=cuda_device)
+    before = (ab.LAUNCHES_WHDIA_ABLATION, kd.LAUNCHES, kd.LAUNCHES_SPMM)
+    got = ab.whdia_hack_ablation(level, *args, **static)
+    torch.cuda.synchronize()
+    assert (ab.LAUNCHES_WHDIA_ABLATION, kd.LAUNCHES, kd.LAUNCHES_SPMM) == \
+        (before[0] + 1, before[1], before[2])
+    want = ab.whdia_hack_ablation_plain(level, *args, **static)
+    assert got.shape == want.shape == ((n_rhs, rows) if n_rhs > 1 else (rows,))
+    assert bool(torch.isfinite(got).all())
+    if level in ("launch", "list"):
+        assert torch.equal(got, want)
+    elif level == "stream":
+        _near(got, want, 1e-5)
+    else:
+        _near(got, want, 1e-5, rtol=1e-5)
+        prod = kd.whdia_spmv if n_rhs == 1 else kd.whdia_spmm
+        assert torch.equal(got, prod(*args, **static))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["tile", "hack"])
+@pytest.mark.parametrize("matrix,size", [("banded11", 8192), ("laplace", 96)])
+def test_whdia_sweep_on_both_fixtures_on_the_card(matrix, size, family, cuda_device):
+    """#18's sweep on both DIA fixtures in both level sets: every row
+    timed warm and cold, checked inside ``run`` and counted; the hack
+    levels at 1 and 8 RHS, each group priced from its own first row."""
+    from spgpu_tpu_torch.kernels import ablation as ab
+    from spgpu_tpu_torch.sweeps import whdia_ablation
+
+    ab.LAUNCHES_WHDIA_ABLATION = 0
+    res = whdia_ablation.run(cuda_device, size=size, matrix=matrix, family=family)
+    rows = res["levels"]
+    assert res["mode"] == whdia_ablation.MATRICES[matrix]
+    assert ab.LAUNCHES_WHDIA_ABLATION >= len(rows) == res["launches"]
+    assert len(rows) == (4 if family == "tile" else 8)
+    for r in rows:
+        assert r["device_ms"] > 0 and r["cold_device_ms"] > 0 and r["per_call_ms"] > 0
+    firsts = [rows[0]] if family == "tile" else [rows[0], rows[4]]
+    assert all(r["price_ms"] is None for r in firsts)
+    for prev, r in zip(rows, rows[1:]):  # a price needs both times from one source
+        if r not in firsts:
+            assert (r["price_ms"] is not None) == (
+                r["device_source"] == prev["device_source"])
+    assert res["library"]["per_call_ms"] > 0
+    if family == "hack":
+        assert [r["n_rhs"] for r in rows] == [1] * 4 + [8] * 4
+        assert res["library_spmm"]["per_call_ms"] > 0

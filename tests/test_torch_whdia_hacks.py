@@ -326,3 +326,63 @@ def test_wrappers_need_the_list_on_cuda_only():
     with pytest.raises(ValueError, match="entries"):
         kd._list_ptrs("whdia_spmm", a.hack_slot_ptr[:-1], a.hack_slots, hacks,
                       x.device)
+
+
+@pytest.mark.parametrize("name", ["laplace_holes", "banded_holes"])
+def test_listed_fp32_matches_jax_on_empty_row_blocks(name):
+    """The fp32 listed product, #3's function since it reads only the
+    live slots, on layouts with hacks that hold no live slot: equal to
+    the JAX op (interpret mode) within rtol 1e-5 and 1e-5·max|z|, zero
+    on the empty hacks' rows."""
+    ja, a = _bridged(name, "float32")
+    assert a.pattern_mode == CASES[name][1]
+    x = _vec(a.n_cols, "float32", seed=5)
+    zl = _listed(a, torch.from_numpy(x)[None])[0]
+    zj = np.asarray(jops.whdia_spmv(ja, jnp.asarray(x)))
+    _near(zl[: a.n_rows].numpy(), zj, 1e-5, 1e-5, "listed vs JAX")
+    counts = (a.hack_slot_ptr[1:] - a.hack_slot_ptr[:-1])
+    empty = torch.nonzero(counts == 0).view(-1)
+    assert empty.numel() > 0
+    assert not bool(zl.view(-1, 128)[empty].any())
+
+
+def test_fp32_spmv_reads_the_list_on_cuda_only():
+    """fp32 joins complex64 on the live slots (``HACK_PASS``): on CPU
+    tensors the wrapper runs the full plain product without the list and
+    counts no launch; #3's 16-byte value loads need an aligned slab."""
+    assert torch.float32 in kd.HACK_PASS and torch.complex64 in kd.HACK_PASS
+    assert torch.float64 not in kd.HACK_PASS
+    assert torch.complex128 not in kd.HACK_PASS
+    a = coo_to_whdia(_coo("laplace", "float32"), device="cpu")
+    x = torch.from_numpy(_vec(a.n_cols, "float32"))
+    args = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group)
+    static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+                  num_groups=a.num_groups)
+    before = kd.LAUNCHES
+    torch.testing.assert_close(kd.whdia_spmv(*args, x, **static),
+                               _full(a, x[None])[0], rtol=0, atol=0)
+    assert kd.LAUNCHES == before
+    kd._check_aligned("whdia_spmv", a.values)
+    flat = torch.zeros(a.values.numel() + 1)
+    with pytest.raises(ValueError, match="16 B aligned"):
+        kd._check_aligned("whdia_spmv", flat[1:].view_as(a.values))
+
+
+def test_listed_sum_adds_each_hack_in_list_order():
+    """``whdia_listed_sum`` adds each hack's terms one listed slot after
+    another (the kernels' order), for every RHS, and leaves a hack with
+    no slot at 0."""
+    rng = np.random.default_rng(4)
+    counts = np.array([3, 0, 1, 5, 0, 2])
+    ptr = np.concatenate([[0], np.cumsum(counts)])
+    terms = rng.standard_normal((2, ptr[-1], 128)).astype(np.float32)
+    terms[:, :, 0] = [1e8, 1.0, -1e8, 2.0, 3.0, 4.0, -5.0, 6.0, 7.0, 8.0, 9.0]
+    z = kd.whdia_listed_sum(torch.from_numpy(terms),
+                            torch.from_numpy(ptr.astype(np.int32)), counts.size)
+    assert z.shape == (2, counts.size * 128)
+    want = np.zeros((2, counts.size, 128), np.float32)
+    for h in range(counts.size):
+        for i in range(ptr[h], ptr[h + 1]):
+            want[:, h] += terms[:, i]  # fp32, in order: 1e8 + 1 - 1e8 = 0
+    np.testing.assert_array_equal(z.view(2, -1, 128).numpy(), want)
+    assert want[0, 0, 0] == 0.0
