@@ -23,7 +23,21 @@ the float64 geometry sweep, and checks them:
 5. solve     — ``solve()`` on the SPD system (A+Aᵀ)/2 with a dominant
                diagonal, auto-selected format (whell), CG to 1e-5; the
                true residual is checked on the host in float64, and the
-               kernel's launch count must cover every CG iteration;
+               kernel's launch count must cover every CG iteration (each
+               launch captured in the loop's CUDA graph counts once per
+               replay), the host may read at most ceil(iterations / K) + 2
+               flags; then the Krylov loop alone on a fresh layout, the
+               graphed loop (K steps a CUDA graph, ``solvers.cg``) beside
+               its eager witness (``_cg_eager``, one host read per
+               iteration): for each, ms per iteration, device ms per step
+               (device time over the steps run, masked ones included) and
+               per iteration, the idle share; for the graphed loop K, its
+               steps, host reads, replays and capture ms; the two held to
+               each other: the same iterations and x bit for bit on a
+               route whose kernel gives the same bits every call (SDIA
+               #2/#5/#8/#11, #3, #9, #4, complex128 WHELL), else iterations
+               within max(1, 10 %) and the true-residual gate (every solve
+               phase below does the same);
 6. sdia      — the 1024x1024 2-D Laplacian (1,048,576 rows) through
                ``coo_to_sdia`` and ``sdia_spmv`` (kernel #2), checked and
                timed as in 3;
@@ -59,6 +73,16 @@ the float64 geometry sweep, and checks them:
                (auto, whell), CG on the Laplacian auto-selected (whdia)
                and with ``fmt="sdia"``, and BiCGSTAB on the contiguous
                banded-11 system with ``fmt="whdia"``;
+13a. loop_k  — the graph's K: CG at K = 4, 8, 16 and 32 in turns, twice,
+               on the SPD flagship (fp32 whell), the Laplacian (fp32
+               whdia) and the float64 Laplacian (sdia): ms per
+               iteration, steps past convergence, host reads, capture ms;
+13b. mtx_solve — ``bench.py --mtx`` on the port: the Laplacian's lower
+               triangle written by ``io.write_mm`` under a ``symmetric``
+               banner, read back by ``io.read_mm`` equal to the COO, then
+               the bench's stages (load, convert: auto whdia, spmv: #6
+               against the golden, solve: the graphed CG to 1e-5, true
+               residual ≤ 1e-4);
 14. spmv_c64 — the flagship with values ``v + 1j·N(0, 1)``
                (``default_rng(8)``) as complex64 through kernel #7, held
                against its plain version and the complex128 host golden,
@@ -131,8 +155,8 @@ the float64 geometry sweep, and checks them:
                the golden, timed with its bound and its share of it
                (``bound_share``), beside kernel #1's device time from 3;
 25. solve_pcell — ``solve(spd, b, fmt="pcell", tol=1e-5)`` on the SPD
-               system of 5, counted on kernel #17's counter, with the CG
-               loop's ms and device ms per iteration and idle share;
+               system of 5, counted on kernel #17's counter, then the
+               graphed CG loop beside its eager witness as in 5;
 26. ablation_whdia, ablation_whdia_hack, ablation_whdia_laplace,
                ablation_whdia_hack_laplace — the per-op account of #3
                (kernel #18, ``spgpu_tpu_torch.sweeps.whdia_ablation``) on
@@ -186,6 +210,9 @@ Phases 26-28 and 29 run in fresh processes of this script
 for this one to emit): after the earlier phases' profiling sessions,
 sessions in this process lose events.
 
+Every time a solve phase prints carries the card's name and power limit
+(``card``).
+
 The library yardstick of a complex phase is the same CSR call in the
 complex type; where PyTorch refuses it, the row's ``library_ms`` holds
 the error text.
@@ -219,7 +246,8 @@ import numpy as np
 
 # the port itself: this import fails, with no result line, where chip_smoke.py
 # stands without the rest of the repository
-from spgpu_tpu_torch.utils.measure import bound, check_close, nbytes, nvidia_smi
+from spgpu_tpu_torch.utils.measure import (HBM_BYTES_PER_S, bound, check_close, nbytes,
+                                           nvidia_smi)
 
 #: kernel name -> (route, source, the TPU kernel it replaces)
 KERNELS = {
@@ -633,10 +661,55 @@ def whdia_phase(coo, mode, device, label):
     return out
 
 
+#: (fmt, value dtype name) of the solve routes whose kernel gives the same
+#: bits every call (SDIA #2/#5/#8/#11, #3, #9, #4 and complex128 WHELL):
+#: their graphed solves must equal the eager witness bit for bit; the
+#: others (#1, #7, #6, #10, #17) sum with atomics
+BIT_REPRODUCIBLE = {("sdia", "float32"), ("sdia", "float64"), ("sdia", "complex64"),
+                    ("sdia", "complex128"), ("whdia", "float32"),
+                    ("whdia", "complex64"), ("whell", "float64"),
+                    ("whell", "complex128")}
+
+
+def krylov_loop():
+    """The Krylov loop's module (``solvers.cg`` is the function)."""
+    import importlib
+
+    return importlib.import_module("spgpu_tpu_torch.solvers.cg")
+
+
+def loop_counts(reset=False) -> dict:
+    """The loop's counters (set to 0 first with ``reset``)."""
+    loop = krylov_loop()
+    if reset:
+        loop.STEPS = loop.HOST_READS = loop.REPLAYS = 0
+        loop.CAPTURE_MS = 0.0
+    return dict(device_steps=loop.STEPS, host_reads=loop.HOST_READS,
+                replays=loop.REPLAYS, capture_ms=loop.CAPTURE_MS)
+
+
+def check_reads(what, iterations, counts):
+    """At most one host read per graph of K steps, and two more."""
+    k = krylov_loop().GRAPH_STEPS
+    if counts["host_reads"] > -(-iterations // k) + 2:
+        raise AssertionError(f"{what}: {counts['host_reads']} host reads for "
+                             f"{iterations} iterations at K = {k}")
+
+
+def true_residual(coo, b, x) -> float:
+    """‖b − A·x‖ / ‖b‖ on the host in float64 (complex128)."""
+    x = np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+    x = x.astype(wide(x.dtype))
+    bb = np.asarray(b).astype(wide(np.asarray(b).dtype))
+    return float(np.linalg.norm(bb - coo.spmv(x)) / np.linalg.norm(bb))
+
+
 def counted_solve(coo, b, counter, device, tol, true_tol, **kw):
     """``solve()`` with the kernel's launch counter (``counter``: module,
-    attribute name) set to 0 just before and read just after; checks
-    convergence, one launch per iteration at least, and the float64 (or
+    attribute name) and the Krylov loop's counters set to 0 just before
+    and read just after; checks convergence, one launch per iteration at
+    least (each captured launch counts once per graph replay), at most
+    ``ceil(iterations / K) + 2`` host reads, and the float64 (or
     complex128) host true residual ≤ ``true_tol``."""
     import torch
 
@@ -644,11 +717,13 @@ def counted_solve(coo, b, counter, device, tol, true_tol, **kw):
 
     mod, attr = counter
     setattr(mod, attr, 0)
+    loop_counts(reset=True)
     t0 = time.perf_counter()
     res = solve(coo, b, device=device, tol=tol, **kw)
     torch.cuda.synchronize(device)
     solve_s = time.perf_counter() - t0
     launches = getattr(mod, attr)
+    counts = loop_counts()
     if not bool(res.converged):
         raise AssertionError(f"solve({kw}) did not converge in "
                              f"{res.iterations} iterations (residual "
@@ -656,56 +731,136 @@ def counted_solve(coo, b, counter, device, tol, true_tol, **kw):
     if launches < res.iterations:
         raise AssertionError(f"solve({kw}): {launches} kernel launches for "
                              f"{res.iterations} iterations")
+    check_reads(f"solve({kw})", res.iterations, counts)
     xs = res.x.cpu().numpy()
     xs = xs.astype(wide(xs.dtype))
-    bb = np.asarray(b).astype(wide(np.asarray(b).dtype))
-    true_res = float(np.linalg.norm(bb - coo.spmv(xs)) / np.linalg.norm(bb))
+    true_res = true_residual(coo, b, xs)
     if not true_res <= true_tol:
         raise AssertionError(f"solve({kw}): true residual {true_res} > {true_tol}")
+    bb = np.asarray(b).astype(wide(np.asarray(b).dtype))
     return res, xs, dict(iterations=res.iterations, launches=launches,
+                         graph_steps=krylov_loop().GRAPH_STEPS, **counts,
                          solve_total_s=solve_s, true_residual=true_res,
                          solver_residual=float(res.residual_norm
                                                / np.linalg.norm(bb)),
                          x_dtype=str(res.x.dtype))
 
 
-def loop_timing(solver, mv, b, tol):
-    """ms per iteration of the Krylov loop alone (host clock to a
-    synchronise) and device ms per iteration of 20 fixed iterations
-    (tol=0 never stops early), as in the solve phase.  The idle share is
-    null when the device time is not the profiler's (see ``timed``)."""
+#: iterations of each loop's profiled run (tol = 0: only ``maxiter`` or a
+#: BiCGSTAB breakdown stops it): a short window, as profiling thousands
+#: of iterations in one session leaves later sessions losing events
+PROFILED_ITERATIONS = 64
+
+
+def loop_pair(solver, mv, b, tol, exact, gate, smi, maxiter=20000):
+    """The Krylov loop alone on one layout: the graphed loop (``solver``:
+    "cg" or "bicgstab") and its eager witness, each solved to ``tol`` on
+    the host clock (to a synchronise), then run for
+    :data:`PROFILED_ITERATIONS` iterations in a profiling session.  Per
+    loop: ms per iteration of the solve; device ms per step of the
+    profiled run (its device time over the steps it ran: the graphed
+    loop's ``STEPS``, masked ones included; the eager loop's iterations),
+    its six largest device operations per step by name; device ms per
+    iteration of the solve (per step times its steps, over its
+    iterations); and the idle share of the solve (null when the device
+    time is not the profiler's); for the graphed loop also K, its steps,
+    host reads, replays and capture ms, with the card (``smi``).  Holds the
+    graphed solve to the witness: where ``exact`` (a kernel with the same
+    bits every call) the same iterations and ``x`` bit for bit, else
+    iterations within max(1, 10 %) and ``gate(x)`` (the true-residual
+    check, which raises) passing."""
     import torch
 
-    from spgpu_tpu_torch.utils.timing import device_ms
+    from spgpu_tpu_torch.utils.timing import device_ms, device_ms_by_kernel
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    r = solver(mv, b, tol=tol, maxiter=20000)
-    torch.cuda.synchronize()
-    ms = 1e3 * (time.perf_counter() - t0) / max(r.iterations, 1)
-    dev, src = device_ms(lambda: solver(mv, b, tol=0.0, maxiter=20), iters=1,
-                         warmup=1)
-    dev /= 20
-    return dict(loop_iterations=r.iterations, ms_per_iter=ms,
-                device_ms_per_iter=dev, device_source=src,
-                device_idle_share=1 - dev / ms if src == "profiler" else None)
+    loop = krylov_loop()
+    out = dict(card=smi, graph_steps=loop.GRAPH_STEPS)
+    got = {}
+    for tag, fn in (("graphed", getattr(loop, solver)),
+                    ("eager", getattr(loop, f"_{solver}_eager"))):
+        graphed = tag == "graphed"
+        runs = []
+
+        def run(tol, maxiter, fn=fn, runs=runs):
+            loop_counts(reset=True)
+            r = fn(mv, b, tol=tol, maxiter=maxiter)
+            counts = loop_counts()
+            runs.append((r, counts["device_steps"] if graphed else r.iterations,
+                         counts))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(tol, maxiter)
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        (r, steps, counts), = runs
+        window = lambda: run(0.0, PROFILED_ITERATIONS)  # noqa: E731
+        by_kernel = device_ms_by_kernel(window, iters=1, warmup=0, attempts=3)
+        dev, src = sum(by_kernel.values()), "profiler"
+        if not by_kernel:
+            dev, src = device_ms(window, iters=1, warmup=0, attempts=1)
+        steps_prof = max(runs[-1][1], 1)
+        per_step = dev / steps_prof
+        pre = "" if graphed else "eager_"
+        out.update({f"{pre}loop_iterations": r.iterations,
+                    f"{pre}solve_ms": host_ms,
+                    f"{pre}ms_per_iter": host_ms / max(r.iterations, 1),
+                    f"{pre}device_ms_per_step": per_step,
+                    f"{pre}device_ms_per_iter": per_step * steps / max(r.iterations, 1),
+                    f"{pre}device_source": src,
+                    f"{pre}profiled_steps": steps_prof,
+                    f"{pre}device_ms_per_step_by_kernel": {
+                        k: v / steps_prof for k, v in sorted(
+                            by_kernel.items(), key=lambda kv: -kv[1])[:6]},
+                    f"{pre}device_idle_share": (1 - per_step * steps / host_ms
+                                                if src == "profiler" else None)})
+        if graphed:
+            check_reads(f"{solver} graphed", r.iterations, counts)
+            out.update(counts)
+        got[tag] = r
+    g, e = got["graphed"], got["eager"]
+    if not (bool(g.converged) and bool(e.converged)):
+        raise AssertionError(f"{solver}: graphed or eager loop did not converge")
+    if exact:
+        if g.iterations != e.iterations or not torch.equal(g.x, e.x):
+            raise AssertionError(f"{solver}: graphed {g.iterations} iterations, "
+                                 f"eager {e.iterations}, or x not bit-identical")
+        out["vs_eager"] = "bit_identical"
+    else:
+        if abs(g.iterations - e.iterations) > max(1, e.iterations // 10):
+            raise AssertionError(f"{solver}: graphed {g.iterations} iterations, "
+                                 f"eager {e.iterations}")
+        out["vs_eager"] = "within_gate"
+    out["true_residual_graphed"] = gate(g.x)
+    return out
 
 
-def dia_solves(lap, band, device, dtype, tol, true_tol):
+def residual_gate(coo, b, true_tol, what, extract=None):
+    """``x`` (through ``extract`` first, for a lane-space x) → its true
+    residual, raising past ``true_tol``."""
+    def gate(x):
+        res = true_residual(coo, b, x if extract is None else extract(x))
+        if not res <= true_tol:
+            raise AssertionError(f"{what}: true residual {res} > {true_tol}")
+        return res
+    return gate
+
+
+def dia_solves(lap, band, device, dtype, tol, true_tol, smi):
     """CG on the Laplacian (or, complex, a Hermitian positive-definite
     system of its structure) auto-selected (whdia) and with
     ``fmt="sdia"``, BiCGSTAB on the contiguous band with ``fmt="whdia"``,
-    each counted on its kernel's launch counter and then timed on a fresh
-    layout."""
+    each counted on its kernel's launch counter, then the graphed loop
+    against its eager witness on a fresh layout."""
     import torch
 
     from spgpu_tpu_torch.convert import coo_to_sdia, coo_to_whdia, suggest_format
     from spgpu_tpu_torch.kernels import sdia as ks
     from spgpu_tpu_torch.kernels import whdia as kd
     from spgpu_tpu_torch.ops import sdia_spmv, whdia_spmv
-    from spgpu_tpu_torch.solvers import bicgstab, cg
 
-    attr = COUNTER[np.dtype(dtype).name]
+    name = np.dtype(dtype).name
+    attr = COUNTER[name]
     x_true = rand_vector(lap.n_rows, 1, wide(dtype))
     b_lap = lap.spmv(x_true).astype(dtype)
     fmt_lap = suggest_format(lap)
@@ -725,22 +880,27 @@ def dia_solves(lap, band, device, dtype, tol, true_tol):
     _, _, solves["bicgstab_whdia"] = counted_solve(
         band, b_band, (kd, attr), device, tol, true_tol, fmt="whdia",
         symmetric=False, maxiter=5000)
-    # the Krylov loops alone, on fresh layouts, for ms/iteration
+    # the Krylov loops alone, on fresh layouts: graphed against eager
     wl = coo_to_whdia(lap, device=device)
     sl = coo_to_sdia(lap, device=device)
     wb = coo_to_whdia(band, device=device)
     bl = torch.from_numpy(b_lap).to(device)
-    solves["cg_auto_whdia"].update(loop_timing(cg, lambda v: whdia_spmv(wl, v), bl, tol))
-    solves["cg_sdia"].update(loop_timing(cg, lambda v: sdia_spmv(sl, v), bl, tol))
     bb = torch.from_numpy(b_band).to(device)
-    solves["bicgstab_whdia"].update(loop_timing(
-        bicgstab, lambda v: whdia_spmv(wb, v), bb, tol))
+    for key, solver, fmt, mv, coo, rhs, b_host in (
+            ("cg_auto_whdia", "cg", "whdia", lambda v: whdia_spmv(wl, v), lap, bl, b_lap),
+            ("cg_sdia", "cg", "sdia", lambda v: sdia_spmv(sl, v), lap, bl, b_lap),
+            ("bicgstab_whdia", "bicgstab", "whdia", lambda v: whdia_spmv(wb, v),
+             band, bb, b_band)):
+        solves[key]["loop"] = loop_pair(
+            solver, mv, rhs, tol, (fmt, name) in BIT_REPRODUCIBLE,
+            residual_gate(coo, b_host, true_tol, f"{key} {name}"), smi)
     if np.dtype(dtype) in (np.float32, np.complex64):
         # #3 and #9 read only live slots and sum in their list's order:
         # their iteration counts stay within 10 % of the same solvers on
         # the plain version (every cell, the JAX kernel's product)
-        for key, solver, lay, rhs in (("cg_auto_whdia", cg, wl, bl),
-                                      ("bicgstab_whdia", bicgstab, wb, bb)):
+        loop = krylov_loop()
+        for key, solver, lay, rhs in (("cg_auto_whdia", loop._cg_eager, wl, bl),
+                                      ("bicgstab_whdia", loop._bicgstab_eager, wb, bb)):
             mv = lambda v, lay=lay: kd.whdia_spmv_plain(  # noqa: E731
                 lay.values, lay.slot_r0, lay.tile_r0, lay.tile_base,
                 lay.chunk_group, v, chunk_tiles=lay.chunk_tiles,
@@ -754,34 +914,163 @@ def dia_solves(lap, band, device, dtype, tol, true_tol):
     return solves
 
 
-def spd_solve(spd, device, dtype, tol, true_tol):
+def spd_solve(spd, device, dtype, tol, true_tol, smi):
     """CG on the SPD (or Hermitian positive-definite) system through
     ``solve()`` with auto-selection (must be whell), counted on the launch
-    counter of the WHELL kernel of ``dtype``, then the CG loop alone on a
-    fresh layout."""
+    counter of the WHELL kernel of ``dtype``, then the graphed loop
+    against its eager witness on a fresh layout."""
     import torch
 
     from spgpu_tpu_torch.convert import coo_to_whell, suggest_format
     from spgpu_tpu_torch.kernels import whell as kw
     from spgpu_tpu_torch.ops import whell_spmv
-    from spgpu_tpu_torch.solvers import cg
 
     fmt = suggest_format(spd)
     if fmt != "whell":
         raise AssertionError(f"auto-selection chose {fmt!r}, not whell")
     x_true = rand_vector(spd.n_rows, 1, wide(dtype))
     b = spd.spmv(x_true).astype(dtype)
-    attr = COUNTER[np.dtype(dtype).name]
-    _, xs, solved = counted_solve(spd, b, (kw, attr), device, tol, true_tol,
-                                  maxiter=5000)
+    name = np.dtype(dtype).name
+    _, xs, solved = counted_solve(spd, b, (kw, COUNTER[name]), device, tol,
+                                  true_tol, maxiter=5000)
+    work = getattr(torch, name)
     a = coo_to_whell(spd, device=device)
-    b_l = a.embed(torch.from_numpy(b), dtype=getattr(torch, np.dtype(dtype).name))
-    out = dict(fmt=fmt, nnz=spd.nnz, max_row_degree=int(spd.row_lengths().max()),
-               tiles=a.num_tiles, lane_space=a.n_rows,
-               padding=a.total_slots * 128 / spd.nnz, **solved,
-               **loop_timing(cg, lambda v: whell_spmv(a, v), b_l, tol),
-               x_err_vs_true=float(np.abs(xs - x_true).max()))
-    return out
+    b_l = a.embed(torch.from_numpy(b), dtype=work)
+    gate = residual_gate(spd, b, true_tol, f"cg whell {name}",
+                         extract=lambda x: a.extract(x, dtype=work))
+    return dict(fmt=fmt, nnz=spd.nnz, max_row_degree=int(spd.row_lengths().max()),
+                tiles=a.num_tiles, lane_space=a.n_rows,
+                padding=a.total_slots * 128 / spd.nnz, **solved,
+                loop=loop_pair("cg", lambda v: whell_spmv(a, v), b_l, tol,
+                               ("whell", name) in BIT_REPRODUCIBLE, gate, smi),
+                x_err_vs_true=float(np.abs(xs - x_true).max()))
+
+
+def loop_k_phase(spd, lap, lap64, device, smi):
+    """The graph's K: ``_cg`` at each K of 4, 8, 16 and 32 on three
+    systems (the flagship SPD system on fp32 whell, the Laplacian on fp32
+    whdia and on float64 sdia: 53 to 2,409 iterations), K in turns, twice
+    each; per run the host ms to a synchronise, ms per iteration, steps
+    run past convergence, host reads and capture ms."""
+    import torch
+
+    from spgpu_tpu_torch.convert import coo_to_sdia, coo_to_whdia, coo_to_whell
+    from spgpu_tpu_torch.ops import sdia_spmv, whdia_spmv, whell_spmv
+
+    loop = krylov_loop()
+    a = coo_to_whell(spd, device=device)
+    wl = coo_to_whdia(lap, device=device)
+    sl = coo_to_sdia(lap64, device=device)
+    x1 = rand_vector(lap.n_rows, 1, np.float64)
+    systems = {
+        "whell_fp32_spd": (lambda v: whell_spmv(a, v), a.embed(
+            torch.from_numpy(spd.spmv(rand_vector(spd.n_rows, 1, np.float64))
+                             .astype(np.float32)), dtype=torch.float32), 1e-5),
+        "whdia_fp32_laplace": (lambda v: whdia_spmv(wl, v), torch.from_numpy(
+            lap.spmv(x1).astype(np.float32)).to(device), 1e-5),
+        "sdia_f64_laplace": (lambda v: sdia_spmv(sl, v), torch.from_numpy(
+            lap64.spmv(x1)).to(device), 1e-10)}
+    table = {}
+    for name, (mv, b, tol) in systems.items():
+        rows = {k: [] for k in (4, 8, 16, 32)}
+        for _ in range(2):
+            for k in rows:
+                loop_counts(reset=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = loop._cg(mv, b, tol=tol, maxiter=20000, steps=k)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                counts = loop_counts()
+                rows[k].append(dict(ms=ms, ms_per_iter=ms / r.iterations,
+                                    iterations=r.iterations,
+                                    past_convergence=counts["device_steps"] - r.iterations,
+                                    **counts))
+        table[name] = {str(k): v for k, v in rows.items()}
+    return dict(card=smi, chosen=loop.GRAPH_STEPS, systems=table)
+
+
+def mtx_solve(device, smi):
+    """``bench.py --mtx`` (``bench.py:39-161``) on the port: the
+    Laplacian's lower triangle written with ``write_mm`` into a temporary
+    directory under a ``symmetric`` banner, read back with ``read_mm`` as
+    the bench reads it (float64 values) and held equal to the COO, then
+    the bench's stages with its keys: ``load`` (properties, seconds),
+    ``convert`` (auto-selected: must be whdia), ``spmv`` (``whdia_spmv``,
+    kernel #6, against the float64 golden; CUDA-event time) and ``solve``
+    (``solve()``'s graphed CG to 1e-5 on the bench's random ``b``, true
+    residual ≤ 1e-4)."""
+    import tempfile
+
+    import torch
+
+    from spgpu_tpu_torch.convert import coo_to_whdia, suggest_format
+    from spgpu_tpu_torch.formats.coo import CooMatrix
+    from spgpu_tpu_torch.io import read_mm, read_mm_properties, write_mm
+    from spgpu_tpu_torch.ops import whdia_spmv
+    from spgpu_tpu_torch.utils.fixtures import laplacian_2d
+    from spgpu_tpu_torch.utils.timing import time_interleaved
+
+    side = SIZES["lap"]
+    lap = laplacian_2d(side, side)
+    n = lap.n_rows
+    low = lap.rows >= lap.cols
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"laplace{side}.mtx")
+        t0 = time.perf_counter()
+        write_mm(path, CooMatrix(lap.rows[low], lap.cols[low], lap.values[low], n, n))
+        with open(path, "rb") as f:
+            banner, body = f.read().split(b"\n", 1)
+        with open(path, "wb") as f:
+            f.write(banner.replace(b"general", b"symmetric") + b"\n" + body)
+        write_s = time.perf_counter() - t0
+        del body
+        props = read_mm_properties(path)
+        t0 = time.perf_counter()
+        coo = read_mm(path).sum_duplicates()
+        load_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(path)
+    ref = lap.sum_duplicates()
+    if not (coo.shape == ref.shape and np.array_equal(coo.rows, ref.rows)
+            and np.array_equal(coo.cols, ref.cols)
+            and np.array_equal(coo.values, ref.values)):
+        raise AssertionError("mtx_solve: read_mm did not give back the Laplacian")
+    load = dict(stage="load", file=os.path.basename(path), symmetry=props.symmetry,
+                field=props.field, n_rows=coo.n_rows, n_cols=coo.n_cols, nnz=coo.nnz,
+                t_s=load_s, write_s=write_s, file_bytes=file_bytes,
+                lower_triangle_nnz=props.nnz, equals_coo=True)
+    fmt = suggest_format(coo)
+    fmt = {"dia": "sdia", "ell": "whell"}.get(fmt, fmt)
+    if fmt != "whdia":
+        raise AssertionError(f"mtx_solve: auto-selection chose {fmt!r}, not whdia")
+    t0 = time.perf_counter()
+    a = coo_to_whdia(coo, device=device)
+    torch.cuda.synchronize(device)
+    arrays = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group,
+              a.hack_slot_ptr, a.hack_slots)
+    convert = dict(stage="convert", fmt=fmt, t_s=time.perf_counter() - t0,
+                   pad_factor=a.values.numel() / coo.nnz,
+                   storage_bytes=nbytes(*arrays))
+    rng = np.random.default_rng(1)  # as the bench draws x, then b
+    x = rng.standard_normal(n)
+    xt = torch.from_numpy(x).to(device)
+    z = whdia_spmv(a, xt)
+    err = check_close(z, coo.spmv(x), 0.0, 1e-12, "mtx_solve: spmv vs golden")
+    t = time_interleaved({"spmv": lambda: whdia_spmv(a, xt)})["spmv"]["best_ms"] / 1e3
+    spmv = dict(stage="spmv", fmt=fmt, t_avg_s=t, gflops=2.0 * coo.nnz / t * 1e-9,
+                checksum=float((z.double() * z.double()).sum()),
+                roofline_frac=(convert["storage_bytes"] + n * 8) / t / HBM_BYTES_PER_S,
+                max_abs_err_vs_golden=err, card=smi)
+    b = rng.standard_normal(n)
+    from spgpu_tpu_torch.kernels import whdia as kd
+
+    _, _, solved = counted_solve(coo, b, (kd, "LAUNCHES_F64"), device, 1e-5, 1e-4,
+                                 symmetric=props.is_symmetric, maxiter=5000)
+    solve = dict(stage="solve", solver="cg" if props.is_symmetric else "bicgstab",
+                 true_resid=solved["true_residual"], t_s=solved["solve_total_s"],
+                 card=smi, **solved)
+    return dict(fixture=f"laplacian_2d({side}, {side}) lower triangle, symmetric banner",
+                load=load, convert=convert, spmv=spmv, solve=solve)
 
 
 def rhs_stack(n, dtype=np.float32):
@@ -1298,17 +1587,17 @@ def pcell_phase(coo, device, spmv, label):
     return dict(out, bound_share=out["bound_ms"] / t["kernel_device_ms"])
 
 
-def solve_pcell(spd, device):
+def solve_pcell(spd, device, smi):
     """``solve(spd, b, fmt="pcell", tol=1e-5)``, counted on kernel #17's
-    counter from 0 (true residual ≤ 1e-4), then the CG loop alone on the
-    pcell layout that ``solve()`` built (kept by wrapping its converter:
-    a second conversion of the SPD system takes about 20 s) for its ms and
-    device ms per iteration."""
+    counter from 0 (true residual ≤ 1e-4), then the graphed CG loop
+    against its eager witness on the pcell layout that ``solve()`` built
+    (kept by wrapping its converter: a second conversion of the SPD system
+    takes about 20 s)."""
     import torch
 
     from spgpu_tpu_torch import ops
     from spgpu_tpu_torch.kernels import pcell as kp
-    from spgpu_tpu_torch.solvers import auto, cg
+    from spgpu_tpu_torch.solvers import auto
 
     x_true = rand_vector(spd.n_rows, 1, np.float64)
     b = spd.spmv(x_true).astype(np.float32)
@@ -1322,8 +1611,9 @@ def solve_pcell(spd, device):
         auto.coo_to_whell_percell = convert
     p, = built
     return dict(nnz=spd.nnz, tiles=p.num_tiles, padding=p.total_slots * 128 / spd.nnz,
-                **solved, **loop_timing(cg, lambda v: ops.whell_spmv(p, v),
-                                        torch.from_numpy(b).to(device), 1e-5),
+                **solved, loop=loop_pair("cg", lambda v: ops.whell_spmv(p, v),
+                                         torch.from_numpy(b).to(device), 1e-5, False,
+                                         residual_gate(spd, b, 1e-4, "cg pcell"), smi),
                 x_err_vs_true=float(np.abs(xs - x_true).max()))
 
 
@@ -1862,7 +2152,7 @@ def main() -> int:
 
     # --- SPD solve: the main path, counted -----------------------------
     spd = spd_from(coo)  # kept for the solve_pcell phase
-    solve = spd_solve(spd, device, np.float32, 1e-5, 1e-4)
+    solve = spd_solve(spd, device, np.float32, 1e-5, 1e-4, smi)
     emit("solve", **solve)
 
     # --- SDIA: the 2-D Laplacian, kernel #2 -----------------------------
@@ -1879,7 +2169,7 @@ def main() -> int:
 
     # --- DIA-class solves through solve(): the second route, counted -----
     band = random_banded(SIZES["band"], 11, wander=0, seed=2, dtype=np.float32)
-    solves = dia_solves(lap, band, device, np.float32, 1e-5, 1e-4)
+    solves = dia_solves(lap, band, device, np.float32, 1e-5, 1e-4, smi)
     emit("solve_dia", **solves)
 
     # --- float64: the flagship through kernel #4 --------------------------
@@ -1913,10 +2203,14 @@ def main() -> int:
 
     # --- float64 solves through solve(), counted --------------------------
     solve64 = {"cg_auto_whell": spd_solve(spd_from(coo64, np.float64), device,
-                                          np.float64, 1e-10, 1e-9)}
+                                          np.float64, 1e-10, 1e-9, smi)}
     band64 = random_banded(SIZES["band"], 11, wander=0, seed=2, dtype=np.float64)
-    solve64.update(dia_solves(lap64, band64, device, np.float64, 1e-10, 1e-9))
+    solve64.update(dia_solves(lap64, band64, device, np.float64, 1e-10, 1e-9, smi))
     emit("solve_f64", **solve64)
+
+    # --- the graph's K, and a Matrix Market file through the graphed CG ---
+    emit("loop_k", **loop_k_phase(spd, lap, lap64, device, smi))
+    emit("mtx_solve", **mtx_solve(device, smi))
 
     # --- complex64 and complex128 (C and Z): kernels #7-#11 and the ------
     # --- complex128 WHELL kernel, on the JAX benchmark's complex fixtures
@@ -1949,10 +2243,10 @@ def main() -> int:
             "laplace": whdia_phase(lap_c, "slab", device, f"whdia laplace {tag}")}
         emit(f"whdia_{tag}", **whdia_c[tag])
         solve_c[tag] = {"cg_auto_whell": spd_solve(spd_from(cz, dt), device, dt,
-                                                   tol, true_tol)}
+                                                   tol, true_tol, smi)}
         solve_c[tag].update(dia_solves(spd_from(lap_c, dt),
                                        dominant(with_imag(band64, 8, dt)),
-                                       device, dt, tol, true_tol))
+                                       device, dt, tol, true_tol, smi))
         del cz, lap_c
     emit("solve_complex", **solve_c)
 
@@ -2006,7 +2300,7 @@ def main() -> int:
     # --- per-cell routing: kernel #17 on the raw flagship, then solve() ---
     pcell = pcell_phase(coo, device, spmv, "pcell")
     emit("pcell", fixture="flagship", **pcell)
-    solve_p = solve_pcell(spd, device)
+    solve_p = solve_pcell(spd, device, smi)
     emit("solve_pcell", fixture="flagship SPD form", **solve_p)
 
     # --- the per-op accounts (kernels #18, #19) and #4's geometries -------

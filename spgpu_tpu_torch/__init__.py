@@ -17,6 +17,11 @@ runs its routes on the GPU, each through a hand CUDA kernel:
     WHELL SpMV (kernels/ablation.py) and the float64 WHELL geometry sweep:
     python -m spgpu_tpu_torch.sweeps.<whdia_ablation|dd_ablation|dd_geom_sweep>
 
+A Matrix Market file comes in through ``io.read_mm`` (and goes out through
+``io.write_mm``), as in the JAX package, to ``solvers.solve``, whose CG
+and BiCGSTAB iterate on a CUDA device as replays of a CUDA graph of
+masked steps: the host reads one flag per replay, not one per iteration.
+
 The multi-RHS products ``ops.whell_spmm``, ``sdia_spmm`` and
 ``whdia_spmm`` take ``(n_rhs, n)`` stacks on the same layouts, fused in
 one kernel per route (fp32, and bf16 on WHELL) or as a loop of the SpMV.
@@ -30,7 +35,7 @@ Every function takes an explicit ``device``; CPU tensors run the plain
 PyTorch version of each kernel.
 """
 
-from spgpu_tpu_torch import convert, core, formats, kernels, ops, solvers, utils  # noqa: F401
+from spgpu_tpu_torch import convert, core, formats, io, kernels, ops, solvers, utils  # noqa: F401
 from spgpu_tpu_torch.convert import (  # noqa: F401
     coo_to_sdia,
     coo_to_whdia,
@@ -47,6 +52,7 @@ from spgpu_tpu_torch.formats import (  # noqa: F401
     WhdiaMatrix,
     WhellMatrix,
 )
+from spgpu_tpu_torch.io import MmProperties, read_mm, read_mm_properties, write_mm  # noqa: F401
 from spgpu_tpu_torch.ops import (  # noqa: F401
     sdia_spmm,
     sdia_spmv,
@@ -56,5 +62,8 @@ from spgpu_tpu_torch.ops import (  # noqa: F401
     whell_spmv,
 )
 from spgpu_tpu_torch.solvers import solve  # noqa: F401
+from spgpu_tpu_torch.utils.hostmem import tune_malloc as _tune_malloc
+
+_tune_malloc()  # as the JAX package does: conversions' NumPy temporaries stay resident
 
 __version__ = "0.1.0"

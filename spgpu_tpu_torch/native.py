@@ -5,7 +5,8 @@ copy of the JAX package's ``native/conversion.cpp`` (a test holds the two
 identical, but for one comment that cites spGPU's sources by a relative
 path), compiled into ``spgpu_tpu_torch/_build/`` with
 the JAX package's ``g++`` flags, so both packages run the same first-fit
-assigner and WHDIA tiler and produce bit-identical layouts.  The port
+assigner and WHDIA tiler and produce bit-identical layouts, and the same
+Matrix Market tokenizer (:func:`mm_parse`).  The port
 reads no file of the JAX package.
 
 There is no NumPy fallback: the fallback assigner gives a different and
@@ -23,7 +24,7 @@ import time
 
 import numpy as np
 
-__all__ = ["BUILD_DIR", "SOURCE", "build", "whdia_tile", "whell_assign",
+__all__ = ["BUILD_DIR", "SOURCE", "build", "mm_parse", "whdia_tile", "whell_assign",
            "whell_hack_fill", "whell_gather_assign", "whell_gather_assign_par",
            "whell_scatter_slabs"]
 
@@ -95,6 +96,9 @@ def _load():
         lib.whell_scatter_slabs.argtypes = [
             _i64, ctypes.c_void_p, _i64, _i64, _i64, _i64, _i8, _i8,
             _n, _n, ctypes.c_void_p, _i8, _i8, _i64]
+        lib.mm_parse.restype = ctypes.c_int64
+        lib.mm_parse.argtypes = [ctypes.c_char_p, _n, _n, _n, _i64, _i64,
+                                 ctypes.POINTER(ctypes.c_double)]
         _lib = lib
         return lib
 
@@ -225,3 +229,34 @@ def whell_scatter_slabs(order, vals, g_tile0, gid, k, lane, res, dlt,
         ctypes.c_void_p(vslab.ctypes.data), _p(rslab, _i8), _p(pslab, _i8),
         _p(slot, _i64))
     return vslab, rslab, pslab, slot
+
+
+def mm_parse(buf: bytes, ntok: int, nnz: int):
+    """Parallel strict tokenizer for a Matrix Market coordinate body.
+
+    ``ntok`` = tokens per line (2 pattern / 3 real-integer / 4 complex);
+    returns ``(rows, cols, vals)`` int64/int64/float64 arrays (``vals``
+    shape ``(n, 2)`` for complex, ``(n,)`` real/integer, size 0
+    pattern), or ``None`` when the body is malformed or line-misaligned
+    (callers fall back to ``np.loadtxt``).  Row/col are returned 1-BASED
+    as in the file.  A missing compiler raises (:func:`build`)."""
+    lib = _load()
+    if isinstance(buf, str):
+        buf = buf.encode("ascii", errors="replace")
+    nval = ntok - 2
+    cap = nnz + 8
+    rows = np.empty(cap, dtype=np.int64)
+    cols = np.empty(cap, dtype=np.int64)
+    vals = np.empty(cap * (2 if nval == 2 else 1) if nval else 1,
+                    dtype=np.float64)
+    n = lib.mm_parse(buf, len(buf), ntok, cap, _p(rows, _i64), _p(cols, _i64),
+                     vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+    if n != nnz:
+        return None
+    if nval == 2:
+        v = vals[: 2 * n].reshape(n, 2)
+    elif nval == 1:
+        v = vals[:n]
+    else:
+        v = vals[:0]
+    return rows[:n], cols[:n], v

@@ -40,10 +40,18 @@ def scal(alpha, x: torch.Tensor) -> torch.Tensor:
 
 
 def axpby(alpha, x: torch.Tensor, beta, y: torch.Tensor) -> torch.Tensor:
-    """``z = beta*y + alpha*x``; a static ``beta == 0`` never reads y."""
+    """``z = beta*y + alpha*x``; a static ``beta == 0`` never reads y.  On
+    real floating vectors a static 1 skips its multiply (``1.0 * v`` is
+    ``v`` bit for bit there; a complex product by 1 can flip a zero's
+    sign, so complex vectors keep it)."""
     if _is_static_zero(beta):
         return alpha * x
-    return alpha * x + beta * y
+    ax = x if _is_static_one(alpha, x) else alpha * x
+    return ax + (y if _is_static_one(beta, y) else beta * y)
+
+
+def _is_static_one(v, t: torch.Tensor) -> bool:
+    return (isinstance(v, (int, float)) and v == 1 and t.is_floating_point())
 
 
 def axy(alpha, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

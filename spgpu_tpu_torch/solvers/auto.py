@@ -11,6 +11,13 @@ iterate in the original numbering.  The TPU budget switches
 left out: the port builds one layout at any size.  Formats the port does
 not have yet raise ``NotImplementedError`` instead of re-routing.
 
+Every route iterates through :mod:`spgpu_tpu_torch.solvers.cg`: on a CUDA
+device as replays of a CUDA graph of masked CG or BiCGSTAB steps (the
+counterpart of the JAX ``lax.while_loop``; the host reads one flag per
+replay), on the CPU as eager steps.  The layout, the embedding of ``b``
+and ``x0`` into lane space, the extraction of ``x`` and the Jacobi
+preconditioner are built once, outside the loop.
+
 float64 systems run the same three routes with float64 layouts, kernels
 and work vectors: the counterpart of the JAX double-float routes
 (``cg_dd``/``bicgstab_dd`` on hi/lo pairs), with the plain CG/BiCGSTAB

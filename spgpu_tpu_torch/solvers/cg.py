@@ -1,32 +1,78 @@
 """Krylov solvers: CG and BiCGSTAB, on any device.
 
 Counterpart of :mod:`spgpu_tpu.solvers.cg` (``cg``, ``bicgstab``,
-``jacobi_preconditioner``).  The JAX versions run the iteration as one
-``lax.while_loop``; here it is a Python loop over PyTorch ops, in the
-type of ``b``.  float64 vectors iterate in native float64, so the same
-loops are also the counterparts of ``cg_dd`` and ``bicgstab_dd``, whose
-double-float arithmetic the GPU does not need.  complex64 and complex128
-vectors iterate in their complex type: ``cg`` for Hermitian
-positive-definite systems (every CG scalar is the real part of a
-conjugated product, as in ``cg_herm_planes``) and ``bicgstab`` with
-sesquilinear products (``conj(u)·v``, as in ``bicgstab_planes``), so the
-same loops are also the counterparts of those two and of their ``_dd``
-variants, on one complex vector instead of ``[re, im]`` plane stacks.
-Vectors and scalars stay on the device; the loop test reads one scalar per
-iteration back to the host (a CUDA graph of the iteration is later work).
+``jacobi_preconditioner``).  The JAX versions run the whole iteration as
+one ``lax.while_loop`` under jit: nothing crosses to the host until the
+caller reads the result.  Here each solver is a state and a step.  The
+state (iterate, residual, search vectors, Krylov scalars, the iteration
+count ``k`` and, for BiCGSTAB, the breakdown flag) lives in tensors
+allocated once, on ``b``'s device, in ``b``'s type.  The step first
+computes on the device whether the iteration still runs (``active``: the
+JAX loop's condition), then runs the iteration's body and writes every
+state tensor in place, masked by ``active``, and adds ``active`` to
+``k``.  An inactive step changes nothing; an active one computes exactly
+what a plain loop computes.
+
+On a CUDA device the first step runs eagerly (it loads every kernel and
+library the step reaches), then :data:`GRAPH_STEPS` steps are captured in
+one ``torch.cuda.CUDAGraph`` and replayed until a replay ends inactive.
+The host reads one flag per replay: it is copied into pinned memory behind
+the replay, and the next replay is queued before the host waits for it
+(a replay after the last active step is masked through and changes
+nothing).  The graph and its memory pool are released before the solver
+returns.  A matvec that cannot be captured (one that reads a value back to
+the host, say) makes the solver raise; nothing then runs eagerly instead,
+as the JAX ``while_loop`` likewise needs a traceable matvec.  The kernel
+modules' launch counters count a captured launch once per replay
+(:func:`spgpu_tpu_torch.kernels.add_launches`).  On the CPU the same step
+runs eagerly, one at a time, with a host test after each: bit for bit the
+plain loop, which stays as the private witnesses ``_cg_eager`` and
+``_bicgstab_eager``.
+
+float64 vectors iterate in native float64, so the same loops are also
+the counterparts of ``cg_dd`` and ``bicgstab_dd``, whose double-float
+arithmetic the GPU does not need.  complex64 and complex128 vectors
+iterate in their complex type: ``cg`` for Hermitian positive-definite
+systems (every CG scalar is the real part of a conjugated product, as in
+``cg_herm_planes``) and ``bicgstab`` with sesquilinear products
+(``conj(u)·v``, as in ``bicgstab_planes``), so the same loops are also the
+counterparts of those two and of their ``_dd`` variants, on one complex
+vector instead of ``[re, im]`` plane stacks.
+
+``STEPS`` counts the steps run (masked ones included), ``HOST_READS`` the
+flag reads, ``REPLAYS`` the chunks of steps after the first read (graph
+replays on a CUDA device, chunks of eager steps on the CPU) and
+``CAPTURE_MS`` the host milliseconds spent capturing graphs; like the
+kernels' launch counters they are process-wide and not thread-safe.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from spgpu_tpu_torch import kernels
 from spgpu_tpu_torch.core import real_part_dtype
 from spgpu_tpu_torch.ops import blas1
 
-__all__ = ["CgResult", "cg", "bicgstab", "jacobi_preconditioner"]
+__all__ = ["CAPTURE_MS", "CgResult", "GRAPH_STEPS", "HOST_READS", "REPLAYS",
+           "STEPS", "bicgstab", "cg", "jacobi_preconditioner"]
+
+#: steps captured in one CUDA graph, chosen on the H100 from 4, 8, 16 and
+#: 32 by ms per iteration against steps run past convergence (PERF.md §6):
+#: with the next replay queued before each read, 4 steps keep the card
+#: busy, and more only add capture time and masked steps
+GRAPH_STEPS = 4
+
+#: steps run (masked ones included), flag reads, chunks of steps after the
+#: first read (graph replays on CUDA) and host ms spent capturing graphs
+STEPS = 0
+HOST_READS = 0
+REPLAYS = 0
+CAPTURE_MS = 0.0
 
 
 class CgResult(NamedTuple):
@@ -51,6 +97,18 @@ def _bnorm(dotp, b):
     return torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
 
 
+def _dot(cplx: bool):
+    """The solvers' inner product: sesquilinear for complex vectors."""
+    return lambda u, v: blas1.dot(u, v, conjugate=cplx)
+
+
+def _write(mask, pairs) -> None:
+    """Each ``old`` state tensor takes its ``new`` value where ``mask``
+    holds and keeps its own elsewhere, in place."""
+    for old, new in pairs:
+        torch.where(mask, new, old, out=old)
+
+
 def cg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
        x0: Optional[torch.Tensor] = None, tol: float = 1e-10,
        maxiter: int = 1000, m_inv: Optional[torch.Tensor] = None) -> CgResult:
@@ -59,7 +117,229 @@ def cg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     diagonal preconditioner vector).  Every scalar is real: ``rz =
     Re<r,z>``, ``alpha = rz / Re<p,Ap>``, ``beta = rz_new / rz`` (a
     complex ``<p,Ap>`` would give alpha an imaginary part of rounding
-    size).  Stops when ‖r‖ ≤ tol·‖b‖ or after ``maxiter`` iterations."""
+    size).  Stops when ‖r‖ ≤ tol·‖b‖ or after ``maxiter`` iterations.  On
+    a CUDA device the iteration runs as CUDA-graph replays (module
+    docstring); ``matvec`` must be capturable there."""
+    return _cg(matvec, b, x0, tol, maxiter, m_inv)
+
+
+def bicgstab(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
+             x0: Optional[torch.Tensor] = None, tol: float = 1e-10,
+             maxiter: int = 1000,
+             m_inv: Optional[torch.Tensor] = None) -> CgResult:
+    """BiCGSTAB for general systems.  Complex vectors take sesquilinear
+    products (``conj(r̂)·r``, ``conj(r̂)·v``, ``conj(t)·s``; ``<t,t>`` is
+    real).  On breakdown (ρ, r̂·v or ω ≈ 0 — for complex, a squared
+    modulus below ``tiny`` — or a non-finite residual) the iterate
+    freezes and the loop stops.  On a CUDA device the iteration runs as
+    CUDA-graph replays (module docstring); ``matvec`` must be capturable
+    there."""
+    return _bicgstab(matvec, b, x0, tol, maxiter, m_inv)
+
+
+def _cg(matvec, b, x0=None, tol=1e-10, maxiter=1000, m_inv=None,
+        steps: Optional[int] = None) -> CgResult:
+    """:func:`cg` with ``steps`` per chunk (default: :data:`GRAPH_STEPS`
+    on CUDA, 1 on the CPU); the tests run chunks of several eager steps
+    on the CPU with it."""
+    dotp = _dot(b.is_complex())
+
+    def re_dot(u, v):
+        return torch.real(dotp(u, v))
+
+    def prec(v):
+        return v * m_inv if m_inv is not None else v
+
+    dev = b.device
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    r = b - matvec(x)
+    z = prec(r)
+    rz = re_dot(r, z)
+    thresh = tol * _bnorm(dotp, b)
+    p = z.clone()
+    k = torch.zeros((), dtype=torch.int64, device=dev)
+    active = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def step():
+        torch.logical_and(torch.sqrt(re_dot(r, r)) > thresh, k < maxiter,
+                          out=active)
+        ap = matvec(p)
+        alpha = rz / re_dot(p, ap)
+        x_new = blas1.axpby(alpha, p, 1.0, x)
+        r_new = blas1.axpby(-alpha, ap, 1.0, r)
+        z = prec(r_new)
+        rz_new = re_dot(r_new, z)
+        p_new = blas1.axpby(1.0, z, rz_new / rz, p)
+        _write(active, ((x, x_new), (r, r_new), (p, p_new), (rz, rz_new)))
+        k.add_(active)
+
+    _run(step, active, steps, dev)
+    rnorm = torch.sqrt(re_dot(r, r))
+    return CgResult(x, int(k), rnorm, rnorm <= thresh)
+
+
+def _bicgstab(matvec, b, x0=None, tol=1e-10, maxiter=1000, m_inv=None,
+              steps: Optional[int] = None) -> CgResult:
+    """:func:`bicgstab` with ``steps`` per chunk, as :func:`_cg`."""
+    cplx = b.is_complex()
+    dotp = _dot(cplx)
+    tiny = torch.finfo(real_part_dtype(b.dtype)).tiny
+
+    def small(s):
+        if cplx:
+            return s.real * s.real + s.imag * s.imag < tiny
+        return torch.abs(s) < tiny
+
+    def prec(v):
+        return v * m_inv if m_inv is not None else v
+
+    dev = b.device
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    r = b - matvec(x)
+    rhat = r.clone()
+    thresh = tol * _bnorm(dotp, b)
+    one = torch.ones((), dtype=b.dtype, device=dev)
+    p, v = torch.zeros_like(b), torch.zeros_like(b)
+    rho, alpha, omega = one.clone(), one.clone(), one.clone()
+    down = torch.zeros((), dtype=torch.bool, device=dev)
+    k = torch.zeros((), dtype=torch.int64, device=dev)
+    active = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def step():
+        torch.logical_and(
+            (torch.sqrt(torch.real(dotp(r, r))) > thresh) & (k < maxiter),
+            ~down, out=active)
+        rho_new = dotp(rhat, r)
+        beta = (rho_new / rho) * (alpha / omega)
+        p_new = r + beta * (p - omega * v)
+        phat = prec(p_new)
+        v_new = matvec(phat)
+        rv = dotp(rhat, v_new)
+        alpha_new = rho_new / rv
+        s_vec = r - alpha_new * v_new
+        shat = prec(s_vec)
+        t = matvec(shat)
+        tt = torch.real(dotp(t, t))
+        ts = dotp(t, s_vec)
+        omega_new = torch.where(tt == 0, torch.zeros_like(ts),
+                                ts / torch.where(tt == 0, torch.ones_like(tt), tt))
+        x_new = x + alpha_new * phat + omega_new * shat
+        r_new = s_vec - omega_new * t
+        down_new = (small(rho_new) | small(rv) | small(omega_new)
+                    | ~torch.isfinite(torch.real(dotp(r_new, r_new))))
+        # a breakdown freezes the iterate, the residual and omega
+        _write(active & ~down_new, ((x, x_new), (r, r_new), (omega, omega_new)))
+        _write(active, ((p, p_new), (v, v_new), (rho, rho_new),
+                        (alpha, alpha_new), (down, down_new)))
+        k.add_(active)
+
+    _run(step, active, steps, dev)
+    rnorm = torch.sqrt(torch.real(dotp(r, r)))
+    return CgResult(x, int(k), rnorm, rnorm <= thresh)
+
+
+def _run(step: Callable[[], None], active: torch.Tensor, steps: Optional[int],
+         device: torch.device) -> None:
+    """Run ``step`` until a chunk of steps ends with ``active`` false (an
+    inactive step changes nothing, and every later one is inactive too).
+
+    On the CPU: chunks of ``steps`` eager steps (default 1), the flag read
+    after each.  On CUDA: one eager step and a read, then replays of a
+    graph of ``steps`` steps (default :data:`GRAPH_STEPS`), one read per
+    replay, the next replay queued before the wait."""
+    global STEPS, HOST_READS, REPLAYS
+    if device.type != "cuda":
+        steps = steps or 1
+        while True:
+            for _ in range(steps):
+                step()
+            STEPS += steps
+            REPLAYS += 1
+            HOST_READS += 1
+            if not bool(active):
+                return
+    steps = steps or GRAPH_STEPS
+    step()  # eagerly: loads every kernel and library before the capture
+    STEPS += 1
+    HOST_READS += 1
+    if not bool(active):
+        return
+    graph, launched = _capture(step, steps, device)
+    try:
+        _replay(graph, launched, active, steps)
+    finally:
+        graph.reset()
+
+
+def _capture(step, steps: int, device: torch.device):
+    """``steps`` steps captured in a new CUDA graph with its own memory
+    pool, on a side stream (thread-local capture mode, so solves in other
+    threads may run meanwhile), and the launch counts the capture added,
+    taken back off the counters: a captured kernel has not run.  A step
+    that cannot be captured raises ``RuntimeError``."""
+    global CAPTURE_MS
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with torch.cuda.stream(stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                for _ in range(steps):
+                    step()
+            finally:
+                graph.capture_end()  # raises when a step broke the capture
+    except RuntimeError as err:
+        graph.reset()
+        raise RuntimeError(
+            "the Krylov step cannot be captured in a CUDA graph (a matvec "
+            "that reads the host or synchronises?); the solvers do not run "
+            "eagerly on CUDA instead") from err
+    finally:
+        launched = kernels.launch_counts_since(before)
+        kernels.add_launches(launched, -1)
+    torch.cuda.current_stream(device).wait_stream(stream)
+    CAPTURE_MS += 1e3 * (time.perf_counter() - t0)
+    return graph, launched
+
+
+def _replay(graph, launched, active: torch.Tensor, steps: int) -> None:
+    """Replay ``graph`` on the current stream until a replay ends with
+    ``active`` false.  Each replay's flag is copied into pinned memory
+    behind it and an event recorded; the next replay is queued before the
+    host waits on that event, so the device does not idle during the
+    read.  Waits for the last replay before returning."""
+    global HOST_READS
+    flags = torch.empty(2, dtype=torch.bool, pin_memory=True)
+    done = [torch.cuda.Event(), torch.cuda.Event()]
+
+    def launch(i):
+        global STEPS, REPLAYS
+        graph.replay()
+        flags[i % 2].copy_(active, non_blocking=True)
+        done[i % 2].record()
+        kernels.add_launches(launched)
+        STEPS += steps
+        REPLAYS += 1
+
+    launch(0)
+    i = 0
+    while True:
+        launch(i + 1)
+        done[i % 2].synchronize()
+        HOST_READS += 1
+        if not bool(flags[i % 2]):
+            break
+        i += 1
+    done[(i + 1) % 2].synchronize()
+
+
+def _cg_eager(matvec, b, x0=None, tol=1e-10, maxiter=1000, m_inv=None) -> CgResult:
+    """The plain CG loop, one host read per iteration: the witness the
+    tests and ``chip_smoke.py`` hold :func:`cg` to (never on a solve
+    route)."""
 
     def dotp(u, v):
         return blas1.dot(u, v, conjugate=u.is_complex())
@@ -88,15 +368,10 @@ def cg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     return CgResult(x, k, rnorm, rnorm <= thresh)
 
 
-def bicgstab(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
-             x0: Optional[torch.Tensor] = None, tol: float = 1e-10,
-             maxiter: int = 1000,
-             m_inv: Optional[torch.Tensor] = None) -> CgResult:
-    """BiCGSTAB for general systems.  Complex vectors take sesquilinear
-    products (``conj(r̂)·r``, ``conj(r̂)·v``, ``conj(t)·s``; ``<t,t>`` is
-    real).  On breakdown (ρ, r̂·v or ω ≈ 0 — for complex, a squared
-    modulus below ``tiny`` — or a non-finite residual) the iterate
-    freezes and the loop stops."""
+def _bicgstab_eager(matvec, b, x0=None, tol=1e-10, maxiter=1000,
+                    m_inv=None) -> CgResult:
+    """The plain BiCGSTAB loop, one host read per iteration: the witness
+    of :func:`bicgstab`, as :func:`_cg_eager` is of :func:`cg`."""
     cplx = b.is_complex()
 
     def dotp(u, v):

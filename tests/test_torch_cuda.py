@@ -57,6 +57,8 @@ and 4 tiles per block: it is checked on a tile count that is not a
 multiple of 4.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 
@@ -1724,3 +1726,184 @@ def test_whdia_sweep_on_both_fixtures_on_the_card(matrix, size, family, cuda_dev
     if family == "hack":
         assert [r["n_rhs"] for r in rows] == [1] * 4 + [8] * 4
         assert res["library_spmm"]["per_call_ms"] > 0
+
+
+# --------------------------------------------------------------------------
+# the Krylov loop: CUDA-graph replays of masked CG and BiCGSTAB steps
+
+#: the loop's module (``solvers.cg`` is the function of that name)
+loop = importlib.import_module("spgpu_tpu_torch.solvers.cg")
+
+#: (fmt, dtype) of every solve() route -> whether its kernel gives the same
+#: bits every call (SDIA #2/#5/#8/#11, #3, #9, #4 and complex128 WHELL);
+#: #1, #7, #6, #10 and #17 sum with atomics
+GRAPH_ROUTES = {("whell", "float32"): False, ("whell", "float64"): True,
+                ("whell", "complex64"): False, ("whell", "complex128"): True,
+                ("sdia", "float32"): True, ("sdia", "float64"): True,
+                ("sdia", "complex64"): True, ("sdia", "complex128"): True,
+                ("whdia", "float32"): True, ("whdia", "float64"): False,
+                ("whdia", "complex64"): True, ("whdia", "complex128"): False,
+                ("pcell", "float32"): False}
+
+
+def _loop_system(dtype, symmetric):
+    """CG: the wide Laplacian (complex: made Hermitian positive-definite);
+    BiCGSTAB: a contiguous band; ``b`` from ``default_rng(11)``; the
+    solver tolerance and the true-residual gate of ``dtype``."""
+    cplx = np.dtype(dtype).kind == "c"
+    c = CASES["laplace_wide"]() if symmetric else random_banded(3000, bands=11, seed=2)
+    if cplx:
+        coo = _hermitian(_complex(c, dtype)) if symmetric else _complex(c, dtype)
+        b = _cvec(coo.n_rows, 11).astype(dtype)
+    else:
+        coo = CooMatrix(c.rows, c.cols, c.values.astype(dtype), c.n_rows, c.n_cols)
+        b = np.random.default_rng(11).standard_normal(coo.n_rows).astype(dtype)
+    tols = (1e-5, 1e-4) if dtype in ("float32", "complex64") else (1e-10, 1e-9)
+    return coo, b, *tols
+
+
+def _true_residual(coo, b, x):
+    wide = np.complex128 if np.iscomplexobj(b) else np.float64
+    x = x.cpu().numpy().astype(wide)
+    return np.linalg.norm(b - coo.sum_duplicates().spmv(x)) / np.linalg.norm(b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symmetric", [True, False], ids=["cg", "bicgstab"])
+@pytest.mark.parametrize("fmt,dtype", sorted(GRAPH_ROUTES))
+def test_graphed_solve_matches_the_eager_witness(fmt, dtype, symmetric,
+                                                 cuda_device, monkeypatch):
+    """solve() on every route and type runs the graphed loop and agrees
+    with the same solve() on the eager loop: bit for bit where the kernel
+    gives the same bits every call, else within max(1, 10 %) of its
+    iterations and the true-residual gate."""
+    from spgpu_tpu_torch.solvers import auto
+
+    coo, b, tol, true_tol = _loop_system(dtype, symmetric)
+    kw_ = dict(device=cuda_device, fmt=fmt, symmetric=symmetric, tol=tol,
+               maxiter=5000)
+    loop.REPLAYS = 0
+    graphed = solve(coo, b, **kw_)
+    assert loop.REPLAYS > 0
+    monkeypatch.setattr(auto, "cg", loop._cg_eager)
+    monkeypatch.setattr(auto, "bicgstab", loop._bicgstab_eager)
+    eager = solve(coo, b, **kw_)
+    assert bool(graphed.converged) and bool(eager.converged)
+    if GRAPH_ROUTES[(fmt, dtype)]:
+        assert graphed.iterations == eager.iterations
+        assert torch.equal(graphed.x, eager.x)
+        assert torch.equal(graphed.residual_norm, eager.residual_norm)
+    else:
+        assert abs(graphed.iterations - eager.iterations) <= max(1, eager.iterations // 10)
+    assert _true_residual(coo, b, graphed.x) <= true_tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["cg", "bicgstab"])
+def test_launch_counters_count_every_replay(solver, cuda_device):
+    """#3's counter counts each captured launch once per replay: one SpMV
+    per CG step and two per BiCGSTAB step, beside the eager b − A·x0; the
+    host reads one flag per replay, the eager step's included."""
+    coo, b, tol, _ = _loop_system("float32", solver == "cg")
+    a = coo_to_whdia(coo, device=cuda_device)
+    bt = torch.from_numpy(b).to(cuda_device)
+    kd.LAUNCHES = 0
+    loop.STEPS = loop.HOST_READS = loop.REPLAYS = 0
+    res = getattr(loop, solver)(lambda v: ops.whdia_spmv(a, v), bt, tol=tol,
+                                maxiter=5000)
+    assert bool(res.converged) and loop.REPLAYS > 0
+    assert loop.STEPS == 1 + loop.GRAPH_STEPS * loop.REPLAYS > res.iterations
+    assert kd.LAUNCHES == 1 + (1 if solver == "cg" else 2) * loop.STEPS
+    assert loop.HOST_READS == loop.REPLAYS
+    assert loop.HOST_READS <= -(-res.iterations // loop.GRAPH_STEPS) + 2
+
+
+@pytest.mark.cuda
+def test_graph_memory_is_released(cuda_device):
+    """Two graphed solves in a row leave the same memory allocated: each
+    releases its graph and its pool."""
+    coo, b, tol, _ = _loop_system("float64", True)
+    a = coo_to_sdia(coo, device=cuda_device)
+    bt = torch.from_numpy(b).to(cuda_device)
+    allocated = []
+    for _ in range(3):
+        res = loop.cg(lambda v: ops.sdia_spmv(a, v), bt, tol=tol, maxiter=5000)
+        assert bool(res.converged)
+        del res
+        torch.cuda.synchronize()
+        allocated.append(torch.cuda.memory_allocated(cuda_device))
+    assert allocated[1] == allocated[2] <= allocated[0]
+
+
+@pytest.mark.cuda
+def test_a_matvec_that_reads_the_host_raises(cuda_device):
+    """A matvec that reads a value back (``.item()``) cannot be captured:
+    cg raises, after r0 and the one eager step, and runs nothing eagerly
+    instead; the captured launches are taken back off the counter and the
+    card still solves."""
+    coo, b, tol, _ = _loop_system("float32", True)
+    a = coo_to_whdia(coo, device=cuda_device)
+    bt = torch.from_numpy(b).to(cuda_device)
+    calls = []
+
+    def reads_host(v):
+        z = ops.whdia_spmv(a, v)
+        calls.append(float(z.abs().max()))
+        return z
+
+    kd.LAUNCHES = 0
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        loop.cg(reads_host, bt, tol=tol, maxiter=5000)
+    assert len(calls) == 2 and kd.LAUNCHES == 2
+    res = loop.cg(lambda v: ops.whdia_spmv(a, v), bt, tol=tol, maxiter=5000)
+    assert bool(res.converged)
+
+
+def _spd(coo):
+    """(A + Aᵀ)/2, each diagonal entry the row's off-diagonal |·|-sum + 1."""
+    n = coo.n_rows
+    v = coo.values / 2
+    h = CooMatrix(np.r_[coo.rows, coo.cols], np.r_[coo.cols, coo.rows],
+                  np.r_[v, v], n, n).sum_duplicates()
+    off = h.rows != h.cols
+    d = np.bincount(h.rows[off], weights=np.abs(h.values[off]), minlength=n) + 1.0
+    i = np.arange(n)
+    return CooMatrix(np.r_[h.rows[off], i], np.r_[h.cols[off], i],
+                     np.r_[h.values[off], d], n, n)
+
+
+@pytest.mark.cuda
+def test_graphed_solves_on_two_streams_at_once(cuda_device):
+    """Two graphed CG solves on one chunked-run float64 layout (#4, the
+    hub fixture made SPD), each in its own thread on its own stream, three
+    times over: each gives, bit for bit, the answer it gives alone."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    coo = _spd(_hub_rows())
+    a = coo_to_whell(coo, device=cuda_device)
+    assert int((a.hack_units[:, 3] >= 0).sum()) >= 3
+    rng = np.random.default_rng(6)
+    bs = [a.embed(torch.from_numpy(rng.standard_normal(coo.n_rows)),
+                  dtype=torch.float64) for _ in range(2)]
+
+    def run(b):
+        return loop.cg(lambda v: ops.whell_spmv(a, v), b, tol=1e-10, maxiter=3000)
+
+    alone = [run(b) for b in bs]
+    assert all(bool(r.converged) for r in alone)
+    streams = [torch.cuda.Stream(cuda_device) for _ in bs]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda_device))
+
+    def on_stream(k):
+        with torch.cuda.stream(streams[k]):
+            res = run(bs[k])
+            streams[k].synchronize()
+            return res
+
+    with ThreadPoolExecutor(2) as ex:
+        for _ in range(3):
+            both = list(ex.map(on_stream, range(2)))
+            for got, want in zip(both, alone):
+                assert got.iterations == want.iterations
+                assert torch.equal(got.x, want.x)
