@@ -187,7 +187,7 @@ the float64 geometry sweep, and checks them:
 
 29. kernel_times — kernels #15 and #17 alone, warm and cold (L2
                flushed), through ``whell_spmv`` on the layouts of 22 and
-               24, beside cuSPARSE CSR on the same matrices; then #4 and
+               24, beside cuSPARSE CSR on the same matrices; then #1, #4 and
                the complex128 kernel on the flagship with aligned and
                scattered windows and #4 on the dd-Laplacian, each op's
                device time (every device operation of one call) and its
@@ -205,10 +205,35 @@ the float64 geometry sweep, and checks them:
                ``python3 chip_smoke.py --kernel-times`` runs this phase
                alone, also from an older checkout's root).
 
-Phases 26-28 and 29 run in fresh processes of this script
-(``chip_smoke.py --sweeps``, ``--kernel-times``, which print their lines
-for this one to emit): after the earlier phases' profiling sessions,
-sessions in this process lose events.
+30. large    — the JAX benchmark's row-block cells (``bench.py:306-389``)
+               at its TPU size, on one packed layout: the fp32
+               ``random_fem_like(2**22, 9.0, span=1200, far_frac=0.005,
+               seed=5)`` through #1; its float64 system (the symmetrised
+               ``random_banded(2**22, bands=9, wander=3, seed=6)``, 30 on
+               the diagonal) through ``solve(..., fmt="blocks", tol=1e-12,
+               maxiter=60)`` twice (the second warm), #4 on that solve's
+               layout and the graphed loop beside its eager witness;
+31. past_bounds — systems past each old field of ``tile_base``: the
+               4096x4096 Laplacian (16.8M rows) in fp32 and float64
+               through auto-selected ``solve()`` (whdia: #3, #6), capped at
+               ``LARGE["lap_maxiter"]`` CG iterations, graphed against
+               eager; banded-11 at 9M rows (pattern mode, #3); F1's 9M-row
+               float64 tridiagonal on aligned windows (#4, every row at
+               1e-12·max|z|) and in fp32 as a classic layout (#15); a
+               4.5M-row permutation-coupled matrix past 2**20 scattered
+               layout groups (#1, its plain version summed in chunks of
+               tiles).  Each product prints its layout (rows, nonzeros, x
+               pages or groups, tiles, slab bytes, converter seconds), its
+               kernel's device time warm and cold, the plain version's,
+               cuSPARSE CSR's and the bound (``python3 chip_smoke.py
+               --large`` runs 30 and 31 alone).
+
+Phases 26-28, 29 and 30-31 run in fresh processes of this script
+(``chip_smoke.py --sweeps``, ``--kernel-times``, ``--large``, which print
+their lines for this one to emit): after the earlier phases' profiling
+sessions, sessions in this process lose events.  The large phases' main-
+path launches (their checked op calls and solves) add to the kernel
+table's.
 
 Every time a solve phase prints carries the card's name and power limit
 (``card``).
@@ -424,6 +449,14 @@ def library_call(coo, x, device):
         return None, f"refused: {e}".splitlines()[0]
 
 
+def kernel_names(fn, prefixes, by_op=None):
+    """The names of the device operations one call of ``fn`` runs that
+    start with one of ``prefixes``: from ``by_op`` (a session's times by
+    name) where it holds one, else from :func:`launched`."""
+    names = [k for k in sorted(by_op or {}) if k.startswith(prefixes)]
+    return names or [k for k in launched(fn) if k.startswith(prefixes)]
+
+
 def launched(fn):
     """The names of the device operations one call of ``fn`` runs, from
     a usable profiling session, else from short ones (names only)."""
@@ -478,16 +511,17 @@ def spmv_phase(coo, a, device, label):
     x = rand_vector(coo.n_cols, 7, str(xdt).removeprefix("torch."))
     xl = a.embed(torch.from_numpy(x), dtype=xdt)
     counter = COUNTER[name]
-    before = getattr(kw, counter)
+    setattr(kw, counter, 0)
     z = whell_spmv(a, xl)
     torch.cuda.synchronize(device)
-    if getattr(kw, counter) != before + 1:
-        raise AssertionError(f"{label}: whell_spmv did not launch the kernel")
+    launches = getattr(kw, counter)
+    if launches != 1:
+        raise AssertionError(f"{label}: whell_spmv launched the kernel {launches} times")
     args = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
             a.group_bases, a.seg_lo, a.seg_hi, _prep_x(xl, a.n_cols, a.x_pages))
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
                   window_pages=a.window_pages, unit_segments=a.unit_segments,
-                  hack_units=a.hack_units)
+                  hack_units=a.hack_units, tile_page=a.tile_page)
     zp = kw.whell_packed_spmv_plain(*args, **static).view(-1)[: a.n_rows]
     zc, pc = z.cpu().numpy(), zp.cpu().numpy()
     # atomics sum each lane's tiles in another order than index_add_; #4
@@ -516,15 +550,17 @@ def spmv_phase(coo, a, device, label):
               lambda: kw.whell_packed_spmv_plain(*args, **static),
               library, refused)
     # the unit flush reads seg_hi alone; #4 and complex128 read hack_units
-    # and no chunk_group
-    moved = nbytes(a.values, a.residue, a.page_tab, a.tile_base,
-                   a.hack_units if vdt in kw.PER_HACK else a.chunk_group,
+    # and tile_page, no chunk_group or tile_base; #1 and #7 chunk_group,
+    # tile_base and tile_page
+    hack_pass = vdt in kw.PER_HACK
+    moved = nbytes(a.values, a.residue, a.page_tab, None if hack_pass else a.tile_base,
+                   a.tile_page, a.hack_units if hack_pass else a.chunk_group,
                    a.group_bases, None if a.unit_segments else a.seg_lo,
                    a.seg_hi, args[-1], z)
     flops = (8 if xdt.is_complex else 2) * coo.nnz
     return dict(
-        nnz=coo.nnz, tiles=a.num_tiles, lane_space=a.n_rows, **per_hack,
-        padding=a.total_slots * 128 / coo.nnz, slab_mib=slab_bytes / 2**20,
+        nnz=coo.nnz, tiles=a.num_tiles, lane_space=a.n_rows, launches=launches,
+        **per_hack, padding=a.total_slots * 128 / coo.nnz, slab_mib=slab_bytes / 2**20,
         max_abs_err_vs_plain=err_plain, max_abs_err_vs_golden=err_golden, **t,
         kernel_gflops=flops / (t["kernel_ms"] * 1e6),
         kernel_device_gflops=flops / (t["kernel_device_ms"] * 1e6),
@@ -533,22 +569,28 @@ def spmv_phase(coo, a, device, label):
         **bound(moved, flops, str(xdt).removeprefix("torch.")))
 
 
-def dia_phase(coo, kernel, plain, op_z, moved, tol_plain, label, device):
+def dia_phase(coo, kernel, plain, op_z, moved, tol_plain, label, device, counter):
     """A DIA-class kernel on the card against its plain version (rtol and
     atol/max|z| both ``tol_plain``) and the float64 or complex128 host
     golden (2e-5 in float32 and complex64, 1e-12·max|z| in float64 and
     complex128), then the times of both versions and of the library call.
     ``kernel``/``plain`` map x to the padded product, ``op_z`` to the
-    op's ``(n_rows,)`` result; ``moved`` is the bytes the kernel must read
-    and write."""
+    op's ``(n_rows,)`` result, whose launches of the kernel (``counter``:
+    module, attribute name) are counted from 0 and must be one; ``moved``
+    is the bytes the kernel must read and write."""
     import torch
 
     vdt = np.dtype(coo.values.dtype)
     tight = vdt in (np.float64, np.complex128)
     x = rand_vector(coo.n_cols, 7, vdt)
     xt = torch.from_numpy(x).to(device)
+    mod, attr = counter
+    setattr(mod, attr, 0)
     z = op_z(xt)
     torch.cuda.synchronize(device)
+    launches = getattr(mod, attr)
+    if launches != 1:
+        raise AssertionError(f"{label}: the op launched the kernel {launches} times")
     n = coo.n_rows
     zp = plain(xt)[:n]
     err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), tol_plain,
@@ -560,7 +602,7 @@ def dia_phase(coo, kernel, plain, op_z, moved, tol_plain, label, device):
     t = timed(lambda: kernel(xt), lambda: plain(xt), library, refused)
     flops = (8 if vdt.kind == "c" else 2) * coo.nnz
     return dict(
-        rows=n, nnz=coo.nnz, max_abs_err_vs_plain=err_plain,
+        rows=n, nnz=coo.nnz, launches=launches, max_abs_err_vs_plain=err_plain,
         max_abs_err_vs_golden=err_golden, **t,
         kernel_gflops=flops / (t["kernel_ms"] * 1e6),
         kernel_device_gflops=flops / (t["kernel_device_ms"] * 1e6),
@@ -586,12 +628,13 @@ def sdia_phase(coo, device, label):
         lambda x: ks.sdia_spmv_plain(sa.values, sa.offsets, x, n_rows=sa.n_rows),
         lambda x: sdia_spmv(sa, x),
         nbytes(sa.values, sa.offset_table) + sa.values.element_size()
-        * (coo.n_cols + coo.n_rows), 0.0, label, device)
+        * (coo.n_cols + coo.n_rows), 0.0, label, device,
+        (ks, COUNTER[np.dtype(coo.values.dtype).name]))
     return dict(convert_s=convert_s, offsets=list(sa.offsets),
                 value_mib=nbytes(sa.values) / 2**20, **out)
 
 
-def whdia_phase(coo, mode, device, label):
+def whdia_phase(coo, mode, device, label, wa=None, convert_s=None):
     """``dia_phase`` for WHDIA (kernel #3; #6 in float64, #9 in complex64,
     #10 in complex128); atomics (#6, #10) or the list order (#3, #9)
     reorder the sums, hence 1e-5 (1e-12 in float64 and complex128)
@@ -606,16 +649,17 @@ def whdia_phase(coo, mode, device, label):
     from spgpu_tpu_torch.kernels import whdia as kd
     from spgpu_tpu_torch.ops import whdia_spmv
 
-    t0 = time.perf_counter()
-    wa = coo_to_whdia(coo, device=device)
-    torch.cuda.synchronize(device)
-    convert_s = time.perf_counter() - t0
+    if wa is None:  # else a layout of coo built before, in convert_s
+        t0 = time.perf_counter()
+        wa = coo_to_whdia(coo, device=device)
+        torch.cuda.synchronize(device)
+        convert_s = time.perf_counter() - t0
     got = "pattern" if wa.pattern_mode else "slab"
     if got != mode:
         raise AssertionError(f"{label}: {got} mode, expected {mode}")
     args = (wa.values, wa.slot_r0, wa.tile_r0, wa.tile_base, wa.chunk_group)
     static = dict(chunk_tiles=wa.chunk_tiles, group_hacks=wa.group_hacks,
-                  num_groups=wa.num_groups)
+                  num_groups=wa.num_groups, tile_page=wa.tile_page)
     lists = dict(hack_slot_ptr=wa.hack_slot_ptr, hack_slots=wa.hack_slots)
     isz = wa.values.element_size()
     hack_pass = wa.values.dtype in kd.HACK_PASS
@@ -625,9 +669,10 @@ def whdia_phase(coo, mode, device, label):
         lambda x: kd.whdia_spmv_plain(*args, x, **static),
         lambda x: whdia_spmv(wa, x),
         b["live_bytes"] if hack_pass else
-        nbytes(*args) + isz * (coo.n_cols + wa.num_groups * wa.group_hacks * 128),
+        nbytes(*args, wa.tile_page)
+        + isz * (coo.n_cols + wa.num_groups * wa.group_hacks * 128),
         1e-12 if wa.values.dtype in (torch.float64, torch.complex128) else 1e-5,
-        label, device)
+        label, device, (kd, COUNTER[np.dtype(coo.values.dtype).name]))
     if hack_pass:
         x = torch.from_numpy(rand_vector(coo.n_cols, 7, np.dtype(coo.values.dtype))
                              ).to(device)
@@ -648,7 +693,7 @@ def whdia_phase(coo, mode, device, label):
         listed = kd.whdia_spmm_listed_plain(
             wa.values, wa.slot_r0, wa.tile_r0, wa.tile_base, wa.hack_slot_ptr,
             wa.hack_slots, x[None], group_hacks=wa.group_hacks,
-            num_groups=wa.num_groups)[0]
+            num_groups=wa.num_groups, tile_page=wa.tile_page)[0]
         out.update(
             bit_identical=True, rows_written_over_nan=True, **b,
             max_abs_err_vs_listed=check_close(z, listed, 1e-5, 1e-5,
@@ -904,7 +949,8 @@ def dia_solves(lap, band, device, dtype, tol, true_tol, smi):
             mv = lambda v, lay=lay: kd.whdia_spmv_plain(  # noqa: E731
                 lay.values, lay.slot_r0, lay.tile_r0, lay.tile_base,
                 lay.chunk_group, v, chunk_tiles=lay.chunk_tiles,
-                group_hacks=lay.group_hacks, num_groups=lay.num_groups)[: lay.n_rows]
+                group_hacks=lay.group_hacks, num_groups=lay.num_groups,
+                tile_page=lay.tile_page)[: lay.n_rows]
             ref = solver(mv, rhs, tol=tol, maxiter=20000).iterations
             got = solves[key]["iterations"]
             if abs(got - ref) > max(1, ref // 10):
@@ -1120,7 +1166,7 @@ def whell_spmm_phase(coo, a, device, label):
     x3 = _prep_x(xs, a.n_cols, a.x_pages, stack=True)
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
                   window_pages=a.window_pages, unit_segments=a.unit_segments,
-                  hack_units=a.hack_units)
+                  hack_units=a.hack_units, tile_page=a.tile_page)
     zp = kw.whell_packed_spmm_plain(*layout, x3, **static).flatten(1)[:, : a.n_rows]
     err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), 1e-5, 1e-5,
                             f"{label}: kernel vs plain")
@@ -1196,7 +1242,7 @@ def dia_spmm_phase(coo, fmt, golden, device, label, mode=None):
     else:
         layout = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group)
         static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-                      num_groups=a.num_groups)
+                      num_groups=a.num_groups, tile_page=a.tile_page)
         lists = dict(hack_slot_ptr=a.hack_slot_ptr, hack_slots=a.hack_slots)
         kernel = lambda: kd.whdia_spmm(*layout, xs, **static, **lists)  # noqa: E731
         plain = lambda: kd.whdia_spmm_plain(*layout, xs, **static)  # noqa: E731
@@ -1274,7 +1320,7 @@ def spmm_loop_phase(lap, band, a32, a64, ac64, device):
             a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
             a.group_bases, a.seg_lo, a.seg_hi, x3, chunk_tiles=a.chunk_tiles,
             group_hacks=a.group_hacks, window_pages=a.window_pages,
-            unit_segments=a.unit_segments).flatten(1)[:, : a.n_rows]
+            unit_segments=a.unit_segments, tile_page=a.tile_page).flatten(1)[:, : a.n_rows]
 
     sl, x_lap = coo_to_sdia(lap, device=device), stack(lap.n_cols)
     wl, x_band = coo_to_whdia(band, device=device), stack(band.n_cols)
@@ -1289,8 +1335,8 @@ def spmm_loop_phase(lap, band, a32, a64, ac64, device):
             lambda: kd.whdia_spmm_plain(
                 wl.values, wl.slot_r0, wl.tile_r0, wl.tile_base,
                 wl.chunk_group, x_band, chunk_tiles=wl.chunk_tiles,
-                group_hacks=wl.group_hacks,
-                num_groups=wl.num_groups)[:, : wl.n_rows], 1e-5),
+                group_hacks=wl.group_hacks, num_groups=wl.num_groups,
+                tile_page=wl.tile_page)[:, : wl.n_rows], 1e-5),
         "whell_fused_false": loop_path(
             ops.whell_spmm, a32, x_fl, kw, "LAUNCHES", "loop whell fp32",
             plain_whell(a32, x_fl), 1e-5, fused=False)}
@@ -1326,7 +1372,8 @@ def classic_live(a, x2, n_rhs=1):
     isz = a.values.element_size()
     live = (live_slots * 32 * (isz + 1) + int(sectors.sum()) * 32
             + nbytes(wl, x2) + n_rhs * a.rows_padded * 4)
-    full = nbytes(a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group, x2) \
+    full = nbytes(a.values, a.residue, a.page_tab, a.tile_base,
+                  getattr(a, "tile_page", None), a.chunk_group, x2) \
         + n_rhs * a.rows_padded * 4
     full_bound = bound(full, 0, "float32")
     return dict(units=a.num_tiles * 4, live_units=wl.numel(),
@@ -1362,15 +1409,16 @@ def classic_phase(coo, a, device, label):
     layout = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group)
     x2 = ops._prep_x(xt, a.n_cols, a.x_pages)
     zp = ops._classic_rows(a, kc.whell_classic_spmv_plain(
-        *layout, x2, num_groups=a.num_groups).view(-1))
+        *layout, x2, num_groups=a.num_groups, tile_page=a.tile_page).view(-1))
     err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), 1e-5, 1e-5,
                             f"{label}: kernel vs plain")
     err_golden = check_close(z.cpu().numpy(), coo.spmv(x.astype(np.float64)),
                              1e-4, 1e-4, f"{label}: kernel vs host golden")
     library, refused = library_call(coo, xt, device)
     t = timed(lambda: kc.whell_classic_spmv(*layout, x2, num_groups=a.num_groups,
-                                            work=a.work_list),
-              lambda: kc.whell_classic_spmv_plain(*layout, x2, num_groups=a.num_groups),
+                                            work=a.work_list, tile_page=a.tile_page),
+              lambda: kc.whell_classic_spmv_plain(*layout, x2, num_groups=a.num_groups,
+                                                  tile_page=a.tile_page),
               library, refused)
     flops = 2 * coo.nnz
     slab_bytes = a.total_slots * 128 * (a.values.element_size() + 2)
@@ -1415,7 +1463,7 @@ def classic_variant(coo, device, label, **kw):
     x2 = ops._prep_x(xt, a.n_cols, a.x_pages)
     layout = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group)
     zp = ops._classic_rows(a, kc.whell_classic_spmv_plain(
-        *layout, x2, num_groups=a.num_groups).view(-1))
+        *layout, x2, num_groups=a.num_groups, tile_page=a.tile_page).view(-1))
     err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), 1e-5, 1e-5,
                             f"{label}: kernel vs plain")
     del zp
@@ -1423,7 +1471,8 @@ def classic_variant(coo, device, label, **kw):
                       f"{label}: kernel vs host golden")
     dev, src = device_ms(lambda: kc.whell_classic_spmv(*layout, x2,
                                                        num_groups=a.num_groups,
-                                                       work=a.work_list))
+                                                       work=a.work_list,
+                                                       tile_page=a.tile_page))
     op_dev, _ = device_ms(lambda: ops.whell_spmv(a, xt))
     slab_bytes = a.total_slots * 128 * (a.values.element_size() + 2)
     live = classic_live(a, x2)
@@ -1455,7 +1504,7 @@ def classic_update(coo, a, plan, device, label):
     thinned[::3] = 0
     x = rand_vector(coo.n_cols, 9, np.float32)
     xt = torch.from_numpy(x).to(device)
-    out = dict(launches=2)
+    out = dict(launches=0)
     for tag, vals in (("thinned", thinned),
                       ("refreshed", rng.standard_normal(coo.nnz).astype(np.float32))):
         b = whell_update_values(a, plan, vals)
@@ -1464,9 +1513,11 @@ def classic_update(coo, a, plan, device, label):
         torch.cuda.synchronize(device)
         if kc.LAUNCHES != 1:
             raise AssertionError(f"{label} {tag}: {kc.LAUNCHES} launches of #15")
+        out["launches"] += kc.LAUNCHES
         zp = ops._classic_rows(b, kc.whell_classic_spmv_plain(
             b.values, b.residue, b.page_tab, b.tile_base, b.chunk_group,
-            ops._prep_x(xt, b.n_cols, b.x_pages), num_groups=b.num_groups).view(-1))
+            ops._prep_x(xt, b.n_cols, b.x_pages), num_groups=b.num_groups,
+            tile_page=b.tile_page).view(-1))
         golden = CooMatrix(coo.rows, coo.cols, vals, coo.n_rows, coo.n_cols).spmv(
             x.astype(np.float64))
         out[tag] = dict(
@@ -1496,19 +1547,19 @@ def classic_spmm_phase(coo, a, device, label):
 
     X = rhs_stack(coo.n_cols)
     xs = torch.from_numpy(X).to(device)
-    counted = {}
+    counted, counts = {}, {}
     for name, fused, want in (("fused", True, (1, 0)), ("loop", None, (0, N_RHS))):
         kc.LAUNCHES_SPMM, kc.LAUNCHES = 0, 0
         counted[name] = ops.whell_spmm(a, xs, fused=fused)
         torch.cuda.synchronize(device)
-        got = (kc.LAUNCHES_SPMM, kc.LAUNCHES)
+        got = counts[name] = (kc.LAUNCHES_SPMM, kc.LAUNCHES)
         if got != want:
             raise AssertionError(f"{label} {name}: {got[0]} launches of #16 and "
                                  f"{got[1]} of #15, not {want}")
     z = counted["fused"]
     layout = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group)
     x3 = ops._prep_x(xs, a.n_cols, a.x_pages, stack=True)
-    static = dict(num_groups=a.num_groups)
+    static = dict(num_groups=a.num_groups, tile_page=a.tile_page)
     zp = ops._classic_rows(a, kc.whell_classic_spmm_plain(*layout, x3, **static)
                            .flatten(1))
     err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), 1e-5, 1e-5,
@@ -1525,8 +1576,8 @@ def classic_spmm_phase(coo, a, device, label):
               loop=lambda: ops.whell_spmm(a, xs))
     flops = 2 * coo.nnz * N_RHS
     live = classic_live(a, x3, n_rhs=N_RHS)
-    out = dict(n_rhs=N_RHS, nnz=coo.nnz, tiles=a.num_tiles, launches=1,
-               loop_spmv_launches=N_RHS, max_abs_err_vs_plain=err_plain,
+    out = dict(n_rhs=N_RHS, nnz=coo.nnz, tiles=a.num_tiles, launches=counts["fused"][0],
+               loop_spmv_launches=counts["loop"][1], max_abs_err_vs_plain=err_plain,
                loop_max_abs_err_vs_plain=err_loop, max_abs_err_vs_golden=err_golden,
                **t, **live, **bound(live["live_bound_bytes"], flops, "float32"))
     out.update(live_bound_share=out["bound_ms"] / t["kernel_device_ms"],
@@ -1563,7 +1614,8 @@ def pcell_phase(coo, device, spmv, label):
               p.chunk_group, p.group_bases)
     x2 = ops._prep_x(xt, p.n_cols, p.x_pages)
     static = dict(chunk_tiles=p.chunk_tiles, group_hacks=p.group_hacks,
-                  window_pages=p.window_pages, num_groups=p.num_groups)
+                  window_pages=p.window_pages, num_groups=p.num_groups,
+                  tile_page=p.tile_page)
     zp = kp.pcell_spmv_plain(*layout, x2, **static).view(-1)[: p.n_rows]
     err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), 1e-5, 1e-5,
                             f"{label}: kernel vs plain")
@@ -1615,6 +1667,415 @@ def solve_pcell(spd, device, smi):
                                          torch.from_numpy(b).to(device), 1e-5, False,
                                          residual_gate(spd, b, 1e-4, "cg pcell"), smi),
                 x_err_vs_true=float(np.abs(xs - x_true).max()))
+
+
+#: the sizes of the large phases (30, 31): the rows of the JAX benchmark's
+#: row-block cells (``bench.py:306-389``, its TPU size), the side of the
+#: 16.8M-row Laplacian and the CG iterations its solves run, the rows of
+#: banded-11, of the tridiagonal and of the permutation-coupled matrix
+LARGE = dict(bench=1 << 22, lap=4096, lap_maxiter=400, band=9_000_000,
+             tri=9_000_000, perm=4_500_000)
+
+#: the old widths of tile_base's low field: aligned base pages (16 bits)
+#: and scattered layout groups (20 bits)
+OLD_PAGES, OLD_GROUPS = 1 << 16, 1 << 20
+
+
+def converted(make):
+    """``make()``, a layout on the card, and its converter's seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    a = make()
+    torch.cuda.synchronize()
+    return a, time.perf_counter() - t0
+
+
+def layout_summary(a, coo, convert_s):
+    """What a large phase prints of each layout: rows, nonzeros, x pages,
+    layout groups (scattered), tiles, slab bytes (values and per-cell
+    index bytes), the converter's seconds, the largest tile_page word and
+    the old field it passes."""
+    groups = (None if getattr(a, "group_bases", None) is None
+              else a.group_bases.numel() // (a.window_pages // 8))
+    slab = nbytes(*(getattr(a, f, None) for f in ("values", "residue", "page_tab",
+                                                  "slot_r0", "tile_r0")))
+    top = int(a.tile_page.max())
+    past = (f"{groups} layout groups > 2**20" if groups is not None and groups > OLD_GROUPS
+            else f"{a.x_pages} x pages > 65,536" if groups is None and a.x_pages > OLD_PAGES
+            else "within the old fields")
+    return dict(rows=coo.n_rows, nnz=coo.nnz, x_pages=a.x_pages, layout_groups=groups,
+                tiles=a.num_tiles, slab_bytes=slab, convert_s=convert_s,
+                max_tile_page=top, past=past)
+
+
+def tridiagonal(n, dtype):
+    """A diagonally dominant tridiagonal system (4 on the diagonal,
+    ``-U(0, 1)`` beside it, ``default_rng(3)``), rows in order: F1's
+    case at 9M rows."""
+    from spgpu_tpu_torch.formats.coo import CooMatrix
+
+    i = np.arange(n, dtype=np.int64)
+    rng = np.random.default_rng(3)
+    rows = np.concatenate([i[1:], i, i[:-1]])
+    cols = np.concatenate([i[:-1], i, i[1:]])
+    vals = np.concatenate([rng.uniform(-1, 0, n - 1), np.full(n, 4.0),
+                           rng.uniform(-1, 0, n - 1)])
+    o = np.lexsort((cols, rows))
+    return CooMatrix(rows[o], cols[o], vals[o].astype(dtype), n, n)
+
+
+def permutation_coupled(n):
+    """Row ``i`` couples to ``i`` (2) and to ``π(i)`` (``U(-1, 1)``) for a
+    permutation ``π`` of ``default_rng(11)``, fp32: each 128-row hack
+    reaches about 128 scattered superpages, so its scattered windows need
+    about 33 layout groups, past 2**20 at 4.5M rows."""
+    from spgpu_tpu_torch.formats.coo import CooMatrix
+
+    rng = np.random.default_rng(11)
+    pi = rng.permutation(n)
+    i = np.arange(n, dtype=np.int64)
+    rows, cols = np.concatenate([i, i]), np.concatenate([i, pi])
+    vals = np.concatenate([np.full(n, 2.0), rng.uniform(-1, 1, n)]).astype(np.float32)
+    o = np.lexsort((cols, rows))
+    return CooMatrix(rows[o], cols[o], vals[o], n, n).sum_duplicates()
+
+
+def chunked_plain(a, x2, tiles=1 << 16):
+    """The plain product of #1 (:func:`~spgpu_tpu_torch.kernels.whell.
+    whell_tile_sums`, ``index_add_`` into the hack rows, the flush) over
+    runs of ``tiles`` tiles (whole chunks), so that a layout of a billion
+    cells needs no more than a few GB for its index tensors."""
+    import torch
+
+    from spgpu_tpu_torch.kernels import whell as kw
+
+    T, ct = a.num_tiles, a.chunk_tiles
+    step = max(tiles // ct, 1) * ct
+    acc = torch.zeros((1, a.seg_lo.shape[0], 128), dtype=torch.float32, device=a.device)
+    for t0 in range(0, T, step):
+        t1 = min(t0 + step, T)
+        cells = slice(8 * t0, 8 * t1)
+        sums, hack = kw.whell_tile_sums(
+            a.values[cells], a.residue[cells], a.page_tab[cells], a.tile_base[t0:t1],
+            a.chunk_group[t0 // ct: t1 // ct + 1], a.group_bases, x2[None],
+            chunk_tiles=ct, group_hacks=a.group_hacks, window_pages=a.window_pages,
+            tile_page=a.tile_page[t0:t1])
+        acc.index_add_(1, hack, sums)
+    return kw.whell_flush_plain(acc, a.seg_lo, a.seg_hi, a.unit_segments)[0]
+
+
+def kernel_cold(fn, prefixes):
+    """The kernel's device times of :func:`op_times`, warm and cold."""
+    t = op_times(fn, prefixes)
+    return {k: t[k] for k in ("kernels", "device_ms", "cold_device_ms",
+                              "device_source", "cold_source", "op_device_ms")}
+
+
+def large_phase(device, smi):
+    """Phase 30 (``--large``): the JAX benchmark's row-block cells at its
+    TPU size, on one packed layout: ``random_fem_like(2**22, 9.0,
+    span=1200, far_frac=0.005, seed=5)`` in fp32 through ``whell_spmv``
+    (#1), and its float64 system (``random_banded(2**22, bands=9,
+    wander=3, seed=6)`` symmetrised, 30 on the diagonal, duplicates
+    summed, as ``bench.py:356-366`` builds it) through ``solve(...,
+    fmt="blocks", tol=1e-12, maxiter=60)`` twice with the ``b`` of
+    ``default_rng(3)`` (the second call warm), then, on the layout that
+    route builds (the packed converter, timed alone), through #4 and the
+    graphed loop alone beside its eager witness (``loop_pair``, the
+    counterpart of the bench's warm ``blocks_cg``).  Each product is held
+    to its plain version and the golden (``spmv_phase``), with its
+    layout, its kernel's device time warm and cold, the plain version's,
+    cuSPARSE CSR's and the bound.  Returns the phase and its main-path
+    launches by kernel: the solves' and each checked op call's, each
+    counted from 0."""
+    import torch
+
+    from spgpu_tpu_torch import ops
+    from spgpu_tpu_torch.convert import coo_to_whell
+    from spgpu_tpu_torch.formats.coo import CooMatrix
+    from spgpu_tpu_torch.kernels import whell as kw
+    from spgpu_tpu_torch.utils.fixtures import random_banded, random_fem_like
+
+    nb = LARGE["bench"]
+    out = dict(card=smi)
+    t0 = time.perf_counter()
+    fem = random_fem_like(nb, 9.0, span=1200, far_frac=0.005, seed=5, dtype=np.float32)
+    a, convert_s = converted(lambda: coo_to_whell(fem, device=device))
+    xl = a.embed(torch.from_numpy(rand_vector(nb, 7, np.float32)), dtype=torch.float32)
+    check = spmv_phase(fem, a, device, "large fem fp32")
+    out["fem_fp32"] = dict(
+        fixture="random_fem_like(2**22, 9.0, span=1200, far_frac=0.005, seed=5)",
+        **layout_summary(a, fem, convert_s) | check,
+        kernel_device=kernel_cold(lambda: ops.whell_spmv(a, xl), ("whell_",)),
+        item_s=time.perf_counter() - t0)
+    del a, xl, fem
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    bl = random_banded(nb, bands=9, wander=3, seed=6, dtype=np.float64)
+    idx = np.arange(nb, dtype=np.int64)
+    band = CooMatrix(np.concatenate([bl.rows, bl.cols, idx]),
+                     np.concatenate([bl.cols, bl.rows, idx]),
+                     np.concatenate([bl.values * 0.5, bl.values * 0.5,
+                                     np.full(nb, 30.0)]), nb, nb).sum_duplicates()
+    del bl
+    b = np.random.default_rng(3).standard_normal(nb)
+    solves = {}
+    for call in ("cold", "warm"):
+        _, _, solves[call] = counted_solve(band, b, (kw, "LAUNCHES_F64"), device,
+                                           1e-12, 1e-10, fmt="blocks", maxiter=60)
+        solves[call]["ms_per_iter"] = 1e3 * solves[call]["solve_total_s"] / max(
+            solves[call]["iterations"], 1)
+    # the layout fmt="blocks" builds: the packed converter, timed alone
+    a, convert_s = converted(lambda: coo_to_whell(band, device=device))
+    b_l = a.embed(torch.from_numpy(b), dtype=torch.float64)
+    loop = loop_pair("cg", lambda v: ops.whell_spmv(a, v), b_l, 1e-12,
+                     ("whell", "float64") in BIT_REPRODUCIBLE,
+                     residual_gate(band, b, 1e-10, "large blocks cg",
+                                   extract=lambda v: a.extract(v, dtype=torch.float64)),
+                     smi, maxiter=60)
+    xl = a.embed(torch.from_numpy(rand_vector(nb, 7, np.float64)), dtype=torch.float64)
+    check = spmv_phase(band, a, device, "large band float64")
+    out["band_f64"] = dict(
+        fixture="random_banded(2**22, bands=9, wander=3, seed=6) symmetrised, "
+        "30 on the diagonal", **layout_summary(a, band, convert_s) | check,
+        kernel_device=kernel_cold(lambda: ops.whell_spmv(a, xl), ("whell_",)),
+        solve_blocks=dict(solves, fmt="blocks", tol=1e-12, maxiter=60, loop=loop),
+        item_s=time.perf_counter() - t0)
+    launches = {"whell_packed_spmv": out["fem_fp32"]["launches"],
+                "whell_packed_spmv_f64": out["band_f64"]["launches"]
+                + sum(v["launches"] for v in solves.values())}
+    return out, launches
+
+
+def capped_pair(mv, b, maxiter, exact, limit, smi):
+    """The graphed CG and its eager witness for exactly ``maxiter``
+    iterations (tol 0) on the host clock: ms per iteration and the
+    relative residual of each, both at most ``limit``; where ``exact`` (a
+    kernel with the same bits every call) the same x bit for bit, else
+    residuals within a factor of 2 of each other."""
+    import torch
+
+    loop = krylov_loop()
+    out, got = dict(card=smi, graph_steps=loop.GRAPH_STEPS), {}
+    bn = float(torch.linalg.vector_norm(b))
+    for tag, fn in (("graphed", loop.cg), ("eager", loop._cg_eager)):
+        counts = loop_counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(mv, b, tol=0.0, maxiter=maxiter)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = loop_counts()
+        got[tag] = r
+        pre = "" if tag == "graphed" else "eager_"
+        out.update({f"{pre}iterations": r.iterations, f"{pre}ms_per_iter": ms / maxiter,
+                    f"{pre}relative_residual": float(r.residual_norm) / bn})
+        if tag == "graphed":
+            out.update(counts)
+    g, e = got["graphed"], got["eager"]
+    if g.iterations != maxiter or e.iterations != maxiter:
+        raise AssertionError(f"capped loop: {g.iterations}/{e.iterations} iterations")
+    rg, re_ = out["relative_residual"], out["eager_relative_residual"]
+    if not (rg <= limit and re_ <= limit):
+        raise AssertionError(f"capped loop: residuals {rg} and {re_} (limit {limit})")
+    if exact:
+        if not torch.equal(g.x, e.x):
+            raise AssertionError("capped loop: graphed and eager x differ")
+        out["vs_eager"] = "bit_identical"
+    else:
+        if not max(rg, re_) <= 2 * min(rg, re_):
+            raise AssertionError(f"capped loop: residuals {rg} and {re_} differ")
+        out["vs_eager"] = "within_gate"
+    return out
+
+
+def past_bounds_phase(device, smi):
+    """Phase 31 (``--large``): systems past each old field of tile_base,
+    each product held to its plain version and the golden, with its
+    layout, its kernel's device time warm and cold, the plain version's,
+    cuSPARSE CSR's and the bound.
+
+    - ``laplacian_2d(4096, 4096)`` (16,777,216 rows, 83,869,696
+      nonzeros) in fp32 and float64 through auto-selected ``solve()``
+      (auto-selection must name WHDIA: #3, #6), CG to 1e-5 / 1e-10 for
+      at most :data:`LARGE` ``lap_maxiter`` iterations: ms per
+      iteration, the true relative residual, launches and host reads.
+      fp32 must converge with a true residual of at most 1e-4; float64
+      stops at ``lap_maxiter`` and must reach 1e-5.  Then on the layout
+      WHDIA's converter builds (timed alone) the graphed loop against
+      its eager witness for as many iterations (the same bits on #3,
+      residuals at most the same limit on #6); then the product
+      (``whdia_phase``, in the layout's r0 mode).
+    - banded-11's generator at 9M rows (pattern mode) through #3;
+    - F1's case, the 9M-row float64 tridiagonal, aligned packed (#4),
+      every row at 1e-12·max|z| of the golden; the same in fp32 as a
+      classic layout (#15);
+    - the permutation-coupled matrix at 4.5M rows, scattered windows
+      past 2**20 layout groups (#1), against the plain version summed in
+      chunks of tiles.
+    Returns the phase and its main-path launches by kernel: the solves'
+    and each checked op call's, each counted from 0."""
+    import torch
+
+    from spgpu_tpu_torch import ops
+    from spgpu_tpu_torch.convert import coo_to_whdia, coo_to_whell, suggest_format
+    from spgpu_tpu_torch.formats.coo import CooMatrix
+    from spgpu_tpu_torch.kernels import whdia as kd
+    from spgpu_tpu_torch.kernels import whell as kw
+    from spgpu_tpu_torch.solvers import solve
+    from spgpu_tpu_torch.utils.fixtures import laplacian_2d, random_banded
+    from spgpu_tpu_torch.utils.timing import time_interleaved
+
+    out, launches = dict(card=smi), {}
+    side, maxiter = LARGE["lap"], LARGE["lap_maxiter"]
+    t0 = time.perf_counter()
+    lap32 = laplacian_2d(side, side, np.float32).sum_duplicates()
+    n = lap32.n_rows
+    out["laplace_gen_s"] = time.perf_counter() - t0
+    for dt, tol, true_tol in ((np.float32, 1e-5, 1e-4), (np.float64, 1e-10, 1e-5)):
+        t0 = time.perf_counter()
+        name = np.dtype(dt).name
+        lap = CooMatrix(lap32.rows, lap32.cols, lap32.values.astype(dt), n, n)
+        picked = suggest_format(lap)
+        if picked != "whdia":
+            raise AssertionError(f"past_bounds: auto-selection names {picked}, not whdia")
+        b = lap.spmv(rand_vector(n, 1, np.float64)).astype(dt)
+        attr = COUNTER[name]
+        setattr(kd, attr, 0)
+        loop_counts(reset=True)
+        t1 = time.perf_counter()
+        res = solve(lap, b, device=device, tol=tol, maxiter=maxiter)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t1
+        counts, solve_launches = loop_counts(), getattr(kd, attr)
+        if solve_launches < res.iterations:
+            raise AssertionError(f"past_bounds: {solve_launches} launches for "
+                                 f"{res.iterations} iterations")
+        check_reads("past_bounds laplace", res.iterations, counts)
+        rel = true_residual(lap, b, res.x)
+        # fp32 converges to tol within maxiter; float64 stops at maxiter
+        if not (rel <= true_tol and (bool(res.converged) or dt == np.float64)):
+            raise AssertionError(f"past_bounds laplace {name}: converged "
+                                 f"{bool(res.converged)}, true residual {rel} "
+                                 f"(limit {true_tol})")
+        # the layout solve() built: WHDIA's converter, timed alone
+        a, convert_s = converted(lambda: coo_to_whdia(lap, device=device))
+        bt = torch.from_numpy(b).to(device)
+        pair = capped_pair(lambda v: ops.whdia_spmv(a, v), bt, res.iterations,
+                           ("whdia", name) in BIT_REPRODUCIBLE, true_tol, smi)
+        x = torch.from_numpy(rand_vector(n, 7, dt)).to(device)
+        product = whdia_phase(lap, "pattern" if a.pattern_mode else "slab", device,
+                              f"past_bounds laplace {name}", wa=a, convert_s=convert_s)
+        out[f"laplace_{name}"] = dict(
+            fixture=f"laplacian_2d({side}, {side})", fmt="whdia (auto)",
+            **layout_summary(a, lap, convert_s) | product,
+            solve=dict(tol=tol, maxiter=maxiter, iterations=res.iterations,
+                       converged=bool(res.converged), solve_total_s=solve_s,
+                       ms_per_iter_with_setup=1e3 * solve_s / max(res.iterations, 1),
+                       true_relative_residual=rel, true_residual_limit=true_tol,
+                       launches=solve_launches, **counts, loop=pair),
+            kernel_device=kernel_cold(lambda: ops.whdia_spmv(a, x), TIMED_KERNELS),
+            item_s=time.perf_counter() - t0)
+        key = "whdia_spmv" if dt == np.float32 else "whdia_spmv_f64"
+        launches[key] = launches.get(key, 0) + solve_launches + product["launches"]
+        del a, x, bt, lap
+        torch.cuda.empty_cache()
+    del lap32
+
+    t0 = time.perf_counter()
+    band = random_banded(LARGE["band"], 11, wander=7, seed=2, dtype=np.float32)
+    a, convert_s = converted(lambda: coo_to_whdia(band, device=device))
+    x = torch.from_numpy(rand_vector(band.n_cols, 7, np.float32)).to(device)
+    product = whdia_phase(band, "pattern", device, "past_bounds banded11 9M", wa=a,
+                          convert_s=convert_s)
+    out["banded11_9m"] = dict(
+        fixture="random_banded(9M, 11, wander=7, seed=2)",
+        **layout_summary(a, band, convert_s) | product,
+        kernel_device=kernel_cold(lambda: ops.whdia_spmv(a, x), TIMED_KERNELS),
+        item_s=time.perf_counter() - t0)
+    launches["whdia_spmv"] += product["launches"]
+    del a, x, band
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tri = tridiagonal(LARGE["tri"], np.float64)
+    a, convert_s = converted(lambda: coo_to_whell(tri, device=device, scattered=False))
+    xl = a.embed(torch.from_numpy(rand_vector(tri.n_cols, 7, np.float64)),
+                 dtype=torch.float64)
+    product = spmv_phase(tri, a, device, "F1 float64")
+    out["tridiagonal_f64_aligned"] = dict(
+        fixture="tridiagonal(9M), float64, scattered=False (F1)",
+        **layout_summary(a, tri, convert_s) | product,
+        kernel_device=kernel_cold(lambda: ops.whell_spmv(a, xl), ("whell_",)),
+        item_s=time.perf_counter() - t0)
+    launches["whell_packed_spmv_f64"] = product["launches"]
+    del a, xl
+    tri32 = CooMatrix(tri.rows, tri.cols, tri.values.astype(np.float32), tri.n_rows,
+                      tri.n_cols)
+    del tri
+    t0 = time.perf_counter()
+    a, convert_s = converted(lambda: coo_to_whell(tri32, device=device, packed=False))
+    x = torch.from_numpy(rand_vector(tri32.n_cols, 7, np.float32)).to(device)
+    product = classic_phase(tri32, a, device, "F1 classic")
+    out["tridiagonal_fp32_classic"] = dict(
+        fixture="tridiagonal(9M), fp32, packed=False",
+        **layout_summary(a, tri32, convert_s) | product,
+        kernel_device=kernel_cold(lambda: ops.whell_spmv(a, x), ("classic_spmv",)),
+        item_s=time.perf_counter() - t0)
+    launches["whell_classic_spmv"] = product["launches"]
+    del a, x, tri32
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    perm = permutation_coupled(LARGE["perm"])
+    a, convert_s = converted(lambda: coo_to_whell(perm, device=device))
+    summary = layout_summary(a, perm, convert_s)
+    if not summary["layout_groups"] > OLD_GROUPS:
+        raise AssertionError(f"past_bounds: {summary['layout_groups']} groups, not "
+                             "past 2**20")
+    xh = rand_vector(perm.n_cols, 7, np.float32)
+    xl = a.embed(torch.from_numpy(xh), dtype=torch.float32)
+    x2 = ops._prep_x(xl, a.n_cols, a.x_pages)
+    kw.LAUNCHES = 0
+    z = ops.whell_spmv(a, xl)
+    torch.cuda.synchronize()
+    perm_launches = kw.LAUNCHES
+    if perm_launches != 1:
+        raise AssertionError(f"past_bounds permutation: whell_spmv launched #1 "
+                             f"{perm_launches} times")
+    zp = chunked_plain(a, x2).reshape(-1)[: a.n_rows]
+    err_plain = check_close(z, zp, 1e-5, 1e-5, "permutation: kernel vs plain")
+    golden = perm.spmv(xh.astype(np.float64))
+    err_golden = check_close(a.extract(z, dtype=torch.float64).cpu().numpy(), golden,
+                             1e-4, 1e-4, "permutation: kernel vs golden")
+    fn = lambda: ops.whell_spmv(a, xl)  # noqa: E731
+    t = time_interleaved({"kernel": fn, "plain": lambda: chunked_plain(a, x2)},
+                         reps=2, iters=2, warmup=1)
+    moved = nbytes(a.values, a.residue, a.page_tab, a.tile_base, a.tile_page,
+                   a.chunk_group, a.group_bases, None if a.unit_segments else a.seg_lo,
+                   a.seg_hi, x2, z)
+    out["permutation_scattered"] = dict(
+        fixture=f"row i couples to i and pi(i), {LARGE['perm']} rows, fp32", **summary,
+        launches=perm_launches,
+        max_abs_err_vs_plain=err_plain, max_abs_err_vs_golden=err_golden,
+        kernel_ms=t["kernel"]["best_ms"], plain_ms=t["plain"]["best_ms"],
+        kernel_device=kernel_cold(fn, ("whell_",)),
+        library=library_times(perm, torch.from_numpy(xh).to(device), device),
+        **bound(moved, 2 * perm.nnz, "float32"), item_s=time.perf_counter() - t0)
+    launches["whell_packed_spmv"] = perm_launches
+    return out, launches
+
+
+def large_phases(device, smi):
+    """Phases 30 and 31 in this process (``--large``), each with its
+    main-path launches by kernel (``launches``: the checked op calls and
+    the solves', counted from 0; the timing calls are not counted)."""
+    for phase, fn in (("large", large_phase), ("past_bounds", past_bounds_phase)):
+        res, launches = fn(device, smi)
+        yield phase, dict(res, launches=launches)
+
 
 
 def build_all():
@@ -1777,7 +2238,7 @@ def kernel_times(device):
     from spgpu_tpu_torch import ops
     from spgpu_tpu_torch.convert import (coo_to_whell, coo_to_whell_percell,
                                          local_degree_perm, symmetric_relabel)
-    from spgpu_tpu_torch.utils.timing import device_ms_by_kernel, kernel_device_ms
+    from spgpu_tpu_torch.utils.timing import kernel_device_ms
 
     coo = flagship()
     rel = symmetric_relabel(coo, local_degree_perm(coo))
@@ -1795,7 +2256,7 @@ def kernel_times(device):
     for tag, make in layouts.items():
         a = make()
         fn = lambda: ops.whell_spmv(a, x)  # noqa: E731
-        names = [n for n in device_ms_by_kernel(fn) if n.startswith(TIMED_KERNELS)]
+        names = kernel_names(fn, TIMED_KERNELS)
         if len(names) != 1:
             raise AssertionError(f"kernel_times {tag}: kernels {names}")
         warm, src = kernel_device_ms(fn, names)
@@ -1820,7 +2281,7 @@ def op_times(fn, prefixes):
                                               kernel_device_ms)
 
     by_op = device_ms_by_kernel(fn)
-    names = [k for k in (sorted(by_op) or launched(fn)) if k.startswith(prefixes)]
+    names = kernel_names(fn, prefixes, by_op)
     if not names:
         raise AssertionError(f"kernel_times: no kernel named {prefixes} launched")
     warm, src = kernel_device_ms(fn, names)
@@ -1904,9 +2365,10 @@ def whdia_bounds(a, n_rhs):
     """The bytes and bounds of a WHDIA product with ``n_rhs`` RHS: the
     full layout's (every layout array once, x and z once per RHS) and the
     live slots' (the values of the slots that hold a nonzero, their r0
-    (slab mode) or tile words (pattern mode) and tile bases, the per-hack
+    (slab mode) or tile words (pattern mode) and tile pages, the per-hack
     slot list, x and z once per RHS), with the live-slot share.  Computed
-    from the values, so older checkouts (no ``hack_slots``) run too."""
+    from the values, so older checkouts (no ``hack_slots``, no
+    ``tile_page``) run too."""
     from spgpu_tpu_torch.utils.measure import HBM_BYTES_PER_S
 
     isz = a.values.element_size()
@@ -1915,7 +2377,8 @@ def whdia_bounds(a, n_rhs):
     n_live = int(live.sum())
     live_tiles = int(live.view(-1, 8).any(dim=1).sum())
     vectors = n_rhs * isz * (a.n_cols + hacks * 128)
-    full = nbytes(a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group) + vectors
+    full = nbytes(a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group,
+                  getattr(a, "tile_page", None)) + vectors
     live_bytes = (n_live * (128 * isz + 4 + (0 if a.pattern_mode else 2))
                   + live_tiles * 4 * (2 if a.pattern_mode else 1)
                   + 4 * (hacks + 1) + vectors)
@@ -1998,9 +2461,9 @@ def whdia_kernel_times(device):
 
 
 def whell_kernel_times(device):
-    """Phase 29's float64 and complex packed-WHELL rows: #4, the
-    complex128 kernel and #7 (complex64) through ``whell_spmv`` on the
-    flagship, aligned and scattered windows, and #4 on the dd-Laplacian,
+    """Phase 29's packed-WHELL rows: #1 (fp32), #4, the complex128
+    kernel and #7 (complex64) through ``whell_spmv`` on the flagship,
+    aligned and scattered windows, and #4 on the dd-Laplacian,
     each with the device time of the whole op (every device operation of
     one call, and each by name) and of its own kernels (profiler names
     ``whell_*``), warm and cold (:func:`op_times`); then #19's levels (the tree's
@@ -2016,7 +2479,7 @@ def whell_kernel_times(device):
 
     coo64 = flagship(np.float64)
     m = SIZES["dd_lap"]
-    fixtures = (("flagship", "f64", coo64),
+    fixtures = (("flagship", "f32", flagship()), ("flagship", "f64", coo64),
                 ("flagship", "c128", with_imag(coo64, 8, np.complex128)),
                 ("flagship", "c64", with_imag(coo64, 8, np.complex64)),
                 ("dd_lap", "f64", laplacian_2d(m, m, np.float64)))
@@ -2030,7 +2493,10 @@ def whell_kernel_times(device):
             xl = a.embed(x, dtype=x.dtype)
             t = op_times(lambda: ops.whell_spmv(a, xl), ("whell_",))
             z = torch.empty((a.num_groups * a.group_hacks, 128), dtype=x.dtype)
+            # #1 (f32) and #7 (c64), the tile pass, also read the page words
+            # beside tile_base; the hack pass reads them in its place
             moved = nbytes(a.values, a.residue, a.page_tab, a.tile_base,
+                           getattr(a, "tile_page", None) if tag in ("f32", "c64") else None,
                            a.group_bases, None if a.unit_segments else a.seg_lo,
                            a.seg_hi, xl, z)
             geom = "scattered" if scattered else "aligned"
@@ -2049,8 +2515,8 @@ def whell_kernel_times(device):
                               window_pages=a.window_pages,
                               unit_segments=a.unit_segments)
                 # older checkouts: no work units, or run counters on the
-                # layout
-                for f in ("hack_units", "hack_done"):
+                # layout, and no page words
+                for f in ("hack_units", "hack_done", "tile_page"):
                     if hasattr(a, f):
                         static[f] = getattr(a, f)
                 out[f"ablation_flagship_f64_{geom}"] = {
@@ -2111,12 +2577,21 @@ def main() -> int:
               file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
+    if sys.argv[1:] in (["--sweeps"], ["--kernel-times"], ["--large"]):
+        # every library up to date before the first profiling session: a
+        # phase run alone from a fresh checkout lost its kernels' events
+        # where the build ran between sessions
+        build_all()
     if sys.argv[1:] == ["--sweeps"]:  # phases 26-28, for child_phases
         for phase, res in sweep_phases(device):
             print(json.dumps({"phase": phase, **res}), flush=True)
         return 0
     if sys.argv[1:] == ["--kernel-times"]:  # phase 29, for child_phases
         print(json.dumps({"phase": "kernel_times", **kernel_times(device)}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--large"]:  # phases 30 and 31, for child_phases
+        for phase, res in large_phases(device, nvidia_smi()):
+            print(json.dumps({"phase": phase, **res}), flush=True)
         return 0
     from spgpu_tpu_torch.convert import (coo_to_whell, local_degree_perm,
                                          suggest_format, symmetric_relabel)
@@ -2311,6 +2786,14 @@ def main() -> int:
     # --- #15 and #17 alone, warm and cold, in a fresh process -------------
     child_phases("--kernel-times", 1)
 
+    # --- large systems on one layout, in a fresh process: the JAX ---------
+    # --- benchmark's row-block cells and systems past the old fields ------
+    torch.cuda.empty_cache()
+    large_launches = {}
+    for res in child_phases("--large", 2):
+        for k, v in res["launches"].items():
+            large_launches[k] = large_launches.get(k, 0) + v
+
     def whdia_row(name, solves, phases):
         """WHDIA's row: the Laplacian's times, the larger error of its two
         fixtures, the launches of both WHDIA solves."""
@@ -2358,6 +2841,8 @@ def main() -> int:
         kernel_row("pcell_spmv", solve_p["launches"], pcell),
         ablation_row("whdia_ablation", acc18),
         ablation_row("whell_packed_ablation_f64", [acc19])]
+    for row in rows:  # the large phases' main-path launches too
+        row["launches"] += large_launches.get(row["name"], 0)
     close(rows, smi, torch)
     return 0
 

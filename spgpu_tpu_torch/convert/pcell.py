@@ -24,14 +24,15 @@ import torch
 
 from spgpu_tpu_torch.core import dtype_name
 from spgpu_tpu_torch.formats.coo import CooMatrix
-from spgpu_tpu_torch.formats.whell import PcellWhell
+from spgpu_tpu_torch.formats.whell import MAX_TILE_PAGE, PcellWhell
 
 __all__ = ["coo_to_whell_percell"]
 
 _HACK = 128
 
-#: layout groups a tile's 20-bit group field addresses
-_MAX_LAYOUT_GROUPS = 1 << 20
+#: layout groups a tile's full-width tile_page word addresses (its
+#: tile_base keeps the JAX 20-bit field: the group's low bits past 2**20)
+_MAX_TILE_PAGE = MAX_TILE_PAGE
 
 
 def _excl_cumsum(a):
@@ -91,7 +92,7 @@ def coo_to_whell_percell(coo: CooMatrix, *, device, group_hacks: int = 512,
     exceeds the hack count (down to 32).  Duplicates stay separate cells
     and add.  float32 values only (``dtype`` None or float32): other types
     raise ``NotImplementedError`` (ROADMAP module item 14).  Raises
-    ``ValueError`` past :data:`_MAX_LAYOUT_GROUPS` layout groups."""
+    ``ValueError`` past :data:`_MAX_TILE_PAGE` layout groups."""
     name = dtype_name(coo.values.dtype if dtype is None else dtype)
     if name != "float32":
         raise NotImplementedError(
@@ -158,11 +159,10 @@ def coo_to_whell_percell(coo: CooMatrix, *, device, group_hacks: int = 512,
     gstarts = np.flatnonzero(g_first)
     gsizes = np.diff(np.r_[gstarts, m])
     n_grp = gstarts.size
-    if n_grp > _MAX_LAYOUT_GROUPS:
+    if n_grp > _MAX_TILE_PAGE:
         raise ValueError(
             f"this matrix needs {n_grp} pcell layout groups, past the "
-            f"{_MAX_LAYOUT_GROUPS} that tile_base's 20-bit field holds: one "
-            "layout that large is ROADMAP module item 8")
+            f"{_MAX_TILE_PAGE} that tile_page's 31-bit word holds")
     g_G = Gs[gstarts]
     g_hack = g_G // maxbins
 
@@ -207,15 +207,17 @@ def coo_to_whell_percell(coo: CooMatrix, *, device, group_hacks: int = 512,
     run_hi[r_slot, r_out] = lane_p[r_ends].astype(np.int8)
     run_lo[r_slot, r_out] = (lane_p[r_starts] - 1).astype(np.int8)
 
-    # per-tile scalars (layout group | hack-in-group << 20) and per-group
-    # superpage base tables
+    # per-tile scalars (the layout group, and its low 20 bits |
+    # hack-in-group << 20) and per-group superpage base tables
     tile_meta = np.zeros(num_tiles, np.int32)
+    tile_page = np.zeros(num_tiles, np.int32)
     g_tiles_idx = np.repeat(g_tile0, raw_tiles_per_grp) + (
         np.arange(int(raw_tiles_per_grp.sum()))
         - np.repeat(_excl_cumsum(raw_tiles_per_grp), raw_tiles_per_grp))
     gidx_of_tile = np.repeat(np.arange(n_grp), raw_tiles_per_grp)
-    tile_meta[g_tiles_idx] = (
-        gidx_of_tile | ((g_hack[gidx_of_tile] % gh) << 20)).astype(np.int32)
+    tile_page[g_tiles_idx] = gidx_of_tile
+    tile_meta[g_tiles_idx] = ((gidx_of_tile & 0xFFFFF)
+                              | ((g_hack[gidx_of_tile] % gh) << 20)).astype(np.int32)
     chunk_group = np.r_[np.repeat(np.arange(num_groups, dtype=np.int32),
                                   pad_tiles_per_g8 // ct), np.int32(-1)]
     gI = np.searchsorted(g_G, Gu)
@@ -224,4 +226,5 @@ def coo_to_whell_percell(coo: CooMatrix, *, device, group_hacks: int = 512,
 
     return make(total_slots, m, values=vals, residue=res8, page_tab=pt8,
                 run_hi=run_hi, run_lo=run_lo, tile_base=tile_meta,
-                chunk_group=chunk_group, group_bases=bases.reshape(-1))
+                tile_page=tile_page, chunk_group=chunk_group,
+                group_bases=bases.reshape(-1))

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from spgpu_tpu_torch.core import value_dtype
+from spgpu_tpu_torch.core import unique_sorted, value_dtype
 from spgpu_tpu_torch.formats.coo import CooMatrix
 from spgpu_tpu_torch.formats.dia import SdiaMatrix, make
 
@@ -34,7 +34,7 @@ def coo_to_sdia(coo: CooMatrix, *, device) -> SdiaMatrix:
         return make(np.zeros((1, n_tiles * 8, 128), dt), (),
                     coo.n_rows, coo.n_cols).to(device)
     offs_all = coo.cols - coo.rows
-    uniq = np.unique(offs_all)
+    uniq = unique_sorted(offs_all)
     planes = np.zeros((uniq.size, n_tiles * 1024), dtype=dt)
     planes[np.searchsorted(uniq, offs_all), coo.rows] = coo.values
     return make(planes.reshape(uniq.size, n_tiles * 8, 128), uniq,

@@ -13,6 +13,7 @@ from typing import Dict
 
 import numpy as np
 
+from spgpu_tpu_torch.core import unique_sorted
 from spgpu_tpu_torch.formats.coo import CooMatrix
 
 __all__ = ["FormatEstimate", "estimate_formats", "suggest_format"]
@@ -54,7 +55,7 @@ def estimate_formats(coo: CooMatrix, itemsize: int = 4) -> Dict[str, FormatEstim
     out["ell"] = FormatEstimate("ell", cells * (itemsize + 4), cells / m)
 
     # DIA: every distinct diagonal stored dense
-    ndiag = np.unique(diag).size
+    ndiag = unique_sorted(diag).size
     cells = ndiag * rows_p
     out["dia"] = FormatEstimate("dia", cells * itemsize, cells / m)
 
@@ -92,8 +93,8 @@ def estimate_formats(coo: CooMatrix, itemsize: int = 4) -> Dict[str, FormatEstim
     nsp = max(-(-coo.n_cols // 1024), 1)
     G = hack * nsp + coo.cols // 1024
     key = G * n + coo.rows
-    _, cnt = np.unique(key, return_counts=True)
-    gq = np.unique(key) // n
+    uk, cnt = np.unique(key, return_counts=True)
+    gq = uk // n
     o = np.argsort(gq, kind="stable")
     gs, cs = gq[o], cnt[o]
     grp = np.r_[True, gs[1:] != gs[:-1]]

@@ -21,6 +21,9 @@ x passes its VMEM budget (``n_cols*itemsize > 10 MiB``) or its tile scalars pass
 the SMEM budget (``2*nnz/1024 > 150,000`` estimated tiles).  The port reads x from device
 memory and keeps its scalars in plain arrays, so it builds one layout at
 any size; past those budgets the two packages' layouts differ by design.
+Each tile's base page goes into ``tile_page`` at full width and into
+``tile_base``'s 16-bit field as the JAX converter packs it: the whole page
+up to 65,536 x pages (about 8.4M columns), its low 16 bits past them.
 """
 
 from __future__ import annotations
@@ -32,12 +35,13 @@ from spgpu_tpu_torch import native
 from spgpu_tpu_torch.core import value_dtype
 from spgpu_tpu_torch.formats.coo import CooMatrix
 from spgpu_tpu_torch.formats.whdia import WhdiaMatrix
+from spgpu_tpu_torch.formats.whell import MAX_TILE_PAGE
 
 __all__ = ["coo_to_whdia"]
 
 _HACK = 128
-#: tile_base keeps the window's base page in its low 16 bits
-_MAX_BASE_PAGE = 0xFFFF
+#: the largest base page a tile's full-width tile_page word holds
+_MAX_TILE_PAGE = MAX_TILE_PAGE
 
 
 def _spread(w: int) -> int:
@@ -60,9 +64,8 @@ def coo_to_whdia(coo: CooMatrix, *, device) -> WhdiaMatrix:
     tiles by the JAX package's cost model.  Tiles whose filled slots'
     ``r0`` form an arithmetic progression everywhere switch the layout
     to pattern mode (one packed word per tile); otherwise ``slot_r0``
-    holds one int16 per slot.  Raises ``ValueError`` past 65,536 column
-    pages (~8.4M columns), where ``tile_base``'s 16-bit base page would
-    wrap (ROADMAP module item 8)."""
+    holds one int16 per slot.  Raises ``ValueError`` only where a base
+    page passes :data:`_MAX_TILE_PAGE`, the width of ``tile_page``."""
     dt = value_dtype(coo.values.dtype, "WHDIA")
     f64 = dt in (np.float64, np.complex128)  # the double-float geometry
     num_hacks = max(-(-coo.n_rows // _HACK), 1)
@@ -78,11 +81,12 @@ def coo_to_whdia(coo: CooMatrix, *, device) -> WhdiaMatrix:
     m = coo.nnz
 
     def make(vals, slot_r0, tile_r0, tile_base, chunk_group, total_slots,
-             x_pages, w):
+             x_pages, w, tile_page=None):
         t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
         return WhdiaMatrix(
             values=t(vals), slot_r0=t(slot_r0), tile_r0=t(tile_r0),
             tile_base=t(tile_base), chunk_group=t(chunk_group),
+            tile_page=t(tile_page),
             n_rows=coo.n_rows, n_cols=coo.n_cols, num_hacks=num_hacks,
             num_groups=num_groups, total_slots=total_slots, nnz=m,
             x_pages=x_pages, window_pages=w, group_hacks=gh,
@@ -140,16 +144,17 @@ def coo_to_whdia(coo: CooMatrix, *, device) -> WhdiaMatrix:
     # per-tile scalars
     base_cap = max(x_pages - w, 0)
     tb_raw = np.clip((tile_hack_a * _HACK + tile_d0_a) >> 7, 0, base_cap)
-    if int(tb_raw.max()) > _MAX_BASE_PAGE:
+    if int(tb_raw.max()) > _MAX_TILE_PAGE:
         raise ValueError(
-            f"WHDIA needs base page {int(tb_raw.max())}, past the 16 bits "
-            f"tile_base holds ({coo.n_cols} columns): one layout past ~8.4M "
-            "columns is ROADMAP module item 8")
-    tile_base = np.zeros(num_tiles, dtype=np.int32)
-    tile_base[tile_final] = tb_raw.astype(np.int32)
+            f"WHDIA needs base page {int(tb_raw.max())}, past the "
+            f"{_MAX_TILE_PAGE} that tile_page's 31-bit word holds "
+            f"({coo.n_cols} columns)")
+    # the full base page, and the JAX word: its low 16 bits | hh << 16
+    tile_page = np.zeros(num_tiles, dtype=np.int32)
+    tile_page[tile_final] = tb_raw.astype(np.int32)
     tile_hh = np.zeros(num_tiles, dtype=np.int32)
     tile_hh[tile_final] = (tile_hack_a % gh).astype(np.int32)
-    tile_meta = (tile_base | (tile_hh << 16)).astype(np.int32)
+    tile_meta = ((tile_page & 0xFFFF) | (tile_hh << 16)).astype(np.int32)
     chunk_group = np.repeat(np.arange(num_groups, dtype=np.int32),
                             pad_tiles_per_group // ct)
 
@@ -182,6 +187,6 @@ def coo_to_whdia(coo: CooMatrix, *, device) -> WhdiaMatrix:
                   | (f1.astype(np.uint32) << np.uint32(16))
                   | ((step + 4096).astype(np.uint32) << np.uint32(19)))
         return make(vals, None, packed.view(np.int32), tile_meta, chunk_group,
-                    total_slots, x_pages, w)
+                    total_slots, x_pages, w, tile_page)
     return make(vals, slot_r0, None, tile_meta, chunk_group, total_slots,
-                x_pages, w)
+                x_pages, w, tile_page)

@@ -23,11 +23,13 @@ geometry and complex128 the float64 (double-float) one, as the JAX
 converter's planes do, but with scattered windows by default (the JAX
 double-float layout's aligned ones with ``scattered=False``).
 
-The packed fields are bounded, and the converters raise rather than wrap
-them: an aligned window's base page has 16 bits (at most
-:data:`_MAX_ALIGNED_X_PAGES` x pages) and a scattered tile's layout group
-20 (at most :data:`_MAX_LAYOUT_GROUPS` groups).  Lifting them is ROADMAP
-module item 8.
+Each tile's layout group (scattered) or window base page (aligned and
+classic) goes into ``tile_page`` at full width, and into ``tile_base``'s
+low field as the JAX converter packs it: that field holds the whole value
+up to 2**20 groups or 65,536 x pages (every layout the JAX converter
+builds) and its low bits past them.  So one layout holds any system that
+fits the card; the converters raise only past :data:`_MAX_TILE_PAGE`
+pages or groups, where ``tile_page`` itself would wrap.
 """
 
 from __future__ import annotations
@@ -40,9 +42,10 @@ import numpy as np
 import torch
 
 from spgpu_tpu_torch import native
-from spgpu_tpu_torch.core import CHUNK_TILES, dtype_name, value_dtype
+from spgpu_tpu_torch.core import CHUNK_TILES, dtype_name, unique_sorted, value_dtype
 from spgpu_tpu_torch.formats.coo import CooMatrix
-from spgpu_tpu_torch.formats.whell import CLASSIC_DTYPES, WhellMatrix
+from spgpu_tpu_torch.formats.whell import (CLASSIC_DTYPES, MAX_TILE_PAGE,
+                                           WhellMatrix, low_field_bits)
 
 __all__ = ["coo_to_whell", "degree_sort_perm", "local_degree_perm",
            "slab_dtype", "symmetric_relabel", "whell_update_values"]
@@ -53,20 +56,25 @@ _HACK = 128
 #: matrices with no column locality)
 _SLAB_GUARD_BYTES = 16 * 2 ** 30
 
-#: x pages an aligned window's 16-bit base field addresses (packed aligned
-#: and classic layouts)
-_MAX_ALIGNED_X_PAGES = 1 << 16
-#: layout groups a scattered tile's 20-bit group field addresses
-_MAX_LAYOUT_GROUPS = 1 << 20
+#: x pages (aligned and classic layouts) and layout groups (scattered) a
+#: tile's full-width tile_page word addresses
+_MAX_TILE_PAGE = MAX_TILE_PAGE
 
 
-def _field_bound(what: str, value: int, limit: int, bits: int) -> None:
-    """Raise when a packed field would wrap: ``value`` past ``limit``."""
-    if value > limit:
+def _field_bound(what: str, value: int) -> None:
+    """Raise when ``tile_page`` would wrap: ``value`` past
+    :data:`_MAX_TILE_PAGE`."""
+    if value > _MAX_TILE_PAGE:
         raise ValueError(
-            f"this matrix needs {value} {what}, past the {limit} that "
-            f"tile_base's {bits}-bit field holds: one layout that large is "
-            "ROADMAP module item 8")
+            f"this matrix needs {value} {what}, past the {_MAX_TILE_PAGE} that "
+            "tile_page's 31-bit word holds")
+
+
+def _pack_tile_base(page: np.ndarray, hh: np.ndarray, scattered: bool) -> np.ndarray:
+    """The JAX ``tile_base``: the page or group in the low field (its low
+    bits where it passes the field), ``hh`` above it."""
+    bits = low_field_bits(scattered)
+    return ((page & ((1 << bits) - 1)) | (hh << bits)).astype(np.int32)
 
 
 def slab_dtype(dtype) -> torch.dtype:
@@ -295,7 +303,7 @@ def _coo_to_whell_packed(coo: CooMatrix, window_pages: int, vdt: torch.dtype,
         x_pages = max(-(-num_hacks // 8) * 8, 8)
     else:
         x_pages = max(-(-num_hacks // w) * w, w)
-        _field_bound("aligned x pages", x_pages, _MAX_ALIGNED_X_PAGES, 16)
+        _field_bound("aligned x pages", x_pages)
     num_groups = -(-num_hacks // gh)
 
     seg_lo = np.full((num_groups * gh, _HACK), -1, dtype=np.int8)
@@ -306,7 +314,7 @@ def _coo_to_whell_packed(coo: CooMatrix, window_pages: int, vdt: torch.dtype,
     unit_segs = bool(np.all(d[:n] == 1)) if n else True
 
     def make(values, residue, page_tab, tile_base, chunk_group, group_bases,
-             total_slots, nnz, unit):
+             total_slots, nnz, unit, tile_page=None):
         t = lambda a: None if a is None else torch.from_numpy(a)
         vals = t(values)
         if vdt == torch.bfloat16:
@@ -320,6 +328,7 @@ def _coo_to_whell_packed(coo: CooMatrix, window_pages: int, vdt: torch.dtype,
             total_slots=total_slots, nnz=nnz, x_pages=x_pages,
             window_pages=8 * K if scattered else w, orig_rows=n,
             group_hacks=gh, chunk_tiles=ct, unit_segments=unit,
+            tile_page=t(tile_page),
         ).to(device)
 
     store_dt = _slab_values(np.zeros(0), vdt).dtype
@@ -355,7 +364,7 @@ def _coo_to_whell_packed(coo: CooMatrix, window_pages: int, vdt: torch.dtype,
             del occ
             lookup = "lut"
         else:
-            uk = np.unique(ukey)
+            uk = unique_sorted(ukey)
             lookup = "searchsorted"
         sup_u = uk % nsup_tot
         u_hp = uk // nsup_tot
@@ -400,7 +409,7 @@ def _coo_to_whell_packed(coo: CooMatrix, window_pages: int, vdt: torch.dtype,
         k, vlane, res_s, g_id, W = native.whell_gather_assign_par(
             order, coo.rows, cols_l32, d, lane_start, dlt8,
             np.r_[g_starts, m])
-        _field_bound("layout groups", int(W.size), _MAX_LAYOUT_GROUPS, 20)
+        _field_bound("layout groups", int(W.size))
         del_s = dlt8[order]
         g_G = Gs_all[g_starts]
         # group g's table j holds the first page of its j-th superpage
@@ -443,24 +452,24 @@ def _coo_to_whell_packed(coo: CooMatrix, window_pages: int, vdt: torch.dtype,
         order, _slab_values(coo.values, vdt), g_tile0, g_id, k, vlane,
         res_s, del_s, total_slots)
 
-    tile_base = np.zeros(num_tiles, dtype=np.int32)
+    tile_page = np.zeros(num_tiles, dtype=np.int32)
     tile_hh = np.zeros(num_tiles, dtype=np.int32)
     g_tiles_idx = np.repeat(g_tile0, raw_tiles_per_grp) + (
         np.arange(int(raw_tiles_per_grp.sum()))
         - np.repeat(_excl_cumsum(raw_tiles_per_grp), raw_tiles_per_grp))
-    tile_base[g_tiles_idx] = np.repeat(g_meta.astype(np.int32),
+    tile_page[g_tiles_idx] = np.repeat(g_meta.astype(np.int32),
                                        raw_tiles_per_grp)
     tile_hh[g_tiles_idx] = np.repeat((g_hack % gh).astype(np.int32),
                                      raw_tiles_per_grp)
-    # scattered: layout group (20 bits) | hh << 20; aligned: page | hh << 16
-    tile_meta = (tile_base | (tile_hh << (20 if scattered else 16))).astype(np.int32)
+    # scattered: layout group | hh << 20; aligned: page | hh << 16
+    tile_meta = _pack_tile_base(tile_page, tile_hh, scattered)
     # trailing -1 sentinel marks the last chunk of the last group
     chunk_group = np.r_[
         np.repeat(np.arange(num_groups, dtype=np.int32), pad_tiles_per_g8 // ct),
         np.int32(-1)]
     a = make(vals, res8, pt8, tile_meta, chunk_group,
              None if bases is None else np.ascontiguousarray(bases.reshape(-1)),
-             total_slots, int(k.size), unit_segs)
+             total_slots, int(k.size), unit_segs, tile_page)
     if not return_plan:
         return a
     # entry i of the COO lives at cell (panel 0, plan_slot[i], plan_lane[i])
@@ -517,7 +526,7 @@ def _coo_to_whell_classic(coo: CooMatrix, vdt: torch.dtype, row_perm,
     num_pages = max(-(-coo.n_cols // 128), 1)
     nsp = -(-num_pages // 8)  # superpages (aligned 8-page windows)
     x_pages = max(nsp * 8, 8)
-    _field_bound("x pages", x_pages, _MAX_ALIGNED_X_PAGES, 16)
+    _field_bound("x pages", x_pages)
     m = coo.nnz
     num_groups = -(-num_hacks // 8)
     static = dict(num_hacks=num_hacks, num_groups=num_groups, x_pages=x_pages)
@@ -587,19 +596,19 @@ def _coo_to_whell_classic(coo: CooMatrix, vdt: torch.dtype, row_perm,
     res8[slot, lane_o] = res_s.astype(np.int8)
     pt8[slot, res_s] = del_s.astype(np.int8)
 
-    # per-tile scalars: base page (16 bits) | hack-in-group (3 bits) << 16
-    tile_base = np.zeros(num_tiles, dtype=np.int32)
+    # per-tile scalars: the base page, and base page | hack-in-group << 16
+    tile_page = np.zeros(num_tiles, dtype=np.int32)
     tile_hh = np.zeros(num_tiles, dtype=np.int32)
     g_tiles_idx = np.repeat(g_tile0, raw_tiles_per_grp) + (
         np.arange(int(raw_tiles_per_grp.sum()))
         - np.repeat(_excl_cumsum(raw_tiles_per_grp), raw_tiles_per_grp))
-    tile_base[g_tiles_idx] = np.repeat((g_sp * 8).astype(np.int32),
+    tile_page[g_tiles_idx] = np.repeat((g_sp * 8).astype(np.int32),
                                        raw_tiles_per_grp)
     tile_hh[g_tiles_idx] = np.repeat((g_hack % 8).astype(np.int32),
                                      raw_tiles_per_grp)
     a = _classic(coo, dict(
-        values=vals, residue=res8, page_tab=pt8,
-        tile_base=(tile_base | (tile_hh << 16)).astype(np.int32),
+        values=vals, residue=res8, page_tab=pt8, tile_page=tile_page,
+        tile_base=_pack_tile_base(tile_page, tile_hh, False),
         chunk_group=np.repeat(np.arange(num_groups, dtype=np.int32),
                               pad_tiles_per_g8 // _CT),
         row_perm=_padded_perm(row_perm, num_groups)), device,

@@ -19,8 +19,9 @@ import numpy as np
 import torch
 
 __all__ = ["Status", "TypeCode", "size_of", "LANES", "CHUNK_TILES",
-           "round_up", "cdiv", "require_cuda", "dtype_name", "value_dtype",
-           "real_part_dtype", "join_dd", "join_planes", "join_plane_fields"]
+           "round_up", "cdiv", "require_cuda", "unique_sorted",
+           "dtype_name", "value_dtype", "real_part_dtype", "join_dd",
+           "join_planes", "join_plane_fields"]
 
 
 class Status(enum.IntEnum):
@@ -82,6 +83,15 @@ def require_cuda() -> torch.device:
         raise RuntimeError("a CUDA device is required (torch.cuda.is_available() "
                            "is False)")
     return torch.device("cuda", 0)
+
+
+def unique_sorted(a: np.ndarray) -> np.ndarray:
+    """``np.unique(a)`` of a 1-D array, by one sort: the same values in
+    the same order.  ``np.unique`` without ``return_*`` may take a hashing
+    path (NumPy 2.3 on) that is tens of times slower than a sort on tens
+    of millions of int64 keys."""
+    s = np.sort(a)
+    return s[np.r_[True, s[1:] != s[:-1]]] if s.size else s
 
 
 def dtype_name(dtype) -> str:

@@ -8,7 +8,7 @@
 //
 //   for every slot s of tile t = s / 8 (meta = tile_base[t]):
 //     for every lane j:  r = residue[s, j];  d = page_tab[s, r]
-//       col = (group_bases[(meta & 0xFFFFF)*K + (d >> 3)] + (d & 7)) * 128 + r
+//       col = (group_bases[tile_page[t]*K + (d >> 3)] + (d & 7)) * 128 + r
 //       p[j] = values[s, j] * x[col]
 //     P = the inclusive prefix sum of p over the 128 lanes
 //     for every output lane o:  hi = run_hi[s, o];  lo = run_lo[s, o]
@@ -18,7 +18,9 @@
 //
 // i.e. every row's run of cells in a slot, summed by the difference of two
 // prefix sums and sent to its output lane row % 128; z is in the original
-// numbering.  Padding cells hold value 0 and in-range pages.
+// numbering.  Padding cells hold value 0 and in-range pages.  The layout
+// group comes from the layout's full-width tile_page word (int32), not from
+// tile_base's 20-bit field, which bounds the JAX layout at 2^20 groups.
 //
 // Bound on the H100 (3.35 TB/s, SXM at 700 W): the slab streams once per
 // product at 8 B/cell (4 B value + int8 residue, page entry, run_hi and
@@ -91,6 +93,7 @@ pcell_tile(const float* __restrict__ values,
            const int8_t* __restrict__ run_hi,
            const int8_t* __restrict__ run_lo,
            const int32_t* __restrict__ tile_base,
+           const int32_t* __restrict__ tile_page,
            const int32_t* __restrict__ chunk_group,
            const int32_t* __restrict__ group_bases,
            const float* __restrict__ x, float* __restrict__ z,
@@ -106,6 +109,7 @@ pcell_tile(const float* __restrict__ values,
   float* scan = scan_buf[wib];
   const int64_t cell0 = t * (kSlots * kLanes);
   const uint32_t meta = static_cast<uint32_t>(__ldg(tile_base + t));
+  const int64_t group = __ldg(tile_page + t);
 
   float4 v[kSlots];
   uint32_t res[kSlots], hi[kSlots], lo[kSlots];
@@ -123,7 +127,7 @@ pcell_tile(const float* __restrict__ values,
   uint4* pt_dst = reinterpret_cast<uint4*>(pt_buf[wib]);
   pt_dst[l] = __ldg(pt_src + l);
   pt_dst[l + 32] = __ldg(pt_src + l + 32);
-  if (l < ntab) bases_buf[wib][l] = __ldg(group_bases + static_cast<int64_t>(meta & 0xFFFFFu) * ntab + l);
+  if (l < ntab) bases_buf[wib][l] = __ldg(group_bases + group * ntab + l);
   __syncwarp();
   const int8_t* pt = pt_buf[wib];
   const int32_t* bases = bases_buf[wib];
@@ -182,16 +186,16 @@ extern "C" {
 // on `stream`, does not synchronise, and returns cudaGetLastError().
 int pcell_spmv(const void* values, const void* residue, const void* page_tab,
                const void* run_hi, const void* run_lo, const void* tile_base,
-               const void* chunk_group, const void* group_bases, const void* x,
-               void* z, int64_t num_tiles, int chunk_tiles, int group_hacks,
-               int ntab, void* stream) {
+               const void* tile_page, const void* chunk_group,
+               const void* group_bases, const void* x, void* z, int64_t num_tiles,
+               int chunk_tiles, int group_hacks, int ntab, void* stream) {
   if (num_tiles > 0)
     pcell_tile<<<static_cast<unsigned>((num_tiles + kTileWarps - 1) / kTileWarps),
                  kTileWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(values), static_cast<const int8_t*>(residue),
         static_cast<const int8_t*>(page_tab), static_cast<const int8_t*>(run_hi),
         static_cast<const int8_t*>(run_lo), static_cast<const int32_t*>(tile_base),
-        static_cast<const int32_t*>(chunk_group),
+        static_cast<const int32_t*>(tile_page), static_cast<const int32_t*>(chunk_group),
         static_cast<const int32_t*>(group_bases), static_cast<const float*>(x),
         static_cast<float*>(z), num_tiles, chunk_tiles, group_hacks, ntab);
   return static_cast<int>(cudaGetLastError());

@@ -16,7 +16,7 @@
 // same product on the same layout arrays (spgpu_tpu_torch/formats/whdia.py):
 //
 //   for every cell (slot s, lane j) of tile t = s / 8:
-//     base = tile_base[t] & 0xFFFF,  hh = tile_base[t] >> 16
+//     base = tile_page[t],  hh = tile_base[t] >> 16
 //     r0   = slot_r0[s]                                     (slab mode)
 //          = r00 + step*min(s % 8, F-1) from tile_r0[t]     (pattern mode)
 //     hack = chunk_group[t / chunk_tiles] * group_hacks + hh
@@ -26,7 +26,11 @@
 // through a window-clamped rotation of VMEM-resident pages; for every
 // nonzero cell the column base*128 + r0 + j is the cell's own column, and
 // dead slots and diagonal ends hold 0, so the direct guarded read gives
-// the same product for finite x.
+// the same product for finite x.  The base page comes from the layout's
+// full-width tile_page word (int32), not from tile_base's 16-bit field,
+// which bounds the JAX layout at 65,536 x pages (about 8.4M columns):
+// one more 4 B load per tile in the tile pass, and in the live-slot passes
+// the same one load per listed slot that read tile_base before.
 //
 // Bound on the H100: the value slab streams once, and x and z once; on
 // the 2-D Laplacian (1,048,576 rows) the full fp32 layout is 16,384 tiles,
@@ -67,8 +71,9 @@
 // hack*128 + j.  So each hack is summed over its live slots, from the
 // layout's list (hack_slot_ptr, hack_slots), in list order, in registers,
 // and each row is stored once with a plain store: no atomics, no zero
-// fill, and the same bits from run to run.  Columns are int32 (the
-// converter bounds them at 65,536 pages x 128).
+// fill, and the same bits from run to run.  Columns are int32: the
+// launches refuse n_cols past INT32_MAX - 2^16, which bounds a cell's
+// column base*128 + r0 + j (r0 is an int16, base*128 < n_cols + 128).
 //
 // The hack pass (#9, #13): one block per hack, one warp per 32-lane
 // quarter.  Each warp reads the live slots' values, their r0 and tile
@@ -80,7 +85,7 @@
 // The warp pass (#3): in fp32 a warp moves only 128 B per slot and a
 // Laplacian hack holds 5 live slots (2.5 KB of values), so a block per
 // hack spends its time on the chain of dependent loads that precedes the
-// first value (hack_slot_ptr, then hack_slots, then tile_base and r0) and
+// first value (hack_slot_ptr, then hack_slots, then tile_page and r0) and
 // on its own start, and 8,192 such blocks run in four waves.  One warp
 // per hack instead, kWarpHacks = 4 hacks per 128-thread block: thread t
 // owns lanes 4t..4t+3 (one 16-byte value load per slot, one 16-byte
@@ -146,6 +151,9 @@ constexpr int kSpmmBlocksPerSm = 8;
 constexpr int kWarpHacks = 4;
 constexpr int kWarpBatch = 2;
 constexpr int kWarpBlocksPerSm = 16;
+// The live-slot passes' int32 columns: base*128 + r0 + j stays below 2^31
+// for n_cols up to this (base*128 < n_cols + 128, |r0| < 2^15)
+constexpr int64_t kMaxCols = INT32_MAX - (1 << 16);
 
 // sum + v*x: one FMA for a real type; four for a complex one, in the order
 // re += vr*xr; re -= vi*xi; im += vr*xi; im += vi*xr
@@ -219,6 +227,7 @@ __device__ __forceinline__ void whdia_tile(const T* __restrict__ values,
                                            const int16_t* __restrict__ slot_r0,
                                            const int32_t* __restrict__ tile_r0,
                                            const int32_t* __restrict__ tile_base,
+                                           const int32_t* __restrict__ tile_page,
                                            const int32_t* __restrict__ chunk_group,
                                            const T* __restrict__ x, T* __restrict__ z,
                                            int64_t n_cols, int chunk_tiles,
@@ -232,8 +241,7 @@ __device__ __forceinline__ void whdia_tile(const T* __restrict__ values,
       sum = mac(__ldg(values + (t * kSlots + s) * kLanes + j), T(1.5f), sum);
     z[t * kLanes + j] = sum;
   } else {
-    const uint32_t meta = static_cast<uint32_t>(tile_base[t]);
-    const int64_t c0 = static_cast<int64_t>(meta & 0xFFFFu) * kLanes + j;
+    const int64_t c0 = static_cast<int64_t>(tile_page[t]) * kLanes + j;
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
       const int64_t slot = t * kSlots + s;
@@ -245,8 +253,9 @@ __device__ __forceinline__ void whdia_tile(const T* __restrict__ values,
         sum = mac(v, __ldg(x + c), sum);
     }
     if constexpr (kLevel == kFull) {
+      const uint32_t hh = static_cast<uint32_t>(tile_base[t]) >> 16;
       const int64_t hack =
-          static_cast<int64_t>(chunk_group[t / chunk_tiles]) * group_hacks + (meta >> 16);
+          static_cast<int64_t>(chunk_group[t / chunk_tiles]) * group_hacks + hh;
       atomic_add(z + hack * kLanes + j, sum);
     } else {
       z[t * kLanes + j] = sum;
@@ -260,11 +269,12 @@ whdia_tile_pass(const T* __restrict__ values,
                 const int16_t* __restrict__ slot_r0,
                 const int32_t* __restrict__ tile_r0,
                 const int32_t* __restrict__ tile_base,
+                const int32_t* __restrict__ tile_page,
                 const int32_t* __restrict__ chunk_group,
                 const T* __restrict__ x, T* __restrict__ z,
                 int64_t n_cols, int chunk_tiles, int group_hacks) {
-  whdia_tile<T, kPattern, kFull>(values, slot_r0, tile_r0, tile_base, chunk_group,
-                                 x, z, n_cols, chunk_tiles, group_hacks);
+  whdia_tile<T, kPattern, kFull>(values, slot_r0, tile_r0, tile_base, tile_page,
+                                 chunk_group, x, z, n_cols, chunk_tiles, group_hacks);
 }
 
 // kernel #18's tile levels below kFull, fp32: the tile pass cut after one
@@ -275,10 +285,11 @@ whdia_ablation_pass(const float* __restrict__ values,
                     const int16_t* __restrict__ slot_r0,
                     const int32_t* __restrict__ tile_r0,
                     const int32_t* __restrict__ tile_base,
+                    const int32_t* __restrict__ tile_page,
                     const int32_t* __restrict__ chunk_group,
                     const float* __restrict__ x, float* __restrict__ part,
                     int64_t n_cols, int chunk_tiles, int group_hacks) {
-  whdia_tile<float, kPattern, kLevel>(values, slot_r0, tile_r0, tile_base,
+  whdia_tile<float, kPattern, kLevel>(values, slot_r0, tile_r0, tile_base, tile_page,
                                       chunk_group, x, part, n_cols, chunk_tiles,
                                       group_hacks);
 }
@@ -298,7 +309,7 @@ template <typename T, bool kPattern, int kRhs, int kLevel>
 __device__ __forceinline__ void hack_body(const T* __restrict__ values,
                                           const int16_t* __restrict__ slot_r0,
                                           const int32_t* __restrict__ tile_r0,
-                                          const int32_t* __restrict__ tile_base,
+                                          const int32_t* __restrict__ tile_page,
                                           const int32_t* __restrict__ hack_slot_ptr,
                                           const int32_t* __restrict__ hack_slots,
                                           const T* __restrict__ x, T* __restrict__ z,
@@ -325,7 +336,7 @@ __device__ __forceinline__ void hack_body(const T* __restrict__ values,
       if (lane < n) {
         sid = __ldg(hack_slots + p + lane);
         const int t = sid >> 3;
-        col0 = (__ldg(tile_base + t) & 0xFFFF) * kLanes +
+        col0 = __ldg(tile_page + t) * kLanes +
                slot_r0_of<kPattern>(slot_r0, tile_r0, t, sid & (kSlots - 1));
       }
       for (int k = 0; k < n; k += kBatch) {
@@ -371,12 +382,12 @@ __global__ void __launch_bounds__(kLanes, kRhs == 1 ? kSpmvBlocksPerSm : kSpmmBl
 whdia_hack_pass(const T* __restrict__ values,
                 const int16_t* __restrict__ slot_r0,
                 const int32_t* __restrict__ tile_r0,
-                const int32_t* __restrict__ tile_base,
+                const int32_t* __restrict__ tile_page,
                 const int32_t* __restrict__ hack_slot_ptr,
                 const int32_t* __restrict__ hack_slots,
                 const T* __restrict__ x, T* __restrict__ z,
                 int n_cols, int64_t z_rows, int n_rhs) {
-  hack_body<T, kPattern, kRhs, kHackFull>(values, slot_r0, tile_r0, tile_base,
+  hack_body<T, kPattern, kRhs, kHackFull>(values, slot_r0, tile_r0, tile_page,
                                           hack_slot_ptr, hack_slots, x, z, n_cols,
                                           z_rows, n_rhs);
 }
@@ -388,12 +399,12 @@ __global__ void __launch_bounds__(kLanes, kSpmmBlocksPerSm)
 whdia_hack_ablation(const float* __restrict__ values,
                     const int16_t* __restrict__ slot_r0,
                     const int32_t* __restrict__ tile_r0,
-                    const int32_t* __restrict__ tile_base,
+                    const int32_t* __restrict__ tile_page,
                     const int32_t* __restrict__ hack_slot_ptr,
                     const int32_t* __restrict__ hack_slots,
                     const float* __restrict__ x, float* __restrict__ z,
                     int n_cols, int64_t z_rows, int n_rhs) {
-  hack_body<float, kPattern, kSpmmRhs, kLevel>(values, slot_r0, tile_r0, tile_base,
+  hack_body<float, kPattern, kSpmmRhs, kLevel>(values, slot_r0, tile_r0, tile_page,
                                                hack_slot_ptr, hack_slots, x, z, n_cols,
                                                z_rows, n_rhs);
 }
@@ -410,7 +421,7 @@ template <bool kPattern, int kLevel>
 __device__ __forceinline__ void warp_hack(const float* __restrict__ values,
                                           const int16_t* __restrict__ slot_r0,
                                           const int32_t* __restrict__ tile_r0,
-                                          const int32_t* __restrict__ tile_base,
+                                          const int32_t* __restrict__ tile_page,
                                           const int32_t* __restrict__ hack_slot_ptr,
                                           const int32_t* __restrict__ hack_slots,
                                           const float* __restrict__ x, float* __restrict__ z,
@@ -428,7 +439,7 @@ __device__ __forceinline__ void warp_hack(const float* __restrict__ values,
     if (lane < n) {
       sid = __ldg(hack_slots + p + lane);
       const int t = sid >> 3;
-      col0 = (__ldg(tile_base + t) & 0xFFFF) * kLanes +
+      col0 = __ldg(tile_page + t) * kLanes +
              slot_r0_of<kPattern>(slot_r0, tile_r0, t, sid & (kSlots - 1));
     }
     for (int k = 0; k < n; k += kWarpBatch) {
@@ -472,12 +483,12 @@ __global__ void __launch_bounds__(kWarpHacks * 32, kWarpBlocksPerSm)
 whdia_spmv_warps(const float* __restrict__ values,
                  const int16_t* __restrict__ slot_r0,
                  const int32_t* __restrict__ tile_r0,
-                 const int32_t* __restrict__ tile_base,
+                 const int32_t* __restrict__ tile_page,
                  const int32_t* __restrict__ hack_slot_ptr,
                  const int32_t* __restrict__ hack_slots,
                  const float* __restrict__ x, float* __restrict__ z,
                  int n_cols, int num_hacks) {
-  warp_hack<kPattern, kHackFull>(values, slot_r0, tile_r0, tile_base, hack_slot_ptr,
+  warp_hack<kPattern, kHackFull>(values, slot_r0, tile_r0, tile_page, hack_slot_ptr,
                                  hack_slots, x, z, n_cols, num_hacks);
 }
 
@@ -488,20 +499,20 @@ __global__ void __launch_bounds__(kWarpHacks * 32, kWarpBlocksPerSm)
 whdia_warps_ablation(const float* __restrict__ values,
                      const int16_t* __restrict__ slot_r0,
                      const int32_t* __restrict__ tile_r0,
-                     const int32_t* __restrict__ tile_base,
+                     const int32_t* __restrict__ tile_page,
                      const int32_t* __restrict__ hack_slot_ptr,
                      const int32_t* __restrict__ hack_slots,
                      const float* __restrict__ x, float* __restrict__ z,
                      int n_cols, int num_hacks) {
-  warp_hack<kPattern, kLevel>(values, slot_r0, tile_r0, tile_base, hack_slot_ptr,
+  warp_hack<kPattern, kLevel>(values, slot_r0, tile_r0, tile_page, hack_slot_ptr,
                               hack_slots, x, z, n_cols, num_hacks);
 }
 
 template <typename T>
 int launch(const void* values, const void* slot_r0, const void* tile_r0,
-           const void* tile_base, const void* chunk_group, const void* x,
-           void* z, int64_t num_tiles, int64_t n_cols, int chunk_tiles,
-           int group_hacks, void* stream) {
+           const void* tile_base, const void* tile_page, const void* chunk_group,
+           const void* x, void* z, int64_t num_tiles, int64_t n_cols,
+           int chunk_tiles, int group_hacks, void* stream) {
   if (num_tiles > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const dim3 grid(static_cast<unsigned>(num_tiles));
@@ -509,41 +520,42 @@ int launch(const void* values, const void* slot_r0, const void* tile_r0,
     auto* sr = static_cast<const int16_t*>(slot_r0);
     auto* tr = static_cast<const int32_t*>(tile_r0);
     auto* tb = static_cast<const int32_t*>(tile_base);
+    auto* tp = static_cast<const int32_t*>(tile_page);
     auto* cg = static_cast<const int32_t*>(chunk_group);
     auto* xt = static_cast<const T*>(x);
     auto* zt = static_cast<T*>(z);
     if (tr != nullptr)
       whdia_tile_pass<T, true><<<grid, kLanes, 0, st>>>(
-          v, sr, tr, tb, cg, xt, zt, n_cols, chunk_tiles, group_hacks);
+          v, sr, tr, tb, tp, cg, xt, zt, n_cols, chunk_tiles, group_hacks);
     else
       whdia_tile_pass<T, false><<<grid, kLanes, 0, st>>>(
-          v, sr, tr, tb, cg, xt, zt, n_cols, chunk_tiles, group_hacks);
+          v, sr, tr, tb, tp, cg, xt, zt, n_cols, chunk_tiles, group_hacks);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int kLevel>
 void launch_ablation(const float* v, const int16_t* sr, const int32_t* tr,
-                     const int32_t* tb, const int32_t* cg, const float* x,
-                     float* part, int64_t num_tiles, int64_t n_cols,
+                     const int32_t* tb, const int32_t* tp, const int32_t* cg,
+                     const float* x, float* part, int64_t num_tiles, int64_t n_cols,
                      int chunk_tiles, int group_hacks, cudaStream_t st) {
   const dim3 grid(static_cast<unsigned>(num_tiles));
   if (tr != nullptr)
     whdia_ablation_pass<true, kLevel><<<grid, kLanes, 0, st>>>(
-        v, sr, tr, tb, cg, x, part, n_cols, chunk_tiles, group_hacks);
+        v, sr, tr, tb, tp, cg, x, part, n_cols, chunk_tiles, group_hacks);
   else
     whdia_ablation_pass<false, kLevel><<<grid, kLanes, 0, st>>>(
-        v, sr, tr, tb, cg, x, part, n_cols, chunk_tiles, group_hacks);
+        v, sr, tr, tb, tp, cg, x, part, n_cols, chunk_tiles, group_hacks);
 }
 
 // the hack pass (#9, #13) at kHackFull; #18's 8-RHS hack levels below
 template <typename T, int kRhs, int kLevel = kHackFull>
 int launch_hacks(const void* values, const void* slot_r0, const void* tile_r0,
-                 const void* tile_base, const void* hack_slot_ptr,
+                 const void* tile_page, const void* hack_slot_ptr,
                  const void* hack_slots, const void* x, void* z,
                  int64_t num_hacks, int64_t n_cols, int64_t z_rows, int n_rhs,
                  void* stream) {
-  if (n_cols > INT32_MAX || num_hacks > INT32_MAX)
+  if (n_cols > kMaxCols || num_hacks > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   if (num_hacks > 0 && n_rhs > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -551,7 +563,7 @@ int launch_hacks(const void* values, const void* slot_r0, const void* tile_r0,
     auto* v = static_cast<const T*>(values);
     auto* sr = static_cast<const int16_t*>(slot_r0);
     auto* tr = static_cast<const int32_t*>(tile_r0);
-    auto* tb = static_cast<const int32_t*>(tile_base);
+    auto* tp = static_cast<const int32_t*>(tile_page);
     auto* hp = static_cast<const int32_t*>(hack_slot_ptr);
     auto* hs = static_cast<const int32_t*>(hack_slots);
     auto* xt = static_cast<const T*>(x);
@@ -560,16 +572,16 @@ int launch_hacks(const void* values, const void* slot_r0, const void* tile_r0,
     if constexpr (kLevel == kHackFull) {
       if (tr != nullptr)
         whdia_hack_pass<T, true, kRhs><<<grid, kLanes, 0, st>>>(
-            v, sr, tr, tb, hp, hs, xt, zt, nc, z_rows, n_rhs);
+            v, sr, tr, tp, hp, hs, xt, zt, nc, z_rows, n_rhs);
       else
         whdia_hack_pass<T, false, kRhs><<<grid, kLanes, 0, st>>>(
-            v, sr, tr, tb, hp, hs, xt, zt, nc, z_rows, n_rhs);
+            v, sr, tr, tp, hp, hs, xt, zt, nc, z_rows, n_rhs);
     } else if (tr != nullptr) {
       whdia_hack_ablation<true, kLevel><<<grid, kLanes, 0, st>>>(
-          v, sr, tr, tb, hp, hs, xt, zt, nc, z_rows, n_rhs);
+          v, sr, tr, tp, hp, hs, xt, zt, nc, z_rows, n_rhs);
     } else {
       whdia_hack_ablation<false, kLevel><<<grid, kLanes, 0, st>>>(
-          v, sr, tr, tb, hp, hs, xt, zt, nc, z_rows, n_rhs);
+          v, sr, tr, tp, hp, hs, xt, zt, nc, z_rows, n_rhs);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -578,10 +590,10 @@ int launch_hacks(const void* values, const void* slot_r0, const void* tile_r0,
 // the warp pass (#3) at kHackFull; #18's 1-RHS hack levels below
 template <int kLevel>
 int launch_warps(const void* values, const void* slot_r0, const void* tile_r0,
-                 const void* tile_base, const void* hack_slot_ptr,
+                 const void* tile_page, const void* hack_slot_ptr,
                  const void* hack_slots, const void* x, void* z,
                  int64_t num_hacks, int64_t n_cols, void* stream) {
-  if (n_cols > INT32_MAX || num_hacks > INT32_MAX)
+  if (n_cols > kMaxCols || num_hacks > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   if (num_hacks > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -589,7 +601,7 @@ int launch_warps(const void* values, const void* slot_r0, const void* tile_r0,
     auto* v = static_cast<const float*>(values);
     auto* sr = static_cast<const int16_t*>(slot_r0);
     auto* tr = static_cast<const int32_t*>(tile_r0);
-    auto* tb = static_cast<const int32_t*>(tile_base);
+    auto* tp = static_cast<const int32_t*>(tile_page);
     auto* hp = static_cast<const int32_t*>(hack_slot_ptr);
     auto* hs = static_cast<const int32_t*>(hack_slots);
     auto* xt = static_cast<const float*>(x);
@@ -598,15 +610,15 @@ int launch_warps(const void* values, const void* slot_r0, const void* tile_r0,
     constexpr int kThreads = kWarpHacks * 32;
     if constexpr (kLevel == kHackFull) {
       if (tr != nullptr)
-        whdia_spmv_warps<true><<<grid, kThreads, 0, st>>>(v, sr, tr, tb, hp, hs, xt, zt, nc, nh);
+        whdia_spmv_warps<true><<<grid, kThreads, 0, st>>>(v, sr, tr, tp, hp, hs, xt, zt, nc, nh);
       else
-        whdia_spmv_warps<false><<<grid, kThreads, 0, st>>>(v, sr, tr, tb, hp, hs, xt, zt, nc, nh);
+        whdia_spmv_warps<false><<<grid, kThreads, 0, st>>>(v, sr, tr, tp, hp, hs, xt, zt, nc, nh);
     } else if (tr != nullptr) {
       whdia_warps_ablation<true, kLevel><<<grid, kThreads, 0, st>>>(
-          v, sr, tr, tb, hp, hs, xt, zt, nc, nh);
+          v, sr, tr, tp, hp, hs, xt, zt, nc, nh);
     } else {
       whdia_warps_ablation<false, kLevel><<<grid, kThreads, 0, st>>>(
-          v, sr, tr, tb, hp, hs, xt, zt, nc, nh);
+          v, sr, tr, tp, hp, hs, xt, zt, nc, nh);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -623,13 +635,13 @@ extern "C" {
 // `stream`, does not synchronise, and returns cudaGetLastError()
 // (cudaErrorInvalidValue for another level).
 int whdia_ablation(int level, const void* values, const void* slot_r0,
-                   const void* tile_r0, const void* tile_base,
+                   const void* tile_r0, const void* tile_base, const void* tile_page,
                    const void* chunk_group, const void* x, void* out,
                    int64_t num_tiles, int64_t n_cols, int chunk_tiles,
                    int group_hacks, void* stream) {
   if (level == kFull)
-    return launch<float>(values, slot_r0, tile_r0, tile_base, chunk_group, x,
-                         out, num_tiles, n_cols, chunk_tiles, group_hacks, stream);
+    return launch<float>(values, slot_r0, tile_r0, tile_base, tile_page, chunk_group,
+                         x, out, num_tiles, n_cols, chunk_tiles, group_hacks, stream);
   if (level < kStream || level > kFull)
     return static_cast<int>(cudaErrorInvalidValue);
   if (num_tiles > 0) {
@@ -638,7 +650,8 @@ int whdia_ablation(int level, const void* values, const void* slot_r0,
                                 : launch_ablation<kGather>;
     fn(static_cast<const float*>(values), static_cast<const int16_t*>(slot_r0),
        static_cast<const int32_t*>(tile_r0), static_cast<const int32_t*>(tile_base),
-       static_cast<const int32_t*>(chunk_group), static_cast<const float*>(x),
+       static_cast<const int32_t*>(tile_page), static_cast<const int32_t*>(chunk_group),
+       static_cast<const float*>(x),
        static_cast<float*>(out), num_tiles, n_cols, chunk_tiles, group_hacks,
        static_cast<cudaStream_t>(stream));
   }
@@ -654,7 +667,7 @@ int whdia_ablation(int level, const void* values, const void* slot_r0,
 // cudaGetLastError() (cudaErrorInvalidValue for another level).
 int whdia_hack_ablation(int level, int spmm, const void* values,
                         const void* slot_r0, const void* tile_r0,
-                        const void* tile_base, const void* hack_slot_ptr,
+                        const void* tile_page, const void* hack_slot_ptr,
                         const void* hack_slots, const void* x, void* out,
                         int64_t num_hacks, int64_t n_cols, int64_t z_rows,
                         int n_rhs, void* stream) {
@@ -665,14 +678,14 @@ int whdia_hack_ablation(int level, int spmm, const void* values,
                : level == kList  ? launch_hacks<float, kSpmmRhs, kList>
                : level == kValues ? launch_hacks<float, kSpmmRhs, kValues>
                                   : launch_hacks<float, kSpmmRhs, kHackFull>;
-    return fn(values, slot_r0, tile_r0, tile_base, hack_slot_ptr, hack_slots, x, out,
+    return fn(values, slot_r0, tile_r0, tile_page, hack_slot_ptr, hack_slots, x, out,
               num_hacks, n_cols, z_rows, n_rhs, stream);
   }
   auto* fn = level == kLaunch  ? launch_warps<kLaunch>
              : level == kList  ? launch_warps<kList>
              : level == kValues ? launch_warps<kValues>
                                 : launch_warps<kHackFull>;
-  return fn(values, slot_r0, tile_r0, tile_base, hack_slot_ptr, hack_slots, x, out,
+  return fn(values, slot_r0, tile_r0, tile_page, hack_slot_ptr, hack_slots, x, out,
             num_hacks, n_cols, stream);
 }
 
@@ -684,11 +697,13 @@ int whdia_hack_ablation(int level, int spmm, const void* values,
 // (interleaved re/im).
 #define WHDIA_ENTRY(NAME, T)                                                  \
   int NAME(const void* values, const void* slot_r0, const void* tile_r0,     \
-           const void* tile_base, const void* chunk_group, const void* x,    \
-           void* z, int64_t num_tiles, int64_t n_cols, int chunk_tiles,      \
+           const void* tile_base, const void* tile_page,                     \
+           const void* chunk_group, const void* x, void* z,                  \
+           int64_t num_tiles, int64_t n_cols, int chunk_tiles,               \
            int group_hacks, void* stream) {                                  \
-    return launch<T>(values, slot_r0, tile_r0, tile_base, chunk_group, x, z, \
-                     num_tiles, n_cols, chunk_tiles, group_hacks, stream);   \
+    return launch<T>(values, slot_r0, tile_r0, tile_base, tile_page,         \
+                     chunk_group, x, z, num_tiles, n_cols, chunk_tiles,      \
+                     group_hacks, stream);                                   \
   }
 
 WHDIA_ENTRY(whdia_spmv_f64, double)
@@ -702,12 +717,13 @@ WHDIA_ENTRY(whdia_spmv_c128, double2)
 // hack_slots, int32, as WhdiaMatrix.hack_slot_list builds them); r0 from
 // exactly one of slot_r0 (slab mode) and tile_r0 (pattern mode).
 // Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() (cudaErrorInvalidValue past 2^31 columns or hacks).
+// cudaGetLastError() (cudaErrorInvalidValue past kMaxCols columns or 2^31
+// hacks).
 int whdia_spmv(const void* values, const void* slot_r0, const void* tile_r0,
-               const void* tile_base, const void* hack_slot_ptr,
+               const void* tile_page, const void* hack_slot_ptr,
                const void* hack_slots, const void* x, void* z,
                int64_t num_hacks, int64_t n_cols, void* stream) {
-  return launch_warps<kHackFull>(values, slot_r0, tile_r0, tile_base, hack_slot_ptr,
+  return launch_warps<kHackFull>(values, slot_r0, tile_r0, tile_page, hack_slot_ptr,
                                  hack_slots, x, z, num_hacks, n_cols, stream);
 }
 
@@ -715,12 +731,12 @@ int whdia_spmv(const void* values, const void* slot_r0, const void* tile_r0,
 // the complex64 slab (interleaved re/im) and x (n_cols), over the live
 // slots of each hack as in whdia_spmv.  Launches on `stream`, does not
 // synchronise, and returns cudaGetLastError() (cudaErrorInvalidValue past
-// 2^31 columns or hacks).
+// kMaxCols columns or 2^31 hacks).
 int whdia_spmv_c64(const void* values, const void* slot_r0, const void* tile_r0,
-                   const void* tile_base, const void* hack_slot_ptr,
+                   const void* tile_page, const void* hack_slot_ptr,
                    const void* hack_slots, const void* x, void* z,
                    int64_t num_hacks, int64_t n_cols, void* stream) {
-  return launch_hacks<float2, 1>(values, slot_r0, tile_r0, tile_base,
+  return launch_hacks<float2, 1>(values, slot_r0, tile_r0, tile_page,
                                  hack_slot_ptr, hack_slots, x, z, num_hacks,
                                  n_cols, 0, 1, stream);
 }
@@ -731,11 +747,11 @@ int whdia_spmv_c64(const void* values, const void* slot_r0, const void* tile_r0,
 // whdia_spmv.  Launches on `stream`, does not synchronise, and returns
 // cudaGetLastError().
 int whdia_spmm(const void* values, const void* slot_r0, const void* tile_r0,
-               const void* tile_base, const void* hack_slot_ptr,
+               const void* tile_page, const void* hack_slot_ptr,
                const void* hack_slots, const void* x, void* z,
                int64_t num_hacks, int64_t n_cols, int64_t z_rows, int n_rhs,
                void* stream) {
-  return launch_hacks<float, kSpmmRhs>(values, slot_r0, tile_r0, tile_base,
+  return launch_hacks<float, kSpmmRhs>(values, slot_r0, tile_r0, tile_page,
                                    hack_slot_ptr, hack_slots, x, z, num_hacks,
                                    n_cols, z_rows, n_rhs, stream);
 }

@@ -10,12 +10,15 @@
 //
 //   for every cell (slot s, lane j) of tile t = s / 8:
 //     r = residue[s, j];  d = page_tab[s, r]        (indexed by residue)
-//     col = ((tile_base[t] & 0xFFFF) + d) * 128 + r
+//     col = (tile_page[t] + d) * 128 + r
 //     hack = chunk_group[t / 64] * 8 + (tile_base[t] >> 16)
 //     z[hack*128 + j] += float(values[s, j]) * x[col]
 //
-// i.e. the stored row hack*128 + j.  The OELL output scatter (row_perm),
-// the way-split reduction and the alpha/beta epilogue stay in the op
+// i.e. the stored row hack*128 + j.  The base page comes from the layout's
+// full-width tile_page word (int32), not from tile_base's 16-bit field,
+// which bounds the JAX layout at 65,536 x pages; columns are int64.  The
+// OELL output scatter (row_perm), the way-split reduction and the
+// alpha/beta epilogue stay in the op
 // (spgpu_tpu_torch/ops/__init__.py), as the JAX wrapper keeps them outside
 // its kernel.  Padding cells hold value 0 and an in-range page (a window's
 // base + 7 < x_pages).  A classic chunk_group has no trailing sentinel:
@@ -129,12 +132,14 @@ __device__ __forceinline__ int64_t tile_hack(const int32_t* __restrict__ chunk_g
 // 128 B page-table rows, 4 entries a lane), then each live cell's page
 // entry by residue with one __shfl_sync: value v[s] (0 in a dead slot)
 // and x column col[s].  Returns the tile; j is the lane's output lane,
-// meta the tile's word.  Plain loads, not __ldg (see the note above).
+// meta the tile's word (its hh), the base page from tile_page.  Plain
+// loads, not __ldg (see the note above).
 template <typename V>
 __device__ __forceinline__ int64_t unit_cells(const V* __restrict__ values,
                                               const int8_t* __restrict__ residue,
                                               const int8_t* __restrict__ page_tab,
                                               const int32_t* __restrict__ tile_base,
+                                              const int32_t* __restrict__ tile_page,
                                               int64_t e, int lane, int& j,
                                               uint32_t& meta, float (&v)[kSlots],
                                               int64_t (&col)[kSlots]) {
@@ -142,7 +147,7 @@ __device__ __forceinline__ int64_t unit_cells(const V* __restrict__ values,
   const int64_t t = e >> 10;  // unit = e >> 8 = t*4 + q
   j = static_cast<int>((e >> 8) & 3) * 32 + lane;
   meta = static_cast<uint32_t>(tile_base[t]);
-  const int64_t base = static_cast<int64_t>(meta & 0xFFFFu) * kLanes;
+  const int64_t base = static_cast<int64_t>(tile_page[t]) * kLanes;
   const int64_t cell0 = t * (kSlots * kLanes);
   int r[kSlots];
   uint32_t pw[kSlots];  // 4 page entries of the slot's page-table row a lane
@@ -175,6 +180,7 @@ classic_spmv_units(const V* __restrict__ values,
                    const int8_t* __restrict__ residue,
                    const int8_t* __restrict__ page_tab,
                    const int32_t* __restrict__ tile_base,
+                   const int32_t* __restrict__ tile_page,
                    const int32_t* __restrict__ chunk_group,
                    const int64_t* __restrict__ work, int64_t n_work,
                    const float* __restrict__ x, float* __restrict__ z) {
@@ -184,8 +190,8 @@ classic_spmv_units(const V* __restrict__ values,
   uint32_t meta;
   float v[kSlots];
   int64_t col[kSlots];
-  const int64_t t = unit_cells(values, residue, page_tab, tile_base, work[w],
-                               threadIdx.x & 31, j, meta, v, col);
+  const int64_t t = unit_cells(values, residue, page_tab, tile_base, tile_page,
+                               work[w], threadIdx.x & 31, j, meta, v, col);
   float sum = 0.0f;
 #pragma unroll
   for (int s = 0; s < kSlots; ++s)
@@ -202,6 +208,7 @@ classic_spmm_units(const V* __restrict__ values,
                    const int8_t* __restrict__ residue,
                    const int8_t* __restrict__ page_tab,
                    const int32_t* __restrict__ tile_base,
+                   const int32_t* __restrict__ tile_page,
                    const int32_t* __restrict__ chunk_group,
                    const int64_t* __restrict__ work, int64_t n_work,
                    const float* __restrict__ x, float* __restrict__ z,
@@ -212,8 +219,8 @@ classic_spmm_units(const V* __restrict__ values,
   uint32_t meta;
   float v[kSlots];
   int64_t xrow[kSlots];
-  const int64_t t = unit_cells(values, residue, page_tab, tile_base, work[w],
-                               threadIdx.x & 31, j, meta, v, xrow);
+  const int64_t t = unit_cells(values, residue, page_tab, tile_base, tile_page,
+                               work[w], threadIdx.x & 31, j, meta, v, xrow);
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) xrow[s] *= n_rhs;
   float* out = z + tile_hack(chunk_group, t, meta) * kLanes + j;
@@ -257,22 +264,25 @@ classic_spmm_units(const V* __restrict__ values,
 
 template <typename V>
 int classic_spmv(const void* values, const void* residue, const void* page_tab,
-                 const void* tile_base, const void* chunk_group, const void* work,
-                 int64_t n_work, const void* x, void* z, cudaStream_t st) {
+                 const void* tile_base, const void* tile_page,
+                 const void* chunk_group, const void* work, int64_t n_work,
+                 const void* x, void* z, cudaStream_t st) {
   // an empty list (no nonzero) still launches, one block that exits
   const int64_t blocks = n_work > 0 ? (n_work + kUnitWarps - 1) / kUnitWarps : 1;
   classic_spmv_units<V><<<static_cast<unsigned>(blocks), kUnitWarps * 32, 0, st>>>(
       static_cast<const V*>(values), static_cast<const int8_t*>(residue),
       static_cast<const int8_t*>(page_tab), static_cast<const int32_t*>(tile_base),
-      static_cast<const int32_t*>(chunk_group), static_cast<const int64_t*>(work),
-      n_work, static_cast<const float*>(x), static_cast<float*>(z));
+      static_cast<const int32_t*>(tile_page), static_cast<const int32_t*>(chunk_group),
+      static_cast<const int64_t*>(work), n_work, static_cast<const float*>(x),
+      static_cast<float*>(z));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename V>
 int classic_spmm(const void* values, const void* residue, const void* page_tab,
-                 const void* tile_base, const void* chunk_group, const void* work,
-                 int64_t n_work, const void* x, void* z, int64_t rows_padded,
+                 const void* tile_base, const void* tile_page,
+                 const void* chunk_group, const void* work, int64_t n_work,
+                 const void* x, void* z, int64_t rows_padded,
                  int n_rhs, cudaStream_t st) {
   // an empty list (no nonzero) still launches, one block that exits
   const int64_t blocks = n_work > 0 ? (n_work + kUnitWarps - 1) / kUnitWarps : 1;
@@ -280,9 +290,9 @@ int classic_spmm(const void* values, const void* residue, const void* page_tab,
     classic_spmm_units<V><<<static_cast<unsigned>(blocks), kUnitWarps * 32, 0, st>>>(
         static_cast<const V*>(values), static_cast<const int8_t*>(residue),
         static_cast<const int8_t*>(page_tab), static_cast<const int32_t*>(tile_base),
-        static_cast<const int32_t*>(chunk_group), static_cast<const int64_t*>(work),
-        n_work, static_cast<const float*>(x), static_cast<float*>(z), rows_padded,
-        n_rhs);
+        static_cast<const int32_t*>(tile_page), static_cast<const int32_t*>(chunk_group),
+        static_cast<const int64_t*>(work), n_work, static_cast<const float*>(x),
+        static_cast<float*>(z), rows_padded, n_rhs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -297,11 +307,12 @@ extern "C" {
 // does not synchronise, and returns cudaGetLastError().
 int whell_classic_spmv(const void* values, int values_bf16, const void* residue,
                        const void* page_tab, const void* tile_base,
-                       const void* chunk_group, const void* work, int64_t n_work,
-                       const void* x, void* z, void* stream) {
+                       const void* tile_page, const void* chunk_group,
+                       const void* work, int64_t n_work, const void* x, void* z,
+                       void* stream) {
   auto* fn = values_bf16 ? classic_spmv<uint16_t> : classic_spmv<float>;
-  return fn(values, residue, page_tab, tile_base, chunk_group, work, n_work, x, z,
-            static_cast<cudaStream_t>(stream));
+  return fn(values, residue, page_tab, tile_base, tile_page, chunk_group, work, n_work,
+            x, z, static_cast<cudaStream_t>(stream));
 }
 
 // Kernel #16: Z (n_rhs x rows_padded) += the classic product with each of
@@ -311,12 +322,12 @@ int whell_classic_spmv(const void* values, int values_bf16, const void* residue,
 // cudaGetLastError().
 int whell_classic_spmm(const void* values, int values_bf16, const void* residue,
                        const void* page_tab, const void* tile_base,
-                       const void* chunk_group, const void* work, int64_t n_work,
-                       const void* x, void* z, int64_t rows_padded, int n_rhs,
-                       void* stream) {
+                       const void* tile_page, const void* chunk_group,
+                       const void* work, int64_t n_work, const void* x, void* z,
+                       int64_t rows_padded, int n_rhs, void* stream) {
   auto* fn = values_bf16 ? classic_spmm<uint16_t> : classic_spmm<float>;
-  return fn(values, residue, page_tab, tile_base, chunk_group, work, n_work, x, z,
-            rows_padded, n_rhs, static_cast<cudaStream_t>(stream));
+  return fn(values, residue, page_tab, tile_base, tile_page, chunk_group, work, n_work,
+            x, z, rows_padded, n_rhs, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

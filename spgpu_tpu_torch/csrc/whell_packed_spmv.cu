@@ -16,15 +16,22 @@
 //
 //   for every cell (slot s, lane j) of tile t = s / 8:
 //     r = residue[s, j];  d = page_tab[s, r]        (indexed by residue)
-//     scattered: g = tile_base[t] & 0xFFFFF, hh = tile_base[t] >> 20,
+//     scattered: g = tile_page[t], hh = tile_base[t] >> 20,
 //                page = group_bases[g*K + (d >> 3)] + (d & 7)
-//     aligned:   page = (tile_base[t] & 0xFFFF) + d, hh = tile_base[t] >> 16
+//     aligned:   page = tile_page[t] + d, hh = tile_base[t] >> 16
 //     hack = chunk_group[t / chunk_tiles] * group_hacks + hh
 //     acc[hack, j] += T(values[s, j]) * x[page*128 + r]
 //       (T = float, double, or the complex float2 / double2)
 //   then per hack row, with p the inclusive lane prefix sum of acc[hack, :]:
 //     z[hack, o] = (hi >= 0 ? p[hi] : 0) - (lo >= 0 ? p[lo] : 0)
 //   or, with unit segments, z[hack, o] = hi >= 0 ? acc[hack, hi] : 0.
+//
+// The layout group or base page comes from the layout's full-width
+// tile_page word (int32), not from tile_base's low field, whose 20 or 16
+// bits bound the JAX layout at 2^20 groups or 65,536 x pages; columns and
+// cell offsets are int64.  The hack pass needs no hh (its work units name
+// the row) and reads tile_page in place of tile_base; the tile pass reads
+// both, one more 4 B load per tile.
 //
 // Bound on the H100: the slabs stream once per product at 6 B/cell for
 // fp32 values (4 B value + int8 residue + int8 page entry; 4 B/cell for
@@ -237,18 +244,19 @@ __device__ __forceinline__ void atomic_add(float2* p, float2 v) {
 
 // The tile's 8x128 page table, staged in shared memory by the block, and
 // the decode of one cell: x-column page*128 + r of slot s's cell whose
-// residue is r (tile word `meta`; `bases` = group_bases, ntab per group).
+// residue is r (`page` = the tile's tile_page word, its layout group or
+// base page; `bases` = group_bases, ntab per group).
 template <bool kScattered>
 __device__ __forceinline__ int64_t cell_column(const int8_t (&pt)[kSlots][kLanes],
-                                               int s, int r, uint32_t meta,
+                                               int s, int r, int32_t page,
                                                const int32_t* __restrict__ bases,
                                                int ntab) {
   const int d = pt[s][r];
   if constexpr (kScattered) {
-    const int32_t* b = bases + static_cast<int64_t>(meta & 0xFFFFFu) * ntab;
+    const int32_t* b = bases + static_cast<int64_t>(page) * ntab;
     return (static_cast<int64_t>(b[d >> 3]) + (d & 7)) * kLanes + r;
   } else {
-    return (static_cast<int64_t>(meta & 0xFFFFu) + d) * kLanes + r;
+    return (static_cast<int64_t>(page) + d) * kLanes + r;
   }
 }
 
@@ -270,6 +278,7 @@ __device__ __forceinline__ void whell_tile(const V* __restrict__ values,
                                            const int8_t* __restrict__ residue,
                                            const int8_t* __restrict__ page_tab,
                                            const int32_t* __restrict__ tile_base,
+                                           const int32_t* __restrict__ tile_page,
                                            const int32_t* __restrict__ chunk_group,
                                            const int32_t* __restrict__ group_bases,
                                            const T* __restrict__ x, T* __restrict__ acc,
@@ -281,6 +290,7 @@ __device__ __forceinline__ void whell_tile(const V* __restrict__ values,
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) pt[s][j] = page_tab[cell0 + s * kLanes + j];
   const uint32_t meta = static_cast<uint32_t>(tile_base[t]);
+  const int32_t page = tile_page[t];
   __syncthreads();
 
   T sum{};
@@ -288,7 +298,7 @@ __device__ __forceinline__ void whell_tile(const V* __restrict__ values,
   for (int s = 0; s < kSlots; ++s) {
     const int64_t c = cell0 + s * kLanes + j;
     const int64_t col =
-        cell_column<kScattered>(pt, s, residue[c], meta, group_bases, ntab);
+        cell_column<kScattered>(pt, s, residue[c], page, group_bases, ntab);
     sum = mac(load_value(values, c), __ldg(x + col), sum);
   }
   const int64_t hack =
@@ -302,11 +312,12 @@ whell_tile_pass(const V* __restrict__ values,
                 const int8_t* __restrict__ residue,
                 const int8_t* __restrict__ page_tab,
                 const int32_t* __restrict__ tile_base,
+                const int32_t* __restrict__ tile_page,
                 const int32_t* __restrict__ chunk_group,
                 const int32_t* __restrict__ group_bases,
                 const T* __restrict__ x, T* __restrict__ acc,
                 int chunk_tiles, int group_hacks, int ntab) {
-  whell_tile<V, T, kScattered>(values, residue, page_tab, tile_base,
+  whell_tile<V, T, kScattered>(values, residue, page_tab, tile_base, tile_page,
                                chunk_group, group_bases, x, acc,
                                chunk_tiles, group_hacks, ntab);
 }
@@ -440,7 +451,7 @@ __global__ void __launch_bounds__(kLanes)
 whell_hack_pass(const T* __restrict__ values,
                 const int8_t* __restrict__ residue,
                 const int8_t* __restrict__ page_tab,
-                const int32_t* __restrict__ tile_base,
+                const int32_t* __restrict__ tile_page,
                 const int32_t* __restrict__ group_bases,
                 const int4* __restrict__ units, int* __restrict__ done,
                 T* __restrict__ part, const int8_t* __restrict__ seg_lo,
@@ -477,17 +488,18 @@ whell_hack_pass(const T* __restrict__ values,
   for (int64_t i = 0; i < n; ++i) {
     const int64_t t = begin + i;
     // what does not wait for the copies: the lane's values (streamed from
-    // global memory), the tile's word and its superpage bases (scattered)
+    // global memory), the tile's page word and its superpage bases
+    // (scattered)
     T v[kSlots];
 #pragma unroll
     for (int s = 0; s < kSlots; ++s)
       v[s] = load_streaming(values + t * (kSlots * kLanes) + s * kLanes + j);
-    [[maybe_unused]] uint32_t meta = 0;
+    [[maybe_unused]] int32_t page0 = 0;
     [[maybe_unused]] int32_t base[4] = {0, 0, 0, 0};
     if constexpr (kLevel != kStream) {
-      meta = static_cast<uint32_t>(__ldg(tile_base + t));
+      page0 = __ldg(tile_page + t);
       if constexpr (kScattered) {
-        const int32_t* b = group_bases + static_cast<int64_t>(meta & 0xFFFFFu) * ntab;
+        const int32_t* b = group_bases + static_cast<int64_t>(page0) * ntab;
 #pragma unroll
         for (int q = 0; q < 4; ++q)
           if (q < ntab) base[q] = __ldg(b + q);
@@ -514,7 +526,7 @@ whell_hack_pass(const T* __restrict__ values,
           page = static_cast<int64_t>(q == 0 ? base[0] : q == 1 ? base[1]
                                       : q == 2 ? base[2] : base[3]) + (d & 7);
         } else {
-          page = static_cast<int64_t>(meta & 0xFFFFu) + d;
+          page = static_cast<int64_t>(page0) + d;
         }
         col[s] = page * kLanes + r;
       }
@@ -642,7 +654,7 @@ __global__ void __launch_bounds__(kLanes)
 whell_spmm_hack_pass(const V* __restrict__ values,
                      const int8_t* __restrict__ residue,
                      const int8_t* __restrict__ page_tab,
-                     const int32_t* __restrict__ tile_base,
+                     const int32_t* __restrict__ tile_page,
                      const int32_t* __restrict__ group_bases,
                      const int4* __restrict__ units, int* __restrict__ done,
                      float* __restrict__ part, const int8_t* __restrict__ seg_lo,
@@ -688,10 +700,10 @@ whell_spmm_hack_pass(const V* __restrict__ values,
 #pragma unroll
     for (int s = 0; s < kSlots; ++s)
       v[s] = load_streaming(values + t * (kSlots * kLanes) + s * kLanes + j);
-    const uint32_t meta = static_cast<uint32_t>(__ldg(tile_base + t));
+    const int32_t page0 = __ldg(tile_page + t);
     [[maybe_unused]] int32_t base[4] = {0, 0, 0, 0};
     if constexpr (kScattered) {
-      const int32_t* b = group_bases + static_cast<int64_t>(meta & 0xFFFFFu) * ntab;
+      const int32_t* b = group_bases + static_cast<int64_t>(page0) * ntab;
 #pragma unroll
       for (int q = 0; q < 4; ++q)
         if (q < ntab) base[q] = __ldg(b + q);
@@ -710,7 +722,7 @@ whell_spmm_hack_pass(const V* __restrict__ values,
         page = static_cast<int64_t>(q == 0 ? base[0] : q == 1 ? base[1]
                                     : q == 2 ? base[2] : base[3]) + (d & 7);
       } else {
-        page = static_cast<int64_t>(meta & 0xFFFFu) + d;
+        page = static_cast<int64_t>(page0) + d;
       }
       xs[s] = x + (page * kLanes + r) * n_rhs + r0;
     }
@@ -832,7 +844,7 @@ void launch_flush(const T* acc, const void* seg_lo, const void* seg_hi,
 // tile pass on values of type V, then the flush; returns cudaGetLastError()
 template <typename V, typename T>
 int whell_spmv(const void* values, const void* residue, const void* page_tab,
-               const void* tile_base, const void* chunk_group,
+               const void* tile_base, const void* tile_page, const void* chunk_group,
                const void* group_bases, const void* seg_lo, const void* seg_hi,
                const void* x, void* acc, void* z, int64_t num_tiles,
                int64_t num_rows, int chunk_tiles, int group_hacks,
@@ -843,6 +855,7 @@ int whell_spmv(const void* values, const void* residue, const void* page_tab,
   auto* res = static_cast<const int8_t*>(residue);
   auto* pt = static_cast<const int8_t*>(page_tab);
   auto* tb = static_cast<const int32_t*>(tile_base);
+  auto* tp = static_cast<const int32_t*>(tile_page);
   auto* cg = static_cast<const int32_t*>(chunk_group);
   auto* gb = static_cast<const int32_t*>(group_bases);
   auto* xt = static_cast<const T*>(x);
@@ -851,10 +864,10 @@ int whell_spmv(const void* values, const void* residue, const void* page_tab,
     const dim3 grid(static_cast<unsigned>(num_tiles));
     if (gb != nullptr)
       whell_tile_pass<V, T, true><<<grid, kLanes, 0, st>>>(
-          v, res, pt, tb, cg, gb, xt, a, chunk_tiles, group_hacks, ntab);
+          v, res, pt, tb, tp, cg, gb, xt, a, chunk_tiles, group_hacks, ntab);
     else
       whell_tile_pass<V, T, false><<<grid, kLanes, 0, st>>>(
-          v, res, pt, tb, cg, gb, xt, a, chunk_tiles, group_hacks, ntab);
+          v, res, pt, tb, tp, cg, gb, xt, a, chunk_tiles, group_hacks, ntab);
   }
   launch_flush<T>(a, seg_lo, seg_hi, z, num_rows, unit_segments, st);
   return static_cast<int>(cudaGetLastError());
@@ -864,7 +877,7 @@ int whell_spmv(const void* values, const void* residue, const void* page_tab,
 // block per (work unit, RHS block); returns cudaGetLastError()
 template <typename V>
 int spmm_hack_pass(const void* values, const void* residue, const void* page_tab,
-                   const void* tile_base, const void* group_bases, const void* units,
+                   const void* tile_page, const void* group_bases, const void* units,
                    void* done, void* part, const void* seg_lo, const void* seg_hi,
                    const void* x, void* z, int64_t num_units, int64_t num_rows,
                    int n_rhs, int window_pages, int unit_segments, void* stream) {
@@ -879,7 +892,7 @@ int spmm_hack_pass(const void* values, const void* residue, const void* page_tab
                     static_cast<unsigned>((n_rhs + kRhs - 1) / kRhs));
     kernel<<<grid, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const V*>(values), static_cast<const int8_t*>(residue),
-        static_cast<const int8_t*>(page_tab), static_cast<const int32_t*>(tile_base),
+        static_cast<const int8_t*>(page_tab), static_cast<const int32_t*>(tile_page),
         static_cast<const int32_t*>(group_bases), static_cast<const int4*>(units),
         static_cast<int*>(done), static_cast<float*>(part),
         static_cast<const int8_t*>(seg_lo), static_cast<const int8_t*>(seg_hi),
@@ -893,7 +906,7 @@ int spmm_hack_pass(const void* values, const void* residue, const void* page_tab
 // per work unit; returns cudaGetLastError().
 template <typename T, int kLevel>
 int hack_pass(const void* values, const void* residue, const void* page_tab,
-              const void* tile_base, const void* group_bases, const void* units,
+              const void* tile_page, const void* group_bases, const void* units,
               void* done, void* part, const void* seg_lo, const void* seg_hi,
               const void* x, void* out, int64_t num_units, int window_pages,
               int unit_segments, void* stream) {
@@ -907,7 +920,7 @@ int hack_pass(const void* values, const void* residue, const void* page_tab,
     kernel<<<static_cast<unsigned>(num_units), kLanes, 0,
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(values), static_cast<const int8_t*>(residue),
-        static_cast<const int8_t*>(page_tab), static_cast<const int32_t*>(tile_base),
+        static_cast<const int8_t*>(page_tab), static_cast<const int32_t*>(tile_page),
         static_cast<const int32_t*>(group_bases), static_cast<const int4*>(units),
         static_cast<int*>(done), static_cast<T*>(part),
         static_cast<const int8_t*>(seg_lo), static_cast<const int8_t*>(seg_hi),
@@ -928,34 +941,35 @@ extern "C" {
 // fp32 x, acc and z; values_bf16 selects bf16 values over fp32 ones.
 int whell_packed_spmv(const void* values, int values_bf16,
                       const void* residue, const void* page_tab,
-                      const void* tile_base, const void* chunk_group,
-                      const void* group_bases, const void* seg_lo,
-                      const void* seg_hi, const void* x, void* acc, void* z,
-                      int64_t num_tiles, int64_t num_rows, int chunk_tiles,
-                      int group_hacks, int window_pages, int unit_segments,
-                      void* stream) {
+                      const void* tile_base, const void* tile_page,
+                      const void* chunk_group, const void* group_bases,
+                      const void* seg_lo, const void* seg_hi, const void* x,
+                      void* acc, void* z, int64_t num_tiles, int64_t num_rows,
+                      int chunk_tiles, int group_hacks, int window_pages,
+                      int unit_segments, void* stream) {
   if (values_bf16)
     return whell_spmv<uint16_t, float>(
-        values, residue, page_tab, tile_base, chunk_group, group_bases,
+        values, residue, page_tab, tile_base, tile_page, chunk_group, group_bases,
         seg_lo, seg_hi, x, acc, z, num_tiles, num_rows, chunk_tiles,
         group_hacks, window_pages, unit_segments, stream);
   return whell_spmv<float, float>(
-      values, residue, page_tab, tile_base, chunk_group, group_bases, seg_lo,
-      seg_hi, x, acc, z, num_tiles, num_rows, chunk_tiles, group_hacks,
+      values, residue, page_tab, tile_base, tile_page, chunk_group, group_bases,
+      seg_lo, seg_hi, x, acc, z, num_tiles, num_rows, chunk_tiles, group_hacks,
       window_pages, unit_segments, stream);
 }
 
 // The same with complex64 values, x, acc and z, interleaved re/im.
 int whell_packed_spmv_c64(const void* values, const void* residue,
                           const void* page_tab, const void* tile_base,
-                          const void* chunk_group, const void* group_bases,
-                          const void* seg_lo, const void* seg_hi, const void* x,
-                          void* acc, void* z, int64_t num_tiles, int64_t num_rows,
-                          int chunk_tiles, int group_hacks, int window_pages,
-                          int unit_segments, void* stream) {
+                          const void* tile_page, const void* chunk_group,
+                          const void* group_bases, const void* seg_lo,
+                          const void* seg_hi, const void* x, void* acc, void* z,
+                          int64_t num_tiles, int64_t num_rows, int chunk_tiles,
+                          int group_hacks, int window_pages, int unit_segments,
+                          void* stream) {
   return whell_spmv<float2, float2>(
-      values, residue, page_tab, tile_base, chunk_group, group_bases, seg_lo,
-      seg_hi, x, acc, z, num_tiles, num_rows, chunk_tiles, group_hacks,
+      values, residue, page_tab, tile_base, tile_page, chunk_group, group_bases,
+      seg_lo, seg_hi, x, acc, z, num_tiles, num_rows, chunk_tiles, group_hacks,
       window_pages, unit_segments, stream);
 }
 
@@ -970,11 +984,11 @@ int whell_packed_spmv_c64(const void* values, const void* residue,
 // `stream`, does not synchronise, and returns cudaGetLastError().
 #define HACK_ENTRY(NAME, T)                                                    \
   int NAME(const void* values, const void* residue, const void* page_tab,    \
-           const void* tile_base, const void* group_bases,                   \
+           const void* tile_page, const void* group_bases,                   \
            const void* units, void* done, void* part, const void* seg_lo,    \
            const void* seg_hi, const void* x, void* z, int64_t num_units,    \
            int window_pages, int unit_segments, void* stream) {              \
-    return hack_pass<T, kFull>(values, residue, page_tab, tile_base,         \
+    return hack_pass<T, kFull>(values, residue, page_tab, tile_page,         \
                                group_bases, units, done, part, seg_lo,       \
                                seg_hi, x, z, num_units, window_pages,        \
                                unit_segments, stream);                       \
@@ -993,7 +1007,7 @@ HACK_ENTRY(whell_packed_spmv_c128, double2)
 // synchronise, and returns cudaGetLastError() (cudaErrorInvalidValue for
 // another level).
 int whell_packed_ablation_f64(int level, const void* values, const void* residue,
-                              const void* page_tab, const void* tile_base,
+                              const void* page_tab, const void* tile_page,
                               const void* group_bases, const void* units,
                               void* done, void* part, const void* seg_lo,
                               const void* seg_hi, const void* x, void* out,
@@ -1005,7 +1019,7 @@ int whell_packed_ablation_f64(int level, const void* values, const void* residue
            : level == kFull   ? &hack_pass<double, kFull>
                               : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return fn(values, residue, page_tab, tile_base, group_bases, units, done, part,
+  return fn(values, residue, page_tab, tile_page, group_bases, units, done, part,
             seg_lo, seg_hi, x, out, num_units, window_pages, unit_segments,
             stream);
 }
@@ -1021,13 +1035,13 @@ int whell_packed_ablation_f64(int level, const void* values, const void* residue
 // group_bases may be null (aligned windows).  Launches once on `stream`,
 // does not synchronise, and returns cudaGetLastError().
 int whell_packed_spmm(const void* values, int values_bf16, const void* residue,
-                      const void* page_tab, const void* tile_base,
+                      const void* page_tab, const void* tile_page,
                       const void* group_bases, const void* units, void* done,
                       void* part, const void* seg_lo, const void* seg_hi,
                       const void* x, void* z, int64_t num_units, int64_t num_rows,
                       int n_rhs, int window_pages, int unit_segments, void* stream) {
   auto* fn = values_bf16 ? &spmm_hack_pass<uint16_t> : &spmm_hack_pass<float>;
-  return fn(values, residue, page_tab, tile_base, group_bases, units, done, part,
+  return fn(values, residue, page_tab, tile_page, group_bases, units, done, part,
             seg_lo, seg_hi, x, z, num_units, num_rows, n_rhs, window_pages,
             unit_segments, stream);
 }

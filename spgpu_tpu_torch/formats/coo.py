@@ -65,11 +65,17 @@ class CooMatrix:
 
     def sum_duplicates(self) -> "CooMatrix":
         """Coalesce duplicate coordinates by summation (not the reference
-        default — see module docstring)."""
+        default — see module docstring).  Entries come out in (row, col)
+        order; a COO already in that order without duplicates is copied
+        without a sort."""
         key = self.rows * self.n_cols + self.cols
-        order = np.argsort(key, kind="stable")
+        if key.size and bool(np.all(key[1:] > key[:-1])):
+            order = slice(None)
+        else:
+            order = np.argsort(key, kind="stable")
         key_s = key[order]
-        uniq, first = np.unique(key_s, return_index=True)
+        first = np.flatnonzero(np.r_[True, key_s[1:] != key_s[:-1]]) if key.size else key
+        uniq = key_s[first]
         vals = np.add.reduceat(self.values[order], first) if key.size else self.values
         return CooMatrix(
             (uniq // self.n_cols).astype(np.int64),

@@ -6,8 +6,8 @@ only its own occupied diagonals, one slot (128 lanes) per (hack,
 diagonal).  A tile is 8 slots of one hack.  For slot ``s`` of tile
 ``t = s // 8`` and lane ``j``:
 
-* ``base = tile_base[t] & 0xFFFF`` (first x page of the tile's window)
-  and ``hh = tile_base[t] >> 16`` (hack within its group);
+* ``base = tile_page[t]`` (first x page of the tile's window) and
+  ``hh = tile_base[t] >> 16`` (hack within its group);
 * ``r0`` per slot: ``slot_r0[s]`` (slab mode), or in pattern mode the
   packed ``tile_r0[t] = (step+4096) << 19 | (F-1) << 16 | (r00+1024)``
   gives ``r0 = r00 + step*min(s % 8, F-1)``;
@@ -28,6 +28,16 @@ complex matrix as two real-plane layouts of one structure
 (``ComplexPlanes``: ``ar``, ``ai``), the port keeps one complex slab
 (interleaved re/im).  The row-blocked ``BlockedWhdia`` is not ported.
 
+``tile_base`` is the JAX encoding, ``base | hh << 16``, whose 16-bit base
+field bounds one layout at 65,536 x pages (about 8.4M columns).  Beside
+it every layout carries ``tile_page``, the same base page as a full-width
+int32; the kernels and plain versions read the page from ``tile_page``
+and only ``hh`` from ``tile_base``.  Within the old bound (every layout
+the JAX converter builds) ``tile_page`` equals the base field and is
+derived from it when not given; past it the field holds the low 16 bits
+only.  :meth:`WhdiaMatrix.check` rejects a ``tile_page`` whose low bits
+disagree with the field.
+
 A layout also carries ``hack_slot_ptr`` and ``hack_slots``
 (:func:`hack_slot_list`), derived from its values whenever it is built:
 the ids of the slots that hold a nonzero, grouped by hack.  The fp32 and
@@ -44,7 +54,7 @@ import numpy as np
 import torch
 
 from spgpu_tpu_torch.core import join_dd, join_plane_fields
-from spgpu_tpu_torch.kernels.whdia import whdia_tile_hacks
+from spgpu_tpu_torch.kernels.whdia import whdia_columns, whdia_tile_hacks
 
 __all__ = ["WhdiaMatrix", "from_numpy_fields", "from_numpy_planes",
            "hack_slot_list"]
@@ -52,7 +62,8 @@ __all__ = ["WhdiaMatrix", "from_numpy_fields", "from_numpy_planes",
 #: the value types of a slab
 VALUE_DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128)
 
-_TENSORS = ("values", "slot_r0", "tile_r0", "tile_base", "chunk_group")
+_TENSORS = ("values", "slot_r0", "tile_r0", "tile_base", "chunk_group",
+            "tile_page")
 
 
 def hack_slot_list(values: torch.Tensor, tile_base: torch.Tensor,
@@ -92,6 +103,9 @@ class WhdiaMatrix:
     window_pages: int
     group_hacks: int
     chunk_tiles: int
+    # (num_tiles,) int32: each tile's full-width base page; None derives it
+    # from tile_base's 16-bit field
+    tile_page: Optional[torch.Tensor] = None
     # hack_slot_list(...), rebuilt with every layout (None when the arrays
     # are not shaped for it; check() then rejects the layout)
     hack_slot_ptr: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
@@ -100,6 +114,8 @@ class WhdiaMatrix:
                                                            repr=False)
 
     def __post_init__(self) -> None:
+        if self.tile_page is None:
+            self.tile_page = self.tile_base & 0xFFFF
         if self._listable():
             self.hack_slot_ptr, self.hack_slots = self._derive_hack_slots()
 
@@ -161,15 +177,12 @@ class WhdiaMatrix:
         """(values, row, col) of every cell, host int64 (row/col may be
         out of range for zero cells)."""
         vals = self.values.detach().cpu().numpy()
-        r0 = self.slot_r0_host()
-        meta = self.tile_base.cpu().numpy().astype(np.int64)
-        cg = self.chunk_group.cpu().numpy().astype(np.int64)
-        t = np.arange(self.total_slots) // 8
-        hack = cg[t // self.chunk_tiles] * self.group_hacks + (meta >> 16)[t]
-        lane = np.arange(128)[None, :]
-        row = hack[:, None] * 128 + lane
-        col = ((meta & 0xFFFF)[t] * 128 + r0)[:, None] + lane
-        return vals, row, col
+        t = [None if getattr(self, f) is None else getattr(self, f).cpu()
+             for f in ("slot_r0", "tile_r0", "tile_base", "chunk_group", "tile_page")]
+        hack = whdia_tile_hacks(t[2], t[3], self.chunk_tiles, self.group_hacks)
+        row = hack.repeat_interleave(8)[:, None] * 128 + torch.arange(128)
+        col = whdia_columns(t[0], t[1], t[2], tile_page=t[4]).reshape(-1, 128)
+        return vals, row.numpy(), col.numpy()
 
     def to_dense(self) -> np.ndarray:
         """Host densification (testing helper).  Plain stores, slot by
@@ -198,7 +211,7 @@ class WhdiaMatrix:
              "slots must fill whole chunks")
         want(self.values.dtype in VALUE_DTYPES, f"values dtype {self.values.dtype}")
         shapes = [("values", (S, 128), self.values.dtype),
-                  ("tile_base", (T,), torch.int32),
+                  ("tile_base", (T,), torch.int32), ("tile_page", (T,), torch.int32),
                   ("chunk_group", (T // ct,), torch.int32)]
         shapes.append(("tile_r0", (T,), torch.int32) if self.pattern_mode
                       else ("slot_r0", (S,), torch.int16))
@@ -210,8 +223,13 @@ class WhdiaMatrix:
         want(self.num_groups * gh * 128 >= self.n_rows, "row space size")
         cg = self.chunk_group.cpu().numpy()
         want(bool(((cg >= 0) & (cg < self.num_groups)).all()), "chunk_group range")
-        hh = self.tile_base.cpu().numpy().astype(np.int64) >> 16
+        meta = self.tile_base.cpu().long()
+        hh = meta >> 16
         want(bool(((hh >= 0) & (hh < gh)).all()), "hack-in-group range")
+        tp = self.tile_page.cpu().long()
+        want(bool((tp >= 0).all()), "negative tile_page")
+        want(torch.equal(tp & 0xFFFF, meta & 0xFFFF),
+             "tile_page disagrees with tile_base's low field")
         vals, row, col = self._cells()
         nz = vals != 0
         want(bool((row[nz] < self.n_rows).all()), "a nonzero cell past n_rows")

@@ -8,12 +8,12 @@ a cell ``(slot s, lane j)`` of tile ``t = s // 8``:
 
 * ``r = residue[s, j]`` and ``d = page_tab[s, r]`` — the page table is
   indexed by RESIDUE, not by lane;
-* scattered windows (``group_bases`` set): ``g = tile_base[t] & 0xFFFFF``,
-  ``hh = tile_base[t] >> 20`` and
+* scattered windows (``group_bases`` set): ``g = tile_page[t]`` (the
+  layout group), ``hh = tile_base[t] >> 20`` and
   ``page = group_bases[g*K + (d >> 3)] + (d & 7)`` with
   ``K = window_pages // 8``;
-* aligned windows: ``page = (tile_base[t] & 0xFFFF) + d`` and
-  ``hh = tile_base[t] >> 16``;
+* aligned windows: ``page = tile_page[t] + d`` (the window's base page)
+  and ``hh = tile_base[t] >> 16``;
 * column ``page*128 + r``; output hack
   ``chunk_group[t // chunk_tiles] * group_hacks + hh``.
 
@@ -47,10 +47,17 @@ The **per-cell routing** layout (:class:`PcellWhell`) packs the cells of
 many rows densely into each slot and routes each row's run to its output
 lane through ``run_hi``/``run_lo``; it works in the original numbering.
 
-Packed fields are bounded: an aligned window's base page has 16 bits and
-a scattered layout group 20, so :meth:`WhellMatrix.check` (and
-:meth:`PcellWhell.check`) reject a layout whose ``x_pages`` or group
-count passes :data:`MAX_ALIGNED_X_PAGES` or :data:`MAX_LAYOUT_GROUPS`.
+``tile_base`` is the JAX encoding, ``page | hh << 16`` (aligned) or
+``group | hh << 20`` (scattered), whose low field bounds one layout at
+65,536 x pages or 2**20 layout groups.  Beside it every layout carries
+``tile_page``, the same page or group as a full-width int32, and every
+kernel and plain version reads the page or group from ``tile_page`` and
+only ``hh`` from ``tile_base``.  Wherever the low field holds the page or
+group (any layout the JAX converter can build), ``tile_page`` equals it
+and is derived from it when not given; past it the field holds the low
+bits only.  :meth:`WhellMatrix.check` (and :meth:`PcellWhell.check`)
+reject a ``tile_page`` whose low bits disagree with ``tile_base``'s field,
+and a layout whose x pages or layout groups pass :data:`MAX_TILE_PAGE`.
 The TPU budget containers (``PanelledWhell``, ``SegmentedWhell``) are not
 ported.
 """
@@ -65,10 +72,9 @@ import torch
 
 from spgpu_tpu_torch.core import CHUNK_TILES, join_dd, join_plane_fields
 
-__all__ = ["MAX_ALIGNED_X_PAGES", "MAX_LAYOUT_GROUPS", "PcellWhell",
-           "WhellMatrix", "classic_work_list", "from_numpy_fields",
-           "from_numpy_pcell", "from_numpy_planes", "packed_hack_ptr",
-           "packed_hack_units"]
+__all__ = ["MAX_TILE_PAGE", "PcellWhell", "WhellMatrix", "classic_work_list",
+           "from_numpy_fields", "from_numpy_pcell", "from_numpy_planes",
+           "low_field_bits", "packed_hack_ptr", "packed_hack_units"]
 
 #: the value types of a packed slab
 VALUE_DTYPES = (torch.float32, torch.bfloat16, torch.float64, torch.complex64,
@@ -76,13 +82,26 @@ VALUE_DTYPES = (torch.float32, torch.bfloat16, torch.float64, torch.complex64,
 #: the value types of a classic slab
 CLASSIC_DTYPES = (torch.float32, torch.bfloat16)
 
-#: x pages an aligned window's 16-bit base field can address
-MAX_ALIGNED_X_PAGES = 1 << 16
-#: layout groups a scattered tile's 20-bit group field can address
-MAX_LAYOUT_GROUPS = 1 << 20
+#: x pages, and layout groups, that a tile's full-width ``tile_page``
+#: word addresses
+MAX_TILE_PAGE = (1 << 31) - 1
 
 _TENSORS = ("values", "residue", "page_tab", "tile_base", "chunk_group",
-            "seg_lo", "seg_hi", "lane_of_row", "group_bases", "row_perm")
+            "seg_lo", "seg_hi", "lane_of_row", "group_bases", "row_perm",
+            "tile_page")
+
+
+def low_field_bits(scattered: bool) -> int:
+    """The width of ``tile_base``'s low field: a scattered tile's layout
+    group has 20 bits, an aligned window's base page 16 (the JAX
+    encoding; ``hh`` sits above it)."""
+    return 20 if scattered else 16
+
+
+def low_field(tile_base: torch.Tensor, scattered: bool) -> torch.Tensor:
+    """``tile_base``'s low field, the page or group of every layout the
+    JAX converter can build: the ``tile_page`` of such a layout."""
+    return tile_base & ((1 << low_field_bits(scattered)) - 1)
 
 
 def _want(cls: str):
@@ -102,16 +121,18 @@ def _check_arrays(obj, want, specs) -> None:
         want(t.device == obj.device, f"{name} on {t.device}")
 
 
-def _decode_pages(pt, res, meta, tile, group_bases, window_pages):
+def _decode_pages(pt, res, tile_page, meta, tile, group_bases, window_pages):
     """Every cell's decoded x page and its tile's hack-in-group (int64,
-    on the host): through ``group_bases`` (scattered) or the 16-bit base
-    field (aligned)."""
+    on the host): the page or layout group from ``tile_page``, then
+    through ``group_bases`` (scattered) or plus the delta (aligned); the
+    hack-in-group from ``tile_base`` (``meta``) above its low field."""
     d = torch.gather(pt, 1, res)  # page delta by residue
-    if group_bases is not None:
+    scattered = group_bases is not None
+    hh = meta >> low_field_bits(scattered)
+    if scattered:
         K = window_pages // 8
-        page = group_bases[(meta & 0xFFFFF)[tile, None] * K + (d >> 3)] + (d & 7)
-        return page, meta >> 20
-    return (meta & 0xFFFF)[tile, None] + d, meta >> 16
+        return group_bases[tile_page[tile, None] * K + (d >> 3)] + (d & 7), hh
+    return tile_page[tile, None] + d, hh
 
 
 def packed_hack_ptr(tile_base: torch.Tensor, chunk_group: torch.Tensor, *,
@@ -191,6 +212,25 @@ def classic_work_list(values: torch.Tensor) -> torch.Tensor:
     return units << 8 | mask[units]
 
 
+def _check_tile_page(want, tile_page, meta, scattered: bool) -> torch.Tensor:
+    """``tile_page`` (host int64, returned) is non-negative and agrees
+    with ``tile_base``'s (``meta``) low field in its low bits."""
+    tp = tile_page.cpu().long()
+    mask = (1 << low_field_bits(scattered)) - 1
+    want(bool((tp >= 0).all()), "negative tile_page")
+    want(torch.equal(tp & mask, meta & mask),
+         "tile_page disagrees with tile_base's low field")
+    return tp
+
+
+def _check_groups(want, groups: int, tile_page) -> None:
+    """At most :data:`MAX_TILE_PAGE` layout groups, each tile's in range."""
+    want(groups <= MAX_TILE_PAGE,
+         f"{groups} layout groups, past the {MAX_TILE_PAGE} that tile_page's "
+         "31-bit group addresses")
+    want(bool((tile_page < groups).all()), "tile group index")
+
+
 @dataclasses.dataclass
 class WhellMatrix:
     # slabs, slot-major (total_slots, 128)
@@ -221,6 +261,9 @@ class WhellMatrix:
     # classic only: stored row -> original row, (rows_padded,) int32, or None
     row_perm: Optional[torch.Tensor] = None
     ways: int = 1  # classic only: virtual rows per true row
+    # (num_tiles,) int32: each tile's full-width aligned base page or
+    # layout group; None derives it from tile_base's low field
+    tile_page: Optional[torch.Tensor] = None
     # classic only: classic_work_list(values), rebuilt with every layout
     work_list: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
                                                           repr=False)
@@ -234,6 +277,8 @@ class WhellMatrix:
                                                            repr=False)
 
     def __post_init__(self) -> None:
+        if self.tile_page is None:
+            self.tile_page = low_field(self.tile_base, self.scattered)
         v = self.values
         if not self.packed and v.dim() == 2 and v.shape[1] == 128 and v.shape[0] % 8 == 0:
             self.work_list = classic_work_list(v)
@@ -314,10 +359,10 @@ class WhellMatrix:
         vals = self.values.detach().cpu()
         vals = (vals.float() if vals.dtype == torch.bfloat16 else vals).numpy()
         res = self.residue.cpu().long()
-        meta = self.tile_base.cpu().long()
         tile = torch.arange(self.total_slots) // 8
         page, hh = _decode_pages(
-            self.page_tab.cpu().long(), res, meta, tile,
+            self.page_tab.cpu().long(), res, self.tile_page.cpu().long(),
+            self.tile_base.cpu().long(), tile,
             None if self.group_bases is None else self.group_bases.cpu().long(),
             self.window_pages)
         col = (page * 128 + res).numpy()
@@ -349,7 +394,7 @@ class WhellMatrix:
         want = _want("WhellMatrix")
         specs = [("values", (S, 128), None), ("residue", (S, 128), torch.int8),
                  ("page_tab", (S, 128), torch.int8),
-                 ("tile_base", (T,), torch.int32),
+                 ("tile_base", (T,), torch.int32), ("tile_page", (T,), torch.int32),
                  ("chunk_group", (T // max(ct, 1) + packed,), torch.int32)]
         if packed:
             want(self.values.dtype in VALUE_DTYPES, f"values dtype {self.values.dtype}")
@@ -376,14 +421,15 @@ class WhellMatrix:
         want(S % 8 == 0 and T % ct == 0, "slots must fill whole chunks")
         want(self.x_pages * 128 >= self.n_cols, "x_pages too small")
         if not self.scattered:
-            want(self.x_pages <= MAX_ALIGNED_X_PAGES,
-                 f"x_pages {self.x_pages} past the {MAX_ALIGNED_X_PAGES} pages "
-                 "an aligned window's 16-bit base field addresses")
+            want(self.x_pages <= MAX_TILE_PAGE,
+                 f"x_pages {self.x_pages} past the {MAX_TILE_PAGE} pages "
+                 "tile_page's 31-bit base page addresses")
         res = self.residue.cpu().long()
         pt = self.page_tab.cpu().long()
         want(bool((res >= 0).all()), "negative residue")
         want(bool(((pt >= 0) & (pt < self.window_pages)).all()), "page_tab range")
         meta = self.tile_base.cpu().long()
+        tp = _check_tile_page(want, self.tile_page, meta, self.scattered)
         cg = self.chunk_group.cpu().long()
         real = cg[:-1] if packed else cg
         want(bool(((real >= 0) & (real < self.num_groups)).all()), "chunk_group range")
@@ -392,11 +438,8 @@ class WhellMatrix:
             K = self.window_pages // 8
             gb = self.group_bases.cpu().long()
             want(gb.numel() % K == 0 and gb.numel() > 0, "group_bases size")
-            want(gb.numel() // K <= MAX_LAYOUT_GROUPS,
-                 f"{gb.numel() // K} layout groups, past the {MAX_LAYOUT_GROUPS} "
-                 "a tile's 20-bit group field addresses")
-            want(bool(((meta & 0xFFFFF) < gb.numel() // K).all()), "tile group index")
-        page, hh = _decode_pages(pt, res, meta, torch.arange(S) // 8, gb,
+            _check_groups(want, gb.numel() // K, tp)
+        page, hh = _decode_pages(pt, res, tp, meta, torch.arange(S) // 8, gb,
                                  self.window_pages)
         want(bool(((page >= 0) & (page < self.x_pages)).all()), "page range")
         want(bool(((hh >= 0) & (hh < gh)).all()), "hack-in-group range")
@@ -486,9 +529,16 @@ class PcellWhell:
     window_pages: int = 32
     group_hacks: int = 512
     chunk_tiles: int = 128
+    # (num_tiles,) int32: each tile's full-width layout group; None
+    # derives it from tile_base's 20-bit field
+    tile_page: Optional[torch.Tensor] = None
 
     _TENSORS = ("values", "residue", "page_tab", "run_hi", "run_lo",
-                "tile_base", "chunk_group", "group_bases")
+                "tile_base", "chunk_group", "group_bases", "tile_page")
+
+    def __post_init__(self) -> None:
+        if self.tile_page is None:
+            self.tile_page = low_field(self.tile_base, True)
 
     @property
     def device(self) -> torch.device:
@@ -515,8 +565,8 @@ class PcellWhell:
         duplicates add): each row's lanes come from its runs."""
         vals = self.values.detach().cpu().numpy()
         res = self.residue.cpu().long()
-        meta = self.tile_base.cpu().long()
-        page, _ = _decode_pages(self.page_tab.cpu().long(), res, meta,
+        page, _ = _decode_pages(self.page_tab.cpu().long(), res,
+                                self.tile_page.cpu().long(), self.tile_base.cpu().long(),
                                 torch.arange(self.total_slots) // 8,
                                 self.group_bases.cpu().long(), self.window_pages)
         col = (page * 128 + res).numpy()
@@ -541,6 +591,7 @@ class PcellWhell:
             ("values", (S, 128), torch.float32), ("residue", (S, 128), torch.int8),
             ("page_tab", (S, 128), torch.int8), ("run_hi", (S, 128), torch.int8),
             ("run_lo", (S, 128), torch.int8), ("tile_base", (T,), torch.int32),
+            ("tile_page", (T,), torch.int32),
             ("chunk_group", (T // max(ct, 1) + 1,), torch.int32),
             ("group_bases", (self.group_bases.numel(),), torch.int32)])
         want(self.window_pages in (8, 16, 32, 64), f"window_pages {self.window_pages}")
@@ -550,9 +601,6 @@ class PcellWhell:
              and self.num_hacks <= self.num_groups * gh, "row space size")
         gb = self.group_bases.cpu().long()
         want(gb.numel() % K == 0 and gb.numel() > 0, "group_bases size")
-        want(gb.numel() // K <= MAX_LAYOUT_GROUPS,
-             f"{gb.numel() // K} layout groups, past the {MAX_LAYOUT_GROUPS} "
-             "a tile's 20-bit group field addresses")
         res = self.residue.cpu().long()
         pt = self.page_tab.cpu().long()
         want(bool((res >= 0).all()), "negative residue")
@@ -561,8 +609,9 @@ class PcellWhell:
         cg = self.chunk_group.cpu().long()
         want(bool(((cg[:-1] >= 0) & (cg[:-1] < self.num_groups)).all())
              and int(cg[-1]) == -1, "chunk_group range or sentinel")
-        want(bool(((meta & 0xFFFFF) < gb.numel() // K).all()), "tile group index")
-        page, hh = _decode_pages(pt, res, meta, torch.arange(S) // 8, gb,
+        tp = _check_tile_page(want, self.tile_page, meta, True)
+        _check_groups(want, gb.numel() // K, tp)
+        page, hh = _decode_pages(pt, res, tp, meta, torch.arange(S) // 8, gb,
                                  self.window_pages)
         want(bool(((page >= 0) & (page < self.x_pages)).all()), "page range")
         want(bool(((hh >= 0) & (hh < gh)).all()), "hack-in-group range")
@@ -637,7 +686,7 @@ def from_numpy_pcell(fields: dict, **static) -> PcellWhell:
     """Build the port's :class:`PcellWhell` from the array fields of a JAX
     ``PcellWhell`` (``np.asarray`` of each) and its static fields; the
     result lies on the CPU and has passed :meth:`PcellWhell.check`."""
-    a = PcellWhell(**{f: _tensor(fields[f]) for f in PcellWhell._TENSORS},
+    a = PcellWhell(**{f: _tensor(fields.get(f)) for f in PcellWhell._TENSORS},
                    **_statics(PcellWhell, static))
     a.check()
     return a

@@ -191,8 +191,8 @@ def _code(level: str, levels, op: str) -> int:
 
 def whdia_ablation(level: str, values, slot_r0: Optional[torch.Tensor],
                    tile_r0: Optional[torch.Tensor], tile_base, chunk_group, x,
-                   *, chunk_tiles: int, group_hacks: int,
-                   num_groups: int) -> torch.Tensor:
+                   *, chunk_tiles: int, group_hacks: int, num_groups: int,
+                   tile_page: torch.Tensor) -> torch.Tensor:
     """Kernel #18 at ``level`` (:data:`WHDIA_LEVELS`) on an fp32 WHDIA
     layout in either r0 mode and ``x`` ``(n_cols,)`` fp32: ``part``
     ``(num_tiles, 128)`` below ``full``, the product
@@ -203,7 +203,7 @@ def whdia_ablation(level: str, values, slot_r0: Optional[torch.Tensor],
     :func:`whdia_ablation_plain`.  Any other device raises."""
     code = _code(level, WHDIA_LEVELS, "whdia_ablation")
     _whdia._check_args("whdia_ablation", values, slot_r0, tile_r0, tile_base,
-                       chunk_group, x, chunk_tiles)
+                       chunk_group, x, chunk_tiles, tile_page)
     if values.dtype != torch.float32:
         raise ValueError(f"whdia_ablation: bad values: kernel #18 takes "
                          f"float32, not {values.dtype}")
@@ -212,15 +212,15 @@ def whdia_ablation(level: str, values, slot_r0: Optional[torch.Tensor],
     dev = x.device
     if dev.type == "cpu":
         return whdia_ablation_plain(level, values, slot_r0, tile_r0, tile_base,
-                                    chunk_group, x, **static)
+                                    chunk_group, x, tile_page=tile_page, **static)
     lib = _whdia._LIB.load()
     T = tile_base.shape[0]
     out = (torch.zeros(num_groups * group_hacks * 128, dtype=x.dtype, device=dev)
            if level == "full" else torch.empty((T, 128), dtype=x.dtype, device=dev))
     err = lib.whdia_ablation(
         code, values.data_ptr(), *_whdia._r0_ptrs(slot_r0, tile_r0),
-        tile_base.data_ptr(), chunk_group.data_ptr(), x.data_ptr(),
-        out.data_ptr(), T, x.shape[0], chunk_tiles, group_hacks,
+        tile_base.data_ptr(), tile_page.data_ptr(), chunk_group.data_ptr(),
+        x.data_ptr(), out.data_ptr(), T, x.shape[0], chunk_tiles, group_hacks,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"whdia_ablation({level!r}) launch failed: CUDA "
@@ -232,7 +232,7 @@ def whdia_ablation(level: str, values, slot_r0: Optional[torch.Tensor],
 
 def whdia_ablation_plain(level: str, values, slot_r0, tile_r0, tile_base,
                          chunk_group, x, *, chunk_tiles: int, group_hacks: int,
-                         num_groups: int) -> torch.Tensor:
+                         num_groups: int, tile_page: torch.Tensor) -> torch.Tensor:
     """Kernel #18's function at ``level`` in plain PyTorch, on the
     operands' device: the gathers of :func:`~spgpu_tpu_torch.kernels.whdia.
     whdia_spmm_plain`, cut where the level cuts the tile pass."""
@@ -241,22 +241,22 @@ def whdia_ablation_plain(level: str, values, slot_r0, tile_r0, tile_base,
         return _whdia.whdia_spmv_plain(values, slot_r0, tile_r0, tile_base,
                                        chunk_group, x, chunk_tiles=chunk_tiles,
                                        group_hacks=group_hacks,
-                                       num_groups=num_groups)
+                                       num_groups=num_groups, tile_page=tile_page)
     v = values.view(tile_base.shape[0], 8, 128)
     if level == "stream":
         return (v * 1.5).sum(dim=1)
     if level == "r0":
-        col = _whdia.whdia_columns(slot_r0, tile_r0, tile_base)
+        col = _whdia.whdia_columns(slot_r0, tile_r0, tile_base, tile_page=tile_page)
         return (v * (col & 127).to(v.dtype)).sum(dim=1)
     return _whdia.whdia_tile_sums(values, slot_r0, tile_r0, tile_base,
-                                  x.unsqueeze(0))[0]
+                                  x.unsqueeze(0), tile_page=tile_page)[0]
 
 
 def whdia_hack_ablation(level: str, values, slot_r0: Optional[torch.Tensor],
                         tile_r0: Optional[torch.Tensor], tile_base, chunk_group,
                         x, *, chunk_tiles: int, group_hacks: int, num_groups: int,
-                        hack_slot_ptr: torch.Tensor,
-                        hack_slots: torch.Tensor) -> torch.Tensor:
+                        hack_slot_ptr: torch.Tensor, hack_slots: torch.Tensor,
+                        tile_page: torch.Tensor) -> torch.Tensor:
     """Kernel #18's hack level ``level`` (:data:`HACK_LEVELS`) on an fp32
     WHDIA layout in either r0 mode and its live-slot list: the rows of
     #3's warp pass for ``x`` ``(n_cols,)`` (``(num_groups*group_hacks*128,)``)
@@ -275,13 +275,13 @@ def whdia_hack_ablation(level: str, values, slot_r0: Optional[torch.Tensor],
     spmm = x.dim() == 2
     hacks = num_groups * group_hacks
     _whdia._check_args("whdia_spmm" if spmm else "whdia_spmv", values, slot_r0,
-                       tile_r0, tile_base, chunk_group, x, chunk_tiles)
+                       tile_r0, tile_base, chunk_group, x, chunk_tiles, tile_page)
     dev = x.device
     if dev.type == "cpu":
         return whdia_hack_ablation_plain(
             level, values, slot_r0, tile_r0, tile_base, chunk_group, x,
             chunk_tiles=chunk_tiles, group_hacks=group_hacks, num_groups=num_groups,
-            hack_slot_ptr=hack_slot_ptr, hack_slots=hack_slots)
+            hack_slot_ptr=hack_slot_ptr, hack_slots=hack_slots, tile_page=tile_page)
     lists = _whdia._list_ptrs("whdia_hack_ablation", hack_slot_ptr, hack_slots,
                               hacks, dev)
     _whdia._check_aligned("whdia_hack_ablation", values)
@@ -291,7 +291,7 @@ def whdia_hack_ablation(level: str, values, slot_r0: Optional[torch.Tensor],
                       dtype=x.dtype, device=dev)
     err = lib.whdia_hack_ablation(
         code, int(spmm), values.data_ptr(), *_whdia._r0_ptrs(slot_r0, tile_r0),
-        tile_base.data_ptr(), *lists, x.data_ptr(), out.data_ptr(), hacks,
+        tile_page.data_ptr(), *lists, x.data_ptr(), out.data_ptr(), hacks,
         x.shape[-1], hacks * 128, n_rhs, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"whdia_hack_ablation({level!r}) launch failed: CUDA "
@@ -303,8 +303,8 @@ def whdia_hack_ablation(level: str, values, slot_r0: Optional[torch.Tensor],
 
 def whdia_hack_ablation_plain(level: str, values, slot_r0, tile_r0, tile_base,
                               chunk_group, x, *, chunk_tiles: int, group_hacks: int,
-                              num_groups: int, hack_slot_ptr,
-                              hack_slots) -> torch.Tensor:
+                              num_groups: int, hack_slot_ptr, hack_slots,
+                              tile_page: torch.Tensor) -> torch.Tensor:
     """Kernel #18's hack level ``level`` in plain PyTorch, on the
     operands' device: each hack's rows sum its listed slots' terms in list
     order (:func:`~spgpu_tpu_torch.kernels.whdia.whdia_listed_sum`), the
@@ -320,14 +320,15 @@ def whdia_hack_ablation_plain(level: str, values, slot_r0, tile_r0, tile_base,
         out = _whdia.whdia_spmm_listed_plain(values, slot_r0, tile_r0, tile_base,
                                              hack_slot_ptr, hack_slots, xs,
                                              group_hacks=group_hacks,
-                                             num_groups=num_groups)
+                                             num_groups=num_groups, tile_page=tile_page)
     elif level == "launch":
         ptr = hack_slot_ptr.long()
         count = (ptr[1:] - ptr[:-1]).to(values.dtype)
         out = count.repeat_interleave(128).expand(n_rhs, -1)
     else:
         slots = hack_slots.long()
-        col = _whdia.whdia_listed_columns(slot_r0, tile_r0, tile_base, hack_slots)
+        col = _whdia.whdia_listed_columns(slot_r0, tile_r0, tile_base, hack_slots,
+                                          tile_page=tile_page)
         key = ((col + slots[:, None]) & 127).to(values.dtype)
         terms = key if level == "list" else values[slots] * key
         out = _whdia.whdia_listed_sum(terms[None], hack_slot_ptr, hacks).expand(n_rhs, -1)
@@ -339,7 +340,8 @@ def whell_f64_ablation(level: str, values, residue, page_tab, tile_base,
                        chunk_group, group_bases: Optional[torch.Tensor],
                        seg_lo, seg_hi, x2d, *, chunk_tiles: int,
                        group_hacks: int, window_pages: int,
-                       unit_segments: bool, hack_units: torch.Tensor) -> torch.Tensor:
+                       unit_segments: bool, hack_units: torch.Tensor,
+                       tile_page: torch.Tensor) -> torch.Tensor:
     """Kernel #19 at ``level`` (:data:`F64_LEVELS`) on a float64 packed
     WHELL layout (aligned or scattered windows), its work units
     (``WhellMatrix.hack_units``) and lane-space
@@ -354,7 +356,7 @@ def whell_f64_ablation(level: str, values, residue, page_tab, tile_base,
     code = _code(level, F64_LEVELS, "whell_f64_ablation")
     _whell._check_args("whell_f64_ablation", values, residue, page_tab,
                        tile_base, chunk_group, group_bases, seg_lo, seg_hi,
-                       x2d, chunk_tiles, group_hacks, window_pages)
+                       x2d, chunk_tiles, group_hacks, window_pages, tile_page)
     if values.dtype != torch.float64:
         raise ValueError(f"whell_f64_ablation: bad values: kernel #19 takes "
                          f"float64, not {values.dtype}")
@@ -365,8 +367,8 @@ def whell_f64_ablation(level: str, values, residue, page_tab, tile_base,
     if dev.type == "cpu":
         return whell_f64_ablation_plain(level, values, residue, page_tab,
                                         tile_base, chunk_group, group_bases,
-                                        seg_lo, seg_hi, x2d,
-                                        hack_units=hack_units, **static)
+                                        seg_lo, seg_hi, x2d, hack_units=hack_units,
+                                        tile_page=tile_page, **static)
     lib = _whell._LIB.load()
     rows = tile_base.shape[0] if level in ("stream", "gather") else seg_lo.shape[0]
     # the part rows of tiles outside every run are never written
@@ -374,7 +376,7 @@ def whell_f64_ablation(level: str, values, residue, page_tab, tile_base,
         (rows, 128), dtype=x2d.dtype, device=dev)
     err = lib.whell_packed_ablation_f64(
         code, values.data_ptr(), *_whell.hack_pass_args(
-            "whell_f64_ablation", values, residue, page_tab, tile_base,
+            "whell_f64_ablation", values, residue, page_tab, tile_page,
             group_bases, hack_units, seg_lo, seg_hi, x2d, out, window_pages,
             unit_segments))
     if err != 0:
@@ -389,8 +391,8 @@ def whell_f64_ablation_plain(level: str, values, residue, page_tab,
                              tile_base, chunk_group, group_bases, seg_lo,
                              seg_hi, x2d, *, chunk_tiles: int,
                              group_hacks: int, window_pages: int,
-                             unit_segments: bool,
-                             hack_units: torch.Tensor) -> torch.Tensor:
+                             unit_segments: bool, hack_units: torch.Tensor,
+                             tile_page: torch.Tensor) -> torch.Tensor:
     """Kernel #19's function at ``level`` in plain PyTorch, on the
     operands' device: the products of :func:`~spgpu_tpu_torch.kernels.
     whell.whell_hack_sums` and its flush, cut where the level cuts the
@@ -404,7 +406,8 @@ def whell_f64_ablation_plain(level: str, values, residue, page_tab,
         else:
             part = _whell.whell_cell_products(
                 values, residue, page_tab, tile_base, group_bases,
-                x2d.unsqueeze(0), window_pages=window_pages)[0][0].sum(dim=1)
+                x2d.unsqueeze(0), window_pages=window_pages,
+                tile_page=tile_page)[0][0].sum(dim=1)
         run = torch.zeros(T + 1, dtype=torch.long, device=part.device)
         begin, end = hack_units[:, 0].long(), hack_units[:, 1].long()
         run.index_add_(0, begin, torch.ones_like(begin))
@@ -413,7 +416,7 @@ def whell_f64_ablation_plain(level: str, values, residue, page_tab,
     acc = _whell.whell_hack_sums(values, residue, page_tab, tile_base,
                                  group_bases, hack_units, x2d.unsqueeze(0),
                                  num_rows=seg_lo.shape[0],
-                                 window_pages=window_pages)
+                                 window_pages=window_pages, tile_page=tile_page)
     if level == "own":
         return acc[0]
     return _whell.whell_flush_plain(acc, seg_lo, seg_hi, unit_segments)[0]

@@ -10,6 +10,10 @@ module is imported.
 :func:`pcell_spmv` launches the kernel for CUDA tensors (or raises) and
 runs :func:`pcell_spmv_plain`, the plain PyTorch version of the same
 function, for CPU tensors.  ``LAUNCHES`` counts the kernel's launches.
+Both take the layout's ``tile_page`` (``PcellWhell.tile_page``, each
+tile's full-width layout group) and read the group from it, and only the
+hack-in-group from ``tile_base``; ``tile_page`` is a required
+argument of both.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import torch
 
 from spgpu_tpu_torch.kernels._build import CudaLibrary
 
-__all__ = ["LAUNCHES", "SOURCE", "build", "pcell_spmv", "pcell_spmv_plain"]
+__all__ = ["LAUNCHES", "SOURCE", "build", "pcell_spmv",
+           "pcell_spmv_plain"]
 
 #: launches of kernel #17 so far; the CPU path does not count
 LAUNCHES = 0
@@ -29,7 +34,7 @@ LAUNCHES = 0
 def _bind(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.pcell_spmv.restype = ctypes.c_int
-    lib.pcell_spmv.argtypes = [p, p, p, p, p, p, p, p, p, p, i64, i32, i32, i32, p]
+    lib.pcell_spmv.argtypes = [p] * 11 + [i64, i32, i32, i32, p]
 
 
 _LIB = CudaLibrary("pcell_spmv", _bind)
@@ -39,7 +44,7 @@ build = _LIB.build
 
 def _check_args(values, residue, page_tab, run_hi, run_lo, tile_base,
                 chunk_group, group_bases, x, chunk_tiles, group_hacks,
-                window_pages, num_groups):
+                window_pages, num_groups, tile_page):
     S = values.shape[0]
     T = tile_base.shape[0]
     want = [
@@ -49,6 +54,7 @@ def _check_args(values, residue, page_tab, run_hi, run_lo, tile_base,
           for name, t in (("residue", residue), ("page_tab", page_tab),
                           ("run_hi", run_hi), ("run_lo", run_lo))],
         (tile_base.dtype == torch.int32 and T % chunk_tiles == 0, "tile_base"),
+        (tile_page.dtype == torch.int32 and tile_page.shape == (T,), "tile_page"),
         (chunk_group.dtype == torch.int32
          and chunk_group.shape == (T // chunk_tiles + 1,), "chunk_group"),
         (window_pages in (8, 16, 32, 64) and group_bases.dtype == torch.int32
@@ -61,8 +67,8 @@ def _check_args(values, residue, page_tab, run_hi, run_lo, tile_base,
     for ok, what in want:
         if not ok:
             raise ValueError(f"pcell_spmv: bad {what}")
-    ts = [values, residue, page_tab, run_hi, run_lo, tile_base, chunk_group,
-          group_bases, x]
+    ts = [values, residue, page_tab, run_hi, run_lo, tile_base, tile_page,
+          chunk_group, group_bases, x]
     if any(t.device != x.device for t in ts):
         raise ValueError("pcell_spmv: all operands must be on one device")
     if not all(t.is_contiguous() for t in ts):
@@ -73,8 +79,8 @@ def _check_args(values, residue, page_tab, run_hi, run_lo, tile_base,
 
 def pcell_spmv(values, residue, page_tab, run_hi, run_lo, tile_base,
                chunk_group, group_bases, x2d, *, chunk_tiles: int,
-               group_hacks: int, window_pages: int,
-               num_groups: int) -> torch.Tensor:
+               group_hacks: int, window_pages: int, num_groups: int,
+               tile_page: torch.Tensor) -> torch.Tensor:
     """pcell product ``(num_groups*group_hacks, 128)`` fp32 in the original
     row numbering, of fp32 values and x2d ``(x_pages, 128)`` fp32.
 
@@ -84,10 +90,11 @@ def pcell_spmv(values, residue, page_tab, run_hi, run_lo, tile_base,
     ``PcellWhell.check``; shapes, dtypes and devices are checked here."""
     _check_args(values, residue, page_tab, run_hi, run_lo, tile_base,
                 chunk_group, group_bases, x2d, chunk_tiles, group_hacks,
-                window_pages, num_groups)
+                window_pages, num_groups, tile_page)
     dev = x2d.device
     static = dict(chunk_tiles=chunk_tiles, group_hacks=group_hacks,
-                  window_pages=window_pages, num_groups=num_groups)
+                  window_pages=window_pages, num_groups=num_groups,
+                  tile_page=tile_page)
     if dev.type == "cpu":
         return pcell_spmv_plain(values, residue, page_tab, run_hi, run_lo,
                                 tile_base, chunk_group, group_bases, x2d, **static)
@@ -100,8 +107,8 @@ def pcell_spmv(values, residue, page_tab, run_hi, run_lo, tile_base,
     err = lib.pcell_spmv(
         values.data_ptr(), residue.data_ptr(), page_tab.data_ptr(),
         run_hi.data_ptr(), run_lo.data_ptr(), tile_base.data_ptr(),
-        chunk_group.data_ptr(), group_bases.data_ptr(), x2d.data_ptr(),
-        z.data_ptr(), tile_base.shape[0], chunk_tiles, group_hacks,
+        tile_page.data_ptr(), chunk_group.data_ptr(), group_bases.data_ptr(),
+        x2d.data_ptr(), z.data_ptr(), tile_base.shape[0], chunk_tiles, group_hacks,
         window_pages // 8, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pcell_spmv launch failed: CUDA error {err}")
@@ -112,8 +119,8 @@ def pcell_spmv(values, residue, page_tab, run_hi, run_lo, tile_base,
 
 def pcell_spmv_plain(values, residue, page_tab, run_hi, run_lo, tile_base,
                      chunk_group, group_bases, x2d, *, chunk_tiles: int,
-                     group_hacks: int, window_pages: int,
-                     num_groups: int) -> torch.Tensor:
+                     group_hacks: int, window_pages: int, num_groups: int,
+                     tile_page: torch.Tensor) -> torch.Tensor:
     """The same product in plain PyTorch, with the kernel's arithmetic:
     each slot's products, their inclusive ``cumsum`` along the lanes,
     then the difference of the scan at each output lane's run bounds
@@ -127,7 +134,8 @@ def pcell_spmv_plain(values, residue, page_tab, run_hi, run_lo, tile_base,
     meta = tile_base.long()
     K = window_pages // 8
     tile = torch.arange(S, device=dev) // 8
-    page = group_bases.long()[(meta & 0xFFFFF)[tile, None] * K + (d >> 3)] + (d & 7)
+    group = tile_page.long()
+    page = group_bases.long()[group[tile, None] * K + (d >> 3)] + (d & 7)
     scan = (values * x2d.reshape(-1)[page * 128 + res]).cumsum(dim=1)
     hi, lo = run_hi.long(), run_lo.long()
     routed = (torch.where(hi >= 0, torch.gather(scan, 1, hi.clamp(min=0)), 0.0)

@@ -29,6 +29,11 @@ live-slot kernels' product in plain PyTorch, summed in their order.  ``LAUNCHES`
 counts the launches of kernel #3, ``LAUNCHES_F64`` those of #6,
 ``LAUNCHES_C64`` those of #9, ``LAUNCHES_C128`` those of #10 and
 ``LAUNCHES_SPMM`` those of #13.
+
+Every function takes the layout's ``tile_page`` (``WhdiaMatrix.tile_page``,
+each tile's full-width base page) and reads the page from it, and only
+the hack-in-group from ``tile_base``; ``tile_page`` is a required
+argument of each.
 """
 
 from __future__ import annotations
@@ -41,7 +46,8 @@ import torch
 from spgpu_tpu_torch.kernels._build import CudaLibrary
 
 __all__ = ["HACK_PASS", "LAUNCHES", "LAUNCHES_C128", "LAUNCHES_C64",
-           "LAUNCHES_F64", "LAUNCHES_SPMM", "SOURCE", "build", "whdia_listed_columns",
+           "LAUNCHES_F64", "LAUNCHES_SPMM", "SOURCE", "build",
+           "whdia_listed_columns",
            "whdia_listed_sum", "whdia_spmm", "whdia_spmm_listed_plain",
            "whdia_spmm_plain", "whdia_spmv", "whdia_spmv_plain"]
 
@@ -71,13 +77,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = ([p] * 8 + [i64, i64, p] if dt in HACK_PASS
-                       else [p, p, p, p, p, p, p, i64, i64, i32, i32, p])
+                       else [p] * 8 + [i64, i64, i32, i32, p])
     lib.whdia_spmm.restype = ctypes.c_int
     lib.whdia_spmm.argtypes = [p] * 8 + [i64, i64, i64, i32, p]
     # kernel #18 (spgpu_tpu_torch.kernels.ablation)
     lib.whdia_ablation.restype = ctypes.c_int
-    lib.whdia_ablation.argtypes = [i32, p, p, p, p, p, p, p, i64, i64, i32,
-                                   i32, p]
+    lib.whdia_ablation.argtypes = [i32] + [p] * 8 + [i64, i64, i32, i32, p]
     lib.whdia_hack_ablation.restype = ctypes.c_int
     lib.whdia_hack_ablation.argtypes = [i32, i32] + [p] * 8 + [i64, i64, i64,
                                                               i32, p]
@@ -89,7 +94,7 @@ build = _LIB.build
 
 
 def _check_args(op, values, slot_r0, tile_r0, tile_base, chunk_group, x,
-                chunk_tiles):
+                chunk_tiles, tile_page):
     """Shapes, dtypes, devices and contiguity of ``op``'s operands: ``x``
     is ``(n_cols,)`` for the SpMV, ``(n_rhs, n_cols)`` for the SpMM
     (fp32 only)."""
@@ -108,6 +113,7 @@ def _check_args(op, values, slot_r0, tile_r0, tile_base, chunk_group, x,
                              and tile_r0.shape == (T,)), "tile_r0"),
         (tile_base.dtype == torch.int32 and chunk_tiles > 0
          and T % chunk_tiles == 0, "tile_base"),
+        (tile_page.dtype == torch.int32 and tile_page.shape == (T,), "tile_page"),
         (chunk_group.dtype == torch.int32
          and chunk_group.shape == (T // chunk_tiles,), "chunk_group"),
         (x.dim() == (2 if spmm else 1) and x.dtype == values.dtype,
@@ -116,7 +122,7 @@ def _check_args(op, values, slot_r0, tile_r0, tile_base, chunk_group, x,
     for ok, what in want:
         if not ok:
             raise ValueError(f"{op}: bad {what}")
-    ts = [t for t in (values, slot_r0, tile_r0, tile_base, chunk_group, x)
+    ts = [t for t in (values, slot_r0, tile_r0, tile_base, tile_page, chunk_group, x)
           if t is not None]
     if any(t.device != x.device for t in ts):
         raise ValueError(f"{op}: all operands must be on one device")
@@ -158,7 +164,8 @@ def whdia_spmv(values, slot_r0: Optional[torch.Tensor],
                tile_r0: Optional[torch.Tensor], tile_base, chunk_group,
                x, *, chunk_tiles: int, group_hacks: int, num_groups: int,
                hack_slot_ptr: Optional[torch.Tensor] = None,
-               hack_slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+               hack_slots: Optional[torch.Tensor] = None,
+               tile_page: torch.Tensor) -> torch.Tensor:
     """WHDIA product ``(num_groups*group_hacks*128,)`` (row ``r`` at
     index ``r``) of the slab and ``x`` ``(n_cols,)``, both float32,
     float64, complex64 or complex128.
@@ -173,12 +180,13 @@ def whdia_spmv(values, slot_r0: Optional[torch.Tensor],
     the converter or checked by ``WhdiaMatrix.check``; shapes, dtypes and
     devices are checked here."""
     _check_args("whdia_spmv", values, slot_r0, tile_r0, tile_base,
-                chunk_group, x, chunk_tiles)
+                chunk_group, x, chunk_tiles, tile_page)
     dev = x.device
     if dev.type == "cpu":
         return whdia_spmv_plain(values, slot_r0, tile_r0, tile_base,
                                 chunk_group, x, chunk_tiles=chunk_tiles,
-                                group_hacks=group_hacks, num_groups=num_groups)
+                                group_hacks=group_hacks, num_groups=num_groups,
+                                tile_page=tile_page)
     hacks = num_groups * group_hacks
     hack_pass = x.dtype in HACK_PASS
     if hack_pass:
@@ -189,13 +197,15 @@ def whdia_spmv(values, slot_r0: Optional[torch.Tensor],
     entry, counter = _ENTRIES[x.dtype]
     fn = getattr(lib, entry)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    head = (values.data_ptr(), *_r0_ptrs(slot_r0, tile_r0), tile_base.data_ptr())
-    if hack_pass:  # every row written: no zero fill
+    head = (values.data_ptr(), *_r0_ptrs(slot_r0, tile_r0))
+    if hack_pass:  # every row written: no zero fill; the page alone
         z = torch.empty(hacks * 128, dtype=x.dtype, device=dev)
-        err = fn(*head, *lists, x.data_ptr(), z.data_ptr(), hacks, x.shape[0], stream)
+        err = fn(*head, tile_page.data_ptr(), *lists, x.data_ptr(), z.data_ptr(),
+                 hacks, x.shape[0], stream)
     else:
         z = torch.zeros(hacks * 128, dtype=x.dtype, device=dev)
-        err = fn(*head, chunk_group.data_ptr(), x.data_ptr(), z.data_ptr(),
+        err = fn(*head, tile_base.data_ptr(), tile_page.data_ptr(),
+                 chunk_group.data_ptr(), x.data_ptr(), z.data_ptr(),
                  tile_base.shape[0], x.shape[0], chunk_tiles, group_hacks, stream)
     if err != 0:
         raise RuntimeError(f"whdia_spmv launch failed: CUDA error {err}")
@@ -207,7 +217,8 @@ def whdia_spmm(values, slot_r0: Optional[torch.Tensor],
                tile_r0: Optional[torch.Tensor], tile_base, chunk_group,
                x, *, chunk_tiles: int, group_hacks: int, num_groups: int,
                hack_slot_ptr: Optional[torch.Tensor] = None,
-               hack_slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+               hack_slots: Optional[torch.Tensor] = None,
+               tile_page: torch.Tensor) -> torch.Tensor:
     """Fused multi-RHS WHDIA product ``(n_rhs, num_groups*group_hacks*128)``
     of the fp32 slab and ``x`` ``(n_rhs, n_cols)`` fp32, in either r0
     mode: each live slot's r0 is decoded once for every RHS.
@@ -217,12 +228,13 @@ def whdia_spmm(values, slot_r0: Optional[torch.Tensor],
     ``hack_slots`` and raises without them; CPU tensors run
     :func:`whdia_spmm_plain`.  Any other device raises."""
     _check_args("whdia_spmm", values, slot_r0, tile_r0, tile_base,
-                chunk_group, x, chunk_tiles)
+                chunk_group, x, chunk_tiles, tile_page)
     dev = x.device
     if dev.type == "cpu":
         return whdia_spmm_plain(values, slot_r0, tile_r0, tile_base,
                                 chunk_group, x, chunk_tiles=chunk_tiles,
-                                group_hacks=group_hacks, num_groups=num_groups)
+                                group_hacks=group_hacks, num_groups=num_groups,
+                                tile_page=tile_page)
     hacks = num_groups * group_hacks
     lists = _list_ptrs("whdia_spmm", hack_slot_ptr, hack_slots, hacks, dev)
     lib = _LIB.load()
@@ -230,7 +242,7 @@ def whdia_spmm(values, slot_r0: Optional[torch.Tensor],
     z = torch.empty((n_rhs, hacks * 128), dtype=x.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.whdia_spmm(
-        values.data_ptr(), *_r0_ptrs(slot_r0, tile_r0), tile_base.data_ptr(),
+        values.data_ptr(), *_r0_ptrs(slot_r0, tile_r0), tile_page.data_ptr(),
         *lists, x.data_ptr(), z.data_ptr(), hacks, n_cols, hacks * 128, n_rhs,
         stream)
     if err != 0:
@@ -241,25 +253,27 @@ def whdia_spmm(values, slot_r0: Optional[torch.Tensor],
 
 
 def whdia_spmv_plain(values, slot_r0, tile_r0, tile_base, chunk_group, x, *,
-                     chunk_tiles: int, group_hacks: int,
-                     num_groups: int) -> torch.Tensor:
+                     chunk_tiles: int, group_hacks: int, num_groups: int,
+                     tile_page: torch.Tensor) -> torch.Tensor:
     """The same product in plain PyTorch: :func:`whdia_spmm_plain` with
     one RHS."""
     return whdia_spmm_plain(values, slot_r0, tile_r0, tile_base, chunk_group,
                             x.unsqueeze(0), chunk_tiles=chunk_tiles,
-                            group_hacks=group_hacks, num_groups=num_groups)[0]
+                            group_hacks=group_hacks, num_groups=num_groups,
+                            tile_page=tile_page)[0]
 
 
 def whdia_spmm_plain(values, slot_r0, tile_r0, tile_base, chunk_group, x, *,
-                     chunk_tiles: int, group_hacks: int,
-                     num_groups: int) -> torch.Tensor:
+                     chunk_tiles: int, group_hacks: int, num_groups: int,
+                     tile_page: torch.Tensor) -> torch.Tensor:
     """The multi-RHS product in plain PyTorch, vectorised over the RHS
     axis of ``x`` ``(n_rhs, n_cols)``, on the operands' device, in x's
     type: decode r0 once, gather ``(n_rhs, T, 8, 128)`` with the
     ``[0, n_cols)`` guard, sum over each tile's 8 slots, then
     ``index_add_`` into the rows."""
     n_rhs = x.shape[0]
-    tile_sum = whdia_tile_sums(values, slot_r0, tile_r0, tile_base, x)
+    tile_sum = whdia_tile_sums(values, slot_r0, tile_r0, tile_base, x,
+                               tile_page=tile_page)
     z = torch.zeros((n_rhs, num_groups * group_hacks, 128), dtype=x.dtype,
                     device=x.device)
     z.index_add_(1, whdia_tile_hacks(tile_base, chunk_group, chunk_tiles,
@@ -268,8 +282,8 @@ def whdia_spmm_plain(values, slot_r0, tile_r0, tile_base, chunk_group, x, *,
 
 
 def whdia_spmm_listed_plain(values, slot_r0, tile_r0, tile_base, hack_slot_ptr,
-                            hack_slots, x, *, group_hacks: int,
-                            num_groups: int) -> torch.Tensor:
+                            hack_slots, x, *, group_hacks: int, num_groups: int,
+                            tile_page: torch.Tensor) -> torch.Tensor:
     """The hack pass's product in plain PyTorch, ``(n_rhs,
     num_groups*group_hacks*128)`` for ``x`` ``(n_rhs, n_cols)``: each row
     sums only its hack's listed slots (``hack_slots[hack_slot_ptr[h] :
@@ -277,17 +291,20 @@ def whdia_spmm_listed_plain(values, slot_r0, tile_r0, tile_base, hack_slot_ptr,
     each multiply-add; here they round apart); x is read as 0 outside
     ``[0, n_cols)``.  Rows of a hack with no listed slot are 0."""
     n_rhs, n_cols = x.shape
-    col = whdia_listed_columns(slot_r0, tile_r0, tile_base, hack_slots)
+    col = whdia_listed_columns(slot_r0, tile_r0, tile_base, hack_slots,
+                               tile_page=tile_page)
     col = torch.where((col >= 0) & (col < n_cols), col, n_cols)
     xz = torch.cat([x, x.new_zeros(n_rhs, 1)], dim=1)  # index n_cols reads 0
     prod = values[hack_slots.long()] * xz[:, col]  # (n_rhs, L, 128)
     return whdia_listed_sum(prod, hack_slot_ptr, num_groups * group_hacks)
 
 
-def whdia_listed_columns(slot_r0, tile_r0, tile_base, hack_slots) -> torch.Tensor:
+def whdia_listed_columns(slot_r0, tile_r0, tile_base, hack_slots,
+                         tile_page: torch.Tensor) -> torch.Tensor:
     """The x column of each cell of each listed slot, ``(L, 128)`` int64,
     unguarded, in list order."""
-    return whdia_columns(slot_r0, tile_r0, tile_base).view(-1, 128)[hack_slots.long()]
+    return whdia_columns(slot_r0, tile_r0, tile_base,
+                         tile_page=tile_page).view(-1, 128)[hack_slots.long()]
 
 
 def whdia_listed_sum(terms, hack_slot_ptr, hacks: int) -> torch.Tensor:
@@ -308,13 +325,15 @@ def whdia_listed_sum(terms, hack_slot_ptr, hacks: int) -> torch.Tensor:
     return z.view(n_rhs, -1)
 
 
-def whdia_columns(slot_r0, tile_r0, tile_base) -> torch.Tensor:
+def whdia_columns(slot_r0, tile_r0, tile_base,
+                  tile_page: torch.Tensor) -> torch.Tensor:
     """Each cell's x column ``base*128 + r0 + lane``, ``(T, 8, 128)``
-    int64, unguarded: r0 from ``slot_r0`` (slab mode) or decoded from the
-    tile's ``tile_r0`` word (pattern mode)."""
+    int64, unguarded: the base page from ``tile_page``, r0 from
+    ``slot_r0`` (slab mode) or decoded from the tile's ``tile_r0`` word
+    (pattern mode)."""
     dev = tile_base.device
     T = tile_base.shape[0]
-    meta = tile_base.long()
+    base = tile_page.long()
     if slot_r0 is not None:
         r0 = slot_r0.long().view(T, 8)
     else:
@@ -324,17 +343,17 @@ def whdia_columns(slot_r0, tile_r0, tile_base) -> torch.Tensor:
         step = ((w >> 19) & 0x1FFF) - 4096
         s = torch.arange(8, device=dev)
         r0 = r00[:, None] + step[:, None] * torch.minimum(s[None, :], f1[:, None])
-    return (((meta & 0xFFFF) * 128)[:, None] + r0)[:, :, None] \
-        + torch.arange(128, device=dev)
+    return ((base * 128)[:, None] + r0)[:, :, None] + torch.arange(128, device=dev)
 
 
-def whdia_tile_sums(values, slot_r0, tile_r0, tile_base, x) -> torch.Tensor:
+def whdia_tile_sums(values, slot_r0, tile_r0, tile_base, x,
+                    tile_page: torch.Tensor) -> torch.Tensor:
     """Each tile's lane sums over its 8 slots, ``(n_rhs, T, 128)``, of the
     product with every row of ``x`` ``(n_rhs, n_cols)``: x is read as 0
     outside ``[0, n_cols)``."""
     n_rhs, n_cols = x.shape
     T = tile_base.shape[0]
-    col = whdia_columns(slot_r0, tile_r0, tile_base)
+    col = whdia_columns(slot_r0, tile_r0, tile_base, tile_page=tile_page)
     col = torch.where((col >= 0) & (col < n_cols), col, n_cols)
     xz = torch.cat([x, x.new_zeros(n_rhs, 1)], dim=1)  # index n_cols reads 0
     return (values.view(T, 8, 128) * xz[:, col]).sum(dim=2)

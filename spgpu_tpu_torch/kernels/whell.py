@@ -21,6 +21,11 @@ plain PyTorch versions of the same functions, for CPU tensors.
 ``LAUNCHES`` counts the launches of kernel #1, ``LAUNCHES_F64`` those of
 kernel #4, ``LAUNCHES_C64`` those of kernel #7, ``LAUNCHES_C128`` those
 of the complex128 kernel and ``LAUNCHES_SPMM`` those of kernel #12.
+
+Every function takes the layout's ``tile_page`` (``WhellMatrix.tile_page``:
+each tile's full-width layout group or base page) and reads the group or
+page from it, and only the hack-in-group from ``tile_base``;
+``tile_page`` is a required argument of each.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ import torch
 from spgpu_tpu_torch.kernels._build import CudaLibrary
 
 __all__ = ["LAUNCHES", "LAUNCHES_C128", "LAUNCHES_C64", "LAUNCHES_F64",
-           "LAUNCHES_SPMM", "PER_HACK", "SOURCE", "build", "whell_hack_sums",
+           "LAUNCHES_SPMM", "PER_HACK", "SOURCE", "build",
+           "whell_hack_sums",
            "whell_packed_spmm", "whell_packed_spmm_plain", "whell_packed_spmv",
            "whell_packed_spmv_plain"]
 
@@ -60,7 +66,7 @@ _FP32_X = (torch.float32, torch.bfloat16)
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    tile_pass = [p, p, p, p, p, p, p, p, p, p, i64, i64, i32, i32, i32, i32, p]
+    tile_pass = [p] * 11 + [i64, i64, i32, i32, i32, i32, p]
     hack_pass = [p, p, p, p, p, p, p, p, p, p, p, i64, i32, i32, p]
     lib.whell_packed_spmv.restype = ctypes.c_int
     lib.whell_packed_spmv.argtypes = [p, i32] + tile_pass
@@ -82,7 +88,7 @@ build = _LIB.build
 
 def _check_args(op, values, residue, page_tab, tile_base, chunk_group,
                 group_bases, seg_lo, seg_hi, x, chunk_tiles, group_hacks,
-                window_pages):
+                window_pages, tile_page):
     """Shapes, dtypes, devices and contiguity of ``op``'s operands: ``x``
     is ``(x_pages, 128)`` for the SpMV, ``(n_rhs, x_pages, 128)`` for the
     SpMM (fp32 or bf16 values only)."""
@@ -102,6 +108,7 @@ def _check_args(op, values, residue, page_tab, tile_base, chunk_group,
         (residue.shape == (S, 128) and residue.dtype == torch.int8, "residue"),
         (page_tab.shape == (S, 128) and page_tab.dtype == torch.int8, "page_tab"),
         (tile_base.dtype == torch.int32 and T % chunk_tiles == 0, "tile_base"),
+        (tile_page.dtype == torch.int32 and tile_page.shape == (T,), "tile_page"),
         (chunk_group.dtype == torch.int32
          and chunk_group.shape == (T // chunk_tiles + 1,), "chunk_group"),
         (seg_lo.shape == (R, 128) and seg_hi.shape == (R, 128)
@@ -118,8 +125,8 @@ def _check_args(op, values, residue, page_tab, tile_base, chunk_group,
     for ok, what in want:
         if not ok:
             raise ValueError(f"{op}: bad {what}")
-    ts = [values, residue, page_tab, tile_base, chunk_group, seg_lo, seg_hi,
-          x] + ([] if group_bases is None else [group_bases])
+    ts = [values, residue, page_tab, tile_base, tile_page, chunk_group, seg_lo,
+          seg_hi, x] + ([] if group_bases is None else [group_bases])
     if any(t.device != x.device for t in ts):
         raise ValueError(f"{op}: all operands must be on one device")
     if not all(t.is_contiguous() for t in ts):
@@ -128,12 +135,12 @@ def _check_args(op, values, residue, page_tab, tile_base, chunk_group,
         raise ValueError(f"{op}: no kernel for device {x.device}")
 
 
-def _layout_args(residue, page_tab, tile_base, chunk_group, group_bases,
-                 seg_lo, seg_hi):
+def _layout_args(residue, page_tab, tile_base, tile_page, chunk_group,
+                 group_bases, seg_lo, seg_hi):
     """The layout arrays' device pointers, in the tile-pass entries'
     order."""
     return (residue.data_ptr(), page_tab.data_ptr(), tile_base.data_ptr(),
-            chunk_group.data_ptr(),
+            tile_page.data_ptr(), chunk_group.data_ptr(),
             None if group_bases is None else group_bases.data_ptr(),
             seg_lo.data_ptr(), seg_hi.data_ptr())
 
@@ -150,12 +157,13 @@ def _check_units(op, hack_units, values, seg_lo) -> None:
                          "the values' device (WhellMatrix.hack_units)")
 
 
-def hack_pass_args(op, values, residue, page_tab, tile_base, group_bases,
+def hack_pass_args(op, values, residue, page_tab, tile_page, group_bases,
                    hack_units, seg_lo, seg_hi, x, out, window_pages,
                    unit_segments, n_rhs=None):
     """The C arguments of the hack-pass entries (#4, complex128, #19;
-    #12 with ``n_rhs``) after the values: device pointers, the work units'
-    count (and for #12 the rows and ``n_rhs``), sizes and the current
+    #12 with ``n_rhs``) after the values: device pointers (the page words
+    ``tile_page`` in place of ``tile_base``: the units name each run's
+    row), the work units' count (and for #12 the rows and ``n_rhs``), sizes and the current
     stream.  The launch's scratch for chunked runs is allocated here, per
     call, and only when some run is chunked (more units than rows): the
     counters zeroed, one per output row (per row and block of 8 RHS for
@@ -172,7 +180,7 @@ def hack_pass_args(op, values, residue, page_tab, tile_base, group_bases,
         done = torch.zeros(rows * blocks, dtype=torch.int32, device=x.device)
         part = torch.empty((U, n_rhs or 1, 128), dtype=x.dtype, device=x.device)
     sizes = (U,) if n_rhs is None else (U, rows, n_rhs)
-    return (residue.data_ptr(), page_tab.data_ptr(), tile_base.data_ptr(),
+    return (residue.data_ptr(), page_tab.data_ptr(), tile_page.data_ptr(),
             None if group_bases is None else group_bases.data_ptr(),
             hack_units.data_ptr(), None if done is None else done.data_ptr(),
             None if part is None else part.data_ptr(), seg_lo.data_ptr(),
@@ -185,7 +193,8 @@ def whell_packed_spmv(values, residue, page_tab, tile_base, chunk_group,
                       group_bases: Optional[torch.Tensor], seg_lo, seg_hi,
                       x2d, *, chunk_tiles: int, group_hacks: int,
                       window_pages: int, unit_segments: bool,
-                      hack_units: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      hack_units: Optional[torch.Tensor] = None,
+                      tile_page: torch.Tensor) -> torch.Tensor:
     """Packed-lane WHELL product ``(num_groups*group_hacks, 128)`` in x2d's
     type: the values' own type for float64, complex64 and complex128
     values, float32 for fp32 or bf16 ones.
@@ -203,13 +212,14 @@ def whell_packed_spmv(values, residue, page_tab, tile_base, chunk_group,
     checked here."""
     _check_args("whell_packed_spmv", values, residue, page_tab, tile_base,
                 chunk_group, group_bases, seg_lo, seg_hi, x2d, chunk_tiles,
-                group_hacks, window_pages)
+                group_hacks, window_pages, tile_page)
     per_hack = values.dtype in PER_HACK
     if per_hack:
         _check_units("whell_packed_spmv", hack_units, values, seg_lo)
     dev = x2d.device
     static = dict(chunk_tiles=chunk_tiles, group_hacks=group_hacks,
-                  window_pages=window_pages, unit_segments=unit_segments)
+                  window_pages=window_pages, unit_segments=unit_segments,
+                  tile_page=tile_page)
     if dev.type == "cpu":
         return whell_packed_spmv_plain(
             values, residue, page_tab, tile_base, chunk_group, group_bases,
@@ -221,12 +231,12 @@ def whell_packed_spmv(values, residue, page_tab, tile_base, chunk_group,
     typed = _TYPED.get(values.dtype)
     if per_hack:
         err = getattr(lib, typed[0])(values.data_ptr(), *hack_pass_args(
-            "whell_packed_spmv", values, residue, page_tab, tile_base,
+            "whell_packed_spmv", values, residue, page_tab, tile_page,
             group_bases, hack_units, seg_lo, seg_hi, x2d, z, window_pages,
             unit_segments))
     else:
         acc = torch.zeros((R, 128), dtype=x2d.dtype, device=dev)
-        args = (*_layout_args(residue, page_tab, tile_base, chunk_group,
+        args = (*_layout_args(residue, page_tab, tile_base, tile_page, chunk_group,
                               group_bases, seg_lo, seg_hi),
                 x2d.data_ptr(), acc.data_ptr(), z.data_ptr(),
                 tile_base.shape[0], R, chunk_tiles, group_hacks, window_pages,
@@ -246,7 +256,8 @@ def whell_packed_spmm(values, residue, page_tab, tile_base, chunk_group,
                       group_bases: Optional[torch.Tensor], seg_lo, seg_hi,
                       x3d, *, chunk_tiles: int, group_hacks: int,
                       window_pages: int, unit_segments: bool,
-                      hack_units: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      hack_units: Optional[torch.Tensor] = None,
+                      tile_page: torch.Tensor) -> torch.Tensor:
     """Fused multi-RHS product ``(n_rhs, num_groups*group_hacks, 128)``
     fp32 of fp32 or bf16 values and the lane-space stack ``x3d``
     ``(n_rhs, x_pages, 128)`` fp32: each tile is decoded once for every
@@ -261,10 +272,11 @@ def whell_packed_spmm(values, residue, page_tab, tile_base, chunk_group,
     ``hack_units``.  Any other device raises."""
     _check_args("whell_packed_spmm", values, residue, page_tab, tile_base,
                 chunk_group, group_bases, seg_lo, seg_hi, x3d, chunk_tiles,
-                group_hacks, window_pages)
+                group_hacks, window_pages, tile_page)
     dev = x3d.device
     static = dict(chunk_tiles=chunk_tiles, group_hacks=group_hacks,
-                  window_pages=window_pages, unit_segments=unit_segments)
+                  window_pages=window_pages, unit_segments=unit_segments,
+                  tile_page=tile_page)
     if hack_units is not None or dev.type != "cpu":
         _check_units("whell_packed_spmm", hack_units, values, seg_lo)
     if dev.type == "cpu":
@@ -279,7 +291,7 @@ def whell_packed_spmm(values, residue, page_tab, tile_base, chunk_group,
     z = torch.empty((n_rhs, seg_lo.shape[0], 128), dtype=torch.float32, device=dev)
     err = lib.whell_packed_spmm(
         values.data_ptr(), int(values.dtype == torch.bfloat16), *hack_pass_args(
-            "whell_packed_spmm", values, residue, page_tab, tile_base,
+            "whell_packed_spmm", values, residue, page_tab, tile_page,
             group_bases, hack_units, seg_lo, seg_hi, xi, z, window_pages,
             unit_segments, n_rhs=n_rhs))
     if err != 0:
@@ -293,7 +305,8 @@ def whell_packed_spmv_plain(values, residue, page_tab, tile_base,
                             chunk_group, group_bases, seg_lo, seg_hi, x2d, *,
                             chunk_tiles: int, group_hacks: int,
                             window_pages: int, unit_segments: bool,
-                            hack_units: Optional[torch.Tensor] = None) -> torch.Tensor:
+                            hack_units: Optional[torch.Tensor] = None,
+                            tile_page: torch.Tensor) -> torch.Tensor:
     """The same product in plain PyTorch: :func:`whell_packed_spmm_plain`
     with one RHS (with ``hack_units``, its per-hack form: that of #4 and
     the complex128 kernel)."""
@@ -301,14 +314,15 @@ def whell_packed_spmv_plain(values, residue, page_tab, tile_base,
         values, residue, page_tab, tile_base, chunk_group, group_bases,
         seg_lo, seg_hi, x2d.unsqueeze(0), chunk_tiles=chunk_tiles,
         group_hacks=group_hacks, window_pages=window_pages,
-        unit_segments=unit_segments, hack_units=hack_units)[0]
+        unit_segments=unit_segments, hack_units=hack_units, tile_page=tile_page)[0]
 
 
 def whell_packed_spmm_plain(values, residue, page_tab, tile_base,
                             chunk_group, group_bases, seg_lo, seg_hi, x3d, *,
                             chunk_tiles: int, group_hacks: int,
                             window_pages: int, unit_segments: bool,
-                            hack_units: Optional[torch.Tensor] = None) -> torch.Tensor:
+                            hack_units: Optional[torch.Tensor] = None,
+                            tile_page: torch.Tensor) -> torch.Tensor:
     """The multi-RHS product in plain PyTorch, vectorised over the RHS
     axis of ``x3d`` ``(n_rhs, x_pages, 128)``, on the operands' device, in
     x3d's type, then the flush (``cumsum`` and the segment gathers;
@@ -321,14 +335,16 @@ def whell_packed_spmm_plain(values, residue, page_tab, tile_base,
     if hack_units is not None:
         acc = whell_hack_sums(values, residue, page_tab, tile_base,
                               group_bases, hack_units, x3d,
-                              num_rows=seg_lo.shape[0], window_pages=window_pages)
+                              num_rows=seg_lo.shape[0], window_pages=window_pages,
+                              tile_page=tile_page)
         return whell_flush_plain(acc, seg_lo, seg_hi, unit_segments)
     n_rhs = x3d.shape[0]
     tile_sums, hack = whell_tile_sums(values, residue, page_tab, tile_base,
                                       chunk_group, group_bases, x3d,
                                       chunk_tiles=chunk_tiles,
                                       group_hacks=group_hacks,
-                                      window_pages=window_pages)
+                                      window_pages=window_pages,
+                                      tile_page=tile_page)
     acc = torch.zeros((n_rhs, seg_lo.shape[0], 128), dtype=x3d.dtype,
                       device=x3d.device)
     acc.index_add_(1, hack, tile_sums)
@@ -336,23 +352,26 @@ def whell_packed_spmm_plain(values, residue, page_tab, tile_base,
 
 
 def whell_cell_products(values, residue, page_tab, tile_base, group_bases,
-                        x3d, *, window_pages: int):
+                        x3d, *, window_pages: int, tile_page: torch.Tensor):
     """Every cell's product ``values[s, j] * x[page*128 + r]``, ``(n_rhs,
     T, 8, 128)`` in x3d's type, and each tile's hack-in-group ``(T,)``
-    int64 (the field above the page or layout-group bits)."""
+    int64 (the field above tile_base's page or layout-group bits); the
+    group or page from ``tile_page``."""
     dev = x3d.device
     n_rhs = x3d.shape[0]
     T = tile_base.shape[0]
     res = residue.long()
     d = torch.gather(page_tab.long(), 1, res)  # page delta by residue
     meta = tile_base.long()
+    scattered = group_bases is not None
+    word = tile_page.long()
     tile = torch.arange(T * 8, device=dev) // 8
-    if group_bases is not None:
+    if scattered:
         K = window_pages // 8
-        page = group_bases.long()[(meta & 0xFFFFF)[tile, None] * K + (d >> 3)] + (d & 7)
+        page = group_bases.long()[word[tile, None] * K + (d >> 3)] + (d & 7)
         hh = meta >> 20
     else:
-        page = (meta & 0xFFFF)[tile, None] + d
+        page = word[tile, None] + d
         hh = meta >> 16
     prod = values.to(x3d.dtype) * x3d.reshape(n_rhs, x3d.shape[1] * 128)[:, page * 128 + res]
     return prod.view(n_rhs, T, 8, 128), hh
@@ -360,20 +379,21 @@ def whell_cell_products(values, residue, page_tab, tile_base, group_bases,
 
 def whell_tile_sums(values, residue, page_tab, tile_base, chunk_group,
                     group_bases, x3d, *, chunk_tiles: int, group_hacks: int,
-                    window_pages: int):
+                    window_pages: int, tile_page: torch.Tensor):
     """The tile pass in plain PyTorch: each tile's lane sums over its 8
     slots, ``(n_rhs, T, 128)`` in x3d's type, and each tile's accumulator
     row (hack), ``(T,)`` int64."""
     prod, hh = whell_cell_products(values, residue, page_tab, tile_base,
-                                   group_bases, x3d, window_pages=window_pages)
+                                   group_bases, x3d, window_pages=window_pages,
+                                   tile_page=tile_page)
     T = tile_base.shape[0]
     hack = chunk_group.long()[torch.arange(T, device=x3d.device) // chunk_tiles] * group_hacks + hh
     return prod.sum(dim=2), hack
 
 
 def whell_hack_sums(values, residue, page_tab, tile_base, group_bases,
-                    hack_units, x3d, *, num_rows: int,
-                    window_pages: int) -> torch.Tensor:
+                    hack_units, x3d, *, num_rows: int, window_pages: int,
+                    tile_page: torch.Tensor) -> torch.Tensor:
     """Each output row's unscanned lane sums in plain PyTorch, ``(n_rhs,
     num_rows, 128)`` in x3d's type, as the hack-pass kernels (#4, #12 and
     complex128) sum them over the work units ``hack_units`` (``[begin,
@@ -383,7 +403,8 @@ def whell_hack_sums(values, residue, page_tab, tile_base, group_bases,
     adds its units' sums in chunk order; tiles outside every unit are not
     read."""
     prod, _ = whell_cell_products(values, residue, page_tab, tile_base,
-                                  group_bases, x3d, window_pages=window_pages)
+                                  group_bases, x3d, window_pages=window_pages,
+                                  tile_page=tile_page)
     units = hack_units.long()
     begin, row = units[:, 0], units[:, 2]
     n = units[:, 1] - begin

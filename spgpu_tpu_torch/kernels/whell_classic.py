@@ -18,7 +18,10 @@ scatter, the way reduction and the epilogue are the op's
 (:func:`spgpu_tpu_torch.ops.whell_spmv`).  ``LAUNCHES`` counts the
 launches of kernel #15 and ``LAUNCHES_SPMM`` those of #16.  Both kernels
 read only the live units of the layout's work list; both plain versions
-read every cell.
+read every cell.  Every function takes the layout's ``tile_page``
+(``WhellMatrix.tile_page``, each tile's full-width base page) and reads
+the page from it, and only the hack-in-group from ``tile_base``;
+``tile_page`` is a required argument of each.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ import torch
 from spgpu_tpu_torch.core import CHUNK_TILES
 from spgpu_tpu_torch.kernels._build import CudaLibrary
 
-__all__ = ["LAUNCHES", "LAUNCHES_SPMM", "SOURCE", "build", "whell_classic_spmm",
+__all__ = ["LAUNCHES", "LAUNCHES_SPMM", "SOURCE", "build",
+           "whell_classic_spmm",
            "whell_classic_spmm_plain", "whell_classic_spmv",
            "whell_classic_spmv_plain"]
 
@@ -46,9 +50,9 @@ _GROUP_HACKS = 8
 def _bind(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.whell_classic_spmv.restype = ctypes.c_int
-    lib.whell_classic_spmv.argtypes = [p, i32, p, p, p, p, p, i64, p, p, p]
+    lib.whell_classic_spmv.argtypes = [p, i32] + [p] * 6 + [i64, p, p, p]
     lib.whell_classic_spmm.restype = ctypes.c_int
-    lib.whell_classic_spmm.argtypes = [p, i32, p, p, p, p, p, i64, p, p, i64, i32, p]
+    lib.whell_classic_spmm.argtypes = [p, i32] + [p] * 6 + [i64, p, p, i64, i32, p]
 
 
 _LIB = CudaLibrary("whell_classic_spmv", _bind)
@@ -57,7 +61,7 @@ build = _LIB.build
 
 
 def _check_args(op, values, residue, page_tab, tile_base, chunk_group, x,
-                num_groups):
+                num_groups, tile_page):
     """Shapes, dtypes, devices and contiguity of ``op``'s operands: ``x``
     is ``(x_pages, 128)`` fp32 for the SpMV, ``(n_rhs, x_pages, 128)`` for
     the SpMM."""
@@ -71,6 +75,7 @@ def _check_args(op, values, residue, page_tab, tile_base, chunk_group, x,
         (residue.shape == (S, 128) and residue.dtype == torch.int8, "residue"),
         (page_tab.shape == (S, 128) and page_tab.dtype == torch.int8, "page_tab"),
         (tile_base.dtype == torch.int32 and T % CHUNK_TILES == 0, "tile_base"),
+        (tile_page.dtype == torch.int32 and tile_page.shape == (T,), "tile_page"),
         (chunk_group.dtype == torch.int32
          and chunk_group.shape == (T // CHUNK_TILES,), "chunk_group (no sentinel)"),
         (x.dim() == (3 if spmm else 2) and x.shape[-1] == 128
@@ -80,7 +85,7 @@ def _check_args(op, values, residue, page_tab, tile_base, chunk_group, x,
     for ok, what in want:
         if not ok:
             raise ValueError(f"{op}: bad {what}")
-    ts = [values, residue, page_tab, tile_base, chunk_group, x]
+    ts = [values, residue, page_tab, tile_base, tile_page, chunk_group, x]
     if any(t.device != x.device for t in ts):
         raise ValueError(f"{op}: all operands must be on one device")
     if not all(t.is_contiguous() for t in ts):
@@ -104,19 +109,21 @@ def _check_work(op, work, device) -> None:
         raise ValueError(f"{op}: bad work (a contiguous int64 list on x's device)")
 
 
-def _launch_args(op, values, residue, page_tab, tile_base, chunk_group, work):
+def _launch_args(op, values, residue, page_tab, tile_base, tile_page, chunk_group,
+                 work):
     """The pointers the kernels #15 and #16 take before x, with the
     list's length; the row prefetch loads page_tab 4 B a lane."""
     if page_tab.data_ptr() % 4:
         raise ValueError(f"{op}: the kernel loads page_tab 4 B a lane; it must be "
                          "4 B aligned")
     return (values.data_ptr(), int(values.dtype == torch.bfloat16), residue.data_ptr(),
-            page_tab.data_ptr(), tile_base.data_ptr(), chunk_group.data_ptr(),
-            work.data_ptr(), work.numel())
+            page_tab.data_ptr(), tile_base.data_ptr(), tile_page.data_ptr(),
+            chunk_group.data_ptr(), work.data_ptr(), work.numel())
 
 
 def whell_classic_spmv(values, residue, page_tab, tile_base, chunk_group, x2d,
-                       *, num_groups: int, work=None) -> torch.Tensor:
+                       *, num_groups: int, work=None,
+                       tile_page: torch.Tensor) -> torch.Tensor:
     """Classic WHELL product ``(num_groups*8, 128)`` fp32 in stored rows,
     of fp32 or bf16 values and x2d ``(x_pages, 128)`` fp32.
 
@@ -130,14 +137,15 @@ def whell_classic_spmv(values, residue, page_tab, tile_base, chunk_group, x2d,
     trusted as built by the converter or checked by ``WhellMatrix.check``;
     shapes, dtypes and devices are checked here."""
     _check_args("whell_classic_spmv", values, residue, page_tab, tile_base,
-                chunk_group, x2d, num_groups)
+                chunk_group, x2d, num_groups, tile_page)
     dev = x2d.device
     _check_work("whell_classic_spmv", work, dev)
     if dev.type == "cpu":
         return whell_classic_spmv_plain(values, residue, page_tab, tile_base,
-                                        chunk_group, x2d, num_groups=num_groups)
+                                        chunk_group, x2d, num_groups=num_groups,
+                                        tile_page=tile_page)
     args = _launch_args("whell_classic_spmv", values, residue, page_tab, tile_base,
-                        chunk_group, work)
+                        tile_page, chunk_group, work)
     lib = _LIB.load()
     z = torch.zeros((num_groups * _GROUP_HACKS, 128), dtype=torch.float32, device=dev)
     err = lib.whell_classic_spmv(*args, x2d.data_ptr(), z.data_ptr(),
@@ -150,7 +158,8 @@ def whell_classic_spmv(values, residue, page_tab, tile_base, chunk_group, x2d,
 
 
 def whell_classic_spmm(values, residue, page_tab, tile_base, chunk_group, x3d,
-                       *, num_groups: int, work=None) -> torch.Tensor:
+                       *, num_groups: int, work=None,
+                       tile_page: torch.Tensor) -> torch.Tensor:
     """Fused multi-RHS product ``(n_rhs, num_groups*8, 128)`` fp32 in
     stored rows, of fp32 or bf16 values and x3d ``(n_rhs, x_pages, 128)``
     fp32: each cell is decoded once for every RHS.
@@ -164,17 +173,18 @@ def whell_classic_spmm(values, residue, page_tab, tile_base, chunk_group, x3d,
     the full-layout product, and need no list.  Any other device
     raises."""
     _check_args("whell_classic_spmm", values, residue, page_tab, tile_base,
-                chunk_group, x3d, num_groups)
+                chunk_group, x3d, num_groups, tile_page)
     dev = x3d.device
     _check_work("whell_classic_spmm", work, dev)
     if dev.type == "cpu":
         return whell_classic_spmm_plain(values, residue, page_tab, tile_base,
-                                        chunk_group, x3d, num_groups=num_groups)
+                                        chunk_group, x3d, num_groups=num_groups,
+                                        tile_page=tile_page)
     n_rhs = x3d.shape[0]
     if n_rhs > 65535:
         raise ValueError("whell_classic_spmm: at most 65,535 RHS per launch")
     args = _launch_args("whell_classic_spmm", values, residue, page_tab, tile_base,
-                        chunk_group, work)
+                        tile_page, chunk_group, work)
     lib = _LIB.load()
     rows = num_groups * _GROUP_HACKS * 128
     xi = x3d.reshape(n_rhs, -1).t().contiguous()  # (x_pages*128, n_rhs)
@@ -190,16 +200,18 @@ def whell_classic_spmm(values, residue, page_tab, tile_base, chunk_group, x3d,
 
 
 def whell_classic_spmv_plain(values, residue, page_tab, tile_base, chunk_group,
-                             x2d, *, num_groups: int) -> torch.Tensor:
+                             x2d, *, num_groups: int,
+                             tile_page: torch.Tensor) -> torch.Tensor:
     """The same product in plain PyTorch over the full layout (every cell,
     padding included): :func:`whell_classic_spmm_plain` with one RHS."""
     return whell_classic_spmm_plain(values, residue, page_tab, tile_base,
                                     chunk_group, x2d.unsqueeze(0),
-                                    num_groups=num_groups)[0]
+                                    num_groups=num_groups, tile_page=tile_page)[0]
 
 
 def whell_classic_spmm_plain(values, residue, page_tab, tile_base, chunk_group,
-                             x3d, *, num_groups: int) -> torch.Tensor:
+                             x3d, *, num_groups: int,
+                             tile_page: torch.Tensor) -> torch.Tensor:
     """The multi-RHS product in plain PyTorch, vectorised over the RHS
     axis of ``x3d`` ``(n_rhs, x_pages, 128)``, on the operands' device, in
     fp32: decode once, gather ``(n_rhs, S, 128)``, sum each tile's 8 slots
@@ -211,7 +223,8 @@ def whell_classic_spmm_plain(values, residue, page_tab, tile_base, chunk_group,
     d = torch.gather(page_tab.long(), 1, res)  # page delta by residue
     meta = tile_base.long()
     tile = torch.arange(T * 8, device=dev) // 8
-    col = ((meta & 0xFFFF)[tile, None] + d) * 128 + res
+    col = (tile_page.long()[tile, None]
+           + d) * 128 + res
     prod = values.float() * x3d.reshape(n_rhs, -1)[:, col]
     hack = (chunk_group.long()[torch.arange(T, device=dev) // CHUNK_TILES]
             * _GROUP_HACKS + (meta >> 16))

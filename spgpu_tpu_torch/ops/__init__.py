@@ -130,20 +130,21 @@ def whell_spmv(a, x: torch.Tensor, alpha=1.0, beta=0.0, y=None) -> torch.Tensor:
             a.values, a.residue, a.page_tab, a.run_hi, a.run_lo, a.tile_base,
             a.chunk_group, a.group_bases, _prep_x(x, a.n_cols, a.x_pages),
             chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-            window_pages=a.window_pages, num_groups=a.num_groups)
+            window_pages=a.window_pages, num_groups=a.num_groups,
+            tile_page=a.tile_page)
         return _epilogue(z.view(-1)[: a.n_rows], alpha, beta, y)
     if not a.packed:
         z = _classic.whell_classic_spmv(
             a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
             _prep_x(x, a.n_cols, a.x_pages), num_groups=a.num_groups,
-            work=a.work_list)
+            work=a.work_list, tile_page=a.tile_page)
         return _epilogue(_classic_rows(a, z.view(-1)), alpha, beta, y)
     z = whell_packed_spmv(
         a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
         a.group_bases, a.seg_lo, a.seg_hi, _prep_x(x, a.n_cols, a.x_pages),
         chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
         window_pages=a.window_pages, unit_segments=a.unit_segments,
-        hack_units=a.hack_units)
+        hack_units=a.hack_units, tile_page=a.tile_page)
     return _epilogue(z.view(-1)[: a.n_rows], alpha, beta, y)
 
 
@@ -173,7 +174,7 @@ def whdia_spmv(a: WhdiaMatrix, x: torch.Tensor, alpha=1.0, beta=0.0,
         a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group,
         x.contiguous(), chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
         num_groups=a.num_groups, hack_slot_ptr=a.hack_slot_ptr,
-        hack_slots=a.hack_slots)
+        hack_slots=a.hack_slots, tile_page=a.tile_page)
     return _epilogue(z[: a.n_rows], alpha, beta, y)
 
 
@@ -215,7 +216,7 @@ def whell_spmm(a, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
         zs = _classic.whell_classic_spmm(
             a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
             _prep_x(x, a.n_cols, a.x_pages, stack=True), num_groups=a.num_groups,
-            work=a.work_list)
+            work=a.work_list, tile_page=a.tile_page)
         return _epilogue(_classic_rows(a, zs.flatten(1)), alpha, beta, y)
     zs = whell_packed_spmm(
         a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
@@ -223,7 +224,7 @@ def whell_spmm(a, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
         _prep_x(x, a.n_cols, a.x_pages, stack=True),
         chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
         window_pages=a.window_pages, unit_segments=a.unit_segments,
-        hack_units=a.hack_units)
+        hack_units=a.hack_units, tile_page=a.tile_page)
     return _epilogue(zs.flatten(1)[:, : a.n_rows], alpha, beta, y)
 
 
@@ -270,7 +271,8 @@ def whdia_spmm(a: WhdiaMatrix, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
             a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group,
             x.contiguous(), chunk_tiles=a.chunk_tiles,
             group_hacks=a.group_hacks, num_groups=a.num_groups,
-            hack_slot_ptr=a.hack_slot_ptr, hack_slots=a.hack_slots)[:, : a.n_rows]
+            hack_slot_ptr=a.hack_slot_ptr, hack_slots=a.hack_slots,
+            tile_page=a.tile_page)[:, : a.n_rows]
     else:
         zs = torch.stack([whdia_spmv(a, x[r]) for r in range(x.shape[0])])
     return _epilogue(zs, alpha, beta, y)

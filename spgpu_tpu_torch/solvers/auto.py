@@ -8,8 +8,14 @@ WHELL iterates in lane space (``b`` is embedded, ``x`` extracted); SDIA,
 WHDIA and the per-cell-routing layout (``fmt="pcell"``, float32 only)
 iterate in the original numbering.  The TPU budget switches
 (row blocks past the VMEM x budget, the SDIA→WHDIA VMEM fallback) are
-left out: the port builds one layout at any size.  Formats the port does
-not have yet raise ``NotImplementedError`` instead of re-routing.
+left out: the port builds one layout at any size.  ``fmt="blocks"``,
+which the JAX route sends to its row-blocked packed layout
+(``BlockedPackedWhell`` and ``blocks_cg``, TPU budget machinery that is
+not ported), runs the one-layout packed-WHELL route on a real system (a
+stated deviation: the same system, one layout) and raises on a complex
+one, which the JAX route sends to the classic ``hell`` route.  Formats
+the port does not have yet raise ``NotImplementedError`` instead of
+re-routing.
 
 Every route iterates through :mod:`spgpu_tpu_torch.solvers.cg`: on a CUDA
 device as replays of a CUDA graph of masked CG or BiCGSTAB steps (the
@@ -57,7 +63,6 @@ __all__ = ["solve"]
 _NOT_PORTED = {
     "hybrid": "item 11 (hybrid_spmv)",
     "hell": "item 11 (classic formats)",
-    "blocks": "item 8 (large systems on one layout)",
 }
 
 
@@ -68,8 +73,11 @@ def solve(coo: CooMatrix, b, *, device, symmetric: bool = True,
 
     ``symmetric=True`` runs CG (SPD systems, or Hermitian positive-definite
     ones with complex values), else BiCGSTAB.  ``fmt`` overrides the
-    automatic choice: "whell", "sdia", "whdia" or "pcell" (float32 only:
-    a float64 or complex system raises ``NotImplementedError``).  Values are float32,
+    automatic choice: "whell", "sdia", "whdia", "pcell" (float32 only:
+    a float64 or complex system raises ``NotImplementedError``) or
+    "blocks" (real systems only: the packed-WHELL route on one layout,
+    where the JAX package builds row blocks; a complex system raises
+    ``NotImplementedError``).  Values are float32,
     float64, complex64 or complex128, and the layout, the kernels, the
     work vectors, ``x0`` and the Jacobi preconditioner (``jacobi=True``)
     take the values' type: a float64 system iterates in float64
@@ -94,6 +102,12 @@ def solve(coo: CooMatrix, b, *, device, symmetric: bool = True,
         # WHDIA, as in the JAX complex route
         fmt = {"dia": "sdia", "ell": "whell",
                **({"hybrid": "whdia"} if work.is_complex else {})}.get(fmt, fmt)
+    if fmt == "blocks":
+        if work.is_complex:
+            raise NotImplementedError(
+                "fmt='blocks' on a complex system: the JAX solve() runs it "
+                "on the classic hell route, ROADMAP module item 11")
+        fmt = "whell"  # one packed layout holds what JAX cuts into row blocks
     if fmt in _NOT_PORTED:
         raise NotImplementedError(
             f"format {fmt!r} is not ported yet: ROADMAP module {_NOT_PORTED[fmt]}")

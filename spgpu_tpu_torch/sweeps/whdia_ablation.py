@@ -100,7 +100,7 @@ def run(device="cuda", *, size: int = None, matrix: str = "banded11",
                          .astype(np.float32)).to(dev)
     args = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group)
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-                  num_groups=a.num_groups)
+                  num_groups=a.num_groups, tile_page=a.tile_page)
     lists = dict(hack_slot_ptr=a.hack_slot_ptr, hack_slots=a.hack_slots)
     rows_of = _tile_rows if family == "tile" else _hack_rows
     rows, launches, err_prod, more = rows_of(coo, a, args, static, lists, x, dev)

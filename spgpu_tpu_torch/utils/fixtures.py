@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from spgpu_tpu_torch.core import unique_sorted
 from spgpu_tpu_torch.formats.coo import CooMatrix
 
 __all__ = [
@@ -84,7 +85,7 @@ def random_irregular(
     rows = np.repeat(np.arange(n_rows, dtype=np.int64), lens)
     cols = rng.integers(0, n_cols, size=rows.size, dtype=np.int64)
     key = rows * n_cols + cols
-    uniq = np.unique(key)  # drops duplicate coordinates
+    uniq = unique_sorted(key)  # drops duplicate coordinates
     rows, cols = uniq // n_cols, uniq % n_cols
     vals = rng.standard_normal(rows.size)
     if np.issubdtype(np.dtype(dtype), np.complexfloating):
@@ -119,7 +120,7 @@ def random_fem_like(
     is_far = rng.random(m) < far_frac
     cols = np.where(is_far, far, np.clip(local, 0, n - 1))
     key = rows * n + cols
-    uniq = np.unique(key)
+    uniq = unique_sorted(key)
     rows, cols = uniq // n, uniq % n
     vals = rng.standard_normal(rows.size)
     return CooMatrix(rows, cols, vals.astype(dtype), n, n)

@@ -120,7 +120,7 @@ def _whdia_args(ta, x):
     return ((ta.values, ta.slot_r0, ta.tile_r0, ta.tile_base, ta.chunk_group,
              torch.from_numpy(x)),
             dict(chunk_tiles=ta.chunk_tiles, group_hacks=ta.group_hacks,
-                 num_groups=ta.num_groups))
+                 num_groups=ta.num_groups, tile_page=ta.tile_page))
 
 
 @pytest.fixture(scope="module", params=sorted(F64_CASES))
@@ -147,7 +147,7 @@ def _f64_args(ta, xl):
              ta.group_bases, ta.seg_lo, ta.seg_hi, x2),
             dict(chunk_tiles=ta.chunk_tiles, group_hacks=ta.group_hacks,
                  window_pages=ta.window_pages, unit_segments=ta.unit_segments,
-                 hack_units=ta.hack_units))
+                 hack_units=ta.hack_units, tile_page=ta.tile_page))
 
 
 # --------------------------------------------------------------------------

@@ -361,7 +361,8 @@ def test_classic_spmm_rejects_bad_operands():
     with pytest.raises(ValueError, match="sentinel"):
         kc.whell_classic_spmv(a.values, a.residue, a.page_tab, a.tile_base,
                               torch.cat([a.chunk_group, torch.tensor([-1], dtype=torch.int32)]),
-                              torch.zeros((a.x_pages, 128)), num_groups=a.num_groups)
+                              torch.zeros((a.x_pages, 128)), num_groups=a.num_groups,
+                              tile_page=a.tile_page)
 
 
 def test_classic_wrappers_need_the_work_list_on_cuda_only():
@@ -378,9 +379,11 @@ def test_classic_wrappers_need_the_work_list_on_cuda_only():
         kc._check_work(op, None, torch.device("cpu"))
         with pytest.raises(ValueError, match="bad work"):
             kc._check_work(op, a.work_list.int(), torch.device("cpu"))
-    plain = kc.whell_classic_spmm_plain(*layout, x3, num_groups=a.num_groups)
+    plain = kc.whell_classic_spmm_plain(*layout, x3, num_groups=a.num_groups,
+                                        tile_page=a.tile_page)
     for work in (None, a.work_list):
-        z = kc.whell_classic_spmm(*layout, x3, num_groups=a.num_groups, work=work)
+        z = kc.whell_classic_spmm(*layout, x3, num_groups=a.num_groups, work=work,
+                                  tile_page=a.tile_page)
         torch.testing.assert_close(z, plain, rtol=0, atol=0)
 
 
@@ -475,60 +478,61 @@ def test_classic_check_rejects_broken_layouts():
 
 
 # --------------------------------------------------------------------------
-# fault F1: every packed field is bounded
+# fault F1: every packed field is bounded; since the full-width tile_page
+# word carries the page or group, the bound is its 31 bits
 
 
 def test_f1_aligned_packed_raises_past_the_page_field(monkeypatch):
-    coo = CASES["laplace_wide"](tfix)  # 6,000 rows: 48 aligned x pages
-    monkeypatch.setattr(tconv, "_MAX_ALIGNED_X_PAGES", 32)
-    with pytest.raises(ValueError, match="16-bit"):
+    coo = CASES["laplace_wide"](tfix)  # 6,000 rows: 64 aligned x pages
+    monkeypatch.setattr(tconv, "_MAX_TILE_PAGE", 48)
+    with pytest.raises(ValueError, match="31-bit"):
         coo_to_whell(coo, device="cpu", scattered=False)
-    with pytest.raises(ValueError, match="16-bit"):  # the JAX float64 geometry
+    with pytest.raises(ValueError, match="31-bit"):  # the JAX float64 geometry
         coo_to_whell(coo, device="cpu", dtype="float64", scattered=False)
-    coo_to_whell(coo, device="cpu")  # scattered windows: no page field
+    coo_to_whell(coo, device="cpu")  # scattered windows: 47 layout groups
     coo_to_whell(coo, device="cpu", dtype="float64")  # scattered by default too
 
 
 def test_f1_scattered_packed_raises_past_the_group_field(monkeypatch):
     coo = CASES["fem"](tfix)
     n_groups = coo_to_whell(coo, device="cpu").group_bases.numel() // 4
-    monkeypatch.setattr(tconv, "_MAX_LAYOUT_GROUPS", n_groups - 1)
-    with pytest.raises(ValueError, match="20-bit"):
+    monkeypatch.setattr(tconv, "_MAX_TILE_PAGE", n_groups - 1)
+    with pytest.raises(ValueError, match="31-bit"):
         coo_to_whell(coo, device="cpu")
-    monkeypatch.setattr(tconv, "_MAX_LAYOUT_GROUPS", n_groups)
+    monkeypatch.setattr(tconv, "_MAX_TILE_PAGE", n_groups)
     coo_to_whell(coo, device="cpu")
 
 
 def test_f1_classic_raises_past_the_page_field(monkeypatch):
     coo = CASES["rect"](tfix)  # 1,200 columns: 16 x pages
-    monkeypatch.setattr(tconv, "_MAX_ALIGNED_X_PAGES", 8)
-    with pytest.raises(ValueError, match="16-bit"):
+    monkeypatch.setattr(tconv, "_MAX_TILE_PAGE", 8)
+    with pytest.raises(ValueError, match="31-bit"):
         coo_to_whell(coo, device="cpu", packed=False)
 
 
 def test_f1_check_rejects_a_hand_wrapped_layout(monkeypatch):
     """A bridged or hand-built layout cannot wrap either: ``check()``
-    rejects an aligned layout past the page field (packed or classic) and
-    a scattered one past the group field."""
+    rejects an aligned layout past the page word (packed or classic) and
+    a scattered one past the group word."""
     coo = CASES["laplace_wide"](tfix)
     aligned = coo_to_whell(coo, device="cpu", scattered=False)
     classic = coo_to_whell(coo, device="cpu", packed=False)
     scattered = coo_to_whell(coo, device="cpu")
     for a in (aligned, classic, scattered):
         a.check()
-    monkeypatch.setattr(twhell, "MAX_ALIGNED_X_PAGES",
+    monkeypatch.setattr(twhell, "MAX_TILE_PAGE",
                         min(aligned.x_pages, classic.x_pages) - 1)
     for a in (aligned, classic):
-        with pytest.raises(ValueError, match="16-bit base field"):
+        with pytest.raises(ValueError, match="31-bit base page"):
             a.check()
     scattered.check()
-    monkeypatch.setattr(twhell, "MAX_LAYOUT_GROUPS",
+    monkeypatch.setattr(twhell, "MAX_TILE_PAGE",
                         scattered.group_bases.numel() // 4 - 1)
-    with pytest.raises(ValueError, match="20-bit group field"):
+    with pytest.raises(ValueError, match="31-bit group"):
         scattered.check()
     # through the bridge too
     ja = j_coo_to_whell(CASES["laplace_wide"](jfix), packed=True, scattered=False)
-    with pytest.raises(ValueError, match="16-bit base field"):
+    with pytest.raises(ValueError, match="31-bit base page"):
         bridge(ja)
 
 
@@ -590,11 +594,12 @@ def test_classic_work_list_drop_unlisted_is_bit_identical(fixture, kw):
     a = coo_to_whell(coo, device="cpu", packed=False, **kw)
     x2 = tops._prep_x(torch.from_numpy(_x(coo.n_cols, 4)), a.n_cols, a.x_pages)
     args = (a.residue, a.page_tab, a.tile_base, a.chunk_group, x2)
-    full = kc.whell_classic_spmv_plain(a.values, *args, num_groups=a.num_groups)
+    full = kc.whell_classic_spmv_plain(a.values, *args, num_groups=a.num_groups,
+                                       tile_page=a.tile_page)
     kept = torch.where(_listed_cells(a), a.values, torch.zeros((), dtype=a.values.dtype))
     assert int((kept != 0).sum()) == int((a.values != 0).sum())
-    assert torch.equal(kc.whell_classic_spmv_plain(kept, *args, num_groups=a.num_groups),
-                       full)
+    assert torch.equal(kc.whell_classic_spmv_plain(kept, *args, num_groups=a.num_groups,
+                                                   tile_page=a.tile_page), full)
 
 
 @pytest.mark.parametrize("how", ["update_values", "bridge", "to"])

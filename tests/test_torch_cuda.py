@@ -55,8 +55,14 @@ that only zero-valued cells read (a deviation from the JAX kernel, which
 gives NaN there).  #17 runs one warp per tile
 and 4 tiles per block: it is checked on a tile count that is not a
 multiple of 4.
+
+Large systems on one layout: #1 and #4 (aligned packed), #15 (classic),
+#3 and #6 (WHDIA) on a 9,000,000-row tridiagonal, past the 65,536 x pages
+of ``tile_base``'s 16-bit page field, against their plain versions and
+the golden at the tolerances above (the page read from ``tile_page``).
 """
 
+import functools
 import importlib
 
 import numpy as np
@@ -134,7 +140,7 @@ def _plain(a, xl, per_hack=True):
         a.group_bases, a.seg_lo, a.seg_hi, ops._prep_x(xl, a.n_cols, a.x_pages),
         chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
         window_pages=a.window_pages, unit_segments=a.unit_segments,
-        hack_units=units).reshape(-1)[: a.n_rows]
+        hack_units=units, tile_page=a.tile_page).reshape(-1)[: a.n_rows]
 
 
 @pytest.mark.cuda
@@ -210,12 +216,13 @@ def test_whdia_kernel_matches_plain_and_golden(name, cuda_device):
     zp = kd.whdia_spmv_plain(
         a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group, xt,
         chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-        num_groups=a.num_groups)[: a.n_rows]
+        num_groups=a.num_groups, tile_page=a.tile_page)[: a.n_rows]
     atol = 1e-5 * max(float(zp.abs().max()), 1.0)
     torch.testing.assert_close(z, zp, rtol=1e-5, atol=atol)
     zl = kd.whdia_spmm_listed_plain(
         a.values, a.slot_r0, a.tile_r0, a.tile_base, a.hack_slot_ptr, a.hack_slots,
-        xt[None], group_hacks=a.group_hacks, num_groups=a.num_groups)[0, : a.n_rows]
+        xt[None], group_hacks=a.group_hacks, num_groups=a.num_groups,
+        tile_page=a.tile_page)[0, : a.n_rows]
     torch.testing.assert_close(z, zl, rtol=1e-5, atol=atol)
     g = _golden(coo, x)
     np.testing.assert_allclose(z.double().cpu().numpy(), g, rtol=2e-5,
@@ -355,7 +362,7 @@ def test_f64_whdia_kernel_matches_plain_and_golden(name, cuda_device):
     zp = kd.whdia_spmv_plain(
         a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group, xt,
         chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-        num_groups=a.num_groups)[: a.n_rows]
+        num_groups=a.num_groups, tile_page=a.tile_page)[: a.n_rows]
     _near(z, zp, 1e-12)
     _near(z, torch.from_numpy(_golden(coo, xt.cpu().numpy())), 1e-12)
 
@@ -474,7 +481,7 @@ def test_complex_whdia_kernel_matches_plain_and_golden(name, dtype, cuda_device)
     zp = kd.whdia_spmv_plain(
         a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group, xt,
         chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-        num_groups=a.num_groups)[: a.n_rows]
+        num_groups=a.num_groups, tile_page=a.tile_page)[: a.n_rows]
     _near(z, zp, tol, rtol=tol)
     golden = coo.spmv(xt.cpu().numpy().astype(np.complex128))
     _near(z, torch.from_numpy(golden), gtol, rtol=gtol)
@@ -494,7 +501,7 @@ def test_complex_whdia_both_r0_modes(dtype, cuda_device):
         zp = kd.whdia_spmv_plain(
             a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group, xt,
             chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-            num_groups=a.num_groups)[: a.n_rows]
+            num_groups=a.num_groups, tile_page=a.tile_page)[: a.n_rows]
         _near(ops.whdia_spmv(a, xt), zp, tol, rtol=tol)
 
 
@@ -575,14 +582,15 @@ def _whell_spmm_plain(a, xs, per_hack=True):
         ops._prep_x(xs, a.n_cols, a.x_pages, stack=True),
         chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
         window_pages=a.window_pages, unit_segments=a.unit_segments,
-        hack_units=a.hack_units if per_hack else None).flatten(1)[:, : a.n_rows]
+        hack_units=a.hack_units if per_hack else None,
+        tile_page=a.tile_page).flatten(1)[:, : a.n_rows]
 
 
 def _whdia_spmm_plain(a, xs):
     return kd.whdia_spmm_plain(
         a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group, xs,
         chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-        num_groups=a.num_groups)[:, : a.n_rows]
+        num_groups=a.num_groups, tile_page=a.tile_page)[:, : a.n_rows]
 
 
 def _fused_spmm(fmt, a, xs):
@@ -1030,7 +1038,7 @@ def test_pcell_kernel_refuses_a_misaligned_slab(cuda_device):
         kp.pcell_spmv(off, a.residue, a.page_tab, a.run_hi, a.run_lo, a.tile_base,
                       a.chunk_group, a.group_bases,
                       ops._prep_x(torch.zeros(a.n_cols, device=cuda_device), a.n_cols,
-                                  a.x_pages),
+                                  a.x_pages), tile_page=a.tile_page,
                       chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
                       window_pages=a.window_pages, num_groups=a.num_groups)
     assert kp.LAUNCHES == before
@@ -1244,7 +1252,7 @@ def test_whell_spmm_is_one_launch_and_reproducible(name, scattered, dtype,
         a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group, a.group_bases,
         a.seg_lo, a.seg_hi, x3, chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
         window_pages=a.window_pages, unit_segments=a.unit_segments,
-        hack_units=a.hack_units)
+        hack_units=a.hack_units, tile_page=a.tile_page)
     names = sorted(device_ms_by_kernel(call))
     for _ in range(5):  # sessions that lost events: short ones, names only
         names = names or sorted(_session(call, 3)[0])
@@ -1310,7 +1318,8 @@ def test_whell_spmm_keeps_the_rhs_guard(cuda_device):
                              a.chunk_group, a.group_bases, a.seg_lo, a.seg_hi, x3,
                              chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
                              window_pages=a.window_pages,
-                             unit_segments=a.unit_segments, hack_units=a.hack_units)
+                             unit_segments=a.unit_segments, hack_units=a.hack_units,
+                             tile_page=a.tile_page)
 
 
 # --------------------------------------------------------------------------
@@ -1352,7 +1361,7 @@ def test_whdia_ablation_matches_plain(name, level, cuda_device):
                          .astype(np.float32)).to(cuda_device)
     args = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group, x)
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-                  num_groups=a.num_groups)
+                  num_groups=a.num_groups, tile_page=a.tile_page)
     before = (ab.LAUNCHES_WHDIA_ABLATION, kd.LAUNCHES)
     got = ab.whdia_ablation(level, *args, **static)
     torch.cuda.synchronize()
@@ -1385,7 +1394,7 @@ def test_f64_ablation_matches_plain(name, scattered, level, cuda_device):
             a.group_bases, a.seg_lo, a.seg_hi, ops._prep_x(x, a.n_cols, a.x_pages))
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
                   window_pages=a.window_pages, unit_segments=a.unit_segments,
-                  hack_units=a.hack_units)
+                  hack_units=a.hack_units, tile_page=a.tile_page)
     before = (ab.LAUNCHES_F64_ABLATION, kw.LAUNCHES_F64)
     got = ab.whell_f64_ablation(level, *args, **static)
     torch.cuda.synchronize()
@@ -1494,7 +1503,7 @@ def _hack_call(kernel, a, x):
     args = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group)
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
                   num_groups=a.num_groups, hack_slot_ptr=a.hack_slot_ptr,
-                  hack_slots=a.hack_slots)
+                  hack_slots=a.hack_slots, tile_page=a.tile_page)
     if kernel in ("c64", "f32"):
         return kd.whdia_spmv(*args, x[0], **static)[None]
     return kd.whdia_spmm(*args, x, **static)
@@ -1503,7 +1512,8 @@ def _hack_call(kernel, a, x):
 def _hack_listed(a, x):
     return kd.whdia_spmm_listed_plain(
         a.values, a.slot_r0, a.tile_r0, a.tile_base, a.hack_slot_ptr,
-        a.hack_slots, x, group_hacks=a.group_hacks, num_groups=a.num_groups)
+        a.hack_slots, x, group_hacks=a.group_hacks, num_groups=a.num_groups,
+        tile_page=a.tile_page)
 
 
 @pytest.mark.cuda
@@ -1525,7 +1535,8 @@ def test_hack_pass_matches_plain_and_golden(kernel, mode, cuda_device):
     n = coo.n_rows
     zp = kd.whdia_spmm_plain(a.values, a.slot_r0, a.tile_r0, a.tile_base,
                              a.chunk_group, x, chunk_tiles=a.chunk_tiles,
-                             group_hacks=a.group_hacks, num_groups=a.num_groups)
+                             group_hacks=a.group_hacks, num_groups=a.num_groups,
+                             tile_page=a.tile_page)
     _near(z, zp[:, :n], 1e-5, rtol=1e-5)
     _near(z, _hack_listed(a, x)[:, :n], 1e-5, rtol=1e-5)
     wide = np.complex128 if kernel == "c64" else np.float64
@@ -1597,7 +1608,8 @@ def test_hack_pass_skips_dead_slot_inf(kernel, cuda_device):
     assert bool(torch.isfinite(golden).all())
     full = kd.whdia_spmm_plain(a.values, a.slot_r0, a.tile_r0, a.tile_base,
                                a.chunk_group, x, chunk_tiles=a.chunk_tiles,
-                               group_hacks=a.group_hacks, num_groups=a.num_groups)
+                               group_hacks=a.group_hacks, num_groups=a.num_groups,
+                               tile_page=a.tile_page)
     assert bool(torch.isnan(full[:, : coo.n_rows]).any())
     z = _hack_call(kernel, a, x)[:, : coo.n_rows]
     assert bool(torch.isfinite(z).all())
@@ -1611,7 +1623,7 @@ def test_hack_pass_needs_the_lists(cuda_device):
     coo, a = _hack_layout("slab", "spmm", cuda_device)
     args = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group)
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-                  num_groups=a.num_groups)
+                  num_groups=a.num_groups, tile_page=a.tile_page)
     x = _xs(2, coo.n_cols).to(cuda_device)
     with pytest.raises(ValueError, match="hack_slot_ptr"):
         kd.whdia_spmm(*args, x, **static)
@@ -1621,13 +1633,13 @@ def test_hack_pass_needs_the_lists(cuda_device):
     x64 = x[0].double()
     _near(kd.whdia_spmv(a64.values, a64.slot_r0, a64.tile_r0, a64.tile_base,
                        a64.chunk_group, x64, chunk_tiles=a64.chunk_tiles,
-                       group_hacks=a64.group_hacks,
-                       num_groups=a64.num_groups)[: coo.n_rows],
+                       group_hacks=a64.group_hacks, num_groups=a64.num_groups,
+                       tile_page=a64.tile_page)[: coo.n_rows],
           torch.from_numpy(coo.spmv(x64.cpu().numpy())), 1e-12)
     _, ac = _hack_layout("slab", "c64", cuda_device)
     argc = (ac.values, ac.slot_r0, ac.tile_r0, ac.tile_base, ac.chunk_group)
     static = dict(chunk_tiles=ac.chunk_tiles, group_hacks=ac.group_hacks,
-                  num_groups=ac.num_groups)
+                  num_groups=ac.num_groups, tile_page=ac.tile_page)
     xc = _hack_x("c64", ac.n_cols).to(cuda_device)[0]
     with pytest.raises(ValueError, match="hack_slot_ptr"):
         kd.whdia_spmv(*argc, xc, **static)
@@ -1648,7 +1660,7 @@ def test_warp_pass_needs_aligned_values(cuda_device):
     shifted.copy_(a.values)
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
                   num_groups=a.num_groups, hack_slot_ptr=a.hack_slot_ptr,
-                  hack_slots=a.hack_slots)
+                  hack_slots=a.hack_slots, tile_page=a.tile_page)
     x = _xs(1, coo.n_cols).to(cuda_device)[0]
     rest = (a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group, x)
     with pytest.raises(ValueError, match="16 B aligned"):
@@ -1676,7 +1688,7 @@ def test_whdia_hack_ablation_matches_plain(name, level, n_rhs, cuda_device):
     args = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group, x)
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
                   num_groups=a.num_groups, hack_slot_ptr=a.hack_slot_ptr,
-                  hack_slots=a.hack_slots)
+                  hack_slots=a.hack_slots, tile_page=a.tile_page)
     rows = a.num_groups * a.group_hacks * 128
     torch.cuda.synchronize()
     torch.full((n_rhs * rows,), float("nan"), device=cuda_device)
@@ -1907,3 +1919,117 @@ def test_graphed_solves_on_two_streams_at_once(cuda_device):
             for got, want in zip(both, alone):
                 assert got.iterations == want.iterations
                 assert torch.equal(got.x, want.x)
+
+
+# --------------------------------------------------------------------------
+# large systems on one layout: each widened kernel family on a layout past
+# the old 16-bit page field of tile_base (65,536 x pages), the page read
+# from the full-width tile_page word
+
+
+@functools.lru_cache(maxsize=1)
+def _tridiagonal_9m():
+    """F1's case: a 9,000,000-row tridiagonal (float64 host COO, rows in
+    order), diagonally dominant: 70,313 column pages."""
+    n = 9_000_000
+    i = np.arange(n, dtype=np.int64)
+    rng = np.random.default_rng(3)
+    rows = np.concatenate([i[1:], i, i[:-1]])
+    cols = np.concatenate([i[:-1], i, i[1:]])
+    vals = np.concatenate([rng.uniform(-1, 0, n - 1), np.full(n, 4.0),
+                           rng.uniform(-1, 0, n - 1)])
+    o = np.lexsort((cols, rows))
+    return CooMatrix(rows[o], cols[o], vals[o], n, n)
+
+
+def _typed(coo, dtype):
+    return CooMatrix(coo.rows, coo.cols, coo.values.astype(dtype), coo.n_rows,
+                     coo.n_cols)
+
+
+def _past_the_field(a):
+    assert a.x_pages > 1 << 16 and int(a.tile_page.max()) > 0xFFFF
+    assert torch.equal(a.tile_base & 0xFFFF, a.tile_page & 0xFFFF)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_aligned_packed_past_the_page_field(dtype, cuda_device):
+    """#1 (fp32) and #4 (float64) on aligned windows past 65,536 x pages:
+    every row against the plain version and the golden (1e-12·max|z| in
+    float64: before F1's guard 611,393 of these rows were wrong)."""
+    coo = _typed(_tridiagonal_9m(), dtype)
+    a = coo_to_whell(coo, device=cuda_device, scattered=False)
+    _past_the_field(a)
+    x = np.random.default_rng(0).standard_normal(coo.n_cols).astype(dtype)
+    xl = a.embed(torch.from_numpy(x), dtype=getattr(torch, dtype))
+    counter = "LAUNCHES_F64" if dtype == "float64" else "LAUNCHES"
+    before = getattr(kw, counter)
+    z = ops.whell_spmv(a, xl)
+    torch.cuda.synchronize()
+    assert getattr(kw, counter) == before + 1
+    units = a.hack_units if dtype == "float64" else None
+    zp = kw.whell_packed_spmv_plain(
+        a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
+        a.group_bases, a.seg_lo, a.seg_hi, ops._prep_x(xl, a.n_cols, a.x_pages),
+        chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+        window_pages=a.window_pages, unit_segments=a.unit_segments,
+        hack_units=units, tile_page=a.tile_page).reshape(-1)[: a.n_rows]
+    tol = 1e-12 if dtype == "float64" else 1e-5
+    scale = float(zp.abs().max())
+    torch.testing.assert_close(z, zp, rtol=0 if units is not None else tol,
+                               atol=tol * scale)
+    golden = coo.spmv(x.astype(np.float64))
+    got = a.extract(z, dtype=torch.float64).cpu().numpy()
+    np.testing.assert_allclose(got, golden, rtol=0,
+                               atol=(1e-12 if dtype == "float64" else 2e-5)
+                               * np.abs(golden).max())
+
+
+@pytest.mark.cuda
+def test_classic_past_the_page_field(cuda_device):
+    """#15 on the fp32 classic layout past 65,536 x pages."""
+    coo = _typed(_tridiagonal_9m(), np.float32)
+    a = coo_to_whell(coo, device=cuda_device, packed=False)
+    _past_the_field(a)
+    x = np.random.default_rng(1).standard_normal(coo.n_cols).astype(np.float32)
+    xt = torch.from_numpy(x).to(cuda_device)
+    before = kc.LAUNCHES
+    z = ops.whell_spmv(a, xt)
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES == before + 1
+    zp = ops._classic_rows(a, kc.whell_classic_spmv_plain(
+        a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
+        ops._prep_x(xt, a.n_cols, a.x_pages), num_groups=a.num_groups,
+        tile_page=a.tile_page).view(-1))
+    torch.testing.assert_close(z, zp, rtol=1e-5, atol=1e-5 * float(zp.abs().max()))
+    golden = coo.spmv(x.astype(np.float64))
+    np.testing.assert_allclose(z.double().cpu().numpy(), golden, rtol=2e-5,
+                               atol=2e-5 * np.abs(golden).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_whdia_past_the_page_field(dtype, cuda_device):
+    """#3 (fp32, the warp pass over the live slots) and #6 (float64, the
+    tile pass) on a 9M-column WHDIA layout."""
+    coo = _typed(_tridiagonal_9m(), dtype)
+    a = coo_to_whdia(coo, device=cuda_device)
+    _past_the_field(a)
+    x = np.random.default_rng(2).standard_normal(coo.n_cols).astype(dtype)
+    xt = torch.from_numpy(x).to(cuda_device)
+    counter = "LAUNCHES_F64" if dtype == "float64" else "LAUNCHES"
+    before = getattr(kd, counter)
+    z = ops.whdia_spmv(a, xt)
+    torch.cuda.synchronize()
+    assert getattr(kd, counter) == before + 1
+    zp = kd.whdia_spmv_plain(a.values, a.slot_r0, a.tile_r0, a.tile_base,
+                             a.chunk_group, xt, chunk_tiles=a.chunk_tiles,
+                             group_hacks=a.group_hacks, num_groups=a.num_groups,
+                             tile_page=a.tile_page)[: a.n_rows]
+    tol = 1e-12 if dtype == "float64" else 1e-5
+    torch.testing.assert_close(z, zp, rtol=tol, atol=tol * float(zp.abs().max()))
+    golden = coo.spmv(x.astype(np.float64))
+    np.testing.assert_allclose(z.double().cpu().numpy(), golden, rtol=0,
+                               atol=(1e-12 if dtype == "float64" else 2e-5)
+                               * np.abs(golden).max())

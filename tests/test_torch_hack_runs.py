@@ -170,7 +170,8 @@ def test_check_rejects_a_run_moved_out_of_place():
     perm[t0], perm[t1] = t1, t0
     cells = lambda v: v.view(a.num_tiles, 8, -1)[perm].reshape(v.shape)  # noqa: E731
     b = dataclasses.replace(a, values=cells(a.values), residue=cells(a.residue),
-                            page_tab=cells(a.page_tab), tile_base=a.tile_base[perm])
+                            page_tab=cells(a.page_tab), tile_base=a.tile_base[perm],
+                            tile_page=a.tile_page[perm])
     with pytest.raises(ValueError, match="run"):
         b.check()
 
@@ -190,7 +191,8 @@ def _products(a, x):
     args = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
             a.group_bases, a.seg_lo, a.seg_hi, tops._prep_x(x, a.n_cols, a.x_pages))
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-                  window_pages=a.window_pages, unit_segments=a.unit_segments)
+                  window_pages=a.window_pages, unit_segments=a.unit_segments,
+                  tile_page=a.tile_page)
     return (kw.whell_packed_spmv_plain(*args, **static, hack_units=a.hack_units),
             kw.whell_packed_spmv_plain(*args, **static))
 
@@ -347,7 +349,8 @@ def test_wrapper_takes_hack_units_for_float64_and_complex128(dtype):
             tops._prep_x(a.embed(np.ones(c.n_cols), getattr(torch, dtype)),
                          a.n_cols, a.x_pages))
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-                  window_pages=a.window_pages, unit_segments=a.unit_segments)
+                  window_pages=a.window_pages, unit_segments=a.unit_segments,
+                  tile_page=a.tile_page)
     with pytest.raises(ValueError, match="hack_units"):
         kw.whell_packed_spmv(*args, **static)
     with pytest.raises(ValueError, match="hack_units"):

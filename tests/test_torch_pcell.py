@@ -165,7 +165,8 @@ def test_pcell_plain_is_scan_then_difference():
     z = kp.pcell_spmv_plain(a.values, a.residue, a.page_tab, a.run_hi, a.run_lo,
                             a.tile_base, a.chunk_group, a.group_bases, x,
                             chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-                            window_pages=a.window_pages, num_groups=a.num_groups)
+                            window_pages=a.window_pages, num_groups=a.num_groups,
+                            tile_page=a.tile_page)
     want = a.to_dense() @ x.reshape(-1)[: a.n_cols].double().numpy()
     _near(z.reshape(-1)[: a.n_rows].numpy(), want, 1e-6)
 
@@ -209,11 +210,11 @@ def test_f1_pcell_raises_past_the_group_field(monkeypatch):
     coo = CASES["fem2000"](tfix)
     a = coo_to_whell_percell(coo, device="cpu", **SMALL)
     n_groups = a.group_bases.numel() // 4
-    monkeypatch.setattr(tconv, "_MAX_LAYOUT_GROUPS", n_groups - 1)
-    with pytest.raises(ValueError, match="20-bit"):
+    monkeypatch.setattr(tconv, "_MAX_TILE_PAGE", n_groups - 1)
+    with pytest.raises(ValueError, match="31-bit"):
         coo_to_whell_percell(coo, device="cpu", **SMALL)
-    monkeypatch.setattr(twhell, "MAX_LAYOUT_GROUPS", n_groups - 1)
-    with pytest.raises(ValueError, match="20-bit group field"):
+    monkeypatch.setattr(twhell, "MAX_TILE_PAGE", n_groups - 1)
+    with pytest.raises(ValueError, match="31-bit group"):
         a.check()
 
 

@@ -100,8 +100,7 @@ def test_auto_selection_runs_whell():
 def test_unported_formats_raise():
     coo = laplacian_2d(40, 40, np.float32)
     b = np.ones(1600, np.float32)
-    for fmt, item in (("hybrid", "item 11"), ("hell", "item 11"),
-                      ("blocks", "item 8")):
+    for fmt, item in (("hybrid", "item 11"), ("hell", "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             solve(coo, b, device="cpu", fmt=fmt)
     # "dia" is a selection class, not a layout: as in the JAX solve()

@@ -198,7 +198,8 @@ def test_whell_spmm_per_hack_plain_matches_tile_pass_and_jax(name, dtype):
             ta.group_bases, ta.seg_lo, ta.seg_hi,
             tops._prep_x(torch.from_numpy(Xl), ta.n_cols, ta.x_pages, stack=True))
     static = dict(chunk_tiles=ta.chunk_tiles, group_hacks=ta.group_hacks,
-                  window_pages=ta.window_pages, unit_segments=ta.unit_segments)
+                  window_pages=ta.window_pages, unit_segments=ta.unit_segments,
+                  tile_page=ta.tile_page)
     per_hack = kw.whell_packed_spmm_plain(*args, hack_units=ta.hack_units, **static)
     tile = kw.whell_packed_spmm_plain(*args, **static)
     np.testing.assert_allclose(per_hack.numpy(), tile.numpy(), **WHELL_TOL)
@@ -224,7 +225,8 @@ def test_whell_spmm_needs_hack_units_on_cuda_only():
     args = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
             a.group_bases, a.seg_lo, a.seg_hi, x3)
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-                  window_pages=a.window_pages, unit_segments=a.unit_segments)
+                  window_pages=a.window_pages, unit_segments=a.unit_segments,
+                  tile_page=a.tile_page)
     with pytest.raises(ValueError, match="hack_units"):
         kw._check_units("whell_packed_spmm", None, a.values, a.seg_lo)
     with pytest.raises(ValueError, match="hack_units"):
@@ -464,7 +466,8 @@ def test_spmm_rejects_bad_operands():
     with pytest.raises(ValueError, match="x:"):
         kd.whdia_spmm(d.values, d.slot_r0, d.tile_r0, d.tile_base, d.chunk_group,
                       torch.zeros(d.n_cols), chunk_tiles=d.chunk_tiles,
-                      group_hacks=d.group_hacks, num_groups=d.num_groups)
+                      group_hacks=d.group_hacks, num_groups=d.num_groups,
+                      tile_page=d.tile_page)
     s = _port_layout("sdia", DIA_CASES["laplace24"](tfix))
     with pytest.raises(ValueError, match="planes take"):
         tops.sdia_spmm(s, torch.zeros((2, s.n_cols), dtype=torch.float64), fused=True)

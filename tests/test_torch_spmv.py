@@ -155,7 +155,8 @@ def test_wrapper_rejects_bad_operands():
             ta.group_bases, ta.seg_lo, ta.seg_hi,
             torch.zeros((ta.x_pages, 128), device="meta"),
             chunk_tiles=ta.chunk_tiles, group_hacks=ta.group_hacks,
-            window_pages=ta.window_pages, unit_segments=ta.unit_segments)
+            window_pages=ta.window_pages, unit_segments=ta.unit_segments,
+            tile_page=ta.tile_page)
 
 
 @pytest.fixture

@@ -9,6 +9,8 @@ mode and the port's ``whdia_spmv`` (the plain PyTorch version of kernel
 rtol = atol = 2e-5, as in tests/test_whdia.py.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 
@@ -161,12 +163,20 @@ def test_check_rejects_bad_layouts():
         both.check()
 
 
-def test_base_page_past_16_bits_raises():
-    """Past 65,536 column pages the 16-bit base page would wrap."""
+def test_base_page_past_16_bits_raises(monkeypatch):
+    """Past 65,536 column pages the base page lives in the full-width
+    ``tile_page`` (``tile_base`` keeps its low 16 bits); the converter
+    raises only past the word's bound."""
     n = 9_000_000
     coo = CooMatrix(np.array([n - 1]), np.array([n - 1]),
                     np.ones(1, np.float32), n, n)
-    with pytest.raises(ValueError, match="item 8"):
+    a = coo_to_whdia(coo, device="cpu")
+    page = int(a.tile_page.max())
+    assert page > 0xFFFF and page * 128 <= n - 1 < (page + a.window_pages) * 128
+    assert torch.equal(a.tile_base & 0xFFFF, a.tile_page & 0xFFFF)
+    monkeypatch.setattr(importlib.import_module("spgpu_tpu_torch.convert.whdia"),
+                        "_MAX_TILE_PAGE", 0xFFFF)
+    with pytest.raises(ValueError, match="31-bit"):
         coo_to_whdia(coo, device="cpu")
 
 
@@ -214,7 +224,7 @@ def test_wrapper_rejects_bad_operands():
     with pytest.raises(ValueError, match="float32"):
         tops.whdia_spmv(a, torch.zeros(a.n_cols, dtype=torch.float64))
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-                  num_groups=a.num_groups)
+                  num_groups=a.num_groups, tile_page=a.tile_page)
     with pytest.raises(ValueError, match="exactly one"):
         kd.whdia_spmv(a.values, torch.zeros(a.total_slots, dtype=torch.int16),
                       a.tile_r0, a.tile_base, a.chunk_group,

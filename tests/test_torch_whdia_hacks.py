@@ -92,14 +92,15 @@ def _slot_hacks(a):
 def _listed(a, x):
     return kd.whdia_spmm_listed_plain(
         a.values, a.slot_r0, a.tile_r0, a.tile_base, a.hack_slot_ptr,
-        a.hack_slots, x, group_hacks=a.group_hacks, num_groups=a.num_groups)
+        a.hack_slots, x, group_hacks=a.group_hacks, num_groups=a.num_groups,
+        tile_page=a.tile_page)
 
 
 def _full(a, x):
     return kd.whdia_spmm_plain(
         a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group, x,
         chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-        num_groups=a.num_groups)
+        num_groups=a.num_groups, tile_page=a.tile_page)
 
 
 def _near(got, want, frac, rtol=0.0, what=""):
@@ -311,7 +312,7 @@ def test_wrappers_need_the_list_on_cuda_only():
     a = coo_to_whdia(_coo("banded", "complex64"), device="cpu")
     x = torch.from_numpy(_vec(a.n_cols, "complex64"))
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-                  num_groups=a.num_groups)
+                  num_groups=a.num_groups, tile_page=a.tile_page)
     args = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group)
     before = kd.LAUNCHES_C64
     torch.testing.assert_close(kd.whdia_spmv(*args, x, **static),
@@ -357,7 +358,7 @@ def test_fp32_spmv_reads_the_list_on_cuda_only():
     x = torch.from_numpy(_vec(a.n_cols, "float32"))
     args = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group)
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-                  num_groups=a.num_groups)
+                  num_groups=a.num_groups, tile_page=a.tile_page)
     before = kd.LAUNCHES
     torch.testing.assert_close(kd.whdia_spmv(*args, x, **static),
                                _full(a, x[None])[0], rtol=0, atol=0)
