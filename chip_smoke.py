@@ -35,7 +35,8 @@ the float64 geometry sweep, and checks them:
                steps, host reads, replays and capture ms; the two held to
                each other: the same iterations and x bit for bit on a
                route whose kernel gives the same bits every call (SDIA
-               #2/#5/#8/#11, #3, #9, #4, complex128 WHELL), else iterations
+               #2/#5/#8/#11, WHDIA #3, #6, #9, #10, #4, complex128 WHELL),
+               else iterations
                within max(1, 10 %) and the true-residual gate (every solve
                phase below does the same);
 6. sdia      — the 1024x1024 2-D Laplacian (1,048,576 rows) through
@@ -67,7 +68,8 @@ the float64 geometry sweep, and checks them:
 11. sdia_f64 — the Laplacian in float64 through kernel #5, which must
                match its plain version exactly;
 12. whdia_f64 — banded-11 (pattern mode) and the Laplacian (slab mode) in
-               float64 through kernel #6;
+               float64 through kernel #6 (the warp pass over each hack's
+               live slots), checked as in 7 at 1e-12·max|z|;
 13. solve_f64 — four float64 solves to 1e-10 through ``solve()``, each
                with a true residual ≤ 1e-9: CG on the SPD system
                (auto, whell), CG on the Laplacian auto-selected (whdia)
@@ -94,11 +96,10 @@ the float64 geometry sweep, and checks them:
                against their plain versions;
 17. whdia_c64, whdia_c128 — banded-11 (summed duplicates) plus
                ``1j·N(0, 1)`` (``default_rng(8)``), pattern mode, and the
-               complex Laplacian, slab mode, through kernels #9 and #10;
-               #9 (the hack pass over each hack's live slots) also
-               against the listed plain product and twice with the same
-               bits, with the live-slot share, the live and full bounds
-               and the kernel's share of each;
+               complex Laplacian, slab mode, through kernels #9 (the
+               hack pass) and #10 (the warp pass), each over each hack's
+               live slots and checked as in 7 (complex128 at
+               1e-12·max|z|);
 18. solve_complex — through ``solve()``, in complex64 to 1e-5 (true
                residual ≤ 1e-4) and complex128 to 1e-10 (≤ 1e-9): CG on
                the Hermitian positive-definite system made from the
@@ -163,7 +164,8 @@ the float64 geometry sweep, and checks them:
                banded-11 (524,288 rows, duplicates summed, pattern mode)
                and on the Laplacian (slab mode), in two level sets: the
                tile levels stream, r0, gather, full of the fp32 tile pass
-               (the design #6 and #10 run), each held against its plain
+               (the design #3, #6 and #10 ran before they read only the
+               live slots), each held against its plain
                version (1e-5·max|part|; full within #3's tolerance, and
                of the production #3); and the hack levels launch, list,
                stream, full of the production #3 (1 RHS) and of #13 (8
@@ -197,8 +199,8 @@ the float64 geometry sweep, and checks them:
                RHS) on the Laplacian and banded-11, each op's and each
                kernel's device time, warm and cold, with the live and full
                bounds, beside #3, the 8-launch loop of #3, #6, #10 and
-               cuSPARSE CSR (complex64, and fp32 beside #3) and SpMM on
-               the same matrices; #7 on the flagship beside cuSPARSE CSR complex64;
+               cuSPARSE CSR (in each SpMV's type) and SpMM on the same
+               matrices; #7 on the flagship beside cuSPARSE CSR complex64;
                then #12 (flagship) and #16 (relabelled, classic) at 8 RHS
                in fp32 and bf16, op and kernels, warm and cold, with their
                bounds, beside cuSPARSE SpMM (``kernel_times``;
@@ -219,7 +221,9 @@ the float64 geometry sweep, and checks them:
                ``LARGE["lap_maxiter"]`` CG iterations, graphed against
                eager; banded-11 at 9M rows (pattern mode, #3); F1's 9M-row
                float64 tridiagonal on aligned windows (#4, every row at
-               1e-12·max|z|) and in fp32 as a classic layout (#15); a
+               1e-12·max|z|) and in fp32 as a classic layout (#15); the
+               same Laplacian in complex128 (``+ 1j·N(0, 1)``,
+               ``default_rng(12)``) through #10, the product only; a
                4.5M-row permutation-coupled matrix past 2**20 scattered
                layout groups (#1, its plain version summed in chunks of
                tiles).  Each product prints its layout (rows, nonzeros, x
@@ -636,12 +640,12 @@ def sdia_phase(coo, device, label):
 
 def whdia_phase(coo, mode, device, label, wa=None, convert_s=None):
     """``dia_phase`` for WHDIA (kernel #3; #6 in float64, #9 in complex64,
-    #10 in complex128); atomics (#6, #10) or the list order (#3, #9)
-    reorder the sums, hence 1e-5 (1e-12 in float64 and complex128)
-    against the plain version.  ``mode`` is the r0 mode the layout must take.  #3 and #9
-    read only the live slots: each is also held to the listed plain
-    product and to itself (two launches, the same bits), must write every
-    row of a NaN-filled buffer, and its bound is the live slots'
+    #10 in complex128); the list order reorders the sums, hence 1e-5
+    (1e-12·max|z| in float64 and complex128) against the plain version.
+    ``mode`` is the r0 mode the layout must take.  Each kernel reads only
+    the live slots: it is also held to the listed plain product at the
+    same tolerance and to itself (two launches, the same bits), must write
+    every row of a NaN-filled buffer, and its bound is the live slots'
     (``whdia_bounds``), printed beside the full layout's."""
     import torch
 
@@ -661,45 +665,39 @@ def whdia_phase(coo, mode, device, label, wa=None, convert_s=None):
     static = dict(chunk_tiles=wa.chunk_tiles, group_hacks=wa.group_hacks,
                   num_groups=wa.num_groups, tile_page=wa.tile_page)
     lists = dict(hack_slot_ptr=wa.hack_slot_ptr, hack_slots=wa.hack_slots)
-    isz = wa.values.element_size()
-    hack_pass = wa.values.dtype in kd.HACK_PASS
+    tol = 1e-12 if wa.values.dtype in (torch.float64, torch.complex128) else 1e-5
     b = whdia_bounds(wa, 1)
     out = dia_phase(
         coo, lambda x: kd.whdia_spmv(*args, x, **static, **lists),
         lambda x: kd.whdia_spmv_plain(*args, x, **static),
-        lambda x: whdia_spmv(wa, x),
-        b["live_bytes"] if hack_pass else
-        nbytes(*args, wa.tile_page)
-        + isz * (coo.n_cols + wa.num_groups * wa.group_hacks * 128),
-        1e-12 if wa.values.dtype in (torch.float64, torch.complex128) else 1e-5,
-        label, device, (kd, COUNTER[np.dtype(coo.values.dtype).name]))
-    if hack_pass:
-        x = torch.from_numpy(rand_vector(coo.n_cols, 7, np.dtype(coo.values.dtype))
-                             ).to(device)
-        # no zero fill: the block the kernel's z gets first held NaN
-        torch.cuda.empty_cache()
-        nan = torch.full((wa.num_groups * wa.group_hacks * 128,), float("nan"),
-                         dtype=x.dtype, device=device)
-        ptr = nan.data_ptr()
-        del nan
-        z = kd.whdia_spmv(*args, x, **static, **lists)
-        torch.cuda.synchronize(device)
-        if z.data_ptr() != ptr or not bool(torch.isfinite(z).all()):
-            raise AssertionError(f"{label}: a row of the NaN-filled z was not "
-                                 f"written (same block: {z.data_ptr() == ptr})")
-        if not torch.equal(z, kd.whdia_spmv(*args, x, **static, **lists)):
-            raise AssertionError(f"{label}: two launches of the live-slot kernel "
-                                 "differ")
-        listed = kd.whdia_spmm_listed_plain(
-            wa.values, wa.slot_r0, wa.tile_r0, wa.tile_base, wa.hack_slot_ptr,
-            wa.hack_slots, x[None], group_hacks=wa.group_hacks,
-            num_groups=wa.num_groups, tile_page=wa.tile_page)[0]
-        out.update(
-            bit_identical=True, rows_written_over_nan=True, **b,
-            max_abs_err_vs_listed=check_close(z, listed, 1e-5, 1e-5,
-                                              f"{label}: kernel vs listed plain"),
-            live_bound_share=b["live_bound_ms"] / out["kernel_device_ms"],
-            full_bound_share=b["full_bound_ms"] / out["kernel_device_ms"])
+        lambda x: whdia_spmv(wa, x), b["live_bytes"],
+        tol, label, device, (kd, COUNTER[np.dtype(coo.values.dtype).name]))
+    x = torch.from_numpy(rand_vector(coo.n_cols, 7, np.dtype(coo.values.dtype))
+                         ).to(device)
+    # no zero fill: the block the kernel's z gets first held NaN
+    torch.cuda.empty_cache()
+    nan = torch.full((wa.num_groups * wa.group_hacks * 128,), float("nan"),
+                     dtype=x.dtype, device=device)
+    ptr = nan.data_ptr()
+    del nan
+    z = kd.whdia_spmv(*args, x, **static, **lists)
+    torch.cuda.synchronize(device)
+    if z.data_ptr() != ptr or not bool(torch.isfinite(z).all()):
+        raise AssertionError(f"{label}: a row of the NaN-filled z was not "
+                             f"written (same block: {z.data_ptr() == ptr})")
+    if not torch.equal(z, kd.whdia_spmv(*args, x, **static, **lists)):
+        raise AssertionError(f"{label}: two launches of the live-slot kernel "
+                             "differ")
+    listed = kd.whdia_spmm_listed_plain(
+        wa.values, wa.slot_r0, wa.tile_r0, wa.tile_base, wa.hack_slot_ptr,
+        wa.hack_slots, x[None], group_hacks=wa.group_hacks,
+        num_groups=wa.num_groups, tile_page=wa.tile_page)[0]
+    out.update(
+        bit_identical=True, rows_written_over_nan=True, **b,
+        max_abs_err_vs_listed=check_close(z, listed, tol, tol,
+                                          f"{label}: kernel vs listed plain"),
+        live_bound_share=b["live_bound_ms"] / out["kernel_device_ms"],
+        full_bound_share=b["full_bound_ms"] / out["kernel_device_ms"])
     out.update(mode=got, window_pages=wa.window_pages, tiles=wa.num_tiles,
                padding=wa.total_slots * 128 / coo.nnz,
                value_mib=nbytes(wa.values) / 2**20, convert_s=convert_s)
@@ -707,12 +705,13 @@ def whdia_phase(coo, mode, device, label, wa=None, convert_s=None):
 
 
 #: (fmt, value dtype name) of the solve routes whose kernel gives the same
-#: bits every call (SDIA #2/#5/#8/#11, #3, #9, #4 and complex128 WHELL):
-#: their graphed solves must equal the eager witness bit for bit; the
-#: others (#1, #7, #6, #10, #17) sum with atomics
+#: bits every call (SDIA #2/#5/#8/#11, WHDIA #3/#6/#9/#10, #4 and
+#: complex128 WHELL): their graphed solves must equal the eager witness
+#: bit for bit; the others (#1, #7, #17) sum with atomics
 BIT_REPRODUCIBLE = {("sdia", "float32"), ("sdia", "float64"), ("sdia", "complex64"),
                     ("sdia", "complex128"), ("whdia", "float32"),
-                    ("whdia", "complex64"), ("whell", "float64"),
+                    ("whdia", "float64"), ("whdia", "complex64"),
+                    ("whdia", "complex128"), ("whell", "float64"),
                     ("whell", "complex128")}
 
 
@@ -1891,6 +1890,37 @@ def capped_pair(mv, b, maxiter, exact, limit, smi):
     return out
 
 
+def laplace_product(lap32, dt, device):
+    """The product of the 4096² Laplacian ``lap32`` (fp32 values) in
+    ``dt`` on the layout WHDIA's converter builds (timed alone):
+    ``whdia_phase`` in the layout's r0 mode (#6 in float64; #10 in
+    complex128, values ``v + 1j·N(0, 1)``, ``default_rng(12)``), its
+    kernel's device time warm and cold and the layout.  Returns the row
+    and the op call's launches (counted from 0)."""
+    import torch
+
+    from spgpu_tpu_torch import ops
+    from spgpu_tpu_torch.convert import coo_to_whdia
+    from spgpu_tpu_torch.formats.coo import CooMatrix
+
+    t0 = time.perf_counter()
+    n = lap32.n_rows
+    name = np.dtype(dt).name
+    cplx = np.dtype(dt).kind == "c"
+    lap = (with_imag(lap32, 12, dt) if cplx else
+           CooMatrix(lap32.rows, lap32.cols, lap32.values.astype(dt), n, n))
+    a, convert_s = converted(lambda: coo_to_whdia(lap, device=device))
+    x = torch.from_numpy(rand_vector(n, 7, dt)).to(device)
+    product = whdia_phase(lap, "pattern" if a.pattern_mode else "slab", device,
+                          f"laplace {LARGE['lap']}² {name}", wa=a, convert_s=convert_s)
+    row = dict(fixture=f"laplacian_2d({LARGE['lap']}, {LARGE['lap']})"
+               + (" + 1j*N(0,1)" if cplx else ""),
+               **layout_summary(a, lap, convert_s) | product,
+               kernel_device=kernel_cold(lambda: ops.whdia_spmv(a, x), TIMED_KERNELS),
+               item_s=time.perf_counter() - t0)
+    return row, product["launches"]
+
+
 def past_bounds_phase(device, smi):
     """Phase 31 (``--large``): systems past each old field of tile_base,
     each product held to its plain version and the golden, with its
@@ -1906,8 +1936,9 @@ def past_bounds_phase(device, smi):
       stops at ``lap_maxiter`` and must reach 1e-5.  Then on the layout
       WHDIA's converter builds (timed alone) the graphed loop against
       its eager witness for as many iterations (the same bits on #3,
-      residuals at most the same limit on #6); then the product
-      (``whdia_phase``, in the layout's r0 mode).
+      the same bits on #6); then the product (``whdia_phase``, in the
+      layout's r0 mode); then the product in complex128 through #10
+      (:func:`laplace_product`).
     - banded-11's generator at 9M rows (pattern mode) through #3;
     - F1's case, the 9M-row float64 tridiagonal, aligned packed (#4),
       every row at 1e-12·max|z| of the golden; the same in fp32 as a
@@ -1982,7 +2013,10 @@ def past_bounds_phase(device, smi):
         launches[key] = launches.get(key, 0) + solve_launches + product["launches"]
         del a, x, bt, lap
         torch.cuda.empty_cache()
+    out["laplace_complex128"], launches["whdia_spmv_c128"] = laplace_product(
+        lap32, np.complex128, device)
     del lap32
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     band = random_banded(LARGE["band"], 11, wander=7, seed=2, dtype=np.float32)
@@ -2215,7 +2249,8 @@ def child_phases(flag: str, count: int):
 #: (``classic_spmv_tile`` before its work list, ``classic_spmv_units``
 #: since), #17, and #3, #9 and #13 (``whdia_tile_pass`` and
 #: ``whdia_spmm_tile_pass`` before the hack pass, ``whdia_hack_pass`` since;
-#: #3 ``whdia_spmv_warps`` since it reads only the live slots)
+#: #3, #6 and #10 ``whdia_spmv_warps`` since they read only the live
+#: slots, ``whdia_tile_pass`` before)
 TIMED_KERNELS = ("classic_spmv", "pcell_tile", "whdia_tile_pass",
                  "whdia_spmm_tile_pass", "whdia_hack_pass", "whdia_spmv_warps")
 
@@ -2276,14 +2311,25 @@ def op_times(fn, prefixes):
     own kernels alone (the names that start with one of ``prefixes``),
     warm and cold (the L2 flushed before each call).  The op's cold time
     is its kernels' cold time plus its other operations' warm time: a
-    zero fill shares its profiler name with the L2 flush's."""
-    from spgpu_tpu_torch.utils.timing import (device_ms, device_ms_by_kernel,
-                                              kernel_device_ms)
+    zero fill shares its profiler name with the L2 flush's.  Where no
+    profiling session records any device event (sessions after a profiled
+    graph loop can lose them all), every time is the whole call's from
+    CUDA events, an upper bound, and ``kernels`` is empty; where sessions
+    record device events but none of ``prefixes``, it raises."""
+    from spgpu_tpu_torch.utils.timing import (_call_events_ms, _l2_flush, device_ms,
+                                              device_ms_by_kernel, kernel_device_ms)
 
     by_op = device_ms_by_kernel(fn)
     names = kernel_names(fn, prefixes, by_op)
     if not names:
-        raise AssertionError(f"kernel_times: no kernel named {prefixes} launched")
+        if by_op or launched(fn):
+            raise AssertionError(f"kernel_times: no kernel named {prefixes} launched")
+        # no session recorded any device event: the whole call, by events
+        warm, cold = _call_events_ms(fn, 20, None), _call_events_ms(fn, 20, _l2_flush())
+        return dict(kernels=[], op_by_name_ms={}, op_device_ms=warm,
+                    op_device_source="cuda_events", op_cold_device_ms=cold,
+                    device_ms=warm, device_source="cuda_events", cold_device_ms=cold,
+                    cold_source="cuda_events")
     warm, src = kernel_device_ms(fn, names)
     cold, cold_src = kernel_device_ms(fn, names, cold=True)
     op_ms, op_src = device_ms(fn)
@@ -2393,12 +2439,12 @@ def whdia_kernel_times(device):
     (fp32, 8 RHS, ``ops.whdia_spmm(fused=True)``) on the Laplacian (slab
     mode) and banded-11 (pattern mode), with the default 8-launch loop of
     #3 (``ops.whdia_spmm``) on the same fp32 layouts, #3 itself and the
-    tile pass's SpMVs #6 (float64) and #10 (complex128): each op's device time
-    (every device operation of one call, by name) and its WHDIA kernels'
-    own (``TIMED_KERNELS``), warm and cold, with the live and full bounds
-    and the kernel's share of each; beside them cuSPARSE CSR in complex64
-    and in fp32 (#3's library call) and cuSPARSE SpMM in fp32 on the same
-    matrices, in this process.  It
+    SpMVs #6 (float64) and #10 (complex128): each op's device time (every
+    device operation of one call, by name) and its WHDIA kernels' own
+    (``TIMED_KERNELS``), warm and cold, with the live and full bounds and
+    the kernel's share of each; beside them cuSPARSE CSR in each SpMV's
+    type (complex64, fp32, float64, complex128) and cuSPARSE SpMM in fp32
+    on the same matrices, in this process.  It
     calls only the converters and the ops, so it also times an older
     checkout."""
     import torch
@@ -2442,8 +2488,8 @@ def whdia_kernel_times(device):
                                        N_RHS)
         out[f"whdia_loop_{fix}"] = row(a, lambda: ops.whdia_spmm(a, xs), N_RHS)
         out[f"library_spmm_{fix}"] = library(c32, xs)
-        # #3 and the tile pass's SpMVs, #6 and #10, beside them, and #3's
-        # library call (cuSPARSE CSR in fp32)
+        # #3, #6 and #10 beside them, each with its library call (cuSPARSE
+        # CSR in its type)
         x32 = xs[0].contiguous()
         out[f"whdia_f32_{fix}"] = row(a, lambda: ops.whdia_spmv(a, x32), 1)
         out[f"library_f32_{fix}"] = library(c32, x32)
@@ -2452,6 +2498,7 @@ def whdia_kernel_times(device):
             a = coo_to_whdia(c, device=device)
             xt = torch.from_numpy(rand_vector(c.n_cols, 7, c.values.dtype)).to(device)
             out[f"whdia_{tag}_{fix}"] = row(a, lambda: ops.whdia_spmv(a, xt), 1)
+            out[f"library_{tag}_{fix}"] = library(c, xt)
             del a
         for k in (f"whdia_c64_{fix}", f"whdia_spmm_{fix}", f"whdia_loop_{fix}",
                   f"whdia_f32_{fix}", f"whdia_f64_{fix}", f"whdia_c128_{fix}"):

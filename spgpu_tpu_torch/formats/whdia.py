@@ -40,9 +40,10 @@ disagree with the field.
 
 A layout also carries ``hack_slot_ptr`` and ``hack_slots``
 (:func:`hack_slot_list`), derived from its values whenever it is built:
-the ids of the slots that hold a nonzero, grouped by hack.  The fp32 and
-complex64 SpMV and the fp32 SpMM kernels read only those slots, so a slab
-must not be changed in place (``check`` rejects a stale list).
+the ids of the slots that hold a nonzero, grouped by hack.  The SpMV
+kernels of every value type and the fp32 SpMM kernel read only those
+slots, so a slab must not be changed in place (``check`` rejects a stale
+list).
 """
 
 from __future__ import annotations

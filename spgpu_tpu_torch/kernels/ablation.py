@@ -12,8 +12,8 @@ family (``whdia_tile``, ``warp_hack`` and ``hack_body`` in
 that the differences between levels price one family each:
 
 * #18's tile levels (:data:`WHDIA_LEVELS`, :func:`whdia_ablation`), on
-  the fp32 tile pass that #6 and #10 run (#3's design before it read
-  only the live slots): ``stream`` (each lane's 8 values, summed as
+  the fp32 tile pass (#3's design before it read only the live slots,
+  and #6's and #10's before they did): ``stream`` (each lane's 8 values, summed as
   ``1.5·v``), ``r0`` (+ the r0 decode and the column, kept live as
   ``v·(col & 127)``), ``gather`` (+ the guarded x read: the tile sum) and
   ``full`` (+ one atomicAdd per lane into a zeroed z: the fp32 tile
@@ -90,8 +90,8 @@ LEVEL_ADDS = {
               "v·(col & 127)",
         "gather": "the guarded x read at the column: the tile sum",
         "full": "one atomicAdd per lane into the hack row of a zeroed z: the "
-                "fp32 tile pass, the design whdia_spmv_f64 and whdia_spmv_c128 "
-                "run (the card's WHDIA has no flush; the production "
+                "fp32 tile pass (the card's WHDIA has no flush; every "
+                "production WHDIA SpMV reads only the live slots, and "
                 "whdia_spmv is the hack levels' full)",
     },
     "whdia_hack": {

@@ -12,14 +12,15 @@ five is ``spgpu_tpu_torch/csrc/whdia_spmv.cu`` (its header note gives
 the design and its bound), built on first launch by
 :mod:`spgpu_tpu_torch.kernels._build`.
 
-#6 and #10 run a tile pass (atomics into a zero-filled z).  #3, #9 and
-#13 read only the layout's live slots (``WhdiaMatrix.hack_slot_ptr``/
-``hack_slots``, which their wrappers require for CUDA tensors): #3 one
-warp per hack (the warp pass), #9 and #13 one block per hack (the hack
-pass); each stores each row once, so z needs no zero fill and the result
-has the same bits from run to run.  A dead slot is not read, so an Inf
-or NaN in x that only all-zero slots reach gives no NaN there; the plain
-versions multiply every cell (the JAX semantics).
+All five read only the layout's live slots (``WhdiaMatrix.hack_slot_ptr``/
+``hack_slots``, which their wrappers require for CUDA tensors): #3, #6
+and #10 the warp pass (a hack is 1, 2 or 4 warps, each thread owning a
+run of lanes; #3 and #6 need a 16 B aligned slab), #9 and #13 the hack
+pass (one block per hack); each stores each row once, so z needs no
+zero fill and the result has the same bits from run to run.  A dead
+slot is not read, so an Inf or NaN in x that only all-zero slots reach
+gives no NaN there; the plain versions multiply every cell (the JAX
+semantics).
 
 :func:`whdia_spmv` and :func:`whdia_spmm` launch their kernels for CUDA
 tensors (or raise) and run :func:`whdia_spmv_plain` /
@@ -45,7 +46,7 @@ import torch
 
 from spgpu_tpu_torch.kernels._build import CudaLibrary
 
-__all__ = ["HACK_PASS", "LAUNCHES", "LAUNCHES_C128", "LAUNCHES_C64",
+__all__ = ["ALIGNED", "HACK_PASS", "LAUNCHES", "LAUNCHES_C128", "LAUNCHES_C64",
            "LAUNCHES_F64", "LAUNCHES_SPMM", "SOURCE", "build",
            "whdia_listed_columns",
            "whdia_listed_sum", "whdia_spmm", "whdia_spmm_listed_plain",
@@ -65,19 +66,23 @@ _ENTRIES = {torch.float32: ("whdia_spmv", "LAUNCHES"),
             torch.complex64: ("whdia_spmv_c64", "LAUNCHES_C64"),
             torch.complex128: ("whdia_spmv_c128", "LAUNCHES_C128")}
 
-#: value dtypes whose SpMV reads only the live-slot list (fp32: kernel #3,
-#: the warp pass; complex64: #9, the hack pass, which the fp32 SpMM, #13,
-#: runs too)
-HACK_PASS = (torch.float32, torch.complex64)
+#: value dtypes whose SpMV reads only the live-slot list: all four (fp32
+#: #3, float64 #6 and complex128 #10 on the warp pass; complex64 #9 on the
+#: hack pass, which the fp32 SpMM, #13, runs too)
+HACK_PASS = tuple(_ENTRIES)
+
+#: value dtypes whose kernel loads a lane run's values as 16-byte words, so
+#: their slab must be 16 B aligned (fp32 #3, float64 #6; complex128
+#: elements are 16 B themselves)
+ALIGNED = (torch.float32, torch.float64)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    for dt, (name, _) in _ENTRIES.items():
+    for name, _ in _ENTRIES.values():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([p] * 8 + [i64, i64, p] if dt in HACK_PASS
-                       else [p] * 8 + [i64, i64, i32, i32, p])
+        fn.argtypes = [p] * 8 + [i64, i64, p]
     lib.whdia_spmm.restype = ctypes.c_int
     lib.whdia_spmm.argtypes = [p] * 8 + [i64, i64, i64, i32, p]
     # kernel #18 (spgpu_tpu_torch.kernels.ablation)
@@ -150,9 +155,10 @@ def _list_ptrs(op, hack_slot_ptr, hack_slots, hacks, device):
 
 
 def _check_aligned(op, values):
-    """#3 reads each lane's four values as one 16-byte load."""
+    """#3 and #6 read each thread's run of lanes as 16-byte loads."""
     if values.data_ptr() % 16:
-        raise ValueError(f"{op}: the fp32 warp pass needs 16 B aligned values")
+        raise ValueError(f"{op}: the {values.dtype} warp pass needs 16 B aligned "
+                         "values")
 
 
 def _r0_ptrs(slot_r0, tile_r0):
@@ -172,10 +178,10 @@ def whdia_spmv(values, slot_r0: Optional[torch.Tensor],
 
     Give ``slot_r0`` (slab mode) or ``tile_r0`` (pattern mode).  CUDA
     tensors launch the hand kernel of their type (#3, #6, #9 or #10, each
-    counted in its ``LAUNCHES*``); fp32 (#3, whose slab must be 16 B
-    aligned) and complex64 (#9) read only the live slots, need the
-    layout's ``hack_slot_ptr`` and ``hack_slots`` and raise without them,
-    the other types ignore them.  CPU tensors run :func:`whdia_spmv_plain`.
+    counted in its ``LAUNCHES*``), which reads only the live slots: it
+    needs the layout's ``hack_slot_ptr`` and ``hack_slots`` and raises
+    without them; fp32 (#3) and float64 (#6) also need a 16 B aligned
+    slab.  CPU tensors run :func:`whdia_spmv_plain` and ignore the lists.
     Any other device raises.  The layout arrays are trusted as built by
     the converter or checked by ``WhdiaMatrix.check``; shapes, dtypes and
     devices are checked here."""
@@ -188,25 +194,16 @@ def whdia_spmv(values, slot_r0: Optional[torch.Tensor],
                                 group_hacks=group_hacks, num_groups=num_groups,
                                 tile_page=tile_page)
     hacks = num_groups * group_hacks
-    hack_pass = x.dtype in HACK_PASS
-    if hack_pass:
-        lists = _list_ptrs("whdia_spmv", hack_slot_ptr, hack_slots, hacks, dev)
-        if x.dtype == torch.float32:
-            _check_aligned("whdia_spmv", values)
+    lists = _list_ptrs("whdia_spmv", hack_slot_ptr, hack_slots, hacks, dev)
+    if x.dtype in ALIGNED:
+        _check_aligned("whdia_spmv", values)
     lib = _LIB.load()
     entry, counter = _ENTRIES[x.dtype]
-    fn = getattr(lib, entry)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    head = (values.data_ptr(), *_r0_ptrs(slot_r0, tile_r0))
-    if hack_pass:  # every row written: no zero fill; the page alone
-        z = torch.empty(hacks * 128, dtype=x.dtype, device=dev)
-        err = fn(*head, tile_page.data_ptr(), *lists, x.data_ptr(), z.data_ptr(),
-                 hacks, x.shape[0], stream)
-    else:
-        z = torch.zeros(hacks * 128, dtype=x.dtype, device=dev)
-        err = fn(*head, tile_base.data_ptr(), tile_page.data_ptr(),
-                 chunk_group.data_ptr(), x.data_ptr(), z.data_ptr(),
-                 tile_base.shape[0], x.shape[0], chunk_tiles, group_hacks, stream)
+    z = torch.empty(hacks * 128, dtype=x.dtype, device=dev)  # every row written
+    err = getattr(lib, entry)(
+        values.data_ptr(), *_r0_ptrs(slot_r0, tile_r0), tile_page.data_ptr(), *lists,
+        x.data_ptr(), z.data_ptr(), hacks, x.shape[0],
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"whdia_spmv launch failed: CUDA error {err}")
     globals()[counter] += 1

@@ -10,7 +10,8 @@ N(0, 1) from ``default_rng(0)``.
 * ``family="tile"``: the levels of
   :data:`~spgpu_tpu_torch.kernels.ablation.WHDIA_LEVELS` add one op family
   of the fp32 tile pass at a time (stream, r0, gather, full): the design
-  #6 and #10 run, and #3's before it read only the live slots.  Each is
+  #3 ran before it read only the live slots (and #6 and #10 before they
+  did).  Each is
   held against its plain version (fp32: 1e-5·max|out|; full: #3's rtol
   1e-5 and 1e-5·max|z|), and ``full`` against the production #3 (the
   warp pass over the live slots, so within the same tolerance).  The

@@ -34,14 +34,16 @@ that only padding tiles read.  Two products of one chunked-run layout on
 two streams at once stay at the golden (fault F2: the run counters are
 each call's own).
 
-#3 (fp32 WHDIA, the warp pass), #9 (complex64 WHDIA) and #13 (the hack
-pass) read only each hack's live slots: they are held to the
-full-layout plain version and to the listed plain product, at 1, 3, 8,
-9 and 17 RHS for #13, on layouts with empty row blocks whose rows the
+#3, #6 and #10 (fp32, float64 and complex128 WHDIA, the warp pass), #9
+(complex64 WHDIA) and #13 (the hack pass) read only each hack's live
+slots: they are held to the full-layout plain version and to the listed
+plain product (float64 and complex128 at 1e-12·max|z|), at 1, 3, 8, 9
+and 17 RHS for #13, on layouts with empty row blocks whose rows the
 kernel must write without a zero fill, twice with the same bits, and
 shown to skip an Inf in x that only all-zero slots reach (a deviation
-from the JAX kernel, which gives NaN there); without the lists, or (#3)
-on a slab that is not 16 B aligned, they raise.  Kernel #18's hack
+from the JAX kernel, which gives NaN there); without the lists, or (#3,
+#6) on a slab that is not 16 B aligned, they raise.  The float64 and
+complex128 WHDIA solves give the same bits graphed and eager.  Kernel #18's hack
 levels (of #3 at 1 RHS, of #13 at 8) are held to their plain versions.
 
 Classic WHELL (#15 SpMV, #16 SpMM; fp32 and bf16 values, OELL order and
@@ -364,6 +366,7 @@ def test_f64_whdia_kernel_matches_plain_and_golden(name, cuda_device):
         chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
         num_groups=a.num_groups, tile_page=a.tile_page)[: a.n_rows]
     _near(z, zp, 1e-12)
+    _near(z, _hack_listed(a, xt[None])[0, : a.n_rows], 1e-12)
     _near(z, torch.from_numpy(_golden(coo, xt.cpu().numpy())), 1e-12)
 
 
@@ -483,6 +486,7 @@ def test_complex_whdia_kernel_matches_plain_and_golden(name, dtype, cuda_device)
         chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
         num_groups=a.num_groups, tile_page=a.tile_page)[: a.n_rows]
     _near(z, zp, tol, rtol=tol)
+    _near(z, _hack_listed(a, xt[None])[0, : a.n_rows], tol, rtol=tol)
     golden = coo.spmv(xt.cpu().numpy().astype(np.complex128))
     _near(z, torch.from_numpy(golden), gtol, rtol=gtol)
 
@@ -1462,9 +1466,10 @@ def test_sweeps_time_on_the_card(name, cuda_device):
 
 
 # --------------------------------------------------------------------------
-# the WHDIA live-slot kernels: #3 (fp32 SpMV, the warp pass), #9
-# (complex64 SpMV) and #13 (fp32 SpMM, the hack pass) over each hack's
-# live slots (WhdiaMatrix.hack_slot_ptr/hack_slots)
+# the WHDIA live-slot kernels: #3, #6 and #10 (fp32, float64 and
+# complex128 SpMV, the warp pass), #9 (complex64 SpMV) and #13 (fp32 SpMM,
+# the hack pass) over each hack's live slots
+# (WhdiaMatrix.hack_slot_ptr/hack_slots)
 
 
 def _holes(coo):
@@ -1480,22 +1485,33 @@ HACK_CASES = {"slab": lambda: _holes(laplacian_2d(40, 40)),
               "pattern": lambda: _holes(random_banded(3000, bands=11, seed=2))}
 
 
+#: live-slot kernel -> (value type, launch counter, atol/max|z| and rtol
+#: against the plain versions, the same against the golden); "spmm" is #13
+HACK_KERNELS = {"f32": (np.float32, "LAUNCHES", 1e-5, 2e-5),
+                "f64": (np.float64, "LAUNCHES_F64", 1e-12, 1e-12),
+                "c64": (np.complex64, "LAUNCHES_C64", 1e-5, 2e-5),
+                "c128": (np.complex128, "LAUNCHES_C128", 1e-12, 1e-12),
+                "spmm": (np.float32, "LAUNCHES_SPMM", 1e-5, 2e-5)}
+
+
 def _hack_layout(mode, kernel, cuda_device):
-    """The fixture of ``mode`` as complex64 (``kernel="c64"``, #9) or fp32
-    (``"f32"``, #3; ``"spmm"``, #13) on the card, and its COO."""
+    """The fixture of ``mode`` in the value type of ``kernel`` (fp32
+    ``"f32"``, #3; ``"spmm"``, #13; float64 ``"f64"``, #6; complex64
+    ``"c64"``, #9; complex128 ``"c128"``, #10) on the card, and its COO."""
     coo = HACK_CASES[mode]()
-    coo = (_complex(coo, np.complex64) if kernel == "c64" else
-           CooMatrix(coo.rows, coo.cols, coo.values.astype(np.float32),
-                     coo.n_rows, coo.n_cols))
+    dt = HACK_KERNELS[kernel][0]
+    coo = (_complex(coo, dt) if np.dtype(dt).kind == "c" else
+           CooMatrix(coo.rows, coo.cols, coo.values.astype(dt), coo.n_rows, coo.n_cols))
     a = coo_to_whdia(coo, device=cuda_device)
     assert a.pattern_mode == (mode == "pattern")
     return coo, a
 
 
 def _hack_x(kernel, n, n_rhs=3, seed=0):
-    if kernel == "c64":
-        return torch.from_numpy(_cvec(n, seed)).to(torch.complex64)[None]
-    return _xs(1 if kernel == "f32" else n_rhs, n, seed)
+    dt = HACK_KERNELS[kernel][0]
+    if np.dtype(dt).kind == "c":
+        return torch.from_numpy(_cvec(n, seed).astype(dt))[None]
+    return _xs(n_rhs if kernel == "spmm" else 1, n, seed).to(getattr(torch, np.dtype(dt).name))
 
 
 def _hack_call(kernel, a, x):
@@ -1504,7 +1520,7 @@ def _hack_call(kernel, a, x):
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
                   num_groups=a.num_groups, hack_slot_ptr=a.hack_slot_ptr,
                   hack_slots=a.hack_slots, tile_page=a.tile_page)
-    if kernel in ("c64", "f32"):
+    if kernel != "spmm":
         return kd.whdia_spmv(*args, x[0], **static)[None]
     return kd.whdia_spmm(*args, x, **static)
 
@@ -1518,17 +1534,17 @@ def _hack_listed(a, x):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", sorted(HACK_CASES))
-@pytest.mark.parametrize("kernel", ["c64", "spmm", "f32"])
+@pytest.mark.parametrize("kernel", ["c64", "spmm", "f32", "f64", "c128"])
 def test_hack_pass_matches_plain_and_golden(kernel, mode, cuda_device):
-    """#9, #13 and #3 through the op, counted once, against the
+    """#9, #13, #3, #6 and #10 through the op, counted once, against the
     full-layout plain version, the listed plain product (the kernel's
     order, unfused) and the golden: rtol 1e-5 and atol 1e-5·max|z|, 2e-5
-    vs the golden."""
+    vs the golden (float64 and complex128 1e-12 in both)."""
     coo, a = _hack_layout(mode, kernel, cuda_device)
     x = _hack_x(kernel, coo.n_cols).to(cuda_device)
-    counter = {"c64": "LAUNCHES_C64", "spmm": "LAUNCHES_SPMM", "f32": "LAUNCHES"}[kernel]
+    _, counter, tol, gtol = HACK_KERNELS[kernel]
     before = getattr(kd, counter)
-    z = ops.whdia_spmv(a, x[0])[None] if kernel in ("c64", "f32") else \
+    z = ops.whdia_spmv(a, x[0])[None] if kernel != "spmm" else \
         ops.whdia_spmm(a, x, fused=True)
     torch.cuda.synchronize()
     assert getattr(kd, counter) == before + 1
@@ -1537,11 +1553,11 @@ def test_hack_pass_matches_plain_and_golden(kernel, mode, cuda_device):
                              a.chunk_group, x, chunk_tiles=a.chunk_tiles,
                              group_hacks=a.group_hacks, num_groups=a.num_groups,
                              tile_page=a.tile_page)
-    _near(z, zp[:, :n], 1e-5, rtol=1e-5)
-    _near(z, _hack_listed(a, x)[:, :n], 1e-5, rtol=1e-5)
-    wide = np.complex128 if kernel == "c64" else np.float64
+    _near(z, zp[:, :n], tol, rtol=tol)
+    _near(z, _hack_listed(a, x)[:, :n], tol, rtol=tol)
+    wide = np.complex128 if x.is_complex() else np.float64
     golden = coo.spmv(x.cpu().numpy().astype(wide))
-    _near(z, torch.from_numpy(golden), 2e-5, rtol=2e-5)
+    _near(z, torch.from_numpy(golden), gtol, rtol=gtol)
 
 
 @pytest.mark.cuda
@@ -1559,7 +1575,7 @@ def test_hack_pass_spmm_takes_any_rhs_count(n_rhs, mode, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", sorted(HACK_CASES))
-@pytest.mark.parametrize("kernel", ["c64", "spmm", "f32"])
+@pytest.mark.parametrize("kernel", ["c64", "spmm", "f32", "f64", "c128"])
 def test_hack_pass_writes_every_row_and_repeats_its_bits(kernel, mode, cuda_device):
     """z is not zero-filled: the block the kernel writes first held NaN,
     yet every row comes out finite, a hack with no live slot as zeros; two
@@ -1594,7 +1610,7 @@ def _dead_only_column(a):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["c64", "spmm", "f32"])
+@pytest.mark.parametrize("kernel", ["c64", "spmm", "f32", "f64", "c128"])
 def test_hack_pass_skips_dead_slot_inf(kernel, cuda_device):
     """An Inf in x at a column that only dead slots reach: the full-layout
     plain version (the JAX semantics) gives NaN, the hack pass the golden
@@ -1603,7 +1619,7 @@ def test_hack_pass_skips_dead_slot_inf(kernel, cuda_device):
     x = _hack_x(kernel, coo.n_cols)
     x[:, _dead_only_column(a)] = float("inf")
     x = x.to(cuda_device)
-    wide = np.complex128 if kernel == "c64" else np.float64
+    wide = np.complex128 if x.is_complex() else np.float64
     golden = torch.from_numpy(coo.spmv(x.cpu().numpy().astype(wide)))
     assert bool(torch.isfinite(golden).all())
     full = kd.whdia_spmm_plain(a.values, a.slot_r0, a.tile_r0, a.tile_base,
@@ -1613,13 +1629,15 @@ def test_hack_pass_skips_dead_slot_inf(kernel, cuda_device):
     assert bool(torch.isnan(full[:, : coo.n_rows]).any())
     z = _hack_call(kernel, a, x)[:, : coo.n_rows]
     assert bool(torch.isfinite(z).all())
-    _near(z, golden, 2e-5, rtol=2e-5)
+    gtol = HACK_KERNELS[kernel][3]
+    _near(z, golden, gtol, rtol=gtol)
 
 
 @pytest.mark.cuda
 def test_hack_pass_needs_the_lists(cuda_device):
-    """A CUDA call of #3, #9 or #13 without the live-slot lists raises;
-    the tile-pass SpMVs (#6, #10) take none."""
+    """A CUDA call of any WHDIA live-slot kernel (#3, #6, #9, #10, #13)
+    without the live-slot lists, or with a list on another device,
+    raises."""
     coo, a = _hack_layout("slab", "spmm", cuda_device)
     args = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group)
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
@@ -1627,46 +1645,44 @@ def test_hack_pass_needs_the_lists(cuda_device):
     x = _xs(2, coo.n_cols).to(cuda_device)
     with pytest.raises(ValueError, match="hack_slot_ptr"):
         kd.whdia_spmm(*args, x, **static)
-    with pytest.raises(ValueError, match="hack_slot_ptr"):
-        kd.whdia_spmv(*args, x[0], **static)
-    a64 = coo_to_whdia(_f64(coo), device=cuda_device)
-    x64 = x[0].double()
-    _near(kd.whdia_spmv(a64.values, a64.slot_r0, a64.tile_r0, a64.tile_base,
-                       a64.chunk_group, x64, chunk_tiles=a64.chunk_tiles,
-                       group_hacks=a64.group_hacks, num_groups=a64.num_groups,
-                       tile_page=a64.tile_page)[: coo.n_rows],
-          torch.from_numpy(coo.spmv(x64.cpu().numpy())), 1e-12)
-    _, ac = _hack_layout("slab", "c64", cuda_device)
-    argc = (ac.values, ac.slot_r0, ac.tile_r0, ac.tile_base, ac.chunk_group)
-    static = dict(chunk_tiles=ac.chunk_tiles, group_hacks=ac.group_hacks,
-                  num_groups=ac.num_groups, tile_page=ac.tile_page)
-    xc = _hack_x("c64", ac.n_cols).to(cuda_device)[0]
-    with pytest.raises(ValueError, match="hack_slot_ptr"):
-        kd.whdia_spmv(*argc, xc, **static)
-    with pytest.raises(ValueError, match="hack_slot_ptr"):
-        kd.whdia_spmv(*argc, xc, **static, hack_slot_ptr=ac.hack_slot_ptr.cpu(),
-                      hack_slots=ac.hack_slots)
+    for kernel in ("f32", "f64", "c64", "c128"):
+        _, ak = _hack_layout("slab", kernel, cuda_device)
+        argk = (ak.values, ak.slot_r0, ak.tile_r0, ak.tile_base, ak.chunk_group)
+        static = dict(chunk_tiles=ak.chunk_tiles, group_hacks=ak.group_hacks,
+                      num_groups=ak.num_groups, tile_page=ak.tile_page)
+        xk = _hack_x(kernel, ak.n_cols).to(cuda_device)[0]
+        counter = HACK_KERNELS[kernel][1]
+        before = getattr(kd, counter)
+        with pytest.raises(ValueError, match="hack_slot_ptr"):
+            kd.whdia_spmv(*argk, xk, **static)
+        with pytest.raises(ValueError, match="hack_slot_ptr"):
+            kd.whdia_spmv(*argk, xk, **static, hack_slot_ptr=ak.hack_slot_ptr.cpu(),
+                          hack_slots=ak.hack_slots)
+        assert getattr(kd, counter) == before
 
 
 @pytest.mark.cuda
 def test_warp_pass_needs_aligned_values(cuda_device):
-    """#3 loads each lane's four values as one 16-byte load: a slab that
-    starts 4 bytes past an aligned address raises; the same values
+    """#3 and #6 load each thread's lanes as 16-byte words: a slab that
+    starts one element past an aligned address raises; the same values
     copied to an aligned slab give the product."""
-    coo, a = _hack_layout("slab", "f32", cuda_device)
-    S = a.values.shape[0]
-    buf = torch.empty(S * 128 + 1, device=cuda_device)
-    shifted = buf[1:].view(S, 128)
-    shifted.copy_(a.values)
-    static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-                  num_groups=a.num_groups, hack_slot_ptr=a.hack_slot_ptr,
-                  hack_slots=a.hack_slots, tile_page=a.tile_page)
-    x = _xs(1, coo.n_cols).to(cuda_device)[0]
-    rest = (a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group, x)
-    with pytest.raises(ValueError, match="16 B aligned"):
-        kd.whdia_spmv(shifted, *rest, **static)
-    z = kd.whdia_spmv(shifted.clone(), *rest, **static)[: coo.n_rows]
-    _near(z, torch.from_numpy(coo.spmv(x.cpu().double().numpy())), 2e-5, rtol=2e-5)
+    for kernel in ("f32", "f64"):
+        coo, a = _hack_layout("slab", kernel, cuda_device)
+        assert a.values.dtype in kd.ALIGNED
+        S = a.values.shape[0]
+        buf = torch.empty(S * 128 + 1, dtype=a.values.dtype, device=cuda_device)
+        shifted = buf[1:].view(S, 128)
+        shifted.copy_(a.values)
+        static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+                      num_groups=a.num_groups, hack_slot_ptr=a.hack_slot_ptr,
+                      hack_slots=a.hack_slots, tile_page=a.tile_page)
+        x = _hack_x(kernel, coo.n_cols).to(cuda_device)[0]
+        rest = (a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group, x)
+        with pytest.raises(ValueError, match="16 B aligned"):
+            kd.whdia_spmv(shifted, *rest, **static)
+        z = kd.whdia_spmv(shifted.clone(), *rest, **static)[: coo.n_rows]
+        gtol = HACK_KERNELS[kernel][3]
+        _near(z, torch.from_numpy(coo.spmv(x.cpu().double().numpy())), gtol, rtol=gtol)
 
 
 @pytest.mark.cuda
@@ -1747,14 +1763,14 @@ def test_whdia_sweep_on_both_fixtures_on_the_card(matrix, size, family, cuda_dev
 loop = importlib.import_module("spgpu_tpu_torch.solvers.cg")
 
 #: (fmt, dtype) of every solve() route -> whether its kernel gives the same
-#: bits every call (SDIA #2/#5/#8/#11, #3, #9, #4 and complex128 WHELL);
-#: #1, #7, #6, #10 and #17 sum with atomics
+#: bits every call (SDIA #2/#5/#8/#11, WHDIA #3/#6/#9/#10, #4 and
+#: complex128 WHELL); #1, #7 and #17 sum with atomics
 GRAPH_ROUTES = {("whell", "float32"): False, ("whell", "float64"): True,
                 ("whell", "complex64"): False, ("whell", "complex128"): True,
                 ("sdia", "float32"): True, ("sdia", "float64"): True,
                 ("sdia", "complex64"): True, ("sdia", "complex128"): True,
-                ("whdia", "float32"): True, ("whdia", "float64"): False,
-                ("whdia", "complex64"): True, ("whdia", "complex128"): False,
+                ("whdia", "float32"): True, ("whdia", "float64"): True,
+                ("whdia", "complex64"): True, ("whdia", "complex128"): True,
                 ("pcell", "float32"): False}
 
 
@@ -1808,6 +1824,42 @@ def test_graphed_solve_matches_the_eager_witness(fmt, dtype, symmetric,
     else:
         assert abs(graphed.iterations - eager.iterations) <= max(1, eager.iterations // 10)
     assert _true_residual(coo, b, graphed.x) <= true_tol
+
+
+#: r0 mode -> the system of test_whdia_wide_solves_repeat_their_bits
+WIDE_SOLVES = {"slab": lambda: laplacian_2d(40, 40),
+               "pattern": lambda: random_banded(3000, bands=11, seed=2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(WIDE_SOLVES))
+@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+def test_whdia_wide_solves_repeat_their_bits(dtype, mode, cuda_device):
+    """#6 and #10 read the live slots without atomics, so their WHDIA
+    solve() route gives the same bits graphed and eager: CG capped at 60
+    iterations (tol 0) on each r0 mode's system made Hermitian (float64:
+    symmetric) positive-definite, the same x bit for bit, each launch
+    counted."""
+    c = WIDE_SOLVES[mode]()
+    cplx = dtype == "complex128"
+    h = _hermitian(_complex(c, np.complex128) if cplx else CooMatrix(
+        c.rows, c.cols, c.values.astype(np.complex128), c.n_rows, c.n_cols))
+    coo = h if cplx else CooMatrix(h.rows, h.cols, h.values.real.copy(), h.n_rows,
+                                   h.n_cols)
+    b = (_cvec(coo.n_rows, 11) if cplx else
+         np.random.default_rng(11).standard_normal(coo.n_rows)).astype(dtype)
+    a = coo_to_whdia(coo, device=cuda_device)
+    assert a.pattern_mode == (mode == "pattern")
+    bt = torch.from_numpy(b).to(cuda_device)
+    counter = "LAUNCHES_C128" if cplx else "LAUNCHES_F64"
+    got = {}
+    for tag, fn in (("graphed", loop.cg), ("eager", loop._cg_eager)):
+        setattr(kd, counter, 0)
+        got[tag] = fn(lambda v: ops.whdia_spmv(a, v), bt, tol=0.0, maxiter=60)
+        torch.cuda.synchronize()
+        assert got[tag].iterations == 60 and getattr(kd, counter) >= 61
+    assert torch.equal(got["graphed"].x, got["eager"].x)
+    assert torch.equal(got["graphed"].residual_norm, got["eager"].residual_norm)
 
 
 @pytest.mark.cuda

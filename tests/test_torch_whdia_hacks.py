@@ -2,19 +2,23 @@
 
 Every ``WhdiaMatrix`` derives ``hack_slot_ptr``/``hack_slots`` from its
 values when it is built: the slots that hold a nonzero, grouped by hack
-in tile and slot order.  Kernels #9 (complex64 SpMV) and #13 (fp32 SpMM)
-read only those slots.  Here, on the CPU:
+in tile and slot order.  Every WHDIA SpMV kernel (#3 fp32, #6 float64, #9
+complex64, #10 complex128) and the fp32 SpMM (#13) read only those
+slots.  Here, on the CPU:
 
 * the list covers every nonzero, on the Laplacian (slab mode), a
-  wandering band (pattern mode) and both with empty row blocks, in fp32
-  and complex64, and keeps tile order within a hack even where the
+  wandering band (pattern mode) and both with empty row blocks, in all
+  four value types, and keeps tile order within a hack even where the
   hack's tiles are not contiguous;
 * ``.to()``, ``dataclasses.replace`` and the bridges from the JAX arrays
   rebuild it, and ``check()`` rejects a stale one;
-* the listed product (``whdia_spmm_listed_plain``, the kernel's order)
-  matches the full-layout plain product (rtol 1e-5, atol 1e-5·max|z|)
-  and the JAX op in interpret mode (fp32 the same; complex64
-  3e-5·max|z|, as ``tests/test_torch_complex.py``);
+* the listed product (``whdia_spmm_listed_plain``, the kernels' order)
+  matches the full-layout plain product (rtol 1e-5, atol 1e-5·max|z|;
+  float64 and complex128 1e-12·max|z|) and the JAX op in interpret mode
+  (fp32 the same; complex64 3e-5·max|z|, as
+  ``tests/test_torch_complex.py``; float64 the double-float op and
+  complex128 the Z op, bridged as ``tests/test_torch_f64.py`` and
+  ``tests/test_torch_complex.py`` do, 1e-12·max|z|);
 * an Inf in x at a column that only all-zero slots reach makes the full
   product NaN (the JAX semantics) and leaves the listed one at the golden.
 """
@@ -31,6 +35,7 @@ import jax.numpy as jnp  # noqa: E402
 from spgpu_tpu import ops as jops  # noqa: E402
 from spgpu_tpu.convert.whdia import coo_to_whdia as j_coo_to_whdia  # noqa: E402
 from spgpu_tpu.formats.coo import CooMatrix as JCoo  # noqa: E402
+from spgpu_tpu.ops import dd  # noqa: E402
 from spgpu_tpu.utils import fixtures as jfix  # noqa: E402
 from spgpu_tpu_torch import ops as tops  # noqa: E402
 from spgpu_tpu_torch.convert import coo_to_whdia  # noqa: E402
@@ -55,7 +60,11 @@ CASES = {
     "banded_holes": (lambda f: _holes(f.random_banded(2000, bands=11, wander=7,
                                                       seed=2)), True),
 }
-DTYPES = ("float32", "complex64")
+DTYPES = ("float32", "complex64", "float64", "complex128")
+#: value type -> (atol/max|z| and rtol of the listed product against the
+#: full plain one and the JAX op, atol/max|z| and rtol against the golden)
+TOL = {"float32": (1e-5, 1e-5, 2e-5, 2e-5), "complex64": (1e-5, 1e-5, 2e-5, 0.0),
+       "float64": (1e-12, 0.0, 1e-12, 0.0), "complex128": (1e-12, 0.0, 1e-12, 0.0)}
 ARRAYS = ("values", "slot_r0", "tile_r0", "tile_base", "chunk_group")
 STATIC = ("n_rows", "n_cols", "num_hacks", "num_groups", "total_slots", "nnz",
           "x_pages", "window_pages", "group_hacks", "chunk_tiles")
@@ -64,7 +73,7 @@ STATIC = ("n_rows", "n_cols", "num_hacks", "num_groups", "total_slots", "nnz",
 def _values(coo, dtype, seed=8):
     """``coo``'s values as ``dtype``; complex: ``v + 1j·N(0, 1)``."""
     v = coo.values.astype(np.float64)
-    if dtype == "complex64":
+    if dtype.startswith("complex"):
         v = v + 1j * np.random.default_rng(seed).standard_normal(coo.nnz)
     return v.astype(dtype)
 
@@ -78,7 +87,7 @@ def _coo(name, dtype, f=tfix):
 def _vec(shape, dtype, seed=0):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(shape)
-    if dtype == "complex64":
+    if dtype.startswith("complex"):
         x = x + 1j * rng.standard_normal(shape)
     return x.astype(dtype)
 
@@ -186,7 +195,7 @@ def _bridged(name, dtype):
     """The JAX converter's layout of the case, and the port's from it."""
     jc = _coo(name, dtype, jfix)
     ja = j_coo_to_whdia(jc)
-    if dtype == "complex64":
+    if dtype.startswith("complex"):
         f = {p: {k: None if getattr(getattr(ja, p), k, None) is None
                  else np.asarray(getattr(getattr(ja, p), k))
                  for k in ARRAYS + ("values_lo",)} for p in ("ar", "ai")}
@@ -244,26 +253,30 @@ def test_check_rejects_a_stale_list():
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("name", ["laplace", "banded"])
 def test_listed_product_matches_full_plain_and_jax(name, dtype):
-    """One JAX layout through the JAX op (interpret mode; complex64 the
-    JAX plane pair) and, bridged, through the listed and the full plain
-    products, all against each other and the host golden."""
+    """One JAX layout through the JAX op (interpret mode; complex the
+    JAX plane pair, float64 and complex128 double-float planes) and,
+    bridged, through the listed and the full plain products, all against
+    each other and the host golden."""
     ja, a = _bridged(name, dtype)
     x = _vec(a.n_cols, dtype)
     xt = torch.from_numpy(x)[None]
     zl = _listed(a, xt)[0, : a.n_rows].numpy()
     zp = _full(a, xt)[0, : a.n_rows].numpy()
-    if dtype == "complex64":
+    tol, rtol, gtol, grtol = TOL[dtype]
+    if dtype.startswith("complex"):
         zj = ja.extract_complex(np.asarray(jops.whdia_spmv(
             ja, jnp.asarray(ja.embed_complex(x.astype(np.complex128))))))
-        jtol = 3e-5
+        jtol = 3e-5 if dtype == "complex64" else tol
+    elif dtype == "float64":
+        zj = dd.join(np.asarray(jops.whdia_spmv(ja, jnp.asarray(dd.split(x)))))
+        jtol = tol
     else:
         zj = np.asarray(jops.whdia_spmv(ja, jnp.asarray(x)))
         jtol = 1e-5
-    _near(zl, zp, 1e-5, 1e-5, "listed vs full plain")
-    _near(zl, zj, jtol, 1e-5 if dtype == "float32" else 0.0, "listed vs JAX")
-    golden = _coo(name, dtype).spmv(x.astype(np.complex128 if dtype == "complex64"
-                                             else np.float64))
-    _near(zl, golden, 2e-5, 2e-5 if dtype == "float32" else 0.0, "listed vs golden")
+    _near(zl, zp, tol, rtol, "listed vs full plain")
+    _near(zl, zj, jtol, rtol if dtype == "float32" else 0.0, "listed vs JAX")
+    golden = _coo(name, dtype).spmv(x.astype(_wide(dtype)))
+    _near(zl, golden, gtol, grtol, "listed vs golden")
 
 
 @pytest.mark.parametrize("n_rhs", [1, 3, 9])
@@ -276,6 +289,11 @@ def test_listed_spmm_matches_full_plain(name, n_rhs):
     _near(zl, _full(a, x), 1e-5, 1e-5)
     # the op's CPU path (fused or not) is the full plain product
     _near(tops.whdia_spmm(a, x, fused=True), _full(a, x)[:, : a.n_rows], 0, 0)
+
+
+def _wide(dtype):
+    """The host golden's type: complex128 or float64."""
+    return np.complex128 if dtype.startswith("complex") else np.float64
 
 
 def _dead_only_columns(a):
@@ -296,14 +314,13 @@ def test_inf_behind_a_dead_slot(dtype):
     x = _vec(a.n_cols, dtype)
     x[cols[len(cols) // 2]] = np.inf
     xt = torch.from_numpy(x)[None]
-    wide = np.complex128 if dtype == "complex64" else np.float64
-    golden = coo.spmv(x.astype(wide))
+    golden = coo.spmv(x.astype(_wide(dtype)))
     assert np.isfinite(golden).all()
     full = _full(a, xt)[0, : a.n_rows].numpy()
     assert np.isnan(full).any()  # 0 * Inf in a dead slot, as the JAX kernel
     listed = _listed(a, xt)[0, : a.n_rows].numpy()
     assert np.isfinite(listed).all()
-    _near(listed, golden, 2e-5, 2e-5 if dtype == "float32" else 0.0)
+    _near(listed, golden, *TOL[dtype][2:])
 
 
 def test_wrappers_need_the_list_on_cuda_only():
@@ -348,25 +365,30 @@ def test_listed_fp32_matches_jax_on_empty_row_blocks(name):
 
 
 def test_fp32_spmv_reads_the_list_on_cuda_only():
-    """fp32 joins complex64 on the live slots (``HACK_PASS``): on CPU
-    tensors the wrapper runs the full plain product without the list and
-    counts no launch; #3's 16-byte value loads need an aligned slab."""
-    assert torch.float32 in kd.HACK_PASS and torch.complex64 in kd.HACK_PASS
-    assert torch.float64 not in kd.HACK_PASS
-    assert torch.complex128 not in kd.HACK_PASS
-    a = coo_to_whdia(_coo("laplace", "float32"), device="cpu")
-    x = torch.from_numpy(_vec(a.n_cols, "float32"))
-    args = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group)
-    static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
-                  num_groups=a.num_groups, tile_page=a.tile_page)
-    before = kd.LAUNCHES
-    torch.testing.assert_close(kd.whdia_spmv(*args, x, **static),
-                               _full(a, x[None])[0], rtol=0, atol=0)
-    assert kd.LAUNCHES == before
-    kd._check_aligned("whdia_spmv", a.values)
-    flat = torch.zeros(a.values.numel() + 1)
-    with pytest.raises(ValueError, match="16 B aligned"):
-        kd._check_aligned("whdia_spmv", flat[1:].view_as(a.values))
+    """Every value type's SpMV reads the live slots on the card
+    (``HACK_PASS``: #3, #6, #9 and #10): on CPU tensors the wrapper runs
+    the full plain product without the list and counts no launch; the
+    warp pass's 16-byte value loads need an aligned fp32 or float64
+    slab (``ALIGNED``)."""
+    assert set(kd.HACK_PASS) == {torch.float32, torch.float64, torch.complex64,
+                                 torch.complex128}
+    assert set(kd.ALIGNED) <= set(kd.HACK_PASS)
+    for dtype in DTYPES:
+        a = coo_to_whdia(_coo("laplace", dtype), device="cpu")
+        x = torch.from_numpy(_vec(a.n_cols, dtype))
+        args = (a.values, a.slot_r0, a.tile_r0, a.tile_base, a.chunk_group)
+        static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+                      num_groups=a.num_groups, tile_page=a.tile_page)
+        counter = kd._ENTRIES[a.values.dtype][1]
+        before = getattr(kd, counter)
+        torch.testing.assert_close(kd.whdia_spmv(*args, x, **static),
+                                   _full(a, x[None])[0], rtol=0, atol=0)
+        assert getattr(kd, counter) == before
+        if a.values.dtype in kd.ALIGNED:
+            kd._check_aligned("whdia_spmv", a.values)
+            flat = torch.zeros(a.values.numel() + 1, dtype=a.values.dtype)
+            with pytest.raises(ValueError, match="16 B aligned"):
+                kd._check_aligned("whdia_spmv", flat[1:].view_as(a.values))
 
 
 def test_listed_sum_adds_each_hack_in_list_order():
