@@ -231,13 +231,40 @@ the float64 geometry sweep, and checks them:
                kernel's device time warm and cold, the plain version's,
                cuSPARSE CSR's and the bound (``python3 chip_smoke.py
                --large`` runs 30 and 31 alone).
+32. dist_local — the distributed layer (``spgpu_tpu_torch.parallel``),
+               each shard's product on the card with its halo taken from
+               the global x by the plan (``_PlannedHalo``: the schedule
+               of a rank, the side stream and both slabs, eager and
+               captured in a CUDA graph): the SPD flagship
+               of 5 in 4- and 8-shard packed partitions in fp32 (#1) and
+               float64 (#4), and the relabelled flagship of 22 in a
+               4-shard classic partition (#15); each shard's rows held to
+               the golden, its launches counted; per shard the interior
+               and exterior products' device µs and the halo lanes and
+               bytes it receives and sends;
+33. dist_solve — ``dist_cg`` on one NCCL rank (its ``all_reduce``s in
+               the loop's CUDA graph) on the SPD flagship in fp32,
+               float64, complex64 and complex128 and on the float64 1024²
+               Laplacian (packed WHELL, #4), each twice, beside the
+               single-device ``cg`` on the same layout (float64 and
+               complex128 bit for bit) and, in float64, its eager witness
+               (bit for bit); iterations, host ms per iteration, device
+               ms per step, ``all_reduce`` device µs per step, idle share,
+               true residual;
+34. dist_plan — the JAX weak-scaling fixture (``random_banded(65536·S,
+               11, wander=3, seed=2)``) at S = 1, 2, 4, 8: the S-shard
+               plan's halo lanes and bytes per pair, and the matrix's
+               product at world size 1 (#1), device and per-call ms.
+               The host has one card: no rank runs on a second card
+               (``python3 chip_smoke.py --dist`` runs 32-34 alone).
 
-Phases 26-28, 29 and 30-31 run in fresh processes of this script
-(``chip_smoke.py --sweeps``, ``--kernel-times``, ``--large``, which print
-their lines for this one to emit): after the earlier phases' profiling
-sessions, sessions in this process lose events.  The large phases' main-
-path launches (their checked op calls and solves) add to the kernel
-table's.
+Phases 26-28, 29, 30-31 and 32-34 run in fresh processes of this script
+(``chip_smoke.py --sweeps``, ``--kernel-times``, ``--large``, ``--dist``,
+which print their lines for this one to emit): after the earlier phases'
+profiling sessions, sessions in this process lose events, and the
+distributed phases open and destroy their own NCCL group.  The large and
+distributed phases' main-path launches (their checked op calls and
+solves) add to the kernel table's.
 
 Every time a solve phase prints carries the card's name and power limit
 (``card``).
@@ -2112,6 +2139,361 @@ def large_phases(device, smi):
 
 
 
+#: the distributed phases' sizes: the shard counts of the flagship's
+#: partitions (classic: the first), the weak-scaling fixture's rows a
+#: shard and shard counts (``spgpu_tpu/bench/harness.py:332-372``), and the
+#: float64 Laplacian's side
+DIST = dict(shards=(4, 8), plan_rows=65536, plan_shards=(1, 2, 4, 8), lap=1024)
+
+#: the kernels a distributed product launches: name -> (kernel module,
+#: launch counter)
+DIST_KERNELS = {"whell_packed_spmv": ("whell", "LAUNCHES"),
+                "whell_packed_spmv_f64": ("whell", "LAUNCHES_F64"),
+                "whell_packed_spmv_c64": ("whell", "LAUNCHES_C64"),
+                "whell_packed_spmv_c128": ("whell", "LAUNCHES_C128"),
+                "whell_classic_spmv": ("whell_classic", "LAUNCHES")}
+
+#: what every distributed phase says of the ranks it ran
+ONE_CARD = ("world size 1 only: this host has one card, and NCCL runs no "
+            "two ranks on one card; no multi-card run was possible")
+
+
+def dist_counts(reset=False) -> dict:
+    """The launch counters of :data:`DIST_KERNELS` by kernel name (set to
+    0 first with ``reset``)."""
+    import importlib
+
+    out = {}
+    for name, (mod, attr) in DIST_KERNELS.items():
+        m = importlib.import_module(f"spgpu_tpu_torch.kernels.{mod}")
+        if reset:
+            setattr(m, attr, 0)
+        out[name] = getattr(m, attr)
+    return out
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def counted(fn, launches: dict):
+    """``fn()`` with the distributed kernels' counters set to 0 just
+    before and read just after (a synchronise between), added into
+    ``launches``; returns ``fn``'s result and the counts."""
+    import torch
+
+    dist_counts(reset=True)
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in dist_counts().items() if v}
+    add_counts(launches, counts)
+    return out, counts
+
+
+def dist_local_phase(device, smi):
+    """Phase 32 (``--dist``): each shard's product on the card, its halo
+    taken by the plan from the global x (``parallel.dist_spmv._PlannedHalo``:
+    the schedule of a rank, the exchange's values from the plan instead of
+    from peers).  The SPD flagship (the ``solve`` phase's system) in
+    4- and 8-shard packed partitions, fp32 (#1) and float64 (#4), and the
+    relabelled flagship of the ``classic`` phase in a 4-shard classic
+    partition (#15).  Each shard's rows held to the golden (fp32 2e-5,
+    float64 1e-12, times max|z|), its kernels' launches counted (one for
+    the interior, one for the exterior where it has one), and the same
+    schedule captured in a CUDA graph (:func:`graphed_product`); per
+    shard the interior and exterior products' device µs, the halo lanes
+    it receives and sends and their bytes."""
+    import torch
+
+    from spgpu_tpu_torch import ops
+    from spgpu_tpu_torch.convert import local_degree_perm, symmetric_relabel
+    from spgpu_tpu_torch.parallel import partition_coo_rows_packed, partition_coo_rows_whell
+    from spgpu_tpu_torch.parallel.dist_spmv import _PlannedHalo as PlannedHalo
+    from spgpu_tpu_torch.utils.timing import device_ms
+
+    out, launches = dict(card=smi, ranks=ONE_CARD), {}
+    raw = flagship()
+    spd = spd_from(raw)
+    systems = [("fp32", spd, partition_coo_rows_packed, DIST["shards"], 2e-5),
+               ("float64", spd_from(flagship(np.float64), np.float64),
+                partition_coo_rows_packed, DIST["shards"], 1e-12),
+               ("classic_fp32", symmetric_relabel(raw, local_degree_perm(raw)),
+                partition_coo_rows_whell, DIST["shards"][:1], 2e-5)]
+    for tag, coo, make, shard_counts, tol in systems:
+        dt = coo.values.dtype
+        x = rand_vector(coo.n_rows, 7, dt)
+        g = coo.spmv(x.astype(wide(dt)))
+        for S in shard_counts:
+            t0 = time.perf_counter()
+            pm = make(coo, S)
+            build_s = time.perf_counter() - t0
+            per_shard = []
+            for s in range(S):
+                h = PlannedHalo(pm, s, device)
+                xl = h.set_x(x)
+                z, counts = counted(lambda: h.matvec(xl), launches)
+                want = 1 + (h.exterior is not None)
+                if sum(counts.values()) != want:
+                    raise AssertionError(f"dist_local {tag} S={S} shard {s}: launches "
+                                         f"{counts}, not {want}")
+                err = check_close(pm.extract_shard(z, s), g[pm.rows_of(s)], 0.0, tol,
+                                  f"dist_local {tag} S={S} shard {s}")
+                graph = graphed_product(h, xl, rand_vector(coo.n_rows, 8 + s, dt),
+                                        dt == np.float64, f"dist_local {tag} S={S} "
+                                        f"shard {s}")
+                item = torch.empty((), dtype=pm.dtype).element_size()
+                ext = h.exterior
+                per_shard.append(dict(
+                    shard=s, rows=pm.shards[s].n_local, vector=h.n,
+                    interior_tiles=h.interior.num_tiles,
+                    exterior_tiles=None if ext is None else ext.num_tiles,
+                    exterior_groups=None if ext is None else ext.num_groups,
+                    interior_groups=h.interior.num_groups,
+                    halo_lanes_in=h.recv.numel(),
+                    halo_lanes_out=sum(i.numel() for _, i in h.sends),
+                    bytes_in=h.recv.numel() * item,
+                    bytes_out=sum(i.numel() for _, i in h.sends) * item,
+                    launches=counts, max_abs_err=err, graph=graph,
+                    interior_device_us=1e3 * device_ms(
+                        lambda: ops.whell_spmv(h.interior, xl), iters=10)[0],
+                    exterior_device_us=None if ext is None else 1e3 * device_ms(
+                        lambda: ops.whell_spmv(ext, h.work), iters=10)[0],
+                    product_device_us=1e3 * device_ms(lambda: h.matvec(xl), iters=10)[0]))
+                del h, z
+            out[f"{tag}_S{S}"] = dict(
+                rows=coo.n_rows, nnz=coo.nnz, shards=S, chunk=pm.chunk,
+                halo_width=pm.halo_width, build_s=build_s,
+                halo_lanes=sum(map(sum, pm.halo_counts)),
+                halo_bytes=sum(r["bytes_out"] for r in per_shard),
+                live_pairs=sum(c > 0 for row in pm.halo_counts for c in row),
+                per_shard=per_shard)
+            del pm
+            torch.cuda.empty_cache()
+    return out, launches
+
+
+def graphed_product(h, xl, x2, exact: bool, what: str):
+    """The planned-halo product ``h.matvec(xl)`` captured in one CUDA graph
+    (the side stream's fork and join, the send gathers, the workspace, both
+    kernels), replayed on ``x2`` copied into the captured block and halo,
+    and held to the eager product of ``x2``: bit for bit where ``exact``
+    (a kernel that gives the same bits every call), else within 1e-5 of
+    max|z|.  Returns ``"bit_identical"`` or the largest relative gap."""
+    import torch
+
+    if xl.device.type != "cuda":  # a CPU rehearsal of the phase
+        return "not captured on the CPU"
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        z = h.matvec(xl)
+    xl.copy_(h.set_x(x2))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = h.matvec(h.set_x(x2))
+    gap = float((z - want).abs().max() / want.abs().max())
+    del graph
+    if (exact and not torch.equal(z, want)) or gap > 1e-5:
+        raise AssertionError(f"{what}: the graphed product differs from the eager "
+                             f"one by {gap} of max|z|")
+    return "bit_identical" if torch.equal(z, want) else gap
+
+
+def dist_loop(h, b, tol, maxiter, launches):
+    """Two graphed distributed solves on the handle ``h`` (the first
+    loads what the step reaches; host ms of each to a synchronise,
+    launches counted) and a profiled window of
+    :data:`PROFILED_ITERATIONS` steps: device ms per step, the
+    ``all_reduce``s' device µs per step (the device operations NCCL's
+    ``all_reduce`` issues inside the graph; an in-place one on one rank
+    issues none) and the idle share of the second solve."""
+    import torch
+
+    from spgpu_tpu_torch.utils.timing import device_ms_by_kernel
+
+    loop = krylov_loop()
+    runs = {}
+    for call in ("cold", "warm"):
+        loop_counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r, counts = counted(lambda: h.solve(b, tol=tol, maxiter=maxiter), launches)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        runs[call] = dict(iterations=r.iterations, converged=bool(r.converged),
+                          host_ms=host_ms, ms_per_iter=host_ms / max(r.iterations, 1),
+                          launches=counts, **loop_counts())
+    run = dict(runs["warm"], cold=runs["cold"])
+    steps = run["device_steps"]
+    loop_counts(reset=True)
+    by_kernel = device_ms_by_kernel(
+        lambda: h.solve(b, tol=0.0, maxiter=PROFILED_ITERATIONS), iters=1, warmup=0,
+        attempts=3)
+    prof_steps = max(loop.STEPS, 1)
+    if by_kernel:
+        per_step = sum(by_kernel.values()) / prof_steps
+        reduce_ops = sorted(k for k in by_kernel
+                            if "allreduce" in re.sub(r"[^a-z]", "", k.lower()))
+        run.update(device_ms_per_step=per_step,
+                   allreduce_device_us_per_step=1e3 * sum(
+                       by_kernel[k] for k in reduce_ops) / prof_steps,
+                   allreduce_ops=reduce_ops,
+                   device_idle_share=1 - per_step * steps / run["host_ms"],
+                   device_ms_per_step_by_kernel={
+                       k: v / prof_steps for k, v in sorted(
+                           by_kernel.items(), key=lambda kv: -kv[1])[:8]})
+    else:
+        run.update(device_ms_per_step=None, allreduce_device_us_per_step=None,
+                   device_idle_share=None, device_source="no usable profiling session")
+    return r, run
+
+
+def dist_solve_phase(device, smi, rg):
+    """Phase 33 (``--dist``): ``dist_cg`` at world size 1 (an NCCL group
+    of one rank, the step's ``all_reduce``s captured in the loop's CUDA
+    graph) on the SPD flagship in fp32 (#1), float64 (#4), complex64 (#7)
+    and complex128 (its values ``v + 1j·N(0, 1)`` as ``solve_complex``
+    builds them), and on the float64 1024² Laplacian through packed WHELL
+    (#4).  Each beside the single-device ``cg`` on the same layout (the
+    handle's): float64 and complex128 the same iterations and x bit for
+    bit, fp32 and complex64 within max(1, 10 %); the float64 solves also
+    beside their eager witness (``eager=True``), bit for bit.  Each prints
+    iterations, host ms per iteration of a first and a second solve (the
+    handle's embed of ``b``, capture and gather of ``x`` included), device
+    ms per step, the ``all_reduce``s' device µs per step, the idle share
+    and the true residual."""
+    import torch
+
+    from spgpu_tpu_torch import ops
+    from spgpu_tpu_torch.parallel import DistSolveHandle, partition_coo_rows_packed
+    from spgpu_tpu_torch.utils.fixtures import laplacian_2d
+
+    loop = krylov_loop()
+    out, launches = dict(card=smi, ranks=ONE_CARD, graph_steps=loop.GRAPH_STEPS), {}
+    coo64 = flagship(np.float64)
+    systems = [("flagship_fp32", spd_from(flagship()), 1e-5, 1e-4),
+               ("flagship_float64", spd_from(coo64, np.float64), 1e-10, 1e-9),
+               ("flagship_complex64", spd_from(with_imag(coo64, 8, np.complex64),
+                                               np.complex64), 1e-5, 1e-4),
+               ("flagship_complex128", spd_from(with_imag(coo64, 8, np.complex128),
+                                                np.complex128), 1e-10, 1e-9),
+               (f"laplace{DIST['lap']}_float64",
+                laplacian_2d(DIST["lap"], DIST["lap"], np.float64), 1e-10, 1e-9)]
+    for tag, coo, tol, true_tol in systems:
+        t0 = time.perf_counter()
+        dt = coo.values.dtype
+        x_true = rand_vector(coo.n_rows, 1, wide(dt))
+        b = coo.spmv(x_true).astype(dt)
+        h = DistSolveHandle(partition_coo_rows_packed(coo, 1), rg)
+        r, run = dist_loop(h, b, tol, 20000, launches)
+        if not run["converged"]:
+            raise AssertionError(f"dist_solve {tag}: did not converge")
+        run["true_residual"] = true_residual(coo, b, r.x)
+        if not run["true_residual"] <= true_tol:
+            raise AssertionError(f"dist_solve {tag}: true residual "
+                                 f"{run['true_residual']} > {true_tol}")
+        a = h.op.interior
+        b_l = h.op.embed(b)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        # the comparisons (single-device and eager) are not the main path:
+        # their launches are shown beside them and kept out of ``launches``
+        one, counts = counted(lambda: loop.cg(lambda v: ops.whell_spmv(a, v), b_l,
+                                              tol=tol, maxiter=20000), {})
+        single_ms = 1e3 * (time.perf_counter() - t1)
+        x_one = h.pm.extract_shard(one.x, 0)
+        exact = ("whell", np.dtype(dt).name) in BIT_REPRODUCIBLE
+        if exact:
+            if one.iterations != r.iterations or not torch.equal(x_one, r.x):
+                raise AssertionError(f"dist_solve {tag}: {r.iterations} iterations, "
+                                     f"single-device {one.iterations}, or x differs")
+        elif abs(one.iterations - r.iterations) > max(1, one.iterations // 10):
+            raise AssertionError(f"dist_solve {tag}: {r.iterations} iterations, "
+                                 f"single-device {one.iterations}")
+        run["single_device"] = dict(iterations=one.iterations, host_ms=single_ms,
+                                    ms_per_iter=single_ms / max(one.iterations, 1),
+                                    launches=counts,
+                                    vs_dist="bit_identical" if exact else "within_gate")
+        if dt == np.float64:
+            e, counts = counted(lambda: h.solve(b, tol=tol, maxiter=20000, eager=True),
+                                {})
+            if e.iterations != r.iterations or not torch.equal(e.x, r.x):
+                raise AssertionError(f"dist_solve {tag}: eager {e.iterations} "
+                                     f"iterations, graphed {r.iterations}, or x differs")
+            run["vs_eager"] = "bit_identical"
+            run["eager_launches"] = counts
+        out[tag] = dict(rows=coo.n_rows, nnz=coo.nnz, tol=tol, placements=h.placements,
+                        item_s=time.perf_counter() - t0, **run)
+        del h, a, b_l, one
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def dist_plan_phase(device, smi, rg):
+    """Phase 34 (``--dist``): the JAX weak-scaling fixture
+    (``random_banded(65536·S, 11, wander=3, seed=2)``, duplicates summed,
+    ``spgpu_tpu/bench/harness.py:332-372``) for S = 1, 2, 4 and 8: the
+    host plan of its S-shard packed partition (halo lanes and bytes of
+    each live pair, seconds to build), and the matrix's product on the
+    card at world size 1 (``dist_spmv``'s handle, #1; device and per-call
+    ms, held to the golden).  Ranks above 1 were not run."""
+    import torch
+
+    from spgpu_tpu_torch.parallel import ShardedHandle, partition_coo_rows_packed
+    from spgpu_tpu_torch.utils.fixtures import random_banded
+    from spgpu_tpu_torch.utils.timing import device_ms, time_interleaved
+
+    out, launches = dict(card=smi), {}
+    for S in DIST["plan_shards"]:
+        n = DIST["plan_rows"] * S
+        coo = random_banded(n, 11, wander=3, seed=2, dtype=np.float32).sum_duplicates()
+        t0 = time.perf_counter()
+        pm = partition_coo_rows_packed(coo, S)
+        build_s = time.perf_counter() - t0
+        pairs = {f"{p}->{s}": dict(lanes=c, bytes=4 * c)
+                 for p, row in enumerate(pm.halo_counts) for s, c in enumerate(row) if c}
+        h = ShardedHandle(partition_coo_rows_packed(coo, 1), rg)
+        x = rand_vector(n, 7, np.float32)
+        xl = h.embed(x)
+        z, counts = counted(lambda: h.matvec(xl), launches)
+        err = check_close(h.extract(z), coo.spmv(x.astype(np.float64)), 0.0, 2e-5,
+                          f"dist_plan S={S}")
+        dev, src = device_ms(lambda: h.matvec(xl))
+        per_call = time_interleaved({"matvec": lambda: h.matvec(xl)})["matvec"]["best_ms"]
+        out[f"S{S}"] = dict(
+            rows=n, nnz=coo.nnz, shards=S, build_s=build_s, halo_width=pm.halo_width,
+            halo_lanes=sum(p["lanes"] for p in pairs.values()),
+            halo_bytes=sum(p["bytes"] for p in pairs.values()), pairs=pairs,
+            world1_device_ms=dev, world1_device_source=src, world1_per_call_ms=per_call,
+            world1_launches=counts, max_abs_err=err,
+            ranks=f"the plan only for S > 1: {ONE_CARD}")
+        del h, pm
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def dist_phases(device, smi):
+    """Phases 32-34 in this process (``--dist``), the last two in an NCCL
+    group of one rank that this process opens and destroys; each with its
+    main-path launches by kernel (counted from 0 around each checked
+    product and graphed ``dist_cg`` solve; timing calls and the
+    single-device and eager comparisons are not counted)."""
+    import tempfile
+
+    from spgpu_tpu_torch.parallel import destroy_rank_group, init_rank_group
+
+    res, launches = dist_local_phase(device, smi)
+    yield "dist_local", dict(res, launches=launches)
+    with tempfile.TemporaryDirectory() as d:
+        rg = init_rank_group(os.path.join(d, "store"), 0, 1, device)
+        try:
+            for phase, fn in (("dist_solve", dist_solve_phase),
+                              ("dist_plan", dist_plan_phase)):
+                res, launches = fn(device, smi, rg)
+                yield phase, dict(res, launches=launches)
+        finally:
+            destroy_rank_group()
+
+
 def build_all():
     """The host helpers, then the five kernel libraries (the packed WHELL,
     SDIA and WHDIA ones each hold the float32, float64, complex64 and
@@ -2624,7 +3006,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
-    if sys.argv[1:] in (["--sweeps"], ["--kernel-times"], ["--large"]):
+    if sys.argv[1:] in (["--sweeps"], ["--kernel-times"], ["--large"], ["--dist"]):
         # every library up to date before the first profiling session: a
         # phase run alone from a fresh checkout lost its kernels' events
         # where the build ran between sessions
@@ -2638,6 +3020,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--large"]:  # phases 30 and 31, for child_phases
         for phase, res in large_phases(device, nvidia_smi()):
+            print(json.dumps({"phase": phase, **res}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--dist"]:  # phases 32-34, for child_phases
+        for phase, res in dist_phases(device, nvidia_smi()):
             print(json.dumps({"phase": phase, **res}), flush=True)
         return 0
     from spgpu_tpu_torch.convert import (coo_to_whell, local_degree_perm,
@@ -2838,8 +3224,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     large_launches = {}
     for res in child_phases("--large", 2):
-        for k, v in res["launches"].items():
-            large_launches[k] = large_launches.get(k, 0) + v
+        add_counts(large_launches, res["launches"])
+
+    # --- the distributed layer, in a fresh process with its own NCCL ------
+    # --- group of one rank: shard products, world-size-1 solves, plans ----
+    for res in child_phases("--dist", 3):
+        add_counts(large_launches, res["launches"])
 
     def whdia_row(name, solves, phases):
         """WHDIA's row: the Laplacian's times, the larger error of its two
@@ -2888,7 +3278,7 @@ def main() -> int:
         kernel_row("pcell_spmv", solve_p["launches"], pcell),
         ablation_row("whdia_ablation", acc18),
         ablation_row("whell_packed_ablation_f64", [acc19])]
-    for row in rows:  # the large phases' main-path launches too
+    for row in rows:  # the large and distributed phases' main-path launches too
         row["launches"] += large_launches.get(row["name"], 0)
     close(rows, smi, torch)
     return 0

@@ -135,6 +135,8 @@ def coo_to_whell(
     scattered: Optional[bool] = None,
     group_hacks: Optional[int] = None,
     chunk_tiles: Optional[int] = None,
+    row_degrees: Optional[np.ndarray] = None,
+    lane_capacity: Optional[float] = None,
 ):
     """Build a :class:`WhellMatrix` on ``device``: packed (the default) or
     classic (``packed=False``).
@@ -156,7 +158,12 @@ def coo_to_whell(
     (tiles per chunk) override that measured geometry, as in the JAX
     converter (the geometry sweep's knobs); a group may hold at most
     2**12 hacks with scattered windows and 2**16 with aligned ones (the
-    width of tile_base's hack field).
+    width of tile_base's hack field).  ``row_degrees`` (each row's degree,
+    ``(n_rows,)``) and ``lane_capacity`` (nonzeros a lane holds) override
+    what sizes the rows' lane segments, as in the JAX converter: given
+    both, they pin the lane map, so conversions of subsets of one
+    matrix's entries share one lane space and their products add exactly
+    (:mod:`spgpu_tpu_torch.parallel.partition_packed`).
 
     **Classic** (``packed=False``, any shape): output lane ``j`` of hack
     ``h`` is stored row ``h*128 + j``, one aligned 8-page window per tile
@@ -183,7 +190,10 @@ def coo_to_whell(
             raise ValueError("return_plan is not supported for complex "
                              "packed matrices (convert anew)")
         return _packed_geometry(coo, vdt, window_pages or 32, scattered,
-                                return_plan, device, group_hacks, chunk_tiles)
+                                return_plan, device, group_hacks, chunk_tiles,
+                                row_degrees, lane_capacity)
+    if row_degrees is not None or lane_capacity is not None:
+        raise ValueError("row_degrees/lane_capacity require packed=True")
     if group_hacks is not None or chunk_tiles is not None:
         raise ValueError("group_hacks/chunk_tiles require packed=True (the "
                          "classic geometry is fixed: 8-hack groups, 64-tile "
@@ -217,7 +227,8 @@ def coo_to_whell(
 
 
 def _packed_geometry(coo, vdt, window_pages, scattered, return_plan, device,
-                     group_hacks=None, chunk_tiles=None):
+                     group_hacks=None, chunk_tiles=None, row_degrees=None,
+                     lane_capacity=None):
     """The JAX package's measured packed geometry defaults for ``coo``,
     or the caller's ``group_hacks``/``chunk_tiles``, with scattered
     windows unless the caller asks otherwise.  (The JAX double-float
@@ -257,7 +268,9 @@ def _packed_geometry(coo, vdt, window_pages, scattered, return_plan, device,
         raise ValueError(f"chunk_tiles must be a positive int, not {ct!r}")
     return _coo_to_whell_packed(coo, window_pages, vdt, group_hacks=int(gh),
                                 chunk_tiles=int(ct), scattered=scattered,
-                                return_plan=return_plan, device=device)
+                                return_plan=return_plan, device=device,
+                                row_degrees=row_degrees,
+                                lane_capacity=lane_capacity)
 
 
 def _slab_values(values: np.ndarray, vdt: torch.dtype) -> np.ndarray:
@@ -270,7 +283,8 @@ def _slab_values(values: np.ndarray, vdt: torch.dtype) -> np.ndarray:
 
 def _coo_to_whell_packed(coo: CooMatrix, window_pages: int, vdt: torch.dtype,
                          group_hacks: int, chunk_tiles: int, scattered: bool,
-                         return_plan: bool, device):
+                         return_plan: bool, device, row_degrees=None,
+                         lane_capacity=None):
     if coo.n_rows != coo.n_cols:
         raise ValueError("packed WHELL requires a square matrix (rows and "
                          "columns share the lane-space labels)")
@@ -280,9 +294,13 @@ def _coo_to_whell_packed(coo: CooMatrix, window_pages: int, vdt: torch.dtype,
     K = max(w // 8, 1)
     n, m = coo.n_rows, coo.nnz
 
-    deg = coo.row_lengths().astype(np.int64)
-    # ~1.25x the mean degree balances segment padding against hack count
-    lane_capacity = max(8.0, 1.25 * m / max(n, 1))
+    deg = (np.asarray(row_degrees, np.int64) if row_degrees is not None
+           else coo.row_lengths().astype(np.int64))
+    if deg.shape != (n,):
+        raise ValueError(f"row_degrees must have shape ({n},)")
+    if lane_capacity is None:
+        # ~1.25x the mean degree balances segment padding against hack count
+        lane_capacity = max(8.0, 1.25 * m / max(n, 1))
     d = np.clip(np.ceil(deg / lane_capacity).astype(np.int64), 1, 128)
 
     if n:

@@ -29,6 +29,12 @@ runs eagerly, one at a time, with a host test after each: bit for bit the
 plain loop, which stays as the private witnesses ``_cg_eager`` and
 ``_bicgstab_eager``.
 
+With a ``group`` (a ``torch.distributed`` process group: the distributed
+solves of :mod:`spgpu_tpu_torch.parallel`, each rank on its row block),
+each inner product is ``all_reduce``d on the device, inside the captured
+graph, as the JAX ``axis_name`` sums them with ``psum``; every rank then
+reads the same flag and runs the same replays.
+
 float64 vectors iterate in native float64, so the same loops are also
 the counterparts of ``cg_dd`` and ``bicgstab_dd``, whose double-float
 arithmetic the GPU does not need.  complex64 and complex128 vectors
@@ -53,6 +59,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from spgpu_tpu_torch import kernels
 from spgpu_tpu_torch.core import real_part_dtype
@@ -97,9 +104,19 @@ def _bnorm(dotp, b):
     return torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
 
 
-def _dot(cplx: bool):
-    """The solvers' inner product: sesquilinear for complex vectors."""
-    return lambda u, v: blas1.dot(u, v, conjugate=cplx)
+def _dot(cplx: bool, group=None):
+    """The solvers' inner product: sesquilinear for complex vectors, and
+    summed over ``group``'s ranks on the device where one is given (every
+    rank then holds the same value, so every rank's flag agrees)."""
+    if group is None:
+        return lambda u, v: blas1.dot(u, v, conjugate=cplx)
+
+    def dot(u, v):
+        d = blas1.dot(u, v, conjugate=cplx)
+        dist.all_reduce(torch.view_as_real(d) if d.is_complex() else d, group=group)
+        return d
+
+    return dot
 
 
 def _write(mask, pairs) -> None:
@@ -111,7 +128,8 @@ def _write(mask, pairs) -> None:
 
 def cg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
        x0: Optional[torch.Tensor] = None, tol: float = 1e-10,
-       maxiter: int = 1000, m_inv: Optional[torch.Tensor] = None) -> CgResult:
+       maxiter: int = 1000, m_inv: Optional[torch.Tensor] = None,
+       group=None) -> CgResult:
     """Preconditioned conjugate gradient for SPD ``A``, or Hermitian
     positive-definite ``A`` on complex vectors (``m_inv``: an optional
     diagonal preconditioner vector).  Every scalar is real: ``rz =
@@ -119,30 +137,34 @@ def cg(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     complex ``<p,Ap>`` would give alpha an imaginary part of rounding
     size).  Stops when ‖r‖ ≤ tol·‖b‖ or after ``maxiter`` iterations.  On
     a CUDA device the iteration runs as CUDA-graph replays (module
-    docstring); ``matvec`` must be capturable there."""
-    return _cg(matvec, b, x0, tol, maxiter, m_inv)
+    docstring); ``matvec`` must be capturable there.  ``group``: a
+    ``torch.distributed`` process group over which ``b`` and every vector
+    are row blocks (a distributed solve, ``matvec`` this rank's block of
+    the product): each inner product is ``all_reduce``d on the device,
+    inside the captured graph."""
+    return _cg(matvec, b, x0, tol, maxiter, m_inv, group=group)
 
 
 def bicgstab(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
              x0: Optional[torch.Tensor] = None, tol: float = 1e-10,
              maxiter: int = 1000,
-             m_inv: Optional[torch.Tensor] = None) -> CgResult:
+             m_inv: Optional[torch.Tensor] = None, group=None) -> CgResult:
     """BiCGSTAB for general systems.  Complex vectors take sesquilinear
     products (``conj(r̂)·r``, ``conj(r̂)·v``, ``conj(t)·s``; ``<t,t>`` is
     real).  On breakdown (ρ, r̂·v or ω ≈ 0 — for complex, a squared
     modulus below ``tiny`` — or a non-finite residual) the iterate
     freezes and the loop stops.  On a CUDA device the iteration runs as
     CUDA-graph replays (module docstring); ``matvec`` must be capturable
-    there."""
-    return _bicgstab(matvec, b, x0, tol, maxiter, m_inv)
+    there.  ``group`` as for :func:`cg`."""
+    return _bicgstab(matvec, b, x0, tol, maxiter, m_inv, group=group)
 
 
 def _cg(matvec, b, x0=None, tol=1e-10, maxiter=1000, m_inv=None,
-        steps: Optional[int] = None) -> CgResult:
+        steps: Optional[int] = None, group=None) -> CgResult:
     """:func:`cg` with ``steps`` per chunk (default: :data:`GRAPH_STEPS`
     on CUDA, 1 on the CPU); the tests run chunks of several eager steps
     on the CPU with it."""
-    dotp = _dot(b.is_complex())
+    dotp = _dot(b.is_complex(), group)
 
     def re_dot(u, v):
         return torch.real(dotp(u, v))
@@ -179,10 +201,10 @@ def _cg(matvec, b, x0=None, tol=1e-10, maxiter=1000, m_inv=None,
 
 
 def _bicgstab(matvec, b, x0=None, tol=1e-10, maxiter=1000, m_inv=None,
-              steps: Optional[int] = None) -> CgResult:
+              steps: Optional[int] = None, group=None) -> CgResult:
     """:func:`bicgstab` with ``steps`` per chunk, as :func:`_cg`."""
     cplx = b.is_complex()
-    dotp = _dot(cplx)
+    dotp = _dot(cplx, group)
     tiny = torch.finfo(real_part_dtype(b.dtype)).tiny
 
     def small(s):
@@ -295,8 +317,9 @@ def _capture(step, steps: int, device: torch.device):
         graph.reset()
         raise RuntimeError(
             "the Krylov step cannot be captured in a CUDA graph (a matvec "
-            "that reads the host or synchronises?); the solvers do not run "
-            "eagerly on CUDA instead") from err
+            "that reads the host or synchronises, or a collective this "
+            "torch build cannot capture?); the solvers do not run eagerly "
+            "on CUDA instead") from err
     finally:
         launched = kernels.launch_counts_since(before)
         kernels.add_launches(launched, -1)
@@ -336,13 +359,12 @@ def _replay(graph, launched, active: torch.Tensor, steps: int) -> None:
     done[(i + 1) % 2].synchronize()
 
 
-def _cg_eager(matvec, b, x0=None, tol=1e-10, maxiter=1000, m_inv=None) -> CgResult:
+def _cg_eager(matvec, b, x0=None, tol=1e-10, maxiter=1000, m_inv=None,
+              group=None) -> CgResult:
     """The plain CG loop, one host read per iteration: the witness the
     tests and ``chip_smoke.py`` hold :func:`cg` to (never on a solve
     route)."""
-
-    def dotp(u, v):
-        return blas1.dot(u, v, conjugate=u.is_complex())
+    dotp = _dot(b.is_complex(), group)
 
     def re_dot(u, v):
         return torch.real(dotp(u, v))
@@ -369,13 +391,11 @@ def _cg_eager(matvec, b, x0=None, tol=1e-10, maxiter=1000, m_inv=None) -> CgResu
 
 
 def _bicgstab_eager(matvec, b, x0=None, tol=1e-10, maxiter=1000,
-                    m_inv=None) -> CgResult:
+                    m_inv=None, group=None) -> CgResult:
     """The plain BiCGSTAB loop, one host read per iteration: the witness
     of :func:`bicgstab`, as :func:`_cg_eager` is of :func:`cg`."""
     cplx = b.is_complex()
-
-    def dotp(u, v):
-        return blas1.dot(u, v, conjugate=cplx)
+    dotp = _dot(cplx, group)
 
     def small(s):
         if cplx:

@@ -2085,3 +2085,183 @@ def test_whdia_past_the_page_field(dtype, cuda_device):
     np.testing.assert_allclose(z.double().cpu().numpy(), golden, rtol=0,
                                atol=(1e-12 if dtype == "float64" else 2e-5)
                                * np.abs(golden).max())
+
+
+# --- the distributed layer: each shard's product, and NCCL at one rank ----
+
+def _dist_system(kind):
+    """A 4-shard partition of the 4,000-row FEM fixture in ``kind``'s
+    type (complex: ``+ 1j·N(0, 1)``), packed or (``classic``) classic."""
+    from spgpu_tpu_torch.parallel import partition_coo_rows_packed, partition_coo_rows_whell
+
+    coo = CASES["fem"]()
+    if kind == "classic":
+        return coo, partition_coo_rows_whell(coo, 4)
+    v = coo.values.astype(np.float64)
+    if kind.startswith("complex"):
+        v = v + 1j * np.random.default_rng(8).standard_normal(coo.nnz)
+    coo = CooMatrix(coo.rows, coo.cols, v.astype(kind), coo.n_rows, coo.n_cols)
+    return coo, partition_coo_rows_packed(coo, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["float32", "float64", "complex64", "complex128",
+                                  "classic"])
+def test_dist_shard_products_on_cuda(kind, cuda_device):
+    """Each shard of a 4-shard partition, its halo taken from the global x
+    by the plan: the overlapped product on the card (the exchange's side
+    stream, the interior kernel, the exterior kernel into its prefix)
+    launches one kernel for the interior and one for the exterior where
+    the shard has one, and matches the same product's plain versions on
+    the CPU and the golden rows."""
+    from spgpu_tpu_torch.parallel.dist_spmv import _PlannedHalo as PlannedHalo
+
+    coo, pm = _dist_system(kind)
+    cplx = kind.startswith("complex")
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(coo.n_rows) + (1j * rng.standard_normal(coo.n_rows) if cplx else 0)
+    x = x.astype(coo.values.dtype)
+    g = coo.spmv(x.astype(np.complex128 if cplx else np.float64))
+    mod, attr = (kc, "LAUNCHES") if kind == "classic" else (kw, {
+        "float32": "LAUNCHES", "float64": "LAUNCHES_F64", "complex64": "LAUNCHES_C64",
+        "complex128": "LAUNCHES_C128"}[kind])
+    frac = 1e-12 if kind in ("float64", "complex128") else 1e-5
+    exteriors = 0
+    for s in range(4):
+        h, plain = PlannedHalo(pm, s, cuda_device), PlannedHalo(pm, s, "cpu")
+        before = getattr(mod, attr)
+        z = h.matvec(h.set_x(x))
+        torch.cuda.synchronize()
+        assert getattr(mod, attr) - before == 1 + (h.exterior is not None)
+        exteriors += h.exterior is not None
+        zp = plain.matvec(plain.set_x(x))
+        rows = g[pm.rows_of(s)]
+        _near(z.cpu(), zp, frac, rtol=0 if frac < 1e-6 else 1e-5)
+        _near(pm.extract_shard(z, s).cpu(), torch.from_numpy(rows),
+              frac if frac < 1e-6 else 2e-5)
+    assert exteriors >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["float32", "float64", "complex64", "complex128",
+                                  "classic"])
+def test_dist_shard_product_captured_in_a_graph(kind, cuda_device):
+    """The overlapped schedule of each shard of a 4-shard partition (the
+    side stream's fork and join, the send-lane gathers, the halo placed in
+    the workspace, the interior kernel and the exterior kernel into its
+    prefix), its halo taken from the plan, captured in one CUDA graph and
+    replayed on a new x copied into the captured block and halo: equal to
+    the eager product of the same x, bit for bit where the kernel gives
+    the same bits every call (#4, complex128), else within 1e-5·max|z|."""
+    from spgpu_tpu_torch.parallel.dist_spmv import _PlannedHalo as PlannedHalo
+
+    coo, pm = _dist_system(kind)
+    cplx = kind.startswith("complex")
+    rng = np.random.default_rng(3)
+
+    def draw():
+        v = rng.standard_normal(coo.n_rows)
+        return (v + 1j * rng.standard_normal(coo.n_rows) if cplx else v).astype(
+            coo.values.dtype)
+
+    exact = kind in ("float64", "complex128")
+    for s in range(4):
+        h = PlannedHalo(pm, s, cuda_device)
+        xl = h.set_x(draw())
+        side = torch.cuda.Stream(cuda_device)
+        side.wait_stream(torch.cuda.current_stream(cuda_device))
+        with torch.cuda.stream(side):
+            h.matvec(xl)  # loads what the product reaches before the capture
+        torch.cuda.current_stream(cuda_device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            z = h.matvec(xl)
+        x2 = draw()
+        xl.copy_(h.set_x(x2))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = h.matvec(h.set_x(x2))
+        if exact:
+            assert torch.equal(z, want), s
+        else:
+            _near(z.cpu(), want.cpu(), 1e-5)
+        del graph
+
+
+@pytest.mark.cuda
+def test_dist_cg_world_one_graphed_equals_eager(cuda_device):
+    """``dist_cg`` on one NCCL rank (a process of its own): the step's
+    ``all_reduce``s and the product captured in the loop's CUDA graph; in
+    float64 (#4) the graphed solve equals its eager witness bit for bit,
+    and every iteration launches #4."""
+    from spgpu_tpu_torch.parallel import partition_coo_rows_packed, run_ranks
+
+    coo = laplacian_2d(64, 64, np.float64)
+    b = np.random.default_rng(1).standard_normal(coo.n_rows)
+    pm = partition_coo_rows_packed(coo, 1)
+    kw_ = dict(b=b, tol=1e-10, maxiter=2000)
+    graphed, eager = run_ranks(1, "spgpu_tpu_torch.parallel.dryrun:run_cases",
+                               [("cg", pm, kw_), ("cg", pm, dict(kw_, eager=True))],
+                               device="cuda")[0]
+    assert graphed["converged"] and graphed["iterations"] == eager["iterations"]
+    assert np.array_equal(graphed["x"], eager["x"])
+    assert graphed["launches"]["whell.LAUNCHES_F64"] >= graphed["iterations"]
+    r = b - coo.spmv(graphed["x"])
+    assert np.linalg.norm(r) <= 1e-9 * np.linalg.norm(b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64", "complex128"])
+def test_dist_solve_on_every_card(dtype, cuda_device):
+    """One NCCL rank on each card of the host (two at least): the exact-
+    count exchange at its width, overlapped with the interior product,
+    captured with the ``all_reduce``s in the loop's CUDA graph.  The
+    product matches the golden; CG converges to its true residual and, in
+    float64 and complex128 (#4 and its complex128 kernel give the same
+    bits every call), equals its eager witness bit for bit."""
+    from spgpu_tpu_torch.parallel import partition_coo_rows_packed, run_ranks
+
+    W = torch.cuda.device_count()
+    if W < 2:
+        pytest.skip("needs two CUDA devices: NCCL runs no two ranks on one card")
+    coo = laplacian_2d(48, 16 * W, np.float64)
+    if dtype == "complex128":  # Hermitian positive-definite
+        coo = CooMatrix(coo.rows, coo.cols, coo.values * (1 + 0j), coo.n_rows, coo.n_cols)
+        up = coo.rows < coo.cols
+        v = coo.values.copy()
+        v[up] += 0.1j
+        v[coo.rows > coo.cols] -= 0.1j
+        v[coo.rows == coo.cols] += 1.0  # diagonally dominant: positive-definite
+        coo = CooMatrix(coo.rows, coo.cols, v, coo.n_rows, coo.n_cols)
+    coo = CooMatrix(coo.rows, coo.cols, coo.values.astype(dtype), coo.n_rows, coo.n_cols)
+    rng = np.random.default_rng(2)
+    b = rng.standard_normal(coo.n_rows).astype(dtype)
+    pm = partition_coo_rows_packed(coo, W)
+    assert sum(c > 0 for row in pm.halo_counts for c in row) >= W - 1
+    tol = 1e-5 if dtype == "float32" else 1e-10
+    kw_ = dict(b=b, tol=tol, maxiter=4000)
+    z, graphed, eager = run_ranks(W, "spgpu_tpu_torch.parallel.dryrun:run_cases",
+                                  [("spmv", pm, dict(x=b)), ("cg", pm, kw_),
+                                   ("cg", pm, dict(kw_, eager=True))])[0]
+    wide = np.complex128 if dtype == "complex128" else np.float64
+    g = coo.spmv(b.astype(wide))
+    frac = 2e-5 if dtype == "float32" else 1e-12
+    assert np.abs(z - g).max() <= frac * np.abs(g).max()
+    assert graphed["converged"]
+    r = b - coo.spmv(graphed["x"].astype(wide))
+    assert np.linalg.norm(r) <= (1e-4 if dtype == "float32" else 1e-9) * np.linalg.norm(b)
+    if dtype == "float32":
+        assert abs(graphed["iterations"] - eager["iterations"]) <= max(
+            1, eager["iterations"] // 10)
+    else:
+        assert graphed["iterations"] == eager["iterations"]
+        assert np.array_equal(graphed["x"], eager["x"])
+
+
+@pytest.mark.cuda
+def test_dryrun_on_one_cuda_rank(cuda_device):
+    """The port's dry run on one NCCL rank: every case at its golden."""
+    from spgpu_tpu_torch.parallel.dryrun import dryrun
+
+    recs = dryrun(1, "cuda")
+    assert all(r["ok"] for r in recs), recs

@@ -1,6 +1,8 @@
 """PyTorch port: package boundary checks in fresh processes.
 
-* ``import spgpu_tpu_torch`` loads no JAX module (the GPU host has none);
+* ``import spgpu_tpu_torch`` loads no JAX module (the GPU host has none),
+  nor does any module of its distributed layer, the ranks' entry among
+  them;
 * no file of the port (nor ``chip_smoke.py``) imports JAX or the JAX
   package, or builds a path into ``spgpu_tpu/``: the port keeps its own
   copy of the C++ layout helpers, identical to the JAX package's but for
@@ -36,6 +38,24 @@ def test_import_loads_no_jax():
              "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
              " or m == 'spgpu_tpu' or m.startswith('spgpu_tpu.')]; "
              "assert not bad, bad; print('ok')"], ROOT)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == "ok"
+
+
+def test_parallel_modules_and_rank_entry_load_no_jax():
+    """Every module of ``spgpu_tpu_torch.parallel``, the rank entry among
+    them, imports in a fresh process without loading JAX or the JAX
+    package (the ranks of a distributed run import nothing else)."""
+    mods = sorted(os.path.splitext(os.path.basename(p))[0] for p in glob.glob(
+        os.path.join(ROOT, "spgpu_tpu_torch", "parallel", "*.py")))
+    assert {"_rank", "dist_solve", "dist_spmv", "dryrun", "group",
+            "partition_packed", "partition_whell"} <= set(mods)
+    names = ", ".join(f"spgpu_tpu_torch.parallel.{m}".removesuffix(".__init__")
+                      for m in mods)
+    p = _run(["-c", f"import importlib, sys; [importlib.import_module(m) for m in "
+              f"'{names}'.split(', ')]; "
+              "bad = [m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'spgpu_tpu')]; assert not bad, bad; print('ok')"], ROOT)
     assert p.returncode == 0, p.stderr
     assert p.stdout.strip() == "ok"
 
