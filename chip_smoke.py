@@ -14,11 +14,16 @@ the float64 geometry sweep, and checks them:
                and for each kernel instance, the five nvcc builds started
                together (into spgpu_tpu_torch/_build/);
 3. spmv      — the flagship FEM-like matrix (262,144 rows, 6.7M nnz):
-               convert, ``whell_spmv`` through kernel #1, held against the
-               plain PyTorch version on the card and against the host COO
-               golden in float64; kernel, plain and library (cuSPARSE CSR,
+               convert, ``whell_spmv`` through kernel #1 (the hack pass),
+               held against the plain PyTorch version (its per-hack form)
+               on the card and against the host COO golden in float64;
+               one call must run exactly one device operation
+               (``whell_hack_pass``: no zero fill, no flush), write every
+               row of a z whose block first held NaN, and give the same
+               bits twice; kernel, plain and library (cuSPARSE CSR,
                ``torch.sparse_csr_tensor @ x``) times (CUDA events and
-               profiler device time), and the kernel's bound;
+               profiler device time), and the kernel's bound over the
+               runs' bytes beside the whole slab's;
 4. bf16      — the same with bf16 values and float32 x;
 5. solve     — ``solve()`` on the SPD system (A+Aᵀ)/2 with a dominant
                diagonal, auto-selected format (whell), CG to 1e-5; the
@@ -35,10 +40,13 @@ the float64 geometry sweep, and checks them:
                steps, host reads, replays and capture ms; the two held to
                each other: the same iterations and x bit for bit on a
                route whose kernel gives the same bits every call (SDIA
-               #2/#5/#8/#11, WHDIA #3, #6, #9, #10, #4, complex128 WHELL),
-               else iterations
+               #2/#5/#8/#11, WHDIA #3, #6, #9, #10, packed WHELL #1, #4,
+               #7, complex128), else iterations
                within max(1, 10 %) and the true-residual gate (every solve
-               phase below does the same);
+               phase below does the same); and the layout's chunked runs
+               (work units, rows with chunks) with, where there are
+               any, the time of the counters' zero fill each product
+               runs beside the kernel;
 6. sdia      — the 1024x1024 2-D Laplacian (1,048,576 rows) through
                ``coo_to_sdia`` and ``sdia_spmv`` (kernel #2), checked and
                timed as in 3;
@@ -210,7 +218,10 @@ the float64 geometry sweep, and checks them:
 30. large    — the JAX benchmark's row-block cells (``bench.py:306-389``)
                at its TPU size, on one packed layout: the fp32
                ``random_fem_like(2**22, 9.0, span=1200, far_frac=0.005,
-               seed=5)`` through #1; its float64 system (the symmetrised
+               seed=5)`` through #1 and its complex64 form
+               (``with_imag(fem, 9, complex64)``) through #7, each checked
+               as in 3 with cuSPARSE CSR in its type and both bounds; its
+               float64 system (the symmetrised
                ``random_banded(2**22, bands=9, wander=3, seed=6)``, 30 on
                the diagonal) through ``solve(..., fmt="blocks", tol=1e-12,
                maxiter=60)`` twice (the second warm), #4 on that solve's
@@ -225,8 +236,9 @@ the float64 geometry sweep, and checks them:
                same Laplacian in complex128 (``+ 1j·N(0, 1)``,
                ``default_rng(12)``) through #10, the product only; a
                4.5M-row permutation-coupled matrix past 2**20 scattered
-               layout groups (#1, its plain version summed in chunks of
-               tiles).  Each product prints its layout (rows, nonzeros, x
+               layout groups (#1, checked as in 3 against its per-hack
+               plain version summed in batches of rows and the tile-pass
+               one in chunks of tiles).  Each product prints its layout (rows, nonzeros, x
                pages or groups, tiles, slab bytes, converter seconds), its
                kernel's device time warm and cold, the plain version's,
                cuSPARSE CSR's and the bound (``python3 chip_smoke.py
@@ -241,7 +253,8 @@ the float64 geometry sweep, and checks them:
                4-shard classic partition (#15); each shard's rows held to
                the golden, its launches counted; per shard the interior
                and exterior products' device µs and the halo lanes and
-               bytes it receives and sends;
+               bytes it receives and sends; the graphed product equal to
+               the eager one bit for bit on the packed partitions;
 33. dist_solve — ``dist_cg`` on one NCCL rank (its ``all_reduce``s in
                the loop's CUDA graph) on the SPD flagship in fp32,
                float64, complex64 and complex128 and on the float64 1024²
@@ -529,7 +542,12 @@ def spmv_phase(coo, a, device, label):
     """Kernel vs plain vs host golden on one converted WHELL matrix (fp32
     or bf16 values: kernel #1; float64: #4; complex64: #7; complex128:
     the complex128 kernel), and the times of both versions and of the
-    library call on the same matrix."""
+    library call on the same matrix.  Every one is the hack pass: one
+    call must run one ``whell_hack_pass`` and nothing else, two calls
+    the same bits, and it must write every row of a z whose block first
+    held NaN; its bound is over the runs' bytes, printed beside the
+    whole slab's (:func:`whell_bounds`).  The plain version is the
+    per-hack form."""
     import torch
 
     from spgpu_tpu_torch.kernels import whell as kw
@@ -548,27 +566,23 @@ def spmv_phase(coo, a, device, label):
     launches = getattr(kw, counter)
     if launches != 1:
         raise AssertionError(f"{label}: whell_spmv launched the kernel {launches} times")
+    x2 = _prep_x(xl, a.n_cols, a.x_pages)
     args = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
-            a.group_bases, a.seg_lo, a.seg_hi, _prep_x(xl, a.n_cols, a.x_pages))
+            a.group_bases, a.seg_lo, a.seg_hi, x2)
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
                   window_pages=a.window_pages, unit_segments=a.unit_segments,
                   hack_units=a.hack_units, tile_page=a.tile_page)
-    zp = kw.whell_packed_spmv_plain(*args, **static).view(-1)[: a.n_rows]
+    plain = lambda v: kw.whell_packed_spmv_plain(  # noqa: E731
+        *args[:-1], v, **static)
+    zp = plain(x2).reshape(-1)[: a.n_rows]
     zc, pc = z.cpu().numpy(), zp.cpu().numpy()
-    # atomics sum each lane's tiles in another order than index_add_; #4
-    # and complex128 sum in the per-hack plain version's order, with FMAs
+    # the kernels sum in the per-hack plain version's order, with FMAs
+    # (the plain version rounds each product)
     tol_plain, tol_golden = ((0, 1e-12), (0, 1e-12)) if tight else \
         ((1e-5, 1e-5), (1e-4, 1e-4))
     err_plain = check_close(zc, pc, *tol_plain, f"{label}: kernel vs plain")
-    per_hack = {}
-    if vdt in kw.PER_HACK:  # one launch, no atomics: one kernel, same bits
-        call = lambda: kw.whell_packed_spmv(*args, **static)  # noqa: E731
-        ops_ = launched(call)
-        if len(ops_) != 1 or not ops_[0].startswith("whell_hack_pass"):
-            raise AssertionError(f"{label}: the call ran {ops_}, not one whell_hack_pass")
-        if not torch.equal(call(), call()):
-            raise AssertionError(f"{label}: two launches differ")
-        per_hack = dict(device_ops=ops_, bit_identical=True)
+    call = lambda: kw.whell_packed_spmv(*args, **static)  # noqa: E731
+    per_hack = hack_pass_checks(call, a, xdt, device, label)
     # host golden in float64 or complex128
     golden = coo.spmv(x.astype(wide(x.dtype)))
     z_orig = a.extract(z, dtype=torch.from_numpy(golden).dtype).cpu().numpy()
@@ -577,18 +591,9 @@ def spmv_phase(coo, a, device, label):
     slab_bytes = a.total_slots * 128 * (a.values.element_size() + 2)
     xo = torch.from_numpy(x).to(device)
     library, refused = library_call(coo, xo, device)
-    t = timed(lambda: kw.whell_packed_spmv(*args, **static),
-              lambda: kw.whell_packed_spmv_plain(*args, **static),
-              library, refused)
-    # the unit flush reads seg_hi alone; #4 and complex128 read hack_units
-    # and tile_page, no chunk_group or tile_base; #1 and #7 chunk_group,
-    # tile_base and tile_page
-    hack_pass = vdt in kw.PER_HACK
-    moved = nbytes(a.values, a.residue, a.page_tab, None if hack_pass else a.tile_base,
-                   a.tile_page, a.hack_units if hack_pass else a.chunk_group,
-                   a.group_bases, None if a.unit_segments else a.seg_lo,
-                   a.seg_hi, args[-1], z)
+    t = timed(call, lambda: plain(x2), library, refused)
     flops = (8 if xdt.is_complex else 2) * coo.nnz
+    bounds = whell_bounds(a, x2, z, flops, str(xdt).removeprefix("torch."))
     return dict(
         nnz=coo.nnz, tiles=a.num_tiles, lane_space=a.n_rows, launches=launches,
         **per_hack, padding=a.total_slots * 128 / coo.nnz, slab_mib=slab_bytes / 2**20,
@@ -597,7 +602,56 @@ def spmv_phase(coo, a, device, label):
         kernel_device_gflops=flops / (t["kernel_device_ms"] * 1e6),
         plain_gflops=flops / (t["plain_ms"] * 1e6),
         kernel_device_slab_gbytes_per_s=slab_bytes / (t["kernel_device_ms"] * 1e6),
-        **bound(moved, flops, str(xdt).removeprefix("torch.")))
+        **bounds, bound_share=bounds["bound_ms"] / t["kernel_device_ms"],
+        full_bound_share=bounds["full_bound_ms"] / t["kernel_device_ms"])
+
+
+def hack_pass_checks(call, a, dtype, device, label):
+    """What the hack pass must show on layout ``a`` (``call``: one
+    ``whell_packed_spmv`` of z's ``dtype``): one kernel, a
+    ``whell_hack_pass`` (no accumulator fill, no flush), and beside it only
+    the zero fill of the launch's own run counters where a run is chunked
+    (more work units than rows), whose device time it returns; every row
+    written over a NaN-filled block; the same bits on two calls."""
+    import torch
+
+    from spgpu_tpu_torch.utils.timing import device_ms_by_kernel
+
+    by_op = device_ms_by_kernel(call)
+    ops_ = sorted(by_op) or launched(call)
+    chunked = a.hack_units.shape[0] > a.seg_lo.shape[0]
+    kernels = [k for k in ops_ if k.startswith("whell_hack_pass")]
+    others = [k for k in ops_ if k not in kernels]
+    if len(kernels) != 1 or others != (["vectorized_elementwise_kernel"] if chunked
+                                       else []):
+        raise AssertionError(f"{label}: the call ran {ops_}, not one whell_hack_pass"
+                             + (" and the run counters' fill" if chunked else ""))
+    z = written_over_nan(call, a.seg_lo.shape[0] * 128, dtype, device, label)
+    if not torch.equal(z, call()):
+        raise AssertionError(f"{label}: two launches differ")
+    return dict(device_ops=ops_, chunked_runs=chunked, bit_identical=True,
+                rows_written_over_nan=True,
+                counter_fill_device_ms=by_op.get("vectorized_elementwise_kernel"))
+
+
+def written_over_nan(call, numel, dtype, device, label):
+    """``call()``, a kernel with no zero fill, run where the block its
+    output of ``numel`` elements gets first held NaN (the caching
+    allocator hands the freed block back): raises unless it got that
+    block and wrote every element finite; returns the output."""
+    import torch
+
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    nan = torch.full((numel,), float("nan"), dtype=dtype, device=device)
+    ptr = nan.data_ptr()
+    del nan
+    z = call()
+    torch.cuda.synchronize(device)
+    if z.data_ptr() != ptr or not bool(torch.isfinite(z).all()):
+        raise AssertionError(f"{label}: a row of the NaN-filled z was not written "
+                             f"(same block: {z.data_ptr() == ptr})")
+    return z
 
 
 def dia_phase(coo, kernel, plain, op_z, moved, tol_plain, label, device, counter):
@@ -701,17 +755,8 @@ def whdia_phase(coo, mode, device, label, wa=None, convert_s=None):
         tol, label, device, (kd, COUNTER[np.dtype(coo.values.dtype).name]))
     x = torch.from_numpy(rand_vector(coo.n_cols, 7, np.dtype(coo.values.dtype))
                          ).to(device)
-    # no zero fill: the block the kernel's z gets first held NaN
-    torch.cuda.empty_cache()
-    nan = torch.full((wa.num_groups * wa.group_hacks * 128,), float("nan"),
-                     dtype=x.dtype, device=device)
-    ptr = nan.data_ptr()
-    del nan
-    z = kd.whdia_spmv(*args, x, **static, **lists)
-    torch.cuda.synchronize(device)
-    if z.data_ptr() != ptr or not bool(torch.isfinite(z).all()):
-        raise AssertionError(f"{label}: a row of the NaN-filled z was not "
-                             f"written (same block: {z.data_ptr() == ptr})")
+    z = written_over_nan(lambda: kd.whdia_spmv(*args, x, **static, **lists),
+                         wa.num_groups * wa.group_hacks * 128, x.dtype, device, label)
     if not torch.equal(z, kd.whdia_spmv(*args, x, **static, **lists)):
         raise AssertionError(f"{label}: two launches of the live-slot kernel "
                              "differ")
@@ -732,13 +777,14 @@ def whdia_phase(coo, mode, device, label, wa=None, convert_s=None):
 
 
 #: (fmt, value dtype name) of the solve routes whose kernel gives the same
-#: bits every call (SDIA #2/#5/#8/#11, WHDIA #3/#6/#9/#10, #4 and
-#: complex128 WHELL): their graphed solves must equal the eager witness
-#: bit for bit; the others (#1, #7, #17) sum with atomics
+#: bits every call (SDIA #2/#5/#8/#11, WHDIA #3/#6/#9/#10, packed WHELL
+#: #1/#4/#7 and complex128 on the hack pass): their graphed solves must
+#: equal the eager witness bit for bit; the other (#17) sums with atomics
 BIT_REPRODUCIBLE = {("sdia", "float32"), ("sdia", "float64"), ("sdia", "complex64"),
                     ("sdia", "complex128"), ("whdia", "float32"),
                     ("whdia", "float64"), ("whdia", "complex64"),
-                    ("whdia", "complex128"), ("whell", "float64"),
+                    ("whdia", "complex128"), ("whell", "float32"),
+                    ("whell", "float64"), ("whell", "complex64"),
                     ("whell", "complex128")}
 
 
@@ -1011,11 +1057,31 @@ def spd_solve(spd, device, dtype, tol, true_tol, smi):
     gate = residual_gate(spd, b, true_tol, f"cg whell {name}",
                          extract=lambda x: a.extract(x, dtype=work))
     return dict(fmt=fmt, nnz=spd.nnz, max_row_degree=int(spd.row_lengths().max()),
-                tiles=a.num_tiles, lane_space=a.n_rows,
+                tiles=a.num_tiles, lane_space=a.n_rows, **chunked_runs(a, device),
                 padding=a.total_slots * 128 / spd.nnz, **solved,
                 loop=loop_pair("cg", lambda v: whell_spmv(a, v), b_l, tol,
                                ("whell", name) in BIT_REPRODUCIBLE, gate, smi),
                 x_err_vs_true=float(np.abs(xs - x_true).max()))
+
+
+def chunked_runs(a, device):
+    """Layout ``a``'s chunked runs (a hack's run cut into chunks of work
+    units, one block each): the work units, the rows with chunks, and
+    where there are any, the time of the zero fill of the launch's own
+    counters that every product then runs beside the hack pass (one int32
+    per row, as ``kernels.whell.hack_pass_args`` allocates it): the fill
+    alone, device ms, warm, with its source."""
+    import torch
+
+    from spgpu_tpu_torch.utils.timing import device_ms
+
+    rows = a.seg_lo.shape[0]
+    units = a.hack_units.shape[0]
+    chunk_rows = int(torch.unique(a.hack_units[a.hack_units[:, 3] >= 0, 2]).numel())
+    fill, src = (device_ms(lambda: torch.zeros(rows, dtype=torch.int32, device=device))
+                 if units > rows else (None, None))
+    return dict(work_units=units, rows=rows, rows_with_chunks=chunk_rows,
+                counter_fill_device_ms=fill, counter_fill_source=src)
 
 
 def loop_k_phase(spd, lap, lap64, device, smi):
@@ -1791,6 +1857,36 @@ def chunked_plain(a, x2, tiles=1 << 16):
     return kw.whell_flush_plain(acc, a.seg_lo, a.seg_hi, a.unit_segments)[0]
 
 
+def chunked_hack_plain(a, x2, rows=1024):
+    """The kernels' per-hack plain product (:func:`~spgpu_tpu_torch.kernels.
+    whell.whell_hack_sums`, then the flush) over batches of ``rows`` output
+    rows, each batch's work units on their own tiles gathered apart (a
+    row's chunks stay in one batch, so each row adds its chunks in chunk
+    order as in one call), so that a layout of a billion cells needs no
+    more than a few GB for its index tensors."""
+    import torch
+
+    from spgpu_tpu_torch.kernels import whell as kw
+
+    dev = x2.device
+    units = a.hack_units.long()
+    R = a.seg_lo.shape[0]
+    acc = torch.zeros((1, R, 128), dtype=x2.dtype, device=dev)
+    for r0 in range(0, R, rows):
+        u = units[(units[:, 2] >= r0) & (units[:, 2] < r0 + rows)]
+        n = u[:, 1] - u[:, 0]
+        begin = torch.cumsum(n, 0) - n
+        tiles = (torch.repeat_interleave(u[:, 0] - begin, n)
+                 + torch.arange(int(n.sum()), device=dev))
+        cells = (tiles[:, None] * 8 + torch.arange(8, device=dev)).view(-1)
+        local = torch.stack([begin, begin + n, u[:, 2], u[:, 3]], 1).int()
+        acc += kw.whell_hack_sums(
+            a.values[cells], a.residue[cells], a.page_tab[cells], a.tile_base[tiles],
+            a.group_bases, local, x2[None], num_rows=R, window_pages=a.window_pages,
+            tile_page=a.tile_page[tiles])
+    return kw.whell_flush_plain(acc, a.seg_lo, a.seg_hi, a.unit_segments)[0]
+
+
 def kernel_cold(fn, prefixes):
     """The kernel's device times of :func:`op_times`, warm and cold."""
     t = op_times(fn, prefixes)
@@ -1802,7 +1898,8 @@ def large_phase(device, smi):
     """Phase 30 (``--large``): the JAX benchmark's row-block cells at its
     TPU size, on one packed layout: ``random_fem_like(2**22, 9.0,
     span=1200, far_frac=0.005, seed=5)`` in fp32 through ``whell_spmv``
-    (#1), and its float64 system (``random_banded(2**22, bands=9,
+    (#1) and in complex64 (``with_imag(fem, 9, complex64)``) through #7,
+    and its float64 system (``random_banded(2**22, bands=9,
     wander=3, seed=6)`` symmetrised, 30 on the diagonal, duplicates
     summed, as ``bench.py:356-366`` builds it) through ``solve(...,
     fmt="blocks", tol=1e-12, maxiter=60)`` twice with the ``b`` of
@@ -1833,6 +1930,19 @@ def large_phase(device, smi):
     out["fem_fp32"] = dict(
         fixture="random_fem_like(2**22, 9.0, span=1200, far_frac=0.005, seed=5)",
         **layout_summary(a, fem, convert_s) | check,
+        kernel_device=kernel_cold(lambda: ops.whell_spmv(a, xl), ("whell_",)),
+        item_s=time.perf_counter() - t0)
+    del a, xl
+
+    t0 = time.perf_counter()
+    fem = with_imag(fem, 9, np.complex64)
+    a, convert_s = converted(lambda: coo_to_whell(fem, device=device))
+    xl = a.embed(torch.from_numpy(rand_vector(nb, 7, np.complex64)),
+                 dtype=torch.complex64)
+    check = spmv_phase(fem, a, device, "large fem complex64")
+    out["fem_c64"] = dict(
+        fixture="with_imag(random_fem_like(2**22, 9.0, span=1200, far_frac=0.005, "
+        "seed=5), 9, complex64)", **layout_summary(a, fem, convert_s) | check,
         kernel_device=kernel_cold(lambda: ops.whell_spmv(a, xl), ("whell_",)),
         item_s=time.perf_counter() - t0)
     del a, xl, fem
@@ -1870,6 +1980,7 @@ def large_phase(device, smi):
         solve_blocks=dict(solves, fmt="blocks", tol=1e-12, maxiter=60, loop=loop),
         item_s=time.perf_counter() - t0)
     launches = {"whell_packed_spmv": out["fem_fp32"]["launches"],
+                "whell_packed_spmv_c64": out["fem_c64"]["launches"],
                 "whell_packed_spmv_f64": out["band_f64"]["launches"]
                 + sum(v["launches"] for v in solves.values())}
     return out, launches
@@ -1971,8 +2082,9 @@ def past_bounds_phase(device, smi):
       every row at 1e-12·max|z| of the golden; the same in fp32 as a
       classic layout (#15);
     - the permutation-coupled matrix at 4.5M rows, scattered windows
-      past 2**20 layout groups (#1), against the plain version summed in
-      chunks of tiles.
+      past 2**20 layout groups (#1), against the per-hack plain version
+      summed in batches of rows and the tile-pass one in chunks of tiles,
+      with the hack pass's checks (:func:`hack_pass_checks`).
     Returns the phase and its main-path launches by kernel: the solves'
     and each checked op call's, each counted from 0."""
     import torch
@@ -2106,25 +2218,33 @@ def past_bounds_phase(device, smi):
     if perm_launches != 1:
         raise AssertionError(f"past_bounds permutation: whell_spmv launched #1 "
                              f"{perm_launches} times")
-    zp = chunked_plain(a, x2).reshape(-1)[: a.n_rows]
+    zp = chunked_hack_plain(a, x2).reshape(-1)[: a.n_rows]
     err_plain = check_close(z, zp, 1e-5, 1e-5, "permutation: kernel vs plain")
+    # the JAX kernels' tile pass, every tile added into its hack row
+    err_tiles = check_close(z, chunked_plain(a, x2).reshape(-1)[: a.n_rows], 1e-5,
+                            1e-5, "permutation: kernel vs the tile-pass plain")
     golden = perm.spmv(xh.astype(np.float64))
     err_golden = check_close(a.extract(z, dtype=torch.float64).cpu().numpy(), golden,
                              1e-4, 1e-4, "permutation: kernel vs golden")
     fn = lambda: ops.whell_spmv(a, xl)  # noqa: E731
-    t = time_interleaved({"kernel": fn, "plain": lambda: chunked_plain(a, x2)},
+    static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+                  window_pages=a.window_pages, unit_segments=a.unit_segments,
+                  hack_units=a.hack_units, tile_page=a.tile_page)
+    checks = hack_pass_checks(lambda: kw.whell_packed_spmv(
+        a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group, a.group_bases,
+        a.seg_lo, a.seg_hi, x2, **static), a, torch.float32, device, "permutation")
+    t = time_interleaved({"kernel": fn, "plain": lambda: chunked_hack_plain(a, x2)},
                          reps=2, iters=2, warmup=1)
-    moved = nbytes(a.values, a.residue, a.page_tab, a.tile_base, a.tile_page,
-                   a.chunk_group, a.group_bases, None if a.unit_segments else a.seg_lo,
-                   a.seg_hi, x2, z)
     out["permutation_scattered"] = dict(
         fixture=f"row i couples to i and pi(i), {LARGE['perm']} rows, fp32", **summary,
-        launches=perm_launches,
-        max_abs_err_vs_plain=err_plain, max_abs_err_vs_golden=err_golden,
+        launches=perm_launches, **checks,
+        max_abs_err_vs_plain=err_plain, max_abs_err_vs_tile_plain=err_tiles,
+        max_abs_err_vs_golden=err_golden,
         kernel_ms=t["kernel"]["best_ms"], plain_ms=t["plain"]["best_ms"],
         kernel_device=kernel_cold(fn, ("whell_",)),
         library=library_times(perm, torch.from_numpy(xh).to(device), device),
-        **bound(moved, 2 * perm.nnz, "float32"), item_s=time.perf_counter() - t0)
+        **whell_bounds(a, x2, z, 2 * perm.nnz, "float32"),
+        item_s=time.perf_counter() - t0)
     launches["whell_packed_spmv"] = perm_launches
     return out, launches
 
@@ -2201,7 +2321,10 @@ def dist_local_phase(device, smi):
     partition (#15).  Each shard's rows held to the golden (fp32 2e-5,
     float64 1e-12, times max|z|), its kernels' launches counted (one for
     the interior, one for the exterior where it has one), and the same
-    schedule captured in a CUDA graph (:func:`graphed_product`); per
+    schedule captured in a CUDA graph (:func:`graphed_product`: bit for
+    bit on the packed partitions, whose #1 and #4 give the same bits
+    every call; within 1e-5 of max|z| on the classic one, #15's
+    atomics); per
     shard the interior and exterior products' device µs, the halo lanes
     it receives and sends and their bytes."""
     import torch
@@ -2240,8 +2363,8 @@ def dist_local_phase(device, smi):
                 err = check_close(pm.extract_shard(z, s), g[pm.rows_of(s)], 0.0, tol,
                                   f"dist_local {tag} S={S} shard {s}")
                 graph = graphed_product(h, xl, rand_vector(coo.n_rows, 8 + s, dt),
-                                        dt == np.float64, f"dist_local {tag} S={S} "
-                                        f"shard {s}")
+                                        tag != "classic_fp32", f"dist_local {tag} "
+                                        f"S={S} shard {s}")
                 item = torch.empty((), dtype=pm.dtype).element_size()
                 ext = h.exterior
                 per_shard.append(dict(
@@ -2897,8 +3020,9 @@ def whell_kernel_times(device):
     one call, and each by name) and of its own kernels (profiler names
     ``whell_*``), warm and cold (:func:`op_times`); then #19's levels (the tree's
     ``F64_LEVELS``) on the flagship's two float64 layouts, warm and cold;
-    and cuSPARSE CSR on each matrix and type, all in this process.  Older
-    checkouts (no ``hack_units``) run too."""
+    and cuSPARSE CSR on each matrix and type, all in this process, each
+    with both bounds (:func:`whell_bounds`).  Older checkouts with
+    ``hack_ptr`` run too."""
     import torch
 
     from spgpu_tpu_torch import ops
@@ -2922,12 +3046,6 @@ def whell_kernel_times(device):
             xl = a.embed(x, dtype=x.dtype)
             t = op_times(lambda: ops.whell_spmv(a, xl), ("whell_",))
             z = torch.empty((a.num_groups * a.group_hacks, 128), dtype=x.dtype)
-            # #1 (f32) and #7 (c64), the tile pass, also read the page words
-            # beside tile_base; the hack pass reads them in its place
-            moved = nbytes(a.values, a.residue, a.page_tab, a.tile_base,
-                           getattr(a, "tile_page", None) if tag in ("f32", "c64") else None,
-                           a.group_bases, None if a.unit_segments else a.seg_lo,
-                           a.seg_hi, xl, z)
             geom = "scattered" if scattered else "aligned"
             print(f"kernel_times: whell_{fix}_{tag}_{geom} {t['kernels']}",
                   file=sys.stderr, flush=True)
@@ -2935,7 +3053,8 @@ def whell_kernel_times(device):
                 t, tiles=a.num_tiles, padding=a.total_slots * 128 / c.nnz,
                 group_hacks=a.group_hacks, chunk_tiles=a.chunk_tiles,
                 window_pages=a.window_pages,
-                **bound(moved, (8 if tag.startswith("c") else 2) * c.nnz, str(dt)))
+                **whell_bounds(a, ops._prep_x(xl, a.n_cols, a.x_pages), z,
+                               (8 if tag.startswith("c") else 2) * c.nnz, str(dt)))
             if fix == "flagship" and tag == "f64":
                 x2 = ops._prep_x(xl, a.n_cols, a.x_pages)
                 args = (a.values, a.residue, a.page_tab, a.tile_base,
@@ -2954,6 +3073,27 @@ def whell_kernel_times(device):
                     for lv in ab.F64_LEVELS}
             del a
     return out
+
+
+def whell_bounds(a, x2, z, flops, dtype):
+    """A packed-WHELL product's two bounds: over the bytes the hack pass
+    reads (``bound_ms``: the runs' tiles of the slab, their page words,
+    the work units, the group bases, the segments, x and z once) and over
+    every layout array (``full_bound_ms``: the whole slab, ct-padding
+    tiles included, with tile_base and chunk_group, as the tile pass
+    read it), with the runs' share of the tiles."""
+    hp = a.hack_ptr.long()
+    run_tiles = int((hp[:, 1] - hp[:, 0]).sum())
+    seg = (None if a.unit_segments else a.seg_lo, a.seg_hi)
+    cell = a.values.element_size() + 2
+    runs = run_tiles * (8 * 128 * cell + 4) + nbytes(a.hack_units, a.group_bases,
+                                                     *seg, x2, z)
+    full = nbytes(a.values, a.residue, a.page_tab, a.tile_base, a.tile_page,
+                  a.chunk_group, a.group_bases, *seg, x2, z)
+    fb = bound(full, flops, dtype)
+    return dict(**bound(runs, flops, dtype), full_bound_ms=fb["bound_ms"],
+                full_bound_bytes=fb["bound_bytes"], run_tiles=run_tiles,
+                run_tile_share=run_tiles / max(a.num_tiles, 1))
 
 
 def ablation_row(name, accs):

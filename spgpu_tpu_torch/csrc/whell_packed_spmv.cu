@@ -11,102 +11,116 @@
 // and sums).  Entry whell_packed_spmv_c128 is the complex128 product, which
 // the JAX package runs as four double-float plane products of
 // _whell_packed_dd_kernel (spgpu_tpu/ops/__init__.py, whell_spmv on a
-// WhellComplex); it has no Pallas kernel of its own.  It computes the same
-// product on the same layout arrays (spgpu_tpu_torch/formats/whell.py):
+// WhellComplex); it has no Pallas kernel of its own.  All four compute
+// the same product on the same layout arrays (spgpu_tpu_torch/formats/whell.py):
 //
-//   for every cell (slot s, lane j) of tile t = s / 8:
+//   for every cell (slot s, lane j) of tile t = s / 8 of hack h's run
+//   [hack_ptr[h, 0], hack_ptr[h, 1]):
 //     r = residue[s, j];  d = page_tab[s, r]        (indexed by residue)
-//     scattered: g = tile_page[t], hh = tile_base[t] >> 20,
-//                page = group_bases[g*K + (d >> 3)] + (d & 7)
-//     aligned:   page = tile_page[t] + d, hh = tile_base[t] >> 16
-//     hack = chunk_group[t / chunk_tiles] * group_hacks + hh
-//     acc[hack, j] += T(values[s, j]) * x[page*128 + r]
-//       (T = float, double, or the complex float2 / double2)
-//   then per hack row, with p the inclusive lane prefix sum of acc[hack, :]:
-//     z[hack, o] = (hi >= 0 ? p[hi] : 0) - (lo >= 0 ? p[lo] : 0)
-//   or, with unit segments, z[hack, o] = hi >= 0 ? acc[hack, hi] : 0.
+//     scattered: g = tile_page[t], page = group_bases[g*K + (d >> 3)] + (d & 7)
+//     aligned:   page = tile_page[t] + d
+//     acc[h, j] += T(values[s, j]) * x[page*128 + r]
+//       (T = float for fp32 and bf16 values, double, or the complex
+//       float2 / double2)
+//   then per hack row, with p the inclusive lane prefix sum of acc[h, :]:
+//     z[h, o] = (hi >= 0 ? p[hi] : 0) - (lo >= 0 ? p[lo] : 0)
+//   or, with unit segments, z[h, o] = hi >= 0 ? acc[h, hi] : 0.
 //
-// The layout group or base page comes from the layout's full-width
-// tile_page word (int32), not from tile_base's low field, whose 20 or 16
-// bits bound the JAX layout at 2^20 groups or 65,536 x pages; columns and
-// cell offsets are int64.  The hack pass needs no hh (its work units name
-// the row) and reads tile_page in place of tile_base; the tile pass reads
-// both, one more 4 B load per tile.
+// The TPU kernels walk every tile of the slab and add it into its hack
+// row (hack = chunk_group[t / chunk_tiles] * group_hacks + tile_base[t]'s
+// hh field), ct-padding tiles included.  The layout group or base page
+// comes from the layout's full-width tile_page word (int32), not from
+// tile_base's low field, whose 20 or 16 bits bound the JAX layout at
+// 2^20 groups or 65,536 x pages; columns and cell offsets are int64.  The
+// work units name each run's row, so no kernel here reads tile_base or
+// chunk_group.  The difference of two prefix sums carries an error of the
+// order of eps(T) times the hack's prefix total, not of the row's own
+// sum: a light row behind a heavy one in the same hack has a larger
+// relative error (fp64: ~1e-16 of the prefix, which the double-float TPU
+// kernel matches at ~2^-48).
 //
-// Bound on the H100: the slabs stream once per product at 6 B/cell for
-// fp32 values (4 B value + int8 residue + int8 page entry; 4 B/cell for
-// bf16), about 67 MiB per product on the flagship FEM matrix against
-// 3.35 TB/s of HBM, i.e. ~21 us at best.  x (1.4 MB there) and the
-// accumulator (1.6 MB) stay resident in the 50 MB L2.  float64 streams
-// 10 B/cell (8 B value + the two index bytes): on the flagship 15,168
-// tiles (155 MB) with aligned 32-page windows, 10,944 (112 MB) with
-// scattered ones.  complex64 streams 10 B/cell (an interleaved re/im float2
-// and the two index bytes) on the fp32 geometry: on the flagship 11,392
-// tiles (11.7M cells, 111 MiB of slab), 123.0 MB with x and z, a bound of
-// 36.7 us; complex128 18 B/cell (a double2): 15,168 tiles (280 MB) aligned,
-// 10,944 (202 MB) scattered (chip_smoke.py's counts on an NVIDIA H100
-// 80GB HBM3, 700 W).  x (4.2 MB in complex128) stays resident in L2.
-// fp64 FMA is native on Hopper, so there are no error-free transforms.
+// Bound on the H100: the runs' slab streams once per product at 6 B/cell
+// for fp32 values (4 B value + int8 residue + int8 page entry; 4 B/cell
+// for bf16), 10 B/cell for float64 and complex64 (an interleaved re/im
+// float2) and 18 B/cell for complex128, with x and z once.  On the
+// flagship FEM matrix: fp32 11,392 tiles (about 67 MiB, 22.0 us over the
+// whole slab), complex64 the same tiles (111 MiB, 36.7 us), float64 and
+// complex128 15,168 tiles (155 and 280 MB) with aligned 32-page windows,
+// 10,944 (112 and 202 MB) with scattered ones (chip_smoke.py's counts on
+// an NVIDIA H100 80GB HBM3, 700 W).  x (1.4 MB in fp32, 4.2 MB in
+// complex128) stays resident in the 50 MB L2.  fp64 FMA is native on
+// Hopper, so there are no error-free transforms.  The TPU kernels stage
+// x in VMEM and resolve pages with sublane gathers, select trees and dual
+// accumulator planes; none of that is needed here: x is read straight
+// from global memory through L2/L1, so each cell costs one coalesced slab
+// read plus one cached gather.
 //
-// #1 and #7 (fp32, bf16, complex64): the TPU kernel stages x in VMEM and
-// resolves pages with sublane gathers, select trees and dual accumulator
-// planes; none of that is needed here.  x is read straight from global
-// memory through L2/L1, so each cell costs one coalesced slab read plus
-// one cached gather.  Tile pass: one 128-thread block per tile; the
-// tile's 8x128 page table goes to shared memory for the by-residue
-// lookup, each thread sums its lane over the 8 slots in a register and
-// issues one atomicAdd into the (hack, lane) accumulator.  Flush pass:
-// one block per hack row, a warp-shuffle inclusive scan over the 128
-// lanes, then the segment difference.  Atomic order varies, so results
-// are not bit-reproducible (rounding in T only).  The difference of two
-// prefix sums carries an error of the order of eps(T) times the hack's
-// prefix total, not of the row's own sum: a light row behind a heavy one
-// in the same hack has a larger relative error (fp64: ~1e-16 of the
-// prefix, which the double-float TPU kernel matches at ~2^-48).
+// The hack pass (whell_hack_pass; #4 and complex128 since the float64
+// redesign, #1 and #7 since their own): one launch per product, no
+// accumulator, no zero fill of one, no atomics on the lanes, no flush
+// launch, bit-reproducible.  A layout with a chunked run (below) is the
+// exception: its wrapper zero-fills the launch's own counters of the
+// chunked rows before the launch, one more device operation per product.  The converter places each hack's tiles in one
+// contiguous run of the slab (its layout groups are keyed hack first), so
+// the layout's hack_ptr (formats/whell.py) gives each hack its run, and
+// each output group's trailing ct-padding tiles belong to no run and are
+// never read.  One 128-thread block owns one hack row, thread j lane j,
+// when the run has at most 16 tiles (every hack of the flagship: 4-8); a
+// longer run (the hub rows of the flagship's SPD form: 75-83 tiles, which
+// one block took 80 us to walk) is cut into 16-tile chunks of work units
+// (hack_units), one block each, and the block whose atomicAdd on the
+// row's counter is the k-th adds the k chunks' sums in chunk order and
+// scans.  Thread 0 keeps kStages tiles of the run in flight
+// in a ring of shared-memory stages, each tile's residue and page table
+// (2 KiB) brought by the TMA's 1-D bulk copies onto one mbarrier per
+// stage; each thread streams its 8 values of a tile straight from global
+// memory (evict-first loads) and reads the tile's word and its superpage
+// bases while the copies fly.  It decodes its 8 cells from shared memory,
+// issues their 8 x gathers together, and adds the products to one
+// register sum, tile by tile and slot by slot; then the block scans the
+// 128 sums (segment_sum) and stores z once.  A stage is refilled once all
+// 128 threads have arrived on its second mbarrier, each after a
+// fence.proxy.async: the arrive orders the threads' reads of the stage
+// for the generic proxy only, and without the fence a refill overwrote
+// stages still being read (float64 sums went wrong from run to run on the
+// H100).  What bounds it is bytes: the run's slab once, x from L2, z
+// once.  The design takes away what the first design (a tile pass of one
+// block per tile with one atomicAdd per lane into a zeroed (rows, 128)
+// accumulator, then a flush launch per hack row that scanned it) added to
+// those bytes: the accumulator's zero fill, one atomic per lane and tile
+// (two in complex), the padding tiles, and a second launch that read the
+// accumulator back (the flush: 27-31 % of #4 on the dd-Laplacian in
+// kernel #19's account of the tile pass).  A hack with no tiles stores
+// zeros.  Every cell of a run is multiplied, zero-valued ones too, as
+// the TPU kernels do.  Measured on the H100 and not kept, in float64:
+// the values in the ring too (10-18 KiB stages: 2-3 stages ran
+// 12-25 % slower on the flagship, more stages slower still, with the L1
+// that the x gathers use given over to shared memory), 2 and 8 index
+// stages (no better than 4), and loading the next tile's values during
+// the current tile's FMAs (faster on scattered float64, slower on aligned
+// and on the Laplacian).  In fp32, bf16 and complex64 the shapes were
+// timed side by side, each a build of this source with its change (NVIDIA
+// H100 80GB HBM3, 700 W; warm device us by torch.profiler, two rounds, on
+// the flagship in fp32, bf16 and complex64 and on the JAX bench's 2**22
+// FEM rows in fp32 and complex64; none of the variants is kept): the
+// shape kept, 4 stages, every cell gathered, ptxas's own
+// registers (40-48 in fp32 and bf16, 40-56 in complex64, no spill),
+// 24.5 / 23.0-23.1 / 41.3-41.5 / 301.4-301.8 / 476.0-477.2; 2 stages
+// 25.4-25.6 / 23.3-23.6 / 42.6-42.9 / 303.1-305.6 / 471.5-510.1; 8
+// stages 25.2-25.4 / 23.7-23.8 / 42.8-43.0 / 295.7-301.2 / 475.7-479.8;
+// zero-valued cells skipping their x gather (a predicated load)
+// 25.1-25.3 / 23.7-23.8 / 41.6-41.7 / 302.0-303.6 / 476.9-477.2;
+// 12 blocks an SM asked of ptxas (40 registers, spills) 31.8-31.9 /
+// 27.6-28.9 / 77.6-78.9 / 347.8-348.0 / 796.9; 16 (32 registers, spills)
+// 41.0-41.2 / 37.7-37.8 / 96.3-98.0 / 421.1-421.2 / 1069.0-1069.4.
+// Asking for 1 block an SM (__launch_bounds__(128, 1)) let ptxas give
+// the fp32 instances 51-61 registers and #4's 64-70, where plain
+// __launch_bounds__(128) gives #4 its 47-56 of the float64 redesign.
 //
-// #4 and complex128 (whell_hack_pass): one launch per product, no
-// accumulator, no atomics on the lanes, bit-reproducible.  The converter
-// places each hack's tiles in one contiguous run of the slab (its layout
-// groups are keyed hack first), so the layout's hack_ptr (formats/whell.py)
-// gives each hack its run, and each output group's trailing ct-padding
-// tiles belong to no run and are never read.  One 128-thread block owns
-// one hack row, thread j lane j, when the run has at most 16 tiles (every
-// hack of the flagship: 4-8); a longer run (the hub rows of the flagship's
-// SPD form: 75-83 tiles, which one block took 80 us to walk) is cut into
-// 16-tile chunks of work units (hack_units), one block each, and the
-// block whose atomicAdd on the row's counter is the k-th adds the k
-// chunks' sums in chunk order and scans.  Thread 0 keeps kStages = 4
-// tiles of the run in flight in a ring of shared-memory stages, each
-// tile's residue and page table (2 KiB) brought by the TMA's 1-D bulk
-// copies onto one mbarrier per stage; each thread streams its 8 values of a tile straight from
-// global memory (evict-first loads) and reads the tile's word and its
-// superpage bases while the copies fly.  It decodes its 8 cells from
-// shared memory, issues their 8 x gathers together, and adds the
-// products to one register sum, tile by tile and slot by slot; then the
-// block scans the 128 sums (the flush's warp-shuffle scan, segment_sum)
-// and stores z.  A stage is refilled once all 128 threads have arrived on
-// its second mbarrier, each after a fence.proxy.async: the arrive orders
-// the threads' reads of the stage for the generic proxy only, and without
-// the fence a refill overwrote stages still being read (float64 sums
-// went wrong from run to run on the H100).  What bounds it is bytes: the
-// run's slab once, x from L2, z once.  The design takes away what the
-// tile pass and flush add to those bytes: the accumulator's zero fill,
-// one atomic per lane and tile (two in complex128) and a second launch
-// that reads the accumulator back (the flush: 27-31 % of #4 on the
-// dd-Laplacian in kernel #19's account of the tile pass).  A hack with no
-// tiles stores zeros.  Measured on the H100 and not kept: the values in
-// the ring too (10-18 KiB stages: 2-3 stages ran 12-25 % slower on the
-// flagship, more stages slower still, with the L1 that the x gathers use
-// given over to shared memory), 2 and 8 index stages (no better than 4),
-// and loading the next tile's values during the current tile's FMAs
-// (faster on scattered float64, slower on aligned and on the Laplacian).
-
 // Complex: a cell is one aligned float2 / double2 value, x one more.  Each
 // thread keeps re and im sums and adds four FMAs per cell, in this order:
-// re += vr*xr; re -= vi*xi; im += vr*xi; im += vi*xr.  #7's tile pass then
-// issues two atomicAdds, on the re and on the im word of the accumulator
-// (componentwise adds are exact in meaning: there is no complex atomic).
-// The scan runs over re and im separately (a shuffle per component).
+// re += vr*xr; re -= vi*xi; im += vr*xi; im += vi*xr.  The scan runs over
+// re and im separately (a shuffle per component).
 //
 // SpMM (entry whell_packed_spmm, kernel #12) replaces
 // _whell_packed_spmm_kernel (_whell_packed_spmm_call,
@@ -163,19 +177,6 @@ namespace {
 constexpr int kLanes = 128;
 constexpr int kSlots = 8;
 
-__device__ __forceinline__ float load_value(const float* v, int64_t i) {
-  return __ldg(v + i);
-}
-
-// bf16 bits -> fp32 (exact: a bf16 is the top half of an fp32)
-__device__ __forceinline__ float load_value(const uint16_t* v, int64_t i) {
-  return __uint_as_float(static_cast<uint32_t>(__ldg(v + i)) << 16);
-}
-
-__device__ __forceinline__ float2 load_value(const float2* v, int64_t i) {
-  return __ldg(v + i);
-}
-
 // sum + v*x: one FMA for a real type, four for a complex one
 __device__ __forceinline__ float mac(float v, float x, float sum) {
   return fmaf(v, x, sum);
@@ -202,7 +203,7 @@ __device__ __forceinline__ double2 mac(double2 v, double2 x, double2 sum) {
   return cmac(v, x, sum);
 }
 
-// componentwise sum and difference (the flush's scan arithmetic)
+// componentwise sum and difference (the scan's arithmetic)
 __device__ __forceinline__ float add(float a, float b) { return a + b; }
 __device__ __forceinline__ double add(double a, double b) { return a + b; }
 __device__ __forceinline__ float2 add(float2 a, float2 b) {
@@ -235,100 +236,13 @@ __device__ __forceinline__ double2 shfl_up(double2 v, int o) {
                       __shfl_up_sync(0xffffffffu, v.y, o));
 }
 
-// *p += v; a complex sum takes two atomics, one per component
-__device__ __forceinline__ void atomic_add(float* p, float v) { atomicAdd(p, v); }
-__device__ __forceinline__ void atomic_add(float2* p, float2 v) {
-  atomicAdd(&p->x, v.x);
-  atomicAdd(&p->y, v.y);
-}
-
-// The tile's 8x128 page table, staged in shared memory by the block, and
-// the decode of one cell: x-column page*128 + r of slot s's cell whose
-// residue is r (`page` = the tile's tile_page word, its layout group or
-// base page; `bases` = group_bases, ntab per group).
-template <bool kScattered>
-__device__ __forceinline__ int64_t cell_column(const int8_t (&pt)[kSlots][kLanes],
-                                               int s, int r, int32_t page,
-                                               const int32_t* __restrict__ bases,
-                                               int ntab) {
-  const int d = pt[s][r];
-  if constexpr (kScattered) {
-    const int32_t* b = bases + static_cast<int64_t>(page) * ntab;
-    return (static_cast<int64_t>(b[d >> 3]) + (d & 7)) * kLanes + r;
-  } else {
-    return (static_cast<int64_t>(page) + d) * kLanes + r;
-  }
-}
-
-// the accumulator row of tile t: its chunk's group, then the hack in it
-template <bool kScattered>
-__device__ __forceinline__ int64_t tile_hack(const int32_t* __restrict__ chunk_group,
-                                             int64_t t, uint32_t meta,
-                                             int chunk_tiles, int group_hacks) {
-  const uint32_t hh = kScattered ? meta >> 20 : meta >> 16;
-  return static_cast<int64_t>(chunk_group[t / chunk_tiles]) * group_hacks + hh;
-}
-
-// The tile pass of #1 and #7 (V: value storage type; T: x, accumulator
-// and output type, T{} is zero): the tile's page table goes to shared
-// memory, each thread sums its lane over the 8 slots in a register and
-// adds the sum into the (hack, lane) accumulator with one atomic.
-template <typename V, typename T, bool kScattered>
-__device__ __forceinline__ void whell_tile(const V* __restrict__ values,
-                                           const int8_t* __restrict__ residue,
-                                           const int8_t* __restrict__ page_tab,
-                                           const int32_t* __restrict__ tile_base,
-                                           const int32_t* __restrict__ tile_page,
-                                           const int32_t* __restrict__ chunk_group,
-                                           const int32_t* __restrict__ group_bases,
-                                           const T* __restrict__ x, T* __restrict__ acc,
-                                           int chunk_tiles, int group_hacks, int ntab) {
-  const int64_t t = blockIdx.x;
-  const int j = threadIdx.x;
-  const int64_t cell0 = t * (kSlots * kLanes);
-  __shared__ int8_t pt[kSlots][kLanes];
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) pt[s][j] = page_tab[cell0 + s * kLanes + j];
-  const uint32_t meta = static_cast<uint32_t>(tile_base[t]);
-  const int32_t page = tile_page[t];
-  __syncthreads();
-
-  T sum{};
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int64_t c = cell0 + s * kLanes + j;
-    const int64_t col =
-        cell_column<kScattered>(pt, s, residue[c], page, group_bases, ntab);
-    sum = mac(load_value(values, c), __ldg(x + col), sum);
-  }
-  const int64_t hack =
-      tile_hack<kScattered>(chunk_group, t, meta, chunk_tiles, group_hacks);
-  atomic_add(acc + hack * kLanes + j, sum);
-}
-
-template <typename V, typename T, bool kScattered>
-__global__ void __launch_bounds__(kLanes)
-whell_tile_pass(const V* __restrict__ values,
-                const int8_t* __restrict__ residue,
-                const int8_t* __restrict__ page_tab,
-                const int32_t* __restrict__ tile_base,
-                const int32_t* __restrict__ tile_page,
-                const int32_t* __restrict__ chunk_group,
-                const int32_t* __restrict__ group_bases,
-                const T* __restrict__ x, T* __restrict__ acc,
-                int chunk_tiles, int group_hacks, int ntab) {
-  whell_tile<V, T, kScattered>(values, residue, page_tab, tile_base, tile_page,
-                               chunk_group, group_bases, x, acc,
-                               chunk_tiles, group_hacks, ntab);
-}
-
 // Lane j's output of one hack row of the hack pass from its lane sum a,
-// in a block of 128 threads that all call it: the flush pass's scan (kept
-// as its own copy there, whose shared-memory layout ptxas would otherwise
-// change).  With p the inclusive prefix sum of the row's lane sums,
-// (hi >= 0 ? p[hi] : 0) - (lo >= 0 ? p[lo] : 0), lo read from *lo_at
-// after the scan; with unit segments, the sum of lane hi.  The scan
-// array p is 128 T: 1 KiB for double, 2 KiB for double2.
+// in a block of 128 threads that all call it: a warp-shuffle inclusive
+// scan over the 128 lanes, then the segment difference.  With p the
+// inclusive prefix sum of the row's lane sums, (hi >= 0 ? p[hi] : 0) -
+// (lo >= 0 ? p[lo] : 0), lo read from *lo_at after the scan; with unit
+// segments, the sum of lane hi.  The scan array p is 128 T: 0.5 KiB for
+// float, 1 KiB for double and float2, 2 KiB for double2.
 template <typename T, bool kUnit>
 __device__ __forceinline__ T segment_sum(T a, int hi,
                                          const int8_t* __restrict__ lo_at) {
@@ -356,7 +270,7 @@ __device__ __forceinline__ T segment_sum(T a, int hi,
 }
 
 // ---------------------------------------------------------------------------
-// #4 and complex128: one block per hack row (whell_hack_pass)
+// #1, #4, #7 and complex128: one block per hack row (whell_hack_pass)
 
 // The levels of the hack pass, which add one op family at a time (kernel
 // #19): kStream consumes every cell's streamed value and bulk-copied
@@ -367,7 +281,8 @@ __device__ __forceinline__ T segment_sum(T a, int hi,
 // hack's unscanned lane sums to out[h, j].
 enum Level : int { kStream = 0, kGather = 1, kOwn = 2, kFull = 3 };
 
-// tiles of a run in flight per block (the ring's stages)
+// tiles of a run in flight per block (the ring's stages): #1, #4, #7,
+// complex128 and #12
 constexpr int kStages = 4;
 
 // The index bytes of one tile as the bulk copies land them in shared
@@ -377,8 +292,17 @@ struct Stage {
   int8_t pt[kSlots][kLanes];
 };
 
+// a value of the slab, streamed (evict-first), in the sum's type
+__device__ __forceinline__ float load_streaming(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ float2 load_streaming(const float2* p) { return __ldcs(p); }
 __device__ __forceinline__ double load_streaming(const double* p) { return __ldcs(p); }
 __device__ __forceinline__ double2 load_streaming(const double2* p) { return __ldcs(p); }
+
+// bf16 bits -> fp32 (exact: a bf16 is the top half of an fp32)
+__device__ __forceinline__ float load_streaming(const uint16_t* p) {
+  return __uint_as_float(
+      static_cast<uint32_t>(__ldcs(reinterpret_cast<const unsigned short*>(p))) << 16);
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -429,13 +353,18 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
+// a chunk's sums, stored by another block of the launch (L2, not L1)
+__device__ __forceinline__ float load_global(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float2 load_global(const float2* p) { return __ldcg(p); }
 __device__ __forceinline__ double load_global(const double* p) { return __ldcg(p); }
 __device__ __forceinline__ double2 load_global(const double2* p) { return __ldcg(p); }
 
 // Block u runs work unit u = (begin, end, row, chunk) of hack_units
 // (formats/whell.py): the tiles [begin, end) of output row `row`'s run,
 // all of it (chunk -1) or its c-th chunk of k (chunk = c << 16 | k); thread
-// j is lane j.  Thread 0 keeps kStages tiles in flight with bulk copies
+// j is lane j.  V is the values' storage type (float, bf16 bits, float2,
+// double, double2), T that of x, the sums and out.  Thread 0 keeps
+// kStages tiles in flight with bulk copies
 // (a stage is refilled once all 128 threads have arrived on its `emptied`
 // barrier: their reads of it are then done); each thread decodes its 8
 // cells of a landed tile from shared memory, issues their 8 x gathers
@@ -446,9 +375,9 @@ __device__ __forceinline__ double2 load_global(const double2* p) { return __ldcg
 // order (the same bits whichever block comes last) and scans.  The
 // counters are the launch's own (the caller zeroes them per call), so
 // launches on several streams share no state.
-template <typename T, bool kScattered, int kLevel, bool kUnit>
+template <typename V, typename T, bool kScattered, int kLevel, bool kUnit>
 __global__ void __launch_bounds__(kLanes)
-whell_hack_pass(const T* __restrict__ values,
+whell_hack_pass(const V* __restrict__ values,
                 const int8_t* __restrict__ residue,
                 const int8_t* __restrict__ page_tab,
                 const int32_t* __restrict__ tile_page,
@@ -583,14 +512,6 @@ whell_hack_pass(const T* __restrict__ values,
 // #12: the hack pass with kRhs register sums (whell_spmm_hack_pass)
 
 constexpr int kRhs = 8;
-
-__device__ __forceinline__ float load_streaming(const float* p) { return __ldcs(p); }
-
-// bf16 bits -> fp32 (exact: a bf16 is the top half of an fp32)
-__device__ __forceinline__ float load_streaming(const uint16_t* p) {
-  return __uint_as_float(
-      static_cast<uint32_t>(__ldcs(reinterpret_cast<const unsigned short*>(p))) << 16);
-}
 
 // Lane j's outputs of one hack row for w <= kRhs RHS from its lane sums,
 // in a block of 128 threads that all call it: segment_sum's scan for the
@@ -789,90 +710,6 @@ whell_spmm_hack_pass(const V* __restrict__ values,
                             z + static_cast<int64_t>(r0) * rhs_stride + o, rhs_stride);
 }
 
-// Block (h, r) flushes hack row h of RHS r; acc and z hold gridDim.x rows
-// per RHS, seg_lo/seg_hi one set.  (Since #12 moved to the hack pass,
-// the SpMVs #1 and #7 launch it with one RHS.)
-template <typename T, bool kUnit>
-__global__ void __launch_bounds__(kLanes)
-whell_flush_pass(const T* __restrict__ acc,
-                 const int8_t* __restrict__ seg_lo,
-                 const int8_t* __restrict__ seg_hi, T* __restrict__ z) {
-  __shared__ T p[kLanes];
-  __shared__ T warp_total[kLanes / 32];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kLanes + threadIdx.x;
-  const int j = threadIdx.x;
-  acc += static_cast<int64_t>(blockIdx.y) * gridDim.x * kLanes;
-  z += static_cast<int64_t>(blockIdx.y) * gridDim.x * kLanes;
-  T a = acc[i];
-  const int hi = seg_hi[i];
-  if constexpr (kUnit) {
-    p[j] = a;
-    __syncthreads();
-    z[i] = hi >= 0 ? p[hi] : T{};
-    return;
-  }
-  const int lane = j & 31, warp = j >> 5;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const T up = shfl_up(a, o);
-    if (lane >= o) a = add(a, up);
-  }
-  if (lane == 31) warp_total[warp] = a;
-  __syncthreads();
-  for (int w = 0; w < warp; ++w) a = add(a, warp_total[w]);
-  p[j] = a;
-  __syncthreads();
-  const int lo = seg_lo[i];
-  z[i] = sub(hi >= 0 ? p[hi] : T{}, lo >= 0 ? p[lo] : T{});
-}
-
-// the flush of the accumulator's num_rows hack rows
-template <typename T>
-void launch_flush(const T* acc, const void* seg_lo, const void* seg_hi,
-                  void* z, int64_t num_rows, int unit_segments, cudaStream_t st) {
-  if (num_rows <= 0) return;
-  auto* lo = static_cast<const int8_t*>(seg_lo);
-  auto* hi = static_cast<const int8_t*>(seg_hi);
-  auto* zt = static_cast<T*>(z);
-  const dim3 grid(static_cast<unsigned>(num_rows));
-  if (unit_segments)
-    whell_flush_pass<T, true><<<grid, kLanes, 0, st>>>(acc, lo, hi, zt);
-  else
-    whell_flush_pass<T, false><<<grid, kLanes, 0, st>>>(acc, lo, hi, zt);
-}
-
-// tile pass on values of type V, then the flush; returns cudaGetLastError()
-template <typename V, typename T>
-int whell_spmv(const void* values, const void* residue, const void* page_tab,
-               const void* tile_base, const void* tile_page, const void* chunk_group,
-               const void* group_bases, const void* seg_lo, const void* seg_hi,
-               const void* x, void* acc, void* z, int64_t num_tiles,
-               int64_t num_rows, int chunk_tiles, int group_hacks,
-               int window_pages, int unit_segments, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ntab = window_pages / 8;
-  auto* v = static_cast<const V*>(values);
-  auto* res = static_cast<const int8_t*>(residue);
-  auto* pt = static_cast<const int8_t*>(page_tab);
-  auto* tb = static_cast<const int32_t*>(tile_base);
-  auto* tp = static_cast<const int32_t*>(tile_page);
-  auto* cg = static_cast<const int32_t*>(chunk_group);
-  auto* gb = static_cast<const int32_t*>(group_bases);
-  auto* xt = static_cast<const T*>(x);
-  auto* a = static_cast<T*>(acc);
-  if (num_tiles > 0) {
-    const dim3 grid(static_cast<unsigned>(num_tiles));
-    if (gb != nullptr)
-      whell_tile_pass<V, T, true><<<grid, kLanes, 0, st>>>(
-          v, res, pt, tb, tp, cg, gb, xt, a, chunk_tiles, group_hacks, ntab);
-    else
-      whell_tile_pass<V, T, false><<<grid, kLanes, 0, st>>>(
-          v, res, pt, tb, tp, cg, gb, xt, a, chunk_tiles, group_hacks, ntab);
-  }
-  launch_flush<T>(a, seg_lo, seg_hi, z, num_rows, unit_segments, st);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Kernel #12: one launch of whell_spmm_hack_pass on values of type V, a
 // block per (work unit, RHS block); returns cudaGetLastError()
 template <typename V>
@@ -902,9 +739,9 @@ int spmm_hack_pass(const void* values, const void* residue, const void* page_tab
   return static_cast<int>(cudaGetLastError());
 }
 
-// The hack pass at level kLevel on values, x and out of type T, one block
-// per work unit; returns cudaGetLastError().
-template <typename T, int kLevel>
+// The hack pass at level kLevel on values stored as V and x, sums and out
+// of type T, one block per work unit; returns cudaGetLastError().
+template <typename V, typename T, int kLevel>
 int hack_pass(const void* values, const void* residue, const void* page_tab,
               const void* tile_page, const void* group_bases, const void* units,
               void* done, void* part, const void* seg_lo, const void* seg_hi,
@@ -913,13 +750,13 @@ int hack_pass(const void* values, const void* residue, const void* page_tab,
   constexpr bool kScan = kLevel == kFull;  // only the scan reads segments
   if (num_units > 0) {
     auto* kernel = group_bases != nullptr
-        ? (kScan && unit_segments ? &whell_hack_pass<T, true, kLevel, kScan>
-                                  : &whell_hack_pass<T, true, kLevel, false>)
-        : (kScan && unit_segments ? &whell_hack_pass<T, false, kLevel, kScan>
-                                  : &whell_hack_pass<T, false, kLevel, false>);
+        ? (kScan && unit_segments ? &whell_hack_pass<V, T, true, kLevel, kScan>
+                                  : &whell_hack_pass<V, T, true, kLevel, false>)
+        : (kScan && unit_segments ? &whell_hack_pass<V, T, false, kLevel, kScan>
+                                  : &whell_hack_pass<V, T, false, kLevel, false>);
     kernel<<<static_cast<unsigned>(num_units), kLanes, 0,
              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(values), static_cast<const int8_t*>(residue),
+        static_cast<const V*>(values), static_cast<const int8_t*>(residue),
         static_cast<const int8_t*>(page_tab), static_cast<const int32_t*>(tile_page),
         static_cast<const int32_t*>(group_bases), static_cast<const int4*>(units),
         static_cast<int*>(done), static_cast<T*>(part),
@@ -933,67 +770,42 @@ int hack_pass(const void* values, const void* residue, const void* page_tab,
 
 extern "C" {
 
-// z (num_rows x 128) = segment flush of acc after the tile pass.  acc
-// (num_rows x 128) must be zeroed by the caller; group_bases may be null
-// (aligned windows).  Launches on `stream`, does not synchronise, and
-// returns cudaGetLastError().
-//
-// fp32 x, acc and z; values_bf16 selects bf16 values over fp32 ones.
-int whell_packed_spmv(const void* values, int values_bf16,
-                      const void* residue, const void* page_tab,
-                      const void* tile_base, const void* tile_page,
-                      const void* chunk_group, const void* group_bases,
-                      const void* seg_lo, const void* seg_hi, const void* x,
-                      void* acc, void* z, int64_t num_tiles, int64_t num_rows,
-                      int chunk_tiles, int group_hacks, int window_pages,
+// The packed-WHELL SpMV: z (num_rows x 128), one block per work unit of
+// `units` ((num_units, 4) int32, WhellMatrix.hack_units, covering every
+// output row).  Kernel #1 (whell_packed_spmv: fp32 values, or bf16 ones
+// with values_bf16; fp32 x and z), #4 (_f64: float64 values, x and z), #7
+// (_c64: complex64) and the complex128 kernel (_c128), complex values, x
+// and z interleaved re/im.  done (num_rows int32, zeroed) and part
+// (num_units x 128 of z's type) are the launch's scratch for chunked runs,
+// and may both be null when no unit is chunked (num_units == num_rows).
+// values, residue and page_tab must be 16 B aligned (the bulk copies);
+// group_bases may be null (aligned windows).  Launches once on `stream`,
+// does not synchronise, and returns cudaGetLastError().
+int whell_packed_spmv(const void* values, int values_bf16, const void* residue,
+                      const void* page_tab, const void* tile_page,
+                      const void* group_bases, const void* units, void* done,
+                      void* part, const void* seg_lo, const void* seg_hi,
+                      const void* x, void* z, int64_t num_units, int window_pages,
                       int unit_segments, void* stream) {
-  if (values_bf16)
-    return whell_spmv<uint16_t, float>(
-        values, residue, page_tab, tile_base, tile_page, chunk_group, group_bases,
-        seg_lo, seg_hi, x, acc, z, num_tiles, num_rows, chunk_tiles,
-        group_hacks, window_pages, unit_segments, stream);
-  return whell_spmv<float, float>(
-      values, residue, page_tab, tile_base, tile_page, chunk_group, group_bases,
-      seg_lo, seg_hi, x, acc, z, num_tiles, num_rows, chunk_tiles, group_hacks,
-      window_pages, unit_segments, stream);
+  auto* fn = values_bf16 ? &hack_pass<uint16_t, float, kFull>
+                         : &hack_pass<float, float, kFull>;
+  return fn(values, residue, page_tab, tile_page, group_bases, units, done, part,
+            seg_lo, seg_hi, x, z, num_units, window_pages, unit_segments, stream);
 }
 
-// The same with complex64 values, x, acc and z, interleaved re/im.
-int whell_packed_spmv_c64(const void* values, const void* residue,
-                          const void* page_tab, const void* tile_base,
-                          const void* tile_page, const void* chunk_group,
-                          const void* group_bases, const void* seg_lo,
-                          const void* seg_hi, const void* x, void* acc, void* z,
-                          int64_t num_tiles, int64_t num_rows, int chunk_tiles,
-                          int group_hacks, int window_pages, int unit_segments,
-                          void* stream) {
-  return whell_spmv<float2, float2>(
-      values, residue, page_tab, tile_base, tile_page, chunk_group, group_bases,
-      seg_lo, seg_hi, x, acc, z, num_tiles, num_rows, chunk_tiles, group_hacks,
-      window_pages, unit_segments, stream);
-}
-
-// Kernel #4 (_f64: float64 values, x and z) and the complex128 kernel
-// (_c128, interleaved re/im): z (num_rows x 128), one block per work unit
-// of `units` ((num_units, 4) int32, WhellMatrix.hack_units, covering every
-// output row).  done (num_rows int32, zeroed) and part (num_units x 128
-// of T) are the launch's scratch for chunked runs, and may both be null
-// when no unit is chunked (num_units == num_rows).  values, residue and
-// page_tab must be 16 B aligned (the bulk
-// copies); group_bases may be null (aligned windows).  Launches once on
-// `stream`, does not synchronise, and returns cudaGetLastError().
 #define HACK_ENTRY(NAME, T)                                                    \
   int NAME(const void* values, const void* residue, const void* page_tab,    \
            const void* tile_page, const void* group_bases,                   \
            const void* units, void* done, void* part, const void* seg_lo,    \
            const void* seg_hi, const void* x, void* z, int64_t num_units,    \
            int window_pages, int unit_segments, void* stream) {              \
-    return hack_pass<T, kFull>(values, residue, page_tab, tile_page,         \
-                               group_bases, units, done, part, seg_lo,       \
-                               seg_hi, x, z, num_units, window_pages,        \
-                               unit_segments, stream);                       \
+    return hack_pass<T, T, kFull>(values, residue, page_tab, tile_page,      \
+                                  group_bases, units, done, part, seg_lo,    \
+                                  seg_hi, x, z, num_units, window_pages,     \
+                                  unit_segments, stream);                    \
   }
 
+HACK_ENTRY(whell_packed_spmv_c64, float2)
 HACK_ENTRY(whell_packed_spmv_f64, double)
 HACK_ENTRY(whell_packed_spmv_c128, double2)
 
@@ -1013,10 +825,10 @@ int whell_packed_ablation_f64(int level, const void* values, const void* residue
                               const void* seg_hi, const void* x, void* out,
                               int64_t num_units, int window_pages,
                               int unit_segments, void* stream) {
-  auto* fn = level == kStream ? &hack_pass<double, kStream>
-           : level == kGather ? &hack_pass<double, kGather>
-           : level == kOwn    ? &hack_pass<double, kOwn>
-           : level == kFull   ? &hack_pass<double, kFull>
+  auto* fn = level == kStream ? &hack_pass<double, double, kStream>
+           : level == kGather ? &hack_pass<double, double, kGather>
+           : level == kOwn    ? &hack_pass<double, double, kOwn>
+           : level == kFull   ? &hack_pass<double, double, kFull>
                               : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return fn(values, residue, page_tab, tile_page, group_bases, units, done, part,

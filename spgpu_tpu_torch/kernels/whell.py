@@ -9,7 +9,11 @@ complex64) and ``_whell_packed_spmm_kernel`` (#12: the multi-RHS product,
 fp32 or bf16 values, fp32 x), and adds the complex128 product, which the
 JAX package runs as four double-float plane products of #4.  The source
 of all five is ``spgpu_tpu_torch/csrc/whell_packed_spmv.cu`` (its header
-note gives the design and its bound).  It is compiled with ``nvcc`` for
+note gives the design and its bound): every SpMV (#1, #4, #7, complex128)
+and the SpMM (#12) is one launch of a hack pass over the layout's work
+units ``hack_units``, with no accumulator, no zero fill, no lane atomics
+and no flush launch, and gives the same bits on every call.  It is
+compiled with ``nvcc`` for
 ``sm_90a`` into ``spgpu_tpu_torch/_build/`` on first launch and bound
 through ``ctypes`` (:mod:`spgpu_tpu_torch.kernels._build`); nothing is
 built when this module is imported.
@@ -57,25 +61,25 @@ LAUNCHES_SPMM = 0
 _TYPED = {torch.float64: ("whell_packed_spmv_f64", "LAUNCHES_F64"),
           torch.complex64: ("whell_packed_spmv_c64", "LAUNCHES_C64"),
           torch.complex128: ("whell_packed_spmv_c128", "LAUNCHES_C128")}
-#: value dtypes whose kernel sums each hack's run in one block (#4 and the
-#: complex128 kernel: one launch over ``hack_units``, no accumulator)
-PER_HACK = (torch.float64, torch.complex128)
 #: value dtypes of the fp32-x entries (#1 and the SpMM #12)
 _FP32_X = (torch.float32, torch.bfloat16)
+#: value dtypes whose SpMV sums each hack's run in one block (one launch
+#: over ``hack_units``, no accumulator): every type since #1 and #7 moved
+#: onto the hack pass of #4 and complex128
+PER_HACK = _FP32_X + tuple(_TYPED)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    tile_pass = [p] * 11 + [i64, i64, i32, i32, i32, i32, p]
     hack_pass = [p, p, p, p, p, p, p, p, p, p, p, i64, i32, i32, p]
     lib.whell_packed_spmv.restype = ctypes.c_int
-    lib.whell_packed_spmv.argtypes = [p, i32] + tile_pass
+    lib.whell_packed_spmv.argtypes = [p, i32] + hack_pass
     lib.whell_packed_spmm.restype = ctypes.c_int
     lib.whell_packed_spmm.argtypes = [p, i32] + [p] * 11 + [i64, i64, i32, i32, i32, p]
-    for dt, (name, _) in _TYPED.items():
+    for name, _ in _TYPED.values():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        fn.argtypes = [p] + (hack_pass if dt in PER_HACK else tile_pass)
+        fn.argtypes = [p] + hack_pass
     # kernel #19 (spgpu_tpu_torch.kernels.ablation)
     lib.whell_packed_ablation_f64.restype = ctypes.c_int
     lib.whell_packed_ablation_f64.argtypes = [i32, p] + hack_pass
@@ -135,16 +139,6 @@ def _check_args(op, values, residue, page_tab, tile_base, chunk_group,
         raise ValueError(f"{op}: no kernel for device {x.device}")
 
 
-def _layout_args(residue, page_tab, tile_base, tile_page, chunk_group,
-                 group_bases, seg_lo, seg_hi):
-    """The layout arrays' device pointers, in the tile-pass entries'
-    order."""
-    return (residue.data_ptr(), page_tab.data_ptr(), tile_base.data_ptr(),
-            tile_page.data_ptr(), chunk_group.data_ptr(),
-            None if group_bases is None else group_bases.data_ptr(),
-            seg_lo.data_ptr(), seg_hi.data_ptr())
-
-
 def _check_units(op, hack_units, values, seg_lo) -> None:
     """``hack_units`` is ``(U, 4)`` int32 with ``U >= rows``, contiguous,
     on the values' device (``WhellMatrix.hack_units``)."""
@@ -160,15 +154,15 @@ def _check_units(op, hack_units, values, seg_lo) -> None:
 def hack_pass_args(op, values, residue, page_tab, tile_page, group_bases,
                    hack_units, seg_lo, seg_hi, x, out, window_pages,
                    unit_segments, n_rhs=None):
-    """The C arguments of the hack-pass entries (#4, complex128, #19;
-    #12 with ``n_rhs``) after the values: device pointers (the page words
-    ``tile_page`` in place of ``tile_base``: the units name each run's
-    row), the work units' count (and for #12 the rows and ``n_rhs``), sizes and the current
-    stream.  The launch's scratch for chunked runs is allocated here, per
-    call, and only when some run is chunked (more units than rows): the
-    counters zeroed, one per output row (per row and block of 8 RHS for
-    #12), and the chunks' sums; else both are null.  So no product keeps
-    state on the layout.  The bulk copies need 16 B aligned slabs (raises
+    """The C arguments of the hack-pass entries (the SpMVs #1, #4, #7 and
+    complex128, and #19; #12 with ``n_rhs``) after the values: device
+    pointers (the page words ``tile_page`` in place of ``tile_base``: the
+    units name each run's row), the work units' count (and for #12 the
+    rows and ``n_rhs``), sizes and the current stream.  The launch's
+    scratch for chunked runs is allocated here, per call, and only when
+    some run is chunked (more units than rows): the counters zeroed, one
+    per output row (per row and block of 8 RHS for #12), and the chunks'
+    sums; else both are null.  So no product keeps state on the layout.  The bulk copies need 16 B aligned slabs (raises
     otherwise)."""
     if any(t.data_ptr() % 16 for t in (values, residue, page_tab)):
         raise ValueError(f"{op}: values, residue and page_tab must be 16 B "
@@ -199,53 +193,39 @@ def whell_packed_spmv(values, residue, page_tab, tile_base, chunk_group,
     type: the values' own type for float64, complex64 and complex128
     values, float32 for fp32 or bf16 ones.
 
-    CUDA tensors launch the hand kernel (#1; #4 for float64, #7 for
-    complex64, the complex128 kernel for complex128; each counted in its
-    ``LAUNCHES*``); CPU tensors run :func:`whell_packed_spmv_plain`.  Any
-    other device raises.  float64 and complex128 values also take
-    ``hack_units`` (``WhellMatrix.hack_units``; raises without): their
-    kernel sums each hack's run of tiles in one launch, from those work
-    units, and reads no tile outside the runs (other values ignore them).
-    A call keeps no state on the layout: the counters of chunked runs are
-    its own.  The layout arrays are trusted as built by the converter or
-    checked by ``WhellMatrix.check``; shapes, dtypes and devices are
-    checked here."""
+    Every call takes ``hack_units`` (``WhellMatrix.hack_units``; raises
+    without, on every device).  CUDA tensors launch the hand kernel (#1;
+    #4 for float64, #7 for complex64, the complex128 kernel for
+    complex128; each counted in its ``LAUNCHES*``): one launch of the hack
+    pass, which sums each hack's run of tiles in one block from those
+    work units, reads no tile outside the runs, and writes every row of
+    a ``torch.empty`` z.  CPU tensors run :func:`whell_packed_spmv_plain`
+    in its per-hack form.  Any other device raises.  A call keeps no
+    state on the layout: the counters of chunked runs are its own.  The
+    layout arrays are trusted as built by the converter or checked by
+    ``WhellMatrix.check``; shapes, dtypes and devices are checked here."""
     _check_args("whell_packed_spmv", values, residue, page_tab, tile_base,
                 chunk_group, group_bases, seg_lo, seg_hi, x2d, chunk_tiles,
                 group_hacks, window_pages, tile_page)
-    per_hack = values.dtype in PER_HACK
-    if per_hack:
-        _check_units("whell_packed_spmv", hack_units, values, seg_lo)
+    _check_units("whell_packed_spmv", hack_units, values, seg_lo)
     dev = x2d.device
-    static = dict(chunk_tiles=chunk_tiles, group_hacks=group_hacks,
-                  window_pages=window_pages, unit_segments=unit_segments,
-                  tile_page=tile_page)
     if dev.type == "cpu":
         return whell_packed_spmv_plain(
             values, residue, page_tab, tile_base, chunk_group, group_bases,
-            seg_lo, seg_hi, x2d, hack_units=hack_units if per_hack else None,
-            **static)
+            seg_lo, seg_hi, x2d, chunk_tiles=chunk_tiles, group_hacks=group_hacks,
+            window_pages=window_pages, unit_segments=unit_segments,
+            hack_units=hack_units, tile_page=tile_page)
     lib = _LIB.load()
-    R = seg_lo.shape[0]
-    z = torch.empty((R, 128), dtype=x2d.dtype, device=dev)
+    z = torch.empty((seg_lo.shape[0], 128), dtype=x2d.dtype, device=dev)
     typed = _TYPED.get(values.dtype)
-    if per_hack:
-        err = getattr(lib, typed[0])(values.data_ptr(), *hack_pass_args(
-            "whell_packed_spmv", values, residue, page_tab, tile_page,
-            group_bases, hack_units, seg_lo, seg_hi, x2d, z, window_pages,
-            unit_segments))
+    args = hack_pass_args("whell_packed_spmv", values, residue, page_tab, tile_page,
+                          group_bases, hack_units, seg_lo, seg_hi, x2d, z,
+                          window_pages, unit_segments)
+    if typed is not None:
+        err = getattr(lib, typed[0])(values.data_ptr(), *args)
     else:
-        acc = torch.zeros((R, 128), dtype=x2d.dtype, device=dev)
-        args = (*_layout_args(residue, page_tab, tile_base, tile_page, chunk_group,
-                              group_bases, seg_lo, seg_hi),
-                x2d.data_ptr(), acc.data_ptr(), z.data_ptr(),
-                tile_base.shape[0], R, chunk_tiles, group_hacks, window_pages,
-                int(unit_segments), torch.cuda.current_stream(dev).cuda_stream)
-        if typed is not None:
-            err = getattr(lib, typed[0])(values.data_ptr(), *args)
-        else:
-            err = lib.whell_packed_spmv(values.data_ptr(),
-                                        int(values.dtype == torch.bfloat16), *args)
+        err = lib.whell_packed_spmv(values.data_ptr(),
+                                    int(values.dtype == torch.bfloat16), *args)
     if err != 0:
         raise RuntimeError(f"whell_packed_spmv launch failed: CUDA error {err}")
     globals()["LAUNCHES" if typed is None else typed[1]] += 1
@@ -308,8 +288,8 @@ def whell_packed_spmv_plain(values, residue, page_tab, tile_base,
                             hack_units: Optional[torch.Tensor] = None,
                             tile_page: torch.Tensor) -> torch.Tensor:
     """The same product in plain PyTorch: :func:`whell_packed_spmm_plain`
-    with one RHS (with ``hack_units``, its per-hack form: that of #4 and
-    the complex128 kernel)."""
+    with one RHS (with ``hack_units``, its per-hack form: that of the
+    kernels; without, the tile pass's form of the JAX kernels)."""
     return whell_packed_spmm_plain(
         values, residue, page_tab, tile_base, chunk_group, group_bases,
         seg_lo, seg_hi, x2d.unsqueeze(0), chunk_tiles=chunk_tiles,
@@ -327,11 +307,12 @@ def whell_packed_spmm_plain(values, residue, page_tab, tile_base,
     axis of ``x3d`` ``(n_rhs, x_pages, 128)``, on the operands' device, in
     x3d's type, then the flush (``cumsum`` and the segment gathers;
     complex products are PyTorch's complex multiply).  With
-    ``hack_units``, the per-hack form of the hack-pass kernels (#4, #12
-    and complex128): :func:`whell_hack_sums` (each hack's run, tile by
-    tile and slot by slot; no tile outside the runs); without, the tile
-    pass's: decode once, gather ``(n_rhs, S, 128)`` and ``index_add_``
-    every tile's sums into its hack row."""
+    ``hack_units``, the per-hack form of the hack-pass kernels (#1, #4,
+    #7, #12 and complex128): :func:`whell_hack_sums` (each hack's run,
+    tile by tile and slot by slot; no tile outside the runs, every cell
+    multiplied, zero-valued ones too); without, the tile pass's of the
+    JAX kernels: decode once, gather ``(n_rhs, S, 128)`` and
+    ``index_add_`` every tile's sums into its hack row."""
     if hack_units is not None:
         acc = whell_hack_sums(values, residue, page_tab, tile_base,
                               group_bases, hack_units, x3d,
@@ -380,9 +361,11 @@ def whell_cell_products(values, residue, page_tab, tile_base, group_bases,
 def whell_tile_sums(values, residue, page_tab, tile_base, chunk_group,
                     group_bases, x3d, *, chunk_tiles: int, group_hacks: int,
                     window_pages: int, tile_page: torch.Tensor):
-    """The tile pass in plain PyTorch: each tile's lane sums over its 8
-    slots, ``(n_rhs, T, 128)`` in x3d's type, and each tile's accumulator
-    row (hack), ``(T,)`` int64."""
+    """The JAX kernels' tile pass in plain PyTorch (every tile of the slab,
+    ct-padding tiles included; the reference that the tests and
+    ``chip_smoke.py`` hold the kernels to beside the per-hack form): each
+    tile's lane sums over its 8 slots, ``(n_rhs, T, 128)`` in x3d's type,
+    and each tile's accumulator row (hack), ``(T,)`` int64."""
     prod, hh = whell_cell_products(values, residue, page_tab, tile_base,
                                    group_bases, x3d, window_pages=window_pages,
                                    tile_page=tile_page)
@@ -395,8 +378,8 @@ def whell_hack_sums(values, residue, page_tab, tile_base, group_bases,
                     hack_units, x3d, *, num_rows: int, window_pages: int,
                     tile_page: torch.Tensor) -> torch.Tensor:
     """Each output row's unscanned lane sums in plain PyTorch, ``(n_rhs,
-    num_rows, 128)`` in x3d's type, as the hack-pass kernels (#4, #12 and
-    complex128) sum them over the work units ``hack_units`` (``[begin,
+    num_rows, 128)`` in x3d's type, as the hack-pass kernels (#1, #4, #7,
+    #12 and complex128) sum them over the work units ``hack_units`` (``[begin,
     end, row, chunk]``,
     :func:`~spgpu_tpu_torch.formats.whell.packed_hack_units`): each unit
     adds its tiles' products tile by tile and slot by slot, then a row
@@ -413,8 +396,10 @@ def whell_hack_sums(values, residue, page_tab, tile_base, group_bases,
     sums = torch.zeros((n_rhs, U, 128), dtype=x3d.dtype, device=x3d.device)
     for i in range(int(n.max()) if U else 0):
         live = torch.nonzero(n > i).view(-1)
+        tile, part = prod[:, begin[live] + i], sums[:, live]
         for s in range(8):
-            sums[:, live] += prod[:, begin[live] + i, s]
+            part += tile[:, :, s]
+        sums[:, live] = part
     acc = torch.zeros((n_rhs, num_rows, 128), dtype=x3d.dtype, device=x3d.device)
     for c in range(int(chunk.max()) + 1 if U else 0):
         sel = torch.nonzero(chunk == c).view(-1)

@@ -5,10 +5,11 @@ Needs no JAX, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 (``--noconftest`` skips the JAX set-up of ``tests/conftest.py``).  Every
-test skips without a CUDA device.  Kernel #1 (WHELL) sums each lane's
-tiles with atomics, and #3 (WHDIA) each hack's live slots in list order
-with FMAs, in another order than the plain version's ``index_add_``,
-hence rtol 1e-5 and atol 1e-5·max|z|; kernel
+test skips without a CUDA device.  Kernel #1 (WHELL) sums each hack's run
+tile by tile and slot by slot with FMAs, as its per-hack plain version
+does with rounded products, and #3 (WHDIA) each hack's live slots in
+list order with FMAs, in another order than the plain version's
+``index_add_``, hence rtol 1e-5 and atol 1e-5·max|z|; kernel
 #2 (SDIA) owns each row in one thread and sums the diagonals in the
 plain version's order, hence rtol 1e-6 and atol 1e-6·max|z|.  Against
 the float64 host golden the fp32 tolerance is 2e-5.
@@ -43,11 +44,17 @@ kernel must write without a zero fill, twice with the same bits, and
 shown to skip an Inf in x that only all-zero slots reach (a deviation
 from the JAX kernel, which gives NaN there); without the lists, or (#3,
 #6) on a slab that is not 16 B aligned, they raise.  The float64 and
-complex128 WHDIA solves give the same bits graphed and eager.  Kernel #18's hack
+complex128 WHDIA solves give the same bits graphed and eager.
+
+Every packed-WHELL SpMV (#1 in fp32 and bf16, #4, #7, complex128) is one
+launch of the hack pass over the layout's work units: the same bits
+every call, chunked runs added in order, each call's own run counters,
+no read of a padding tile.  Their solves give the same bits graphed and
+eager.  Kernel #18's hack
 levels (of #3 at 1 RHS, of #13 at 8) are held to their plain versions.
 
 Classic WHELL (#15 SpMV, #16 SpMM; fp32 and bf16 values, OELL order and
-way-split rows) and pcell (#17) sum with atomics too: rtol 1e-5 and atol
+way-split rows) and pcell (#17) sum with atomics: rtol 1e-5 and atol
 1e-5·max|z| against their plain versions; 2e-5 (classic) and 1e-5·max|z|
 (pcell) against the golden.  #15 and #16 read only the live units of the
 work list: they are held to the full-layout plain version on layouts
@@ -133,9 +140,9 @@ def cuda_device():
 
 
 def _plain(a, xl, per_hack=True):
-    """The plain product of ``a``'s kernel: the per-hack form for float64
-    and complex128 values (``per_hack=False``: every tile added into its
-    hack row, the tile pass's form, a second witness)."""
+    """The plain product of ``a``'s kernel: the per-hack form
+    (``per_hack=False``: every tile added into its hack row, the JAX
+    kernels' tile pass, a second witness)."""
     units = a.hack_units if per_hack and a.values.dtype in kw.PER_HACK else None
     return kw.whell_packed_spmv_plain(
         a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
@@ -628,7 +635,8 @@ def _spmm_golden(coo, xs):
 def test_whell_spmm_kernel_matches_plain_and_golden(name, scattered, dtype,
                                                     cuda_device):
     """Kernel #12 at 5 RHS (a remainder block) against its plain version;
-    atomics reorder the fp32 sums, hence 1e-5 and 1e-5·max|Z|."""
+    the kernel adds with FMAs, the plain version rounds each product,
+    hence 1e-5 and 1e-5·max|Z|."""
     coo = CASES[name]()
     a = coo_to_whell(coo, device=cuda_device, scattered=scattered, dtype=dtype)
     x = _xs(5, coo.n_cols)
@@ -1067,41 +1075,76 @@ def test_solve_pcell_on_cuda(symmetric, cuda_device):
 
 
 # --------------------------------------------------------------------------
-# #4 and complex128: one block per hack, one launch, the same bits twice
+# every packed-WHELL SpMV (#1, #4, #7, complex128): one block per hack, one
+# launch, the same bits twice
+
+#: value dtype -> (x's and z's dtype, launch counter, atol/max|z| against
+#: the plain versions, against the float64 or complex128 golden)
+PER_HACK_TYPES = {"float32": (torch.float32, "LAUNCHES", 1e-5, 1e-4),
+                  "bfloat16": (torch.float32, "LAUNCHES", 1e-5, 1e-4),
+                  "complex64": (torch.complex64, "LAUNCHES_C64", 1e-5, 1e-4),
+                  "float64": (torch.float64, "LAUNCHES_F64", 1e-12, 1e-12),
+                  "complex128": (torch.complex128, "LAUNCHES_C128", 1e-12, 1e-12)}
 
 
-def _per_hack_case(dtype, coo):
-    if dtype == "complex128":
-        return _complex(coo, dtype), torch.complex128, "LAUNCHES_C128"
-    return _f64(coo), torch.float64, "LAUNCHES_F64"
+def _per_hack_case(dtype, coo, device, **conv):
+    """``coo`` in ``dtype`` (complex: ``v + 1j·N(0, 1)``; bf16: its values
+    rounded to bf16, held in float64), its layout on ``device`` and
+    :data:`PER_HACK_TYPES`' row."""
+    if dtype in CPLX:
+        coo = _complex(coo, dtype)
+    else:
+        v = torch.from_numpy(coo.values.astype(np.float64)).to(getattr(torch, dtype))
+        coo = CooMatrix(coo.rows, coo.cols, v.double().numpy() if dtype == "bfloat16"
+                        else v.numpy(), coo.n_rows, coo.n_cols)
+    a = coo_to_whell(coo, device=device, dtype="bfloat16" if dtype == "bfloat16" else None,
+                     **conv)
+    assert a.values.dtype == getattr(torch, dtype)
+    return coo, a, *PER_HACK_TYPES[dtype]
+
+
+def _per_hack_x(a, coo, tdt, seed):
+    """A random x in ``tdt`` (``default_rng(seed)``; complex: real and
+    imaginary parts drawn in turn), in lane space, and the golden's
+    product of it in float64 or complex128."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(coo.n_cols)
+    if tdt.is_complex:
+        x = x + 1j * rng.standard_normal(coo.n_cols)
+    xt = torch.from_numpy(x).to(tdt)
+    wide = np.complex128 if tdt.is_complex else np.float64
+    g = CooMatrix(coo.rows, coo.cols, coo.values.astype(wide), coo.n_rows,
+                  coo.n_cols).spmv(xt.numpy().astype(wide))
+    return a.embed(xt, dtype=tdt), torch.from_numpy(g)
+
+
+PER_HACK_DTYPES = list(PER_HACK_TYPES)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("scattered", [False, True], ids=["aligned", "scattered"])
-@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+@pytest.mark.parametrize("dtype", PER_HACK_DTYPES)
 @pytest.mark.parametrize("name", ["fem_large", "laplace_wide", "empty"])
 def test_per_hack_kernel_is_one_launch_and_reproducible(name, dtype, scattered,
                                                         cuda_device):
     """One counted launch per product and no accumulator; two launches
-    give the same bits; within 1e-12·max|z| of the per-hack plain version,
-    of the tile-pass plain version and of the golden."""
-    coo, tdt, counter = _per_hack_case(dtype, CASES[name]())
-    a = coo_to_whell(coo, device=cuda_device, scattered=scattered)
-    assert a.values.dtype == tdt and a.hack_units.device == cuda_device
-    x = np.random.default_rng(7).standard_normal(coo.n_cols).astype(
-        np.complex128 if tdt.is_complex else np.float64)
-    if tdt.is_complex:
-        x = x + 1j * np.random.default_rng(8).standard_normal(coo.n_cols)
-    xl = a.embed(torch.from_numpy(x), dtype=tdt)
+    give the same bits; within 1e-12·max|z| (float64, complex128) or
+    1e-5·max|z| (fp32, bf16, complex64) of the per-hack plain version and
+    of the tile-pass plain version, and within 1e-12 or 1e-4 of max|z| of
+    the golden."""
+    coo, a, tdt, counter, tol, gtol = _per_hack_case(dtype, CASES[name](), cuda_device,
+                                                     scattered=scattered)
+    assert a.hack_units.device == cuda_device
+    xl, golden = _per_hack_x(a, coo, tdt, 7)
     before = getattr(kw, counter)
     z1 = ops.whell_spmv(a, xl)
     z2 = ops.whell_spmv(a, xl)
     torch.cuda.synchronize()
     assert getattr(kw, counter) == before + 2
     assert torch.equal(z1, z2)
-    _near(z1, _plain(a, xl), 1e-12)
-    _near(z1, _plain(a, xl, per_hack=False), 1e-12)
-    _near(a.extract(z1, dtype=tdt), torch.from_numpy(coo.spmv(x)), 1e-12)
+    _near(z1, _plain(a, xl), tol)
+    _near(z1, _plain(a, xl, per_hack=False), tol)
+    _near(a.extract(z1, dtype=golden.dtype), golden, gtol)
 
 
 def _hub_rows(n=160000, step=29, seed=3):
@@ -1118,24 +1161,22 @@ def _hub_rows(n=160000, step=29, seed=3):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("scattered", [False, True], ids=["aligned", "scattered"])
-@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+@pytest.mark.parametrize("dtype", PER_HACK_DTYPES)
 def test_per_hack_kernel_adds_chunked_runs_in_order(dtype, scattered, cuda_device):
     """A run cut into chunks of work units: each chunk's block stores its
     sums, the last to finish adds them in chunk order; the same bits every
     launch, and the run counters are each call's own, not the layout's."""
-    coo, tdt, counter = _per_hack_case(dtype, _hub_rows())
-    a = coo_to_whell(coo, device=cuda_device, scattered=scattered)
+    coo, a, tdt, _, tol, gtol = _per_hack_case(dtype, _hub_rows(), cuda_device,
+                                               scattered=scattered)
     assert int((a.hack_units[:, 3] >= 0).sum()) >= 3
-    x = np.random.default_rng(5).standard_normal(coo.n_cols).astype(
-        np.complex128 if tdt.is_complex else np.float64)
-    xl = a.embed(torch.from_numpy(x), dtype=tdt)
+    xl, golden = _per_hack_x(a, coo, tdt, 5)
     zs = [ops.whell_spmv(a, xl) for _ in range(4)]
     torch.cuda.synchronize()
     assert all(torch.equal(zs[0], z) for z in zs[1:])
     assert not hasattr(a, "hack_done")
-    _near(zs[0], _plain(a, xl), 1e-12)
-    _near(zs[0], _plain(a, xl, per_hack=False), 1e-12)
-    _near(a.extract(zs[0], dtype=tdt), torch.from_numpy(coo.spmv(x)), 1e-12)
+    _near(zs[0], _plain(a, xl), tol)
+    _near(zs[0], _plain(a, xl, per_hack=False), tol)
+    _near(a.extract(zs[0], dtype=golden.dtype), golden, gtol)
 
 
 def _two_streams(a, xs, golden, product, pairs=200):
@@ -1163,31 +1204,36 @@ def _two_streams(a, xs, golden, product, pairs=200):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float64", "complex128", "spmm"])
+@pytest.mark.parametrize("dtype", PER_HACK_DTYPES + ["spmm"])
 def test_two_streams_share_no_run_counters(dtype, cuda_device):
     """Fault F2: 200 pairs of products of one chunked-run layout, the two
     of each pair at once on two streams, every result within 1e-12·max|z|
-    of the golden (float64, complex128: #4 and its complex128 kernel), or
-    1e-5·max|Z| (``spmm``: #12 on the fp32 layout, 3 RHS)."""
+    of the golden (float64, complex128: #4 and its complex128 kernel),
+    1e-4·max|z| (fp32, bf16, complex64: #1 and #7), or 1e-5·max|Z|
+    (``spmm``: #12 on the fp32 layout, 3 RHS)."""
     if dtype == "spmm":
         c = _hub_rows()
         coo = CooMatrix(c.rows, c.cols, c.values.astype(np.float32), c.n_rows, c.n_cols)
         tdt, tol, shape = torch.float32, 1e-5, (3, coo.n_cols)
         product = ops.whell_spmm
+        a = coo_to_whell(coo, device=cuda_device)
     else:
-        coo, tdt, _ = _per_hack_case(dtype, _hub_rows())
-        tol, shape = 1e-12, (coo.n_cols,)
+        coo, a, tdt, _, _, tol = _per_hack_case(dtype, _hub_rows(), cuda_device)
+        shape = (coo.n_cols,)
         product = ops.whell_spmv
-    a = coo_to_whell(coo, device=cuda_device)
     assert int((a.hack_units[:, 3] >= 0).sum()) >= 3
     rng = np.random.default_rng(6)
     xs, golden = [], []
+    wide = np.complex128 if tdt.is_complex else np.float64
+    wcoo = CooMatrix(coo.rows, coo.cols, coo.values.astype(wide), coo.n_rows, coo.n_cols)
     for _ in range(2):
         x = rng.standard_normal(shape)
         if tdt.is_complex:
             x = x + 1j * rng.standard_normal(shape)
-        xs.append(a.embed(torch.from_numpy(x), dtype=tdt))
-        golden.append(a.embed(torch.from_numpy(coo.spmv(x)), dtype=tdt))
+        x = torch.from_numpy(x).to(tdt)
+        xs.append(a.embed(x, dtype=tdt))
+        golden.append(a.embed(torch.from_numpy(wcoo.spmv(x.numpy().astype(wide))),
+                              dtype=tdt))
     assert max(_two_streams(a, xs, golden, product)) <= tol
 
 
@@ -1201,24 +1247,22 @@ def _far_columns(n=12000, lo=6000, deg=9, seed=11):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+@pytest.mark.parametrize("dtype", PER_HACK_DTYPES)
 def test_per_hack_kernel_skips_padding_inf(dtype, cuda_device):
     """An Inf in x that only the output groups' padding tiles read (lane
-    column 0, aligned windows): #4 and complex128 read no tile outside
-    the runs and give the golden, where the tile-pass plain version, like
+    column 0, aligned windows): the hack pass reads no tile outside the
+    runs and gives the golden, where the tile-pass plain version, like
     the JAX kernel, multiplies the padding tiles and gives NaN."""
-    coo, tdt, _ = _per_hack_case(dtype, _far_columns())
-    a = coo_to_whell(coo, device=cuda_device, scattered=False)
+    coo, a, tdt, _, _, gtol = _per_hack_case(dtype, _far_columns(), cuda_device,
+                                             scattered=False)
     hp = a.hack_ptr.cpu()
     assert int((hp[:, 1] - hp[:, 0]).sum()) < a.num_tiles  # a padding tail
-    x = np.random.default_rng(9).standard_normal(coo.n_cols).astype(
-        np.complex128 if tdt.is_complex else np.float64)
-    xl = a.embed(torch.from_numpy(x), dtype=tdt)
+    xl, golden = _per_hack_x(a, coo, tdt, 9)
     xl[0] = float("inf")
     z = ops.whell_spmv(a, xl)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(z).all())
-    _near(a.extract(z, dtype=tdt), torch.from_numpy(coo.spmv(x)), 1e-12)
+    _near(a.extract(z, dtype=golden.dtype), golden, gtol)
     assert bool(_plain(a, xl, per_hack=False).isnan().any())
 
 
@@ -1763,10 +1807,10 @@ def test_whdia_sweep_on_both_fixtures_on_the_card(matrix, size, family, cuda_dev
 loop = importlib.import_module("spgpu_tpu_torch.solvers.cg")
 
 #: (fmt, dtype) of every solve() route -> whether its kernel gives the same
-#: bits every call (SDIA #2/#5/#8/#11, WHDIA #3/#6/#9/#10, #4 and
-#: complex128 WHELL); #1, #7 and #17 sum with atomics
-GRAPH_ROUTES = {("whell", "float32"): False, ("whell", "float64"): True,
-                ("whell", "complex64"): False, ("whell", "complex128"): True,
+#: bits every call (SDIA #2/#5/#8/#11, WHDIA #3/#6/#9/#10, packed WHELL
+#: #1/#4/#7 and complex128 on the hack pass); #17 sums with atomics
+GRAPH_ROUTES = {("whell", "float32"): True, ("whell", "float64"): True,
+                ("whell", "complex64"): True, ("whell", "complex128"): True,
                 ("sdia", "float32"): True, ("sdia", "float64"): True,
                 ("sdia", "complex64"): True, ("sdia", "complex128"): True,
                 ("whdia", "float32"): True, ("whdia", "float64"): True,
@@ -2152,7 +2196,8 @@ def test_dist_shard_product_captured_in_a_graph(kind, cuda_device):
     prefix), its halo taken from the plan, captured in one CUDA graph and
     replayed on a new x copied into the captured block and halo: equal to
     the eager product of the same x, bit for bit where the kernel gives
-    the same bits every call (#4, complex128), else within 1e-5·max|z|."""
+    the same bits every call (the packed partitions: #1, #4, #7,
+    complex128), else within 1e-5·max|z| (classic: #15's atomics)."""
     from spgpu_tpu_torch.parallel.dist_spmv import _PlannedHalo as PlannedHalo
 
     coo, pm = _dist_system(kind)
@@ -2164,7 +2209,7 @@ def test_dist_shard_product_captured_in_a_graph(kind, cuda_device):
         return (v + 1j * rng.standard_normal(coo.n_rows) if cplx else v).astype(
             coo.values.dtype)
 
-    exact = kind in ("float64", "complex128")
+    exact = kind != "classic"
     for s in range(4):
         h = PlannedHalo(pm, s, cuda_device)
         xl = h.set_x(draw())

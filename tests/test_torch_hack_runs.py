@@ -338,16 +338,23 @@ def test_float64_and_complex128_default_to_scattered_windows(dtype):
     assert a.num_tiles < b.num_tiles
 
 
-@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+@pytest.mark.parametrize("dtype", ["float64", "complex128", "float32", "bfloat16",
+                                   "complex64"])
 def test_wrapper_takes_hack_units_for_float64_and_complex128(dtype):
-    c = CASES["banded"](tfix, np.float64)
-    if dtype == "complex128":
-        c = CooMatrix(c.rows, c.cols, _cvalues(c), c.n_rows, c.n_cols)
-    a = coo_to_whell(c, device="cpu")
+    """Every packed-WHELL SpMV runs the hack pass (float64 and complex128
+    first, then fp32, bf16 and complex64): the wrapper raises without
+    int32 ``hack_units`` on every device, and on the CPU runs the per-hack
+    plain form with them."""
+    c = CASES["banded"](tfix, np.float64 if dtype in ("float64", "complex128")
+                        else np.float32)
+    if dtype.startswith("complex"):
+        c = CooMatrix(c.rows, c.cols, _cvalues(c).astype(dtype), c.n_rows, c.n_cols)
+    a = coo_to_whell(c, device="cpu", dtype="bfloat16" if dtype == "bfloat16" else None)
+    assert a.values.dtype == getattr(torch, dtype)
+    xdt = torch.float32 if dtype == "bfloat16" else getattr(torch, dtype)
     args = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
             a.group_bases, a.seg_lo, a.seg_hi,
-            tops._prep_x(a.embed(np.ones(c.n_cols), getattr(torch, dtype)),
-                         a.n_cols, a.x_pages))
+            tops._prep_x(a.embed(np.ones(c.n_cols), xdt), a.n_cols, a.x_pages))
     static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
                   window_pages=a.window_pages, unit_segments=a.unit_segments,
                   tile_page=a.tile_page)

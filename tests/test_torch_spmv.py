@@ -171,7 +171,8 @@ def cuda_device():
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_kernel_matches_jax_on_cuda(name, scattered, cuda_device):
     """The hand kernel on the card against the JAX product (on the CPU)
-    and the golden; atomics reorder fp32 sums, hence the tolerance."""
+    and the golden; the kernel adds with FMAs in the per-hack order, which
+    is not the JAX kernel's tile order, hence the tolerance."""
     coo = CASES[name]()
     x = np.random.default_rng(0).standard_normal(coo.n_cols).astype(np.float32)
     ja = j_coo_to_whell(coo, packed=True, scattered=scattered)
