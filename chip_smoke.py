@@ -270,14 +270,40 @@ the float64 geometry sweep, and checks them:
                product at world size 1 (#1), device and per-call ms.
                The host has one card: no rank runs on a second card
                (``python3 chip_smoke.py --dist`` runs 32-34 alone).
+               Phases 32 and 33 also run the SPD flagship in a 4-shard
+               HELL partition (plain torch products) and ``dist_cg`` on it
+               at world size 1 beside the single-device hell route;
+35. classic_formats — the classic layouts through ``ops.spmv`` on CUDA
+               tensors (plain torch on the card, no kernel): ELL, OELL and
+               HELL on the flagship, DIA and HDIA on the 1024² Laplacian,
+               HDIA on banded-11 and DIA on its contiguous form (27,192
+               diagonals in the wandering one), BCOO (8x8) on the
+               Laplacian, float32 and
+               float64 (complex64 and complex128 on the Laplacian); each
+               on the card, at the host golden with alpha 1.7 and beta
+               -0.3, with its converter seconds, bytes, per-call and device
+               ms beside cuSPARSE CSR; csput on the card against the host
+               (``classic`` is phase 22's name);
+36. hybrid   — ``random_mixed(2**19)`` (the JAX defaults) in the hybrid
+               split, fp32 and float64: ``tau_lanes``, band fraction and
+               padding; one ``hybrid_spmv`` launches #3 (#6) once and #1
+               (#4) once, is at the golden and gives the same bits twice;
+               device ms of the op, of each kernel and of the crossing,
+               beside pure packed WHELL, pure WHDIA and cuSPARSE CSR;
+37. solve_classic — ``solve(fmt="hybrid")`` on the mixed fixture's SPD
+               form (fp32, float64) and ``solve(fmt="hell")`` on the SPD
+               flagship (fp32, float64) and its Hermitian complex64 form,
+               each with its graphed loop beside its eager witness and the
+               hell solves within 10 % of the whell route's iterations
+               (``python3 chip_smoke.py --classic`` runs 35-37 alone).
 
-Phases 26-28, 29, 30-31 and 32-34 run in fresh processes of this script
-(``chip_smoke.py --sweeps``, ``--kernel-times``, ``--large``, ``--dist``,
-which print their lines for this one to emit): after the earlier phases'
-profiling sessions, sessions in this process lose events, and the
-distributed phases open and destroy their own NCCL group.  The large and
-distributed phases' main-path launches (their checked op calls and
-solves) add to the kernel table's.
+Phases 26-28, 29, 30-31, 32-34 and 35-37 run in fresh processes of this
+script (``chip_smoke.py --sweeps``, ``--kernel-times``, ``--large``,
+``--dist``, ``--classic``, which print their lines for this one to emit):
+after the earlier phases' profiling sessions, sessions in this process
+lose events, and the distributed phases open and destroy their own NCCL
+group.  The large, distributed and classic phases' main-path launches
+(their checked op calls and solves) add to the kernel table's.
 
 Every time a solve phase prints carries the card's name and power limit
 (``card``).
@@ -778,14 +804,18 @@ def whdia_phase(coo, mode, device, label, wa=None, convert_s=None):
 
 #: (fmt, value dtype name) of the solve routes whose kernel gives the same
 #: bits every call (SDIA #2/#5/#8/#11, WHDIA #3/#6/#9/#10, packed WHELL
-#: #1/#4/#7 and complex128 on the hack pass): their graphed solves must
-#: equal the eager witness bit for bit; the other (#17) sums with atomics
+#: #1/#4/#7 and complex128 on the hack pass, the hybrid split's #3 + #1
+#: and #6 + #4 with its index copies, and HELL's plain products, each hack
+#: summed in slot order): their graphed solves must equal the eager
+#: witness bit for bit; the other (#17) sums with atomics
 BIT_REPRODUCIBLE = {("sdia", "float32"), ("sdia", "float64"), ("sdia", "complex64"),
                     ("sdia", "complex128"), ("whdia", "float32"),
                     ("whdia", "float64"), ("whdia", "complex64"),
                     ("whdia", "complex128"), ("whell", "float32"),
                     ("whell", "float64"), ("whell", "complex64"),
-                    ("whell", "complex128")}
+                    ("whell", "complex128"), ("hybrid", "float32"),
+                    ("hybrid", "float64"), ("hell", "float32"), ("hell", "float64"),
+                    ("hell", "complex64"), ("hell", "complex128")}
 
 
 def krylov_loop():
@@ -2278,13 +2308,13 @@ ONE_CARD = ("world size 1 only: this host has one card, and NCCL runs no "
             "two ranks on one card; no multi-card run was possible")
 
 
-def dist_counts(reset=False) -> dict:
-    """The launch counters of :data:`DIST_KERNELS` by kernel name (set to
-    0 first with ``reset``)."""
+def kernel_counts(table: dict, reset=False) -> dict:
+    """The launch counters of ``table`` (kernel name -> (kernel module,
+    counter)) by kernel name (set to 0 first with ``reset``)."""
     import importlib
 
     out = {}
-    for name, (mod, attr) in DIST_KERNELS.items():
+    for name, (mod, attr) in table.items():
         m = importlib.import_module(f"spgpu_tpu_torch.kernels.{mod}")
         if reset:
             setattr(m, attr, 0)
@@ -2292,21 +2322,29 @@ def dist_counts(reset=False) -> dict:
     return out
 
 
+def dist_counts(reset=False) -> dict:
+    """The launch counters of :data:`DIST_KERNELS` by kernel name (set to
+    0 first with ``reset``)."""
+    return kernel_counts(DIST_KERNELS, reset)
+
+
 def add_counts(total: dict, counts: dict) -> None:
     for k, v in counts.items():
         total[k] = total.get(k, 0) + v
 
 
-def counted(fn, launches: dict):
-    """``fn()`` with the distributed kernels' counters set to 0 just
-    before and read just after (a synchronise between), added into
-    ``launches``; returns ``fn``'s result and the counts."""
+def counted(fn, launches: dict, table=None):
+    """``fn()`` with the counters of ``table`` (default
+    :data:`DIST_KERNELS`) set to 0 just before and read just after (a
+    synchronise between), added into ``launches``; returns ``fn``'s result
+    and the counts."""
     import torch
 
-    dist_counts(reset=True)
+    table = DIST_KERNELS if table is None else table
+    kernel_counts(table, reset=True)
     out = fn()
     torch.cuda.synchronize()
-    counts = {k: v for k, v in dist_counts().items() if v}
+    counts = {k: v for k, v in kernel_counts(table).items() if v}
     add_counts(launches, counts)
     return out, counts
 
@@ -2318,32 +2356,40 @@ def dist_local_phase(device, smi):
     from peers).  The SPD flagship (the ``solve`` phase's system) in
     4- and 8-shard packed partitions, fp32 (#1) and float64 (#4), and the
     relabelled flagship of the ``classic`` phase in a 4-shard classic
-    partition (#15).  Each shard's rows held to the golden (fp32 2e-5,
-    float64 1e-12, times max|z|), its kernels' launches counted (one for
-    the interior, one for the exterior where it has one), and the same
-    schedule captured in a CUDA graph (:func:`graphed_product`: bit for
-    bit on the packed partitions, whose #1 and #4 give the same bits
-    every call; within 1e-5 of max|z| on the classic one, #15's
-    atomics); per
-    shard the interior and exterior products' device µs, the halo lanes
-    it receives and sends and their bytes."""
+    partition (#15), and the SPD flagship in a 4-shard HELL partition
+    (``partition_coo_rows``, plain torch products: no kernel).  Each
+    shard's rows held to the golden (fp32 2e-5, float64 1e-12, times
+    max|z|), its kernels' launches counted (one for the interior, one for
+    the exterior where it has one; none on HELL), and the same schedule
+    captured in a CUDA graph (:func:`graphed_product`: bit for bit where
+    the products give the same bits every call, the packed partitions'
+    #1 and #4 and HELL's ordered sums; within 1e-5 of max|z| on the
+    classic one, #15's atomics); per shard the interior and exterior
+    products' device µs, the halo lanes it receives and sends and their
+    bytes."""
     import torch
 
     from spgpu_tpu_torch import ops
     from spgpu_tpu_torch.convert import local_degree_perm, symmetric_relabel
-    from spgpu_tpu_torch.parallel import partition_coo_rows_packed, partition_coo_rows_whell
+    from spgpu_tpu_torch.parallel import (partition_coo_rows, partition_coo_rows_packed,
+                                          partition_coo_rows_whell)
     from spgpu_tpu_torch.parallel.dist_spmv import _PlannedHalo as PlannedHalo
     from spgpu_tpu_torch.utils.timing import device_ms
 
     out, launches = dict(card=smi, ranks=ONE_CARD), {}
     raw = flagship()
     spd = spd_from(raw)
-    systems = [("fp32", spd, partition_coo_rows_packed, DIST["shards"], 2e-5),
+    # (tag, system, partition, shard counts, tolerance, graphed product
+    # bit for bit)
+    systems = [("fp32", spd, partition_coo_rows_packed, DIST["shards"], 2e-5, True),
                ("float64", spd_from(flagship(np.float64), np.float64),
-                partition_coo_rows_packed, DIST["shards"], 1e-12),
+                partition_coo_rows_packed, DIST["shards"], 1e-12, True),
                ("classic_fp32", symmetric_relabel(raw, local_degree_perm(raw)),
-                partition_coo_rows_whell, DIST["shards"][:1], 2e-5)]
-    for tag, coo, make, shard_counts, tol in systems:
+                partition_coo_rows_whell, DIST["shards"][:1], 2e-5, False),
+               ("hell_fp32", spd, partition_coo_rows, DIST["shards"][:1], 2e-5,
+                ("hell", "float32") in BIT_REPRODUCIBLE)]
+    for tag, coo, make, shard_counts, tol, exact in systems:
+        hell = make is partition_coo_rows
         dt = coo.values.dtype
         x = rand_vector(coo.n_rows, 7, dt)
         g = coo.spmv(x.astype(wide(dt)))
@@ -2356,32 +2402,35 @@ def dist_local_phase(device, smi):
                 h = PlannedHalo(pm, s, device)
                 xl = h.set_x(x)
                 z, counts = counted(lambda: h.matvec(xl), launches)
-                want = 1 + (h.exterior is not None)
+                want = 0 if hell else 1 + (h.exterior is not None)
                 if sum(counts.values()) != want:
                     raise AssertionError(f"dist_local {tag} S={S} shard {s}: launches "
                                          f"{counts}, not {want}")
                 err = check_close(pm.extract_shard(z, s), g[pm.rows_of(s)], 0.0, tol,
                                   f"dist_local {tag} S={S} shard {s}")
                 graph = graphed_product(h, xl, rand_vector(coo.n_rows, 8 + s, dt),
-                                        tag != "classic_fp32", f"dist_local {tag} "
-                                        f"S={S} shard {s}")
+                                        exact, f"dist_local {tag} S={S} shard {s}")
                 item = torch.empty((), dtype=pm.dtype).element_size()
                 ext = h.exterior
+                if hell:  # HELL slabs: slots of 128 lanes, no tiles or groups
+                    sizes = dict(interior_slots=h.interior.total_slots,
+                                 exterior_slots=None if ext is None else ext.total_slots)
+                else:
+                    sizes = dict(interior_tiles=h.interior.num_tiles,
+                                 exterior_tiles=None if ext is None else ext.num_tiles,
+                                 exterior_groups=None if ext is None else ext.num_groups,
+                                 interior_groups=h.interior.num_groups)
                 per_shard.append(dict(
-                    shard=s, rows=pm.shards[s].n_local, vector=h.n,
-                    interior_tiles=h.interior.num_tiles,
-                    exterior_tiles=None if ext is None else ext.num_tiles,
-                    exterior_groups=None if ext is None else ext.num_groups,
-                    interior_groups=h.interior.num_groups,
+                    shard=s, rows=pm.shards[s].n_local, vector=h.n, **sizes,
                     halo_lanes_in=h.recv.numel(),
                     halo_lanes_out=sum(i.numel() for _, i in h.sends),
                     bytes_in=h.recv.numel() * item,
                     bytes_out=sum(i.numel() for _, i in h.sends) * item,
                     launches=counts, max_abs_err=err, graph=graph,
                     interior_device_us=1e3 * device_ms(
-                        lambda: ops.whell_spmv(h.interior, xl), iters=10)[0],
+                        lambda: ops.spmv(h.interior, xl), iters=10)[0],
                     exterior_device_us=None if ext is None else 1e3 * device_ms(
-                        lambda: ops.whell_spmv(ext, h.work), iters=10)[0],
+                        lambda: ops.spmv(ext, h.work), iters=10)[0],
                     product_device_us=1e3 * device_ms(lambda: h.matvec(xl), iters=10)[0]))
                 del h, z
             out[f"{tag}_S{S}"] = dict(
@@ -2475,10 +2524,12 @@ def dist_solve_phase(device, smi, rg):
     of one rank, the step's ``all_reduce``s captured in the loop's CUDA
     graph) on the SPD flagship in fp32 (#1), float64 (#4), complex64 (#7)
     and complex128 (its values ``v + 1j·N(0, 1)`` as ``solve_complex``
-    builds them), and on the float64 1024² Laplacian through packed WHELL
-    (#4).  Each beside the single-device ``cg`` on the same layout (the
-    handle's): float64 and complex128 the same iterations and x bit for
-    bit, fp32 and complex64 within max(1, 10 %); the float64 solves also
+    builds them), on the float64 1024² Laplacian through packed WHELL
+    (#4), and on the SPD fp32 flagship in a HELL partition (plain torch
+    products).  Each beside the single-device ``cg`` on the same layout
+    (the handle's): the same iterations and x bit for bit where the
+    product gives the same bits every call (:data:`BIT_REPRODUCIBLE`),
+    else within max(1, 10 %); the float64 solves also
     beside their eager witness (``eager=True``), bit for bit.  Each prints
     iterations, host ms per iteration of a first and a second solve (the
     handle's embed of ``b``, capture and gather of ``x`` included), device
@@ -2487,26 +2538,30 @@ def dist_solve_phase(device, smi, rg):
     import torch
 
     from spgpu_tpu_torch import ops
-    from spgpu_tpu_torch.parallel import DistSolveHandle, partition_coo_rows_packed
+    from spgpu_tpu_torch.parallel import (DistSolveHandle, partition_coo_rows,
+                                          partition_coo_rows_packed)
     from spgpu_tpu_torch.utils.fixtures import laplacian_2d
 
     loop = krylov_loop()
     out, launches = dict(card=smi, ranks=ONE_CARD, graph_steps=loop.GRAPH_STEPS), {}
     coo64 = flagship(np.float64)
-    systems = [("flagship_fp32", spd_from(flagship()), 1e-5, 1e-4),
-               ("flagship_float64", spd_from(coo64, np.float64), 1e-10, 1e-9),
+    spd32 = spd_from(flagship())
+    packed = ("whell", partition_coo_rows_packed)
+    systems = [("flagship_fp32", spd32, 1e-5, 1e-4, packed),
+               ("flagship_float64", spd_from(coo64, np.float64), 1e-10, 1e-9, packed),
                ("flagship_complex64", spd_from(with_imag(coo64, 8, np.complex64),
-                                               np.complex64), 1e-5, 1e-4),
+                                               np.complex64), 1e-5, 1e-4, packed),
                ("flagship_complex128", spd_from(with_imag(coo64, 8, np.complex128),
-                                                np.complex128), 1e-10, 1e-9),
+                                                np.complex128), 1e-10, 1e-9, packed),
                (f"laplace{DIST['lap']}_float64",
-                laplacian_2d(DIST["lap"], DIST["lap"], np.float64), 1e-10, 1e-9)]
-    for tag, coo, tol, true_tol in systems:
+                laplacian_2d(DIST["lap"], DIST["lap"], np.float64), 1e-10, 1e-9, packed),
+               ("flagship_hell_fp32", spd32, 1e-5, 1e-4, ("hell", partition_coo_rows))]
+    for tag, coo, tol, true_tol, (route, make) in systems:
         t0 = time.perf_counter()
         dt = coo.values.dtype
         x_true = rand_vector(coo.n_rows, 1, wide(dt))
         b = coo.spmv(x_true).astype(dt)
-        h = DistSolveHandle(partition_coo_rows_packed(coo, 1), rg)
+        h = DistSolveHandle(make(coo, 1), rg)
         r, run = dist_loop(h, b, tol, 20000, launches)
         if not run["converged"]:
             raise AssertionError(f"dist_solve {tag}: did not converge")
@@ -2520,11 +2575,11 @@ def dist_solve_phase(device, smi, rg):
         t1 = time.perf_counter()
         # the comparisons (single-device and eager) are not the main path:
         # their launches are shown beside them and kept out of ``launches``
-        one, counts = counted(lambda: loop.cg(lambda v: ops.whell_spmv(a, v), b_l,
+        one, counts = counted(lambda: loop.cg(lambda v: ops.spmv(a, v), b_l,
                                               tol=tol, maxiter=20000), {})
         single_ms = 1e3 * (time.perf_counter() - t1)
         x_one = h.pm.extract_shard(one.x, 0)
-        exact = ("whell", np.dtype(dt).name) in BIT_REPRODUCIBLE
+        exact = (route, np.dtype(dt).name) in BIT_REPRODUCIBLE
         if exact:
             if one.iterations != r.iterations or not torch.equal(x_one, r.x):
                 raise AssertionError(f"dist_solve {tag}: {r.iterations} iterations, "
@@ -2615,6 +2670,306 @@ def dist_phases(device, smi):
                 yield phase, dict(res, launches=launches)
         finally:
             destroy_rank_group()
+
+
+# --------------------------------------------------------------------------
+# the classic surface (``--classic``): the classic layouts' plain products,
+# the hybrid split and the hybrid and hell solve() routes
+
+#: the mixed fixture's rows (DESIGN §2i's "mixed banded-11+overlay 524k")
+#: and its other arguments, the JAX ``random_mixed`` defaults
+MIXED = dict(n=2 ** 19, bands=11, wander=3, extra_avg=4.0, span=768, far_frac=0.02,
+             seed=0)
+
+#: the kernels the classic phases launch (the hybrid's): name -> (kernel
+#: module, launch counter)
+CLASSIC_KERNELS = {"whell_packed_spmv": ("whell", "LAUNCHES"),
+                   "whell_packed_spmv_f64": ("whell", "LAUNCHES_F64"),
+                   "whdia_spmv": ("whdia", "LAUNCHES"),
+                   "whdia_spmv_f64": ("whdia", "LAUNCHES_F64")}
+
+#: the products of phase 35: (fixture, value types, layouts).  DIA runs
+#: on banded-11's contiguous form: the wandering band holds 27,192
+#: diagonals, a DIA slab of 27,192 x 524,288 cells (57 GB in float32)
+CLASSIC_PRODUCTS = (("flagship", ("float32", "float64"), ("ell", "oell", "hell")),
+                    ("laplace", ("float32", "float64", "complex64", "complex128"),
+                     ("dia", "hdia", "bcoo")),
+                    ("banded11", ("float32", "float64"), ("hdia",)),
+                    ("banded11_contiguous", ("float32", "float64"), ("dia",)))
+
+
+def mixed(dtype=np.float64):
+    from spgpu_tpu_torch.utils.fixtures import random_mixed
+
+    return random_mixed(MIXED["n"], **{k: v for k, v in MIXED.items() if k != "n"},
+                        dtype=dtype)
+
+
+def op_vs_library(fn, coo, x, device, **more):
+    """:func:`timed` of ``fn`` (``op_*``) and of any ``more`` calls beside
+    the library call (cuSPARSE CSR in x's type) on the same x."""
+    library, refused = library_call(coo, x, device)
+    return timed(None, None, library, refused, op=fn, **more)
+
+
+def classic_product(coo, fmt, device, label):
+    """One classic layout of ``coo`` built on the card and its product
+    through ``ops.spmv`` with alpha 1.7 and beta -0.3 on CUDA tensors: the
+    result must lie on the card and be at the host golden (float32 and
+    complex64 1e-4·max|z|, float64 and complex128 1e-12·max|z|); the
+    converter's seconds, the layout's bytes, the op's per-call and device
+    ms beside cuSPARSE CSR's."""
+    import torch
+
+    from spgpu_tpu_torch import convert, ops
+
+    conv = {"ell": lambda: convert.coo_to_ell(coo, device=device),
+            "oell": lambda: convert.ell_to_oell(convert.coo_to_ell(coo, device=device),
+                                                device=device),
+            "hell": lambda: convert.coo_to_hell(coo, device=device),
+            "dia": lambda: convert.coo_to_dia(coo, device=device),
+            "hdia": lambda: convert.coo_to_hdia(coo, device=device),
+            "bcoo": lambda: convert.coo_to_bcoo(coo, 8, 8, device=device)}[fmt]
+    dt = coo.values.dtype
+    t0 = time.perf_counter()
+    a = conv()
+    torch.cuda.synchronize(device)
+    convert_s = time.perf_counter() - t0
+    x, y = rand_vector(coo.n_cols, 7, dt), rand_vector(coo.n_rows, 9, dt)
+    xt, yt = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+    call = lambda: ops.spmv(a, xt, 1.7, -0.3, yt)  # noqa: E731
+    z = call()
+    if z.device.type != device.type or a.device.type != device.type:
+        raise AssertionError(f"{label}: the product left the card ({z.device})")
+    g = 1.7 * coo.spmv(x.astype(wide(dt))) - 0.3 * y.astype(wide(dt))
+    frac = 1e-4 if dt in (np.float32, np.complex64) else 1e-12
+    err = check_close(z, g, 0.0, frac, f"{label}: vs host golden")
+    times = op_vs_library(call, coo, xt, device)
+    return dict(convert_s=convert_s, storage_bytes=a.storage_bytes, nnz=coo.nnz,
+                max_abs_err_vs_golden=err, on_device=z.device.type, **times,
+                item_s=time.perf_counter() - t0)
+
+
+def classic_csput(coo, device):
+    """``ell_csput`` and ``hell_csput`` of 1,000 stored coordinates (alpha
+    2) on the card, the new values equal bit for bit to the same update
+    on the host."""
+    import torch
+
+    from spgpu_tpu_torch import convert, ops
+
+    sel = np.random.default_rng(3).choice(coo.nnz, size=1000, replace=False)
+    v = rand_vector(1000, 4, coo.values.dtype)
+    out = {}
+    for fmt, conv, put in (("ell", convert.coo_to_ell, ops.ell_csput),
+                           ("hell", convert.coo_to_hell, ops.hell_csput)):
+        a = conv(coo, device=device)
+        t0 = time.perf_counter()
+        got = put(a, coo.rows[sel], coo.cols[sel], v, alpha=2.0)
+        torch.cuda.synchronize(device)
+        ms = 1e3 * (time.perf_counter() - t0)
+        want = put(a.to("cpu"), coo.rows[sel], coo.cols[sel], v, alpha=2.0)
+        if got.values.device.type != device.type or not torch.equal(got.values.cpu(),
+                                                                     want.values):
+            raise AssertionError(f"classic_formats {fmt}_csput: the card's values "
+                                 "differ from the host's")
+        out[f"{fmt}_csput"] = dict(updates=1000, host_ms=ms, vs_host="bit_identical")
+    return out
+
+
+def classic_formats_phase(device, smi):
+    """Phase 35 (``--classic``): the classic layouts through ``ops.spmv``
+    on CUDA tensors (plain torch on the card), each checked and timed by
+    :func:`classic_product`: ELL, OELL and HELL on the flagship, DIA and
+    HDIA on the 1024² Laplacian, HDIA on banded-11 and DIA on its
+    contiguous form (:data:`CLASSIC_PRODUCTS`), BCOO (8x8 blocks) on the
+    Laplacian; float32 and float64 on every fixture, complex64 and
+    complex128 on the Laplacian (``+ 1j·N(0, 1)``, ``default_rng(12)``);
+    then csput on the card against the host."""
+    from spgpu_tpu_torch.formats.coo import CooMatrix
+    from spgpu_tpu_torch.utils.fixtures import laplacian_2d, random_banded
+
+    n = SIZES["lap"]
+    base = {"flagship": flagship(np.float64), "laplace": laplacian_2d(n, n, np.float64),
+            "banded11": random_banded(SIZES["band"], 11, wander=7, seed=2,
+                                      dtype=np.float64),
+            "banded11_contiguous": random_banded(SIZES["band"], 11, wander=0, seed=2,
+                                                 dtype=np.float64)}
+    out = dict(card=smi, fixtures={
+        "flagship": f"random_fem_like({SIZES['flagship']}, 27.0, span=768, "
+                    "far_frac=0.01, seed=0)",
+        "laplace": f"laplacian_2d({n}, {n}); complex: + 1j*N(0,1), default_rng(12)",
+        "banded11": f"random_banded({SIZES['band']}, 11, wander=7, seed=2)",
+        "banded11_contiguous": f"random_banded({SIZES['band']}, 11, wander=0, seed=2)"})
+    for fix, types, fmts in CLASSIC_PRODUCTS:
+        c = base[fix]
+        for name in types:
+            coo = (with_imag(c, 12, name) if name.startswith("complex") else
+                   CooMatrix(c.rows, c.cols, c.values.astype(name), c.n_rows, c.n_cols))
+            for fmt in fmts:
+                out[f"{fix}_{fmt}_{name}"] = classic_product(
+                    coo, fmt, device, f"classic_formats {fix} {fmt} {name}")
+    out.update(classic_csput(flagship(), device))
+    return out, {}
+
+
+def hybrid_phase(device, smi):
+    """Phase 36 (``--classic``): the mixed fixture (:data:`MIXED`) in the
+    hybrid split, fp32 and float64: ``tau_lanes``, the band fraction and
+    each part's padding; one ``hybrid_spmv`` (alpha 1.7, beta -0.3),
+    counted from 0, must launch the WHDIA kernel (#3, #6) once and the
+    packed WHELL kernel (#1, #4) once, be at the golden (1e-4·max|z|,
+    float64 1e-12) and give the same bits twice; the device ms of the whole
+    op, of each kernel and of the crossing (every other device operation:
+    the index copy into lane space, its zero fill, the gather back and the
+    sum); and beside them, on the same matrix, pure packed WHELL (#1/#4),
+    pure WHDIA (#3/#6) and cuSPARSE CSR."""
+    import torch
+
+    from spgpu_tpu_torch import ops
+    from spgpu_tpu_torch.convert import coo_to_hybrid, coo_to_whdia, coo_to_whell
+    from spgpu_tpu_torch.formats.coo import CooMatrix
+    from spgpu_tpu_torch.formats.hybrid import layout_bytes
+    from spgpu_tpu_torch.utils.timing import device_ms_by_kernel
+
+    out, launches = dict(card=smi, fixture=f"random_mixed({MIXED})"), {}
+    m64 = mixed()
+    for name in ("float32", "float64"):
+        coo = CooMatrix(m64.rows, m64.cols, m64.values.astype(name), m64.n_rows,
+                        m64.n_cols)
+        t0 = time.perf_counter()
+        h = coo_to_hybrid(coo, device=device)
+        torch.cuda.synchronize(device)
+        convert_s = time.perf_counter() - t0
+        x, y = rand_vector(coo.n_cols, 7, name), rand_vector(coo.n_rows, 9, name)
+        xt, yt = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+        call = lambda: ops.hybrid_spmv(h, xt, 1.7, -0.3, yt)  # noqa: E731
+        z, counts = counted(call, launches, CLASSIC_KERNELS)
+        sfx = "" if name == "float32" else "_f64"
+        if counts != {f"whdia_spmv{sfx}": 1, f"whell_packed_spmv{sfx}": 1}:
+            raise AssertionError(f"hybrid {name}: one product launched {counts}")
+        if not torch.equal(call(), z):
+            raise AssertionError(f"hybrid {name}: two products differ")
+        g = 1.7 * coo.spmv(x.astype(np.float64)) - 0.3 * y.astype(np.float64)
+        err = check_close(z, g, 0.0, 1e-4 if name == "float32" else 1e-12,
+                          f"hybrid {name}: vs host golden")
+        by_op = device_ms_by_kernel(lambda: ops.hybrid_spmv(h, xt))
+        band_ms = sum(v for k, v in by_op.items() if k.startswith("whdia_spmv_warps"))
+        rest_ms = sum(v for k, v in by_op.items() if k.startswith("whell_hack_pass"))
+        # the whole matrix on each single layout, and the library
+        t1 = time.perf_counter()
+        aw = coo_to_whell(coo, device=device)
+        ad = coo_to_whdia(coo, device=device)
+        torch.cuda.synchronize(device)
+        single_convert_s = time.perf_counter() - t1
+        xl = aw.embed(torch.from_numpy(x), dtype=getattr(torch, name))
+        t = op_vs_library(lambda: ops.hybrid_spmv(h, xt), coo, xt, device,
+                          whell=lambda: ops.whell_spmv(aw, xl),
+                          whdia=lambda: ops.whdia_spmv(ad, xt))
+        rest_nnz = h.nnz - h.band_nnz
+        out[name] = dict(
+            rows=coo.n_rows, nnz=coo.nnz, convert_s=convert_s, tau_lanes=h.tau_lanes,
+            band_nnz=h.band_nnz, band_frac=h.band_nnz / h.nnz,
+            band_padding=h.band.values.numel() / max(h.band_nnz, 1),
+            rest_padding=h.rest.total_slots * 128 / max(rest_nnz, 1),
+            pad_factor=h.pad_factor, storage_bytes=h.storage_bytes,
+            whell_storage_bytes=layout_bytes(aw), whdia_storage_bytes=layout_bytes(ad),
+            whell_padding=aw.total_slots * 128 / coo.nnz,
+            whdia_padding=ad.values.numel() / coo.nnz, single_convert_s=single_convert_s,
+            launches=counts, bit_identical=True, max_abs_err_vs_golden=err,
+            device_ms_by_op=by_op, band_kernel_device_ms=band_ms,
+            rest_kernel_device_ms=rest_ms,
+            crossing_device_ms=sum(by_op.values()) - band_ms - rest_ms if by_op else None,
+            **t)
+        del h, aw, ad
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def solve_classic_phase(device, smi):
+    """Phase 37 (``--classic``): ``solve(fmt="hybrid")`` on the SPD form
+    of the mixed fixture (fp32 to 1e-5, true residual ≤ 1e-4; float64 to
+    1e-10, ≤ 1e-9), each kernel's launches (#3 and #1, #6 and #4)
+    covering the iterations, then the graphed loop beside its eager
+    witness, bit for bit; ``solve(fmt="hell")`` on the SPD flagship in fp32
+    and float64 and on its Hermitian complex64 form, each within
+    max(1, 10 %) of the whell route's iterations on the same system, at
+    the true-residual gate, and its graphed loop beside the eager one
+    (bit for bit where :data:`BIT_REPRODUCIBLE` holds it).  Each prints
+    ms per iteration, device ms per step and the idle share
+    (:func:`loop_pair`)."""
+    import torch
+
+    from spgpu_tpu_torch.convert import coo_to_hell, coo_to_hybrid
+    from spgpu_tpu_torch.ops import hell_spmv, hybrid_spmv
+    from spgpu_tpu_torch.solvers import solve
+
+    out, launches = dict(card=smi), {}
+    m64 = mixed()
+    coo64 = flagship(np.float64)
+    runs = [("hybrid", "mixed", spd_from(m64, np.float32), 1e-5, 1e-4),
+            ("hybrid", "mixed", spd_from(m64, np.float64), 1e-10, 1e-9),
+            ("hell", "flagship", spd_from(flagship()), 1e-5, 1e-4),
+            ("hell", "flagship", spd_from(coo64, np.float64), 1e-10, 1e-9),
+            ("hell", "flagship", spd_from(with_imag(coo64, 8, np.complex64),
+                                          np.complex64), 1e-5, 1e-4)]
+    for fmt, fix, spd, tol, true_tol in runs:
+        name = np.dtype(spd.values.dtype).name
+        what = f"solve_classic {fmt} {name}"
+        x_true = rand_vector(spd.n_rows, 1, wide(name))
+        b = spd.spmv(x_true).astype(name)
+        loop_counts(reset=True)
+        t0 = time.perf_counter()
+        res, counts = counted(lambda: solve(spd, b, device=device, fmt=fmt, tol=tol,
+                                            maxiter=20000), launches, CLASSIC_KERNELS)
+        solve_s = time.perf_counter() - t0
+        reads = loop_counts()
+        if not bool(res.converged):
+            raise AssertionError(f"{what}: did not converge in {res.iterations}")
+        if fmt == "hybrid" and (len(counts) != 2 or min(counts.values()) < res.iterations):
+            raise AssertionError(f"{what}: launches {counts} for {res.iterations} "
+                                 "iterations")
+        check_reads(what, res.iterations, reads)
+        gate = residual_gate(spd, b, true_tol, what)
+        item = dict(fixture=fix, rows=spd.n_rows, nnz=spd.nnz, iterations=res.iterations,
+                    launches=counts, **reads, solve_total_s=solve_s,
+                    true_residual=gate(res.x), x_dtype=str(res.x.dtype),
+                    x_err_vs_true=float(np.abs(res.x.cpu().numpy() - x_true).max()))
+        if fmt == "hell":
+            ref = solve(spd, b, device=device, fmt="whell", tol=tol, maxiter=20000)
+            if abs(res.iterations - ref.iterations) > max(1, ref.iterations // 10):
+                raise AssertionError(f"{what}: {res.iterations} iterations, the whell "
+                                     f"route {ref.iterations}")
+            item["whell_iterations"] = ref.iterations
+            a = coo_to_hell(spd, device=device)
+            mv = lambda v, a=a: hell_spmv(a, v)  # noqa: E731
+            item.update(slots=a.total_slots, storage_bytes=a.storage_bytes)
+        else:
+            a = coo_to_hybrid(spd, device=device)
+            mv = lambda v, a=a: hybrid_spmv(a, v)  # noqa: E731
+            item.update(tau_lanes=a.tau_lanes, band_frac=a.band_nnz / a.nnz,
+                        storage_bytes=a.storage_bytes)
+        bt = torch.from_numpy(b).to(device)
+        item["loop"] = loop_pair("cg", mv, bt, tol, (fmt, name) in BIT_REPRODUCIBLE,
+                                 gate, smi)
+        out[f"{fmt}_{name}"] = item
+        del a, mv
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def classic_phases(device, smi):
+    """Phases 35-37 in this process (``--classic``), each with its
+    main-path launches by kernel (the counted hybrid product and the
+    hybrid solves).  They run in the order 36, 37, 35: the hybrid's
+    device time by kernel needs the process's first profiling sessions
+    (later ones lose events, ``PERF.md`` §7), and phase 35 times many
+    products."""
+    for phase, fn in (("hybrid", hybrid_phase),
+                      ("solve_classic", solve_classic_phase),
+                      ("classic_formats", classic_formats_phase)):
+        res, launches = fn(device, smi)
+        yield phase, dict(res, launches=launches)
 
 
 def build_all():
@@ -3146,7 +3501,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
-    if sys.argv[1:] in (["--sweeps"], ["--kernel-times"], ["--large"], ["--dist"]):
+    if sys.argv[1:] in (["--sweeps"], ["--kernel-times"], ["--large"], ["--dist"],
+                        ["--classic"]):
         # every library up to date before the first profiling session: a
         # phase run alone from a fresh checkout lost its kernels' events
         # where the build ran between sessions
@@ -3164,6 +3520,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--dist"]:  # phases 32-34, for child_phases
         for phase, res in dist_phases(device, nvidia_smi()):
+            print(json.dumps({"phase": phase, **res}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--classic"]:  # phases 35-37, for child_phases
+        for phase, res in classic_phases(device, nvidia_smi()):
             print(json.dumps({"phase": phase, **res}), flush=True)
         return 0
     from spgpu_tpu_torch.convert import (coo_to_whell, local_degree_perm,
@@ -3371,6 +3731,13 @@ def main() -> int:
     for res in child_phases("--dist", 3):
         add_counts(large_launches, res["launches"])
 
+    # --- the classic surface, in a fresh process: the classic layouts' -----
+    # --- plain products, the hybrid split (#3 + #1, #6 + #4), the hybrid ---
+    # --- and hell solve() routes --------------------------------------------
+    torch.cuda.empty_cache()
+    for res in child_phases("--classic", 3):
+        add_counts(large_launches, res["launches"])
+
     def whdia_row(name, solves, phases):
         """WHDIA's row: the Laplacian's times, the larger error of its two
         fixtures, the launches of both WHDIA solves."""
@@ -3418,7 +3785,7 @@ def main() -> int:
         kernel_row("pcell_spmv", solve_p["launches"], pcell),
         ablation_row("whdia_ablation", acc18),
         ablation_row("whell_packed_ablation_f64", [acc19])]
-    for row in rows:  # the large and distributed phases' main-path launches too
+    for row in rows:  # the large, distributed and classic phases' main-path launches
         row["launches"] += large_launches.get(row["name"], 0)
     close(rows, smi, torch)
     return 0

@@ -13,6 +13,13 @@ runs its routes on the GPU, each through a hand CUDA kernel:
     way-split rows) | coo_to_whell_percell → ops.whell_spmv in the
     original numbering (kernels/whell_classic.py, kernels/pcell.py);
     solve(fmt="pcell")
+    host COO → convert.coo_to_hybrid (WHDIA band + packed WHELL rest)
+    → ops.hybrid_spmv (kernels #3/#6 and #1/#4); solve(fmt="hybrid")
+    host COO → convert.coo_to_ell | coo_to_hell | coo_to_dia |
+    coo_to_hdia | coo_to_bcoo (the classic layouts, convert/host.py) →
+    ops.ell_spmv | hell_spmv | dia_spmv | hdia_spmv | bcoo_spmv (plain
+    torch on the layout's device, as the JAX package runs them in XLA);
+    ops.spmv on any layout; solve(fmt="hell")
     the per-op cycle accounts of the fp32 WHDIA SpMV and the float64
     WHELL SpMV (kernels/ablation.py) and the float64 WHELL geometry sweep:
     python -m spgpu_tpu_torch.sweeps.<whdia_ablation|dd_ablation|dd_geom_sweep>
@@ -31,7 +38,7 @@ or complex matrix runs layouts, kernels and solver loops of its own type
 natively, where the JAX package emulates D precision with fp32 pairs and
 keeps complex matrices as two real planes.
 
-Every function takes an explicit ``device``; CPU tensors run the plain
+Every converter takes an explicit ``device``; CPU tensors run the plain
 PyTorch version of each kernel.
 """
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 __all__ = ["Status", "TypeCode", "size_of", "LANES", "CHUNK_TILES",
-           "round_up", "cdiv", "require_cuda", "unique_sorted",
+           "DEFAULT_HACK_SIZE", "sublanes", "round_up", "cdiv", "require_cuda", "unique_sorted",
            "dtype_name", "value_dtype", "real_part_dtype", "join_dd",
            "join_planes", "join_plane_fields"]
 
@@ -65,6 +65,22 @@ LANES = 128
 #: Default tiles per chunk of the classic WHELL layout (packed layouts
 #: carry their own ``chunk_tiles``).
 CHUNK_TILES = 64
+
+#: Default hack size of the classic HELL and HDIA layouts: one lane vector
+#: of rows per hack (spGPU uses 32, ``hell.h:30-33``).
+DEFAULT_HACK_SIZE = 128
+
+#: Minimum slot multiple per element width, as the JAX layouts pad it.
+_SUBLANES_BY_ITEMSIZE = {8: 8, 4: 8, 2: 16, 1: 32}
+
+
+def sublanes(dtype) -> int:
+    """The slot-axis padding multiple of the classic layouts for ``dtype``
+    (NumPy or torch): 8 for 4- and 8-byte types (and complex), 16 for
+    2-byte ones, 32 for 1-byte ones, as ``spgpu_tpu.core.sublanes`` pads
+    them, so the port's classic arrays equal the JAX ones."""
+    size = dtype.itemsize if isinstance(dtype, torch.dtype) else np.dtype(dtype).itemsize
+    return _SUBLANES_BY_ITEMSIZE.get(size, 8)
 
 
 def round_up(x: int, m: int) -> int:

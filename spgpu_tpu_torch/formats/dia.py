@@ -1,7 +1,18 @@
-"""SDIA (static-offset DIA) layout as a dataclass of torch tensors.
+"""The DIA and SDIA (static-offset DIA) layouts as dataclasses of torch
+tensors.
 
-Counterpart of :class:`spgpu_tpu.formats.dia.SdiaMatrix`; the arrays are
-the same, cell for cell.  ``values`` is ``(n_diags, n_tiles*8, 128)``:
+:class:`DiaMatrix` is the counterpart of
+:class:`spgpu_tpu.formats.dia.DiaMatrix`, the same arrays cell for cell:
+``values`` is ``(diags_p, rows_p)``, diagonal-major with rows padded to
+128 and diagonals to the type's slot multiple, so ``A[i, i + offsets[j]]``
+lives at ``values[j, i]``; offsets ascend (``dia.c:76-85``) and a padding
+diagonal has offset ``n_cols``.  Its product needs no column index: each
+diagonal reads a shifted x, bound-checked (``dia_spmv_base_template.cuh:
+133-135``).
+
+:class:`SdiaMatrix` is the counterpart of
+:class:`spgpu_tpu.formats.dia.SdiaMatrix`; the arrays are the same, cell
+for cell.  ``values`` is ``(n_diags, n_tiles*8, 128)``:
 plane ``j`` holds diagonal ``offsets[j]`` with row ``r`` at flat index
 ``r`` (tiles of 1024 rows), so ``A[r, r + offsets[j]] = values[j].flat[r]``.
 Offsets ascend; cells whose column falls outside ``[0, n_cols)`` are 0.
@@ -26,11 +37,69 @@ import numpy as np
 import torch
 
 from spgpu_tpu_torch.core import join_dd, join_plane_fields
+from spgpu_tpu_torch.formats._fields import bridge, host, nbytes, to_device
 
-__all__ = ["SdiaMatrix", "from_numpy_fields", "from_numpy_planes"]
+__all__ = ["DiaMatrix", "SdiaMatrix", "from_numpy_dia", "from_numpy_fields",
+           "from_numpy_planes"]
 
 #: the value types of the planes
 VALUE_DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128)
+
+
+@dataclasses.dataclass
+class DiaMatrix:
+    values: torch.Tensor  # (diags_p, rows_p)
+    offsets: torch.Tensor  # (diags_p,) int32, ascending; padding n_cols
+    n_rows: int
+    n_cols: int
+    n_diags: int
+
+    _TENSORS = ("values", "offsets")
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    @property
+    def shape(self):
+        return (self.n_rows, self.n_cols)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
+    @property
+    def rows_padded(self) -> int:
+        return self.values.shape[1]
+
+    @property
+    def diags_padded(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def storage_bytes(self) -> int:
+        return nbytes(self.values, self.offsets)
+
+    def to(self, device) -> "DiaMatrix":
+        """A copy with every tensor on ``device``."""
+        return to_device(self, device, self._TENSORS)
+
+    def to_dense(self) -> np.ndarray:
+        """Host densification (testing helper)."""
+        vals, offs = host(self.values), host(self.offsets)
+        out = np.zeros((self.n_rows, self.n_cols), dtype=vals.dtype)
+        rows = np.arange(self.n_rows)
+        for j in range(self.n_diags):
+            cols = rows + offs[j]
+            sel = (cols >= 0) & (cols < self.n_cols)
+            out[rows[sel], cols[sel]] = vals[j, : self.n_rows][sel]
+        return out
+
+
+def from_numpy_dia(**fields) -> DiaMatrix:
+    """The port's :class:`DiaMatrix` from a JAX ``DiaMatrix``'s fields by
+    name (arrays as NumPy), on the CPU."""
+    return bridge(DiaMatrix, fields)
 
 
 @dataclasses.dataclass

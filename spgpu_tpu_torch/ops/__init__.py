@@ -1,5 +1,7 @@
 """Compute ops of the port: the WHELL, SDIA and WHDIA SpMVs and
-multi-RHS SpMMs, and BLAS-1.
+multi-RHS SpMMs, the classic-layout SpMVs (ELL/OELL, HELL, DIA, HDIA,
+BCOO), the hybrid split's SpMV, the format-generic ``spmv``, csput and
+BLAS-1.
 
 Counterpart of :mod:`spgpu_tpu.ops` for the ported paths.  Each SpMV and
 fused SpMM runs its hand kernel (:mod:`spgpu_tpu_torch.kernels`) on CUDA
@@ -19,6 +21,14 @@ complex64 or complex128 matrix takes and returns complex vectors of its
 type, and alpha and beta may be Python complex numbers: the counterpart of
 the JAX package's complex branches (the fused one-pass kernels and
 ``_complex_epilogue`` on ``[re, im]`` plane stacks).
+
+The classic-layout SpMVs are plain torch on the layout's device
+(:mod:`.spmv_plain`), as the JAX package computes them with XLA outside
+any Pallas kernel; their ``impl="pallas"`` raises, as the JAX ops' does.
+``hybrid_spmv`` runs the band part through the WHDIA kernel (#3 or #6)
+and the rest through the packed WHELL kernel (#1 or #4) with one index
+copy into its lane space and one gather back.  ``spmv`` dispatches on
+the layout's type.
 """
 
 from __future__ import annotations
@@ -27,7 +37,12 @@ from typing import Optional
 
 import torch
 
-from spgpu_tpu_torch.formats.dia import SdiaMatrix
+from spgpu_tpu_torch.formats.bcoo import BcooMatrix
+from spgpu_tpu_torch.formats.dia import DiaMatrix, SdiaMatrix
+from spgpu_tpu_torch.formats.ell import EllMatrix
+from spgpu_tpu_torch.formats.hdia import HdiaMatrix
+from spgpu_tpu_torch.formats.hell import HellMatrix
+from spgpu_tpu_torch.formats.hybrid import HybridMatrix
 from spgpu_tpu_torch.formats.whdia import WhdiaMatrix
 from spgpu_tpu_torch.formats.whell import PcellWhell, WhellMatrix
 from spgpu_tpu_torch.kernels import pcell as _pcell
@@ -37,9 +52,14 @@ from spgpu_tpu_torch.kernels import whell_classic as _classic
 from spgpu_tpu_torch.kernels.whell import whell_packed_spmm, whell_packed_spmv
 from spgpu_tpu_torch.ops import blas1
 from spgpu_tpu_torch.ops.blas1 import *  # noqa: F401,F403  (re-export BLAS-1)
+from spgpu_tpu_torch.ops.csput import ell_csput, hell_csput
+from spgpu_tpu_torch.ops.spmv_plain import (dia_spmv_plain, ell_spmv_plain,
+                                            hdia_spmv_plain, hell_spmv_plain)
+from spgpu_tpu_torch.ops.spmv_plain import epilogue as _epilogue
 
-__all__ = ["sdia_spmm", "sdia_spmv", "whdia_spmm", "whdia_spmv", "whell_spmm",
-           "whell_spmv"] + blas1.__all__
+__all__ = ["spmv", "ell_spmv", "hell_spmv", "dia_spmv", "hdia_spmv", "bcoo_spmv",
+           "hybrid_spmv", "ell_csput", "hell_csput", "sdia_spmm", "sdia_spmv",
+           "whdia_spmm", "whdia_spmv", "whell_spmm", "whell_spmv"] + blas1.__all__
 
 #: the value dtypes whose SpMM has a fused kernel (#12-#14; bf16 on WHELL
 #: only, the DIA converters take float32)
@@ -81,16 +101,6 @@ def _fused(a, fused, default: bool, op: str) -> bool:
             "matrices run the loop-of-SpMV path (omit fused or pass "
             "fused=False)")
     return default and has_kernel if fused is None else bool(fused)
-
-
-def _epilogue(acc: torch.Tensor, alpha, beta, y) -> torch.Tensor:
-    """``beta*y + alpha*acc`` in ``acc``'s type (alpha and beta may be
-    complex for a complex ``acc``); a static ``beta == 0`` (or ``y is
-    None``) never reads ``y``, as in spGPU's ``*spmv`` entry points."""
-    static = (int, float, complex)
-    if (isinstance(beta, static) and beta == 0) or y is None:
-        return acc if isinstance(alpha, static) and alpha == 1 else alpha * acc
-    return alpha * acc + beta * y
 
 
 def _require(a, cls, op: str) -> None:
@@ -276,3 +286,99 @@ def whdia_spmm(a: WhdiaMatrix, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
     else:
         zs = torch.stack([whdia_spmv(a, x[r]) for r in range(x.shape[0])])
     return _epilogue(zs, alpha, beta, y)
+
+
+def _plain_impl(impl: str, fast: str) -> None:
+    """The classic ops' ``impl``, as the JAX ops take it: "pallas" raises
+    ``ValueError`` naming the layout with a hand kernel (``fast``); any
+    other value runs the plain torch product."""
+    if impl == "pallas":
+        raise ValueError(f"the kernel fast path runs on the {fast}")
+
+
+def ell_spmv(a: EllMatrix, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
+             impl: str = "auto") -> torch.Tensor:
+    """``z = beta*y + alpha*(A @ x)`` on ELL/OELL (spGPU's
+    ``spgpu?ellspmv``), ``x`` ``(..., n_cols)`` on ``a``'s device; plain
+    torch.  The kernel path is packed WHELL (:func:`whell_spmv`)."""
+    _require(a, EllMatrix, "ell_spmv")
+    _plain_impl(impl, "WHELL layout: convert.coo_to_whell + ops.whell_spmv")
+    return ell_spmv_plain(a, x, alpha, beta, y)
+
+
+def hell_spmv(a: HellMatrix, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
+              impl: str = "auto") -> torch.Tensor:
+    """``z = beta*y + alpha*(A @ x)`` on HELL (``spgpu?hellspmv``); plain
+    torch, each hack summed in slot order (the same bits every call)."""
+    _require(a, HellMatrix, "hell_spmv")
+    _plain_impl(impl, "WHELL layout: convert.coo_to_whell + ops.whell_spmv")
+    return hell_spmv_plain(a, x, alpha, beta, y)
+
+
+def dia_spmv(a: DiaMatrix, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
+             impl: str = "auto") -> torch.Tensor:
+    """``z = beta*y + alpha*(A @ x)`` on DIA (``spgpu?diaspmv``); plain
+    torch.  The kernel paths are SDIA (``convert.dia_to_sdia`` +
+    :func:`sdia_spmv`) and WHDIA."""
+    _require(a, DiaMatrix, "dia_spmv")
+    _plain_impl(impl, "SDIA layout (convert.dia_to_sdia + ops.sdia_spmv) or "
+                "WHDIA (convert.coo_to_whdia + ops.whdia_spmv)")
+    return dia_spmv_plain(a, x, alpha, beta, y)
+
+
+def hdia_spmv(a: HdiaMatrix, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
+              impl: str = "auto") -> torch.Tensor:
+    """``z = beta*y + alpha*(A @ x)`` on HDIA (``spgpu?hdiaspmv``); plain
+    torch, each hack summed in slot order."""
+    _require(a, HdiaMatrix, "hdia_spmv")
+    _plain_impl(impl, "WHDIA layout: convert.coo_to_whdia + ops.whdia_spmv")
+    return hdia_spmv_plain(a, x, alpha, beta, y)
+
+
+def bcoo_spmv(a: BcooMatrix, x: torch.Tensor, alpha=1.0, beta=0.0,
+              y=None) -> torch.Tensor:
+    """``z = beta*y + alpha*(A @ x)`` on BCOO (spGPU ships the format but
+    no product; the JAX package adds this one): one batched product of the
+    dense blocks with their x blocks (``torch.einsum``), added into the
+    block rows by ``index_add_``."""
+    _require(a, BcooMatrix, "bcoo_spmv")
+    br, bc = a.block_rows, a.block_cols
+    nbc, nbr = a.n_block_cols, a.n_block_rows
+    xp = torch.nn.functional.pad(x, (0, nbc * bc - a.n_cols))
+    xg = xp.reshape(*x.shape[:-1], nbc, bc)[..., a.block_col_idx, :]  # (..., B, bc)
+    prod = torch.einsum("brc,...bc->...br", a.blocks, xg)  # (..., B, br)
+    zb = prod.new_zeros(prod.shape[:-2] + (nbr, br))
+    zb.index_add_(-2, a.block_row_idx, prod)
+    return _epilogue(zb.reshape(*zb.shape[:-2], nbr * br)[..., : a.n_rows],
+                     alpha, beta, y)
+
+
+def hybrid_spmv(a: HybridMatrix, x: torch.Tensor, alpha=1.0, beta=0.0,
+                y=None) -> torch.Tensor:
+    """``z = beta*y + alpha*(A @ x)`` on the hybrid split, ``x`` and ``z``
+    ``(n,)`` in the original numbering, of the matrix's type: the band
+    through :func:`whdia_spmv` (kernel #3, #6 in float64), the rest
+    through :func:`whell_spmv` in its lane space (kernel #1, #4), crossing
+    by one index copy in and one gather out.  No fallback: on CUDA tensors
+    a kernel that fails to build or launch raises."""
+    _require(a, HybridMatrix, "hybrid_spmv")
+    z = None if a.band is None else whdia_spmv(a.band, x)
+    if a.rest is not None:
+        zr = a.extract_rest(whell_spmv(a.rest, a.embed_rest(x)))
+        z = zr if z is None else z + zr
+    return _epilogue(z, alpha, beta, y)
+
+
+def spmv(a, x: torch.Tensor, alpha=1.0, beta=0.0, y=None, **kw) -> torch.Tensor:
+    """Format-generic ``z = beta*y + alpha*(A @ x)``: the op of ``a``'s
+    layout type (a packed :class:`WhellMatrix` in lane space, the others
+    in the original numbering).  Any other type raises ``TypeError``."""
+    table = {EllMatrix: ell_spmv, HellMatrix: hell_spmv, DiaMatrix: dia_spmv,
+             SdiaMatrix: sdia_spmv, HdiaMatrix: hdia_spmv, BcooMatrix: bcoo_spmv,
+             WhellMatrix: whell_spmv, PcellWhell: whell_spmv,
+             WhdiaMatrix: whdia_spmv, HybridMatrix: hybrid_spmv}
+    try:
+        fn = table[type(a)]
+    except KeyError:
+        raise TypeError(f"no SpMV for {type(a).__name__}") from None
+    return fn(a, x, alpha, beta, y, **kw)

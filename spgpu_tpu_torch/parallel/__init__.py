@@ -5,11 +5,12 @@ distributed SpMV and Krylov solves, one process per shard over
 Counterpart of :mod:`spgpu_tpu.parallel` (``shard_map`` over a device
 mesh there): the packed partitions (:mod:`.partition_packed`, kernels #1,
 #4, #7 and the complex128 kernel on each shard), the classic one
-(:mod:`.partition_whell`, kernel #15), the exchange and product
-(:mod:`.dist_spmv`), the solves (:mod:`.dist_solve`) and the ranks
-(:mod:`.group`).  The HELL partition (``partition.py``) waits for the
-HELL format, and the TPU's row-block containers (``blocks.py``) are not
-ported: the port builds one layout at any size.
+(:mod:`.partition_whell`, kernel #15), the HELL one (:mod:`.partition`,
+plain torch products), the exchange and product (:mod:`.dist_spmv`), the
+solves (:mod:`.dist_solve`) and the ranks (:mod:`.group`).  The TPU's
+row-block containers (``blocks.py``) are not ported: the port builds one
+layout at any size; nor is ``make_row_mesh``: the group is
+``torch.distributed``'s.
 """
 
 from spgpu_tpu_torch.parallel.dist_solve import (  # noqa: F401
@@ -28,6 +29,10 @@ from spgpu_tpu_torch.parallel.group import (  # noqa: F401
     init_rank_group,
     run_ranks,
 )
+from spgpu_tpu_torch.parallel.partition import (  # noqa: F401
+    PartitionedMatrix,
+    partition_coo_rows,
+)
 from spgpu_tpu_torch.parallel.partition_packed import (  # noqa: F401
     PackedPartition,
     from_numpy_partition,
@@ -39,6 +44,8 @@ from spgpu_tpu_torch.parallel.partition_whell import (  # noqa: F401
 )
 
 __all__ = [
+    "PartitionedMatrix",
+    "partition_coo_rows",
     "PartitionedWhell",
     "partition_coo_rows_whell",
     "PackedPartition",

@@ -3,16 +3,20 @@ of x exchanged point to point and the interior product run meanwhile.
 
 Counterpart of :mod:`spgpu_tpu.parallel.dist_spmv`.  Each rank holds one
 shard of a :class:`~spgpu_tpu_torch.parallel.partition_packed.PackedPartition`
-(kernels #1, #4, #7 or the complex128 kernel on its layouts) or of a
+(kernels #1, #4, #7 or the complex128 kernel on its layouts), of a
 :class:`~spgpu_tpu_torch.parallel.partition_whell.PartitionedWhell`
-(kernel #15).  Per product:
+(kernel #15) or of the HELL
+:class:`~spgpu_tpu_torch.parallel.partition.PartitionedMatrix` (plain torch
+``hell_spmv``, as the JAX partition runs XLA ops); each product goes
+through ``ops.spmv``, which dispatches on the layout.  Per product:
 
 1. the exchange: the rank gathers ``x[send_lanes]`` for each requester
    with a halo and posts the sends and receives of its live pairs in one
    ``torch.distributed.batch_isend_irecv``, each pair at its exact width
    (a pair of count 0 posts nothing).  It never writes into ``x``: the
    received values land in a workspace of the handle, a copy of ``x``
-   with the halo lanes set (packed), or the flat halo buffer (classic);
+   with the halo lanes set (packed), or the flat halo buffer (classic
+   WHELL and HELL);
 2. the interior product reads the local ``x`` only and runs while the
    exchange is in flight; on a CUDA device the exchange runs on a side
    stream, forked from and joined to the current stream by events, so the
@@ -26,7 +30,8 @@ A packed partition built with ``overlap=False`` runs its one slab on the
 workspace after the exchange, and a partition with no halo anywhere runs
 the interior product on ``x`` with no exchange.  Complex vectors cross as
 their real views.  Every product launches the hand kernels on a CUDA
-device; there is no fallback.
+device (the HELL partition its plain torch products); there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -83,7 +88,7 @@ class ShardedHandle:
         self.recv_views = [(p, self.recv[offs[i]:offs[i + 1]])
                            for i, (p, _) in enumerate(owners)]
         # the workspace the halo lands in: a copy of x (packed) or the flat
-        # halo buffer (classic), zero where no halo value lands
+        # halo buffer (classic WHELL, HELL), zero where no halo value lands
         self.work = torch.zeros(self.n if self.packed else pm.halo_size,
                                 dtype=pm.dtype, device=dev)
         self.side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
@@ -142,13 +147,13 @@ class ShardedHandle:
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's block of ``A @ x`` for its block ``x`` (lane space
-        for a packed partition, its ``chunk`` rows for a classic one), on
-        the device.  Every rank of the group calls it together."""
+        for a packed partition, its ``chunk`` rows for a classic WHELL or
+        HELL one), on the device.  Every rank of the group calls it together."""
         if x.shape != (self.n,):
             raise ValueError(f"x must be this rank's ({self.n},) block, got "
                              f"{tuple(x.shape)}")
         if self.pm.no_halo:
-            return ops.whell_spmv(self.interior, x)
+            return ops.spmv(self.interior, x)
         if self.side is not None:
             self.side.wait_stream(torch.cuda.current_stream(x.device))
         with self._stream():
@@ -157,13 +162,13 @@ class ShardedHandle:
             with self._stream():
                 self._finish(works)
             self._join(x)
-            return ops.whell_spmv(self.interior, self.work)
-        z = ops.whell_spmv(self.interior, x)
+            return ops.spmv(self.interior, self.work)
+        z = ops.spmv(self.interior, x)
         with self._stream():
             self._finish(works)
         self._join(x)
         if self.exterior is not None:
-            z_ext = ops.whell_spmv(self.exterior, self.work)
+            z_ext = ops.spmv(self.exterior, self.work)
             z[: z_ext.shape[0]] += z_ext
         return z
 

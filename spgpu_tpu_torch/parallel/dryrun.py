@@ -9,10 +9,10 @@ the CPU with ``--device cpu``) and holds each
 result to the host golden (``CooMatrix.spmv`` in float64 or complex128):
 the packed fp32 partition's SpMV and CG, float64 CG, a complex64
 Hermitian system's SpMV and CG, the solve handle's two solves on one
-placement, and the classic partition's SpMV and CG.  It prints one JSON
-line per case and exits non-zero if a case fails.  The JAX dry run's
-third leg, the HELL partition on XLA ops (``partition_coo_rows``), waits
-for the HELL format (ROADMAP item 11); the run says so.
+placement, the classic partition's SpMV and CG, and the JAX dry run's
+third leg, the HELL partition (``partition_coo_rows``, plain torch
+products) in fp32.  It prints one JSON line per case and exits non-zero
+if a case fails.
 
 :func:`run_cases` is the rank side, also for the tests: it runs a list of
 distributed calls on one rank and returns their results as NumPy.
@@ -88,6 +88,7 @@ def dryrun(n_ranks: int, device: str = "cuda") -> list:
     ``"cpu"``; returns one record per case, each with its error against
     the golden and whether it passed."""
     from spgpu_tpu_torch.parallel.group import run_ranks
+    from spgpu_tpu_torch.parallel.partition import partition_coo_rows
     from spgpu_tpu_torch.parallel.partition_packed import partition_coo_rows_packed
     from spgpu_tpu_torch.parallel.partition_whell import partition_coo_rows_whell
     from spgpu_tpu_torch.utils.fixtures import laplacian_2d
@@ -105,6 +106,7 @@ def dryrun(n_ranks: int, device: str = "cuda") -> list:
     bc = cooc.spmv(xc).astype(np.complex64)
     packed = partition_coo_rows_packed(coo, n_ranks)
     classic = partition_coo_rows_whell(coo, n_ranks)
+    hell = partition_coo_rows(coo, n_ranks)
     pmc = partition_coo_rows_packed(cooc, n_ranks)
     cg = dict(tol=1e-5, maxiter=400)
     cases = [
@@ -117,7 +119,9 @@ def dryrun(n_ranks: int, device: str = "cuda") -> list:
         ("packed fp32 handle, two solves", "handle", packed, dict(bs=[b, b2], **cg),
          coo, None, 1e-3),
         ("classic fp32 spmv", "spmv", classic, dict(x=x), coo, x, 1e-4),
-        ("classic fp32 cg", "cg", classic, dict(b=b, **cg), coo, b, 1e-3)]
+        ("classic fp32 cg", "cg", classic, dict(b=b, **cg), coo, b, 1e-3),
+        ("HELL fp32 spmv", "spmv", hell, dict(x=x), coo, x, 1e-4),
+        ("HELL fp32 cg", "cg", hell, dict(b=b, **cg), coo, b, 1e-3)]
     got = run_ranks(n_ranks, "spgpu_tpu_torch.parallel.dryrun:run_cases",
                     [c[1:4] for c in cases], device=device)
     out = []
@@ -139,8 +143,6 @@ def dryrun(n_ranks: int, device: str = "cuda") -> list:
         rec["ranks_agree"] = same
         rec["ok"] = bool(rec["err"] < tol and same and rec.get("placements", 1) == 1)
         out.append(rec)
-    out.append(dict(case="HELL partition on XLA ops (partition_coo_rows)", ok=True,
-                    skipped="waits for the HELL format, ROADMAP item 11"))
     return out
 
 

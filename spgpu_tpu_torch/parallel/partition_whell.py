@@ -2,7 +2,9 @@
 
 Counterpart of :mod:`spgpu_tpu.parallel.partition_whell`: the same row
 split and halo plan as the packed partition
-(:func:`~spgpu_tpu_torch.parallel.partition_packed.halo_plan`), and two
+(:func:`~spgpu_tpu_torch.parallel.partition_packed.halo_plan`, the rows
+and layouts built by :func:`build_row_shards`, which the HELL partition
+shares), and two
 classic float32 layouts per shard in the original numbering: the interior
 one over the shard's own ``(chunk, chunk)`` block, whose product reads the
 local x, and the exterior one over ``(chunk, S*K)``, whose columns index
@@ -25,23 +27,25 @@ from spgpu_tpu_torch.formats.coo import CooMatrix
 from spgpu_tpu_torch.formats.whell import WhellMatrix
 from spgpu_tpu_torch.parallel.partition_packed import halo_plan
 
-__all__ = ["PartitionedWhell", "WhellShard", "partition_coo_rows_whell"]
+__all__ = ["PartitionedWhell", "RowPartition", "RowShard", "build_row_shards",
+           "partition_coo_rows_whell"]
 
 
 @dataclasses.dataclass
-class WhellShard:
-    """One shard's part of a :class:`PartitionedWhell`."""
+class RowShard:
+    """One shard's part of a partition onto original-numbering layouts
+    (:class:`PartitionedWhell`, the HELL ``PartitionedMatrix``)."""
 
-    interior: WhellMatrix  # classic, (chunk, chunk)
-    exterior: Optional[WhellMatrix]  # classic, (chunk, S*K); None without halo
+    interior: object  # (chunk, chunk): classic WhellMatrix or HellMatrix
+    exterior: Optional[object]  # (chunk, S*K); None without halo
     #: requester -> this shard's local rows it sends there (int64)
     send_lanes: Dict[int, torch.Tensor]
     #: owner -> the halo buffer positions its values land in (int64)
     halo_lanes: Dict[int, torch.Tensor]
     n_local: int
 
-    def to(self, device) -> "WhellShard":
-        return WhellShard(
+    def to(self, device) -> "RowShard":
+        return RowShard(
             interior=self.interior.to(device),
             exterior=None if self.exterior is None else self.exterior.to(device),
             send_lanes={r: t.to(device) for r, t in self.send_lanes.items()},
@@ -50,11 +54,12 @@ class WhellShard:
 
 
 @dataclasses.dataclass
-class PartitionedWhell:
-    """A row-partitioned square float32 matrix on classic WHELL layouts,
-    one :class:`WhellShard` per shard (on the CPU)."""
+class RowPartition:
+    """A row-partitioned square matrix on original-numbering layouts, one
+    :class:`RowShard` per shard (on the CPU): the part the classic WHELL
+    and HELL partitions share.  Vectors are the shards' ``dtype``."""
 
-    shards: List[WhellShard]
+    shards: List[RowShard]
     n_rows: int
     chunk: int
     halo_width: int
@@ -63,7 +68,6 @@ class PartitionedWhell:
 
     #: the interior product always runs while the halo is in flight
     overlapped = True
-    dtype = torch.float32
 
     @property
     def n_shards(self) -> int:
@@ -81,12 +85,13 @@ class PartitionedWhell:
     def rows_of(self, s: int) -> slice:
         return slice(s * self.chunk, s * self.chunk + self.shards[s].n_local)
 
-    def shard(self, s: int, device) -> WhellShard:
+    def shard(self, s: int, device) -> RowShard:
         return self.shards[s].to(device)
 
     def embed_shard(self, x, s: int, device=None, fill=0) -> torch.Tensor:
         """Global ``(n,)`` vector -> shard ``s``'s ``(chunk,)`` block (rows
-        past the matrix ``fill``), float32, on ``device``."""
+        past the matrix ``fill``), in the partition's ``dtype``, on
+        ``device``."""
         out = torch.full((self.chunk,), fill, dtype=self.dtype)
         out[: self.shards[s].n_local] = torch.as_tensor(
             np.asarray(x)[self.rows_of(s)]).to(self.dtype)
@@ -96,27 +101,46 @@ class PartitionedWhell:
         return z[: self.shards[s].n_local]
 
 
-def partition_coo_rows_whell(coo: CooMatrix, n_shards: int) -> PartitionedWhell:
-    """Build a :class:`PartitionedWhell` of a square host COO (float32
-    values), on the CPU."""
+@dataclasses.dataclass
+class PartitionedWhell(RowPartition):
+    """A row-partitioned square float32 matrix on classic WHELL layouts."""
+
+    dtype = torch.float32
+
+
+def build_row_shards(coo: CooMatrix, n_shards: int, convert):
+    """The row split and halo plan of :func:`halo_plan` with each shard's
+    interior and exterior entries converted by ``convert(rows, cols,
+    values, n_rows, n_cols)`` (exterior columns are halo positions ``p*K +
+    k``; a shard with no exterior entry has no exterior layout).  Returns
+    ``(shards, chunk, K, halo_counts)``."""
     chunk, per_shard, send, halo_pos, K, halo_counts = halo_plan(coo, n_shards)
     S = n_shards
     shards = []
     for s, (lrows, cols_g, vals) in enumerate(per_shard):
         is_int = cols_g // chunk == s
-        interior = coo_to_whell(CooMatrix(lrows[is_int], cols_g[is_int] - s * chunk,
-                                          vals[is_int], chunk, chunk),
-                                device="cpu", packed=False)
+        interior = convert(lrows[is_int], cols_g[is_int] - s * chunk, vals[is_int],
+                           chunk, chunk)
         exterior = None
         if not is_int.all():
-            exterior = coo_to_whell(CooMatrix(lrows[~is_int], halo_pos[s], vals[~is_int],
-                                              chunk, S * K), device="cpu", packed=False)
-        shards.append(WhellShard(
+            exterior = convert(lrows[~is_int], halo_pos[s], vals[~is_int], chunk, S * K)
+        shards.append(RowShard(
             interior=interior, exterior=exterior,
             send_lanes={r: torch.from_numpy(send[s][r]) for r in range(S)
                         if halo_counts[s][r]},
             halo_lanes={p: p * K + torch.arange(halo_counts[p][s]) for p in range(S)
                         if halo_counts[p][s]},
             n_local=max(0, min(chunk, coo.n_rows - s * chunk))))
+    return shards, chunk, K, halo_counts
+
+
+def partition_coo_rows_whell(coo: CooMatrix, n_shards: int) -> PartitionedWhell:
+    """Build a :class:`PartitionedWhell` of a square host COO (float32
+    values), on the CPU."""
+    def convert(rows, cols, vals, n_rows, n_cols):
+        return coo_to_whell(CooMatrix(rows, cols, vals, n_rows, n_cols), device="cpu",
+                            packed=False)
+
+    shards, chunk, K, halo_counts = build_row_shards(coo, n_shards, convert)
     return PartitionedWhell(shards=shards, n_rows=coo.n_rows, chunk=chunk,
                             halo_width=K, nnz=coo.nnz, halo_counts=halo_counts)

@@ -7,4 +7,5 @@ from spgpu_tpu_torch.utils.fixtures import (  # noqa: F401
     random_banded,
     random_fem_like,
     random_irregular,
+    random_mixed,
 )

@@ -18,6 +18,7 @@ __all__ = [
     "random_irregular",
     "random_fem_like",
     "random_banded",
+    "random_mixed",
     "ctest_fixture",
 ]
 
@@ -160,6 +161,30 @@ def random_banded(
         n,
         n,
     )
+
+
+def random_mixed(
+    n: int,
+    bands: int = 11,
+    wander: int = 3,
+    extra_avg: float = 4.0,
+    span: int = 768,
+    far_frac: float = 0.02,
+    seed: int = 0,
+    dtype=np.float64,
+) -> CooMatrix:
+    """Part-banded matrix: a wandering-band stencil core plus a sparse
+    FEM-like irregular overlay (duplicates summed), the mixed profile the
+    hybrid split is for (``cusparsePerf.cpp:668-680``)."""
+    b = random_banded(n, bands=bands, wander=wander, seed=seed, dtype=dtype)
+    r = random_fem_like(n, avg_nnz_per_row=extra_avg, span=span,
+                        far_frac=far_frac, seed=seed + 1, dtype=dtype)
+    return CooMatrix(
+        np.concatenate([b.rows, r.rows]),
+        np.concatenate([b.cols, r.cols]),
+        np.concatenate([b.values, r.values]).astype(dtype),
+        n, n,
+    ).sum_duplicates()
 
 
 def ctest_fixture(dtype=np.float32) -> CooMatrix:

@@ -65,6 +65,12 @@ gives NaN there).  #17 runs one warp per tile
 and 4 tiles per block: it is checked on a tile count that is not a
 multiple of 4.
 
+The classic layouts (ELL, OELL, HELL, DIA, HDIA, BCOO: plain torch)
+compute on the card when given CUDA tensors, at the golden and at their
+CPU product; csput too.  One hybrid product launches #3 (#6) once and #1
+(#4) once and gives the same bits twice; the hybrid and hell solve()
+routes give the same bits graphed and eager.
+
 Large systems on one layout: #1 and #4 (aligned packed), #15 (classic),
 #3 and #6 (WHDIA) on a 9,000,000-row tridiagonal, past the 65,536 x pages
 of ``tile_base``'s 16-bit page field, against their plain versions and
@@ -79,6 +85,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from spgpu_tpu_torch import convert as _conv  # noqa: E402
 from spgpu_tpu_torch import ops  # noqa: E402
 from spgpu_tpu_torch.convert import (  # noqa: E402
     coo_to_sdia,
@@ -100,6 +107,7 @@ from spgpu_tpu_torch.utils.fixtures import (  # noqa: E402
     random_banded,
     random_fem_like,
     random_irregular,
+    random_mixed,
 )
 
 CASES = {
@@ -1808,14 +1816,21 @@ loop = importlib.import_module("spgpu_tpu_torch.solvers.cg")
 
 #: (fmt, dtype) of every solve() route -> whether its kernel gives the same
 #: bits every call (SDIA #2/#5/#8/#11, WHDIA #3/#6/#9/#10, packed WHELL
-#: #1/#4/#7 and complex128 on the hack pass); #17 sums with atomics
+#: #1/#4/#7 and complex128 on the hack pass, the hybrid split and HELL);
+#: #17 sums with atomics
 GRAPH_ROUTES = {("whell", "float32"): True, ("whell", "float64"): True,
                 ("whell", "complex64"): True, ("whell", "complex128"): True,
                 ("sdia", "float32"): True, ("sdia", "float64"): True,
                 ("sdia", "complex64"): True, ("sdia", "complex128"): True,
                 ("whdia", "float32"): True, ("whdia", "float64"): True,
                 ("whdia", "complex64"): True, ("whdia", "complex128"): True,
-                ("pcell", "float32"): False}
+                ("pcell", "float32"): False,
+                # the hybrid split: #3 + #1 or #6 + #4 and an index copy each
+                # way; classic HELL: plain torch, each hack summed in slot
+                # order by segment_reduce (no atomics)
+                ("hybrid", "float32"): True, ("hybrid", "float64"): True,
+                ("hell", "float32"): True, ("hell", "float64"): True,
+                ("hell", "complex64"): True, ("hell", "complex128"): True}
 
 
 def _loop_system(dtype, symmetric):
@@ -2310,3 +2325,81 @@ def test_dryrun_on_one_cuda_rank(cuda_device):
 
     recs = dryrun(1, "cuda")
     assert all(r["ok"] for r in recs), recs
+
+
+# --------------------------------------------------------------------------
+# the classic layouts (plain torch on the card) and the hybrid split
+
+#: classic layout -> its converter (to the card)
+CLASSIC = {
+    "ell": lambda c, d: _conv.coo_to_ell(c, device=d),
+    "oell": lambda c, d: _conv.ell_to_oell(_conv.coo_to_ell(c, device="cpu"), device=d),
+    "hell": lambda c, d: _conv.coo_to_hell(c, device=d),
+    "dia": lambda c, d: _conv.coo_to_dia(c, device=d),
+    "hdia": lambda c, d: _conv.coo_to_hdia(c, device=d),
+    "bcoo": lambda c, d: _conv.coo_to_bcoo(c, 8, 8, device=d),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64", "complex64", "complex128"])
+@pytest.mark.parametrize("fmt", sorted(CLASSIC))
+def test_classic_ops_keep_the_cuda_device(fmt, dtype, cuda_device):
+    """Each classic op given CUDA tensors computes on the card: the result
+    lies on it, at the golden and at the same op on the CPU (fp32 and
+    complex64 2e-5, float64 and complex128 1e-12, times max|z|)."""
+    c = CASES["irregular"]()
+    coo = _complex(c, dtype) if "complex" in dtype else CooMatrix(
+        c.rows, c.cols, c.values.astype(dtype), c.n_rows, c.n_cols)
+    x = (_cvec(coo.n_cols, 3) if "complex" in dtype else
+         np.random.default_rng(3).standard_normal(coo.n_cols)).astype(dtype)
+    a = CLASSIC[fmt](coo, cuda_device)
+    assert a.device.type == "cuda"
+    z = ops.spmv(a, torch.from_numpy(x).to(cuda_device), 1.7)
+    assert z.device.type == "cuda"
+    g = 1.7 * coo.spmv(x.astype(np.complex128 if "complex" in dtype else np.float64))
+    frac = 2e-5 if dtype in ("float32", "complex64") else 1e-12
+    assert np.abs(z.cpu().numpy() - g).max() <= frac * np.abs(g).max()
+    zc = ops.spmv(a.to("cpu"), torch.from_numpy(x), 1.7)
+    assert np.abs(z.cpu().numpy() - zc.numpy()).max() <= frac * np.abs(g).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["ell", "hell"])
+def test_csput_on_cuda(fmt, cuda_device):
+    c = CASES["irregular"]()
+    a = CLASSIC[fmt](c, cuda_device)
+    sel = np.random.default_rng(2).choice(c.nnz, size=10, replace=False)
+    v = np.random.default_rng(3).standard_normal(10).astype(np.float32)
+    put = ops.ell_csput if fmt == "ell" else ops.hell_csput
+    got = put(a, c.rows[sel], c.cols[sel], v, alpha=2.0)
+    assert got.values.device.type == "cuda"
+    want = put(a.to("cpu"), c.rows[sel], c.cols[sel], v, alpha=2.0)
+    assert torch.equal(got.values.cpu(), want.values)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_hybrid_launches_each_kernel_once(dtype, cuda_device):
+    """One hybrid product launches the WHDIA kernel (#3, #6 in float64)
+    once and the packed WHELL kernel (#1, #4) once, gives the same bits
+    twice, and agrees with the plain path on the CPU (rtol 1e-5, atol
+    1e-5·max|z|; float64 1e-12·max|z|) and the golden."""
+    mix = random_mixed(1 << 14, bands=9, wander=3, extra_avg=4.0, span=500,
+                       far_frac=0.02, seed=1, dtype=np.dtype(dtype))
+    h = _conv.coo_to_hybrid(mix, device=cuda_device)
+    assert h.band is not None and h.rest is not None
+    x = np.random.default_rng(4).standard_normal(mix.n_rows).astype(dtype)
+    xt = torch.from_numpy(x).to(cuda_device)
+    counter = "LAUNCHES" if dtype == "float32" else "LAUNCHES_F64"
+    setattr(kd, counter, 0)
+    setattr(kw, counter, 0)
+    z = ops.hybrid_spmv(h, xt)
+    torch.cuda.synchronize()
+    assert (getattr(kd, counter), getattr(kw, counter)) == (1, 1)
+    assert torch.equal(ops.hybrid_spmv(h, xt), z)
+    zc = ops.hybrid_spmv(h.to("cpu"), torch.from_numpy(x))
+    g = mix.spmv(x.astype(np.float64))
+    frac = 1e-5 if dtype == "float32" else 1e-12
+    _near(z.cpu(), zc, frac, rtol=frac if dtype == "float32" else 0.0)
+    assert np.abs(z.cpu().numpy() - g).max() <= 2 * frac * np.abs(g).max()

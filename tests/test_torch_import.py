@@ -48,7 +48,7 @@ def test_parallel_modules_and_rank_entry_load_no_jax():
     package (the ranks of a distributed run import nothing else)."""
     mods = sorted(os.path.splitext(os.path.basename(p))[0] for p in glob.glob(
         os.path.join(ROOT, "spgpu_tpu_torch", "parallel", "*.py")))
-    assert {"_rank", "dist_solve", "dist_spmv", "dryrun", "group",
+    assert {"_rank", "dist_solve", "dist_spmv", "dryrun", "group", "partition",
             "partition_packed", "partition_whell"} <= set(mods)
     names = ", ".join(f"spgpu_tpu_torch.parallel.{m}".removesuffix(".__init__")
                       for m in mods)

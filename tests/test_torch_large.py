@@ -332,14 +332,24 @@ def test_blocks_spmv_matches_the_one_layout_product():
 
 
 def test_complex_blocks_raises():
+    """A complex ``fmt="blocks"`` no longer raises: as the JAX ``solve()``
+    does, the port runs it on the classic ``hell`` route, the same bits as
+    ``fmt="hell"``, and ``x`` agrees with the JAX solve's."""
     c = tfix.laplacian_2d(8, 8, np.float64)
     coo = CooMatrix(c.rows, c.cols, c.values.astype(np.complex64), 64, 64)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        solve(coo, np.ones(64, np.complex64), device="cpu", fmt="blocks")
+    b = np.ones(64, np.complex64)
+    rb = solve(coo, b, device="cpu", fmt="blocks", tol=1e-5)
+    rh = solve(coo, b, device="cpu", fmt="hell", tol=1e-5)
+    assert bool(rb.converged) and rb.x.dtype == torch.complex64
+    assert torch.equal(rb.x, rh.x) and rb.iterations == rh.iterations
+    rj = j_solve(JCoo(c.rows, c.cols, c.values.astype(np.complex64), 64, 64), b,
+                 fmt="blocks", tol=1e-5)
+    assert abs(int(rb.iterations) - int(rj.iterations)) <= max(1, int(rj.iterations) // 10)
+    np.testing.assert_allclose(rb.x.numpy(), np.asarray(rj.x), rtol=0, atol=1e-4)
 
 
 def test_jax_complex_blocks_is_the_hell_route():
-    """What the port raises for: the JAX ``solve()`` sends an explicit
+    """What the port follows: the JAX ``solve()`` sends an explicit
     ``fmt="blocks"`` on complex values to its classic ``hell`` route."""
     c = jfix.laplacian_2d(6, 6, np.float64)
     coo = JCoo(c.rows, c.cols, c.values.astype(np.complex64), 36, 36)

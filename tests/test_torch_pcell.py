@@ -185,13 +185,26 @@ def test_pcell_spmm_loops_and_fused_raises(monkeypatch):
 
 
 def test_pcell_refuses_other_value_types():
+    """The converter takes float32 only, and ``solve(fmt="pcell")`` raises
+    on a float64 system (ROADMAP item 14); on a complex one it runs the
+    classic ``hell`` route, as the JAX ``solve()`` does, the same bits as
+    ``fmt="hell"``."""
     c = CASES["laplace"](tfix)
     for dt in (np.float64, np.complex64):
         coo = CooMatrix(c.rows, c.cols, c.values.astype(dt), c.n_rows, c.n_cols)
         with pytest.raises(NotImplementedError, match="item 14"):
             coo_to_whell_percell(coo, device="cpu")
-        with pytest.raises(NotImplementedError, match="pcell"):
-            solve(coo, np.ones(c.n_rows, dt), device="cpu", fmt="pcell")
+        if dt == np.float64:
+            with pytest.raises(NotImplementedError, match="pcell"):
+                solve(coo, np.ones(c.n_rows, dt), device="cpu", fmt="pcell")
+            continue
+        b = np.ones(c.n_rows, dt)
+        rp = solve(coo, b, device="cpu", fmt="pcell", tol=1e-5)
+        rh = solve(coo, b, device="cpu", fmt="hell", tol=1e-5)
+        assert bool(rp.converged) and rp.x.dtype == torch.complex64
+        assert torch.equal(rp.x, rh.x) and rp.iterations == rh.iterations
+        res = np.linalg.norm(b - coo.spmv(rp.x.numpy().astype(np.complex128)))
+        assert res <= 1e-4 * np.linalg.norm(b)
 
 
 def test_pcell_check_rejects_broken_layouts():

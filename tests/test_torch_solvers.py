@@ -98,11 +98,20 @@ def test_auto_selection_runs_whell():
 
 
 def test_unported_formats_raise():
+    """The hybrid and hell routes are ported: hell solves a Laplacian as
+    the JAX ``solve()`` does, and hybrid, whose split of a Laplacian is all
+    band, as the whdia route does, the same bits (tests/test_torch_hybrid.py
+    holds both to the JAX routes on its part-banded fixture); an unknown
+    format still raises."""
     coo = laplacian_2d(40, 40, np.float32)
-    b = np.ones(1600, np.float32)
-    for fmt, item in (("hybrid", "item 11"), ("hell", "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            solve(coo, b, device="cpu", fmt=fmt)
+    b = np.random.default_rng(2).standard_normal(1600).astype(np.float32)
+    _check_against_jax(coo.rows, coo.cols, coo.values, 1600, b,
+                       dict(fmt="hell", tol=1e-5, maxiter=2000),
+                       dict(fmt="hell", tol=1e-5, maxiter=2000))
+    rh = solve(coo, b, device="cpu", fmt="hybrid", tol=1e-5)
+    rw = solve(coo, b, device="cpu", fmt="whdia", tol=1e-5)
+    assert bool(rh.converged) and rh.iterations == rw.iterations
+    assert torch.equal(rh.x, rw.x)
     # "dia" is a selection class, not a layout: as in the JAX solve()
     for fmt in ("nope", "dia"):
         with pytest.raises(ValueError, match="unknown"):
