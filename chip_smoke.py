@@ -296,14 +296,30 @@ the float64 geometry sweep, and checks them:
                each with its graphed loop beside its eager witness and the
                hell solves within 10 % of the whell route's iterations
                (``python3 chip_smoke.py --classic`` runs 35-37 alone).
+38. tooling  — the context API and the tooling: ``create(0)``, its
+               device facts and stream calls (an SDIA product issued
+               after ``set_stream(s)`` behind a copy of x on ``s`` reads
+               the copy), ``destroy``; ``bench.run_suite("chip")``, the JAX
+               suite's rows on the port's routes (#1, #2, #3, #4, #5, #7,
+               #9, #12 and two plain-torch rows), each SpMV/SpMM row's
+               ‖z‖² within rtol 1e-4 (1e-10 in float64) of the host
+               golden's on the same x and its kernel's counter moved, then
+               its BLAS-1 rows at n = 2**26 and its baseline rows
+               (conversion, scipy, cuSPARSE CSR); ``run_weak_scaling`` (S =
+               1 on one card); ``time_op`` and ``roofline_report`` on #1;
+               a ``trace`` of #1 naming ``whell_hack_pass``.  The parent
+               adds the harness's device times of #1, #2, #3 and #12
+               beside the earlier phases' (``harness_beside``;
+               ``python3 chip_smoke.py --tooling`` runs 38 alone).
 
-Phases 26-28, 29, 30-31, 32-34 and 35-37 run in fresh processes of this
-script (``chip_smoke.py --sweeps``, ``--kernel-times``, ``--large``,
-``--dist``, ``--classic``, which print their lines for this one to emit):
-after the earlier phases' profiling sessions, sessions in this process
-lose events, and the distributed phases open and destroy their own NCCL
-group.  The large, distributed and classic phases' main-path launches
-(their checked op calls and solves) add to the kernel table's.
+Phases 26-28, 29, 30-31, 32-34, 35-37 and 38 run in fresh processes of
+this script (``chip_smoke.py --sweeps``, ``--kernel-times``, ``--large``,
+``--dist``, ``--classic``, ``--tooling``, which print their lines for
+this one to emit): after the earlier phases' profiling sessions,
+sessions in this process lose events, and the distributed phases open
+and destroy their own NCCL group.  The child phases' main-path launches
+(their checked op calls and solves, one per harness row) add to the
+kernel table's.
 
 Every time a solve phase prints carries the card's name and power limit
 (``card``).
@@ -2972,6 +2988,195 @@ def classic_phases(device, smi):
         yield phase, dict(res, launches=launches)
 
 
+# --------------------------------------------------------------------------
+# the context API and the tooling (``--tooling``): create/destroy and the
+# stream calls, the bench harness's suite, BLAS-1 and weak-scaling rows,
+# time_op/roofline_report and trace
+
+#: the harness suite's routes by its ``fmt``: the kernel table's name of
+#: the hand kernel and its launch counter (``kernels.counter_name``);
+#: None for the rows that run plain torch
+SUITE_KERNELS = {
+    "ell_torch": None,
+    "whell_packed_k1": ("whell_packed_spmv", "whell.LAUNCHES"),
+    "whdia_k3": ("whdia_spmv", "whdia.LAUNCHES"),
+    "sdia_k2": ("sdia_spmv", "sdia.LAUNCHES"),
+    "sdia_f64_k5": ("sdia_spmv_f64", "sdia.LAUNCHES_F64"),
+    "whell_f64_k4": ("whell_packed_spmv_f64", "whell.LAUNCHES_F64"),
+    "whell_c64_k7": ("whell_packed_spmv_c64", "whell.LAUNCHES_C64"),
+    "whdia_c64_k9": ("whdia_spmv_c64", "whdia.LAUNCHES_C64"),
+    "whell_spmm8_k12": ("whell_packed_spmm", "whell.LAUNCHES_SPMM"),
+    "hell_spmm8_torch": None,
+}
+
+
+def context_check(device):
+    """``create(0)``, its device facts and stream calls: an SDIA product
+    (kernel #2) issued after ``set_stream(s)`` behind a copy of x on
+    ``s`` must read the copied x, so it ran on ``s``; then
+    ``set_stream(None)`` and ``destroy``."""
+    import torch
+
+    from spgpu_tpu_torch import core, ops
+    from spgpu_tpu_torch.convert import coo_to_sdia
+    from spgpu_tpu_torch.utils.fixtures import laplacian_2d
+
+    ctx = core.create(0)
+    lap = laplacian_2d(256, 256, np.float32)
+    a = coo_to_sdia(lap, device=ctx.device)
+    x_old, x_new = (torch.from_numpy(rand_vector(lap.n_cols, s, np.float32)).to(ctx.device)
+                    for s in (3, 4))
+    xt = x_old.clone()
+    torch.cuda.synchronize(ctx.device)
+    s = ctx.stream_create()
+    status = ctx.set_stream(s)
+    try:
+        current = ctx.get_stream() == s
+        torch.cuda._sleep(50_000_000)
+        xt.copy_(x_new)
+        z = ops.sdia_spmv(a, xt)
+    finally:
+        ctx.set_stream(None)
+    s.synchronize()
+    err = check_close(z, lap.spmv(x_new.cpu().numpy().astype(np.float64)), 2e-5, 2e-5,
+                      "a product after set_stream(s)")
+    if status != core.Status.SUCCESS or not current \
+            or ctx.get_stream() != torch.cuda.default_stream(ctx.device):
+        raise AssertionError(f"stream calls: set_stream gave {status!r}, current "
+                             f"stream was s: {current}")
+    facts = dict(device=str(ctx.device), platform=ctx.platform, lanes=ctx.lanes,
+                 sublanes_bf16=ctx.sublanes(torch.bfloat16),
+                 hbm_bandwidth=ctx.hbm_bandwidth, set_stream=int(status),
+                 product_on_stream_max_abs_err=err)
+    facts["destroy"] = int(core.destroy(ctx))
+    return facts
+
+
+def suite_phase(device):
+    """``bench.run_suite("chip")`` with every kernel counter set to 0
+    before it and read and set to 0 again after each row: every SpMV/SpMM
+    row's checksum within rtol 1e-4 (float32, complex64) or 1e-10
+    (float64) of its float64/complex128 host golden's, its hand kernel's
+    counter moved and no other's (the plain-torch rows and the BLAS-1 and
+    baseline rows none), in the row's checked product (its ``launches``:
+    the counters set to 0 just before that product and read just after)
+    and over the whole row.  Returns the rows, each with the counters it
+    moved, and the checked products' launches by kernel name."""
+    from spgpu_tpu_torch import kernels
+    from spgpu_tpu_torch.bench import run_suite
+
+    lines = []
+
+    def collect(line):
+        row = json.loads(line)
+        row["counters_moved"] = {kernels.counter_name(k): n
+                                 for k, n in kernels.launch_counts().items() if n}
+        kernels.reset_launch_counts()
+        lines.append(row)
+
+    kernels.reset_launch_counts()
+    run_suite("chip", out=collect, device=device)
+    launches = {}
+    for row in lines:
+        what = f"suite {row['config']} {row.get('fmt', row.get('op'))}"
+        route = SUITE_KERNELS.get(row.get("fmt"))
+        if "checksum" in row:
+            tol = 1e-10 if "f64" in row["fmt"] else 1e-4
+            row["checksum_rel_err"] = abs(row["checksum"] - row["golden_checksum"]) \
+                / abs(row["golden_checksum"])
+            if not row["checksum_rel_err"] <= tol:
+                raise AssertionError(f"{what}: checksum {row['checksum']} against the "
+                                     f"golden's {row['golden_checksum']} (rtol {tol})")
+        want = set() if route is None else {route[1]}
+        checked = row.get("launches", {})
+        if set(row["counters_moved"]) != want or set(checked) != want:
+            raise AssertionError(f"{what}: moved {row['counters_moved']} (checked product "
+                                 f"{checked}), expected {sorted(want) or 'no kernel counter'}")
+        if route is not None:
+            add_counts(launches, {route[0]: checked[route[1]]})
+    return lines, launches
+
+
+def tooling_phase(device, smi):
+    """Phase 38 (``--tooling``): the context (:func:`context_check`), a
+    ``trace`` of three #1 products on the flagship, whose Chrome trace
+    must name ``whell_hack_pass``, ``time_op`` and ``roofline_report`` on
+    #1 there, then the harness's suite (:func:`suite_phase`: its rows,
+    BLAS-1 at n = 2**26 among them, and the baseline rows) and its
+    weak-scaling rows (S beyond the cards present skipped: S = 1 on one
+    card, one NCCL rank, checked against the golden)."""
+    import glob
+    import tempfile
+
+    import torch
+
+    from spgpu_tpu_torch import ops
+    from spgpu_tpu_torch.bench import run_weak_scaling
+    from spgpu_tpu_torch.bench.harness import whell_tensors
+    from spgpu_tpu_torch.convert import coo_to_whell
+    from spgpu_tpu_torch.utils import roofline_report, time_op, trace
+
+    out = dict(card=smi, context=context_check(device))
+    # the trace first: this process's later profiling sessions lose events
+    coo = flagship()
+    a = coo_to_whell(coo, device=device)
+    xl = a.embed(torch.from_numpy(rand_vector(coo.n_cols, 7, np.float32)), torch.float32)
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d):
+            for _ in range(3):
+                ops.whell_spmv(a, xl)
+            torch.cuda.synchronize(device)
+        texts = [open(f).read() for f in glob.glob(os.path.join(d, "*.json"))]
+    named = [t for t in texts if "whell_hack_pass" in t]
+    if not named:
+        kinds = sorted({e.get("cat") for t in texts for e in json.loads(t)["traceEvents"]
+                        if isinstance(e, dict)} - {None})
+        raise AssertionError(f"trace: no file of {len(texts)} names whell_hack_pass "
+                             f"(event categories {kinds})")
+    out["trace"] = dict(files=len(texts), naming_whell_hack_pass=len(named))
+    t = time_op(ops.whell_spmv, a, xl)
+    z = ops.whell_spmv(a, xl)
+    moved = nbytes(*whell_tensors(a), xl, z)
+    out["time_op"] = roofline_report("whell_packed_spmv", t, moved, 2 * coo.nnz, device)
+    del a, xl, z
+
+    out["suite"], launches = suite_phase(device)
+    ws = run_weak_scaling(out=None)
+    for row in ws:
+        n = row["launches"].get("whell.LAUNCHES", 0)
+        if not (row["max_rel_err"] <= 2e-5 and n >= 1
+                and row["halo_slots_sent"] == row["halo_lanes_used"]):
+            raise AssertionError(f"weak scaling S={row['shards']}: max_rel_err "
+                                 f"{row['max_rel_err']}, launches {row['launches']}, halo "
+                                 f"{row['halo_slots_sent']} sent of "
+                                 f"{row['halo_lanes_used']} planned")
+        add_counts(launches, {"whell_packed_spmv": n})
+    out["weak_scaling"] = ws
+    return out, launches
+
+
+def harness_beside(res, earlier: dict) -> dict:
+    """The harness's device time of #1, #2, #3 and #12 (its op call, from
+    the ``--tooling`` child) beside the same kernel's device time and per
+    call time from the earlier phases of this run (``earlier``: kernel
+    name -> (that phase's result, its fixture)), and their gap."""
+    rows = {(r["config"], r.get("fmt")): r for r in res["suite"]}
+    keys = {"whell_packed_spmv": ("fem_irregular", "whell_packed_k1"),
+            "sdia_spmv": ("laplacian_2d", "sdia_k2"),
+            "whdia_spmv": ("banded", "whdia_k3"),
+            "whell_packed_spmm": ("fem_irregular", "whell_spmm8_k12")}
+    out = {}
+    for name, key in keys.items():
+        r, (ph, fixture) = rows[key], earlier[name]
+        out[name] = dict(
+            harness=f"{key[0]} / {key[1]}", harness_device_ms=1e3 * r["t_avg_s"],
+            harness_source=r["t_source"], harness_per_call_ms=1e3 * r["t_call_s"],
+            earlier=fixture, earlier_kernel_device_ms=ph["kernel_device_ms"],
+            earlier_source=ph["kernel_device_source"], earlier_per_call_ms=ph["kernel_ms"],
+            device_gap=1e3 * r["t_avg_s"] / ph["kernel_device_ms"] - 1)
+    return out
+
+
 def build_all():
     """The host helpers, then the five kernel libraries (the packed WHELL,
     SDIA and WHDIA ones each hold the float32, float64, complex64 and
@@ -3083,12 +3288,13 @@ def sweep_phases(device):
         yield phase, res
 
 
-def child_phases(flag: str, count: int):
+def child_phases(flag: str, count: int, extra=None):
     """The phases a fresh process of this script runs (``flag``:
     ``--sweeps``, phases 26-28; ``--kernel-times``, phase 29): in this
     one, the earlier phases' profiling sessions of loops with host reads
     leave later sessions losing events, and these device times need whole
-    sessions (``PERF.md`` §7).  Emits each phase's line here and returns
+    sessions (``PERF.md`` §7).  Emits each phase's line here, with
+    ``extra(result)``'s keys added where ``extra`` is given, and returns
     the results."""
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
                           capture_output=True, text=True, timeout=900)
@@ -3098,6 +3304,8 @@ def child_phases(flag: str, count: int):
     out = []
     for line in proc.stdout.splitlines():
         res = json.loads(line)
+        if extra is not None:
+            res.update(extra(res))
         emit(res.pop("phase"), **res)
         out.append(res)
     if len(out) != count:
@@ -3502,7 +3710,7 @@ def main() -> int:
         return 2
     device = torch.device("cuda", 0)
     if sys.argv[1:] in (["--sweeps"], ["--kernel-times"], ["--large"], ["--dist"],
-                        ["--classic"]):
+                        ["--classic"], ["--tooling"]):
         # every library up to date before the first profiling session: a
         # phase run alone from a fresh checkout lost its kernels' events
         # where the build ran between sessions
@@ -3525,6 +3733,10 @@ def main() -> int:
     if sys.argv[1:] == ["--classic"]:  # phases 35-37, for child_phases
         for phase, res in classic_phases(device, nvidia_smi()):
             print(json.dumps({"phase": phase, **res}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--tooling"]:  # phase 38, for child_phases
+        res, launches = tooling_phase(device, nvidia_smi())
+        print(json.dumps({"phase": "tooling", **res, "launches": launches}), flush=True)
         return 0
     from spgpu_tpu_torch.convert import (coo_to_whell, local_degree_perm,
                                          suggest_format, symmetric_relabel)
@@ -3738,6 +3950,17 @@ def main() -> int:
     for res in child_phases("--classic", 3):
         add_counts(large_launches, res["launches"])
 
+    # --- the context API and the tooling, in a fresh process: the bench ---
+    # --- harness's suite, BLAS-1 and weak-scaling rows beside this run's ---
+    torch.cuda.empty_cache()
+    earlier = {"whell_packed_spmv": (spmv, "flagship, phase spmv"),
+               "sdia_spmv": (sdia, "Laplacian 1024², phase sdia"),
+               "whdia_spmv": (whdia["banded11"], "banded-11, phase whdia"),
+               "whell_packed_spmm": (spmm["fp32"], "flagship 8 RHS, phase spmm")}
+    for res in child_phases("--tooling", 1,
+                            extra=lambda r: {"harness_beside": harness_beside(r, earlier)}):
+        add_counts(large_launches, res["launches"])
+
     def whdia_row(name, solves, phases):
         """WHDIA's row: the Laplacian's times, the larger error of its two
         fixtures, the launches of both WHDIA solves."""
@@ -3785,7 +4008,7 @@ def main() -> int:
         kernel_row("pcell_spmv", solve_p["launches"], pcell),
         ablation_row("whdia_ablation", acc18),
         ablation_row("whell_packed_ablation_f64", [acc19])]
-    for row in rows:  # the large, distributed and classic phases' main-path launches
+    for row in rows:  # the child phases' main-path launches
         row["launches"] += large_launches.get(row["name"], 0)
     close(rows, smi, torch)
     return 0

@@ -39,10 +39,27 @@ natively, where the JAX package emulates D precision with fp32 pairs and
 keeps complex matrices as two real planes.
 
 Every converter takes an explicit ``device``; CPU tensors run the plain
-PyTorch version of each kernel.
+PyTorch version of each kernel.  ``create()`` gives a :class:`Context`
+(spGPU's handle) on the card: its device to pass, its HBM rate for
+rooflines and its stream calls, which move the ops that follow onto a
+stream.  ``bench`` is spGPU's hellPerf/diaPerf harness on the port
+(``python -m spgpu_tpu_torch.bench.harness [--chip] [--device cpu]``:
+one JSON line per row), ``utils`` its benchmark protocol
+(``benchmark_op``) and profiling helpers (``time_op``,
+``roofline_report``, ``trace``).
 """
 
-from spgpu_tpu_torch import convert, core, formats, io, kernels, ops, solvers, utils  # noqa: F401
+from spgpu_tpu_torch import (  # noqa: F401
+    convert,
+    core,
+    formats,
+    io,
+    kernels,
+    ops,
+    parallel,
+    solvers,
+    utils,
+)
 from spgpu_tpu_torch.convert import (  # noqa: F401
     coo_to_sdia,
     coo_to_whdia,
@@ -52,8 +69,23 @@ from spgpu_tpu_torch.convert import (  # noqa: F401
     suggest_format,
     whell_update_values,
 )
+from spgpu_tpu_torch.core import (  # noqa: F401
+    LANES,
+    Context,
+    Status,
+    TypeCode,
+    create,
+    destroy,
+    size_of,
+)
 from spgpu_tpu_torch.formats import (  # noqa: F401
+    BcooMatrix,
+    BhdiaMatrix,
     CooMatrix,
+    DiaMatrix,
+    EllMatrix,
+    HdiaMatrix,
+    HellMatrix,
     PcellWhell,
     SdiaMatrix,
     WhdiaMatrix,

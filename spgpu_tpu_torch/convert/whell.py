@@ -47,8 +47,9 @@ from spgpu_tpu_torch.formats.coo import CooMatrix
 from spgpu_tpu_torch.formats.whell import (CLASSIC_DTYPES, MAX_TILE_PAGE,
                                            WhellMatrix, low_field_bits)
 
-__all__ = ["coo_to_whell", "degree_sort_perm", "local_degree_perm",
-           "slab_dtype", "symmetric_relabel", "whell_update_values"]
+__all__ = ["coo_to_whell", "dataclasses_replace_values", "degree_sort_perm",
+           "local_degree_perm", "slab_dtype", "symmetric_relabel",
+           "whell_update_values"]
 
 _HACK = 128
 
@@ -658,4 +659,10 @@ def whell_update_values(a: WhellMatrix, plan, new_values) -> WhellMatrix:
     vals = torch.zeros((a.total_slots, _HACK), dtype=a.values.dtype)
     new = torch.from_numpy(np.ascontiguousarray(new_values))
     vals[torch.as_tensor(slot), torch.as_tensor(lane)] = new.to(a.values.dtype)
-    return dataclasses.replace(a, values=vals.to(a.device))
+    return dataclasses_replace_values(a, vals.to(a.device))
+
+
+def dataclasses_replace_values(a: WhellMatrix, values: torch.Tensor) -> WhellMatrix:
+    """A copy of ``a`` with the value slab ``values`` (its derived lists
+    rebuilt, as every layout built by ``dataclasses.replace`` is)."""
+    return dataclasses.replace(a, values=values)

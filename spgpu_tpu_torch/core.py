@@ -6,19 +6,35 @@ they carry over unchanged: the port reads the same layout arrays.
 float64 runs natively on the GPU: the JAX package's double-float pairs
 are joined into one float64 array (:func:`join_dd`).  Complex values are
 PyTorch's complex64 and complex128, interleaved re/im: the JAX package's
-two real planes join into one complex array (:func:`join_planes`).  The
-TPU ``Context`` (device kind, VMEM, HBM table) has no counterpart here:
-every function of the port takes an explicit ``device``.
+two real planes join into one complex array (:func:`join_planes`).
+
+:class:`Context` is spGPU's handle (``spgpuCreate``, ``core.c:11-48``) on
+one device: its type, the layouts' lane and slot geometry, the card's HBM
+rate for rooflines (:func:`hbm_bandwidth`, from :data:`HBM_BW_BY_KIND`)
+and, optionally, the rank group of a distributed run.  Its stream calls
+act on the card (``spgpuStreamCreate/SetStream/GetStream``,
+``core.c:50-80``): every op of the port launches on torch's current
+stream, so :meth:`Context.set_stream` moves the ops that follow onto the
+stream given.  The JAX package stubs them, since XLA owns the TPU's
+schedule; on the CPU they keep that no-op behaviour.  A context takes the
+card unless the caller asks for the CPU.  The port's functions still take
+an explicit ``device``: pass the context's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["Status", "TypeCode", "size_of", "LANES", "CHUNK_TILES",
+if TYPE_CHECKING:
+    from spgpu_tpu_torch.parallel.group import RankGroup
+
+__all__ = ["Status", "TypeCode", "size_of", "dtype_of", "HBM_BW_BY_KIND",
+           "hbm_bandwidth", "Context", "create", "destroy", "LANES", "CHUNK_TILES",
            "DEFAULT_HACK_SIZE", "sublanes", "round_up", "cdiv", "require_cuda", "unique_sorted",
            "dtype_name", "value_dtype", "real_part_dtype", "join_dd",
            "join_planes", "join_plane_fields"]
@@ -57,6 +73,11 @@ _TYPE_TO_DTYPE = {
 def size_of(code: TypeCode) -> int:
     """Byte size of a type code; mirrors ``spgpuSizeOf`` (``core.c:82-99``)."""
     return _TYPE_TO_DTYPE[TypeCode(code)].itemsize
+
+
+def dtype_of(code: TypeCode) -> torch.dtype:
+    """The torch dtype of a type code (``BFLOAT16`` → ``torch.bfloat16``)."""
+    return _TYPE_TO_DTYPE[TypeCode(code)]
 
 
 #: Lane width of every layout: one hack is 128 rows, one x page 128 entries.
@@ -99,6 +120,109 @@ def require_cuda() -> torch.device:
         raise RuntimeError("a CUDA device is required (torch.cuda.is_available() "
                            "is False)")
     return torch.device("cuda", 0)
+
+
+#: HBM bytes/s by a substring of ``torch.cuda.get_device_name``, for
+#: rooflines: NVIDIA's data sheet, at the card's full power limit (700 W
+#: for the H100 SXM, whose name ends "80GB HBM3")
+HBM_BW_BY_KIND = {
+    "H100 80GB HBM3": 3.35e12,
+}
+
+
+def hbm_bandwidth(device=None) -> Optional[float]:
+    """HBM bytes/s of ``device`` (default: the first card, if any) from
+    :data:`HBM_BW_BY_KIND`; ``None`` for the CPU and for a card the table
+    does not name, as the JAX function gives for an unknown kind."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return None
+        device = torch.device("cuda", 0)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(device)
+    return next((bw for key, bw in HBM_BW_BY_KIND.items() if key in name), None)
+
+
+@dataclasses.dataclass
+class Context:
+    """Per-device context; the counterpart of ``spgpuHandle_t``
+    (``spgpuCreate``, ``core.c:11-41``) and of the JAX ``Context``.
+
+    ``device``: ``None`` takes ``cuda:0`` and raises, as
+    :func:`require_cuda` does, without a card; pass ``"cpu"`` for the
+    CPU.  ``group``: the :class:`~spgpu_tpu_torch.parallel.group.RankGroup`
+    of a distributed run, where the JAX context holds a device mesh."""
+
+    device: object = None
+    group: Optional["RankGroup"] = None
+
+    def __post_init__(self):
+        self.device = require_cuda() if self.device is None else torch.device(self.device)
+        if self.device.type == "cuda":
+            require_cuda()
+            if self.device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
+
+    @property
+    def platform(self) -> str:
+        """The torch device type: ``"cuda"`` or ``"cpu"``."""
+        return self.device.type
+
+    @property
+    def lanes(self) -> int:
+        return LANES
+
+    def sublanes(self, dtype) -> int:
+        return sublanes(dtype)
+
+    @property
+    def hbm_bandwidth(self) -> Optional[float]:
+        return hbm_bandwidth(self.device)
+
+    # -- streams (spgpuStreamCreate/SetStream/GetStream, core.c:50-80) -----
+
+    def _on_card(self) -> bool:
+        return self.device.type == "cuda"
+
+    def stream_create(self):
+        """A new ``torch.cuda.Stream`` on the context's card; ``None`` on
+        the CPU."""
+        return torch.cuda.Stream(self.device) if self._on_card() else None
+
+    def set_stream(self, stream) -> Status:
+        """Make ``stream`` (``None``: the card's default stream) torch's
+        current stream on the context's card, so the port's ops that
+        follow launch on it; a no-op on the CPU."""
+        if self._on_card():
+            torch.cuda.set_stream(torch.cuda.default_stream(self.device)
+                                  if stream is None else stream)
+        return Status.SUCCESS
+
+    def get_stream(self):
+        """torch's current stream on the context's card; ``None`` on the
+        CPU."""
+        return torch.cuda.current_stream(self.device) if self._on_card() else None
+
+
+def create(device_index: int = 0) -> Context:
+    """A context on ``cuda:device_index``; raises without a card (or
+    without that card).  Mirrors ``spgpuCreate`` (``core.c:11-41``)."""
+    require_cuda()
+    if not 0 <= device_index < torch.cuda.device_count():
+        raise ValueError(f"no CUDA device {device_index}: "
+                         f"{torch.cuda.device_count()} present")
+    return Context(torch.device("cuda", device_index))
+
+
+def destroy(ctx: Context) -> Status:
+    """Wait for the context's card to finish its work; mirrors
+    ``spgpuDestroy`` (``core.c:43-48``).  Nothing is freed: torch owns the
+    streams and memory."""
+    if ctx.device.type == "cuda":
+        torch.cuda.synchronize(ctx.device)
+    return Status.SUCCESS
 
 
 def unique_sorted(a: np.ndarray) -> np.ndarray:

@@ -27,6 +27,19 @@ def launch_counts() -> dict:
             if name.startswith("LAUNCHES")}
 
 
+def reset_launch_counts() -> None:
+    """Set every launch counter of the kernel modules to 0."""
+    for m, name in launch_counts():
+        setattr(m, name, 0)
+
+
+def counter_name(key) -> str:
+    """A key of :func:`launch_counts` as ``module.NAME``
+    (``"whell.LAUNCHES"``)."""
+    m, name = key
+    return f"{m.__name__.rsplit('.', 1)[-1]}.{name}"
+
+
 def launch_counts_since(before: dict) -> dict:
     """The counters that moved since ``before`` (:func:`launch_counts`),
     by how much."""

@@ -66,7 +66,9 @@ class ShardedHandle:
     >>> z = h.extract(xl)            # the global vector, on every rank
 
     ``placements`` counts the shard's placements (1 for the handle's
-    life)."""
+    life); ``lanes_sent`` the halo lanes this rank's exchanges gathered
+    into their send buffers (on the host: a replay of a captured graph
+    adds none)."""
 
     def __init__(self, pm, rg: RankGroup):
         if pm.n_shards != rg.size:
@@ -76,6 +78,7 @@ class ShardedHandle:
         dev = rg.device
         sh = pm.shard(rg.rank, dev)
         self.placements = 1
+        self.lanes_sent = 0
         self.interior, self.exterior = sh.interior, sh.exterior
         self.packed = isinstance(pm, PackedPartition)
         self.n = sh.n_lane if self.packed else pm.chunk
@@ -123,7 +126,9 @@ class ShardedHandle:
         """Gather the send buffers, copy ``x`` into the workspace and post
         the exchange; returns its works."""
         # the gathered send buffers live until the exchange is waited for
-        self._sent = [real_view(x[idx]) for _, idx in self.sends]
+        sent = [x[idx] for _, idx in self.sends]
+        self.lanes_sent += sum(b.numel() for b in sent)
+        self._sent = [real_view(b) for b in sent]
         if self.packed:
             self.work.copy_(x)
         return self._post()
@@ -144,6 +149,12 @@ class ShardedHandle:
         self._sent = []
         if self.halo.numel():
             self.work.index_copy_(0, self.halo, self.recv)
+
+    def exchange(self, x: torch.Tensor) -> None:
+        """The exchange of :meth:`matvec` alone, on the current stream:
+        this rank's halo of its block ``x`` placed in the workspace, no
+        product (every rank of the group calls it together)."""
+        self._finish(self._start(x))
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's block of ``A @ x`` for its block ``x`` (lane space

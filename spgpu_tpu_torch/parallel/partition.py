@@ -29,7 +29,7 @@ from spgpu_tpu_torch.formats.coo import CooMatrix
 from spgpu_tpu_torch.formats.hell import HellMatrix
 from spgpu_tpu_torch.parallel.partition_whell import RowPartition, build_row_shards
 
-__all__ = ["PartitionedMatrix", "hell_from_entries", "partition_coo_rows"]
+__all__ = ["PartitionedMatrix", "hell_from_entries", "pad_vector", "partition_coo_rows"]
 
 
 def hell_from_entries(rows, cols, vals, n_rows: int, n_cols: int, *,
@@ -93,3 +93,13 @@ def partition_coo_rows(coo: CooMatrix, n_shards: int) -> PartitionedMatrix:
     shards, chunk, K, halo_counts = build_row_shards(coo, n_shards, convert)
     return PartitionedMatrix(shards=shards, n_rows=coo.n_rows, chunk=chunk,
                              halo_width=K, nnz=coo.nnz, halo_counts=halo_counts)
+
+
+def pad_vector(x, padded_rows: int) -> torch.Tensor:
+    """Zero-pad a global vector (or a stack of them, along the last axis)
+    to ``padded_rows``, a partition's padded length."""
+    x = torch.as_tensor(x)
+    pad = padded_rows - x.shape[-1]
+    if pad < 0:
+        raise ValueError(f"a vector of {x.shape[-1]} rows does not fit {padded_rows}")
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x

@@ -1,4 +1,4 @@
-"""Fixtures (host NumPy) and CUDA-event timing."""
+"""Fixtures (host NumPy), spGPU's benchmark protocol and profiling."""
 
 from spgpu_tpu_torch.utils.fixtures import (  # noqa: F401
     ctest_fixture,
@@ -9,3 +9,5 @@ from spgpu_tpu_torch.utils.fixtures import (  # noqa: F401
     random_irregular,
     random_mixed,
 )
+from spgpu_tpu_torch.utils.profiling import roofline_report, time_op, trace  # noqa: F401
+from spgpu_tpu_torch.utils.timing import BenchResult, Clock, benchmark_op  # noqa: F401

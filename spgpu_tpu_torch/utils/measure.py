@@ -10,13 +10,16 @@ import subprocess
 import numpy as np
 import torch
 
+from spgpu_tpu_torch.core import HBM_BW_BY_KIND
+
 __all__ = ["HBM_BYTES_PER_S", "PEAK_FLOPS", "bound", "check_close", "nbytes",
            "nvidia_smi"]
 
-#: H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s,
-#: and FLOP/s outside the tensor cores for each vector type (a complex
-#: type's operations are those of its real parts)
-HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): HBM bytes/s
+#: (the bandwidth table's H100 entry, ``core.HBM_BW_BY_KIND``), and FLOP/s
+#: outside the tensor cores for each vector type (a complex type's
+#: operations are those of its real parts)
+HBM_BYTES_PER_S = HBM_BW_BY_KIND["H100 80GB HBM3"]
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "complex64": 67e12,
               "complex128": 34e12}
 

@@ -7,18 +7,28 @@ drift falls on all of them alike.  Reports the best and the spread.
 Device times come from profiling sessions (:func:`device_ms`,
 :func:`device_ms_by_kernel`, :func:`kernel_device_ms`), the last also
 with the L2 cache cold before every call.
+
+It also holds spGPU's wall clock and benchmark protocol
+(``timing.hpp:22-70``, ``hellPerf.cpp:209-252``), as the JAX module
+does: :class:`Clock` and :func:`benchmark_op`, which gives a
+:class:`BenchResult`.  The JAX module's ``chained_time`` works around a
+TPU runtime's per-call cost and has no counterpart here.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from spgpu_tpu_torch.core import require_cuda
 
 __all__ = ["time_interleaved", "device_ms", "device_ms_by_kernel",
-           "kernel_device_ms"]
+           "kernel_device_ms", "Clock", "BenchResult", "benchmark_op", "loop_seconds",
+           "squared_norm"]
 
 
 def time_interleaved(fns: Dict[str, Callable[[], object]], reps: int = 5,
@@ -202,3 +212,75 @@ def _tally(events, iters: int) -> Tuple[Dict[str, float], bool]:
     usable = bool(count) and all(0 <= per_call[n] * iters - c <= 1
                                  for n, c in count.items())
     return {n: total[n] / count[n] * per_call[n] for n in total}, usable
+
+
+class Clock:
+    """Monotonic wall clock; parity with ``timing.hpp``'s ``Clock``."""
+
+    def get_time(self) -> float:
+        return time.perf_counter()
+
+
+@dataclasses.dataclass
+class BenchResult:
+    seconds_per_iter: float
+    iters: int
+    gflops: Optional[float]
+    checksum: float
+    bytes_per_iter: Optional[int] = None
+
+    @property
+    def gbytes_per_sec(self) -> Optional[float]:
+        if self.bytes_per_iter is None:
+            return None
+        return self.bytes_per_iter / self.seconds_per_iter / 1e9
+
+
+def _first_tensor(out) -> torch.Tensor:
+    """``out`` or the first tensor of a tuple or list ``out``."""
+    while isinstance(out, (tuple, list)):
+        out = out[0]
+    return out
+
+
+def squared_norm(z: torch.Tensor) -> float:
+    """‖z‖², over every real component, in float64 on the host: the JAX
+    ``dot(z, z)`` summed over a plane stack's planes."""
+    v = z.detach().cpu()
+    v = torch.view_as_real(v) if v.is_complex() else v
+    return float(np.square(v.double().numpy()).sum())
+
+
+def loop_seconds(fn: Callable[[], object], iters: int,
+                 device: Optional[torch.device] = None) -> float:
+    """Seconds per call of ``fn()`` over ``iters`` calls back to back, by
+    :class:`Clock`, with the card ``device`` (if given) synchronised just
+    before and after the loop."""
+    clock = Clock()
+    if device is not None:
+        torch.cuda.synchronize(device)
+    t0 = clock.get_time()
+    for _ in range(iters):
+        fn()
+    if device is not None:
+        torch.cuda.synchronize(device)
+    return (clock.get_time() - t0) / iters
+
+
+def benchmark_op(fn: Callable, *args, iters: int = 1000, nnz: Optional[int] = None,
+                 bytes_per_iter: Optional[int] = None,
+                 checksum_fn: Optional[Callable] = None) -> BenchResult:
+    """spGPU's measurement protocol on ``fn(*args)``: a warm-up call, the
+    checksum of its result (:func:`squared_norm` of the first tensor, or
+    ``checksum_fn(out)``), then ``iters`` calls back to back and one
+    ``torch.cuda.synchronize()`` when the result lies on a card
+    (``hellPerf.cpp:238-245`` and its ``cudaDeviceSynchronize``), timed by
+    :class:`Clock`; GFLOPS = (2·nnz − 1)/t.  The time counts the host's
+    launch work too: it is the time per call, not the device's."""
+    out = fn(*args)
+    first = _first_tensor(out)
+    on_card = first.device.type == "cuda"
+    checksum = squared_norm(first) if checksum_fn is None else float(checksum_fn(out))
+    t = loop_seconds(lambda: fn(*args), iters, first.device if on_card else None)
+    gflops = None if nnz is None else (2.0 * nnz - 1.0) / t * 1e-9
+    return BenchResult(t, iters, gflops, checksum, bytes_per_iter)

@@ -2403,3 +2403,82 @@ def test_hybrid_launches_each_kernel_once(dtype, cuda_device):
     frac = 1e-5 if dtype == "float32" else 1e-12
     _near(z.cpu(), zc, frac, rtol=frac if dtype == "float32" else 0.0)
     assert np.abs(z.cpu().numpy() - g).max() <= 2 * frac * np.abs(g).max()
+
+
+@pytest.mark.cuda
+def test_run_config_launches_kernel_1_with_no_fallback(cuda_device, monkeypatch):
+    """The harness's ``run_config`` on packed WHELL launches #1 once in
+    its checked product (the counters set to 0 just before it) and more
+    in its timing, times it on the card, and its checksum is the host
+    golden's within 1e-4; with the kernel library unloadable it raises
+    instead of running the plain version."""
+    from spgpu_tpu_torch.bench import harness
+
+    coo = CASES["fem"]()
+    args = ("fem", "whell_packed_k1", coo, lambda c, d: coo_to_whell(c, device=d),
+            ops.whell_spmv, harness.whell_tensors)
+    r = harness.run_config(*args, iters=3)
+    assert r.launches == {"whell.LAUNCHES": 1} and kw.LAUNCHES > 1
+    assert r.t_source in ("profiler", "cuda_events")
+    assert r.device == torch.cuda.get_device_name(0)
+    assert abs(r.checksum - r.golden_checksum) <= 1e-4 * r.golden_checksum
+
+    class Unloadable:
+        def load(self):
+            raise RuntimeError("kernel library not built")
+    monkeypatch.setattr(kw, "_LIB", Unloadable())
+    with pytest.raises(RuntimeError, match="not built"):
+        harness.run_config(*args, iters=3)
+
+
+@pytest.mark.cuda
+def test_product_after_set_stream_runs_on_that_stream(cuda_device):
+    """``Context.set_stream(s)`` makes ``s`` current: a #1 product issued
+    after it, behind a long sleep and a copy of the new x on ``s``, reads
+    the new x (a product on any other stream would read the old one) and
+    matches the golden; ``set_stream(None)`` restores the default stream
+    and ``destroy`` succeeds."""
+    from spgpu_tpu_torch import core
+
+    ctx = core.create(0)
+    coo = CASES["fem"]()
+    a = coo_to_whell(coo, device=ctx.device)
+    rng = np.random.default_rng(2)
+    x_old, x_new = (rng.standard_normal(coo.n_cols).astype(np.float32) for _ in range(2))
+    xl = a.embed(torch.from_numpy(x_old), torch.float32)
+    new = a.embed(torch.from_numpy(x_new), torch.float32)
+    torch.cuda.synchronize()
+    s = ctx.stream_create()
+    assert ctx.set_stream(s) == core.Status.SUCCESS
+    try:
+        assert ctx.get_stream() == s
+        torch.cuda._sleep(50_000_000)
+        xl.copy_(new)
+        z = ops.whell_spmv(a, xl)
+    finally:
+        ctx.set_stream(None)
+    assert ctx.get_stream() == torch.cuda.default_stream(ctx.device)
+    s.synchronize()
+    golden = coo.spmv(x_new.astype(np.float64))
+    np.testing.assert_allclose(a.extract(z, torch.float64).cpu().numpy(), golden,
+                               rtol=2e-5, atol=2e-5 * np.abs(golden).max())
+    assert core.destroy(ctx) == core.Status.SUCCESS
+
+
+@pytest.mark.cuda
+def test_harness_blas1_and_weak_scaling_rows_on_cuda(cuda_device):
+    """The BLAS-1 rows carry device times with their source and a
+    roofline share where the card is in the bandwidth table; the
+    weak-scaling row at S = 1 (one NCCL rank) is at the golden and
+    launched #1."""
+    from spgpu_tpu_torch import core
+    from spgpu_tpu_torch.bench import run_blas1_suite, run_weak_scaling
+
+    rows = run_blas1_suite(1 << 16, iters=5)
+    assert [r["op"] for r in rows] == ["dot", "nrm2", "asum", "amax", "axpby"]
+    for r in rows:
+        assert r["t_source"] in ("profiler", "cuda_events") and r["t_avg_s"] > 0
+        assert (r["roofline_frac"] is None) == (core.hbm_bandwidth() is None)
+    (ws,) = run_weak_scaling(4096, shards=(1,), iters=3, out=None)
+    assert ws["max_rel_err"] <= 2e-5 and ws["launches"] == {"whell.LAUNCHES": 1}
+    assert ws["halo_slots_sent"] == ws["halo_lanes_used"] == 0
