@@ -166,6 +166,22 @@ the float64 geometry sweep, and checks them:
 25. solve_pcell — ``solve(spd, b, fmt="pcell", tol=1e-5)`` on the SPD
                system of 5, counted on kernel #17's counter, then the
                graphed CG loop beside its eager witness as in 5;
+25a. classic_f64, classic_spmm_f64, pcell_f64, solve_pcell_f64 — the
+               float64 entries of #15, #16 and #17: the relabelled
+               flagship's fp32 values in float64 through
+               ``coo_to_whell(..., packed=False)`` and ``whell_spmv``
+               (#15 f64, one launch on ``LAUNCHES_F64``) and, on the same
+               layout, ``whell_update_values`` as in 22 and
+               ``whell_spmm(fused=True)`` at 8 RHS (#16 f64) beside the
+               loop of #15 f64 and cuSPARSE SpMM; the raw float64 flagship
+               through ``coo_to_whell_percell`` (#17 f64) beside #4; each
+               held to its plain version and the golden at 1e-12·max|z|,
+               timed warm and cold with both bounds (10 B a live classic
+               cell, 12 B a pcell cell) and cuSPARSE CSR in float64, #17's
+               ptxas line beside it; then ``solve(fmt="pcell", tol=1e-10)``
+               on the float64 SPD flagship (true residual ≤ 1e-9), its
+               graphed loop beside its eager witness (the iteration and
+               residual gate: #17 sums with atomics);
 26. ablation_whdia, ablation_whdia_hack, ablation_whdia_laplace,
                ablation_whdia_hack_laplace — the per-op account of #3
                (kernel #18, ``spgpu_tpu_torch.sweeps.whdia_ablation``) on
@@ -197,7 +213,8 @@ the float64 geometry sweep, and checks them:
 
 29. kernel_times — kernels #15 and #17 alone, warm and cold (L2
                flushed), through ``whell_spmv`` on the layouts of 22 and
-               24, beside cuSPARSE CSR on the same matrices; then #1, #4 and
+               24 and in float64 (25a), beside cuSPARSE CSR on the same
+               matrices in both types; then #1, #4 and
                the complex128 kernel on the flagship with aligned and
                scattered windows and #4 on the dd-Laplacian, each op's
                device time (every device operation of one call) and its
@@ -210,7 +227,8 @@ the float64 geometry sweep, and checks them:
                cuSPARSE CSR (in each SpMV's type) and SpMM on the same
                matrices; #7 on the flagship beside cuSPARSE CSR complex64;
                then #12 (flagship) and #16 (relabelled, classic) at 8 RHS
-               in fp32 and bf16, op and kernels, warm and cold, with their
+               in fp32 and bf16 (#16 also in float64), op and kernels,
+               warm and cold, with their
                bounds, beside cuSPARSE SpMM (``kernel_times``;
                ``python3 chip_smoke.py --kernel-times`` runs this phase
                alone, also from an older checkout's root).
@@ -227,7 +245,8 @@ the float64 geometry sweep, and checks them:
                maxiter=60)`` twice (the second warm), #4 on that solve's
                layout and the graphed loop beside its eager witness;
 31. past_bounds — systems past each old field of ``tile_base``: the
-               4096x4096 Laplacian (16.8M rows) in fp32 and float64
+               3072x3072 Laplacian (9.4M rows, 73,728 x pages past the
+               65,536 of the 16-bit page field) in fp32 and float64
                through auto-selected ``solve()`` (whdia: #3, #6), capped at
                ``LARGE["lap_maxiter"]`` CG iterations, graphed against
                eager; banded-11 at 9M rows (pattern mode, #3); F1's 9M-row
@@ -399,6 +418,14 @@ KERNELS = {
                            "spgpu_tpu/ops/pallas_kernels.py:1011"),
     "pcell_spmv": ("cuda", "spgpu_tpu_torch/csrc/pcell_spmv.cu",
                    "spgpu_tpu/ops/pallas_kernels.py:1133"),
+    # the same three TPU kernels, which the JAX package runs on float64
+    # classic and pcell slabs (in interpret mode)
+    "whell_classic_spmv_f64": ("cuda", "spgpu_tpu_torch/csrc/whell_classic_spmv.cu",
+                               "spgpu_tpu/ops/pallas_kernels.py:42"),
+    "whell_classic_spmm_f64": ("cuda", "spgpu_tpu_torch/csrc/whell_classic_spmv.cu",
+                               "spgpu_tpu/ops/pallas_kernels.py:1011"),
+    "pcell_spmv_f64": ("cuda", "spgpu_tpu_torch/csrc/pcell_spmv.cu",
+                       "spgpu_tpu/ops/pallas_kernels.py:1133"),
     # the per-op accounts' pallas_call closures (their ``call`` functions)
     "whdia_ablation": ("cuda", "spgpu_tpu_torch/csrc/whdia_spmv.cu",
                        "doc/sweeps/whdia_ablation.py:118"),
@@ -1496,7 +1523,8 @@ def classic_live(a, x2, n_rhs=1):
     32 B page-table sectors their nonzero cells touch, the work list, x
     and z once per RHS), each with the kernel's share of it once the phase
     has its time.  ``x2`` is the padded x, ``(x_pages, 128)``, or the
-    ``(n_rhs, x_pages, 128)`` stack of ``n_rhs`` RHS."""
+    ``(n_rhs, x_pages, 128)`` stack of ``n_rhs`` RHS; z has its type (a
+    float64 layout: 10 B a live cell with its residue and page entry)."""
     import torch
 
     wl = a.work_list
@@ -1507,13 +1535,13 @@ def classic_live(a, x2, n_rhs=1):
     sectors = torch.zeros((S, 4), dtype=torch.bool, device=a.device)
     slot, lane = torch.nonzero(nz, as_tuple=True)
     sectors[slot, a.residue[slot, lane].long() >> 5] = True
-    isz = a.values.element_size()
+    isz, zsz = a.values.element_size(), x2.element_size()
     live = (live_slots * 32 * (isz + 1) + int(sectors.sum()) * 32
-            + nbytes(wl, x2) + n_rhs * a.rows_padded * 4)
+            + nbytes(wl, x2) + n_rhs * a.rows_padded * zsz)
     full = nbytes(a.values, a.residue, a.page_tab, a.tile_base,
                   getattr(a, "tile_page", None), a.chunk_group, x2) \
-        + n_rhs * a.rows_padded * 4
-    full_bound = bound(full, 0, "float32")
+        + n_rhs * a.rows_padded * zsz
+    full_bound = bound(full, 0, str(x2.dtype).removeprefix("torch."))
     return dict(units=a.num_tiles * 4, live_units=wl.numel(),
                 live_unit_share=wl.numel() / (a.num_tiles * 4),
                 warp_slots=S * 4, live_warp_slots=live_slots,
@@ -1523,38 +1551,55 @@ def classic_live(a, x2, n_rhs=1):
                 live_bound_bytes=live)
 
 
-def classic_phase(coo, a, device, label):
+def classic_types(a):
+    """A classic layout's x type (NumPy), its kernels' launch counters
+    (#15, #16) and the tolerances (rtol, atol·max|z|) against the plain
+    version and against the golden: fp32 or bf16 values take an fp32 x
+    (atomics: 1e-5; the golden 1e-4), float64 ones a float64 x
+    (1e-12·max|z| against both)."""
+    import torch
+
+    if a.values.dtype == torch.float64:
+        return np.float64, "LAUNCHES_F64", "LAUNCHES_SPMM_F64", (0, 1e-12), (0, 1e-12)
+    return np.float32, "LAUNCHES", "LAUNCHES_SPMM", (1e-5, 1e-5), (1e-4, 1e-4)
+
+
+def classic_phase(coo, a, device, label, cold=False):
     """Kernel #15 through ``whell_spmv`` on a classic layout (fp32 or bf16
-    values, fp32 x), its one launch counted from 0; the op's result held
-    against the full-layout plain version's (1e-5, 1e-5·max|z|: atomics)
-    and the float64 golden (1e-4); then the kernel (over the layout's work
-    list), the plain version and the library call timed, with both bounds
-    of ``classic_live`` (``bound_ms`` is the live one) and the kernel's
-    share of each."""
+    values and an fp32 x, or float64 values and x: ``classic_types``), its
+    one launch counted from 0 on its type's counter; the op's result held
+    against the full-layout plain version's and the float64 golden; then
+    the kernel (over the layout's work list), the plain version and the
+    library call (cuSPARSE CSR in x's type) timed, with both bounds of
+    ``classic_live`` (``bound_ms`` is the live one) and the kernel's share
+    of each; with ``cold``, also the kernel's own device time warm and
+    cold (``kernel_device``)."""
     import torch
 
     from spgpu_tpu_torch import ops
     from spgpu_tpu_torch.kernels import whell_classic as kc
 
-    x = rand_vector(coo.n_cols, 7, np.float32)
+    xdt, counter, _, tol_plain, tol_golden = classic_types(a)
+    x = rand_vector(coo.n_cols, 7, xdt)
     xt = torch.from_numpy(x).to(device)
-    kc.LAUNCHES = 0
+    setattr(kc, counter, 0)
     z = ops.whell_spmv(a, xt)
     torch.cuda.synchronize(device)
-    launches = kc.LAUNCHES
+    launches = getattr(kc, counter)
     if launches != 1:
         raise AssertionError(f"{label}: whell_spmv launched kernel #15 {launches} times")
     layout = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group)
     x2 = ops._prep_x(xt, a.n_cols, a.x_pages)
     zp = ops._classic_rows(a, kc.whell_classic_spmv_plain(
         *layout, x2, num_groups=a.num_groups, tile_page=a.tile_page).view(-1))
-    err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), 1e-5, 1e-5,
+    err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), *tol_plain,
                             f"{label}: kernel vs plain")
     err_golden = check_close(z.cpu().numpy(), coo.spmv(x.astype(np.float64)),
-                             1e-4, 1e-4, f"{label}: kernel vs host golden")
+                             *tol_golden, f"{label}: kernel vs host golden")
     library, refused = library_call(coo, xt, device)
-    t = timed(lambda: kc.whell_classic_spmv(*layout, x2, num_groups=a.num_groups,
-                                            work=a.work_list, tile_page=a.tile_page),
+    kernel = lambda: kc.whell_classic_spmv(  # noqa: E731
+        *layout, x2, num_groups=a.num_groups, work=a.work_list, tile_page=a.tile_page)
+    t = timed(kernel,
               lambda: kc.whell_classic_spmv_plain(*layout, x2, num_groups=a.num_groups,
                                                   tile_page=a.tile_page),
               library, refused)
@@ -1567,7 +1612,9 @@ def classic_phase(coo, a, device, label):
         max_abs_err_vs_plain=err_plain, max_abs_err_vs_golden=err_golden, **t,
         kernel_device_gflops=flops / (t["kernel_device_ms"] * 1e6),
         kernel_device_slab_gbytes_per_s=slab_bytes / (t["kernel_device_ms"] * 1e6),
-        **live, **bound(live["live_bound_bytes"], flops, "float32"))
+        **live, **bound(live["live_bound_bytes"], flops, np.dtype(xdt).name))
+    if cold:
+        out["kernel_device"] = kernel_cold(kernel, ("classic_spmv",))
     return dict(out, live_bound_share=out["bound_ms"] / t["kernel_device_ms"],
                 full_bound_share=out["full_bound_ms"] / t["kernel_device_ms"])
 
@@ -1625,11 +1672,12 @@ def classic_variant(coo, device, label, **kw):
 
 
 def classic_update(coo, a, plan, device, label):
-    """``whell_update_values`` on the classic fp32 layout: first with every
-    third entry set to 0 (the work list shrinks), then with new values at
-    every entry (``default_rng(5)``; it grows back); after each, kernel
-    #15 through ``whell_spmv`` (one launch) against the full-layout plain
-    version (1e-5, 1e-5·max|z|) and the golden of the new values (1e-4)."""
+    """``whell_update_values`` on a classic fp32 or float64 layout: first
+    with every third entry set to 0 (the work list shrinks), then with new
+    values at every entry (``default_rng(5)``; it grows back); after each,
+    kernel #15 through ``whell_spmv`` (one launch on its type's counter)
+    against the full-layout plain version and the golden of the new
+    values, at ``classic_types``' tolerances."""
     import torch
 
     from spgpu_tpu_torch import ops
@@ -1637,21 +1685,23 @@ def classic_update(coo, a, plan, device, label):
     from spgpu_tpu_torch.formats.coo import CooMatrix
     from spgpu_tpu_torch.kernels import whell_classic as kc
 
+    xdt, counter, _, tol_plain, tol_golden = classic_types(a)
     rng = np.random.default_rng(5)
     thinned = coo.values.copy()
     thinned[::3] = 0
-    x = rand_vector(coo.n_cols, 9, np.float32)
+    x = rand_vector(coo.n_cols, 9, xdt)
     xt = torch.from_numpy(x).to(device)
     out = dict(launches=0)
     for tag, vals in (("thinned", thinned),
-                      ("refreshed", rng.standard_normal(coo.nnz).astype(np.float32))):
+                      ("refreshed", rng.standard_normal(coo.nnz).astype(xdt))):
         b = whell_update_values(a, plan, vals)
-        kc.LAUNCHES = 0
+        setattr(kc, counter, 0)
         z = ops.whell_spmv(b, xt)
         torch.cuda.synchronize(device)
-        if kc.LAUNCHES != 1:
-            raise AssertionError(f"{label} {tag}: {kc.LAUNCHES} launches of #15")
-        out["launches"] += kc.LAUNCHES
+        got = getattr(kc, counter)
+        if got != 1:
+            raise AssertionError(f"{label} {tag}: {got} launches of #15")
+        out["launches"] += got
         zp = ops._classic_rows(b, kc.whell_classic_spmv_plain(
             b.values, b.residue, b.page_tab, b.tile_base, b.chunk_group,
             ops._prep_x(xt, b.n_cols, b.x_pages), num_groups=b.num_groups,
@@ -1660,37 +1710,41 @@ def classic_update(coo, a, plan, device, label):
             x.astype(np.float64))
         out[tag] = dict(
             live_units=b.work_list.numel(),
-            max_abs_err_vs_plain=check_close(z, zp, 1e-5, 1e-5,
+            max_abs_err_vs_plain=check_close(z, zp, *tol_plain,
                                              f"{label} {tag}: kernel vs plain"),
-            max_abs_err_vs_golden=check_close(z, golden, 1e-4, 1e-4,
+            max_abs_err_vs_golden=check_close(z, golden, *tol_golden,
                                               f"{label} {tag}: kernel vs golden"))
         del b
     return out
 
 
-def classic_spmm_phase(coo, a, device, label):
+def classic_spmm_phase(coo, a, device, label, cold=False):
     """Kernel #16 through ``whell_spmm(fused=True)`` on a classic layout, 8
-    RHS, its one launch counted from 0 (and none of #15); the default
-    (the loop of #15: 8 launches, none of #16) counted the same way; both
-    held against the plain fused product (1e-5, 1e-5·max|Z|: atomics) and
-    the fused one against the float64 golden per RHS (1e-4); then the
-    kernel (over the layout's work list), the plain version, the fused
-    op, the loop and cuSPARSE SpMM timed, with both bounds of
+    RHS (fp32 X for fp32 or bf16 values, float64 for float64), its one
+    launch counted from 0 on its type's counter (and none of #15); the
+    default (the loop of #15: 8 launches, none of #16) counted the same
+    way; both held against the plain fused product and the fused one
+    against the float64 golden per RHS, at ``classic_types``' tolerances;
+    then the kernel (over the layout's work list), the plain version, the
+    fused op, the loop and cuSPARSE SpMM timed, with both bounds of
     ``classic_live`` for 8 RHS (``bound_ms`` is the live one: X and the
-    stored-row Z for every RHS) and the kernel's share of each."""
+    stored-row Z for every RHS) and the kernel's share of each; with
+    ``cold``, also the kernel's own device time warm and cold."""
     import torch
 
     from spgpu_tpu_torch import ops
     from spgpu_tpu_torch.kernels import whell_classic as kc
 
-    X = rhs_stack(coo.n_cols)
+    xdt, c15, c16, tol_plain, tol_golden = classic_types(a)
+    X = rhs_stack(coo.n_cols, xdt)
     xs = torch.from_numpy(X).to(device)
     counted, counts = {}, {}
     for name, fused, want in (("fused", True, (1, 0)), ("loop", None, (0, N_RHS))):
-        kc.LAUNCHES_SPMM, kc.LAUNCHES = 0, 0
+        setattr(kc, c16, 0)
+        setattr(kc, c15, 0)
         counted[name] = ops.whell_spmm(a, xs, fused=fused)
         torch.cuda.synchronize(device)
-        got = counts[name] = (kc.LAUNCHES_SPMM, kc.LAUNCHES)
+        got = counts[name] = (getattr(kc, c16), getattr(kc, c15))
         if got != want:
             raise AssertionError(f"{label} {name}: {got[0]} launches of #16 and "
                                  f"{got[1]} of #15, not {want}")
@@ -1700,12 +1754,12 @@ def classic_spmm_phase(coo, a, device, label):
     static = dict(num_groups=a.num_groups, tile_page=a.tile_page)
     zp = ops._classic_rows(a, kc.whell_classic_spmm_plain(*layout, x3, **static)
                            .flatten(1))
-    err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), 1e-5, 1e-5,
+    err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), *tol_plain,
                             f"{label}: kernel vs plain")
-    err_loop = check_close(counted["loop"].cpu().numpy(), zp.cpu().numpy(), 1e-5,
-                           1e-5, f"{label}: loop of #15 vs plain")
+    err_loop = check_close(counted["loop"].cpu().numpy(), zp.cpu().numpy(), *tol_plain,
+                           f"{label}: loop of #15 vs plain")
     err_golden = check_close(z.cpu().numpy(), coo.spmv(X.astype(np.float64)),
-                             1e-4, 1e-4, f"{label}: kernel vs host golden")
+                             *tol_golden, f"{label}: kernel vs host golden")
     library, refused = library_call(coo, xs, device)
     kernel = lambda: kc.whell_classic_spmm(*layout, x3, work=a.work_list,  # noqa: E731
                                            **static)
@@ -1717,19 +1771,25 @@ def classic_spmm_phase(coo, a, device, label):
     out = dict(n_rhs=N_RHS, nnz=coo.nnz, tiles=a.num_tiles, launches=counts["fused"][0],
                loop_spmv_launches=counts["loop"][1], max_abs_err_vs_plain=err_plain,
                loop_max_abs_err_vs_plain=err_loop, max_abs_err_vs_golden=err_golden,
-               **t, **live, **bound(live["live_bound_bytes"], flops, "float32"))
+               **t, **live, **bound(live["live_bound_bytes"], flops, np.dtype(xdt).name))
+    if cold:
+        out["kernel_device"] = kernel_cold(kernel, ("classic_spmm",))
     out.update(live_bound_share=out["bound_ms"] / t["kernel_device_ms"],
                full_bound_share=out["full_bound_ms"] / t["kernel_device_ms"])
     return spmm_summary(out, flops, kernel)
 
 
-def pcell_phase(coo, device, spmv, label):
-    """``coo_to_whell_percell`` (timed) and kernel #17 through
-    ``whell_spmv``, its one launch counted from 0; held against the plain
-    version (1e-5, 1e-5·max|z|: atomics) and the float64 golden (1e-4);
-    then timed with its bound (every layout array once, x and z once),
-    beside kernel #1's device time and bound on the same matrix (``spmv``,
-    the spmv phase's result)."""
+def pcell_phase(coo, device, spmv, label, ptxas=None):
+    """``coo_to_whell_percell`` (timed) in the COO's type (float32 or
+    float64) and kernel #17 through ``whell_spmv``, its one launch counted
+    from 0 on its type's counter; held against the plain version and the
+    float64 golden (fp32: atomics, 1e-5 and 1e-4; float64: 1e-12·max|z|
+    against both); then timed with its bound (every layout array once, x
+    and z once: 8 B a cell in fp32, 12 in float64), beside the packed
+    WHELL kernel's device time and bound on the same matrix in the same
+    type (``spmv``, the spmv or spmv_f64 phase's result); a float64 one
+    also with its kernel's own device time warm and cold and its ptxas
+    line (``ptxas``)."""
     import torch
 
     from spgpu_tpu_torch import ops
@@ -1740,12 +1800,16 @@ def pcell_phase(coo, device, spmv, label):
     p = coo_to_whell_percell(coo, device=device)
     torch.cuda.synchronize(device)
     convert_s = time.perf_counter() - t0
-    x = rand_vector(coo.n_cols, 7, np.float32)
+    f64 = p.values.dtype == torch.float64
+    xdt, counter = (np.float64, "LAUNCHES_F64") if f64 else (np.float32, "LAUNCHES")
+    tol_plain, tol_golden = ((0, 1e-12), (0, 1e-12)) if f64 else \
+        ((1e-5, 1e-5), (1e-4, 1e-4))
+    x = rand_vector(coo.n_cols, 7, xdt)
     xt = torch.from_numpy(x).to(device)
-    kp.LAUNCHES = 0
+    setattr(kp, counter, 0)
     z = ops.whell_spmv(p, xt)
     torch.cuda.synchronize(device)
-    launches = kp.LAUNCHES
+    launches = getattr(kp, counter)
     if launches != 1:
         raise AssertionError(f"{label}: whell_spmv launched kernel #17 {launches} times")
     layout = (p.values, p.residue, p.page_tab, p.run_hi, p.run_lo, p.tile_base,
@@ -1755,15 +1819,16 @@ def pcell_phase(coo, device, spmv, label):
                   window_pages=p.window_pages, num_groups=p.num_groups,
                   tile_page=p.tile_page)
     zp = kp.pcell_spmv_plain(*layout, x2, **static).view(-1)[: p.n_rows]
-    err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), 1e-5, 1e-5,
+    err_plain = check_close(z.cpu().numpy(), zp.cpu().numpy(), *tol_plain,
                             f"{label}: kernel vs plain")
     err_golden = check_close(z.cpu().numpy(), coo.spmv(x.astype(np.float64)),
-                             1e-4, 1e-4, f"{label}: kernel vs host golden")
+                             *tol_golden, f"{label}: kernel vs host golden")
     library, refused = library_call(coo, xt, device)
-    t = timed(lambda: kp.pcell_spmv(*layout, x2, **static),
-              lambda: kp.pcell_spmv_plain(*layout, x2, **static), library, refused)
+    kernel = lambda: kp.pcell_spmv(*layout, x2, **static)  # noqa: E731
+    t = timed(kernel, lambda: kp.pcell_spmv_plain(*layout, x2, **static), library,
+              refused)
     flops = 2 * coo.nnz
-    slab_bytes = p.total_slots * 128 * 8
+    slab_bytes = p.total_slots * 128 * (p.values.element_size() + 4)
     out = dict(
         nnz=coo.nnz, convert_s=convert_s, tiles=p.num_tiles, launches=launches,
         group_hacks=p.group_hacks, chunk_tiles=p.chunk_tiles,
@@ -1773,45 +1838,55 @@ def pcell_phase(coo, device, spmv, label):
         kernel_device_gflops=flops / (t["kernel_device_ms"] * 1e6),
         packed_whell_device_ms=spmv["kernel_device_ms"],
         packed_whell_bound_ms=spmv["bound_ms"], packed_whell_padding=spmv["padding"],
-        **bound(nbytes(*layout, x2, z), flops, "float32"))
+        **bound(nbytes(*layout, x2, z), flops, np.dtype(xdt).name))
+    if f64:
+        out.update(kernel_device=kernel_cold(kernel, ("pcell_tile",)), ptxas=ptxas)
     return dict(out, bound_share=out["bound_ms"] / t["kernel_device_ms"])
 
 
 def solve_pcell(spd, device, smi):
-    """``solve(spd, b, fmt="pcell", tol=1e-5)``, counted on kernel #17's
-    counter from 0 (true residual ≤ 1e-4), then the graphed CG loop
-    against its eager witness on the pcell layout that ``solve()`` built
-    (kept by wrapping its converter: a second conversion of the SPD system
-    takes about 20 s)."""
+    """``solve(spd, b, fmt="pcell")`` in the system's type (float32: tol
+    1e-5, true residual ≤ 1e-4; float64: 1e-10, ≤ 1e-9), counted on kernel
+    #17's counter of that type from 0, then the graphed CG loop against
+    its eager witness on the pcell layout that ``solve()`` built (kept by
+    wrapping its converter: a second conversion of the SPD system takes
+    about 20 s), held to the iteration and residual gate (#17 sums with
+    atomics)."""
     import torch
 
     from spgpu_tpu_torch import ops
     from spgpu_tpu_torch.kernels import pcell as kp
     from spgpu_tpu_torch.solvers import auto
 
+    f64 = spd.values.dtype == np.float64
+    dt, counter = (np.float64, "LAUNCHES_F64") if f64 else (np.float32, "LAUNCHES")
+    tol, true_tol = (1e-10, 1e-9) if f64 else (1e-5, 1e-4)
     x_true = rand_vector(spd.n_rows, 1, np.float64)
-    b = spd.spmv(x_true).astype(np.float32)
+    b = spd.spmv(x_true).astype(dt)
     built = []
     convert = auto.coo_to_whell_percell
     auto.coo_to_whell_percell = lambda *a, **k: built.append(convert(*a, **k)) or built[-1]
     try:
-        _, xs, solved = counted_solve(spd, b, (kp, "LAUNCHES"), device, 1e-5, 1e-4,
+        _, xs, solved = counted_solve(spd, b, (kp, counter), device, tol, true_tol,
                                       fmt="pcell", maxiter=5000)
     finally:
         auto.coo_to_whell_percell = convert
     p, = built
     return dict(nnz=spd.nnz, tiles=p.num_tiles, padding=p.total_slots * 128 / spd.nnz,
-                **solved, loop=loop_pair("cg", lambda v: ops.whell_spmv(p, v),
-                                         torch.from_numpy(b).to(device), 1e-5, False,
-                                         residual_gate(spd, b, 1e-4, "cg pcell"), smi),
+                tol=tol, **solved,
+                loop=loop_pair("cg", lambda v: ops.whell_spmv(p, v),
+                               torch.from_numpy(b).to(device), tol, False,
+                               residual_gate(spd, b, true_tol, f"cg pcell {dt.__name__}"),
+                               smi),
                 x_err_vs_true=float(np.abs(xs - x_true).max()))
 
 
 #: the sizes of the large phases (30, 31): the rows of the JAX benchmark's
 #: row-block cells (``bench.py:306-389``, its TPU size), the side of the
-#: 16.8M-row Laplacian and the CG iterations its solves run, the rows of
+#: 9.4M-row Laplacian (the smallest 1024-multiple side whose x pages pass
+#: the 16-bit page field) and the CG iterations its solves run, the rows of
 #: banded-11, of the tridiagonal and of the permutation-coupled matrix
-LARGE = dict(bench=1 << 22, lap=4096, lap_maxiter=400, band=9_000_000,
+LARGE = dict(bench=1 << 22, lap=3072, lap_maxiter=400, band=9_000_000,
              tri=9_000_000, perm=4_500_000)
 
 #: the old widths of tile_base's low field: aligned base pages (16 bits)
@@ -2075,7 +2150,7 @@ def capped_pair(mv, b, maxiter, exact, limit, smi):
 
 
 def laplace_product(lap32, dt, device):
-    """The product of the 4096² Laplacian ``lap32`` (fp32 values) in
+    """The product of the past-bounds Laplacian ``lap32`` (fp32 values) in
     ``dt`` on the layout WHDIA's converter builds (timed alone):
     ``whdia_phase`` in the layout's r0 mode (#6 in float64; #10 in
     complex128, values ``v + 1j·N(0, 1)``, ``default_rng(12)``), its
@@ -2111,8 +2186,9 @@ def past_bounds_phase(device, smi):
     layout, its kernel's device time warm and cold, the plain version's,
     cuSPARSE CSR's and the bound.
 
-    - ``laplacian_2d(4096, 4096)`` (16,777,216 rows, 83,869,696
-      nonzeros) in fp32 and float64 through auto-selected ``solve()``
+    - ``laplacian_2d(3072, 3072)`` (9,437,184 rows, 47,173,632
+      nonzeros, 73,728 x pages: past the 65,536 of the old page field)
+      in fp32 and float64 through auto-selected ``solve()``
       (auto-selection must name WHDIA: #3, #6), CG to 1e-5 / 1e-10 for
       at most :data:`LARGE` ``lap_maxiter`` iterations: ms per
       iteration, the true relative residual, launches and host reads.
@@ -2178,6 +2254,9 @@ def past_bounds_phase(device, smi):
                                  f"(limit {true_tol})")
         # the layout solve() built: WHDIA's converter, timed alone
         a, convert_s = converted(lambda: coo_to_whdia(lap, device=device))
+        if not a.x_pages > OLD_PAGES:
+            raise AssertionError(f"past_bounds laplace: {a.x_pages} x pages, not "
+                                 "past the 16-bit page field")
         bt = torch.from_numpy(b).to(device)
         pair = capped_pair(lambda v: ops.whdia_spmv(a, v), bt, res.iterations,
                            ("whdia", name) in BIT_REPRODUCIBLE, true_tol, smi)
@@ -3329,13 +3408,16 @@ def kernel_times(device):
     profiler sessions), warm and cold (the L2 flushed before each call),
     through ``whell_spmv`` on the layouts of phases 22 and 24: the
     relabelled flagship in fp32 and bf16, the raw one in OELL order and
-    with ``ways=2``, and the raw flagship's pcell layout.  It calls only
-    the converters and ``whell_spmv``, so it also times an older checkout
-    of the port (this file copied into that checkout's root).  Beside
-    them, the device time of the library call (cuSPARSE CSR, ``csr @ x``)
-    on the relabelled and the raw flagship, in the same process; then
-    :func:`whell_kernel_times`, :func:`whdia_kernel_times` and
-    :func:`spmm_kernel_times`."""
+    with ``ways=2``, and the raw flagship's pcell layout; and of their
+    float64 entries on the relabelled flagship's classic layout and the
+    raw one's pcell layout in float64 (a float64 x).  It calls only the
+    converters and ``whell_spmv``, so it also times an older checkout of
+    the port (this file copied into that checkout's root; before float64
+    classic and pcell, their two rows raise there).  Beside them, the
+    device time of the library call (cuSPARSE CSR, ``csr @ x``) on the
+    relabelled and the raw flagship, in fp32 and float64, in the same
+    process; then :func:`whell_kernel_times`, :func:`whdia_kernel_times`
+    and :func:`spmm_kernel_times`."""
     import torch
 
     from spgpu_tpu_torch import ops
@@ -3346,8 +3428,10 @@ def kernel_times(device):
     coo = flagship()
     rel = symmetric_relabel(coo, local_degree_perm(coo))
     x = torch.from_numpy(rand_vector(coo.n_cols, 7, np.float32)).to(device)
-    out = {tag: library_times(c, x, device)
-           for tag, c in (("library_relabelled", rel), ("library_raw", coo))}
+    x64 = torch.from_numpy(rand_vector(coo.n_cols, 7, np.float64)).to(device)
+    out = {f"{tag}{sfx}": library_times(c, v, device)
+           for tag, c in (("library_relabelled", rel), ("library_raw", coo))
+           for sfx, v in (("", x), ("_f64", x64))}
     layouts = {
         "classic_fp32": lambda: coo_to_whell(rel, device=device, packed=False),
         "classic_bf16": lambda: coo_to_whell(rel, device=device, dtype="bfloat16",
@@ -3355,10 +3439,14 @@ def kernel_times(device):
         "classic_oell": lambda: coo_to_whell(coo, device=device, packed=False,
                                              sort_rows=True),
         "classic_ways2": lambda: coo_to_whell(coo, device=device, packed=False, ways=2),
-        "pcell": lambda: coo_to_whell_percell(coo, device=device)}
+        "pcell": lambda: coo_to_whell_percell(coo, device=device),
+        "classic_f64": lambda: coo_to_whell(rel, device=device, dtype="float64",
+                                            packed=False),
+        "pcell_f64": lambda: coo_to_whell_percell(coo, device=device, dtype="float64")}
     for tag, make in layouts.items():
         a = make()
-        fn = lambda: ops.whell_spmv(a, x)  # noqa: E731
+        xa = x64 if a.values.dtype == torch.float64 else x
+        fn = lambda: ops.whell_spmv(a, xa)  # noqa: E731
         names = kernel_names(fn, TIMED_KERNELS)
         if len(names) != 1:
             raise AssertionError(f"kernel_times {tag}: kernels {names}")
@@ -3425,13 +3513,15 @@ def spmm_kernel_times(device):
     """Phase 29's multi-RHS WHELL rows, 8 RHS: #12 (``ops.whell_spmm``,
     fused by default) on the flagship's fp32 and bf16 packed layouts, and
     #16 (``ops.whell_spmm(fused=True)``) on the relabelled flagship's
-    classic fp32 and bf16 layouts; each op's device time and its own
-    kernels' (profiler names ``whell_*``, ``classic_*``), warm and cold,
-    with the full bound (every layout array once, X and Z once per RHS),
-    for #16 also the live bound of :func:`classic_live`, and the share of
-    each; beside them cuSPARSE SpMM on the raw and the relabelled
-    flagship, in this process.  It calls only the converters and the
-    ops, so it also times an older checkout."""
+    classic fp32, bf16 and float64 layouts (a float64 X for the last);
+    each op's device time and its own kernels' (profiler names
+    ``whell_*``, ``classic_*``), warm and cold, with the full bound
+    (every layout array once, X and Z once per RHS), for #16 also the
+    live bound of :func:`classic_live`, and the share of each; beside
+    them cuSPARSE SpMM on the raw and the relabelled flagship (the
+    relabelled one in float64 too), in this process.  It calls only the
+    converters and the ops, so it also times an older checkout (whose
+    float64 classic row raises before float64 classic layouts)."""
     import torch
 
     from spgpu_tpu_torch import ops
@@ -3442,7 +3532,8 @@ def spmm_kernel_times(device):
     rel = symmetric_relabel(coo, local_degree_perm(coo))
     xs = torch.from_numpy(rhs_stack(coo.n_cols)).to(device)
     out = {"library_spmm_raw": library_times(coo, xs, device),
-           "library_spmm_relabelled": library_times(rel, xs, device)}
+           "library_spmm_relabelled": library_times(rel, xs, device),
+           "library_spmm_relabelled_f64": library_times(rel, xs.double(), device)}
     flops = 2 * coo.nnz * N_RHS
     for dt in ("float32", "bfloat16"):
         a = coo_to_whell(coo, device=device, dtype=dt)
@@ -3472,6 +3563,19 @@ def spmm_kernel_times(device):
             print(f"kernel_times: {k} {out[k]['kernels']} warm {out[k]['device_ms']} "
                   f"cold {out[k]['cold_device_ms']} op {out[k]['op_device_ms']}",
                   file=sys.stderr, flush=True)
+    # #16 in float64 on the relabelled flagship, a float64 X
+    a = coo_to_whell(rel, device=device, dtype="float64", packed=False)
+    xs64 = xs.double()
+    t = op_times(lambda: ops.whell_spmm(a, xs64, fused=True), ("classic_spmm",))
+    live = classic_live(a, ops._prep_x(xs64, a.n_cols, a.x_pages, stack=True),
+                        n_rhs=N_RHS)
+    b = bound(live["live_bound_bytes"], flops, "float64")
+    out["classic_spmm_float64"] = dict(
+        t, tiles=a.num_tiles, **live, **b,
+        live_bound_share=b["bound_ms"] / t["device_ms"],
+        full_bound_share=live["full_bound_ms"] / t["device_ms"],
+        cold_live_bound_share=b["bound_ms"] / t["cold_device_ms"])
+    del a
     return out
 
 
@@ -3752,7 +3856,8 @@ def main() -> int:
              else None),
          gxx=shutil.which("g++"))
 
-    emit("build", **build_all())
+    built = build_all()
+    emit("build", **built)
 
     # --- flagship SpMV, fp32 ------------------------------------------
     coo = flagship()
@@ -3923,6 +4028,33 @@ def main() -> int:
     solve_p = solve_pcell(spd, device, smi)
     emit("solve_pcell", fixture="flagship SPD form", **solve_p)
 
+    # --- float64 classic WHELL and pcell: #15, #16 and #17 in float64 -----
+    rel64 = CooMatrix(rel.rows, rel.cols, rel.values.astype(np.float64), rel.n_rows,
+                      rel.n_cols)
+    t0 = time.perf_counter()
+    a, plan = coo_to_whell(rel64, device=device, packed=False, return_plan=True)
+    torch.cuda.synchronize(device)
+    convert_s = time.perf_counter() - t0
+    classic64 = dict(convert_s=convert_s, **classic_phase(rel64, a, device,
+                                                          "classic float64", cold=True))
+    classic64["update_values"] = classic_update(rel64, a, plan, device,
+                                                "classic float64 update_values")
+    del plan
+    emit("classic_f64", fixture="flagship, symmetric_relabel(local_degree_perm), "
+         "its fp32 values in float64", **classic64)
+    classic_spmm64 = classic_spmm_phase(rel64, a, device, "classic spmm float64",
+                                        cold=True)
+    emit("classic_spmm_f64", fixture="flagship relabelled, classic, its fp32 "
+         "values in float64",
+         **classic_spmm64)
+    del a, rel64
+    ptx = built["cuda_libs"]["pcell_spmv"]["ptxas_by_kernel"]
+    pcell64 = pcell_phase(coo64, device, spmv64, "pcell float64",
+                          ptxas={k: v for k, v in ptx.items() if k.endswith("<d>")})
+    emit("pcell_f64", fixture="flagship, float64", **pcell64)
+    solve_p64 = solve_pcell(spd_from(coo64, np.float64), device, smi)
+    emit("solve_pcell_f64", fixture="flagship SPD form, float64", **solve_p64)
+
     # --- the per-op accounts (kernels #18, #19) and #4's geometries -------
     *acc18, acc19_lap, acc19, _ = child_phases("--sweeps", len(SWEEP_PHASES))
     acc19 = dict(acc19, counted_launches=acc19["counted_launches"]
@@ -4006,6 +4138,13 @@ def main() -> int:
                        classic[t]["max_abs_err_vs_plain"] for t in ("fp32", "bf16")))),
         spmm_row("whell_classic_spmm", classic_spmm.values(), classic_spmm["fp32"]),
         kernel_row("pcell_spmv", solve_p["launches"], pcell),
+        # the float64 entries: #15 the counted op calls of classic_f64 and
+        # the default loop of classic_spmm_f64, #17 the float64 pcell solve
+        kernel_row("whell_classic_spmv_f64",
+                   classic64["launches"] + classic64["update_values"]["launches"]
+                   + classic_spmm64["loop_spmv_launches"], classic64),
+        spmm_row("whell_classic_spmm_f64", [classic_spmm64], classic_spmm64),
+        kernel_row("pcell_spmv_f64", solve_p64["launches"], pcell64),
         ablation_row("whdia_ablation", acc18),
         ablation_row("whell_packed_ablation_f64", [acc19])]
     for row in rows:  # the child phases' main-path launches

@@ -24,7 +24,7 @@ import torch
 
 from spgpu_tpu_torch.core import dtype_name
 from spgpu_tpu_torch.formats.coo import CooMatrix
-from spgpu_tpu_torch.formats.whell import MAX_TILE_PAGE, PcellWhell
+from spgpu_tpu_torch.formats.whell import MAX_TILE_PAGE, PcellWhell, unported_complex
 
 __all__ = ["coo_to_whell_percell"]
 
@@ -90,15 +90,18 @@ def coo_to_whell_percell(coo: CooMatrix, *, device, group_hacks: int = 512,
     superpages (as packed WHELL's scattered windows); within a group a
     greedy packs cells slot by slot.  ``group_hacks`` halves while it
     exceeds the hack count (down to 32).  Duplicates stay separate cells
-    and add.  float32 values only (``dtype`` None or float32): other types
-    raise ``NotImplementedError`` (ROADMAP module item 14).  Raises
-    ``ValueError`` past :data:`_MAX_TILE_PAGE` layout groups."""
+    and add.  float32 or float64 values (``dtype``, default the COO's): the
+    structure does not depend on the type.  Complex values raise
+    ``NotImplementedError`` (the JAX package has no complex pcell product),
+    as do other types.  Raises ``ValueError`` past :data:`_MAX_TILE_PAGE`
+    layout groups."""
     name = dtype_name(coo.values.dtype if dtype is None else dtype)
-    if name != "float32":
-        raise NotImplementedError(
-            f"pcell in the port takes float32 values, not {name}: other value "
-            "types are ROADMAP module item 14 (follow-ups)")
-    vals_in = coo.values.astype(np.float32)
+    if name.startswith("complex"):
+        raise unported_complex("pcell", name)
+    if name not in ("float32", "float64"):
+        raise NotImplementedError(f"pcell takes float32 or float64 values, not {name}")
+    vdt = np.dtype(name)
+    vals_in = coo.values.astype(vdt)
     n, m = coo.n_rows, coo.nnz
     K = supers_per_tile
     gh, ct = group_hacks, chunk_tiles
@@ -119,7 +122,7 @@ def coo_to_whell_percell(coo: CooMatrix, *, device, group_hacks: int = 512,
 
     if m == 0:
         total = num_groups * ct * 8
-        return make(total, 0, values=np.zeros((total, _HACK), np.float32),
+        return make(total, 0, values=np.zeros((total, _HACK), vdt),
                     residue=np.zeros((total, _HACK), np.int8),
                     page_tab=np.zeros((total, 128), np.int8),
                     run_hi=np.full((total, _HACK), -1, np.int8),
@@ -184,7 +187,7 @@ def coo_to_whell_percell(coo: CooMatrix, *, device, group_hacks: int = 512,
     gid_of = np.repeat(np.arange(n_grp), gsizes)
     gslot = g_tile0[gid_of] * 8 + slot_of  # global slot
 
-    vals = np.zeros((total_slots, _HACK), np.float32)
+    vals = np.zeros((total_slots, _HACK), vdt)
     res8 = np.zeros((total_slots, _HACK), np.int8)
     pt8 = np.zeros((total_slots, 128), np.int8)
     run_hi = np.full((total_slots, _HACK), -1, np.int8)

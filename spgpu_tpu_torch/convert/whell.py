@@ -45,7 +45,8 @@ from spgpu_tpu_torch import native
 from spgpu_tpu_torch.core import CHUNK_TILES, dtype_name, unique_sorted, value_dtype
 from spgpu_tpu_torch.formats.coo import CooMatrix
 from spgpu_tpu_torch.formats.whell import (CLASSIC_DTYPES, MAX_TILE_PAGE,
-                                           WhellMatrix, low_field_bits)
+                                           WhellMatrix, low_field_bits,
+                                           unported_complex)
 
 __all__ = ["coo_to_whell", "dataclasses_replace_values", "degree_sort_perm",
            "local_degree_perm", "slab_dtype", "symmetric_relabel",
@@ -172,8 +173,10 @@ def coo_to_whell(
     numbering.  ``sort_rows=True`` applies the OELL descending-degree
     order (``row_perm`` wins if both are given; the op then scatters its
     output back); ``ways > 1`` splits every row into ``ways`` virtual rows
-    (entries round-robined) that the op sums back.  float32 or bfloat16
-    values; float64 and complex raise ``NotImplementedError``.
+    (entries round-robined) that the op sums back.  float32, bfloat16 or
+    float64 values (plain float64, the JAX classic slab); complex raises
+    ``NotImplementedError``, as the JAX package has no complex classic
+    product.
 
     The JAX default is classic; the port's stays packed, which its
     ``solve()`` and earlier releases call without ``packed``.
@@ -218,10 +221,7 @@ def coo_to_whell(
             ways=ways)
     vdt = slab_dtype(coo.values.dtype if dtype is None else dtype)
     if vdt not in CLASSIC_DTYPES:
-        raise NotImplementedError(
-            f"classic WHELL in the port takes float32 or bfloat16 values, not "
-            f"{vdt}: float64 and complex classic layouts are ROADMAP module "
-            "item 14 (follow-ups)")
+        raise unported_complex("classic WHELL", vdt)
     if row_perm is None and sort_rows:
         row_perm = degree_sort_perm(coo)
     return _coo_to_whell_classic(coo, vdt, row_perm, return_plan, device)

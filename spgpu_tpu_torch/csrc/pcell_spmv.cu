@@ -3,7 +3,9 @@
 //
 // Entry pcell_spmv replaces spgpu_tpu/ops/pallas_kernels.py::_pcell_kernel
 // (kernel #17, called through _pcell_spmv_call and pcell_spmv_pallas):
-// fp32 values, x and sums, on the PcellWhell layout arrays
+// fp32 values, x and sums; entry pcell_spmv_f64 is the same kernel on
+// float64 values, x and sums (the JAX pcell layout's float64 slab, run
+// there in interpret mode).  Both work on the PcellWhell layout arrays
 // (spgpu_tpu_torch/formats/whell.py, built by convert/pcell.py):
 //
 //   for every slot s of tile t = s / 8 (meta = tile_base[t]):
@@ -66,6 +68,18 @@
 // slot's prefix total, not of the run's own sum; the plain version uses
 // the same scan-then-difference arithmetic, so the two agree to rounding.
 // Atomic order varies, so sums are not bit-reproducible.
+//
+// float64: pcell_tile<double>, the same design on 12 B a cell (8 B
+// value, the four int8 bytes): one warp a tile, each thread's 4 lanes
+// scanned, the __shfl_up_sync scan of the thread totals in doubles, the
+// warp's own prefix row, P[hi] - P[lo], one atomicAdd(double*) per output
+// lane.  Where the type changes the work: a thread's 4 values are two 16 B
+// double2 loads a slot (Hopper has no 32 B load a thread); the prefix row
+// is 1 KiB a warp; and the 8 slots' products, p[8][4], are 64 registers on
+// their own, where the fp32 kernel takes 64 in all, so the kernel runs
+// under __launch_bounds__(128) alone (at most 255 registers).  ptxas
+// (sm_90a): pcell_tile<d> 104 registers, no spills, no barriers, 8,320
+// bytes of shared memory; pcell_tile<f> 64 registers, 6,272 bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,12 +96,30 @@ __device__ __forceinline__ int lane_byte(uint32_t w, int k) {
   return static_cast<int>(static_cast<int8_t>(static_cast<uint8_t>(w >> (8 * k))));
 }
 
-__device__ __forceinline__ float component(const float4& v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+// a thread's 4 consecutive lanes of a slot: one 16 B load in fp32, two in
+// float64; the same to store
+template <typename T> struct Four { T v[4]; };
+
+__device__ __forceinline__ Four<float> load4(const float* p) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  return {{a.x, a.y, a.z, a.w}};
+}
+__device__ __forceinline__ Four<double> load4(const double* p) {
+  const double2 a = __ldg(reinterpret_cast<const double2*>(p));
+  const double2 b = __ldg(reinterpret_cast<const double2*>(p) + 1);
+  return {{a.x, a.y, b.x, b.y}};
+}
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(double* p, double a, double b, double c, double d) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(a, b);
+  reinterpret_cast<double2*>(p)[1] = make_double2(c, d);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kTileWarps * 32)
-pcell_tile(const float* __restrict__ values,
+pcell_tile(const T* __restrict__ values,
            const int8_t* __restrict__ residue,
            const int8_t* __restrict__ page_tab,
            const int8_t* __restrict__ run_hi,
@@ -96,9 +128,9 @@ pcell_tile(const float* __restrict__ values,
            const int32_t* __restrict__ tile_page,
            const int32_t* __restrict__ chunk_group,
            const int32_t* __restrict__ group_bases,
-           const float* __restrict__ x, float* __restrict__ z,
+           const T* __restrict__ x, T* __restrict__ z,
            int64_t num_tiles, int chunk_tiles, int group_hacks, int ntab) {
-  __shared__ __align__(16) float scan_buf[kTileWarps][kLanes];
+  __shared__ __align__(16) T scan_buf[kTileWarps][kLanes];
   __shared__ __align__(16) int8_t pt_buf[kTileWarps][kSlots * kLanes];
   __shared__ int32_t bases_buf[kTileWarps][kMaxTab];
   const int wib = threadIdx.x >> 5;
@@ -106,17 +138,17 @@ pcell_tile(const float* __restrict__ values,
   if (t >= num_tiles) return;  // whole warps only: no block barrier follows
   const int l = threadIdx.x & 31;
   const int j0 = 4 * l;  // this thread's lanes j0 .. j0 + 3
-  float* scan = scan_buf[wib];
+  T* scan = scan_buf[wib];
   const int64_t cell0 = t * (kSlots * kLanes);
   const uint32_t meta = static_cast<uint32_t>(__ldg(tile_base + t));
   const int64_t group = __ldg(tile_page + t);
 
-  float4 v[kSlots];
+  Four<T> v[kSlots];
   uint32_t res[kSlots], hi[kSlots], lo[kSlots];
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {  // every slot's streamed loads first
     const int64_t c = cell0 + s * kLanes + j0;
-    v[s] = __ldg(reinterpret_cast<const float4*>(values + c));
+    v[s] = load4(values + c);
     res[s] = __ldg(reinterpret_cast<const unsigned int*>(residue + c));
     hi[s] = __ldg(reinterpret_cast<const unsigned int*>(run_hi + c));
     lo[s] = __ldg(reinterpret_cast<const unsigned int*>(run_lo + c));
@@ -131,7 +163,7 @@ pcell_tile(const float* __restrict__ values,
   __syncwarp();
   const int8_t* pt = pt_buf[wib];
   const int32_t* bases = bases_buf[wib];
-  float p[kSlots][4];
+  T p[kSlots][4];
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {  // then every gather
 #pragma unroll
@@ -139,40 +171,57 @@ pcell_tile(const float* __restrict__ values,
       const int r = lane_byte(res[s], k);
       const int d = pt[s * kLanes + r];
       const int64_t col = (static_cast<int64_t>(bases[d >> 3]) + (d & 7)) * kLanes + r;
-      p[s][k] = component(v[s], k) * __ldg(x + col);
+      p[s][k] = v[s].v[k] * __ldg(x + col);
     }
   }
 
-  float out[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  T out[4] = {T(0), T(0), T(0), T(0)};
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
-    float a[4];
+    T a[4];
     a[0] = p[s][0];
 #pragma unroll
     for (int k = 1; k < 4; ++k) a[k] = a[k - 1] + p[s][k];
-    float incl = a[3];  // inclusive scan of the thread totals
+    T incl = a[3];  // inclusive scan of the thread totals
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const float up = __shfl_up_sync(0xffffffffu, incl, o);
+      const T up = __shfl_up_sync(0xffffffffu, incl, o);
       if (l >= o) incl += up;
     }
-    float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-    if (l == 0) excl = 0.0f;
+    T excl = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (l == 0) excl = T(0);
     __syncwarp();  // the last slot's reads of the buffer are done
-    *reinterpret_cast<float4*>(scan + j0) =
-        make_float4(excl + a[0], excl + a[1], excl + a[2], excl + a[3]);
+    store4(scan + j0, excl + a[0], excl + a[1], excl + a[2], excl + a[3]);
     __syncwarp();  // the slot's 128 prefix sums are written
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int h = lane_byte(hi[s], k), b = lane_byte(lo[s], k);
-      out[k] += (h >= 0 ? scan[h] : 0.0f) - (b >= 0 ? scan[b] : 0.0f);
+      out[k] += (h >= 0 ? scan[h] : T(0)) - (b >= 0 ? scan[b] : T(0));
     }
   }
   const int64_t hack =
       static_cast<int64_t>(chunk_group[t / chunk_tiles]) * group_hacks + (meta >> 20);
 #pragma unroll
   for (int k = 0; k < 4; ++k)
-    if (out[k] != 0.0f) atomicAdd(z + hack * kLanes + j0 + k, out[k]);
+    if (out[k] != T(0)) atomicAdd(z + hack * kLanes + j0 + k, out[k]);
+}
+
+template <typename T>
+int pcell(const void* values, const void* residue, const void* page_tab,
+          const void* run_hi, const void* run_lo, const void* tile_base,
+          const void* tile_page, const void* chunk_group, const void* group_bases,
+          const void* x, void* z, int64_t num_tiles, int chunk_tiles, int group_hacks,
+          int ntab, cudaStream_t st) {
+  if (num_tiles > 0)
+    pcell_tile<T><<<static_cast<unsigned>((num_tiles + kTileWarps - 1) / kTileWarps),
+                    kTileWarps * 32, 0, st>>>(
+        static_cast<const T*>(values), static_cast<const int8_t*>(residue),
+        static_cast<const int8_t*>(page_tab), static_cast<const int8_t*>(run_hi),
+        static_cast<const int8_t*>(run_lo), static_cast<const int32_t*>(tile_base),
+        static_cast<const int32_t*>(tile_page), static_cast<const int32_t*>(chunk_group),
+        static_cast<const int32_t*>(group_bases), static_cast<const T*>(x),
+        static_cast<T*>(z), num_tiles, chunk_tiles, group_hacks, ntab);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -189,16 +238,20 @@ int pcell_spmv(const void* values, const void* residue, const void* page_tab,
                const void* tile_page, const void* chunk_group,
                const void* group_bases, const void* x, void* z, int64_t num_tiles,
                int chunk_tiles, int group_hacks, int ntab, void* stream) {
-  if (num_tiles > 0)
-    pcell_tile<<<static_cast<unsigned>((num_tiles + kTileWarps - 1) / kTileWarps),
-                 kTileWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(values), static_cast<const int8_t*>(residue),
-        static_cast<const int8_t*>(page_tab), static_cast<const int8_t*>(run_hi),
-        static_cast<const int8_t*>(run_lo), static_cast<const int32_t*>(tile_base),
-        static_cast<const int32_t*>(tile_page), static_cast<const int32_t*>(chunk_group),
-        static_cast<const int32_t*>(group_bases), static_cast<const float*>(x),
-        static_cast<float*>(z), num_tiles, chunk_tiles, group_hacks, ntab);
-  return static_cast<int>(cudaGetLastError());
+  return pcell<float>(values, residue, page_tab, run_hi, run_lo, tile_base, tile_page,
+                      chunk_group, group_bases, x, z, num_tiles, chunk_tiles,
+                      group_hacks, ntab, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel #17 in float64: as pcell_spmv, with float64 values, x and z.
+int pcell_spmv_f64(const void* values, const void* residue, const void* page_tab,
+                   const void* run_hi, const void* run_lo, const void* tile_base,
+                   const void* tile_page, const void* chunk_group,
+                   const void* group_bases, const void* x, void* z, int64_t num_tiles,
+                   int chunk_tiles, int group_hacks, int ntab, void* stream) {
+  return pcell<double>(values, residue, page_tab, run_hi, run_lo, tile_base, tile_page,
+                       chunk_group, group_bases, x, z, num_tiles, chunk_tiles,
+                       group_hacks, ntab, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -5,14 +5,17 @@
 // _whell_kernel (kernel #15, called through _whell_spmv_call and the
 // classic branch of whell_spmv_pallas); entry whell_classic_spmm replaces
 // _whell_spmm_kernel (kernel #16, _whell_spmm_call, whell_spmm_pallas).
-// fp32 or bf16 values, fp32 x and sums.  Both compute, on the classic
-// layout arrays (spgpu_tpu_torch/formats/whell.py):
+// fp32 or bf16 values with fp32 x and sums; entries whell_classic_spmv_f64
+// and whell_classic_spmm_f64 are the same two kernels on float64 values,
+// x and sums (the JAX classic layout's plain float64 slab, run there in
+// interpret mode).  Both compute, on the classic layout arrays
+// (spgpu_tpu_torch/formats/whell.py):
 //
 //   for every cell (slot s, lane j) of tile t = s / 8:
 //     r = residue[s, j];  d = page_tab[s, r]        (indexed by residue)
 //     col = (tile_page[t] + d) * 128 + r
 //     hack = chunk_group[t / 64] * 8 + (tile_base[t] >> 16)
-//     z[hack*128 + j] += float(values[s, j]) * x[col]
+//     z[hack*128 + j] += T(values[s, j]) * x[col]     (T: float or double)
 //
 // i.e. the stored row hack*128 + j.  The base page comes from the layout's
 // full-width tile_page word (int32), not from tile_base's 16-bit field,
@@ -102,6 +105,23 @@
 // registers; not kept: full 8-RHS blocks only, a second gather path for
 // the rest, for under 10 %).  The TPU
 // kernel's per-RHS fori loop and X VMEM staging have no counterpart.
+//
+// float64.  The same two kernels, instantiated on the stored and
+// summed type (Acc<V>: float for fp32 and bf16 values, double for
+// double): a float64 cell is 8 B of value beside the int8 residue and the
+// page-table byte, 10 B a cell where fp32 reads 6, and x, z and the
+// interleaved X are doubles.  #15 keeps one register sum per lane over a
+// unit's 8 slots, one atomicAdd(double*) per live unit and lane (native
+// since sm_60), the work list, the zero-cell skip and the 4 B-a-lane
+// page-table row prefetch; a warp's 32 values are one 256 B load.  #16
+// keeps kRhs = 8 register sums, now doubles, and loads a cell's 8 RHS as
+// four 16 B double2 loads when n_rhs is even (its rows then start 16 B
+// aligned), else as masked scalar loads.  Its register cap is 128 in
+// float64 (4 blocks an SM, Acc<double>): the sums, the 8 values and the
+// 8 x rows alone take 48 registers.  ptxas (sm_90a):
+// classic_spmv_units<d> 47 registers, no spills; classic_spmm_units<d>
+// 128 registers, 32 bytes of spill stores; classic_spmm_units<f>/<t> 64
+// registers with 80 bytes of spill stores, the SpMV instances 40.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -115,10 +135,41 @@ constexpr int kGroupHacks = 8;
 constexpr int kRhs = 8;
 constexpr int kUnitWarps = 4;  // kernels #15, #16: work-list entries (warps) per block
 
-// a value as fp32, by a plain load (bf16 bits: exact, the top half of an fp32)
+// the sum type of a stored value type: fp32 for fp32 and bf16 bits, double
+// for double; Vec is its 16 B vector (#16's RHS loads), kMinBlocks #16's
+// blocks an SM (its register cap: 64 in fp32, 128 in float64)
+template <typename V> struct Acc {
+  using T = float;
+  using Vec = float4;
+  static constexpr int kMinBlocks = 8;
+};
+template <> struct Acc<double> {
+  using T = double;
+  using Vec = double2;
+  static constexpr int kMinBlocks = 4;
+};
+
+// a value in its sum type, by a plain load (bf16 bits: exact, the top half
+// of an fp32)
 __device__ __forceinline__ float value_at(const float* v, int64_t i) { return v[i]; }
+__device__ __forceinline__ double value_at(const double* v, int64_t i) { return v[i]; }
 __device__ __forceinline__ float value_at(const uint16_t* v, int64_t i) {
   return __uint_as_float(static_cast<uint32_t>(v[i]) << 16);
+}
+
+__device__ __forceinline__ float mul_add(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double mul_add(double a, double b, double c) { return fma(a, b, c); }
+
+// sum[k0 + i] += v * (the i-th component of a), for a 16 B vector of RHS
+__device__ __forceinline__ void add_vec(float (&sum)[kRhs], int k0, float v, float4 a) {
+  sum[k0] = fmaf(v, a.x, sum[k0]);
+  sum[k0 + 1] = fmaf(v, a.y, sum[k0 + 1]);
+  sum[k0 + 2] = fmaf(v, a.z, sum[k0 + 2]);
+  sum[k0 + 3] = fmaf(v, a.w, sum[k0 + 3]);
+}
+__device__ __forceinline__ void add_vec(double (&sum)[kRhs], int k0, double v, double2 a) {
+  sum[k0] = fma(v, a.x, sum[k0]);
+  sum[k0 + 1] = fma(v, a.y, sum[k0 + 1]);
 }
 
 // the stored-row hack of tile t: its chunk's 8-hack group, then hh
@@ -134,14 +185,14 @@ __device__ __forceinline__ int64_t tile_hack(const int32_t* __restrict__ chunk_g
 // and x column col[s].  Returns the tile; j is the lane's output lane,
 // meta the tile's word (its hh), the base page from tile_page.  Plain
 // loads, not __ldg (see the note above).
-template <typename V>
+template <typename V, typename T>
 __device__ __forceinline__ int64_t unit_cells(const V* __restrict__ values,
                                               const int8_t* __restrict__ residue,
                                               const int8_t* __restrict__ page_tab,
                                               const int32_t* __restrict__ tile_base,
                                               const int32_t* __restrict__ tile_page,
                                               int64_t e, int lane, int& j,
-                                              uint32_t& meta, float (&v)[kSlots],
+                                              uint32_t& meta, T (&v)[kSlots],
                                               int64_t (&col)[kSlots]) {
   const unsigned mask = static_cast<unsigned>(e & 0xFF);
   const int64_t t = e >> 10;  // unit = e >> 8 = t*4 + q
@@ -153,7 +204,7 @@ __device__ __forceinline__ int64_t unit_cells(const V* __restrict__ values,
   uint32_t pw[kSlots];  // 4 page entries of the slot's page-table row a lane
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
-    v[s] = 0.0f;
+    v[s] = T(0);
     r[s] = 0;
     pw[s] = 0;
     if (mask >> s & 1u) {
@@ -183,27 +234,30 @@ classic_spmv_units(const V* __restrict__ values,
                    const int32_t* __restrict__ tile_page,
                    const int32_t* __restrict__ chunk_group,
                    const int64_t* __restrict__ work, int64_t n_work,
-                   const float* __restrict__ x, float* __restrict__ z) {
+                   const typename Acc<V>::T* __restrict__ x,
+                   typename Acc<V>::T* __restrict__ z) {
+  using T = typename Acc<V>::T;
   const int64_t w = static_cast<int64_t>(blockIdx.x) * kUnitWarps + (threadIdx.x >> 5);
   if (w >= n_work) return;  // whole warps only: the kernel has no barrier
   int j;
   uint32_t meta;
-  float v[kSlots];
+  T v[kSlots];
   int64_t col[kSlots];
   const int64_t t = unit_cells(values, residue, page_tab, tile_base, tile_page,
                                work[w], threadIdx.x & 31, j, meta, v, col);
-  float sum = 0.0f;
+  T sum = T(0);
 #pragma unroll
   for (int s = 0; s < kSlots; ++s)
-    if (v[s] != 0.0f) sum = fmaf(v[s], __ldg(x + col[s]), sum);
-  if (sum != 0.0f) atomicAdd(z + tile_hack(chunk_group, t, meta) * kLanes + j, sum);
+    if (v[s] != T(0)) sum = mul_add(v[s], __ldg(x + col[s]), sum);
+  if (sum != T(0)) atomicAdd(z + tile_hack(chunk_group, t, meta) * kLanes + j, sum);
 }
 
 // Kernel #16: #15's warp per work-list entry, with kRhs register sums per
 // RHS block and one atomicAdd per (RHS, lane) into z (n_rhs, rows_padded).
-// At most 64 registers (8 blocks an SM), see the note above.
+// At most 64 registers in fp32 (8 blocks an SM), 128 in float64, see the
+// note above.
 template <typename V>
-__global__ void __launch_bounds__(kUnitWarps * 32, 8)
+__global__ void __launch_bounds__(kUnitWarps * 32, Acc<V>::kMinBlocks)
 classic_spmm_units(const V* __restrict__ values,
                    const int8_t* __restrict__ residue,
                    const int8_t* __restrict__ page_tab,
@@ -211,54 +265,51 @@ classic_spmm_units(const V* __restrict__ values,
                    const int32_t* __restrict__ tile_page,
                    const int32_t* __restrict__ chunk_group,
                    const int64_t* __restrict__ work, int64_t n_work,
-                   const float* __restrict__ x, float* __restrict__ z,
+                   const typename Acc<V>::T* __restrict__ x,
+                   typename Acc<V>::T* __restrict__ z,
                    int64_t rows_padded, int n_rhs) {
+  using T = typename Acc<V>::T;
+  using Vec = typename Acc<V>::Vec;
+  constexpr int kVec = sizeof(Vec) / sizeof(T);  // RHS a 16 B load
   const int64_t w = static_cast<int64_t>(blockIdx.x) * kUnitWarps + (threadIdx.x >> 5);
   if (w >= n_work) return;  // whole warps only: the kernel has no barrier
   int j;
   uint32_t meta;
-  float v[kSlots];
+  T v[kSlots];
   int64_t xrow[kSlots];
   const int64_t t = unit_cells(values, residue, page_tab, tile_base, tile_page,
                                work[w], threadIdx.x & 31, j, meta, v, xrow);
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) xrow[s] *= n_rhs;
-  float* out = z + tile_hack(chunk_group, t, meta) * kLanes + j;
-  const bool vec = n_rhs % 4 == 0;  // a full block's 8 RHS: two 16 B loads
+  T* out = z + tile_hack(chunk_group, t, meta) * kLanes + j;
+  const bool vec = n_rhs % kVec == 0;  // a full block's 8 RHS: 16 B loads
   for (int r0 = 0; r0 < n_rhs; r0 += kRhs) {
     const int rw = min(kRhs, n_rhs - r0);
-    float sum[kRhs];
+    T sum[kRhs];
 #pragma unroll
-    for (int q = 0; q < kRhs; ++q) sum[q] = 0.0f;
+    for (int q = 0; q < kRhs; ++q) sum[q] = T(0);
     if (vec && rw == kRhs) {
 #pragma unroll
       for (int s = 0; s < kSlots; ++s) {
-        if (v[s] != 0.0f) {
-          const float4* xs = reinterpret_cast<const float4*>(x + xrow[s] + r0);
-          const float4 a = __ldg(xs), b = __ldg(xs + 1);
-          sum[0] = fmaf(v[s], a.x, sum[0]);
-          sum[1] = fmaf(v[s], a.y, sum[1]);
-          sum[2] = fmaf(v[s], a.z, sum[2]);
-          sum[3] = fmaf(v[s], a.w, sum[3]);
-          sum[4] = fmaf(v[s], b.x, sum[4]);
-          sum[5] = fmaf(v[s], b.y, sum[5]);
-          sum[6] = fmaf(v[s], b.z, sum[6]);
-          sum[7] = fmaf(v[s], b.w, sum[7]);
+        if (v[s] != T(0)) {
+          const Vec* xs = reinterpret_cast<const Vec*>(x + xrow[s] + r0);
+#pragma unroll
+          for (int k = 0; k < kRhs / kVec; ++k) add_vec(sum, k * kVec, v[s], __ldg(xs + k));
         }
       }
     } else {
 #pragma unroll
       for (int s = 0; s < kSlots; ++s) {
-        if (v[s] != 0.0f) {
+        if (v[s] != T(0)) {
 #pragma unroll
           for (int q = 0; q < kRhs; ++q)
-            if (q < rw) sum[q] = fmaf(v[s], __ldg(x + xrow[s] + r0 + q), sum[q]);
+            if (q < rw) sum[q] = mul_add(v[s], __ldg(x + xrow[s] + r0 + q), sum[q]);
         }
       }
     }
 #pragma unroll
     for (int q = 0; q < kRhs; ++q)
-      if (q < rw && sum[q] != 0.0f) atomicAdd(out + (r0 + q) * rows_padded, sum[q]);
+      if (q < rw && sum[q] != T(0)) atomicAdd(out + (r0 + q) * rows_padded, sum[q]);
   }
 }
 
@@ -267,14 +318,15 @@ int classic_spmv(const void* values, const void* residue, const void* page_tab,
                  const void* tile_base, const void* tile_page,
                  const void* chunk_group, const void* work, int64_t n_work,
                  const void* x, void* z, cudaStream_t st) {
+  using T = typename Acc<V>::T;
   // an empty list (no nonzero) still launches, one block that exits
   const int64_t blocks = n_work > 0 ? (n_work + kUnitWarps - 1) / kUnitWarps : 1;
   classic_spmv_units<V><<<static_cast<unsigned>(blocks), kUnitWarps * 32, 0, st>>>(
       static_cast<const V*>(values), static_cast<const int8_t*>(residue),
       static_cast<const int8_t*>(page_tab), static_cast<const int32_t*>(tile_base),
       static_cast<const int32_t*>(tile_page), static_cast<const int32_t*>(chunk_group),
-      static_cast<const int64_t*>(work), n_work, static_cast<const float*>(x),
-      static_cast<float*>(z));
+      static_cast<const int64_t*>(work), n_work, static_cast<const T*>(x),
+      static_cast<T*>(z));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -284,6 +336,7 @@ int classic_spmm(const void* values, const void* residue, const void* page_tab,
                  const void* chunk_group, const void* work, int64_t n_work,
                  const void* x, void* z, int64_t rows_padded,
                  int n_rhs, cudaStream_t st) {
+  using T = typename Acc<V>::T;
   // an empty list (no nonzero) still launches, one block that exits
   const int64_t blocks = n_work > 0 ? (n_work + kUnitWarps - 1) / kUnitWarps : 1;
   if (n_rhs > 0)
@@ -291,8 +344,8 @@ int classic_spmm(const void* values, const void* residue, const void* page_tab,
         static_cast<const V*>(values), static_cast<const int8_t*>(residue),
         static_cast<const int8_t*>(page_tab), static_cast<const int32_t*>(tile_base),
         static_cast<const int32_t*>(tile_page), static_cast<const int32_t*>(chunk_group),
-        static_cast<const int64_t*>(work), n_work, static_cast<const float*>(x),
-        static_cast<float*>(z), rows_padded, n_rhs);
+        static_cast<const int64_t*>(work), n_work, static_cast<const T*>(x),
+        static_cast<T*>(z), rows_padded, n_rhs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -315,6 +368,18 @@ int whell_classic_spmv(const void* values, int values_bf16, const void* residue,
             x, z, static_cast<cudaStream_t>(stream));
 }
 
+// Kernel #15 in float64: as whell_classic_spmv, with float64 values, x and
+// z.
+int whell_classic_spmv_f64(const void* values, const void* residue,
+                           const void* page_tab, const void* tile_base,
+                           const void* tile_page, const void* chunk_group,
+                           const void* work, int64_t n_work, const void* x, void* z,
+                           void* stream) {
+  return classic_spmv<double>(values, residue, page_tab, tile_base, tile_page,
+                              chunk_group, work, n_work, x, z,
+                              static_cast<cudaStream_t>(stream));
+}
+
 // Kernel #16: Z (n_rhs x rows_padded) += the classic product with each of
 // n_rhs RHS over the n_work entries of work (as kernel #15).  x is the
 // RHS-interleaved (x_pages*128, n_rhs) fp32 stack, Z fp32 and zeroed by
@@ -328,6 +393,18 @@ int whell_classic_spmm(const void* values, int values_bf16, const void* residue,
   auto* fn = values_bf16 ? classic_spmm<uint16_t> : classic_spmm<float>;
   return fn(values, residue, page_tab, tile_base, tile_page, chunk_group, work, n_work,
             x, z, rows_padded, n_rhs, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel #16 in float64: as whell_classic_spmm, with float64 values, the
+// RHS-interleaved float64 X and float64 Z.
+int whell_classic_spmm_f64(const void* values, const void* residue,
+                           const void* page_tab, const void* tile_base,
+                           const void* tile_page, const void* chunk_group,
+                           const void* work, int64_t n_work, const void* x, void* z,
+                           int64_t rows_padded, int n_rhs, void* stream) {
+  return classic_spmm<double>(values, residue, page_tab, tile_base, tile_page,
+                              chunk_group, work, n_work, x, z, rows_padded, n_rhs,
+                              static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -35,7 +35,8 @@ output lane ``j`` of hack ``h`` is stored row ``h*128 + j``, aligned
 without the trailing -1 sentinel.  ``row_perm`` (stored row → original
 row, padded with the identity) is the OELL order, and ``ways > 1`` splits
 each row into ``ways`` virtual rows that the op sums back.  Its values are
-float32 or bfloat16, the JAX classic path's TPU types.  A classic layout
+float32, bfloat16 or float64 (plain float64, as the JAX classic layout
+keeps it: no double-float pair).  A classic layout
 also carries ``work_list`` (:func:`classic_work_list`), derived from its
 values whenever the layout is built: the (tile, 32-lane quarter) units
 that hold a nonzero, each with the mask of its live slots.  The SpMV
@@ -46,6 +47,11 @@ new layout, and a new list).
 The **per-cell routing** layout (:class:`PcellWhell`) packs the cells of
 many rows densely into each slot and routes each row's run to its output
 lane through ``run_hi``/``run_lo``; it works in the original numbering.
+Its values are float32 or float64.  Neither the classic nor the pcell
+layout takes complex values: the JAX converters build complex slabs, but
+its ops cannot multiply them (the Pallas interpreter refuses the kernels'
+complex output), so the port adds no such product
+(:func:`unported_complex`).
 
 ``tile_base`` is the JAX encoding, ``page | hh << 16`` (aligned) or
 ``group | hh << 20`` (scattered), whose low field bounds one layout at
@@ -74,13 +80,28 @@ from spgpu_tpu_torch.core import CHUNK_TILES, join_dd, join_plane_fields
 
 __all__ = ["MAX_TILE_PAGE", "PcellWhell", "WhellMatrix", "classic_work_list",
            "from_numpy_fields", "from_numpy_pcell", "from_numpy_planes",
-           "low_field_bits", "packed_hack_ptr", "packed_hack_units"]
+           "low_field_bits", "packed_hack_ptr", "packed_hack_units",
+           "unported_complex"]
 
 #: the value types of a packed slab
 VALUE_DTYPES = (torch.float32, torch.bfloat16, torch.float64, torch.complex64,
                 torch.complex128)
 #: the value types of a classic slab
-CLASSIC_DTYPES = (torch.float32, torch.bfloat16)
+CLASSIC_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+#: the value types of a pcell slab
+PCELL_DTYPES = (torch.float32, torch.float64)
+
+
+def unported_complex(what: str, dtype) -> NotImplementedError:
+    """The error for a value type the JAX package's ``what`` (classic
+    WHELL, pcell) has no product for: its converters build complex slabs,
+    but its Pallas interpreter refuses the kernel's complex output
+    (``NotImplementedError: complex64`` while it sets the output up), so
+    the port adds no such feature."""
+    return NotImplementedError(
+        f"{what} takes real values, not {dtype}: the JAX package has no "
+        f"complex {what} product (its Pallas interpreter refuses the "
+        "kernel's complex output), so the port has none either")
 
 #: x pages, and layout groups, that a tile's full-width ``tile_page``
 #: word addresses
@@ -508,9 +529,10 @@ class PcellWhell:
     into each slot, one contiguous lane run per (row, slot); the kernel
     scans each slot along its lanes and differences the scan at the run
     bounds ``run_hi``/``run_lo``, keyed by the row's output lane (row %
-    128).  Vectors are in the ORIGINAL numbering.  float32 values."""
+    128).  Vectors are in the ORIGINAL numbering, of the values' type.
+    float32 or float64 values."""
 
-    values: torch.Tensor  # (total_slots, 128) float32
+    values: torch.Tensor  # (total_slots, 128) float32 or float64
     residue: torch.Tensor  # (total_slots, 128) int8: col % 128
     page_tab: torch.Tensor  # (total_slots, 128) int8: delta keyed by residue
     run_hi: torch.Tensor  # (total_slots, 128) int8: run end lane, keyed by
@@ -587,8 +609,9 @@ class PcellWhell:
         T, S, ct, gh = self.num_tiles, self.total_slots, self.chunk_tiles, self.group_hacks
         want = _want("PcellWhell")
         K = self.window_pages // 8
+        want(self.values.dtype in PCELL_DTYPES, f"values dtype {self.values.dtype}")
         _check_arrays(self, want, [
-            ("values", (S, 128), torch.float32), ("residue", (S, 128), torch.int8),
+            ("values", (S, 128), None), ("residue", (S, 128), torch.int8),
             ("page_tab", (S, 128), torch.int8), ("run_hi", (S, 128), torch.int8),
             ("run_lo", (S, 128), torch.int8), ("tile_base", (T,), torch.int32),
             ("tile_page", (T,), torch.int32),
@@ -645,10 +668,7 @@ def _layout(fields: dict, values: torch.Tensor, static: dict) -> WhellMatrix:
     kw["values"] = values
     a = WhellMatrix(**kw, **_statics(WhellMatrix, static))
     if not a.packed and values.dtype not in CLASSIC_DTYPES:
-        raise NotImplementedError(
-            f"classic WHELL in the port takes float32 or bfloat16 values, not "
-            f"{values.dtype}: float64 and complex classic layouts are ROADMAP "
-            "module item 14 (follow-ups)")
+        raise unported_complex("classic WHELL", values.dtype)
     a.check()
     return a
 
@@ -658,8 +678,8 @@ def from_numpy_fields(fields: dict, **static) -> WhellMatrix:
     JAX ``WhellMatrix`` (``np.asarray`` of each) and its static fields.
 
     Packed and classic layouts cross (a classic one with its ``row_perm``
-    and ``ways``); a float64 or complex classic layout raises
-    ``NotImplementedError``.  A double-float slab joins into float64,
+    and ``ways``, a float64 classic slab as it is); a complex classic
+    layout raises ``NotImplementedError``.  A double-float slab joins into float64,
     ``values + values_lo``.  The result lies on the CPU and has passed
     :meth:`WhellMatrix.check`; move it with :meth:`WhellMatrix.to`."""
     values = _tensor(fields.get("values"))
@@ -684,9 +704,12 @@ def from_numpy_planes(ar: dict, ai: dict, **static) -> WhellMatrix:
 
 def from_numpy_pcell(fields: dict, **static) -> PcellWhell:
     """Build the port's :class:`PcellWhell` from the array fields of a JAX
-    ``PcellWhell`` (``np.asarray`` of each) and its static fields; the
-    result lies on the CPU and has passed :meth:`PcellWhell.check`."""
+    ``PcellWhell`` (``np.asarray`` of each) and its static fields, with
+    float32 or float64 values (complex raises ``NotImplementedError``);
+    the result lies on the CPU and has passed :meth:`PcellWhell.check`."""
     a = PcellWhell(**{f: _tensor(fields.get(f)) for f in PcellWhell._TENSORS},
                    **_statics(PcellWhell, static))
+    if a.values.dtype.is_complex:
+        raise unported_complex("pcell", a.values.dtype)
     a.check()
     return a

@@ -2,14 +2,16 @@
 in CUDA C++.
 
 Replaces ``spgpu_tpu/ops/pallas_kernels.py::_pcell_kernel``: fp32
-values, x and sums.  The source is ``spgpu_tpu_torch/csrc/pcell_spmv.cu``
+values, x and sums, or float64 ones (entry ``pcell_spmv_f64``).  The
+source is ``spgpu_tpu_torch/csrc/pcell_spmv.cu``
 (its header note gives the design and its bound), built on first launch
 by :mod:`spgpu_tpu_torch.kernels._build`; nothing is built when this
 module is imported.
 
 :func:`pcell_spmv` launches the kernel for CUDA tensors (or raises) and
 runs :func:`pcell_spmv_plain`, the plain PyTorch version of the same
-function, for CPU tensors.  ``LAUNCHES`` counts the kernel's launches.
+function, for CPU tensors.  ``LAUNCHES`` counts the kernel's fp32
+launches, ``LAUNCHES_F64`` its float64 ones.
 Both take the layout's ``tile_page`` (``PcellWhell.tile_page``, each
 tile's full-width layout group) and read the group from it, and only the
 hack-in-group from ``tile_base``; ``tile_page`` is a required
@@ -24,17 +26,21 @@ import torch
 
 from spgpu_tpu_torch.kernels._build import CudaLibrary
 
-__all__ = ["LAUNCHES", "SOURCE", "build", "pcell_spmv",
+__all__ = ["LAUNCHES", "LAUNCHES_F64", "SOURCE", "build", "pcell_spmv",
            "pcell_spmv_plain"]
 
-#: launches of kernel #17 so far; the CPU path does not count
+#: launches of kernel #17 so far, fp32 and float64; the CPU path does not
+#: count
 LAUNCHES = 0
+LAUNCHES_F64 = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.pcell_spmv.restype = ctypes.c_int
     lib.pcell_spmv.argtypes = [p] * 11 + [i64, i32, i32, i32, p]
+    lib.pcell_spmv_f64.restype = ctypes.c_int
+    lib.pcell_spmv_f64.argtypes = [p] * 11 + [i64, i32, i32, i32, p]
 
 
 _LIB = CudaLibrary("pcell_spmv", _bind)
@@ -48,8 +54,8 @@ def _check_args(values, residue, page_tab, run_hi, run_lo, tile_base,
     S = values.shape[0]
     T = tile_base.shape[0]
     want = [
-        (values.dtype == torch.float32 and values.shape == (S, 128) and S == 8 * T,
-         "values"),
+        (values.dtype in (torch.float32, torch.float64)
+         and values.shape == (S, 128) and S == 8 * T, "values"),
         *[((t.shape == (S, 128) and t.dtype == torch.int8), name)
           for name, t in (("residue", residue), ("page_tab", page_tab),
                           ("run_hi", run_hi), ("run_lo", run_lo))],
@@ -60,8 +66,8 @@ def _check_args(values, residue, page_tab, run_hi, run_lo, tile_base,
         (window_pages in (8, 16, 32, 64) and group_bases.dtype == torch.int32
          and group_bases.dim() == 1
          and group_bases.numel() % (window_pages // 8) == 0, "group_bases"),
-        (x.dim() == 2 and x.shape[-1] == 128 and x.dtype == torch.float32,
-         "x2d: (x_pages, 128) float32"),
+        (x.dim() == 2 and x.shape[-1] == 128 and x.dtype == values.dtype,
+         f"x2d: (x_pages, 128) of the values' type ({values.dtype})"),
         (group_hacks >= 1 and num_groups >= 1, "group_hacks/num_groups"),
     ]
     for ok, what in want:
@@ -81,10 +87,12 @@ def pcell_spmv(values, residue, page_tab, run_hi, run_lo, tile_base,
                chunk_group, group_bases, x2d, *, chunk_tiles: int,
                group_hacks: int, window_pages: int, num_groups: int,
                tile_page: torch.Tensor) -> torch.Tensor:
-    """pcell product ``(num_groups*group_hacks, 128)`` fp32 in the original
-    row numbering, of fp32 values and x2d ``(x_pages, 128)`` fp32.
+    """pcell product ``(num_groups*group_hacks, 128)`` in the original row
+    numbering, of fp32 or float64 values and x2d ``(x_pages, 128)`` of the
+    same type, in that type.
 
-    CUDA tensors launch kernel #17 (counted in ``LAUNCHES``); CPU tensors
+    CUDA tensors launch kernel #17 (counted in ``LAUNCHES``, float64 in
+    ``LAUNCHES_F64``); CPU tensors
     run :func:`pcell_spmv_plain`.  Any other device raises.  The layout
     arrays are trusted as built by the converter or checked by
     ``PcellWhell.check``; shapes, dtypes and devices are checked here."""
@@ -103,8 +111,9 @@ def pcell_spmv(values, residue, page_tab, run_hi, run_lo, tile_base,
         raise ValueError("pcell_spmv: the kernel's vector loads need 16 B aligned "
                          "values and page_tab and 4 B aligned residue, run_hi, run_lo")
     lib = _LIB.load()
-    z = torch.zeros((num_groups * group_hacks, 128), dtype=torch.float32, device=dev)
-    err = lib.pcell_spmv(
+    f64 = values.dtype == torch.float64
+    z = torch.zeros((num_groups * group_hacks, 128), dtype=values.dtype, device=dev)
+    err = (lib.pcell_spmv_f64 if f64 else lib.pcell_spmv)(
         values.data_ptr(), residue.data_ptr(), page_tab.data_ptr(),
         run_hi.data_ptr(), run_lo.data_ptr(), tile_base.data_ptr(),
         tile_page.data_ptr(), chunk_group.data_ptr(), group_bases.data_ptr(),
@@ -112,8 +121,11 @@ def pcell_spmv(values, residue, page_tab, run_hi, run_lo, tile_base,
         window_pages // 8, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pcell_spmv launch failed: CUDA error {err}")
-    global LAUNCHES
-    LAUNCHES += 1
+    global LAUNCHES, LAUNCHES_F64
+    if f64:
+        LAUNCHES_F64 += 1
+    else:
+        LAUNCHES += 1
     return z
 
 
@@ -121,7 +133,8 @@ def pcell_spmv_plain(values, residue, page_tab, run_hi, run_lo, tile_base,
                      chunk_group, group_bases, x2d, *, chunk_tiles: int,
                      group_hacks: int, window_pages: int, num_groups: int,
                      tile_page: torch.Tensor) -> torch.Tensor:
-    """The same product in plain PyTorch, with the kernel's arithmetic:
+    """The same product in plain PyTorch, in the values' type, with the
+    kernel's arithmetic:
     each slot's products, their inclusive ``cumsum`` along the lanes,
     then the difference of the scan at each output lane's run bounds
     (not a direct segment sum), and ``index_add_`` of each tile's routed
@@ -142,6 +155,6 @@ def pcell_spmv_plain(values, residue, page_tab, run_hi, run_lo, tile_base,
               - torch.where(lo >= 0, torch.gather(scan, 1, lo.clamp(min=0)), 0.0))
     hack = (chunk_group.long()[torch.arange(T, device=dev) // chunk_tiles]
             * group_hacks + (meta >> 20))
-    z = torch.zeros((num_groups * group_hacks, 128), dtype=torch.float32, device=dev)
+    z = torch.zeros((num_groups * group_hacks, 128), dtype=values.dtype, device=dev)
     z.index_add_(0, hack, routed.view(T, 8, 128).sum(dim=1))
     return z

@@ -2,8 +2,8 @@
 hand-written in CUDA C++.
 
 Replaces ``spgpu_tpu/ops/pallas_kernels.py::_whell_kernel`` (#15) and
-``_whell_spmm_kernel`` (#16, the multi-RHS product): fp32 or bf16 values,
-fp32 x and sums.  The source of both is
+``_whell_spmm_kernel`` (#16, the multi-RHS product): fp32 or bf16 values
+with fp32 x and sums, or float64 values, x and sums.  The source of both is
 ``spgpu_tpu_torch/csrc/whell_classic_spmv.cu`` (its header note gives the
 design and its bound), built on first launch by
 :mod:`spgpu_tpu_torch.kernels._build`; nothing is built when this module
@@ -16,7 +16,10 @@ plain PyTorch versions of the same functions, for CPU tensors.  Both give
 the product in STORED rows, ``(num_groups*8, 128)`` per RHS: the OELL
 scatter, the way reduction and the epilogue are the op's
 (:func:`spgpu_tpu_torch.ops.whell_spmv`).  ``LAUNCHES`` counts the
-launches of kernel #15 and ``LAUNCHES_SPMM`` those of #16.  Both kernels
+launches of kernel #15 and ``LAUNCHES_SPMM`` those of #16 on fp32 and
+bf16 values, ``LAUNCHES_F64`` and ``LAUNCHES_SPMM_F64`` their float64
+launches (entries ``whell_classic_spmv_f64``, ``whell_classic_spmm_f64``).
+The product comes in x's type.  Both kernels
 read only the live units of the layout's work list; both plain versions
 read every cell.  Every function takes the layout's ``tile_page``
 (``WhellMatrix.tile_page``, each tile's full-width base page) and reads
@@ -33,15 +36,23 @@ import torch
 from spgpu_tpu_torch.core import CHUNK_TILES
 from spgpu_tpu_torch.kernels._build import CudaLibrary
 
-__all__ = ["LAUNCHES", "LAUNCHES_SPMM", "SOURCE", "build",
+__all__ = ["LAUNCHES", "LAUNCHES_F64", "LAUNCHES_SPMM", "LAUNCHES_SPMM_F64",
+           "SOURCE", "build",
            "whell_classic_spmm",
            "whell_classic_spmm_plain", "whell_classic_spmv",
            "whell_classic_spmv_plain"]
 
-#: launches of kernel #15 (SpMV) and #16 (SpMM) so far; the CPU path does
-#: not count
+#: launches of kernel #15 (SpMV) and #16 (SpMM) so far, fp32/bf16 values
+#: and float64 values; the CPU path does not count
 LAUNCHES = 0
 LAUNCHES_SPMM = 0
+LAUNCHES_F64 = 0
+LAUNCHES_SPMM_F64 = 0
+
+#: x's type for each value type: fp32 for fp32 and bf16 values, float64
+#: for float64
+X_DTYPE = {torch.float32: torch.float32, torch.bfloat16: torch.float32,
+           torch.float64: torch.float64}
 
 #: hacks per output group of the classic layout
 _GROUP_HACKS = 8
@@ -53,6 +64,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.whell_classic_spmv.argtypes = [p, i32] + [p] * 6 + [i64, p, p, p]
     lib.whell_classic_spmm.restype = ctypes.c_int
     lib.whell_classic_spmm.argtypes = [p, i32] + [p] * 6 + [i64, p, p, i64, i32, p]
+    lib.whell_classic_spmv_f64.restype = ctypes.c_int
+    lib.whell_classic_spmv_f64.argtypes = [p] * 7 + [i64, p, p, p]
+    lib.whell_classic_spmm_f64.restype = ctypes.c_int
+    lib.whell_classic_spmm_f64.argtypes = [p] * 7 + [i64, p, p, i64, i32, p]
 
 
 _LIB = CudaLibrary("whell_classic_spmv", _bind)
@@ -63,14 +78,16 @@ build = _LIB.build
 def _check_args(op, values, residue, page_tab, tile_base, chunk_group, x,
                 num_groups, tile_page):
     """Shapes, dtypes, devices and contiguity of ``op``'s operands: ``x``
-    is ``(x_pages, 128)`` fp32 for the SpMV, ``(n_rhs, x_pages, 128)`` for
-    the SpMM."""
+    is ``(x_pages, 128)`` for the SpMV, ``(n_rhs, x_pages, 128)`` for the
+    SpMM, fp32 for fp32 or bf16 values and float64 for float64 ones."""
     spmm = op == "whell_classic_spmm"
     S = values.shape[0]
     T = tile_base.shape[0]
     xshape = "(n_rhs, x_pages, 128)" if spmm else "(x_pages, 128)"
+    xdt = X_DTYPE.get(values.dtype)
+    xname = str(xdt).removeprefix("torch.")
     want = [
-        (values.dtype in (torch.float32, torch.bfloat16), "values dtype"),
+        (xdt is not None, "values dtype"),
         (values.shape == (S, 128) and S == 8 * T, "values shape"),
         (residue.shape == (S, 128) and residue.dtype == torch.int8, "residue"),
         (page_tab.shape == (S, 128) and page_tab.dtype == torch.int8, "page_tab"),
@@ -79,7 +96,7 @@ def _check_args(op, values, residue, page_tab, tile_base, chunk_group, x,
         (chunk_group.dtype == torch.int32
          and chunk_group.shape == (T // CHUNK_TILES,), "chunk_group (no sentinel)"),
         (x.dim() == (3 if spmm else 2) and x.shape[-1] == 128
-         and x.dtype == torch.float32, f"x: {xshape} float32"),
+         and x.dtype == xdt, f"x: {xshape} {xname} for {values.dtype} values"),
         (num_groups >= 1, "num_groups"),
     ]
     for ok, what in want:
@@ -111,23 +128,31 @@ def _check_work(op, work, device) -> None:
 
 def _launch_args(op, values, residue, page_tab, tile_base, tile_page, chunk_group,
                  work):
-    """The pointers the kernels #15 and #16 take before x, with the
-    list's length; the row prefetch loads page_tab 4 B a lane."""
+    """The float64 entry of ``op`` or the fp32/bf16 one, and the pointers
+    the kernels #15 and #16 take before x, with the list's length (the
+    fp32/bf16 entries also take the bf16 flag); the row prefetch loads
+    page_tab 4 B a lane."""
     if page_tab.data_ptr() % 4:
         raise ValueError(f"{op}: the kernel loads page_tab 4 B a lane; it must be "
                          "4 B aligned")
-    return (values.data_ptr(), int(values.dtype == torch.bfloat16), residue.data_ptr(),
-            page_tab.data_ptr(), tile_base.data_ptr(), tile_page.data_ptr(),
-            chunk_group.data_ptr(), work.data_ptr(), work.numel())
+    lib = _LIB.load()
+    f64 = values.dtype == torch.float64
+    flag = () if f64 else (int(values.dtype == torch.bfloat16),)
+    return f64, getattr(lib, f"{op}_f64" if f64 else op), (
+        values.data_ptr(), *flag, residue.data_ptr(), page_tab.data_ptr(),
+        tile_base.data_ptr(), tile_page.data_ptr(), chunk_group.data_ptr(),
+        work.data_ptr(), work.numel())
 
 
 def whell_classic_spmv(values, residue, page_tab, tile_base, chunk_group, x2d,
                        *, num_groups: int, work=None,
                        tile_page: torch.Tensor) -> torch.Tensor:
-    """Classic WHELL product ``(num_groups*8, 128)`` fp32 in stored rows,
-    of fp32 or bf16 values and x2d ``(x_pages, 128)`` fp32.
+    """Classic WHELL product ``(num_groups*8, 128)`` in stored rows, in
+    x's type, of fp32 or bf16 values and x2d ``(x_pages, 128)`` fp32, or
+    of float64 values and a float64 x2d.
 
-    CUDA tensors launch kernel #15 (counted in ``LAUNCHES``) over
+    CUDA tensors launch kernel #15 (counted in ``LAUNCHES``, float64 in
+    ``LAUNCHES_F64``) over
     ``work``, the slab's :func:`~spgpu_tpu_torch.formats.whell.classic_work_list`
     (``WhellMatrix.work_list``; required there): it reads only the units
     and slots that hold a nonzero, and a zero-valued cell contributes
@@ -144,27 +169,31 @@ def whell_classic_spmv(values, residue, page_tab, tile_base, chunk_group, x2d,
         return whell_classic_spmv_plain(values, residue, page_tab, tile_base,
                                         chunk_group, x2d, num_groups=num_groups,
                                         tile_page=tile_page)
-    args = _launch_args("whell_classic_spmv", values, residue, page_tab, tile_base,
-                        tile_page, chunk_group, work)
-    lib = _LIB.load()
-    z = torch.zeros((num_groups * _GROUP_HACKS, 128), dtype=torch.float32, device=dev)
-    err = lib.whell_classic_spmv(*args, x2d.data_ptr(), z.data_ptr(),
-                                 torch.cuda.current_stream(dev).cuda_stream)
+    f64, fn, args = _launch_args("whell_classic_spmv", values, residue, page_tab,
+                                 tile_base, tile_page, chunk_group, work)
+    z = torch.zeros((num_groups * _GROUP_HACKS, 128), dtype=x2d.dtype, device=dev)
+    err = fn(*args, x2d.data_ptr(), z.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"whell_classic_spmv launch failed: CUDA error {err}")
-    global LAUNCHES
-    LAUNCHES += 1
+    global LAUNCHES, LAUNCHES_F64
+    if f64:
+        LAUNCHES_F64 += 1
+    else:
+        LAUNCHES += 1
     return z
 
 
 def whell_classic_spmm(values, residue, page_tab, tile_base, chunk_group, x3d,
                        *, num_groups: int, work=None,
                        tile_page: torch.Tensor) -> torch.Tensor:
-    """Fused multi-RHS product ``(n_rhs, num_groups*8, 128)`` fp32 in
-    stored rows, of fp32 or bf16 values and x3d ``(n_rhs, x_pages, 128)``
-    fp32: each cell is decoded once for every RHS.
+    """Fused multi-RHS product ``(n_rhs, num_groups*8, 128)`` in stored
+    rows, in x's type, of fp32 or bf16 values and x3d ``(n_rhs, x_pages,
+    128)`` fp32, or of float64 values and a float64 x3d: each cell is
+    decoded once for every RHS.
 
-    CUDA tensors launch kernel #16 (counted in ``LAUNCHES_SPMM``; the
+    CUDA tensors launch kernel #16 (counted in ``LAUNCHES_SPMM``, float64
+    in ``LAUNCHES_SPMM_F64``; the
     wrapper first copies X into the kernel's RHS-interleaved buffer) over
     ``work``, the layout's work list (required there, as for
     :func:`whell_classic_spmv`): it reads only the units and slots that
@@ -183,19 +212,21 @@ def whell_classic_spmm(values, residue, page_tab, tile_base, chunk_group, x3d,
     n_rhs = x3d.shape[0]
     if n_rhs > 65535:
         raise ValueError("whell_classic_spmm: at most 65,535 RHS per launch")
-    args = _launch_args("whell_classic_spmm", values, residue, page_tab, tile_base,
-                        tile_page, chunk_group, work)
-    lib = _LIB.load()
+    f64, fn, args = _launch_args("whell_classic_spmm", values, residue, page_tab,
+                                 tile_base, tile_page, chunk_group, work)
     rows = num_groups * _GROUP_HACKS * 128
     xi = x3d.reshape(n_rhs, -1).t().contiguous()  # (x_pages*128, n_rhs)
-    z = torch.zeros((n_rhs, num_groups * _GROUP_HACKS, 128), dtype=torch.float32,
+    z = torch.zeros((n_rhs, num_groups * _GROUP_HACKS, 128), dtype=x3d.dtype,
                     device=dev)
-    err = lib.whell_classic_spmm(*args, xi.data_ptr(), z.data_ptr(), rows, n_rhs,
-                                 torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(*args, xi.data_ptr(), z.data_ptr(), rows, n_rhs,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"whell_classic_spmm launch failed: CUDA error {err}")
-    global LAUNCHES_SPMM
-    LAUNCHES_SPMM += 1
+    global LAUNCHES_SPMM, LAUNCHES_SPMM_F64
+    if f64:
+        LAUNCHES_SPMM_F64 += 1
+    else:
+        LAUNCHES_SPMM += 1
     return z
 
 
@@ -214,8 +245,9 @@ def whell_classic_spmm_plain(values, residue, page_tab, tile_base, chunk_group,
                              tile_page: torch.Tensor) -> torch.Tensor:
     """The multi-RHS product in plain PyTorch, vectorised over the RHS
     axis of ``x3d`` ``(n_rhs, x_pages, 128)``, on the operands' device, in
-    fp32: decode once, gather ``(n_rhs, S, 128)``, sum each tile's 8 slots
-    and ``index_add_`` the tiles into their stored-row hacks."""
+    x's type (fp32 for fp32 and bf16 values, float64 for float64): decode
+    once, gather ``(n_rhs, S, 128)``, sum each tile's 8 slots and
+    ``index_add_`` the tiles into their stored-row hacks."""
     dev = x3d.device
     n_rhs = x3d.shape[0]
     T = tile_base.shape[0]
@@ -225,10 +257,10 @@ def whell_classic_spmm_plain(values, residue, page_tab, tile_base, chunk_group,
     tile = torch.arange(T * 8, device=dev) // 8
     col = (tile_page.long()[tile, None]
            + d) * 128 + res
-    prod = values.float() * x3d.reshape(n_rhs, -1)[:, col]
+    prod = values.to(x3d.dtype) * x3d.reshape(n_rhs, -1)[:, col]
     hack = (chunk_group.long()[torch.arange(T, device=dev) // CHUNK_TILES]
             * _GROUP_HACKS + (meta >> 16))
-    z = torch.zeros((n_rhs, num_groups * _GROUP_HACKS, 128), dtype=torch.float32,
+    z = torch.zeros((n_rhs, num_groups * _GROUP_HACKS, 128), dtype=x3d.dtype,
                     device=dev)
     z.index_add_(1, hack, prod.view(n_rhs, T, 8, 128).sum(dim=2))
     return z

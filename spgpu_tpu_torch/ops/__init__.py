@@ -10,9 +10,10 @@ tensors and the kernel's plain PyTorch version on CPU tensors.
 ``WhellMatrix`` works in lane space, a classic one and a ``PcellWhell``
 in the original numbering, as do the SDIA and WHDIA ops.  The SpMMs
 dispatch as the JAX ones do: packed WHELL is fused by default for
-fp32/bf16 values, classic WHELL, SDIA and WHDIA loop over their SpMV by
-default and fuse on ``fused=True``, pcell always loops, and float64 and
-complex matrices always loop (``fused=True`` raises for them).
+fp32/bf16 values, classic WHELL (fp32, bf16 and float64), SDIA and WHDIA
+loop over their SpMV by default and fuse on ``fused=True``, pcell always
+loops, and float64 and complex packed, SDIA and WHDIA matrices always
+loop (``fused=True`` raises for them).
 
 A float64 matrix takes and returns float64 vectors and its alpha/beta
 epilogue runs in float64: the counterpart of the JAX package's
@@ -44,7 +45,7 @@ from spgpu_tpu_torch.formats.hdia import HdiaMatrix
 from spgpu_tpu_torch.formats.hell import HellMatrix
 from spgpu_tpu_torch.formats.hybrid import HybridMatrix
 from spgpu_tpu_torch.formats.whdia import WhdiaMatrix
-from spgpu_tpu_torch.formats.whell import PcellWhell, WhellMatrix
+from spgpu_tpu_torch.formats.whell import CLASSIC_DTYPES, PcellWhell, WhellMatrix
 from spgpu_tpu_torch.kernels import pcell as _pcell
 from spgpu_tpu_torch.kernels import sdia as _sdia
 from spgpu_tpu_torch.kernels import whdia as _whdia
@@ -90,11 +91,12 @@ def _check_x(x: torch.Tensor, n_cols: int, stack: bool = False,
         raise ValueError(f"x: {planes} planes take a {planes} x, not {x.dtype}")
 
 
-def _fused(a, fused, default: bool, op: str) -> bool:
-    """The JAX SpMMs' dispatch: ``fused=True`` on a float64 or complex
-    matrix raises, ``None`` takes ``default`` where a fused kernel exists
-    and the loop elsewhere."""
-    has_kernel = a.values.dtype in _FUSED
+def _fused(a, fused, default: bool, op: str, kernels=_FUSED) -> bool:
+    """The JAX SpMMs' dispatch: ``fused=True`` on a matrix whose value
+    type has no fused kernel (``kernels``: float64 or complex, but for a
+    classic WHELL layout's float64) raises, ``None`` takes ``default``
+    where a fused kernel exists and the loop elsewhere."""
+    has_kernel = a.values.dtype in kernels
     if fused and not has_kernel:
         raise NotImplementedError(
             f"fused SpMM covers fp32/bf16 {op} only; float64/complex "
@@ -131,9 +133,10 @@ def whell_spmv(a, x: torch.Tensor, alpha=1.0, beta=0.0, y=None) -> torch.Tensor:
     space, of the values' type for a float64, complex64 or complex128
     matrix, float32 for a float32 or bf16 one (kernels #1, #4, #7 and the
     complex128 kernel).  A classic one (kernel #15) and a
-    :class:`PcellWhell` (kernel #17) take an ``(n_cols,)`` float32 ``x``
-    in the original numbering and give ``(n_rows,)`` (true rows, for a
-    way-split layout)."""
+    :class:`PcellWhell` (kernel #17) take an ``(n_cols,)`` ``x`` in the
+    original numbering, float64 on a float64 layout and float32 on a
+    float32 or bf16 one, and give ``(n_rows,)`` of x's type (true rows,
+    for a way-split layout)."""
     _require(a, (WhellMatrix, PcellWhell), "whell_spmv")
     if isinstance(a, PcellWhell):
         z = _pcell.pcell_spmv(
@@ -202,11 +205,11 @@ def whell_spmm(a, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
     :func:`whell_spmv` per RHS for float64 and complex ones (their
     kernels, each RHS with its own epilogue); on a classic layout
     ``fused=None`` loops kernel #15 and ``fused=True`` runs kernel #16
-    (over the layout's ``work_list``, as #15) with the same
-    ``row_perm``/``ways`` epilogue.  ``fused=False`` loops
-    in every type; ``fused=True`` on float64 or complex values, or on a
-    :class:`PcellWhell` (which has no fused kernel), raises
-    ``NotImplementedError``."""
+    (over the layout's ``work_list``, as #15; fp32 and bf16 values take an
+    fp32 X, float64 ones a float64 X) with the same ``row_perm``/``ways``
+    epilogue.  ``fused=False`` loops in every type; ``fused=True`` on a
+    packed float64 or complex layout, or on a :class:`PcellWhell` (which
+    has no fused kernel), raises ``NotImplementedError``."""
     _require(a, (WhellMatrix, PcellWhell), "whell_spmm")
     if isinstance(a, PcellWhell):
         if fused:
@@ -215,7 +218,8 @@ def whell_spmm(a, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
                 "runs the loop-of-SpMV path (omit fused or pass fused=False)")
         fuse = False
     else:
-        fuse = _fused(a, fused, a.packed, "packed and classic WHELL layouts")
+        fuse = (_fused(a, fused, True, "packed WHELL layouts") if a.packed
+                else _fused(a, fused, False, "classic WHELL layouts", CLASSIC_DTYPES))
     if not fuse:
         _check_x(x, a.n_cols, stack=True)
         return torch.stack([

@@ -5,7 +5,8 @@ split and halo plan as the packed partition
 (:func:`~spgpu_tpu_torch.parallel.partition_packed.halo_plan`, the rows
 and layouts built by :func:`build_row_shards`, which the HELL partition
 shares), and two
-classic float32 layouts per shard in the original numbering: the interior
+classic layouts per shard (float32 or float64, the COO's type) in the
+original numbering: the interior
 one over the shard's own ``(chunk, chunk)`` block, whose product reads the
 local x, and the exterior one over ``(chunk, S*K)``, whose columns index
 the flat received halo buffer (owner ``p``'s ``k``-th value at ``p*K +
@@ -103,9 +104,13 @@ class RowPartition:
 
 @dataclasses.dataclass
 class PartitionedWhell(RowPartition):
-    """A row-partitioned square float32 matrix on classic WHELL layouts."""
+    """A row-partitioned square float32 or float64 matrix on classic WHELL
+    layouts."""
 
-    dtype = torch.float32
+    @property
+    def dtype(self) -> torch.dtype:
+        """The vectors' type: the shards' values' (float32 or float64)."""
+        return self.shards[0].interior.values.dtype
 
 
 def build_row_shards(coo: CooMatrix, n_shards: int, convert):
@@ -135,8 +140,9 @@ def build_row_shards(coo: CooMatrix, n_shards: int, convert):
 
 
 def partition_coo_rows_whell(coo: CooMatrix, n_shards: int) -> PartitionedWhell:
-    """Build a :class:`PartitionedWhell` of a square host COO (float32
-    values), on the CPU."""
+    """Build a :class:`PartitionedWhell` of a square host COO (float32 or
+    float64 values, each shard's layouts converted in that type), on the
+    CPU."""
     def convert(rows, cols, vals, n_rows, n_cols):
         return coo_to_whell(CooMatrix(rows, cols, vals, n_rows, n_cols), device="cpu",
                             packed=False)

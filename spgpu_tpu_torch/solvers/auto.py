@@ -5,7 +5,7 @@ duplicates, pick the format by slab-traffic estimate (the DIA class goes
 to SDIA, ELL to packed WHELL), build the layout and run CG (SPD) or
 BiCGSTAB.  Packed WHELL iterates in lane space (``b`` is embedded, ``x``
 extracted); SDIA, WHDIA, the per-cell-routing layout (``fmt="pcell"``,
-float32 only), the hybrid split (``fmt="hybrid"``, float32 and float64:
+float32 and float64), the hybrid split (``fmt="hybrid"``, float32 and float64:
 WHDIA band and packed WHELL rest, the crossing inside its product) and
 classic HELL (``fmt="hell"``, plain torch products) iterate in the
 original numbering.  The TPU budget switches (row blocks past the VMEM x
@@ -69,9 +69,8 @@ def solve(coo: CooMatrix, b, *, device, symmetric: bool = True,
 
     ``symmetric=True`` runs CG (SPD systems, or Hermitian positive-definite
     ones with complex values), else BiCGSTAB.  ``fmt`` overrides the
-    automatic choice: "whell", "sdia", "whdia", "hybrid" (float32 and
-    float64), "hell", "pcell" (float32; a float64 system raises
-    ``NotImplementedError``) or "blocks" (the packed-WHELL route on one
+    automatic choice: "whell", "sdia", "whdia", "hybrid", "hell", "pcell"
+    (float32 and float64) or "blocks" (the packed-WHELL route on one
     layout, where the JAX package builds row blocks); a complex system
     with "hell", "hybrid", "blocks" or "pcell" runs the "hell" route, as
     the JAX ``solve()`` does.  Values are float32,
@@ -103,10 +102,6 @@ def solve(coo: CooMatrix, b, *, device, symmetric: bool = True,
         fmt = "hell"  # the JAX solve()'s complex overrides run its hell route
     if fmt == "blocks":
         fmt = "whell"  # one packed layout holds what JAX cuts into row blocks
-    if fmt == "pcell" and work != torch.float32:
-        raise NotImplementedError(
-            f"fmt='pcell' takes float32 systems, not {work}: float64 pcell is "
-            "ROADMAP module item 14")
 
     m_inv = jacobi_preconditioner(coo, device).to(work) if jacobi else None
     if fmt == "whell":

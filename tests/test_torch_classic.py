@@ -189,10 +189,27 @@ def test_classic_argument_checks():
     for kw in (dict(sort_rows=True), dict(return_plan=True)):
         with pytest.raises(ValueError, match="ways>1"):
             coo_to_whell(coo, device="cpu", packed=False, ways=2, **kw)
+    # float64 converts as the JAX classic layout and multiplies as its op;
+    # complex raises, and so does the JAX op on the same COO
+    x = _x(coo.n_cols, 3).astype(np.float64)
     for dt in (np.float64, np.complex64):
         c = CooMatrix(coo.rows, coo.cols, coo.values.astype(dt), coo.n_rows, coo.n_cols)
-        with pytest.raises(NotImplementedError, match="item 14"):
+        jc = jfix.CooMatrix(coo.rows, coo.cols, coo.values.astype(dt), coo.n_rows,
+                            coo.n_cols)
+        ja = j_coo_to_whell(jc)
+        xj = jnp.asarray(x.astype(dt))
+        if dt == np.float64:
+            ta = coo_to_whell(c, device="cpu", packed=False)
+            assert_same_layout(ja, ta)
+            zt = tops.whell_spmv(ta, torch.from_numpy(x)).numpy()
+            zj = np.asarray(whell_spmv_pallas(ja, xj, interpret=True))
+            for want in (zj, c.spmv(x)):
+                assert np.abs(zt - want).max() <= 1e-12 * np.abs(want).max()
+            continue
+        with pytest.raises(NotImplementedError, match="no complex classic WHELL"):
             coo_to_whell(c, device="cpu", packed=False)
+        with pytest.raises(NotImplementedError):
+            whell_spmv_pallas(ja, xj, interpret=True)
 
 
 def test_classic_to_dense_in_original_numbering():

@@ -13,11 +13,13 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from spgpu_tpu import core as jcore  # noqa: E402
+from spgpu_tpu import ops as jops  # noqa: E402
 from spgpu_tpu.convert import estimate_formats as j_estimate  # noqa: E402
 from spgpu_tpu.convert.whell import coo_to_whell as j_coo_to_whell  # noqa: E402
 from spgpu_tpu.formats.coo import CooMatrix as JCoo  # noqa: E402
 from spgpu_tpu.utils import fixtures as jfix  # noqa: E402
 from spgpu_tpu_torch import core as tcore  # noqa: E402
+from spgpu_tpu_torch import ops  # noqa: E402
 from spgpu_tpu_torch.convert import coo_to_whell, estimate_formats, suggest_format  # noqa: E402
 from spgpu_tpu_torch.convert.whell import local_degree_perm, symmetric_relabel  # noqa: E402
 from spgpu_tpu_torch.formats.coo import CooMatrix  # noqa: E402
@@ -121,9 +123,11 @@ def test_bridge_roundtrip(name):
 
 def test_bridge_refuses_unported_layouts():
     """Classic layouts cross now, with their ``row_perm`` and ``ways``
-    (tests/test_torch_classic.py); what still refuses is a float64 or
-    complex classic layout (the JAX package runs those only in interpret
-    mode).  A double-float packed slab crosses, joined into float64
+    (tests/test_torch_classic.py), a float64 one as its plain float64
+    slab, whose product then matches the JAX op's and the golden; what
+    still refuses is a complex classic layout, which the JAX op refuses
+    too (its Pallas interpreter takes no complex kernel output).  A
+    double-float packed slab crosses, joined into float64
     (tests/test_torch_f64.py)."""
     coo = jfix.laplacian_2d(10, 10, np.float32)
     classic = j_coo_to_whell(coo, ways=2)
@@ -131,13 +135,25 @@ def test_bridge_refuses_unported_layouts():
               for f in ARRAYS + ("row_perm",)}
     ta = from_numpy_fields(fields, ways=2, **{f: getattr(classic, f) for f in STATIC})
     assert not ta.packed and ta.ways == 2
+    x = np.random.default_rng(2).standard_normal(100)
     for dt in (np.float64, np.complex64):
         c = JCoo(coo.rows, coo.cols, coo.values.astype(dt), 100, 100)
         wide = j_coo_to_whell(c)
         fields = {f: (None if getattr(wide, f) is None else np.asarray(getattr(wide, f)))
                   for f in ARRAYS + ("row_perm",)}
-        with pytest.raises(NotImplementedError, match="item 14"):
+        xj = jnp.asarray(x.astype(dt))
+        if dt == np.float64:
+            ta = from_numpy_fields(fields, **{f: getattr(wide, f) for f in STATIC})
+            assert not ta.packed and ta.values.dtype == torch.float64
+            zt = ops.whell_spmv(ta, torch.from_numpy(x)).numpy()
+            zj = np.asarray(jops.whell_spmv(wide, xj, interpret=True))
+            for want in (zj, c.spmv(x)):
+                assert np.abs(zt - want).max() <= 1e-12 * np.abs(want).max()
+            continue
+        with pytest.raises(NotImplementedError, match="no complex classic WHELL"):
             from_numpy_fields(fields, **{f: getattr(wide, f) for f in STATIC})
+        with pytest.raises(NotImplementedError):
+            jops.whell_spmv(wide, xj, interpret=True)
 
 
 def test_bridge_check_rejects_out_of_range_pages():

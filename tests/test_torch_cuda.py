@@ -63,7 +63,11 @@ unit) and after ``whell_update_values``, and shown to skip an Inf in x
 that only zero-valued cells read (a deviation from the JAX kernel, which
 gives NaN there).  #17 runs one warp per tile
 and 4 tiles per block: it is checked on a tile count that is not a
-multiple of 4.
+multiple of 4.  Their float64 entries (``whell_classic_spmv_f64``,
+``whell_classic_spmm_f64``, ``pcell_spmv_f64``) are held to their plain
+float64 versions and the golden at 1e-12·max|z| on the same fixtures and
+edges, counted on ``LAUNCHES_F64``/``LAUNCHES_SPMM_F64`` alone (``-k
+f64`` runs them).
 
 The classic layouts (ELL, OELL, HELL, DIA, HDIA, BCOO: plain torch)
 compute on the card when given CUDA tensors, at the golden and at their
@@ -941,21 +945,29 @@ def test_classic_spmm_after_update_values(cuda_device):
     _classic_spmm_checked(new, b, _xs(8, coo.n_cols, 6), cuda_device)
 
 
+#: a classic layout's value type -> its x's type and the kernels'
+#: tolerance against the golden (atol/max|z| and rtol)
+CLASSIC_X = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.float32, 2e-5),
+             "float64": (torch.float64, 1e-12)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
 def test_classic_spmm_skips_padding_inf(dtype, cuda_device):
     """The deviation (ROADMAP §3), as #15: with Inf in X at columns that
     only zero-valued cells read, the full-layout product (the plain
     version, as the JAX kernel) has NaN lanes; kernel #16 gathers nothing
-    for those cells and gives the golden, at 8 RHS."""
+    for those cells and gives the golden, at 8 RHS (float64: at
+    1e-12·max|Z|)."""
+    xdt, tol = CLASSIC_X[dtype]
     coo = _cut_columns(CASES["fem"]())
     a = coo_to_whell(coo, device=cuda_device, packed=False, dtype=dtype)
-    x = _xs(8, coo.n_cols, 7)
+    x = _xs(8, coo.n_cols, 7).to(xdt)
     x[:, ::128] = float("inf")
     z = ops.whell_spmm(a, x.to(cuda_device), fused=True)
     assert bool(ops.whell_spmm(a.to("cpu"), x, fused=True).isnan().any())
-    assert bool(torch.isfinite(z).all())
-    _near(z, torch.from_numpy(_bf16_golden(coo, a, x.double().numpy())), 2e-5, rtol=2e-5)
+    assert bool(torch.isfinite(z).all()) and z.dtype == xdt
+    _near(z, torch.from_numpy(_bf16_golden(coo, a, x.double().numpy())), tol, rtol=tol)
 
 
 @pytest.mark.cuda
@@ -980,20 +992,21 @@ def test_classic_kernel_after_update_values(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
 def test_classic_kernel_skips_padding_inf(dtype, cuda_device):
     """The deviation (ROADMAP §3): with Inf in x at columns that only
     zero-valued cells read, the full-layout product (the plain version,
     as the JAX kernel) has NaN lanes; kernel #15 skips those cells and
-    gives the golden."""
+    gives the golden (float64: at 1e-12·max|z|)."""
+    xdt, tol = CLASSIC_X[dtype]
     coo = _cut_columns(CASES["fem"]())
     a = coo_to_whell(coo, device=cuda_device, packed=False, dtype=dtype)
-    x = _xs(1, coo.n_cols, 7)[0]
+    x = _xs(1, coo.n_cols, 7)[0].to(xdt)
     x[::128] = float("inf")
     z = ops.whell_spmv(a, x.to(cuda_device))
     assert bool(ops.whell_spmv(a.to("cpu"), x).isnan().any())
-    assert bool(torch.isfinite(z).all())
-    _near(z, torch.from_numpy(_bf16_golden(coo, a, x.double().numpy())), 2e-5, rtol=2e-5)
+    assert bool(torch.isfinite(z).all()) and z.dtype == xdt
+    _near(z, torch.from_numpy(_bf16_golden(coo, a, x.double().numpy())), tol, rtol=tol)
 
 
 PCELL_CASES = {"fem": CASES["fem"], "fem_large": CASES["fem_large"],
@@ -1080,6 +1093,198 @@ def test_solve_pcell_on_cuda(symmetric, cuda_device):
     assert kp.LAUNCHES >= res.iterations > 0
     x = res.x.double().cpu().numpy()
     assert np.linalg.norm(b - coo.spmv(x)) <= 1e-4 * np.linalg.norm(b)
+
+
+# --------------------------------------------------------------------------
+# float64 classic WHELL (#15 and #16, entries whell_classic_spmv_f64 and
+# whell_classic_spmm_f64) and float64 pcell (#17, pcell_spmv_f64): held to
+# their plain float64 versions and the golden at 1e-12·max|z|, counted on
+# the float64 counters alone
+
+F64 = 1e-12
+
+
+def _f64_classic_checked(coo, a, x, cuda_device):
+    """#15 in float64 through ``whell_spmv``: one launch on
+    ``LAUNCHES_F64`` and none on ``LAUNCHES``, against the full-layout
+    plain version and the golden."""
+    before = (kc.LAUNCHES_F64, kc.LAUNCHES)
+    z = ops.whell_spmv(a, x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert (kc.LAUNCHES_F64, kc.LAUNCHES) == (before[0] + 1, before[1])
+    assert z.shape == (coo.n_rows,) and z.dtype == torch.float64
+    _near(z, ops.whell_spmv(a.to("cpu"), x), F64)
+    _near(z, torch.from_numpy(coo.spmv(x.numpy())), F64)
+    return z
+
+
+def _f64_classic_spmm_checked(coo, a, x, cuda_device):
+    """#16 in float64 through ``whell_spmm(fused=True)``: one launch on
+    ``LAUNCHES_SPMM_F64`` and none of #15 in any type, against the
+    full-layout plain version and the golden."""
+    before = (kc.LAUNCHES_SPMM_F64, kc.LAUNCHES_F64, kc.LAUNCHES_SPMM)
+    z = ops.whell_spmm(a, x.to(cuda_device), fused=True)
+    torch.cuda.synchronize()
+    assert (kc.LAUNCHES_SPMM_F64, kc.LAUNCHES_F64, kc.LAUNCHES_SPMM) == \
+        (before[0] + 1, before[1], before[2])
+    assert z.shape == (x.shape[0], coo.n_rows) and z.dtype == torch.float64
+    _near(z, ops.whell_spmm(a.to("cpu"), x, fused=True), F64)
+    _near(z, torch.from_numpy(coo.spmv(x.numpy())), F64)
+    return z
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, dict(sort_rows=True), dict(ways=2)],
+                         ids=["plain", "oell", "ways2"])
+@pytest.mark.parametrize("name", sorted(CLASSIC_CASES))
+def test_f64_classic_kernel_matches_plain_and_golden(name, kw, cuda_device):
+    coo = _f64(CLASSIC_CASES[name]())
+    a = coo_to_whell(coo, device=cuda_device, packed=False, **kw)
+    assert a.values.dtype == torch.float64
+    _f64_classic_checked(coo, a, _xs(1, coo.n_cols, 3)[0].double(), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rhs", [1, 2, 3, 8, 11, 17])
+def test_f64_classic_spmm_kernel_takes_any_rhs_count(n_rhs, cuda_device):
+    """#16 in float64: even counts take the double2 loads of a full block
+    (8, and 17's first two blocks take the scalar loads: odd), the rest
+    the scalar loads; on a way-split layout too."""
+    coo = _f64(CASES["fem_large"]())
+    for kw in ({}, dict(ways=2)):
+        a = coo_to_whell(coo, device=cuda_device, packed=False, **kw)
+        _f64_classic_spmm_checked(coo, a, _xs(n_rhs, coo.n_cols, n_rhs).double(),
+                                  cuda_device)
+
+
+@pytest.mark.cuda
+def test_f64_classic_spmm_default_loops_kernel_15(cuda_device):
+    a = coo_to_whell(_f64(CASES["laplace_wide"]()), device=cuda_device, packed=False)
+    xs = _xs(8, a.n_cols).double().to(cuda_device)
+    before = (kc.LAUNCHES_F64, kc.LAUNCHES_SPMM_F64)
+    z = ops.whell_spmm(a, xs)
+    torch.cuda.synchronize()
+    assert (kc.LAUNCHES_F64, kc.LAUNCHES_SPMM_F64) == (before[0] + 8, before[1])
+    _near(z, ops.whell_spmm(a, xs, fused=True), F64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, dict(sort_rows=True), dict(ways=2)],
+                         ids=["plain", "oell", "ways2"])
+@pytest.mark.parametrize("name", sorted(SPMM_WORK_CASES))
+def test_f64_classic_kernels_on_work_list_edges(name, kw, cuda_device):
+    """#15 and #16 (11 RHS) in float64 over the work lists of explicit
+    zeros, all-dead tiles and units, columns read by padding alone, the
+    empty list and one unit."""
+    coo = _f64(SPMM_WORK_CASES[name]())
+    a = coo_to_whell(coo, device=cuda_device, packed=False, **kw)
+    _f64_classic_checked(coo, a, _xs(1, coo.n_cols, 5)[0].double(), cuda_device)
+    _f64_classic_spmm_checked(coo, a, _xs(11, coo.n_cols, 5).double(), cuda_device)
+
+
+@pytest.mark.cuda
+def test_f64_classic_after_update_values(cuda_device):
+    """``whell_update_values`` on a float64 card layout: explicit zeros
+    become nonzero, the rebuilt list covers them, and #15 and #16 follow."""
+    from spgpu_tpu_torch.convert import whell_update_values
+
+    coo = _f64(_zeros_and_dead_tiles())
+    a, plan = coo_to_whell(coo, device=cuda_device, packed=False, return_plan=True)
+    newv = np.random.default_rng(4).standard_normal(coo.nnz)
+    b = whell_update_values(a, plan, newv)
+    assert b.values.dtype == torch.float64
+    assert b.work_list.numel() > a.work_list.numel() and b.work_list.device == b.device
+    b.check()
+    new = CooMatrix(coo.rows, coo.cols, newv, coo.n_rows, coo.n_cols)
+    _f64_classic_checked(new, b, _xs(1, coo.n_cols, 6)[0].double(), cuda_device)
+    _f64_classic_spmm_checked(new, b, _xs(8, coo.n_cols, 6).double(), cuda_device)
+
+
+@pytest.mark.cuda
+def test_f64_classic_kernels_need_the_work_list(cuda_device):
+    """On the card the float64 wrappers launch over the work list or
+    raise: no fallback to the plain version, no launch counted."""
+    a = coo_to_whell(_f64(CASES["fem"]()), device=cuda_device, packed=False)
+    layout = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group)
+    x2 = ops._prep_x(torch.zeros(a.n_cols, dtype=torch.float64, device=cuda_device),
+                     a.n_cols, a.x_pages)
+    before = (kc.LAUNCHES_F64, kc.LAUNCHES_SPMM_F64)
+    with pytest.raises(ValueError, match="work list"):
+        kc.whell_classic_spmv(*layout, x2, num_groups=a.num_groups,
+                              tile_page=a.tile_page)
+    with pytest.raises(ValueError, match="work list"):
+        kc.whell_classic_spmm(*layout, x2.unsqueeze(0), num_groups=a.num_groups,
+                              tile_page=a.tile_page)
+    with pytest.raises(ValueError, match="float64 for torch.float64 values"):
+        kc.whell_classic_spmv(*layout, x2.float(), num_groups=a.num_groups,
+                              work=a.work_list, tile_page=a.tile_page)
+    assert (kc.LAUNCHES_F64, kc.LAUNCHES_SPMM_F64) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", ["default", "small", "odd"])
+@pytest.mark.parametrize("name", sorted(PCELL_CASES))
+def test_f64_pcell_kernel_matches_plain_and_golden(name, geometry, cuda_device):
+    """#17 in float64 (pcell_spmv_f64): one launch on ``LAUNCHES_F64``
+    and none on ``LAUNCHES``, against its plain float64 version (the same
+    scan-then-difference arithmetic) and the golden, at 1e-12·max|z|; the
+    odd geometry (7-tile chunks) gives a tile count off the kernel's 4
+    tiles a block."""
+    coo = _f64(PCELL_CASES[name]())
+    geo = {"default": {}, "small": dict(group_hacks=32, chunk_tiles=16),
+           "odd": dict(group_hacks=32, chunk_tiles=7)}[geometry]
+    a = coo_to_whell_percell(coo, device=cuda_device, **geo)
+    assert a.values.dtype == torch.float64
+    x, y = _xs(1, coo.n_cols)[0].double(), _xs(1, coo.n_rows, 3)[0].double()
+    before = (kp.LAUNCHES_F64, kp.LAUNCHES)
+    z = ops.whell_spmv(a, x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert (kp.LAUNCHES_F64, kp.LAUNCHES) == (before[0] + 1, before[1])
+    assert z.shape == (coo.n_rows,) and z.dtype == torch.float64
+    _near(z, ops.whell_spmv(a.to("cpu"), x), F64)
+    _near(z, torch.from_numpy(coo.spmv(x.numpy())), F64)
+    z2 = ops.whell_spmv(a, x.to(cuda_device), alpha=2.0, beta=-0.5, y=y.to(cuda_device))
+    _near(z2, 2.0 * z.cpu() - 0.5 * y, F64)
+
+
+@pytest.mark.cuda
+def test_f64_pcell_kernel_refuses_a_misaligned_slab(cuda_device):
+    """#17 in float64 loads a thread's 4 values as two 16 B loads: a slab
+    off a 16 B boundary raises instead of launching."""
+    a = coo_to_whell_percell(_f64(CASES["fem"]()), device=cuda_device)
+    flat = torch.zeros(a.values.numel() + 1, dtype=torch.float64, device=cuda_device)
+    off = flat[1:].view_as(a.values)
+    off.copy_(a.values)
+    before = kp.LAUNCHES_F64
+    with pytest.raises(ValueError, match="aligned"):
+        kp.pcell_spmv(off, a.residue, a.page_tab, a.run_hi, a.run_lo, a.tile_base,
+                      a.chunk_group, a.group_bases,
+                      ops._prep_x(torch.zeros(a.n_cols, dtype=torch.float64,
+                                              device=cuda_device), a.n_cols,
+                                  a.x_pages), tile_page=a.tile_page,
+                      chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+                      window_pages=a.window_pages, num_groups=a.num_groups)
+    assert kp.LAUNCHES_F64 == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symmetric", [True, False], ids=["cg", "bicgstab"])
+def test_f64_solve_pcell_on_cuda(symmetric, cuda_device):
+    """``solve(fmt="pcell")`` on a float64 system to 1e-10: every
+    iteration through #17 in float64, true residual ≤ 1e-9."""
+    d = random_fem_like(1500, 10.0, span=120, far_frac=0.0, seed=12,
+                        dtype=np.float32).to_dense().astype(np.float64)
+    d = (d + d.T) / 2 + np.eye(1500) * (np.abs(d).sum(1).max() + 1)
+    r, c = np.nonzero(d)
+    coo = CooMatrix(r, c, d[r, c], 1500, 1500)
+    b = np.random.default_rng(11).standard_normal(1500)
+    kp.LAUNCHES_F64, kp.LAUNCHES = 0, 0
+    res = solve(coo, b, device=cuda_device, fmt="pcell", symmetric=symmetric,
+                tol=1e-10, maxiter=3000)
+    assert bool(res.converged) and res.x.dtype == torch.float64
+    assert kp.LAUNCHES_F64 >= res.iterations > 0 and kp.LAUNCHES == 0
+    x = res.x.cpu().numpy()
+    assert np.linalg.norm(b - coo.spmv(x)) <= 1e-9 * np.linalg.norm(b)
 
 
 # --------------------------------------------------------------------------
@@ -1824,7 +2029,7 @@ GRAPH_ROUTES = {("whell", "float32"): True, ("whell", "float64"): True,
                 ("sdia", "complex64"): True, ("sdia", "complex128"): True,
                 ("whdia", "float32"): True, ("whdia", "float64"): True,
                 ("whdia", "complex64"): True, ("whdia", "complex128"): True,
-                ("pcell", "float32"): False,
+                ("pcell", "float32"): False, ("pcell", "float64"): False,
                 # the hybrid split: #3 + #1 or #6 + #4 and an index copy each
                 # way; classic HELL: plain torch, each hack summed in slot
                 # order by segment_reduce (no atomics)

@@ -17,7 +17,9 @@ ones for twice as long), and each is asserted on its own:
   phantom lanes) against the host golden;
 * the solve handle's two solves on one placement (``placements`` 1);
 * the classic partition's SpMV (2e-5·max|z|) and CG against the JAX
-  ``PartitionedWhell`` path.
+  ``PartitionedWhell`` path, in float32 and in float64 (1e-12·max|z|;
+  CG to 1e-11, iterations within 2, x within 1e-9 of the JAX x): the
+  JAX classic partition keeps float64 slabs and ``dist_spmv`` runs them.
 """
 
 import numpy as np
@@ -109,6 +111,8 @@ def ranked():
     systems = {name: spec[0]() for name, spec in SOLVES.items()}
     lap = tfix.laplacian_2d(24, 64, np.float32)
     b, b2 = rhs(lap, 1), rhs(lap, 2)
+    lap64 = as_type(lap, np.float64)
+    b64 = rhs(lap64, 1)
     m_inv = jacobi_preconditioner(lap, "cpu").numpy()
     jobs = {}
     for W in WORLDS:
@@ -123,6 +127,9 @@ def ranked():
         pw = partition_coo_rows_whell(lap, W)
         cases.append(("spmv", pw, dict(x=b)))
         cases.append(("cg", pw, dict(b=b, tol=1e-6, maxiter=3000)))
+        pw64 = partition_coo_rows_whell(lap64, W)
+        cases.append(("spmv", pw64, dict(x=b64)))
+        cases.append(("cg", pw64, dict(b=b64, tol=1e-11, maxiter=6000)))
         jobs[W] = cases
     with ThreadPoolExecutor(1) as ex:
         runs = {W: ex.submit(run_ranks, W, "spgpu_tpu_torch.parallel.dryrun:run_cases",
@@ -138,6 +145,10 @@ def ranked():
         refs["classic-spmv"] = np.asarray(j_dist_spmv(jw, b, make_row_mesh(2)))
         r = j_cg(jw, b, make_row_mesh(2), tol=1e-6, maxiter=3000)
         refs["classic-cg"] = (np.asarray(r.x), int(r.iterations))
+        jw = j_partition_whell(jcoo(lap64), 2)
+        refs["classic-spmv-float64"] = np.asarray(j_dist_spmv(jw, b64, make_row_mesh(2)))
+        r = j_cg(jw, b64, make_row_mesh(2), tol=1e-11, maxiter=6000)
+        refs["classic-cg-float64"] = (np.asarray(r.x), int(r.iterations))
         results = {W: f.result() for W, f in runs.items()}
     return systems, lap, (b, b2, m_inv), results, refs
 
@@ -200,6 +211,24 @@ def test_classic_partition_matches_jax(ranked, W):
     assert got["converged"] and abs(got["iterations"] - it_ref) <= max(1, it_ref // 10)
     assert np.abs(got["x"] - x_ref).max() <= 1e-3 * np.abs(x_ref).max()
     assert true_residual(lap, b, got["x"]) <= 1e-4
+
+
+@pytest.mark.parametrize("W", WORLDS)
+def test_classic_partition_f64_matches_jax(ranked, W):
+    """The float64 classic partition (kernel #15's float64 plain version on
+    each shard) against the JAX float64 ``PartitionedWhell`` path."""
+    _, lap, (b, _, _), results, refs = ranked
+    lap64, b64 = as_type(lap, np.float64), rhs(as_type(lap, np.float64), 1)
+    z = agree(results[W], len(SOLVES) + 4)
+    assert z.dtype == np.float64
+    for want in (lap64.spmv(b64), refs["classic-spmv-float64"]):
+        assert np.abs(z - want).max() <= 1e-12 * np.abs(want).max()
+    got = agree(results[W], len(SOLVES) + 5)
+    x_ref, it_ref = refs["classic-cg-float64"]
+    assert got["converged"] and got["x"].dtype == np.float64
+    assert abs(got["iterations"] - it_ref) <= 2, (got["iterations"], it_ref)
+    assert np.abs(got["x"] - x_ref).max() <= 1e-9 * np.abs(x_ref).max()
+    assert true_residual(lap64, b64, got["x"]) <= 1e-9
 
 
 def test_complex_m_inv_raises():

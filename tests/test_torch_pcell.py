@@ -185,19 +185,38 @@ def test_pcell_spmm_loops_and_fused_raises(monkeypatch):
 
 
 def test_pcell_refuses_other_value_types():
-    """The converter takes float32 only, and ``solve(fmt="pcell")`` raises
-    on a float64 system (ROADMAP item 14); on a complex one it runs the
-    classic ``hell`` route, as the JAX ``solve()`` does, the same bits as
-    ``fmt="hell"``."""
+    """The converter takes float32 and float64: a float64 layout equals
+    the JAX one and its product the JAX op's and the golden, and
+    ``solve(fmt="pcell")`` solves a float64 system in float64
+    (tests/test_torch_f64_classic.py holds it to the JAX route).  Complex
+    values raise in the converter, as the JAX op raises on the JAX
+    converter's complex layout; ``solve(fmt="pcell")`` on a complex system
+    runs the classic ``hell`` route, as the JAX ``solve()`` does, the same
+    bits as ``fmt="hell"``."""
     c = CASES["laplace"](tfix)
+    jc = CASES["laplace"](jfix)
+    x = np.random.default_rng(5).standard_normal(c.n_cols)
     for dt in (np.float64, np.complex64):
         coo = CooMatrix(c.rows, c.cols, c.values.astype(dt), c.n_rows, c.n_cols)
-        with pytest.raises(NotImplementedError, match="item 14"):
-            coo_to_whell_percell(coo, device="cpu")
+        ja = j_percell(JCoo(jc.rows, jc.cols, jc.values.astype(dt), jc.n_rows,
+                            jc.n_cols), **SMALL)
+        xj = jnp.asarray(x.astype(dt))
         if dt == np.float64:
-            with pytest.raises(NotImplementedError, match="pcell"):
-                solve(coo, np.ones(c.n_rows, dt), device="cpu", fmt="pcell")
+            ta = coo_to_whell_percell(coo, device="cpu", **SMALL)
+            assert_same_layout(ja, ta)
+            zt = tops.whell_spmv(ta, torch.from_numpy(x)).numpy()
+            for want in (np.asarray(jops.whell_spmv(ja, xj, interpret=True)),
+                         coo.spmv(x)):
+                assert np.abs(zt - want).max() <= 1e-12 * np.abs(want).max()
+            b = np.ones(c.n_rows, dt)
+            r = solve(coo, b, device="cpu", fmt="pcell", tol=1e-10)
+            assert bool(r.converged) and r.x.dtype == torch.float64
+            assert np.linalg.norm(b - coo.spmv(r.x.numpy())) <= 1e-9 * np.linalg.norm(b)
             continue
+        with pytest.raises(NotImplementedError, match="no complex pcell product"):
+            coo_to_whell_percell(coo, device="cpu")
+        with pytest.raises(NotImplementedError):
+            jops.whell_spmv(ja, xj, interpret=True)
         b = np.ones(c.n_rows, dt)
         rp = solve(coo, b, device="cpu", fmt="pcell", tol=1e-5)
         rh = solve(coo, b, device="cpu", fmt="hell", tol=1e-5)
