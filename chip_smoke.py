@@ -144,12 +144,14 @@ the float64 geometry sweep, and checks them:
                (``symmetric_relabel(coo, local_degree_perm(coo))``) through
                ``coo_to_whell(..., packed=False)`` in fp32 and bf16 and
                ``whell_spmv`` (kernel #15, over the layout's work list of
-               live units), held against the full-layout plain version and
-               the golden, timed; with the work list's live-unit and
-               live-warp-slot shares and both bounds (the full layout's
-               and the live cells', ``bound_ms``) and the kernel's share of
-               each; then ``whell_update_values`` on the fp32 layout (every
-               third entry zeroed, then all refreshed), each through #15
+               live units), held against the
+               full-layout plain version and the golden, timed; with the
+               work list's live-unit and live-warp-slot shares and four
+               bounds (the full layout's, the live warp-slots', and the
+               live 32 B sectors' (``bound_ms``) and 64 B segments') and
+               the kernel's share of each; then ``whell_update_values`` on
+               the fp32 layout (every third entry zeroed, then all
+               refreshed), each through #15
                against the plain version and its golden; then the raw
                flagship with ``sort_rows=True`` (OELL) and ``ways=2``
                through #15, against the plain version and the golden;
@@ -157,15 +159,19 @@ the float64 geometry sweep, and checks them:
                list as #15) on the relabelled classic fp32 and bf16
                layouts, 8 RHS, one launch each, beside the default loop of
                #15 (8 launches, none of #16) and cuSPARSE SpMM, with its
-               device time by kernel, both bounds for 8 RHS (live and
-               full) and the kernel's share of each;
+               device time by kernel, the bounds of 22 for 8 RHS and the
+               kernel's share of each;
 24. pcell    — ``coo_to_whell_percell`` on the raw flagship and
-               ``whell_spmv`` (kernel #17), against the plain version and
-               the golden, timed with its bound and its share of it
-               (``bound_share``), beside kernel #1's device time from 3;
+               ``whell_spmv`` (kernel #17, the hack pass over the layout's
+               hack lists), against the plain version and the golden,
+               written over a NaN-filled z and the same bits twice, timed
+               with its bound (the listed tiles') and its share of it
+               (``bound_share``) beside the full layout's, beside kernel
+               #1's device time from 3;
 25. solve_pcell — ``solve(spd, b, fmt="pcell", tol=1e-5)`` on the SPD
                system of 5, counted on kernel #17's counter, then the
-               graphed CG loop beside its eager witness as in 5;
+               graphed CG loop beside its eager witness as in 5 (bit for
+               bit), with the layout's work units and chunked rows;
 25a. classic_f64, classic_spmm_f64, pcell_f64, solve_pcell_f64 — the
                float64 entries of #15, #16 and #17: the relabelled
                flagship's fp32 values in float64 through
@@ -176,12 +182,12 @@ the float64 geometry sweep, and checks them:
                loop of #15 f64 and cuSPARSE SpMM; the raw float64 flagship
                through ``coo_to_whell_percell`` (#17 f64) beside #4; each
                held to its plain version and the golden at 1e-12·max|z|,
-               timed warm and cold with both bounds (10 B a live classic
-               cell, 12 B a pcell cell) and cuSPARSE CSR in float64, #17's
-               ptxas line beside it; then ``solve(fmt="pcell", tol=1e-10)``
-               on the float64 SPD flagship (true residual ≤ 1e-9), its
-               graphed loop beside its eager witness (the iteration and
-               residual gate: #17 sums with atomics);
+               timed warm and cold with their bounds (a float64 classic
+               cell's 8 B value only in its live sector, 12 B a listed
+               pcell cell) and cuSPARSE CSR in float64, #17's ptxas line
+               beside it; then ``solve(fmt="pcell", tol=1e-10)`` on the
+               float64 SPD flagship (true residual ≤ 1e-9), its graphed
+               loop beside its eager witness bit for bit;
 26. ablation_whdia, ablation_whdia_hack, ablation_whdia_laplace,
                ablation_whdia_hack_laplace — the per-op account of #3
                (kernel #18, ``spgpu_tpu_torch.sweeps.whdia_ablation``) on
@@ -229,9 +235,13 @@ the float64 geometry sweep, and checks them:
                then #12 (flagship) and #16 (relabelled, classic) at 8 RHS
                in fp32 and bf16 (#16 also in float64), op and kernels,
                warm and cold, with their
-               bounds, beside cuSPARSE SpMM (``kernel_times``;
-               ``python3 chip_smoke.py --kernel-times`` runs this phase
-               alone, also from an older checkout's root).
+               bounds, beside cuSPARSE SpMM; then #17's account on the
+               float64 pcell layout (``sweeps.kernel_account``: the
+               production kernel and its builds without the x gathers and
+               without the lane scan, warm and cold, with each family's
+               price) (``kernel_times``; ``python3 chip_smoke.py
+               --kernel-times`` runs this phase alone, also from an older
+               checkout's root, where the account is None).
 
 30. large    — the JAX benchmark's row-block cells (``bench.py:306-389``)
                at its TPU size, on one packed layout: the fp32
@@ -469,26 +479,11 @@ def flagship(dtype=np.float32):
 
 
 def spd_from(coo, dtype=np.float32):
-    """(A + Aᴴ)/2 with duplicates summed and each diagonal entry set to
-    its row's off-diagonal |·|-sum + 1 (strictly dominant: symmetric, or
-    Hermitian for complex values, and positive-definite), with ``dtype``
-    values."""
-    from spgpu_tpu_torch.formats.coo import CooMatrix
+    """The SPD (or Hermitian positive-definite) form of ``coo`` with
+    ``dtype`` values (:func:`spgpu_tpu_torch.utils.fixtures.spd_from`)."""
+    from spgpu_tpu_torch.utils.fixtures import spd_from as spd
 
-    n = coo.n_rows
-    v = coo.values.astype(np.complex128 if np.iscomplexobj(coo.values)
-                          else np.float64) / 2
-    sym = CooMatrix(np.concatenate([coo.rows, coo.cols]),
-                    np.concatenate([coo.cols, coo.rows]),
-                    np.concatenate([v, np.conj(v)]), n, n).sum_duplicates()
-    off = sym.rows != sym.cols
-    diag = np.bincount(sym.rows[off], weights=np.abs(sym.values[off]),
-                       minlength=n) + 1.0
-    idx = np.arange(n, dtype=np.int64)
-    return CooMatrix(np.concatenate([sym.rows[off], idx]),
-                     np.concatenate([sym.cols[off], idx]),
-                     np.concatenate([sym.values[off], diag]).astype(dtype),
-                     n, n).sum_duplicates()
+    return spd(coo, dtype)
 
 
 def with_imag(coo, seed, dtype):
@@ -847,11 +842,12 @@ def whdia_phase(coo, mode, device, label, wa=None, convert_s=None):
 
 #: (fmt, value dtype name) of the solve routes whose kernel gives the same
 #: bits every call (SDIA #2/#5/#8/#11, WHDIA #3/#6/#9/#10, packed WHELL
-#: #1/#4/#7 and complex128 on the hack pass, the hybrid split's #3 + #1
-#: and #6 + #4 with its index copies, and HELL's plain products, each hack
-#: summed in slot order): their graphed solves must equal the eager
-#: witness bit for bit; the other (#17) sums with atomics
-BIT_REPRODUCIBLE = {("sdia", "float32"), ("sdia", "float64"), ("sdia", "complex64"),
+#: #1/#4/#7 and complex128 on the hack pass, pcell #17 on its hack pass,
+#: the hybrid split's #3 + #1 and #6 + #4 with its index copies, and
+#: HELL's plain products, each hack summed in slot order): their graphed
+#: solves must equal the eager witness bit for bit
+BIT_REPRODUCIBLE = {("pcell", "float32"), ("pcell", "float64"),
+                    ("sdia", "float32"), ("sdia", "float64"), ("sdia", "complex64"),
                     ("sdia", "complex128"), ("whdia", "float32"),
                     ("whdia", "float64"), ("whdia", "complex64"),
                     ("whdia", "complex128"), ("whell", "float32"),
@@ -1517,14 +1513,19 @@ def spmm_loop_phase(lap, band, a32, a64, ac64, device):
 def classic_live(a, x2, n_rhs=1):
     """What kernels #15 and #16 read of a classic layout: the work list's
     share of the (tile, 32-lane quarter) units and of the (slot, 32-lane)
-    warp-slots, and the two bounds: the full layout (every layout array
-    once, x and the stored-row z once per RHS: what the first designs
-    read) and the live one (the live warp-slots' values and residues, the
+    warp-slots, and four bounds: the full layout (every layout array once,
+    x and the stored-row z once per RHS: what the first designs read);
+    the live warp-slots' (their whole 32 lanes of values and residues, the
     32 B page-table sectors their nonzero cells touch, the work list, x
-    and z once per RHS), each with the kernel's share of it once the phase
-    has its time.  ``x2`` is the padded x, ``(x_pages, 128)``, or the
-    ``(n_rhs, x_pages, 128)`` stack of ``n_rhs`` RHS; z has its type (a
-    float64 layout: 10 B a live cell with its residue and page entry)."""
+    and z once per RHS: what #15 read before its sector list and #16
+    reads); and the live sectors' at 32 B and at 64 B (values only in the
+    32 B sectors, or 64 B segments, that hold a nonzero, the rest as the
+    warp-slots', plus the sector list, 8 B a live unit, where #15 reads
+    one: a float64 layout's, one RHS).
+    ``live_bound_bytes`` is the 32 B one.  ``x2`` is the padded x,
+    ``(x_pages, 128)``, or the ``(n_rhs, x_pages, 128)`` stack of
+    ``n_rhs`` RHS; z has its type.  Computed from the values and the work
+    list, so an older checkout (no sector list) is priced too."""
     import torch
 
     wl = a.work_list
@@ -1536,19 +1537,39 @@ def classic_live(a, x2, n_rhs=1):
     slot, lane = torch.nonzero(nz, as_tuple=True)
     sectors[slot, a.residue[slot, lane].long() >> 5] = True
     isz, zsz = a.values.element_size(), x2.element_size()
-    live = (live_slots * 32 * (isz + 1) + int(sectors.sum()) * 32
-            + nbytes(wl, x2) + n_rhs * a.rows_padded * zsz)
+    dt = str(x2.dtype).removeprefix("torch.")
+    rest = (live_slots * 32 + int(sectors.sum()) * 32 + nbytes(wl, x2)
+            + n_rhs * a.rows_padded * zsz)
+    value_bytes = {g: int(nz.view(S, 128 * isz // g, g // isz).any(dim=2).sum()) * g
+                   for g in (32, 64)}
+    warp_slot = live_slots * 32 * isz + rest
+    listed = nbytes(getattr(a, "work_sectors", None)) if n_rhs == 1 else 0
+    sector = {g: value_bytes[g] + rest + listed for g in (32, 64)}
     full = nbytes(a.values, a.residue, a.page_tab, a.tile_base,
                   getattr(a, "tile_page", None), a.chunk_group, x2) \
         + n_rhs * a.rows_padded * zsz
-    full_bound = bound(full, 0, str(x2.dtype).removeprefix("torch."))
     return dict(units=a.num_tiles * 4, live_units=wl.numel(),
                 live_unit_share=wl.numel() / (a.num_tiles * 4),
                 warp_slots=S * 4, live_warp_slots=live_slots,
                 live_warp_slot_share=live_slots / (S * 4),
                 live_slab_mib=live_slots * 32 * (isz + 2) / 2**20,
-                full_bound_ms=full_bound["bound_ms"], full_bound_bytes=full,
-                live_bound_bytes=live)
+                live_sector_value_mb=value_bytes[32] / 1e6,
+                live_segment_value_mb=value_bytes[64] / 1e6,
+                warp_slot_value_mb=live_slots * 32 * isz / 1e6,
+                full_bound_ms=bound(full, 0, dt)["bound_ms"], full_bound_bytes=full,
+                warp_slot_bound_ms=bound(warp_slot, 0, dt)["bound_ms"],
+                warp_slot_bound_bytes=warp_slot,
+                segment_bound_ms=bound(sector[64], 0, dt)["bound_ms"],
+                segment_bound_bytes=sector[64], live_bound_bytes=sector[32])
+
+
+def classic_shares(out, ms):
+    """The kernel's share (``bound / ms``) of each bound of
+    :func:`classic_live` in ``out`` (``bound_ms`` is the 32 B sectors')."""
+    return dict(live_bound_share=out["bound_ms"] / ms,
+                warp_slot_bound_share=out["warp_slot_bound_ms"] / ms,
+                segment_bound_share=out["segment_bound_ms"] / ms,
+                full_bound_share=out["full_bound_ms"] / ms)
 
 
 def classic_types(a):
@@ -1598,7 +1619,8 @@ def classic_phase(coo, a, device, label, cold=False):
                              *tol_golden, f"{label}: kernel vs host golden")
     library, refused = library_call(coo, xt, device)
     kernel = lambda: kc.whell_classic_spmv(  # noqa: E731
-        *layout, x2, num_groups=a.num_groups, work=a.work_list, tile_page=a.tile_page)
+        *layout, x2, num_groups=a.num_groups, work=a.work_list,
+        work_sectors=a.work_sectors, tile_page=a.tile_page)
     t = timed(kernel,
               lambda: kc.whell_classic_spmv_plain(*layout, x2, num_groups=a.num_groups,
                                                   tile_page=a.tile_page),
@@ -1615,8 +1637,7 @@ def classic_phase(coo, a, device, label, cold=False):
         **live, **bound(live["live_bound_bytes"], flops, np.dtype(xdt).name))
     if cold:
         out["kernel_device"] = kernel_cold(kernel, ("classic_spmv",))
-    return dict(out, live_bound_share=out["bound_ms"] / t["kernel_device_ms"],
-                full_bound_share=out["full_bound_ms"] / t["kernel_device_ms"])
+    return dict(out, **classic_shares(out, t["kernel_device_ms"]))
 
 
 def classic_variant(coo, device, label, **kw):
@@ -1657,6 +1678,7 @@ def classic_variant(coo, device, label, **kw):
     dev, src = device_ms(lambda: kc.whell_classic_spmv(*layout, x2,
                                                        num_groups=a.num_groups,
                                                        work=a.work_list,
+                                                       work_sectors=a.work_sectors,
                                                        tile_page=a.tile_page))
     op_dev, _ = device_ms(lambda: ops.whell_spmv(a, xt))
     slab_bytes = a.total_slots * 128 * (a.values.element_size() + 2)
@@ -1667,8 +1689,7 @@ def classic_variant(coo, device, label, **kw):
                max_abs_err_vs_golden=err, kernel_device_ms=dev,
                kernel_device_source=src, op_device_ms=op_dev, **live,
                **bound(live["live_bound_bytes"], 2 * coo.nnz, "float32"))
-    return dict(out, live_bound_share=out["bound_ms"] / dev,
-                full_bound_share=out["full_bound_ms"] / dev)
+    return dict(out, **classic_shares(out, dev))
 
 
 def classic_update(coo, a, plan, device, label):
@@ -1774,8 +1795,7 @@ def classic_spmm_phase(coo, a, device, label, cold=False):
                **t, **live, **bound(live["live_bound_bytes"], flops, np.dtype(xdt).name))
     if cold:
         out["kernel_device"] = kernel_cold(kernel, ("classic_spmm",))
-    out.update(live_bound_share=out["bound_ms"] / t["kernel_device_ms"],
-               full_bound_share=out["full_bound_ms"] / t["kernel_device_ms"])
+    out.update(classic_shares(out, t["kernel_device_ms"]))
     return spmm_summary(out, flops, kernel)
 
 
@@ -1783,13 +1803,15 @@ def pcell_phase(coo, device, spmv, label, ptxas=None):
     """``coo_to_whell_percell`` (timed) in the COO's type (float32 or
     float64) and kernel #17 through ``whell_spmv``, its one launch counted
     from 0 on its type's counter; held against the plain version and the
-    float64 golden (fp32: atomics, 1e-5 and 1e-4; float64: 1e-12·max|z|
-    against both); then timed with its bound (every layout array once, x
-    and z once: 8 B a cell in fp32, 12 in float64), beside the packed
-    WHELL kernel's device time and bound on the same matrix in the same
-    type (``spmv``, the spmv or spmv_f64 phase's result); a float64 one
-    also with its kernel's own device time warm and cold and its ptxas
-    line (``ptxas``)."""
+    float64 golden (fp32: 1e-5 and 1e-4; float64: 1e-12·max|z| against
+    both); its z written over a NaN-filled block and the same bits twice;
+    then timed with its bound (the listed tiles' cells once, 8 B a cell in
+    fp32, 12 in float64, their pages, the hack lists, x and z once: what
+    the hack pass reads) beside the full one (every layout array once),
+    beside the packed WHELL kernel's device time and bound on the same
+    matrix in the same type (``spmv``, the spmv or spmv_f64 phase's
+    result); a float64 one also with its kernel's own device time warm and
+    cold and its ptxas line (``ptxas``)."""
     import torch
 
     from spgpu_tpu_torch import ops
@@ -1824,13 +1846,24 @@ def pcell_phase(coo, device, spmv, label, ptxas=None):
     err_golden = check_close(z.cpu().numpy(), coo.spmv(x.astype(np.float64)),
                              *tol_golden, f"{label}: kernel vs host golden")
     library, refused = library_call(coo, xt, device)
-    kernel = lambda: kp.pcell_spmv(*layout, x2, **static)  # noqa: E731
+    kernel = lambda: kp.pcell_spmv(*layout, x2, **static,  # noqa: E731
+                                   hack_tiles=p.hack_tiles, hack_units=p.hack_units)
+    zk = written_over_nan(kernel, p.num_groups * p.group_hacks * 128, p.values.dtype,
+                          device, label)
+    if not torch.equal(zk, kernel()):
+        raise AssertionError(f"{label}: two launches differ")
     t = timed(kernel, lambda: kp.pcell_spmv_plain(*layout, x2, **static), library,
               refused)
     flops = 2 * coo.nnz
     slab_bytes = p.total_slots * 128 * (p.values.element_size() + 4)
+    listed = p.hack_tiles.numel()
+    moved = (listed * (1024 * (p.values.element_size() + 4) + 4)
+             + nbytes(p.group_bases, p.hack_tiles, p.hack_units, x2, z))
     out = dict(
-        nnz=coo.nnz, convert_s=convert_s, tiles=p.num_tiles, launches=launches,
+        nnz=coo.nnz, convert_s=convert_s, tiles=p.num_tiles, listed_tiles=listed,
+        work_units=p.hack_units.shape[0], bit_identical=True, rows_written_over_nan=True,
+        full_bound_ms=bound(nbytes(*layout, x2, z), flops,
+                            np.dtype(xdt).name)["bound_ms"],
         group_hacks=p.group_hacks, chunk_tiles=p.chunk_tiles,
         layout_groups=p.group_bases.numel() // (p.window_pages // 8),
         padding=p.total_slots * 128 / coo.nnz, slab_mib=slab_bytes / 2**20,
@@ -1838,9 +1871,9 @@ def pcell_phase(coo, device, spmv, label, ptxas=None):
         kernel_device_gflops=flops / (t["kernel_device_ms"] * 1e6),
         packed_whell_device_ms=spmv["kernel_device_ms"],
         packed_whell_bound_ms=spmv["bound_ms"], packed_whell_padding=spmv["padding"],
-        **bound(nbytes(*layout, x2, z), flops, np.dtype(xdt).name))
+        **bound(moved, flops, np.dtype(xdt).name))
     if f64:
-        out.update(kernel_device=kernel_cold(kernel, ("pcell_tile",)), ptxas=ptxas)
+        out.update(kernel_device=kernel_cold(kernel, ("pcell_hack_pass",)), ptxas=ptxas)
     return dict(out, bound_share=out["bound_ms"] / t["kernel_device_ms"])
 
 
@@ -1850,8 +1883,8 @@ def solve_pcell(spd, device, smi):
     #17's counter of that type from 0, then the graphed CG loop against
     its eager witness on the pcell layout that ``solve()`` built (kept by
     wrapping its converter: a second conversion of the SPD system takes
-    about 20 s), held to the iteration and residual gate (#17 sums with
-    atomics)."""
+    about 20 s), held to each other bit for bit (#17 gives the same bits
+    every call), with the layout's listed tiles and work units."""
     import torch
 
     from spgpu_tpu_torch import ops
@@ -1872,10 +1905,15 @@ def solve_pcell(spd, device, smi):
     finally:
         auto.coo_to_whell_percell = convert
     p, = built
+    rows = p.num_groups * p.group_hacks
     return dict(nnz=spd.nnz, tiles=p.num_tiles, padding=p.total_slots * 128 / spd.nnz,
-                tol=tol, **solved,
+                listed_tiles=p.hack_tiles.numel(), work_units=p.hack_units.shape[0],
+                chunked_rows=int(((p.hack_units[:, 3] >= 0)
+                                  & (p.hack_units[:, 3] >> 16 == 0)).sum()),
+                rows=rows, tol=tol, **solved,
                 loop=loop_pair("cg", lambda v: ops.whell_spmv(p, v),
-                               torch.from_numpy(b).to(device), tol, False,
+                               torch.from_numpy(b).to(device), tol,
+                               ("pcell", np.dtype(dt).name) in BIT_REPRODUCIBLE,
                                residual_gate(spd, b, true_tol, f"cg pcell {dt.__name__}"),
                                smi),
                 x_err_vs_true=float(np.abs(xs - x_true).max()))
@@ -3394,11 +3432,12 @@ def child_phases(flag: str, count: int, extra=None):
 
 #: the profiler names of the kernels phase 29 times alone start so: #15
 #: (``classic_spmv_tile`` before its work list, ``classic_spmv_units``
-#: since), #17, and #3, #9 and #13 (``whdia_tile_pass`` and
+#: since), #17 (``pcell_tile`` before its hack pass, ``pcell_hack_pass``
+#: since), and #3, #9 and #13 (``whdia_tile_pass`` and
 #: ``whdia_spmm_tile_pass`` before the hack pass, ``whdia_hack_pass`` since;
 #: #3, #6 and #10 ``whdia_spmv_warps`` since they read only the live
 #: slots, ``whdia_tile_pass`` before)
-TIMED_KERNELS = ("classic_spmv", "pcell_tile", "whdia_tile_pass",
+TIMED_KERNELS = ("classic_spmv", "pcell_tile", "pcell_hack_pass", "whdia_tile_pass",
                  "whdia_spmm_tile_pass", "whdia_hack_pass", "whdia_spmv_warps")
 
 
@@ -3417,7 +3456,13 @@ def kernel_times(device):
     device time of the library call (cuSPARSE CSR, ``csr @ x``) on the
     relabelled and the raw flagship, in fp32 and float64, in the same
     process; then :func:`whell_kernel_times`, :func:`whdia_kernel_times`
-    and :func:`spmm_kernel_times`."""
+    and :func:`spmm_kernel_times`; then #17's account on the float64 pcell
+    layout (:func:`pcell_account`).  The fp32 pcell layout is the float64
+    one's structure with its values in fp32 (the converter's structure
+    does not depend on the type; the values are the fp32 flagship's
+    either way), so the converter runs once."""
+    import dataclasses
+
     import torch
 
     from spgpu_tpu_torch import ops
@@ -3439,12 +3484,15 @@ def kernel_times(device):
         "classic_oell": lambda: coo_to_whell(coo, device=device, packed=False,
                                              sort_rows=True),
         "classic_ways2": lambda: coo_to_whell(coo, device=device, packed=False, ways=2),
-        "pcell": lambda: coo_to_whell_percell(coo, device=device),
+        "pcell_f64": lambda: coo_to_whell_percell(coo, device=device, dtype="float64"),
+        "pcell": lambda: dataclasses.replace(p64, values=p64.values.float()),
         "classic_f64": lambda: coo_to_whell(rel, device=device, dtype="float64",
-                                            packed=False),
-        "pcell_f64": lambda: coo_to_whell_percell(coo, device=device, dtype="float64")}
+                                            packed=False)}
+    p64 = None
     for tag, make in layouts.items():
         a = make()
+        if tag == "pcell_f64":
+            p64 = a
         xa = x64 if a.values.dtype == torch.float64 else x
         fn = lambda: ops.whell_spmv(a, xa)  # noqa: E731
         names = kernel_names(fn, TIMED_KERNELS)
@@ -3458,7 +3506,29 @@ def kernel_times(device):
     out.update(whell_kernel_times(device))
     out.update(whdia_kernel_times(device))
     out.update(spmm_kernel_times(device))
+    out["pcell_account"] = pcell_account(device, p64)
     return out
+
+
+def pcell_account(device, p64):
+    """#17's account on the raw flagship's float64 pcell layout
+    (:mod:`spgpu_tpu_torch.sweeps.kernel_account`, the hack pass): the
+    production kernel and its builds without the x gathers and without
+    the lane scan, each timed warm and cold, with each family's price.  An
+    older checkout (no account) gives None."""
+    import importlib.util
+
+    if importlib.util.find_spec("spgpu_tpu_torch.sweeps.kernel_account") is None:
+        return None
+    from spgpu_tpu_torch.sweeps import kernel_account as acc
+
+    res = acc.run(device, design="pcell", layout=p64,
+                  variants=("production", "no_gather", "no_scan"))
+    for r in res["variants"]:
+        print(f"kernel_times: pcell account {r['variant']} warm {r['device_ms']} "
+              f"cold {r['cold_device_ms']} price {r['price_ms']} {r['ptxas']}",
+              file=sys.stderr, flush=True)
+    return res
 
 
 def op_times(fn, prefixes):

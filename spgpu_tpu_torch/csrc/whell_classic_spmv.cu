@@ -70,6 +70,31 @@
 // registers, no spills, no barriers, no shared memory (the first design:
 // 32 registers, 1 barrier, 1,024 bytes of shared memory).
 //
+// Live sectors.  A live warp-slot holds a nonzero in only about a
+// third of its cells on the relabelled flagship, so in float64 the
+// kernel also takes the layout's sector list (classic_work_sectors, one
+// 64-bit word per work-list entry, bit 8*s + g for each 32 B value sector
+// g of slot s that holds a nonzero), loaded with the entry, and a lane
+// loads its value only where its sector is live: 91.3 of the 160.7 MB of live
+// warp-slot values (chip_smoke.py's classic_live).  Every load of such a
+// unit is a predicated load with no branch around it (load_if): the first
+// versions kept a branch per slot (a lane branch around the value load, a
+// dead lane borrowing a live lane's address, 64 B and 128 B segments), and
+// ptxas made each slot a reconvergence point (BSSY/BSYNC) that waited for
+// the slot's loads before the next slot's were issued, 8 round trips a
+// unit where the parent's plain loads, if-converted by ptxas, took one:
+// 101-125 us on the flagship, 1.2-2.1x slower (SASS by cuobjdump; times
+// by sweeps/kernel_account.py, NVIDIA H100 80GB HBM3, 700 W).
+// Predicated, warm device us: float64 70.5-71.1 against 82.3-84.3
+// for whole live warp-slots; fp32 58.6-59.7 against 59.9-61.1; bf16
+// 55.7-56.0 against 54.6.  In fp32 and bf16 the parent's plain loads of
+// whole live warp-slots stay (kSectorLoads): 56.8-57.0 and 50.3-50.5 in
+// the same runs, so the predicated loads cost more there than the
+// sectors save.
+// #16's unit_cells loads whole warp-slots predicated in every type: at 8
+// RHS 0.1035 ms against the plain loads' 0.1339 in fp32, 0.1924 against
+// 0.2023 in float64 (chip_smoke.py's phase 29).
+//
 // Semantics: a cell whose value is 0 contributes nothing, so for finite x
 // the product equals the full-layout one (the plain version, which stays
 // the full-layout product).  The TPU kernel multiplies every padding cell,
@@ -118,10 +143,11 @@
 // four 16 B double2 loads when n_rhs is even (its rows then start 16 B
 // aligned), else as masked scalar loads.  Its register cap is 128 in
 // float64 (4 blocks an SM, Acc<double>): the sums, the 8 values and the
-// 8 x rows alone take 48 registers.  ptxas (sm_90a):
-// classic_spmv_units<d> 47 registers, no spills; classic_spmm_units<d>
-// 128 registers, 32 bytes of spill stores; classic_spmm_units<f>/<t> 64
-// registers with 80 bytes of spill stores, the SpMV instances 40.
+// 8 x rows alone take 48 registers.  ptxas (sm_90a, with the predicated
+// loads): classic_spmv_units<d> 46 registers, no spills;
+// classic_spmm_units<d> 128 registers, no spills (32 bytes of spill
+// stores before); classic_spmm_units<f>/<t> 64 registers with 16 bytes of
+// spill stores (80 before), the fp32 and bf16 SpMV instances 40.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -149,12 +175,41 @@ template <> struct Acc<double> {
   static constexpr int kMinBlocks = 4;
 };
 
-// a value in its sum type, by a plain load (bf16 bits: exact, the top half
-// of an fp32)
+// *p where `on`, else 0, by a predicated load that a lane off does not
+// issue.  No branch around a load: ptxas turns a branch per slot into a
+// reconvergence point that waits for the slot's loads before the next
+// slot's issue (8 round trips a unit in place of one: the kernel ran 1.4-2x
+// slower, sweeps/kernel_account.py); volatile, so each stays where it
+// stands, with the unit's other loads, ahead of the gathers.
+#define SPGPU_LOAD_IF(NAME, TYPE, REG, PTX, CON)                                  \
+  __device__ __forceinline__ REG NAME(const TYPE* p, bool on) {                 \
+    REG r = 0;                                                                  \
+    asm volatile("{\n .reg .pred q;\n setp.ne.u32 q, %2, 0;\n @q " PTX " %0, [%1];\n}" \
+                 : "+" CON(r) : "l"(p), "r"(static_cast<unsigned>(on)));        \
+    return r;                                                                   \
+  }
+SPGPU_LOAD_IF(load_if, float, float, "ld.global.f32", "f")
+SPGPU_LOAD_IF(load_if, double, double, "ld.global.f64", "d")
+SPGPU_LOAD_IF(load_if, uint16_t, unsigned short, "ld.global.u16", "h")
+SPGPU_LOAD_IF(load_if, uint32_t, uint32_t, "ld.global.u32", "r")
+SPGPU_LOAD_IF(load_if, int8_t, int, "ld.global.s8", "r")
+#undef SPGPU_LOAD_IF
+
+// a value in its sum type by a plain load, and where `on` (else 0) by a
+// predicated one (bf16 bits: the top half of an fp32)
 __device__ __forceinline__ float value_at(const float* v, int64_t i) { return v[i]; }
 __device__ __forceinline__ double value_at(const double* v, int64_t i) { return v[i]; }
 __device__ __forceinline__ float value_at(const uint16_t* v, int64_t i) {
   return __uint_as_float(static_cast<uint32_t>(v[i]) << 16);
+}
+__device__ __forceinline__ float value_if(const float* v, int64_t i, bool on) {
+  return load_if(v + i, on);
+}
+__device__ __forceinline__ double value_if(const double* v, int64_t i, bool on) {
+  return load_if(v + i, on);
+}
+__device__ __forceinline__ float value_if(const uint16_t* v, int64_t i, bool on) {
+  return __uint_as_float(static_cast<uint32_t>(load_if(v + i, on)) << 16);
 }
 
 __device__ __forceinline__ float mul_add(float a, float b, float c) { return fmaf(a, b, c); }
@@ -172,6 +227,26 @@ __device__ __forceinline__ void add_vec(double (&sum)[kRhs], int k0, double v, d
   sum[k0 + 1] = fma(v, a.y, sum[k0 + 1]);
 }
 
+// lanes of a 32 B value sector, as a shift: 32 B / sizeof(V) lanes (4 of
+// a double, 8 of a float, 16 of bf16 bits), so a slot's 32 lanes of a
+// unit hold sizeof(V) sectors
+template <typename V> constexpr int kSectorShift = sizeof(V) == 8 ? 2 : sizeof(V) == 4 ? 3 : 4;
+
+// #15 reads a lane's value only where its 32 B sector is live in float64,
+// and only there reads the sector list; in fp32 and bf16 it reads whole
+// live warp-slots by plain loads, faster there (see the note above)
+template <typename V> constexpr bool kSectorLoads = sizeof(V) == 8;
+
+// every sector of each slot in `mask`: byte s of the word is 0xFF where
+// bit s of mask is set (#16, which loads whole warp-slots)
+__device__ __forceinline__ uint64_t slot_sectors(unsigned mask) {
+  uint64_t w = 0;
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s)
+    if (mask >> s & 1u) w |= uint64_t{0xFF} << (8 * s);
+  return w;
+}
+
 // the stored-row hack of tile t: its chunk's 8-hack group, then hh
 __device__ __forceinline__ int64_t tile_hack(const int32_t* __restrict__ chunk_group,
                                              int64_t t, uint32_t meta) {
@@ -179,19 +254,22 @@ __device__ __forceinline__ int64_t tile_hack(const int32_t* __restrict__ chunk_g
 }
 
 // This lane's cells of work-list entry e (tile t, quarter q, slot mask):
-// every load of the unit up front (the live slots' values, residues and
-// 128 B page-table rows, 4 entries a lane), then each live cell's page
-// entry by residue with one __shfl_sync: value v[s] (0 in a dead slot)
-// and x column col[s].  Returns the tile; j is the lane's output lane,
-// meta the tile's word (its hh), the base page from tile_page.  Plain
-// loads, not __ldg (see the note above).
-template <typename V, typename T>
+// every load of the unit up front (the live slots' residues and 128 B
+// page-table rows, 4 entries a lane, and values), then each live cell's
+// page entry by residue with one __shfl_sync: value v[s] (0 in a dead
+// slot or sector) and x column col[s].  kPredicated: every load a
+// predicated one, values only where the sector word `live` marks them
+// (bit 8*s + g: sector g of slot s); else plain loads of whole live
+// warp-slots in a warp-uniform branch per slot, which ptxas if-converts
+// (`live` unread).  Returns the tile; j is the lane's output lane, meta
+// the tile's word (its hh), the base page from tile_page.
+template <typename V, bool kPredicated, typename T>
 __device__ __forceinline__ int64_t unit_cells(const V* __restrict__ values,
                                               const int8_t* __restrict__ residue,
                                               const int8_t* __restrict__ page_tab,
                                               const int32_t* __restrict__ tile_base,
                                               const int32_t* __restrict__ tile_page,
-                                              int64_t e, int lane, int& j,
+                                              int64_t e, uint64_t live, int lane, int& j,
                                               uint32_t& meta, T (&v)[kSlots],
                                               int64_t (&col)[kSlots]) {
   const unsigned mask = static_cast<unsigned>(e & 0xFF);
@@ -200,18 +278,27 @@ __device__ __forceinline__ int64_t unit_cells(const V* __restrict__ values,
   meta = static_cast<uint32_t>(tile_base[t]);
   const int64_t base = static_cast<int64_t>(tile_page[t]) * kLanes;
   const int64_t cell0 = t * (kSlots * kLanes);
+  const int g = lane >> kSectorShift<V>;  // the lane's sector in each slot
   int r[kSlots];
   uint32_t pw[kSlots];  // 4 page entries of the slot's page-table row a lane
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
-    v[s] = T(0);
-    r[s] = 0;
-    pw[s] = 0;
-    if (mask >> s & 1u) {
-      const int64_t c = cell0 + s * kLanes + j;
-      v[s] = value_at(values, c);
-      r[s] = residue[c];
-      pw[s] = reinterpret_cast<const uint32_t*>(page_tab + cell0 + s * kLanes)[lane];
+    const int64_t row = cell0 + s * kLanes;
+    const bool slot = mask >> s & 1u;  // warp-uniform
+    if constexpr (kPredicated) {  // predicated loads, no branch
+      const unsigned bits = static_cast<unsigned>(live >> (8 * s)) & 0xFFu;
+      v[s] = value_if(values, row + j, (bits >> g & 1u) != 0);
+      r[s] = load_if(residue + row + j, slot);
+      pw[s] = load_if(reinterpret_cast<const uint32_t*>(page_tab + row) + lane, slot);
+    } else {
+      v[s] = T(0);
+      r[s] = 0;
+      pw[s] = 0;
+      if (slot) {
+        v[s] = value_at(values, row + j);
+        r[s] = residue[row + j];
+        pw[s] = reinterpret_cast<const uint32_t*>(page_tab + row)[lane];
+      }
     }
   }
 #pragma unroll
@@ -224,7 +311,7 @@ __device__ __forceinline__ int64_t unit_cells(const V* __restrict__ values,
   return t;
 }
 
-// Kernel #15: one warp per work-list entry.
+// Kernel #15: one warp per work-list entry, with its sector word.
 template <typename V>
 __global__ void __launch_bounds__(kUnitWarps * 32)
 classic_spmv_units(const V* __restrict__ values,
@@ -233,7 +320,8 @@ classic_spmv_units(const V* __restrict__ values,
                    const int32_t* __restrict__ tile_base,
                    const int32_t* __restrict__ tile_page,
                    const int32_t* __restrict__ chunk_group,
-                   const int64_t* __restrict__ work, int64_t n_work,
+                   const int64_t* __restrict__ work,
+                   const uint64_t* __restrict__ sectors, int64_t n_work,
                    const typename Acc<V>::T* __restrict__ x,
                    typename Acc<V>::T* __restrict__ z) {
   using T = typename Acc<V>::T;
@@ -243,8 +331,12 @@ classic_spmv_units(const V* __restrict__ values,
   uint32_t meta;
   T v[kSlots];
   int64_t col[kSlots];
-  const int64_t t = unit_cells(values, residue, page_tab, tile_base, tile_page,
-                               work[w], threadIdx.x & 31, j, meta, v, col);
+  const int64_t e = work[w];
+  // the entry's sector word, loaded with it, not after it (float64 only)
+  const uint64_t live = kSectorLoads<V> ? sectors[w] : 0;
+  const int64_t t = unit_cells<V, kSectorLoads<V>>(values, residue, page_tab, tile_base,
+                                                   tile_page, e, live, threadIdx.x & 31, j,
+                                                   meta, v, col);
   T sum = T(0);
 #pragma unroll
   for (int s = 0; s < kSlots; ++s)
@@ -277,8 +369,10 @@ classic_spmm_units(const V* __restrict__ values,
   uint32_t meta;
   T v[kSlots];
   int64_t xrow[kSlots];
-  const int64_t t = unit_cells(values, residue, page_tab, tile_base, tile_page,
-                               work[w], threadIdx.x & 31, j, meta, v, xrow);
+  const int64_t e = work[w];
+  const int64_t t = unit_cells<V, true>(values, residue, page_tab, tile_base, tile_page, e,
+                                         slot_sectors(static_cast<unsigned>(e & 0xFF)),
+                                         threadIdx.x & 31, j, meta, v, xrow);
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) xrow[s] *= n_rhs;
   T* out = z + tile_hack(chunk_group, t, meta) * kLanes + j;
@@ -316,8 +410,8 @@ classic_spmm_units(const V* __restrict__ values,
 template <typename V>
 int classic_spmv(const void* values, const void* residue, const void* page_tab,
                  const void* tile_base, const void* tile_page,
-                 const void* chunk_group, const void* work, int64_t n_work,
-                 const void* x, void* z, cudaStream_t st) {
+                 const void* chunk_group, const void* work, const void* sectors,
+                 int64_t n_work, const void* x, void* z, cudaStream_t st) {
   using T = typename Acc<V>::T;
   // an empty list (no nonzero) still launches, one block that exits
   const int64_t blocks = n_work > 0 ? (n_work + kUnitWarps - 1) / kUnitWarps : 1;
@@ -325,8 +419,8 @@ int classic_spmv(const void* values, const void* residue, const void* page_tab,
       static_cast<const V*>(values), static_cast<const int8_t*>(residue),
       static_cast<const int8_t*>(page_tab), static_cast<const int32_t*>(tile_base),
       static_cast<const int32_t*>(tile_page), static_cast<const int32_t*>(chunk_group),
-      static_cast<const int64_t*>(work), n_work, static_cast<const T*>(x),
-      static_cast<T*>(z));
+      static_cast<const int64_t*>(work), static_cast<const uint64_t*>(sectors), n_work,
+      static_cast<const T*>(x), static_cast<T*>(z));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -354,29 +448,31 @@ int classic_spmm(const void* values, const void* residue, const void* page_tab,
 extern "C" {
 
 // Kernel #15: z (num_groups*8*128, stored rows) += the classic product
-// over the n_work entries of work (classic_work_list of the values).  x is
-// the (x_pages*128) fp32 vector, z fp32 and zeroed by the caller;
-// values_bf16 selects bf16 values over fp32 ones.  Launches on `stream`,
+// over the n_work entries of work (classic_work_list of the values).  x
+// is the (x_pages*128) fp32 vector, z fp32 and zeroed by the caller;
+// values_bf16 selects bf16 values over fp32 ones.  sectors is read only
+// where a build loads fp32 or bf16 values by sector (kSectorLoads), so
+// null here.  Launches on `stream`,
 // does not synchronise, and returns cudaGetLastError().
 int whell_classic_spmv(const void* values, int values_bf16, const void* residue,
                        const void* page_tab, const void* tile_base,
                        const void* tile_page, const void* chunk_group,
-                       const void* work, int64_t n_work, const void* x, void* z,
-                       void* stream) {
+                       const void* work, const void* sectors, int64_t n_work,
+                       const void* x, void* z, void* stream) {
   auto* fn = values_bf16 ? classic_spmv<uint16_t> : classic_spmv<float>;
-  return fn(values, residue, page_tab, tile_base, tile_page, chunk_group, work, n_work,
-            x, z, static_cast<cudaStream_t>(stream));
+  return fn(values, residue, page_tab, tile_base, tile_page, chunk_group, work, sectors,
+            n_work, x, z, static_cast<cudaStream_t>(stream));
 }
 
 // Kernel #15 in float64: as whell_classic_spmv, with float64 values, x and
-// z.
+// z, and sectors the layout's classic_work_sectors, aligned with work.
 int whell_classic_spmv_f64(const void* values, const void* residue,
                            const void* page_tab, const void* tile_base,
                            const void* tile_page, const void* chunk_group,
-                           const void* work, int64_t n_work, const void* x, void* z,
-                           void* stream) {
+                           const void* work, const void* sectors, int64_t n_work,
+                           const void* x, void* z, void* stream) {
   return classic_spmv<double>(values, residue, page_tab, tile_base, tile_page,
-                              chunk_group, work, n_work, x, z,
+                              chunk_group, work, sectors, n_work, x, z,
                               static_cast<cudaStream_t>(stream));
 }
 

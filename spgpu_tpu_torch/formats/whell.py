@@ -39,15 +39,22 @@ float32, bfloat16 or float64 (plain float64, as the JAX classic layout
 keeps it: no double-float pair).  A classic layout
 also carries ``work_list`` (:func:`classic_work_list`), derived from its
 values whenever the layout is built: the (tile, 32-lane quarter) units
-that hold a nonzero, each with the mask of its live slots.  The SpMV
-kernel reads only those units and slots, so a slab must not be changed
-in place (:func:`spgpu_tpu_torch.convert.whell_update_values` builds a
-new layout, and a new list).
+that hold a nonzero, each with the mask of its live slots, and, in
+float64, aligned with it, ``work_sectors`` (:func:`classic_work_sectors`):
+each unit's 32 B value sectors that hold a nonzero.  The SpMV kernel
+reads only those units and slots, and in float64 values only in those
+sectors, so a slab must not be changed in place
+(:func:`spgpu_tpu_torch.convert.whell_update_values` builds a new layout,
+and new lists).
 
 The **per-cell routing** layout (:class:`PcellWhell`) packs the cells of
 many rows densely into each slot and routes each row's run to its output
 lane through ``run_hi``/``run_lo``; it works in the original numbering.
-Its values are float32 or float64.  Neither the classic nor the pcell
+Its values are float32 or float64.  It carries ``hack_tile_ptr``,
+``hack_tiles`` (:func:`pcell_hack_tiles`: each output hack's tiles that
+route a run) and ``hack_units``, derived whenever the layout is built;
+kernel #17 reads only those tiles, so never change a pcell slab in place.
+Neither the classic nor the pcell
 layout takes complex values: the JAX converters build complex slabs, but
 its ops cannot multiply them (the Pallas interpreter refuses the kernels'
 complex output), so the port adds no such product
@@ -79,9 +86,10 @@ import torch
 from spgpu_tpu_torch.core import CHUNK_TILES, join_dd, join_plane_fields
 
 __all__ = ["MAX_TILE_PAGE", "PcellWhell", "WhellMatrix", "classic_work_list",
+           "classic_work_sectors",
            "from_numpy_fields", "from_numpy_pcell", "from_numpy_planes",
            "low_field_bits", "packed_hack_ptr", "packed_hack_units",
-           "unported_complex"]
+           "pcell_hack_tiles", "unported_complex"]
 
 #: the value types of a packed slab
 VALUE_DTYPES = (torch.float32, torch.bfloat16, torch.float64, torch.complex64,
@@ -193,14 +201,19 @@ def packed_hack_ptr(tile_base: torch.Tensor, chunk_group: torch.Tensor, *,
 #: tiles of a hack's run that one block of the hack pass sums: a longer
 #: run is cut into chunks of this many tiles, summed by as many blocks
 RUN_CHUNK_TILES = 16
+#: the same for pcell's hack pass (#17), whose 2-warp blocks walk a chunk
+#: 2 tiles at a time: 8-tile chunks ran the SPD flagship 15 % faster than
+#: 16-tile ones (sweeps/kernel_account.py; NVIDIA H100 80GB HBM3, 700 W)
+PCELL_CHUNK_TILES = 8
 
 
-def packed_hack_units(hack_ptr: torch.Tensor, num_rows: int) -> torch.Tensor:
-    """The work units of the hack pass (kernels #4, #12 and complex128),
-    one per block: ``(U, 4)`` int32 ``[begin, end, row, chunk]`` on
+def packed_hack_units(hack_ptr: torch.Tensor, num_rows: int,
+                      chunk_tiles: int = RUN_CHUNK_TILES) -> torch.Tensor:
+    """The work units of the hack pass (kernels #4, #12, complex128 and
+    #17), one per block: ``(U, 4)`` int32 ``[begin, end, row, chunk]`` on
     ``hack_ptr``'s device, in row order.  Row ``h < num_hacks`` sums its
     run ``hack_ptr[h]`` in one unit when the run has at most
-    :data:`RUN_CHUNK_TILES` tiles (``chunk`` -1), else in ``k`` units of
+    ``chunk_tiles`` tiles (``chunk`` -1), else in ``k`` units of
     consecutive chunks of the run (``chunk`` ``c << 16 | k`` for the
     ``c``-th); every other output row is one empty unit.  So ``U`` exceeds
     ``num_rows`` exactly when some run is chunked."""
@@ -210,13 +223,35 @@ def packed_hack_units(hack_ptr: torch.Tensor, num_rows: int) -> torch.Tensor:
     n = torch.zeros(num_rows, dtype=torch.long, device=dev)
     begin[:H] = hack_ptr[:, 0].long()
     n[:H] = hack_ptr[:, 1].long() - begin[:H]
-    k = (-(-n // RUN_CHUNK_TILES)).clamp(min=1)
+    k = (-(-n // chunk_tiles)).clamp(min=1)
     row = torch.repeat_interleave(torch.arange(num_rows, device=dev), k)
     c = torch.arange(row.numel(), device=dev) - (torch.cumsum(k, 0) - k)[row]
-    b = begin[row] + c * RUN_CHUNK_TILES
-    e = torch.minimum(b + RUN_CHUNK_TILES, begin[row] + n[row])
+    b = begin[row] + c * chunk_tiles
+    e = torch.minimum(b + chunk_tiles, begin[row] + n[row])
     chunk = torch.where(k[row] > 1, c << 16 | k[row], -1)
     return torch.stack([b, e, row, chunk], 1).int()
+
+
+def pcell_hack_tiles(run_hi: torch.Tensor, tile_base: torch.Tensor,
+                     chunk_group: torch.Tensor, *, chunk_tiles: int,
+                     group_hacks: int, num_rows: int) -> tuple:
+    """The tiles of each output hack of a pcell layout, on ``run_hi``'s
+    device: ``hack_tile_ptr`` ``(num_rows + 1,)`` int32 offsets into
+    ``hack_tiles``, int32 tile indices in ascending tile order within each
+    hack (hack ``chunk_group[t // chunk_tiles] * group_hacks + (tile_base[t]
+    >> 20)``).  Only tiles that route a run (some ``run_hi >= 0``) are
+    listed: a tile with none adds exactly 0 to its hack (every output lane
+    reads no prefix sum), as the converter's chunk-padding tiles do.  One
+    pass over ``run_hi``."""
+    dev = run_hi.device
+    T = tile_base.numel()
+    t = torch.nonzero((run_hi.view(T, -1) >= 0).any(dim=1)).view(-1)
+    hack = (chunk_group.long()[t // chunk_tiles] * group_hacks
+            + (tile_base.long()[t] >> 20))
+    order = torch.sort(hack, stable=True).indices
+    ptr = torch.zeros(num_rows + 1, dtype=torch.long, device=dev)
+    ptr[1:] = torch.cumsum(torch.bincount(hack, minlength=num_rows)[:num_rows], 0)
+    return ptr.int(), t[order].int()
 
 
 def classic_work_list(values: torch.Tensor) -> torch.Tensor:
@@ -231,6 +266,26 @@ def classic_work_list(values: torch.Tensor) -> torch.Tensor:
     mask = (live.long() << bit).sum(dim=1).view(-1)  # per unit t*4 + q
     units = torch.nonzero(mask).view(-1)
     return units << 8 | mask[units]
+
+
+def classic_work_sectors(values: torch.Tensor,
+                         work_list: torch.Tensor) -> torch.Tensor:
+    """The live 32 B value sectors of each unit of ``work_list`` (the
+    slab's :func:`classic_work_list`), on the values' device: one int64 per
+    entry, aligned with it, where bit ``8*s + g`` is set when sector ``g``
+    of slot ``s`` of the unit holds a nonzero value.  A unit's 32 lanes of
+    a slot are ``32 * itemsize`` bytes, so a slot has ``itemsize`` sectors
+    of ``32 // itemsize`` lanes: 8 of 4 lanes in float64, 4 of 8 in fp32,
+    2 of 16 in bf16.  Kernel #15 in float64 loads a lane's value only
+    where its sector's bit is set; a float64 classic layout keeps the list
+    (``WhellMatrix.work_sectors``), an fp32 or bf16 one, whose kernel
+    reads whole warp-slots, none."""
+    S, n = values.shape[0], values.element_size()
+    live = (values.view(S // 8, 8, 4, n, 32 // n) != 0).any(dim=4)  # (tile, s, q, g)
+    bit = (8 * torch.arange(8, device=values.device).view(1, 8, 1, 1)
+           + torch.arange(n, device=values.device).view(1, 1, 1, n))
+    words = (live.long() << bit).sum(dim=(1, 3)).view(-1)  # per unit t*4 + q
+    return words[work_list >> 8]
 
 
 def _check_tile_page(want, tile_page, meta, scattered: bool) -> torch.Tensor:
@@ -285,9 +340,13 @@ class WhellMatrix:
     # (num_tiles,) int32: each tile's full-width aligned base page or
     # layout group; None derives it from tile_base's low field
     tile_page: Optional[torch.Tensor] = None
-    # classic only: classic_work_list(values), rebuilt with every layout
+    # classic only: classic_work_list(values) and, for float64 values
+    # only (the one type whose kernel reads by sector), aligned with it,
+    # classic_work_sectors(values, work_list), rebuilt with every layout
     work_list: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
                                                           repr=False)
+    work_sectors: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
+                                                             repr=False)
     # packed only, rebuilt with every layout: packed_hack_ptr(...) and the
     # hack pass's work units packed_hack_units(hack_ptr, rows); a product
     # keeps no state here (its chunked-run counters are its own), so
@@ -303,6 +362,8 @@ class WhellMatrix:
         v = self.values
         if not self.packed and v.dim() == 2 and v.shape[1] == 128 and v.shape[0] % 8 == 0:
             self.work_list = classic_work_list(v)
+            if v.dtype == torch.float64:
+                self.work_sectors = classic_work_sectors(v, self.work_list)
         if self.packed and self._whole_chunks():
             self.hack_ptr = self._derive_hack_ptr()
             self.hack_units = packed_hack_units(self.hack_ptr, self.seg_lo.shape[0])
@@ -474,13 +535,22 @@ class WhellMatrix:
             want(torch.equal(torch.sort(self.row_perm.cpu().long()).values,
                              torch.arange(R * 128)), "row_perm is not a permutation")
         if packed:
-            want(self.work_list is None, "a packed layout has no work_list")
+            want(self.work_list is None and self.work_sectors is None,
+                 "a packed layout has no work_list or work_sectors")
             self._check_hack_runs(want)
         else:
-            wl = self.work_list
+            wl, ws = self.work_list, self.work_sectors
+            vals = self.values.cpu()
             want(wl is not None and wl.dtype == torch.int64 and wl.device == self.device
-                 and torch.equal(wl.cpu(), classic_work_list(self.values.cpu())),
+                 and torch.equal(wl.cpu(), classic_work_list(vals)),
                  "work_list does not match the values (changed in place?)")
+            if self.values.dtype == torch.float64:
+                want(ws is not None and ws.dtype == torch.int64
+                     and ws.device == self.device
+                     and torch.equal(ws.cpu(), classic_work_sectors(vals, wl.cpu())),
+                     "work_sectors does not match the values (changed in place?)")
+            else:
+                want(ws is None, "only a float64 classic layout has work_sectors")
 
 
     def _check_hack_runs(self, want) -> None:
@@ -554,6 +624,17 @@ class PcellWhell:
     # (num_tiles,) int32: each tile's full-width layout group; None
     # derives it from tile_base's 20-bit field
     tile_page: Optional[torch.Tensor] = None
+    # rebuilt with every layout: pcell_hack_tiles(...), each output hack's
+    # tiles that route a run, and the hack pass's work units over them
+    # (packed_hack_units: hacks past PCELL_CHUNK_TILES tiles in chunks); a
+    # product keeps no state here, so products of one layout may run at
+    # once on several streams
+    hack_tile_ptr: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
+                                                              repr=False)
+    hack_tiles: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
+                                                           repr=False)
+    hack_units: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
+                                                           repr=False)
 
     _TENSORS = ("values", "residue", "page_tab", "run_hi", "run_lo",
                 "tile_base", "chunk_group", "group_bases", "tile_page")
@@ -561,6 +642,21 @@ class PcellWhell:
     def __post_init__(self) -> None:
         if self.tile_page is None:
             self.tile_page = low_field(self.tile_base, True)
+        T, ct = self.tile_base.numel(), self.chunk_tiles
+        if (self.run_hi.dim() == 2 and self.run_hi.shape[0] == 8 * T and ct >= 1
+                and T % ct == 0 and self.chunk_group.shape == (T // ct + 1,)):
+            self.hack_tile_ptr, self.hack_tiles, self.hack_units = self._derive_lists()
+
+    def _derive_lists(self, device=None) -> tuple:
+        """``hack_tile_ptr``, ``hack_tiles`` and ``hack_units`` from the
+        layout's arrays (on ``device``, default theirs)."""
+        run_hi, tb, cg = (t if device is None else t.to(device)
+                          for t in (self.run_hi, self.tile_base, self.chunk_group))
+        rows = self.num_groups * self.group_hacks
+        ptr, tiles = pcell_hack_tiles(run_hi, tb, cg, chunk_tiles=self.chunk_tiles,
+                                      group_hacks=self.group_hacks, num_rows=rows)
+        return ptr, tiles, packed_hack_units(torch.stack([ptr[:-1], ptr[1:]], 1), rows,
+                                             PCELL_CHUNK_TILES)
 
     @property
     def device(self) -> torch.device:
@@ -571,7 +667,7 @@ class PcellWhell:
         return self.total_slots // 8
 
     def to(self, device) -> "PcellWhell":
-        """A copy with every tensor on ``device``."""
+        """A copy with every tensor on ``device`` (the lists rebuilt there)."""
         return dataclasses.replace(self, **{f: getattr(self, f).to(device)
                                             for f in self._TENSORS})
 
@@ -641,6 +737,26 @@ class PcellWhell:
         for name in ("run_hi", "run_lo"):
             r = getattr(self, name).cpu().long()
             want(bool((r >= -1).all()), f"{name} range")
+        self._check_hack_lists(want)
+
+    def _check_hack_lists(self, want) -> None:
+        """The hack lists and units are the derivation from the layout's
+        arrays (so never change a slab in place: build a new layout), on
+        the layout's device, and every tile that routes a run is listed
+        once, under its own hack."""
+        lists = (self.hack_tile_ptr, self.hack_tiles, self.hack_units)
+        want(all(t is not None and t.dtype == torch.int32 and t.device == self.device
+                 for t in lists)
+             and all(torch.equal(a.cpu(), b)
+                     for a, b in zip(lists, self._derive_lists("cpu"))),
+             "hack_tile_ptr/hack_tiles/hack_units do not match the layout "
+             "(changed in place?)")
+        ptr, tiles = self.hack_tile_ptr.cpu().long(), self.hack_tiles.cpu().long()
+        want(bool((ptr[1:] >= ptr[:-1]).all()) and int(ptr[0]) == 0
+             and int(ptr[-1]) == tiles.numel(), "hack_tile_ptr is not a partition")
+        want(tiles.numel() == torch.unique(tiles).numel(), "a tile listed twice")
+        want(tiles.numel() == 0 or int((ptr[1:] - ptr[:-1]).max()) < PCELL_CHUNK_TILES << 15,
+             "a hack's tiles pass the 15-bit chunk field of its work units")
 
 
 def _tensor(a) -> Optional[torch.Tensor]:

@@ -19,7 +19,7 @@ from typing import Callable
 
 from spgpu_tpu_torch.native import BUILD_DIR
 
-__all__ = ["CudaLibrary"]
+__all__ = ["CudaLibrary", "compile_library"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
@@ -34,6 +34,23 @@ def _nvcc() -> str:
             return cand
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA "
                        "kernels are built from source on first launch")
+
+
+def compile_library(source: str, path: str) -> tuple:
+    """``nvcc`` of ``source`` into the shared library ``path`` with every
+    library's flags (``sm_90a``, ``-O3``, ptxas's register and spill lines);
+    returns ``(seconds, ptxas_log)`` and raises if the compile fails."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           "-o", tmp, source]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source} ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, path)  # atomic: a concurrent load never sees a torn file
+    return time.perf_counter() - t0, proc.stderr
 
 
 class CudaLibrary:
@@ -54,18 +71,7 @@ class CudaLibrary:
         if (os.path.exists(self.path)
                 and os.path.getmtime(self.path) >= os.path.getmtime(self.source)):
             return 0.0, ""
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{self.path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", tmp, self.source]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {self.source} "
-                               f"({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, self.path)  # atomic: a concurrent load never sees a torn file
-        return time.perf_counter() - t0, proc.stderr
+        return compile_library(self.source, self.path)
 
     def load(self) -> ctypes.CDLL:
         """The bound library, built first if needed (thread-safe)."""

@@ -20,7 +20,8 @@ launches of kernel #15 and ``LAUNCHES_SPMM`` those of #16 on fp32 and
 bf16 values, ``LAUNCHES_F64`` and ``LAUNCHES_SPMM_F64`` their float64
 launches (entries ``whell_classic_spmv_f64``, ``whell_classic_spmm_f64``).
 The product comes in x's type.  Both kernels
-read only the live units of the layout's work list; both plain versions
+read only the live units of the layout's work list (#15 in float64 values
+only in the live sectors of its ``work_sectors``); both plain versions
 read every cell.  Every function takes the layout's ``tile_page``
 (``WhellMatrix.tile_page``, each tile's full-width base page) and reads
 the page from it, and only the hack-in-group from ``tile_base``;
@@ -61,11 +62,11 @@ _GROUP_HACKS = 8
 def _bind(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.whell_classic_spmv.restype = ctypes.c_int
-    lib.whell_classic_spmv.argtypes = [p, i32] + [p] * 6 + [i64, p, p, p]
+    lib.whell_classic_spmv.argtypes = [p, i32] + [p] * 7 + [i64, p, p, p]
     lib.whell_classic_spmm.restype = ctypes.c_int
     lib.whell_classic_spmm.argtypes = [p, i32] + [p] * 6 + [i64, p, p, i64, i32, p]
     lib.whell_classic_spmv_f64.restype = ctypes.c_int
-    lib.whell_classic_spmv_f64.argtypes = [p] * 7 + [i64, p, p, p]
+    lib.whell_classic_spmv_f64.argtypes = [p] * 8 + [i64, p, p, p]
     lib.whell_classic_spmm_f64.restype = ctypes.c_int
     lib.whell_classic_spmm_f64.argtypes = [p] * 7 + [i64, p, p, i64, i32, p]
 
@@ -126,26 +127,53 @@ def _check_work(op, work, device) -> None:
         raise ValueError(f"{op}: bad work (a contiguous int64 list on x's device)")
 
 
+def _check_sectors(values, work, sectors, device) -> None:
+    """``sectors`` is the layout's sector list (``WhellMatrix.work_sectors``:
+    a contiguous int64 list on ``device``, aligned with ``work``) for
+    float64 values, whose kernel #15 reads by sector, so on a CUDA device
+    it may not be None there; fp32 and bf16 values take none."""
+    op = "whell_classic_spmv"
+    if values.dtype != torch.float64:
+        if sectors is not None:
+            raise ValueError(f"{op}: only float64 values take work_sectors (fp32 and "
+                             "bf16 kernels read whole warp-slots)")
+        return
+    if sectors is None:
+        if device.type == "cuda":
+            raise ValueError(f"{op}: the float64 kernel needs the layout's sector "
+                             "list (WhellMatrix.work_sectors)")
+        return
+    if (sectors.dtype != torch.int64 or sectors.dim() != 1 or sectors.device != device
+            or not sectors.is_contiguous()):
+        raise ValueError(f"{op}: bad work_sectors (a contiguous int64 list on x's device)")
+    if work is not None and sectors.shape != work.shape:
+        raise ValueError(f"{op}: work_sectors must align with work")
+
+
 def _launch_args(op, values, residue, page_tab, tile_base, tile_page, chunk_group,
-                 work):
-    """The float64 entry of ``op`` or the fp32/bf16 one, and the pointers
-    the kernels #15 and #16 take before x, with the list's length (the
-    fp32/bf16 entries also take the bf16 flag); the row prefetch loads
-    page_tab 4 B a lane."""
+                 work, sectors=None, lib=None):
+    """The float64 entry of ``op`` or the fp32/bf16 one (of ``lib``, default
+    the built library), and the pointers the kernels #15 and #16 take
+    before x (#15 also the sector list, null where ``sectors`` is None),
+    with the list's length (the fp32/bf16 entries also take the bf16
+    flag); the row prefetch loads page_tab 4 B a lane."""
     if page_tab.data_ptr() % 4:
         raise ValueError(f"{op}: the kernel loads page_tab 4 B a lane; it must be "
                          "4 B aligned")
-    lib = _LIB.load()
+    lib = lib or _LIB.load()
     f64 = values.dtype == torch.float64
     flag = () if f64 else (int(values.dtype == torch.bfloat16),)
     return f64, getattr(lib, f"{op}_f64" if f64 else op), (
         values.data_ptr(), *flag, residue.data_ptr(), page_tab.data_ptr(),
         tile_base.data_ptr(), tile_page.data_ptr(), chunk_group.data_ptr(),
-        work.data_ptr(), work.numel())
+        work.data_ptr(),
+        *((None if sectors is None else sectors.data_ptr(),)
+          if op == "whell_classic_spmv" else ()),
+        work.numel())
 
 
 def whell_classic_spmv(values, residue, page_tab, tile_base, chunk_group, x2d,
-                       *, num_groups: int, work=None,
+                       *, num_groups: int, work=None, work_sectors=None,
                        tile_page: torch.Tensor) -> torch.Tensor:
     """Classic WHELL product ``(num_groups*8, 128)`` in stored rows, in
     x's type, of fp32 or bf16 values and x2d ``(x_pages, 128)`` fp32, or
@@ -154,9 +182,13 @@ def whell_classic_spmv(values, residue, page_tab, tile_base, chunk_group, x2d,
     CUDA tensors launch kernel #15 (counted in ``LAUNCHES``, float64 in
     ``LAUNCHES_F64``) over
     ``work``, the slab's :func:`~spgpu_tpu_torch.formats.whell.classic_work_list`
-    (``WhellMatrix.work_list``; required there): it reads only the units
-    and slots that hold a nonzero, and a zero-valued cell contributes
-    nothing even where x is not finite.  CPU tensors run
+    (``WhellMatrix.work_list``; required there) and, for float64 values,
+    ``work_sectors``, the live 32 B value sectors of each entry
+    (:func:`~spgpu_tpu_torch.formats.whell.classic_work_sectors`,
+    ``WhellMatrix.work_sectors``; required there too, None for fp32 and
+    bf16): it reads only the units and slots that hold a nonzero, in
+    float64 values only in the sectors that hold one, and a zero-valued
+    cell contributes nothing even where x is not finite.  CPU tensors run
     :func:`whell_classic_spmv_plain`, the full-layout product, and need
     no list.  Any other device raises.  The layout arrays and ``work`` are
     trusted as built by the converter or checked by ``WhellMatrix.check``;
@@ -165,22 +197,36 @@ def whell_classic_spmv(values, residue, page_tab, tile_base, chunk_group, x2d,
                 chunk_group, x2d, num_groups, tile_page)
     dev = x2d.device
     _check_work("whell_classic_spmv", work, dev)
+    _check_sectors(values, work, work_sectors, dev)
     if dev.type == "cpu":
         return whell_classic_spmv_plain(values, residue, page_tab, tile_base,
                                         chunk_group, x2d, num_groups=num_groups,
                                         tile_page=tile_page)
-    f64, fn, args = _launch_args("whell_classic_spmv", values, residue, page_tab,
-                                 tile_base, tile_page, chunk_group, work)
-    z = torch.zeros((num_groups * _GROUP_HACKS, 128), dtype=x2d.dtype, device=dev)
-    err = fn(*args, x2d.data_ptr(), z.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"whell_classic_spmv launch failed: CUDA error {err}")
+    z = launch_spmv(_LIB.load(), values, residue, page_tab, tile_base, tile_page,
+                    chunk_group, work, work_sectors, x2d, num_groups=num_groups)
+    f64 = values.dtype == torch.float64
     global LAUNCHES, LAUNCHES_F64
     if f64:
         LAUNCHES_F64 += 1
     else:
         LAUNCHES += 1
+    return z
+
+
+def launch_spmv(lib, values, residue, page_tab, tile_base, tile_page, chunk_group,
+                work, work_sectors, x2d, *, num_groups: int) -> torch.Tensor:
+    """One launch of ``lib``'s #15 entry for the values' type into a new
+    zeroed z ``(num_groups*8, 128)`` of x's type; ``work_sectors`` None
+    passes a null sector list (what an fp32 or bf16 build reads none
+    of).  Counts nothing."""
+    _, fn, args = _launch_args("whell_classic_spmv", values, residue, page_tab,
+                               tile_base, tile_page, chunk_group, work, work_sectors,
+                               lib=lib)
+    z = torch.zeros((num_groups * _GROUP_HACKS, 128), dtype=x2d.dtype, device=x2d.device)
+    err = fn(*args, x2d.data_ptr(), z.data_ptr(),
+             torch.cuda.current_stream(x2d.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"whell_classic_spmv launch failed: CUDA error {err}")
     return z
 
 

@@ -144,13 +144,13 @@ def whell_spmv(a, x: torch.Tensor, alpha=1.0, beta=0.0, y=None) -> torch.Tensor:
             a.chunk_group, a.group_bases, _prep_x(x, a.n_cols, a.x_pages),
             chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
             window_pages=a.window_pages, num_groups=a.num_groups,
-            tile_page=a.tile_page)
+            tile_page=a.tile_page, hack_tiles=a.hack_tiles, hack_units=a.hack_units)
         return _epilogue(z.view(-1)[: a.n_rows], alpha, beta, y)
     if not a.packed:
         z = _classic.whell_classic_spmv(
             a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
             _prep_x(x, a.n_cols, a.x_pages), num_groups=a.num_groups,
-            work=a.work_list, tile_page=a.tile_page)
+            work=a.work_list, work_sectors=a.work_sectors, tile_page=a.tile_page)
         return _epilogue(_classic_rows(a, z.view(-1)), alpha, beta, y)
     z = whell_packed_spmv(
         a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,

@@ -20,6 +20,7 @@ __all__ = [
     "random_banded",
     "random_mixed",
     "ctest_fixture",
+    "spd_from",
 ]
 
 
@@ -192,3 +193,24 @@ def ctest_fixture(dtype=np.float32) -> CooMatrix:
     cols[i] = i % 100`` — every diagonal entry appears twice."""
     i = np.arange(200, dtype=np.int64)
     return CooMatrix(i % 100, i % 100, np.ones(200, dtype=dtype), 100, 100)
+
+
+def spd_from(coo: CooMatrix, dtype=np.float32) -> CooMatrix:
+    """(A + Aᴴ)/2 with duplicates summed and each diagonal entry set to
+    its row's off-diagonal |·|-sum + 1 (strictly dominant: symmetric, or
+    Hermitian for complex values, and positive-definite), with ``dtype``
+    values: the SPD systems the card's solver checks solve."""
+    n = coo.n_rows
+    v = coo.values.astype(np.complex128 if np.iscomplexobj(coo.values)
+                          else np.float64) / 2
+    sym = CooMatrix(np.concatenate([coo.rows, coo.cols]),
+                    np.concatenate([coo.cols, coo.rows]),
+                    np.concatenate([v, np.conj(v)]), n, n).sum_duplicates()
+    off = sym.rows != sym.cols
+    diag = np.bincount(sym.rows[off], weights=np.abs(sym.values[off]),
+                       minlength=n) + 1.0
+    idx = np.arange(n, dtype=np.int64)
+    return CooMatrix(np.concatenate([sym.rows[off], idx]),
+                     np.concatenate([sym.cols[off], idx]),
+                     np.concatenate([sym.values[off], diag]).astype(dtype),
+                     n, n).sum_duplicates()

@@ -672,6 +672,169 @@ def test_work_list_only_on_classic_layouts():
     assert not hasattr(coo_to_whell_percell(coo, device="cpu"), "work_list")
 
 
+# --------------------------------------------------------------------------
+# kernel #15's sector list: aligned with the work list, one bit per (slot,
+# 32 B value sector) of each listed unit that holds a nonzero
+
+SECTOR_DTYPES = pytest.mark.parametrize("dtype", [None, "bfloat16", "float64"],
+                                        ids=["fp32", "bf16", "f64"])
+
+
+def _np_sectors(a):
+    """``classic_work_sectors`` by a direct NumPy walk over the listed
+    units: bit ``8*s + g`` where lanes ``g*L .. g*L + L - 1`` of the
+    unit's slot ``s`` hold a nonzero, ``L = 32 // itemsize``."""
+    v = a.values
+    vals = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+    n = v.element_size()
+    lanes = 32 // n
+    out = []
+    for e in a.work_list.tolist():
+        t, q = e >> 10, e >> 8 & 3
+        w = 0
+        for s in range(8):
+            cells = vals[t * 8 + s, q * 32: q * 32 + 32]
+            for g in range(n):
+                if (cells[g * lanes: (g + 1) * lanes] != 0).any():
+                    w |= 1 << (8 * s + g)
+        out.append(w - (1 << 64) if w >> 63 else w)
+    return torch.tensor(out, dtype=torch.int64)
+
+
+def _sector_cells(a):
+    """(S, 128) bool: the cells of a listed unit's live sectors."""
+    n = a.values.element_size()
+    live = torch.zeros((a.num_tiles * 4, 8, n), dtype=torch.bool)
+    words = twhell.classic_work_sectors(a.values, a.work_list)
+    bits = (words.view(-1, 1) >> torch.arange(64) & 1).bool().view(-1, 8, 8)
+    live[a.work_list >> 8] = bits[:, :, :n]
+    # unit (t, q), slot s, sector g  ->  cells (t*8 + s, q*32 + g*L ...)
+    return live.view(a.num_tiles, 4, 8, n, 1).permute(0, 2, 1, 3, 4).expand(
+        a.num_tiles, 8, 4, n, 32 // n).reshape(a.total_slots, 128)
+
+
+@SECTOR_DTYPES
+@pytest.mark.parametrize("fixture", sorted(WORK_FIXTURES))
+def test_classic_work_sectors_match_numpy(fixture, dtype):
+    """The sector list in every type against NumPy; a float64 layout keeps
+    it (``work_sectors``, its kernel reads by sector), fp32 and bf16 ones
+    keep none."""
+    a = coo_to_whell(WORK_FIXTURES[fixture](tfix), device="cpu", packed=False,
+                     dtype=dtype)
+    ws = twhell.classic_work_sectors(a.values, a.work_list)
+    if dtype == "float64":
+        assert torch.equal(a.work_sectors, ws)
+    else:
+        assert a.work_sectors is None
+    assert ws.dtype == torch.int64 and ws.shape == a.work_list.shape
+    assert torch.equal(ws, _np_sectors(a))
+    # a slot's sector byte is live exactly where its work-list bit is set
+    slot_bits = ((ws.view(-1, 1) >> (8 * torch.arange(8))) & 0xFF) != 0
+    assert torch.equal(slot_bits, ((a.work_list & 0xFF).view(-1, 1)
+                                   >> torch.arange(8) & 1).bool())
+    a.check()
+
+
+@SECTOR_DTYPES
+@pytest.mark.parametrize("fixture", sorted(WORK_FIXTURES))
+def test_classic_live_sectors_product_is_bit_identical(fixture, dtype):
+    """Every nonzero lies in a live sector, and the full-layout plain
+    product over the live sectors' cells alone (every other cell 0) equals
+    the one over every cell, bit for bit: what kernel #15 reads suffices."""
+    coo = WORK_FIXTURES[fixture](tfix)
+    a = coo_to_whell(coo, device="cpu", packed=False, dtype=dtype)
+    kept_cells = _sector_cells(a)
+    assert not bool(((a.values != 0) & ~kept_cells).any())
+    assert int(kept_cells.sum()) < int(_listed_cells(a).sum())
+    xdt = torch.float64 if dtype == "float64" else torch.float32
+    x2 = tops._prep_x(torch.from_numpy(_x(coo.n_cols, 4)).to(xdt), a.n_cols, a.x_pages)
+    args = (a.residue, a.page_tab, a.tile_base, a.chunk_group, x2)
+    full = kc.whell_classic_spmv_plain(a.values, *args, num_groups=a.num_groups,
+                                       tile_page=a.tile_page)
+    kept = torch.where(kept_cells, a.values, torch.zeros((), dtype=a.values.dtype))
+    assert torch.equal(kc.whell_classic_spmv_plain(kept, *args, num_groups=a.num_groups,
+                                                   tile_page=a.tile_page), full)
+
+
+@pytest.mark.parametrize("how", ["update_values", "to", "replace"])
+def test_classic_work_sectors_are_rebuilt(how):
+    """A new layout derives a new sector list: ``whell_update_values`` (a
+    cell stored as an explicit 0 made nonzero), ``.to()`` and
+    ``dataclasses.replace`` with new values."""
+    a, plan = coo_to_whell(_explicit_zeros(tfix), device="cpu", packed=False,
+                           return_plan=True, dtype="float64")
+    if how == "to":
+        b = a.to("cpu")
+        assert b.work_sectors is not a.work_sectors
+        assert torch.equal(b.work_sectors, a.work_sectors)
+        return
+    if how == "replace":
+        b = dataclasses.replace(a, values=torch.where(a.values != 0, 0.0, a.values)
+                                + (a.values != 0) * 2.0)
+        assert torch.equal(b.work_sectors, a.work_sectors)
+        b = dataclasses.replace(a, values=torch.zeros_like(a.values))
+        assert b.work_sectors.numel() == 0 and b.work_list.numel() == 0
+        return
+    b = whell_update_values(a, plan, np.random.default_rng(2).standard_normal(a.nnz))
+    assert b.work_sectors.numel() == b.work_list.numel() > a.work_list.numel()
+    assert torch.equal(b.work_sectors, _np_sectors(b))
+    b.check()
+
+
+@SECTOR_DTYPES
+def test_classic_check_rejects_stale_work_sectors(dtype):
+    """A float64 slab changed in place after the lists were built: a
+    nonzero put in a dead sector of a live slot (the work list is
+    unchanged, the sector list stale), or a sector list that no longer
+    aligns.  An fp32 or bf16 layout, whose kernel reads whole live
+    warp-slots, has no sector list to go stale and must carry none."""
+    a = coo_to_whell(CASES["fem"](tfix), device="cpu", packed=False, dtype=dtype)
+    a.check()
+    dead = (_listed_cells(a) & ~_sector_cells(a)).nonzero()[0]
+    wl = a.work_list.clone()
+    a.values[dead[0], dead[1]] = 1.0
+    assert torch.equal(twhell.classic_work_list(a.values), wl)
+    b = coo_to_whell(CASES["fem"](tfix), device="cpu", packed=False, dtype=dtype)
+    if dtype != "float64":
+        a.check()
+        b.work_sectors = twhell.classic_work_sectors(b.values, b.work_list)
+        with pytest.raises(ValueError, match="only a float64"):
+            b.check()
+        return
+    with pytest.raises(ValueError, match="work_sectors"):
+        a.check()
+    b.work_sectors = b.work_sectors[1:]
+    with pytest.raises(ValueError, match="work_sectors"):
+        b.check()
+
+
+def test_classic_wrapper_needs_the_sector_list_on_cuda_only():
+    """#15's wrapper needs ``work_sectors`` beside the work list on a CUDA
+    device for float64 values (raises without), checks it aligns, takes
+    none for fp32 values, and the CPU path needs neither."""
+    a = coo_to_whell(CASES["fem"](tfix), device="cpu", packed=False, dtype="float64")
+    cuda = torch.device("cuda")
+    with pytest.raises(ValueError, match="sector list"):
+        kc._check_sectors(a.values, a.work_list, None, cuda)
+    with pytest.raises(ValueError, match="bad work_sectors"):
+        kc._check_sectors(a.values, a.work_list, a.work_sectors.int(),
+                          torch.device("cpu"))
+    f32 = coo_to_whell(CASES["fem"](tfix), device="cpu", packed=False)
+    kc._check_sectors(f32.values, f32.work_list, None, cuda)
+    with pytest.raises(ValueError, match="only float64"):
+        kc._check_sectors(f32.values, f32.work_list, a.work_sectors, cuda)
+    layout = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group)
+    x2 = tops._prep_x(torch.ones(a.n_cols, dtype=torch.float64), a.n_cols, a.x_pages)
+    with pytest.raises(ValueError, match="align"):
+        kc.whell_classic_spmv(*layout, x2, num_groups=a.num_groups, work=a.work_list,
+                              work_sectors=a.work_sectors[1:], tile_page=a.tile_page)
+    plain = kc.whell_classic_spmv(*layout, x2, num_groups=a.num_groups,
+                                  tile_page=a.tile_page)
+    z = kc.whell_classic_spmv(*layout, x2, num_groups=a.num_groups, work=a.work_list,
+                              work_sectors=a.work_sectors, tile_page=a.tile_page)
+    assert torch.equal(z, plain)
+
+
 def test_classic_inf_behind_padding_is_nan_in_the_full_layout_product():
     """Reference behaviour: the JAX kernel, like the port's plain version
     (the CPU path), multiplies every padding cell, so an Inf in x at a

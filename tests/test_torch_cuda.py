@@ -54,16 +54,20 @@ eager.  Kernel #18's hack
 levels (of #3 at 1 RHS, of #13 at 8) are held to their plain versions.
 
 Classic WHELL (#15 SpMV, #16 SpMM; fp32 and bf16 values, OELL order and
-way-split rows) and pcell (#17) sum with atomics: rtol 1e-5 and atol
-1e-5·max|z| against their plain versions; 2e-5 (classic) and 1e-5·max|z|
-(pcell) against the golden.  #15 and #16 read only the live units of the
-work list: they are held to the full-layout plain version on layouts
-with explicit zeros, all-dead tiles (for #16 also the empty list and one
-unit) and after ``whell_update_values``, and shown to skip an Inf in x
-that only zero-valued cells read (a deviation from the JAX kernel, which
-gives NaN there).  #17 runs one warp per tile
-and 4 tiles per block: it is checked on a tile count that is not a
-multiple of 4.  Their float64 entries (``whell_classic_spmv_f64``,
+way-split rows) sums with atomics, and pcell (#17) each hack's listed
+tiles in one fixed order: rtol 1e-5 and atol 1e-5·max|z| against their
+plain versions; 2e-5 (classic) and 1e-5·max|z| (pcell) against the
+golden.  #15 and #16 read only the live units of the work list (#15 only
+the live sectors of its sector list, on units with one live sector, all
+live, lane 127's only and live sectors behind dead ones): they are held
+to the full-layout plain version on layouts with explicit zeros,
+all-dead tiles (for #16 also the empty list and one unit) and after
+``whell_update_values``, and shown to skip an Inf in x that only
+zero-valued cells read (a deviation from the JAX kernel, which gives NaN
+there).  #17 (the hack pass) writes every row of a z whose block held
+NaN, repeats its bits over calls and on two streams at once, adds a hub
+hack's chunks in order, and is checked on a tile count that is not a
+multiple of its warps.  Their float64 entries (``whell_classic_spmv_f64``,
 ``whell_classic_spmm_f64``, ``pcell_spmv_f64``) are held to their plain
 float64 versions and the golden at 1e-12·max|z| on the same fixtures and
 edges, counted on ``LAUNCHES_F64``/``LAUNCHES_SPMM_F64`` alone (``-k
@@ -81,6 +85,7 @@ of ``tile_base``'s 16-bit page field, against their plain versions and
 the golden at the tolerances above (the page read from ``tile_page``).
 """
 
+import dataclasses
 import functools
 import importlib
 
@@ -98,6 +103,7 @@ from spgpu_tpu_torch.convert import (  # noqa: E402
     coo_to_whell_percell,
 )
 from spgpu_tpu_torch.formats.coo import CooMatrix  # noqa: E402
+from spgpu_tpu_torch.formats.whell import classic_work_sectors  # noqa: E402
 from spgpu_tpu_torch.kernels import pcell as kp  # noqa: E402
 from spgpu_tpu_torch.kernels import sdia as ks  # noqa: E402
 from spgpu_tpu_torch.kernels import whdia as kd  # noqa: E402
@@ -1020,7 +1026,8 @@ PCELL_CASES = {"fem": CASES["fem"], "fem_large": CASES["fem_large"],
 def test_pcell_kernel_matches_plain_and_golden(name, geometry, cuda_device):
     """Kernel #17 through ``whell_spmv`` on a ``PcellWhell``: one launch,
     against its plain version (the same scan-then-difference arithmetic,
-    atomics: 1e-5, 1e-5·max|z|) and the golden (1e-5·max|z|)."""
+    summed in another order: 1e-5, 1e-5·max|z|) and the golden
+    (1e-5·max|z|)."""
     coo = PCELL_CASES[name]()
     geo = {} if geometry == "default" else dict(group_hacks=32, chunk_tiles=16)
     a = coo_to_whell_percell(coo, device=cuda_device, **geo)
@@ -1039,7 +1046,7 @@ def test_pcell_kernel_matches_plain_and_golden(name, geometry, cuda_device):
 @pytest.mark.parametrize("name", ["fem", "irregular"])
 def test_pcell_kernel_odd_tile_count_and_seams(name, cuda_device):
     """Kernel #17 at 7-tile chunks: a tile count that is not a multiple of
-    its 4 tiles (warps) per block, on runs across 32-lane boundaries and
+    4 (the warps a block of its first designs), on runs across 32-lane boundaries and
     ending at lanes 0 and 127 (tests/test_torch_pcell.py::
     test_pcell_fixture_has_warp_scan_seams); against the plain version
     (1e-5, 1e-5·max|z|) and the golden (1e-5·max|z|)."""
@@ -1228,8 +1235,8 @@ def test_f64_pcell_kernel_matches_plain_and_golden(name, geometry, cuda_device):
     """#17 in float64 (pcell_spmv_f64): one launch on ``LAUNCHES_F64``
     and none on ``LAUNCHES``, against its plain float64 version (the same
     scan-then-difference arithmetic) and the golden, at 1e-12·max|z|; the
-    odd geometry (7-tile chunks) gives a tile count off the kernel's 4
-    tiles a block."""
+    odd geometry (7-tile chunks) gives a tile count that is not a multiple
+    of 4."""
     coo = _f64(PCELL_CASES[name]())
     geo = {"default": {}, "small": dict(group_hacks=32, chunk_tiles=16),
            "odd": dict(group_hacks=32, chunk_tiles=7)}[geometry]
@@ -1285,6 +1292,198 @@ def test_f64_solve_pcell_on_cuda(symmetric, cuda_device):
     assert kp.LAUNCHES_F64 >= res.iterations > 0 and kp.LAUNCHES == 0
     x = res.x.cpu().numpy()
     assert np.linalg.norm(b - coo.spmv(x)) <= 1e-9 * np.linalg.norm(b)
+
+
+# --------------------------------------------------------------------------
+# #17 on the hack pass: each output hack's listed tiles summed in registers
+# in one fixed order, stored once into a torch.empty z; a hack past
+# RUN_CHUNK_TILES listed tiles in chunks added in chunk order
+
+#: #17's value types -> (launch counter, atol·max|z| against the plain
+#: version and the golden)
+PCELL_TYPES = {"float32": ("LAUNCHES", 1e-5), "float64": ("LAUNCHES_F64", F64)}
+PCELL_GEOMETRIES = {"default": {}, "small": dict(group_hacks=32, chunk_tiles=16),
+                    "odd": dict(group_hacks=32, chunk_tiles=7)}
+
+
+def _pcell_hub(n=1500, per_row=200, seed=4):
+    """tests/test_torch_pcell.py's hub fixture: 128 hub rows of
+    ``per_row`` entries beside a sparse rest, so hack 0 lists more tiles
+    than one work unit takes and its sums come in chunks."""
+    rng = np.random.default_rng(seed)
+    hr = np.repeat(np.arange(128), per_row)
+    hc = rng.integers(0, n, hr.size)
+    rest = random_irregular(n, n, 4.0, seed=seed, dtype=np.float32)
+    return CooMatrix(np.r_[hr, rest.rows], np.r_[hc, rest.cols],
+                     np.r_[rng.standard_normal(hr.size).astype(np.float32),
+                           rest.values], n, n)
+
+
+def _pcell_case(name, dtype, geometry, device):
+    c = _pcell_hub() if name == "hub" else PCELL_CASES[name]()
+    coo = CooMatrix(c.rows, c.cols, c.values.astype(dtype), c.n_rows, c.n_cols)
+    return coo, coo_to_whell_percell(coo, device=device, **PCELL_GEOMETRIES[geometry])
+
+
+def _pcell_call(a, x2):
+    """#17's wrapper on ``a`` and the padded ``x2``: z (rows, 128)."""
+    return kp.pcell_spmv(a.values, a.residue, a.page_tab, a.run_hi, a.run_lo,
+                         a.tile_base, a.chunk_group, a.group_bases, x2,
+                         chunk_tiles=a.chunk_tiles,
+                         group_hacks=a.group_hacks, window_pages=a.window_pages,
+                         num_groups=a.num_groups, tile_page=a.tile_page,
+                         hack_tiles=a.hack_tiles, hack_units=a.hack_units)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fem", "rect"])
+@pytest.mark.parametrize("geometry", sorted(PCELL_GEOMETRIES))
+@pytest.mark.parametrize("dtype", sorted(PCELL_TYPES))
+def test_pcell_kernel_writes_every_row_and_repeats_its_bits(dtype, geometry, name,
+                                                            cuda_device):
+    """z is not zero-filled: the block the kernel writes first held NaN,
+    yet every row comes out finite, a hack with no listed tile as zeros;
+    one launch a call, four calls give the same bits (no atomics); against
+    the plain version and the golden."""
+    coo, a = _pcell_case(name, dtype, geometry, cuda_device)
+    counter, tol = PCELL_TYPES[dtype]
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(coo.n_cols)).to(
+        cuda_device, a.values.dtype)
+    x2 = ops._prep_x(x, a.n_cols, a.x_pages)
+    rows = a.num_groups * a.group_hacks
+    torch.cuda.synchronize()
+    nan = torch.full((rows * 128,), float("nan"), dtype=a.values.dtype,
+                     device=cuda_device)
+    ptr = nan.data_ptr()
+    del nan  # the caching allocator hands this block to the kernel's z
+    before = getattr(kp, counter)
+    z = _pcell_call(a, x2)
+    torch.cuda.synchronize()
+    assert z.data_ptr() == ptr and getattr(kp, counter) == before + 1
+    assert bool(torch.isfinite(z).all())
+    empty = torch.nonzero(a.hack_tile_ptr[1:] == a.hack_tile_ptr[:-1]).view(-1)
+    assert (empty.numel() > 0) == (name == "rect")
+    assert not bool(z[empty].any())
+    assert all(torch.equal(z, _pcell_call(a, x2)) for _ in range(3))
+    zo = z.view(-1)[: a.n_rows]
+    _near(zo, ops.whell_spmv(a.to("cpu"), x.cpu()), tol, rtol=tol)
+    _near(zo, torch.from_numpy(coo.spmv(x.double().cpu().numpy())), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(PCELL_TYPES))
+def test_pcell_kernel_adds_a_chunked_hack_in_order(dtype, cuda_device):
+    """A hub hack cut into chunks of work units: each chunk's block stores
+    its sums, the last to finish adds them in chunk order; one launch and
+    one fill of the call's own counters, the same bits every call, against
+    the plain version and the golden."""
+    coo, a = _pcell_case("hub", dtype, "default", cuda_device)
+    counter, tol = PCELL_TYPES[dtype]
+    rows = a.num_groups * a.group_hacks
+    assert a.hack_units.shape[0] > rows and int((a.hack_units[:, 3] >= 0).sum()) >= 2
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(coo.n_cols)).to(
+        cuda_device, a.values.dtype)
+    before = getattr(kp, counter)
+    zs = [ops.whell_spmv(a, x) for _ in range(4)]
+    torch.cuda.synchronize()
+    assert getattr(kp, counter) == before + 4
+    assert all(torch.equal(zs[0], z) for z in zs[1:])
+    _near(zs[0], ops.whell_spmv(a.to("cpu"), x.cpu()), tol, rtol=tol)
+    _near(zs[0], torch.from_numpy(coo.spmv(x.double().cpu().numpy())), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fem", "hub"])
+@pytest.mark.parametrize("dtype", sorted(PCELL_TYPES))
+def test_pcell_products_on_two_streams_repeat_their_bits(dtype, name, cuda_device):
+    """100 products of one layout on each of two streams at once (both
+    behind a sleep, so their launches overlap), the hub's with chunked
+    hacks: every product has the bits of one on the default stream, so no
+    state is shared between streams or calls."""
+    coo, a = _pcell_case(name, dtype, "default", cuda_device)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(coo.n_cols)).to(
+        cuda_device, a.values.dtype)
+    ref = ops.whell_spmv(a, x)
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    outs = [[], []]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda_device))
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(100_000_000)
+    for _ in range(100):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                outs[k].append(ops.whell_spmv(a, x))
+    torch.cuda.synchronize()
+    assert all(torch.equal(ref, z) for out in outs for z in out)
+
+
+# --------------------------------------------------------------------------
+# #15's sector list: a lane loads its value only where the unit's word
+# marks its 32 B sector live
+
+def _sector_values(a, case):
+    """A slab for ``dataclasses.replace(a, values=...)``: ``one`` keeps a
+    single nonzero; ``all`` fills every cell of the first listed unit;
+    ``lane127`` keeps only lane 127 (the last sector of the last quarter),
+    made nonzero in every slot; ``behind_dead`` keeps the nonzeros of
+    odd-numbered sectors only, each behind a dead neighbour sector."""
+    v = a.values
+    n = v.element_size()
+    rng = np.random.default_rng(13)
+    fill = torch.from_numpy(rng.uniform(0.5, 1.5, tuple(v.shape))).to(v.device, v.dtype)
+    if case == "one":
+        keep = torch.zeros_like(v, dtype=torch.bool)
+        first = torch.nonzero(v != 0)[0]
+        keep[first[0], first[1]] = True
+        return torch.where(keep, v, torch.zeros_like(v))
+    if case == "all":
+        e = int(a.work_list[0])
+        t, q = e >> 10, e >> 8 & 3
+        out = v.clone()
+        out[t * 8: t * 8 + 8, q * 32: q * 32 + 32] = fill[t * 8: t * 8 + 8, q * 32: q * 32 + 32]
+        return out
+    if case == "lane127":
+        out = torch.zeros_like(v)
+        out[:, 127] = fill[:, 127]
+        return out
+    sector = torch.arange(128, device=v.device) % 32 // (32 // n)
+    return torch.where((sector % 2 == 1).view(1, 128), v, torch.zeros_like(v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all", "behind_dead", "lane127", "one"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+def test_classic_kernel_on_sector_edges(dtype, case, cuda_device):
+    """#15 over units with one live sector, all live, only lane 127's
+    sector, and live sectors behind dead ones: one launch, against the
+    full-layout plain version (fp32, bf16: 2e-5; float64: 1e-12·max|z|)."""
+    xdt, tol = CLASSIC_X[dtype]
+    a = coo_to_whell(CASES["fem"](), device=cuda_device, packed=False, dtype=dtype)
+    b = dataclasses.replace(a, values=_sector_values(a, case))
+    b.check()
+    n = b.values.element_size()
+    assert (b.work_sectors is None) == (dtype != "float64")
+    ws = classic_work_sectors(b.values, b.work_list).cpu()
+    if case == "one":
+        assert ws.numel() == 1 and bin(int(ws[0]) & (1 << 64) - 1).count("1") == 1
+    elif case == "all":
+        full = sum(((1 << n) - 1) << (8 * s) for s in range(8))
+        assert (int(ws[0]) & (1 << 64) - 1) == full
+    elif case == "lane127":
+        assert bool(((b.work_list.cpu() >> 8 & 3) == 3).all())
+        assert bool((ws == sum(1 << (8 * s + n - 1) for s in range(8)) - (
+            1 << 64 if n == 8 else 0)).all())
+    else:
+        odd = sum(1 << (8 * s + g) for s in range(8) for g in range(1, n, 2))
+        assert bool(((ws & (odd - (1 << 64) if n == 8 else odd)) == ws).all())
+    x = _xs(1, b.n_cols, 3)[0].to(cuda_device, xdt)
+    counter = "LAUNCHES_F64" if dtype == "float64" else "LAUNCHES"
+    before = getattr(kc, counter)
+    z = ops.whell_spmv(b, x)
+    torch.cuda.synchronize()
+    assert getattr(kc, counter) == before + 1
+    _near(z, ops.whell_spmv(b.to("cpu"), x.cpu()), tol, rtol=tol)
 
 
 # --------------------------------------------------------------------------
@@ -2021,15 +2220,15 @@ loop = importlib.import_module("spgpu_tpu_torch.solvers.cg")
 
 #: (fmt, dtype) of every solve() route -> whether its kernel gives the same
 #: bits every call (SDIA #2/#5/#8/#11, WHDIA #3/#6/#9/#10, packed WHELL
-#: #1/#4/#7 and complex128 on the hack pass, the hybrid split and HELL);
-#: #17 sums with atomics
+#: #1/#4/#7 and complex128 and pcell #17 on their hack passes, the hybrid
+#: split and HELL): every route does
 GRAPH_ROUTES = {("whell", "float32"): True, ("whell", "float64"): True,
                 ("whell", "complex64"): True, ("whell", "complex128"): True,
                 ("sdia", "float32"): True, ("sdia", "float64"): True,
                 ("sdia", "complex64"): True, ("sdia", "complex128"): True,
                 ("whdia", "float32"): True, ("whdia", "float64"): True,
                 ("whdia", "complex64"): True, ("whdia", "complex128"): True,
-                ("pcell", "float32"): False, ("pcell", "float64"): False,
+                ("pcell", "float32"): True, ("pcell", "float64"): True,
                 # the hybrid split: #3 + #1 or #6 + #4 and an index copy each
                 # way; classic HELL: plain torch, each hack summed in slot
                 # order by segment_reduce (no atomics)

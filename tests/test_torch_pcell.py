@@ -333,3 +333,275 @@ def test_pcell_odd_chunk_tiles_matches_jax_and_golden():
     x = np.random.default_rng(6).standard_normal(4000).astype(np.float32)
     _near(tops.whell_spmv(ta, torch.from_numpy(x)).numpy(),
           SEAM_FEM(tfix).spmv(x.astype(np.float64)), 1e-5)
+
+
+# --------------------------------------------------------------------------
+# kernel #17's hack lists: each output hack's tiles that route a run, in
+# ascending tile order, and the work units over them (a hack past
+# PCELL_CHUNK_TILES listed tiles in chunks); the kernel sums each hack's
+# tiles in registers in one fixed order and stores its 128 lanes once
+
+def hub(f, n=1500, per_row=200, seed=4):
+    """128 hub rows (hack 0) of ``per_row`` entries each beside a sparse
+    rest: hack 0 lists more tiles than one work unit takes, so its sums
+    come in chunks."""
+    rng = np.random.default_rng(seed)
+    hr = np.repeat(np.arange(128), per_row)
+    hc = rng.integers(0, n, hr.size)
+    rest = f.random_irregular(n, n, 4.0, seed=seed, dtype=np.float32)
+    return f.CooMatrix(np.r_[hr, rest.rows], np.r_[hc, rest.cols],
+                       np.r_[rng.standard_normal(hr.size).astype(np.float32),
+                             rest.values], n, n)
+
+
+LIST_CASES = dict(CASES, hub=hub)
+
+
+def _np_hack_lists(a):
+    """``hack_tile_ptr`` and ``hack_tiles`` by a direct NumPy derivation."""
+    T = a.num_tiles
+    live = np.flatnonzero((a.run_hi.numpy().reshape(T, -1) >= 0).any(axis=1))
+    hack = (a.chunk_group.numpy()[live // a.chunk_tiles].astype(np.int64)
+            * a.group_hacks + (a.tile_base.numpy()[live].astype(np.int64) >> 20))
+    per = [live[hack == h] for h in range(a.num_groups * a.group_hacks)]
+    return np.r_[0, np.cumsum([p.size for p in per])], np.concatenate(per)
+
+
+@pytest.mark.parametrize("geometry", ["small", "default"])
+@pytest.mark.parametrize("name", sorted(LIST_CASES))
+def test_pcell_hack_lists_match_numpy(name, geometry):
+    """The lists against a NumPy derivation; every tile that routes a run
+    is listed exactly once, under its own hack, and no other tile is; the
+    units cover each hack's list in chunks of at most PCELL_CHUNK_TILES."""
+    a = coo_to_whell_percell(LIST_CASES[name](tfix), device="cpu",
+                             **(SMALL if geometry == "small" else {}))
+    ptr, tiles = _np_hack_lists(a)
+    np.testing.assert_array_equal(a.hack_tile_ptr.numpy(), ptr)
+    np.testing.assert_array_equal(a.hack_tiles.numpy(), tiles)
+    assert a.hack_tiles.dtype == a.hack_units.dtype == torch.int32
+    routes = (a.run_hi.view(a.num_tiles, -1) >= 0).any(dim=1)
+    listed = torch.zeros(a.num_tiles, dtype=torch.long)
+    listed.index_add_(0, a.hack_tiles.long(), torch.ones(a.hack_tiles.numel(),
+                                                         dtype=torch.long))
+    assert torch.equal(listed, routes.long())
+    u = a.hack_units.long()
+    assert bool(((u[:, 1] - u[:, 0]) <= twhell.PCELL_CHUNK_TILES).all())
+    rows = a.num_groups * a.group_hacks
+    assert torch.equal(torch.unique(u[:, 2]), torch.arange(rows))
+    assert (u.shape[0] > rows) == (name == "hub")
+    a.check()
+
+
+def test_pcell_hack_lists_are_rebuilt():
+    """``.to()``, ``dataclasses.replace`` and the JAX bridge derive new
+    lists; a replaced ``run_hi`` that routes a run in an unlisted tile
+    lists it."""
+    a = coo_to_whell_percell(CASES["fem2000"](tfix), device="cpu", **SMALL)
+    b = a.to("cpu")
+    assert b.hack_tiles is not a.hack_tiles
+    for f in ("hack_tile_ptr", "hack_tiles", "hack_units"):
+        assert torch.equal(getattr(b, f), getattr(a, f))
+    free = sorted(set(range(a.num_tiles)) - set(a.hack_tiles.tolist()))
+    assert free, "the small geometry pads its chunks"
+    hi = a.run_hi.clone()
+    hi[free[0] * 8, 3] = 5
+    c = dataclasses.replace(a, run_hi=hi)
+    assert c.hack_tiles.numel() == a.hack_tiles.numel() + 1
+    assert free[0] in c.hack_tiles.tolist()
+    ptr, tiles = _np_hack_lists(c)
+    np.testing.assert_array_equal(c.hack_tiles.numpy(), tiles)
+    d = bridge(j_percell(CASES["fem2000"](jfix), **SMALL))
+    assert torch.equal(d.hack_tiles, a.hack_tiles)
+    assert torch.equal(d.hack_units, a.hack_units)
+
+
+def test_pcell_check_rejects_stale_hack_lists():
+    """A layout changed in place after its lists were built: a run routed
+    in an unlisted tile, or a list edited by hand."""
+    a = coo_to_whell_percell(CASES["fem2000"](tfix), device="cpu", **SMALL)
+    a.check()
+    free = sorted(set(range(a.num_tiles)) - set(a.hack_tiles.tolist()))
+    a.run_hi[free[0] * 8, 3] = 5
+    with pytest.raises(ValueError, match="hack_tile"):
+        a.check()
+    b = coo_to_whell_percell(CASES["fem2000"](tfix), device="cpu", **SMALL)
+    b.hack_tiles = b.hack_tiles.flip(0).contiguous()
+    with pytest.raises(ValueError, match="hack_tile"):
+        b.check()
+    c = coo_to_whell_percell(CASES["fem2000"](tfix), device="cpu", **SMALL)
+    c.hack_units = c.hack_units[:-1]
+    with pytest.raises(ValueError, match="hack_units"):
+        c.check()
+
+
+def test_pcell_wrapper_needs_the_hack_lists_on_cuda_only():
+    """On a CUDA device the wrapper needs ``hack_tiles`` and
+    ``hack_units`` (raises without); the CPU path takes them or not."""
+    a = coo_to_whell_percell(CASES["fem2000"](tfix), device="cpu", **SMALL)
+    rows = a.num_groups * a.group_hacks
+    with pytest.raises(ValueError, match="hack lists"):
+        kp._check_lists(None, a.hack_units, rows, torch.device("cuda"))
+    with pytest.raises(ValueError, match="bad hack_tiles"):
+        kp._check_lists(a.hack_tiles.long(), a.hack_units, rows, torch.device("cpu"))
+    with pytest.raises(ValueError, match="bad hack_tiles"):
+        kp._check_lists(a.hack_tiles, a.hack_units[:rows - 1], rows, torch.device("cpu"))
+    args = (a.values, a.residue, a.page_tab, a.run_hi, a.run_lo, a.tile_base,
+            a.chunk_group, a.group_bases,
+            tops._prep_x(torch.ones(a.n_cols), a.n_cols, a.x_pages))
+    static = dict(chunk_tiles=a.chunk_tiles, group_hacks=a.group_hacks,
+                  window_pages=a.window_pages, num_groups=a.num_groups,
+                  tile_page=a.tile_page)
+    assert torch.equal(kp.pcell_spmv(*args, **static),
+                       kp.pcell_spmv(*args, **static, hack_tiles=a.hack_tiles,
+                                     hack_units=a.hack_units))
+
+
+def _routed(a, x2):
+    """Each slot's routed sums ``(num_tiles, 8, 128)``, in the plain
+    version's arithmetic (the lane scan, differenced at the run bounds)."""
+    res = a.residue.long()
+    d = torch.gather(a.page_tab.long(), 1, res)
+    tile = torch.arange(a.total_slots) // 8
+    K = a.window_pages // 8
+    page = a.group_bases.long()[a.tile_page.long()[tile, None] * K + (d >> 3)] + (d & 7)
+    scan = (a.values * x2.reshape(-1)[page * 128 + res]).cumsum(dim=1)
+    hi, lo = a.run_hi.long(), a.run_lo.long()
+    routed = (torch.where(hi >= 0, torch.gather(scan, 1, hi.clamp(min=0)), 0.0)
+              - torch.where(lo >= 0, torch.gather(scan, 1, lo.clamp(min=0)), 0.0))
+    return routed.view(a.num_tiles, 8, 128)
+
+
+def hack_schedule(a, x2, warps=2):
+    """Kernel #17's schedule on the CPU: per work unit, warp ``w`` adds
+    the routed slots of listed tiles ``begin + w, begin + w + warps, ...``
+    in order into its sums; the unit adds its warps' sums in warp order; a
+    chunked row adds its chunks' sums in chunk order; every row is stored
+    once into a NaN-filled z."""
+    routed = _routed(a, x2)
+    z = torch.full((a.num_groups * a.group_hacks, 128), float("nan"),
+                   dtype=a.values.dtype)
+    part = {}
+    for u, (b, e, row, chunk) in enumerate(a.hack_units.tolist()):
+        acc = [torch.zeros(128, dtype=a.values.dtype) for _ in range(warps)]
+        for w in range(warps):
+            for q in range(b + w, e, warps):
+                for s in range(8):
+                    acc[w] = acc[w] + routed[int(a.hack_tiles[q]), s]
+        total = acc[0]
+        for w in range(1, warps):
+            total = total + acc[w]
+        if chunk >= 0:
+            c, k = chunk >> 16, chunk & 0xFFFF
+            part[u] = total
+            if c < k - 1:
+                continue
+            total = part[u - c]
+            for i in range(1, k):
+                total = total + part[u - c + i]
+        z[row] = total
+    return z
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", ["hub", "fem2000", "rect"])
+def test_pcell_hack_schedule_matches_plain(name, dtype):
+    """The new schedule (each hack's routed tiles summed in list order, a
+    hub hack in chunks) writes every row and equals the plain version:
+    fp32 within 2e-5·max|z|, float64 within 1e-12·max|z|."""
+    coo = LIST_CASES[name](tfix)
+    for geometry in (SMALL, {}):
+        a = coo_to_whell_percell(coo, device="cpu", dtype=dtype, **geometry)
+        x = np.random.default_rng(9).standard_normal(a.x_pages * 128)
+        x2 = torch.from_numpy(x).to(a.values.dtype).view(a.x_pages, 128)
+        z = hack_schedule(a, x2)
+        assert not bool(z.isnan().any())
+        plain = kp.pcell_spmv_plain(
+            a.values, a.residue, a.page_tab, a.run_hi, a.run_lo, a.tile_base,
+            a.chunk_group, a.group_bases, x2, chunk_tiles=a.chunk_tiles,
+            group_hacks=a.group_hacks, window_pages=a.window_pages,
+            num_groups=a.num_groups, tile_page=a.tile_page)
+        _near(z.numpy(), plain.numpy(), 2e-5 if dtype == "float32" else 1e-12)
+
+
+def test_pcell_hack_schedule_on_a_hub_matches_jax():
+    """The hub fixture's chunked hack through the schedule, against the
+    JAX ``_pcell_kernel`` (interpret mode, through the bridge) within
+    3e-5·max|z| and the golden."""
+    ja = j_percell(hub(jfix), **SMALL)
+    ta = bridge(ja)
+    assert ta.hack_units.shape[0] > ta.num_groups * ta.group_hacks
+    x = np.random.default_rng(10).standard_normal(ta.n_cols).astype(np.float32)
+    x2 = tops._prep_x(torch.from_numpy(x), ta.n_cols, ta.x_pages)
+    z = hack_schedule(ta, x2).view(-1)[: ta.n_rows].numpy()
+    _near(z, np.asarray(jops.whell_spmv(ja, jnp.asarray(x), interpret=True)), 3e-5)
+    _near(z, hub(tfix).spmv(x.astype(np.float64)), 3e-5)
+
+
+@pytest.mark.parametrize("design", ["pcell", "classic"])
+def test_kernel_account_edits_apply_to_the_sources(design):
+    """``sweeps.kernel_account``'s variants of #17 and #15 are edits of the
+    production sources: each edit finds its text exactly once, so the
+    account still builds what it names; the account runs on a card only."""
+    from spgpu_tpu_torch.kernels import whell_classic as kc
+    from spgpu_tpu_torch.sweeps import kernel_account as ka
+
+    with open(kp.SOURCE if design == "pcell" else kc.SOURCE) as f:
+        text = f.read()
+    variants = ka.DESIGNS[design]["variants"]
+    assert next(iter(variants)) == "production"
+    for name, (_, edits, _) in variants.items():
+        out = ka.apply_edits(text, edits)
+        assert (out == text) == (not edits), name
+    with pytest.raises(ValueError, match="exactly|matches 0"):
+        ka.apply_edits(text, [("no such text", "")])
+    with pytest.raises(ValueError, match="card"):
+        ka.run("cpu", design=design)
+
+
+def test_loop_trace_splits_replays_on_their_flag_reads():
+    """``sweeps.loop_trace`` cuts a profiled run's device events at each
+    replay's flag copy: the eager window and a window of another length
+    are left out, and the per-step medians count each operation, its
+    time, the gaps inside a replay and the gap before it; the trace runs
+    on a card only."""
+    from spgpu_tpu_torch.sweeps import loop_trace as lt
+
+    ev = [("eager", 0.0, 5.0), ("Memcpy DtoH (Device -> Pageable)", 5.0, 6.0)]
+    t = 100.0
+    for r in range(4):
+        for _ in range(4 if r != 2 else 3):  # replay 2 lost an event
+            ev += [("pcell_hack_pass", t, t + 80.0), ("Memset", t + 82.0, t + 84.0)]
+            t += 85.0
+        ev.append(("Memcpy DtoH (Device -> Pinned)", t, t + 1.0))
+        t += 11.0
+    got = lt.replay_windows(ev[::-1], 4)
+    assert got["replays"] == 3
+    assert got["ops_per_step"] == 9 / 4
+    assert got["busy_us_per_step"] == (4 * 82.0 + 1.0) / 4
+    assert got["inner_gap_us_per_step"] == (4 * 3.0) / 4
+    assert got["gap_before_us_per_step"] == 10.0 / 4
+    assert got["by_name_per_step"]["pcell_hack_pass"] == dict(count=1.0, us=80.0)
+    assert got["by_name_per_step"]["Memset"] == dict(count=1.0, us=2.0)
+    assert lt.replay_windows([], 4) == dict(replays=0)
+    with pytest.raises(ValueError, match="card"):
+        lt.run("cpu")
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64])
+def test_spd_from_is_hermitian_and_dominant(dtype):
+    """``fixtures.spd_from``: (A + Aᴴ)/2 off the diagonal, each diagonal
+    entry its row's off-diagonal |·|-sum + 1, in ``dtype``."""
+    coo = tfix.random_fem_like(300, 9.0, span=40, far_frac=0.05, seed=4)
+    if np.dtype(dtype).kind == "c":
+        coo = CooMatrix(coo.rows, coo.cols, coo.values * (1 + 0.5j), 300, 300)
+    dense = np.zeros((300, 300), np.complex128)
+    np.add.at(dense, (coo.rows, coo.cols), coo.values)
+    s = tfix.spd_from(coo, dtype)
+    assert s.values.dtype == dtype
+    got = np.zeros((300, 300), np.complex128)
+    np.add.at(got, (s.rows, s.cols), s.values)
+    want = (dense + dense.conj().T) / 2
+    off = ~np.eye(300, dtype=bool)
+    np.fill_diagonal(want, np.where(off, np.abs(want), 0).sum(axis=1) + 1)
+    tol = 1e-6 if dtype in (np.float32, np.complex64) else 1e-12
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
