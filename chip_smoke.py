@@ -1520,9 +1520,12 @@ def classic_live(a, x2, n_rhs=1):
     and z once per RHS: what #15 read before its sector list and #16
     reads); and the live sectors' at 32 B and at 64 B (values only in the
     32 B sectors, or 64 B segments, that hold a nonzero, the rest as the
-    warp-slots', plus the sector list, 8 B a live unit, where #15 reads
-    one: a float64 layout's, one RHS).
-    ``live_bound_bytes`` is the 32 B one.  ``x2`` is the padded x,
+    warp-slots', plus the sector list, 8 B a live unit, where the layout
+    carries one: a float64 layout's, which #15 and #16 read).
+    ``live_bound_bytes`` is the 32 B one.  Beside the bounds, not one of
+    them: ``gather_mb``, the X bytes the nonzero cells gather through the
+    L2 (one x row of ``n_rhs`` items each), which the bounds count once
+    per x.  ``x2`` is the padded x,
     ``(x_pages, 128)``, or the ``(n_rhs, x_pages, 128)`` stack of
     ``n_rhs`` RHS; z has its type.  Computed from the values and the work
     list, so an older checkout (no sector list) is priced too."""
@@ -1543,7 +1546,7 @@ def classic_live(a, x2, n_rhs=1):
     value_bytes = {g: int(nz.view(S, 128 * isz // g, g // isz).any(dim=2).sum()) * g
                    for g in (32, 64)}
     warp_slot = live_slots * 32 * isz + rest
-    listed = nbytes(getattr(a, "work_sectors", None)) if n_rhs == 1 else 0
+    listed = nbytes(getattr(a, "work_sectors", None))
     sector = {g: value_bytes[g] + rest + listed for g in (32, 64)}
     full = nbytes(a.values, a.residue, a.page_tab, a.tile_base,
                   getattr(a, "tile_page", None), a.chunk_group, x2) \
@@ -1555,6 +1558,7 @@ def classic_live(a, x2, n_rhs=1):
                 live_slab_mib=live_slots * 32 * (isz + 2) / 2**20,
                 live_sector_value_mb=value_bytes[32] / 1e6,
                 live_segment_value_mb=value_bytes[64] / 1e6,
+                gather_mb=int(nz.sum()) * n_rhs * zsz / 1e6,
                 warp_slot_value_mb=live_slots * 32 * isz / 1e6,
                 full_bound_ms=bound(full, 0, dt)["bound_ms"], full_bound_bytes=full,
                 warp_slot_bound_ms=bound(warp_slot, 0, dt)["bound_ms"],
@@ -1782,8 +1786,8 @@ def classic_spmm_phase(coo, a, device, label, cold=False):
     err_golden = check_close(z.cpu().numpy(), coo.spmv(X.astype(np.float64)),
                              *tol_golden, f"{label}: kernel vs host golden")
     library, refused = library_call(coo, xs, device)
-    kernel = lambda: kc.whell_classic_spmm(*layout, x3, work=a.work_list,  # noqa: E731
-                                           **static)
+    kernel = lambda: kc.whell_classic_spmm(*layout, x3, work=a.spmm_work,  # noqa: E731
+                                           work_sectors=a.spmm_work_sectors, **static)
     t = timed(kernel, lambda: kc.whell_classic_spmm_plain(*layout, x3, **static),
               library, refused, op=lambda: ops.whell_spmm(a, xs, fused=True),
               loop=lambda: ops.whell_spmm(a, xs))
@@ -3300,6 +3304,7 @@ def build_all():
     complex128 kernels of their route), all nvcc builds started together."""
     from spgpu_tpu_torch import native
     from spgpu_tpu_torch.kernels import pcell, sdia, whdia, whell, whell_classic
+    from spgpu_tpu_torch.kernels._build import ptxas_by_kernel
 
     host_s = native.build()
     libs = {"whell_packed_spmv": whell, "sdia_spmv": sdia, "whdia_spmv": whdia,
@@ -3312,37 +3317,6 @@ def build_all():
                                        if "registers" in ln or "spill" in ln],
                    ptxas_by_kernel=ptxas_by_kernel(log))
         for name, (sec, log) in done.items()})
-
-
-def ptxas_by_kernel(log: str) -> dict:
-    """``ptxas -v``'s spill and register lines of each kernel instance,
-    keyed ``name<mangled template arguments>`` (``whell_tile_pass<ddLb0E>``:
-    double, double, false), in the order ptxas reports them."""
-    out, name = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for) '?(_Z\w+)", ln)
-        if m:
-            name = kernel_key(m.group(1))
-        elif name and ("registers" in ln or "spill" in ln):
-            text = ln.strip().removeprefix("ptxas info    : ")
-            out[name] = f"{out[name]}; {text}" if name in out else text
-    return out
-
-
-def kernel_key(mangled: str) -> str:
-    """A mangled kernel name's last name component, with its template
-    arguments as mangled (``_ZN<len><ns>...<len><name>I<args>EEv...``)."""
-    i, name = 3, mangled
-    while mangled.startswith("_ZN") and i < len(mangled) and mangled[i].isdigit():
-        j = i
-        while mangled[j].isdigit():
-            j += 1
-        n = int(mangled[i:j])
-        name, i = mangled[j:j + n], j + n
-    rest = mangled[i:]
-    if rest.startswith("I") and "EEv" in rest:
-        name += f"<{rest[1:rest.index('EEv')]}>"
-    return name
 
 
 def kernel_row(name, launches, phase):

@@ -91,9 +91,6 @@
 // whole live warp-slots stay (kSectorLoads): 56.8-57.0 and 50.3-50.5 in
 // the same runs, so the predicated loads cost more there than the
 // sectors save.
-// #16's unit_cells loads whole warp-slots predicated in every type: at 8
-// RHS 0.1035 ms against the plain loads' 0.1339 in fp32, 0.1924 against
-// 0.2023 in float64 (chip_smoke.py's phase 29).
 //
 // Semantics: a cell whose value is 0 contributes nothing, so for finite x
 // the product equals the full-layout one (the plain version, which stays
@@ -102,34 +99,64 @@
 // turns their lanes into NaN there; here it does not.  Atomic order
 // varies, so sums are not bit-reproducible.
 //
-// SpMM (kernel #16) runs over the same work list (classic_spmm_units):
-// one warp per live unit, its live slots' values, residues and page-table
-// rows prefetched and its cells decoded as #15's (unit_cells, shared by
-// both kernels), each lane's <= 8 live cells' values and x rows then
-// held in registers for every RHS, in blocks of kRhs = 8 register sums
-// with a runtime remainder (any n_rhs).  As kernel #12's wrapper does,
-// the wrapper copies X into an RHS-interleaved (x_pages*128, n_rhs)
-// buffer, so one cell's 8 RHS sit in one 32 B sector: two float4 loads
-// when n_rhs is a multiple of 4, else masked scalar loads.  Cells whose
-// value is 0 gather nothing; each lane issues one atomicAdd per RHS into
-// z (n_rhs, rows_padded), none where that sum is 0.  The first design
-// (one 128-thread block per tile over the full layout, the page
-// table staged in shared memory behind a barrier) took 219.0 us for 8
-// RHS on the relabelled flagship (full-layout bound 95.6 us; NVIDIA H100
-// 80GB HBM3, 700 W, chip_smoke.py).  Bound: #15's live bytes with x and
-// z once per RHS (chip_smoke.py's classic_live).  What holds it back is
-// the x gathers: timed side by side on that card and layout (8 RHS,
-// fp32, variants not kept), the kernel took 149-150 us uncapped (96
-// registers), 60.8 without the x loads, 146.6 with plain stores in place
-// of the atomics (wrong sums: the atomics cost ~4 us, so a warp per
-// (hack, quarter) summing in registers would gain little), 190 with
-// scalar loads only, 167-186 with one block per 64-tile chunk (for L1
-// reuse of x), 134-136 with the 64-register cap kept here (a few
-// spills; a 40-register cap spilled more and took 313), and 122-123 with
-// lanes l and l^16 loading the two halves of one cell's 8 RHS (48
-// registers; not kept: full 8-RHS blocks only, a second gather path for
-// the rest, for under 10 %).  The TPU
-// kernel's per-RHS fori loop and X VMEM staging have no counterpart.
+// SpMM (kernel #16) runs over the same work list (classic_spmm_units).  As
+// kernel #12's wrapper does, the wrapper copies X into an RHS-interleaved
+// (x_pages*128, n_rhs) buffer, so one cell's 8 RHS sit in one 32 B
+// sector (64 B in float64): 16 B vector loads when n_rhs is a multiple of
+// the vector's RHS, else masked scalar loads, in blocks of kRhs = 8
+// register sums with a runtime remainder (any n_rhs).  Cells whose value
+// is 0 gather nothing; a lane adds its sums into z (n_rhs, rows_padded)
+// by atomicAdd, none where a sum is 0 (when: the design below).  Bound:
+// #15's live bytes with x and z once per RHS (chip_smoke.py's
+// classic_live); the gathers themselves move nnz x 8 RHS x 8 B = 428.6 MB
+// through the L2 in float64 on the relabelled flagship, 2.5x the live
+// bound's DRAM bytes, and columns repeat too little (1.14 nonzeros a
+// distinct column in a unit, 2.22 in a hack) for staging x to pay.
+//
+// Design (since the redesign for Hopper): persistent warps over the
+// layout's list in its SpMM order (spmm_work: classic_spmm_order, by
+// output row block, then tile).  The host launches as many 4-warp blocks
+// as the card holds at once (3 an SM in float64 at 168 registers, 4 in
+// fp32 and bf16 at 128), and the list is dealt kSpmmChunk = 4 entries at
+// a time round-robin (the tail one entry at a time, so no warp takes
+// more than one entry over another): at any moment the card works on one window
+// of the list, whose x rows stay in the L2, and a warp's consecutive
+// entries mostly add into one row block, so at <= 8 RHS it carries its
+// register sums over them and adds them into z once (one atomicAdd per
+// row and RHS when the block changes).  A warp's stage in shared memory
+// (Stage<V>: 3,328 B in float64) receives the next entry's slab bytes by
+// cp.async (16 B pieces, through the L2 only: the live slots' values, in
+// float64 only their live 32 B sectors from spmm_work_sectors, their
+// residues and 128 B page-table rows; dead pieces zero-filled) while the
+// warp gathers x for the current entry, and the entry after that is
+// loaded from the list: the decode (page entry by residue, from shared
+// memory) waits for no DRAM round trip of its own.  X is read with an
+// L2::evict_last hint.
+//
+// The account before it (sweeps/kernel_account.py --design classic_spmm on
+// the parent's kernel, relabelled flagship, 8 RHS, warm device us; NVIDIA
+// H100 80GB HBM3, 700 W): one short-lived warp per entry, its work-list
+// load, slab loads, decode, gathers and atomics one dependent chain;
+// float64 192.2 (128 registers), 118.0 without the x gathers, the
+// atomics and the sector list about 1 each, 6 blocks an SM 167.2 (80
+// registers, spilling), 8 blocks 187.9; pairs of lanes sharing a cell's
+// X row (each loading half of every 32 B piece) 237.0, slower in every
+// type; fp32 105.0, 27.0 of it the gathers.  The account of this design
+// (same script, float64 / fp32): 147.9 / 89.0; without the x gathers
+// 108.4 / 76.4; without Z's writes 143.1 / 84.8; each entry's sums added
+// into z (no carry) 160.4 / 101.2, the list in tile order 161.0 / 94.5,
+// dealt one entry at a time 156.2 / 89.3 (8 at a time no better); each
+// stage waited for where it is issued 157.6 / 97.3; float64 at 4 blocks
+// an SM 249.4 (128 registers, 160 B spilled), fp32 at 3 97.8; 4 RHS a
+// register block 167.7 / 110.8; X without the L2 hint, the slab's copies
+// L2::evict_first and float64 without the sector list each within 2 us.
+// Beside the parent in one call (chip_smoke.py --kernel-times): float64
+// 192.4-192.7 -> 147.9-148.1, fp32 105.6-105.9 -> 88.3-88.7, bf16
+// 101.9-102.0 -> 84.0-84.2.  What is left: the x gathers (40 us in
+// float64; a cell's 8 RHS are one 64 B row) and the slab's stream with
+// its decode (107 us without gathers or writes, against a 72 us bound for
+// the live warp-slots); the TPU kernel's per-RHS fori loop and X VMEM
+// staging have no counterpart.
 //
 // float64.  The same two kernels, instantiated on the stored and
 // summed type (Acc<V>: float for fp32 and bf16 values, double for
@@ -141,16 +168,16 @@
 // page-table row prefetch; a warp's 32 values are one 256 B load.  #16
 // keeps kRhs = 8 register sums, now doubles, and loads a cell's 8 RHS as
 // four 16 B double2 loads when n_rhs is even (its rows then start 16 B
-// aligned), else as masked scalar loads.  Its register cap is 128 in
-// float64 (4 blocks an SM, Acc<double>): the sums, the 8 values and the
-// 8 x rows alone take 48 registers.  ptxas (sm_90a, with the predicated
-// loads): classic_spmv_units<d> 46 registers, no spills;
-// classic_spmm_units<d> 128 registers, no spills (32 bytes of spill
-// stores before); classic_spmm_units<f>/<t> 64 registers with 16 bytes of
-// spill stores (80 before), the fp32 and bf16 SpMV instances 40.
+// aligned), else as masked scalar loads.  ptxas (sm_90a):
+// classic_spmv_units<d> 46 registers, no spills; classic_spmm_units<d> 168
+// registers with 12 bytes of spill stores, <f> and <t> 128 registers, no
+// spills, with 13,312, 9,216 and 7,168 bytes of shared memory (the four
+// warps' stages); the fp32 and bf16 SpMV instances 40.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -162,18 +189,26 @@ constexpr int kRhs = 8;
 constexpr int kUnitWarps = 4;  // kernels #15, #16: work-list entries (warps) per block
 
 // the sum type of a stored value type: fp32 for fp32 and bf16 bits, double
-// for double; Vec is its 16 B vector (#16's RHS loads), kMinBlocks #16's
-// blocks an SM (its register cap: 64 in fp32, 128 in float64)
+// for double; Vec is its 16 B vector (#16's RHS loads)
 template <typename V> struct Acc {
   using T = float;
   using Vec = float4;
-  static constexpr int kMinBlocks = 8;
 };
 template <> struct Acc<double> {
   using T = double;
   using Vec = double2;
-  static constexpr int kMinBlocks = 4;
 };
+
+// #16's choices by stored type (sizeof(V): 8 float64, 4 fp32, 2 bf16
+// bits), each timed against the others by sweeps/kernel_account.py
+// --design classic_spmm: kSpmmSectors, values only in the live 32 B
+// sectors of the layout's work_sectors (float64 layouts carry one);
+// kSpmmMinBlocks, the blocks an SM asked of ptxas (its register cap: 168
+// in float64, where the carried sums spill at 128, else 128); kSpmmChunk,
+// the consecutive list entries a warp takes at a time.
+template <typename V> constexpr bool kSpmmSectors = sizeof(V) == 8;
+template <typename V> constexpr int kSpmmMinBlocks = sizeof(V) == 8 ? 3 : 4;
+constexpr int kSpmmChunk = 4;
 
 // *p where `on`, else 0, by a predicated load that a lane off does not
 // issue.  No branch around a load: ptxas turns a branch per slot into a
@@ -227,6 +262,37 @@ __device__ __forceinline__ void add_vec(double (&sum)[kRhs], int k0, double v, d
   sum[k0 + 1] = fma(v, a.y, sum[k0 + 1]);
 }
 
+// #16's loads of the RHS-interleaved X, 16 B or one RHS: the read-only
+// path, marked evict_last in the L2, so X (16.8 MB in float64 at 8 RHS on
+// the relabelled flagship) stays there while the slab streams past it
+__device__ __forceinline__ uint64_t x_policy() {
+  uint64_t q;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(q));
+  return q;
+}
+__device__ __forceinline__ float x_load(const float* p) {
+  float r;
+  asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;" : "=f"(r) : "l"(p), "l"(x_policy()));
+  return r;
+}
+__device__ __forceinline__ double x_load(const double* p) {
+  double r;
+  asm("ld.global.nc.L2::cache_hint.f64 %0, [%1], %2;" : "=d"(r) : "l"(p), "l"(x_policy()));
+  return r;
+}
+__device__ __forceinline__ float4 x_load(const float4* p) {
+  float4 r;
+  asm("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=f"(r.x), "=f"(r.y), "=f"(r.z), "=f"(r.w) : "l"(p), "l"(x_policy()));
+  return r;
+}
+__device__ __forceinline__ double2 x_load(const double2* p) {
+  double2 r;
+  asm("ld.global.nc.L2::cache_hint.v2.f64 {%0, %1}, [%2], %3;"
+      : "=d"(r.x), "=d"(r.y) : "l"(p), "l"(x_policy()));
+  return r;
+}
+
 // lanes of a 32 B value sector, as a shift: 32 B / sizeof(V) lanes (4 of
 // a double, 8 of a float, 16 of bf16 bits), so a slot's 32 lanes of a
 // unit hold sizeof(V) sectors
@@ -238,7 +304,8 @@ template <typename V> constexpr int kSectorShift = sizeof(V) == 8 ? 2 : sizeof(V
 template <typename V> constexpr bool kSectorLoads = sizeof(V) == 8;
 
 // every sector of each slot in `mask`: byte s of the word is 0xFF where
-// bit s of mask is set (#16, which loads whole warp-slots)
+// bit s of mask is set (#16 in fp32 and bf16, which copies whole live
+// warp-slots)
 __device__ __forceinline__ uint64_t slot_sectors(unsigned mask) {
   uint64_t w = 0;
 #pragma unroll
@@ -253,7 +320,7 @@ __device__ __forceinline__ int64_t tile_hack(const int32_t* __restrict__ chunk_g
   return static_cast<int64_t>(chunk_group[t / kChunkTiles]) * kGroupHacks + (meta >> 16);
 }
 
-// This lane's cells of work-list entry e (tile t, quarter q, slot mask):
+// This lane's cells of work-list entry e (tile t, quarter q, slot mask), #15's:
 // every load of the unit up front (the live slots' residues and 128 B
 // page-table rows, 4 entries a lane, and values), then each live cell's
 // page entry by residue with one __shfl_sync: value v[s] (0 in a dead
@@ -344,67 +411,204 @@ classic_spmv_units(const V* __restrict__ values,
   if (sum != T(0)) atomicAdd(z + tile_hack(chunk_group, t, meta) * kLanes + j, sum);
 }
 
-// Kernel #16: #15's warp per work-list entry, with kRhs register sums per
-// RHS block and one atomicAdd per (RHS, lane) into z (n_rhs, rows_padded).
-// At most 64 registers in fp32 (8 blocks an SM), 128 in float64, see the
-// note above.
+// One work-list entry's slab bytes in shared memory (#16's stage): its 32
+// lanes' values of each slot (zero where the slot, or the value's sector,
+// is dead), their residues and the slots' whole 128 B page-table rows.
+template <typename V> struct Stage {
+  alignas(16) V vals[kSlots][32];
+  alignas(16) int8_t res[kSlots][32];
+  alignas(16) int8_t pg[kSlots][kLanes];
+};
+
+// dst <- the 16 B at src where `on`, else 16 zero bytes (src-size 0), by
+// cp.async through the L2 only; complete at cp.async.wait_group
+__device__ __forceinline__ void copy16_or_zero(void* dst, const void* src, bool on) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(on ? 16 : 0) : "memory");
+}
+
+// #16's per-entry words beside the stage: the tile's hh word, base page
+// and chunk group (the stored-row hack), and the entry's quarter
+struct UnitWords {
+  uint32_t meta;
+  int32_t page, group, q;
+};
+
+// The warp's copies of entry e into `st` (the live sectors `live`, bit
+// 8*s + g; dead cells come in as zeros) and the plain loads of its words:
+// all issued, none waited for.  Lane l copies 16 B pieces l, l+32, ...
+// of the unit's values, then of its residues and page rows.
 template <typename V>
-__global__ void __launch_bounds__(kUnitWarps * 32, Acc<V>::kMinBlocks)
+__device__ __forceinline__ UnitWords stage_unit(Stage<V>& st, const V* __restrict__ values,
+                                                const int8_t* __restrict__ residue,
+                                                const int8_t* __restrict__ page_tab,
+                                                const int32_t* __restrict__ tile_base,
+                                                const int32_t* __restrict__ tile_page,
+                                                const int32_t* __restrict__ chunk_group,
+                                                int64_t e, uint64_t live, int lane) {
+  constexpr int kPieces = 32 * static_cast<int>(sizeof(V)) / 16;  // a slot's value pieces
+  constexpr int kPieceLanes = 16 / static_cast<int>(sizeof(V));
+  const unsigned mask = static_cast<unsigned>(e & 0xFF);
+  const int64_t t = e >> 10;
+  const int q = static_cast<int>((e >> 8) & 3);
+  const int64_t cell0 = t * (kSlots * kLanes);
+#pragma unroll
+  for (int i = 0; i < kSlots * kPieces / 32; ++i) {
+    const int k = i * 32 + lane, s = k / kPieces, c = k % kPieces;
+    const bool on = (live >> (8 * s + (c >> 1)) & 1u) != 0;  // piece c: sector c / 2
+    copy16_or_zero(&st.vals[s][c * kPieceLanes],
+                   values + cell0 + s * kLanes + q * 32 + c * kPieceLanes, on);
+  }
+  if (lane < 2 * kSlots) {
+    const int s = lane >> 1, h = lane & 1;
+    copy16_or_zero(&st.res[s][16 * h], residue + cell0 + s * kLanes + q * 32 + 16 * h,
+                   (mask >> s & 1u) != 0);
+  }
+#pragma unroll
+  for (int i = 0; i < kSlots * kLanes / 16 / 32; ++i) {
+    const int k = i * 32 + lane, s = k >> 3, c = k & 7;
+    copy16_or_zero(&st.pg[s][16 * c], page_tab + cell0 + s * kLanes + 16 * c,
+                   (mask >> s & 1u) != 0);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  return UnitWords{static_cast<uint32_t>(tile_base[t]), tile_page[t],
+                   chunk_group[t / kChunkTiles], q};
+}
+
+// the live sector word of entry e: the sector list's word where #16 reads
+// by sector, else every sector of each live slot
+template <typename V>
+__device__ __forceinline__ uint64_t entry_live(int64_t e, uint64_t listed) {
+  return kSpmmSectors<V> ? listed : slot_sectors(static_cast<unsigned>(e & 0xFF));
+}
+
+// Kernel #16: persistent warps over the list in the layout's SpMM order
+// (classic_spmm_order: by row block, then tile), dealt kSpmmChunk entries
+// at a time round-robin, so a warp's consecutive entries mostly add into
+// one row block; kRhs register sums per RHS block, and where n_rhs <= kRhs
+// the sums carry over the warp's entries of one row block and go into z
+// (n_rhs, rows_padded) by one atomicAdd per (RHS, lane) when the block
+// changes (past kRhs RHS, once per entry and RHS block).  While a unit
+// gathers x, the next one's slab bytes come into the warp's stage by
+// cp.async and the entry after it is loaded: a unit's decode waits for no
+// DRAM round trip of its own.  See the note at the top.
+template <typename V>
+__global__ void __launch_bounds__(kUnitWarps * 32, kSpmmMinBlocks<V>)
 classic_spmm_units(const V* __restrict__ values,
                    const int8_t* __restrict__ residue,
                    const int8_t* __restrict__ page_tab,
                    const int32_t* __restrict__ tile_base,
                    const int32_t* __restrict__ tile_page,
                    const int32_t* __restrict__ chunk_group,
-                   const int64_t* __restrict__ work, int64_t n_work,
+                   const int64_t* __restrict__ work,
+                   const uint64_t* __restrict__ sectors, int64_t n_work,
                    const typename Acc<V>::T* __restrict__ x,
                    typename Acc<V>::T* __restrict__ z,
                    int64_t rows_padded, int n_rhs) {
   using T = typename Acc<V>::T;
   using Vec = typename Acc<V>::Vec;
   constexpr int kVec = sizeof(Vec) / sizeof(T);  // RHS a 16 B load
-  const int64_t w = static_cast<int64_t>(blockIdx.x) * kUnitWarps + (threadIdx.x >> 5);
-  if (w >= n_work) return;  // whole warps only: the kernel has no barrier
-  int j;
-  uint32_t meta;
-  T v[kSlots];
-  int64_t xrow[kSlots];
-  const int64_t e = work[w];
-  const int64_t t = unit_cells<V, true>(values, residue, page_tab, tile_base, tile_page, e,
-                                         slot_sectors(static_cast<unsigned>(e & 0xFF)),
-                                         threadIdx.x & 31, j, meta, v, xrow);
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) xrow[s] *= n_rhs;
-  T* out = z + tile_hack(chunk_group, t, meta) * kLanes + j;
-  const bool vec = n_rhs % kVec == 0;  // a full block's 8 RHS: 16 B loads
-  for (int r0 = 0; r0 < n_rhs; r0 += kRhs) {
-    const int rw = min(kRhs, n_rhs - r0);
-    T sum[kRhs];
-#pragma unroll
-    for (int q = 0; q < kRhs; ++q) sum[q] = T(0);
-    if (vec && rw == kRhs) {
-#pragma unroll
-      for (int s = 0; s < kSlots; ++s) {
-        if (v[s] != T(0)) {
-          const Vec* xs = reinterpret_cast<const Vec*>(x + xrow[s] + r0);
-#pragma unroll
-          for (int k = 0; k < kRhs / kVec; ++k) add_vec(sum, k * kVec, v[s], __ldg(xs + k));
-        }
-      }
-    } else {
-#pragma unroll
-      for (int s = 0; s < kSlots; ++s) {
-        if (v[s] != T(0)) {
-#pragma unroll
-          for (int q = 0; q < kRhs; ++q)
-            if (q < rw) sum[q] = mul_add(v[s], __ldg(x + xrow[s] + r0 + q), sum[q]);
-        }
-      }
-    }
+  __shared__ Stage<V> stages[kUnitWarps];
+  Stage<V>& st = stages[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kUnitWarps + (threadIdx.x >> 5);
+  const int64_t G = static_cast<int64_t>(gridDim.x) * kUnitWarps;
+  // the warp's k-th entry: whole rounds of G chunks of kSpmmChunk entries,
+  // chunk r*G + g the warp's in round r, then the rest one entry at a time
+  // round-robin, so no warp takes more than one entry over another
+  const int64_t rounds = n_work / (G * kSpmmChunk);
+  auto at = [&](int64_t k) -> int64_t {
+    return k < rounds * kSpmmChunk
+               ? (k / kSpmmChunk * G + g) * kSpmmChunk + k % kSpmmChunk
+               : rounds * G * kSpmmChunk + g + (k - rounds * kSpmmChunk) * G;
+  };
+  // z's rows at o += sum for RHS r0 + q, q < rw (none where a sum is 0)
+  auto flush = [&](T* o, const T (&sum)[kRhs], int r0, int rw) {
 #pragma unroll
     for (int q = 0; q < kRhs; ++q)
-      if (q < rw && sum[q] != T(0)) atomicAdd(out + (r0 + q) * rows_padded, sum[q]);
+      if (q < rw && sum[q] != T(0)) atomicAdd(o + (r0 + q) * rows_padded, sum[q]);
+  };
+  int64_t w = at(0), w1 = at(1);
+  if (w >= n_work) return;  // whole warps only: the kernel has no barrier
+  // the next entry and its sector word, one unit ahead of its stage
+  int64_t e1 = w1 < n_work ? work[w1] : 0;
+  uint64_t l1 = kSpmmSectors<V> && w1 < n_work ? sectors[w1] : 0;
+  const int64_t e0 = work[w];
+  UnitWords u = stage_unit(st, values, residue, page_tab, tile_base, tile_page, chunk_group,
+                           e0, entry_live<V>(e0, kSpmmSectors<V> ? sectors[w] : 0), lane);
+  const bool vec = n_rhs % kVec == 0;  // a full block's 8 RHS: 16 B loads
+  T acc[kRhs];  // the carried sums of row block `held` (n_rhs <= kRhs)
+#pragma unroll
+  for (int q = 0; q < kRhs; ++q) acc[q] = T(0);
+  T* held = nullptr;
+  for (int64_t k = 0; w < n_work; ++k) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncwarp();  // every lane's copies of the stage have landed
+    T v[kSlots];
+    int64_t xrow[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {  // decode: the page entry by residue
+      v[s] = value_at(&st.vals[s][0], lane);
+      const int r = st.res[s][lane];
+      const int d = static_cast<uint8_t>(st.pg[s][r]);
+      xrow[s] = ((static_cast<int64_t>(u.page) + d) * kLanes + r) * n_rhs;
+    }
+    __syncwarp();  // every lane has read the stage
+    T* out = z + (static_cast<int64_t>(u.group) * kGroupHacks + (u.meta >> 16)) * kLanes +
+             u.q * 32 + lane;
+    const int64_t w2 = at(k + 2);
+    if (w1 < n_work) {  // warp-uniform: the next unit's stage and words
+      u = stage_unit(st, values, residue, page_tab, tile_base, tile_page, chunk_group, e1,
+                     entry_live<V>(e1, l1), lane);
+      e1 = w2 < n_work ? work[w2] : 0;
+      l1 = kSpmmSectors<V> && w2 < n_work ? sectors[w2] : 0;
+    }
+    w = w1;
+    w1 = w2;
+    // sum[q] += this unit's product with RHS r0 + q, q < rw
+    auto gather = [&](T (&sum)[kRhs], int r0, int rw) {
+      if (vec && rw == kRhs) {
+#pragma unroll
+        for (int s = 0; s < kSlots; ++s) {
+          if (v[s] != T(0)) {
+            const Vec* xs = reinterpret_cast<const Vec*>(x + xrow[s] + r0);
+#pragma unroll
+            for (int i = 0; i < kRhs / kVec; ++i)
+              add_vec(sum, i * kVec, v[s], x_load(xs + i));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < kSlots; ++s) {
+          if (v[s] != T(0)) {
+#pragma unroll
+            for (int q = 0; q < kRhs; ++q)
+              if (q < rw) sum[q] = mul_add(v[s], x_load(x + xrow[s] + r0 + q), sum[q]);
+          }
+        }
+      }
+    };
+    if (n_rhs <= kRhs) {  // warp-uniform: a new row block flushes the last
+      if (out != held) {
+        if (held != nullptr) flush(held, acc, 0, n_rhs);
+#pragma unroll
+        for (int q = 0; q < kRhs; ++q) acc[q] = T(0);
+        held = out;
+      }
+      gather(acc, 0, n_rhs);
+    } else {
+      for (int r0 = 0; r0 < n_rhs; r0 += kRhs) {
+        const int rw = min(kRhs, n_rhs - r0);
+        T sum[kRhs];
+#pragma unroll
+        for (int q = 0; q < kRhs; ++q) sum[q] = T(0);
+        gather(sum, r0, rw);
+        flush(out, sum, r0, rw);
+      }
+    }
   }
+  if (held != nullptr) flush(held, acc, 0, n_rhs);
 }
 
 template <typename V>
@@ -427,19 +631,30 @@ int classic_spmv(const void* values, const void* residue, const void* page_tab,
 template <typename V>
 int classic_spmm(const void* values, const void* residue, const void* page_tab,
                  const void* tile_base, const void* tile_page,
-                 const void* chunk_group, const void* work, int64_t n_work,
-                 const void* x, void* z, int64_t rows_padded,
+                 const void* chunk_group, const void* work, const void* sectors,
+                 int64_t n_work, const void* x, void* z, int64_t rows_padded,
                  int n_rhs, cudaStream_t st) {
   using T = typename Acc<V>::T;
-  // an empty list (no nonzero) still launches, one block that exits
-  const int64_t blocks = n_work > 0 ? (n_work + kUnitWarps - 1) / kUnitWarps : 1;
+  // persistent: as many blocks as the card holds at once, none past the
+  // list (an empty list still launches one block, which exits)
+  static int resident = 0;  // blocks of the kernel the card holds at once
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, classic_spmm_units<V>,
+                                                  kUnitWarps * 32, 0);
+    resident = sms * per_sm;
+  }
+  const int64_t blocks = std::max<int64_t>(
+      1, std::min<int64_t>(resident, (n_work + kUnitWarps - 1) / kUnitWarps));
   if (n_rhs > 0)
     classic_spmm_units<V><<<static_cast<unsigned>(blocks), kUnitWarps * 32, 0, st>>>(
         static_cast<const V*>(values), static_cast<const int8_t*>(residue),
         static_cast<const int8_t*>(page_tab), static_cast<const int32_t*>(tile_base),
         static_cast<const int32_t*>(tile_page), static_cast<const int32_t*>(chunk_group),
-        static_cast<const int64_t*>(work), n_work, static_cast<const T*>(x),
-        static_cast<T*>(z), rows_padded, n_rhs);
+        static_cast<const int64_t*>(work), static_cast<const uint64_t*>(sectors), n_work,
+        static_cast<const T*>(x), static_cast<T*>(z), rows_padded, n_rhs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -479,28 +694,31 @@ int whell_classic_spmv_f64(const void* values, const void* residue,
 // Kernel #16: Z (n_rhs x rows_padded) += the classic product with each of
 // n_rhs RHS over the n_work entries of work (as kernel #15).  x is the
 // RHS-interleaved (x_pages*128, n_rhs) fp32 stack, Z fp32 and zeroed by
-// the caller.  Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError().
+// the caller; sectors as for whell_classic_spmv (null here).  Launches on
+// `stream`, does not synchronise, and returns cudaGetLastError().
 int whell_classic_spmm(const void* values, int values_bf16, const void* residue,
                        const void* page_tab, const void* tile_base,
                        const void* tile_page, const void* chunk_group,
-                       const void* work, int64_t n_work, const void* x, void* z,
-                       int64_t rows_padded, int n_rhs, void* stream) {
+                       const void* work, const void* sectors, int64_t n_work,
+                       const void* x, void* z, int64_t rows_padded, int n_rhs,
+                       void* stream) {
   auto* fn = values_bf16 ? classic_spmm<uint16_t> : classic_spmm<float>;
-  return fn(values, residue, page_tab, tile_base, tile_page, chunk_group, work, n_work,
-            x, z, rows_padded, n_rhs, static_cast<cudaStream_t>(stream));
+  return fn(values, residue, page_tab, tile_base, tile_page, chunk_group, work, sectors,
+            n_work, x, z, rows_padded, n_rhs, static_cast<cudaStream_t>(stream));
 }
 
 // Kernel #16 in float64: as whell_classic_spmm, with float64 values, the
-// RHS-interleaved float64 X and float64 Z.
+// RHS-interleaved float64 X, float64 Z, and sectors the layout's
+// classic_work_sectors, aligned with work.
 int whell_classic_spmm_f64(const void* values, const void* residue,
                            const void* page_tab, const void* tile_base,
                            const void* tile_page, const void* chunk_group,
-                           const void* work, int64_t n_work, const void* x, void* z,
-                           int64_t rows_padded, int n_rhs, void* stream) {
+                           const void* work, const void* sectors, int64_t n_work,
+                           const void* x, void* z, int64_t rows_padded, int n_rhs,
+                           void* stream) {
   return classic_spmm<double>(values, residue, page_tab, tile_base, tile_page,
-                              chunk_group, work, n_work, x, z, rows_padded, n_rhs,
-                              static_cast<cudaStream_t>(stream));
+                              chunk_group, work, sectors, n_work, x, z, rows_padded,
+                              n_rhs, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -41,9 +41,11 @@ also carries ``work_list`` (:func:`classic_work_list`), derived from its
 values whenever the layout is built: the (tile, 32-lane quarter) units
 that hold a nonzero, each with the mask of its live slots, and, in
 float64, aligned with it, ``work_sectors`` (:func:`classic_work_sectors`):
-each unit's 32 B value sectors that hold a nonzero.  The SpMV kernel
-reads only those units and slots, and in float64 values only in those
-sectors, so a slab must not be changed in place
+each unit's 32 B value sectors that hold a nonzero, and both lists again
+in the SpMM kernel's order, ``spmm_work`` and ``spmm_work_sectors``
+(:func:`classic_spmm_order`: by output row block, then tile).  The
+kernels read only those units and slots, and in float64 values only in
+those sectors, so a slab must not be changed in place
 (:func:`spgpu_tpu_torch.convert.whell_update_values` builds a new layout,
 and new lists).
 
@@ -85,8 +87,8 @@ import torch
 
 from spgpu_tpu_torch.core import CHUNK_TILES, join_dd, join_plane_fields
 
-__all__ = ["MAX_TILE_PAGE", "PcellWhell", "WhellMatrix", "classic_work_list",
-           "classic_work_sectors",
+__all__ = ["MAX_TILE_PAGE", "PcellWhell", "WhellMatrix", "classic_spmm_order",
+           "classic_work_list", "classic_work_sectors",
            "from_numpy_fields", "from_numpy_pcell", "from_numpy_planes",
            "low_field_bits", "packed_hack_ptr", "packed_hack_units",
            "pcell_hack_tiles", "unported_complex"]
@@ -288,6 +290,19 @@ def classic_work_sectors(values: torch.Tensor,
     return words[work_list >> 8]
 
 
+def classic_spmm_order(work_list: torch.Tensor, tile_base: torch.Tensor,
+                       chunk_group: torch.Tensor) -> torch.Tensor:
+    """The positions of ``work_list``'s entries (a classic layout's
+    :func:`classic_work_list`) in kernel #16's order, on its device: by
+    output row block (the stored-row hack ``chunk_group[t // 64] * 8 +
+    (tile_base[t] >> 16)``, then the quarter), then by tile, so entries
+    that add into the same 32 rows of z come one after another and a warp
+    that takes several of them adds its sums into z once."""
+    t = work_list >> 10
+    hack = chunk_group.long()[t // CHUNK_TILES] * 8 + (tile_base.long()[t] >> 16)
+    return torch.sort(hack * 4 + (work_list >> 8 & 3), stable=True).indices
+
+
 def _check_tile_page(want, tile_page, meta, scattered: bool) -> torch.Tensor:
     """``tile_page`` (host int64, returned) is non-negative and agrees
     with ``tile_base``'s (``meta``) low field in its low bits."""
@@ -347,6 +362,12 @@ class WhellMatrix:
                                                           repr=False)
     work_sectors: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
                                                              repr=False)
+    # classic only: both lists in classic_spmm_order, kernel #16's, rebuilt
+    # with them
+    spmm_work: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
+                                                          repr=False)
+    spmm_work_sectors: Optional[torch.Tensor] = dataclasses.field(default=None, init=False,
+                                                                  repr=False)
     # packed only, rebuilt with every layout: packed_hack_ptr(...) and the
     # hack pass's work units packed_hack_units(hack_ptr, rows); a product
     # keeps no state here (its chunked-run counters are its own), so
@@ -362,8 +383,11 @@ class WhellMatrix:
         v = self.values
         if not self.packed and v.dim() == 2 and v.shape[1] == 128 and v.shape[0] % 8 == 0:
             self.work_list = classic_work_list(v)
+            order = classic_spmm_order(self.work_list, self.tile_base, self.chunk_group)
+            self.spmm_work = self.work_list[order]
             if v.dtype == torch.float64:
                 self.work_sectors = classic_work_sectors(v, self.work_list)
+                self.spmm_work_sectors = self.work_sectors[order]
         if self.packed and self._whole_chunks():
             self.hack_ptr = self._derive_hack_ptr()
             self.hack_units = packed_hack_units(self.hack_ptr, self.seg_lo.shape[0])
@@ -535,8 +559,9 @@ class WhellMatrix:
             want(torch.equal(torch.sort(self.row_perm.cpu().long()).values,
                              torch.arange(R * 128)), "row_perm is not a permutation")
         if packed:
-            want(self.work_list is None and self.work_sectors is None,
-                 "a packed layout has no work_list or work_sectors")
+            want(self.work_list is None and self.work_sectors is None
+                 and self.spmm_work is None and self.spmm_work_sectors is None,
+                 "a packed layout has no work_list, work_sectors or their spmm order")
             self._check_hack_runs(want)
         else:
             wl, ws = self.work_list, self.work_sectors
@@ -551,6 +576,13 @@ class WhellMatrix:
                      "work_sectors does not match the values (changed in place?)")
             else:
                 want(ws is None, "only a float64 classic layout has work_sectors")
+            order = classic_spmm_order(wl.cpu(), self.tile_base.cpu(), self.chunk_group.cpu())
+            for name, lst in (("spmm_work", wl), ("spmm_work_sectors", ws)):
+                got = getattr(self, name)
+                want(got is None if lst is None else
+                     got is not None and got.device == self.device
+                     and torch.equal(got.cpu(), lst.cpu()[order]),
+                     f"{name} is not {name.removeprefix('spmm_')} in classic_spmm_order")
 
 
     def _check_hack_runs(self, want) -> None:

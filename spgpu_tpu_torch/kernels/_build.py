@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -19,7 +20,7 @@ from typing import Callable
 
 from spgpu_tpu_torch.native import BUILD_DIR
 
-__all__ = ["CudaLibrary", "compile_library"]
+__all__ = ["CudaLibrary", "compile_library", "kernel_key", "ptxas_by_kernel"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
@@ -51,6 +52,37 @@ def compile_library(source: str, path: str) -> tuple:
         raise RuntimeError(f"nvcc failed on {source} ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, path)  # atomic: a concurrent load never sees a torn file
     return time.perf_counter() - t0, proc.stderr
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """``ptxas -v``'s spill and register lines of each kernel instance,
+    keyed ``name<mangled template arguments>`` (``whell_tile_pass<ddLb0E>``:
+    double, double, false), in the order ptxas reports them."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(_Z\w+)", ln)
+        if m:
+            name = kernel_key(m.group(1))
+        elif name and ("registers" in ln or "spill" in ln):
+            text = ln.strip().removeprefix("ptxas info    : ")
+            out[name] = f"{out[name]}; {text}" if name in out else text
+    return out
+
+
+def kernel_key(mangled: str) -> str:
+    """A mangled kernel name's last name component, with its template
+    arguments as mangled (``_ZN<len><ns>...<len><name>I<args>EEv...``)."""
+    i, name = 3, mangled
+    while mangled.startswith("_ZN") and i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    rest = mangled[i:]
+    if rest.startswith("I") and "EEv" in rest:
+        name += f"<{rest[1:rest.index('EEv')]}>"
+    return name
 
 
 class CudaLibrary:

@@ -20,9 +20,11 @@ launches of kernel #15 and ``LAUNCHES_SPMM`` those of #16 on fp32 and
 bf16 values, ``LAUNCHES_F64`` and ``LAUNCHES_SPMM_F64`` their float64
 launches (entries ``whell_classic_spmv_f64``, ``whell_classic_spmm_f64``).
 The product comes in x's type.  Both kernels
-read only the live units of the layout's work list (#15 in float64 values
+read only the live units of the layout's work list (in float64 values
 only in the live sectors of its ``work_sectors``); both plain versions
-read every cell.  Every function takes the layout's ``tile_page``
+read every cell.  #16 is a persistent kernel that copies each unit's slab
+bytes into shared memory 16 B at a time, so it needs a 16 B aligned
+slab.  Every function takes the layout's ``tile_page``
 (``WhellMatrix.tile_page``, each tile's full-width base page) and reads
 the page from it, and only the hack-in-group from ``tile_base``;
 ``tile_page`` is a required argument of each.
@@ -64,11 +66,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.whell_classic_spmv.restype = ctypes.c_int
     lib.whell_classic_spmv.argtypes = [p, i32] + [p] * 7 + [i64, p, p, p]
     lib.whell_classic_spmm.restype = ctypes.c_int
-    lib.whell_classic_spmm.argtypes = [p, i32] + [p] * 6 + [i64, p, p, i64, i32, p]
+    lib.whell_classic_spmm.argtypes = [p, i32] + [p] * 7 + [i64, p, p, i64, i32, p]
     lib.whell_classic_spmv_f64.restype = ctypes.c_int
     lib.whell_classic_spmv_f64.argtypes = [p] * 8 + [i64, p, p, p]
     lib.whell_classic_spmm_f64.restype = ctypes.c_int
-    lib.whell_classic_spmm_f64.argtypes = [p] * 7 + [i64, p, p, i64, i32, p]
+    lib.whell_classic_spmm_f64.argtypes = [p] * 8 + [i64, p, p, i64, i32, p]
 
 
 _LIB = CudaLibrary("whell_classic_spmv", _bind)
@@ -127,12 +129,11 @@ def _check_work(op, work, device) -> None:
         raise ValueError(f"{op}: bad work (a contiguous int64 list on x's device)")
 
 
-def _check_sectors(values, work, sectors, device) -> None:
+def _check_sectors(values, work, sectors, device, op="whell_classic_spmv") -> None:
     """``sectors`` is the layout's sector list (``WhellMatrix.work_sectors``:
     a contiguous int64 list on ``device``, aligned with ``work``) for
-    float64 values, whose kernel #15 reads by sector, so on a CUDA device
-    it may not be None there; fp32 and bf16 values take none."""
-    op = "whell_classic_spmv"
+    float64 values, whose kernels #15 and #16 read by sector, so on a CUDA
+    device it may not be None there; fp32 and bf16 values take none."""
     if values.dtype != torch.float64:
         if sectors is not None:
             raise ValueError(f"{op}: only float64 values take work_sectors (fp32 and "
@@ -153,22 +154,20 @@ def _check_sectors(values, work, sectors, device) -> None:
 def _launch_args(op, values, residue, page_tab, tile_base, tile_page, chunk_group,
                  work, sectors=None, lib=None):
     """The float64 entry of ``op`` or the fp32/bf16 one (of ``lib``, default
-    the built library), and the pointers the kernels #15 and #16 take
-    before x (#15 also the sector list, null where ``sectors`` is None),
-    with the list's length (the fp32/bf16 entries also take the bf16
-    flag); the row prefetch loads page_tab 4 B a lane."""
+    the built library) and the pointers the kernels #15 and #16 take
+    before x (the sector list null where ``sectors`` is None), with the
+    list's length (the fp32/bf16 entries also take the bf16 flag); the row
+    prefetch loads page_tab 4 B a lane."""
     if page_tab.data_ptr() % 4:
         raise ValueError(f"{op}: the kernel loads page_tab 4 B a lane; it must be "
                          "4 B aligned")
     lib = lib or _LIB.load()
     f64 = values.dtype == torch.float64
     flag = () if f64 else (int(values.dtype == torch.bfloat16),)
-    return f64, getattr(lib, f"{op}_f64" if f64 else op), (
+    return getattr(lib, f"{op}_f64" if f64 else op), (
         values.data_ptr(), *flag, residue.data_ptr(), page_tab.data_ptr(),
         tile_base.data_ptr(), tile_page.data_ptr(), chunk_group.data_ptr(),
-        work.data_ptr(),
-        *((None if sectors is None else sectors.data_ptr(),)
-          if op == "whell_classic_spmv" else ()),
+        work.data_ptr(), None if sectors is None else sectors.data_ptr(),
         work.numel())
 
 
@@ -219,7 +218,7 @@ def launch_spmv(lib, values, residue, page_tab, tile_base, tile_page, chunk_grou
     zeroed z ``(num_groups*8, 128)`` of x's type; ``work_sectors`` None
     passes a null sector list (what an fp32 or bf16 build reads none
     of).  Counts nothing."""
-    _, fn, args = _launch_args("whell_classic_spmv", values, residue, page_tab,
+    fn, args = _launch_args("whell_classic_spmv", values, residue, page_tab,
                                tile_base, tile_page, chunk_group, work, work_sectors,
                                lib=lib)
     z = torch.zeros((num_groups * _GROUP_HACKS, 128), dtype=x2d.dtype, device=x2d.device)
@@ -231,7 +230,7 @@ def launch_spmv(lib, values, residue, page_tab, tile_base, tile_page, chunk_grou
 
 
 def whell_classic_spmm(values, residue, page_tab, tile_base, chunk_group, x3d,
-                       *, num_groups: int, work=None,
+                       *, num_groups: int, work=None, work_sectors=None,
                        tile_page: torch.Tensor) -> torch.Tensor:
     """Fused multi-RHS product ``(n_rhs, num_groups*8, 128)`` in stored
     rows, in x's type, of fp32 or bf16 values and x3d ``(n_rhs, x_pages,
@@ -241,38 +240,56 @@ def whell_classic_spmm(values, residue, page_tab, tile_base, chunk_group, x3d,
     CUDA tensors launch kernel #16 (counted in ``LAUNCHES_SPMM``, float64
     in ``LAUNCHES_SPMM_F64``; the
     wrapper first copies X into the kernel's RHS-interleaved buffer) over
-    ``work``, the layout's work list (required there, as for
-    :func:`whell_classic_spmv`): it reads only the units and slots that
-    hold a nonzero, and a zero-valued cell contributes nothing even where
-    X is not finite.  CPU tensors run :func:`whell_classic_spmm_plain`,
-    the full-layout product, and need no list.  Any other device
-    raises."""
+    ``work`` and, for float64 values, ``work_sectors``, the layout's lists
+    (both required there, as for :func:`whell_classic_spmv`, in any order;
+    ``WhellMatrix.spmm_work``/``spmm_work_sectors``, in
+    :func:`~spgpu_tpu_torch.formats.whell.classic_spmm_order`, let a warp
+    add the sums of consecutive entries into z once): it reads only the
+    units and slots that hold a nonzero, and a zero-valued cell
+    contributes nothing even where X is not finite.  CPU tensors run
+    :func:`whell_classic_spmm_plain`, the full-layout product, and need no
+    list.  Any other device raises."""
     _check_args("whell_classic_spmm", values, residue, page_tab, tile_base,
                 chunk_group, x3d, num_groups, tile_page)
     dev = x3d.device
     _check_work("whell_classic_spmm", work, dev)
+    _check_sectors(values, work, work_sectors, dev, "whell_classic_spmm")
     if dev.type == "cpu":
         return whell_classic_spmm_plain(values, residue, page_tab, tile_base,
                                         chunk_group, x3d, num_groups=num_groups,
                                         tile_page=tile_page)
-    n_rhs = x3d.shape[0]
-    if n_rhs > 65535:
+    if x3d.shape[0] > 65535:
         raise ValueError("whell_classic_spmm: at most 65,535 RHS per launch")
-    f64, fn, args = _launch_args("whell_classic_spmm", values, residue, page_tab,
-                                 tile_base, tile_page, chunk_group, work)
-    rows = num_groups * _GROUP_HACKS * 128
-    xi = x3d.reshape(n_rhs, -1).t().contiguous()  # (x_pages*128, n_rhs)
-    z = torch.zeros((n_rhs, num_groups * _GROUP_HACKS, 128), dtype=x3d.dtype,
-                    device=dev)
-    err = fn(*args, xi.data_ptr(), z.data_ptr(), rows, n_rhs,
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"whell_classic_spmm launch failed: CUDA error {err}")
+    z = launch_spmm(_LIB.load(), values, residue, page_tab, tile_base, tile_page,
+                    chunk_group, work, work_sectors, x3d, num_groups=num_groups)
     global LAUNCHES_SPMM, LAUNCHES_SPMM_F64
-    if f64:
+    if values.dtype == torch.float64:
         LAUNCHES_SPMM_F64 += 1
     else:
         LAUNCHES_SPMM += 1
+    return z
+
+
+def launch_spmm(lib, values, residue, page_tab, tile_base, tile_page, chunk_group,
+                work, work_sectors, x3d, *, num_groups: int) -> torch.Tensor:
+    """X copied into the RHS-interleaved ``(x_pages*128, n_rhs)`` buffer,
+    then one launch of ``lib``'s #16 entry for the values' type into a new
+    zeroed Z ``(n_rhs, num_groups*8, 128)`` of x's type; ``work_sectors``
+    None passes a null sector list.  Counts nothing."""
+    if any(t.data_ptr() % 16 for t in (values, residue, page_tab)):
+        raise ValueError("whell_classic_spmm: the kernel copies the slab 16 B at a "
+                         "time; values, residue and page_tab must be 16 B aligned")
+    fn, args = _launch_args("whell_classic_spmm", values, residue, page_tab,
+                               tile_base, tile_page, chunk_group, work, work_sectors,
+                               lib=lib)
+    n_rhs = x3d.shape[0]
+    xi = x3d.reshape(n_rhs, -1).t().contiguous()  # (x_pages*128, n_rhs)
+    z = torch.zeros((n_rhs, num_groups * _GROUP_HACKS, 128), dtype=x3d.dtype,
+                    device=x3d.device)
+    err = fn(*args, xi.data_ptr(), z.data_ptr(), num_groups * _GROUP_HACKS * 128, n_rhs,
+             torch.cuda.current_stream(x3d.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"whell_classic_spmm launch failed: CUDA error {err}")
     return z
 
 

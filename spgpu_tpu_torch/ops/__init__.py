@@ -230,7 +230,7 @@ def whell_spmm(a, x: torch.Tensor, alpha=1.0, beta=0.0, y=None,
         zs = _classic.whell_classic_spmm(
             a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,
             _prep_x(x, a.n_cols, a.x_pages, stack=True), num_groups=a.num_groups,
-            work=a.work_list, tile_page=a.tile_page)
+            work=a.spmm_work, work_sectors=a.spmm_work_sectors, tile_page=a.tile_page)
         return _epilogue(_classic_rows(a, zs.flatten(1)), alpha, beta, y)
     zs = whell_packed_spmm(
         a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group,

@@ -20,7 +20,8 @@ Kernel #15 reads only the units of the layout's work list
 (``classic_work_list``): the list must cover every nonzero cell and no
 all-zero unit or slot, on OELL, way-split and bf16 layouts and with
 explicit zeros; every new layout (``whell_update_values``, the bridge,
-``.to()``) derives its own, and ``check()`` rejects a stale one.  The JAX
+``.to()``) derives its own, and ``check()`` rejects a stale one, as it
+does a stale copy in kernel #16's order (``spmm_work``).  The JAX
 kernel's NaN from an Inf behind padding, which #15 does not reproduce, is
 shown on purpose.
 """
@@ -808,6 +809,50 @@ def test_classic_check_rejects_stale_work_sectors(dtype):
         b.check()
 
 
+@pytest.mark.parametrize("fixture", sorted(WORK_FIXTURES))
+@SECTOR_DTYPES
+def test_classic_spmm_order_groups_row_blocks(fixture, dtype):
+    """``spmm_work`` is the work list by output row block (stored-row hack,
+    then quarter), each block's entries in tile order, and
+    ``spmm_work_sectors`` the sector list in the same order (float64
+    only), so kernel #16's warps find a row block's entries one after
+    another."""
+    a = coo_to_whell(WORK_FIXTURES[fixture](tfix), device="cpu", packed=False,
+                     dtype=dtype, **({"ways": 2} if fixture == "fem" else {}))
+    sw, wl = a.spmm_work, a.work_list
+    assert torch.equal(torch.sort(sw).values, wl)
+    t, q = sw >> 10, sw >> 8 & 3
+    hack = a.chunk_group.long()[t // 64] * 8 + (a.tile_base.long()[t] >> 16)
+    key = (hack * 4 + q) * a.num_tiles + t
+    assert bool((key[1:] > key[:-1]).all())
+    if dtype == "float64":
+        pos = torch.searchsorted(wl, sw)
+        assert torch.equal(a.spmm_work_sectors, a.work_sectors[pos])
+    else:
+        assert a.spmm_work_sectors is None
+
+
+@SECTOR_DTYPES
+def test_classic_check_rejects_stale_spmm_work(dtype):
+    """A layout whose SpMM-ordered lists are not its lists in
+    ``classic_spmm_order`` (reordered, or one entry short) fails
+    ``check()``."""
+    a = coo_to_whell(CASES["fem"](tfix), device="cpu", packed=False, dtype=dtype)
+    a.check()
+    a.spmm_work = a.work_list.clone()  # tile order
+    with pytest.raises(ValueError, match="spmm_work is not"):
+        a.check()
+    b = coo_to_whell(CASES["fem"](tfix), device="cpu", packed=False, dtype=dtype)
+    if dtype == "float64":
+        b.spmm_work_sectors = b.spmm_work_sectors[1:]
+        with pytest.raises(ValueError, match="spmm_work_sectors is not"):
+            b.check()
+    else:
+        b.spmm_work_sectors = b.work_list
+        with pytest.raises(ValueError, match="spmm_work_sectors is not"):
+            b.check()
+
+
 def test_classic_wrapper_needs_the_sector_list_on_cuda_only():
     """#15's wrapper needs ``work_sectors`` beside the work list on a CUDA
     device for float64 values (raises without), checks it aligns, takes
@@ -833,6 +878,33 @@ def test_classic_wrapper_needs_the_sector_list_on_cuda_only():
     z = kc.whell_classic_spmv(*layout, x2, num_groups=a.num_groups, work=a.work_list,
                               work_sectors=a.work_sectors, tile_page=a.tile_page)
     assert torch.equal(z, plain)
+
+
+def test_classic_spmm_wrapper_needs_the_sector_list_on_cuda_only():
+    """#16's wrapper takes the sector list as #15's does: required beside
+    the work list on a CUDA device for float64 values, aligned with it,
+    refused for fp32 values; the CPU path needs neither and gives the
+    plain product with or without the lists."""
+    a = coo_to_whell(CASES["fem"](tfix), device="cpu", packed=False, dtype="float64")
+    cuda = torch.device("cuda")
+    with pytest.raises(ValueError, match="whell_classic_spmm: the float64 kernel"):
+        kc._check_sectors(a.values, a.work_list, None, cuda, "whell_classic_spmm")
+    f32 = coo_to_whell(CASES["fem"](tfix), device="cpu", packed=False)
+    with pytest.raises(ValueError, match="whell_classic_spmm: only float64"):
+        kc._check_sectors(f32.values, f32.work_list, a.work_sectors, cuda,
+                          "whell_classic_spmm")
+    layout = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group)
+    x3 = tops._prep_x(torch.ones((3, a.n_cols), dtype=torch.float64), a.n_cols,
+                      a.x_pages, stack=True)
+    with pytest.raises(ValueError, match="align"):
+        kc.whell_classic_spmm(*layout, x3, num_groups=a.num_groups, work=a.work_list,
+                              work_sectors=a.work_sectors[1:], tile_page=a.tile_page)
+    plain = kc.whell_classic_spmm_plain(*layout, x3, num_groups=a.num_groups,
+                                        tile_page=a.tile_page)
+    for kw in ({}, dict(work=a.work_list, work_sectors=a.work_sectors)):
+        z = kc.whell_classic_spmm(*layout, x3, num_groups=a.num_groups,
+                                  tile_page=a.tile_page, **kw)
+        assert torch.equal(z, plain)
 
 
 def test_classic_inf_behind_padding_is_nan_in_the_full_layout_product():

@@ -1427,7 +1427,9 @@ def _sector_values(a, case):
     single nonzero; ``all`` fills every cell of the first listed unit;
     ``lane127`` keeps only lane 127 (the last sector of the last quarter),
     made nonzero in every slot; ``behind_dead`` keeps the nonzeros of
-    odd-numbered sectors only, each behind a dead neighbour sector."""
+    odd-numbered sectors only, each behind a dead neighbour sector;
+    ``by_slot`` keeps in slot s only the nonzeros of sector s mod (sectors
+    a slot), so a unit's live sectors differ from slot to slot."""
     v = a.values
     n = v.element_size()
     rng = np.random.default_rng(13)
@@ -1448,6 +1450,10 @@ def _sector_values(a, case):
         out[:, 127] = fill[:, 127]
         return out
     sector = torch.arange(128, device=v.device) % 32 // (32 // n)
+    if case == "by_slot":
+        slot = torch.arange(v.shape[0], device=v.device) % 8
+        keep = sector.view(1, 128) == (slot % n).view(-1, 1)
+        return torch.where(keep, v, torch.zeros_like(v))
     return torch.where((sector % 2 == 1).view(1, 128), v, torch.zeros_like(v))
 
 
@@ -1484,6 +1490,92 @@ def test_classic_kernel_on_sector_edges(dtype, case, cuda_device):
     torch.cuda.synchronize()
     assert getattr(kc, counter) == before + 1
     _near(z, ops.whell_spmv(b.to("cpu"), x.cpu()), tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rhs", [3, 8])
+@pytest.mark.parametrize("case", ["all", "behind_dead", "by_slot", "lane127", "one"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
+def test_classic_spmm_on_sector_edges(dtype, case, n_rhs, cuda_device):
+    """#16 over #15's sector edges and units whose live sectors differ from
+    slot to slot, at 3 RHS (the scalar loads) and 8 (the 16 B ones): one
+    launch of #16 and none of #15, against the full-layout plain version
+    (fp32, bf16: 2e-5; float64: 1e-12·max|Z|)."""
+    xdt, tol = CLASSIC_X[dtype]
+    a = coo_to_whell(CASES["fem"](), device=cuda_device, packed=False, dtype=dtype)
+    b = dataclasses.replace(a, values=_sector_values(a, case))
+    b.check()
+    if case == "by_slot":  # the slots of a unit differ in their live sectors
+        ws = classic_work_sectors(b.values, b.work_list).cpu()
+        per_slot = torch.stack([ws >> (8 * s) & 0xFF for s in range(8)], 1)
+        assert bool(((per_slot != 0).sum(1) > 1).any())
+        assert bool((per_slot[:, :1] != per_slot).any())
+    x = _xs(n_rhs, b.n_cols, 4).to(cuda_device, xdt)
+    f64 = dtype == "float64"
+    counters = ("LAUNCHES_SPMM_F64", "LAUNCHES_F64") if f64 else ("LAUNCHES_SPMM",
+                                                                  "LAUNCHES")
+    before = tuple(getattr(kc, k) for k in counters)
+    z = ops.whell_spmm(b, x, fused=True)
+    torch.cuda.synchronize()
+    assert tuple(getattr(kc, k) for k in counters) == (before[0] + 1, before[1])
+    _near(z, ops.whell_spmm(b.to("cpu"), x.cpu(), fused=True), tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rhs", [4, 8, 11])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_classic_spmm_takes_the_list_in_any_order(dtype, n_rhs, cuda_device):
+    """#16 over the layout's list in its SpMM order (row blocks one after
+    another: sums carried), in tile order and shuffled (row blocks
+    interleaved: a flush at nearly every entry), and past 8 RHS (no
+    carry): the same product within the tolerance."""
+    xdt, tol = CLASSIC_X[dtype]
+    a = coo_to_whell(CASES["fem_large"](), device=cuda_device, packed=False, dtype=dtype)
+    layout = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group)
+    x3 = ops._prep_x(_xs(n_rhs, a.n_cols, 9).to(cuda_device, xdt), a.n_cols, a.x_pages,
+                     stack=True)
+    static = dict(num_groups=a.num_groups, tile_page=a.tile_page)
+    plain = kc.whell_classic_spmm_plain(*layout, x3, **static)
+    shuffle = torch.from_numpy(np.random.default_rng(3).permutation(
+        a.work_list.numel())).to(cuda_device)
+    for work in (a.spmm_work, a.work_list, a.work_list[shuffle]):
+        sectors = None if a.work_sectors is None else classic_work_sectors(a.values, work)
+        z = kc.whell_classic_spmm(*layout, x3, work=work, work_sectors=sectors, **static)
+        _near(z, plain, tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_f64_classic_spmm_needs_the_sector_list(cuda_device):
+    """On the card #16's float64 wrapper launches over the work list and
+    the sector list or raises: no fallback, no launch counted."""
+    a = coo_to_whell(_f64(CASES["fem"]()), device=cuda_device, packed=False)
+    layout = (a.values, a.residue, a.page_tab, a.tile_base, a.chunk_group)
+    x3 = ops._prep_x(torch.zeros((2, a.n_cols), dtype=torch.float64,
+                                 device=cuda_device), a.n_cols, a.x_pages, stack=True)
+    before = kc.LAUNCHES_SPMM_F64
+    with pytest.raises(ValueError, match="sector list"):
+        kc.whell_classic_spmm(*layout, x3, num_groups=a.num_groups, work=a.work_list,
+                              tile_page=a.tile_page)
+    assert kc.LAUNCHES_SPMM_F64 == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_classic_spmm_refuses_a_misaligned_slab(dtype, cuda_device):
+    """#16 copies the slab 16 B at a time: values off a 16 B boundary raise
+    instead of launching."""
+    a = coo_to_whell(CASES["fem"](), device=cuda_device, packed=False, dtype=dtype)
+    flat = torch.zeros(a.values.numel() + 1, dtype=a.values.dtype, device=cuda_device)
+    off = flat[1:].view_as(a.values)
+    off.copy_(a.values)
+    x3 = ops._prep_x(torch.zeros((2, a.n_cols), dtype=a.values.dtype,
+                                 device=cuda_device), a.n_cols, a.x_pages, stack=True)
+    before = (kc.LAUNCHES_SPMM, kc.LAUNCHES_SPMM_F64)
+    with pytest.raises(ValueError, match="aligned"):
+        kc.whell_classic_spmm(off, a.residue, a.page_tab, a.tile_base, a.chunk_group, x3,
+                              num_groups=a.num_groups, work=a.work_list,
+                              work_sectors=a.work_sectors, tile_page=a.tile_page)
+    assert (kc.LAUNCHES_SPMM, kc.LAUNCHES_SPMM_F64) == before
 
 
 # --------------------------------------------------------------------------

@@ -537,10 +537,10 @@ def test_pcell_hack_schedule_on_a_hub_matches_jax():
     _near(z, hub(tfix).spmv(x.astype(np.float64)), 3e-5)
 
 
-@pytest.mark.parametrize("design", ["pcell", "classic"])
+@pytest.mark.parametrize("design", ["pcell", "classic", "classic_spmm"])
 def test_kernel_account_edits_apply_to_the_sources(design):
-    """``sweeps.kernel_account``'s variants of #17 and #15 are edits of the
-    production sources: each edit finds its text exactly once, so the
+    """``sweeps.kernel_account``'s variants of #17, #15 and #16 are edits of
+    the production sources: each edit finds its text exactly once, so the
     account still builds what it names; the account runs on a card only."""
     from spgpu_tpu_torch.kernels import whell_classic as kc
     from spgpu_tpu_torch.sweeps import kernel_account as ka
