@@ -45,15 +45,32 @@ systems (every CG scalar is the real part of a conjugated product, as in
 counterparts of those two and of their ``_dd`` variants, on one complex
 vector instead of ``[re, im]`` plane stacks.
 
-``STEPS`` counts the steps run (masked ones included), ``HOST_READS`` the
-flag reads, ``REPLAYS`` the chunks of steps after the first read (graph
-replays on a CUDA device, chunks of eager steps on the CPU) and
-``CAPTURE_MS`` the host milliseconds spent capturing graphs; like the
-kernels' launch counters they are process-wide and not thread-safe.
+``SOLVES`` counts the solver calls, ``STEPS`` the steps run (masked ones
+included), ``MASKED_STEPS`` the steps run past a solve's last iteration
+(its steps less its ``iterations``), ``HOST_READS`` the flag reads,
+``REPLAYS`` the chunks of steps after the first read (graph replays on a
+CUDA device, chunks of eager steps on the CPU), ``CAPTURE_MS`` the host
+milliseconds spent capturing graphs and ``POOL_MALLOCS`` the caching
+allocator's ``cudaMalloc`` calls during captures (the graph pools'
+growth), counted only while a profiler records: ``torch.cuda.memory_stats``
+costs about 0.1 ms on an H100.  :func:`counters` gives them all by name;
+like the kernels' launch counters they are process-wide and not
+thread-safe.
+
+While a profiler records, each solver call is a span
+(:func:`spgpu_tpu_torch.utils.profiling.span`) named ``spgpu.krylov.cg``
+or ``spgpu.krylov.bicgstab``, the parent of its phases:
+``spgpu.krylov.setup`` (the state, ``b − A·x0``, the first inner
+products, the threshold); on CUDA ``spgpu.krylov.eager_step`` (the eager
+step and its read), ``spgpu.krylov.capture`` and ``spgpu.krylov.replays``
+(through the last wait); on the CPU ``spgpu.krylov.steps`` (the chunks);
+and ``spgpu.krylov.release`` (the graph's release, the final residual
+norm and the read of ``k``).  No span opens inside a step.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -64,9 +81,11 @@ import torch.distributed as dist
 from spgpu_tpu_torch import kernels
 from spgpu_tpu_torch.core import real_part_dtype
 from spgpu_tpu_torch.ops import blas1
+from spgpu_tpu_torch.utils import profiling
 
-__all__ = ["CAPTURE_MS", "CgResult", "GRAPH_STEPS", "HOST_READS", "REPLAYS",
-           "STEPS", "bicgstab", "cg", "jacobi_preconditioner"]
+__all__ = ["CAPTURE_MS", "COUNTERS", "CgResult", "GRAPH_STEPS", "HOST_READS",
+           "MASKED_STEPS", "POOL_MALLOCS", "REPLAYS", "SOLVES", "STEPS", "bicgstab", "cg",
+           "counters", "jacobi_preconditioner"]
 
 #: steps captured in one CUDA graph, chosen on the H100 from 4, 8, 16 and
 #: 32 by ms per iteration against steps run past convergence (PERF.md §6):
@@ -74,12 +93,27 @@ __all__ = ["CAPTURE_MS", "CgResult", "GRAPH_STEPS", "HOST_READS", "REPLAYS",
 #: busy, and more only add capture time and masked steps
 GRAPH_STEPS = 4
 
-#: steps run (masked ones included), flag reads, chunks of steps after the
-#: first read (graph replays on CUDA) and host ms spent capturing graphs
+#: solver calls, steps run (masked ones included), steps run past a
+#: solve's last iteration, flag reads, chunks of steps after the first read
+#: (graph replays on CUDA), host ms spent capturing graphs and the
+#: allocator's cudaMalloc calls during captures while a profiler records
+SOLVES = 0
 STEPS = 0
+MASKED_STEPS = 0
 HOST_READS = 0
 REPLAYS = 0
 CAPTURE_MS = 0.0
+POOL_MALLOCS = 0
+
+#: the counters' names, in :func:`counters`' order
+COUNTERS = ("SOLVES", "STEPS", "MASKED_STEPS", "HOST_READS", "REPLAYS", "CAPTURE_MS",
+            "POOL_MALLOCS")
+
+
+def counters() -> dict:
+    """The loop's counters by name (:data:`COUNTERS`), as
+    :func:`spgpu_tpu_torch.kernels.launch_counts` gives the launches."""
+    return {name: globals()[name] for name in COUNTERS}
 
 
 class CgResult(NamedTuple):
@@ -117,6 +151,20 @@ def _dot(cplx: bool, group=None):
         return d
 
     return dot
+
+
+def _solver(name: str):
+    """A solver's wrapper: counts the call in ``SOLVES`` and opens the
+    call's span ``spgpu.krylov.<name>``, the parent of its phases."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def solve(*args, **kw):
+            global SOLVES
+            SOLVES += 1
+            with profiling.span("spgpu.krylov." + name):
+                return fn(*args, **kw)
+        return solve
+    return wrap
 
 
 def _write(mask, pairs) -> None:
@@ -159,6 +207,7 @@ def bicgstab(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     return _bicgstab(matvec, b, x0, tol, maxiter, m_inv, group=group)
 
 
+@_solver("cg")
 def _cg(matvec, b, x0=None, tol=1e-10, maxiter=1000, m_inv=None,
         steps: Optional[int] = None, group=None) -> CgResult:
     """:func:`cg` with ``steps`` per chunk (default: :data:`GRAPH_STEPS`
@@ -173,14 +222,15 @@ def _cg(matvec, b, x0=None, tol=1e-10, maxiter=1000, m_inv=None,
         return v * m_inv if m_inv is not None else v
 
     dev = b.device
-    x = torch.zeros_like(b) if x0 is None else x0.clone()
-    r = b - matvec(x)
-    z = prec(r)
-    rz = re_dot(r, z)
-    thresh = tol * _bnorm(dotp, b)
-    p = z.clone()
-    k = torch.zeros((), dtype=torch.int64, device=dev)
-    active = torch.zeros((), dtype=torch.bool, device=dev)
+    with profiling.span("spgpu.krylov.setup"):
+        x = torch.zeros_like(b) if x0 is None else x0.clone()
+        r = b - matvec(x)
+        z = prec(r)
+        rz = re_dot(r, z)
+        thresh = tol * _bnorm(dotp, b)
+        p = z.clone()
+        k = torch.zeros((), dtype=torch.int64, device=dev)
+        active = torch.zeros((), dtype=torch.bool, device=dev)
 
     def step():
         torch.logical_and(torch.sqrt(re_dot(r, r)) > thresh, k < maxiter,
@@ -195,11 +245,12 @@ def _cg(matvec, b, x0=None, tol=1e-10, maxiter=1000, m_inv=None,
         _write(active, ((x, x_new), (r, r_new), (p, p_new), (rz, rz_new)))
         k.add_(active)
 
-    _run(step, active, steps, dev)
-    rnorm = torch.sqrt(re_dot(r, r))
-    return CgResult(x, int(k), rnorm, rnorm <= thresh)
+    rnorm, iters = _release(*_run(step, active, steps, dev), k,
+                            lambda: torch.sqrt(re_dot(r, r)))
+    return CgResult(x, iters, rnorm, rnorm <= thresh)
 
 
+@_solver("bicgstab")
 def _bicgstab(matvec, b, x0=None, tol=1e-10, maxiter=1000, m_inv=None,
               steps: Optional[int] = None, group=None) -> CgResult:
     """:func:`bicgstab` with ``steps`` per chunk, as :func:`_cg`."""
@@ -216,16 +267,17 @@ def _bicgstab(matvec, b, x0=None, tol=1e-10, maxiter=1000, m_inv=None,
         return v * m_inv if m_inv is not None else v
 
     dev = b.device
-    x = torch.zeros_like(b) if x0 is None else x0.clone()
-    r = b - matvec(x)
-    rhat = r.clone()
-    thresh = tol * _bnorm(dotp, b)
-    one = torch.ones((), dtype=b.dtype, device=dev)
-    p, v = torch.zeros_like(b), torch.zeros_like(b)
-    rho, alpha, omega = one.clone(), one.clone(), one.clone()
-    down = torch.zeros((), dtype=torch.bool, device=dev)
-    k = torch.zeros((), dtype=torch.int64, device=dev)
-    active = torch.zeros((), dtype=torch.bool, device=dev)
+    with profiling.span("spgpu.krylov.setup"):
+        x = torch.zeros_like(b) if x0 is None else x0.clone()
+        r = b - matvec(x)
+        rhat = r.clone()
+        thresh = tol * _bnorm(dotp, b)
+        one = torch.ones((), dtype=b.dtype, device=dev)
+        p, v = torch.zeros_like(b), torch.zeros_like(b)
+        rho, alpha, omega = one.clone(), one.clone(), one.clone()
+        down = torch.zeros((), dtype=torch.bool, device=dev)
+        k = torch.zeros((), dtype=torch.int64, device=dev)
+        active = torch.zeros((), dtype=torch.bool, device=dev)
 
     def step():
         torch.logical_and(
@@ -255,15 +307,17 @@ def _bicgstab(matvec, b, x0=None, tol=1e-10, maxiter=1000, m_inv=None,
                         (alpha, alpha_new), (down, down_new)))
         k.add_(active)
 
-    _run(step, active, steps, dev)
-    rnorm = torch.sqrt(torch.real(dotp(r, r)))
-    return CgResult(x, int(k), rnorm, rnorm <= thresh)
+    rnorm, iters = _release(*_run(step, active, steps, dev), k,
+                            lambda: torch.sqrt(torch.real(dotp(r, r))))
+    return CgResult(x, iters, rnorm, rnorm <= thresh)
 
 
 def _run(step: Callable[[], None], active: torch.Tensor, steps: Optional[int],
-         device: torch.device) -> None:
+         device: torch.device):
     """Run ``step`` until a chunk of steps ends with ``active`` false (an
-    inactive step changes nothing, and every later one is inactive too).
+    inactive step changes nothing, and every later one is inactive too):
+    the steps run, and the graph replayed (None where none was captured),
+    which the caller releases (:func:`_release`).
 
     On the CPU: chunks of ``steps`` eager steps (default 1), the flag read
     after each.  On CUDA: one eager step and a read, then replays of a
@@ -272,25 +326,48 @@ def _run(step: Callable[[], None], active: torch.Tensor, steps: Optional[int],
     global STEPS, HOST_READS, REPLAYS
     if device.type != "cuda":
         steps = steps or 1
-        while True:
-            for _ in range(steps):
-                step()
-            STEPS += steps
-            REPLAYS += 1
-            HOST_READS += 1
-            if not bool(active):
-                return
+        with profiling.span("spgpu.krylov.steps"):
+            chunks = 0
+            while True:
+                for _ in range(steps):
+                    step()
+                chunks += 1
+                STEPS += steps
+                REPLAYS += 1
+                HOST_READS += 1
+                if not bool(active):
+                    return chunks * steps, None
     steps = steps or GRAPH_STEPS
-    step()  # eagerly: loads every kernel and library before the capture
-    STEPS += 1
-    HOST_READS += 1
-    if not bool(active):
-        return
-    graph, launched = _capture(step, steps, device)
+    with profiling.span("spgpu.krylov.eager_step"):
+        step()  # eagerly: loads every kernel and library before the capture
+        STEPS += 1
+        HOST_READS += 1
+        if not bool(active):
+            return 1, None
+    with profiling.span("spgpu.krylov.capture"):
+        graph, launched = _capture(step, steps, device)
     try:
-        _replay(graph, launched, active, steps)
-    finally:
+        with profiling.span("spgpu.krylov.replays"):
+            replays = _replay(graph, launched, active, steps)
+    except BaseException:
         graph.reset()
+        raise
+    return 1 + replays * steps, graph
+
+
+def _release(ran: int, graph, k: torch.Tensor, rnorm: Callable[[], torch.Tensor]):
+    """Release ``graph`` and its pool (where one was captured), compute the
+    final residual norm ``rnorm()`` and read ``k``: ``(norm,
+    iterations)``; of the ``ran`` steps, those past the last iteration go
+    to ``MASKED_STEPS``."""
+    global MASKED_STEPS
+    with profiling.span("spgpu.krylov.release"):
+        if graph is not None:
+            graph.reset()
+        norm = rnorm()
+        iters = int(k)
+    MASKED_STEPS += ran - iters
+    return norm, iters
 
 
 def _capture(step, steps: int, device: torch.device):
@@ -298,8 +375,12 @@ def _capture(step, steps: int, device: torch.device):
     pool, on a side stream (thread-local capture mode, so solves in other
     threads may run meanwhile), and the launch counts the capture added,
     taken back off the counters: a captured kernel has not run.  A step
-    that cannot be captured raises ``RuntimeError``."""
-    global CAPTURE_MS
+    that cannot be captured raises ``RuntimeError``.  While a profiler
+    records, the allocator's ``cudaMalloc`` calls across the capture go to
+    ``POOL_MALLOCS``."""
+    global CAPTURE_MS, POOL_MALLOCS
+    profiled = torch.autograd._profiler_enabled()
+    mallocs = _device_mallocs(device) if profiled else 0
     graph = torch.cuda.CUDAGraph()
     stream = torch.cuda.Stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
@@ -325,15 +406,23 @@ def _capture(step, steps: int, device: torch.device):
         kernels.add_launches(launched, -1)
     torch.cuda.current_stream(device).wait_stream(stream)
     CAPTURE_MS += 1e3 * (time.perf_counter() - t0)
+    if profiled:
+        POOL_MALLOCS += _device_mallocs(device) - mallocs
     return graph, launched
 
 
-def _replay(graph, launched, active: torch.Tensor, steps: int) -> None:
+def _device_mallocs(device: torch.device) -> int:
+    """The caching allocator's ``cudaMalloc`` count on ``device``."""
+    return torch.cuda.memory_stats(device).get("num_device_alloc", 0)
+
+
+def _replay(graph, launched, active: torch.Tensor, steps: int) -> int:
     """Replay ``graph`` on the current stream until a replay ends with
-    ``active`` false.  Each replay's flag is copied into pinned memory
-    behind it and an event recorded; the next replay is queued before the
-    host waits on that event, so the device does not idle during the
-    read.  Waits for the last replay before returning."""
+    ``active`` false; returns the replays run.  Each replay's flag is
+    copied into pinned memory behind it and an event recorded; the next
+    replay is queued before the host waits on that event, so the device
+    does not idle during the read.  Waits for the last replay before
+    returning."""
     global HOST_READS
     flags = torch.empty(2, dtype=torch.bool, pin_memory=True)
     done = [torch.cuda.Event(), torch.cuda.Event()]
@@ -357,6 +446,7 @@ def _replay(graph, launched, active: torch.Tensor, steps: int) -> None:
             break
         i += 1
     done[(i + 1) % 2].synchronize()
+    return i + 2
 
 
 def _cg_eager(matvec, b, x0=None, tol=1e-10, maxiter=1000, m_inv=None,

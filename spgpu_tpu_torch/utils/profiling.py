@@ -6,7 +6,10 @@ Counterpart of :mod:`spgpu_tpu.utils.profiling`:
   events on the card and the host clock on the CPU;
 * :func:`roofline_report` — the achieved rate against the card's HBM rate
   (:func:`spgpu_tpu_torch.core.hbm_bandwidth`), with the JAX keys;
-* :func:`trace` — a ``torch.profiler`` session that writes a Chrome trace.
+* :func:`trace` — a ``torch.profiler`` session that writes a Chrome trace;
+* :func:`span` — a range of the program's own (the Krylov loop's phases)
+  in that trace, on the profiler's clock, and nothing while no profiler
+  records.
 
 One deviation: the JAX ``trace`` swallows any error raised inside it (a
 TPU runtime there cannot always trace the device); this one lets every
@@ -23,7 +26,12 @@ import torch
 
 from spgpu_tpu_torch.core import hbm_bandwidth
 
-__all__ = ["time_op", "roofline_report", "trace"]
+__all__ = ["time_op", "roofline_report", "span", "trace"]
+
+#: what :func:`span` gives while no profiler records
+_OFF = contextlib.nullcontext()
+#: the host-only range behind :func:`span`, where this torch has one
+_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None)
 
 
 def time_op(op: Callable, a, x: torch.Tensor, iters: int = 20, repeats: int = 3) -> float:
@@ -89,3 +97,20 @@ def trace(log_dir: str):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
         yield prof
+
+
+def span(name: str):
+    """A range named ``name`` on the profiler's clock while a profiler
+    records (``torch.autograd._profiler_enabled()``), else a shared
+    ``nullcontext``: off, a span costs one bool check.
+
+    The range is a host-side record-function event of function scope
+    (``torch._C._profiler._RecordFunctionFast``), not
+    ``torch.profiler.record_function``: that one's user scope also puts a
+    copy of the range on the card's timeline (a GPU user annotation over
+    the kernels launched inside it), which a reader of the device's
+    operations would count as device work.  A torch without the fast
+    range records no span."""
+    if not torch.autograd._profiler_enabled() or _RANGE is None:
+        return _OFF
+    return _RANGE(name)

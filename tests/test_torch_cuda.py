@@ -85,6 +85,7 @@ of ``tile_base``'s 16-bit page field, against their plain versions and
 the golden at the tolerances above (the page read from ``tile_page``).
 """
 
+import contextlib
 import dataclasses
 import functools
 import importlib
@@ -2435,6 +2436,43 @@ def test_launch_counters_count_every_replay(solver, cuda_device):
     assert kd.LAUNCHES == 1 + (1 if solver == "cg" else 2) * loop.STEPS
     assert loop.HOST_READS == loop.REPLAYS
     assert loop.HOST_READS <= -(-res.iterations // loop.GRAPH_STEPS) + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["cg", "bicgstab"])
+def test_loop_spans_and_counters_on_the_card(solver, cuda_device):
+    """A graphed solve counts one solve and the steps it ran past its last
+    iteration (the rest of the replay that ends the loop and the replay
+    queued behind it); under the profiler it also records its span and,
+    under it, the set-up, the eager step, the capture, the replays and the
+    release, host ranges that put no copy on the card's timeline, and
+    counts the pool's cudaMallocs during the capture, which it does not
+    read with no profiler recording."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    coo, b, tol, _ = _loop_system("float64", solver == "cg")
+    a = coo_to_whdia(coo, device=cuda_device)
+    bt = torch.from_numpy(b).to(cuda_device)
+    solve_ = functools.partial(getattr(loop, solver), lambda v: ops.whdia_spmv(a, v), bt,
+                               tol=tol, maxiter=5000)
+    solve_()
+    for profiled in (False, True):
+        before = loop.counters()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+                if profiled else contextlib.nullcontext() as prof:
+            res = solve_()
+            torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in loop.counters().items()}
+        assert bool(res.converged) and moved["SOLVES"] == 1 and moved["REPLAYS"] > 0
+        assert moved["MASKED_STEPS"] == moved["STEPS"] - res.iterations
+        assert loop.GRAPH_STEPS + 1 <= moved["MASKED_STEPS"] <= 2 * loop.GRAPH_STEPS
+        assert (moved["POOL_MALLOCS"] > 0) == profiled
+    spans = [e for e in prof.events() if e.name.startswith("spgpu.")]
+    assert sorted(e.name for e in spans) == sorted(
+        "spgpu.krylov." + p for p in (solver, "setup", "eager_step", "capture", "replays",
+                                      "release"))
+    assert all(e.device_type != DeviceType.CUDA for e in spans)
 
 
 @pytest.mark.cuda
